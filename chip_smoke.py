@@ -4,11 +4,14 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. env: torch, CUDA and Triton versions; the card's name and power limit.
-2. kernels: the BN(+ReLU) backward Triton kernels against their plain
-   PyTorch versions on the card (bf16 and f32, ReLU on and off; the TPU
-   spike's three shapes, ResNet-50's stem, a ragged shape, and a dy that
-   arrives in NCHW layout).
+1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
+   limit; the build of the CUDA C++ kernels (seconds, and ptxas's
+   registers per kernel).
+2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
+   versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
+   three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
+   in NCHW layout): phase 1 (CUDA C++, with its fold: five outputs, two
+   calls bit-equal) and phase 2 (Triton).
 3. parity: ResNet-50 at 32x32, 4 classes, TF32 off: two ``fit`` steps on
    the card (kernels) and on the CPU (plain versions) from the same
    weights, in float64 (every tensor's change, every running statistic
@@ -19,7 +22,8 @@ Phases, in order; any failure exits non-zero:
    ``ComputationGraph(conf).init()`` -> ``net.fit(DeviceCachedIterator)``:
    one warm-up epoch, then a timed epoch of STEPS steps in which every
    kernel of the path must launch (33 + 20 BN layers, two phases each),
-   then two steps under ``torch.profiler`` for where the device time goes.
+   then two steps under ``torch.profiler`` for where the device time goes
+   and how many device launches a step makes.
 5. path shapes: at each shape, dtype, ReLU flag and dy layout the main
    path gave the kernels, each kernel against its plain version, then
    timed with its plain version and, where one PyTorch call computes the
@@ -46,7 +50,11 @@ CARDS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
 REPLACES = {1: "experiments/pallas_bn_spike.py:87",
             2: "experiments/pallas_bn_spike.py:115"}
-SOURCE = "deeplearning4j_tpu_torch/kernels/bn_relu_triton.py"
+ROUTE = {1: ("cuda", "deeplearning4j_tpu_torch/csrc/bn_bwd_reduce.cu"),
+         2: ("triton", "deeplearning4j_tpu_torch/kernels/bn_relu_triton.py")}
+#: device launches per training step measured on an H100 when phase 1 was
+#: a Triton kernel followed by its fold in PyTorch ops (PERF.md)
+TRITON_PHASE1_LAUNCHES_PER_STEP = 4895
 
 
 def log(*a):
@@ -67,9 +75,11 @@ def rel_err(got, want):
         float(want.abs().max()), 1e-30)
 
 
-def bn_inputs(shape, dtype, relu, dev, nchw_dy=False, seed=0):
+def bn_inputs(shape, dtype, relu, dev, nchw_dy=False, seed=0,
+              gdtype=torch.float32):
     """x channels-last with a per-channel offset, dy, and the forward's
-    statistics, on the card. ``shape`` is (N, H, W, C)."""
+    statistics, on the card; gamma in ``gdtype``. ``shape`` is
+    (N, H, W, C)."""
     from deeplearning4j_tpu_torch.kernels import bn_relu
     n, h, w, c = shape
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -79,8 +89,8 @@ def bn_inputs(shape, dtype, relu, dev, nchw_dy=False, seed=0):
     dy = torch.randn(n, c, h, w, device=dev, generator=g).to(dtype)
     if not nchw_dy:
         dy = dy.contiguous(memory_format=torch.channels_last)
-    gamma = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
-    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    gamma = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).to(gdtype)
+    beta = (0.1 * torch.randn(c, device=dev, generator=g)).to(gdtype)
     _, mean, _, inv, a, b = bn_relu.bn_train_forward(x, gamma, beta, 1e-5,
                                                      relu)
     return x, dy, gamma, mean, inv, a, b
@@ -88,22 +98,36 @@ def bn_inputs(shape, dtype, relu, dev, nchw_dy=False, seed=0):
 
 def check_kernels(x, dy, gamma, mean, inv, a, b, relu, errs, label):
     """Both kernels against their plain versions on the same inputs.
-    Phase 1's sums are held to 1e-5 of the sum of the absolute terms (a
-    float32 sum over R terms in another order errs by at most
-    ~log2(R) * 6e-8 of that); phase 2's dx to 1e-5 (f32) or 8e-3 (bf16:
-    one rounding to 8 bits) of max |dx|. Exits on a mismatch."""
+    Phase 1's sum-derived outputs are held per channel to 1e-5 of the sum
+    of the absolute terms behind them (a float32 sum over R terms in
+    another order errs by at most ~log2(R) * 6e-8 of that), plus, for
+    dgamma and dbeta in a bf16 gamma's dtype, one unit in its last place
+    (one rounding to 8 bits); g = gamma * inv to one unit in its last
+    place; two calls must be bit-equal. Phase 2's dx is
+    held to 1e-5 (f32) or 8e-3 (bf16: one rounding to 8 bits) of max
+    |dx|. Exits on a mismatch."""
     from deeplearning4j_tpu_torch.kernels import bn_relu
-    s1, s2 = bn_relu.bn_bwd_phase1(x, dy, a, b, mean, relu)
-    p1, p2 = bn_relu.phase1_plain(x, dy, a, b, mean, relu)
+    got = bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv, gamma, relu)
+    again = bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv, gamma, relu)
+    want = bn_relu.phase1_fold_plain(x, dy, a, b, mean, inv, gamma, relu)
+    same = all(torch.equal(p, q) for p, q in zip(got, again))
     dz = bn_relu._masked_dy(x, dy, a, b, relu)
     red = bn_relu._red(x)
-    bound1 = dz.abs().sum(red)
-    bound2 = (dz * (x.float() - bn_relu._chan(mean, x))).abs().sum(red)
+    t1 = dz.abs().sum(red).double()
+    t2 = (dz * (bn_relu._up(x) - bn_relu._chan(mean, x))).abs().sum(
+        red).double()
     del dz
-    e1 = max(float(((s1 - p1).abs() / bound1.clamp_min(1e-30)).max()),
-             float(((s2 - p2).abs() / bound2.clamp_min(1e-30)).max()))
-    _, _, g, c1, c2 = bn_relu.fold(p1, p2, gamma, inv,
-                                   x.numel() // x.shape[1])
+    r, iv = x.numel() // x.shape[1], inv.double()
+    e1, abs1 = 0.0, 0.0
+    for k, w, terms in zip(got, want, (iv * t2, t1, None, t1 / r,
+                                       iv * iv * t2 / r)):
+        err = (k.double() - w.double()).abs()
+        ulp = torch.finfo(w.dtype).eps * w.double().abs()
+        tol = ulp if terms is None else 1e-5 * terms + (
+            ulp if w.dtype != mean.dtype else 0.0)
+        e1 = max(e1, float((err / tol.clamp_min(1e-300)).max()))
+        abs1 = max(abs1, float(err.max()))
+    _, _, g, c1, c2 = want
     dx = bn_relu.bn_bwd_phase2(x, dy, a, b, mean, g, c1, c2, relu)
     px = bn_relu.phase2_plain(x, dy, a, b, mean, g, c1, c2, relu)
     torch.cuda.synchronize()
@@ -111,14 +135,12 @@ def check_kernels(x, dy, gamma, mean, inv, a, b, relu, errs, label):
     e2 = rel_err(dx, px)
     tol2 = 1e-5 if x.dtype == torch.float32 else 8e-3
     k1, k2 = bn_relu.kernel_name(1, relu), bn_relu.kernel_name(2, relu)
-    errs[k1] = max(errs.get(k1, 0.0),
-                   float(torch.maximum((s1 - p1).abs().max(),
-                                       (s2 - p2).abs().max())))
+    errs[k1] = max(errs.get(k1, 0.0), abs1)
     errs[k2] = max(errs.get(k2, 0.0),
                    float((dx.float() - px.float()).abs().max()))
-    ok = e1 <= 1e-5 and e2 <= tol2
-    log(f"  {label}: phase1 {e1:.2e} (tol 1e-05)  phase2 {e2:.2e} "
-        f"(tol {tol2:g})  {'ok' if ok else 'FAIL'}")
+    ok = e1 <= 1 and same and e2 <= tol2
+    log(f"  {label}: phase1 {e1:.2e} of its tolerance, bit-equal twice "
+        f"{same}  phase2 {e2:.2e} (tol {tol2:g})  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("kernel disagrees with its plain version")
 
@@ -280,7 +302,8 @@ def phase_main(dev, card):
 
     def recording(x, dy, gamma, mean, inv, a, b, relu):
         calls.append((tuple(x.shape), bool(relu), str(x.dtype)[6:],
-                      dy.is_contiguous(memory_format=torch.channels_last)))
+                      dy.is_contiguous(memory_format=torch.channels_last),
+                      str(gamma.dtype)[6:]))
         return real(x, dy, gamma, mean, inv, a, b, relu)
 
     bn_relu.bn_relu_bwd = recording
@@ -330,7 +353,8 @@ def phase_main(dev, card):
 
 
 KERNEL_KINDS = (
-    ("BN backward (Triton)", ("bn_relu_bwd_phase", "bn_bwd_phase")),
+    ("BN backward (CUDA C++ + Triton)", ("bn_relu_bwd_phase",
+                                         "bn_bwd_phase")),
     ("convolution / matmul", ("conv", "cudnn", "nvjet", "gemm", "xmma",
                               "cutlass", "sm90_", "wgrad", "dgrad")),
     ("pooling", ("pool",)),
@@ -365,20 +389,35 @@ def profile_steps(net, it, step_ms, card):
     busy = sum(ms for ms, _ in per_kernel.values())
     if busy == 0:
         raise SystemExit("the profiler recorded no device time")
+    launches = sum(n for _, n in per_kernel.values())
     log(f"  profiler, per step: device busy {busy:.2f} ms of an unprofiled "
         f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f}; "
-        f"{sum(n for _, n in per_kernel.values())} kernel launches  "
+        f"{launches} device launches ({TRITON_PHASE1_LAUNCHES_PER_STEP} "
+        f"with the Triton phase 1 and its PyTorch fold)  "
         f"[{card}]")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         log(f"    {ms:8.3f} ms  {ms / step_ms:.3f} of the step  {kind}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     for key, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {key[:96]}")
+    # the BN backward's kernels by name (phase 1's CUDA kernels carry a
+    # dtype suffix: bn_relu_bwd_phase1_bf16)
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    kernel_ms, kernel_n = {}, {}
+    for key, (ms, n) in per_kernel.items():
+        for name in bn_relu.LAUNCHES:
+            if key == name or key.startswith(name + "_"):
+                kernel_ms[name] = kernel_ms.get(name, 0.0) + ms
+                kernel_n[name] = kernel_n.get(name, 0) + n
+    log(f"    BN backward device launches per step: {kernel_n}")
+    want = {bn_relu.kernel_name(p, r): 33 if r else 20
+            for p in (1, 2) for r in (True, False)}
+    if kernel_n != want:
+        raise SystemExit(f"profiled BN backward launches {kernel_n}, "
+                         f"want {want}")
     return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
-            "by_kind_ms": by_kind,
-            "kernel_ms": {k: v[0] for k, v in per_kernel.items()
-                          if k.startswith(("bn_relu_bwd_phase",
-                                           "bn_bwd_phase"))},
+            "launches": launches, "by_kind_ms": by_kind,
+            "kernel_ms": kernel_ms,
             "top": [(k[:96], v[0], v[1]) for k, v in top]}
 
 
@@ -402,10 +441,13 @@ def time_ms(fn, flush, iters):
 
 
 def phase_timing(dev, per_step, card_name, errs):
-    """At each (shape, ReLU, dtype, dy layout) the main path gave the
-    kernels: both kernels held to their plain versions, then, per
+    """At each (shape, ReLU, dtype, dy layout, gamma dtype) the main path
+    gave the kernels: both kernels held to their plain versions, then, per
     training step, each kernel, its plain version and its library call
-    timed over the path's 53 BN layers, beside the bound."""
+    timed over the path's 53 BN layers, beside the bound. Phase 1's
+    library call, ``batch_norm_backward_reduce``, computes the same
+    function as the fused phase 1 for the 20 layers without ReLU (the
+    sums, grad_weight and grad_bias); the port never calls it."""
     from deeplearning4j_tpu_torch.kernels import bn_relu
     bw, flops = card_rates(card_name)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
@@ -417,30 +459,35 @@ def phase_timing(dev, per_step, card_name, errs):
                                        "library_ms": None}
            for p in (1, 2) for r in (True, False)}
     native_ms = 0.0
-    for (shape, relu, dtype, cl_dy), cnt in sorted(counts.items()):
+    for (shape, relu, dtype, cl_dy, gdtype), cnt in sorted(counts.items()):
         n, c, h, w = shape
         x, dy, gamma, mean, inv, a, b = bn_inputs(
             (n, h, w, c), getattr(torch, dtype), relu, dev,
-            nchw_dy=not cl_dy)
+            nchw_dy=not cl_dy, gdtype=getattr(torch, gdtype))
         check_kernels(x, dy, gamma, mean, inv, a, b, relu, errs,
-                      f"path {shape} {dtype} relu={int(relu)} "
-                      f"dy={'NHWC' if cl_dy else 'NCHW'}")
+                      f"path {shape} {dtype} gamma {gdtype} "
+                      f"relu={int(relu)} dy={'NHWC' if cl_dy else 'NCHW'}")
         s1, s2 = bn_relu.phase1_plain(x, dy, a, b, mean, relu)
-        _, _, g, c1, c2 = bn_relu.fold(s1, s2, gamma, inv, n * h * w)
+        _, _, g, c1, c2 = bn_relu.phase1_fold_plain(x, dy, a, b, mean, inv,
+                                                    gamma, relu)
         es, rc = x.element_size(), x.numel()
+        gs, acc = gamma.element_size(), mean.element_size()
         iters = 10 if rc > 2e7 else 30
-        k1 = time_ms(lambda: bn_relu.bn_bwd_phase1(x, dy, a, b, mean, relu),
+        k1 = time_ms(lambda: bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv,
+                                                   gamma, relu),
                      flush, iters)
-        p1 = time_ms(lambda: bn_relu.phase1_plain(x, dy, a, b, mean, relu),
-                     flush, iters)
+        p1 = time_ms(lambda: bn_relu.phase1_fold_plain(
+            x, dy, a, b, mean, inv, gamma, relu), flush, iters)
         k2 = time_ms(lambda: bn_relu.bn_bwd_phase2(x, dy, a, b, mean, g, c1,
                                                    c2, relu), flush, iters)
         p2 = time_ms(lambda: bn_relu.phase2_plain(x, dy, a, b, mean, g, c1,
                                                   c2, relu), flush, iters)
         # bytes the function must move: x and dy read once, dx written
-        # once; the per-channel vectors and sums
-        b1 = 2 * rc * es + c * (2 * es + 4) + 2 * c * 4
-        b2 = 3 * rc * es + c * (2 * es + 4 * 4)
+        # once; the per-channel vectors in (a, b, mean, inv, gamma; g, c1,
+        # c2 for phase 2) and out (dgamma, dbeta, g, c1, c2 for phase 1)
+        b1 = 2 * rc * es + c * (2 * es + 2 * acc + gs) + c * (2 * gs +
+                                                              3 * acc)
+        b2 = 3 * rc * es + c * (2 * es + 4 * acc)
         o1 = rc * (9 if relu else 4)       # mask (mul, add, cmp, select)
         o2 = rc * (9 if relu else 4)       # + sub, mul, sub, mul
         lib = ""
@@ -451,15 +498,17 @@ def phase_timing(dev, per_step, card_name, errs):
             t["bound_bytes"] += cnt * by
             t["ops"] += cnt * op
         if not relu:
-            # the library's kernels take dy in x's layout
+            # the library's kernels take dy in x's layout, and a float32
+            # weight beside bf16 input
             dy = dy.contiguous(memory_format=torch.channels_last)
+            wf = gamma.float()
             cnt_t = torch.tensor([n * h * w], dtype=torch.int32, device=dev)
             l1 = time_ms(lambda: torch.ops.aten.batch_norm_backward_reduce(
-                dy, x, mean, inv, gamma, True, True, True), flush, iters)
+                dy, x, mean, inv, wf, True, True, True), flush, iters)
             l2 = time_ms(lambda: torch.ops.aten.batch_norm_backward_elemt(
-                dy, x, mean, inv, gamma, s1, s2, cnt_t), flush, iters)
+                dy, x, mean, inv, wf, s1, s2, cnt_t), flush, iters)
             ln = time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-                dy, x, gamma, None, None, mean, inv, True, 1e-5,
+                dy, x, wf, None, None, mean, inv, True, 1e-5,
                 [True, True, True]), flush, iters)
             for phase, lt in ((1, l1), (2, l2)):
                 t = tot[bn_relu.kernel_name(phase, False)]
@@ -472,6 +521,27 @@ def phase_timing(dev, per_step, card_name, errs):
             f"{1e3 * b1 / bw:.4f}) phase2 {k2:.4f} ms (plain {p2:.4f}, "
             f"bound {1e3 * b2 / bw:.4f}){lib}")
         del x, dy
+    # what every "alone" time carries besides the kernel: a one-element
+    # fill timed the same way (launch and event overhead, L2 write-back)
+    tiny = torch.empty(1, device=dev)
+    floor = time_ms(lambda: tiny.zero_(), flush, 30)
+    log(f"  timing floor: a one-element fill timed the same way takes "
+        f"{1e3 * floor:.1f} us; x53 BN layers = {53 * floor:.3f} ms per "
+        f"step in each 'alone' sum")
+    # the host's side of a phase-1 call (the step is host-bound)
+    n, c, h, w = per_step[0][0]
+    x, dy, gamma, mean, inv, a, b = bn_inputs(
+        (n, h, w, c), getattr(torch, per_step[0][2]), True, dev,
+        gdtype=getattr(torch, per_step[0][4]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv, gamma, True)
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    log(f"  host time of a phase-1 call (wrapper, checks, ctypes launch): "
+        f"{host_us:.1f} us at {per_step[0][0]}")
+    del x, dy
     out = {}
     for name, t in tot.items():
         by_bytes, by_ops = 1e3 * t["bound_bytes"] / bw, 1e3 * t["ops"] / flops
@@ -496,11 +566,24 @@ def main():
 
     log("[1/5] env")
     import triton
+    from deeplearning4j_tpu_torch.kernels import _cuda, bn_relu
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
+    log(f"  nvcc: {_cuda.nvcc_version()}")
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
+    t0 = time.perf_counter()
+    bn_relu._phase1_lib()
+    build = _cuda.BUILDS.get(bn_relu._PHASE1_LIB)
+    log(f"  csrc/{bn_relu._PHASE1_LIB}.cu: " + (
+        f"built in {build['seconds']:.1f} s" if build else
+        f"already built, loaded in {time.perf_counter() - t0:.1f} s"))
+    for line in (build or {}).get("log", "").splitlines():
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
+            log(f"    {line.strip()}")
 
-    log("[2/5] kernels: Triton BN(+ReLU) backward vs plain, on the card")
+    log("[2/5] kernels: BN(+ReLU) backward vs plain, on the card "
+        "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
@@ -531,8 +614,9 @@ def main():
 
     kernels = []
     for kname, t in timing.items():
+        route, source = ROUTE[int(kname[-1])]
         kernels.append({
-            "name": kname, "route": "triton", "source": SOURCE,
+            "name": kname, "route": route, "source": source,
             "replaces": REPLACES[int(kname[-1])],
             "launches": launches[kname],
             "launches_per_step": launches[kname] // STEPS,

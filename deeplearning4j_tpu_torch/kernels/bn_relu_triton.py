@@ -1,4 +1,4 @@
-"""Triton source of the BN(+ReLU) backward kernel pair for Hopper.
+"""Triton source of the BN(+ReLU) backward's phase 2 for Hopper.
 
 Loaded by :func:`deeplearning4j_tpu_torch.kernels.bn_relu._kernels` at
 the first launch on a CUDA tensor, never when the package is imported:
@@ -37,39 +37,6 @@ def _row_offsets(rows, HW, W, sn, sh, sw):
 
 
 @triton.jit
-def _phase1(x_ptr, dy_ptr, a_ptr, b_ptr, mean_ptr, s1_ptr, s2_ptr,
-                   R, C, HW, W, ROWS,
-                   sxn, sxh, sxw, sxc, syn, syh, syw, syc,
-                   RELU: tl.constexpr, BLOCK_R: tl.constexpr,
-                   BLOCK_C: tl.constexpr, ACC: tl.constexpr):
-    pid_r = tl.program_id(0)
-    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    a = tl.load(a_ptr + cols, mask=cmask, other=0.0)
-    b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-    mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
-    acc1 = tl.zeros((BLOCK_R, BLOCK_C), dtype=ACC)
-    acc2 = tl.zeros((BLOCK_R, BLOCK_C), dtype=ACC)
-    xc = cols.to(tl.int64) * sxc
-    yc = cols.to(tl.int64) * syc
-    for i in range(0, ROWS, BLOCK_R):
-        rows = pid_r * ROWS + i + tl.arange(0, BLOCK_R)
-        m = (rows < R)[:, None] & cmask[None, :]
-        xo = _row_offsets(rows, HW, W, sxn, sxh, sxw)
-        yo = _row_offsets(rows, HW, W, syn, syh, syw)
-        x = tl.load(x_ptr + xo[:, None] + xc[None, :], mask=m, other=0.0)
-        dy = tl.load(dy_ptr + yo[:, None] + yc[None, :], mask=m,
-                     other=0.0).to(ACC)
-        dz = _dz(x, dy, a[None, :], b[None, :], RELU, ACC)
-        acc1 += dz
-        # masked-off elements carry dz = 0
-        acc2 += dz * (x.to(ACC) - mean[None, :])
-    out = pid_r * C + cols
-    tl.store(s1_ptr + out, tl.sum(acc1, axis=0), mask=cmask)
-    tl.store(s2_ptr + out, tl.sum(acc2, axis=0), mask=cmask)
-
-
-@triton.jit
 def _phase2(x_ptr, dy_ptr, dx_ptr, a_ptr, b_ptr, mean_ptr, g_ptr,
                    c1_ptr, c2_ptr, R, C, HW, W,
                    sxn, sxh, sxw, sxc, syn, syh, syw, syc,
@@ -101,30 +68,8 @@ def _phase2(x_ptr, dy_ptr, dx_ptr, a_ptr, b_ptr, mean_ptr, g_ptr,
              dx.to(dx_ptr.dtype.element_ty), mask=m)
 
 
-# One kernel per phase and ReLU flag, so that launch counts and profiles
-# name each specialization.
-@triton.jit
-def bn_relu_bwd_phase1(x_ptr, dy_ptr, a_ptr, b_ptr, mean_ptr, s1_ptr, s2_ptr,
-                       R, C, HW, W, ROWS, sxn, sxh, sxw, sxc,
-                       syn, syh, syw, syc,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-                       ACC: tl.constexpr):
-    _phase1(x_ptr, dy_ptr, a_ptr, b_ptr, mean_ptr, s1_ptr, s2_ptr,
-            R, C, HW, W, ROWS, sxn, sxh, sxw, sxc, syn, syh, syw, syc,
-            True, BLOCK_R, BLOCK_C, ACC)
-
-
-@triton.jit
-def bn_bwd_phase1(x_ptr, dy_ptr, a_ptr, b_ptr, mean_ptr, s1_ptr, s2_ptr,
-                  R, C, HW, W, ROWS, sxn, sxh, sxw, sxc,
-                  syn, syh, syw, syc,
-                  BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-                  ACC: tl.constexpr):
-    _phase1(x_ptr, dy_ptr, a_ptr, b_ptr, mean_ptr, s1_ptr, s2_ptr,
-            R, C, HW, W, ROWS, sxn, sxh, sxw, sxc, syn, syh, syw, syc,
-            False, BLOCK_R, BLOCK_C, ACC)
-
-
+# One kernel per ReLU flag, so that launch counts and profiles name each
+# specialization. Phase 1 is CUDA C++ (csrc/bn_bwd_reduce.cu).
 @triton.jit
 def bn_relu_bwd_phase2(x_ptr, dy_ptr, dx_ptr, a_ptr, b_ptr, mean_ptr, g_ptr,
                        c1_ptr, c2_ptr, R, C, HW, W, sxn, sxh, sxw, sxc,

@@ -10,8 +10,9 @@ On the CPU the wrappers run the kernels' plain versions. They are held to:
 
 float32 tolerances are 1e-5 relative to each result's largest magnitude:
 the functions are the same and only the order of the f32 sums differs.
-The Triton kernels themselves run only on the card
-(``tests/test_torch_card.py``).
+The kernels themselves (phase 1 in CUDA C++, phase 2 in Triton) run only
+on the card (``tests/test_torch_card.py``); phase 1's fused contract is
+held to JAX in ``tests/test_torch_bn_reduce.py``.
 """
 import functools
 import importlib.util
@@ -204,10 +205,15 @@ def test_phase_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
     g, b = torch.as_tensor(gamma), torch.as_tensor(beta)
     _, mean, _, inv, a, bb = bn_relu.bn_train_forward(xt, g, b, EPS, True)
     before = dict(bn_relu.LAUNCHES)
-    s1, s2 = bn_relu.bn_bwd_phase1(xt, dyt, a, bb, mean, True)
-    p1, p2 = bn_relu.phase1_plain(xt, dyt, a, bb, mean, True)
-    torch.testing.assert_close(s1, p1, rtol=0, atol=0)
-    torch.testing.assert_close(s2, p2, rtol=0, atol=0)
+    got = bn_relu.bn_bwd_phase1(xt, dyt, a, bb, mean, inv, g, True)
+    want = bn_relu.phase1_fold_plain(xt, dyt, a, bb, mean, inv, g, True)
+    for k, p in zip(got, want):
+        torch.testing.assert_close(k, p, rtol=0, atol=0)
+    g2, c1, c2 = want[2:]
+    dx = bn_relu.bn_bwd_phase2(xt, dyt, a, bb, mean, g2, c1, c2, True)
+    torch.testing.assert_close(
+        dx, bn_relu.phase2_plain(xt, dyt, a, bb, mean, g2, c1, c2, True),
+        rtol=0, atol=0)
     assert bn_relu.LAUNCHES == before
 
 
@@ -215,14 +221,16 @@ def test_wrappers_raise_on_what_they_do_not_take():
     x = torch.zeros(8, 4)
     v = torch.zeros(4)
     with pytest.raises(ValueError, match="does not match"):
-        bn_relu.bn_bwd_phase1(x, torch.zeros(8, 5), v, v, v, True)
+        bn_relu.bn_bwd_phase1(x, torch.zeros(8, 5), v, v, v, v, v, True)
     with pytest.raises(ValueError, match="mean"):
         bn_relu.bn_bwd_phase1(x, x, v, v, torch.zeros(4, dtype=torch.float64),
-                              True)
+                              v, v, True)
     with pytest.raises(ValueError, match="no kernel for device"):
         m = torch.zeros(8, 4, device="meta")
         mv = torch.zeros(4, device="meta")
-        bn_relu.bn_bwd_phase1(m, m, mv, mv, mv, True)
+        bn_relu.bn_bwd_phase1(m, m, mv, mv, mv, mv, mv, True)
     with pytest.raises(ValueError, match=r"\(R, C\) or \(N, C, H, W\)"):
         bn_relu.bn_bwd_phase1(torch.zeros(2, 4, 3), torch.zeros(2, 4, 3),
-                              v, v, v, True)
+                              v, v, v, v, v, True)
+    with pytest.raises(ValueError, match="c1"):
+        bn_relu.bn_bwd_phase2(x, x, v, v, v, v, torch.zeros(5), v, True)
