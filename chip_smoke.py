@@ -5,40 +5,71 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the build of the CUDA C++ kernels (seconds, and ptxas's
-   registers per kernel).
+   limit; the builds of the two CUDA C++ libraries (csrc/bn_bwd_reduce.cu
+   and csrc/causal_attention.cu, one nvcc each, started together: seconds,
+   and ptxas's registers and spills per kernel).
 2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
    versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
    three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
    in NCHW layout): phase 1 (CUDA C++, with its fold: five outputs, two
    calls bit-equal) and phase 2 (Triton).
-3. parity: ResNet-50 at 32x32, 4 classes, TF32 off: two ``fit`` steps on
+3. kernels: the attention kernels (forward; backward's delta, dk/dv and
+   dq) each against its plain version on the same inputs, and end to end
+   through autograd against ``sdpa_plain``; two calls bit-equal. Cases:
+   the GPT path's shape (16, 12, 512, 128) bf16 causal at build_gpt's
+   strides, ragged lengths (1, 77, 200) with head_dim 64 and 16,
+   non-causal, Sq < Sk, Sq > Sk with fully masked rows, float32 and
+   float64.
+4. parity: ResNet-50 at 32x32, 4 classes, TF32 off: two ``fit`` steps on
    the card (kernels) and on the CPU (plain versions) from the same
    weights, in float64 (every tensor's change, every running statistic
    and both losses, card against CPU) and in float32 (held to the
    float64 step).
-4. main path: ResNet-50 at 224x224, 1000 classes, batch 128, bf16
+5. parity: GPT_TINY in float64, card (attention kernels' float64 path)
+   against CPU: every gradient, then three Adam steps, to 1e-6 per
+   tensor.
+6. main path: ResNet-50 at 224x224, 1000 classes, batch 128, bf16
    MixedPrecision, through ``ResNet50(...).conf()`` ->
    ``ComputationGraph(conf).init()`` -> ``net.fit(DeviceCachedIterator)``:
    one warm-up epoch, then a timed epoch of STEPS steps in which every
    kernel of the path must launch (33 + 20 BN layers, two phases each),
    then two steps under ``torch.profiler`` for where the device time goes
    and how many device launches a step makes.
-5. path shapes: at each shape, dtype, ReLU flag and dy layout the main
-   path gave the kernels, each kernel against its plain version, then
+7. main path: GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn
+   6144, vocab 32768) at batch 16, seq 512, bf16 MixedPrecision, Adam(1e-4),
+   through ``build_gpt`` -> ``SameDiff.fit(DeviceCachedIterator)``:
+   on ``bench.py``'s data (ids and targets uniform over the vocabulary),
+   one warm-up epoch of GPT_STEPS steps, then a timed epoch over the same
+   batches (step ms, tokens/s, peak memory, the loss per step, which must
+   be finite and fall) in which the attention kernels must launch 2 x 16
+   times (forward and remat re-forward) and 16 times (each backward
+   kernel) a step; then two steps
+   under ``torch.profiler``: device launches, busy time and idle share,
+   and device time by group (attention, matmul, layer norm, CE tail,
+   Adam, casts, ...).
+8. path shapes: at each shape, dtype, ReLU flag and dy layout the main
+   path gave the BN kernels, each kernel against its plain version, then
    timed with its plain version and, where one PyTorch call computes the
    same function, that call, summed over one training step, beside the
    least time the card could take (bytes over the card's memory rate).
+9. path shape: each attention kernel timed alone (cold L2) at the GPT
+   path's shape and strides, with its plain version, beside its bound
+   (operations at 989 TFLOP/s bf16, bytes at the card's memory rate) and
+   the library yardstick ``F.scaled_dot_product_attention(...,
+   is_causal=True)`` forward and backward (timed only, never called by
+   the port).
 
-The last lines are the kernels' JSON record (``launches`` counts the
-timed epoch of STEPS steps, ``launches_per_step`` one step; the times
-are per training step), the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Nothing of JAX or of the
-JAX package is imported.
+The last lines are the kernels' JSON record (``launches`` counts each
+kernel's main path's timed run, ``launches_per_step`` one step; the times
+are per training step of that path), the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package is
+imported.
 """
 import json
+import math
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -554,6 +585,535 @@ def phase_timing(dev, per_step, card_name, errs):
 
 
 # ----------------------------------------------------------------------
+# attention (csrc/causal_attention.cu) and the GPT-medium path
+ATTN_KERNELS = ("attention_fwd", "attention_bwd_delta", "attention_bwd_dkdv",
+                "attention_bwd_dq")
+ATTN_SOURCE = "deeplearning4j_tpu_torch/csrc/causal_attention.cu"
+#: the JAX op the kernels stand in for (XLA fused it; no Pallas kernel)
+ATTN_REPLACES = "deeplearning4j_tpu/ops/nn_ops.py:462"
+ATTN_TILE = 64               # the kernels' key tile
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 16, 512, 8
+BF16_TC_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+
+
+def attn_inputs(dev, b, h, sq, sk, d, dtype, split, seed=0):
+    """q, k, v and dO on the card; with ``split`` q, k and v are the views
+    build_gpt hands the op (one [B, S, H, 3D] tensor, permuted, split)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if split:
+        qkv = torch.randn(b, sq, h, 3 * d, device=dev, generator=g).to(
+            dtype).permute(0, 2, 1, 3)
+        q, k, v = torch.split(qkv, d, dim=3)
+    else:
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
+                   for s in (sq, sk, sk))
+    do = torch.randn(b, h, sq, d, device=dev, generator=g).to(dtype)
+    return q, k, v, do
+
+
+def attn_grads(fn, q, k, v, do, causal):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(q, k, v, causal=causal)
+    return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+
+def check_attention(q, k, v, do, causal, errs, label):
+    """Each kernel against its plain version on the same inputs (the
+    backward kernels get the forward kernel's stats and the delta
+    kernel's delta), per element to ``rel`` times the sum of the absolute
+    terms behind it: 1e-5 float32, 1e-10 float64, 2^-6 bf16. In bf16 each
+    side rounds every P (or dS) term once and its output once, at bf16's
+    unit roundoff u = 2^-8, but not the same values (the forward kernel
+    rounds P against the running row maximum, the plain version the
+    normalized P), so a term may differ by 2u and an output by another
+    2u of its magnitude: 4u = 2^-6 of the terms. Two calls bit-equal.
+    Then end to end through autograd: float32/float64 against
+    ``sdpa_plain`` to 1e-5/1e-10 of the terms; bf16 against ``sdpa_plain``
+    in float32 on the same bf16 inputs, to at most twice the bf16 plain
+    version's error plus one bf16 unit in the last place of the output's
+    magnitude plus 1e-5 of the largest sum of terms (the kernels sum in
+    float32 in another order). A bf16 causal case with S >= 128 also
+    shows, with ``control_readings``, that the per-kernel rule rejects a
+    wrong mask. Exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    dt = q.dtype
+    acc = at.acc_dtype(dt)
+    rel = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5,
+           torch.float64: 1e-10}[dt]
+    rel_acc = 1e-10 if dt == torch.float64 else 1e-5
+    s = 1.0 / math.sqrt(q.shape[-1])
+    t_o, t_dq, t_dk, t_dv = at.abs_terms(q, k, v, do, causal)
+
+    def run():
+        o, st = at.attention_fwd(q, k, v, causal)
+        delta = torch.empty(q.shape[:3], dtype=acc, device=q.device)
+        at._launch("dl4j_attention_bwd_delta", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta)
+        dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (k, v))
+        at._launch("dl4j_attention_bwd_dkdv", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta, dk=dk, dv=dv)
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        at._launch("dl4j_attention_bwd_dq", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta, dq=dq)
+        return o, st, delta, dk, dv, dq
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    o, st, delta, dk, dv, dq = got
+    po, _ = at.attention_fwd_plain(q, k, v, causal)
+    pdelta = at.bwd_delta_plain(o, do)
+    pdk, pdv = at.bwd_dkdv_plain(q, k, v, do, st, delta, causal)
+    pdq = at.bwd_dq_plain(q, k, v, do, st, delta, causal)
+    t_delta = (do.double().abs() * o.double().abs()).sum(-1)
+    worst, by_kernel = 0.0, {}
+    for kname, x, p, t, r in (
+            ("attention_fwd", o, po, t_o, rel),
+            ("attention_bwd_delta", delta, pdelta, t_delta, rel_acc),
+            ("attention_bwd_dkdv", dk, pdk, t_dk, rel),
+            ("attention_bwd_dkdv", dv, pdv, t_dv, rel),
+            ("attention_bwd_dq", dq, pdq, t_dq, rel)):
+        err = (x.double() - p.double()).abs()
+        ratio = float((err / (r * t).clamp_min(1e-300)).max())
+        by_kernel[kname] = max(by_kernel.get(kname, 0.0), ratio)
+        worst = max(worst, ratio)
+        errs[kname] = max(errs.get(kname, 0.0), float(err.max()))
+    # end to end, through autograd
+    got = attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
+    if dt == torch.bfloat16:
+        f = [t.float() for t in (q, k, v, do)]
+        ref = attn_grads(at.sdpa_plain, *f[:3], f[3], causal)
+        plain = attn_grads(at.sdpa_plain, q, k, v, do, causal)
+        e2e, parts = 0.0, []
+        for x, p, r, t in zip(got, plain, ref, (t_o, t_dq, t_dk, t_dv)):
+            ek = float((x.float() - r).abs().max())
+            ep = float((p.float() - r).abs().max())
+            mag = float(r.abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(mag)) - 7) if mag > 0 else 0.0
+            e2e = max(e2e, ek / (2 * ep + ulp + 1e-5 * float(t.max())))
+            parts.append(f"{ek:.3e}/{ep:.3e}")
+        detail = "kernel/plain-bf16 error vs f32 (O dq dk dv): " + " ".join(
+            parts)
+        sq, sk = q.shape[2], k.shape[2]
+        if causal and sq == sk >= 2 * ATTN_TILE:
+            control_readings(q, k, v, do, got, (t_o, t_dq, t_dk, t_dv), rel,
+                             label)
+    else:
+        want = attn_grads(at.sdpa_plain, q, k, v, do, causal)
+        e2e = max(float(((x.double() - w.double()).abs() / (
+            rel_acc * t).clamp_min(1e-300)).max())
+            for x, w, t in zip(got, want, (t_o, t_dq, t_dk, t_dv)))
+        detail = ""
+    ok = worst <= 1 and e2e <= 1 and same
+    if not ok:
+        log(f"    of tol, by kernel: {by_kernel}")
+    log(f"  {label}: kernels vs plain {worst:.2e} of tol, end to end "
+        f"{e2e:.2e} of tol, bit-equal twice {same} {detail} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("attention kernel disagrees with its plain version")
+
+
+def control_readings(q, k, v, do, got, terms, rel, label):
+    """The per-kernel bf16 check's power: the kernels' O, dq, dk, dv held
+    by the same rule (``rel`` of the sum of absolute terms) to the bf16
+    plain version of a wrong function, the causal mask off by one (each
+    row sees one key too many) or one key tile (keys 64-127) dropped. The
+    rule must reject both, on every output; exits if it does not."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    sq, sk = q.shape[2], k.shape[2]
+    base = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    masks = {"mask off by one": base.tril(sk - sq + 1),
+             "key tile dropped": base.tril(sk - sq)}
+    masks["key tile dropped"][:, ATTN_TILE:2 * ATTN_TILE] = False
+    readings = {}
+    for name, m in masks.items():
+        wrong = attn_grads(lambda q_, k_, v_, causal: at.sdpa_plain(
+            q_, k_, v_, mask=m), q, k, v, do, False)
+        readings[name] = [
+            float(((x.double() - w.double()).abs() / (rel * t).clamp_min(
+                1e-300)).max()) for x, w, t in zip(got, wrong, terms)]
+    ok = all(r > 1 for rs in readings.values() for r in rs)
+    log(f"  {label}: control, the kernels against a wrong function, of tol "
+        f"(O dq dk dv): " + "; ".join(
+            f"{n} " + " ".join(f"{r:.3g}" for r in rs)
+            for n, rs in readings.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the bf16 attention check does not reject a wrong "
+                         "mask")
+
+
+def phase_attention(dev, errs):
+    """The attention kernels against their plain versions: the GPT path's
+    shape at build_gpt's strides, ragged lengths, non-causal, Sq < Sk,
+    Sq > Sk (fully masked rows), in bf16, float32 and float64."""
+    bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    cases = [  # (b, h, sq, sk, d, causal, dtype, split)
+        (GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 128, True, bf, True),
+        (1, 4, 77, 77, 64, True, bf, False),
+        (1, 4, 200, 200, 16, True, bf, False),
+        (2, 2, 1, 1, 64, True, bf, False),
+        (2, 4, 200, 200, 64, False, bf, False),
+        (1, 4, 100, 300, 64, True, bf, False),
+        (1, 4, 300, 100, 64, True, bf, False),
+        (2, 3, 128, 128, 128, True, bf, True),
+        (1, 4, 77, 77, 64, True, f32, False),
+        (1, 4, 200, 200, 16, False, f32, False),
+        (1, 4, 300, 100, 128, True, f32, False),
+        (1, 4, 77, 77, 64, True, f64, False),
+        (1, 4, 100, 300, 16, True, f64, False),
+        (1, 4, 300, 100, 128, True, f64, True),
+    ]
+    for b, h, sq, sk, d, causal, dtype, split in cases:
+        q, k, v, do = attn_inputs(dev, b, h, sq, sk, d, dtype, split)
+        check_attention(q, k, v, do, causal, errs,
+                        f"{str(dtype)[6:]:8s} ({b},{h},{sq},{sk},{d}) "
+                        f"causal={int(causal)}{' strided' if split else ''}")
+        del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+def _tensor_rel(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_gpt_parity():
+    """GPT_TINY (batch 4, seq 32) in float64, card against CPU, from the
+    same weights: every gradient of ``calculate_gradients``, then three
+    Adam fit steps (each step's loss, every parameter after them), each
+    tensor to 1e-6 of its magnitude. The card's attention runs the
+    kernels' float64 path."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY, build_gpt
+    rng = np.random.default_rng(0)
+    ids, tgt = (rng.integers(0, GPT_TINY.vocab_size, (16, 32)).astype(
+        np.int32) for _ in range(2))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sd = build_gpt(GPT_TINY, batch=4, seq_len=32, device=dev)
+        for n, a in sd.trainable_params().items():
+            sd.set_arr_for_var(n, a.double())
+        before = at.LAUNCHES["attention_fwd"]
+        grads = sd.calculate_gradients({"input_ids": ids[:4],
+                                        "targets": tgt[:4]})
+        launched = at.LAUNCHES["attention_fwd"] - before
+        sd.training_config = TrainingConfig(
+            updater=Adam(1e-3), data_set_feature_mapping=["input_ids"],
+            data_set_label_mapping=["targets"])
+        losses = sd.fit(DeviceCachedIterator(
+            [ids[4:]], [tgt[4:]], batch_size=4, device=dev)).step_losses
+        res[dev] = (grads, losses, dict(sd.trainable_params()), launched)
+    (gc, lc, pc, nc), (gh, lh, ph, _) = res["cuda"], res["cpu"]
+    eg = max(_tensor_rel(gc[n], gh[n]) for n in gh)
+    ep = max(_tensor_rel(pc[n], ph[n]) for n in ph)
+    el = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    log(f"  float64 GPT_TINY, card vs cpu over {len(gh)} tensors: gradients "
+        f"worst {eg:.2e}, params after 3 Adam steps worst {ep:.2e}, losses "
+        f"{lc} vs {lh} (worst {el:.2e}); tol 1e-6; attention forward "
+        f"launches of the card's gradient pass {nc} (2 layers, forward and "
+        f"remat re-forward)")
+    if not (eg <= 1e-6 and ep <= 1e-6 and el <= 1e-6 and nc == 4):
+        raise SystemExit("GPT_TINY on the card disagrees with the CPU")
+
+
+def _gpt_iterator(vocab):
+    """``bench.py``'s GPT data: GPT_STEPS batches of ids and targets drawn
+    uniformly over the whole vocabulary, seed 0."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    rng = np.random.default_rng(0)
+    n = GPT_BATCH * GPT_STEPS
+    ids = rng.integers(0, vocab, (n, GPT_SEQ)).astype(np.int32)
+    tgt = rng.integers(0, vocab, (n, GPT_SEQ)).astype(np.int32)
+    return DeviceCachedIterator([ids], [tgt], batch_size=GPT_BATCH)
+
+
+def phase_gpt(dev, card):
+    """GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn 6144,
+    vocab 32768, ~505M parameters), batch 16, seq 512, bf16
+    MixedPrecision, Adam(1e-4), through ``build_gpt`` ->
+    ``SameDiff.fit(DeviceCachedIterator)`` over ``bench.py``'s data: one
+    warm-up epoch of GPT_STEPS steps, then a timed epoch over the same
+    batches in which every attention of every layer must go
+    through the kernels, then two profiled steps."""
+    from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
+                                                   TrainingConfig)
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import GPT_MEDIUM, build_gpt
+    cfg = GPT_MEDIUM
+    t0 = time.perf_counter()
+    sd = build_gpt(cfg, batch=GPT_BATCH, seq_len=GPT_SEQ)
+    sd.training_config = TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=["input_ids"],
+        data_set_label_mapping=["targets"], mixed_precision=MixedPrecision())
+    it = _gpt_iterator(cfg.vocab_size)
+    n_params = sum(p.numel() for p in sd.trainable_params().values())
+    torch.cuda.synchronize()
+    log(f"  built GPT-medium ({n_params} params) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    warm = sd.fit(it)
+    torch.cuda.synchronize()
+    log(f"  warm-up: {GPT_STEPS} steps in {time.perf_counter() - t0:.1f} s, "
+        f"losses {[round(v, 4) for v in warm.step_losses]}")
+    torch.cuda.reset_peak_memory_stats()
+    at.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = sd.fit(it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, copies = dict(at.LAUNCHES), at.DOUT_COPIES["attention_bwd"]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1000 * wall / GPT_STEPS
+    tokens = GPT_BATCH * GPT_SEQ * GPT_STEPS / wall
+    losses = hist.step_losses
+    log(f"  timed: {GPT_STEPS} steps in {wall:.3f} s: step {step_ms:.2f} ms, "
+        f"{tokens:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB  [{card}]")
+    log(f"  loss per step: {[round(v, 4) for v in losses]} (ln vocab "
+        f"{math.log(cfg.vocab_size):.4f})")
+    log(f"  attention launches {launches}, dO copies {copies}")
+    L = cfg.num_layers
+    want = {"attention_fwd": 2 * L * GPT_STEPS,
+            **{k: L * GPT_STEPS for k in ATTN_KERNELS[1:]}}
+    if not all(np.isfinite(losses)) or losses[-1] >= warm.step_losses[0]:
+        raise SystemExit(f"GPT-medium losses {warm.step_losses} {losses}")
+    if launches != want:
+        raise SystemExit(f"attention launches {launches}, want {want}")
+    metrics = {"step_ms": step_ms, "tokens_per_s": tokens,
+               "peak_mem_gib": peak / 2**30, "losses": losses,
+               "dout_copies": copies}
+    metrics["profile"] = profile_gpt(sd, it, step_ms, card)
+    del sd, it
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+#: device-time groups of the GPT step, by the SameDiff op (or the step's
+#: own work) a kernel was launched for
+GPT_GROUPS = {
+    "scaled_dot_product_attention": "attention (CUDA C++)",
+    "matmul": "matmul / einsum (cuBLAS)", "einsum": "matmul / einsum (cuBLAS)",
+    "layer_norm": "layer norm", "sparse_softmax_cross_entropy": "CE tail",
+    "gelu": "gelu", "bias_add": "bias add / residual add",
+    "add": "bias add / residual add", "embedding_lookup": "embedding",
+    "slice": "embedding",
+    "reshape": "reshape / permute / split copies",
+    "permute": "reshape / permute / split copies",
+    "split": "reshape / permute / split copies",
+}
+
+
+def profile_gpt(sd, it, step_ms, card):
+    """Two GPT steps under torch.profiler: device launches and busy time
+    per step, and device time by group. Each SameDiff op runs inside a
+    ``record_function`` for the profile (the port has none of its own);
+    a backward kernel is charged to the op whose forward recorded its
+    autograd node (matched by sequence number); the parameter casts and
+    their backward, the updater's ``_foreach`` ops and the rest are
+    grouped by the aten op that launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deeplearning4j_tpu_torch.autodiff import samediff
+    batches = iter(it)
+    two = [next(batches), next(batches)]
+    real = samediff.SameDiff._run_nodes
+
+    def labelled(nodes, env):
+        for node in nodes:
+            with record_function(f"sd_op::{node.op}"):
+                real([node], env)
+
+    torch.cuda.synchronize()
+    samediff.SameDiff._run_nodes = staticmethod(labelled)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sd.fit(two)
+            torch.cuda.synchronize()
+    finally:
+        samediff.SameDiff._run_nodes = staticmethod(real)
+    events = prof.events()
+    # forward aten ops under an sd_op range: sequence number -> group
+    seq_group = {}
+
+    def enclosing_op(e):
+        p = e
+        while p is not None:
+            if p.name.startswith("sd_op::"):
+                return GPT_GROUPS.get(p.name[len("sd_op::"):], "other op")
+            p = p.cpu_parent
+        return None
+
+    for e in events:
+        if e.device_type == DeviceType.CPU and getattr(
+                e, "sequence_nr", -1) >= 0:
+            g = enclosing_op(e)
+            if g is not None:
+                seq_group.setdefault(e.sequence_nr, g)
+
+    def group_of(e):
+        g = enclosing_op(e)
+        if g is not None:
+            return g
+        p = e
+        while p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function") and \
+                    getattr(p, "sequence_nr", -1) in seq_group:
+                return seq_group[p.sequence_nr] + " (backward)"
+            p = p.cpu_parent
+        names = []
+        p = e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        chain = " ".join(names)
+        if "_foreach" in chain:
+            return "Adam (_foreach)"
+        if "_to_copy" in chain or "ToCopyBackward" in chain:
+            return "casts"
+        return "other"
+
+    by_group, per_kernel, attn = {}, {}, {}
+    n_kernels = 0
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        for kern in e.kernels:
+            ms = kern.duration / 1e3 / 2
+            g = group_of(e)
+            by_group[g] = by_group.get(g, 0.0) + ms
+            per_kernel[kern.name] = per_kernel.get(kern.name, 0.0) + ms
+            n_kernels += 1
+            for name in ATTN_KERNELS:
+                if name in kern.name:
+                    attn[name] = attn.get(name, 0.0) + ms
+    busy = sum(by_group.values())
+    if busy == 0:
+        raise SystemExit("the profiler recorded no device time")
+    log(f"  profiler, per step: device busy {busy:.2f} ms of an unprofiled "
+        f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f}; "
+        f"{n_kernels / 2:.0f} device launches  [{card}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:8.3f} ms  {ms / step_ms:.3f} of the step  {g}")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {ms:8.3f} ms  {key[:100]}")
+    log(f"    attention kernels in the step, ms per step: "
+        f"{ {k: round(v, 3) for k, v in attn.items()} }")
+    if set(attn) != set(ATTN_KERNELS):
+        raise SystemExit(f"profiled attention kernels {sorted(attn)}")
+    return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "launches": n_kernels / 2, "by_group_ms": by_group,
+            "kernel_ms": attn}
+
+
+def attention_bounds(b, h, sq, sk, d, causal):
+    """Per call, (operations, bytes) each kernel must do and move: the
+    products over the score entries the causal mask leaves (2 FLOP per
+    multiply-add; forward QK^T and PV, dk/dv S^T, dP^T, P^T dO and dS^T q,
+    dq S, dP and dS k) and every input read once, every output written
+    once (bf16 tensors, float32 stats and delta)."""
+    off = sk - sq
+    vis = sum(min(sk, max(0, i + off + 1)) if i + off >= 0 else sk
+              for i in range(sq)) if causal else sq * sk
+    ent = b * h * vis
+    t = 2 * b * h * d                      # bytes per row of a bf16 tensor
+    rows_q, rows_k = sq, sk
+    return {
+        "attention_fwd": (4 * d * ent, t * (rows_q + 2 * rows_k + rows_q)
+                          + b * h * sq * 8),
+        "attention_bwd_delta": (2 * d * b * h * sq,
+                                t * 2 * rows_q + b * h * sq * 4),
+        "attention_bwd_dkdv": (8 * d * ent,
+                               t * (2 * rows_q + 2 * rows_k + 2 * rows_k)
+                               + b * h * sq * 12),
+        "attention_bwd_dq": (6 * d * ent,
+                             t * (3 * rows_q + 2 * rows_k) + b * h * sq * 12),
+    }
+
+
+def phase_attention_timing(dev, card_name, per_step):
+    """At the GPT path's shape and strides, each attention kernel alone
+    (cold L2), its plain version, and the library yardstick
+    ``F.scaled_dot_product_attention(..., is_causal=True)`` forward and
+    backward (timed only; the port never calls it), per training step
+    (the kernel's launches per step times its time per call), beside the
+    least time the card could take."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    bw, flops32 = card_rates(card_name)
+    b, h, s, d = GPT_BATCH, 12, GPT_SEQ, 128
+    q, k, v, do = attn_inputs(dev, b, h, s, s, d, torch.bfloat16, True)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    sc = 1.0 / math.sqrt(d)
+    o, st = at.attention_fwd(q, k, v, True)
+    delta = at.bwd_delta_plain(o, do)
+    dk, dv, dq = (torch.empty(t.shape, dtype=t.dtype, device=dev)
+                  for t in (k, v, q))
+    common = dict(o=o, dout=do, stats=st)
+    runs = {
+        "attention_fwd": (lambda: at.attention_fwd(q, k, v, True),
+                          lambda: at.attention_fwd_plain(q, k, v, True)),
+        "attention_bwd_delta": (
+            lambda: at._launch("dl4j_attention_bwd_delta", q, k, v, sc, True,
+                               delta=torch.empty_like(delta), **common),
+            lambda: at.bwd_delta_plain(o, do)),
+        "attention_bwd_dkdv": (
+            lambda: at._launch("dl4j_attention_bwd_dkdv", q, k, v, sc, True,
+                               delta=delta, dk=dk, dv=dv, **common),
+            lambda: at.bwd_dkdv_plain(q, k, v, do, st, delta, True)),
+        "attention_bwd_dq": (
+            lambda: at._launch("dl4j_attention_bwd_dq", q, k, v, sc, True,
+                               delta=delta, dq=dq, **common),
+            lambda: at.bwd_dq_plain(q, k, v, do, st, delta, True)),
+    }
+    bounds = attention_bounds(b, h, s, s, d, True)
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True), flush, 10)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True), flush, 10)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        per_call = time_ms(kern, flush, 20)
+        plain_call = time_ms(plain, flush, 3)
+        ops, nbytes = bounds[name]
+        rate = BF16_TC_FLOPS if name != "attention_bwd_delta" else flops32
+        by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / rate
+        n = per_step[name]
+        out[name] = {"ms": n * per_call, "plain_ms": n * plain_call,
+                     "bound_ms": n * max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations",
+                     "library_ms": n * lib_fwd if name == "attention_fwd"
+                     else None,
+                     "per_call_ms": per_call, "plain_per_call_ms": plain_call,
+                     "bound_per_call_ms": max(by_bytes, by_ops),
+                     "tflops": ops / per_call / 1e9}
+        log(f"  {name}: {per_call:.4f} ms a call alone (x{n} per step), "
+            f"plain {plain_call:.4f}, bound {max(by_bytes, by_ops):.4f} "
+            f"({out[name]['bound_by']}), {ops / per_call / 1e9:.1f} TFLOP/s")
+    fwd = out["attention_fwd"]["per_call_ms"]
+    bwd = sum(out[k]["per_call_ms"] for k in ATTN_KERNELS[1:])
+    log(f"  per call: kernels forward {fwd:.4f} + backward {bwd:.4f} ms; "
+        f"library F.scaled_dot_product_attention forward {lib_fwd:.4f} + "
+        f"backward {lib_bwd:.4f} ms (timed only)")
+    for name in ATTN_KERNELS[1:]:
+        out[name]["library_pass_ms"] = per_step[name] * lib_bwd
+    out["attention_fwd"]["library_pass_ms"] = per_step["attention_fwd"] * \
+        lib_fwd
+    del flush, q, k, v, do
+    torch.cuda.empty_cache()
+    return out, {"lib_fwd_ms": lib_fwd, "lib_bwd_ms": lib_bwd}
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -564,43 +1124,63 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/5] env")
+    log("[1/9] env")
     import triton
-    from deeplearning4j_tpu_torch.kernels import _cuda, bn_relu
+    from deeplearning4j_tpu_torch.kernels import _cuda, attention, bn_relu
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
     log(f"  nvcc: {_cuda.nvcc_version()}")
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
-    bn_relu._phase1_lib()
-    build = _cuda.BUILDS.get(bn_relu._PHASE1_LIB)
-    log(f"  csrc/{bn_relu._PHASE1_LIB}.cu: " + (
-        f"built in {build['seconds']:.1f} s" if build else
-        f"already built, loaded in {time.perf_counter() - t0:.1f} s"))
-    for line in (build or {}).get("log", "").splitlines():
-        if "entry function" in line or "registers" in line or \
-                "spill" in line:
-            log(f"    {line.strip()}")
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib)]:
+            f.result()
+    log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
+    for lib in (bn_relu._PHASE1_LIB, attention._LIB):
+        build = _cuda.BUILDS.get(lib)
+        log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
+                                     if build else "already built"))
+        for line in (build or {}).get("log", "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {line.strip()}")
 
-    log("[2/5] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/9] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/5] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[3/9] kernels: attention forward and backward (CUDA C++) vs plain")
+    t0 = time.perf_counter()
+    phase_attention(dev, errs)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[4/9] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[4/5] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log("[5/9] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+        "vs CPU")
+    t0 = time.perf_counter()
+    phase_gpt_parity()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[6/9] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/5] path shapes: kernels vs plain, then timed (ms per step)")
+    log(f"[7/9] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+        f"SameDiff.fit on the card")
+    t0 = time.perf_counter()
+    gpt_launches, gpt = phase_gpt(dev, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[8/9] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -610,6 +1190,20 @@ def main():
         log(f"  BN backward kernels, {label}: {ms:.3f} ms of a "
             f"{metrics['step_ms']:.2f} ms step "
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[9/9] path shape: attention kernels timed (ms per GPT step)")
+    t0 = time.perf_counter()
+    attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
+    attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
+    attn_in_step = gpt["profile"]["kernel_ms"]
+    for label, ms in (("timed alone, L2 cold", sum(
+            t["ms"] for t in attn_timing.values())),
+            ("in the step (profiler)", sum(attn_in_step.values())),
+            ("bound", sum(t["bound_ms"] for t in attn_timing.values()))):
+        log(f"  attention kernels, {label}: {ms:.3f} ms of a "
+            f"{gpt['step_ms']:.2f} ms step ({ms / gpt['step_ms']:.3f})  "
+            f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -623,8 +1217,20 @@ def main():
             "max_abs_err": errs[kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "ms_per": "training step",
+            "library_ms": t["library_ms"], "ms_per": "ResNet-50 step",
             "in_step_ms": in_situ[kname]})
+    for kname, t in attn_timing.items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES,
+            "launches": gpt_launches[kname],
+            "launches_per_step": attn_per_step[kname],
+            "max_abs_err": errs[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "ms_per": "GPT-medium step",
+            "in_step_ms": attn_in_step[kname],
+            "library_pass_ms": t["library_pass_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

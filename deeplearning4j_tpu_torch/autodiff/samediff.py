@@ -1,0 +1,486 @@
+"""SameDiff: the define-then-run autodiff graph, on PyTorch.
+
+Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: graph
+recording (``var`` :138, ``constant`` :160, ``placeholder`` :170,
+``invoke`` :299, ``OpNode`` :59), ``remat_scope`` :417, ``_prune`` :452,
+``output`` :581, ``calculate_gradients`` :729 and the per-step ``fit``
+tier (:1558) with the train step of ``_build_step_parts`` :773.
+
+Where the JAX package traces the pruned graph into one jitted function
+and takes ``jax.grad`` of it, the port runs the pruned op order eagerly
+and takes ``torch.autograd``. Consecutive ops recorded in one
+``remat_scope`` run as one ``torch.utils.checkpoint`` region (the
+counterpart of the ``jax.checkpoint`` segments of ``_trace_fn`` :466):
+their activations are recomputed in the backward from the region's
+inputs. The train step casts float parameters, constants and
+placeholders to ``MixedPrecision.compute_dtype`` at the top of the
+forward, runs the loss ops under ``softmax_dtype_scope``, sums the loss
+variables in float32, applies the optional loss scale, back-propagates
+into the float32 masters and updates them (and the updater state) in
+place.
+
+Values live on the SameDiff's ``device``: the CUDA card unless
+``device="cpu"``. Not ported yet (ROADMAP queue 1): control flow
+(``while_loop``/``cond``/``scan``), the fused-window and scanned-epoch
+tiers, ``precompile``, ``exec_debug``, serde, the sentinel, tensor
+statistics and listeners.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from deeplearning4j_tpu_torch.autodiff.ops_namespaces import make_namespaces
+from deeplearning4j_tpu_torch.autodiff.training import History, torch_dtype
+from deeplearning4j_tpu_torch.autodiff.variable import SDVariable, VariableType
+from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
+from deeplearning4j_tpu_torch.ops import loss as loss_ops
+from deeplearning4j_tpu_torch.ops import registry
+
+Env = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class OpNode:
+    """One recorded op (reference: samediff.internal.SameDiffOp)."""
+    name: str                 # unique node name
+    op: str                   # registry op name
+    inputs: List[str]         # input variable names
+    outputs: List[str]        # output variable names
+    attrs: Dict[str, Any]     # static attributes
+    group: Optional[str] = None  # remat group id (see SameDiff.remat_scope)
+
+
+def _split_batch(batch):
+    """(features, labels) lists from a DataSet-like or a (features,
+    labels) batch."""
+    if hasattr(batch, "features") and hasattr(batch, "labels"):
+        f, l = batch.features, batch.labels
+    elif isinstance(batch, (tuple, list)) and len(batch) == 2:
+        f, l = batch
+    else:
+        raise TypeError(f"cannot interpret batch of type {type(batch)}")
+    return (list(f) if isinstance(f, (list, tuple)) else [f],
+            list(l) if isinstance(l, (list, tuple)) else [l])
+
+
+class SameDiff:
+    """Define-then-run graph executed eagerly, with autograd gradients."""
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = default_device(device)
+        self._vars: Dict[str, SDVariable] = {}
+        self._arrays: Env = {}                    # VARIABLE/CONSTANT values
+        self._ops: Dict[str, OpNode] = {}
+        self._op_order: List[str] = []            # creation order = topo order
+        self._name_counter: Dict[str, int] = {}
+        self.loss_variables: List[str] = []
+        self._active_group: Optional[str] = None  # current remat_scope id
+        self._group_counter = 0
+        self.training_config = None
+        self._updater_state = None
+        for ns_name, ns in make_namespaces(self).items():
+            setattr(self, ns_name, ns)
+
+    # ------------------------------------------------------------------
+    # naming
+    def _unique_name(self, base: str) -> str:
+        if base not in self._vars and base not in self._ops:
+            return base
+        while True:
+            i = self._name_counter.get(base, 0) + 1
+            self._name_counter[base] = i
+            cand = f"{base}_{i}"
+            if cand not in self._vars and cand not in self._ops:
+                return cand
+
+    def _tensor(self, value, dtype=None, copy: bool = False) -> torch.Tensor:
+        """``value`` on the device; ``copy`` for a stored array, which the
+        updater changes in place and must not share the caller's memory."""
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
+            np.array(value, copy=True))
+        return t.to(device=self.device, copy=copy and t is value,
+                    dtype=None if dtype is None else torch_dtype(dtype))
+
+    # ------------------------------------------------------------------
+    # variable creation (reference: SameDiff.var/constant/placeHolder)
+    def var(self, name: str = "var", shape: Optional[Sequence[int]] = None,
+            dtype: str = "float32", value=None,
+            weight_init=None) -> SDVariable:
+        """Trainable VARIABLE. Provide ``value`` or ``shape`` (+ optional
+        ``weight_init(shape) -> array``)."""
+        name = self._unique_name(name)
+        if value is not None:
+            arr = self._tensor(value, dtype, copy=True)
+        elif shape is not None:
+            arr = self._tensor(weight_init(tuple(shape)), dtype, True) \
+                if weight_init is not None else torch.zeros(
+                    tuple(shape), dtype=torch_dtype(dtype),
+                    device=self.device)
+        else:
+            raise ValueError("var() needs value= or shape=")
+        return self._store(name, VariableType.VARIABLE, arr)
+
+    def constant(self, value, name: str = "const",
+                 dtype=None) -> SDVariable:
+        return self._store(self._unique_name(name), VariableType.CONSTANT,
+                           self._tensor(value, dtype, copy=True))
+
+    def _store(self, name, kind, arr) -> SDVariable:
+        v = SDVariable(self, name, kind, tuple(arr.shape),
+                       str(arr.dtype).replace("torch.", ""))
+        self._vars[name] = v
+        self._arrays[name] = arr
+        return v
+
+    def placeholder(self, name: str, shape: Optional[Sequence[int]] = None,
+                    dtype: str = "float32") -> SDVariable:
+        """PLACEHOLDER fed at run time; -1/None dims are batch dims."""
+        name = self._unique_name(name)
+        v = SDVariable(self, name, VariableType.PLACEHOLDER, None, dtype)
+        v._shape = None if shape is None else tuple(
+            -1 if d is None else int(d) for d in shape)
+        self._vars[name] = v
+        return v
+
+    def _lift(self, value) -> SDVariable:
+        """A python scalar or array as a CONSTANT variable."""
+        if isinstance(value, SDVariable):
+            if value.sd is not self:
+                raise ValueError("variable belongs to a different SameDiff")
+            return value
+        return self.constant(value)
+
+    # ------------------------------------------------------------------
+    # graph access
+    def variables(self) -> List[SDVariable]:
+        return list(self._vars.values())
+
+    def get_variable(self, name: str) -> SDVariable:
+        return self._vars[name]
+
+    def has_variable(self, name: str) -> bool:
+        return name in self._vars
+
+    def ops(self) -> List[OpNode]:
+        return [self._ops[n] for n in self._op_order]
+
+    def _names(self, kind: VariableType) -> List[str]:
+        return [n for n, v in self._vars.items() if v.var_type == kind]
+
+    def trainable_params(self) -> Env:
+        return {n: self._arrays[n] for n in self._names(VariableType.VARIABLE)}
+
+    def constants_map(self) -> Env:
+        return {n: self._arrays[n] for n in self._names(VariableType.CONSTANT)}
+
+    def placeholders(self) -> List[str]:
+        return self._names(VariableType.PLACEHOLDER)
+
+    def get_arr_for_var(self, name: str) -> Optional[torch.Tensor]:
+        a = self._arrays.get(name)
+        return None if a is None else a.detach()
+
+    def set_arr_for_var(self, name: str, value) -> None:
+        v = self._vars[name]
+        if v.var_type not in (VariableType.VARIABLE, VariableType.CONSTANT):
+            raise ValueError(f"{name} is {v.var_type.value}; has no stored "
+                             f"array")
+        self._arrays[name] = self._tensor(value, copy=True)
+
+    def set_loss_variables(self, names: Sequence[Union[str, SDVariable]]):
+        self.loss_variables = [n.name if isinstance(n, SDVariable) else n
+                               for n in names]
+
+    def rename_variable(self, old: str, new: str) -> SDVariable:
+        if new in self._vars:
+            raise ValueError(f"variable {new!r} already exists")
+        v = self._vars.pop(old)
+        v.name = new
+        self._vars[new] = v
+        if old in self._arrays:
+            self._arrays[new] = self._arrays.pop(old)
+        for node in self._ops.values():
+            node.inputs = [new if i == old else i for i in node.inputs]
+            node.outputs = [new if o == old else o for o in node.outputs]
+        self.loss_variables = [new if n == old else n
+                               for n in self.loss_variables]
+        return v
+
+    def outputs(self) -> List[str]:
+        """ARRAY variables no op consumes."""
+        consumed = {i for node in self._ops.values() for i in node.inputs}
+        return [n for n in self._names(VariableType.ARRAY)
+                if n not in consumed]
+
+    # ------------------------------------------------------------------
+    # op recording
+    def invoke(self, op_name: str, inputs: Sequence[SDVariable],
+               attrs: Optional[Dict[str, Any]] = None,
+               name: Optional[str] = None,
+               n_outputs: int = 1) -> Union[SDVariable, List[SDVariable]]:
+        """Record a registry op; returns its output variable(s)."""
+        o = registry.get_op(op_name)
+        node_name = self._unique_name(name or op_name)
+        out_names = []
+        for i in range(n_outputs):
+            out_name = self._unique_name(
+                node_name if n_outputs == 1 else f"{node_name}:{i}")
+            self._vars[out_name] = SDVariable(self, out_name,
+                                              VariableType.ARRAY)
+            out_names.append(out_name)
+        self._ops[node_name] = OpNode(
+            name=node_name, op=o.name, inputs=[v.name for v in inputs],
+            outputs=out_names, attrs=dict(attrs or {}),
+            group=self._active_group)
+        self._op_order.append(node_name)
+        outs = [self._vars[n] for n in out_names]
+        return outs[0] if n_outputs == 1 else outs
+
+    def remat_scope(self, name: str = "remat"):
+        """Context manager: consecutive ops recorded inside run, while
+        gradients are being recorded, as one ``torch.utils.checkpoint``
+        region: their activations are not kept for the backward but
+        recomputed from the region's inputs. Nesting records the
+        innermost scope only."""
+        @contextlib.contextmanager
+        def _scope():
+            prev = self._active_group
+            self._group_counter += 1
+            self._active_group = f"{name}#{self._group_counter}"
+            try:
+                yield
+            finally:
+                self._active_group = prev
+
+        return _scope()
+
+    # ------------------------------------------------------------------
+    # execution
+    def _prune(self, outputs: Sequence[str]) -> List[OpNode]:
+        """The ops needed for ``outputs``, in recorded (topo) order."""
+        needed_vars, needed_ops = set(outputs), set()
+        for op_name in reversed(self._op_order):
+            node = self._ops[op_name]
+            if any(o in needed_vars for o in node.outputs):
+                needed_ops.add(op_name)
+                needed_vars.update(node.inputs)
+        return [self._ops[n] for n in self._op_order if n in needed_ops]
+
+    @staticmethod
+    def _run_nodes(nodes: Sequence[OpNode], env: Env) -> None:
+        for node in nodes:
+            try:
+                args = [env[i] for i in node.inputs]
+            except KeyError as e:
+                raise KeyError(f"op {node.name!r} needs variable "
+                               f"{e.args[0]!r}: missing placeholder?") \
+                    from None
+            res = registry.get_op(node.op).fn(*args, **node.attrs)
+            if isinstance(res, (tuple, list)):
+                env.update(zip(node.outputs, res))
+            else:
+                env[node.outputs[0]] = res
+
+    def _segments(self, outputs: Tuple[str, ...]):
+        """The pruned order cut into (group, nodes, inputs from outside,
+        outputs used outside) runs: a group is a remat scope's
+        consecutive ops, None an op outside any scope."""
+        order = self._prune(outputs)
+        runs: List[Tuple[Optional[str], List[OpNode]]] = []
+        for node in order:
+            if runs and node.group is not None and runs[-1][0] == node.group:
+                runs[-1][1].append(node)
+            else:
+                runs.append((node.group, [node]))
+        segs = []
+        for si, (g, nodes) in enumerate(runs):
+            if g is None:
+                segs.append((None, nodes, None, None))
+                continue
+            produced = {o for n in nodes for o in n.outputs}
+            ext_in = list(dict.fromkeys(
+                i for n in nodes for i in n.inputs if i not in produced))
+            later = {i for _, ns in runs[si + 1:] for n in ns
+                     for i in n.inputs} | set(outputs)
+            ext_out = [o for n in nodes for o in n.outputs if o in later]
+            segs.append((g, nodes, ext_in, ext_out))
+        return segs
+
+    def _execute(self, outputs: Tuple[str, ...], env: Env) -> Env:
+        """Run the ops ``outputs`` need on ``env`` (parameters, constants,
+        placeholders by name); remat groups become checkpoint regions
+        while autograd records."""
+        record = torch.is_grad_enabled()
+        for g, nodes, ext_in, ext_out in self._segments(outputs):
+            if g is None or not record:
+                self._run_nodes(nodes, env)
+                continue
+            missing = [i for i in ext_in if i not in env]
+            if missing:
+                raise KeyError(f"remat group {g!r} needs variable "
+                               f"{missing[0]!r}: missing placeholder?")
+            # the recompute runs in the backward, outside the caller's
+            # softmax-dtype scope: carry the scope into the region
+            tail = loss_ops.softmax_dtype()
+
+            def seg_fn(*args, _nodes=nodes, _ein=ext_in, _eout=ext_out,
+                       _tail=tail):
+                local = dict(zip(_ein, args))
+                with loss_ops.softmax_dtype_scope(_tail):
+                    self._run_nodes(_nodes, local)
+                return tuple(local[o] for o in _eout)
+
+            res = checkpoint(seg_fn, *[env[i] for i in ext_in],
+                             use_reentrant=False)
+            env.update(zip(ext_out, res))
+        missing = [o for o in outputs if o not in env]
+        if missing:
+            raise KeyError(f"outputs not computable: {missing}")
+        return env
+
+    def _prep_placeholders(self, placeholders) -> Env:
+        """Placeholders on the device, in their declared dtypes."""
+        out = {}
+        for k, v in (placeholders or {}).items():
+            k = k.name if isinstance(k, SDVariable) else k
+            out[k] = self._tensor(v, self._vars[k].dtype
+                                  if k in self._vars else None)
+        return out
+
+    def _base_env(self, placeholders) -> Env:
+        return {**self.constants_map(), **self.trainable_params(),
+                **self._prep_placeholders(placeholders)}
+
+    def output(self, placeholders=None,
+               outputs: Optional[Sequence[Union[str, SDVariable]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The values of ``outputs`` (default: the graph's outputs)."""
+        names = tuple(o.name if isinstance(o, SDVariable) else o
+                      for o in (outputs or self.outputs()))
+        with torch.no_grad():
+            env = self._execute(names, self._base_env(placeholders))
+        return {n: env[n] for n in names}
+
+    def infer_shape(self, name: str) -> Optional[Tuple[int, ...]]:
+        """A variable's shape, from its stored value, its declaration, or
+        a run of the pruned graph on the ``meta`` device (no data, no
+        kernel). None when a placeholder's shape is unknown."""
+        v = self._vars[name]
+        if name in self._arrays:
+            return tuple(self._arrays[name].shape)
+        if v.var_type == VariableType.PLACEHOLDER:
+            return v._shape
+        env = {n: a.to("meta") for n, a in self._arrays.items()}
+        for pn in self.placeholders():
+            shape = self._vars[pn]._shape
+            if shape is None or -1 in shape:
+                return None
+            env[pn] = torch.empty(shape, dtype=torch_dtype(
+                self._vars[pn].dtype), device="meta")
+        with torch.no_grad():
+            return tuple(self._execute((name,), env)[name].shape)
+
+    # ------------------------------------------------------------------
+    # gradients
+    def _resolve_loss(self, loss=None) -> Tuple[str, ...]:
+        if loss is not None:
+            return (loss.name if isinstance(loss, SDVariable) else loss,)
+        if self.loss_variables:
+            return tuple(self.loss_variables)
+        outs = self.outputs()
+        if len(outs) == 1:
+            return (outs[0],)
+        raise ValueError("no loss variable set; call set_loss_variables()")
+
+    def calculate_gradients(self, placeholders=None, wrt=None, loss=None
+                            ) -> Dict[str, torch.Tensor]:
+        """d(sum of the loss variables)/d(each of ``wrt``, default every
+        trainable parameter), through ``torch.autograd``."""
+        names = [w.name if isinstance(w, SDVariable) else w
+                 for w in (wrt or self.trainable_params().keys())]
+        loss_names = self._resolve_loss(loss)
+        env = self._base_env(placeholders)
+        leaves = {n: env[n].detach().requires_grad_(True) for n in names}
+        env.update(leaves)
+        with torch.enable_grad():
+            outs = self._execute(loss_names, env)
+            total = sum(outs[ln].sum() for ln in loss_names)
+        grads = torch.autograd.grad(total, list(leaves.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        return dict(zip(names, grads))
+
+    # ------------------------------------------------------------------
+    # training (reference: SameDiff.fit, one step per batch)
+    def _train_step(self, names: List[str], ph: Env, state, tc) -> torch.Tensor:
+        """Forward under the mixed-precision policy, backward into the
+        float32 masters, the updater in place. Returns the (unscaled)
+        loss, on the device."""
+        mp = tc.mixed_precision
+        loss_names = self._resolve_loss()
+        masters = [self._arrays[n] for n in names]
+        leaves = [m.detach().requires_grad_(True) for m in masters]
+        env = {**self.constants_map(), **dict(zip(names, leaves)), **ph}
+        if mp is not None:
+            cdt = mp.dtype
+            env = {k: t.to(cdt) if t.is_floating_point() else t
+                   for k, t in env.items()}
+            tail = mp.softmax_dtype
+        else:
+            tail = None
+        with torch.enable_grad(), loss_ops.softmax_dtype_scope(tail):
+            outs = self._execute(loss_names, env)
+            loss = sum(outs[ln].sum().float() for ln in loss_names)
+        scale = mp.loss_scale if mp is not None else None
+        grads = torch.autograd.grad(loss * scale if scale else loss, leaves,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        if scale:
+            grads = [g / scale for g in grads]
+        tc.updater.apply_(masters, grads, state, tc.iteration_count,
+                          tc.epoch_count)
+        tc.iteration_count += 1
+        return loss.detach()
+
+    def fit(self, dataset_iterator, epochs: int = 1,
+            listeners=()) -> History:
+        """Train ``epochs`` times over ``dataset_iterator`` (batches of
+        ``(features, labels)`` or ``DataSet``s, e.g. a
+        ``DeviceCachedIterator``), one step per batch. Features and labels
+        feed the placeholders named by the config's
+        ``data_set_feature_mapping`` / ``data_set_label_mapping``."""
+        tc = self.training_config
+        if tc is None:
+            raise ValueError("set sd.training_config = TrainingConfig(...) "
+                             "first")
+        if listeners:
+            raise NotImplementedError(
+                "SameDiff listeners are not ported yet (ROADMAP queue 1); "
+                "fit returns the loss history")
+        names = list(self.trainable_params())
+        if self._updater_state is None or \
+                set(self._updater_state) != set(names):
+            masters = [self._arrays[n] for n in names]
+            self._updater_state = dict(zip(names, tc.updater.init(masters)))
+        state = [self._updater_state[n] for n in names]
+        history = History()
+        for epoch in range(epochs):
+            losses = []
+            for batch in dataset_iterator:
+                feats, labels = _split_batch(batch)
+                ph = self._prep_placeholders({
+                    **dict(zip(tc.data_set_feature_mapping, feats)),
+                    **dict(zip(tc.data_set_label_mapping, labels))})
+                losses.append(self._train_step(names, ph, state, tc))
+            if not losses:
+                raise ValueError("fit got no batches")
+            step = torch.stack(losses).tolist()      # one sync per epoch
+            history.add_epoch(epoch, float(np.mean(step)), step)
+            tc.epoch_count += 1
+        return history

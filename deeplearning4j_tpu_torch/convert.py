@@ -1,11 +1,13 @@
 """Weights between the JAX package and the port.
 
-The JAX package names a parameter ``{node}_{suffix}`` (``res2a_2a_W``,
+ComputationGraph: the JAX package names a parameter ``{node}_{suffix}`` (``res2a_2a_W``,
 ``res2a_bn2a_gamma``, the running statistics ``res2a_bn2a_mean`` /
 ``_var``); the port's state dict names it ``{node}.{suffix}``.
-Convolution weights are HWIO there and OIHW here. This is how the tests
-hand both packages the same weights, and how a JAX checkpoint's weights
-enter the port.
+Convolution weights are HWIO there and OIHW here. SameDiff: the names and layouts are the same on
+both sides (a name -> array map of the stored VARIABLE and CONSTANT
+values), so nothing is transposed; the names, shapes and dtypes are
+checked. This is how the tests hand both packages the same weights, and
+how a JAX checkpoint's weights enter the port.
 """
 from __future__ import annotations
 
@@ -41,4 +43,34 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
             a = a.transpose(2, 3, 1, 0)
         # a copy: a CPU tensor's numpy() shares the live parameter's memory
         out[f"{node}_{suffix}"] = np.array(a, order="C", copy=True)
+    return out
+
+
+def samediff_arrays_from_jax(arrays: Mapping[str, np.ndarray], sd):
+    """Load a JAX SameDiff's stored arrays (name -> array, e.g.
+    ``{n: np.asarray(a) for n, a in jsd.trainable_params().items()}``) into
+    the port's SameDiff ``sd``, which must hold the same names with the
+    same shapes and dtypes. Returns ``sd``."""
+    for name, arr in arrays.items():
+        a = np.asarray(arr)
+        cur = sd.get_arr_for_var(name) if sd.has_variable(name) else None
+        if cur is None:
+            raise KeyError(f"{name!r} is not a stored variable of the port's "
+                           f"graph")
+        want = str(cur.dtype).replace("torch.", "")
+        if tuple(a.shape) != tuple(cur.shape) or str(a.dtype) != want:
+            raise ValueError(f"{name!r}: {a.shape} {a.dtype} does not match "
+                             f"{tuple(cur.shape)} {want}")
+        sd.set_arr_for_var(name, a)
+    return sd
+
+
+def samediff_arrays_to_jax(sd) -> Dict[str, np.ndarray]:
+    """The port's stored VARIABLE and CONSTANT arrays as name -> numpy
+    array copies, the JAX SameDiff's names and layouts."""
+    out = {}
+    for name in [*sd.trainable_params(), *sd.constants_map()]:
+        a = sd.get_arr_for_var(name).cpu()
+        out[name] = a.float().numpy() if a.dtype == torch.bfloat16 \
+            else np.array(a.numpy(), copy=True)
     return out

@@ -1,4 +1,4 @@
-from deeplearning4j_tpu_torch.learning.updaters import (IUpdater, Nesterovs,
-                                                        Sgd)
+from deeplearning4j_tpu_torch.learning.updaters import (Adam, IUpdater,
+                                                        Nesterovs, Sgd)
 
-__all__ = ["IUpdater", "Nesterovs", "Sgd"]
+__all__ = ["Adam", "IUpdater", "Nesterovs", "Sgd"]

@@ -248,6 +248,12 @@ class ComputationGraph:
     def init(self, device: DeviceLike = None) -> "ComputationGraph":
         """Build the network on ``device`` (the CUDA card unless
         ``device="cpu"``)."""
+        mp = self.conf.mixed_precision
+        if mp is not None and (mp.loss_scale is not None
+                               or mp.softmax_dtype is not None):
+            raise NotImplementedError(
+                "ComputationGraph does not take MixedPrecision.loss_scale or "
+                "softmax_dtype yet; SameDiff.fit does")
         self.device = default_device(device)
         self.model = _build_graph(self.conf, self.device)
         self._params = list(self.model.parameters())

@@ -1,8 +1,11 @@
-"""Neural-network ops of the ResNet-50 slice: convolution, pooling, batch
-norm.
+"""Neural-network ops: convolution, pooling and batch norm (the ResNet-50
+slice); layer norm, embedding lookup, bias add and attention (the GPT
+slice).
 
 Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
-``max_pool2d`` :219, ``batchnorm`` :302, ``batchnorm_train`` :323).
+``max_pool2d`` :219, ``batchnorm`` :302, ``batchnorm_train`` :323,
+``layer_norm`` :365, ``embedding_lookup`` :417, ``bias_add`` :424,
+``scaled_dot_product_attention`` :462).
 Tensors are logically NCHW, as PyTorch's convolutions take them, in any
 memory format (the network body runs ``torch.channels_last``, so a
 channel is the fastest axis, as in the JAX package's NHWC body).
@@ -19,7 +22,11 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.kernels import attention
 from deeplearning4j_tpu_torch.kernels.bn_relu import BatchNormTrain
+from deeplearning4j_tpu_torch.ops.registry import op
+
+_N = "nn"
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -105,3 +112,43 @@ def batchnorm_train(x, gamma, beta, running_mean, running_var,
     new_var = momentum * running_var + \
         (1 - momentum) * unbiased.to(running_var.dtype)
     return out, new_mean, new_var
+
+
+@op("layer_norm", _N)
+def layer_norm(x, gamma, beta=None, axis=-1, epsilon: float = 1e-5):
+    """Layer norm with the JAX op's numerics: one-pass moments in float32
+    for bf16/f16 input (``var = max(E[x^2] - mean^2, 0)``), then
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta`` in x's dtype."""
+    ax = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean = xf.mean(dim=ax, keepdim=True)
+    m2 = (xf * xf).mean(dim=ax, keepdim=True)
+    var = torch.clamp_min(m2 - mean * mean, 0.0)
+    inv = torch.rsqrt(var + epsilon)
+    out = (x - mean.to(x.dtype)) * inv.to(x.dtype) * gamma
+    if beta is not None:
+        out = out + beta
+    return out
+
+
+@op("embedding_lookup", _N, n_inputs=2)
+def embedding_lookup(table, ids):
+    """Rows of ``table`` at integer ``ids`` (int32 or int64)."""
+    return F.embedding(ids, table)
+
+
+@op("bias_add", _N, n_inputs=2)
+def bias_add(x, bias):
+    """``x + bias`` over the last axis."""
+    return x + bias
+
+
+@op("scaled_dot_product_attention", _N)
+def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
+                                 scale: float = None):
+    """Multi-head attention core: q, k, v are (batch, heads, seq,
+    head_dim); float32 scores and softmax, probabilities cast to v's dtype
+    for the product with v. On the card, the kernels of
+    ``kernels/attention.py``."""
+    return attention.scaled_dot_product_attention(q, k, v, mask, causal,
+                                                  scale)

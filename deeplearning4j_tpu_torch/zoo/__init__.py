@@ -1,3 +1,6 @@
+from deeplearning4j_tpu_torch.zoo.gpt import (GPT_MEDIUM, GPT_TINY, GPTConfig,
+                                              build_gpt, gpt_param_names)
 from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
-__all__ = ["ResNet50"]
+__all__ = ["GPTConfig", "GPT_MEDIUM", "GPT_TINY", "ResNet50", "build_gpt",
+           "gpt_param_names"]

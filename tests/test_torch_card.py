@@ -11,6 +11,8 @@ held per channel to 1e-5 of the sum of the absolute terms behind them
 one unit in its last place (one rounding to 8 bits); g = gamma * inv to
 one unit in its last place.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -181,3 +183,165 @@ def test_resnet_step_runs_every_bn_backward_through_the_kernels(card):
     assert bn_relu.LAUNCHES == {"bn_relu_bwd_phase1": 33,
                                 "bn_relu_bwd_phase2": 33,
                                 "bn_bwd_phase1": 20, "bn_bwd_phase2": 20}
+
+
+# ----------------------------------------------------------------------
+# attention (csrc/causal_attention.cu) against its plain versions
+def _attn_inputs(card, b, h, sq, sk, d, dtype, seed=7, split=False):
+    """q, k, v, dO from a seeded rng; with ``split`` q, k and v are the
+    strided views ``build_gpt`` hands the op (one [B, S, H, 3D] tensor,
+    permuted and split)."""
+    rng = np.random.default_rng(seed)
+    if split:
+        qkv = torch.as_tensor(rng.normal(size=(b, sq, h, 3 * d))).to(
+            card, dtype).permute(0, 2, 1, 3)
+        q, k, v = torch.split(qkv, d, dim=3)
+    else:
+        q, k, v = (torch.as_tensor(rng.normal(size=(b, h, s, d))).to(
+            card, dtype) for s in (sq, sk, sk))
+    do = torch.as_tensor(rng.normal(size=(b, h, sq, d))).to(card, dtype)
+    return q, k, v, do
+
+
+def _attn_grads(fn, q, k, v, do, causal):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(q, k, v, causal=causal)
+    return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+
+ATTN_CASES = [  # (b, h, sq, sk, d, causal, split)
+    (2, 3, 77, 77, 64, True, False),
+    (1, 2, 200, 200, 16, True, False),
+    (1, 1, 1, 1, 64, True, False),
+    (2, 2, 96, 96, 32, False, False),
+    (1, 2, 50, 130, 64, True, False),      # Sq < Sk
+    (1, 2, 130, 50, 64, True, False),      # Sq > Sk: fully masked rows
+    (2, 3, 128, 128, 128, True, True),     # build_gpt's strided q, k, v
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_attention_kernels_match_plain_on_card(card, case, dtype):
+    """O and the three grads through the kernels (``Attention``) against
+    the autograd of ``sdpa_plain``. float32 and float64: within 1e-5 and
+    1e-10 of the sum of the absolute terms behind each element (the same
+    terms summed in another order). bf16: both the kernels and the bf16
+    plain version are held to ``sdpa_plain`` in float32 on the same bf16
+    inputs; the kernels' error is at most twice the plain version's plus
+    one bf16 unit in the last place of the output's magnitude, plus the
+    float32 allowance of 1e-5 of the largest sum of absolute terms (the
+    kernels sum in float32 in another order: a one-key softmax's
+    gradient, exactly 0 in the reference, comes out at 1e-7). Two calls
+    are bit-equal; one forward and three backward launches a call."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    b, h, sq, sk, d, causal, split = case
+    q, k, v, do = _attn_inputs(card, b, h, sq, sk, d, dtype, split=split)
+    before = dict(at.LAUNCHES)
+    got = _attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
+    again = _attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == {
+        n: 2 for n in before}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if dtype == torch.bfloat16:
+        f = [t.float() for t in (q, k, v, do)]
+        ref = _attn_grads(at.sdpa_plain, *f[:3], f[3], causal)
+        plain = _attn_grads(at.sdpa_plain, q, k, v, do, causal)
+        terms = at.abs_terms(q, k, v, do, causal)
+        for x, p, r, t in zip(got, plain, ref, terms):
+            ek = float((x.float() - r).abs().max())
+            ep = float((p.float() - r).abs().max())
+            mag = float(r.abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(mag)) - 7) if mag > 0 else 0
+            assert ek <= 2 * ep + ulp + 1e-5 * float(t.max()), (ek, ep, ulp)
+    else:
+        want = _attn_grads(at.sdpa_plain, q, k, v, do, causal)
+        terms = at.abs_terms(q, k, v, do, causal)
+        rel = 1e-10 if dtype == torch.float64 else 1e-5
+        for x, w, t in zip(got, want, terms):
+            assert x.dtype == w.dtype and x.shape == w.shape
+            err = (x.double() - w.double()).abs()
+            assert bool((err <= rel * t + 1e-300).all()), float(
+                (err / t.clamp_min(1e-300)).max())
+
+
+@pytest.mark.cuda
+def test_attention_refuses_what_it_does_not_take(card):
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.float16, device=card)
+    with pytest.raises(ValueError, match="does not take"):
+        at.attention_fwd(q, q, q, True)
+    q = torch.zeros(1, 1, 4, 48, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        at.attention_fwd(q, q, q, True)
+    q = torch.zeros(1, 1, 64, 4, dtype=torch.bfloat16,
+                    device=card).transpose(2, 3)
+    with pytest.raises(ValueError, match="last stride"):
+        at.attention_fwd(q, q, q, True)
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16, device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        at.scaled_dot_product_attention(q, q, q, mask=torch.ones(
+            4, 4, device=card))
+
+
+@pytest.mark.cuda
+def test_attention_backward_copies_a_dout_with_a_strided_last_axis(card):
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    q, k, v, do = _attn_inputs(card, 1, 2, 64, 64, 64, torch.float32)
+    o, stats = at.attention_fwd(q, k, v, True)
+    odd = do.transpose(2, 3).contiguous().transpose(2, 3)
+    before = at.DOUT_COPIES["attention_bwd"]
+    got = at.attention_bwd(q, k, v, o, odd, stats, True)
+    want = at.attention_bwd(q, k, v, o, do, stats, True)
+    assert at.DOUT_COPIES["attention_bwd"] == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_gpt_tiny_step_runs_every_attention_through_the_kernels(card):
+    """One bf16 SameDiff.fit step of GPT_TINY (2 layers, remat): the
+    forward kernel twice per layer (forward and the remat re-forward),
+    each backward kernel once per layer, and no dO copy."""
+    from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
+                                                   TrainingConfig)
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY, build_gpt
+    rng = np.random.default_rng(0)
+    ids, tgt = (rng.integers(0, 256, (4, 32)).astype(np.int32)
+                for _ in range(2))
+    sd = build_gpt(GPT_TINY, batch=4, seq_len=32)
+    sd.training_config = TrainingConfig(
+        updater=Adam(1e-3), data_set_feature_mapping=["input_ids"],
+        data_set_label_mapping=["targets"], mixed_precision=MixedPrecision())
+    at.reset_launches()
+    loss = sd.fit(DeviceCachedIterator([ids], [tgt], batch_size=4)
+                  ).final_loss()
+    assert np.isfinite(loss)
+    assert at.LAUNCHES == {"attention_fwd": 4, "attention_bwd_delta": 2,
+                           "attention_bwd_dkdv": 2, "attention_bwd_dq": 2}
+    assert at.DOUT_COPIES["attention_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_gpt_tiny_float64_step_on_card_matches_cpu(card):
+    """float64 gradients of GPT_TINY through the kernels' float64 path,
+    against the CPU's plain versions: 1e-10 of each tensor's magnitude."""
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY, build_gpt
+    rng = np.random.default_rng(1)
+    feed = {"input_ids": rng.integers(0, 256, (4, 32)).astype(np.int32),
+            "targets": rng.integers(0, 256, (4, 32)).astype(np.int32)}
+    grads = []
+    for dev in ("cuda", "cpu"):
+        sd = build_gpt(GPT_TINY, batch=4, seq_len=32, device=dev)
+        for n, a in sd.trainable_params().items():
+            sd.set_arr_for_var(n, a.double())
+        grads.append(sd.calculate_gradients(feed))
+    for name, want in grads[1].items():
+        got = grads[0][name].cpu()
+        assert got.dtype == torch.float64
+        _close(got, want, 1e-10)

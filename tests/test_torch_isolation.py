@@ -1,6 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on the card unless asked for the CPU."""
+"""The port stands alone: neither it nor ``chip_smoke.py`` imports JAX or
+the JAX package, and its entry points run on the card unless asked for
+the CPU."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -10,9 +12,10 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import environment
+from deeplearning4j_tpu_torch.autodiff import SameDiff
 from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
 from deeplearning4j_tpu_torch.nn import ComputationGraph
-from deeplearning4j_tpu_torch.zoo import ResNet50
+from deeplearning4j_tpu_torch.zoo import GPT_TINY, ResNet50, build_gpt
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
@@ -46,7 +49,7 @@ def test_forbidden_prefix_check_tells_the_packages_apart():
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py"))
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if _forbidden(m)]
@@ -84,6 +87,28 @@ def test_importing_the_kernel_module_does_not_import_triton():
     assert out.stdout.strip() == "False"
 
 
+def test_importing_the_attention_kernels_needs_neither_nvcc_nor_triton(
+        tmp_path):
+    """With no nvcc on the path and triton blocked, the attention module
+    imports and its op runs on the CPU; nothing is built or loaded."""
+    code = ("import sys\n"
+            "sys.modules['triton'] = None\n"
+            "import torch\n"
+            "from deeplearning4j_tpu_torch.kernels import _cuda, attention\n"
+            "q = torch.randn(1, 2, 5, 16, requires_grad=True)\n"
+            "attention.scaled_dot_product_attention(q, q, q, causal=True)"
+            ".sum().backward()\n"
+            "print(len(_cuda._LIBS), len(_cuda.BUILDS), "
+            "sum(attention.LAUNCHES.values()))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = str(tmp_path)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0", "0", "0"]
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -108,6 +133,21 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(no_card):
     assert all(p.device.type == "cpu" for p in net.model.parameters())
     it = DeviceCachedIterator(x, y, batch_size=2, device="cpu")
     assert it.Xs[0].device.type == "cpu" and it.Ys[0].device.type == "cpu"
+
+
+def test_samediff_and_gpt_raise_without_a_card_unless_asked_for_cpu(
+        no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SameDiff()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_gpt(GPT_TINY, batch=2, seq_len=8)
+    ids = np.zeros((2, 8), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceCachedIterator([ids], [ids], batch_size=2)
+    sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device="cpu")
+    assert sd.device == torch.device("cpu")
+    assert all(a.device.type == "cpu" for a in sd.trainable_params().values())
+    assert SameDiff(device="cpu").device.type == "cpu"
 
 
 def test_unknown_device_is_refused():
