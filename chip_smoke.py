@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero:
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
    limit; the builds of the two CUDA C++ libraries (csrc/bn_bwd_reduce.cu
    and csrc/causal_attention.cu, one nvcc each, started together: seconds,
-   and ptxas's registers and spills per kernel).
+   and ptxas's registers and spills per kernel); the bf16 attention
+   kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
+   (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
+   head dim 128.
 2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
    versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
    three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
@@ -18,8 +21,11 @@ Phases, in order; any failure exits non-zero:
    through autograd against ``sdpa_plain``; two calls bit-equal. Cases:
    the GPT path's shape (16, 12, 512, 128) bf16 causal at build_gpt's
    strides, ragged lengths (1, 77, 200) with head_dim 64 and 16,
-   non-causal, Sq < Sk, Sq > Sk with fully masked rows, float32 and
-   float64.
+   non-causal, Sq < Sk, Sq > Sk with fully masked rows, the bf16 kernels'
+   tile edges (127, 128, 129, 257 at head dims 16-128), float32 and
+   float64; bf16 control readings (a causal mask off by one, a dropped
+   key tile must be rejected); q, k, v and dO whose rows are not on 16
+   bytes, which the wrappers copy (counted) before TMA reads them.
 4. parity: ResNet-50 at 32x32, 4 classes, TF32 off: two ``fit`` steps on
    the card (kernels) and on the CPU (plain versions) from the same
    weights, in float64 (every tensor's change, every running statistic
@@ -43,21 +49,26 @@ Phases, in order; any failure exits non-zero:
    batches (step ms, tokens/s, peak memory, the loss per step, which must
    be finite and fall) in which the attention kernels must launch 2 x 16
    times (forward and remat re-forward) and 16 times (each backward
-   kernel) a step; then two steps
+   kernel) a step, with no copy of q, k, v or dO; then two steps
    under ``torch.profiler``: device launches, busy time and idle share,
    and device time by group (attention, matmul, layer norm, CE tail,
    Adam, casts, ...).
 8. path shapes: at each shape, dtype, ReLU flag and dy layout the main
    path gave the BN kernels, each kernel against its plain version, then
-   timed with its plain version and, where one PyTorch call computes the
-   same function, that call, summed over one training step, beside the
-   least time the card could take (bytes over the card's memory rate).
-9. path shape: each attention kernel timed alone (cold L2) at the GPT
-   path's shape and strides, with its plain version, beside its bound
-   (operations at 989 TFLOP/s bf16, bytes at the card's memory rate) and
-   the library yardstick ``F.scaled_dot_product_attention(...,
-   is_causal=True)`` forward and backward (timed only, never called by
-   the port).
+   timed alone as phase 9 times attention (cold L2; the median of 20 calls
+   queued behind a device sleep) with its plain version and, where one
+   PyTorch call computes the same function, that call, summed over one
+   training step, beside the least time the card could take (bytes over
+   the card's memory rate).
+9. path shape: each attention kernel timed alone (cold L2; the median of
+   20 calls queued behind a device sleep, so that no host time enters)
+   at the GPT path's shape and strides, with its plain version, beside
+   its bound (operations at 989 TFLOP/s bf16, bytes at the card's memory
+   rate) and the library yardstick ``F.scaled_dot_product_attention(...,
+   is_causal=True)`` forward and backward timed the same way (never
+   called by the port): kernel/library ratios, TFLOP/s, the host's time
+   of a forward call, of its launch alone, and of encoding its three
+   tensor maps.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step; the times
@@ -67,6 +78,8 @@ imported.
 """
 import json
 import math
+import os
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -74,11 +87,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.kernels.measure import (
+    BF16_TC_FLOPS, attention_bounds, attention_inputs, card_rates,
+    median_ms, ptxas_spills, sass_counts, sass_kernels, tensor_map_encode_us)
+
 STEPS = 8
 BATCH = 128
-# (memory bytes/s, non-tensor-core f32 FLOP/s) from NVIDIA's data sheets
-CARDS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
 REPLACES = {1: "experiments/pallas_bn_spike.py:87",
             2: "experiments/pallas_bn_spike.py:115"}
 ROUTE = {1: ("cuda", "deeplearning4j_tpu_torch/csrc/bn_bwd_reduce.cu"),
@@ -92,11 +106,36 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_rates(name):
-    for key in ("PCIe", "NVL", "H100"):
-        if key in name:
-            return CARDS[key]
-    raise SystemExit(f"no memory/compute rates on record for {name!r}")
+ATTN_TMA_KERNELS = ("fwd", "bwd_dkdv", "bwd_dq")
+
+
+def check_attention_build():
+    """The bf16 attention kernels as built: at every head dim each has
+    wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS and no mma.sync
+    (HMMA); at D = 128 ptxas reports 0 spill bytes for each. Prints one
+    line a kernel; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import _cuda, attention
+    sass = sass_kernels(_cuda.library_path(attention._LIB))
+    spills = ptxas_spills(_cuda.build_log(attention._LIB))
+    bad = []
+    for d in (16, 32, 64, 128):
+        for k in ATTN_TMA_KERNELS:
+            tag = f"attention_{k}_bf16ILi{d}E"
+            name = next((n for n in sass if tag in n), None)
+            if name is None:
+                bad.append(f"{tag}: not in the library")
+                continue
+            hg, tma, depbar = sass_counts(sass[name])
+            sp = spills.get(name)
+            ok = hg > 0 and tma > 0 and "HMMA" not in sass[name] and (
+                d != 128 or sp == (0, 0))
+            log(f"    attention_{k}_bf16<{d}>: HGMMA {hg}, UTMALDG {tma}, "
+                f"WARPGROUP.DEPBAR {depbar}, spill stores/loads "
+                f"{sp if sp else 'not reported'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(tag)
+    if bad:
+        raise SystemExit(f"attention kernels built wrong: {bad}")
 
 
 # ----------------------------------------------------------------------
@@ -453,29 +492,12 @@ def profile_steps(net, it, step_ms, card):
 
 
 # ----------------------------------------------------------------------
-def time_ms(fn, flush, iters):
-    """Mean device time of ``fn`` over ``iters`` launches, each after the
-    L2 cache was overwritten (the main path finds these inputs cold). The
-    overwrite (1 GiB, ~0.3 ms) keeps the card busy while the host queues
-    ``fn``, so the host's launch time stays outside the events."""
-    fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for s, e in ev:
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in ev) / iters
-
-
 def phase_timing(dev, per_step, card_name, errs):
     """At each (shape, ReLU, dtype, dy layout, gamma dtype) the main path
     gave the kernels: both kernels held to their plain versions, then, per
     training step, each kernel, its plain version and its library call
-    timed over the path's 53 BN layers, beside the bound. Phase 1's
+    timed over the path's 53 BN layers (each call the median of 20 by
+    ``median_ms``), beside the bound. Phase 1's
     library call, ``batch_norm_backward_reduce``, computes the same
     function as the fused phase 1 for the 20 layers without ReLU (the
     sums, grad_weight and grad_bias); the port never calls it."""
@@ -503,16 +525,14 @@ def phase_timing(dev, per_step, card_name, errs):
                                                     gamma, relu)
         es, rc = x.element_size(), x.numel()
         gs, acc = gamma.element_size(), mean.element_size()
-        iters = 10 if rc > 2e7 else 30
-        k1 = time_ms(lambda: bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv,
-                                                   gamma, relu),
-                     flush, iters)
-        p1 = time_ms(lambda: bn_relu.phase1_fold_plain(
-            x, dy, a, b, mean, inv, gamma, relu), flush, iters)
-        k2 = time_ms(lambda: bn_relu.bn_bwd_phase2(x, dy, a, b, mean, g, c1,
-                                                   c2, relu), flush, iters)
-        p2 = time_ms(lambda: bn_relu.phase2_plain(x, dy, a, b, mean, g, c1,
-                                                  c2, relu), flush, iters)
+        k1 = median_ms(lambda: bn_relu.bn_bwd_phase1(x, dy, a, b, mean, inv,
+                                                     gamma, relu), flush)
+        p1 = median_ms(lambda: bn_relu.phase1_fold_plain(
+            x, dy, a, b, mean, inv, gamma, relu), flush)
+        k2 = median_ms(lambda: bn_relu.bn_bwd_phase2(x, dy, a, b, mean, g, c1,
+                                                     c2, relu), flush)
+        p2 = median_ms(lambda: bn_relu.phase2_plain(x, dy, a, b, mean, g, c1,
+                                                    c2, relu), flush)
         # bytes the function must move: x and dy read once, dx written
         # once; the per-channel vectors in (a, b, mean, inv, gamma; g, c1,
         # c2 for phase 2) and out (dgamma, dbeta, g, c1, c2 for phase 1)
@@ -534,13 +554,13 @@ def phase_timing(dev, per_step, card_name, errs):
             dy = dy.contiguous(memory_format=torch.channels_last)
             wf = gamma.float()
             cnt_t = torch.tensor([n * h * w], dtype=torch.int32, device=dev)
-            l1 = time_ms(lambda: torch.ops.aten.batch_norm_backward_reduce(
-                dy, x, mean, inv, wf, True, True, True), flush, iters)
-            l2 = time_ms(lambda: torch.ops.aten.batch_norm_backward_elemt(
-                dy, x, mean, inv, wf, s1, s2, cnt_t), flush, iters)
-            ln = time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+            l1 = median_ms(lambda: torch.ops.aten.batch_norm_backward_reduce(
+                dy, x, mean, inv, wf, True, True, True), flush)
+            l2 = median_ms(lambda: torch.ops.aten.batch_norm_backward_elemt(
+                dy, x, mean, inv, wf, s1, s2, cnt_t), flush)
+            ln = median_ms(lambda: torch.ops.aten.native_batch_norm_backward(
                 dy, x, wf, None, None, mean, inv, True, 1e-5,
-                [True, True, True]), flush, iters)
+                [True, True, True]), flush)
             for phase, lt in ((1, l1), (2, l2)):
                 t = tot[bn_relu.kernel_name(phase, False)]
                 t["library_ms"] = (t["library_ms"] or 0.0) + cnt * lt
@@ -555,7 +575,7 @@ def phase_timing(dev, per_step, card_name, errs):
     # what every "alone" time carries besides the kernel: a one-element
     # fill timed the same way (launch and event overhead, L2 write-back)
     tiny = torch.empty(1, device=dev)
-    floor = time_ms(lambda: tiny.zero_(), flush, 30)
+    floor = median_ms(lambda: tiny.zero_(), flush)
     log(f"  timing floor: a one-element fill timed the same way takes "
         f"{1e3 * floor:.1f} us; x53 BN layers = {53 * floor:.3f} ms per "
         f"step in each 'alone' sum")
@@ -593,28 +613,18 @@ ATTN_SOURCE = "deeplearning4j_tpu_torch/csrc/causal_attention.cu"
 ATTN_REPLACES = "deeplearning4j_tpu/ops/nn_ops.py:462"
 ATTN_TILE = 64               # the kernels' key tile
 GPT_BATCH, GPT_SEQ, GPT_STEPS = 16, 512, 8
-BF16_TC_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
-
-
-def attn_inputs(dev, b, h, sq, sk, d, dtype, split, seed=0):
-    """q, k, v and dO on the card; with ``split`` q, k and v are the views
-    build_gpt hands the op (one [B, S, H, 3D] tensor, permuted, split)."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    if split:
-        qkv = torch.randn(b, sq, h, 3 * d, device=dev, generator=g).to(
-            dtype).permute(0, 2, 1, 3)
-        q, k, v = torch.split(qkv, d, dim=3)
-    else:
-        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
-                   for s in (sq, sk, sk))
-    do = torch.randn(b, h, sq, d, device=dev, generator=g).to(dtype)
-    return q, k, v, do
 
 
 def attn_grads(fn, q, k, v, do, causal):
     q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
     o = fn(q, k, v, causal=causal)
     return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+
+def nan_fails(ratio):
+    """A ratio to a tolerance, with NaN (a NaN on either side) read as
+    infinitely far: ``max`` and ``<=`` would let a NaN pass."""
+    return math.inf if math.isnan(ratio) else ratio
 
 
 def check_attention(q, k, v, do, causal, errs, label):
@@ -675,7 +685,7 @@ def check_attention(q, k, v, do, causal, errs, label):
             ("attention_bwd_dkdv", dv, pdv, t_dv, rel),
             ("attention_bwd_dq", dq, pdq, t_dq, rel)):
         err = (x.double() - p.double()).abs()
-        ratio = float((err / (r * t).clamp_min(1e-300)).max())
+        ratio = nan_fails(float((err / (r * t).clamp_min(1e-300)).max()))
         by_kernel[kname] = max(by_kernel.get(kname, 0.0), ratio)
         worst = max(worst, ratio)
         errs[kname] = max(errs.get(kname, 0.0), float(err.max()))
@@ -691,7 +701,8 @@ def check_attention(q, k, v, do, causal, errs, label):
             ep = float((p.float() - r).abs().max())
             mag = float(r.abs().max())
             ulp = 2.0 ** (math.floor(math.log2(mag)) - 7) if mag > 0 else 0.0
-            e2e = max(e2e, ek / (2 * ep + ulp + 1e-5 * float(t.max())))
+            e2e = max(e2e, nan_fails(ek / (2 * ep + ulp + 1e-5 * float(
+                t.max()))))
             parts.append(f"{ek:.3e}/{ep:.3e}")
         detail = "kernel/plain-bf16 error vs f32 (O dq dk dv): " + " ".join(
             parts)
@@ -701,8 +712,8 @@ def check_attention(q, k, v, do, causal, errs, label):
                              label)
     else:
         want = attn_grads(at.sdpa_plain, q, k, v, do, causal)
-        e2e = max(float(((x.double() - w.double()).abs() / (
-            rel_acc * t).clamp_min(1e-300)).max())
+        e2e = max(nan_fails(float(((x.double() - w.double()).abs() / (
+            rel_acc * t).clamp_min(1e-300)).max()))
             for x, w, t in zip(got, want, (t_o, t_dq, t_dk, t_dv)))
         detail = ""
     ok = worst <= 1 and e2e <= 1 and same
@@ -747,7 +758,9 @@ def control_readings(q, k, v, do, got, terms, rel, label):
 def phase_attention(dev, errs):
     """The attention kernels against their plain versions: the GPT path's
     shape at build_gpt's strides, ragged lengths, non-causal, Sq < Sk,
-    Sq > Sk (fully masked rows), in bf16, float32 and float64."""
+    Sq > Sk (fully masked rows), the bf16 kernels' tile edges (Sq, Sk in
+    127, 128, 129, 257 at every head dim), in bf16, float32 and float64;
+    then views whose rows are not on 16 bytes, which the wrappers copy."""
     bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
     cases = [  # (b, h, sq, sk, d, causal, dtype, split)
         (GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 128, True, bf, True),
@@ -758,20 +771,66 @@ def phase_attention(dev, errs):
         (1, 4, 100, 300, 64, True, bf, False),
         (1, 4, 300, 100, 64, True, bf, False),
         (2, 3, 128, 128, 128, True, bf, True),
+        # the tile edges: 64-key and 128-query tiles, 64-key dk/dv blocks
+        (1, 2, 127, 127, 16, True, bf, False),
+        (1, 2, 128, 128, 32, False, bf, False),
+        (1, 2, 129, 129, 64, True, bf, False),
+        (1, 2, 257, 257, 128, True, bf, False),
+        (1, 2, 129, 257, 128, True, bf, False),
+        (1, 2, 257, 129, 64, True, bf, False),
+        (1, 2, 128, 127, 32, True, bf, False),
+        (1, 2, 127, 129, 16, False, bf, False),
+        (2, 3, 257, 257, 64, True, bf, True),
+        (1, 2, 129, 129, 128, False, bf, True),
         (1, 4, 77, 77, 64, True, f32, False),
         (1, 4, 200, 200, 16, False, f32, False),
         (1, 4, 300, 100, 128, True, f32, False),
+        (1, 2, 129, 257, 128, True, f32, False),
         (1, 4, 77, 77, 64, True, f64, False),
         (1, 4, 100, 300, 16, True, f64, False),
         (1, 4, 300, 100, 128, True, f64, True),
+        (1, 2, 257, 129, 64, True, f64, False),
     ]
     for b, h, sq, sk, d, causal, dtype, split in cases:
-        q, k, v, do = attn_inputs(dev, b, h, sq, sk, d, dtype, split)
+        q, k, v, do = attention_inputs(dev, b, h, sq, sk, d, dtype, split)
         check_attention(q, k, v, do, causal, errs,
                         f"{str(dtype)[6:]:8s} ({b},{h},{sq},{sk},{d}) "
                         f"causal={int(causal)}{' strided' if split else ''}")
         del q, k, v, do
+    check_alignment_copies(dev)
     torch.cuda.empty_cache()
+
+
+def check_alignment_copies(dev):
+    """bf16 q, k, v whose rows are 130 bytes apart (not on 16 bytes, as TMA
+    needs) and a dO that starts 2 bytes into its storage: the wrappers copy
+    each (three in the forward, four in the backward), and O and the grads
+    are bit-equal to those of the same values laid out contiguously."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    b, h, s, d = 1, 2, 129, 64
+    q, k, v, do = attention_inputs(dev, b, h, s, s, d, torch.bfloat16, False)
+    wide = [torch.zeros(b, h, s, d + 1, dtype=torch.bfloat16, device=dev)
+            for _ in range(3)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., :d] = t
+    qo, ko, vo = (w[..., :d] for w in wide)
+    flat = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device=dev)
+    doo = flat[1:].view(do.shape)
+    doo.copy_(do)
+    at.reset_launches()
+    got = at.attention_fwd(qo, ko, vo, True)
+    got = got + at.attention_bwd(qo, ko, vo, got[0], doo, got[1], True)
+    copies = (dict(at.ALIGN_COPIES), at.DOUT_COPIES["attention_bwd"])
+    o, st = at.attention_fwd(q, k, v, True)
+    want = (o, st) + at.attention_bwd(q, k, v, o, do, st, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    ok = same and copies == ({"attention_fwd": 3, "attention_bwd": 3}, 1)
+    log(f"  bf16 (1,2,129,129,64) causal, rows 130 bytes apart, dO 2 bytes "
+        f"in: copies {copies}, O, stats and grads bit-equal to the "
+        f"contiguous call's {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the alignment copies are wrong")
 
 
 def _tensor_rel(a, b):
@@ -869,6 +928,7 @@ def phase_gpt(dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, copies = dict(at.LAUNCHES), at.DOUT_COPIES["attention_bwd"]
+    aligned = dict(at.ALIGN_COPIES)
     peak = torch.cuda.max_memory_allocated()
     step_ms = 1000 * wall / GPT_STEPS
     tokens = GPT_BATCH * GPT_SEQ * GPT_STEPS / wall
@@ -877,7 +937,8 @@ def phase_gpt(dev, card):
         f"{tokens:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB  [{card}]")
     log(f"  loss per step: {[round(v, 4) for v in losses]} (ln vocab "
         f"{math.log(cfg.vocab_size):.4f})")
-    log(f"  attention launches {launches}, dO copies {copies}")
+    log(f"  attention launches {launches}, dO copies {copies}, q/k/v "
+        f"alignment copies {aligned}")
     L = cfg.num_layers
     want = {"attention_fwd": 2 * L * GPT_STEPS,
             **{k: L * GPT_STEPS for k in ATTN_KERNELS[1:]}}
@@ -885,6 +946,9 @@ def phase_gpt(dev, card):
         raise SystemExit(f"GPT-medium losses {warm.step_losses} {losses}")
     if launches != want:
         raise SystemExit(f"attention launches {launches}, want {want}")
+    if copies or any(aligned.values()):
+        raise SystemExit(f"the path copied attention inputs: dO {copies}, "
+                         f"q/k/v {aligned}")
     metrics = {"step_ms": step_ms, "tokens_per_s": tokens,
                "peak_mem_gib": peak / 2**30, "losses": losses,
                "dout_copies": copies}
@@ -1012,43 +1076,20 @@ def profile_gpt(sd, it, step_ms, card):
             "kernel_ms": attn}
 
 
-def attention_bounds(b, h, sq, sk, d, causal):
-    """Per call, (operations, bytes) each kernel must do and move: the
-    products over the score entries the causal mask leaves (2 FLOP per
-    multiply-add; forward QK^T and PV, dk/dv S^T, dP^T, P^T dO and dS^T q,
-    dq S, dP and dS k) and every input read once, every output written
-    once (bf16 tensors, float32 stats and delta)."""
-    off = sk - sq
-    vis = sum(min(sk, max(0, i + off + 1)) if i + off >= 0 else sk
-              for i in range(sq)) if causal else sq * sk
-    ent = b * h * vis
-    t = 2 * b * h * d                      # bytes per row of a bf16 tensor
-    rows_q, rows_k = sq, sk
-    return {
-        "attention_fwd": (4 * d * ent, t * (rows_q + 2 * rows_k + rows_q)
-                          + b * h * sq * 8),
-        "attention_bwd_delta": (2 * d * b * h * sq,
-                                t * 2 * rows_q + b * h * sq * 4),
-        "attention_bwd_dkdv": (8 * d * ent,
-                               t * (2 * rows_q + 2 * rows_k + 2 * rows_k)
-                               + b * h * sq * 12),
-        "attention_bwd_dq": (6 * d * ent,
-                             t * (3 * rows_q + 2 * rows_k) + b * h * sq * 12),
-    }
-
-
 def phase_attention_timing(dev, card_name, per_step):
     """At the GPT path's shape and strides, each attention kernel alone
     (cold L2), its plain version, and the library yardstick
     ``F.scaled_dot_product_attention(..., is_causal=True)`` forward and
-    backward (timed only; the port never calls it), per training step
-    (the kernel's launches per step times its time per call), beside the
-    least time the card could take."""
+    backward (timed only; the port never calls it), each the median of 20
+    calls (3 for the plain versions) timed by ``median_ms``, per training
+    step (the kernel's launches per step times its time per call), beside
+    the least time the card could take; then the host's time of a forward
+    call, of its launch alone, and of encoding its three tensor maps."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import attention as at
     bw, flops32 = card_rates(card_name)
     b, h, s, d = GPT_BATCH, 12, GPT_SEQ, 128
-    q, k, v, do = attn_inputs(dev, b, h, s, s, d, torch.bfloat16, True)
+    q, k, v, do = attention_inputs(dev, b, h, s, s, d, torch.bfloat16, True)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     sc = 1.0 / math.sqrt(d)
     o, st = at.attention_fwd(q, k, v, True)
@@ -1074,15 +1115,15 @@ def phase_attention_timing(dev, card_name, per_step):
     }
     bounds = attention_bounds(b, h, s, s, d, True)
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        lq, lk, lv, is_causal=True), flush, 10)
+    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True), flush)
     lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lo, (lq, lk, lv), do, retain_graph=True), flush, 10)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True), flush)
     out = {}
     for name, (kern, plain) in runs.items():
-        per_call = time_ms(kern, flush, 20)
-        plain_call = time_ms(plain, flush, 3)
+        per_call = median_ms(kern, flush)
+        plain_call = median_ms(plain, flush, 3)
         ops, nbytes = bounds[name]
         rate = BF16_TC_FLOPS if name != "attention_bwd_delta" else flops32
         by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / rate
@@ -1101,16 +1142,57 @@ def phase_attention_timing(dev, card_name, per_step):
             f"({out[name]['bound_by']}), {ops / per_call / 1e9:.1f} TFLOP/s")
     fwd = out["attention_fwd"]["per_call_ms"]
     bwd = sum(out[k]["per_call_ms"] for k in ATTN_KERNELS[1:])
-    log(f"  per call: kernels forward {fwd:.4f} + backward {bwd:.4f} ms; "
-        f"library F.scaled_dot_product_attention forward {lib_fwd:.4f} + "
-        f"backward {lib_bwd:.4f} ms (timed only)")
+    bound_f = out["attention_fwd"]["bound_per_call_ms"]
+    bound_b = sum(out[k]["bound_per_call_ms"] for k in ATTN_KERNELS[1:])
+    ops_f = bounds["attention_fwd"][0]
+    ops_b = sum(bounds[k][0] for k in ATTN_KERNELS[1:])
+    log(f"  per call (median of 20): kernels forward {fwd:.4f} + backward "
+        f"{bwd:.4f} ms; library F.scaled_dot_product_attention forward "
+        f"{lib_fwd:.4f} + backward {lib_bwd:.4f} ms (timed only)")
+    log(f"  kernel/library: forward {fwd / lib_fwd:.3f}, backward "
+        f"{bwd / lib_bwd:.3f}; TFLOP/s kernels {ops_f / fwd / 1e9:.1f} / "
+        f"{ops_b / bwd / 1e9:.1f}, library {ops_f / lib_fwd / 1e9:.1f} / "
+        f"{ops_b / lib_bwd / 1e9:.1f}; bound/kernel forward "
+        f"{bound_f / fwd:.3f}, backward {bound_b / bwd:.3f}")
     for name in ATTN_KERNELS[1:]:
         out[name]["library_pass_ms"] = per_step[name] * lib_bwd
     out["attention_fwd"]["library_pass_ms"] = per_step["attention_fwd"] * \
         lib_fwd
+    # the host's side of a forward call (the GPT step's idle share is the
+    # host's): the whole wrapper; its launch alone (outputs allocated
+    # before); the delta kernel's launch through the same C entry and
+    # arguments, which encodes no tensor map and launches plainly; and
+    # the forward's three tensor maps encoded alone
+    # (the host's clock is noisy: 7 rounds of 100 calls each, the three
+    # taken in turn, and the median round)
+    out_, st_, dl_ = (torch.empty_like(t) for t in (o, st, delta))
+    calls = {
+        "wrapper": lambda: at.attention_fwd(q, k, v, True),
+        "launch": lambda: at._launch("dl4j_attention_fwd", q, k, v, sc, True,
+                                     out=out_, stats=st_),
+        "delta": lambda: at._launch("dl4j_attention_bwd_delta", q, k, v, sc,
+                                    True, delta=dl_, **common)}
+    rounds = {what: [] for what in calls}
+    for _ in range(7):
+        for what, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            rounds[what].append(1e4 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    host = {what: float(np.median(r)) for what, r in rounds.items()}
+    enc_us = tensor_map_encode_us((q, k, v), 128)
+    log(f"  host time of a forward call: {host['wrapper']:.1f} us (wrapper: "
+        f"checks, outputs, launch), {host['launch']:.1f} us (its launch: "
+        f"arguments, the C entry, 3 tensor maps, the persistent launch); "
+        f"the delta kernel's launch {host['delta']:.1f} us (no tensor map, "
+        f"a plain launch); the forward's 3 maps encoded alone through "
+        f"ctypes {enc_us:.2f} us (ctypes' cost included)")
     del flush, q, k, v, do
     torch.cuda.empty_cache()
-    return out, {"lib_fwd_ms": lib_fwd, "lib_bwd_ms": lib_bwd}
+    return out, {"lib_fwd_ms": lib_fwd, "lib_bwd_ms": lib_bwd,
+                 "host_us": host, "encode_us": enc_us}
 
 
 # ----------------------------------------------------------------------
@@ -1144,6 +1226,8 @@ def main():
         for line in (build or {}).get("log", "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    log("  the bf16 attention kernels' SASS (cuobjdump -sass) and spills:")
+    check_attention_build()
 
     log("[2/9] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")

@@ -23,52 +23,81 @@
 //   dS    = P * (dO . v^T - delta), 0 where masked (the mask's `where`
 //           passes no gradient to a masked score)
 //   dv    = P^T . dO,  dk = scale * dS^T . q,  dq = scale * dS . k
-// Three launches, no atomics: delta; dk and dv with one block per key tile
-// looping over the query tiles; dq with one block per query tile looping
+// Three launches, no atomic sums: delta; dk and dv over the key tiles,
+// each looping over the query tiles; dq over the query tiles, each looping
 // over the key tiles. Every sum runs in a fixed order: two calls are
 // bit-equal.
 //
-// Types: bf16 (the main path: tensor cores through mma.sync m16n8k16,
-// float32 accumulation, P and dS rounded to bf16 before their products, as
-// the reference rounds P before P . v), float32 and float64 (one warp per
-// row, scalar FMAs: the card-against-CPU checks). D in {16, 32, 64, 128}.
+// Types: bf16 (the main path: wgmma tensor cores fed by TMA, float32
+// accumulation, P and dS rounded to bf16 before their products, as the
+// reference rounds P before P . v), float32 and float64 (one warp per row,
+// scalar FMAs: the card-against-CPU checks). D in {16, 32, 64, 128}.
 //
 // What bounds it: at GPT-medium's shape (16 x 12 heads x 512 x 128, causal)
 // one forward is 12.9 GFLOP of products (0.013 ms at 989 TFLOP/s) on 100
-// MB of q, k, v and O (0.030 ms at 3.35 TB/s), so the least time is set
-// by the bytes; the backward's three kernels likewise. These kernels run
-// at ~4-6x that bound (~100-120 TFLOP/s on an H100, PERF.md); what holds
-// them there is not measured yet (masking only the diagonal tiles changed
-// nothing). wgmma and TMA are the tools for a faster version.
+// MB of q, k, v and O (0.030 ms at 3.35 TB/s), so the least time is set by
+// the bytes; the backward's kernels likewise. What held the first design
+// (mma.sync, 4 warps, 64-row tiles, cp.async; ~110 TFLOP/s, 2x slower than
+// PyTorch's fused attention) to 4-6x that bound: every warp reloaded every
+// K and V fragment from shared memory with its own ldmatrix, mma.sync tops
+// out well under Hopper's tensor-core rate, only 8 warps fit an SM, and
+// each block's prologue and scalar epilogue were a large share of its time.
+// What bounds this design (ablations in PERF.md): each consumer warpgroup
+// runs its scores' product, softmax and second product in turn, so the
+// tensor cores wait while the softmax (and the tile loads behind it) run;
+// overlapping them would need more registers than the compiler gives a
+// consumer thread here (168: setmaxnreg moves the registers at run time
+// but did not raise ptxas's budget).
 //
-// What the design does about it:
-// - Blocks of 4 warps; each warp owns 16 rows (the mma's M) of the block's
-//   tile, so a K or V tile in shared memory serves four warps.
-// - The scores never leave registers: the accumulator fragment of
-//   S = Q K^T is, element for element, the A fragment of P . V, so P is
-//   rescaled, rounded and fed back without a trip through memory.
+// What this design does (the bf16 kernels):
+// - Persistent, warp specialised blocks of three warpgroups, one per SM.
+//   Work items (a 128-query tile, or a 64-key tile for dk and dv, of one
+//   head) come in order from an atomic counter, the launch's own (the
+//   wrapper keeps one per stream), which schedules and sums nothing: a
+//   head's tiles together, so that K and V (q and dO) are read from device
+//   memory about once, the heaviest causal tile first. In the producer
+//   warpgroup one thread loads an item's resident tiles into one of two
+//   buffers, so the next item's load overlaps this one's work, and keeps a
+//   ring of streamed tiles in flight, with full and empty mbarriers for
+//   each.
+// - Tiles land in shared memory through 4-D tensor maps (D, S, H, B) built
+//   from each tensor's own strides, swizzled at the row's width (32, 64 or
+//   128 bytes; D = 128 is two 64-column blocks), so that build_gpt's split
+//   views of one projection need no copy and wgmma reads them without bank
+//   conflicts. The wrapper copies a view whose base or strides are not
+//   16-byte multiples first (TMA's rule) and counts the copy.
+// - Products are wgmma.mma_async m64nNk16 with both operands in shared
+//   memory (K-major descriptors) for the scores, and with P or dS as the
+//   register A operand for the second product (the float32 accumulator
+//   fragment packs into the A fragment element for element), its B operand
+//   MN-major through the descriptor's transpose bit: V for O, dO and q for
+//   dv and dk, k for dq. The scores never leave registers.
+// - dk and dv: the two consumer warpgroups share 64 keys and split the
+//   products (P^T and dv; dP^T, dS^T and dk), handing P^T over through
+//   shared memory, so that each holds one accumulator and none spills.
 // - Causal tiles above the diagonal are skipped: a masked score adds
 //   2^(-1.4e30) = 0 to a row that has a visible key, so skipping is exact.
 //   A query tile holding a fully masked row (Sq > Sk) visits every key.
-// - Tiles are copied to shared memory with cp.async (16 bytes a thread,
-//   zero-filled past the sequence's end) and double-buffered: the next
-//   key (or query) tile's copies are in flight while the current one is
-//   multiplied. Rows are padded by 8 elements, so that ldmatrix reads
-//   them without bank conflicts; every mma fragment comes from ldmatrix,
-//   and its .trans form serves the products that need a tile transposed
-//   (V for P . V; q and dO for dk and dv; k for dq).
-// - q, k, v and dO are read at their own (batch, head, row) strides with
-//   the last stride 1: the views that split one [B, S, H, 3D] projection
-//   need no copy. 16-byte loads where every row is 16-byte aligned.
-// - Heavy causal tiles (the last query tiles, the first key tiles) are
-//   scheduled first.
+//   Only tiles that cross the diagonal or the sequence's end are masked,
+//   by selects (a branch an element cost more than the products).
+//   TMA zero-fills rows past the end; their scores are set to -inf.
+// - Outputs go through shared memory (the warpgroup's own rows of its
+//   resident tile, in the same swizzle) and 16-byte coalesced stores.
 // - The wrapper allocates every output; nothing here allocates, and every
-//   launch goes on PyTorch's current stream.
+//   launch goes on PyTorch's current stream. The tensor maps are encoded
+//   on the host per call (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint: the library does not link libcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <set>
 
 namespace {
 
@@ -77,6 +106,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr double kLog2eD = 1.4426950408889634;
 constexpr float kMasked = -1e30f;
+constexpr float kMasked2 = kMasked * kLog2e;   // a masked score in base-2 units
 
 struct Strides {
   int64_t b, h, s;   // element strides of batch, head and row; d's is 1
@@ -99,13 +129,16 @@ struct AttnArgs {
   int64_t off;        // Sk - Sq: key j is masked for query i when j > i + off
   double scale;
   int causal;
-  int vec;            // every row of q, k, v and dO is 16-byte aligned
+  int* work;          // bf16 forward, dk/dv, dq: this launch's work counter
 };
 
-__device__ __forceinline__ const uint16_t* row_base(const void* p, const Strides& s, int64_t bh,
-                                                    int64_t H) {
-  return static_cast<const uint16_t*>(p) + (bh / H) * s.b + (bh % H) * s.h;
-}
+// The bf16 kernels' argument: the tensor maps of q, k, v and dO (each read
+// at its own strides; a kernel uses those it needs), and the rest.
+struct TmaArgs {
+  CUtensorMap tq, tk, tv, tdo;
+  AttnArgs a;
+  int items;   // work items: (tile, batch * head), a head's tiles together
+};
 
 template <typename T>
 __device__ __forceinline__ const T* row_base_t(const void* p, const Strides& s, int64_t bh,
@@ -118,99 +151,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// c += a . b for one m16n8k16 tile: bf16 inputs, float32 accumulators.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory, one row address per lane
-// (lanes 8i..8i+7 give matrix i's rows); ``trans`` delivers them transposed.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// The A fragment of the 16 x 16 block at `p` of a row-major tile (row
-// stride `ld`): rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9.
-__device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* p, int ld, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4(a, p + ((i & 1) * 8 + r) * ld + (i >> 1) * 8);
-}
-
-// The B fragments of two n-tiles (n0 and n0 + 8; b[0..1] and b[2..3]) for
-// one k16 step, where B[k][n] = T[n][k] and `p` points at T[n0][k0] of a
-// row-major tile T (k contiguous).
-__device__ __forceinline__ void load_b_nk(uint32_t b[4], const uint16_t* p, int ld, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4(b, p + ((i >> 1) * 8 + r) * ld + (i & 1) * 8);
-}
-
-// The same where B[k][n] = T[k][n] (n contiguous): `p` points at
-// T[k0][n0]; the matrices are loaded transposed.
-__device__ __forceinline__ void load_b_kn(uint32_t b[4], const uint16_t* p, int ld, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4_t(b, p + ((i & 1) * 8 + r) * ld + (i >> 1) * 8);
-}
-
-// An A fragment from two accumulator tiles (columns 0-7 and 8-15).
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4], const float hi[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + ROWS) of a [S, D] slab (row stride rs) into dst[ROWS][LD],
-// zero past row S. Consecutive threads take consecutive 16-byte chunks:
-// asynchronous copies (cp.async, zero-filled past S) when every row is
-// 16-byte aligned, else plain loads and stores.
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src, int64_t rs,
-                                          int64_t r0, int64_t S, int vec) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const bool in = r0 + r < S;
-    if (vec) {
-      const uint16_t* p = in ? src + (r0 + r) * rs + c : src;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       smem_addr(dst + r * LD + c)),
-                   "l"(p), "r"(in ? 16 : 0));
-    } else {
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (in) {
-        const uint16_t* p = src + (r0 + r) * rs + c;
-        val.x = p[0] | (static_cast<uint32_t>(p[1]) << 16);
-        val.y = p[2] | (static_cast<uint32_t>(p[3]) << 16);
-        val.z = p[4] | (static_cast<uint32_t>(p[5]) << 16);
-        val.w = p[6] | (static_cast<uint32_t>(p[7]) << 16);
-      }
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-  }
 }
 
 // The end of the keys a causal query tile [q0, q0 + rows) must visit.
@@ -231,6 +173,14 @@ __device__ __forceinline__ int64_t query_begin(const AttnArgs& p, int64_t j0, in
   return (b / step) * step;
 }
 
+// 2^x by the SFU (ex2.approx.ftz: denormal results flush to 0, which
+// bf16's P and dS lose anyway); exp2f adds a denormal range fix around it.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -249,172 +199,621 @@ __device__ __forceinline__ T warp_sum(T x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward: one block per (batch * head, 64-query tile). The K and V
-// tiles are double-buffered: the next tile's copies are in flight while
-// the current one is multiplied.
-constexpr int kFwdBM = 64;
-constexpr int kFwdBN = 64;
+// Hopper primitives: mbarriers, TMA loads, wgmma.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-template <int D>
-struct FwdShape {
-  static constexpr int LD = D + 8;
-  static constexpr int kSmem = (kFwdBM + 4 * kFwdBN) * LD * 2;   // Q, K[2], V[2]
+// Arrive, and expect `bytes` more of TMA traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a fault in the phase bookkeeping) traps after 2^20 polls rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == (1u << 20)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers in place around an asynchronous wgmma: the compiler may
+// neither read an accumulator before the wait nor reuse an A fragment's
+// registers while the product still reads them.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Hand the producer warpgroup's registers to the consumer warpgroups. A
+// 384-thread block gets 168 registers a thread; the two consumer
+// warpgroups run at 240 (dk and dv at D = 128 hold 128 accumulator
+// registers a thread), the producer at 24. One block fills an SM's
+// registers, so the consumers' request is always met. Each runs once, at
+// the top of its role's branch; the branches never meet again.
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x N, float32, the accumulator fragment) += A . B for one k16 step.
+// ss: A (64 x 16) and B (N x 16) both K-major in shared memory; scale_d = 0
+// overwrites d. rs: A from registers (the m16n8k16 A fragment of each
+// warp's 16 rows), B (16 x N) MN-major in shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) attention_fwd_bf16(AttnArgs p) {
-  using S = FwdShape<D>;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* qs = smem;                             // [BM][LD]
-  uint16_t* ks = qs + kFwdBM * LD;                 // [2][BN][LD]
-  uint16_t* vs = ks + 2 * kFwdBN * LD;             // [2][BN][LD]
-  const int64_t bh = blockIdx.x;
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kFwdBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const float scale = static_cast<float>(p.scale);
-  const uint16_t* kb = row_base(p.k, p.sk, bh, p.H);
-  const uint16_t* vb = row_base(p.v, p.sv, bh, p.H);
-  const int64_t kend = key_end(p, q0, kFwdBM, true);
-  const int ntiles = static_cast<int>((kend + kFwdBN - 1) / kFwdBN);
-
-  load_rows<kFwdBM, D, LD>(qs, row_base(p.q, p.sq, bh, p.H), p.sq.s, q0, p.Sq, p.vec);
-  cp_async_commit();
-  load_rows<kFwdBN, D, LD>(ks, kb, p.sk.s, 0, p.Sk, p.vec);
-  load_rows<kFwdBN, D, LD>(vs, vb, p.sv.s, 0, p.Sk, p.vec);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qa[kk], qs + wr * LD + kk * 16, LD, lane);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-  const int64_t row0 = q0 + wr + g;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int64_t k0 = static_cast<int64_t>(it) * kFwdBN;
-    const uint16_t* kt = ks + (it & 1) * kFwdBN * LD;
-    const uint16_t* vt = vs + (it & 1) * kFwdBN * LD;
-    if (it + 1 < ntiles) {
-      const int nx = (it + 1) & 1;
-      load_rows<kFwdBN, D, LD>(ks + nx * kFwdBN * LD, kb, p.sk.s, k0 + kFwdBN, p.Sk, p.vec);
-      load_rows<kFwdBN, D, LD>(vs + nx * kFwdBN * LD, vb, p.sv.s, k0 + kFwdBN, p.Sk, p.vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[kFwdBN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kFwdBN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kFwdBN / 16; ++np) {
-        uint32_t b[4];
-        load_b_nk(b, kt + np * 16 * LD + kk * 16, LD, lane);
-        mma16816(s[2 * np], qa[kk], b[0], b[1]);
-        mma16816(s[2 * np + 1], qa[kk], b[2], b[3]);
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kFwdBN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t row = row0 + (e >> 1) * 8;
-        const int64_t col = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * scale;
-        if (col >= p.Sk) {
-          x = -INFINITY;                          // no such key
-        } else if (p.causal && col > row + p.off) {
-          x = kMasked;
-        }
-        x *= kLog2e;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mnew = fmaxf(mrow[r], quad_max(mx[r]));
-      corr[r] = exp2f(mrow[r] - mnew);
-      mrow[r] = mnew;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kFwdBN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[n][e] - mrow[e >> 1]);
-        s[n][e] = pv;
-        rs[e >> 1] += pv;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kFwdBN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        load_b_kn(b, vt + kk * 16 * LD + dp * 16, LD, lane);
-        mma16816(o[2 * dp], a, b[0], b[1]);
-        mma16816(o[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
-  uint16_t* ob = static_cast<uint16_t*>(p.out) + bh * p.Sq * D;
-  float* st = static_cast<float*>(p.stats) + bh * p.Sq * 2;
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// A tile of R rows of a [S, D] bf16 slab, as TMA lays it in shared memory:
+// D / CB column blocks of R rows each, one after the other; a block's row
+// is RB bytes, swizzled at that width (16-byte chunk c of row r sits at
+// chunk c ^ ((r * RB / 128) % (RB / 16))). Every tile starts on 1024 bytes.
+template <int D>
+struct Geo {
+  static constexpr int RB = D >= 64 ? 128 : 2 * D;   // bytes of a block's row
+  static constexpr int CB = RB / 2;                   // columns of a block
+  static constexpr int NB = D / CB;                   // blocks (2 at D = 128)
+  static constexpr uint64_t kLayout = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // descriptor
+};
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64 or N) of a tile of R rows at k
+// step kk (columns 16kk .. 16kk + 15): 8-row groups SBO = 8 RB apart, the k
+// step 32 bytes into the swizzled row.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  using G = Geo<D>;
+  constexpr int per = G::CB / 16;
+  return make_desc(tile + (kk / per) * R * G::RB + row0 * G::RB + (kk % per) * 32, 16,
+                   8 * G::RB, G::kLayout);
+}
+
+// MN-major operand B[k][n] = T[k][n] (n contiguous): rows 16kk .. 16kk + 15
+// of a tile of R rows, all D columns: 8-row groups SBO = 8 RB apart along
+// k, column blocks LBO = R RB apart along n.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using G = Geo<D>;
+  return make_desc(tile + kk * 16 * G::RB, R * G::RB, 8 * G::RB, G::kLayout);
+}
+
+// Rows [r0, r0 + R) of (batch b, head h)'s slab into the tile at `dst`.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& m, uint32_t bar,
+                                          int64_t r0, int h, int b) {
+  using G = Geo<D>;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(lrow[r]);
-    const int64_t row = row0 + r * 8;
-    if (row < p.Sq) {
-      const float inv = 1.f / l;
+  for (int c = 0; c < G::NB; ++c)
+    tma_load(dst + c * R * G::RB, &m, bar, c * G::CB, static_cast<int>(r0), h, b);
+}
+
+// Byte offset of element (row, col) in a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  using G = Geo<D>;
+  const int blk = col / G::CB, cc = col % G::CB, chunk = cc / 8;
+  return blk * R * G::RB + row * G::RB +
+         ((chunk ^ ((row * G::RB >> 7) & (G::RB / 16 - 1))) << 4) + (cc % 8) * 2;
+}
+
+// A warpgroup's 64 x D accumulator, times mul[0] (rows g) and mul[1]
+// (rows g + 8), rounded to bf16 into tile rows [row0, row0 + 64).
+template <int D, int R>
+__device__ __forceinline__ void stage_acc(uint8_t* tile, const float (&acc)[D / 2],
+                                          const float (&mul)[2], int row0, int t) {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(ob + row * D + i * 8 + 2 * t) =
-            pack_bf16(o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(tile + swz<D, R>(row0 + 8 * r, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * r] * mul[r], acc[4 * j + 2 * r + 1] * mul[r]);
+}
+
+// Tile rows [row0, row0 + 64) to rows [g0, g0 + 64) of the contiguous
+// [S, D] slab `dst`, those below S, 16 bytes a thread (one warpgroup).
+template <int D, int R>
+__device__ __forceinline__ void store_rows(uint16_t* dst, const uint8_t* tile, int row0,
+                                           int64_t g0, int64_t S, int tid) {
+  constexpr int CH = D / 8;
+  for (int i = tid; i < 64 * CH; i += 128) {
+    const int r = i / CH, c = i % CH;
+    if (g0 + r < S)
+      *reinterpret_cast<uint4*>(dst + (g0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<D, R>(row0 + r, c * 8));
+  }
+}
+
+constexpr int kConsumers = 2;                          // warpgroups of 64 rows
+constexpr int kWsThreads = (kConsumers + 1) * 128;     // + the producer warpgroup
+constexpr int kMaxStages = 4;   // mbarrier slots: a kernel's ring has at most this many stages
+
+// The warp-specialised block's shared memory: two buffers of the resident
+// tiles (a work item's and the next one's), the ring of streamed tiles
+// (ST stages of `Stage` bytes), `Extra` bytes, then the mbarriers:
+// resident buffer b
+// full (b) and free (2 + b), each stage full and empty; 1024 bytes of slack
+// to align the start.
+template <int Resident, int ST, int Stage, int Extra = 0>
+struct Smem {
+  static_assert(ST <= kMaxStages, "ring too deep");
+  static constexpr int kRing = 2 * Resident;
+  static constexpr int kExtra = kRing + ST * Stage;   // `Extra` bytes of the kernel's own
+  static constexpr int kBars = kExtra + Extra;
+  static constexpr int kBytes = 1024 + kBars + 8 * (5 + 2 * kMaxStages);
+};
+
+__device__ __forceinline__ uint32_t res_full(uint32_t bars, int b) { return bars + 8 * b; }
+__device__ __forceinline__ uint32_t res_free(uint32_t bars, int b) { return bars + 8 * (2 + b); }
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) { return bars + 8 * (4 + s); }
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
+  return bars + 8 * (4 + kMaxStages + s);
+}
+__device__ __forceinline__ uint32_t item_slot(uint32_t bars, int b) {
+  return bars + 8 * (4 + 2 * kMaxStages) + 4 * b;
+}
+
+// Work items are handed out in order by an atomic counter, so that a block
+// that drew light items draws more, and the blocks at work at one time
+// share a head's K and V (or q and dO) in L2. The counter schedules only:
+// which block computes an item changes no sum. It is the launch's own pair
+// of ints (next item, blocks done), zero when the launch starts; the block
+// that runs out last sets it back to zero. The wrapper keeps one pair per
+// stream: launches on one stream run one after another, and launches on two
+// streams never share a pair.
+__device__ __forceinline__ int next_item(int* work, int items) {
+  const int w = atomicAdd(&work[0], 1);
+  if (w < items) return w;
+  if (atomicAdd(&work[1], 1) == static_cast<int>(gridDim.x) - 1) {
+    atomicExch(&work[0], 0);
+    atomicExch(&work[1], 0);
+  }
+  return -1;
+}
+
+// The producer publishes work item w (-1: none left) of the block's n-th
+// resident buffer use; the consumers read it once the buffer is full.
+__device__ __forceinline__ void publish_item(uint8_t* sm, uint32_t base, uint32_t bars, int n,
+                                             int w) {
+  *reinterpret_cast<volatile int*>(sm + (item_slot(bars, n & 1) - base)) = w;
+  if (w < 0) mbar_arrive(res_full(bars, n & 1));
+}
+__device__ __forceinline__ int read_item(const uint8_t* sm, uint32_t base, uint32_t bars, int n) {
+  return *reinterpret_cast<const volatile int*>(sm + (item_slot(bars, n & 1) - base));
+}
+
+// Thread 0 sets the barriers up: a full barrier takes one arrival (the
+// producer's, with the bytes to expect), a free or empty barrier one per
+// consumer warpgroup.
+template <int ST>
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(res_full(bars, b), 1);
+      mbar_init(res_free(bars, b), kConsumers);
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_bar(bars, s), 1);
+      mbar_init(empty_bar(bars, s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's wait for ring stage `g % ST` (g counts the tiles it has
+// streamed) to be free again.
+template <int ST>
+__device__ __forceinline__ void wait_free(uint32_t bars, int g) {
+  if (g >= ST) mbar_wait(empty_bar(bars, g % ST), ((g / ST) & 1) ^ 1);
+}
+
+// The producer's wait for resident buffer n & 1 to be free for work item n
+// (the CTA's n-th), and the consumers' wait for it to be loaded.
+__device__ __forceinline__ void wait_res_free(uint32_t bars, int n) {
+  if (n >= 2) mbar_wait(res_free(bars, n & 1), ((n >> 1) & 1) ^ 1);
+}
+__device__ __forceinline__ void wait_res_full(uint32_t bars, int n) {
+  mbar_wait(res_full(bars, n & 1), (n >> 1) & 1);
+}
+
+// A consumer warpgroup is done with resident buffer n & 1, its staging
+// included: order its generic accesses before the next TMA writes there.
+__device__ __forceinline__ void release_res(uint32_t bars, int n, int wg, int tid) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(1 + wg, 128);
+  if (tid == 0) mbar_arrive(res_free(bars, n & 1));
+}
+
+// Scale one 64 x N score fragment to base-2 units (scale2 = scale * log2 e)
+// and, on a tile that crosses the causal diagonal or the last key (`edge`),
+// mask it: -inf past the last key (sk), -1e30 log2 e above the diagonal
+// (past key lim[r] for the rows g + 8r). The fragment's columns are c0 + 8j
+// + (e & 1). Selects, no branches: a mask costs a compare and a select.
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N / 2], const int (&lim)[2], int c0, int sk,
+                                            float scale2, bool edge) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + (e & 1);
+        const float x = s[4 * j + e] * scale2;
+        s[4 * j + e] = c >= sk ? -INFINITY : c > lim[e >> 1] ? kMasked2 : x;
       }
-      if (t == 0) {
-        st[row * 2] = mrow[r];
-        st[row * 2 + 1] = log2f(l);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] *= scale2;
+  }
+}
+
+// The m16n8k16 A fragments of a 64 x N accumulator, one per k16 step.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward, persistent: one block per SM takes work items (128-query
+// tile, batch * head) from the counter, a head's heaviest causal tile
+// first. The producer loads
+// an item's query tile (into the resident buffer the item before last
+// freed, so the next item's load overlaps this one's work) and streams its
+// visible K and V tiles (BN keys) through the ring; each consumer warpgroup
+// runs the online softmax over its 64 rows.
+template <int D>
+struct FwdCfg {
+  static constexpr int BM = 128, BN = 128, ST = 2;
+  static constexpr int kQ = BM * D * 2, kKV = BN * D * 2;
+  using S = Smem<kQ, ST, 2 * kKV>;
+};
+
+// Work item w of a query-tile kernel: (batch * head, first query row), a
+// head's tiles together, its heaviest causal tile first.
+__device__ __forceinline__ void query_item(const AttnArgs& a, int w, int BM, int64_t& bh,
+                                           int64_t& q0) {
+  const int nq = static_cast<int>((a.Sq + BM - 1) / BM);
+  bh = w / nq;
+  q0 = static_cast<int64_t>(nq - 1 - w % nq) * BM;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    attention_fwd_bf16(const __grid_constant__ TmaArgs p) {
+  using C = FwdCfg<D>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::ST;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t ring = base + C::S::kRing, bars = base + C::S::kBars;
+  const AttnArgs& a = p.a;
+  const int warp = threadIdx.x / 32;
+  init_bars<ST>(bars);
+
+  if (warp >= kConsumers * 4) {   // producer warpgroup: one thread issues the loads
+    producer_regs();
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0;   // K/V tiles streamed
+      for (int n = 0;; ++n) {
+        wait_res_free(bars, n);
+        const int w = next_item(a.work, p.items);
+        publish_item(sm, base, bars, n, w);
+        if (w < 0) break;
+        int64_t bh, q0;
+        query_item(a, w, BM, bh, q0);
+        const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+        const int ntiles = static_cast<int>((key_end(a, q0, BM, true) + BN - 1) / BN);
+        const uint32_t rf = res_full(bars, n & 1);
+        mbar_expect_tx(rf, C::kQ);
+        load_tile<D, BM>(base + (n & 1) * C::kQ, p.tq, rf, q0, h, b);
+        for (int it = 0; it < ntiles; ++it, ++g) {
+          wait_free<ST>(bars, g);
+          const uint32_t fb = full_bar(bars, g % ST), kt = ring + (g % ST) * 2 * C::kKV;
+          mbar_expect_tx(fb, 2 * C::kKV);
+          load_tile<D, BN>(kt, p.tk, fb, static_cast<int64_t>(it) * BN, h, b);
+          load_tile<D, BN>(kt + C::kKV, p.tv, fb, static_cast<int64_t>(it) * BN, h, b);
+        }
       }
+    }
+  } else {
+    consumer_regs();
+    const int wg = warp / 4, tid = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int t = lane & 3, rlo = wg * 64 + (warp % 4) * 16 + (lane >> 2);   // tile row of g
+    const float scale2 = static_cast<float>(a.scale) * kLog2e;
+    const int sk = static_cast<int>(a.Sk), off = static_cast<int>(a.off);
+    int g = 0;   // K/V tiles consumed
+    for (int n = 0;; ++n) {
+      wait_res_full(bars, n);
+      const int w = read_item(sm, base, bars, n);
+      if (w < 0) break;
+      int64_t bh, q0;
+      query_item(a, w, BM, bh, q0);
+      const int ntiles = static_cast<int>((key_end(a, q0, BM, true) + BN - 1) / BN);
+      const uint32_t qs = base + (n & 1) * C::kQ;
+      const int64_t row0 = q0 + rlo;
+      // the last key rows g and g + 8 (and the warpgroup's first row) may see
+      const int lim[2] = {a.causal ? static_cast<int>(row0) + off : INT_MAX,
+                          a.causal ? static_cast<int>(row0) + 8 + off : INT_MAX};
+      const int lim_lo = a.causal ? static_cast<int>(q0) + wg * 64 + off : INT_MAX;
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+      for (int it = 0; it < ntiles; ++it, ++g) {
+        const int s = g % ST;
+        const int64_t k0 = static_cast<int64_t>(it) * BN;
+        const uint32_t kt = ring + s * 2 * C::kKV, vt = kt + C::kKV;
+        mbar_wait(full_bar(bars, s), (g / ST) & 1);
+        float sc[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<BN>::ss(sc, desc_k<D, BM>(qs, wg * 64, kk), desc_k<D, BN>(kt, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait();
+        keep(sc);
+        // mask only the tiles that cross the diagonal or the last key
+        const bool edge = k0 + BN > sk || k0 + BN - 1 > lim_lo;
+        mask_scores<BN>(sc, lim, static_cast<int>(k0) + 2 * t, sk, scale2, edge);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mnew = fmaxf(mrow[r], quad_max(mx[r]));
+          corr[r] = ex2(mrow[r] - mnew);
+          mrow[r] = mnew;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          sc[i] = ex2(sc[i] - mrow[r]);
+          rs[r] += sc[i];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + rs[r];
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {   // a new max
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        }
+        uint32_t pa[BN / 16][4];
+        to_a<BN>(pa, sc);
+        keep(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) Wgmma<D>::rs(o, pa[kk], desc_mn<D, BN>(vt, kk));
+        wgmma_commit();
+        wgmma_wait();
+        keep(o);
+        keep(pa);
+        if (tid == 0) mbar_arrive(empty_bar(bars, s));
+      }
+
+      // O = o / l through this warpgroup's rows of the query tile; stats.
+      float inv[2];
+      float* st = static_cast<float*>(a.stats) + bh * a.Sq * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l = quad_sum(lrow[r]);
+        inv[r] = 1.f / l;
+        const int64_t row = row0 + 8 * r;
+        if (t == 0 && row < a.Sq) {
+          st[row * 2] = mrow[r];
+          st[row * 2 + 1] = log2f(l);
+        }
+      }
+      uint8_t* qsm = sm + (n & 1) * C::kQ;
+      stage_acc<D, BM>(qsm, o, inv, rlo, t);
+      named_sync(1 + wg, 128);
+      store_rows<D, BM>(static_cast<uint16_t*>(a.out) + bh * a.Sq * D, qsm, wg * 64,
+                        q0 + wg * 64, a.Sq, tid);
+      release_res(bars, n, wg, tid);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward, any dtype: delta = rowsum(dO * O), one warp per query row.
-template <typename T, typename Acc>
-__device__ __forceinline__ Acc to_acc(T x) {
-  return static_cast<Acc>(x);
-}
-template <>
-__device__ __forceinline__ float to_acc<__nv_bfloat16, float>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T, typename Acc>
+// Backward: delta = rowsum(dO * O). float32 and float64: one warp per
+// query row, in the row's dtype.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) attention_bwd_delta(AttnArgs p) {
   const int64_t bh = blockIdx.x;
   const int64_t row = static_cast<int64_t>(blockIdx.y) * kWarps + threadIdx.x / 32;
@@ -422,310 +821,368 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_delta(AttnArgs p) {
   if (row >= p.Sq) return;
   const T* d = row_base_t<T>(p.dout, p.sdo, bh, p.H) + row * p.sdo.s;
   const T* o = static_cast<const T*>(p.o) + (bh * p.Sq + row) * p.D;
-  Acc acc = 0;
-  for (int64_t c = lane; c < p.D; c += 32) acc += to_acc<T, Acc>(d[c]) * to_acc<T, Acc>(o[c]);
+  T acc = 0;
+  for (int64_t c = lane; c < p.D; c += 32) acc += d[c] * o[c];
   acc = warp_sum(acc);
-  if (lane == 0) static_cast<Acc*>(p.delta)[bh * p.Sq + row] = acc;
+  if (lane == 0) static_cast<T*>(p.delta)[bh * p.Sq + row] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 backward, dk and dv: one block per (batch * head, 64-key tile); each
-// warp owns 16 keys; the block walks the queries 32 at a time, with the
-// next chunk's q and dO copies in flight while the current one is used.
-constexpr int kBwdBK = 64;
-constexpr int kBwdBQ = 32;
-
+// bf16: D / 8 threads a row, 16 bytes of dO and of O each (the wrapper
+// puts every row of dO on 16 bytes), summed in float32 across the row's
+// threads in a fixed order.
 template <int D>
-struct DkdvShape {
-  static constexpr int LD = D + 8;
-  // K, V, Q[2], dO[2]; then stats and delta of the chunk, [2][3][BQ]
-  static constexpr int kSmem = (2 * kBwdBK + 4 * kBwdBQ) * LD * 2 + 2 * 3 * kBwdBQ * 4;
-};
-
-__device__ __forceinline__ void load_row_stats(float* dst, const float* stats,
-                                               const float* delta, int64_t i0, int64_t Sq) {
-  for (int r = threadIdx.x; r < kBwdBQ; r += kThreads) {
-    const bool in = i0 + r < Sq;
-    dst[r] = in ? stats[(i0 + r) * 2] : 0.f;
-    dst[kBwdBQ + r] = in ? stats[(i0 + r) * 2 + 1] : 0.f;
-    dst[2 * kBwdBQ + r] = in ? delta[i0 + r] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_bf16(AttnArgs p) {
-  using S = DkdvShape<D>;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;                        // [BK][LD]
-  uint16_t* vs = ks + kBwdBK * LD;            // [BK][LD]
-  uint16_t* qs = vs + kBwdBK * LD;            // [2][BQ][LD]
-  uint16_t* dos = qs + 2 * kBwdBQ * LD;       // [2][BQ][LD]
-  float* rows = reinterpret_cast<float*>(dos + 2 * kBwdBQ * LD);   // [2][3][BQ]
+__global__ void __launch_bounds__(kThreads) attention_bwd_delta_bf16(AttnArgs p) {
+  constexpr int TPR = D / 8, RPB = kThreads / TPR;   // threads a row, rows a block
   const int64_t bh = blockIdx.x;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kBwdBK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const float scale = static_cast<float>(p.scale);
-  const uint16_t* qb = row_base(p.q, p.sq, bh, p.H);
-  const uint16_t* db = row_base(p.dout, p.sdo, bh, p.H);
-  const float* stats = static_cast<const float*>(p.stats) + bh * p.Sq * 2;
-  const float* delta = static_cast<const float*>(p.delta) + bh * p.Sq;
-  const int64_t qbeg = query_begin(p, j0, kBwdBQ);
-
-  load_rows<kBwdBK, D, LD>(ks, row_base(p.k, p.sk, bh, p.H), p.sk.s, j0, p.Sk, p.vec);
-  load_rows<kBwdBK, D, LD>(vs, row_base(p.v, p.sv, bh, p.H), p.sv.s, j0, p.Sk, p.vec);
-  load_rows<kBwdBQ, D, LD>(qs, qb, p.sq.s, qbeg, p.Sq, p.vec);
-  load_rows<kBwdBQ, D, LD>(dos, db, p.sdo.s, qbeg, p.Sq, p.vec);
-  load_row_stats(rows, stats, delta, qbeg, p.Sq);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * RPB + threadIdx.x / TPR;
+  const int c = (threadIdx.x % TPR) * 8;
+  float acc = 0.f;
+  if (row < p.Sq) {
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        row_base_t<__nv_bfloat16>(p.dout, p.sdo, bh, p.H) + row * p.sdo.s + c);
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.o) + (bh * p.Sq + row) * D + c);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-  const int64_t key0 = j0 + wr + g;
-
-  int stage = 0;
-  for (int64_t i0 = qbeg; i0 < p.Sq; i0 += kBwdBQ, stage ^= 1) {
-    if (i0 + kBwdBQ < p.Sq) {
-      const int nx = stage ^ 1;
-      load_rows<kBwdBQ, D, LD>(qs + nx * kBwdBQ * LD, qb, p.sq.s, i0 + kBwdBQ, p.Sq, p.vec);
-      load_rows<kBwdBQ, D, LD>(dos + nx * kBwdBQ * LD, db, p.sdo.s, i0 + kBwdBQ, p.Sq, p.vec);
-      load_row_stats(rows + nx * 3 * kBwdBQ, stats, delta, i0 + kBwdBQ, p.Sq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint16_t* qt = qs + stage * kBwdBQ * LD;
-    const uint16_t* dt = dos + stage * kBwdBQ * LD;
-    const float* m2s = rows + stage * 3 * kBwdBQ;
-    const float* lgs = m2s + kBwdBQ;
-    const float* dls = lgs + kBwdBQ;
-    // S^T = K_w Q^T and dP^T = V_w dO^T: 16 keys x BQ queries per warp
-    float st[kBwdBQ / 8][4], dpt[kBwdBQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBwdBQ / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, ks + wr * LD + kk * 16, LD, lane);
-      load_a(va, vs + wr * LD + kk * 16, LD, lane);
-#pragma unroll
-      for (int np = 0; np < kBwdBQ / 16; ++np) {
-        uint32_t bq[4], bd[4];
-        load_b_nk(bq, qt + np * 16 * LD + kk * 16, LD, lane);
-        load_b_nk(bd, dt + np * 16 * LD + kk * 16, LD, lane);
-        mma16816(st[2 * np], ka, bq[0], bq[1]);
-        mma16816(st[2 * np + 1], ka, bq[2], bq[3]);
-        mma16816(dpt[2 * np], va, bd[0], bd[1]);
-        mma16816(dpt[2 * np + 1], va, bd[2], bd[3]);
-      }
-    }
-    // P^T and dS^T in place of S^T and dP^T
-#pragma unroll
-    for (int n = 0; n < kBwdBQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t key = key0 + (e >> 1) * 8;
-        const int il = n * 8 + 2 * t + (e & 1);
-        const int64_t qi = i0 + il;
-        float pv = 0.f, ds = 0.f;
-        if (qi < p.Sq && key < p.Sk) {
-          const bool masked = p.causal && key > qi + p.off;
-          const float x = masked ? kMasked : st[n][e] * scale;
-          pv = exp2f(x * kLog2e - m2s[il] - lgs[il]);
-          ds = masked ? 0.f : pv * (dpt[n][e] - dls[il]);
-        }
-        st[n][e] = pv;
-        dpt[n][e] = ds;
-      }
-    }
-    // dv += P^T dO and dk += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < kBwdBQ / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bd[4], bq[4];
-        load_b_kn(bd, dt + kk * 16 * LD + dp * 16, LD, lane);
-        load_b_kn(bq, qt + kk * 16 * LD + dp * 16, LD, lane);
-        mma16816(dv[2 * dp], pa, bd[0], bd[1]);
-        mma16816(dv[2 * dp + 1], pa, bd[2], bd[3]);
-        mma16816(dk[2 * dp], sa, bq[0], bq[1]);
-        mma16816(dk[2 * dp + 1], sa, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  uint16_t* dkb = static_cast<uint16_t*>(p.dk) + bh * p.Sk * D;
-  uint16_t* dvb = static_cast<uint16_t*>(p.dv) + bh * p.Sk * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t key = key0 + r * 8;
-    if (key < p.Sk) {
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(dkb + key * D + i * 8 + 2 * t) =
-            pack_bf16(dk[i][2 * r] * scale, dk[i][2 * r + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dvb + key * D + i * 8 + 2 * t) =
-            pack_bf16(dv[i][2 * r], dv[i][2 * r + 1]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(d2[i]), b = __bfloat1622float2(o2[i]);
+      acc += a.x * b.x + a.y * b.y;
     }
   }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < p.Sq && threadIdx.x % TPR == 0) static_cast<float*>(p.delta)[bh * p.Sq + row] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 backward, dq: one block per (batch * head, 64-query tile); each warp
-// owns 16 queries; the block walks the visible keys 32 at a time, with the
-// next chunk's k and v copies in flight while the current one is used.
-constexpr int kDqBQ = 64;
-constexpr int kDqBK = 32;
 
+// ---------------------------------------------------------------------------
+// bf16 backward, dq, persistent like the forward: work items (128-query
+// tile, batch * head), a head's heaviest causal tile first. The producer loads
+// an item's q and dO tiles and streams its visible K and V tiles (BK keys);
+// each consumer warpgroup recomputes S and dP for its 64 rows, then
+// dq += dS k.
 template <int D>
-struct DqShape {
-  static constexpr int LD = D + 8;
-  static constexpr int kSmem = (2 * kDqBQ + 4 * kDqBK) * LD * 2;   // Q, dO, K[2], V[2]
+struct DqCfg {
+  static constexpr int BM = 128, BK = 64, ST = 3;
+  static constexpr int kQ = BM * D * 2, kKV = BK * D * 2;
+  using S = Smem<2 * kQ, ST, 2 * kKV>;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) attention_bwd_dq_bf16(AttnArgs p) {
-  using S = DqShape<D>;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* qs = smem;                        // [BQ][LD]
-  uint16_t* dos = qs + kDqBQ * LD;            // [BQ][LD]
-  uint16_t* ks = dos + kDqBQ * LD;            // [2][BK][LD]
-  uint16_t* vs = ks + 2 * kDqBK * LD;         // [2][BK][LD]
-  const int64_t bh = blockIdx.x;
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kDqBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const float scale = static_cast<float>(p.scale);
-  const uint16_t* kb = row_base(p.k, p.sk, bh, p.H);
-  const uint16_t* vb = row_base(p.v, p.sv, bh, p.H);
-  const int64_t kend = key_end(p, q0, kDqBQ, false);
-  const int nchunks = static_cast<int>((kend + kDqBK - 1) / kDqBK);
+__global__ void __launch_bounds__(kWsThreads, 1)
+    attention_bwd_dq_bf16(const __grid_constant__ TmaArgs p) {
+  using C = DqCfg<D>;
+  constexpr int BM = C::BM, BK = C::BK, ST = C::ST;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t ring = base + C::S::kRing, bars = base + C::S::kBars;
+  const AttnArgs& a = p.a;
+  const int warp = threadIdx.x / 32;
+  init_bars<ST>(bars);
 
-  load_rows<kDqBQ, D, LD>(qs, row_base(p.q, p.sq, bh, p.H), p.sq.s, q0, p.Sq, p.vec);
-  load_rows<kDqBQ, D, LD>(dos, row_base(p.dout, p.sdo, bh, p.H), p.sdo.s, q0, p.Sq, p.vec);
-  cp_async_commit();
-  if (nchunks > 0) {
-    load_rows<kDqBK, D, LD>(ks, kb, p.sk.s, 0, p.Sk, p.vec);
-    load_rows<kDqBK, D, LD>(vs, vb, p.sv.s, 0, p.Sk, p.vec);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qa[kk], qs + wr * LD + kk * 16, LD, lane);
-    load_a(da[kk], dos + wr * LD + kk * 16, LD, lane);
-  }
-
-  const float* stats = static_cast<const float*>(p.stats) + bh * p.Sq * 2;
-  const float* delta = static_cast<const float*>(p.delta) + bh * p.Sq;
-  const int64_t row0 = q0 + wr + g;
-  float m2[2], lg[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t row = row0 + r * 8;
-    const bool in = row < p.Sq;
-    m2[r] = in ? stats[row * 2] : 0.f;
-    lg[r] = in ? stats[row * 2 + 1] : 0.f;
-    dl[r] = in ? delta[row] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int it = 0; it < nchunks; ++it) {
-    const int64_t k0 = static_cast<int64_t>(it) * kDqBK;
-    const uint16_t* kt = ks + (it & 1) * kDqBK * LD;
-    const uint16_t* vt = vs + (it & 1) * kDqBK * LD;
-    if (it + 1 < nchunks) {
-      const int nx = (it + 1) & 1;
-      load_rows<kDqBK, D, LD>(ks + nx * kDqBK * LD, kb, p.sk.s, k0 + kDqBK, p.Sk, p.vec);
-      load_rows<kDqBK, D, LD>(vs + nx * kDqBK * LD, vb, p.sv.s, k0 + kDqBK, p.Sk, p.vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[kDqBK / 8][4], dp[kDqBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kDqBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kDqBK / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        load_b_nk(bk, kt + np * 16 * LD + kk * 16, LD, lane);
-        load_b_nk(bv, vt + np * 16 * LD + kk * 16, LD, lane);
-        mma16816(s[2 * np], qa[kk], bk[0], bk[1]);
-        mma16816(s[2 * np + 1], qa[kk], bk[2], bk[3]);
-        mma16816(dp[2 * np], da[kk], bv[0], bv[1]);
-        mma16816(dp[2 * np + 1], da[kk], bv[2], bv[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kDqBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int64_t row = row0 + r * 8;
-        const int64_t key = k0 + n * 8 + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (row < p.Sq && key < p.Sk && !(p.causal && key > row + p.off)) {
-          const float pv = exp2f(s[n][e] * scale * kLog2e - m2[r] - lg[r]);
-          ds = pv * (dp[n][e] - dl[r]);
+  if (warp >= kConsumers * 4) {   // producer warpgroup: one thread issues the loads
+    producer_regs();
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0;   // K/V tiles streamed
+      for (int n = 0;; ++n) {
+        wait_res_free(bars, n);
+        const int w = next_item(a.work, p.items);
+        publish_item(sm, base, bars, n, w);
+        if (w < 0) break;
+        int64_t bh, q0;
+        query_item(a, w, BM, bh, q0);
+        const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+        const int ntiles = static_cast<int>((key_end(a, q0, BM, false) + BK - 1) / BK);
+        const uint32_t rf = res_full(bars, n & 1), qs = base + (n & 1) * 2 * C::kQ;
+        mbar_expect_tx(rf, 2 * C::kQ);
+        load_tile<D, BM>(qs, p.tq, rf, q0, h, b);
+        load_tile<D, BM>(qs + C::kQ, p.tdo, rf, q0, h, b);
+        for (int it = 0; it < ntiles; ++it, ++g) {
+          wait_free<ST>(bars, g);
+          const uint32_t fb = full_bar(bars, g % ST), kt = ring + (g % ST) * 2 * C::kKV;
+          mbar_expect_tx(fb, 2 * C::kKV);
+          load_tile<D, BK>(kt, p.tk, fb, static_cast<int64_t>(it) * BK, h, b);
+          load_tile<D, BK>(kt + C::kKV, p.tv, fb, static_cast<int64_t>(it) * BK, h, b);
         }
-        s[n][e] = ds;
       }
     }
+  } else {
+    consumer_regs();
+    const int wg = warp / 4, tid = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int t = lane & 3, rlo = wg * 64 + (warp % 4) * 16 + (lane >> 2);
+    const float scale = static_cast<float>(a.scale), scale2 = scale * kLog2e;
+    const int sk = static_cast<int>(a.Sk), off = static_cast<int>(a.off);
+    int g = 0;   // K/V tiles consumed
+    for (int n = 0;; ++n) {
+      wait_res_full(bars, n);
+      const int w = read_item(sm, base, bars, n);
+      if (w < 0) break;
+      int64_t bh, q0;
+      query_item(a, w, BM, bh, q0);
+      const int ntiles = static_cast<int>((key_end(a, q0, BM, false) + BK - 1) / BK);
+      const uint32_t qs = base + (n & 1) * 2 * C::kQ, dos = qs + C::kQ;
+      const int64_t row0 = q0 + rlo;
+      const float* stats = static_cast<const float*>(a.stats) + bh * a.Sq * 2;
+      const float* delta = static_cast<const float*>(a.delta) + bh * a.Sq;
+      // per row g + 8r: stats, delta, and the last key it sees (-1: no row)
+      float m2[2], lg[2], dl[2];
+      int lim[2];
 #pragma unroll
-    for (int kk = 0; kk < kDqBK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        uint32_t b[4];
-        load_b_kn(b, kt + kk * 16 * LD + dpi * 16, LD, lane);
-        mma16816(dq[2 * dpi], a, b[0], b[1]);
-        mma16816(dq[2 * dpi + 1], a, b[2], b[3]);
+      for (int r = 0; r < 2; ++r) {
+        const int64_t row = row0 + 8 * r;
+        const bool in = row < a.Sq;
+        m2[r] = in ? stats[row * 2] : 0.f;
+        lg[r] = in ? stats[row * 2 + 1] : 0.f;
+        dl[r] = in ? delta[row] : 0.f;
+        lim[r] = !in ? -1 : a.causal ? static_cast<int>(row) + off : INT_MAX;
       }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  uint16_t* dqb = static_cast<uint16_t*>(p.dq) + bh * p.Sq * D;
+      for (int it = 0; it < ntiles; ++it, ++g) {
+        const int s = g % ST;
+        const int64_t k0 = static_cast<int64_t>(it) * BK;
+        const uint32_t kt = ring + s * 2 * C::kKV, vt = kt + C::kKV;
+        mbar_wait(full_bar(bars, s), (g / ST) & 1);
+        float sc[BK / 2], dp[BK / 2];
+        wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t row = row0 + r * 8;
-    if (row < p.Sq) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<BK>::ss(sc, desc_k<D, BM>(qs, wg * 64, kk), desc_k<D, BK>(kt, 0, kk), kk > 0);
+          Wgmma<BK>::ss(dp, desc_k<D, BM>(dos, wg * 64, kk), desc_k<D, BK>(vt, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        keep(sc);
+        keep(dp);
+        // dS = P (dP - delta), 0 where masked, past the last key or query
+        const int c0 = static_cast<int>(k0) + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(dqb + row * D + i * 8 + 2 * t) =
-            pack_bf16(dq[i][2 * r] * scale, dq[i][2 * r + 1] * scale);
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = c0 + 8 * j + (e & 1);
+            const float pv = ex2(sc[4 * j + e] * scale2 - m2[r] - lg[r]);
+            sc[4 * j + e] = c < sk && c <= lim[r] ? pv * (dp[4 * j + e] - dl[r]) : 0.f;
+          }
+        uint32_t sa[BK / 16][4];
+        to_a<BK>(sa, sc);
+        keep(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) Wgmma<D>::rs(dq, sa[kk], desc_mn<D, BK>(kt, kk));
+        wgmma_commit();
+        wgmma_wait();
+        keep(dq);
+        keep(sa);
+        if (tid == 0) mbar_arrive(empty_bar(bars, s));
+      }
+
+      const float mul[2] = {scale, scale};
+      uint8_t* qsm = sm + (n & 1) * 2 * C::kQ;
+      stage_acc<D, BM>(qsm, dq, mul, rlo, t);
+      named_sync(1 + wg, 128);
+      store_rows<D, BM>(static_cast<uint16_t*>(a.dq) + bh * a.Sq * D, qsm, wg * 64,
+                        q0 + wg * 64, a.Sq, tid);
+      release_res(bars, n, wg, tid);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward, dk and dv, persistent: work items (64-key tile, batch *
+// head), a head's heaviest causal tile (its first) first. The producer loads an
+// item's K and V tiles and streams the q and dO tiles (BQ queries) that can
+// see them, with their rows' stats and delta. The two consumer warpgroups
+// share the 64 keys and split the products, so that each holds one 64 x D
+// accumulator (two, 128 registers a thread at D = 128, do not fit beside
+// the scores): the first computes S^T = K q^T, P^T, and dv += P^T dO; the
+// second dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dk += dS^T q, with
+// P^T (float32) handed over through shared memory: each thread reads what
+// its twin in the first warpgroup wrote, since the two accumulator
+// fragments match element for element.
+template <int D>
+struct DkdvCfg {
+  static constexpr int BK = 64, BQ = 64, ST = 3;
+  static constexpr int kK = BK * D * 2, kQ = BQ * D * 2, kRows = 3 * BQ * 4;
+  static constexpr int kP = 128 * (BQ / 2) * 4;   // one chunk's P^T, by thread
+  static constexpr int kStage = (2 * kQ + kRows + 1023) / 1024 * 1024;   // tiles on 1024 bytes
+  using S = Smem<2 * kK, ST, kStage, 2 * kP>;
+};
+
+// Named barriers besides 0 (__syncthreads) and 1 + wg (a warpgroup's
+// epilogue): P^T buffer b written (3 + b) and read (5 + b).
+constexpr int kBarPFull = 3, kBarPRead = 5;
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    attention_bwd_dkdv_bf16(const __grid_constant__ TmaArgs p) {
+  using C = DkdvCfg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, ST = C::ST, kStage = C::kStage;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t ring = base + C::S::kRing, bars = base + C::S::kBars;
+  float* pbuf = reinterpret_cast<float*>(sm + C::S::kExtra);   // [2][BQ / 2][128]
+  const AttnArgs& a = p.a;
+  const int nk = static_cast<int>((a.Sk + BK - 1) / BK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_bars<ST>(bars);
+
+  if (warp >= kConsumers * 4) {   // producer warpgroup: its first warp loads
+    producer_regs();
+    if (warp == kConsumers * 4) {   // (the whole warp copies the rows' stats)
+      int g = 0;   // q/dO tiles streamed
+      for (int n = 0;; ++n) {
+        int w = 0;
+        if (lane == 0) {
+          wait_res_free(bars, n);
+          w = next_item(a.work, p.items);
+          publish_item(sm, base, bars, n, w);
+        }
+        w = __shfl_sync(0xffffffffu, w, 0);
+        if (w < 0) break;
+        const int64_t bh = w / nk, j0 = static_cast<int64_t>(w % nk) * BK;
+        const int64_t qbeg = query_begin(a, j0, BQ);
+        const int nchunks = qbeg < a.Sq ? static_cast<int>((a.Sq - qbeg + BQ - 1) / BQ) : 0;
+        const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+        const float* stats = static_cast<const float*>(a.stats) + bh * a.Sq * 2;
+        const float* delta = static_cast<const float*>(a.delta) + bh * a.Sq;
+        if (lane == 0) {
+          const uint32_t rf = res_full(bars, n & 1), ks = base + (n & 1) * 2 * C::kK;
+          mbar_expect_tx(rf, 2 * C::kK);
+          load_tile<D, BK>(ks, p.tk, rf, j0, h, b);
+          load_tile<D, BK>(ks + C::kK, p.tv, rf, j0, h, b);
+        }
+        for (int it = 0; it < nchunks; ++it, ++g) {
+          const int64_t i0 = qbeg + static_cast<int64_t>(it) * BQ;
+          wait_free<ST>(bars, g);
+          const uint32_t st = ring + (g % ST) * kStage;
+          float* rows = reinterpret_cast<float*>(sm + (st + 2 * C::kQ - base));
+          for (int r = lane; r < BQ; r += 32) {
+            const bool in = i0 + r < a.Sq;
+            rows[r] = in ? stats[(i0 + r) * 2] : 0.f;
+            rows[BQ + r] = in ? stats[(i0 + r) * 2 + 1] : 0.f;
+            rows[2 * BQ + r] = in ? delta[i0 + r] : 0.f;
+          }
+          __syncwarp();
+          if (lane == 0) {
+            const uint32_t fb = full_bar(bars, g % ST);
+            mbar_expect_tx(fb, 2 * C::kQ);
+            load_tile<D, BQ>(st, p.tq, fb, i0, h, b);
+            load_tile<D, BQ>(st + C::kQ, p.tdo, fb, i0, h, b);
+          }
+        }
       }
     }
+  } else {
+    consumer_regs();
+    const int wg = warp / 4, tid = threadIdx.x % 128;
+    const int t = lane & 3, rlo = (warp % 4) * 16 + (lane >> 2);   // tile key of g
+    const float scale = static_cast<float>(a.scale), scale2 = scale * kLog2e;
+    const int sq = static_cast<int>(a.Sq), sk = static_cast<int>(a.Sk);
+    const int off = static_cast<int>(a.off);
+    const bool causal = a.causal;
+    int g = 0;   // q/dO tiles consumed, and P^T hand-overs
+    for (int n = 0;; ++n) {
+      wait_res_full(bars, n);
+      const int w = read_item(sm, base, bars, n);
+      if (w < 0) break;
+      const int64_t bh = w / nk, j0 = static_cast<int64_t>(w % nk) * BK;
+      const int64_t qbeg = query_begin(a, j0, BQ);
+      const int nchunks = qbeg < a.Sq ? static_cast<int>((a.Sq - qbeg + BQ - 1) / BQ) : 0;
+      const uint32_t ks = base + (n & 1) * 2 * C::kK, vs = ks + C::kK;
+      const int key[2] = {static_cast<int>(j0) + rlo, static_cast<int>(j0) + rlo + 8};
+      float acc[D / 2];   // dv (first warpgroup) or dk (second)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      for (int it = 0; it < nchunks; ++it, ++g) {
+        const int s = g % ST, b = g & 1;
+        const int64_t i0 = qbeg + static_cast<int64_t>(it) * BQ;
+        const uint32_t qt = ring + s * kStage, dt = qt + C::kQ;
+        const float* m2s = reinterpret_cast<const float*>(sm + (qt + 2 * C::kQ - base));
+        const float* lgs = m2s + BQ;
+        const float* dls = lgs + BQ;
+        float* pb = pbuf + b * (BQ / 2) * 128 + tid;
+        mbar_wait(full_bar(bars, s), (g / ST) & 1);
+        float x[BQ / 2];   // S^T, then P^T (first); dP^T, then dS^T (second): 64 keys x BQ
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<BQ>::ss(x, desc_k<D, BK>(wg == 0 ? ks : vs, 0, kk),
+                        desc_k<D, BQ>(wg == 0 ? qt : dt, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait();
+        keep(x);
+        const int q0c = static_cast<int>(i0) + 2 * t;
+        if (wg == 0) {
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int il = j * 8 + 2 * t + (e & 1), qi = q0c + 8 * j + (e & 1);
+              const bool in = qi < sq && key[e >> 1] < sk;
+              const bool masked = causal && key[e >> 1] > qi + off;
+              const float xs = masked ? kMasked2 : x[4 * j + e] * scale2;
+              const float pv = ex2(xs - m2s[il] - lgs[il]);
+              x[4 * j + e] = in ? pv : 0.f;
+            }
+          if (g >= 2) named_sync(kBarPRead + b, 256);
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) pb[i * 128] = x[i];
+          __threadfence_block();
+          named_arrive(kBarPFull + b, 256);
+        } else {
+          named_sync(kBarPFull + b, 256);
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int il = j * 8 + 2 * t + (e & 1), qi = q0c + 8 * j + (e & 1);
+              const bool live =
+                  qi < sq && key[e >> 1] < sk && !(causal && key[e >> 1] > qi + off);
+              const float pv = pb[(4 * j + e) * 128];
+              x[4 * j + e] = live ? pv * (x[4 * j + e] - dls[il]) : 0.f;
+            }
+          named_arrive(kBarPRead + b, 256);
+        }
+        // dv += P^T dO (first), dk += dS^T q (second)
+        uint32_t xa[BQ / 16][4];
+        to_a<BQ>(xa, x);
+        keep(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<D>::rs(acc, xa[kk], desc_mn<D, BQ>(wg == 0 ? dt : qt, kk));
+        wgmma_commit();
+        wgmma_wait();
+        keep(acc);
+        keep(xa);
+        if (tid == 0) mbar_arrive(empty_bar(bars, s));
+      }
+
+      // dv through the K tile (read only by the first warpgroup), dk (times
+      // scale) through the V tile (read only by the second)
+      const float mul[2] = {wg == 0 ? 1.f : scale, wg == 0 ? 1.f : scale};
+      uint8_t* tile = sm + (n & 1) * 2 * C::kK + wg * C::kK;
+      stage_acc<D, BK>(tile, acc, mul, rlo, t);
+      named_sync(1 + wg, 128);
+      store_rows<D, BK>(static_cast<uint16_t*>(wg == 0 ? a.dv : a.dk) + bh * a.Sk * D, tile, 0,
+                        j0, a.Sk, tid);
+      release_res(bars, n, wg, tid);
+    }
+    // the first warpgroup waits out the reads it has not waited for, so
+    // that every hand-over barrier ends complete
+    if (wg == 0)
+      for (int h = g > 2 ? g - 2 : 0; h < g; ++h) named_sync(kBarPRead + (h & 1), 256);
   }
 }
 
@@ -740,6 +1197,11 @@ __device__ __forceinline__ double log2_t(double x) { return log2(x); }
 template <typename T> __device__ __forceinline__ T log2e_t();
 template <> __device__ __forceinline__ float log2e_t<float>() { return kLog2e; }
 template <> __device__ __forceinline__ double log2e_t<double>() { return kLog2eD; }
+// A masked score, -1e30 in the accumulation dtype (as the plain version
+// writes it: float64 keeps -1e30 exactly, where float32 rounds it).
+template <typename T> __device__ __forceinline__ T masked_t();
+template <> __device__ __forceinline__ float masked_t<float>() { return kMasked; }
+template <> __device__ __forceinline__ double masked_t<double>() { return -1e30; }
 
 constexpr int kChunks = 4;
 
@@ -788,7 +1250,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_scalar(AttnArgs p) {
   T m = -INFINITY, l = 0;
   for (int64_t j = 0; j < kend; ++j) {
     T x = row_dot(q, kb + j * p.sk.s, p.D, lane) * scale;
-    if (p.causal && j > i + p.off) x = static_cast<T>(kMasked);
+    if (p.causal && j > i + p.off) x = masked_t<T>();
     x *= log2e_t<T>();
     const T mnew = x > m ? x : m;
     const T corr = exp2_t(m - mnew), pj = exp2_t(x - mnew);
@@ -858,7 +1320,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_scalar(AttnArgs p
     const T* dr = db + i * p.sdo.s;
     const bool masked = p.causal && j > i + p.off;
     T x = row_dot(k, qr, p.D, lane) * scale;
-    if (masked) x = static_cast<T>(kMasked);
+    if (masked) x = masked_t<T>();
     const T pv = exp2_t(x * log2e_t<T>() - st[i * 2] - st[i * 2 + 1]);
     const T dp = row_dot(v, dr, p.D, lane);
     const T ds = masked ? T(0) : pv * (dp - delta[i]);
@@ -880,33 +1342,132 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_scalar(AttnArgs p
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, const AttnArgs& a, void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+cudaError_t launch(Kernel kernel, dim3 grid, const AttnArgs& a, void* stream) {
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
+}
+
+// What a persistent launch asks of the current device, read once per device
+// (and per kernel): its SM count, and the kernel's shared memory raised
+// past 48 KB.
+cudaError_t prepare(const void* kernel, int smem, int* sms) {
+  struct Device {
+    int sms = 0;
+    std::set<const void*> raised;
+  };
+  static std::mutex mu;
+  static std::map<int, Device> devices;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  Device& d = devices[dev];
+  if (d.sms == 0) e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && d.raised.count(kernel) == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) d.raised.insert(kernel);
+  }
+  *sms = d.sms;
+  return e;
+}
+
+// A persistent launch: one block per SM (or per work item, if fewer).
+template <typename Kernel>
+cudaError_t launch_ws(Kernel kernel, int64_t tiles, int64_t bh, int smem, TmaArgs& p,
+                      void* stream) {
+  if (tiles * bh > INT_MAX || p.a.work == nullptr) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = prepare(reinterpret_cast<const void*>(kernel), smem, &sms);
+  if (e != cudaSuccess) return e;
+  p.items = static_cast<int>(tiles * bh);
+  const int blocks = p.items < sms ? p.items : sms;
+  kernel<<<dim3(static_cast<unsigned>(blocks)), kWsThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the libcuda the CUDA runtime has loaded.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The map of a bf16 [B, H, S, D] tensor at its own strides (in elements),
+// as dims (D, S, H, B), read in boxes of `rows` rows by one column block
+// (Geo<D>), swizzled at the block's row width; rows past S read as zeros.
+// TMA needs the base and every stride on 16 bytes (the wrapper sees to it).
+bool make_map(CUtensorMap* m, const void* ptr, const Strides& s, int64_t B, int64_t H,
+              int64_t S, int64_t D, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const int rb = D >= 64 ? 128 : 2 * static_cast<int>(D);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.s) * 2,
+                                 static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(rb / 2), static_cast<cuuint32_t>(rows), 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = rb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 enum Which { kFwd = 0, kDelta = 1, kDkdv = 2, kDq = 3 };
 
 template <int D>
-cudaError_t launch_bf16(Which w, const AttnArgs& a, int64_t bh, void* stream) {
+cudaError_t launch_bf16(Which w, const AttnArgs& a, int64_t B, void* stream) {
+  const int64_t bh = B * a.H;
+  TmaArgs p;
+  p.a = a;
+  // q and dO in boxes of `qr` rows, k and v of `kr`
+  auto maps = [&](int qr, int kr, bool dout) {
+    return make_map(&p.tq, a.q, a.sq, B, a.H, a.Sq, D, qr) &&
+           make_map(&p.tk, a.k, a.sk, B, a.H, a.Sk, D, kr) &&
+           make_map(&p.tv, a.v, a.sv, B, a.H, a.Sk, D, kr) &&
+           (!dout || make_map(&p.tdo, a.dout, a.sdo, B, a.H, a.Sq, D, qr));
+  };
   switch (w) {
-    case kFwd:
-      return launch(attention_fwd_bf16<D>, dim3(bh, cdiv(a.Sq, kFwdBM)), FwdShape<D>::kSmem, a,
-                    stream);
-    case kDkdv:
-      return launch(attention_bwd_dkdv_bf16<D>, dim3(bh, cdiv(a.Sk, kBwdBK)),
-                    DkdvShape<D>::kSmem, a, stream);
-    case kDq:
-      return launch(attention_bwd_dq_bf16<D>, dim3(bh, cdiv(a.Sq, kDqBQ)), DqShape<D>::kSmem,
-                    a, stream);
+    case kFwd: {
+      using C = FwdCfg<D>;
+      if (!maps(C::BM, C::BN, false)) return cudaErrorInvalidValue;
+      return launch_ws(attention_fwd_bf16<D>, cdiv(a.Sq, C::BM), bh, C::S::kBytes, p, stream);
+    }
+    case kDkdv: {
+      using C = DkdvCfg<D>;
+      if (!maps(C::BQ, C::BK, true)) return cudaErrorInvalidValue;
+      return launch_ws(attention_bwd_dkdv_bf16<D>, cdiv(a.Sk, C::BK), bh, C::S::kBytes, p, stream);
+    }
+    case kDq: {
+      using C = DqCfg<D>;
+      if (!maps(C::BM, C::BK, true)) return cudaErrorInvalidValue;
+      return launch_ws(attention_bwd_dq_bf16<D>, cdiv(a.Sq, C::BM), bh, C::S::kBytes, p, stream);
+    }
     default:
-      return launch(attention_bwd_delta<__nv_bfloat16, float>, dim3(bh, cdiv(a.Sq, kWarps)), 0,
-                    a, stream);
+      return launch(attention_bwd_delta_bf16<D>, dim3(bh, cdiv(a.Sq, kThreads / (D / 8))), a,
+                    stream);
   }
 }
 
@@ -914,13 +1475,13 @@ template <typename T>
 cudaError_t launch_scalar(Which w, const AttnArgs& a, int64_t bh, void* stream) {
   switch (w) {
     case kFwd:
-      return launch(attention_fwd_scalar<T>, dim3(bh, cdiv(a.Sq, kWarps)), 0, a, stream);
+      return launch(attention_fwd_scalar<T>, dim3(bh, cdiv(a.Sq, kWarps)), a, stream);
     case kDkdv:
-      return launch(attention_bwd_dkdv_scalar<T>, dim3(bh, cdiv(a.Sk, kWarps)), 0, a, stream);
+      return launch(attention_bwd_dkdv_scalar<T>, dim3(bh, cdiv(a.Sk, kWarps)), a, stream);
     case kDq:
-      return launch(attention_bwd_dq_scalar<T>, dim3(bh, cdiv(a.Sq, kWarps)), 0, a, stream);
+      return launch(attention_bwd_dq_scalar<T>, dim3(bh, cdiv(a.Sq, kWarps)), a, stream);
     default:
-      return launch(attention_bwd_delta<T, T>, dim3(bh, cdiv(a.Sq, kWarps)), 0, a, stream);
+      return launch(attention_bwd_delta<T>, dim3(bh, cdiv(a.Sq, kWarps)), a, stream);
   }
 }
 
@@ -928,7 +1489,8 @@ int run(Which w, const void* q, const void* k, const void* v, const void* o, con
         void* out, void* stats, void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t H,
         int64_t Sq, int64_t Sk, int64_t D, int64_t sqb, int64_t sqh, int64_t sqs, int64_t skb,
         int64_t skh, int64_t sks, int64_t svb, int64_t svh, int64_t svs, int64_t sdb,
-        int64_t sdh, int64_t sds, double scale, int causal, int dtype, int vec, void* stream) {
+        int64_t sdh, int64_t sds, double scale, int causal, int dtype, int* work,
+        void* stream) {
   const int64_t bh = B * H;
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || bh > 0x7fffffff || cdiv(Sq, kWarps) > 65535 ||
       cdiv(Sk, kWarps) > 65535 || dtype < 0 || dtype > 2 ||
@@ -957,7 +1519,7 @@ int run(Which w, const void* q, const void* k, const void* v, const void* o, con
   a.off = Sk - Sq;
   a.scale = scale;
   a.causal = causal;
-  a.vec = vec;
+  a.work = work;
   cudaError_t e;
   if (dtype == 1) {
     e = launch_scalar<float>(w, a, bh, stream);
@@ -965,10 +1527,10 @@ int run(Which w, const void* q, const void* k, const void* v, const void* o, con
     e = launch_scalar<double>(w, a, bh, stream);
   } else {
     switch (D) {
-      case 16: e = launch_bf16<16>(w, a, bh, stream); break;
-      case 32: e = launch_bf16<32>(w, a, bh, stream); break;
-      case 64: e = launch_bf16<64>(w, a, bh, stream); break;
-      default: e = launch_bf16<128>(w, a, bh, stream); break;
+      case 16: e = launch_bf16<16>(w, a, B, stream); break;
+      case 32: e = launch_bf16<32>(w, a, B, stream); break;
+      case 64: e = launch_bf16<64>(w, a, B, stream); break;
+      default: e = launch_bf16<128>(w, a, B, stream); break;
     }
   }
   return static_cast<int>(e);
@@ -979,19 +1541,23 @@ int run(Which w, const void* q, const void* k, const void* v, const void* o, con
 // The C entry points (bound with ctypes in kernels/attention.py), one per
 // kernel, all with one argument list; an entry reads only the pointers its
 // kernel uses (the others may be null). Strides are in elements, in
-// (batch, head, row) order; the last dimension's stride is 1. dtype: 0
-// bf16, 1 float32, 2 float64. Returns the launch's cudaError_t: 0 when the
-// kernel was queued on `stream`.
+// (batch, head, row) order; the last dimension's stride is 1; for bf16
+// every base and stride is a multiple of 16 bytes. dtype: 0 bf16, 1
+// float32, 2 float64. work: two int32 on the device, zero, owned by
+// `stream` (the bf16 forward, dk/dv and dq take their work items from it
+// and leave it zero; the others ignore it). Returns the launch's
+// cudaError_t: 0 when the kernel was queued on `stream`.
 #define DL4J_ATTENTION_ENTRY(name, which)                                                      \
   extern "C" int name(                                                                         \
       const void* q, const void* k, const void* v, const void* o, const void* dout, void* out, \
       void* stats, void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t H,            \
       int64_t Sq, int64_t Sk, int64_t D, int64_t sqb, int64_t sqh, int64_t sqs, int64_t skb,   \
       int64_t skh, int64_t sks, int64_t svb, int64_t svh, int64_t svs, int64_t sdb,            \
-      int64_t sdh, int64_t sds, double scale, int causal, int dtype, int vec, void* stream) {  \
+      int64_t sdh, int64_t sds, double scale, int causal, int dtype, int* work,              \
+      void* stream) {                                                                          \
     return run(which, q, k, v, o, dout, out, stats, delta, dq, dk, dv, B, H, Sq, Sk, D, sqb,   \
                sqh, sqs, skb, skh, sks, svb, svh, svs, sdb, sdh, sds, scale, causal, dtype,    \
-               vec, stream);                                                                   \
+               work, stream);                                                                  \
   }
 
 DL4J_ATTENTION_ENTRY(dl4j_attention_fwd, kFwd)

@@ -49,6 +49,16 @@ def library_path(name: str, csrc: str = CSRC) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's registers and spills per kernel) for the
+    library built from ``csrc/<name>.cu``; empty if it was not built."""
+    try:
+        with open(f"{library_path(name)}.log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
 def nvcc() -> str:
     """The toolkit's ``nvcc``: under ``$CUDA_HOME``, on ``PATH``, or in
     ``/usr/local/cuda``."""
@@ -92,9 +102,11 @@ def _build(name: str, path: str) -> None:
                          capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}:\n{out.stderr}")
+    log = (out.stdout + out.stderr).strip()
+    with open(f"{path}.log", "w") as f:     # ptxas's report, kept beside it
+        f.write(log)
     os.replace(tmp, path)       # atomic: a concurrent build loses nothing
-    BUILDS[name] = {"seconds": time.perf_counter() - t0,
-                    "log": (out.stdout + out.stderr).strip()}
+    BUILDS[name] = {"seconds": time.perf_counter() - t0, "log": log}
 
 
 def declare(fn, argtypes: Sequence) -> None:

@@ -13,18 +13,22 @@ MB of scores per layer). The port computes it in CUDA C++
   log-sum-exp (as ``stats``: the row maximum and the log-sum, in base 2);
 - ``attention_bwd``: three launches, FlashAttention-2's scheme with P
   recomputed from ``stats``: ``delta = rowsum(dO * O)``; dk and dv over
-  key tiles; dq over query tiles. No atomics: two calls are bit-equal.
+  key tiles; dq over query tiles. No atomic sums: two calls are
+  bit-equal.
 
 What bounds them on the card: at GPT-medium's shape (16 x 12 heads x
 512 x 128, causal) a forward is 12.9 GFLOP of products (0.013 ms at 989
 TFLOP/s) on 100 MB of q, k, v and O (0.030 ms at 3.35 TB/s): the least
 time is the bytes', and so for the backward's kernels. A training step
 with per-layer remat runs the forward twice and the backward once per
-layer. The kernels keep the scores in registers, feed bf16 tensor cores
-(``mma.sync``, float32 accumulation) from double-buffered shared tiles,
-and skip the key tiles the causal mask hides. As written they run at
-~4-6x that bound and ~2x PyTorch's fused attention; what holds them
-there is not measured yet (PERF.md).
+layer. The bf16 kernels are persistent and warp specialised: a producer
+thread feeds tiles to shared memory with TMA (tensor maps built from each
+tensor's own strides), two consumer warpgroups multiply them with wgmma
+and keep the scores in registers, and the causal mask's hidden tiles are
+skipped. Their times against the bound and PyTorch's fused attention are
+in PERF.md. TMA reads only tensors whose base and strides are 16-byte
+multiples: the wrappers copy a bf16 view that is not (counted in
+``ALIGN_COPIES`` and ``DOUT_COPIES``); build_gpt's views need no copy.
 
 Beside the kernels are their plain PyTorch versions: ``sdpa_plain`` (the
 JAX op's math line by line: what the op computes on the CPU and with an
@@ -53,8 +57,12 @@ from deeplearning4j_tpu_torch.kernels import _cuda
 #: Kernel launches, bumped where each kernel is launched.
 LAUNCHES: Dict[str, int] = {"attention_fwd": 0, "attention_bwd_delta": 0,
                             "attention_bwd_dkdv": 0, "attention_bwd_dq": 0}
-#: Copies the backward wrapper made of a dO whose last stride was not 1.
+#: Copies the backward wrapper made of a dO whose last stride was not 1, or
+#: (bf16) whose base or strides were not on 16 bytes.
 DOUT_COPIES: Dict[str, int] = {"attention_bwd": 0}
+#: Copies of a bf16 q, k or v whose base or strides were not on 16 bytes
+#: (TMA reads only such tensors), by the wrapper that made them.
+ALIGN_COPIES: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0}
 
 _LIB = "causal_attention"
 _MASKED = -1e30
@@ -74,15 +82,22 @@ ATTENTION_ARGTYPES = (
     + [(n, _I64) for n in ("B", "H", "Sq", "Sk", "D", "sqb", "sqh", "sqs",
                            "skb", "skh", "sks", "svb", "svh", "svs", "sdb",
                            "sdh", "sds")]
-    + [("scale", _D), ("causal", _I), ("dtype", _I), ("vec", _I),
+    + [("scale", _D), ("causal", _I), ("dtype", _I), ("work", _P),
        ("stream", _P)])
 ENTRIES = tuple(f"dl4j_{k}" for k in LAUNCHES)
+#: per (device, raw stream): the two int32 the persistent bf16 kernels take
+#: their work items from. A launch's last block leaves them zero, and
+#: launches on one stream run one after another, so a stream's launches
+#: share one pair; launches on two streams never do.
+_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     DOUT_COPIES["attention_bwd"] = 0
+    for k in ALIGN_COPIES:
+        ALIGN_COPIES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -244,15 +259,32 @@ def _check(q, k, v) -> torch.device:
 
 
 def _rows_aligned(ts) -> bool:
-    """Every row of every tensor starts on 16 bytes (bf16: 8 elements)."""
+    """Every row of every tensor starts on 16 bytes (bf16: 8 elements):
+    the base and the batch, head and row strides, as TMA needs them."""
     return all(t.data_ptr() % 16 == 0 and all(
         (st * t.element_size()) % 16 == 0 for st in t.stride()[:3])
         for t in ts)
 
 
+def _for_tma(ts, counter: Dict[str, int], key: str):
+    """The bf16 tensors as the kernels read them: each whose rows are not on
+    16 bytes replaced by a contiguous copy, counted in ``counter[key]``."""
+    if ts[0].dtype != torch.bfloat16:
+        return ts
+    out = []
+    for t in ts:
+        if not _rows_aligned([t]):
+            t = t.clone(memory_format=torch.contiguous_format)
+            counter[key] += 1
+        out.append(t)
+    return out
+
+
 def _launch(entry: str, q, k, v, scale: float, causal: bool, o=None,
             dout=None, out=None, stats=None, delta=None, dq=None, dk=None,
-            dv=None) -> None:
+            dv=None, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Launch ``entry`` of ``lib`` (the package's build by default) on
+    the current stream; raises on the launch's CUDA error."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -264,14 +296,18 @@ def _launch(entry: str, q, k, v, scale: float, causal: bool, o=None,
     b, h, sq, d = q.shape
     d_ = dout if dout is not None else q
     dev = q.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with torch.cuda.device(dev):
-        err = getattr(_lib(), entry)(
+        work = _WORK.get((dev.index, stream))
+        if work is None:    # zeroed on `stream`, before the launch
+            work = _WORK[dev.index, stream] = torch.zeros(
+                2, dtype=torch.int32, device=dev)
+        err = getattr(lib or _lib(), entry)(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(out), ptr(stats),
             ptr(delta), ptr(dq), ptr(dk), ptr(dv), b, h, sq, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *d_.stride()[:3], scale, int(causal), _DTYPE_CODE[q.dtype],
-            int(_rows_aligned([q, k, v, d_])),
-            torch._C._cuda_getCurrentRawStream(dev.index))
+            work.data_ptr(), stream)
     _cuda.check(err, entry)
     LAUNCHES[entry[len("dl4j_"):]] += 1
 
@@ -279,10 +315,13 @@ def _launch(entry: str, q, k, v, scale: float, causal: bool, o=None,
 def attention_fwd(q, k, v, causal: bool = False,
                   scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, stats): one launch on the card; the plain version elsewhere."""
+    """(O, stats): one launch on the card; the plain version elsewhere. A
+    bf16 q, k or v whose rows are not on 16 bytes is copied first (counted
+    in ``ALIGN_COPIES``)."""
     dev = _check(q, k, v)
     if dev.type in _PLAIN_DEVICES:
         return attention_fwd_plain(q, k, v, causal, scale)
+    q, k, v = _for_tma((q, k, v), ALIGN_COPIES, "attention_fwd")
     b, h, sq, d = q.shape
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=dev)
     stats = torch.empty((b, h, sq, 2), dtype=acc_dtype(q.dtype), device=dev)
@@ -295,7 +334,8 @@ def attention_bwd(q, k, v, o, dout, stats, causal: bool = False,
                   scale: Optional[float] = None):
     """(dq, dk, dv), contiguous: three launches on the card; the plain
     version elsewhere. A dO whose last stride is not 1 is copied first
-    (counted in ``DOUT_COPIES``)."""
+    (counted in ``DOUT_COPIES``), and so is, for bf16, a dO, q, k or v
+    whose rows are not on 16 bytes (``DOUT_COPIES``, ``ALIGN_COPIES``)."""
     dev = _check(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \
             or dout.dtype != q.dtype or stats.shape != q.shape[:3] + (2,) \
@@ -309,6 +349,8 @@ def attention_bwd(q, k, v, o, dout, stats, causal: bool = False,
     if dout.stride(3) != 1:
         dout = dout.contiguous()
         DOUT_COPIES["attention_bwd"] += 1
+    (dout,) = _for_tma((dout,), DOUT_COPIES, "attention_bwd")
+    q, k, v = _for_tma((q, k, v), ALIGN_COPIES, "attention_bwd")
     s = _scale(q.shape[3], scale)
     delta = torch.empty(q.shape[:3], dtype=stats.dtype, device=dev)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)

@@ -1,0 +1,181 @@
+"""Measuring the port's kernels on the card: device times, the least time
+the card could take, and what the compiler made of a built library.
+
+``chip_smoke.py`` and ``experiments/cuda_attention_study.py`` time and
+inspect the kernels with these, so that both read a kernel the same way.
+Nothing here runs at import: the functions need a card (``median_ms``) or
+the CUDA toolkit (``sass_kernels``) only when called.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import time
+from typing import Callable, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+#: (memory bytes/s, non-tensor-core float32 FLOP/s), from NVIDIA's data
+#: sheets, by a word of the card's name
+CARDS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
+         "H100": (3.35e12, 67e12)}
+#: H100 SXM dense bf16 tensor-core rate (FLOP/s)
+BF16_TC_FLOPS = 989e12
+#: the device sleep the host queues timed calls behind (cycles; ~50 ms)
+SLEEP_CYCLES = 10**8
+
+
+def card_rates(name: str) -> Tuple[float, float]:
+    """(memory bytes/s, float32 FLOP/s) of the card named ``name``."""
+    for key in ("PCIe", "NVL", "H100"):
+        if key in name:
+            return CARDS[key]
+    raise SystemExit(f"no memory/compute rates on record for {name!r}")
+
+
+def median_ms(fn: Callable[[], object], flush: torch.Tensor,
+              iters: int = 20) -> float:
+    """Median device time of ``fn`` over ``iters`` calls, each after
+    ``flush`` was overwritten (a 1 GiB buffer evicts L2: the main path
+    finds its inputs cold). The host queues every call behind a device
+    sleep and checks that the sleep outlasted its queueing, so no host
+    time enters the events (``torch.autograd.grad``'s did, behind the
+    write alone); the sleep is doubled until it does."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        asleep.record()
+        for s, e in ev:
+            flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        covered = not asleep.query()
+        torch.cuda.synchronize()
+        if covered:
+            return float(np.median([s.elapsed_time(e) for s, e in ev]))
+        cycles *= 2
+    raise SystemExit("the host did not finish queueing within the sleep")
+
+
+def sass_kernels(lib_path: str) -> Dict[str, str]:
+    """The SASS of each kernel in a built library, by (mangled) name, from
+    the toolkit's ``cuobjdump -sass``."""
+    from deeplearning4j_tpu_torch.kernels import _cuda
+    tool = os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    kernels = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        kernels[name.strip()] = body
+    return kernels
+
+
+def sass_counts(body: str) -> Tuple[int, int, int]:
+    """(HGMMA, UTMALDG, WARPGROUP.DEPBAR) instructions in one kernel's
+    SASS: a wgmma batch that ptxas serialized shows one DEPBAR per
+    HGMMA."""
+    return (body.count("HGMMA."), body.count("UTMALDG"),
+            body.count("WARPGROUP.DEPBAR"))
+
+
+def ptxas_spills(log: str) -> Dict[str, Tuple[int, int]]:
+    """(spill stores, spill loads) in bytes per kernel (mangled name), from
+    ``nvcc -Xptxas -v``'s report."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[fn] = (nums[1], nums[2])
+            fn = None
+    return spills
+
+
+def attention_inputs(dev, b, h, sq, sk, d, dtype, split, seed=0):
+    """q, k, v and dO on ``dev``; with ``split`` q, k and v are the views
+    build_gpt hands the op (one [B, S, H, 3D] tensor, permuted, split)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if split:
+        qkv = torch.randn(b, sq, h, 3 * d, device=dev, generator=g).to(
+            dtype).permute(0, 2, 1, 3)
+        q, k, v = torch.split(qkv, d, dim=3)
+    else:
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
+                   for s in (sq, sk, sk))
+    do = torch.randn(b, h, sq, d, device=dev, generator=g).to(dtype)
+    return q, k, v, do
+
+
+def attention_bounds(b, h, sq, sk, d, causal):
+    """Per call, (operations, bytes) each attention kernel must do and
+    move: the products over the score entries the causal mask leaves (2
+    FLOP per multiply-add; forward QK^T and PV, dk/dv S^T, dP^T, P^T dO
+    and dS^T q, dq S, dP and dS k) and every input read once, every output
+    written once (bf16 tensors, float32 stats and delta)."""
+    off = sk - sq
+    vis = sum(min(sk, max(0, i + off + 1)) if i + off >= 0 else sk
+              for i in range(sq)) if causal else sq * sk
+    ent = b * h * vis
+    t = 2 * b * h * d                      # bytes per row of a bf16 tensor
+    rows_q, rows_k = sq, sk
+    return {
+        "attention_fwd": (4 * d * ent, t * (rows_q + 2 * rows_k + rows_q)
+                          + b * h * sq * 8),
+        "attention_bwd_delta": (2 * d * b * h * sq,
+                                t * 2 * rows_q + b * h * sq * 4),
+        "attention_bwd_dkdv": (8 * d * ent,
+                               t * (2 * rows_q + 2 * rows_k + 2 * rows_k)
+                               + b * h * sq * 12),
+        "attention_bwd_dq": (6 * d * ent,
+                             t * (3 * rows_q + 2 * rows_k) + b * h * sq * 12),
+    }
+
+
+def tensor_map_encode_us(tensors: Sequence[torch.Tensor], rows: int,
+                         reps: int = 1000) -> float:
+    """Host microseconds to encode one TMA tensor map for each bf16
+    [B, H, S, D] tensor in ``tensors``, as the attention library does at
+    every launch (``cuTensorMapEncodeTiled``: dims (D, S, H, B) at the
+    tensor's strides, boxes of ``rows`` rows by one column block of up to
+    128 bytes, swizzled at its width), called through ctypes from libcuda:
+    an upper bound, since ctypes' own cost of each call is in it."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    enc = cuda.cuTensorMapEncodeTiled
+    u64, u32 = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)
+    enc.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                    ctypes.c_void_p, u64, u64, u32, u32, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    enc.restype = ctypes.c_int
+    buf = ctypes.create_string_buffer(128 + 64)     # a CUtensorMap: 128 B
+    addr = (ctypes.addressof(buf) + 63) & ~63       # on 64 bytes
+    calls = []
+    for t in tensors:
+        b, h, s, d = t.shape
+        rb = min(128, 2 * d)                        # the box's row, bytes
+        swizzle = {32: 1, 64: 2, 128: 3}[rb]        # CU_TENSOR_MAP_SWIZZLE_*
+        calls.append([
+            addr, 9, 4, t.data_ptr(),               # BFLOAT16, rank 4
+            (ctypes.c_uint64 * 4)(d, s, h, b),
+            (ctypes.c_uint64 * 3)(*(2 * t.stride(i) for i in (2, 1, 0))),
+            (ctypes.c_uint32 * 4)(rb // 2, rows, 1, 1),
+            (ctypes.c_uint32 * 4)(1, 1, 1, 1),
+            0, swizzle, 3, 0])                      # L2 promotion 256 B
+    for c in calls:
+        if enc(*c) != 0:
+            raise RuntimeError(f"cuTensorMapEncodeTiled refused {c}")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for c in calls:
+            enc(*c)
+    return 1e6 * (time.perf_counter() - t0) / reps

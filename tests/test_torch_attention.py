@@ -200,14 +200,15 @@ def _c_entry_params():
 def test_ctypes_declaration_matches_the_c_entries():
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int,
-               "double": ctypes.c_double}
+               "double": ctypes.c_double, "int*": ctypes.c_void_p}
     params, entries = _c_entry_params()
     assert [n for _, n in params] == [n for n, _ in at.ATTENTION_ARGTYPES]
     assert [c_types[t] for t, _ in params] == [
         t for _, t in at.ATTENTION_ARGTYPES]
-    # every pointer and the stream go as c_void_p, never as a 32-bit int
+    # every pointer, the work counter and the stream go as c_void_p, never
+    # as a 32-bit int
     pointers = [n for t, n in params if t.endswith("*")]
-    assert "stream" in pointers and len(pointers) == 12
+    assert {"work", "stream"} <= set(pointers) and len(pointers) == 13
     assert [e for e, _ in entries] == list(at.ENTRIES)
     assert [w for _, w in entries] == ["kFwd", "kDelta", "kDkdv", "kDq"]
     assert [e[len("dl4j_"):] for e in at.ENTRIES] == list(at.LAUNCHES)
@@ -243,11 +244,55 @@ def test_nvcc_command_builds_the_attention_source_for_sm90a():
                         pathlib.Path(out).name)
 
 
-def test_row_alignment_picks_the_vector_path_only_for_16_byte_rows():
-    x = torch.zeros(2, 3, 8, 64, dtype=torch.bfloat16)
-    assert at._rows_aligned([x])
-    qkv = torch.zeros(2, 8, 3, 3 * 64, dtype=torch.bfloat16).permute(
-        0, 2, 1, 3)
-    assert at._rows_aligned(list(torch.split(qkv, 64, dim=3)))
-    odd = torch.zeros(2, 3, 8, 65, dtype=torch.bfloat16)[..., :64]
-    assert not at._rows_aligned([odd])
+def test_bf16_kernels_are_wgmma_and_tma_with_no_mma_sync_left():
+    """The bf16 kernels read their tiles with TMA (tensor maps encoded by
+    the host through cudaGetDriverEntryPoint, no libcuda link) and
+    multiply with wgmma; the first design's mma.sync, ldmatrix and cp.async
+    are gone."""
+    code = "\n".join(line.split("//")[0] for line in
+                     SRC.read_text().splitlines())
+    for inst in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
+                 "mbarrier.try_wait.parity", "setmaxnreg",
+                 "cuTensorMapEncodeTiled"):
+        assert inst in code, inst
+    for inst in ("mma.sync", "ldmatrix", "cp.async.cg"):
+        assert inst not in code, inst
+    for name in ("attention_fwd_bf16", "attention_bwd_dkdv_bf16",
+                 "attention_bwd_dq_bf16"):
+        assert re.search(name + r"\(const __grid_constant__ TmaArgs p\)",
+                         code), name
+    assert "-lcuda" not in _cuda.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("view,copied", [
+    ("contiguous", False), ("split_q", False), ("split_k", False),
+    ("split_v", False), ("rows_130_bytes", True),
+    ("heads_1026_bytes", True), ("offset_2_bytes", True)])
+def test_tma_copy_rule_copies_only_bf16_views_off_16_bytes(view, copied):
+    """What the wrappers hand TMA: a bf16 tensor whose base or batch, head
+    or row stride is not a multiple of 16 bytes is replaced by a
+    contiguous copy with the same values, and counted; build_gpt's split
+    views and float32 tensors pass as they are."""
+    b, h, s, d = 2, 3, 8, 64
+    if view == "contiguous":
+        t = torch.randn(b, h, s, d).to(torch.bfloat16)
+    elif view.startswith("split"):
+        qkv = torch.randn(b, s, h, 3 * d).to(torch.bfloat16).permute(
+            0, 2, 1, 3)
+        t = torch.split(qkv, d, dim=3)["qkv".index(view[-1])]
+    elif view == "rows_130_bytes":
+        t = torch.randn(b, h, s, d + 1).to(torch.bfloat16)[..., :d]
+    elif view == "heads_1026_bytes":
+        t = torch.randn(b, h, s * d + 1).to(torch.bfloat16)[
+            ..., :s * d].unflatten(2, (s, d))
+    else:
+        flat = torch.randn(b * h * s * d + 1).to(torch.bfloat16)
+        t = flat[1:].view(b, h, s, d)
+    counter = {"k": 0}
+    (got,) = at._for_tma((t,), counter, "k")
+    assert counter["k"] == int(copied)
+    assert (got is not t) == copied and torch.equal(got, t)
+    if copied:
+        assert got.is_contiguous() and at._rows_aligned([got])
+    (f32,) = at._for_tma((t.float(),), counter, "k")
+    assert counter["k"] == int(copied)

@@ -217,6 +217,17 @@ ATTN_CASES = [  # (b, h, sq, sk, d, causal, split)
     (1, 2, 50, 130, 64, True, False),      # Sq < Sk
     (1, 2, 130, 50, 64, True, False),      # Sq > Sk: fully masked rows
     (2, 3, 128, 128, 128, True, True),     # build_gpt's strided q, k, v
+    # the bf16 kernels' tile edges: 128-query and 64-key tiles
+    (1, 2, 127, 127, 16, True, False),
+    (1, 2, 128, 128, 32, False, False),
+    (1, 2, 129, 129, 64, True, False),
+    (1, 2, 257, 257, 128, True, False),
+    (1, 2, 129, 257, 128, True, False),    # Sq < Sk
+    (1, 2, 257, 129, 64, True, False),     # Sq > Sk
+    (1, 2, 128, 127, 32, True, False),     # Sq > Sk by one
+    (1, 2, 127, 129, 16, False, False),
+    (1, 2, 257, 257, 64, True, True),
+    (1, 2, 129, 129, 128, False, True),
 ]
 
 
@@ -266,6 +277,124 @@ def test_attention_kernels_match_plain_on_card(card, case, dtype):
             err = (x.double() - w.double()).abs()
             assert bool((err <= rel * t + 1e-300).all()), float(
                 (err / t.clamp_min(1e-300)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_each_attention_kernel_matches_its_plain_version_on_card(card, case,
+                                                                  dtype):
+    """Each kernel against its plain version on the same inputs (the
+    backward kernels get the forward kernel's stats and the delta kernel's
+    delta), per element to a share of the sum of the absolute terms behind
+    it: 2^-6 in bf16 (each side rounds every P or dS term once and its
+    output once, but not the same values: 4 units of bf16's roundoff),
+    1e-5 in float32 and 1e-10 in float64 (the same terms summed in another
+    order); delta, a float32 (float64) sum, to 1e-5 (1e-10) in every
+    dtype. Two calls bit-equal."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    b, h, sq, sk, d, causal, split = case
+    q, k, v, do = _attn_inputs(card, b, h, sq, sk, d, dtype, split=split)
+    s = 1.0 / math.sqrt(d)
+    acc = at.acc_dtype(dtype)
+
+    def run():
+        o, st = at.attention_fwd(q, k, v, causal)
+        delta = torch.empty(q.shape[:3], dtype=acc, device=card)
+        at._launch("dl4j_attention_bwd_delta", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta)
+        dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), \
+            torch.empty_like(v, memory_format=torch.contiguous_format)
+        at._launch("dl4j_attention_bwd_dkdv", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta, dk=dk, dv=dv)
+        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        at._launch("dl4j_attention_bwd_dq", q, k, v, s, causal, o=o,
+                   dout=do, stats=st, delta=delta, dq=dq)
+        return o, st, delta, dk, dv, dq
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    o, st, delta, dk, dv, dq = got
+    rel = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5,
+           torch.float64: 1e-10}[dtype]
+    rel_acc = 1e-10 if dtype == torch.float64 else 1e-5
+    t_o, t_dq, t_dk, t_dv = at.abs_terms(q, k, v, do, causal)
+    pdk, pdv = at.bwd_dkdv_plain(q, k, v, do, st, delta, causal)
+    for x, want, t, r in (
+            (o, at.attention_fwd_plain(q, k, v, causal)[0], t_o, rel),
+            (delta, at.bwd_delta_plain(o, do),
+             (do.double().abs() * o.double().abs()).sum(-1), rel_acc),
+            (dk, pdk, t_dk, rel), (dv, pdv, t_dv, rel),
+            (dq, at.bwd_dq_plain(q, k, v, do, st, delta, causal), t_dq, rel)):
+        err = (x.double() - want.double()).abs()
+        assert bool((err <= r * t + 1e-300).all()), float(
+            (err / (r * t).clamp_min(1e-300)).max())
+
+
+@pytest.mark.cuda
+def test_attention_copies_bf16_views_whose_rows_are_not_on_16_bytes(card):
+    """TMA reads only tensors whose base and strides are 16-byte
+    multiples: the wrappers copy a bf16 q, k, v (rows 130 bytes apart) and
+    a dO (2 bytes into its storage), count each copy, and give O, stats and
+    the grads of the same values laid out contiguously, bit for bit."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    q, k, v, do = _attn_inputs(card, 1, 2, 129, 129, 64, torch.bfloat16)
+    wide = [torch.zeros(1, 2, 129, 65, dtype=torch.bfloat16, device=card)
+            for _ in range(3)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., :64] = t
+    qo, ko, vo = (w[..., :64] for w in wide)
+    flat = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device=card)
+    doo = flat[1:].view(do.shape)
+    doo.copy_(do)
+    assert not at._rows_aligned([qo]) and not at._rows_aligned([doo])
+    at.reset_launches()
+    got = at.attention_fwd(qo, ko, vo, True)
+    got = got + at.attention_bwd(qo, ko, vo, got[0], doo, got[1], True)
+    assert at.ALIGN_COPIES == {"attention_fwd": 3, "attention_bwd": 3}
+    assert at.DOUT_COPIES["attention_bwd"] == 1
+    o, st = at.attention_fwd(q, k, v, True)
+    want = (o, st) + at.attention_bwd(q, k, v, o, do, st, True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_attention_on_two_streams_at_once_gives_one_streams_bits(card):
+    """The persistent bf16 kernels take their work items from a counter of
+    their launch's stream. Forward and backward on two streams at once, at
+    two shapes (grids of one block per SM and of 9 blocks), give the bits
+    they give on one stream, call after call; the one-stream results are
+    held to the plain versions (2^-6 of the sum of the absolute terms)."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    cases = [_attn_inputs(card, 4, 12, 512, 512, 128, torch.bfloat16,
+                          split=True),
+             _attn_inputs(card, 1, 3, 257, 129, 64, torch.bfloat16, seed=8)]
+
+    def fwd_bwd(q, k, v, do):
+        o, st = at.attention_fwd(q, k, v, True)
+        return (o, st) + at.attention_bwd(q, k, v, o, do, st, True)
+
+    want = [fwd_bwd(*c) for c in cases]
+    for (q, k, v, do), (o, st, dq, dk, dv) in zip(cases, want):
+        terms = at.abs_terms(q, k, v, do, True)
+        plain = (at.attention_fwd_plain(q, k, v, True)[0],) + \
+            at.attention_bwd_plain(q, k, v, o, do, st, True)
+        for x, p, t in zip((o, dq, dk, dv), plain, terms):
+            err = (x.double() - p.double()).abs()
+            assert bool((err <= 2.0 ** -6 * t + 1e-300).all())
+    streams = [torch.cuda.Stream(card) for _ in cases]
+    torch.cuda.synchronize()
+    got = [[] for _ in cases]
+    for _ in range(8):
+        for c, s, g in zip(cases, streams, got):
+            with torch.cuda.stream(s):
+                g.append(fwd_bwd(*c))
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        for r in g:
+            assert all(torch.equal(x, y) for x, y in zip(r, w))
 
 
 @pytest.mark.cuda
@@ -325,6 +454,7 @@ def test_gpt_tiny_step_runs_every_attention_through_the_kernels(card):
     assert at.LAUNCHES == {"attention_fwd": 4, "attention_bwd_delta": 2,
                            "attention_bwd_dkdv": 2, "attention_bwd_dq": 2}
     assert at.DOUT_COPIES["attention_bwd"] == 0
+    assert at.ALIGN_COPIES == {"attention_fwd": 0, "attention_bwd": 0}
 
 
 @pytest.mark.cuda
