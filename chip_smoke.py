@@ -5,8 +5,9 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the two CUDA C++ libraries (csrc/bn_bwd_reduce.cu
-   and csrc/causal_attention.cu, one nvcc each, started together: seconds,
+   limit; the builds of the three CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   csrc/causal_attention.cu and csrc/paged_attention.cu, one nvcc each,
+   started together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -70,11 +71,45 @@ Phases, in order; any failure exits non-zero:
    of a forward call, of its launch alone, and of encoding its three
    tensor maps.
 
+10. kernels: the paged attention kernel (csrc/paged_attention.cu) against
+   its plain version: GPT-medium decode (8 lanes x 12 heads of 128,
+   blocks of 16, last keys 0..1023), its prefill (512 rows after a
+   256-token prefix, and cold), block sizes 1-1024 at head dims 16-128,
+   last keys 0, at block edges and in a partly filled last block, float32
+   and float64; per element within 1e-5 / 1e-12 of the sum of absolute
+   terms; controls (a mask off by one, a table entry one block off) must
+   fail the rule; two calls bit-equal, dense = paged bits, NaN in the null
+   block, unused blocks and past each lane's last key changes nothing.
+11. parity: GPT_TINY float64 through ``PagedGenerativeServer`` on the card
+   and on the CPU, a prefix hit among the prompts: identical greedy
+   tokens, every dispatch's logits within 1e-12.
+12. main path: GPT-medium float32 (``build_gpt(GPT_MEDIUM, ..., seed=0)``)
+   served through ``gpt_paged_spec`` by ``PagedGenerativeServer(max_slots=8,
+   block_size=16, max_seq_len=1024)``: 32 requests (prompts 16-512, a
+   256-token shared prefix for 8, 80% of budgets 2-8 and 20% 64-128),
+   temperature 0, through ``submit`` / ``result()``; paged_attention must
+   launch 16 times a dispatch; every request against ``greedy_decode``
+   (a differing token only at a near tie, top-2 margin below 1e-4 of the
+   logits' scale); the pool drains clean; tokens/s, TTFT (cold, prefix
+   hit), inter-token and decode-step times, peak memory. Then the dense
+   ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of them: its
+   prefill launches attention_fwd, its decode paged_attention. Then ~20
+   decode steps under ``torch.profiler``: device launches and busy time a
+   step, the idle share against the same steps' wall time, device time
+   by group.
+13. path shapes: every shape the serving run handed paged_attention,
+   checked against its plain version; the kernel timed alone at decode
+   (8 lanes at context 128, 512, 1024) and at the prefill, with its plain
+   version, its bound and the library's masked
+   ``F.scaled_dot_product_attention`` over the dense slab (decode and
+   prefill); attention_fwd at
+   the dense prefill's float32 shape (1, 12, 512, 128).
+
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step; the times
-are per training step of that path), the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package is
-imported.
+are per training step of that path, per decode step for paged_attention),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Nothing of JAX or of the JAX package is imported.
 """
 import json
 import math
@@ -89,7 +124,8 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels.measure import (
     BF16_TC_FLOPS, attention_bounds, attention_inputs, card_rates,
-    median_ms, ptxas_spills, sass_counts, sass_kernels, tensor_map_encode_us)
+    median_ms, ptxas_spills, sass_counts, sass_kernels, synced_ms,
+    tensor_map_encode_us)
 
 STEPS = 8
 BATCH = 128
@@ -1196,6 +1232,695 @@ def phase_attention_timing(dev, card_name, per_step):
 
 
 # ----------------------------------------------------------------------
+# generative serving (csrc/paged_attention.cu) and the GPT-medium server
+PAGED_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
+#: the JAX code the kernel stands in for (XLA fused it; no Pallas kernel)
+PAGED_REPLACES = "deeplearning4j_tpu/zoo/gpt.py:649"
+PAGED_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+SERVE_SLOTS, SERVE_BS, SERVE_SEQ, SERVE_REQUESTS = 8, 16, 1024, 32
+
+
+def check_paged(args, errs, label, controls=True, dense=False):
+    """The kernel against its plain version on ``args`` (q, kc, vc, tables,
+    lane, kmax): per element within 1e-5 (float32) or 1e-12 (float64) of
+    the sum of its absolute terms; two calls bit-equal; with NaN in the
+    null block, the unused blocks and past each lane's last key, the same
+    bits and finite; for a decode case (``dense``) the same contexts as a
+    dense slab give the same bits. ``controls``: the rule must reject the
+    plain version of a mask off by one (t < kmax) and of a table whose
+    first entries are one block off. Prints one line; exits on a
+    failure."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, kc, vc, tables, lane, kmax = args
+    tol = PAGED_TOL[q.dtype]
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    want = pa.paged_attention_plain(*args)
+    terms = pa.abs_terms(*args)
+    torch.cuda.synchronize()
+    reading = measure.paged_reading(got, want, terms, tol)
+    errs["paged_attention"] = max(errs.get("paged_attention", 0.0), float(
+        (got.double() - want.double()).abs().max()))
+    same = torch.equal(got, again)
+    pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+    poisoned = pa.paged_attention(q, pk, pv, tables, lane, kmax)
+    poison_ok = bool(torch.isfinite(poisoned).all()) and torch.equal(
+        poisoned, got)
+    dense_ok = True
+    if dense:
+        dk, dv, dt = measure.paged_dense(kc, vc, tables)
+        dense_ok = torch.equal(pa.paged_attention(q, dk, dv, dt, lane, kmax),
+                               got)
+    ctl = ""
+    ctl_ok = True
+    if controls:
+        shifted = tables.clone()
+        shifted[:, 0] += 1
+        r_mask = measure.paged_reading(pa.paged_attention_plain(
+            q, kc, vc, tables, lane, kmax - 1), got, terms, tol)
+        r_table = measure.paged_reading(pa.paged_attention_plain(
+            q, kc, vc, shifted, lane, kmax), got, terms, tol)
+        ctl_ok = r_mask > 1 and r_table > 1
+        ctl = (f"; controls (must exceed 1): mask t < kmax {r_mask:.3g}, "
+               f"table entry one block off {r_table:.3g}")
+    ok = reading <= 1 and same and poison_ok and dense_ok and ctl_ok
+    log(f"  {label}: {reading:.3g} of tol, bit-equal twice {same}, NaN "
+        f"poison unchanged {poison_ok}" + (f", dense = paged bits "
+                                           f"{dense_ok}" if dense else "")
+        + ctl + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("paged_attention disagrees with its plain version")
+
+
+def phase_paged_kernels(dev, errs):
+    """The paged attention kernel against its plain version: GPT-medium
+    decode (8 lanes, 12 heads of 128, blocks of 16, last keys 0..1023),
+    its prefill (512 rows after a 256-token prefix, and cold), block sizes
+    1, 8, 16, 160 and 1024 at head dims 16-128 with last keys 0, at block
+    edges (15, 16, 17) and inside a partly filled last block, in float32
+    and float64."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    ctx = [0, 15, 16, 17, 127, 300, 511, 1023]
+    for dt in (torch.float32, torch.float64):
+        name = str(dt)[6:]
+        check_paged(measure.paged_decode_case(dev, ctx, 12, 128, 16, dt),
+                    errs, f"decode 8x12x128 BS 16 last keys {ctx} {name}",
+                    dense=True)
+        for hist, rows, length in ((256, 512, 500), (0, 512, 512)):
+            check_paged(measure.paged_prefill_case(
+                dev, hist, rows, length, 12, 128, 16, dt),
+                errs, f"prefill {rows} rows x12x128 BS 16 hist {hist} "
+                f"length {length} {name}")
+    for bs in (1, 8, 160, 1024):
+        for d in (16, 32, 64, 128):
+            for dt in (torch.float32, torch.float64):
+                check_paged(measure.paged_decode_case(
+                    dev, [0, 15, 16, 17, 150, 1023], 3, d, bs, dt,
+                    seed=bs + d), errs,
+                    f"decode BS {bs} D {d} {str(dt)[6:]}",
+                    controls=bs == 8, dense=d == 128)
+
+
+def phase_serving_parity():
+    """GPT_TINY in float64 through PagedGenerativeServer on the card and
+    on the CPU, the same prompts, one with a prefix hit, all queued before
+    the worker starts (so both admit in the same order): the same greedy
+    tokens, and every dispatch's logits within 1e-12 of their magnitude."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_paged_spec)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, GPT_TINY.vocab_size, 24).astype(np.int32)
+    prompts = [shared, np.concatenate([shared, rng.integers(
+        0, GPT_TINY.vocab_size, 5)]).astype(np.int32),
+        rng.integers(0, GPT_TINY.vocab_size, 9).astype(np.int32)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+        for n, a in sd.trainable_params().items():
+            sd.set_arr_for_var(n, a.double())
+        srv = PagedGenerativeServer(gpt_paged_spec(sd, GPT_TINY),
+                                    max_slots=2, block_size=8, start=False,
+                                    device=dev, debug_leaks=True)
+        logits = []
+        for attr in ("_prefill_disp", "_decode_disp"):
+            real = getattr(srv, attr)
+
+            def recording(*a, _real=real):
+                out = _real(*a)
+                lg = out[3].detach().cpu()
+                if "active" in a[3]:           # a decode: its active lanes
+                    lg = lg[np.flatnonzero(a[3]["active"])]
+                logits.append(lg)
+                return out
+            setattr(srv, attr, recording)
+        before = pa.LAUNCHES["paged_attention"]
+        hs = [srv.submit(p, max_new_tokens=16) for p in prompts]
+        srv.start()
+        toks = [h.result(timeout=300) for h in hs]
+        srv.shutdown()
+        res[dev] = (toks, logits, srv.metrics.counters["prefix_blocks_hit"],
+                    pa.LAUNCHES["paged_attention"] - before)
+    (tc, lc, hc, nc), (th, lh, hh, _) = res["cuda"], res["cpu"]
+    worst = max(_tensor_rel(a, b) for a, b in zip(lc, lh)) \
+        if len(lc) == len(lh) else math.inf
+    log(f"  float64 GPT_TINY paged serving, card vs cpu: tokens identical "
+        f"{tc == th}, {len(lc)} dispatches' logits worst {worst:.2e} (tol "
+        f"1e-12), prefix blocks hit {hc}/{hh}, paged_attention launches "
+        f"on the card {nc}")
+    if not (tc == th and worst <= 1e-12 and hc >= 1 and nc > 0):
+        raise SystemExit("paged serving on the card disagrees with the CPU")
+
+
+def serving_traffic(vocab):
+    """32 requests from numpy seed 0: prompt lengths uniform over 16-512;
+    new tokens 80% in 2-8 and 20% in 64-128 (bench_serving_paged's
+    long-tail mix, scaled to max_seq 1024); 8 of them share a 256-token
+    prefix (its own suffix of 16-256 tokens after it)."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, 256).astype(np.int32)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        if i % 4 == 1:
+            p = np.concatenate([shared, rng.integers(
+                0, vocab, int(rng.integers(16, 257)))]).astype(np.int32)
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(16, 513))).astype(
+                np.int32)
+        n = int(rng.integers(64, 129)) if rng.random() < 0.2 else int(
+            rng.integers(2, 9))
+        reqs.append((p, n))
+    return reqs
+
+
+def greedy_logits(spec, prompt, n, dev):
+    """The port's greedy_decode, keeping each step's logits on the host."""
+    from deeplearning4j_tpu_torch.serving.generative import _slab
+    msl = SERVE_SEQ
+    kc = _slab(spec.kv_shape(1, msl), spec.kv_dtype, dev)
+    vc = _slab(spec.kv_shape(1, msl), spec.kv_dtype, dev)
+    params = spec.params()
+    L = len(prompt)
+    b = 1 << (L - 1).bit_length()
+    out, lg = [], []
+    with torch.inference_mode():
+        kc, vc, nxt, logits = spec.prefill(params, kc, vc, {
+            "tokens": np.pad(prompt, (0, b - L)), "length": np.int32(L),
+            "slot": np.int32(0)})
+        out.append(int(nxt))
+        lg.append(logits.cpu())
+        pos = L
+        while len(out) < n and pos + 1 < msl:
+            kc, vc, nxt, logits = spec.decode(params, kc, vc, {
+                "tokens": np.array([out[-1]], np.int32),
+                "positions": np.array([pos], np.int32),
+                "active": np.array([True])})
+            pos += 1
+            out.append(int(nxt.cpu()[0]))
+            lg.append(logits[0].cpu())
+    return out, lg
+
+
+def check_against_greedy(dense_spec, reqs, got, dev):
+    """Each request's tokens against the port's greedy_decode on the card.
+    cuBLAS picks GEMM kernels by M, so 8 lanes and 1 lane may round
+    differently: where a token differs, the reference's top-2 logit
+    margin at the first differing position must be below 1e-4 of the
+    logits' scale (a near tie). Returns (identical, near ties)."""
+    from deeplearning4j_tpu_torch.serving.generative import greedy_decode
+    same, ties = 0, []
+    for i, ((p, n), toks) in enumerate(zip(reqs, got)):
+        ref = greedy_decode(dense_spec, p, n, max_seq_len=SERVE_SEQ)
+        if ref == toks:
+            same += 1
+            continue
+        ref2, lg = greedy_logits(dense_spec, p, n, dev)
+        j = next(k for k in range(min(len(ref2), len(toks)))
+                 if ref2[k] != toks[k])
+        top = torch.topk(lg[j].double(), 2).values
+        margin = float(top[0] - top[1])
+        scale = float(lg[j].abs().max())
+        log(f"    request {i}: first differing token {j} (served "
+            f"{toks[j]}, reference {ref2[j]}), reference top-2 margin "
+            f"{margin:.3e}, {margin / scale:.3e} of the logits' scale "
+            f"{scale:.3f}")
+        if ref2 != ref or margin >= 1e-4 * scale:
+            raise SystemExit(f"request {i}: served tokens differ from "
+                             f"greedy_decode beyond a near tie")
+        ties.append((i, j, margin / scale))
+    return same, ties
+
+
+def _record_shapes(pa, shapes):
+    """Wrap ``pa.paged_attention`` to record each call's (N, A, D, BS,
+    MAXB, table rows, dtype); returns the real function."""
+    real = pa.paged_attention
+
+    def recording(q, kc, vc, tables, lane, kmax):
+        shapes.add((*q.shape, kc.shape[2], tables.shape[1], tables.shape[0],
+                    str(q.dtype)[6:]))
+        return real(q, kc, vc, tables, lane, kmax)
+    pa.paged_attention = recording
+    return real
+
+
+def phase_serving(dev, card):
+    """GPT-medium at full width (hidden 1536, 16 layers, 12 heads of 128,
+    vocab 32768, max_seq 1024), float32 weights from ``build_gpt(...,
+    seed=0)``, served through ``gpt_paged_spec`` by
+    ``PagedGenerativeServer(max_slots=8, block_size=16, max_seq_len=1024)``
+    (its default pool: 513 blocks, the dense-equivalent floor): the 32
+    requests of ``serving_traffic``, temperature 0, submitted at once,
+    through ``submit`` / ``result()``. Counts reset just before, read just
+    after: paged_attention must launch 16 times per dispatch. Each
+    request against greedy_decode; the pool drains clean. Then the dense
+    ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of the
+    requests (counts reset and read around it): its prefill launches
+    attention_fwd, its decode paged_attention. Returns (launches of each
+    path, shapes handed to paged_attention, metrics)."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
+    from deeplearning4j_tpu_torch.serving.paged import (PagedGenerativeServer,
+                                                        PoolExhaustedError)
+    from deeplearning4j_tpu_torch.zoo import (GPT_MEDIUM, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_paged_spec)
+    cfg = GPT_MEDIUM
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+    t0 = time.perf_counter()
+    sd = build_gpt(cfg, batch=1, seq_len=8, seed=0)
+    spec, dense_spec = gpt_paged_spec(sd, cfg), gpt_generative_spec(sd, cfg)
+    reqs = serving_traffic(cfg.vocab_size)
+    torch.cuda.synchronize()
+    log(f"  built GPT-medium float32 ({sum(p.numel() for p in spec.params().values())} "
+        f"params) in {time.perf_counter() - t0:.1f} s; requests: prompts "
+        f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)} "
+        f"tokens, {sum(n for _, n in reqs)} new tokens in all")
+    t0 = time.perf_counter()
+    srv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                block_size=SERVE_BS, max_seq_len=SERVE_SEQ)
+    log(f"  server up in {time.perf_counter() - t0:.1f} s: pool "
+        f"{srv.pool.num_blocks} blocks x {srv.bytes_per_block / 2**20:.1f} "
+        f"MiB = {srv.kv_slab_bytes / 2**30:.2f} GiB; warmup "
+        f"{srv.warmup_report}")
+    steps, hist_of = [], {}
+    real_obs = srv.metrics.observe_decode_step
+
+    def obs(active, ms):
+        steps.append((active, ms))
+        real_obs(active, ms)
+    srv.metrics.observe_decode_step = obs
+    real_prefill = srv._prefill
+
+    def prefill(s, req):
+        before = srv.metrics.counters["prefix_blocks_hit"]
+        real_prefill(s, req)
+        hist_of[req.id] = srv.metrics.counters["prefix_blocks_hit"] - before
+    srv._prefill = prefill
+    shapes = set()
+    real_pa = _record_shapes(pa, shapes)
+    times = [[] for _ in reqs]
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pa.reset_launches()
+        at.reset_launches()
+        t0 = time.perf_counter()
+        # every request submitted at once; one the pool sheds (its
+        # worst-case blocks do not fit beside the committed load) is
+        # submitted again after the server's backoff hint, as a client
+        # does; its TTFT counts from its first attempt
+        submit_t = [t0] * len(reqs)
+        hs = [None] * len(reqs)
+        pending, sheds = list(range(len(reqs))), 0
+        while pending:
+            still, hint = [], 0.05
+            for i in pending:
+                p, n = reqs[i]
+                try:
+                    hs[i] = srv.submit(p, max_new_tokens=n, on_token=lambda
+                                       t, i=i: times[i].append(
+                                           time.perf_counter()))
+                except PoolExhaustedError as e:
+                    sheds += 1
+                    still.append(i)
+                    hint = min(hint, e.retry_after_s)
+            pending = still
+            if pending:
+                time.sleep(hint)
+        got = [h.result(timeout=600) for h in hs]
+        wall = time.perf_counter() - t0
+        launches = {"paged_attention": pa.LAUNCHES["paged_attention"],
+                    "attention_fwd": at.LAUNCHES["attention_fwd"]}
+    finally:
+        pa.paged_attention = real_pa
+    peak = torch.cuda.max_memory_allocated()
+    srv.shutdown()
+    rec = srv.metrics.to_record()
+    n_tok = sum(len(t) for t in got)
+    n_disp = rec["generative"]["decode_steps"] + rec["generative"]["prefills"]
+    ttft = {True: [], False: []}
+    for i, h in enumerate(hs):
+        ttft[hist_of[h.id] > 0].append(1e3 * (times[i][0] - submit_t[i]))
+    gaps = [1e3 * (b - a) for t in times for a, b in zip(t, t[1:])]
+    step_ms = [ms for _, ms in steps]
+    log(f"  served {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s; {len(steps)} decode steps (mean "
+        f"{np.mean([a for a, _ in steps]):.2f} lanes active), "
+        f"{rec['generative']['prefills']} prefills; {sheds} submits shed "
+        f"by the pool and retried  [{card}]")
+    for hit, v in ttft.items():
+        log(f"  TTFT {'prefix hit' if hit else 'cold'} ({len(v)}): p50 "
+            f"{np.percentile(v, 50):.2f} ms, p99 {np.percentile(v, 99):.2f} "
+            f"ms")
+    log(f"  inter-token p50 {np.percentile(gaps, 50):.2f} ms, p99 "
+        f"{np.percentile(gaps, 99):.2f} ms; decode step wall p50 "
+        f"{np.percentile(step_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(step_ms, 99):.2f} ms; serving's peak memory "
+        f"{(peak - base) / 2**30:.2f} GiB ({(held - base) / 2**30:.2f} GiB "
+        f"before the requests: weights and pool; the card's peak "
+        f"{peak / 2**30:.2f} GiB with what earlier phases hold); prefix "
+        f"blocks hit "
+        f"{rec['paged']['prefix_blocks_hit']}")
+    log(f"  launches {launches} over {n_disp} dispatches; shapes handed to "
+        f"paged_attention {sorted(shapes)}")
+    if launches["paged_attention"] != cfg.num_layers * n_disp:
+        raise SystemExit(f"paged_attention launched "
+                         f"{launches['paged_attention']} times, want "
+                         f"{cfg.num_layers} per dispatch ({n_disp})")
+    if not ttft[True]:
+        raise SystemExit("no request hit the prefix cache")
+    st = srv.pool.stats()
+    srv.pool.check_invariant(tables=[])
+    deadline = time.monotonic() + 10
+    while srv._committed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    log(f"  pool after the run: {st}, committed {srv._committed}: "
+        f"{'clean' if st['held'] == 0 and srv._committed == 0 else 'LEAK'}")
+    if st["held"] or srv._committed:
+        raise SystemExit("the block pool did not drain")
+    t0 = time.perf_counter()
+    same, ties = check_against_greedy(dense_spec, reqs, got, dev)
+    log(f"  against greedy_decode on the card: {same} of {len(reqs)} "
+        f"identical, {len(ties)} near ties {ties} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    metrics = {"tokens_per_s": n_tok / wall, "wall_s": wall, "sheds": sheds,
+               "tokens": n_tok, "ttft_ms": ttft, "gaps_ms": gaps,
+               "step_ms": step_ms, "peak_gib": (peak - base) / 2**30}
+
+    # the dense server: its prefill is the attention_fwd kernel's path
+    dense_shapes = set()
+    real_pa = _record_shapes(pa, dense_shapes)
+    try:
+        dsrv = GenerativeServer(dense_spec, max_slots=SERVE_SLOTS,
+                                max_seq_len=SERVE_SEQ)
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        at.reset_launches()
+        sub = reqs[:8]
+        t0 = time.perf_counter()
+        dgot = [h.result(timeout=600) for h in
+                [dsrv.submit(p, max_new_tokens=n) for p, n in sub]]
+        dwall = time.perf_counter() - t0
+        dlaunch = {"paged_attention": pa.LAUNCHES["paged_attention"],
+                   "attention_fwd": at.LAUNCHES["attention_fwd"]}
+        dsrv.shutdown()
+    finally:
+        pa.paged_attention = real_pa
+    drec = dsrv.metrics.to_record()["generative"]
+    dn = sum(len(t) for t in dgot)
+    log(f"  dense GenerativeServer, 8 of the requests: {dn} tokens in "
+        f"{dwall:.3f} s ({dn / dwall:.1f} tokens/s), launches {dlaunch} "
+        f"over {drec['prefills']} prefills and {drec['decode_steps']} "
+        f"decode steps; tokens equal the paged server's "
+        f"{sum(a == b for a, b in zip(dgot, got))} of 8")
+    if dlaunch["attention_fwd"] != cfg.num_layers * drec["prefills"] or \
+            dlaunch["paged_attention"] != cfg.num_layers * drec[
+                "decode_steps"]:
+        raise SystemExit(f"dense serving launches {dlaunch}")
+    metrics["profile"] = profile_serving(spec, reqs, card,
+                                         float(np.median(step_ms)))
+    del srv, dsrv, sd, spec, dense_spec
+    torch.cuda.empty_cache()
+    return launches, dlaunch, shapes | dense_shapes, metrics
+
+
+SERVE_GROUPS = ("paged attention", "layer norm", "gelu", "logits")
+
+
+def profile_serving(spec, reqs, card, step_ms):
+    """About 20 decode steps of 8 lanes under torch.profiler: 8 of the
+    requests with 21 new tokens each, through a fresh server. Each
+    dispatch and the kernels' wrapper, layer norm, gelu and the logits
+    run inside a ``record_function``; device time per decode step by
+    group (matmul, layer norm, paged attention, KV write, gelu, adds,
+    logits/argmax, ...), device launches per decode step, and the idle
+    share against the wall time of the same steps (CUDA events around
+    each step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.ops import elementwise, nn_ops
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.serving.resilience import InflightSlot
+    from deeplearning4j_tpu_torch.zoo import gpt
+
+    def labelled(fn, label):
+        def run(*a, **kw):
+            with record_function(f"serve::{label}"):
+                return fn(*a, **kw)
+        return run
+
+    saved = [(pa, "paged_attention"), (nn_ops, "layer_norm"),
+             (elementwise, "gelu"), (gpt._DecodeMath, "logits")]
+    saved = [(m, n, getattr(m, n)) for m, n in saved]
+    for (m, n, f), label in zip(saved, SERVE_GROUPS):
+        setattr(m, n, labelled(f, label))
+    try:
+        srv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                    block_size=SERVE_BS,
+                                    max_seq_len=SERVE_SEQ, start=False)
+        srv._decode_disp = labelled(srv._decode_disp, "step decode")
+        srv._prefill_disp = labelled(srv._prefill_disp, "step prefill")
+        hs = [srv.submit(p, max_new_tokens=21) for p, _ in reqs[:8]]
+        # the worker's steps, run on this thread (the profiler records the
+        # CPU ops, and so each kernel's launching op, of its own thread):
+        # the 8 prefills first, then only decode steps under the profiler
+        slot = InflightSlot()
+        srv._admit(slot)
+        torch.cuda.synchronize()
+        marks = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            while not all(h.future.done() for h in hs):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                srv._step(slot)
+                e1.record()
+                marks.append((e0, e1))
+            torch.cuda.synchronize()
+        srv.shutdown()
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    n_steps = srv.metrics.counters["decode_steps"]
+    # the stream's wall time over the same profiled steps (each step ends
+    # reading its tokens to the host, so a step's span is its wall time)
+    prof_step_ms = sum(a.elapsed_time(b) for a, b in marks) / n_steps
+
+    def chain(e):
+        out = []
+        while e is not None:
+            out.append(e.name)
+            e = e.cpu_parent
+        return out
+
+    def group_of(cpu, name):
+        """A device event's group: by the labelled range or the aten op
+        that launched it; a kernel launched through the CUDA runtime that
+        our libraries link statically has no launching op on record, and
+        goes by its name."""
+        if cpu is None:
+            return "paged attention" if "paged_attention_kernel" in name \
+                else "unlinked"
+        names = chain(cpu)
+        label = next((n[len("serve::"):] for n in names
+                      if n.startswith("serve::")
+                      and not n.startswith("serve::step")), None)
+        joined = " ".join(names)
+        if label == "logits":
+            return "logits / argmax"
+        if label is not None:
+            return label
+        for key, g in (("index_put", "KV write"), ("aten::mm", "matmul"),
+                       ("aten::addmm", "matmul"), ("aten::matmul", "matmul"),
+                       ("aten::add", "adds"), ("argmax", "logits / argmax"),
+                       ("aten::copy_", "io copies"), ("aten::to", "io copies")):
+            if key in joined:
+                return g
+        return "other (embedding, index)"
+
+    events = prof.events()
+    by_group, per_kernel, linked, n_kernels = {}, {}, {}, 0
+
+    def add(g, name, ms, n):
+        by_group[g] = by_group.get(g, 0.0) + ms
+        per_kernel[name] = per_kernel.get(name, 0.0) + ms
+        return n
+
+    for e in events:                 # kernels with their launching op
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3 / n_steps
+            n_kernels += add(group_of(e, k.name), k.name, ms, 1)
+            linked[k.name] = linked.get(k.name, (0.0, 0))
+            linked[k.name] = (linked[k.name][0] + ms, linked[k.name][1] + 1)
+    # every device event of the window (the profiler saw decode steps
+    # only), less those above: the kernels with no launching op on record
+    dev = {}
+    for e in events:                 # (the labels' own device-side ranges
+        #                              are not device work)
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("serve::"):
+            ms, n = dev.get(e.name, (0.0, 0))
+            dev[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / n_steps,
+                           n + 1)
+    for name, (ms, n) in dev.items():
+        lms, ln = linked.get(name, (0.0, 0))
+        if n > ln:
+            n_kernels += add(group_of(None, name), name, ms - lms, n - ln)
+    busy = sum(by_group.values())
+    if busy == 0 or "paged attention" not in by_group:
+        raise SystemExit(f"the serving profile holds no decode device time: "
+                         f"{by_group}")
+    log(f"  profiler, {n_steps} decode steps: device busy {busy:.3f} ms a "
+        f"step of a {prof_step_ms:.2f} ms wall step (the same profiled "
+        f"steps, 8 lanes): idle share {1 - busy / prof_step_ms:.3f}; "
+        f"{n_kernels / n_steps:.1f} device launches a step; the traffic "
+        f"run's median wall step, another run at fewer lanes, "
+        f"{step_ms:.2f} ms  [{card}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:8.4f} ms  {ms / busy:.3f} of device time  {g}")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:8.4f} ms  {key[:100]}")
+    return {"busy_ms": busy, "step_ms": prof_step_ms,
+            "idle_share": 1 - busy / prof_step_ms,
+            "launches": n_kernels / n_steps, "by_group_ms": by_group,
+            "steps": n_steps}
+
+
+def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
+    """Every (N, A, D, BS, MAXB, dtype) the serving run handed
+    paged_attention, checked against its plain version on random data of
+    that shape; then the kernel timed alone (cold L2, the median of 20
+    calls queued behind a device sleep, ``median_ms``) at GPT-medium
+    decode, 8 lanes all at context 128, 512 and 1024, and one prefill
+    (512 rows after a 256-token prefix), with its plain version (which
+    reads its lanes to the host: the median of 3 calls between two
+    synchronizations, ``synced_ms``, host time included), the
+    bound (bytes of K and V up to each lane's last key, q and out, over
+    the card's memory rate; float32 products over its float32 rate) and
+    the library yardstick: one
+    ``F.scaled_dot_product_attention(q, K, V, attn_mask)`` over the dense
+    slab's contiguous context, masked at each row's last key (timed only;
+    the port never calls it; paged has no one-call counterpart). Then
+    attention_fwd at the dense
+    prefill's float32 serving shape (1, 12, 512, 128), causal."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    for (n, a, d, bs, maxb, s, dt) in sorted(shapes):
+        dtype = getattr(torch, dt)
+        t_len = maxb * bs
+        if s == n:
+            kmax = np.linspace(0, t_len - 1, n).astype(int).tolist()
+            args = measure.paged_decode_case(dev, kmax, a, d, bs, dtype,
+                                             seed=n)
+        else:
+            hist = max(0, min(256, t_len - n) // bs * bs)
+            args = measure.paged_prefill_case(dev, hist, n, n, a, d, bs,
+                                              dtype, seed=n)
+        check_paged(args, errs, f"path shape N {n} A {a} D {d} BS {bs} "
+                    f"MAXB {maxb} {dt}", controls=False, dense=s == n)
+    bw, flops32 = card_rates(card_name)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    out = {}
+    L = 16
+    for ctx in (128, 512, 1024):
+        args = measure.paged_decode_case(dev, [ctx - 1] * SERVE_SLOTS, 12,
+                                         128, SERVE_BS, torch.float32)
+        q, kc, vc, tables, lane, kmax = args
+        dk, dv, dt = measure.paged_dense(kc, vc, tables)
+        keys = torch.arange(dk.shape[2], device=dev)
+        mask = (keys[None, :] <= kmax[:, None].long())[:, None, None, :]
+        ql = q.contiguous()[:, :, None, :]
+        per_call = median_ms(lambda: pa.paged_attention(*args), flush)
+        plain_call = synced_ms(lambda: pa.paged_attention_plain(*args),
+                               flush, 3)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            ql, dk, dv, attn_mask=mask), flush)
+        ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
+        by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / flops32
+        out[f"decode_{ctx}"] = {
+            "per_call_ms": per_call, "plain_per_call_ms": plain_call,
+            "library_per_call_ms": lib,
+            "bound_per_call_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        log(f"  paged_attention decode 8 lanes x 12 x 128 at context {ctx}: "
+            f"{per_call:.4f} ms a call alone, plain {plain_call:.4f}, "
+            f"library (dense slab, mask) {lib:.4f}, bound "
+            f"{max(by_bytes, by_ops):.4f} ({out[f'decode_{ctx}']['bound_by']}"
+            f"), {nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode step: "
+            f"{L * per_call:.3f} ms  [{card_name}]")
+    args = measure.paged_prefill_case(dev, 256, 512, 512, 12, 128, SERVE_BS,
+                                      torch.float32)
+    q, kc, vc, tables, lane, kmax = args
+    # the library over the lane's contiguous context, its 768 keys
+    t_ctx = int(kmax.max()) + 1
+    dk, dv, _ = measure.paged_dense(kc, vc, tables)
+    dk, dv = dk[:, :, :t_ctx].contiguous(), dv[:, :, :t_ctx].contiguous()
+    keys = torch.arange(t_ctx, device=dev)
+    mask = (keys[None, :] <= kmax[:, None].long())[None, None]
+    ql = q.permute(1, 0, 2)[None].contiguous()
+    per_call = median_ms(lambda: pa.paged_attention(*args), flush)
+    plain_call = synced_ms(lambda: pa.paged_attention_plain(*args), flush, 3)
+    lib = median_ms(lambda: F.scaled_dot_product_attention(
+        ql, dk, dv, attn_mask=mask), flush)
+    lib_diff = float((F.scaled_dot_product_attention(
+        ql, dk, dv, attn_mask=mask)[0].transpose(0, 1)
+        - pa.paged_attention(*args)).abs().max())
+    ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
+    by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / flops32
+    out["prefill_512_hist_256"] = {
+        "per_call_ms": per_call, "plain_per_call_ms": plain_call,
+        "library_per_call_ms": lib,
+        "bound_per_call_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    log(f"  paged_attention prefill 512 rows after 256 cached keys: "
+        f"{per_call:.4f} ms a call alone, plain {plain_call:.4f}, library "
+        f"(contiguous {t_ctx}-key context, mask t <= hist + j) {lib:.4f} "
+        f"(kernel / library {per_call / lib:.2f}; outputs differ by at most "
+        f"{lib_diff:.2e}), bound {max(by_bytes, by_ops):.4f} "
+        f"({out['prefill_512_hist_256']['bound_by']}), "
+        f"{ops / per_call / 1e9:.2f} TFLOP/s")
+    log(f"  paged_attention in the decode step (profiler): {in_step_ms:.4f} "
+        f"ms a step ({in_step_ms / L:.4f} a launch)")
+    # attention_fwd at the dense prefill's serving shape, float32
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(1, 512, 12, 3 * 128, device=dev,
+                      generator=g).permute(0, 2, 1, 3)
+    q, k, v = torch.split(qkv, 128, dim=3)
+    fwd = median_ms(lambda: at.attention_fwd(q, k, v, True), flush)
+    fwd_plain = median_ms(lambda: at.attention_fwd_plain(q, k, v, True),
+                          flush, 3)
+    fwd_lib = median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), flush)
+    ops = attention_bounds(1, 12, 512, 512, 128, True)["attention_fwd"][0]
+    nbytes = 4 * 12 * 512 * 128 * 4 + 12 * 512 * 2 * 4   # q k v O, stats
+    fb = max(1e3 * nbytes / bw, 1e3 * ops / flops32)
+    out["attention_fwd_serving"] = {
+        "per_call_ms": fwd, "plain_per_call_ms": fwd_plain,
+        "library_per_call_ms": fwd_lib, "bound_per_call_ms": fb,
+        "bound_by": "bytes" if 1e3 * nbytes / bw >= 1e3 * ops / flops32
+        else "operations"}
+    log(f"  attention_fwd float32 (1, 12, 512, 128) causal (the dense "
+        f"prefill's): {fwd:.4f} ms a call alone, plain {fwd_plain:.4f}, "
+        f"library {fwd_lib:.4f}, bound {fb:.4f} "
+        f"({out['attention_fwd_serving']['bound_by']})")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1206,20 +1931,22 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/9] env")
+    log("[1/13] env")
     import triton
-    from deeplearning4j_tpu_torch.kernels import _cuda, attention, bn_relu
+    from deeplearning4j_tpu_torch.kernels import (_cuda, attention, bn_relu,
+                                                  paged_attention)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
     log(f"  nvcc: {_cuda.nvcc_version()}")
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib)]:
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
+                  ex.submit(paged_attention._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
-    for lib in (bn_relu._PHASE1_LIB, attention._LIB):
+    for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -1229,42 +1956,42 @@ def main():
     log("  the bf16 attention kernels' SASS (cuobjdump -sass) and spills:")
     check_attention_build()
 
-    log("[2/9] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/13] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/9] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/13] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/9] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/13] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/9] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/13] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/9] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/13] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[7/9] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[7/13] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[8/9] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[8/13] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -1276,7 +2003,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/9] path shape: attention kernels timed (ms per GPT step)")
+    log("[9/13] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -1288,6 +2015,32 @@ def main():
         log(f"  attention kernels, {label}: {ms:.3f} ms of a "
             f"{gpt['step_ms']:.2f} ms step ({ms / gpt['step_ms']:.3f})  "
             f"[{card}]")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[10/13] kernels: paged attention (CUDA C++) vs plain")
+    t0 = time.perf_counter()
+    phase_paged_kernels(dev, errs)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[11/13] parity: GPT_TINY float64 paged serving, card vs CPU")
+    t0 = time.perf_counter()
+    phase_serving_parity()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[12/13] main path: GPT-medium float32 serving, "
+        f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
+        f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
+        f"GenerativeServer")
+    t0 = time.perf_counter()
+    serve_launches, dense_launches, serve_shapes, serve = phase_serving(
+        dev, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[13/13] path shapes: paged attention vs plain, then timed")
+    t0 = time.perf_counter()
+    paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
+    paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
+                                      paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -1315,6 +2068,24 @@ def main():
             "library_ms": t["library_ms"], "ms_per": "GPT-medium step",
             "in_step_ms": attn_in_step[kname],
             "library_pass_ms": t["library_pass_ms"]})
+    kernels[-4]["serving"] = {**paged_timing["attention_fwd_serving"],
+                              "launches": dense_launches["attention_fwd"]}
+    per_step = 16
+    at512 = paged_timing["decode_512"]
+    kernels.append({
+        "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
+        "replaces": PAGED_REPLACES,
+        "launches": serve_launches["paged_attention"],
+        "launches_per_step": per_step,
+        "max_abs_err": errs["paged_attention"],
+        "ms": per_step * at512["per_call_ms"],
+        "plain_ms": per_step * at512["plain_per_call_ms"],
+        "bound_ms": per_step * at512["bound_per_call_ms"],
+        "bound_by": at512["bound_by"],
+        "library_ms": per_step * at512["library_per_call_ms"],
+        "ms_per": "GPT-medium decode step, 8 lanes at context 512",
+        "in_step_ms": paged_in_step, "per_call": paged_timing,
+        "dense_server_launches": dense_launches["paged_attention"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -65,6 +65,25 @@ def median_ms(fn: Callable[[], object], flush: torch.Tensor,
     raise SystemExit("the host did not finish queueing within the sleep")
 
 
+def synced_ms(fn: Callable[[], object], flush: torch.Tensor,
+              iters: int = 3) -> float:
+    """Median wall time of ``fn`` between two synchronizations, each call
+    after ``flush`` was overwritten: for a function that waits on the
+    device itself (``paged_attention_plain`` reads its lanes to the
+    host), which ``median_ms`` cannot queue behind a device sleep. Host
+    time is in it."""
+    fn()
+    out = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
 def sass_kernels(lib_path: str) -> Dict[str, str]:
     """The SASS of each kernel in a built library, by (mangled) name, from
     the toolkit's ``cuobjdump -sass``."""
@@ -179,3 +198,113 @@ def tensor_map_encode_us(tensors: Sequence[torch.Tensor], rows: int,
         for c in calls:
             enc(*c)
     return 1e6 * (time.perf_counter() - t0) / reps
+
+
+# ----------------------------------------------------------------------
+# paged attention (kernels/paged_attention.py)
+def _qkv_view(rows, a, d, dtype, dev, g):
+    """q [rows, A, D] as the serving path hands it over: the first third
+    of each head's ``[q|k|v]`` block of one [rows, A, 3D] projection."""
+    qkv = torch.randn(rows, a, 3 * d, device=dev, generator=g).to(dtype)
+    return qkv[..., :d]
+
+
+def paged_decode_case(dev, kmax, a, d, bs, dtype, seed=0, spare=2):
+    """A decode step's inputs: lane ``s`` (one query row) has last key
+    ``kmax[s]`` and holds blocks ``1 + sum of the earlier lanes' blocks``
+    onward, in order; block 0 (null) and ``spare`` blocks past them are
+    unused. Returns (q, kc, vc, tables, lane, kmax), every block finite."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kmax = [int(k) for k in kmax]
+    nblk = [k // bs + 1 for k in kmax]
+    maxb = max(nblk)
+    nb = 1 + sum(nblk) + spare
+    kc, vc = (torch.randn(nb, a, bs, d, device=dev, generator=g).to(dtype)
+              for _ in range(2))
+    tables = torch.zeros(len(kmax), maxb, dtype=torch.int32)
+    base = 1
+    for s, n in enumerate(nblk):
+        tables[s, :n] = torch.arange(base, base + n, dtype=torch.int32)
+        base += n
+    s = len(kmax)
+    return (_qkv_view(s, a, d, dtype, dev, g), kc, vc, tables.to(dev),
+            torch.arange(s, dtype=torch.int32, device=dev),
+            torch.tensor(kmax, dtype=torch.int32, device=dev))
+
+
+def paged_prefill_case(dev, hist, rows, length, a, d, bs, dtype, seed=0,
+                       spare=2):
+    """A prefill's inputs: one lane whose blocks hold ``hist + length``
+    keys (blocks 1, 2, ... in order), ``rows`` query rows, row ``j``'s
+    last key ``hist + min(j, length - 1)`` (a padded row stops at the last
+    real one, as the serving path hands it over)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = (hist + length - 1) // bs + 1
+    maxb = n + 1
+    kc, vc = (torch.randn(1 + n + spare, a, bs, d, device=dev,
+                          generator=g).to(dtype) for _ in range(2))
+    tables = torch.zeros(1, maxb, dtype=torch.int32)
+    tables[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
+    kmax = hist + torch.clamp(torch.arange(rows), max=length - 1)
+    return (_qkv_view(rows, a, d, dtype, dev, g), kc, vc, tables.to(dev),
+            torch.zeros(rows, dtype=torch.int32, device=dev),
+            kmax.to(torch.int32).to(dev))
+
+
+def paged_poisoned(kc, vc, tables, lane, kmax):
+    """Copies of the cache with NaN wherever no row may read: the null
+    block, every block no table uses, and each lane's rows past its last
+    key."""
+    kc, vc = kc.clone(), vc.clone()
+    bs = kc.shape[2]
+    last = {}
+    for ln, k in zip(lane.tolist(), kmax.tolist()):
+        last[ln] = max(last.get(ln, -1), k)
+    used = set()
+    for ln, k in last.items():
+        for u in range(k // bs + 1):
+            b = int(tables[ln, u])
+            used.add(b)
+            lo = k - u * bs + 1
+            if lo < bs:
+                kc[b, :, lo:] = float("nan")
+                vc[b, :, lo:] = float("nan")
+    for b in range(kc.shape[0]):
+        if b not in used:
+            kc[b] = vc[b] = float("nan")
+    return kc, vc
+
+
+def paged_dense(kc, vc, tables):
+    """The same contexts as a dense slab [S, A, T, D] (T = MAXB * BS, the
+    lane's table gathered in order) and its tables ``[[0], [1], ...]``:
+    what the dense decode hands the kernel."""
+    s, maxb = tables.shape
+    nb, a, bs, d = kc.shape
+    g = tables.long()
+    dk, dv = (x[g].transpose(1, 2).reshape(s, a, maxb * bs, d).contiguous()
+              for x in (kc, vc))
+    return dk, dv, torch.arange(s, dtype=torch.int32,
+                                device=kc.device)[:, None].contiguous()
+
+
+def paged_reading(got, want, terms, tol):
+    """max |got - want| / (tol * terms): the rule holds at <= 1; NaN reads
+    as a failure (inf)."""
+    err = (got.double() - want.double()).abs() / (tol * terms + 1e-300)
+    r = float(err.max())
+    return r if np.isfinite(r) else float("inf")
+
+
+def paged_bounds(q, kc, tables, lane, kmax):
+    """(operations, bytes) of one call: 4 D FLOP per (row, head, key) for
+    q.K and p.V; the K and V rows up to each lane's last key read once, q
+    read and the output written once."""
+    n, a, d = q.shape
+    it = q.element_size()
+    lanes = {}
+    for ln, k in zip(lane.tolist(), kmax.tolist()):
+        lanes[ln] = max(lanes.get(ln, -1), k)
+    keys = int((kmax.long() + 1).sum())
+    kv = sum(k + 1 for k in lanes.values()) * a * d * it * 2
+    return 4 * d * a * keys, kv + 2 * n * a * d * it

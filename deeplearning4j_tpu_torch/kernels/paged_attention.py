@@ -1,0 +1,193 @@
+"""Attention over a KV cache addressed through block tables, with a
+hand-written CUDA C++ kernel for Hopper.
+
+Counterpart of the attention inside the JAX package's decode functions
+(``deeplearning4j_tpu/zoo/gpt.py``): the paged decode (``decode_fn`` :649,
+:675-690), the paged prefill over its table (``prefill_fn`` :586,
+:621-636) and the dense decode over its slot rows (``gpt_decode_fns``
+``decode_fn`` :354, :383-394). There each is a gather of the lane's whole
+table into a ``[T, D]`` context per layer, scores over all ``T = MAXB *
+BS`` keys, a mask to the lane's position, and a ``where`` that zeroes
+masked V rows so a stale or NaN block cannot leak; XLA fused it on the
+TPU, with no Pallas kernel behind it. Written the same way in eager
+PyTorch it would copy the full context for K and V per layer, whatever
+each lane's real length.
+
+``paged_attention`` computes, for query row ``r`` of lane ``lane[r]``, head
+``a`` and last key ``kmax[r]``::
+
+    out[r, a] = sum_{t <= kmax[r]} softmax_t(q[r, a] . K[t] / sqrt(D)) V[t]
+    K[t] = kc[tables[lane[r], t // BS], a, t % BS]   (and V from vc)
+
+On the card it is one launch of ``csrc/paged_attention.cu`` (built by
+``kernels/_cuda.py``), which reads only the keys ``t <= kmax[r]`` through
+the table: a block past a row's last key is never loaded, so stale or NaN
+blocks are harmless by construction, and the order of its sums depends on
+key positions alone, so paged and dense decode of one context give the
+same bits. The dense slab ``[S, A, max_seq, D]`` is a paged slab with
+``BS = max_seq`` and ``tables[s] = [s]``.
+
+``paged_attention_plain`` is the JAX expression step by step: the gather
+by table, scores in float32 (float64 for float64 input), ``where`` with
+-1e30, the softmax, the V rows zeroed under the mask. It runs per lane;
+for a lane with several rows (a prefill) it zeroes K and V past the lane's
+last key and masks each row's scores, as the JAX prefill does with its
+``valid`` and causal masks. The wrapper takes it only for CPU tensors; on
+a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from deeplearning4j_tpu_torch.kernels import _cuda
+
+#: Kernel launches, bumped where the kernel is launched.
+LAUNCHES: Dict[str, int] = {"paged_attention": 0}
+
+_LIB = "paged_attention"
+_MASKED = -1e30
+#: what the kernel takes, with the C side's codes
+_DTYPE_CODE = {torch.float32: 1, torch.float64: 2}
+_HEAD_DIMS = (16, 32, 64, 128)
+
+_P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
+    ctypes.c_double
+PAGED_ATTENTION_ARGTYPES = (
+    [(n, _P) for n in ("q", "kc", "vc", "tables", "lane", "kmax", "out")]
+    + [(n, _I64) for n in ("N", "A", "D", "BS", "MAXB", "sqn", "sqa", "skb",
+                           "ska", "skt", "svb", "sva", "svt")]
+    + [("scale", _D), ("dtype", _I), ("stream", _P)])
+ENTRY = "dl4j_paged_attention"
+
+
+def reset_launches() -> None:
+    LAUNCHES["paged_attention"] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library, its C entry's argument types declared."""
+    lib = _cuda.load(_LIB)
+    fn = getattr(lib, ENTRY)
+    if fn.argtypes is None:
+        _cuda.declare(fn, PAGED_ATTENTION_ARGTYPES)
+    return lib
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Scores and softmax: float32, float64 for float64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scale(d: int) -> float:
+    """The score scale, 1/sqrt(D), for the kernel and the plain version."""
+    return 1.0 / math.sqrt(d)
+
+
+# ----------------------------------------------------------------------
+def paged_attention_plain(q, kc, vc, tables, lane, kmax):
+    """The JAX expression, per lane: gather the lane's table into a
+    ``[A, T, D]`` context, zero K and V past the lane's last key, scores
+    ``q . K / sqrt(D)`` in the accumulation dtype, -1e30 where ``t >
+    kmax[r]``, the softmax, the probabilities in v's dtype times V."""
+    n, a, d = q.shape
+    bs = kc.shape[2]
+    t_len = tables.shape[1] * bs
+    acc = acc_dtype(q.dtype)
+    s = _scale(d)
+    out = torch.empty((n, a, d), dtype=vc.dtype, device=q.device)
+    lane, kmax = lane.long(), kmax.long()
+    keys = torch.arange(t_len, device=q.device)
+    for u in torch.unique(lane).tolist():
+        rows = torch.nonzero(lane == u).flatten()
+        tab = tables[u].long()
+        ctx_k = kc[tab].transpose(0, 1).reshape(a, t_len, d)
+        ctx_v = vc[tab].transpose(0, 1).reshape(a, t_len, d)
+        valid = (keys <= kmax[rows].max())[None, :, None]
+        ctx_k = torch.where(valid, ctx_k, 0)
+        ctx_v = torch.where(valid, ctx_v, 0)
+        mask = keys[None, :] <= kmax[rows][:, None]             # [R, T]
+        scores = torch.einsum("rad,atd->rat", q[rows].to(acc),
+                              ctx_k.to(acc)) * s
+        scores = torch.where(mask[:, None, :], scores, _MASKED)
+        probs = torch.softmax(scores, dim=-1).to(vc.dtype)
+        out[rows] = torch.einsum("rat,atd->rad", probs, ctx_v)
+    out[kmax < 0] = 0               # a row with no key: the kernel's 0
+    return out
+
+
+def abs_terms(q, kc, vc, tables, lane, kmax):
+    """Per output element, the sum of the absolute values of the terms that
+    make it up, ``sum_t p_t |V[t]|``, in float64: a kernel that sums the
+    same terms in another order, in a dtype of unit roundoff u, lies
+    within a small multiple of u times this of the plain version."""
+    return paged_attention_plain(q.double(), kc.double(), vc.double().abs(),
+                                 tables, lane, kmax)
+
+
+# ----------------------------------------------------------------------
+def _check(q, kc, vc, tables, lane, kmax) -> torch.device:
+    """Raise on what the function does not take; returns the device."""
+    if q.dim() != 3 or kc.dim() != 4 or vc.shape != kc.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be [N, A, D] and kc, vc "
+                         f"{tuple(kc.shape)}, {tuple(vc.shape)} the same "
+                         f"[num_blocks, A, BS, D]")
+    n, a, d = q.shape
+    if kc.shape[1] != a or kc.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(kc.shape)}")
+    if not (q.dtype == kc.dtype == vc.dtype):
+        raise ValueError(f"q, kc, vc dtypes differ: {q.dtype}, {kc.dtype}, "
+                         f"{vc.dtype}")
+    if tables.dim() != 2 or lane.shape != (n,) or kmax.shape != (n,):
+        raise ValueError(f"tables {tuple(tables.shape)} must be [S, MAXB], "
+                         f"lane {tuple(lane.shape)} and kmax "
+                         f"{tuple(kmax.shape)} [N]")
+    dev = q.device
+    if any(t.device != dev for t in (kc, vc, tables, lane, kmax)):
+        raise ValueError("q, the cache, tables, lane and kmax must be on one "
+                         "device")
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel does not take {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS}, got {d}")
+    for name, t in (("tables", tables), ("lane", lane), ("kmax", kmax)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32")
+    for name, t in (("q", q), ("kc", kc), ("vc", vc)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have its last stride 1, got "
+                             f"{t.stride()}")
+    return dev
+
+
+def paged_attention(q, kc, vc, tables, lane, kmax) -> torch.Tensor:
+    """``out [N, A, D]`` (contiguous, q's dtype): one launch on the card;
+    the plain version on the CPU.
+
+    ``q`` [N, A, D] (any row and head strides), ``kc``/``vc`` one layer's
+    [num_blocks, A, BS, D] cache, ``tables`` [S, MAXB], ``lane`` [N] (the
+    table row of each query row) and ``kmax`` [N] (its last key) int32."""
+    dev = _check(q, kc, vc, tables, lane, kmax)
+    if dev.type == "cpu":
+        return paged_attention_plain(q, kc, vc, tables, lane, kmax)
+    n, a, d = q.shape
+    out = torch.empty((n, a, d), dtype=q.dtype, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with torch.cuda.device(dev):
+        err = getattr(_lib(), ENTRY)(
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
+            lane.data_ptr(), kmax.data_ptr(), out.data_ptr(), n, a, d,
+            kc.shape[2], tables.shape[1], q.stride(0), q.stride(1),
+            *kc.stride()[:3], *vc.stride()[:3], _scale(d),
+            _DTYPE_CODE[q.dtype], stream)
+    _cuda.check(err, ENTRY)
+    LAUNCHES["paged_attention"] += 1
+    return out

@@ -2,10 +2,12 @@
 
 Counterpart of ``deeplearning4j_tpu/zoo/gpt.py`` (``GPTConfig`` :29,
 ``GPT_MEDIUM``, ``GPT_TINY``, ``build_gpt`` :71, ``gpt_param_names``
-:159). The same variable names, the same numpy ``default_rng(seed)``
-draws in the same order and the same per-head ``[q_a|k_a|v_a]`` layout of
-the fused qkv projection, so a seed gives the JAX package's weights;
-kernels are ``[n_in, n_out]`` there and here.
+:159, and the decode-mode hook of the serving tier: ``gpt_decode_fns``
+:180, ``gpt_paged_decode_fns`` :472, ``gpt_paged_spec`` :869,
+``gpt_generative_spec`` :904). The same variable names, the same numpy
+``default_rng(seed)`` draws in the same order and the same per-head
+``[q_a|k_a|v_a]`` layout of the fused qkv projection, so a seed gives the
+JAX package's weights; kernels are ``[n_in, n_out]`` there and here.
 
 Pre-LN residual blocks; the MLP's activation is the ``gelu`` op with its
 default attribute, i.e. the tanh approximation (the JAX module's
@@ -21,6 +23,7 @@ import contextlib
 import dataclasses
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.environment import DeviceLike
 
@@ -160,3 +163,335 @@ def gpt_param_names(cfg: GPTConfig):
     if not cfg.tie_embeddings:
         names.append("lm_head")
     return names
+
+
+
+# ----------------------------------------------------------------------
+# decode mode: the serving tier's prefill and decode steps
+#: what the serving tier's int8 paths and speculative verify wait on
+_NOT_PORTED = {
+    "quantize_weights": "int8 weights with the int8 x float32 GEMM kernel "
+                        "(ROADMAP queue 1 item 5)",
+    "kv_scales": "int8 KV dequantised inside paged_attention (ROADMAP "
+                 "queue 1 item 5)",
+    "verify": "speculative verify and draft (ROADMAP queue 1 item 5)",
+}
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what}: not ported yet; it waits for "
+                              f"{_NOT_PORTED[what]}")
+
+
+class _DecodeMath:
+    """The per-token math of :func:`build_gpt` over a name -> tensor
+    parameter dict, as the JAX decode functions write it: the one-pass
+    layer norm (the port's ``layer_norm`` op), tanh-gelu, the per-head
+    ``[q|k|v]`` blocks and the tied logits."""
+
+    def __init__(self, cfg: GPTConfig):
+        from deeplearning4j_tpu_torch.ops.elementwise import gelu
+        from deeplearning4j_tpu_torch.ops.nn_ops import layer_norm
+        self.cfg = cfg
+        self._layer_norm, self._gelu = layer_norm, gelu
+
+    def ln(self, p, sc, x):
+        return self._layer_norm(x, p[f"{sc}/gamma"], p[f"{sc}/beta"],
+                                epsilon=self.cfg.layer_norm_eps)
+
+    def qkv(self, p, i, x):
+        """[rows, A, D] views of q, k and v of layer ``i`` (per-head
+        blocks of the fused projection)."""
+        cfg = self.cfg
+        y = self.ln(p, f"h{i}/ln_1", x)
+        qkv = y @ p[f"h{i}/attn/qkv/kernel"] + p[f"h{i}/attn/qkv/bias"]
+        qkv = qkv.view(x.shape[0], cfg.num_heads, 3 * cfg.head_size)
+        return qkv.split(cfg.head_size, dim=-1)
+
+    def rest(self, p, i, x, att):
+        """The block after attention: projection, residual, MLP,
+        residual."""
+        att = att.reshape(x.shape[0], self.cfg.hidden_size)
+        x = x + (att @ p[f"h{i}/attn/proj/kernel"]
+                 + p[f"h{i}/attn/proj/bias"])
+        y = self.ln(p, f"h{i}/ln_2", x)
+        y = y @ p[f"h{i}/mlp/fc/kernel"] + p[f"h{i}/mlp/fc/bias"]
+        y = self._gelu(y)
+        return x + (y @ p[f"h{i}/mlp/proj/kernel"]
+                    + p[f"h{i}/mlp/proj/bias"])
+
+    def logits(self, p, x):
+        x = self.ln(p, "ln_f", x)
+        if self.cfg.tie_embeddings:
+            return x @ p["wte"].t()
+        return x @ p["lm_head"]
+
+
+def _to_device(arrays, dev):
+    """Host int arrays -> int32 tensors on ``dev`` in one copy."""
+    flat = [np.asarray(a, np.int32).reshape(-1) for a in arrays]
+    buf = torch.from_numpy(np.concatenate(flat)).to(dev)
+    out, o = [], 0
+    for a, f in zip(arrays, flat):
+        out.append(buf[o:o + f.size].view(np.shape(a)))
+        o += f.size
+    return out
+
+
+def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
+                   kv_scales=None):
+    """``(prefill_fn, decode_fn, verify_fn)`` over DENSE per-slot KV slabs,
+    the counterpart of the JAX ``gpt_decode_fns`` (:180). KV slab layout
+    (one tensor each for K and V)::
+
+        [num_layers, max_slots, heads, max_seq, head_dim]
+
+    The slabs are allocated once by the server and updated in place (the
+    counterpart of the JAX donation); each function returns them with
+    ``(next_token, logits)`` on the slabs' device.
+
+    - ``prefill_fn(params, kc, vc, io)``, ``io = {"tokens": [Lb],
+      "length": (), "slot": ()}``: the causal forward over the
+      bucket-padded prompt, its attention the registered
+      ``scaled_dot_product_attention(causal=True)`` over its own fresh q,
+      k, v; rows ``0..Lb-1`` of K and V written to slot ``slot``; the
+      greedy token and logits at position ``length - 1``.
+    - ``decode_fn(params, kc, vc, io)``, ``io = {"tokens": [S],
+      "positions": [S], "active": [S] bool}``: every active slot advances
+      one token; its K/V row is written at its position (inactive slots
+      keep their rows), then each layer's attention is one
+      ``paged_attention`` launch over the slab (``BS = max_seq``, the
+      table of slot ``s`` is ``[s]``), reading keys ``<= position`` only.
+    - ``verify_fn`` raises ``NotImplementedError`` (speculative decoding
+      is not ported yet), as ``quantize_weights`` and ``kv_scales`` do.
+    """
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.ops.registry import get_op
+    if quantize_weights:
+        _not_ported("quantize_weights")
+    if kv_scales is not None:
+        _not_ported("kv_scales")
+    sdpa = get_op("scaled_dot_product_attention").fn
+    math = _DecodeMath(cfg)
+    A = cfg.num_heads
+
+    def prefill_fn(params, kc, vc, io):
+        p, dev = params, kc.device
+        lb = int(np.shape(io["tokens"])[0])
+        length, slot = int(io["length"]), int(io["slot"])
+        (tokens,) = _to_device([io["tokens"]], dev)
+        x = p["wte"][tokens] + p["wpe"][:lb]                    # [Lb, H]
+        for i in range(cfg.num_layers):
+            q, k, v = (t.transpose(0, 1) for t in math.qkv(p, i, x))
+            att = sdpa(q[None], k[None], v[None], causal=True)[0]
+            # this slot's prompt rows (positions 0..Lb-1); rows past the
+            # real length hold padding K/V, masked until decode writes there
+            kc[i, slot, :, :lb] = k
+            vc[i, slot, :, :lb] = v
+            x = math.rest(p, i, x, att.transpose(0, 1))
+        logits = math.logits(p, x[max(length - 1, 0)][None])[0]
+        return kc, vc, logits.argmax().to(torch.int32), logits
+
+    def decode_fn(params, kc, vc, io):
+        p, dev = params, kc.device
+        active = np.asarray(io["active"], bool)
+        S, T = kc.shape[1], kc.shape[3]
+        pos = np.clip(np.asarray(io["positions"]), 0, T - 1)
+        act = np.flatnonzero(active)
+        # an inactive lane attends to its key 0 only: its output is unused
+        tokens, pos_d, kmax, act_d, tables = _to_device(
+            [io["tokens"], pos, np.where(active, pos, 0), act,
+             np.arange(S)[:, None]], dev)
+        lanes = tables[:, 0]
+        x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
+        heads = torch.arange(A, device=dev)[None, :]
+        at = (act_d[:, None], heads, pos_d[act_d][:, None])
+        for i in range(cfg.num_layers):
+            q, k, v = math.qkv(p, i, x)
+            kc[i].index_put_(at, k[act_d])
+            vc[i].index_put_(at, v[act_d])
+            att = pa.paged_attention(q, kc[i], vc[i], tables, lanes, kmax)
+            x = math.rest(p, i, x, att)
+        logits = math.logits(p, x)                              # [S, V]
+        return kc, vc, logits.argmax(-1).to(torch.int32), logits
+
+    def verify_fn(params, kc, vc, io):
+        _not_ported("verify")
+
+    return prefill_fn, decode_fn, verify_fn
+
+
+def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
+                         max_blocks_per_req: int,
+                         quantize_weights: bool = False, kv_scales=None):
+    """``(prefill_fn, decode_fn, verify_fn)`` over PAGED KV slabs, the
+    counterpart of the JAX ``gpt_paged_decode_fns`` (:472). KV slab layout
+    (one tensor each for K and V)::
+
+        [num_layers, num_blocks, heads, block_size, head_dim]
+
+    Block 0 is the null block, never handed out. Each layer's attention
+    is one ``paged_attention`` launch that reads each row's keys through
+    its table up to its last key, so unused table entries (the null block)
+    and the stale rows of a block are never read.
+
+    - ``prefill_fn(params, kc, vc, io)``, ``io = {"tokens": [Lb] (the
+      bucket-padded prompt suffix after a prefix-cache hit), "length": ()
+      (its real length), "hist": () (cached prefix length, a multiple of
+      block_size), "table": [MAXB]}``: the suffix's real rows' K/V are
+      written into their blocks FIRST, then every row attends over the
+      whole table up to its own position (suffix row ``j``'s last key is
+      ``hist + j``; a padded row ``j >= length`` attends as the last real
+      row does, its output unused, and its K/V are not written); the
+      greedy token and logits at global position ``hist + length - 1``.
+    - ``decode_fn(params, kc, vc, io)``, ``io = {"tokens": [S],
+      "positions": [S], "active": [S] bool, "tables": [S, MAXB],
+      "write_block": [S], "write_off": [S]}``: each active lane's new K/V
+      row lands at ``(write_block, write_off)``, then it attends over its
+      table to its position.
+    - ``verify_fn`` raises ``NotImplementedError``, as ``quantize_weights``
+      and ``kv_scales`` do.
+    """
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    if quantize_weights:
+        _not_ported("quantize_weights")
+    if kv_scales is not None:
+        _not_ported("kv_scales")
+    math = _DecodeMath(cfg)
+    A, BS, MAXB = cfg.num_heads, int(block_size), int(max_blocks_per_req)
+    T = MAXB * BS
+
+    def prefill_fn(params, kc, vc, io):
+        p, dev = params, kc.device
+        table = np.asarray(io["table"])
+        lb = int(np.shape(io["tokens"])[0])
+        length, hist = int(io["length"]), int(io["hist"])
+        j = np.arange(lb)
+        g = hist + j
+        gpos = np.clip(g, 0, cfg.max_seq_len - 1)
+        real = g[:length]
+        # suffix row j's last key; a padded row stops at the last real one
+        kmax = hist + np.minimum(j, length - 1)
+        tokens, gpos_d, kmax_d, blk, off, table_d = _to_device(
+            [io["tokens"], gpos, kmax, table[np.clip(real // BS, 0, MAXB - 1)],
+             np.clip(real, 0, T - 1) % BS, table[None, :]], dev)
+        lanes = torch.zeros(lb, dtype=torch.int32, device=dev)
+        x = p["wte"][tokens] + p["wpe"][gpos_d]                 # [Lb, H]
+        at = (blk[:, None], torch.arange(A, device=dev)[None, :],
+              off[:, None])
+        for i in range(cfg.num_layers):
+            q, k, v = math.qkv(p, i, x)
+            # write the suffix K/V first: its rows attend to themselves
+            kc[i].index_put_(at, k[:length])
+            vc[i].index_put_(at, v[:length])
+            att = pa.paged_attention(q, kc[i], vc[i], table_d, lanes, kmax_d)
+            x = math.rest(p, i, x, att)
+        logits = math.logits(p, x[max(length - 1, 0)][None])[0]
+        return kc, vc, logits.argmax().to(torch.int32), logits
+
+    def decode_fn(params, kc, vc, io):
+        p, dev = params, kc.device
+        active = np.asarray(io["active"], bool)
+        S = active.shape[0]
+        pos = np.clip(np.asarray(io["positions"]), 0, cfg.max_seq_len - 1)
+        act = np.flatnonzero(active)
+        # an inactive lane attends to its key 0 only: its output is unused
+        tokens, pos_d, kmax, tables, act_d, wb, wo, lanes = _to_device(
+            [io["tokens"], pos, np.where(active, pos, 0), io["tables"], act,
+             np.asarray(io["write_block"])[act],
+             np.asarray(io["write_off"])[act], np.arange(S)], dev)
+        x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
+        at = (wb[:, None], torch.arange(A, device=dev)[None, :], wo[:, None])
+        for i in range(cfg.num_layers):
+            q, k, v = math.qkv(p, i, x)
+            kc[i].index_put_(at, k[act_d])
+            vc[i].index_put_(at, v[act_d])
+            att = pa.paged_attention(q, kc[i], vc[i], tables, lanes, kmax)
+            x = math.rest(p, i, x, att)
+        logits = math.logits(p, x)                              # [S, V]
+        return kc, vc, logits.argmax(-1).to(torch.int32), logits
+
+    def verify_fn(params, kc, vc, io):
+        _not_ported("verify")
+
+    return prefill_fn, decode_fn, verify_fn
+
+
+def _check_decode_params(sd, cfg: GPTConfig):
+    names = gpt_param_names(cfg)
+    missing = [n for n in names if not sd.has_variable(n)]
+    if missing:
+        raise ValueError(
+            f"graph is missing decode parameters {missing[:4]}"
+            f"{'...' if len(missing) > 4 else ''}: was it built by "
+            f"zoo.gpt.build_gpt with this config?")
+    return names
+
+
+def _params_pull(sd, cfg: GPTConfig, names, quantize_weights: bool):
+    """The parameters by name, as the SameDiff holds them now (tensors on
+    its device; ``fit`` updates them in place, ``set_arr_for_var``
+    rebinds a name, which the next pull sees)."""
+    if quantize_weights:
+        _not_ported("quantize_weights")
+    return lambda: {n: sd.get_arr_for_var(n) for n in names}
+
+
+def _kv_dtype(sd) -> str:
+    """The slabs hold the weights' dtype: float32, as the JAX serving path
+    (float64 when the weights are float64)."""
+    return str(sd.get_arr_for_var("wte").dtype).replace("torch.", "")
+
+
+def gpt_paged_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
+                   quantize_kv: bool = False, calibration_prompts=None):
+    """The PAGED decode-mode hook: a
+    :class:`~deeplearning4j_tpu_torch.serving.paged.PagedGenerativeSpec`
+    over a :func:`build_gpt` graph, what ``PagedGenerativeServer``
+    serves. The decode functions are built per (block_size,
+    max_blocks_per_req) geometry by the server. ``quantize_weights`` and
+    ``quantize_kv`` raise ``NotImplementedError`` (not ported yet)."""
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeSpec
+    names = _check_decode_params(sd, cfg)
+    if quantize_kv:
+        _not_ported("kv_scales")
+    return PagedGenerativeSpec(
+        params=_params_pull(sd, cfg, names, quantize_weights),
+        make_fns=lambda block_size, max_blocks: gpt_paged_decode_fns(
+            cfg, block_size, max_blocks),
+        kv_shape=lambda num_blocks, block_size: (
+            cfg.num_layers, int(num_blocks), cfg.num_heads,
+            int(block_size), cfg.head_size),
+        vocab_size=cfg.vocab_size,
+        max_seq_len=cfg.max_seq_len,
+        num_heads=cfg.num_heads,
+        kv_dtype=_kv_dtype(sd))
+
+
+def gpt_generative_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
+                        quantize_kv: bool = False,
+                        calibration_prompts=None):
+    """The dense decode-mode hook: a
+    :class:`~deeplearning4j_tpu_torch.serving.generative.GenerativeSpec`
+    over a :func:`build_gpt` graph, what ``GenerativeServer`` serves.
+    Parameters are pulled from the SameDiff by name, so
+    ``server.update_model()`` serves what the graph holds then.
+    ``quantize_weights`` and ``quantize_kv`` raise ``NotImplementedError``
+    (not ported yet); so does the spec's ``verify``."""
+    from deeplearning4j_tpu_torch.serving.generative import GenerativeSpec
+    names = _check_decode_params(sd, cfg)
+    if quantize_kv:
+        _not_ported("kv_scales")
+    pull = _params_pull(sd, cfg, names, quantize_weights)
+    prefill_fn, decode_fn, verify_fn = gpt_decode_fns(cfg)
+    return GenerativeSpec(
+        params=pull,
+        prefill=prefill_fn,
+        decode=decode_fn,
+        kv_shape=lambda max_slots, max_seq: (
+            cfg.num_layers, int(max_slots), cfg.num_heads, int(max_seq),
+            cfg.head_size),
+        vocab_size=cfg.vocab_size,
+        max_seq_len=cfg.max_seq_len,
+        kv_dtype=_kv_dtype(sd),
+        verify=verify_fn)

@@ -475,3 +475,93 @@ def test_gpt_tiny_float64_step_on_card_matches_cpu(card):
         got = grads[0][name].cpu()
         assert got.dtype == torch.float64
         _close(got, want, 1e-10)
+
+
+# ----------------------------------------------------------------------
+# paged attention (csrc/paged_attention.cu)
+PAGED_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _paged_all(args):
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    return (pa.paged_attention(*args), pa.paged_attention_plain(*args),
+            pa.abs_terms(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bs", [1, 8, 16, 160, 1024])
+def test_paged_decode_kernel_matches_plain_on_card(card, bs, d, dtype):
+    """Each row within 1e-5 (float32) or 1e-12 (float64) of the sum of its
+    absolute terms of the plain version; last keys 0, at block edges (15,
+    16, 17), inside a partly filled last block and at 1023."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    args = measure.paged_decode_case(card, [0, 15, 16, 17, 300, 1023], 3,
+                                     d, bs, dtype, seed=bs + d)
+    before = pa.LAUNCHES["paged_attention"]
+    got, want, terms = _paged_all(args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention"] == before + 1
+    assert measure.paged_reading(got, want, terms, PAGED_TOL[dtype]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hist,rows,length", [(0, 64, 50), (48, 32, 32),
+                                              (256, 512, 500)])
+def test_paged_prefill_kernel_matches_plain_on_card(card, hist, rows,
+                                                    length, dtype):
+    from deeplearning4j_tpu_torch.kernels import measure
+    args = measure.paged_prefill_case(card, hist, rows, length, 4, 64, 16,
+                                      dtype, seed=hist)
+    got, want, terms = _paged_all(args)
+    assert measure.paged_reading(got[:length], want[:length],
+                                 terms[:length], PAGED_TOL[dtype]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1, 16, 160])
+def test_paged_kernel_bits_two_calls_dense_and_nan_poison(card, bs):
+    """Two calls give the same bits; the dense slab of the same contexts
+    gives the same bits; NaN in the null block, the unused blocks and past
+    each lane's last key changes nothing."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, kc, vc, tables, lane, kmax = measure.paged_decode_case(
+        card, [0, 16, 37, 200, 511, 1023, 5, 77], 12, 128, bs,
+        torch.float32, seed=3)
+    out = pa.paged_attention(q, kc, vc, tables, lane, kmax)
+    assert torch.equal(out, pa.paged_attention(q, kc, vc, tables, lane,
+                                               kmax))
+    dk, dv, dt = measure.paged_dense(kc, vc, tables)
+    assert torch.equal(out, pa.paged_attention(q, dk, dv, dt, lane, kmax))
+    pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+    poisoned = pa.paged_attention(q, pk, pv, tables, lane, kmax)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, out)
+
+
+@pytest.mark.cuda
+def test_paged_serving_on_card_matches_cpu_in_float64(card):
+    """GPT_TINY in float64 through PagedGenerativeServer on the card and
+    on the CPU, a prefix hit among the prompts: the same greedy tokens."""
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_paged_spec)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 256, 20).astype(np.int32)
+    prompts = [shared, np.concatenate([shared, [7, 9]]).astype(np.int32),
+               rng.integers(0, 256, 5).astype(np.int32)]
+    toks = []
+    for dev in ("cuda", "cpu"):
+        sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+        for n, a in sd.trainable_params().items():
+            sd.set_arr_for_var(n, a.double())
+        with PagedGenerativeServer(gpt_paged_spec(sd, GPT_TINY),
+                                   max_slots=2, block_size=8, warmup=False,
+                                   device=dev) as srv:
+            toks.append([srv.submit(p, max_new_tokens=12).result(timeout=120)
+                         for p in prompts])
+            assert srv.metrics.counters["prefix_hits"] >= 1
+    assert toks[0] == toks[1]

@@ -153,3 +153,34 @@ def test_samediff_and_gpt_raise_without_a_card_unless_asked_for_cpu(
 def test_unknown_device_is_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         environment.default_device("meta")
+
+
+def test_serving_monitor_and_memory_modules_are_in_the_checks():
+    """The import checks above walk every module of the port: the serving
+    tier, its host modules and the paged attention kernel among them."""
+    files = {f.relative_to(PORT).as_posix() for f in PORT.rglob("*.py")}
+    assert {"memory.py", "monitor/trace.py", "monitor/steptime.py",
+            "monitor/memstats.py", "serving/generative.py",
+            "serving/sampling.py", "serving/paged/server.py",
+            "serving/paged/pool.py", "kernels/paged_attention.py"} <= files
+
+
+def test_servers_raise_without_a_card_unless_asked_for_cpu(no_card):
+    from deeplearning4j_tpu_torch.serving import (GenerativeServer,
+                                                  greedy_decode)
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (gpt_generative_spec,
+                                              gpt_paged_spec)
+    sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device="cpu")
+    dense, paged = gpt_generative_spec(sd, GPT_TINY), gpt_paged_spec(
+        sd, GPT_TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerativeServer(dense, warmup=False, start=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedGenerativeServer(paged, warmup=False, start=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_decode(dense, [1, 2], 2)
+    srv = PagedGenerativeServer(paged, warmup=False, start=False,
+                                device="cpu")
+    assert srv._kc.device.type == "cpu"
+    srv.shutdown()

@@ -1,0 +1,764 @@
+"""The port's paged serving (``serving/paged/``, ``kernels/paged_attention``
+and ``zoo/gpt.py``'s paged decode functions) against the JAX package, on
+the CPU.
+
+The JAX package's config of ``tests/test_paged.py`` (vocab 64, hidden 32,
+2 layers, 2 heads, max_seq 32, blocks of 8); the same weights go into
+both packages through ``convert.samediff_arrays_from_jax``, float32 on
+both sides. On the CPU ``paged_attention`` runs its plain version.
+
+Tolerances: logits and the K/V rows written are held to the JAX
+functions at 1e-5 of their largest magnitude (float32 sums in another
+order; with x64 on, the JAX softmax runs in float64 because its scale is
+a numpy float64). Only real rows are compared: the JAX prefill also
+zeroes the K/V of rows at or past ``hist + length``, which changes only
+padded rows, whose outputs reach no real row and no logit.
+``paged_attention_plain`` against the JAX attention expression: 1e-6.
+Inside the port, paged and dense serving give the same tokens bit for
+bit. The server's greedy tokens equal the JAX package's ``greedy_decode``.
+"""
+import ctypes
+import pathlib
+import re
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.serving.generative import \
+    greedy_decode as jax_greedy_decode
+from deeplearning4j_tpu.zoo import gpt as jgpt
+from deeplearning4j_tpu_torch.convert import samediff_arrays_from_jax
+from deeplearning4j_tpu_torch.kernels import _cuda
+from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+from deeplearning4j_tpu_torch.serving.generative import greedy_decode
+from deeplearning4j_tpu_torch.serving.paged import (NULL_BLOCK, BlockPool,
+                                                    PagedGenerativeServer,
+                                                    PagedMetrics,
+                                                    PoolExhaustedError,
+                                                    blocks_for_tokens,
+                                                    prefix_block_hashes)
+from deeplearning4j_tpu_torch.serving.resilience import ResilienceConfig
+from deeplearning4j_tpu_torch.zoo import gpt as pgpt
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "paged_attention.cu"
+MSL = 32
+BS = 8
+MAXB = MSL // BS
+JCFG = jgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                      num_heads=2, intermediate_size=64, max_seq_len=MSL)
+PCFG = pgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                      num_heads=2, intermediate_size=64, max_seq_len=MSL)
+
+
+@pytest.fixture(scope="module")
+def jsd():
+    return jgpt.build_gpt(JCFG, batch=2, seq_len=8, seed=0)
+
+
+@pytest.fixture(scope="module")
+def psd(jsd):
+    sd = pgpt.build_gpt(PCFG, batch=2, seq_len=8, seed=3, device="cpu")
+    return samediff_arrays_from_jax(
+        {n: np.asarray(a, np.float32)
+         for n, a in jsd.trainable_params().items()}, sd)
+
+
+@pytest.fixture(scope="module")
+def spec(psd):
+    return pgpt.gpt_paged_spec(psd, PCFG)
+
+
+@pytest.fixture(scope="module")
+def dense_spec(psd):
+    return pgpt.gpt_generative_spec(psd, PCFG)
+
+
+def make_server(spec, **kw):
+    kw.setdefault("max_slots", 4)
+    kw.setdefault("max_seq_len", MSL)
+    kw.setdefault("block_size", BS)
+    kw.setdefault("warmup", False)
+    kw.setdefault("debug_leaks", True)
+    kw.setdefault("device", "cpu")
+    return PagedGenerativeServer(spec, **kw)
+
+
+def ref_tokens(dense_spec, prompt, n):
+    return greedy_decode(dense_spec, prompt, n, max_seq_len=MSL,
+                         device="cpu")
+
+
+def mixed_prompts(n=6, seed=0, max_len=12):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, PCFG.vocab_size,
+                         int(rng.integers(1, max_len + 1)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def wait_uncommitted(srv, timeout=10.0):
+    """The block commitment is released by the request future's done
+    callback, which runs after result() waiters wake."""
+    deadline = time.monotonic() + timeout
+    while srv._committed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return srv._committed
+
+
+def _close(got, want, rtol=1e-5):
+    got = got.detach().double().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = float(np.max(np.abs(got - want)))
+    assert err <= rtol * max(float(np.max(np.abs(want))), 1e-30), err
+
+
+# ----------------------------------------------------------------------
+# the decode functions against the JAX package's
+class _Both:
+    """The JAX and the port's paged prefill/decode over slabs of the same
+    random contents, driven with the same io."""
+
+    def __init__(self, jsd, psd, num_blocks=12, seed=0):
+        self.jf = jgpt.gpt_paged_decode_fns(JCFG, BS, MAXB)
+        self.pf = pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB)
+        names = jgpt.gpt_param_names(JCFG)
+        self.jp = {n: jsd._arrays[n] for n in names}
+        self.pp = {n: psd.get_arr_for_var(n) for n in names}
+        shape = (2, num_blocks, 2, BS, 16)
+        rng = np.random.default_rng(seed)
+        k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+        self.j = [jnp.asarray(k), jnp.asarray(v)]
+        self.p = [torch.from_numpy(k.copy()), torch.from_numpy(v.copy())]
+
+    def run(self, kind, io):
+        fn = 0 if kind == "prefill" else 1
+        jkc, jvc, jn, jl = self.jf[fn](self.jp, *self.j, io)
+        self.j = [jkc, jvc]
+        with torch.inference_mode():
+            pkc, pvc, pn, pl = self.pf[fn](self.pp, *self.p, io)
+        assert pkc is self.p[0] and pvc is self.p[1]      # in place
+        return (np.asarray(jn), np.asarray(jl)), (pn.numpy(), pl)
+
+
+def _prefill_io(prompt, hist, table):
+    suffix = prompt[hist:]
+    lb = 1 << max(0, int(len(suffix) - 1).bit_length())
+    padded = np.zeros(lb, np.int32)
+    padded[:len(suffix)] = suffix
+    return {"tokens": padded, "length": np.int32(len(suffix)),
+            "hist": np.int32(hist), "table": np.asarray(table, np.int32)}
+
+
+def test_paged_prefill_cold_then_with_a_prefix_hit_matches_jax(jsd, psd):
+    both = _Both(jsd, psd)
+    prompt = np.arange(13, dtype=np.int32) * 5 % 64
+    # cold: 13 tokens into blocks 3 and 7
+    (jn, jl), (pn, pl) = both.run("prefill", _prefill_io(
+        prompt, 0, [3, 7, 0, 0]))
+    _close(pl, jl)
+    assert int(pn) == int(jn)
+    # a prefix hit: block 3 reused (hist 8), the suffix into blocks 9, 10
+    longer = np.concatenate([prompt[:8], np.arange(11, dtype=np.int32)])
+    (jn, jl), (pn, pl) = both.run("prefill", _prefill_io(
+        longer, 8, [3, 9, 10, 0]))
+    _close(pl, jl)
+    assert int(pn) == int(jn)
+    # every block but the null one (where JAX writes the padded rows)
+    for jt, pt in zip(both.j, both.p):
+        _close(pt[:, 1:], np.asarray(jt)[:, 1:])
+
+
+def test_paged_decode_matches_jax_with_inactive_lanes(jsd, psd):
+    both = _Both(jsd, psd, seed=1)
+    tables = np.array([[1, 2, 0, 0], [4, 5, 6, 0], [0, 0, 0, 0],
+                       [8, 0, 0, 0]], np.int32)
+    pos = np.array([9, 17, 5, 0], np.int32)
+    active = np.array([True, True, False, True])
+    wb = np.where(active, tables[np.arange(4), pos // BS], NULL_BLOCK)
+    io = {"tokens": np.array([3, 60, 7, 1], np.int32), "positions": pos,
+          "active": active, "tables": tables,
+          "write_block": wb.astype(np.int32),
+          "write_off": np.where(active, pos % BS, 0).astype(np.int32)}
+    null_before = both.p[0][:, NULL_BLOCK].clone()
+    (jn, jl), (pn, pl) = both.run("decode", io)
+    _close(pl[active], np.asarray(jl)[active])
+    np.testing.assert_array_equal(pn[active], jn[active])
+    # the active lanes' rows: written as JAX writes them
+    for jt, pt in zip(both.j, both.p):
+        for s in np.flatnonzero(active):
+            _close(pt[:, wb[s], :, pos[s] % BS],
+                   np.asarray(jt)[:, wb[s], :, pos[s] % BS])
+    # an inactive lane writes nothing (JAX writes it to the null block)
+    assert torch.equal(both.p[0][:, NULL_BLOCK], null_before)
+
+
+def test_dense_decode_over_paged_attention_matches_jax(jsd, psd):
+    jpre, jdec, _ = jgpt.gpt_decode_fns(JCFG)
+    ppre, pdec, _ = pgpt.gpt_decode_fns(PCFG)
+    names = jgpt.gpt_param_names(JCFG)
+    jp = {n: jsd._arrays[n] for n in names}
+    pp = {n: psd.get_arr_for_var(n) for n in names}
+    rng = np.random.default_rng(2)
+    kv = [rng.normal(size=(2, 3, 2, MSL, 16)).astype(np.float32)
+          for _ in range(2)]
+    jkv = [jnp.asarray(a) for a in kv]
+    pkv = [torch.from_numpy(a.copy()) for a in kv]
+    io = {"tokens": np.array([5, 9, 30], np.int32),
+          "positions": np.array([4, 31, 12], np.int32),
+          "active": np.array([True, False, True])}
+    jkc, jvc, jn, jl = jdec(jp, *jkv, io)
+    with torch.inference_mode():
+        pkc, pvc, pn, pl = pdec(pp, *pkv, io)
+    act = io["active"]
+    _close(pl[act], np.asarray(jl)[act])
+    np.testing.assert_array_equal(pn.numpy()[act], np.asarray(jn)[act])
+    _close(pkc, np.asarray(jkc))
+    _close(pvc, np.asarray(jvc))
+
+
+def test_dense_prefill_matches_jax_logits_and_rows(jsd, psd):
+    jpre, _, _ = jgpt.gpt_decode_fns(JCFG)
+    ppre, _, _ = pgpt.gpt_decode_fns(PCFG)
+    names = jgpt.gpt_param_names(JCFG)
+    prompt = np.array([5, 17, 40, 2, 33], np.int32)
+    io = {"tokens": np.pad(prompt, (0, 3)), "length": np.int32(5),
+          "slot": np.int32(1)}
+    z = np.zeros((2, 2, 2, MSL, 16), np.float32)
+    jkc, jvc, jn, jl = jpre({n: jsd._arrays[n] for n in names},
+                            jnp.asarray(z), jnp.asarray(z), io)
+    with torch.inference_mode():
+        pkc, pvc, pn, pl = ppre({n: psd.get_arr_for_var(n) for n in names},
+                                torch.zeros(z.shape), torch.zeros(z.shape),
+                                io)
+    _close(pl, np.asarray(jl))
+    assert int(pn) == int(jn)
+    _close(pkc, np.asarray(jkc))
+    _close(pvc, np.asarray(jvc))
+
+
+# ----------------------------------------------------------------------
+# paged_attention_plain against the JAX attention expressions
+def _jax_decode_attention(q, kc, vc, tables, pos):
+    """zoo/gpt.py gpt_paged_decode_fns.decode_fn :675-689."""
+    S, A, D = q.shape
+    T = tables.shape[1] * kc.shape[2]
+    ctx_k = jnp.transpose(kc[tables], (0, 2, 1, 3, 4)).reshape(S, A, T, D)
+    ctx_v = jnp.transpose(vc[tables], (0, 2, 1, 3, 4)).reshape(S, A, T, D)
+    mask = jnp.arange(T)[None, None, :] <= pos[:, None, None]
+    scores = jnp.einsum("sad,satd->sat", q, ctx_k,
+                        preferred_element_type=jnp.float32) / np.sqrt(D)
+    scores = jnp.where(mask, scores, jnp.float32(-1e30))
+    probs = jax_softmax(scores).astype(ctx_v.dtype)
+    v_safe = jnp.where(mask[..., None], ctx_v, 0)
+    return jnp.einsum("sat,satd->sad", probs, v_safe)
+
+
+def _jax_prefill_attention(q, kc, vc, table, hist, length):
+    """zoo/gpt.py gpt_paged_decode_fns.prefill_fn :621-636 (q [Lb, A, D])."""
+    Lb, A, D = q.shape
+    T = table.shape[0] * kc.shape[2]
+    g = hist + jnp.arange(Lb)
+    cm = jnp.arange(T)[None, :] <= g[:, None]
+    valid = jnp.arange(T) < hist + length
+    ctx_k = jnp.transpose(kc[table], (1, 0, 2, 3)).reshape(A, T, D)
+    ctx_v = jnp.transpose(vc[table], (1, 0, 2, 3)).reshape(A, T, D)
+    ctx_k = jnp.where(valid[:, None], ctx_k, 0)
+    ctx_v = jnp.where(valid[:, None], ctx_v, 0)
+    scores = jnp.einsum("aqd,akd->aqk", jnp.transpose(q, (1, 0, 2)), ctx_k,
+                        preferred_element_type=jnp.float32) / np.sqrt(D)
+    scores = jnp.where(cm[None], scores, jnp.float32(-1e30))
+    probs = jax_softmax(scores).astype(ctx_v.dtype)
+    return jnp.transpose(jnp.einsum("aqk,akd->aqd", probs, ctx_v),
+                         (1, 0, 2))
+
+
+def jax_softmax(x):
+    import jax
+    return jax.nn.softmax(x, axis=-1)
+
+
+def _cache(nb, a, bs, d, seed, poison=()):
+    rng = np.random.default_rng(seed)
+    kc, vc = (rng.normal(size=(nb, a, bs, d)).astype(np.float32)
+              for _ in range(2))
+    for b in poison:
+        kc[b] = vc[b] = np.nan
+    return kc, vc
+
+
+@pytest.mark.parametrize("bs,d", [(8, 16), (1, 32), (5, 16), (16, 64)])
+def test_plain_decode_matches_the_jax_expression(bs, d):
+    maxb = -(-40 // bs)
+    nb = 4 * maxb + 2
+    kc, vc = _cache(nb, 3, bs, d, seed=bs, poison=(NULL_BLOCK, nb - 1))
+    rng = np.random.default_rng(d)
+    pos = np.array([0, bs - 1, bs, 39], np.int32)
+    tables = np.zeros((4, maxb), np.int32)
+    for s in range(4):
+        n = pos[s] // bs + 1
+        tables[s, :n] = 1 + s * maxb + np.arange(n)
+    q = rng.normal(size=(4, 3, d)).astype(np.float32)
+    want = _jax_decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc), jnp.asarray(tables),
+                                 jnp.asarray(pos))
+    got = pa.paged_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                             torch.from_numpy(vc), torch.from_numpy(tables),
+                             torch.arange(4, dtype=torch.int32),
+                             torch.from_numpy(pos))
+    assert torch.isfinite(got).all()
+    _close(got, np.asarray(want), rtol=1e-6)
+    assert pa.LAUNCHES["paged_attention"] == 0       # nothing launched
+
+
+@pytest.mark.parametrize("hist,length,lb", [(0, 5, 8), (8, 9, 16),
+                                            (16, 1, 1)])
+def test_plain_prefill_matches_the_jax_expression(hist, length, lb):
+    kc, vc = _cache(9, 2, BS, 16, seed=hist, poison=(NULL_BLOCK, 8))
+    table = np.array([3, 1, 6, 0], np.int32)
+    rng = np.random.default_rng(length)
+    q = rng.normal(size=(lb, 2, 16)).astype(np.float32)
+    want = np.asarray(_jax_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(table),
+        hist, length))
+    # the port's prefill hands padded rows the last real row's last key
+    kmax = hist + np.minimum(np.arange(lb), length - 1)
+    got = pa.paged_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                             torch.from_numpy(vc),
+                             torch.from_numpy(table[None]),
+                             torch.zeros(lb, dtype=torch.int32),
+                             torch.from_numpy(kmax.astype(np.int32)))
+    _close(got[:length], want[:length], rtol=1e-6)
+
+
+def test_plain_reads_no_key_past_a_row_s_last():
+    """NaN in every block past each row's last key, in the tail of its
+    last block and in the null block: the output is finite and equal to
+    the clean cache's."""
+    kc, vc = _cache(6, 2, 4, 16, seed=9)
+    tables = np.array([[2, 3, 0], [5, 0, 0]], np.int32)
+    kmax = np.array([5, 2], np.int32)
+    args = [torch.from_numpy(tables), torch.arange(2, dtype=torch.int32),
+            torch.from_numpy(kmax)]
+    q = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 2, 16)).astype(np.float32))
+    clean = pa.paged_attention(q, torch.from_numpy(kc), torch.from_numpy(vc),
+                               *args)
+    for a in (kc, vc):
+        a[0] = a[1] = a[4] = np.nan
+        a[3, :, 2:] = np.nan           # lane 0's last key is row 1 of block 3
+        a[5, :, 3:] = np.nan
+    got = pa.paged_attention(q, torch.from_numpy(kc), torch.from_numpy(vc),
+                             *args)
+    assert torch.equal(got, clean)
+
+
+def test_abs_terms_bound_the_plain_version():
+    kc, vc = _cache(5, 2, 4, 16, seed=4)
+    tables = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
+    q = torch.randn(3, 2, 16, dtype=torch.float64)
+    lane = torch.zeros(3, dtype=torch.int32)
+    kmax = torch.tensor([0, 7, 15], dtype=torch.int32)
+    kcd, vcd = torch.from_numpy(kc).double(), torch.from_numpy(vc).double()
+    out = pa.paged_attention(q, kcd, vcd, tables, lane, kmax)
+    terms = pa.abs_terms(q, kcd, vcd, tables, lane, kmax)
+    assert (out.abs() <= terms + 1e-12).all()
+    # row 0 attends to key 0 alone: its terms are |V[0]|
+    assert torch.allclose(terms[0], vcd[1, :, 0].abs())
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(q=torch.zeros(2, 3, 16)), "does not match"),
+    (dict(vc=torch.zeros(4, 2, 8, 32)), "must be"),
+    (dict(lane=torch.zeros(3, dtype=torch.int32)), "lane"),
+    (dict(q=torch.zeros(2, 2, 16, dtype=torch.float64)), "dtypes differ"),
+])
+def test_wrapper_refuses_mismatched_inputs(bad, match):
+    args = dict(q=torch.zeros(2, 2, 16), kc=torch.zeros(4, 2, 8, 16),
+                vc=torch.zeros(4, 2, 8, 16),
+                tables=torch.zeros(2, 3, dtype=torch.int32),
+                lane=torch.zeros(2, dtype=torch.int32),
+                kmax=torch.zeros(2, dtype=torch.int32))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        pa.paged_attention(**args)
+
+
+def _c_entry_params():
+    src = SRC.read_text()
+    m = re.search(r'extern "C" int dl4j_paged_attention\((.*?)\)\s*\{', src,
+                  re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    return [(" ".join(p.split()[:-1]), p.split()[-1]) for p in params]
+
+
+def test_ctypes_declaration_matches_the_c_entry():
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+               "int64_t": ctypes.c_int64, "int": ctypes.c_int,
+               "double": ctypes.c_double}
+    params = _c_entry_params()
+    assert [n for _, n in params] == [
+        n for n, _ in pa.PAGED_ATTENTION_ARGTYPES]
+    assert [c_types[t] for t, _ in params] == [
+        t for _, t in pa.PAGED_ATTENTION_ARGTYPES]
+    pointers = [n for t, n in params if t.endswith("*")]
+    assert pointers == ["q", "kc", "vc", "tables", "lane", "kmax", "out",
+                        "stream"]
+
+
+def test_loading_the_library_declares_the_entry(monkeypatch):
+    class Entry:
+        argtypes = None
+        restype = ctypes.c_int
+
+    class Lib:
+        dl4j_paged_attention = Entry()
+
+    lib = Lib()
+    monkeypatch.setattr(_cuda, "load", lambda name: lib)
+    assert pa._lib() is lib
+    fn = lib.dl4j_paged_attention
+    assert fn.argtypes == [t for _, t in pa.PAGED_ATTENTION_ARGTYPES]
+    assert fn.restype is ctypes.c_int
+
+
+def test_nvcc_command_builds_the_paged_source_for_sm90a():
+    out = _cuda.library_path("paged_attention")
+    cmd = _cuda.build_command("paged_attention", out, "nvcc")
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert cmd[-1] == str(SRC)
+    assert re.fullmatch(r"libpaged_attention-[0-9a-f]{16}\.so",
+                        pathlib.Path(out).name)
+
+
+def test_kernel_sums_in_an_order_set_by_key_position_alone():
+    """The source's stream of a key is its position modulo 32 and the
+    combine runs in stream order: nothing in the loop or the combine
+    reads BS except to address a key."""
+    code = "\n".join(line.split("//")[0] for line in
+                     SRC.read_text().splitlines())
+    assert "t0 = warp * kGroupsPerWarp; t0 <= last; t0 += kStreams" in code
+    assert "for (int i = 0; i < kStreams; ++i)" in code
+    assert "atomic" not in code
+
+
+# ----------------------------------------------------------------------
+# the block pool (host code, copied)
+class TestBlockPool:
+    def test_alloc_release_cycle(self):
+        p = BlockPool(5, 4)
+        got = [p.alloc() for _ in range(4)]
+        assert sorted(got) == [1, 2, 3, 4] and NULL_BLOCK not in got
+        with pytest.raises(PoolExhaustedError):
+            p.alloc()
+        for b in got:
+            p.release(b)
+        assert p.free_count() == 4
+        p.check_invariant(tables=[])
+
+    def test_double_free_raises(self):
+        p = BlockPool(3, 4)
+        b = p.alloc()
+        p.release(b)
+        with pytest.raises(RuntimeError, match="twice"):
+            p.release(b)
+
+    def test_refcount_shared_block(self):
+        p = BlockPool(3, 4)
+        b = p.alloc()
+        p.retain(b)
+        p.release(b)
+        assert p.held_count() == 1
+        p.release(b)
+        assert p.held_count() == 0
+
+    def test_prefix_register_lookup_evict_lru(self):
+        p = BlockPool(4, 2)
+        toks = np.arange(6, dtype=np.int32)
+        hs = prefix_block_hashes(toks, 2)
+        blocks = [p.alloc() for _ in range(3)]
+        for h, b in zip(hs, blocks):
+            assert p.register(h, b)
+        for b in blocks:
+            p.release(b)
+        assert p.usable_free_count() == 3 and p.free_count() == 0
+        assert p.lookup(hs, max_blocks=2) == blocks[:2]
+        x = p.alloc()                       # evicts the LRU evictable
+        assert x == blocks[2] and p.evictions == 1
+        p.check_invariant(tables=[blocks[:2], [x]])
+
+    def test_chain_hashes_depend_on_prefix(self):
+        a = prefix_block_hashes(np.array([1, 2, 3, 4]), 2)
+        b = prefix_block_hashes(np.array([9, 2, 3, 4]), 2)
+        assert a[1] != b[1] and len(a) == 2
+        assert prefix_block_hashes(np.array([1, 2, 3]), 2) == a[:1]
+
+    def test_flush_and_reset(self):
+        p = BlockPool(4, 2)
+        b = p.alloc()
+        p.register(prefix_block_hashes(np.array([1, 2]), 2)[0], b)
+        assert p.flush_cache() == 1 and p.cached_count() == 0
+        p.release(b)
+        assert p.free_count() == 3
+        p.alloc()
+        p.reset()
+        assert p.stats()["held"] == 0 and p.free_count() == 3
+
+    def test_invariant_catches_seeded_leak(self):
+        p = BlockPool(4, 2)
+        p.alloc()
+        p._free.pop()
+        with pytest.raises(AssertionError, match="leak"):
+            p.check_invariant()
+
+    def test_blocks_for_tokens(self):
+        assert [blocks_for_tokens(n, 8) for n in (0, 1, 8, 9, 16)] == \
+            [0, 1, 1, 2, 2]
+
+
+# ----------------------------------------------------------------------
+# the server
+def test_server_greedy_tokens_match_jax_greedy_decode(jsd, spec):
+    jspec = jgpt.gpt_generative_spec(jsd, JCFG)
+    prompts = mixed_prompts(6, seed=2)
+    with make_server(spec, num_blocks=64) as srv:
+        got = [h.result(timeout=60) for h in
+               [srv.submit(p, max_new_tokens=8) for p in prompts]]
+    want = [jax_greedy_decode(jspec, p, 8, max_seq_len=MSL) for p in prompts]
+    assert got == want
+
+
+def test_table_growth_across_buckets_equals_dense(spec, dense_spec):
+    """Prompts in every pow2 prefill bucket, each decoding across a block
+    boundary: the same tokens as the dense reference, bit for bit."""
+    prompts = [np.arange(L, dtype=np.int32) % PCFG.vocab_size
+               for L in (1, 2, 5, 9, 17)]
+    with make_server(spec, num_blocks=64) as srv:
+        got = [h.result(timeout=60) for h in
+               [srv.submit(p, max_new_tokens=10) for p in prompts]]
+    assert got == [ref_tokens(dense_spec, p, 10) for p in prompts]
+
+
+def test_pool_drains_clean_after_traffic(spec):
+    srv = make_server(spec, num_blocks=64)
+    hs = [srv.submit(p, max_new_tokens=6) for p in mixed_prompts(8)]
+    for h in hs:
+        h.result(timeout=60)
+    srv.shutdown()
+    assert srv.pool.stats()["held"] == 0
+    assert wait_uncommitted(srv) == 0
+    srv.pool.check_invariant(tables=[])
+
+
+def test_prefix_hit_matches_cold_and_runs_the_suffix_bucket(spec,
+                                                            dense_spec):
+    prompt = (np.arange(17, dtype=np.int32) * 3) % PCFG.vocab_size
+    with make_server(spec) as srv:
+        a = srv.submit(prompt, max_new_tokens=6).result(timeout=60)
+        before = set(srv._shapes_seen)
+        b = srv.submit(prompt, max_new_tokens=6).result(timeout=60)
+        new = srv._shapes_seen - before
+    assert a == b == ref_tokens(dense_spec, prompt, 6)
+    rec = srv.metrics.to_record()["paged"]
+    assert rec["prefix_blocks_hit"] == 2 and rec["prefix_hit_rate"] > 0
+    # 17 tokens cold run bucket 32; the repeat prefills its 1-token suffix
+    assert {dict(sig)["tokens"][0] for sig in new
+            if "hist" in dict(sig)} == {1}
+
+
+def test_update_model_flushes_prefix_cache(spec, dense_spec, psd):
+    prompt = (np.arange(17, dtype=np.int32) * 3) % PCFG.vocab_size
+    with make_server(spec) as srv:
+        srv.submit(prompt, max_new_tokens=4).result(timeout=60)
+        assert srv.pool.cached_count() > 0
+        old = psd.get_arr_for_var("wte")
+        try:
+            psd.set_arr_for_var("wte", old + 0.5)
+            srv.update_model()
+            after = srv.submit(prompt, max_new_tokens=4).result(timeout=60)
+            want = ref_tokens(dense_spec, prompt, 4)
+        finally:
+            psd.set_arr_for_var("wte", old)
+            srv.update_model()
+    assert after == want
+    assert srv.metrics.to_record()["paged"]["prefix_blocks_hit"] == 0
+    assert srv.metrics.counters["prefix_cache_flushes"] >= 1
+
+
+def test_disabled_cache_never_hits(spec):
+    prompt = (np.arange(17, dtype=np.int32) * 3) % PCFG.vocab_size
+    with make_server(spec, prefix_cache=False) as srv:
+        srv.submit(prompt, max_new_tokens=2).result(timeout=60)
+        srv.submit(prompt, max_new_tokens=2).result(timeout=60)
+    rec = srv.metrics.to_record()["paged"]
+    assert rec["prefix_hit_rate"] == 0.0 and rec["cached_blocks"] == 0
+
+
+def test_nan_poisoned_blocks_do_not_bleed_into_the_next_user(spec,
+                                                             dense_spec):
+    """Retire a generation, fill the WHOLE slab (the null block, the
+    retired blocks, the free ones) with NaN, serve a new request: its
+    tokens equal a fresh server's and the reference's."""
+    p2 = np.array([11, 3, 7, 60, 2, 9, 9, 41, 5, 1], np.int32)
+    with make_server(spec, max_slots=2) as srv:
+        srv.generate(np.arange(1, 12, dtype=np.int32), max_new_tokens=9)
+        time.sleep(0.05)
+        with srv._exec_lock, torch.inference_mode():
+            srv._kc.fill_(float("nan"))
+            srv._vc.fill_(float("nan"))
+        got = srv.generate(p2, max_new_tokens=12)
+    with make_server(spec, max_slots=2) as fresh:
+        want = fresh.generate(p2, max_new_tokens=12)
+    assert got == want == ref_tokens(dense_spec, p2, 12)
+
+
+def test_exhaustion_sheds_typed_and_retry_succeeds(spec):
+    srv = make_server(spec, max_slots=4, num_blocks=9, start=False)
+    try:
+        p = np.arange(12, dtype=np.int32)
+        h1 = srv.submit(p, max_new_tokens=8)
+        h2 = srv.submit(p + 1, max_new_tokens=8)
+        with pytest.raises(PoolExhaustedError) as ei:
+            srv.submit(p + 2, max_new_tokens=8)
+        assert ei.value.retry_after_s > 0
+        # permanent errors stay permanent under pressure
+        with pytest.raises(ValueError):
+            srv.submit(np.asarray([PCFG.vocab_size], np.int32), 4)
+        assert srv._committed == 6
+        srv.start()
+        assert h1.result(timeout=60) and h2.result(timeout=60)
+        assert wait_uncommitted(srv) == 0
+        assert srv.submit(p + 2, max_new_tokens=8).result(timeout=60)
+    finally:
+        srv.shutdown()
+    assert srv.metrics.counters["requests_shed"] >= 1
+
+
+def test_failed_submit_rolls_back_commitment(spec):
+    with make_server(spec, max_slots=4, num_blocks=9) as srv:
+        with pytest.raises(ValueError):
+            srv.submit(np.asarray([999]), max_new_tokens=4)
+        assert srv._committed == 0
+
+
+def test_cancel_and_deadline_release_blocks_once(spec):
+    with make_server(spec) as srv:
+        h = srv.submit(np.arange(9, dtype=np.int32), max_new_tokens=20,
+                       on_token=lambda t: time.sleep(0.01))
+        next(iter(h.tokens(timeout=30)))
+        h.cancel()
+        h.result(timeout=30)
+        h = srv.submit(np.arange(6, dtype=np.int32), max_new_tokens=20,
+                       timeout_ms=30.0, on_token=lambda t: time.sleep(0.01))
+        try:
+            h.result(timeout=60)
+        except Exception:
+            pass
+    assert srv.pool.stats()["held"] == 0
+    assert wait_uncommitted(srv) == 0
+    srv.pool.check_invariant(tables=[])
+
+
+@pytest.mark.chaos
+def test_crash_requeue_releases_blocks_exactly_once(spec, dense_spec):
+    prompts = mixed_prompts(4, seed=7)
+    srv = make_server(spec, start=False, resilience=ResilienceConfig(
+        worker_backoff_base_s=0.01, worker_backoff_max_s=0.05))
+    real = srv._decode_disp
+    state = {"calls": 0, "fired": False}
+
+    def crash_once(*args):
+        state["calls"] += 1
+        if not state["fired"] and state["calls"] > 2:
+            state["fired"] = True
+            raise RuntimeError("chaos: decode worker dies")
+        return real(*args)
+
+    srv._decode_disp = crash_once
+    try:
+        srv.start()
+        got = [h.result(timeout=120) for h in
+               [srv.submit(p, max_new_tokens=8) for p in prompts]]
+    finally:
+        srv.shutdown()
+    assert state["fired"]
+    assert got == [ref_tokens(dense_spec, p, 8) for p in prompts]
+    assert srv.metrics.counters["worker_restarts"] >= 1
+    assert srv.metrics.counters["requests_requeued"] >= 1
+    assert srv.pool.stats()["held"] == 0
+    assert wait_uncommitted(srv) == 0
+
+
+def test_warmup_runs_every_shape_once_then_traffic_adds_none(psd):
+    spec = pgpt.gpt_paged_spec(psd, PCFG)
+    with make_server(spec, warmup=True, num_blocks=64) as srv:
+        assert srv.warmup_report["prefill_buckets"] == [1, 2, 4, 8, 16, 32]
+        assert srv.metrics.counters["warmup_compiles"] == 7
+        assert srv.warmup_report["kernel_builds"] == []     # CPU: none
+        for i, p in enumerate(mixed_prompts(6, seed=3, max_len=20)):
+            srv.generate(p, max_new_tokens=3 + i % 4)
+        assert srv.metrics.counters["compiles"] == 0
+
+
+def test_not_ported_options_raise(psd, spec):
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        make_server(spec, tp=2)
+    with pytest.raises(NotImplementedError, match="int8"):
+        pgpt.gpt_paged_spec(psd, PCFG, quantize_weights=True).params()
+    with pytest.raises(NotImplementedError, match="int8 KV"):
+        pgpt.gpt_paged_spec(psd, PCFG, quantize_kv=True)
+    with pytest.raises(NotImplementedError, match="speculative"):
+        spec.make_fns(BS, MAXB)[2](None, None, None, None)
+
+
+def test_metrics_cold_start_and_block_accounting(spec):
+    rec = PagedMetrics(4, 16, 8).to_record()["paged"]
+    assert all(np.isfinite(v) for v in rec.values())
+    assert rec["pool_occupancy"] == 0.0
+    with make_server(spec, num_blocks=17) as srv:
+        srv.generate(np.arange(10, dtype=np.int32), max_new_tokens=3)
+    assert srv.pool.capacity == 16
+    assert tuple(srv._kc.shape) == (2, 17, 2, 8, 16)
+    assert srv.bytes_per_block == 2 * 2 * 2 * 8 * 16 * 4
+    assert srv.metrics.to_record()["paged"]["blocks_per_request"] == 2
+
+
+# ----------------------------------------------------------------------
+# the case builders chip_smoke.py and the card tests check the kernel with
+def test_case_builders_poison_and_dense_keep_the_plain_version():
+    from deeplearning4j_tpu_torch.kernels import measure
+    cpu = torch.device("cpu")
+    for args in (measure.paged_decode_case(cpu, [0, 7, 8, 19], 2, 16, 8,
+                                           torch.float64, seed=1),
+                 measure.paged_prefill_case(cpu, 16, 8, 5, 2, 16, 8,
+                                            torch.float64, seed=2)):
+        q, kc, vc, tables, lane, kmax = args
+        out = pa.paged_attention(*args)
+        pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+        assert torch.isnan(pk).any()
+        assert torch.equal(pa.paged_attention(q, pk, pv, tables, lane, kmax),
+                           out)
+        terms = pa.abs_terms(*args)
+        assert measure.paged_reading(out, out, terms, 1e-12) == 0.0
+        # the controls the chip run must see fail: a mask off by one, a
+        # table entry one block off
+        off = pa.paged_attention_plain(q, kc, vc, tables, lane, kmax - 1)
+        assert measure.paged_reading(off, out, terms, 1e-5) > 1
+        shifted = tables.clone()
+        shifted[:, 0] += 1
+        moved = pa.paged_attention_plain(q, kc, vc, shifted, lane, kmax)
+        assert measure.paged_reading(moved, out, terms, 1e-5) > 1
+    q, kc, vc, tables, lane, kmax = measure.paged_decode_case(
+        cpu, [0, 7, 8, 19], 2, 16, 8, torch.float64, seed=1)
+    dk, dv, dt = measure.paged_dense(kc, vc, tables)
+    assert dk.shape == (4, 2, 24, 16) and dt.tolist() == [[0], [1], [2],
+                                                          [3]]
+    _close(pa.paged_attention(q, dk, dv, dt, lane, kmax),
+           pa.paged_attention(q, kc, vc, tables, lane, kmax).numpy(), 1e-12)
+    flops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
+    assert flops == 4 * 16 * 2 * (1 + 8 + 9 + 20)
+    assert nbytes == (1 + 8 + 9 + 20) * 2 * 16 * 8 * 2 + 2 * 4 * 2 * 16 * 8
