@@ -5,13 +5,14 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the three CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
-   csrc/causal_attention.cu and csrc/paged_attention.cu, one nvcc each,
-   started together: seconds,
+   limit; the builds of the four CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   csrc/causal_attention.cu, csrc/paged_attention.cu and
+   csrc/attention_f32.cu, one nvcc each, started together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
-   head dim 128.
+   head dim 128; the float32 attention kernels' SASS: tf32 mma.sync
+   (HMMA ... TF32) and no other HMMA, at every head dim.
 2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
    versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
    three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
@@ -24,9 +25,14 @@ Phases, in order; any failure exits non-zero:
    strides, ragged lengths (1, 77, 200) with head_dim 64 and 16,
    non-causal, Sq < Sk, Sq > Sk with fully masked rows, the bf16 kernels'
    tile edges (127, 128, 129, 257 at head dims 16-128), float32 and
-   float64; bf16 control readings (a causal mask off by one, a dropped
-   key tile must be rejected); q, k, v and dO whose rows are not on 16
-   bytes, which the wrappers copy (counted) before TMA reads them.
+   float64; float32's forward is csrc/attention_f32.cu's 3xTF32 kernel
+   (its launches checked), also at the dense prefill's serving shape
+   (1, 12, 512, 128), its tile edges (63, 64, 65, 127, 129) and ragged
+   Sq < Sk and Sq > Sk at head dims 16 and 128, its stats feeding the
+   float32 backward; bf16 and float32 control readings (a causal mask off
+   by one, a dropped key tile must be rejected); q, k, v and dO whose rows
+   are not on 16 bytes, which the wrappers copy (counted) before TMA
+   reads them.
 4. parity: ResNet-50 at 32x32, 4 classes, TF32 off: two ``fit`` steps on
    the card (kernels) and on the CPU (plain versions) from the same
    weights, in float64 (every tensor's change, every running statistic
@@ -73,41 +79,59 @@ Phases, in order; any failure exits non-zero:
 
 10. kernels: the paged attention kernel (csrc/paged_attention.cu) against
    its plain version: GPT-medium decode (8 lanes x 12 heads of 128,
-   blocks of 16, last keys 0..1023), its prefill (512 rows after a
-   256-token prefix, and cold), block sizes 1-1024 at head dims 16-128,
-   last keys 0, at block edges and in a partly filled last block, float32
-   and float64; per element within 1e-5 / 1e-12 of the sum of absolute
-   terms; controls (a mask off by one, a table entry one block off) must
-   fail the rule; two calls bit-equal, dense = paged bits, NaN in the null
-   block, unused blocks and past each lane's last key changes nothing.
-11. parity: GPT_TINY float64 through ``PagedGenerativeServer`` on the card
-   and on the CPU, a prefix hit among the prompts: identical greedy
-   tokens, every dispatch's logits within 1e-12.
+   blocks of 16, last keys 0..1023), block sizes 1-1024 at head dims
+   16-128, last keys 0, at block edges and in a partly filled last block,
+   float32 and float64. The prefill function ``paged_prefill_attention``
+   (float32: csrc/attention_f32.cu's kernel; float64: paged_attention):
+   GPT-medium's prefill (512 rows after a 256-token prefix, and cold);
+   the float32 kernel at hist 0, 15, 256, 1000 x rows 1, 63, 64, 65, 512
+   x blocks of 1, 16, 160, 1024, and at head dims 16-64, as the server
+   calls it and at two other work splits; views off 16 bytes copied and
+   counted. Per element within 1e-5 / 1e-12 of the sum
+   of absolute terms; controls (a mask off by one, a table entry one
+   block off) must fail the rule; two calls bit-equal, dense = paged bits
+   (decode), NaN in the null block, unused blocks and past each lane's
+   last key changes nothing.
+11. parity: GPT_TINY through ``PagedGenerativeServer`` (float64 and
+   float32) and ``GenerativeServer`` (float32) on the card and on the CPU
+   (plain attention), a prefix hit among the prompts: identical greedy
+   tokens, every dispatch's logits within 1e-12 (float64) or 1e-5
+   (float32) of their magnitude; the float32 runs go through the float32
+   attention kernels on the card.
 12. main path: GPT-medium float32 (``build_gpt(GPT_MEDIUM, ..., seed=0)``)
    served through ``gpt_paged_spec`` by ``PagedGenerativeServer(max_slots=8,
    block_size=16, max_seq_len=1024)``: 32 requests (prompts 16-512, a
    256-token shared prefix for 8, 80% of budgets 2-8 and 20% 64-128),
    temperature 0, through ``submit`` / ``result()``; paged_attention must
-   launch 16 times a dispatch; every request against ``greedy_decode``
+   launch 16 times a decode step and paged_prefill_f32 16 times a prefill
+   (and nothing else of the attention kernels); every request against
+   ``greedy_decode``
    (a differing token only at a near tie, top-2 margin below 1e-4 of the
    logits' scale); the pool drains clean; tokens/s, TTFT (cold, prefix
    hit), inter-token and decode-step times, peak memory. Then the dense
-   ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of them: its
-   prefill launches attention_fwd, its decode paged_attention. Then ~20
-   decode steps under ``torch.profiler``: device launches and busy time a
-   step, the idle share against the same steps' wall time, device time
-   by group.
-13. path shapes: every shape the serving run handed paged_attention,
-   checked against its plain version; the kernel timed alone at decode
-   (8 lanes at context 128, 512, 1024) and at the prefill, with its plain
-   version, its bound and the library's masked
-   ``F.scaled_dot_product_attention`` over the dense slab (decode and
-   prefill); attention_fwd at
-   the dense prefill's float32 shape (1, 12, 512, 128).
+   ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of them,
+   each against ``greedy_decode``: its prefill launches attention_fwd_f32
+   (attention_fwd's scalar kernel 0 times), its decode paged_attention.
+   Then ~20 decode steps under ``torch.profiler``: device launches and
+   busy time a step, the idle share against the same steps' wall time,
+   device time by group; then 3 paged and 3 dense prefills of 512 rows:
+   the float32 attention kernels' launches (main and combining, each
+   count equal to the wrappers') and device time a prefill.
+13. path shapes: every shape the serving run handed the paged functions,
+   checked against its plain version; paged_attention timed alone at
+   decode (8 lanes at context 128, 512, 1024), with its plain version, its
+   bound and the library's masked ``F.scaled_dot_product_attention`` over
+   the dense slab; the two float32 prefill kernels at their serving shapes
+   (the paged prefill, 512 rows after 256 cached keys; the dense forward
+   (1, 12, 512, 128) causal) beside the kernels they replace, their plain
+   versions, the library and their bound at the 3xTF32 and the float32
+   FMA rates.
 
 The last lines are the kernels' JSON record (``launches`` counts each
-kernel's main path's timed run, ``launches_per_step`` one step; the times
-are per training step of that path, per decode step for paged_attention),
+kernel's main path's timed run, ``launches_per_step`` one step, and for
+the float32 kernels ``combine_launches`` their combining kernel's; the times
+are per training step of that path, per decode step for paged_attention,
+per 512-row prefill for the float32 prefill kernels),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -172,6 +196,38 @@ def check_attention_build():
                 bad.append(tag)
     if bad:
         raise SystemExit(f"attention kernels built wrong: {bad}")
+
+
+def check_attention_f32_build():
+    """The float32 attention library as built: the dense and the paged
+    kernel at every head dim multiply on the tensor cores in TF32 (HMMA
+    ... TF32 in their SASS, no other HMMA), with ptxas's spills beside.
+    Prints one line a kernel; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
+    sass = sass_kernels(_cuda.library_path(attention_f32._LIB))
+    spills = ptxas_spills(_cuda.build_log(attention_f32._LIB))
+    bad = []
+    for d in (16, 32, 64, 128):
+        for paged in (0, 1):
+            tag = f"attn_f32_kernelILi{d}ELb{paged}E"
+            name = next((n for n in sass if tag in n), None)
+            if name is None:
+                bad.append(f"{tag}: not in the library")
+                continue
+            body = sass[name]
+            tf32 = sum(1 for ln in body.splitlines()
+                       if "HMMA" in ln and "TF32" in ln)
+            other = body.count("HMMA") - tf32
+            ok = tf32 > 0 and other == 0
+            log(f"    attn_f32_kernel<{d}, {'paged' if paged else 'dense'}>: "
+                f"HMMA TF32 {tf32}, other HMMA {other}, spill stores/loads "
+                f"{spills.get(name, 'not reported')}, blocks an SM (the "
+                f"work split's) {attention_f32.blocks_per_sm(d, bool(paged))}"
+                f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(tag)
+    if bad:
+        raise SystemExit(f"float32 attention kernels built wrong: {bad}")
 
 
 # ----------------------------------------------------------------------
@@ -678,11 +734,15 @@ def check_attention(q, k, v, do, causal, errs, label):
     in float32 on the same bf16 inputs, to at most twice the bf16 plain
     version's error plus one bf16 unit in the last place of the output's
     magnitude plus 1e-5 of the largest sum of terms (the kernels sum in
-    float32 in another order). A bf16 causal case with S >= 128 also
-    shows, with ``control_readings``, that the per-kernel rule rejects a
-    wrong mask. Exits on a failure."""
+    float32 in another order). A bf16 or float32 causal case with S >= 128
+    also shows, with ``control_readings``, that the rule rejects a wrong
+    mask. float32's forward is ``attention_f32``'s kernel (3xTF32), and
+    its launches are checked to go there. Exits on a failure."""
     from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
     dt = q.dtype
+    fwd_name = "attention_fwd_f32" if dt == torch.float32 else \
+        "attention_fwd"
     acc = at.acc_dtype(dt)
     rel = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5,
            torch.float64: 1e-10}[dt]
@@ -704,9 +764,13 @@ def check_attention(q, k, v, do, causal, errs, label):
                    dout=do, stats=st, delta=delta, dq=dq)
         return o, st, delta, dk, dv, dq
 
+    before = (at.LAUNCHES["attention_fwd"], af.LAUNCHES["attention_fwd_f32"])
     got, again = run(), run()
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(got, again))
+    routed = (at.LAUNCHES["attention_fwd"] - before[0],
+              af.LAUNCHES["attention_fwd_f32"] - before[1]) == (
+        (0, 2) if dt == torch.float32 else (2, 0))
     o, st, delta, dk, dv, dq = got
     po, _ = at.attention_fwd_plain(q, k, v, causal)
     pdelta = at.bwd_delta_plain(o, do)
@@ -715,7 +779,7 @@ def check_attention(q, k, v, do, causal, errs, label):
     t_delta = (do.double().abs() * o.double().abs()).sum(-1)
     worst, by_kernel = 0.0, {}
     for kname, x, p, t, r in (
-            ("attention_fwd", o, po, t_o, rel),
+            (fwd_name, o, po, t_o, rel),
             ("attention_bwd_delta", delta, pdelta, t_delta, rel_acc),
             ("attention_bwd_dkdv", dk, pdk, t_dk, rel),
             ("attention_bwd_dkdv", dv, pdv, t_dv, rel),
@@ -751,8 +815,12 @@ def check_attention(q, k, v, do, causal, errs, label):
         e2e = max(nan_fails(float(((x.double() - w.double()).abs() / (
             rel_acc * t).clamp_min(1e-300)).max()))
             for x, w, t in zip(got, want, (t_o, t_dq, t_dk, t_dv)))
-        detail = ""
-    ok = worst <= 1 and e2e <= 1 and same
+        detail = f"forward launches routed {routed}"
+        sq, sk = q.shape[2], k.shape[2]
+        if dt == torch.float32 and causal and sq == sk >= 2 * ATTN_TILE:
+            control_readings(q, k, v, do, got, (t_o, t_dq, t_dk, t_dv), rel,
+                             label)
+    ok = worst <= 1 and e2e <= 1 and same and routed
     if not ok:
         log(f"    of tol, by kernel: {by_kernel}")
     log(f"  {label}: kernels vs plain {worst:.2e} of tol, end to end "
@@ -763,9 +831,9 @@ def check_attention(q, k, v, do, causal, errs, label):
 
 
 def control_readings(q, k, v, do, got, terms, rel, label):
-    """The per-kernel bf16 check's power: the kernels' O, dq, dk, dv held
-    by the same rule (``rel`` of the sum of absolute terms) to the bf16
-    plain version of a wrong function, the causal mask off by one (each
+    """The check's power: the kernels' O, dq, dk, dv held by the same rule
+    (``rel`` of the sum of absolute terms) to the plain version, in the
+    inputs' dtype, of a wrong function, the causal mask off by one (each
     row sees one key too many) or one key tile (keys 64-127) dropped. The
     rule must reject both, on every output; exits if it does not."""
     from deeplearning4j_tpu_torch.kernels import attention as at
@@ -787,8 +855,7 @@ def control_readings(q, k, v, do, got, terms, rel, label):
             f"{n} " + " ".join(f"{r:.3g}" for r in rs)
             for n, rs in readings.items()) + f" {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("the bf16 attention check does not reject a wrong "
-                         "mask")
+        raise SystemExit("the attention check does not reject a wrong mask")
 
 
 def phase_attention(dev, errs):
@@ -796,7 +863,10 @@ def phase_attention(dev, errs):
     shape at build_gpt's strides, ragged lengths, non-causal, Sq < Sk,
     Sq > Sk (fully masked rows), the bf16 kernels' tile edges (Sq, Sk in
     127, 128, 129, 257 at every head dim), in bf16, float32 and float64;
-    then views whose rows are not on 16 bytes, which the wrappers copy."""
+    float32 also at the dense prefill's serving shape (1, 12, 512, 128),
+    the float32 kernel's tile edges (63, 64, 65, 127, 129) and ragged Sq <
+    Sk and Sq > Sk at head dims 16 and 128; then views whose rows are not
+    on 16 bytes, which the wrappers copy."""
     bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
     cases = [  # (b, h, sq, sk, d, causal, dtype, split)
         (GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 128, True, bf, True),
@@ -822,6 +892,18 @@ def phase_attention(dev, errs):
         (1, 4, 200, 200, 16, False, f32, False),
         (1, 4, 300, 100, 128, True, f32, False),
         (1, 2, 129, 257, 128, True, f32, False),
+        # the dense prefill's serving shape, and the float32 kernel's edges:
+        # 64-row tiles, 32- and 64-key tiles, work items of 64-key units
+        (1, 12, 512, 512, 128, True, f32, True),
+        (1, 2, 63, 63, 16, True, f32, False),
+        (1, 2, 64, 64, 32, True, f32, False),
+        (1, 2, 65, 65, 64, True, f32, False),
+        (1, 2, 127, 127, 128, True, f32, True),
+        (1, 2, 129, 129, 128, True, f32, False),
+        (1, 3, 70, 333, 16, True, f32, False),
+        (1, 3, 70, 333, 128, True, f32, False),
+        (1, 3, 333, 70, 16, True, f32, False),
+        (1, 3, 333, 70, 128, True, f32, True),
         (1, 4, 77, 77, 64, True, f64, False),
         (1, 4, 100, 300, 16, True, f64, False),
         (1, 4, 300, 100, 128, True, f64, True),
@@ -1238,6 +1320,11 @@ PAGED_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "deeplearning4j_tpu/zoo/gpt.py:649"
 PAGED_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SERVE_SLOTS, SERVE_BS, SERVE_SEQ, SERVE_REQUESTS = 8, 16, 1024, 32
+F32_SOURCE = "deeplearning4j_tpu_torch/csrc/attention_f32.cu"
+#: the JAX code each float32 kernel stands in for (XLA fused it; no Pallas
+#: kernel): the op the dense prefill calls, the paged prefill's attention
+F32_REPLACES = {"attention_fwd_f32": "deeplearning4j_tpu/ops/nn_ops.py:462",
+                "paged_prefill_f32": "deeplearning4j_tpu/zoo/gpt.py:586"}
 
 
 def check_paged(args, errs, label, controls=True, dense=False):
@@ -1293,13 +1380,118 @@ def check_paged(args, errs, label, controls=True, dense=False):
         raise SystemExit("paged_attention disagrees with its plain version")
 
 
+def check_paged_prefill(args, errs, label, controls=True):
+    """``paged_prefill_attention`` on ``args`` (a prefill case: q, kc, vc,
+    tables [1, MAXB], lane, kmax) against its plain version, per element
+    within 1e-5 (float32) or 1e-12 (float64) of the sum of its absolute
+    terms, called as the server calls it (with the host's kmax) and, in
+    float32, the kernel at two other work splits (items of 64 keys, and
+    one item a tile); float32 launches
+    ``attention_f32``'s kernel and float64 ``paged_attention``; two calls
+    bit-equal; with NaN in the null block, the unused blocks and past the
+    lane's last key, the same bits and finite. ``controls``: the rule must
+    reject the plain version of a mask off by one (t < kmax) and of a
+    table whose first entry is one block off. Prints one line; exits on a
+    failure."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, kc, vc, tables, lane, kmax = args
+    table, kh = tables[0], kmax.cpu().numpy()
+    tol = PAGED_TOL[q.dtype]
+    f32 = q.dtype == torch.float32
+    before = (af.LAUNCHES["paged_prefill_f32"], pa.LAUNCHES["paged_attention"])
+    got = pa.paged_prefill_attention(q, kc, vc, table, kmax, kh)
+    again = pa.paged_prefill_attention(q, kc, vc, table, kmax, kh)
+    routed = (af.LAUNCHES["paged_prefill_f32"] - before[0],
+              pa.LAUNCHES["paged_attention"] - before[1]) == (
+        (2, 0) if f32 else (0, 2))
+    reach = kc.shape[2] * table.shape[0]
+    splits = [measure.paged_prefill_at_chunk(q, kc, vc, table, kmax, ch)
+              for ch in (af.CHUNK_ALIGN, -(-reach // af.CHUNK_ALIGN)
+                         * af.CHUNK_ALIGN)] if f32 else []
+    want = pa.paged_prefill_plain(q, kc, vc, table, kmax)
+    terms = pa.abs_terms(*args)
+    torch.cuda.synchronize()
+    reading = max(measure.paged_reading(x, want, terms, tol)
+                  for x in [got] + splits)
+    name = "paged_prefill_f32" if f32 else "paged_attention"
+    errs[name] = max(errs.get(name, 0.0), float(
+        (got.double() - want.double()).abs().max()))
+    same = torch.equal(got, again)
+    pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+    poisoned = pa.paged_prefill_attention(q, pk, pv, table, kmax, kh)
+    poison_ok = bool(torch.isfinite(poisoned).all()) and torch.equal(
+        poisoned, got)
+    ctl, ctl_ok = "", True
+    if controls:
+        shifted = table.clone()
+        shifted[0] += 1
+        r_mask = measure.paged_reading(pa.paged_prefill_plain(
+            q, kc, vc, table, kmax - 1), got, terms, tol)
+        r_table = measure.paged_reading(pa.paged_prefill_plain(
+            q, kc, vc, shifted, kmax), got, terms, tol)
+        ctl_ok = r_mask > 1 and r_table > 1
+        ctl = (f"; controls (must exceed 1): mask t < kmax {r_mask:.3g}, "
+               f"table entry one block off {r_table:.3g}")
+    ok = reading <= 1 and same and poison_ok and ctl_ok and routed
+    log(f"  {label}: {reading:.3g} of tol, bit-equal twice {same}, NaN "
+        f"poison unchanged {poison_ok}, routed {routed}" + ctl
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("paged_prefill_attention disagrees with its plain "
+                         "version")
+
+
+def check_f32_alignment_copies(dev):
+    """float32 q, k, v whose rows are 65 floats apart, and a prefill q
+    whose heads are 3D + 1 floats apart (not on 16 bytes, as the float32
+    kernels' 16-byte copies need): the wrappers copy each (counted), and
+    the outputs equal those of the same values laid out contiguously."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, k, v, _ = attention_inputs(dev, 1, 2, 129, 129, 64, torch.float32,
+                                  False)
+    wide = [torch.zeros(1, 2, 129, 65, device=dev) for _ in range(3)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., :64] = t
+    af.reset_launches()
+    got = at.attention_fwd(*(w[..., :64] for w in wide), True)
+    dense_copies = af.ALIGN_COPIES["attention_fwd_f32"]
+    want = at.attention_fwd(q, k, v, True)
+    pq, kc, vc, tables, _, kmax = measure.paged_prefill_case(
+        dev, 15, 65, 65, 2, 32, 16, torch.float32)
+    odd = torch.zeros(65, 2, 97, device=dev)
+    odd[..., :32] = pq
+    kh = kmax.cpu().numpy()
+    pgot = pa.paged_prefill_attention(odd[..., :32], kc, vc, tables[0], kmax,
+                                      kh)
+    pwant = pa.paged_prefill_attention(pq.contiguous(), kc, vc, tables[0],
+                                       kmax, kh)
+    torch.cuda.synchronize()
+    copies = (dense_copies, af.ALIGN_COPIES["paged_prefill_f32"])
+    same = all(torch.equal(x, y) for x, y in zip(got, want)) and \
+        torch.equal(pgot, pwant)
+    ok = same and copies == (3, 1)
+    log(f"  float32 rows 65 floats apart (dense) and heads 97 floats apart "
+        f"(prefill q): copies {copies}, outputs equal to the contiguous "
+        f"calls' {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the float32 alignment copies are wrong")
+
+
 def phase_paged_kernels(dev, errs):
     """The paged attention kernel against its plain version: GPT-medium
     decode (8 lanes, 12 heads of 128, blocks of 16, last keys 0..1023),
-    its prefill (512 rows after a 256-token prefix, and cold), block sizes
-    1, 8, 16, 160 and 1024 at head dims 16-128 with last keys 0, at block
-    edges (15, 16, 17) and inside a partly filled last block, in float32
-    and float64."""
+    block sizes 1, 8, 16, 160 and 1024 at head dims 16-128 with last keys
+    0, at block edges (15, 16, 17) and inside a partly filled last block,
+    in float32 and float64. The prefill function: GPT-medium's (512 rows
+    after a 256-token prefix with padded rows, and cold) in float32 (the
+    tensor-core kernel) and float64 (``paged_attention``); then the float32
+    kernel at every hist in (0, 15, 256, 1000), rows in (1, 63, 64, 65,
+    512) and block size in (1, 16, 160, 1024), and at head dims 16-64."""
     from deeplearning4j_tpu_torch.kernels import measure
     ctx = [0, 15, 16, 17, 127, 300, 511, 1023]
     for dt in (torch.float32, torch.float64):
@@ -1308,10 +1500,23 @@ def phase_paged_kernels(dev, errs):
                     errs, f"decode 8x12x128 BS 16 last keys {ctx} {name}",
                     dense=True)
         for hist, rows, length in ((256, 512, 500), (0, 512, 512)):
-            check_paged(measure.paged_prefill_case(
+            check_paged_prefill(measure.paged_prefill_case(
                 dev, hist, rows, length, 12, 128, 16, dt),
                 errs, f"prefill {rows} rows x12x128 BS 16 hist {hist} "
                 f"length {length} {name}")
+    for hist in (0, 15, 256, 1000):
+        for rows in (1, 63, 64, 65, 512):
+            for bs in (1, 16, 160, 1024):
+                check_paged_prefill(measure.paged_prefill_case(
+                    dev, hist, rows, rows, 4, 128, bs, torch.float32,
+                    seed=hist + rows + bs), errs,
+                    f"prefill {rows} rows x4x128 BS {bs} hist {hist} "
+                    f"float32")
+    for d in (16, 32, 64):
+        check_paged_prefill(measure.paged_prefill_case(
+            dev, 15, 65, 60, 3, d, 16, torch.float32, seed=d), errs,
+            f"prefill 65 rows (60 real) x3x{d} BS 16 hist 15 float32")
+    check_f32_alignment_copies(dev)
     for bs in (1, 8, 160, 1024):
         for d in (16, 32, 64, 128):
             for dt in (torch.float32, torch.float64):
@@ -1322,56 +1527,98 @@ def phase_paged_kernels(dev, errs):
                     controls=bs == 8, dense=d == 128)
 
 
-def phase_serving_parity():
-    """GPT_TINY in float64 through PagedGenerativeServer on the card and
-    on the CPU, the same prompts, one with a prefix hit, all queued before
-    the worker starts (so both admit in the same order): the same greedy
-    tokens, and every dispatch's logits within 1e-12 of their magnitude."""
+#: card-vs-CPU serving parity: each dispatch's logits within this share of
+#: their magnitude (float32: the card's 3xTF32 attention and cuBLAS sum in
+#: other orders than the CPU's plain versions, each about 2^-21 a product)
+SERVE_PARITY_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _serve_tiny(kind, dev, dtype, prompts):
+    """GPT_TINY (build_gpt's seed) at ``dtype`` through the ``kind``
+    ("paged" or "dense") server on ``dev``: ``prompts`` queued before the
+    worker starts (so both devices admit in the same order), 16 new tokens
+    each. Returns (tokens, each dispatch's logits on the host, prefix
+    blocks hit, the attention kernels' launches)."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
     from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
     from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_generative_spec,
                                               gpt_paged_spec)
+    sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+    for n, a in sd.trainable_params().items():
+        sd.set_arr_for_var(n, a.to(dtype))
+    if kind == "paged":
+        srv = PagedGenerativeServer(gpt_paged_spec(sd, GPT_TINY),
+                                    max_slots=2, block_size=8, start=False,
+                                    device=dev, debug_leaks=True)
+    else:
+        srv = GenerativeServer(gpt_generative_spec(sd, GPT_TINY),
+                               max_slots=2, start=False, device=dev)
+    logits = []
+    for attr in ("_prefill_disp", "_decode_disp"):
+        real = getattr(srv, attr)
+
+        def recording(*a, _real=real):
+            out = _real(*a)
+            lg = out[3].detach().cpu()
+            if "active" in a[3]:           # a decode: its active lanes
+                lg = lg[np.flatnonzero(a[3]["active"])]
+            logits.append(lg)
+            return out
+        setattr(srv, attr, recording)
+
+    def counts():
+        return {**pa.LAUNCHES, **af.LAUNCHES,
+                "attention_fwd": at.LAUNCHES["attention_fwd"]}
+    before = counts()
+    hs = [srv.submit(p, max_new_tokens=16) for p in prompts]
+    srv.start()
+    toks = [h.result(timeout=300) for h in hs]
+    srv.shutdown()
+    launched = {k: v - before[k] for k, v in counts().items() if v > before[k]}
+    return (toks, logits, srv.metrics.counters.get("prefix_blocks_hit", 0),
+            launched)
+
+
+def phase_serving_parity():
+    """GPT_TINY through the servers on the card and on the CPU (whose
+    attention is the plain PyTorch versions), the same prompts, one with
+    a prefix hit: PagedGenerativeServer in float64 and in float32, and
+    GenerativeServer in float32. The same greedy tokens, and every
+    dispatch's logits within SERVE_PARITY_TOL of their magnitude. The
+    float32 runs hold the float32 attention kernels (the paged and the
+    dense prefill) to code that shares nothing with them."""
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY
     rng = np.random.default_rng(0)
     shared = rng.integers(0, GPT_TINY.vocab_size, 24).astype(np.int32)
     prompts = [shared, np.concatenate([shared, rng.integers(
         0, GPT_TINY.vocab_size, 5)]).astype(np.int32),
         rng.integers(0, GPT_TINY.vocab_size, 9).astype(np.int32)]
-    res = {}
-    for dev in ("cuda", "cpu"):
-        sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
-        for n, a in sd.trainable_params().items():
-            sd.set_arr_for_var(n, a.double())
-        srv = PagedGenerativeServer(gpt_paged_spec(sd, GPT_TINY),
-                                    max_slots=2, block_size=8, start=False,
-                                    device=dev, debug_leaks=True)
-        logits = []
-        for attr in ("_prefill_disp", "_decode_disp"):
-            real = getattr(srv, attr)
-
-            def recording(*a, _real=real):
-                out = _real(*a)
-                lg = out[3].detach().cpu()
-                if "active" in a[3]:           # a decode: its active lanes
-                    lg = lg[np.flatnonzero(a[3]["active"])]
-                logits.append(lg)
-                return out
-            setattr(srv, attr, recording)
-        before = pa.LAUNCHES["paged_attention"]
-        hs = [srv.submit(p, max_new_tokens=16) for p in prompts]
-        srv.start()
-        toks = [h.result(timeout=300) for h in hs]
-        srv.shutdown()
-        res[dev] = (toks, logits, srv.metrics.counters["prefix_blocks_hit"],
-                    pa.LAUNCHES["paged_attention"] - before)
-    (tc, lc, hc, nc), (th, lh, hh, _) = res["cuda"], res["cpu"]
-    worst = max(_tensor_rel(a, b) for a, b in zip(lc, lh)) \
-        if len(lc) == len(lh) else math.inf
-    log(f"  float64 GPT_TINY paged serving, card vs cpu: tokens identical "
-        f"{tc == th}, {len(lc)} dispatches' logits worst {worst:.2e} (tol "
-        f"1e-12), prefix blocks hit {hc}/{hh}, paged_attention launches "
-        f"on the card {nc}")
-    if not (tc == th and worst <= 1e-12 and hc >= 1 and nc > 0):
-        raise SystemExit("paged serving on the card disagrees with the CPU")
+    # (server, dtype, the kernels that must have served it on the card)
+    for kind, dtype, want in (
+            ("paged", torch.float64, ("paged_attention",)),
+            ("paged", torch.float32, ("paged_prefill_f32",
+                                      "paged_attention")),
+            ("dense", torch.float32, ("attention_fwd_f32",
+                                      "paged_attention"))):
+        (tc, lc, hc, nc), (th, lh, hh, _) = (
+            _serve_tiny(kind, dev, dtype, prompts) for dev in ("cuda", "cpu"))
+        tol = SERVE_PARITY_TOL[dtype]
+        worst = max(_tensor_rel(a, b) for a, b in zip(lc, lh)) \
+            if len(lc) == len(lh) else math.inf
+        routed = all(nc.get(k, 0) > 0 for k in want) and \
+            nc.get("attention_fwd", 0) == 0
+        log(f"  {str(dtype)[6:]} GPT_TINY {kind} serving, card vs cpu: "
+            f"tokens identical {tc == th}, {len(lc)} dispatches' logits "
+            f"worst {worst:.2e} (tol {tol:g}), prefix blocks hit {hc}/{hh}, "
+            f"attention launches on the card {nc}")
+        if not (tc == th and worst <= tol and routed
+                and (kind == "dense" or hc >= 1)):
+            raise SystemExit(f"{kind} serving in {dtype} on the card "
+                             f"disagrees with the CPU")
 
 
 def serving_traffic(vocab):
@@ -1454,15 +1701,21 @@ def check_against_greedy(dense_spec, reqs, got, dev):
 
 
 def _record_shapes(pa, shapes):
-    """Wrap ``pa.paged_attention`` to record each call's (N, A, D, BS,
-    MAXB, table rows, dtype); returns the real function."""
-    real = pa.paged_attention
+    """Wrap ``pa.paged_attention`` and ``pa.paged_prefill_attention`` to
+    record each call's (kind, N, A, D, BS, MAXB, table rows, dtype);
+    returns the real functions."""
+    real = pa.paged_attention, pa.paged_prefill_attention
 
-    def recording(q, kc, vc, tables, lane, kmax):
-        shapes.add((*q.shape, kc.shape[2], tables.shape[1], tables.shape[0],
+    def decode(q, kc, vc, tables, lane, kmax):
+        shapes.add(("decode", *q.shape, kc.shape[2], tables.shape[1],
+                    tables.shape[0], str(q.dtype)[6:]))
+        return real[0](q, kc, vc, tables, lane, kmax)
+
+    def prefill(q, kc, vc, table, kmax, kmax_host):
+        shapes.add(("prefill", *q.shape, kc.shape[2], table.shape[0], 1,
                     str(q.dtype)[6:]))
-        return real(q, kc, vc, tables, lane, kmax)
-    pa.paged_attention = recording
+        return real[1](q, kc, vc, table, kmax, kmax_host)
+    pa.paged_attention, pa.paged_prefill_attention = decode, prefill
     return real
 
 
@@ -1474,13 +1727,17 @@ def phase_serving(dev, card):
     (its default pool: 513 blocks, the dense-equivalent floor): the 32
     requests of ``serving_traffic``, temperature 0, submitted at once,
     through ``submit`` / ``result()``. Counts reset just before, read just
-    after: paged_attention must launch 16 times per dispatch. Each
+    after: paged_attention must launch 16 times a decode step and
+    paged_prefill_f32 16 times a prefill, no other attention kernel. Each
     request against greedy_decode; the pool drains clean. Then the dense
     ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of the
-    requests (counts reset and read around it): its prefill launches
-    attention_fwd, its decode paged_attention. Returns (launches of each
-    path, shapes handed to paged_attention, metrics)."""
+    requests (counts reset and read around it; each against
+    greedy_decode): its prefill launches attention_fwd_f32 and its decode
+    paged_attention, 16 times each. Then the decode steps' and the
+    prefills' profiles. Returns (launches of each path, shapes handed to
+    the paged functions, metrics)."""
     from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import GenerativeServer
     from deeplearning4j_tpu_torch.serving.paged import (PagedGenerativeServer,
@@ -1530,6 +1787,7 @@ def phase_serving(dev, card):
         torch.cuda.reset_peak_memory_stats()
         pa.reset_launches()
         at.reset_launches()
+        af.reset_launches()
         t0 = time.perf_counter()
         # every request submitted at once; one the pool sheds (its
         # worst-case blocks do not fit beside the committed load) is
@@ -1555,15 +1813,15 @@ def phase_serving(dev, card):
                 time.sleep(hint)
         got = [h.result(timeout=600) for h in hs]
         wall = time.perf_counter() - t0
-        launches = {"paged_attention": pa.LAUNCHES["paged_attention"],
+        launches = {**pa.LAUNCHES, **af.LAUNCHES,
                     "attention_fwd": at.LAUNCHES["attention_fwd"]}
+        combines = launches.pop("attention_f32_combine")
     finally:
-        pa.paged_attention = real_pa
+        pa.paged_attention, pa.paged_prefill_attention = real_pa
     peak = torch.cuda.max_memory_allocated()
     srv.shutdown()
     rec = srv.metrics.to_record()
     n_tok = sum(len(t) for t in got)
-    n_disp = rec["generative"]["decode_steps"] + rec["generative"]["prefills"]
     ttft = {True: [], False: []}
     for i, h in enumerate(hs):
         ttft[hist_of[h.id] > 0].append(1e3 * (times[i][0] - submit_t[i]))
@@ -1587,12 +1845,20 @@ def phase_serving(dev, card):
         f"{peak / 2**30:.2f} GiB with what earlier phases hold); prefix "
         f"blocks hit "
         f"{rec['paged']['prefix_blocks_hit']}")
-    log(f"  launches {launches} over {n_disp} dispatches; shapes handed to "
-        f"paged_attention {sorted(shapes)}")
-    if launches["paged_attention"] != cfg.num_layers * n_disp:
-        raise SystemExit(f"paged_attention launched "
-                         f"{launches['paged_attention']} times, want "
-                         f"{cfg.num_layers} per dispatch ({n_disp})")
+    n_dec, n_pre = rec["generative"]["decode_steps"], rec["generative"][
+        "prefills"]
+    log(f"  launches {launches} over {n_dec} decode steps and {n_pre} "
+        f"prefills, and {combines} launches of the float32 kernels' "
+        f"combining kernel; shapes handed to the paged functions "
+        f"{sorted(shapes)}")
+    want = {"paged_attention": cfg.num_layers * n_dec,
+            "paged_prefill_f32": cfg.num_layers * n_pre,
+            "attention_fwd_f32": 0, "attention_fwd": 0}
+    if launches != want:
+        raise SystemExit(f"paged serving launched {launches}, want {want}: "
+                         f"{cfg.num_layers} paged_attention a decode step and "
+                         f"{cfg.num_layers} paged_prefill_f32 a prefill")
+    check_combines(combines, launches["paged_prefill_f32"], cfg.num_layers)
     if not ttft[True]:
         raise SystemExit("no request hit the prefix cache")
     st = srv.pool.stats()
@@ -1622,32 +1888,55 @@ def phase_serving(dev, card):
         torch.cuda.synchronize()
         pa.reset_launches()
         at.reset_launches()
+        af.reset_launches()
         sub = reqs[:8]
         t0 = time.perf_counter()
         dgot = [h.result(timeout=600) for h in
                 [dsrv.submit(p, max_new_tokens=n) for p, n in sub]]
         dwall = time.perf_counter() - t0
-        dlaunch = {"paged_attention": pa.LAUNCHES["paged_attention"],
+        dlaunch = {**pa.LAUNCHES, **af.LAUNCHES,
                    "attention_fwd": at.LAUNCHES["attention_fwd"]}
+        dcombines = dlaunch.pop("attention_f32_combine")
         dsrv.shutdown()
     finally:
-        pa.paged_attention = real_pa
+        pa.paged_attention, pa.paged_prefill_attention = real_pa
     drec = dsrv.metrics.to_record()["generative"]
     dn = sum(len(t) for t in dgot)
     log(f"  dense GenerativeServer, 8 of the requests: {dn} tokens in "
         f"{dwall:.3f} s ({dn / dwall:.1f} tokens/s), launches {dlaunch} "
         f"over {drec['prefills']} prefills and {drec['decode_steps']} "
-        f"decode steps; tokens equal the paged server's "
+        f"decode steps, and {dcombines} combining launches; tokens equal the paged server's "
         f"{sum(a == b for a, b in zip(dgot, got))} of 8")
-    if dlaunch["attention_fwd"] != cfg.num_layers * drec["prefills"] or \
-            dlaunch["paged_attention"] != cfg.num_layers * drec[
-                "decode_steps"]:
-        raise SystemExit(f"dense serving launches {dlaunch}")
+    dwant = {"paged_attention": cfg.num_layers * drec["decode_steps"],
+             "paged_prefill_f32": 0,
+             "attention_fwd_f32": cfg.num_layers * drec["prefills"],
+             "attention_fwd": 0}
+    if dlaunch != dwant:
+        raise SystemExit(f"dense serving launches {dlaunch}, want {dwant}")
+    check_combines(dcombines, dlaunch["attention_fwd_f32"], cfg.num_layers)
+    dsame, dties = check_against_greedy(dense_spec, sub, dgot, dev)
+    log(f"  the dense server against greedy_decode on the card: {dsame} of "
+        f"{len(sub)} identical, {len(dties)} near ties {dties}")
+    metrics["prefill_profile"] = profile_prefills(spec, dense_spec, card,
+                                                  cfg.num_layers)
     metrics["profile"] = profile_serving(spec, reqs, card,
                                          float(np.median(step_ms)))
     del srv, dsrv, sd, spec, dense_spec
     torch.cuda.empty_cache()
+    launches["attention_f32_combine"] = combines
+    dlaunch["attention_f32_combine"] = dcombines
     return launches, dlaunch, shapes | dense_shapes, metrics
+
+
+def check_combines(combines, calls, layers):
+    """The combining kernel launches at most once a float32 attention
+    call, and a prefill's layers split their keys alike (each layer's call
+    has the same shapes and kmax), so it launches for all of a prefill's
+    layers or none."""
+    if combines > calls or combines % layers:
+        raise SystemExit(f"{combines} combining launches over {calls} "
+                         f"calls, want at most one a call and {layers} or "
+                         f"0 a prefill")
 
 
 SERVE_GROUPS = ("paged attention", "layer norm", "gelu", "logits")
@@ -1796,41 +2085,125 @@ def profile_serving(spec, reqs, card, step_ms):
             "steps": n_steps}
 
 
+def profile_prefills(spec, dense_spec, card, layers, n=3):
+    """``n`` paged prefills (512 rows after a 256-token cached prefix,
+    blocks of 16, the server's 64-entry table) and ``n`` dense prefills
+    (512 rows) of GPT-medium float32 under torch.profiler, after one of
+    each unprofiled: per prefill, the float32 attention kernels' launches
+    (main and combining) and device time, and all its device time. The
+    wrappers' counts of both kernels must equal the profiler's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.serving.generative import _slab
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    maxb = SERVE_SEQ // SERVE_BS
+    prefill, _, _ = spec.make_fns(SERVE_BS, maxb)
+    nb = 1 + (256 + 512) // SERVE_BS
+    kc, vc = (_slab(spec.kv_shape(nb, SERVE_BS), spec.kv_dtype, dev)
+              for _ in range(2))
+    table = np.zeros(maxb, np.int32)
+    table[:nb - 1] = np.arange(1, nb)
+    dkc, dvc = (_slab(dense_spec.kv_shape(1, SERVE_SEQ), dense_spec.kv_dtype,
+                      dev) for _ in range(2))
+    vocab = spec.params()["wte"].shape[0]
+    tokens = rng.integers(0, vocab, 512).astype(np.int32)
+    params, dparams = spec.params(), dense_spec.params()
+    runs = {
+        "paged_prefill_f32": lambda: prefill(params, kc, vc, {
+            "tokens": tokens, "length": np.int32(512), "hist": np.int32(256),
+            "table": table}),
+        "attention_fwd_f32": lambda: dense_spec.prefill(dparams, dkc, dvc, {
+            "tokens": tokens, "length": np.int32(512), "slot": np.int32(0)})}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            before = dict(af.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            counted = (af.LAUNCHES[name] - before[name],
+                       af.LAUNCHES["attention_f32_combine"]
+                       - before["attention_f32_combine"])
+            main = comb = total = 0.0
+            n_main = n_comb = 0
+            for e in prof.events():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                ms = e.time_range.elapsed_us() / 1e3
+                total += ms
+                if "attn_f32_kernel" in e.name:
+                    main, n_main = main + ms, n_main + 1
+                elif "attn_f32_combine" in e.name:
+                    comb, n_comb = comb + ms, n_comb + 1
+            out[name] = {"in_prefill_ms": (main + comb) / n,
+                         "main_ms": main / n, "combine_ms": comb / n,
+                         "launches": n_main / n, "combines": n_comb / n,
+                         "device_ms": total / n}
+            r = out[name]
+            log(f"  profiler, {n} {'paged' if 'paged' in name else 'dense'} "
+                f"prefills of 512 rows: {name} {r['launches']:.1f} launches "
+                f"and {r['combines']:.1f} combining launches a prefill, "
+                f"{r['in_prefill_ms']:.4f} ms ({r['main_ms']:.4f} + "
+                f"{r['combine_ms']:.4f}) of the prefill's {r['device_ms']:.3f}"
+                f" ms device time; the wrappers counted {counted[0]} and "
+                f"{counted[1]}  [{card}]")
+            if n_main != n * layers:
+                raise SystemExit(f"{name}: {n_main} launches in {n} "
+                                 f"prefills, want {layers} each")
+            if counted != (n_main, n_comb):
+                raise SystemExit(f"{name}: the wrappers counted {counted} "
+                                 f"launches (main, combining), the profiler "
+                                 f"{(n_main, n_comb)}")
+    del kc, vc, dkc, dvc
+    return out
+
+
 def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
-    """Every (N, A, D, BS, MAXB, dtype) the serving run handed
-    paged_attention, checked against its plain version on random data of
-    that shape; then the kernel timed alone (cold L2, the median of 20
-    calls queued behind a device sleep, ``median_ms``) at GPT-medium
-    decode, 8 lanes all at context 128, 512 and 1024, and one prefill
-    (512 rows after a 256-token prefix), with its plain version (which
-    reads its lanes to the host: the median of 3 calls between two
-    synchronizations, ``synced_ms``, host time included), the
-    bound (bytes of K and V up to each lane's last key, q and out, over
-    the card's memory rate; float32 products over its float32 rate) and
-    the library yardstick: one
+    """Every shape the serving run handed the paged functions, checked
+    against its plain version on random data of that shape; then
+    paged_attention timed alone (cold L2, the median of 20 calls queued
+    behind a device sleep, ``median_ms``) at GPT-medium decode, 8 lanes
+    all at context 128, 512 and 1024, with its plain version (which reads
+    its lanes to the host: the median of 3 calls between two
+    synchronizations, ``synced_ms``, host time included), the bound
+    (bytes of K and V up to each lane's last key, q and out, over the
+    card's memory rate) and the library yardstick: one
     ``F.scaled_dot_product_attention(q, K, V, attn_mask)`` over the dense
     slab's contiguous context, masked at each row's last key (timed only;
-    the port never calls it; paged has no one-call counterpart). Then
-    attention_fwd at the dense
-    prefill's float32 serving shape (1, 12, 512, 128), causal."""
+    the port never calls it; paged has no one-call counterpart). Then the
+    two float32 prefill kernels at their serving shapes, the same way: the
+    paged prefill (512 rows after a 256-token prefix, as the server calls
+    it) beside the decode kernel's time there, its plain version and the
+    library over the lane's contiguous context; the dense forward (1, 12,
+    512, 128) causal beside ``attention_fwd``'s scalar float32 kernel,
+    ``attention_fwd_plain`` and ``F.scaled_dot_product_attention(...,
+    is_causal=True)``; each bound at the 3xTF32 rate, the float32 FMA
+    rate's time beside it."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import attention as at
     from deeplearning4j_tpu_torch.kernels import measure
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    for (n, a, d, bs, maxb, s, dt) in sorted(shapes):
+    for (kind, n, a, d, bs, maxb, s, dt) in sorted(shapes):
         dtype = getattr(torch, dt)
         t_len = maxb * bs
-        if s == n:
+        label = (f"path shape {kind} N {n} A {a} D {d} BS {bs} MAXB {maxb} "
+                 f"{dt}")
+        if kind == "decode":
             kmax = np.linspace(0, t_len - 1, n).astype(int).tolist()
-            args = measure.paged_decode_case(dev, kmax, a, d, bs, dtype,
-                                             seed=n)
+            check_paged(measure.paged_decode_case(dev, kmax, a, d, bs, dtype,
+                                                  seed=n), errs, label,
+                        controls=False, dense=True)
         else:
             hist = max(0, min(256, t_len - n) // bs * bs)
-            args = measure.paged_prefill_case(dev, hist, n, n, a, d, bs,
-                                              dtype, seed=n)
-        check_paged(args, errs, f"path shape N {n} A {a} D {d} BS {bs} "
-                    f"MAXB {maxb} {dt}", controls=False, dense=s == n)
-    bw, flops32 = card_rates(card_name)
+            check_paged_prefill(measure.paged_prefill_case(
+                dev, hist, n, n, a, d, bs, dtype, seed=n), errs, label,
+                controls=False)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     out = {}
     L = 16
@@ -1848,73 +2221,98 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
         lib = median_ms(lambda: F.scaled_dot_product_attention(
             ql, dk, dv, attn_mask=mask), flush)
         ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
-        by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / flops32
+        bound = measure.two_rate_bound(ops, nbytes, card_name)
         out[f"decode_{ctx}"] = {
             "per_call_ms": per_call, "plain_per_call_ms": plain_call,
             "library_per_call_ms": lib,
-            "bound_per_call_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            "bound_per_call_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
         log(f"  paged_attention decode 8 lanes x 12 x 128 at context {ctx}: "
             f"{per_call:.4f} ms a call alone, plain {plain_call:.4f}, "
             f"library (dense slab, mask) {lib:.4f}, bound "
-            f"{max(by_bytes, by_ops):.4f} ({out[f'decode_{ctx}']['bound_by']}"
-            f"), {nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode step: "
+            f"{bound['bound_ms']:.4f} ({bound['bound_by']}), "
+            f"{nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode step: "
             f"{L * per_call:.3f} ms  [{card_name}]")
+    log(f"  paged_attention in the decode step (profiler): {in_step_ms:.4f} "
+        f"ms a step ({in_step_ms / L:.4f} a launch)")
+
+    # the paged prefill, as the server calls it (the host's kmax with it)
     args = measure.paged_prefill_case(dev, 256, 512, 512, 12, 128, SERVE_BS,
                                       torch.float32)
     q, kc, vc, tables, lane, kmax = args
-    # the library over the lane's contiguous context, its 768 keys
-    t_ctx = int(kmax.max()) + 1
+    table, kh = tables[0], kmax.cpu().numpy()
+    t_ctx = int(kmax.max()) + 1   # the library over the lane's 768 keys
     dk, dv, _ = measure.paged_dense(kc, vc, tables)
     dk, dv = dk[:, :, :t_ctx].contiguous(), dv[:, :, :t_ctx].contiguous()
     keys = torch.arange(t_ctx, device=dev)
     mask = (keys[None, :] <= kmax[:, None].long())[None, None]
     ql = q.permute(1, 0, 2)[None].contiguous()
-    per_call = median_ms(lambda: pa.paged_attention(*args), flush)
-    plain_call = synced_ms(lambda: pa.paged_attention_plain(*args), flush, 3)
+    new = lambda: pa.paged_prefill_attention(q, kc, vc, table, kmax, kh)
+    per_call = median_ms(new, flush)
+    old_call = median_ms(lambda: pa.paged_attention(*args), flush)
+    plain_call = synced_ms(lambda: pa.paged_prefill_plain(
+        q, kc, vc, table, kmax), flush, 3)
     lib = median_ms(lambda: F.scaled_dot_product_attention(
         ql, dk, dv, attn_mask=mask), flush)
     lib_diff = float((F.scaled_dot_product_attention(
-        ql, dk, dv, attn_mask=mask)[0].transpose(0, 1)
-        - pa.paged_attention(*args)).abs().max())
+        ql, dk, dv, attn_mask=mask)[0].transpose(0, 1) - new()).abs().max())
     ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
-    by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / flops32
-    out["prefill_512_hist_256"] = {
+    bound = measure.two_rate_bound(ops, nbytes, card_name)
+    out["paged_prefill_f32"] = {
         "per_call_ms": per_call, "plain_per_call_ms": plain_call,
-        "library_per_call_ms": lib,
-        "bound_per_call_ms": max(by_bytes, by_ops),
-        "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-    log(f"  paged_attention prefill 512 rows after 256 cached keys: "
-        f"{per_call:.4f} ms a call alone, plain {plain_call:.4f}, library "
-        f"(contiguous {t_ctx}-key context, mask t <= hist + j) {lib:.4f} "
-        f"(kernel / library {per_call / lib:.2f}; outputs differ by at most "
-        f"{lib_diff:.2e}), bound {max(by_bytes, by_ops):.4f} "
-        f"({out['prefill_512_hist_256']['bound_by']}), "
-        f"{ops / per_call / 1e9:.2f} TFLOP/s")
-    log(f"  paged_attention in the decode step (profiler): {in_step_ms:.4f} "
-        f"ms a step ({in_step_ms / L:.4f} a launch)")
-    # attention_fwd at the dense prefill's serving shape, float32
+        "library_per_call_ms": lib, "old_kernel_per_call_ms": old_call,
+        "bound_per_call_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_fma_per_call_ms": bound["fma_ms"]}
+    # paged_attention's own record of this shape, as before
+    out["prefill_512_hist_256"] = {
+        "per_call_ms": old_call, "plain_per_call_ms": plain_call,
+        "library_per_call_ms": lib, "bound_per_call_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"]}
+    log(f"  paged prefill 512 rows after 256 cached keys: paged_prefill_f32 "
+        f"{per_call:.4f} ms a call alone (paged_attention there "
+        f"{old_call:.4f}), plain {plain_call:.4f}, library (contiguous "
+        f"{t_ctx}-key context, mask t <= hist + j) {lib:.4f} (kernel / "
+        f"library {per_call / lib:.3f}; outputs differ by at most "
+        f"{lib_diff:.2e}), bound {bound['bound_ms']:.4f} at 3xTF32 "
+        f"({bound['bound_by']}; {bound['fma_ms']:.4f} at the float32 FMA "
+        f"rate, {bound['bytes_ms']:.4f} bytes), {ops / per_call / 1e9:.2f} "
+        f"TFLOP/s  [{card_name}]")
+
+    # the dense prefill's forward, float32 (1, 12, 512, 128) causal
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn(1, 512, 12, 3 * 128, device=dev,
                       generator=g).permute(0, 2, 1, 3)
     q, k, v = torch.split(qkv, 128, dim=3)
+    o_, st_ = torch.empty(1, 12, 512, 128, device=dev), torch.empty(
+        1, 12, 512, 2, device=dev)
     fwd = median_ms(lambda: at.attention_fwd(q, k, v, True), flush)
+    fwd_old = median_ms(lambda: at._launch(
+        "dl4j_attention_fwd", q, k, v, 1 / math.sqrt(128), True, out=o_,
+        stats=st_), flush)
     fwd_plain = median_ms(lambda: at.attention_fwd_plain(q, k, v, True),
                           flush, 3)
     fwd_lib = median_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), flush)
-    ops = attention_bounds(1, 12, 512, 512, 128, True)["attention_fwd"][0]
-    nbytes = 4 * 12 * 512 * 128 * 4 + 12 * 512 * 2 * 4   # q k v O, stats
-    fb = max(1e3 * nbytes / bw, 1e3 * ops / flops32)
-    out["attention_fwd_serving"] = {
+    ops, nbytes = measure.attention_f32_bounds(1, 12, 512, 512, 128, True)
+    bound = measure.two_rate_bound(ops, nbytes, card_name)
+    out["attention_fwd_f32"] = {
         "per_call_ms": fwd, "plain_per_call_ms": fwd_plain,
-        "library_per_call_ms": fwd_lib, "bound_per_call_ms": fb,
-        "bound_by": "bytes" if 1e3 * nbytes / bw >= 1e3 * ops / flops32
-        else "operations"}
-    log(f"  attention_fwd float32 (1, 12, 512, 128) causal (the dense "
-        f"prefill's): {fwd:.4f} ms a call alone, plain {fwd_plain:.4f}, "
-        f"library {fwd_lib:.4f}, bound {fb:.4f} "
-        f"({out['attention_fwd_serving']['bound_by']})")
+        "library_per_call_ms": fwd_lib, "old_kernel_per_call_ms": fwd_old,
+        "bound_per_call_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_fma_per_call_ms": bound["fma_ms"]}
+    # attention_fwd's scalar float32 path at this shape, as before
+    out["attention_fwd_serving"] = {
+        "per_call_ms": fwd_old, "plain_per_call_ms": fwd_plain,
+        "library_per_call_ms": fwd_lib,
+        "bound_per_call_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    log(f"  dense prefill forward float32 (1, 12, 512, 128) causal: "
+        f"attention_fwd_f32 {fwd:.4f} ms a call alone (attention_fwd's "
+        f"scalar float32 kernel {fwd_old:.4f}), plain {fwd_plain:.4f}, "
+        f"library {fwd_lib:.4f} (kernel / library {fwd / fwd_lib:.3f}), "
+        f"bound {bound['bound_ms']:.4f} at 3xTF32 ({bound['bound_by']}; "
+        f"{bound['fma_ms']:.4f} at the float32 FMA rate, "
+        f"{bound['bytes_ms']:.4f} bytes), {ops / fwd / 1e9:.2f} TFLOP/s  "
+        f"[{card_name}]")
     del flush
     torch.cuda.empty_cache()
     return out
@@ -1933,7 +2331,8 @@ def main():
 
     log("[1/13] env")
     import triton
-    from deeplearning4j_tpu_torch.kernels import (_cuda, attention, bn_relu,
+    from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
+                                                  attention_f32, bn_relu,
                                                   paged_attention)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
@@ -1941,12 +2340,14 @@ def main():
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
-                  ex.submit(paged_attention._lib)]:
+                  ex.submit(paged_attention._lib),
+                  ex.submit(attention_f32._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
-    for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB):
+    for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
+                attention_f32._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -1955,6 +2356,8 @@ def main():
                 log(f"    {line.strip()}")
     log("  the bf16 attention kernels' SASS (cuobjdump -sass) and spills:")
     check_attention_build()
+    log("  the float32 attention kernels' SASS: tf32 mma.sync (HMMA .TF32):")
+    check_attention_f32_build()
 
     log("[2/13] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
@@ -2022,7 +2425,8 @@ def main():
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/13] parity: GPT_TINY float64 paged serving, card vs CPU")
+    log("[11/13] parity: GPT_TINY paged (float64, float32) and dense "
+        "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -2086,6 +2490,28 @@ def main():
         "ms_per": "GPT-medium decode step, 8 lanes at context 512",
         "in_step_ms": paged_in_step, "per_call": paged_timing,
         "dense_server_launches": dense_launches["paged_attention"]})
+    prof = serve["prefill_profile"]
+    for kname, launched in (("attention_fwd_f32", dense_launches),
+                            ("paged_prefill_f32", serve_launches)):
+        t = paged_timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": F32_SOURCE,
+            "replaces": F32_REPLACES[kname], "launches": launched[kname],
+            "launches_per_step": per_step,
+            # the combining kernel's launches in the same run, and a
+            # profiled 512-row prefill's (either entry's combine)
+            "combine_launches": launched["attention_f32_combine"],
+            "combine_launches_per_step": prof[kname]["combines"],
+            "max_abs_err": errs[kname],
+            "ms": per_step * t["per_call_ms"],
+            "plain_ms": per_step * t["plain_per_call_ms"],
+            "bound_ms": per_step * t["bound_per_call_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": per_step * t["library_per_call_ms"],
+            "ms_per": "GPT-medium prefill of 512 rows (16 layers)"
+                      + (" after 256 cached keys" if "paged" in kname
+                         else ""),
+            "in_step_ms": prof[kname]["in_prefill_ms"], "per_call": t})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

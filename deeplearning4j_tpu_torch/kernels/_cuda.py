@@ -22,6 +22,8 @@ import subprocess
 import time
 from typing import Dict, List, Sequence
 
+import torch
+
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(PACKAGE, "_build", "cuda")
@@ -119,3 +121,24 @@ def declare(fn, argtypes: Sequence) -> None:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def rows_aligned(ts) -> bool:
+    """Every row of every tensor starts on 16 bytes: the base and every
+    stride but the last, as the kernels' 16-byte copies (TMA, cp.async)
+    need them."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        (st * t.element_size()) % 16 == 0 for st in t.stride()[:-1])
+        for t in ts)
+
+
+def copy_unaligned(ts, counter: Dict[str, int], key: str) -> list:
+    """The tensors as the kernels read them: each whose rows are not on 16
+    bytes replaced by a contiguous copy, counted in ``counter[key]``."""
+    out = []
+    for t in ts:
+        if not rows_aligned([t]):
+            t = t.clone(memory_format=torch.contiguous_format)
+            counter[key] += 1
+        out.append(t)
+    return out

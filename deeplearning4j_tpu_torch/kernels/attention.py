@@ -30,6 +30,12 @@ in PERF.md. TMA reads only tensors whose base and strides are 16-byte
 multiples: the wrappers copy a bf16 view that is not (counted in
 ``ALIGN_COPIES`` and ``DOUT_COPIES``); build_gpt's views need no copy.
 
+float32 input takes another kernel for the forward: ``attention_f32``'s
+``dl4j_attention_fwd_f32`` (``csrc/attention_f32.cu``, 3xTF32 on the
+tensor cores), which writes the same O and stats; its launches are counted
+in ``attention_f32.LAUNCHES``. float64 keeps this library's scalar forward
+(the card-against-CPU gates), and every dtype this library's backward.
+
 Beside the kernels are their plain PyTorch versions: ``sdpa_plain`` (the
 JAX op's math line by line: what the op computes on the CPU and with an
 explicit mask), ``attention_fwd_plain`` and ``attention_bwd_plain`` (the
@@ -52,7 +58,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels import _cuda
+from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
 
 #: Kernel launches, bumped where each kernel is launched.
 LAUNCHES: Dict[str, int] = {"attention_fwd": 0, "attention_bwd_delta": 0,
@@ -258,12 +264,7 @@ def _check(q, k, v) -> torch.device:
     return dev
 
 
-def _rows_aligned(ts) -> bool:
-    """Every row of every tensor starts on 16 bytes (bf16: 8 elements):
-    the base and the batch, head and row strides, as TMA needs them."""
-    return all(t.data_ptr() % 16 == 0 and all(
-        (st * t.element_size()) % 16 == 0 for st in t.stride()[:3])
-        for t in ts)
+_rows_aligned = _cuda.rows_aligned
 
 
 def _for_tma(ts, counter: Dict[str, int], key: str):
@@ -271,13 +272,7 @@ def _for_tma(ts, counter: Dict[str, int], key: str):
     16 bytes replaced by a contiguous copy, counted in ``counter[key]``."""
     if ts[0].dtype != torch.bfloat16:
         return ts
-    out = []
-    for t in ts:
-        if not _rows_aligned([t]):
-            t = t.clone(memory_format=torch.contiguous_format)
-            counter[key] += 1
-        out.append(t)
-    return out
+    return _cuda.copy_unaligned(ts, counter, key)
 
 
 def _launch(entry: str, q, k, v, scale: float, causal: bool, o=None,
@@ -317,10 +312,14 @@ def attention_fwd(q, k, v, causal: bool = False,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, stats): one launch on the card; the plain version elsewhere. A
     bf16 q, k or v whose rows are not on 16 bytes is copied first (counted
-    in ``ALIGN_COPIES``)."""
+    in ``ALIGN_COPIES``). float32 goes to ``attention_f32``'s kernel
+    (bf16 and float64 to this library's)."""
     dev = _check(q, k, v)
     if dev.type in _PLAIN_DEVICES:
         return attention_fwd_plain(q, k, v, causal, scale)
+    if q.dtype == torch.float32:
+        return attention_f32.attention_fwd_f32(
+            q, k, v, causal, _scale(q.shape[3], scale))
     q, k, v = _for_tma((q, k, v), ALIGN_COPIES, "attention_fwd")
     b, h, sq, d = q.shape
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=dev)

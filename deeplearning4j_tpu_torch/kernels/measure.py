@@ -1,14 +1,15 @@
 """Measuring the port's kernels on the card: device times, the least time
 the card could take, and what the compiler made of a built library.
 
-``chip_smoke.py`` and ``experiments/cuda_attention_study.py`` time and
-inspect the kernels with these, so that both read a kernel the same way.
+``chip_smoke.py`` and the studies under ``experiments/`` time and inspect
+the kernels with these, so that all read a kernel the same way.
 Nothing here runs at import: the functions need a card (``median_ms``) or
 the CUDA toolkit (``sass_kernels``) only when called.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import time
@@ -23,6 +24,9 @@ CARDS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
 #: H100 SXM dense bf16 tensor-core rate (FLOP/s)
 BF16_TC_FLOPS = 989e12
+#: dense TF32 tensor-core rate (FLOP/s) by a word of the card's name, from
+#: NVIDIA's data sheets; a float32-grade product in 3xTF32 takes three
+TF32_TC = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
 #: the device sleep the host queues timed calls behind (cycles; ~50 ms)
 SLEEP_CYCLES = 10**8
 
@@ -33,6 +37,31 @@ def card_rates(name: str) -> Tuple[float, float]:
         if key in name:
             return CARDS[key]
     raise SystemExit(f"no memory/compute rates on record for {name!r}")
+
+
+def tf32x3_rate(name: str) -> float:
+    """FLOP/s of float32-grade products in 3xTF32 on the card named
+    ``name``: its dense TF32 tensor-core rate over 3."""
+    for key in ("PCIe", "NVL", "H100"):
+        if key in name:
+            return TF32_TC[key] / 3
+    raise SystemExit(f"no TF32 rate on record for {name!r}")
+
+
+def two_rate_bound(ops: float, nbytes: float, name: str) -> Dict[str, object]:
+    """The least time (ms) of ``ops`` float32-grade operations on
+    ``nbytes`` bytes on the card named ``name``: the bytes over its memory
+    rate, the operations over its float32 FMA rate and over its 3xTF32
+    rate; the bound is the larger of the bytes' and the 3xTF32 time (the
+    tensor cores compute float32-grade products faster than the FMA
+    units)."""
+    bw, flops32 = card_rates(name)
+    by_bytes = 1e3 * nbytes / bw
+    fma = 1e3 * ops / flops32
+    tc = 1e3 * ops / tf32x3_rate(name)
+    return {"bytes_ms": by_bytes, "fma_ms": fma, "tf32x3_ms": tc,
+            "bound_ms": max(by_bytes, tc),
+            "bound_by": "bytes" if by_bytes >= tc else "operations"}
 
 
 def median_ms(fn: Callable[[], object], flush: torch.Tensor,
@@ -161,6 +190,15 @@ def attention_bounds(b, h, sq, sk, d, causal):
     }
 
 
+def attention_f32_bounds(b, h, sq, sk, d, causal):
+    """(operations, bytes) of one float32 attention forward: the products
+    over the score entries the causal mask leaves (4 D FLOP an entry, QK^T
+    and PV), q, k, v read and O written once at 4 bytes, the stats at 8
+    bytes a row."""
+    ops, _ = attention_bounds(b, h, sq, sk, d, causal)["attention_fwd"]
+    return ops, 4 * b * h * d * (2 * sq + 2 * sk) + 8 * b * h * sq
+
+
 def tensor_map_encode_us(tensors: Sequence[torch.Tensor], rows: int,
                          reps: int = 1000) -> float:
     """Host microseconds to encode one TMA tensor map for each bf16
@@ -286,6 +324,25 @@ def paged_dense(kc, vc, tables):
               for x in (kc, vc))
     return dk, dv, torch.arange(s, dtype=torch.int32,
                                 device=kc.device)[:, None].contiguous()
+
+
+def paged_prefill_at_chunk(q, kc, vc, table, kmax, chunk: int):
+    """The float32 paged prefill kernel called at an explicit work-item
+    size (``chunk`` keys, a multiple of ``attention_f32.CHUNK_ALIGN``):
+    another split of what ``paged_prefill_attention`` computes, for
+    checks. q, kc, vc on the card with rows on 16 bytes; not counted in
+    ``attention_f32.LAUNCHES``."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    n, a, d = q.shape
+    reach = kc.shape[2] * table.shape[0]
+    out = torch.empty((n, a, d), dtype=torch.float32, device=q.device)
+    part = torch.empty(max(af.partial_floats(a, n, reach, chunk, d), 1),
+                       dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        af.launch_prefill(q, kc, vc, table, kmax, out, part,
+                          1.0 / math.sqrt(d), chunk,
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    return out
 
 
 def paged_reading(got, want, terms, tol):

@@ -27,6 +27,14 @@ key positions alone, so paged and dense decode of one context give the
 same bits. The dense slab ``[S, A, max_seq, D]`` is a paged slab with
 ``BS = max_seq`` and ``tables[s] = [s]``.
 
+``paged_prefill_attention`` is the prefill's form, every row in one lane
+over that lane's table: for float32 on the card it launches
+``attention_f32``'s ``dl4j_paged_prefill_f32`` (``csrc/attention_f32.cu``,
+3xTF32 on the tensor cores, the rows of a tile sharing each key tile
+they load), counted in ``attention_f32.LAUNCHES``; float64 takes
+``paged_attention`` with every row in lane 0. Decode keeps
+``paged_attention``, so dense and paged decode still give the same bits.
+
 ``paged_attention_plain`` is the JAX expression step by step: the gather
 by table, scores in float32 (float64 for float64 input), ``where`` with
 -1e30, the softmax, the V rows zeroed under the mask. It runs per lane;
@@ -43,7 +51,7 @@ from typing import Dict
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels import _cuda
+from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
 
 #: Kernel launches, bumped where the kernel is launched.
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
@@ -119,6 +127,13 @@ def paged_attention_plain(q, kc, vc, tables, lane, kmax):
     return out
 
 
+def paged_prefill_plain(q, kc, vc, table, kmax):
+    """The prefill's function: ``paged_attention_plain`` with every row in
+    lane 0 of the one-row table ``table[None]``."""
+    lane = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    return paged_attention_plain(q, kc, vc, table[None], lane, kmax)
+
+
 def abs_terms(q, kc, vc, tables, lane, kmax):
     """Per output element, the sum of the absolute values of the terms that
     make it up, ``sum_t p_t |V[t]|``, in float64: a kernel that sums the
@@ -142,12 +157,14 @@ def _check(q, kc, vc, tables, lane, kmax) -> torch.device:
     if not (q.dtype == kc.dtype == vc.dtype):
         raise ValueError(f"q, kc, vc dtypes differ: {q.dtype}, {kc.dtype}, "
                          f"{vc.dtype}")
-    if tables.dim() != 2 or lane.shape != (n,) or kmax.shape != (n,):
+    if tables.dim() != 2 or kmax.shape != (n,) or (
+            lane is not None and lane.shape != (n,)):
         raise ValueError(f"tables {tuple(tables.shape)} must be [S, MAXB], "
-                         f"lane {tuple(lane.shape)} and kmax "
-                         f"{tuple(kmax.shape)} [N]")
+                         f"lane {None if lane is None else tuple(lane.shape)}"
+                         f" and kmax {tuple(kmax.shape)} [N]")
     dev = q.device
-    if any(t.device != dev for t in (kc, vc, tables, lane, kmax)):
+    if any(t is not None and t.device != dev
+           for t in (kc, vc, tables, lane, kmax)):
         raise ValueError("q, the cache, tables, lane and kmax must be on one "
                          "device")
     if dev.type == "cpu":
@@ -159,7 +176,8 @@ def _check(q, kc, vc, tables, lane, kmax) -> torch.device:
     if d not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS}, got {d}")
     for name, t in (("tables", tables), ("lane", lane), ("kmax", kmax)):
-        if t.dtype != torch.int32 or not t.is_contiguous():
+        if t is not None and (t.dtype != torch.int32
+                              or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32")
     for name, t in (("q", q), ("kc", kc), ("vc", vc)):
         if t.stride(-1) != 1:
@@ -191,3 +209,28 @@ def paged_attention(q, kc, vc, tables, lane, kmax) -> torch.Tensor:
     _cuda.check(err, ENTRY)
     LAUNCHES["paged_attention"] += 1
     return out
+
+
+def paged_prefill_attention(q, kc, vc, table, kmax, kmax_host):
+    """``out [N, A, D]`` (contiguous, q's dtype) of one lane's prefill rows
+    over its block table: float32 on the card, one call of the tensor-core
+    kernel; float64 on the card, ``paged_attention`` with every row in lane
+    0; the plain version on the CPU.
+
+    ``q`` [N, A, D] (any row and head strides), ``kc``/``vc`` one layer's
+    [num_blocks, A, BS, D] cache, ``table`` [MAXB] and ``kmax`` [N] (each
+    row's last key, in any order) int32; ``kmax_host``, the same N last
+    keys on the host, sizes the float32 kernel's work items."""
+    if table.dim() != 1:
+        raise ValueError(f"table {tuple(table.shape)} must be [MAXB]")
+    if len(kmax_host) != q.shape[0]:
+        raise ValueError(f"kmax_host holds {len(kmax_host)} keys, want one "
+                         f"a row ({q.shape[0]})")
+    dev = _check(q, kc, vc, table[None], None, kmax)
+    if dev.type == "cpu":
+        return paged_prefill_plain(q, kc, vc, table, kmax)
+    if q.dtype == torch.float32:
+        return attention_f32.paged_prefill_f32(q, kc, vc, table, kmax,
+                                               kmax_host)
+    return paged_attention(q, kc, vc, table[None], torch.zeros_like(kmax),
+                           kmax)

@@ -331,9 +331,10 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         [num_layers, num_blocks, heads, block_size, head_dim]
 
     Block 0 is the null block, never handed out. Each layer's attention
-    is one ``paged_attention`` launch that reads each row's keys through
-    its table up to its last key, so unused table entries (the null block)
-    and the stale rows of a block are never read.
+    reads each row's keys through its table up to its last key, so unused
+    table entries (the null block) and the stale rows of a block are never
+    read: one ``paged_attention`` launch a decode step, one
+    ``paged_prefill_attention`` call a prefill.
 
     - ``prefill_fn(params, kc, vc, io)``, ``io = {"tokens": [Lb] (the
       bucket-padded prompt suffix after a prefix-cache hit), "length": ()
@@ -374,8 +375,7 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         kmax = hist + np.minimum(j, length - 1)
         tokens, gpos_d, kmax_d, blk, off, table_d = _to_device(
             [io["tokens"], gpos, kmax, table[np.clip(real // BS, 0, MAXB - 1)],
-             np.clip(real, 0, T - 1) % BS, table[None, :]], dev)
-        lanes = torch.zeros(lb, dtype=torch.int32, device=dev)
+             np.clip(real, 0, T - 1) % BS, table], dev)
         x = p["wte"][tokens] + p["wpe"][gpos_d]                 # [Lb, H]
         at = (blk[:, None], torch.arange(A, device=dev)[None, :],
               off[:, None])
@@ -384,7 +384,8 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
             # write the suffix K/V first: its rows attend to themselves
             kc[i].index_put_(at, k[:length])
             vc[i].index_put_(at, v[:length])
-            att = pa.paged_attention(q, kc[i], vc[i], table_d, lanes, kmax_d)
+            att = pa.paged_prefill_attention(q, kc[i], vc[i], table_d,
+                                             kmax_d, kmax)
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x[max(length - 1, 0)][None])[0]
         return kc, vc, logits.argmax().to(torch.int32), logits

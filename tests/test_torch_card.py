@@ -246,16 +246,21 @@ def test_attention_kernels_match_plain_on_card(card, case, dtype):
     float32 allowance of 1e-5 of the largest sum of absolute terms (the
     kernels sum in float32 in another order: a one-key softmax's
     gradient, exactly 0 in the reference, comes out at 1e-7). Two calls
-    are bit-equal; one forward and three backward launches a call."""
+    are bit-equal; one forward and three backward launches a call, the
+    forward float32's from ``attention_f32``."""
     from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
     b, h, sq, sk, d, causal, split = case
     q, k, v, do = _attn_inputs(card, b, h, sq, sk, d, dtype, split=split)
     before = dict(at.LAUNCHES)
+    before_f32 = af.LAUNCHES["attention_fwd_f32"]
     got = _attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
     again = _attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
     torch.cuda.synchronize()
+    f32 = dtype == torch.float32
     assert {n: at.LAUNCHES[n] - before[n] for n in before} == {
-        n: 2 for n in before}
+        n: 0 if f32 and n == "attention_fwd" else 2 for n in before}
+    assert af.LAUNCHES["attention_fwd_f32"] - before_f32 == (2 if f32 else 0)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     if dtype == torch.bfloat16:
         f = [t.float() for t in (q, k, v, do)]
@@ -565,3 +570,91 @@ def test_paged_serving_on_card_matches_cpu_in_float64(card):
                          for p in prompts])
             assert srv.metrics.counters["prefix_hits"] >= 1
     assert toks[0] == toks[1]
+
+
+# ----------------------------------------------------------------------
+# float32 attention on the tensor cores (csrc/attention_f32.cu)
+F32_CASES = [  # (b, h, sq, sk, d, causal, split)
+    (1, 12, 512, 512, 128, True, True),   # the dense prefill's serving shape
+    (1, 2, 63, 63, 16, True, False),      # 64-row tiles, 32/64-key tiles
+    (1, 2, 64, 64, 32, True, False),
+    (1, 2, 65, 65, 64, True, False),
+    (1, 2, 127, 127, 128, True, True),
+    (1, 2, 129, 129, 128, True, False),
+    (1, 3, 70, 333, 128, True, False),    # Sq < Sk
+    (1, 3, 333, 70, 16, True, False),     # Sq > Sk: fully masked rows
+    (2, 2, 96, 96, 32, False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_forward_kernel_matches_plain_and_feeds_the_backward(card, case):
+    """``attention_f32``'s forward: O within 1e-5 of the sum of the
+    absolute terms of ``attention_fwd_plain`` (3xTF32 carries each product
+    to about 2^-21); two calls bit-equal; one launch a call and none of
+    the scalar forward. Its stats feed the float32 backward: O and the
+    grads through ``Attention`` within 1e-5 of the terms of the autograd
+    of ``sdpa_plain``."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    b, h, sq, sk, d, causal, split = case
+    q, k, v, do = _attn_inputs(card, b, h, sq, sk, d, torch.float32,
+                               split=split)
+    before = (af.LAUNCHES["attention_fwd_f32"], at.LAUNCHES["attention_fwd"])
+    o, st = at.attention_fwd(q, k, v, causal)
+    o2, st2 = at.attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (af.LAUNCHES["attention_fwd_f32"] - before[0],
+            at.LAUNCHES["attention_fwd"] - before[1]) == (2, 0)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    terms = at.abs_terms(q, k, v, do, causal)
+    po, _ = at.attention_fwd_plain(q, k, v, causal)
+    assert bool(((o.double() - po.double()).abs()
+                 <= 1e-5 * terms[0] + 1e-300).all())
+    got = _attn_grads(at.scaled_dot_product_attention, q, k, v, do, causal)
+    want = _attn_grads(at.sdpa_plain, q, k, v, do, causal)
+    for x, w, t in zip(got, want, terms):
+        err = (x.double() - w.double()).abs()
+        assert bool((err <= 1e-5 * t + 1e-300).all()), float(
+            (err / t.clamp_min(1e-300)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist,rows,length,bs,d", [
+    (256, 512, 500, 16, 128),      # the serving prefill, padded rows
+    (0, 1, 1, 1024, 128), (15, 65, 65, 1, 16), (1000, 63, 63, 160, 32),
+    (256, 64, 64, 16, 64)])
+def test_paged_prefill_f32_kernel_matches_plain_on_card(card, hist, rows,
+                                                        length, bs, d):
+    """``paged_prefill_attention`` in float32 (``attention_f32``'s kernel)
+    within 1e-5 of the sum of each element's absolute terms of its plain
+    version, as the server calls it and at two other work splits (items
+    of 64 keys, and one item a tile); two calls bit-equal; NaN in the null
+    block, the unused blocks and past the lane's last key changes
+    nothing."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    args = measure.paged_prefill_case(card, hist, rows, length, 4, d, bs,
+                                      torch.float32, seed=hist + bs)
+    q, kc, vc, tables, lane, kmax = args
+    kh = kmax.cpu().numpy()
+    before = af.LAUNCHES["paged_prefill_f32"]
+    got = pa.paged_prefill_attention(q, kc, vc, tables[0], kmax, kh)
+    again = pa.paged_prefill_attention(q, kc, vc, tables[0], kmax, kh)
+    reach = kc.shape[2] * tables.shape[1]
+    splits = [measure.paged_prefill_at_chunk(q, kc, vc, tables[0], kmax, ch)
+              for ch in (af.CHUNK_ALIGN, -(-reach // af.CHUNK_ALIGN)
+                         * af.CHUNK_ALIGN)]
+    pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+    poisoned = pa.paged_prefill_attention(q, pk, pv, tables[0], kmax, kh)
+    want, terms = pa.paged_attention_plain(*args), pa.abs_terms(*args)
+    torch.cuda.synchronize()
+    assert af.LAUNCHES["paged_prefill_f32"] - before == 3
+    assert measure.paged_reading(got, want, terms, 1e-5) <= 1
+    for x in splits:
+        assert measure.paged_reading(x, want, terms, 1e-5) <= 1
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(poisoned).all()) and torch.equal(poisoned,
+                                                                got)
