@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
    head dim 128; the float32 attention kernels' SASS: tf32 mma.sync
-   (HMMA ... TF32) and no other HMMA, at every head dim.
+   (HMMA ... TF32) and no other HMMA, at every head dim; the paged decode
+   cluster kernel's (csrc/paged_attention.cu, float32 and float64, every
+   head dim): ptxas's registers and spills, and in its SASS the bulk copy
+   and the cluster's shared-memory pushes and barrier, by opcode.
 2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
    versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
    three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
@@ -77,11 +80,20 @@ Phases, in order; any failure exits non-zero:
    of a forward call, of its launch alone, and of encoding its three
    tensor maps.
 
-10. kernels: the paged attention kernel (csrc/paged_attention.cu) against
-   its plain version: GPT-medium decode (8 lanes x 12 heads of 128,
-   blocks of 16, last keys 0..1023), block sizes 1-1024 at head dims
-   16-128, last keys 0, at block edges and in a partly filled last block,
-   float32 and float64. The prefill function ``paged_prefill_attention``
+10. kernels: the paged decode cluster kernel (csrc/paged_attention.cu)
+   against its plain versions: ``paged_decode_attention`` (the step's K/V
+   write, then the attention) at GPT-medium decode (8 lanes x 12 heads of
+   128, blocks of 16, last keys 0..1023, one lane inactive) and at block
+   sizes 1, 16 and 1024 x head dims 16-128, float32 and float64: per
+   element within 1e-5 / 1e-12 of the sum of absolute terms, the caches
+   after the write bit-equal to the plain write's, two calls bit-equal,
+   dense = paged bits, NaN in the null block, unused blocks, past each
+   lane's last key and where the step writes changing nothing, and
+   controls that must fail the rule (a write one offset off, one chunk of
+   16 keys dropped); ``paged_attention`` (no write, the same kernel) at
+   GPT-medium decode and block sizes 1-1024 at head dims 16-128, last keys
+   0, at block edges and in a partly filled last block, float32 and
+   float64. The prefill function ``paged_prefill_attention``
    (float32: csrc/attention_f32.cu's kernel; float64: paged_attention):
    GPT-medium's prefill (512 rows after a 256-token prefix, and cold);
    the float32 kernel at hist 0, 15, 256, 1000 x rows 1, 63, 64, 65, 512
@@ -102,26 +114,33 @@ Phases, in order; any failure exits non-zero:
    served through ``gpt_paged_spec`` by ``PagedGenerativeServer(max_slots=8,
    block_size=16, max_seq_len=1024)``: 32 requests (prompts 16-512, a
    256-token shared prefix for 8, 80% of budgets 2-8 and 20% 64-128),
-   temperature 0, through ``submit`` / ``result()``; paged_attention must
-   launch 16 times a decode step and paged_prefill_f32 16 times a prefill
-   (and nothing else of the attention kernels); every request against
+   temperature 0, through ``submit`` / ``result()``; paged_decode_attention
+   must launch 16 times a decode step and paged_prefill_f32 16 times a
+   prefill (and nothing else of the attention kernels); every request
+   against
    ``greedy_decode``
    (a differing token only at a near tie, top-2 margin below 1e-4 of the
    logits' scale); the pool drains clean; tokens/s, TTFT (cold, prefix
    hit), inter-token and decode-step times, peak memory. Then the dense
    ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of them,
    each against ``greedy_decode``: its prefill launches attention_fwd_f32
-   (attention_fwd's scalar kernel 0 times), its decode paged_attention.
-   Then ~20 decode steps under ``torch.profiler``: device launches and
-   busy time a step, the idle share against the same steps' wall time,
-   device time by group; then 3 paged and 3 dense prefills of 512 rows:
+   (attention_fwd's scalar kernel 0 times), its decode
+   paged_decode_attention. Then ~20 decode steps under
+   ``torch.profiler``: device launches and busy time a step, the idle
+   share against the same steps' wall time, device time by group; the
+   paged kernel must launch 16 times a step and no ``index_put_`` kernel
+   (the K/V write is inside it); then 3 paged and 3 dense prefills of 512
+   rows:
    the float32 attention kernels' launches (main and combining, each
    count equal to the wrappers') and device time a prefill.
 13. path shapes: every shape the serving run handed the paged functions,
-   checked against its plain version; paged_attention timed alone at
-   decode (8 lanes at context 128, 512, 1024), with its plain version, its
-   bound and the library's masked ``F.scaled_dot_product_attention`` over
-   the dense slab; the two float32 prefill kernels at their serving shapes
+   checked against its plain version; paged_decode_attention timed alone
+   at decode (8 lanes at context 128, 512, 1024) beside the same kernel
+   with no write, the first paged kernel (``dl4j_paged_attention_v1``,
+   which no wrapper calls) alone and after the two ``index_put_`` a layer
+   it needed, its plain version, its bound and the library's masked
+   ``F.scaled_dot_product_attention`` over the dense slab; the two float32
+   prefill kernels at their serving shapes
    (the paged prefill, 512 rows after 256 cached keys; the dense forward
    (1, 12, 512, 128) causal) beside the kernels they replace, their plain
    versions, the library and their bound at the 3xTF32 and the float32
@@ -130,7 +149,8 @@ Phases, in order; any failure exits non-zero:
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
 the float32 kernels ``combine_launches`` their combining kernel's; the times
-are per training step of that path, per decode step for paged_attention,
+are per training step of that path, per decode step for
+paged_decode_attention,
 per 512-row prefill for the float32 prefill kernels),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
@@ -228,6 +248,54 @@ def check_attention_f32_build():
                 bad.append(tag)
     if bad:
         raise SystemExit(f"float32 attention kernels built wrong: {bad}")
+
+
+#: SASS opcodes of the paged decode cluster kernel's Hopper parts: the
+#: bulk copy of a chunk (cp.async.bulk), the pushes of a block's partial
+#: into rank 0's shared memory (st.async), the cluster barrier's arrive and
+#: wait, and the mbarrier waits
+PAGED_SASS = {"bulk copy": "UBLKCP", "DSMEM push": "STAS",
+              "cluster arrive": "UCGABAR_ARV", "cluster wait": "UCGABAR_WAIT",
+              "mbarrier wait": "SYNCS.PHASECHK"}
+
+
+def check_paged_build():
+    """The paged decode cluster kernel as built, float32 and float64 at
+    every head dim: ptxas's registers and spills, and each of PAGED_SASS's
+    opcodes in its SASS, counted. Prints one line a kernel; exits on a
+    failure."""
+    from deeplearning4j_tpu_torch.kernels import _cuda
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    sass = sass_kernels(_cuda.library_path(pa._LIB))
+    log_ = _cuda.build_log(pa._LIB)
+    spills = ptxas_spills(log_)
+    regs = {}
+    fn = None
+    for line in log_.splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif fn and "registers" in line:
+            regs[fn] = line.split("Used")[1].split(",")[0].strip()
+            fn = None
+    bad = []
+    for t, tc in (("float", "f"), ("double", "d")):
+        for d in (16, 32, 64, 128):
+            tag = f"paged_decode_kernelI{tc}Li{d}E"
+            name = next((n for n in sass if tag in n), None)
+            if name is None:
+                bad.append(f"{tag}: not in the library")
+                continue
+            found = {k: sass[name].count(op) for k, op in PAGED_SASS.items()}
+            ok = all(found.values())
+            log(f"    paged_decode_kernel<{t}, {d}>: {regs.get(name, '?')}, "
+                f"spill stores/loads {spills.get(name, 'not reported')}; "
+                + ", ".join(f"{k} {PAGED_SASS[k]} x{n}"
+                            for k, n in found.items())
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(tag)
+    if bad:
+        raise SystemExit(f"paged decode kernel built wrong: {bad}")
 
 
 # ----------------------------------------------------------------------
@@ -1380,6 +1448,77 @@ def check_paged(args, errs, label, controls=True, dense=False):
         raise SystemExit("paged_attention disagrees with its plain version")
 
 
+def check_paged_decode(args, errs, label, controls=True, dense=False):
+    """``paged_decode_attention`` (the step's K/V write, then attention) on
+    ``args`` (``measure.paged_decode_write_case``'s) against its plain
+    version (``index_put_``, then the attention), each on its own copy of
+    the cache: per element within 1e-5 (float32) or 1e-12 (float64) of the
+    sum of its absolute terms; the caches after the write bit-equal to the
+    plain write's; two calls give the same bits; with NaN in the null
+    block, the unused blocks, past each lane's last key and where the step
+    writes, the same bits and finite; for a ``dense`` case the same
+    contexts as a dense slab, written at (slot, position), give the same
+    bits and the same written slab. ``controls``: the rule must reject the
+    plain version of a write one offset off and the attention with one
+    chunk of 16 keys dropped. Prints one line; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo = args
+    tol = PAGED_TOL[q.dtype]
+
+    def run(fn, kc_, vc_, tables_=tables, wb_=wb, wo_=wo):
+        k2, v2 = kc_.clone(), vc_.clone()
+        return fn(q, k_new, v_new, k2, v2, tables_, lane, kmax, wb_,
+                  wo_), k2, v2
+    before = pa.LAUNCHES["paged_decode_attention"]
+    got, gk, gv = run(pa.paged_decode_attention, kc, vc)
+    again, ak, av = run(pa.paged_decode_attention, kc, vc)
+    launched = pa.LAUNCHES["paged_decode_attention"] - before
+    want, wk, wv = run(pa.paged_decode_plain, kc, vc)
+    terms = pa.abs_terms(q, wk, wv, tables, lane, kmax)
+    torch.cuda.synchronize()
+    reading = measure.paged_reading(got, want, terms, tol)
+    errs["paged_decode_attention"] = max(errs.get(
+        "paged_decode_attention", 0.0), float(
+        (got.double() - want.double()).abs().max()))
+    rows = torch.equal(gk, wk) and torch.equal(gv, wv)
+    same = torch.equal(got, again) and torch.equal(gk, ak) and \
+        torch.equal(gv, av)
+    pk, pv = measure.paged_poisoned(kc, vc, tables, lane, kmax)
+    pk, pv = measure.paged_write_poisoned(pk, pv, wb, wo)
+    poisoned = run(pa.paged_decode_attention, pk, pv)[0]
+    poison_ok = bool(torch.isfinite(poisoned).all()) and torch.equal(
+        poisoned, got)
+    dense_ok = True
+    if dense:
+        dk, dv, dt = measure.paged_dense(kc, vc, tables)
+        slot = torch.where(wb >= 0, dt[:, 0], -1).to(torch.int32)
+        dout, dkk, dvv = run(pa.paged_decode_attention, dk, dv, dt, slot,
+                             kmax)
+        wdk, wdv, _ = measure.paged_dense(gk, gv, tables)
+        dense_ok = torch.equal(dout, got) and torch.equal(dkk, wdk) and \
+            torch.equal(dvv, wdv)
+    ctl, ctl_ok = "", True
+    if controls:
+        off = torch.where(wb >= 0, (wo + 1) % kc.shape[2], wo)
+        r_write = measure.paged_reading(
+            run(pa.paged_decode_plain, kc, vc, wo_=off)[0], got, terms, tol)
+        r_chunk = measure.paged_reading(measure.paged_chunk_dropped(
+            q, wk, wv, tables, lane, kmax, 1), got, terms, tol)
+        ctl_ok = r_write > 1 and r_chunk > 1
+        ctl = (f"; controls (must exceed 1): write one offset off "
+               f"{r_write:.3g}, chunk 1 dropped {r_chunk:.3g}")
+    ok = (reading <= 1 and rows and same and poison_ok and dense_ok
+          and ctl_ok and launched == 2)
+    log(f"  {label}: {reading:.3g} of tol, written cache bit-equal {rows}, "
+        f"bit-equal twice {same}, NaN poison unchanged {poison_ok}"
+        + (f", dense = paged bits {dense_ok}" if dense else "") + ctl
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("paged_decode_attention disagrees with its plain "
+                         "version")
+
+
 def check_paged_prefill(args, errs, label, controls=True):
     """``paged_prefill_attention`` on ``args`` (a prefill case: q, kc, vc,
     tables [1, MAXB], lane, kmax) against its plain version, per element
@@ -1483,7 +1622,11 @@ def check_f32_alignment_copies(dev):
 
 
 def phase_paged_kernels(dev, errs):
-    """The paged attention kernel against its plain version: GPT-medium
+    """``paged_decode_attention`` against its plain version: GPT-medium
+    decode (8 lanes, 12 heads of 128, blocks of 16, last keys 0..1023, one
+    lane inactive) and block sizes 1, 16 and 1024 at head dims 16-128, in
+    float32 and float64. ``paged_attention`` (the same kernel with no
+    write) against its plain version: GPT-medium
     decode (8 lanes, 12 heads of 128, blocks of 16, last keys 0..1023),
     block sizes 1, 8, 16, 160 and 1024 at head dims 16-128 with last keys
     0, at block edges (15, 16, 17) and inside a partly filled last block,
@@ -1494,6 +1637,19 @@ def phase_paged_kernels(dev, errs):
     512) and block size in (1, 16, 160, 1024), and at head dims 16-64."""
     from deeplearning4j_tpu_torch.kernels import measure
     ctx = [0, 15, 16, 17, 127, 300, 511, 1023]
+    for dt in (torch.float32, torch.float64):
+        check_paged_decode(measure.paged_decode_write_case(
+            dev, ctx, 12, 128, 16, dt, active=[True] * 6 + [False, True]),
+            errs, f"decode with the write 8x12x128 BS 16 last keys {ctx} "
+            f"(lane 6 inactive) {str(dt)[6:]}", dense=True)
+        for bs in (1, 16, 1024):
+            for d in (16, 32, 64, 128):
+                check_paged_decode(measure.paged_decode_write_case(
+                    dev, [0, 15, 16, 17, 150, 1023], 3, d, bs, dt,
+                    active=[True, True, False, True, True, True],
+                    seed=bs + d), errs, f"decode with the write BS {bs} "
+                    f"D {d} {str(dt)[6:]}", controls=bs == 16,
+                    dense=d == 128)
     for dt in (torch.float32, torch.float64):
         name = str(dt)[6:]
         check_paged(measure.paged_decode_case(dev, ctx, 12, 128, 16, dt),
@@ -1599,11 +1755,12 @@ def phase_serving_parity():
         rng.integers(0, GPT_TINY.vocab_size, 9).astype(np.int32)]
     # (server, dtype, the kernels that must have served it on the card)
     for kind, dtype, want in (
-            ("paged", torch.float64, ("paged_attention",)),
+            ("paged", torch.float64, ("paged_attention",
+                                      "paged_decode_attention")),
             ("paged", torch.float32, ("paged_prefill_f32",
-                                      "paged_attention")),
+                                      "paged_decode_attention")),
             ("dense", torch.float32, ("attention_fwd_f32",
-                                      "paged_attention"))):
+                                      "paged_decode_attention"))):
         (tc, lc, hc, nc), (th, lh, hh, _) = (
             _serve_tiny(kind, dev, dtype, prompts) for dev in ("cuda", "cpu"))
         tol = SERVE_PARITY_TOL[dtype]
@@ -1700,23 +1857,32 @@ def check_against_greedy(dense_spec, reqs, got, dev):
     return same, ties
 
 
-def _record_shapes(pa, shapes):
-    """Wrap ``pa.paged_attention`` and ``pa.paged_prefill_attention`` to
-    record each call's (kind, N, A, D, BS, MAXB, table rows, dtype);
-    returns the real functions."""
-    real = pa.paged_attention, pa.paged_prefill_attention
+PAGED_FNS = ("paged_decode_attention", "paged_prefill_attention")
 
-    def decode(q, kc, vc, tables, lane, kmax):
+
+def _record_shapes(pa, shapes):
+    """Wrap ``pa``'s paged functions (``PAGED_FNS``) to record each call's
+    (kind, N, A, D, BS, MAXB, table rows, dtype); returns the real
+    functions, to be put back with ``_restore``."""
+    real = [getattr(pa, n) for n in PAGED_FNS]
+
+    def decode(q, k_new, v_new, kc, vc, tables, *rest):
         shapes.add(("decode", *q.shape, kc.shape[2], tables.shape[1],
                     tables.shape[0], str(q.dtype)[6:]))
-        return real[0](q, kc, vc, tables, lane, kmax)
+        return real[0](q, k_new, v_new, kc, vc, tables, *rest)
 
     def prefill(q, kc, vc, table, kmax, kmax_host):
         shapes.add(("prefill", *q.shape, kc.shape[2], table.shape[0], 1,
                     str(q.dtype)[6:]))
         return real[1](q, kc, vc, table, kmax, kmax_host)
-    pa.paged_attention, pa.paged_prefill_attention = decode, prefill
+    for n, f in zip(PAGED_FNS, (decode, prefill)):
+        setattr(pa, n, f)
     return real
+
+
+def _restore(pa, real):
+    for n, f in zip(PAGED_FNS, real):
+        setattr(pa, n, f)
 
 
 def phase_serving(dev, card):
@@ -1727,13 +1893,13 @@ def phase_serving(dev, card):
     (its default pool: 513 blocks, the dense-equivalent floor): the 32
     requests of ``serving_traffic``, temperature 0, submitted at once,
     through ``submit`` / ``result()``. Counts reset just before, read just
-    after: paged_attention must launch 16 times a decode step and
+    after: paged_decode_attention must launch 16 times a decode step and
     paged_prefill_f32 16 times a prefill, no other attention kernel. Each
     request against greedy_decode; the pool drains clean. Then the dense
     ``GenerativeServer`` over ``gpt_generative_spec`` serves 8 of the
     requests (counts reset and read around it; each against
     greedy_decode): its prefill launches attention_fwd_f32 and its decode
-    paged_attention, 16 times each. Then the decode steps' and the
+    paged_decode_attention, 16 times each. Then the decode steps' and the
     prefills' profiles. Returns (launches of each path, shapes handed to
     the paged functions, metrics)."""
     from deeplearning4j_tpu_torch.kernels import attention as at
@@ -1817,7 +1983,7 @@ def phase_serving(dev, card):
                     "attention_fwd": at.LAUNCHES["attention_fwd"]}
         combines = launches.pop("attention_f32_combine")
     finally:
-        pa.paged_attention, pa.paged_prefill_attention = real_pa
+        _restore(pa, real_pa)
     peak = torch.cuda.max_memory_allocated()
     srv.shutdown()
     rec = srv.metrics.to_record()
@@ -1851,13 +2017,15 @@ def phase_serving(dev, card):
         f"prefills, and {combines} launches of the float32 kernels' "
         f"combining kernel; shapes handed to the paged functions "
         f"{sorted(shapes)}")
-    want = {"paged_attention": cfg.num_layers * n_dec,
+    want = {"paged_decode_attention": cfg.num_layers * n_dec,
+            "paged_attention": 0,
             "paged_prefill_f32": cfg.num_layers * n_pre,
             "attention_fwd_f32": 0, "attention_fwd": 0}
     if launches != want:
         raise SystemExit(f"paged serving launched {launches}, want {want}: "
-                         f"{cfg.num_layers} paged_attention a decode step and "
-                         f"{cfg.num_layers} paged_prefill_f32 a prefill")
+                         f"{cfg.num_layers} paged_decode_attention a decode "
+                         f"step and {cfg.num_layers} paged_prefill_f32 a "
+                         f"prefill")
     check_combines(combines, launches["paged_prefill_f32"], cfg.num_layers)
     if not ttft[True]:
         raise SystemExit("no request hit the prefix cache")
@@ -1899,7 +2067,7 @@ def phase_serving(dev, card):
         dcombines = dlaunch.pop("attention_f32_combine")
         dsrv.shutdown()
     finally:
-        pa.paged_attention, pa.paged_prefill_attention = real_pa
+        _restore(pa, real_pa)
     drec = dsrv.metrics.to_record()["generative"]
     dn = sum(len(t) for t in dgot)
     log(f"  dense GenerativeServer, 8 of the requests: {dn} tokens in "
@@ -1907,8 +2075,8 @@ def phase_serving(dev, card):
         f"over {drec['prefills']} prefills and {drec['decode_steps']} "
         f"decode steps, and {dcombines} combining launches; tokens equal the paged server's "
         f"{sum(a == b for a, b in zip(dgot, got))} of 8")
-    dwant = {"paged_attention": cfg.num_layers * drec["decode_steps"],
-             "paged_prefill_f32": 0,
+    dwant = {"paged_decode_attention": cfg.num_layers * drec["decode_steps"],
+             "paged_attention": 0, "paged_prefill_f32": 0,
              "attention_fwd_f32": cfg.num_layers * drec["prefills"],
              "attention_fwd": 0}
     if dlaunch != dwant:
@@ -1920,7 +2088,8 @@ def phase_serving(dev, card):
     metrics["prefill_profile"] = profile_prefills(spec, dense_spec, card,
                                                   cfg.num_layers)
     metrics["profile"] = profile_serving(spec, reqs, card,
-                                         float(np.median(step_ms)))
+                                         float(np.median(step_ms)),
+                                         cfg.num_layers)
     del srv, dsrv, sd, spec, dense_spec
     torch.cuda.empty_cache()
     launches["attention_f32_combine"] = combines
@@ -1942,7 +2111,7 @@ def check_combines(combines, calls, layers):
 SERVE_GROUPS = ("paged attention", "layer norm", "gelu", "logits")
 
 
-def profile_serving(spec, reqs, card, step_ms):
+def profile_serving(spec, reqs, card, step_ms, layers):
     """About 20 decode steps of 8 lanes under torch.profiler: 8 of the
     requests with 21 new tokens each, through a fresh server. Each
     dispatch and the kernels' wrapper, layer norm, gelu and the logits
@@ -1950,7 +2119,8 @@ def profile_serving(spec, reqs, card, step_ms):
     group (matmul, layer norm, paged attention, KV write, gelu, adds,
     logits/argmax, ...), device launches per decode step, and the idle
     share against the wall time of the same steps (CUDA events around
-    each step)."""
+    each step). The paged kernel must launch ``layers`` times a step and
+    no ``index_put_`` kernel (the KV write group) at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -1965,7 +2135,7 @@ def profile_serving(spec, reqs, card, step_ms):
                 return fn(*a, **kw)
         return run
 
-    saved = [(pa, "paged_attention"), (nn_ops, "layer_norm"),
+    saved = [(pa, "paged_decode_attention"), (nn_ops, "layer_norm"),
              (elementwise, "gelu"), (gpt._DecodeMath, "logits")]
     saved = [(m, n, getattr(m, n)) for m, n in saved]
     for (m, n, f), label in zip(saved, SERVE_GROUPS):
@@ -1984,6 +2154,7 @@ def profile_serving(spec, reqs, card, step_ms):
         srv._admit(slot)
         torch.cuda.synchronize()
         marks = []
+        launched = pa.LAUNCHES["paged_decode_attention"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             while not all(h.future.done() for h in hs):
@@ -1994,6 +2165,7 @@ def profile_serving(spec, reqs, card, step_ms):
                 e1.record()
                 marks.append((e0, e1))
             torch.cuda.synchronize()
+        launched = pa.LAUNCHES["paged_decode_attention"] - launched
         srv.shutdown()
     finally:
         for m, n, f in saved:
@@ -2016,7 +2188,7 @@ def profile_serving(spec, reqs, card, step_ms):
         our libraries link statically has no launching op on record, and
         goes by its name."""
         if cpu is None:
-            return "paged attention" if "paged_attention_kernel" in name \
+            return "paged attention" if "paged_decode_kernel" in name \
                 else "unlinked"
         names = chain(cpu)
         label = next((n[len("serve::"):] for n in names
@@ -2037,10 +2209,12 @@ def profile_serving(spec, reqs, card, step_ms):
 
     events = prof.events()
     by_group, per_kernel, linked, n_kernels = {}, {}, {}, 0
+    n_by_group = {}
 
     def add(g, name, ms, n):
         by_group[g] = by_group.get(g, 0.0) + ms
         per_kernel[name] = per_kernel.get(name, 0.0) + ms
+        n_by_group[g] = n_by_group.get(g, 0) + n
         return n
 
     for e in events:                 # kernels with their launching op
@@ -2076,13 +2250,28 @@ def profile_serving(spec, reqs, card, step_ms):
         f"run's median wall step, another run at fewer lanes, "
         f"{step_ms:.2f} ms  [{card}]")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        log(f"    {ms:8.4f} ms  {ms / busy:.3f} of device time  {g}")
+        log(f"    {ms:8.4f} ms  {ms / busy:.3f} of device time  "
+            f"{n_by_group[g] / n_steps:.1f} launches a step  {g}")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.4f} ms  {key[:100]}")
+    attn, put = (n_by_group.get(g, 0) / n_steps
+                 for g in ("paged attention", "KV write"))
+    attn_ms = by_group["paged attention"] + by_group.get("KV write", 0.0)
+    log(f"  paged attention and the KV write: {attn_ms:.4f} ms of device "
+        f"time a decode step; {launched / n_steps:.1f} paged kernel "
+        f"launches a step counted by the wrapper ({attn:.1f} in the trace) "
+        f"and {put:.1f} index_put_ kernels in the trace (want {layers} and "
+        f"0)  [{card}]")
+    if launched != layers * n_steps or put != 0:
+        raise SystemExit(f"{n_steps} decode steps launched {launched} paged "
+                         f"kernels and {put} index_put_ kernels a step, want "
+                         f"{layers} a step and 0")
     return {"busy_ms": busy, "step_ms": prof_step_ms,
             "idle_share": 1 - busy / prof_step_ms,
             "launches": n_kernels / n_steps, "by_group_ms": by_group,
-            "steps": n_steps}
+            "launches_by_group": {g: n / n_steps
+                                  for g, n in n_by_group.items()},
+            "attention_and_write_ms": attn_ms, "steps": n_steps}
 
 
 def profile_prefills(spec, dense_spec, card, layers, n=3):
@@ -2121,26 +2310,34 @@ def profile_prefills(spec, dense_spec, card, layers, n=3):
         for name, fn in runs.items():
             fn()
             torch.cuda.synchronize()
-            before = dict(af.LAUNCHES)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-            counted = (af.LAUNCHES[name] - before[name],
-                       af.LAUNCHES["attention_f32_combine"]
-                       - before["attention_f32_combine"])
-            main = comb = total = 0.0
-            n_main = n_comb = 0
-            for e in prof.events():
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                ms = e.time_range.elapsed_us() / 1e3
-                total += ms
-                if "attn_f32_kernel" in e.name:
-                    main, n_main = main + ms, n_main + 1
-                elif "attn_f32_combine" in e.name:
-                    comb, n_comb = comb + ms, n_comb + 1
+            # a pass whose trace holds fewer launches than the wrappers
+            # counted (the tracer can drop a window's first kernels) is
+            # taken once more; the checks below hold the second
+            for attempt in range(2):
+                before = dict(af.LAUNCHES)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                counted = (af.LAUNCHES[name] - before[name],
+                           af.LAUNCHES["attention_f32_combine"]
+                           - before["attention_f32_combine"])
+                main = comb = total = 0.0
+                n_main = n_comb = 0
+                for e in prof.events():
+                    if e.device_type != DeviceType.CUDA:
+                        continue
+                    ms = e.time_range.elapsed_us() / 1e3
+                    total += ms
+                    if "attn_f32_kernel" in e.name:
+                        main, n_main = main + ms, n_main + 1
+                    elif "attn_f32_combine" in e.name:
+                        comb, n_comb = comb + ms, n_comb + 1
+                if counted == (n_main, n_comb) or attempt:
+                    break
+                log(f"  profiler, {name}: the trace holds {(n_main, n_comb)} "
+                    f"launches, the wrappers counted {counted}: taken again")
             out[name] = {"in_prefill_ms": (main + comb) / n,
                          "main_ms": main / n, "combine_ms": comb / n,
                          "launches": n_main / n, "combines": n_comb / n,
@@ -2167,13 +2364,18 @@ def profile_prefills(spec, dense_spec, card, layers, n=3):
 def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
     """Every shape the serving run handed the paged functions, checked
     against its plain version on random data of that shape; then
-    paged_attention timed alone (cold L2, the median of 20 calls queued
-    behind a device sleep, ``median_ms``) at GPT-medium decode, 8 lanes
-    all at context 128, 512 and 1024, with its plain version (which reads
+    paged_decode_attention timed alone (cold L2, the median of 20 calls
+    queued behind a device sleep, ``median_ms``) at GPT-medium decode, 8
+    lanes all at context 128, 512 and 1024, each writing its step's row
+    (the cache holds those rows already: the write is idempotent), beside
+    the same kernel with no write (``paged_attention``), the first paged
+    kernel (``dl4j_paged_attention_v1``) alone and after the two
+    ``index_put_`` of the layer it served, the plain version (which reads
     its lanes to the host: the median of 3 calls between two
     synchronizations, ``synced_ms``, host time included), the bound
-    (bytes of K and V up to each lane's last key, q and out, over the
-    card's memory rate) and the library yardstick: one
+    (bytes of K and V up to each lane's last key, q and out, and the new
+    rows read and written, over the card's memory rate) and the library
+    yardstick: one
     ``F.scaled_dot_product_attention(q, K, V, attn_mask)`` over the dense
     slab's contiguous context, masked at each row's last key (timed only;
     the port never calls it; paged has no one-call counterpart). Then the
@@ -2196,9 +2398,9 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
                  f"{dt}")
         if kind == "decode":
             kmax = np.linspace(0, t_len - 1, n).astype(int).tolist()
-            check_paged(measure.paged_decode_case(dev, kmax, a, d, bs, dtype,
-                                                  seed=n), errs, label,
-                        controls=False, dense=True)
+            check_paged_decode(measure.paged_decode_write_case(
+                dev, kmax, a, d, bs, dtype, seed=n), errs, label,
+                controls=False, dense=True)
         else:
             hist = max(0, min(256, t_len - n) // bs * bs)
             check_paged_prefill(measure.paged_prefill_case(
@@ -2208,33 +2410,49 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
     out = {}
     L = 16
     for ctx in (128, 512, 1024):
-        args = measure.paged_decode_case(dev, [ctx - 1] * SERVE_SLOTS, 12,
-                                         128, SERVE_BS, torch.float32)
-        q, kc, vc, tables, lane, kmax = args
+        case = measure.paged_decode_write_case(
+            dev, [ctx - 1] * SERVE_SLOTS, 12, 128, SERVE_BS, torch.float32)
+        q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo = case
+        args = (q, kc, vc, tables, lane, kmax)
+        pa.paged_decode_plain(*case)         # the step's rows in place
         dk, dv, dt = measure.paged_dense(kc, vc, tables)
         keys = torch.arange(dk.shape[2], device=dev)
         mask = (keys[None, :] <= kmax[:, None].long())[:, None, None, :]
         ql = q.contiguous()[:, :, None, :]
-        per_call = median_ms(lambda: pa.paged_attention(*args), flush)
-        plain_call = synced_ms(lambda: pa.paged_attention_plain(*args),
-                               flush, 3)
+        at_ = (wb.long()[:, None], torch.arange(12, device=dev)[None, :],
+               wo.long()[:, None])
+
+        def v1_layer():
+            kc.index_put_(at_, k_new)
+            vc.index_put_(at_, v_new)
+            return measure.paged_attention_v1(*args)
+        per_call = median_ms(lambda: pa.paged_decode_attention(*case), flush)
+        no_write = median_ms(lambda: pa.paged_attention(*args), flush)
+        v1 = median_ms(lambda: measure.paged_attention_v1(*args), flush)
+        v1_write = median_ms(v1_layer, flush)
+        plain_call = synced_ms(lambda: pa.paged_decode_plain(*case), flush,
+                               3)
         lib = median_ms(lambda: F.scaled_dot_product_attention(
             ql, dk, dv, attn_mask=mask), flush)
-        ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax)
+        ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax,
+                                           writes=int((wb >= 0).sum()))
         bound = measure.two_rate_bound(ops, nbytes, card_name)
         out[f"decode_{ctx}"] = {
             "per_call_ms": per_call, "plain_per_call_ms": plain_call,
             "library_per_call_ms": lib,
             "bound_per_call_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"]}
-        log(f"  paged_attention decode 8 lanes x 12 x 128 at context {ctx}: "
-            f"{per_call:.4f} ms a call alone, plain {plain_call:.4f}, "
-            f"library (dense slab, mask) {lib:.4f}, bound "
-            f"{bound['bound_ms']:.4f} ({bound['bound_by']}), "
-            f"{nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode step: "
-            f"{L * per_call:.3f} ms  [{card_name}]")
-    log(f"  paged_attention in the decode step (profiler): {in_step_ms:.4f} "
-        f"ms a step ({in_step_ms / L:.4f} a launch)")
+            "bound_by": bound["bound_by"], "no_write_per_call_ms": no_write,
+            "v1_per_call_ms": v1, "v1_with_index_put_ms": v1_write}
+        log(f"  paged_decode_attention decode 8 lanes x 12 x 128 at context "
+            f"{ctx}: {per_call:.4f} ms a call alone ({no_write:.4f} with no "
+            f"write), first kernel {v1:.4f} ({v1_write:.4f} after its two "
+            f"index_put_), plain {plain_call:.4f}, library (dense slab, "
+            f"mask) {lib:.4f}, bound {bound['bound_ms']:.4f} "
+            f"({bound['bound_by']}; {bound['bound_ms'] / per_call:.2f} of "
+            f"it), {nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode "
+            f"step: {L * per_call:.3f} ms  [{card_name}]")
+    log(f"  paged_decode_attention in the decode step (profiler): "
+        f"{in_step_ms:.4f} ms a step ({in_step_ms / L:.4f} a launch)")
 
     # the paged prefill, as the server calls it (the host's kmax with it)
     args = measure.paged_prefill_case(dev, 256, 512, 512, 12, 128, SERVE_BS,
@@ -2358,6 +2576,9 @@ def main():
     check_attention_build()
     log("  the float32 attention kernels' SASS: tf32 mma.sync (HMMA .TF32):")
     check_attention_f32_build()
+    log("  the paged decode cluster kernel: registers, spills, and its bulk "
+        "copies, DSMEM pushes, cluster barrier and mbarrier waits in SASS:")
+    check_paged_build()
 
     log("[2/13] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
@@ -2477,11 +2698,12 @@ def main():
     per_step = 16
     at512 = paged_timing["decode_512"]
     kernels.append({
-        "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
-        "replaces": PAGED_REPLACES,
-        "launches": serve_launches["paged_attention"],
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
+        "launches": serve_launches["paged_decode_attention"],
         "launches_per_step": per_step,
-        "max_abs_err": errs["paged_attention"],
+        "max_abs_err": errs["paged_decode_attention"],
+        "no_write_max_abs_err": errs["paged_attention"],
         "ms": per_step * at512["per_call_ms"],
         "plain_ms": per_step * at512["plain_per_call_ms"],
         "bound_ms": per_step * at512["bound_per_call_ms"],
@@ -2489,7 +2711,7 @@ def main():
         "library_ms": per_step * at512["library_per_call_ms"],
         "ms_per": "GPT-medium decode step, 8 lanes at context 512",
         "in_step_ms": paged_in_step, "per_call": paged_timing,
-        "dense_server_launches": dense_launches["paged_attention"]})
+        "dense_server_launches": dense_launches["paged_decode_attention"]})
     prof = serve["prefill_profile"]
     for kname, launched in (("attention_fwd_f32", dense_launches),
                             ("paged_prefill_f32", serve_launches)):

@@ -1,57 +1,89 @@
 // Attention of query rows over a KV cache held in blocks that a table
-// addresses: the decode and cached prefill attention of the generative
-// serving tier.
+// addresses, and the decode step's K/V write: the decode attention of the
+// generative serving tier, one launch a layer.
 //
-// Replaces the JAX package's paged decode attention
-// (deeplearning4j_tpu/zoo/gpt.py gpt_paged_decode_fns: decode_fn :649,
-// gather :675-680, mask and softmax :681-685, masked V rows zeroed
-// :686-688), its paged prefill's attention over the table (:586, :621-636)
-// and the dense decode's attention over its slot rows (gpt_decode_fns
-// decode_fn :354, :383-394). There each is a gather of the lane's whole
-// table into a [T, D] context per layer, scores over all T keys, a mask to
-// the lane's position and a where() that zeroes masked V rows so a stale
-// or NaN block cannot leak. XLA fused it on the TPU; no Pallas kernel
-// stands behind it.
+// Replaces the JAX package's paged decode (deeplearning4j_tpu/zoo/gpt.py
+// gpt_paged_decode_fns.decode_fn :649: the scatter of the step's K/V at
+// :668-674, then the gather, mask, softmax and masked V rows zeroed at
+// :675-689) and the dense decode (gpt_decode_fns.decode_fn :354: the
+// masked per-slot write at :375-382, then attention over the slab at
+// :383-394). There each is a write of the step's K and V rows, a gather of
+// the lane's whole table into a [T, D] context per layer, scores over all T
+// keys, a mask to the lane's position and a where() that zeroes masked V
+// rows so a stale or NaN block cannot leak. XLA fused it on the TPU; no
+// Pallas kernel stands behind it.
 //
 // What it computes, for query row r of lane s = lane[r], head a, last key
-// kmax[r]:
+// kmax[r] (clamped at MAXB * BS - 1):
+//   kc[write_block[r], a, write_off[r]] = k_new[r, a]  (and V), if
+//                                         write_block[r] >= 0
 //   out[r, a] = sum_{t <= kmax[r]} softmax_t(scale * q[r, a] . K[t]) V[t]
 //   K[t] = kc[tables[s, t / BS], a, t % BS], and likewise V.
-// It reads only keys t <= kmax[r], so it never loads a block past a row's
-// last key: stale and null blocks (even NaN) cannot reach a sum. The dense
-// slab [S, A, max_seq, D] is a paged slab with BS = max_seq and
-// tables[s] = [s].
+// The caller keeps the contract that a row's write lands where its key
+// kmax[r] lies through its table, and that no other row reads that key: so
+// the block that owns key kmax[r] takes k_new and v_new as its K and V (the
+// bits the write stores) and stores them; no block reads them back. With no
+// write pointers (dl4j_paged_decode_attention's k_new == nullptr) it is the
+// attention alone. It reads only keys t <= kmax[r], so it never loads a
+// block past a row's last key: stale and null blocks (even NaN) cannot reach
+// a sum. The dense slab [S, A, max_seq, D] is a paged slab with BS = max_seq
+// and tables[s] = [s].
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
-// of D values once and does 4 D FLOP per key, so it is bound by bytes
-// (8 lanes x 12 heads x ~300 keys x 128 x 4 B x 2 = 29 MB a layer, ~9 us at
-// 3.35 TB/s). At prefill the rows of one lane share their keys, and the
-// float32 products (not the tensor cores) bound it.
+// of D values once and does 4 D FLOP per key, far below the card's ridge:
+// bytes bound it (8 lanes x 12 heads x 512 keys x 128 x 4 B x 2 = 50 MB a
+// layer at context 512, 0.0151 ms at 3.35 TB/s).
 //
-// Design (a simple one; its times are in PERF.md): one block of 256
-// threads per (row, head). Eight lanes share one key: each holds D / 8
-// elements of q, K, V and of the output sum, at d = e * 8 + lane % 8, so
-// the eight lanes read 32 contiguous bytes of a row per load. A warp holds
-// four such groups, a block 32: stream sid = warp * 4 + group takes keys
-// t = sid, sid + 32, ... with an online softmax (running maximum, sum and
-// weighted V in registers). Which stream takes key t, and the order of
-// every sum, depend on t alone, never on BS or the table: paged and dense
-// decode of one context give the same bits, and two calls give the same
-// bits (no atomics). At the end the 32 streams are combined in shared
-// memory, in stream order. Scores and softmax are in the input's type:
-// float32, or float64 for float64 input.
-//
-// At decode (8 lanes x 12 heads) the grid is 96 blocks on 132 SMs, and a
-// block's 32 streams each walk their keys one after another: splitting the
-// key range over blocks (flash-decoding) is later work, and so is fusing
-// the K/V write of the step into this kernel (it is a PyTorch indexing op
-// before the launch).
+// Design: one cluster of 8 blocks of 128 threads a (row, head). What held
+// the first kernel (dl4j_paged_attention_v1 below) back, and what this one
+// does about it:
+// 1. Too few blocks (one a (row, head): 96 on 132 SMs at decode). Here a
+//    row's keys are cut into chunks of 16 positions and cluster rank j takes
+//    chunks j, j + 8, j + 16, ...: 768 blocks at decode, all resident at
+//    once (about six an SM), so every SM keeps copies in flight.
+// 2. Serialised loads (a table entry, then the row, then the math, key by
+//    key). Here a block reads the table entries of its chunks first (one
+//    load a lane of warp 0 for 32 chunks, issued beside the row's lane and
+//    last key), then issues the copy of a chunk into a ring of kRing
+//    shared-memory slots before any math, refilling a slot as soon as its
+//    chunk is consumed. The ring holds one slot: the copies in flight come
+//    from the many resident blocks, and a deeper ring fits fewer of them.
+// 3. Narrow loads (4-byte scalars). Where BS % 16 == 0 (blocks of 16, and
+//    the dense slab) a chunk's 16 rows of one head are one contiguous run
+//    (8 KiB in float32 at D = 128), fetched by one cp.async.bulk for K and
+//    one for V, completing on the slot's mbarrier; other block sizes take
+//    16-byte cp.async per row into the same layout (completing on the same
+//    mbarrier through cp.async.mbarrier.arrive). Both read with an L2
+//    evict-first policy: rows read once give up their L2 lines first.
+// In a block, a warp's lanes hold 16-byte slices of q (a key's dot product
+// is a shuffle butterfly over the lanes that share it) and streams of keys
+// run an online softmax, chunk by chunk, in the input's type (float32, or
+// float64 for float64). Each rank but 0 pushes its block's (m, l, acc[D])
+// into rank 0's shared memory over distributed shared memory (st.async,
+// completing as bytes on an mbarrier of rank 0's, initialised before one
+// relaxed cluster barrier that no block waits on until it pushes); rank 0
+// waits on that mbarrier alone, combines the 8 partials in rank order and
+// writes out. No block reads another's shared memory, so none has to stay
+// alive for another (no trailing cluster barrier). Which block and
+// stream take key t, and the order of every sum, depend on t alone, never
+// on BS or the table: paged and dense decode of one context give the same
+// bits, and two calls give the same bits. No atomics, no global workspace,
+// one launch, no host sync and no allocation.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <mutex>
+#include <set>
+
+// The first kernel (dl4j_paged_attention_v1): one block of 256 threads per
+// (row, head); eight lanes share a key, 32 streams of keys t = sid, sid +
+// 32, ... with an online softmax each, combined in stream order in shared
+// memory. No wrapper reaches it; chip_smoke.py times it beside the cluster
+// kernel.
+namespace v1 {
 
 constexpr int kWarps = 8;
 constexpr int kGroup = 8;                       // lanes that share a key
@@ -199,13 +231,554 @@ int launch_d(int64_t D, const void* q, const void* kc, const void* vc,
   return 0;
 }
 
-}  // namespace
+}  // namespace v1
+
+
+namespace dec {
+
+namespace cg = cooperative_groups;
+
+constexpr int kChunk = 16;                  // key positions a chunk
+constexpr int kRanks = 8;                   // blocks a cluster
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// Slots of a block's ring of chunks (K and V, 16 KiB a slot in float32 at
+// D = 128). One: a deeper ring keeps more of a block's copies in flight
+// but fits fewer blocks an SM, and measured slower at every decode context
+// (PERF.md; experiments/paged_decode_study.py builds deeper rings).
+constexpr int kRing = 1;
+constexpr int kSmemCap = 200 * 1024;        // the ring's shared memory at most
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+
+// How a block's threads share a chunk, for element type T and head dim D.
+template <typename T, int D>
+struct Layout {
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));  // a slice
+  static constexpr int NS = D / E;                 // slices a row
+  static constexpr int G = NS < 32 ? NS : 32;      // lanes that share a key
+  static constexpr int SL = NS / G;                // slices a lane
+  static constexpr int GPW = 32 / G;               // keys a warp at once
+  static constexpr int kStreams = kWarps * GPW < kChunk ? kWarps * GPW : kChunk;
+  static constexpr int KPS = kChunk / kStreams;    // keys a stream a chunk
+  static constexpr int kChunkBytes = kChunk * D * static_cast<int>(sizeof(T));
+  static constexpr int kSlotElems = 2 * kChunk * D;    // K rows, then V rows
+  static constexpr int kSlotBytes = 2 * kChunkBytes;
+  static constexpr int kRingSlots =
+      kSmemCap / kSlotBytes < kRing ? kSmemCap / kSlotBytes : kRing;
+};
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+// 16 bytes of shared memory into E registers.
+template <typename T, int E>
+__device__ __forceinline__ void ld16(const T* p, T (&v)[E]) {
+  const typename Vec16<T>::type x = *reinterpret_cast<const typename Vec16<T>::type*>(p);
+  const T* xs = reinterpret_cast<const T*>(&x);
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = xs[e];
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive, and expect `bytes` more of bulk-copy traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed; a wait that never
+// ends (a fault in the phase bookkeeping) traps after 2^20 polls rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == (1u << 20)) __trap();
+  }
+}
+
+// The K/V rows are read once: their lines are the first L2 gives up (an
+// evict-first policy), before the lines other kernels left there.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// `bytes` contiguous bytes of global memory into shared memory at `dst`,
+// one bulk copy, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(evict_first())
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "l"(evict_first())
+               : "memory");
+}
+
+// This thread's arrival on `bar`, once its earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// This CTA's shared-memory address `local` as rank `rank`'s address in the
+// cluster's shared window.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+
+// 16 bytes (or 8: the pair) into another CTA's shared memory at the
+// cluster address `dst`, completing as bytes on its mbarrier `bar`.
+__device__ __forceinline__ void st_async(uint32_t dst, const float (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(dst),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, const double (&v)[2], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f64 [%0], {%1, %2}, [%3];\n" ::"r"(
+          dst),
+      "d"(v[0]), "d"(v[1]), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async_pair(uint32_t dst, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          dst),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async_pair(uint32_t dst, double a, double b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f64 [%0], {%1, %2}, [%3];\n" ::"r"(
+          dst),
+      "d"(a), "d"(b), "r"(bar)
+      : "memory");
+}
+
+struct Args {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* kc;
+  void* vc;
+  const int* tables;
+  const int* lane;
+  const int* kmax;
+  const int* write_block;  // nullptr: no write
+  const int* write_off;
+  void* out;
+  int A, BS, MAXB, NB, S, bulk;
+  int64_t sqn, sqa, skb, ska, skt, svb, sva, svt;
+  double scale;
+};
+
+template <typename T, int D>
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
+    paged_decode_kernel(const Args a) {
+  using L = Layout<T, D>;
+  constexpr int E = L::E, G = L::G, SL = L::SL, S = L::kStreams;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  T* ring = reinterpret_cast<T*>(dyn);
+  __shared__ __align__(8) uint64_t bars[L::kRingSlots];
+  __shared__ T s_m[S], s_l[S];
+  __shared__ T s_acc[S][D];
+  // rank 0's: each rank's partial (m, l) and acc, pushed there over DSMEM,
+  // and the mbarrier they land on
+  __shared__ __align__(16) T part_ml[kRanks][2];
+  __shared__ __align__(16) T part_acc[kRanks][D];
+  __shared__ __align__(8) uint64_t cbar;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t cid = blockIdx.x / kRanks;    // the (row, head) of the cluster
+  const int row = static_cast<int>(cid / a.A);
+  const int head = static_cast<int>(cid - static_cast<int64_t>(row) * a.A);
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const int sid = warp * L::GPW + ln / G;     // this thread's stream
+  const int gl = ln % G;                      // its lane among the key's G
+  const bool live = sid < S;
+
+  // a key past the table's reach is not there (the plain version's mask
+  // over T = MAXB * BS keys says the same)
+  const int reach = a.MAXB * a.BS;
+  const int lane_r = a.lane[row];
+  const int* tab = a.tables + static_cast<int64_t>(lane_r) * a.MAXB;
+  // the table entries of this rank's first 32 chunks (those the table
+  // reaches), read before the row's last key is known, and read as if the
+  // row's lane were the row itself (every decode row's is) at the same
+  // time as lane[row]; read again from the lane's row where it is not
+  int ent = 0;  // bulk: lane l of warp 0 holds the entry of chunk (k & ~31) + l
+  if (a.bulk && warp == 0 && (rank + kRanks * ln) * kChunk < reach) {
+    const int u = (rank + kRanks * ln) * kChunk / a.BS;
+    if (row < a.S) ent = a.tables[static_cast<int64_t>(row) * a.MAXB + u];
+    if (lane_r != row) ent = tab[u];
+  }
+  const int km = a.kmax[row];
+  const int last = km < reach - 1 ? km : reach - 1;
+  int wb = a.write_block != nullptr ? a.write_block[row] : -1;
+  const int wo = wb >= 0 ? a.write_off[row] : 0;
+  if (wb >= a.NB || wo < 0 || wo >= a.BS) wb = -1;   // not in the slab: no write
+  // the key whose K and V are the step's new rows
+  const int wkey = (wb >= 0 && last >= 0 && km == last) ? last : -1;
+  const int nch = last >= 0 ? last / kChunk + 1 : 0;
+  const int mine = nch > rank ? (nch - 1 - rank) / kRanks + 1 : 0;
+  const bool own = rank == (last >= 0 ? (last / kChunk) % kRanks : 0);
+  constexpr int nring = L::kRingSlots;
+
+  const T* kh = static_cast<const T*>(a.kc) + static_cast<int64_t>(head) * a.ska;
+  const T* vh = static_cast<const T*>(a.vc) + static_cast<int64_t>(head) * a.sva;
+  const int64_t qoff = static_cast<int64_t>(row) * a.sqn + static_cast<int64_t>(head) * a.sqa;
+
+  if (tid == 0) {
+    for (int s = 0; s < nring; ++s)
+      mbar_init(smem_u32(&bars[s]), a.bulk ? 1u : static_cast<uint32_t>(kThreads));
+    mbar_init(smem_u32(&cbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // rank 0's cbar is initialised before any rank pushes to it (the wait is
+  // at the end, long after)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // Issue chunk k (rank + 8 k) into slot k % nring, in increasing k.
+  int islot = 0;
+  auto issue = [&](int k) {
+    const int c = rank + kRanks * k;
+    T* dst = ring + static_cast<int64_t>(islot) * L::kSlotElems;
+    const uint32_t bar = smem_u32(&bars[islot]);
+    islot = islot + 1 == nring ? 0 : islot + 1;
+    if (a.bulk) {
+      if (warp != 0) return;
+      if (k > 0 && (k & 31) == 0) {
+        const int kk = k + ln;
+        ent = kk < mine ? tab[(rank + kRanks * kk) * kChunk / a.BS] : 0;
+      }
+      const int64_t blk = __shfl_sync(kFull, ent, k & 31);
+      if (ln == 0) {
+        const int64_t off = (c * kChunk) % a.BS;
+        mbar_expect_tx(bar, L::kSlotBytes);
+        bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar);
+        bulk_load(smem_u32(dst + kChunk * D), vh + blk * a.svb + off * a.svt, L::kChunkBytes,
+                  bar);
+      }
+    } else {
+      for (int p = tid; p < 2 * kChunk * L::NS; p += kThreads) {
+        const int kv = p / (kChunk * L::NS);
+        const int r = (p / L::NS) % kChunk;
+        const int s = p % L::NS;
+        const int t = c * kChunk + r;
+        if (t <= last && t != wkey) {
+          const int u = t / a.BS;
+          const int64_t blk = tab[u];
+          const int64_t off = t - u * a.BS;
+          const T* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
+          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * E), src + s * E);
+        }
+      }
+      cp_async_arrive(bar);
+    }
+  };
+  const int first = mine < nring ? mine : nring;
+  for (int k = 0; k < first; ++k) issue(k);
+
+  // The step's K/V row, in the owning block's registers (each key group
+  // holds the whole row): its streams take it as key wkey's K and V, and
+  // its first group stores it after the loop.
+  const bool writer = wb >= 0 && own;
+  const bool subst = wkey >= 0 && own;
+  const T* kn_src = static_cast<const T*>(a.k_new) + qoff;
+  const T* vn_src = static_cast<const T*>(a.v_new) + qoff;
+  T qr[SL][E], kn[SL][E], vn[SL][E], acc[SL][E];
+  const T* qp = static_cast<const T*>(a.q) + qoff;
+#pragma unroll
+  for (int j = 0; j < SL; ++j)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = (gl + G * j) * E + e;
+      qr[j][e] = qp[d];
+      kn[j][e] = writer ? kn_src[d] : T(0);
+      vn[j][e] = writer ? vn_src[d] : T(0);
+      acc[j][e] = T(0);
+    }
+  T m = -INFINITY, l = T(0);
+  const T scale = static_cast<T>(a.scale);
+
+  for (int k = 0, slot = 0, phase = 0; k < mine; ++k) {
+    mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>(phase));
+    const T* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+    const T* sv = sk + kChunk * D;
+    const int t0 = (rank + kRanks * k) * kChunk;
+    T sc[L::KPS];
+    bool ok[L::KPS];
+#pragma unroll
+    for (int jj = 0; jj < L::KPS; ++jj) {
+      const int i = (sid + S * jj) & (kChunk - 1);
+      const int t = t0 + i;
+      ok[jj] = live && t <= last;
+      const bool sub = subst && t == wkey;
+      T dot = T(0);
+#pragma unroll
+      for (int j = 0; j < SL; ++j) {
+        T kr[E];
+        if (sub) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
+        } else {
+          ld16<T, E>(sk + i * D + (gl + G * j) * E, kr);
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot += qr[j][e] * kr[e];
+      }
+      // a butterfly over the key's G lanes: each ends with the same bits
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+      sc[jj] = ok[jj] ? dot * scale : T(-INFINITY);
+    }
+    T mx = m;
+#pragma unroll
+    for (int jj = 0; jj < L::KPS; ++jj) mx = sc[jj] > mx ? sc[jj] : mx;
+    if (mx != T(-INFINITY)) {              // a key of this stream so far
+      const T corr = exp_(m - mx);         // 0 on the stream's first key
+      l *= corr;
+#pragma unroll
+      for (int j = 0; j < SL; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[j][e] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < L::KPS; ++jj) {
+        if (!ok[jj]) continue;             // a masked key's V is never read
+        const int i = (sid + S * jj) & (kChunk - 1);
+        const bool sub = subst && t0 + i == wkey;
+        const T p = exp_(sc[jj] - mx);
+        l += p;
+#pragma unroll
+        for (int j = 0; j < SL; ++j) {
+          T vr[E];
+          if (sub) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
+          } else {
+            ld16<T, E>(sv + i * D + (gl + G * j) * E, vr);
+          }
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[j][e] += p * vr[e];
+        }
+      }
+      m = mx;
+    }
+    if (k + nring < mine) {
+      // this slot's reads are done: order them before the next copy into it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      issue(k + nring);
+    }
+    if (++slot == nring) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+
+  // the block's partial: its streams combined in stream order
+  if (live) {
+    if (gl == 0) {
+      s_m[sid] = m;
+      s_l[sid] = l;
+    }
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) s_acc[sid][(gl + G * j) * E + e] = acc[j][e];
+  }
+  if (writer && sid == 0) {              // no block of this launch reads it
+    T* kd = static_cast<T*>(a.kc) + wb * a.skb + head * a.ska + wo * a.skt;
+    T* vd = static_cast<T*>(a.vc) + wb * a.svb + head * a.sva + wo * a.svt;
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        kd[(gl + G * j) * E + e] = kn[j][e];
+        vd[(gl + G * j) * E + e] = vn[j][e];
+      }
+  }
+  __syncthreads();
+  // the block's partial, its streams combined in stream order: a thread
+  // takes E elements, and each rank but 0 pushes it to rank 0's part_acc
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < D / E) {
+    T mb = s_m[0];
+#pragma unroll
+    for (int i = 1; i < S; ++i) mb = s_m[i] > mb ? s_m[i] : mb;
+    T lb = T(0), ob[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) ob[e] = T(0);
+    if (mb != T(-INFINITY)) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const T w = exp_(s_m[i] - mb);     // 0 for a stream with no key
+        lb += s_l[i] * w;
+#pragma unroll
+        for (int e = 0; e < E; ++e) ob[e] += s_acc[i][tid * E + e] * w;
+      }
+    }
+    if (rank == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) part_acc[0][tid * E + e] = ob[e];
+      if (tid == 0) {
+        part_ml[0][0] = mb;
+        part_ml[0][1] = lb;
+      }
+    } else {
+      const uint32_t bar = cluster_addr(smem_u32(&cbar), 0);
+      st_async(cluster_addr(smem_u32(&part_acc[rank][tid * E]), 0), ob, bar);
+      if (tid == 0) st_async_pair(cluster_addr(smem_u32(&part_ml[rank][0]), 0), mb, lb, bar);
+    }
+  }
+  if (rank != 0) return;
+  // rank 0 combines the cluster's 8 partials, in rank order
+  if (tid == 0)
+    mbar_expect_tx(smem_u32(&cbar), (kRanks - 1) * (D + 2) * static_cast<uint32_t>(sizeof(T)));
+  __syncthreads();
+  mbar_wait(smem_u32(&cbar), 0);
+  if (tid < D) {
+    T mc = T(-INFINITY);
+#pragma unroll
+    for (int r = 0; r < kRanks; ++r) mc = part_ml[r][0] > mc ? part_ml[r][0] : mc;
+    T res = T(0);                           // no key: the JAX mask's 0
+    if (mc != T(-INFINITY)) {
+      T lc = T(0), oc = T(0);
+#pragma unroll
+      for (int r = 0; r < kRanks; ++r) {
+        const T w = exp_(part_ml[r][0] - mc);   // 0 for a rank with no key
+        lc += part_ml[r][1] * w;
+        oc += part_acc[r][tid] * w;
+      }
+      res = oc / lc;
+    }
+    static_cast<T*>(a.out)[cid * D + tid] = res;
+  }
+}
+
+// The kernel's shared memory raised past 48 KB on the current device, once
+// per device: a kernel's attributes belong to each device's context.
+template <typename T, int D>
+cudaError_t configure() {
+  static std::mutex mu;
+  static std::set<int> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (raised.count(dev) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Layout<T, D>::kRingSlots * Layout<T, D>::kSlotBytes);
+  if (e == cudaSuccess) raised.insert(dev);
+  return e;
+}
+
+template <typename T, int D>
+int launch(Args a, int64_t N, cudaStream_t st) {
+  using L = Layout<T, D>;
+  // a chunk's 16 rows are one contiguous run of the slab
+  a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;
+  const cudaError_t attr = configure<T, D>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  paged_decode_kernel<T, D><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
+                              static_cast<size_t>(L::kRingSlots) * L::kSlotBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch<T, 16>(a, N, st);
+    case 32: return launch<T, 32>(a, N, st);
+    case 64: return launch<T, 64>(a, N, st);
+    case 128: return launch<T, 128>(a, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace dec
+
+// q, k_new, v_new [N, A, D] at strides (sqn, sqa, 1); kc, vc
+// [NB, A, BS, D] at strides (skb, ska, skt, 1) and (svb, sva, svt, 1), each
+// row on 16 bytes; tables [S, MAXB], lane [N], kmax [N], write_block [N]
+// and write_off [N] int32, contiguous; out [N, A, D] contiguous. With
+// k_new == nullptr there is no write (v_new, write_block and write_off are
+// not read). dtype: 1 float32, 2 float64. Returns the launch's
+// cudaError_t.
+extern "C" int dl4j_paged_decode_attention(
+    const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
+    const void* tables, const void* lane, const void* kmax,
+    const void* write_block, const void* write_off, void* out, int64_t N,
+    int64_t A, int64_t D, int64_t BS, int64_t MAXB, int64_t NB, int64_t S, int64_t sqn,
+    int64_t sqa, int64_t skb, int64_t ska, int64_t skt, int64_t svb,
+    int64_t sva, int64_t svt, double scale, int dtype,
+    void* stream) {
+  if (N <= 0 || A <= 0) return 0;
+  if (BS < 1 || MAXB < 1 || MAXB * BS >= (int64_t{1} << 31) ||
+      N * A * dec::kRanks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k_new != nullptr && (v_new == nullptr || write_block == nullptr || write_off == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t es = dtype == 2 ? 8 : 4;
+  if (!dec::aligned16(kc) || !dec::aligned16(vc) ||
+      ((skb | ska | skt | svb | sva | svt) * es) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dec::Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(tables),
+              static_cast<const int*>(lane), static_cast<const int*>(kmax),
+              k_new != nullptr ? static_cast<const int*>(write_block) : nullptr,
+              static_cast<const int*>(write_off), out, static_cast<int>(A),
+              static_cast<int>(BS), static_cast<int>(MAXB), static_cast<int>(NB),
+              static_cast<int>(S), 0, sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dec::launch_d<float>(D, a, N, st);
+  if (dtype == 2) return dec::launch_d<double>(D, a, N, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // q [N, A, D] at strides (sqn, sqa, 1); kc, vc [num_blocks, A, BS, D] at
 // strides (skb, ska, skt, 1) and (svb, sva, svt, 1); tables [S, MAXB],
 // lane [N] and kmax [N] int32, contiguous; out [N, A, D] contiguous.
 // dtype: 1 float32, 2 float64. Returns the launch's cudaError_t.
-extern "C" int dl4j_paged_attention(
+extern "C" int dl4j_paged_attention_v1(
     const void* q, const void* kc, const void* vc, const void* tables,
     const void* lane, const void* kmax, void* out, int64_t N, int64_t A,
     int64_t D, int64_t BS, int64_t MAXB, int64_t sqn, int64_t sqa,
@@ -216,13 +789,13 @@ extern "C" int dl4j_paged_attention(
   cudaStream_t st = (cudaStream_t)stream;
   int err;
   if (dtype == 1)
-    err = launch_d<float>(D, q, kc, vc, tables, lane, kmax, out, N, A, BS,
-                          MAXB, sqn, sqa, skb, ska, skt, svb, sva, svt,
-                          scale, st);
+    err = v1::launch_d<float>(D, q, kc, vc, tables, lane, kmax, out, N, A,
+                              BS, MAXB, sqn, sqa, skb, ska, skt, svb, sva,
+                              svt, scale, st);
   else if (dtype == 2)
-    err = launch_d<double>(D, q, kc, vc, tables, lane, kmax, out, N, A, BS,
-                           MAXB, sqn, sqa, skb, ska, skt, svb, sva, svt,
-                           scale, st);
+    err = v1::launch_d<double>(D, q, kc, vc, tables, lane, kmax, out, N, A,
+                               BS, MAXB, sqn, sqa, skb, ska, skt, svb, sva,
+                               svt, scale, st);
   else
     err = (int)cudaErrorInvalidValue;
   if (err != 0) return err;

@@ -240,11 +240,12 @@ def tensor_map_encode_us(tensors: Sequence[torch.Tensor], rows: int,
 
 # ----------------------------------------------------------------------
 # paged attention (kernels/paged_attention.py)
-def _qkv_view(rows, a, d, dtype, dev, g):
-    """q [rows, A, D] as the serving path hands it over: the first third
-    of each head's ``[q|k|v]`` block of one [rows, A, 3D] projection."""
+def _qkv_views(rows, a, d, dtype, dev, g):
+    """q, k and v [rows, A, D] as the serving path hands them over: the
+    thirds of each head's ``[q|k|v]`` block of one [rows, A, 3D]
+    projection."""
     qkv = torch.randn(rows, a, 3 * d, device=dev, generator=g).to(dtype)
-    return qkv[..., :d]
+    return qkv.split(d, dim=-1)
 
 
 def paged_decode_case(dev, kmax, a, d, bs, dtype, seed=0, spare=2):
@@ -265,7 +266,7 @@ def paged_decode_case(dev, kmax, a, d, bs, dtype, seed=0, spare=2):
         tables[s, :n] = torch.arange(base, base + n, dtype=torch.int32)
         base += n
     s = len(kmax)
-    return (_qkv_view(s, a, d, dtype, dev, g), kc, vc, tables.to(dev),
+    return (_qkv_views(s, a, d, dtype, dev, g)[0], kc, vc, tables.to(dev),
             torch.arange(s, dtype=torch.int32, device=dev),
             torch.tensor(kmax, dtype=torch.int32, device=dev))
 
@@ -284,9 +285,84 @@ def paged_prefill_case(dev, hist, rows, length, a, d, bs, dtype, seed=0,
     tables = torch.zeros(1, maxb, dtype=torch.int32)
     tables[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
     kmax = hist + torch.clamp(torch.arange(rows), max=length - 1)
-    return (_qkv_view(rows, a, d, dtype, dev, g), kc, vc, tables.to(dev),
+    return (_qkv_views(rows, a, d, dtype, dev, g)[0], kc, vc, tables.to(dev),
             torch.zeros(rows, dtype=torch.int32, device=dev),
             kmax.to(torch.int32).to(dev))
+
+
+def paged_decode_write_case(dev, kmax, a, d, bs, dtype, active=None,
+                            seed=0, spare=2):
+    """A decode step's inputs with its K/V write: ``paged_decode_case``'s
+    (q, kc, vc, tables, lane, kmax) and the step's new rows k_new, v_new
+    (the other thirds of q's projection), each active lane writing at its
+    last key's place through its table (``write_block`` -1 and
+    ``write_off`` 0 for an inactive lane, which attends to key 0). Returns
+    (q, k_new, v_new, kc, vc, tables, lane, kmax, write_block,
+    write_off)."""
+    q, kc, vc, tables, lane, km = paged_decode_case(dev, kmax, a, d, bs,
+                                                    dtype, seed, spare)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    q, k_new, v_new = _qkv_views(q.shape[0], a, d, dtype, dev, g)
+    act = torch.ones(q.shape[0], dtype=torch.bool) if active is None else \
+        torch.tensor(active, dtype=torch.bool)
+    kh = km.cpu().long()
+    wb = torch.where(act, tables.cpu()[torch.arange(len(kh)), kh // bs], -1)
+    wo = torch.where(act, kh % bs, 0)
+    km = torch.where(act, kh, 0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, k_new, v_new, kc, vc, tables, lane, km.to(**i32),
+            wb.to(**i32), wo.to(**i32))
+
+
+def paged_write_poisoned(kc, vc, write_block, write_off):
+    """Copies of the cache with NaN at every row the step writes: the
+    kernel takes the step's rows as those keys and never reads them back,
+    so what was there changes nothing."""
+    kc, vc = kc.clone(), vc.clone()
+    for b, o in zip(write_block.tolist(), write_off.tolist()):
+        if b >= 0:
+            kc[b, :, o] = vc[b, :, o] = float("nan")
+    return kc, vc
+
+
+def paged_chunk_dropped(q, kc, vc, tables, lane, kmax, chunk, size=16):
+    """The attention of ``paged_attention_plain`` with key positions
+    ``[chunk * size, (chunk + 1) * size)`` of every row left out: what a
+    kernel that lost one chunk would give (a control the rule must
+    reject), computed as a dense softmax over each row's gathered keys."""
+    n, a, d = q.shape
+    dk, dv, _ = paged_dense(kc, vc, tables)
+    t = torch.arange(dk.shape[2], device=q.device)
+    keep = (t[None, :] <= kmax.long()[:, None]) & ~(
+        (t >= chunk * size) & (t < (chunk + 1) * size))[None, :]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    ln = lane.long()
+    s = torch.einsum("rad,ratd->rat", q.to(acc), dk[ln].to(acc)) / math.sqrt(d)
+    s = torch.where(keep[:, None, :], s, float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    v = torch.where(keep[:, None, :, None], dv[ln].to(acc), 0)
+    return torch.einsum("rat,ratd->rad", p, v).to(q.dtype)
+
+
+def paged_attention_v1(q, kc, vc, tables, lane, kmax):
+    """The first paged attention kernel (``dl4j_paged_attention_v1``, one
+    block a (row, head)), kept in the source to be timed beside the
+    cluster kernel: one launch on the card, not counted in
+    ``paged_attention.LAUNCHES`` (no wrapper of the port calls it)."""
+    from deeplearning4j_tpu_torch.kernels import _cuda
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    n, a, d = q.shape
+    out = torch.empty((n, a, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = getattr(pa._lib(), pa.V1_ENTRY)(
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
+            lane.data_ptr(), kmax.data_ptr(), out.data_ptr(), n, a, d,
+            kc.shape[2], tables.shape[1], q.stride(0), q.stride(1),
+            *kc.stride()[:3], *vc.stride()[:3], 1.0 / math.sqrt(d),
+            pa._DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, pa.V1_ENTRY)
+    return out
 
 
 def paged_poisoned(kc, vc, tables, lane, kmax):
@@ -353,10 +429,11 @@ def paged_reading(got, want, terms, tol):
     return r if np.isfinite(r) else float("inf")
 
 
-def paged_bounds(q, kc, tables, lane, kmax):
+def paged_bounds(q, kc, tables, lane, kmax, writes=0):
     """(operations, bytes) of one call: 4 D FLOP per (row, head, key) for
     q.K and p.V; the K and V rows up to each lane's last key read once, q
-    read and the output written once."""
+    read and the output written once; and for each of ``writes`` rows that
+    write, its new K and V rows read once and written once."""
     n, a, d = q.shape
     it = q.element_size()
     lanes = {}
@@ -364,4 +441,4 @@ def paged_bounds(q, kc, tables, lane, kmax):
         lanes[ln] = max(lanes.get(ln, -1), k)
     keys = int((kmax.long() + 1).sum())
     kv = sum(k + 1 for k in lanes.values()) * a * d * it * 2
-    return 4 * d * a * keys, kv + 2 * n * a * d * it
+    return 4 * d * a * keys, kv + (2 * n + 4 * writes) * a * d * it

@@ -1,17 +1,17 @@
-"""Attention over a KV cache addressed through block tables, with a
-hand-written CUDA C++ kernel for Hopper.
+"""Attention over a KV cache addressed through block tables, and the
+decode step's K/V write, with a hand-written CUDA C++ kernel for Hopper.
 
 Counterpart of the attention inside the JAX package's decode functions
 (``deeplearning4j_tpu/zoo/gpt.py``): the paged decode (``decode_fn`` :649,
-:675-690), the paged prefill over its table (``prefill_fn`` :586,
-:621-636) and the dense decode over its slot rows (``gpt_decode_fns``
-``decode_fn`` :354, :383-394). There each is a gather of the lane's whole
-table into a ``[T, D]`` context per layer, scores over all ``T = MAXB *
-BS`` keys, a mask to the lane's position, and a ``where`` that zeroes
-masked V rows so a stale or NaN block cannot leak; XLA fused it on the
-TPU, with no Pallas kernel behind it. Written the same way in eager
-PyTorch it would copy the full context for K and V per layer, whatever
-each lane's real length.
+its K/V scatter :668-674, then :675-690), the paged prefill over its
+table (``prefill_fn`` :586, :621-636) and the dense decode over its slot
+rows (``gpt_decode_fns`` ``decode_fn`` :354, its masked write :375-382,
+then :383-394). There each is a gather of the lane's whole table into a
+``[T, D]`` context per layer, scores over all ``T = MAXB * BS`` keys, a
+mask to the lane's position, and a ``where`` that zeroes masked V rows so
+a stale or NaN block cannot leak; XLA fused it on the TPU, with no Pallas
+kernel behind it. Written the same way in eager PyTorch it would copy the
+full context for K and V per layer, whatever each lane's real length.
 
 ``paged_attention`` computes, for query row ``r`` of lane ``lane[r]``, head
 ``a`` and last key ``kmax[r]``::
@@ -19,29 +19,36 @@ each lane's real length.
     out[r, a] = sum_{t <= kmax[r]} softmax_t(q[r, a] . K[t] / sqrt(D)) V[t]
     K[t] = kc[tables[lane[r], t // BS], a, t % BS]   (and V from vc)
 
-On the card it is one launch of ``csrc/paged_attention.cu`` (built by
-``kernels/_cuda.py``), which reads only the keys ``t <= kmax[r]`` through
-the table: a block past a row's last key is never loaded, so stale or NaN
-blocks are harmless by construction, and the order of its sums depends on
-key positions alone, so paged and dense decode of one context give the
-same bits. The dense slab ``[S, A, max_seq, D]`` is a paged slab with
-``BS = max_seq`` and ``tables[s] = [s]``.
+``paged_decode_attention`` is the decode step's layer: it first writes
+each row's new K and V rows (``k_new[r]``, ``v_new[r]``) at
+``(write_block[r], write_off[r])`` of the cache (``write_block[r] = -1``:
+no write), then computes the same attention. On the card both are one
+launch of ``csrc/paged_attention.cu``'s cluster kernel (built by
+``kernels/_cuda.py``): eight blocks a (row, head), each taking every
+eighth chunk of 16 key positions, their partials combined in distributed
+shared memory. It reads only the keys ``t <= kmax[r]`` through the table:
+a block past a row's last key is never loaded, so stale or NaN blocks are
+harmless by construction, and the order of its sums depends on key
+positions alone, so paged and dense decode of one context give the same
+bits. The dense slab ``[S, A, max_seq, D]`` is a paged slab with ``BS =
+max_seq`` and ``tables[s] = [s]``.
 
 ``paged_prefill_attention`` is the prefill's form, every row in one lane
 over that lane's table: for float32 on the card it launches
 ``attention_f32``'s ``dl4j_paged_prefill_f32`` (``csrc/attention_f32.cu``,
 3xTF32 on the tensor cores, the rows of a tile sharing each key tile
 they load), counted in ``attention_f32.LAUNCHES``; float64 takes
-``paged_attention`` with every row in lane 0. Decode keeps
-``paged_attention``, so dense and paged decode still give the same bits.
+``paged_attention`` with every row in lane 0.
 
 ``paged_attention_plain`` is the JAX expression step by step: the gather
 by table, scores in float32 (float64 for float64 input), ``where`` with
 -1e30, the softmax, the V rows zeroed under the mask. It runs per lane;
 for a lane with several rows (a prefill) it zeroes K and V past the lane's
 last key and masks each row's scores, as the JAX prefill does with its
-``valid`` and causal masks. The wrapper takes it only for CPU tensors; on
-a CUDA tensor it launches the kernel or raises.
+``valid`` and causal masks. ``paged_decode_plain`` is the decode
+functions' ``index_put_`` of the new rows followed by it. The wrappers
+take the plain versions only for CPU tensors; on a CUDA tensor they
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -53,35 +60,49 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
 
-#: Kernel launches, bumped where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"paged_attention": 0}
+#: Kernel launches, bumped where the kernel is launched, by the wrapper
+#: that launched it (both launch the cluster kernel).
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_attention": 0}
 
 _LIB = "paged_attention"
 _MASKED = -1e30
 #: what the kernel takes, with the C side's codes
 _DTYPE_CODE = {torch.float32: 1, torch.float64: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
+#: key positions a chunk, and blocks a cluster (csrc/paged_attention.cu)
+CHUNK, RANKS = 16, 8
 
 _P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
     ctypes.c_double
-PAGED_ATTENTION_ARGTYPES = (
+DECODE_ARGTYPES = (
+    [(n, _P) for n in ("q", "k_new", "v_new", "kc", "vc", "tables", "lane",
+                       "kmax", "write_block", "write_off", "out")]
+    + [(n, _I64) for n in ("N", "A", "D", "BS", "MAXB", "NB", "S", "sqn",
+                           "sqa", "skb", "ska", "skt", "svb", "sva", "svt")]
+    + [("scale", _D), ("dtype", _I), ("stream", _P)])
+#: the first kernel's entry, kept to be timed beside the cluster kernel (no
+#: wrapper launches it)
+V1_ARGTYPES = (
     [(n, _P) for n in ("q", "kc", "vc", "tables", "lane", "kmax", "out")]
     + [(n, _I64) for n in ("N", "A", "D", "BS", "MAXB", "sqn", "sqa", "skb",
                            "ska", "skt", "svb", "sva", "svt")]
     + [("scale", _D), ("dtype", _I), ("stream", _P)])
-ENTRY = "dl4j_paged_attention"
+ENTRY, V1_ENTRY = "dl4j_paged_decode_attention", "dl4j_paged_attention_v1"
+ENTRIES = {ENTRY: DECODE_ARGTYPES, V1_ENTRY: V1_ARGTYPES}
 
 
 def reset_launches() -> None:
-    LAUNCHES["paged_attention"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
-    """The built library, its C entry's argument types declared."""
+    """The built library, its C entries' argument types declared."""
     lib = _cuda.load(_LIB)
-    fn = getattr(lib, ENTRY)
-    if fn.argtypes is None:
-        _cuda.declare(fn, PAGED_ATTENTION_ARGTYPES)
+    for name, argtypes in ENTRIES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            _cuda.declare(fn, argtypes)
     return lib
 
 
@@ -132,6 +153,21 @@ def paged_prefill_plain(q, kc, vc, table, kmax):
     lane 0 of the one-row table ``table[None]``."""
     lane = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     return paged_attention_plain(q, kc, vc, table[None], lane, kmax)
+
+
+def paged_decode_plain(q, k_new, v_new, kc, vc, tables, lane, kmax,
+                       write_block, write_off):
+    """The decode functions' two steps: ``index_put_`` of each writing
+    row's ``k_new``/``v_new`` at ``(write_block, write_off)`` of ``kc``/``vc``
+    (in place), then ``paged_attention_plain``."""
+    rows = torch.nonzero(write_block >= 0).flatten()
+    if rows.numel():
+        heads = torch.arange(q.shape[1], device=q.device)
+        at = (write_block[rows].long()[:, None], heads[None, :],
+              write_off[rows].long()[:, None])
+        kc.index_put_(at, k_new[rows])
+        vc.index_put_(at, v_new[rows])
+    return paged_attention_plain(q, kc, vc, tables, lane, kmax)
 
 
 def abs_terms(q, kc, vc, tables, lane, kmax):
@@ -186,6 +222,60 @@ def _check(q, kc, vc, tables, lane, kmax) -> torch.device:
     return dev
 
 
+def _check_write(q, k_new, v_new, write_block, write_off, dev):
+    """Raise on a step's new rows or write places the kernel does not
+    take."""
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError(f"k_new {tuple(k_new.shape)} and v_new "
+                         f"{tuple(v_new.shape)} must be q's {tuple(q.shape)}")
+    if not (k_new.dtype == v_new.dtype == q.dtype):
+        raise ValueError(f"k_new, v_new dtypes {k_new.dtype}, {v_new.dtype} "
+                         f"differ from q's {q.dtype}")
+    n = q.shape[0]
+    if write_block.shape != (n,) or write_off.shape != (n,):
+        raise ValueError(f"write_block {tuple(write_block.shape)} and "
+                         f"write_off {tuple(write_off.shape)} must be [N]")
+    if any(t.device != dev for t in (k_new, v_new, write_block, write_off)):
+        raise ValueError("k_new, v_new, write_block and write_off must be on "
+                         "q's device")
+    if dev.type == "cpu":
+        return
+    if k_new.stride() != q.stride() or v_new.stride() != q.stride():
+        raise ValueError(f"k_new {k_new.stride()} and v_new {v_new.stride()} "
+                         f"must have q's strides {q.stride()}")
+    for name, t in (("write_block", write_block), ("write_off", write_off)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32")
+
+
+def _launch(q, kc, vc, tables, lane, kmax, write=None,
+            lib=None) -> torch.Tensor:
+    """One launch of the cluster kernel; ``write`` is (k_new, v_new,
+    write_block, write_off) or None; ``lib`` is the built library (a
+    variant of the source, for studies) or None for the port's. The cache
+    is read in 16-byte slices and written in place, so it is not copied:
+    its rows must start on 16 bytes."""
+    if not _cuda.rows_aligned([kc, vc]):
+        raise ValueError("the cache's rows must start on 16 bytes (its base "
+                         "and strides)")
+    n, a, d = q.shape
+    dev = q.device
+    out = torch.empty((n, a, d), dtype=q.dtype, device=dev)
+    k_new, v_new, wb, wo = [None if t is None else t.data_ptr()
+                            for t in (write or (None,) * 4)]
+    bs, maxb = kc.shape[2], tables.shape[1]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with torch.cuda.device(dev):
+        err = getattr(lib or _lib(), ENTRY)(
+            q.data_ptr(), k_new, v_new, kc.data_ptr(), vc.data_ptr(),
+            tables.data_ptr(), lane.data_ptr(), kmax.data_ptr(), wb, wo,
+            out.data_ptr(), n, a, d, bs, maxb, kc.shape[0], tables.shape[0],
+            q.stride(0), q.stride(1), *kc.stride()[:3], *vc.stride()[:3],
+            _scale(d), _DTYPE_CODE[q.dtype], stream)
+    _cuda.check(err, ENTRY)
+    return out
+
+
 def paged_attention(q, kc, vc, tables, lane, kmax) -> torch.Tensor:
     """``out [N, A, D]`` (contiguous, q's dtype): one launch on the card;
     the plain version on the CPU.
@@ -196,18 +286,39 @@ def paged_attention(q, kc, vc, tables, lane, kmax) -> torch.Tensor:
     dev = _check(q, kc, vc, tables, lane, kmax)
     if dev.type == "cpu":
         return paged_attention_plain(q, kc, vc, tables, lane, kmax)
-    n, a, d = q.shape
-    out = torch.empty((n, a, d), dtype=q.dtype, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    with torch.cuda.device(dev):
-        err = getattr(_lib(), ENTRY)(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
-            lane.data_ptr(), kmax.data_ptr(), out.data_ptr(), n, a, d,
-            kc.shape[2], tables.shape[1], q.stride(0), q.stride(1),
-            *kc.stride()[:3], *vc.stride()[:3], _scale(d),
-            _DTYPE_CODE[q.dtype], stream)
-    _cuda.check(err, ENTRY)
+    out = _launch(q, kc, vc, tables, lane, kmax)
     LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_new, v_new, kc, vc, tables, lane, kmax,
+                           write_block, write_off) -> torch.Tensor:
+    """A decode step's layer: each row's new K/V rows written into the
+    cache, then ``out [N, A, D]`` (contiguous, q's dtype) as
+    ``paged_attention`` computes it; one launch on the card, the plain
+    version (``index_put_``, then ``paged_attention_plain``) on the CPU.
+
+    ``k_new``/``v_new`` [N, A, D] at q's strides are the step's rows;
+    ``write_block``/``write_off`` [N] int32 say where row ``r``'s rows land
+    in ``kc``/``vc`` (updated in place): ``kc[write_block[r], :,
+    write_off[r]]``; ``write_block[r] = -1`` writes nothing. The other
+    arguments are ``paged_attention``'s.
+
+    The contract (both decode functions keep it): a row with a write has
+    ``(write_block[r], write_off[r])`` where its key ``kmax[r]`` lies
+    through its table, ``(tables[lane[r], kmax[r] // BS], kmax[r] % BS)``,
+    and no other row reads that key (at decode each lane has one row and
+    writes into its own tail block). The kernel then takes ``k_new[r]`` and
+    ``v_new[r]`` as key ``kmax[r]``'s K and V, the bits the write stores,
+    and never reads them back. A write outside the cache is dropped."""
+    dev = _check(q, kc, vc, tables, lane, kmax)
+    _check_write(q, k_new, v_new, write_block, write_off, dev)
+    if dev.type == "cpu":
+        return paged_decode_plain(q, k_new, v_new, kc, vc, tables, lane,
+                                  kmax, write_block, write_off)
+    out = _launch(q, kc, vc, tables, lane, kmax,
+                  (k_new, v_new, write_block, write_off))
+    LAUNCHES["paged_decode_attention"] += 1
     return out
 
 

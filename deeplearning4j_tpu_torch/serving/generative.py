@@ -12,8 +12,8 @@ to tensors on the card:
   guarded by ``monitor/memstats``) and updated in place by every
   dispatch, the counterpart of the JAX donation.
 - **one decode step** advances every active slot per dispatch (active
-  mask and per-slot positions); its attention is the ``paged_attention``
-  kernel, one launch per layer.
+  mask and per-slot positions); each layer's K/V write and attention are
+  one ``paged_decode_attention`` kernel launch.
 - **pow2 prefill buckets**: a prompt is padded to the smallest bucket of
   a pow2 ladder, so a prompt-length mix meets at most log2(max_seq) + 1
   prefill shapes.

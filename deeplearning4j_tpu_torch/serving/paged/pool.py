@@ -8,7 +8,7 @@ requests hold per-request BLOCK TABLES of block ids, and capacity is
 proportional to tokens actually held:
 
 - **block 0 is the NULL block**: never allocated, the target of every
-  unused table entry; the ``paged_attention`` kernel never reads it for
+  unused table entry; the paged attention kernel never reads it for
   a row, since it stops at the row's last key.
 - **refcounts**: a block is held by every request whose table points at
   it; prefix-cache hits retain shared blocks. ``release()`` of a block

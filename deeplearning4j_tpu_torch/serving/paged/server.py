@@ -7,8 +7,9 @@ Counterpart of ``deeplearning4j_tpu/serving/paged/server.py``
 card. K/V live in fixed-size token BLOCKS carved from one preallocated
 slab ``[layers, num_blocks, heads, block_size, head_dim]``, and each
 request holds a BLOCK TABLE grown one block at a time at decode-step
-boundaries; every layer's attention is one ``paged_attention`` launch that
-reads each lane's blocks through its table.
+boundaries; every layer of a decode step is one ``paged_decode_attention``
+launch that writes the step's K/V rows and reads each lane's blocks
+through its table.
 
 - **block pool** (``pool.py``): admission is gated on BLOCKS two ways:
   ``submit`` reserves each request's worst-case block footprint against

@@ -258,10 +258,11 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
       greedy token and logits at position ``length - 1``.
     - ``decode_fn(params, kc, vc, io)``, ``io = {"tokens": [S],
       "positions": [S], "active": [S] bool}``: every active slot advances
-      one token; its K/V row is written at its position (inactive slots
-      keep their rows), then each layer's attention is one
-      ``paged_attention`` launch over the slab (``BS = max_seq``, the
-      table of slot ``s`` is ``[s]``), reading keys ``<= position`` only.
+      one token; each layer is one ``paged_decode_attention`` launch over
+      the slab (``BS = max_seq``, the table of slot ``s`` is ``[s]``):
+      the slot's K/V row written at its position (``write_block = s``,
+      ``write_off = position``; an inactive slot keeps its rows), then
+      its attention over keys ``<= position`` only.
     - ``verify_fn`` raises ``NotImplementedError`` (speculative decoding
       is not ported yet), as ``quantize_weights`` and ``kv_scales`` do.
     """
@@ -273,7 +274,6 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
         _not_ported("kv_scales")
     sdpa = get_op("scaled_dot_product_attention").fn
     math = _DecodeMath(cfg)
-    A = cfg.num_heads
 
     def prefill_fn(params, kc, vc, io):
         p, dev = params, kc.device
@@ -297,20 +297,17 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
         active = np.asarray(io["active"], bool)
         S, T = kc.shape[1], kc.shape[3]
         pos = np.clip(np.asarray(io["positions"]), 0, T - 1)
-        act = np.flatnonzero(active)
-        # an inactive lane attends to its key 0 only: its output is unused
-        tokens, pos_d, kmax, act_d, tables = _to_device(
-            [io["tokens"], pos, np.where(active, pos, 0), act,
-             np.arange(S)[:, None]], dev)
+        # an inactive lane writes nothing and attends to its key 0 only:
+        # its output is unused
+        tokens, pos_d, kmax, wb, tables = _to_device(
+            [io["tokens"], pos, np.where(active, pos, 0),
+             np.where(active, np.arange(S), -1), np.arange(S)[:, None]], dev)
         lanes = tables[:, 0]
         x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
-        heads = torch.arange(A, device=dev)[None, :]
-        at = (act_d[:, None], heads, pos_d[act_d][:, None])
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
-            kc[i].index_put_(at, k[act_d])
-            vc[i].index_put_(at, v[act_d])
-            att = pa.paged_attention(q, kc[i], vc[i], tables, lanes, kmax)
+            att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
+                                            lanes, kmax, wb, pos_d)
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x)                              # [S, V]
         return kc, vc, logits.argmax(-1).to(torch.int32), logits
@@ -333,8 +330,9 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
     Block 0 is the null block, never handed out. Each layer's attention
     reads each row's keys through its table up to its last key, so unused
     table entries (the null block) and the stale rows of a block are never
-    read: one ``paged_attention`` launch a decode step, one
-    ``paged_prefill_attention`` call a prefill.
+    read: one ``paged_decode_attention`` launch a layer of a decode step
+    (the step's K/V write and the attention), one
+    ``paged_prefill_attention`` call a layer of a prefill.
 
     - ``prefill_fn(params, kc, vc, io)``, ``io = {"tokens": [Lb] (the
       bucket-padded prompt suffix after a prefix-cache hit), "length": ()
@@ -348,8 +346,9 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
     - ``decode_fn(params, kc, vc, io)``, ``io = {"tokens": [S],
       "positions": [S], "active": [S] bool, "tables": [S, MAXB],
       "write_block": [S], "write_off": [S]}``: each active lane's new K/V
-      row lands at ``(write_block, write_off)``, then it attends over its
-      table to its position.
+      row lands at ``(write_block, write_off)`` (where its position lies
+      through its table, as ``paged_decode_attention`` requires), then it
+      attends over its table to its position.
     - ``verify_fn`` raises ``NotImplementedError``, as ``quantize_weights``
       and ``kv_scales`` do.
     """
@@ -395,19 +394,17 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         active = np.asarray(io["active"], bool)
         S = active.shape[0]
         pos = np.clip(np.asarray(io["positions"]), 0, cfg.max_seq_len - 1)
-        act = np.flatnonzero(active)
-        # an inactive lane attends to its key 0 only: its output is unused
-        tokens, pos_d, kmax, tables, act_d, wb, wo, lanes = _to_device(
-            [io["tokens"], pos, np.where(active, pos, 0), io["tables"], act,
-             np.asarray(io["write_block"])[act],
-             np.asarray(io["write_off"])[act], np.arange(S)], dev)
+        # an inactive lane writes nothing and attends to its key 0 only:
+        # its output is unused
+        tokens, pos_d, kmax, tables, wb, wo, lanes = _to_device(
+            [io["tokens"], pos, np.where(active, pos, 0), io["tables"],
+             np.where(active, io["write_block"], -1),
+             np.where(active, io["write_off"], 0), np.arange(S)], dev)
         x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
-        at = (wb[:, None], torch.arange(A, device=dev)[None, :], wo[:, None])
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
-            kc[i].index_put_(at, k[act_d])
-            vc[i].index_put_(at, v[act_d])
-            att = pa.paged_attention(q, kc[i], vc[i], tables, lanes, kmax)
+            att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
+                                            lanes, kmax, wb, wo)
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x)                              # [S, V]
         return kc, vc, logits.argmax(-1).to(torch.int32), logits

@@ -548,6 +548,41 @@ def test_paged_kernel_bits_two_calls_dense_and_nan_poison(card, bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("bs", [1, 16, 1024])
+def test_paged_decode_write_kernel_matches_plain_on_card(card, bs, d, dtype):
+    """``paged_decode_attention`` (the step's K/V write, then attention),
+    one launch: each row within 1e-5 (float32) or 1e-12 (float64) of the
+    sum of its absolute terms of the plain version (``index_put_``, then
+    the attention); the cache after the write bit-equal to the plain
+    write's; a second call gives the same bits; NaN where the step writes
+    changes nothing."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    case = measure.paged_decode_write_case(
+        card, [0, 15, 16, 17, 300, 1023], 3, d, bs, dtype,
+        active=[True, True, False, True, True, True], seed=bs + d)
+    q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo = case
+    before = pa.LAUNCHES["paged_decode_attention"]
+    outs = []
+    for fn, (k_, v_) in ((pa.paged_decode_attention, (kc.clone(), vc.clone())),
+                         (pa.paged_decode_attention, (kc.clone(), vc.clone())),
+                         (pa.paged_decode_plain, (kc.clone(), vc.clone())),
+                         (pa.paged_decode_attention,
+                          measure.paged_write_poisoned(kc, vc, wb, wo))):
+        outs.append((fn(q, k_new, v_new, k_, v_, tables, lane, kmax, wb, wo),
+                     k_, v_))
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode_attention"] == before + 3
+    (got, gk, gv), (again, _, _), (want, wk, wv), (pois, _, _) = outs
+    terms = pa.abs_terms(q, wk, wv, tables, lane, kmax)
+    assert measure.paged_reading(got, want, terms, PAGED_TOL[dtype]) <= 1
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(got, again) and torch.equal(pois, got)
+
+
+@pytest.mark.cuda
 def test_paged_serving_on_card_matches_cpu_in_float64(card):
     """GPT_TINY in float64 through PagedGenerativeServer on the card and
     on the CPU, a prefix hit among the prompts: the same greedy tokens."""

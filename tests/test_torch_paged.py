@@ -17,10 +17,12 @@ padded rows, whose outputs reach no real row and no logit.
 Inside the port, paged and dense serving give the same tokens bit for
 bit. The server's greedy tokens equal the JAX package's ``greedy_decode``.
 """
+import contextlib
 import ctypes
 import pathlib
 import re
 import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +35,8 @@ from deeplearning4j_tpu.zoo import gpt as jgpt
 from deeplearning4j_tpu_torch.convert import samediff_arrays_from_jax
 from deeplearning4j_tpu_torch.kernels import _cuda
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-from deeplearning4j_tpu_torch.serving.generative import greedy_decode
+from deeplearning4j_tpu_torch.serving.generative import (GenerativeServer,
+                                                        greedy_decode)
 from deeplearning4j_tpu_torch.serving.paged import (NULL_BLOCK, BlockPool,
                                                     PagedGenerativeServer,
                                                     PagedMetrics,
@@ -388,26 +391,328 @@ def test_wrapper_refuses_mismatched_inputs(bad, match):
         pa.paged_attention(**args)
 
 
-def _c_entry_params():
+# ----------------------------------------------------------------------
+# paged_decode_plain (the step's K/V write, then the attention) against
+# the JAX decode functions' write-then-attend
+def _jax_paged_write(kc, vc, k, v, wb, wo):
+    """zoo/gpt.py gpt_paged_decode_fns.decode_fn :668-674 (the scatter)."""
+    ai = jnp.arange(k.shape[1])
+    kc = kc.at[wb[:, None], ai[None, :], wo[:, None]].set(k)
+    vc = vc.at[wb[:, None], ai[None, :], wo[:, None]].set(v)
+    return kc, vc
+
+
+def _jax_dense_write(kc, vc, k, v, pos, active):
+    """zoo/gpt.py gpt_decode_fns.decode_fn :375-382 (the masked per-slot
+    write), one layer's slab [S, A, T, D]."""
+    si = jnp.arange(k.shape[0])[:, None]
+    ai = jnp.arange(k.shape[1])[None, :]
+    at = (si, ai, pos[:, None])
+    kc = kc.at[at].set(jnp.where(active[:, None, None], k, kc[at]))
+    vc = vc.at[at].set(jnp.where(active[:, None, None], v, vc[at]))
+    return kc, vc
+
+
+def _step_rows(n, a, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(n, a, d)).astype(np.float32) for _ in range(3)]
+
+
+def _i32(x):
+    return torch.from_numpy(np.asarray(x, np.int32))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bs", [1, 16, 1024])
+def test_plain_decode_write_matches_the_jax_paged_decode(bs, d):
+    """Lanes at key 0, at a block's last row, at the next block's first and
+    inside a block, one of them inactive (the JAX scatter sends it to the
+    null block; the port writes nothing): outputs of the active lanes
+    within 1e-6, the written rows bit for bit, the null block untouched."""
+    maxb = -(-40 // bs)
+    nb = 4 * maxb + 2
+    kc, vc = _cache(nb, 3, bs, d, seed=bs + d, poison=(nb - 1,))
+    pos = np.minimum([0, bs - 1, bs, 39], 39).astype(np.int32)
+    active = np.array([True, True, False, True])
+    tables = np.zeros((4, maxb), np.int32)
+    for s in range(4):
+        n = pos[s] // bs + 1
+        tables[s, :n] = 1 + s * maxb + np.arange(n)
+    q, k, v = _step_rows(4, 3, d, seed=d)
+    wb = np.where(active, tables[np.arange(4), pos // bs], NULL_BLOCK)
+    wo = np.where(active, pos % bs, 0)
+    jkc, jvc = _jax_paged_write(jnp.asarray(kc), jnp.asarray(vc),
+                                jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(wb), jnp.asarray(wo))
+    want = _jax_decode_attention(jnp.asarray(q), jkc, jvc,
+                                 jnp.asarray(tables), jnp.asarray(pos))
+    pkc, pvc = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got = pa.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pkc,
+        pvc, _i32(tables), torch.arange(4, dtype=torch.int32),
+        _i32(np.where(active, pos, 0)), _i32(np.where(active, wb, -1)),
+        _i32(wo))
+    assert torch.isfinite(got[active]).all()
+    _close(got[active], np.asarray(want)[active], rtol=1e-6)
+    for pt, jt, orig in ((pkc, jkc, kc), (pvc, jvc, vc)):
+        np.testing.assert_array_equal(pt[1:].numpy(), np.asarray(jt)[1:])
+        np.testing.assert_array_equal(pt[NULL_BLOCK].numpy(), orig[0])
+    assert pa.LAUNCHES["paged_decode_attention"] == 0    # nothing launched
+
+
+@pytest.mark.parametrize("d,t", [(16, 40), (32, 40), (64, 40), (128, 40),
+                                 (128, 1024)])
+def test_plain_decode_write_matches_the_jax_dense_decode(d, t):
+    """The dense slab as a paged one (``BS = max_seq``, table ``[s]``,
+    ``write_block = s``, ``write_off = position``; an inactive slot -1):
+    the active slots' outputs within 1e-6 of the JAX dense decode's, and
+    the whole slab after the write bit for bit (both keep an inactive
+    slot's rows)."""
+    rng = np.random.default_rng(d + t)
+    kc, vc = (rng.normal(size=(3, 2, t, d)).astype(np.float32)
+              for _ in range(2))
+    pos = np.array([4, t - 1, 12], np.int32)
+    active = np.array([True, False, True])
+    q, k, v = _step_rows(3, 2, d, seed=t)
+    jkc, jvc = _jax_dense_write(jnp.asarray(kc), jnp.asarray(vc),
+                                jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(pos), jnp.asarray(active))
+    slots = np.arange(3)
+    want = _jax_decode_attention(jnp.asarray(q), jkc, jvc,
+                                 jnp.asarray(slots[:, None]),
+                                 jnp.asarray(pos))
+    pkc, pvc = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got = pa.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pkc,
+        pvc, _i32(slots[:, None]), _i32(slots),
+        _i32(np.where(active, pos, 0)), _i32(np.where(active, slots, -1)),
+        _i32(pos))
+    _close(got[active], np.asarray(want)[active], rtol=1e-6)
+    np.testing.assert_array_equal(pkc.numpy(), np.asarray(jkc))
+    np.testing.assert_array_equal(pvc.numpy(), np.asarray(jvc))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k_new=torch.zeros(2, 2, 8)), "must be q's"),
+    (dict(v_new=torch.zeros(2, 2, 16, dtype=torch.float64)), "dtypes"),
+    (dict(write_block=torch.zeros(3, dtype=torch.int32)), "write_block"),
+    (dict(write_off=torch.zeros(2, 1, dtype=torch.int32)), "write_off"),
+])
+def test_decode_wrapper_refuses_mismatched_writes(bad, match):
+    args = dict(q=torch.zeros(2, 2, 16), k_new=torch.zeros(2, 2, 16),
+                v_new=torch.zeros(2, 2, 16), kc=torch.zeros(4, 2, 8, 16),
+                vc=torch.zeros(4, 2, 8, 16),
+                tables=torch.zeros(2, 3, dtype=torch.int32),
+                lane=torch.zeros(2, dtype=torch.int32),
+                kmax=torch.zeros(2, dtype=torch.int32),
+                write_block=torch.zeros(2, dtype=torch.int32),
+                write_off=torch.zeros(2, dtype=torch.int32))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        pa.paged_decode_attention(**args)
+
+
+def _decode_run(psd, kind):
+    """One decode step of the port's paged or dense decode function over
+    random slabs (lane 2 inactive): (io, kc, vc, the function's result)."""
+    names = jgpt.gpt_param_names(JCFG)
+    pp = {n: psd.get_arr_for_var(n) for n in names}
+    rng = np.random.default_rng(5)
+    if kind == "paged":
+        fn = pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB)[1]
+        shape = (2, 12, 2, BS, 16)
+        tables = np.array([[1, 2, 0, 0], [4, 5, 6, 0], [0, 0, 0, 0],
+                           [8, 0, 0, 0]], np.int32)
+        pos = np.array([9, 17, 5, 0], np.int32)
+        active = np.array([True, True, False, True])
+        io = {"tables": tables, "write_block": np.where(
+                  active, tables[np.arange(4), pos // BS], NULL_BLOCK
+              ).astype(np.int32),
+              "write_off": np.where(active, pos % BS, 0).astype(np.int32)}
+    else:
+        fn = pgpt.gpt_decode_fns(PCFG)[1]
+        shape = (2, 4, 2, MSL, 16)
+        pos = np.array([4, 31, 5, 12], np.int32)
+        active = np.array([True, True, False, True])
+        io = {}
+    io.update(tokens=np.array([3, 60, 7, 1], np.int32), positions=pos,
+              active=active)
+    kc, vc = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for _ in range(2))
+    with torch.inference_mode():
+        return io, kc, vc, fn(pp, kc, vc, io)
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_decode_fns_write_and_attend_in_one_launch_a_layer(monkeypatch,
+                                                           psd, kind):
+    """With the card's launch stubbed (the wrapper's checks pass as for a
+    CUDA tensor), each decode function calls ``paged_decode_attention``
+    once a layer, which launches once with the step's rows and write
+    places, and calls ``index_put_`` never; an inactive lane writes
+    nothing (``write_block`` -1) and attends to key 0."""
+    launches, puts = [], []
+    monkeypatch.setattr(pa, "_check", lambda q, *a: types.SimpleNamespace(
+        type="cuda"))
+    monkeypatch.setattr(pa, "_check_write", lambda *a: None)
+    monkeypatch.setattr(pa, "_launch", lambda q, kc, vc, tables, lane, kmax,
+                        write=None, **kw: launches.append(
+                            (kc.data_ptr(), tables, lane, kmax, write))
+                        or torch.zeros_like(q))
+    real_put = torch.Tensor.index_put_
+    monkeypatch.setattr(torch.Tensor, "index_put_", lambda self, *a, **kw: (
+        puts.append(1), real_put(self, *a, **kw))[1])
+    pa.reset_launches()
+    io, kc, vc, _ = _decode_run(psd, kind)
+    layers = PCFG.num_layers
+    assert pa.LAUNCHES == {"paged_attention": 0,
+                           "paged_decode_attention": layers}
+    assert len(launches) == layers and puts == []
+    act = io["active"]
+    pos = io["positions"]
+    for i, (ptr, tables, lane, kmax, write) in enumerate(launches):
+        assert ptr == kc[i].data_ptr()
+        k_new, v_new, wb, wo = write
+        assert k_new.shape == v_new.shape == (4, 2, 16)
+        np.testing.assert_array_equal(kmax.numpy(), np.where(act, pos, 0))
+        want_wb = io["write_block"] if kind == "paged" else np.arange(4)
+        np.testing.assert_array_equal(wb.numpy(), np.where(act, want_wb, -1))
+        np.testing.assert_array_equal(
+            wo.numpy()[act], (pos % BS if kind == "paged" else pos)[act])
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_decode_fns_keep_the_write_contract(monkeypatch, spec, dense_spec,
+                                            kind):
+    """Every decode step the servers run writes each active lane's K/V row
+    where its last key lies through its table, ``(write_block, write_off)
+    == (tables[lane, kmax // BS], kmax % BS)``: the place whose K and V the
+    kernel takes from the step's rows instead of reading them back."""
+    seen = []
+    real = pa.paged_decode_attention
+
+    def spy(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo):
+        bs = kc.shape[2]
+        for r in torch.nonzero(wb >= 0).flatten().tolist():
+            t = int(kmax[r])
+            seen.append((int(wb[r]), int(wo[r])) == (
+                int(tables[lane[r], t // bs]), t % bs))
+        return real(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo)
+    monkeypatch.setattr(pa, "paged_decode_attention", spy)
+    prompts = mixed_prompts(3, seed=4, max_len=16)
+    if kind == "paged":
+        with make_server(spec) as srv:
+            hs = [srv.submit(p, max_new_tokens=12) for p in prompts]
+            [h.result(timeout=60) for h in hs]
+    else:
+        with GenerativeServer(dense_spec, max_slots=4, max_seq_len=MSL,
+                              warmup=False, device="cpu") as srv:
+            hs = [srv.submit(p, max_new_tokens=12) for p in prompts]
+            [h.result(timeout=60) for h in hs]
+    assert len(seen) > 20 and all(seen)
+
+
+def test_decode_launch_passes_the_write_and_the_geometry(monkeypatch):
+    """``_launch`` hands the C entry null write pointers for
+    ``paged_attention``, the four write tensors for a decode step, and the
+    cache's and the table's geometry and strides."""
+    calls = []
+
+    class Entry:
+        def __call__(self, *a):
+            calls.append(a)
+            return 0
+
+    lib = types.SimpleNamespace(**{pa.ENTRY: Entry()})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    q, k, v = (torch.zeros(3, 2, 16) for _ in range(3))
+    kc, vc = torch.zeros(9, 2, 16, 16), torch.zeros(9, 2, 16, 16)
+    tables = torch.zeros(3, 64, dtype=torch.int32)
+    ints = [torch.zeros(3, dtype=torch.int32) for _ in range(4)]
+    pa._launch(q, kc, vc, tables, *ints[:2], lib=lib)
+    pa._launch(q, kc, vc, tables, *ints[:2], write=(k, v, *ints[2:]), lib=lib)
+    names = [n for n, _ in pa.DECODE_ARGTYPES]
+    plain, write = (dict(zip(names, c)) for c in calls)
+    assert [plain[n] for n in ("k_new", "v_new", "write_block",
+                               "write_off")] == [None] * 4
+    assert write["k_new"] == k.data_ptr() and write["write_off"] == \
+        ints[3].data_ptr()
+    for c in (plain, write):
+        assert (c["N"], c["A"], c["D"], c["BS"], c["MAXB"], c["NB"],
+                c["S"]) == (3, 2, 16, 16, 64, 9, 3)
+        assert (c["skb"], c["ska"], c["skt"]) == kc.stride()[:3]
+        assert c["stream"] == 7
+        assert c["dtype"] == 1 and c["scale"] == 0.25
+
+
+def test_decode_case_builder_and_its_controls():
+    """``measure.paged_decode_write_case`` (what chip_smoke.py and the card
+    tests hand the kernel) writes each active lane at its last key's place;
+    NaN where the step writes changes nothing; and the controls the chip
+    run must see fail the 1e-5 rule: a write one offset off, and one chunk
+    of 16 keys dropped."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    cpu = torch.device("cpu")
+    case = measure.paged_decode_write_case(
+        cpu, [0, 15, 16, 17, 40, 100], 2, 16, 16, torch.float64,
+        active=[True, True, True, False, True, True], seed=2)
+    q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo = case
+    assert wb.tolist()[3] == -1 and kmax.tolist()[3] == 0
+    k1, v1 = kc.clone(), vc.clone()
+    out = pa.paged_decode_attention(q, k_new, v_new, k1, v1, tables, lane,
+                                    kmax, wb, wo)
+    for r in (0, 1, 2, 4, 5):
+        t = int(kmax[r])
+        blk = int(tables[r, t // 16])
+        assert torch.equal(k1[blk, :, t % 16], k_new[r])
+        assert torch.equal(v1[blk, :, t % 16], v_new[r])
+    terms = pa.abs_terms(q, k1, v1, tables, lane, kmax)
+    pk, pv = measure.paged_write_poisoned(kc, vc, wb, wo)
+    poisoned = pa.paged_decode_attention(q, k_new, v_new, pk, pv, tables,
+                                         lane, kmax, wb, wo)
+    assert torch.equal(poisoned, out)
+    off = pa.paged_decode_plain(q, k_new, v_new, kc.clone(), vc.clone(),
+                                tables, lane, kmax, wb,
+                                torch.where(wb >= 0, (wo + 1) % 16, wo))
+    assert measure.paged_reading(off, out, terms, 1e-5) > 1
+    dropped = measure.paged_chunk_dropped(q, k1, v1, tables, lane, kmax, 1)
+    assert measure.paged_reading(dropped, out, terms, 1e-5) > 1
+    full = measure.paged_chunk_dropped(q, k1, v1, tables, lane, kmax, 99)
+    assert measure.paged_reading(full, out, terms, 1e-5) <= 1
+    ops, nbytes = measure.paged_bounds(q, kc, tables, lane, kmax, writes=5)
+    _, plain_bytes = measure.paged_bounds(q, kc, tables, lane, kmax)
+    assert nbytes - plain_bytes == 4 * 5 * 2 * 16 * 8
+
+
+def _c_entry_params(entry):
     src = SRC.read_text()
-    m = re.search(r'extern "C" int dl4j_paged_attention\((.*?)\)\s*\{', src,
-                  re.S)
+    m = re.search(r'extern "C" int ' + entry + r'\((.*?)\)\s*\{', src, re.S)
     params = [p.strip() for p in m.group(1).split(",")]
     return [(" ".join(p.split()[:-1]), p.split()[-1]) for p in params]
 
 
-def test_ctypes_declaration_matches_the_c_entry():
+@pytest.mark.parametrize("entry,pointers", [
+    (pa.ENTRY, ["q", "k_new", "v_new", "kc", "vc", "tables", "lane", "kmax",
+                "write_block", "write_off", "out", "stream"]),
+    (pa.V1_ENTRY, ["q", "kc", "vc", "tables", "lane", "kmax", "out",
+                   "stream"])])
+def test_ctypes_declaration_matches_the_c_entry(entry, pointers):
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int,
                "double": ctypes.c_double}
-    params = _c_entry_params()
-    assert [n for _, n in params] == [
-        n for n, _ in pa.PAGED_ATTENTION_ARGTYPES]
-    assert [c_types[t] for t, _ in params] == [
-        t for _, t in pa.PAGED_ATTENTION_ARGTYPES]
-    pointers = [n for t, n in params if t.endswith("*")]
-    assert pointers == ["q", "kc", "vc", "tables", "lane", "kmax", "out",
-                        "stream"]
+    params = _c_entry_params(entry)
+    argtypes = pa.ENTRIES[entry]
+    assert [n for _, n in params] == [n for n, _ in argtypes]
+    assert [c_types[t] for t, _ in params] == [t for _, t in argtypes]
+    assert [n for t, n in params if t.endswith("*")] == pointers
+
+
+def test_the_source_defines_exactly_the_declared_entries():
+    found = re.findall(r'extern "C" int (\w+)\(', SRC.read_text())
+    assert sorted(found) == sorted(pa.ENTRIES)
 
 
 def test_loading_the_library_declares_the_entry(monkeypatch):
@@ -416,14 +721,16 @@ def test_loading_the_library_declares_the_entry(monkeypatch):
         restype = ctypes.c_int
 
     class Lib:
-        dl4j_paged_attention = Entry()
+        dl4j_paged_decode_attention = Entry()
+        dl4j_paged_attention_v1 = Entry()
 
     lib = Lib()
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
     assert pa._lib() is lib
-    fn = lib.dl4j_paged_attention
-    assert fn.argtypes == [t for _, t in pa.PAGED_ATTENTION_ARGTYPES]
-    assert fn.restype is ctypes.c_int
+    for name, argtypes in pa.ENTRIES.items():
+        fn = getattr(lib, name)
+        assert fn.argtypes == [t for _, t in argtypes]
+        assert fn.restype is ctypes.c_int
 
 
 def test_nvcc_command_builds_the_paged_source_for_sm90a():
@@ -435,15 +742,69 @@ def test_nvcc_command_builds_the_paged_source_for_sm90a():
                         pathlib.Path(out).name)
 
 
-def test_kernel_sums_in_an_order_set_by_key_position_alone():
-    """The source's stream of a key is its position modulo 32 and the
-    combine runs in stream order: nothing in the loop or the combine
-    reads BS except to address a key."""
+def _kernel_code():
+    """The cluster kernel's body, comments stripped."""
     code = "\n".join(line.split("//")[0] for line in
                      SRC.read_text().splitlines())
-    assert "t0 = warp * kGroupsPerWarp; t0 <= last; t0 += kStreams" in code
-    assert "for (int i = 0; i < kStreams; ++i)" in code
+    start = code.index("paged_decode_kernel(const Args a)")
+    return code, code[start:code.index("cudaError_t configure()", start)]
+
+
+def test_kernel_sums_in_an_order_set_by_key_position_alone():
+    """The cluster kernel cuts a row's keys by position alone: chunk c
+    (positions 16 c .. 16 c + 15) goes to cluster rank c % 8 (rank j takes
+    chunks j, j + 8, ...) and key t to stream (t % 16) % S of that block;
+    the block combines its streams in stream order, and rank 0 the
+    cluster's 8 partials in rank order once the other ranks have pushed
+    theirs over distributed shared memory. BS is read only to address a
+    key and to choose how a chunk is copied, and the source has no
+    atomic."""
+    code, body = _kernel_code()
+    assert "__cluster_dims__(kRanks, 1, 1)" in code
+    assert "constexpr int kChunk = 16;" in code
+    assert "constexpr int kRanks = 8;" in code
+    assert (pa.CHUNK, pa.RANKS) == (16, 8)
+    assert "const int c = rank + kRanks * k;" in body
+    assert "const int t0 = (rank + kRanks * k) * kChunk;" in body
+    assert body.count("const int i = (sid + S * jj) & (kChunk - 1);") == 2
+    assert "for (int i = 0; i < S; ++i)" in body
+    # the combine: ranks 1-7 push their partials into rank 0's part_acc
+    # over DSMEM, rank 0 sums them in rank order once they have landed
+    assert "cluster_addr(smem_u32(&part_acc[rank][tid * E]), 0)" in body
+    assert "mbar_wait(smem_u32(&cbar), 0);" in body
+    assert "for (int r = 0; r < kRanks; ++r) {" in body
+    assert "oc += part_acc[r][tid] * w;" in body
+    assert body.count("barrier.cluster.arrive.relaxed.aligned") == 1
+    assert body.count("barrier.cluster.wait.aligned") == 1
+    uses = sorted(ln.strip() for ln in body.splitlines() if "a.BS" in ln)
+    assert uses == sorted([
+        "const int reach = a.MAXB * a.BS;",
+        "const int u = (rank + kRanks * ln) * kChunk / a.BS;",
+        "if (wb >= a.NB || wo < 0 || wo >= a.BS) wb = -1;",
+        "ent = kk < mine ? tab[(rank + kRanks * kk) * kChunk / a.BS] : 0;",
+        "const int64_t off = (c * kChunk) % a.BS;",
+        "const int u = t / a.BS;",
+        "const int64_t off = t - u * a.BS;"])
     assert "atomic" not in code
+
+
+def test_kernel_copies_chunks_in_bulk_before_any_math():
+    """A chunk whose 16 rows are one run of the slab is one bulk copy for
+    K and one for V on the slot's mbarrier, and other block sizes take
+    16-byte cp.async completing on the same mbarrier, both with an L2
+    evict-first policy; a block issues its first chunks before the loop
+    that does the math."""
+    code, body = _kernel_code()
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx" \
+        in code
+    assert "cp.async.mbarrier.arrive.noinc" in code
+    assert "a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;" in code
+    assert body.count("bulk_load(") == 2
+    first = body.index("for (int k = 0; k < first; ++k) issue(k);")
+    assert first < body.index("mbar_wait(")
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
+    assert code.count("L2::cache_hint") == 2 and \
+        "createpolicy.fractional.L2::evict_first" in code
 
 
 # ----------------------------------------------------------------------
