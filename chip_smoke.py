@@ -53,16 +53,24 @@ Phases, in order; any failure exits non-zero:
    and how many device launches a step makes.
 7. main path: GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn
    6144, vocab 32768) at batch 16, seq 512, bf16 MixedPrecision, Adam(1e-4),
-   through ``build_gpt`` -> ``SameDiff.fit(DeviceCachedIterator)``:
-   on ``bench.py``'s data (ids and targets uniform over the vocabulary),
-   one warm-up epoch of GPT_STEPS steps, then a timed epoch over the same
-   batches (step ms, tokens/s, peak memory, the loss per step, which must
-   be finite and fall) in which the attention kernels must launch 2 x 16
-   times (forward and remat re-forward) and 16 times (each backward
-   kernel) a step, with no copy of q, k, v or dO; then two steps
-   under ``torch.profiler``: device launches, busy time and idle share,
-   and device time by group (attention, matmul, layer norm, CE tail,
-   Adam, casts, ...).
+   through ``build_gpt`` -> ``SameDiff.fit(DeviceCachedIterator)``, as
+   ``bench.py`` runs it: no listener, so the scanned tier (the epoch's
+   GPT_STEPS steps captured once as a CUDA graph, replayed once an
+   epoch). On ``bench.py``'s data (ids and targets uniform over the
+   vocabulary), one warm-up epoch (warm-up steps, capture, one replay),
+   then a timed epoch over the same batches (step ms, tokens/s, peak
+   memory, the loss per step, which must be finite and fall) in which
+   the attention kernels must launch 2 x 16 times (forward and remat
+   re-forward) and 16 times (each backward kernel) a step, with no copy
+   of q, k, v or dO: a replay adds to the wrappers' counts what its
+   capture recorded, and one more epoch under ``torch.profiler`` must
+   hold as many of each kernel as the wrappers counted (device launches,
+   busy time and idle share of the replay). Then the per-step tier (the
+   same batches as a list) as the yardstick: a warm-up epoch, a timed
+   epoch with the same launch rule, and two steps under
+   ``torch.profiler``: device launches, busy time and idle share, and
+   device time by group (attention, matmul, layer norm, CE tail, Adam,
+   casts, ...).
 8. path shapes: at each shape, dtype, ReLU flag and dy layout the main
    path gave the BN kernels, each kernel against its plain version, then
    timed alone as phase 9 times attention (cold L2; the median of 20 calls
@@ -145,6 +153,34 @@ Phases, in order; any failure exits non-zero:
    (1, 12, 512, 128) causal) beside the kernels they replace, their plain
    versions, the library and their bound at the 3xTF32 and the float32
    FMA rates.
+14. main path: LeNet (``LeNet(28, 28, 1).build()``) at batch 128 on
+   ``load_mnist(train=True, n_synthetic=2048)`` with one-hot labels, as
+   ``bench.py`` ``bench_lenet`` runs it, through ``net.fit(
+   DeviceCachedIterator(X, Y, 128), epochs, listeners, fused_steps)``
+   (16 steps an epoch) on SameDiff's three fit tiers: the scanned epoch
+   (no listener; one CUDA graph replay an epoch), windows of 8 (a
+   ``ScoreIterationListener`` and ``fused_steps=8``; two replays) and
+   per-step (the listener, ``fused_steps=1``; eager). Each: fit(2) to
+   warm up and capture, then the median of 3 timed fit(6) (samples/s,
+   step ms), peak memory, then one epoch under ``torch.profiler``
+   (device launches and busy time a step, idle share against the timed
+   step; the scanned epoch's device time by kernel); the loss finite
+   and falling. Then the same for the SameDiff MLP of
+   ``bench_samediff_mlp`` (784-512-256-10, Adam(1e-3), 2048 rows). No
+   hand-written kernel is on this path. Float32, TF32 at PyTorch's
+   defaults (cuDNN on, cuBLAS off) on every tier.
+15. tiers and parity: two scanned LeNet runs from one start bit-equal
+   (else the phase sets ``torch.backends.cudnn.deterministic`` and says
+   so); the windowed and scanned tiers against the per-step tier over 2
+   epochs from LeNet's seed and the same batches, every parameter and
+   every step's loss within rtol 1e-5 / atol 1e-6 (the JAX package's
+   tier tolerance), and so an 11-step epoch (windows 8 + 2 + 1) and a
+   ``set_param`` between two fits (it drops the windows, and the next
+   fit captures its window again); a control whose alphat buffer is
+   filled at a window's first replay and never again must fail that
+   rule. Then LeNet in float64 at batch 16, TF32 off: the card's
+   per-step and windowed tiers against the CPU's per-step tier, every
+   gradient and then 3 Adam steps to 1e-6 of each tensor.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
@@ -1077,17 +1113,108 @@ def _gpt_iterator(vocab):
     return DeviceCachedIterator([ids], [tgt], batch_size=GPT_BATCH)
 
 
+def _gpt_epoch(sd, data, label, card):
+    """One timed epoch of ``sd.fit(data)`` (counts set to 0 just before):
+    step ms, tokens/s, peak memory, losses, the attention wrappers'
+    counts and copies."""
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at.reset_launches()
+    t0 = time.perf_counter()
+    hist = sd.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = {"tier": sd.last_fit_stats["tier"],
+         "graph_replays_per_epoch":
+             sd.last_fit_stats["graph_replays_per_epoch"],
+         "window_captures": sd.last_fit_stats["window_captures"],
+         "step_ms": 1000 * wall / GPT_STEPS,
+         "tokens_per_s": GPT_BATCH * GPT_SEQ * GPT_STEPS / wall,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+         "losses": hist.step_losses, "launches": dict(at.LAUNCHES),
+         "dout_copies": at.DOUT_COPIES["attention_bwd"],
+         "align_copies": dict(at.ALIGN_COPIES)}
+    log(f"  {label} ({r['tier']}, {r['graph_replays_per_epoch']} graph "
+        f"replays, {r['window_captures']} captures): {GPT_STEPS} steps in "
+        f"{wall:.3f} s: step {r['step_ms']:.2f} ms, {r['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory {r['peak_mem_gib']:.2f} GiB allocated "
+        f"({r['peak_reserved_gib']:.2f} GiB reserved, graph pools "
+        f"included)  [{card}]")
+    log(f"  loss per step: {[round(v, 4) for v in r['losses']]}")
+    log(f"  attention launches {r['launches']}, dO copies "
+        f"{r['dout_copies']}, q/k/v alignment copies {r['align_copies']}")
+    return r
+
+
+def _check_gpt_epoch(r, want, first_loss):
+    if not all(np.isfinite(r["losses"])) or r["losses"][-1] >= first_loss:
+        raise SystemExit(f"GPT-medium losses {r['losses']}")
+    if r["launches"] != want:
+        raise SystemExit(f"{r['tier']}: attention launches {r['launches']},"
+                         f" want {want}")
+    if r["dout_copies"] or any(r["align_copies"].values()):
+        raise SystemExit(f"the path copied attention inputs: dO "
+                         f"{r['dout_copies']}, q/k/v {r['align_copies']}")
+
+
+def profile_gpt_replay(sd, it, step_ms, card):
+    """One scanned epoch (one replay) under torch.profiler: each attention
+    kernel's launches in the trace, which must equal what the wrappers
+    counted for the replay; device launches, busy time and idle share a
+    step. A trace with fewer launches than counted (the tracer can drop a
+    window's first kernels) is taken once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import attention as at
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        before = dict(at.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sd.fit(it)
+            torch.cuda.synchronize()
+        counted = {k: at.LAUNCHES[k] - before[k] for k in ATTN_KERNELS}
+        if sd.last_fit_stats["graph_replays_per_epoch"] != 1:
+            raise SystemExit("the profiled epoch was not one replay")
+        n_act, n_kernels, busy, by_name = device_activity(prof)
+        traced = {k: 0 for k in ATTN_KERNELS}
+        for e in prof.events():
+            for k in ATTN_KERNELS:
+                if f"{k}_bf16" in e.name and \
+                        e.device_type == DeviceType.CUDA:
+                    traced[k] += 1
+        if traced == counted or attempt:
+            break
+        log(f"  profiler: the trace holds {traced} attention launches, the "
+            f"wrappers counted {counted}: taken again")
+    busy /= GPT_STEPS
+    r = {"launches": n_act / GPT_STEPS, "kernels": n_kernels / GPT_STEPS,
+         "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+         "attention_traced": traced, "attention_counted": counted}
+    log(f"  profiler, one replay of the scanned epoch: {r['launches']:.1f} "
+        f"device launches a step ({r['kernels']:.1f} kernels), busy "
+        f"{busy:.3f} ms a step, idle share {r['idle_share']:.3f} against the "
+        f"timed {step_ms:.2f} ms step; attention kernels in the trace "
+        f"{traced}, counted by the wrappers {counted}  [{card}]")
+    if traced != counted:
+        raise SystemExit(f"the replay's trace holds {traced} attention "
+                         f"launches, the wrappers counted {counted}")
+    return r
+
+
 def phase_gpt(dev, card):
     """GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn 6144,
     vocab 32768, ~505M parameters), batch 16, seq 512, bf16
     MixedPrecision, Adam(1e-4), through ``build_gpt`` ->
-    ``SameDiff.fit(DeviceCachedIterator)`` over ``bench.py``'s data: one
-    warm-up epoch of GPT_STEPS steps, then a timed epoch over the same
-    batches in which every attention of every layer must go
-    through the kernels, then two profiled steps."""
+    ``SameDiff.fit(DeviceCachedIterator)`` over ``bench.py``'s data: the
+    scanned tier (one CUDA graph replay an epoch), a warm-up epoch, then
+    a timed epoch in which every attention of every layer must go
+    through the kernels, then one profiled replay; then the per-step
+    tier the same way, and two of its steps profiled by group."""
     from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
                                                    TrainingConfig)
-    from deeplearning4j_tpu_torch.kernels import attention as at
     from deeplearning4j_tpu_torch.learning import Adam
     from deeplearning4j_tpu_torch.zoo import GPT_MEDIUM, build_gpt
     cfg = GPT_MEDIUM
@@ -1101,45 +1228,38 @@ def phase_gpt(dev, card):
     torch.cuda.synchronize()
     log(f"  built GPT-medium ({n_params} params) in "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    warm = sd.fit(it)
-    torch.cuda.synchronize()
-    log(f"  warm-up: {GPT_STEPS} steps in {time.perf_counter() - t0:.1f} s, "
-        f"losses {[round(v, 4) for v in warm.step_losses]}")
-    torch.cuda.reset_peak_memory_stats()
-    at.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hist = sd.fit(it)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, copies = dict(at.LAUNCHES), at.DOUT_COPIES["attention_bwd"]
-    aligned = dict(at.ALIGN_COPIES)
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = 1000 * wall / GPT_STEPS
-    tokens = GPT_BATCH * GPT_SEQ * GPT_STEPS / wall
-    losses = hist.step_losses
-    log(f"  timed: {GPT_STEPS} steps in {wall:.3f} s: step {step_ms:.2f} ms, "
-        f"{tokens:.1f} tokens/s, peak memory {peak / 2**30:.2f} GiB  [{card}]")
-    log(f"  loss per step: {[round(v, 4) for v in losses]} (ln vocab "
-        f"{math.log(cfg.vocab_size):.4f})")
-    log(f"  attention launches {launches}, dO copies {copies}, q/k/v "
-        f"alignment copies {aligned}")
     L = cfg.num_layers
     want = {"attention_fwd": 2 * L * GPT_STEPS,
             **{k: L * GPT_STEPS for k in ATTN_KERNELS[1:]}}
-    if not all(np.isfinite(losses)) or losses[-1] >= warm.step_losses[0]:
-        raise SystemExit(f"GPT-medium losses {warm.step_losses} {losses}")
-    if launches != want:
-        raise SystemExit(f"attention launches {launches}, want {want}")
-    if copies or any(aligned.values()):
-        raise SystemExit(f"the path copied attention inputs: dO {copies}, "
-                         f"q/k/v {aligned}")
-    metrics = {"step_ms": step_ms, "tokens_per_s": tokens,
-               "peak_mem_gib": peak / 2**30, "losses": losses,
-               "dout_copies": copies}
-    metrics["profile"] = profile_gpt(sd, it, step_ms, card)
-    del sd, it
+    t0 = time.perf_counter()
+    warm = sd.fit(it)
+    torch.cuda.synchronize()
+    log(f"  warm-up epoch ({sd.last_fit_stats['tier']}: warm-up steps, "
+        f"capture of {GPT_STEPS} steps, one replay) in "
+        f"{time.perf_counter() - t0:.1f} s, losses "
+        f"{[round(v, 4) for v in warm.step_losses]}")
+    scanned = _gpt_epoch(sd, it, "timed", card)
+    if scanned["tier"] != "scanned_epoch" or \
+            scanned["graph_replays_per_epoch"] != 1 or \
+            scanned["window_captures"]:
+        raise SystemExit(f"GPT-medium's timed epoch: {sd.last_fit_stats}")
+    _check_gpt_epoch(scanned, want, warm.step_losses[0])
+    launches = scanned["launches"]
+    metrics = {k: scanned[k] for k in ("step_ms", "tokens_per_s",
+                                       "peak_mem_gib", "peak_reserved_gib",
+                                       "losses", "dout_copies")}
+    metrics["replay_profile"] = profile_gpt_replay(sd, it, scanned["step_ms"],
+                                                   card)
+    # the per-step tier, the yardstick: the same batches as a list
+    steps = list(it)
+    sd.fit(steps)
+    per_step = _gpt_epoch(sd, steps, "per-step yardstick", card)
+    if per_step["tier"] != "per_step":
+        raise SystemExit(f"GPT-medium's yardstick ran {per_step['tier']}")
+    _check_gpt_epoch(per_step, want, warm.step_losses[0])
+    metrics["per_step"] = per_step
+    metrics["profile"] = profile_gpt(sd, steps, per_step["step_ms"], card)
+    del sd, it, steps
     torch.cuda.empty_cache()
     return launches, metrics
 
@@ -2537,6 +2657,392 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
 
 
 # ----------------------------------------------------------------------
+# LeNet and the SameDiff MLP through SameDiff's fit tiers (CUDA graphs)
+LENET_BATCH, LENET_ROWS = 128, 2048
+TIMED_EPOCHS, TIMED_TRIALS = 6, 3
+TIER_RTOL, TIER_ATOL = 1e-5, 1e-6
+
+
+def _quiet_listener():
+    from deeplearning4j_tpu_torch.autodiff import ScoreIterationListener
+    return ScoreIterationListener(print_every=10 ** 9,
+                                  print_fn=lambda *a: None)
+
+
+#: (tier, listeners, fused_steps), as ``bench.py`` runs them: no listener
+#: (the scanned epoch), a listener with fused_steps=8 (fused windows),
+#: and a listener with fused_steps=1 (one eager step a batch)
+def _tiers():
+    return (("scanned", [], 1), ("windows", [_quiet_listener()], 8),
+            ("per-step", [_quiet_listener()], 1))
+
+
+def _lenet_data():
+    from deeplearning4j_tpu_torch.dataset import load_mnist
+    X, y = load_mnist(train=True, n_synthetic=LENET_ROWS)
+    return X, np.eye(10, dtype=np.float32)[y]
+
+
+def _mlp_sd(fused_steps, dev="cuda"):
+    """``bench.py`` ``_build_mlp_sd``'s graph: 784 -> 512 -> 256 -> 10,
+    softmax cross-entropy, Adam(1e-3), seed-0 weights."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.learning import Adam
+    rng = np.random.default_rng(0)
+    sd = SameDiff(device=dev)
+    x = sd.placeholder("x", shape=(-1, 784))
+    cur, n_in = x, 784
+    for i, h in enumerate((512, 256)):
+        w = sd.var(f"w{i}", value=rng.normal(0, 0.05, (n_in, h)).astype(
+            np.float32))
+        b = sd.var(f"b{i}", value=np.zeros(h, np.float32))
+        cur = sd.nn.relu(cur.mmul(w).add(b), name=f"h{i}")
+        n_in = h
+    w = sd.var("w_out", value=rng.normal(0, 0.05, (n_in, 10)).astype(
+        np.float32))
+    b = sd.var("b_out", value=np.zeros(10, np.float32))
+    logits = cur.mmul(w).add(b, name="logits")
+    sd.loss.softmax_cross_entropy(logits, sd.placeholder(
+        "labels", shape=(-1, 10)), name="loss")
+    sd.set_loss_variables(["loss"])
+    sd.training_config = (TrainingConfig.builder().updater(Adam(1e-3))
+                          .data_set_feature_mapping("x")
+                          .data_set_label_mapping("labels")
+                          .fused_steps(fused_steps).build())
+    return sd
+
+
+def _mlp_data():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(LENET_ROWS, 784)).astype(np.float32)
+    return X, np.eye(10, dtype=np.float32)[rng.integers(0, 10, LENET_ROWS)]
+
+
+def device_activity(prof):
+    """(device activities, of which kernels, busy ms, ms by name) of a
+    profiler pass: every device event (kernel, copy, set), busy as the
+    union of their intervals."""
+    from torch.autograd import DeviceType
+    spans, kernels, by_name = [], 0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        kernels += not e.name.startswith(("Memcpy", "Memset"))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(spans), kernels, busy / 1e3, by_name
+
+
+def time_tier(fit, sd, steps, batch, base):
+    """``bench.py``'s ``_median_rate``: fit(2) to warm up and capture,
+    then the median of TIMED_TRIALS fit(TIMED_EPOCHS); then one epoch
+    under torch.profiler. Peak memory from before the first fit, less
+    ``base``, what was allocated before the network and its data were
+    made."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    hist = fit(2)
+    rates = []
+    for _ in range(TIMED_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = fit(TIMED_EPOCHS)
+        torch.cuda.synchronize()
+        rates.append(TIMED_EPOCHS * steps * batch /
+                     (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    sps = sorted(rates)[TIMED_TRIALS // 2]
+    step_ms = 1e3 * batch / sps
+    st = dict(sd.last_fit_stats)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit(1)
+        torch.cuda.synchronize()
+    n_dev, n_kern, busy, by_name = device_activity(prof)
+    losses = hist.step_losses + last.step_losses
+    if not (np.all(np.isfinite(losses)) and
+            last.epoch_losses[-1] < hist.epoch_losses[0]):
+        raise SystemExit(f"losses not finite and falling: {losses}")
+    return {"samples_per_s": sps, "step_ms": step_ms, "rates": rates,
+            "replays_per_epoch": st["graph_replays_per_epoch"],
+            "dispatches_per_epoch": st["dispatches_per_epoch"],
+            "tier": st["tier"], "window_sizes": st["window_sizes"],
+            "device_events_per_step": n_dev / steps,
+            "kernels_per_step": n_kern / steps,
+            "busy_ms_per_step": busy / steps,
+            "idle_share": 1 - busy / steps / step_ms if busy else None,
+            "peak_gib": (peak - base) / 2 ** 30, "base_gib": base / 2 ** 30,
+            "top_ms": sorted(((ms / steps, n) for n, ms in by_name.items()),
+                             reverse=True)[:8],
+            "first_loss": hist.step_losses[0],
+            "last_loss": last.step_losses[-1]}
+
+
+def _log_tier(model, tier, r, card):
+    idle = "not measured (no device events)" if r["idle_share"] is None \
+        else f"{r['idle_share']:.3f}"
+    log(f"  {model} {tier:<8} ({r['tier']}): {r['samples_per_s']:.1f} "
+        f"samples/s, step {r['step_ms']:.4f} ms (trials "
+        f"{[round(v, 1) for v in r['rates']]}); graph replays an epoch "
+        f"{r['replays_per_epoch']}, dispatches {r['dispatches_per_epoch']} "
+        f"{r['window_sizes']}; profiler: {r['device_events_per_step']:.1f} "
+        f"device launches a step ({r['kernels_per_step']:.1f} kernels), "
+        f"busy {r['busy_ms_per_step']:.4f} ms a step, idle share {idle}; "
+        f"peak {r['peak_gib']:.4f} GiB above the {r['base_gib']:.3f} GiB "
+        f"earlier phases hold (parameters, Adam state, data, activations, "
+        f"graph pools); loss {r['first_loss']:.4f} -> "
+        f"{r['last_loss']:.4f}  [{card}]")
+    if tier == "scanned":
+        log(f"    device time a step by kernel, the {len(r['top_ms'])} "
+            f"largest (scanned epoch):")
+        for ms, n in r["top_ms"]:
+            log(f"      {ms:8.4f} ms  {n[:110]}")
+
+
+def phase_lenet(card):
+    """LeNet at batch 128 as ``bench.py`` ``bench_lenet`` runs it, then
+    the SameDiff MLP as ``bench_samediff_mlp`` does, each on the three
+    tiers: samples/s, step ms, graph replays an epoch, device launches a
+    step, idle share, peak memory."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    log(f"  float32; cuDNN TF32 {torch.backends.cudnn.allow_tf32}, cuBLAS "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32} (the defaults; the "
+        f"same on every tier)")
+    out = {}
+    X, Y = _lenet_data()
+    steps = LENET_ROWS // LENET_BATCH
+    for tier, listeners, k in _tiers():
+        base = torch.cuda.memory_allocated()
+        net = LeNet(height=28, width=28, channels=1).build()
+        it = DeviceCachedIterator(X, Y, batch_size=LENET_BATCH)
+        r = time_tier(lambda e: net.fit(it, epochs=e, listeners=listeners,
+                                        fused_steps=k),
+                      net.samediff, steps, LENET_BATCH, base)
+        _log_tier("LeNet", tier, r, card)
+        out["lenet", tier] = r
+        del net, it
+        torch.cuda.empty_cache()
+    X, Y = _mlp_data()
+    for tier, listeners, k in _tiers():
+        base = torch.cuda.memory_allocated()
+        sd = _mlp_sd(k)
+        it = DeviceCachedIterator(X, Y, batch_size=LENET_BATCH)
+        r = time_tier(lambda e: sd.fit(it, epochs=e, listeners=listeners),
+                      sd, steps, LENET_BATCH, base)
+        _log_tier("MLP", tier, r, card)
+        out["mlp", tier] = r
+        del sd, it
+        torch.cuda.empty_cache()
+    for model in ("lenet", "mlp"):
+        want = {"scanned": 1, "windows": 2, "per-step": 0}
+        got = {t: out[model, t]["replays_per_epoch"] for t in want}
+        if got != want:
+            raise SystemExit(f"{model}: graph replays an epoch {got}, want "
+                             f"{want}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loss_recorder():
+    """A listener that keeps every step's loss (``.losses``)."""
+    from deeplearning4j_tpu_torch.autodiff import Listener
+
+    class Rec(Listener):
+        frequency = 10 ** 9
+
+        def __init__(self):
+            self.losses = []
+
+        def iterations_done(self, sd, epoch, iterations, losses):
+            self.losses += [float(v) for v in losses]
+    return Rec()
+
+
+_ITERS = {}
+
+
+def _train_lenet(tier, rows=LENET_ROWS, epochs=2, net=None, dev="cuda"):
+    """(net, each step's loss) after ``epochs`` on ``tier``
+    ("per-step", "windows" of 8 or "scanned") from LeNet's seed (or
+    ``net``), over the first ``rows`` rows: one iterator a row count, so
+    a second fit of a net replays the windows its first one captured."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    if rows not in _ITERS:
+        X, Y = _lenet_data()
+        _ITERS[rows] = DeviceCachedIterator(X[:rows], Y[:rows],
+                                            batch_size=LENET_BATCH,
+                                            device=dev)
+    it = _ITERS[rows]
+    net = net or LeNet().build(dev)
+    if tier == "scanned":
+        return net, net.fit(it, epochs=epochs, fused_steps=1).step_losses
+    rec = _loss_recorder()
+    net.fit(it, epochs=epochs, listeners=[rec],
+            fused_steps=8 if tier == "windows" else 1)
+    return net, rec.losses
+
+
+def _reading(pa, pb, la, lb):
+    """The tier rule's reading: max |a - b| / (atol + rtol |b|) over the
+    parameters and the losses; at most 1 passes."""
+    worst = 0.0
+    for n in pb:
+        x = torch.as_tensor(pa[n]).double()
+        y = torch.as_tensor(pb[n]).double()
+        worst = max(worst, float(((x - y).abs() / (
+            TIER_ATOL + TIER_RTOL * y.abs())).max()))
+    x, y = torch.tensor(la).double(), torch.tensor(lb).double()
+    if x.shape != y.shape:
+        return math.inf
+    return max(worst, float(((x - y).abs() / (
+        TIER_ATOL + TIER_RTOL * y.abs())).max()))
+
+
+def phase_tiers():
+    """On the card, from LeNet's seed and the same batches: the windowed
+    (8) and scanned tiers against the per-step tier over 2 epochs, every
+    parameter and every step's loss within rtol 1e-5 / atol 1e-6 (the
+    JAX package's tier tolerance); two scanned runs bit-equal; a tail of
+    3 steps (windows 8 + 2 + 1); set_param between fits seen by the next
+    fit, which captures its window again; a control whose alphat buffer is filled once and never again
+    must fail the rule. Then LeNet in float64 at batch 16, card
+    (per-step and windows) against the CPU's per-step tier: every
+    gradient, then 3 Adam steps, to 1e-6 of each tensor."""
+    from deeplearning4j_tpu_torch.autodiff import window
+    det0 = torch.backends.cudnn.deterministic
+    a, la = _train_lenet("scanned")
+    b, lb = _train_lenet("scanned")
+    same = all(torch.equal(torch.as_tensor(x), torch.as_tensor(
+        b.params()[n])) for n, x in a.params().items()) and la == lb
+    log(f"  two scanned runs from one start (cuDNN deterministic={det0}): "
+        f"bit-equal {same}")
+    if not same:
+        torch.backends.cudnn.deterministic = True
+        log("  not bit-equal: cuDNN's chosen algorithms are not "
+            "deterministic; the rest of this phase sets "
+            "torch.backends.cudnn.deterministic")
+        a, la = _train_lenet("scanned")
+        b, lb = _train_lenet("scanned")
+        same = all(torch.equal(torch.as_tensor(x), torch.as_tensor(
+            b.params()[n])) for n, x in a.params().items()) and la == lb
+        log(f"  two scanned runs, cuDNN deterministic: bit-equal {same}")
+        if not same:
+            raise SystemExit("two scanned runs from one start differ")
+    try:
+        ref, lref = _train_lenet("per-step")
+        readings = {}
+        for tier in ("windows", "scanned"):
+            net, l = _train_lenet(tier)
+            readings[tier] = _reading(net.params(), ref.params(), l, lref)
+        rows = 11 * LENET_BATCH
+        tref, ltref = _train_lenet("per-step", rows)
+        tail, ltail = _train_lenet("windows", rows)
+        sizes = tail.samediff.last_fit_stats["window_sizes"]
+        readings["windows, 11 steps"] = _reading(tail.params(),
+                                                 tref.params(), ltail, ltref)
+        # set_param between fits: it stores a new tensor and drops the
+        # windows, and the next fit captures its window again over it
+        pair = {}
+        for tier in ("scanned", "per-step"):
+            net, l1 = _train_lenet(tier, epochs=1)
+            w = net.params()["layer0_conv_W"]
+            net.set_param("layer0_conv_W", 0.5 * w)
+            if net.samediff._windows:
+                raise SystemExit("set_param kept the captured windows")
+            net, l2 = _train_lenet(tier, epochs=1, net=net)
+            if net.samediff.last_fit_stats["window_captures"] != \
+                    (tier == "scanned"):
+                raise SystemExit(f"{tier}: the fit after set_param captured "
+                                 f"{net.samediff.last_fit_stats}")
+            pair[tier] = (net, l1 + l2)
+        readings["set_param between fits"] = _reading(
+            pair["scanned"][0].params(), pair["per-step"][0].params(),
+            pair["scanned"][1], pair["per-step"][1])
+        # control: each window's alphat row filled at its first replay only
+        orig, filled = window.stage_, set()
+
+        def once(dst, src):
+            if dst.data_ptr() in filled:
+                return
+            filled.add(dst.data_ptr())
+            orig(dst, src)
+
+        window.stage_ = once
+        try:
+            net, l = _train_lenet("windows")
+        finally:
+            window.stage_ = orig
+        control = _reading(net.params(), ref.params(), l, lref)
+    finally:
+        torch.backends.cudnn.deterministic = det0
+    log(f"  tier rule max |a - b| / (1e-6 + 1e-5 |b|), against the per-step "
+        f"tier (<= 1 passes): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in readings.items())
+        + f"; the 11-step tail's windows {sizes}")
+    log(f"  control, alphat filled once a window (a frozen step count): "
+        f"{control:.3g} (must exceed 1)")
+    if not (all(v <= 1 for v in readings.values()) and control > 1
+            and sizes == {8: 1, 2: 1, 1: 1}):
+        raise SystemExit("the fit tiers disagree on the card")
+    phase_lenet_parity()
+    return readings, control
+
+
+def phase_lenet_parity():
+    """LeNet float64, batch 16: gradients, then 3 Adam steps, card
+    (per-step and windows) against the CPU's per-step tier."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    X, Y = _lenet_data()
+    X, Y = X[:64].astype(np.float64), Y[:64].astype(np.float64)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for label, dev, k in (("cpu", "cpu", 1), ("card per-step", "cuda", 1),
+                              ("card windows", "cuda", 4)):
+            conf = LeNet().conf()
+            conf.dtype = "float64"
+            net = MultiLayerNetwork(conf).init(dev)
+            grads = net.samediff.calculate_gradients(
+                {"input": X[:16], "labels": Y[:16]})
+            rec = _loss_recorder()
+            net.fit(DeviceCachedIterator(X[16:], Y[16:], 16, device=dev),
+                    listeners=[rec], fused_steps=k)
+            res[label] = (grads, rec.losses, net.params(),
+                          net.samediff.last_fit_stats["window_sizes"])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    gh, lh, ph, _ = res["cpu"]
+    ok = True
+    for label in ("card per-step", "card windows"):
+        gc, lc, pc, sizes = res[label]
+        eg = max(_tensor_rel(gc[n], gh[n]) for n in gh)
+        ep = max(_tensor_rel(torch.as_tensor(pc[n]), torch.as_tensor(ph[n]))
+                 for n in ph)
+        el = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        log(f"  LeNet float64 bs16, {label} vs cpu over {len(gh)} tensors: "
+            f"gradients worst {eg:.2e}, params after 3 Adam steps worst "
+            f"{ep:.2e}, losses worst {el:.2e} (windows {sizes}); tol 1e-6")
+        ok = ok and eg <= 1e-6 and ep <= 1e-6 and el <= 1e-6 and \
+            len(lc) == 3
+    if not ok:
+        raise SystemExit("LeNet on the card disagrees with the CPU")
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2547,7 +3053,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/13] env")
+    log("[1/15] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -2580,42 +3086,42 @@ def main():
         "copies, DSMEM pushes, cluster barrier and mbarrier waits in SASS:")
     check_paged_build()
 
-    log("[2/13] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/15] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/13] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/15] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/13] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/15] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/13] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/15] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/13] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/15] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[7/13] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[7/15] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[8/13] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[8/15] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -2627,7 +3133,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/13] path shape: attention kernels timed (ms per GPT step)")
+    log("[9/15] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -2641,18 +3147,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/13] kernels: paged attention (CUDA C++) vs plain")
+    log("[10/15] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/13] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[11/15] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[12/13] main path: GPT-medium float32 serving, "
+    log(f"[12/15] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -2661,11 +3167,24 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[13/13] path shapes: paged attention vs plain, then timed")
+    log("[13/15] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[14/15] main path: LeNet bs{LENET_BATCH} through "
+        f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
+        f"(scanned epoch, windows of 8, per-step)")
+    t0 = time.perf_counter()
+    phase_lenet(card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[15/15] tiers and parity: LeNet tiers agree on the card; float64 "
+        "card vs CPU")
+    t0 = time.perf_counter()
+    phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []

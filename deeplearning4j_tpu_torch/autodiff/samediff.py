@@ -3,8 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: graph
 recording (``var`` :138, ``constant`` :160, ``placeholder`` :170,
 ``invoke`` :299, ``OpNode`` :59), ``remat_scope`` :417, ``_prune`` :452,
-``output`` :581, ``calculate_gradients`` :729 and the per-step ``fit``
-tier (:1558) with the train step of ``_build_step_parts`` :773.
+``output`` :581, ``calculate_gradients`` :729 and ``fit`` (:1558) with
+the train step of ``_build_step_parts`` :773; ``fit``'s tiers (per-step,
+fused windows, scanned epoch) are ``autodiff/window.py``.
 
 Where the JAX package traces the pruned graph into one jitted function
 and takes ``jax.grad`` of it, the port runs the pruned op order eagerly
@@ -20,10 +21,15 @@ into the float32 masters and updates them (and the updater state) in
 place.
 
 Values live on the SameDiff's ``device``: the CUDA card unless
-``device="cpu"``. Not ported yet (ROADMAP queue 1): control flow
-(``while_loop``/``cond``/``scan``), the fused-window and scanned-epoch
-tiers, ``precompile``, ``exec_debug``, serde, the sentinel, tensor
-statistics and listeners.
+``device="cpu"``. ``fit`` updates the stored arrays in place;
+``set_arr_for_var`` stores a new tensor, as the JAX package does, so a
+tensor ``get_arr_for_var`` returned earlier (a server's pulled weights)
+keeps its values. A captured fit window reads the stored arrays by
+address: whatever changes one (``set_arr_for_var``, a new variable or op,
+a new updater state) drops the captured windows, and the next fit
+captures them again. Not ported yet (ROADMAP queue 1): control flow
+(``while_loop``/``cond``/``scan``), ``precompile``, ``exec_debug``,
+serde, the sentinel, gradient accumulation and tensor statistics.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch.autodiff import window
 from deeplearning4j_tpu_torch.autodiff.ops_namespaces import make_namespaces
 from deeplearning4j_tpu_torch.autodiff.training import History, torch_dtype
 from deeplearning4j_tpu_torch.autodiff.variable import SDVariable, VariableType
@@ -84,6 +91,14 @@ class SameDiff:
         self._group_counter = 0
         self.training_config = None
         self._updater_state = None
+        self.last_fit_stats: Optional[Dict[str, Any]] = None
+        # captured fit windows (autodiff/window.py), valid for _windows_for
+        self._windows: Dict[Any, Any] = {}
+        self._windows_for: Optional[Tuple] = None
+        self._pool = None
+        self._stream = None
+        # the scanned tier's inputs (autodiff/window.py _bound_inputs)
+        self._bound: Optional[Tuple] = None
         for ns_name, ns in make_namespaces(self).items():
             setattr(self, ns_name, ns)
 
@@ -136,7 +151,15 @@ class SameDiff:
                        str(arr.dtype).replace("torch.", ""))
         self._vars[name] = v
         self._arrays[name] = arr
+        self._changed()
         return v
+
+    def _changed(self) -> None:
+        """The graph, a stored array's address or the updater state
+        changed: captured fit windows are dropped."""
+        self._windows = {}
+        self._windows_for = None
+        self._bound = None
 
     def placeholder(self, name: str, shape: Optional[Sequence[int]] = None,
                     dtype: str = "float32") -> SDVariable:
@@ -187,15 +210,24 @@ class SameDiff:
         return None if a is None else a.detach()
 
     def set_arr_for_var(self, name: str, value) -> None:
+        """Store ``value`` as a new tensor (never the caller's, and never
+        written into the one stored before, which earlier
+        ``get_arr_for_var`` callers may hold); the captured fit windows,
+        which read the old one, are dropped."""
         v = self._vars[name]
         if v.var_type not in (VariableType.VARIABLE, VariableType.CONSTANT):
             raise ValueError(f"{name} is {v.var_type.value}; has no stored "
                              f"array")
-        self._arrays[name] = self._tensor(value, copy=True)
+        new = self._tensor(value, copy=True)
+        self._arrays[name] = new
+        v._shape = tuple(new.shape)
+        v._dtype = str(new.dtype).replace("torch.", "")
+        self._changed()
 
     def set_loss_variables(self, names: Sequence[Union[str, SDVariable]]):
         self.loss_variables = [n.name if isinstance(n, SDVariable) else n
                                for n in names]
+        self._changed()
 
     def rename_variable(self, old: str, new: str) -> SDVariable:
         if new in self._vars:
@@ -210,6 +242,7 @@ class SameDiff:
             node.outputs = [new if o == old else o for o in node.outputs]
         self.loss_variables = [new if n == old else n
                                for n in self.loss_variables]
+        self._changed()
         return v
 
     def outputs(self) -> List[str]:
@@ -239,6 +272,7 @@ class SameDiff:
             outputs=out_names, attrs=dict(attrs or {}),
             group=self._active_group)
         self._op_order.append(node_name)
+        self._changed()
         outs = [self._vars[n] for n in out_names]
         return outs[0] if n_outputs == 1 else outs
 
@@ -336,8 +370,12 @@ class SameDiff:
                     self._run_nodes(_nodes, local)
                 return tuple(local[o] for o in _eout)
 
+            # a captured fit window holds no random op (the graph tiers
+            # refuse one), and reading the RNG state is not allowed while
+            # a CUDA graph is captured
             res = checkpoint(seg_fn, *[env[i] for i in ext_in],
-                             use_reentrant=False)
+                             use_reentrant=False,
+                             preserve_rng_state=not window.capturing())
             env.update(zip(ext_out, res))
         missing = [o for o in outputs if o not in env]
         if missing:
@@ -417,11 +455,15 @@ class SameDiff:
         return dict(zip(names, grads))
 
     # ------------------------------------------------------------------
-    # training (reference: SameDiff.fit, one step per batch)
-    def _train_step(self, names: List[str], ph: Env, state, tc) -> torch.Tensor:
+    # training (reference: SameDiff.fit)
+    def _train_step(self, names: List[str], ph: Env, state,
+                    scal: torch.Tensor) -> torch.Tensor:
         """Forward under the mixed-precision policy, backward into the
-        float32 masters, the updater in place. Returns the (unscaled)
-        loss, on the device."""
+        float32 masters, the updater in place with the step's scalar
+        ``scal`` (``updater.step_scalars``'s value, a 0-d device tensor).
+        Returns the (unscaled) loss, on the device. No host sync: fit
+        windows capture it in a CUDA graph."""
+        tc = self.training_config
         mp = tc.mixed_precision
         loss_names = self._resolve_loss()
         masters = [self._arrays[n] for n in names]
@@ -443,44 +485,58 @@ class SameDiff:
                                     materialize_grads=True)
         if scale:
             grads = [g / scale for g in grads]
-        tc.updater.apply_(masters, grads, state, tc.iteration_count,
-                          tc.epoch_count)
-        tc.iteration_count += 1
+        tc.updater.update_(masters, grads, state, scal)
         return loss.detach()
 
-    def fit(self, dataset_iterator, epochs: int = 1,
-            listeners=()) -> History:
-        """Train ``epochs`` times over ``dataset_iterator`` (batches of
-        ``(features, labels)`` or ``DataSet``s, e.g. a
-        ``DeviceCachedIterator``), one step per batch. Features and labels
-        feed the placeholders named by the config's
-        ``data_set_feature_mapping`` / ``data_set_label_mapping``."""
+    def _fit_state(self):
+        """(trainable names, updater state per name), the state made or
+        kept as the JAX fit keeps it: reused while the trainable set is
+        the same."""
         tc = self.training_config
-        if tc is None:
-            raise ValueError("set sd.training_config = TrainingConfig(...) "
-                             "first")
-        if listeners:
-            raise NotImplementedError(
-                "SameDiff listeners are not ported yet (ROADMAP queue 1); "
-                "fit returns the loss history")
         names = list(self.trainable_params())
         if self._updater_state is None or \
                 set(self._updater_state) != set(names):
             masters = [self._arrays[n] for n in names]
             self._updater_state = dict(zip(names, tc.updater.init(masters)))
-        state = [self._updater_state[n] for n in names]
-        history = History()
-        for epoch in range(epochs):
-            losses = []
-            for batch in dataset_iterator:
-                feats, labels = _split_batch(batch)
-                ph = self._prep_placeholders({
-                    **dict(zip(tc.data_set_feature_mapping, feats)),
-                    **dict(zip(tc.data_set_label_mapping, labels))})
-                losses.append(self._train_step(names, ph, state, tc))
-            if not losses:
-                raise ValueError("fit got no batches")
-            step = torch.stack(losses).tolist()      # one sync per epoch
-            history.add_epoch(epoch, float(np.mean(step)), step)
-            tc.epoch_count += 1
-        return history
+            self._changed()
+        return names, [self._updater_state[n] for n in names]
+
+    def _window_cache(self) -> Dict[Any, Any]:
+        """The captured fit windows, for this training config."""
+        tc = self.training_config
+        owner = (tc, tc.updater, tc.mixed_precision)
+        if self._windows_for is None or any(
+                a is not b for a, b in zip(self._windows_for, owner)):
+            self._windows = {}
+            self._windows_for = owner
+        return self._windows
+
+    def _graph_pool(self):
+        """One memory pool for all of this graph's captured windows."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        """The side stream the windows warm up and are captured on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def fit(self, dataset_iterator, epochs: int = 1,
+            listeners=()) -> History:
+        """Train ``epochs`` times over ``dataset_iterator`` (batches of
+        ``(features, labels)`` or ``DataSet``s, e.g. a
+        ``DeviceCachedIterator``). Features and labels feed the
+        placeholders named by the config's ``data_set_feature_mapping`` /
+        ``data_set_label_mapping``. The tier (``autodiff/window.py``):
+        the scanned epoch with no listeners, ``fused_steps <= 1`` and an
+        iterator with ``stacked_batches``; fused windows of
+        ``fused_steps`` steps when it is above 1; else one step a batch.
+        ``listeners`` get each step's loss in bursts
+        (``Listener.iterations_done``)."""
+        tc = self.training_config
+        if tc is None:
+            raise ValueError("set sd.training_config = TrainingConfig(...) "
+                             "first")
+        return window.fit(self, dataset_iterator, epochs, listeners)

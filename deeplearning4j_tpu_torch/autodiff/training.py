@@ -2,7 +2,7 @@
 
 Counterpart of ``deeplearning4j_tpu/autodiff/training.py``
 (``MixedPrecision`` :33, ``TrainingConfig`` :94 with its ``builder()``
-:350, ``History``). The cast policy is that of the JAX train step
+:350, ``History``, ``Listener`` :385, ``ScoreIterationListener`` :419). The cast policy is that of the JAX train step
 (``samediff.py`` ``_build_step_parts``): under ``MixedPrecision`` the
 float parameters, constants and inputs are cast to the compute dtype at
 the top of the forward (integer ids stay as they are; batch-norm running
@@ -11,7 +11,7 @@ gradients flow back through the casts into the float32 masters.
 
 A field of the JAX package's ``TrainingConfig`` that this port does not
 honour yet is not accepted: the constructor and the builder have no such
-argument, and ``fused_steps`` other than 1 raises.
+argument (``accum_steps``, ``sentinel``, ...).
 """
 from __future__ import annotations
 
@@ -78,15 +78,11 @@ class TrainingConfig:
     iteration_count: int = 0
     epoch_count: int = 0
     mixed_precision: Optional[MixedPrecision] = None
-    # fused windows are not ported: one step per batch
+    # K > 1: fit runs K steps a dispatch (autodiff/window.py)
     fused_steps: int = 1
 
     def __post_init__(self):
-        if int(self.fused_steps) != 1:
-            raise NotImplementedError(
-                f"TrainingConfig.fused_steps={self.fused_steps} is not "
-                f"ported yet (ROADMAP queue 1: SameDiff's fused-window "
-                f"tier); the port runs one step per batch")
+        self.fused_steps = int(self.fused_steps)
         self.data_set_feature_mapping = list(self.data_set_feature_mapping)
         self.data_set_label_mapping = list(self.data_set_label_mapping)
 
@@ -141,3 +137,42 @@ class History:
 
     def final_loss(self) -> float:
         return self.epoch_losses[-1] if self.epoch_losses else float("nan")
+
+
+class Listener:
+    """Training listener (reference: autodiff.listeners.Listener). Return
+    False from ``on_epoch_end`` to stop.
+
+    Losses stay on the device during a fit; ``fit`` fetches them once
+    every ``frequency`` steps (the smallest of its listeners') and
+    delivers the burst through ``iterations_done``, whose default replays
+    ``iteration_done`` step by step."""
+
+    #: how often (in iterations) this listener needs losses delivered
+    frequency: int = 10
+
+    def on_training_start(self, sd): ...
+    def on_training_end(self, sd): ...
+    def on_epoch_start(self, sd, epoch: int): ...
+    def on_epoch_end(self, sd, epoch: int, mean_loss: float): ...
+    def iteration_done(self, sd, epoch: int, iteration: int,
+                       loss: float): ...
+
+    def iterations_done(self, sd, epoch: int, iterations: Sequence[int],
+                        losses: Sequence[float]):
+        for it, lo in zip(iterations, losses):
+            self.iteration_done(sd, epoch, it, lo)
+
+
+class ScoreIterationListener(Listener):
+    """Print the score every ``print_every`` iterations (reference:
+    optimize/listeners/ScoreIterationListener)."""
+
+    def __init__(self, print_every: int = 10, print_fn=print):
+        self.print_every = print_every
+        self.frequency = print_every
+        self.print_fn = print_fn
+
+    def iteration_done(self, sd, epoch, iteration, loss):
+        if iteration % self.print_every == 0:
+            self.print_fn(f"Score at iteration {iteration} is {loss}")

@@ -1,8 +1,8 @@
 """Device-cached batches (counterpart of
-``deeplearning4j_tpu/dataset/iterators.py`` ``DeviceCachedIterator`` :81):
-features and labels are uploaded to the device once, and every epoch
-yields slices of them, so the training loop moves no data from the
-host."""
+``deeplearning4j_tpu/dataset/iterators.py`` ``DeviceCachedIterator`` :81,
+``stacked_batches`` :138): features and labels are uploaded to the device
+once, and every epoch yields slices of them, so the training loop moves
+no data from the host."""
 from __future__ import annotations
 
 import numpy as np
@@ -52,3 +52,15 @@ class DeviceCachedIterator:
             ls = [y[i:i + self._batch] for y in self.Ys]
             yield (fs if self._multi_f else fs[0],
                    ls if self._multi_l else ls[0])
+
+    def stacked_batches(self):
+        """The batches stacked on a leading steps axis, as views of the
+        tensors on the device (no copy): ``([X...], [Y...])``, each of
+        shape ``(steps, batch, ...)``. SameDiff's scanned epoch reads
+        them in place."""
+        steps = self._n // self._batch
+
+        def _stk(a):
+            return a.view(steps, self._batch, *a.shape[1:])
+
+        return [_stk(x) for x in self.Xs], [_stk(y) for y in self.Ys]

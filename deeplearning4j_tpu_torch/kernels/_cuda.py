@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -36,6 +36,40 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build time, "log": nvcc's output}, for the builds
 #: this process ran
 BUILDS: Dict[str, dict] = {}
+
+
+#: every wrapper's counters (name -> count: launches, copies), registered
+#: by the kernel modules at import. A CUDA graph records launches without
+#: making them: a captured fit window takes what its recording added back
+#: out and adds it again at each replay (``autodiff/window.py``).
+COUNTERS: List[Dict[str, int]] = []
+#: (counter, name, count): what a span of work added to the counters
+Counts = List[Tuple[Dict[str, int], str, int]]
+
+
+def register_counters(*counters: Dict[str, int]) -> None:
+    COUNTERS.extend(counters)
+
+
+def count_snapshot() -> List[Dict[str, int]]:
+    return [dict(c) for c in COUNTERS]
+
+
+def counts_since(snapshot: List[Dict[str, int]]) -> Counts:
+    """What the counters gained since ``snapshot`` (a counter registered
+    since then started at its values when it was registered: zero)."""
+    out = []
+    for i, c in enumerate(COUNTERS):
+        before = snapshot[i] if i < len(snapshot) else {}
+        for k, n in c.items():
+            if n != before.get(k, 0):
+                out.append((c, k, n - before.get(k, 0)))
+    return out
+
+
+def add_counts(counts: Counts, sign: int = 1) -> None:
+    for c, k, n in counts:
+        c[k] += sign * n
 
 
 def source(name: str, csrc: str = CSRC) -> str:

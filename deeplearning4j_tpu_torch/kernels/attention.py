@@ -97,6 +97,8 @@ ENTRIES = tuple(f"dl4j_{k}" for k in LAUNCHES)
 #: share one pair; launches on two streams never do.
 _WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 
+_cuda.register_counters(LAUNCHES, DOUT_COPIES, ALIGN_COPIES)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:

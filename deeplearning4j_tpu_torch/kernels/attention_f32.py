@@ -67,6 +67,8 @@ ENTRIES = {"dl4j_attention_fwd_f32": FWD_ARGTYPES,
            "dl4j_paged_prefill_f32": PREFILL_ARGTYPES,
            "dl4j_attention_f32_blocks_per_sm": OCCUPANCY_ARGTYPES}
 
+_cuda.register_counters(LAUNCHES, ALIGN_COPIES)
+
 
 def reset_launches() -> None:
     for d in (LAUNCHES, ALIGN_COPIES):

@@ -83,6 +83,8 @@ _KERNEL_DTYPES = tuple(_DTYPE_CODE)
 def kernel_name(phase: int, relu: bool) -> str:
     return f"bn{'_relu' if relu else ''}_bwd_phase{phase}"
 
+_cuda.register_counters(LAUNCHES)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:

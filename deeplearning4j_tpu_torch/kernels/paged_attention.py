@@ -90,6 +90,8 @@ V1_ARGTYPES = (
 ENTRY, V1_ENTRY = "dl4j_paged_decode_attention", "dl4j_paged_attention_v1"
 ENTRIES = {ENTRY: DECODE_ARGTYPES, V1_ENTRY: V1_ARGTYPES}
 
+_cuda.register_counters(LAUNCHES)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:

@@ -5,6 +5,15 @@ Counterpart of ``deeplearning4j_tpu/learning/updaters.py`` (``IUpdater``,
 the JAX package computes ``updates`` and returns ``params - updates``;
 here each leaf is updated in place under ``torch.no_grad()``, which keeps
 one copy of the weights and of the state.
+
+What changes from step to step (the learning rate, Adam's ``alphat``) is
+one scalar a step, computed on the host in float32, as the JAX package
+computes it, by ``step_scalars``; it reaches the update as a 0-d tensor
+on the parameters' device (``update_``'s ``scal``), which the caller
+fills before the step (``autodiff/window.py`` ``stage_``). So an update
+captured once in a CUDA graph reads the value a fit tier wrote into that
+tensor before each replay, instead of the first step's value frozen
+into the graph.
 """
 from __future__ import annotations
 
@@ -17,24 +26,63 @@ import torch
 from deeplearning4j_tpu_torch.learning.schedules import resolve_lr
 
 
+def stage_(dst: torch.Tensor, src) -> None:
+    """Copy ``src`` (a numpy array or a tensor) into ``dst`` in place; a
+    host array goes through pinned memory, with a copy that does not
+    wait for the device. How every caller hands the updater its step's
+    scalars (:meth:`IUpdater.apply_`, the fit tiers, ``ComputationGraph``).
+    """
+    if isinstance(src, torch.Tensor) and src.device.type != "cpu":
+        dst.copy_(src)
+        return
+    t = torch.from_numpy(np.ascontiguousarray(src)) \
+        if isinstance(src, np.ndarray) else src
+    t = t.to(dst.dtype)
+    if dst.device.type == "cuda":
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)
+
+
 class IUpdater:
-    """``init(params) -> state``; ``apply_(params, grads, state, iteration)``
-    updates ``params`` and ``state`` in place (``p -= update``)."""
+    """``init(params) -> state``; ``update_(params, grads, state, scal)``
+    updates ``params`` and ``state`` in place (``p -= update``), with
+    ``scal`` the step's value of :meth:`step_scalars`, a 0-d tensor on
+    the device; ``apply_(params, grads, state, iteration)`` does one step
+    with the scalar staged into a new tensor."""
 
     def init(self, params: Sequence[torch.Tensor]) -> List[Tuple]:
         return [self._leaf_init(p) for p in params]
 
-    @torch.no_grad()
+    def step_scalars(self, iterations: Sequence[int],
+                     epoch: int = 0) -> np.ndarray:
+        """(len(iterations),) float32: each step's scalar."""
+        return np.array([self._scalar(it, epoch) for it in iterations],
+                        np.float32)
+
+    def _scalar(self, iteration: int, epoch: int) -> float:
+        """The learning rate, resolved as the JAX package resolves it."""
+        return resolve_lr(getattr(self, "learning_rate", 0.0), iteration,
+                          epoch)
+
     def apply_(self, params, grads, state, iteration: int,
                epoch: int = 0) -> None:
-        lr = resolve_lr(getattr(self, "learning_rate", 0.0), iteration, epoch)
+        params = list(params)
+        if not params:
+            return
+        scal = torch.zeros(1, dtype=torch.float32, device=params[0].device)
+        stage_(scal, self.step_scalars([iteration], epoch))
+        self.update_(params, grads, state, scal[0])
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, scal: torch.Tensor) -> None:
         for p, g, s in zip(params, grads, state):
-            self._leaf_apply_(p, g, s, lr)
+            self._leaf_apply_(p, g, s, scal)
 
     def _leaf_init(self, p) -> Tuple:
         return ()
 
-    def _leaf_apply_(self, p, g, s, lr: float) -> None:
+    def _leaf_apply_(self, p, g, s, lr: torch.Tensor) -> None:
         raise NotImplementedError
 
 
@@ -71,14 +119,23 @@ class Adam(IUpdater):
     update = alphat * m' / (sqrt(v') + eps) with the reference's
     ``alphat = lr * sqrt(1 - b2^t) / (1 - b1^t)``, t = iteration + 1.
 
-    ``alphat`` is computed on the host in float32, as the JAX package
-    computes it (``1 - b2^t`` in float32 is what it divides by). The
-    leaves are updated together with PyTorch's multi-tensor (``_foreach``)
-    ops, a few launches per step for all of them."""
+    ``alphat`` is the step's scalar, computed on the host in float32, as
+    the JAX package computes it (``1 - b2^t`` in float32 is what it
+    divides by). The leaves are updated together with PyTorch's
+    multi-tensor (``_foreach``) ops, a few launches per step for all of
+    them, in the JAX expression's order: ``alphat * m'``, divided by the
+    denominator, subtracted from the parameter (one ``addcdiv`` with
+    value -1, which negates exactly). The two temporaries of that last
+    part (``alphat * m'`` and the denominator) are made for groups of
+    leaves of at most ``GROUP`` elements, so a large model holds two
+    group-sized temporaries, not two parameter-sized ones."""
     learning_rate: float = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
+    #: elements a group of leaves holds at most in the final update
+    #: (a leaf larger than this is a group of its own)
+    GROUP = 1 << 26
 
     def _leaf_init(self, p):
         return (torch.zeros_like(p), torch.zeros_like(p))
@@ -89,13 +146,15 @@ class Adam(IUpdater):
         return float(f(lr) * np.sqrt(f(1.0) - f(self.beta2) ** t)
                      / (f(1.0) - f(self.beta1) ** t))
 
+    def _scalar(self, iteration, epoch):
+        return self.alphat(resolve_lr(self.learning_rate, iteration, epoch),
+                           iteration)
+
     @torch.no_grad()
-    def apply_(self, params, grads, state, iteration: int,
-               epoch: int = 0) -> None:
+    def update_(self, params, grads, state, scal) -> None:
         params, grads = list(params), list(grads)
         if not params:
             return
-        lr = resolve_lr(self.learning_rate, iteration, epoch)
         ms = [s[0] for s in state]
         vs = [s[1] for s in state]
         b1, b2 = self.beta1, self.beta2
@@ -103,7 +162,15 @@ class Adam(IUpdater):
         torch._foreach_add_(ms, grads, alpha=1.0 - b1)
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_sqrt(vs)
-        torch._foreach_add_(denom, self.epsilon)
-        torch._foreach_addcdiv_(params, ms, denom,
-                                value=-self.alphat(lr, iteration))
+        lo = 0
+        while lo < len(params):
+            hi, n = lo + 1, params[lo].numel()
+            while hi < len(params) and n + params[hi].numel() <= self.GROUP:
+                n += params[hi].numel()
+                hi += 1
+            update = torch._foreach_mul(ms[lo:hi], scal)
+            denom = torch._foreach_sqrt(vs[lo:hi])
+            torch._foreach_add_(denom, self.epsilon)
+            torch._foreach_addcdiv_(params[lo:hi], update, denom, value=-1.0)
+            del update, denom
+            lo = hi

@@ -1,4 +1,6 @@
-from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.conf import (ListBuilder,
+                                              MultiLayerConfiguration,
+                                              NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conv_layers import ZeroPaddingLayer
 from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
                                                ComputationGraphConfiguration,
@@ -10,9 +12,11 @@ from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 GlobalPoolingLayer,
                                                 InputType, OutputLayer,
                                                 SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 __all__ = ["ActivationLayer", "BatchNormalization", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvolutionLayer", "DenseLayer",
            "ElementWiseVertex", "GlobalPoolingLayer", "GraphBuilder",
-           "InputType", "NeuralNetConfiguration", "OutputLayer",
+           "InputType", "ListBuilder", "MultiLayerConfiguration",
+           "MultiLayerNetwork", "NeuralNetConfiguration", "OutputLayer",
            "SubsamplingLayer", "ZeroPaddingLayer"]

@@ -29,7 +29,7 @@ from deeplearning4j_tpu_torch.autodiff.training import (History,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.convert import params_to_jax
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
-from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
+from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd, stage_
 from deeplearning4j_tpu_torch.nn.activations import (activation_fn,
                                                      resolve_activation)
 from deeplearning4j_tpu_torch.nn.layers import (
@@ -243,6 +243,7 @@ class ComputationGraph:
         self.training_config: Optional[TrainingConfig] = None
         self._params: List[nn.Parameter] = []
         self._updater_state = None
+        self._scal: Optional[torch.Tensor] = None   # the step's scalar
         self._score = float("nan")
 
     def init(self, device: DeviceLike = None) -> "ComputationGraph":
@@ -306,8 +307,11 @@ class ComputationGraph:
         tc = self.training_config
         if self._updater_state is None:
             self._updater_state = tc.updater.init(self._params)
-        tc.updater.apply_(self._params, grads, self._updater_state,
-                          tc.iteration_count)
+            self._scal = torch.zeros(1, dtype=torch.float32,
+                                     device=self._params[0].device)
+        stage_(self._scal, tc.updater.step_scalars([tc.iteration_count]))
+        tc.updater.update_(self._params, grads, self._updater_state,
+                           self._scal[0])
         tc.iteration_count += 1
         return loss.detach()
 

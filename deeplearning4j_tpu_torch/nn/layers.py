@@ -4,12 +4,20 @@ Counterpart of ``deeplearning4j_tpu/nn/layers.py`` (``InputType`` :35,
 ``BaseLayer`` :123, ``BuildContext`` :162, ``DenseLayer`` :237,
 ``ConvolutionLayer`` :300, ``SubsamplingLayer`` :346,
 ``BatchNormalization`` :378, ``ActivationLayer`` :420,
-``GlobalPoolingLayer`` :486, ``OutputLayer`` :541). A configuration's
-``build`` draws its parameters from the build context's numpy generator in
-the JAX package's order and returns an ``nn.Module``. Parameter names are
-the JAX package's suffixes (``W``, ``b``, ``gamma``, ``beta``; state
-``mean``, ``var``), so ``{node}.{suffix}`` in a state dict is
-``{node}_{suffix}`` in the JAX network.
+``GlobalPoolingLayer`` :486, ``_attach_loss_head`` :527, ``OutputLayer``
+:541). A configuration has two builders:
+
+- ``build`` (``ComputationGraph``) draws its parameters from the build
+  context's numpy generator in the JAX package's order and returns an
+  ``nn.Module``. Parameter names are the JAX package's suffixes (``W``,
+  ``b``, ``gamma``, ``beta``; state ``mean``, ``var``), so
+  ``{node}.{suffix}`` in a state dict is ``{node}_{suffix}`` in the JAX
+  network.
+- ``build_sd`` (``MultiLayerNetwork``) records the JAX ``build`` methods'
+  ops into a SameDiff graph under the same variable names
+  (``layer{i}_{kind}_W``, ``_b``, ...), with the same draws. Dense,
+  output, convolution and subsampling layers have one; another layer
+  class in a ``MultiLayerNetwork`` is refused.
 
 Parameters are stored in the configuration's dtype (float32 masters by
 default). Each module casts them to the dtype of its input, which is the
@@ -50,6 +58,9 @@ class InputType:
     @property
     def flat_size(self) -> int:
         return int(np.prod(self.dims))
+
+    def placeholder_shape(self) -> Tuple[int, ...]:
+        return (-1,) + self.dims
 
 
 def _as_pair(v):
@@ -95,14 +106,59 @@ class BuildContext:
         return t.contiguous(memory_format=memory_format)
 
 
+@dataclasses.dataclass
+class SDBuildContext:
+    """Carries the SameDiff graph, the init generator and the layer index
+    through a ``MultiLayerNetwork`` build (the JAX ``BuildContext``)."""
+    sd: object                      # SameDiff
+    rng: np.random.Generator
+    dtype: str = "float32"
+    idx: int = 0
+    labels_var: object = None       # labels placeholder, for the loss head
+    output_var: object = None       # set by the output layer
+    cnn_format: str = "NHWC"
+
+    def lname(self, kind: str) -> str:
+        return f"layer{self.idx}_{kind}"
+
+    def param(self, name: str, shape, scheme: str):
+        return self.sd.var(name, value=init_weights(scheme, tuple(shape),
+                                                    self.rng),
+                           dtype=self.dtype)
+
+    def bias(self, name: str, n: int, value: float):
+        return self.sd.var(name, value=np.full((n,), value),
+                           dtype=self.dtype)
+
+
+def _sd_activation(sd, x, activation: str, lname: str):
+    op = resolve_activation(activation)
+    return x if op == "identity" else sd.invoke(op, [x], {},
+                                                name=f"{lname}_act")
+
+
+def _refuse_dropout(layer) -> None:
+    if getattr(layer, "dropout", 0.0):
+        raise NotImplementedError(
+            f"{type(layer).__name__}(dropout={layer.dropout}) is not ported "
+            f"yet (ROADMAP queue 1 item 5: random ops)")
+
+
 class BaseLayer:
-    """``output_type(itype)``; ``build(ctx, itype) -> nn.Module``."""
+    """``output_type(itype)``; ``build(ctx, itype) -> nn.Module``;
+    ``build_sd(ctx, x, itype) -> (output variable, output type)``."""
 
     def output_type(self, itype: InputType) -> InputType:
         raise NotImplementedError
 
     def build(self, ctx: BuildContext, itype: InputType) -> nn.Module:
         raise NotImplementedError
+
+    def build_sd(self, ctx: SDBuildContext, x, itype: InputType):
+        raise NotImplementedError(
+            f"{type(self).__name__} in a MultiLayerNetwork is not ported "
+            f"yet (ROADMAP queue 1 item 10: nn/ layers); Dense, Output, "
+            f"Convolution and Subsampling layers are")
 
 
 def _require_ff(layer, itype: InputType) -> None:
@@ -136,12 +192,27 @@ class DenseLayer(BaseLayer):
     activation: str = "relu"
     weight_init: str = "XAVIER"
     bias_init: float = 0.0
+    dropout: float = 0.0
     has_bias: bool = True
 
     def output_type(self, itype):
         return InputType.feed_forward(self.n_out)
 
+    def build_sd(self, ctx, x, itype):
+        _refuse_dropout(self)
+        _require_ff(self, itype)
+        lname = ctx.lname("dense")
+        w = ctx.param(f"{lname}_W", (itype.flat_size, self.n_out),
+                      self.weight_init)
+        z = x.mmul(w, name=f"{lname}_mm")
+        if self.has_bias:
+            z = z.add(ctx.bias(f"{lname}_b", self.n_out, self.bias_init),
+                      name=f"{lname}_z")
+        return (_sd_activation(ctx.sd, z, self.activation, lname),
+                self.output_type(itype))
+
     def build(self, ctx, itype):
+        _refuse_dropout(self)
         _require_ff(self, itype)
         resolve_activation(self.activation)
         w = ctx.param((itype.flat_size, self.n_out), self.weight_init)
@@ -176,11 +247,32 @@ class OutputLayer(BaseLayer):
     def output_type(self, itype):
         return InputType.feed_forward(self.n_out)
 
-    def build(self, ctx, itype):
+    def _check_loss(self):
         if self.loss_function.upper() not in ("MCXENT",
                                               "NEGATIVELOGLIKELIHOOD"):
             raise NotImplementedError(
                 f"loss {self.loss_function!r} is not ported yet (MCXENT)")
+
+    def build_sd(self, ctx, x, itype):
+        """Dense + loss head: ``softmax_cross_entropy`` of the logits,
+        named ``loss`` (the JAX ``_attach_loss_head``)."""
+        self._check_loss()
+        _require_ff(self, itype)
+        lname = ctx.lname("out")
+        w = ctx.param(f"{lname}_W", (itype.flat_size, self.n_out),
+                      self.weight_init)
+        z = x.mmul(w, name=f"{lname}_mm")
+        if self.has_bias:
+            z = z.add(ctx.bias(f"{lname}_b", self.n_out, self.bias_init),
+                      name=f"{lname}_z")
+        out = _sd_activation(ctx.sd, z, self.activation, lname)
+        ctx.output_var = out
+        ctx.sd.invoke("softmax_cross_entropy", [z, ctx.labels_var], {},
+                      name="loss").mark_as_loss()
+        return out, self.output_type(itype)
+
+    def build(self, ctx, itype):
+        self._check_loss()
         _require_ff(self, itype)
         resolve_activation(self.activation)
         w = ctx.param((itype.flat_size, self.n_out), self.weight_init)
@@ -219,6 +311,7 @@ class ConvolutionLayer(BaseLayer):
     weight_init: str = "RELU"
     bias_init: float = 0.0
     has_bias: bool = True
+    dropout: float = 0.0
 
     def output_type(self, itype):
         c, h, w = itype.dims
@@ -229,7 +322,26 @@ class ConvolutionLayer(BaseLayer):
             self.n_out, _conv_out(h, kh, sh, self.convolution_mode, dh),
             _conv_out(w, kw, sw, self.convolution_mode, dw)))
 
+    def build_sd(self, ctx, x, itype):
+        _refuse_dropout(self)
+        lname = ctx.lname("conv")
+        kh, kw = _as_pair(self.kernel_size)
+        w = ctx.param(f"{lname}_W", (kh, kw, itype.dims[0], self.n_out),
+                      self.weight_init)
+        inputs = [x, w]
+        if self.has_bias:
+            inputs.append(ctx.bias(f"{lname}_b", self.n_out,
+                                   self.bias_init))
+        z = ctx.sd.invoke("conv2d", inputs, {
+            "strides": _as_pair(self.stride),
+            "padding": _pad_mode(self.convolution_mode),
+            "dilation": _as_pair(self.dilation),
+            "data_format": ctx.cnn_format}, name=f"{lname}_z")
+        return (_sd_activation(ctx.sd, z, self.activation, lname),
+                self.output_type(itype))
+
     def build(self, ctx, itype):
+        _refuse_dropout(self)
         resolve_activation(self.activation)
         kh, kw = _as_pair(self.kernel_size)
         w = ctx.param((kh, kw, itype.dims[0], self.n_out), self.weight_init)
@@ -262,6 +374,20 @@ class SubsamplingLayer(BaseLayer):
         return InputType("cnn", (c,
                                  _conv_out(h, kh, sh, self.convolution_mode),
                                  _conv_out(w, kw, sw, self.convolution_mode)))
+
+    def build_sd(self, ctx, x, itype):
+        op = {"MAX": "max_pool2d", "AVG": "avg_pool2d"}.get(
+            self.pooling_type.upper())
+        if op is None:
+            raise NotImplementedError(
+                f"pooling {self.pooling_type!r} is not ported yet (MAX, "
+                f"AVG; ROADMAP queue 1 item 5: pnorm_pool2d)")
+        out = ctx.sd.invoke(op, [x], {
+            "kernel": _as_pair(self.kernel_size),
+            "strides": _as_pair(self.stride or self.kernel_size),
+            "padding": _pad_mode(self.convolution_mode),
+            "data_format": ctx.cnn_format}, name=ctx.lname("pool"))
+        return out, self.output_type(itype)
 
     def build(self, ctx, itype):
         if self.pooling_type.upper() != "MAX":

@@ -1,15 +1,18 @@
 """Neural-network ops: convolution, pooling and batch norm (the ResNet-50
-slice); layer norm, embedding lookup, bias add and attention (the GPT
-slice).
+and LeNet slices); layer norm, embedding lookup, bias add and attention
+(the GPT slice).
 
 Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
-``max_pool2d`` :219, ``batchnorm`` :302, ``batchnorm_train`` :323,
-``layer_norm`` :365, ``embedding_lookup`` :417, ``bias_add`` :424,
+``max_pool2d`` :219, ``avg_pool2d`` :227, ``batchnorm`` :302,
+``batchnorm_train`` :323, ``layer_norm`` :365, ``embedding_lookup`` :417, ``bias_add`` :424,
 ``scaled_dot_product_attention`` :462).
 Tensors are logically NCHW, as PyTorch's convolutions take them, in any
 memory format (the network body runs ``torch.channels_last``, so a
 channel is the fastest axis, as in the JAX package's NHWC body).
-Convolution weights are OIHW; the JAX package's are HWIO.
+``conv2d`` and ``max_pool2d`` take OIHW weights and NCHW tensors
+(``ComputationGraph``); the ops registered under those names take the
+JAX package's layouts, HWIO weights and an NCHW or NHWC ``data_format``
+(``MultiLayerNetwork`` records NHWC).
 
 "SAME" padding is JAX's: the extra row or column, when the total is odd,
 goes on the bottom/right. PyTorch's ``padding="same"`` refuses strides
@@ -79,6 +82,51 @@ def max_pool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
     pads = _conv_padding(padding, x.shape[2:], strides, kernel)
     x, sym = _pad_spatial(x, pads, float("-inf"))
     return F.max_pool2d(x, kernel, strides, sym)
+
+
+# ----------------------------------------------------------------------
+# the registered ops, in the JAX package's layouts (MultiLayerNetwork)
+def _to_nchw(x, data_format: str):
+    """An NHWC tensor as the NCHW view PyTorch's ops take: for NHWC
+    memory, a channels_last view, so cuDNN gets its layout with no copy."""
+    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+
+
+def _from_nchw(y, data_format: str):
+    return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+@op("conv2d", _N, n_inputs=2)
+def conv2d_op(x, w, bias=None, strides=(1, 1), padding="SAME",
+              dilation=(1, 1), data_format: str = "NCHW"):
+    """2D convolution with the JAX op's layouts: ``w`` is HWIO (kH, kW,
+    inC, outC); ``x`` and the result are NCHW or NHWC. The weight goes to
+    OIHW in channels_last memory (one small copy), so the convolution's
+    output is channels_last and its NHWC view is contiguous."""
+    w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return _from_nchw(conv2d(_to_nchw(x, data_format), w, bias, strides,
+                             padding, dilation), data_format)
+
+
+@op("max_pool2d", _N, n_inputs=1, aliases=("maxpool2d",))
+def max_pool2d_op(x, kernel=(2, 2), strides=None, padding="VALID",
+                  data_format: str = "NCHW"):
+    return _from_nchw(max_pool2d(_to_nchw(x, data_format), kernel, strides,
+                                 padding), data_format)
+
+
+@op("avg_pool2d", _N, n_inputs=1, aliases=("avgpool2d",))
+def avg_pool2d_op(x, kernel=(2, 2), strides=None, padding="VALID",
+                  data_format: str = "NCHW"):
+    """Average pooling; a padded position counts as a zero in the window
+    (the JAX op's ``count_include_pad=True``)."""
+    kernel = _pair(kernel)
+    strides = _pair(strides if strides is not None else kernel)
+    x = _to_nchw(x, data_format)
+    pads = _conv_padding(padding, x.shape[2:], strides, kernel)
+    x, sym = _pad_spatial(x, pads, 0.0)
+    return _from_nchw(F.avg_pool2d(x, kernel, strides, sym,
+                                   count_include_pad=True), data_format)
 
 
 def batchnorm(x, mean, variance, gamma=None, beta=None,

@@ -1,19 +1,61 @@
 """Zoo models (counterpart of ``deeplearning4j_tpu/zoo/models.py``).
 
-``ResNet50`` makes the same DSL calls as the JAX package's (:196), so the
-graph is node for node the JAX one, with the same parameter names and the
-same initial weights from the same seed.
+``LeNet`` (:34) and ``ResNet50`` (:196) make the same DSL calls as the JAX
+package's, so each graph is node for node the JAX one, with the same
+parameter names and the same initial weights from the same seed.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from deeplearning4j_tpu_torch.environment import DeviceLike
-from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Nesterovs
+from deeplearning4j_tpu_torch.learning.updaters import (Adam, IUpdater,
+                                                        Nesterovs)
 from deeplearning4j_tpu_torch.nn import (
     ActivationLayer, BatchNormalization, ComputationGraph, ConvolutionLayer,
-    ElementWiseVertex, GlobalPoolingLayer, InputType,
-    NeuralNetConfiguration, OutputLayer, SubsamplingLayer, ZeroPaddingLayer)
+    DenseLayer, ElementWiseVertex, GlobalPoolingLayer, InputType,
+    MultiLayerNetwork, NeuralNetConfiguration, OutputLayer, SubsamplingLayer,
+    ZeroPaddingLayer)
+
+
+@dataclasses.dataclass
+class LeNet:
+    """LeNet-5-style CNN (reference: zoo/model/LeNet.java:85-133): conv
+    5x5x20 relu, max pool 2, conv 5x5x50 relu, max pool 2, dense 500
+    relu, softmax output; Adam(1e-3)."""
+    height: int = 28
+    width: int = 28
+    channels: int = 1
+    num_classes: int = 10
+    seed: int = 1234
+    updater: IUpdater = None
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(learning_rate=1e-3))
+                .list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                        stride=(1, 1), activation="relu",
+                                        convolution_mode="SAME"))
+                .layer(SubsamplingLayer(pooling_type="MAX",
+                                        kernel_size=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                        stride=(1, 1), activation="relu",
+                                        convolution_mode="SAME"))
+                .layer(SubsamplingLayer(pooling_type="MAX",
+                                        kernel_size=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   loss_function="MCXENT"))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def build(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        """The initialized network on ``device`` (the CUDA card unless
+        ``device="cpu"``)."""
+        return MultiLayerNetwork(self.conf()).init(device)
 
 
 @dataclasses.dataclass

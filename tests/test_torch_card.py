@@ -438,9 +438,14 @@ def test_attention_backward_copies_a_dout_with_a_strided_last_axis(card):
 def test_gpt_tiny_step_runs_every_attention_through_the_kernels(card):
     """One bf16 SameDiff.fit step of GPT_TINY (2 layers, remat): the
     forward kernel twice per layer (forward and the remat re-forward),
-    each backward kernel once per layer, and no dO copy."""
+    each backward kernel once per layer, and no dO copy. The
+    ``DeviceCachedIterator`` takes the scanned tier: its first fit runs
+    the warm-up steps eagerly and replays the captured step once, a later
+    fit replays it once, and the wrappers count each launch there; the
+    per-step tier (a list of batches) counts the same."""
     from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
                                                    TrainingConfig)
+    from deeplearning4j_tpu_torch.autodiff.window import WARMUP_STEPS
     from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
     from deeplearning4j_tpu_torch.kernels import attention as at
     from deeplearning4j_tpu_torch.learning import Adam
@@ -452,14 +457,20 @@ def test_gpt_tiny_step_runs_every_attention_through_the_kernels(card):
     sd.training_config = TrainingConfig(
         updater=Adam(1e-3), data_set_feature_mapping=["input_ids"],
         data_set_label_mapping=["targets"], mixed_precision=MixedPrecision())
-    at.reset_launches()
-    loss = sd.fit(DeviceCachedIterator([ids], [tgt], batch_size=4)
-                  ).final_loss()
-    assert np.isfinite(loss)
-    assert at.LAUNCHES == {"attention_fwd": 4, "attention_bwd_delta": 2,
-                           "attention_bwd_dkdv": 2, "attention_bwd_dq": 2}
-    assert at.DOUT_COPIES["attention_bwd"] == 0
-    assert at.ALIGN_COPIES == {"attention_fwd": 0, "attention_bwd": 0}
+    step = {"attention_fwd": 4, "attention_bwd_delta": 2,
+            "attention_bwd_dkdv": 2, "attention_bwd_dq": 2}
+    it = DeviceCachedIterator([ids], [tgt], batch_size=4)
+    for data, tier, steps in ((it, "scanned_epoch", WARMUP_STEPS + 1),
+                              (it, "scanned_epoch", 1),
+                              (list(it), "per_step", 1)):
+        at.reset_launches()
+        loss = sd.fit(data).final_loss()
+        torch.cuda.synchronize()
+        assert sd.last_fit_stats["tier"] == tier
+        assert np.isfinite(loss)
+        assert at.LAUNCHES == {k: steps * n for k, n in step.items()}
+        assert at.DOUT_COPIES["attention_bwd"] == 0
+        assert at.ALIGN_COPIES == {"attention_fwd": 0, "attention_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -693,3 +704,140 @@ def test_paged_prefill_f32_kernel_matches_plain_on_card(card, hist, rows,
     assert torch.equal(got, again)
     assert bool(torch.isfinite(poisoned).all()) and torch.equal(poisoned,
                                                                 got)
+
+
+# ----------------------------------------------------------------------
+# SameDiff's fit tiers: fused windows and the scanned epoch as CUDA graphs
+def _tier_net(card, k=1):
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (DenseLayer, InputType,
+                                             MultiLayerNetwork,
+                                             NeuralNetConfiguration,
+                                             OutputLayer)
+    conf = (NeuralNetConfiguration.builder().seed(7)
+            .updater(Adam(learning_rate=1e-2)).list()
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=4, loss_function="MCXENT"))
+            .set_input_type(InputType.feed_forward(12)).build())
+    net = MultiLayerNetwork(conf).init(card)
+    net.samediff.training_config.fused_steps = k
+    return net
+
+
+def _tier_data(card, steps, batch=8):
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(steps * batch, 12)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, steps * batch)]
+    return DeviceCachedIterator(x, y, batch, device=card)
+
+
+def _quiet():
+    from deeplearning4j_tpu_torch.autodiff import ScoreIterationListener
+    return ScoreIterationListener(10 ** 9, print_fn=lambda *a: None)
+
+
+def _same_params(a, b):
+    for n, x in b.params().items():
+        np.testing.assert_allclose(a.params()[n], x, rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+
+
+@pytest.mark.cuda
+def test_windows_capture_once_per_length_and_replay_on_card(card):
+    """K = 4 over 11 steps: windows 4, 4, 2, 1, three graphs (one a
+    length), four replays an epoch, none captured in a later fit; the
+    result within the tier tolerance of the per-step tier's."""
+    it = _tier_data(card, 11)
+    ref = _tier_net(card)
+    ref.fit(it, epochs=2, listeners=[_quiet()])
+    net = _tier_net(card, 4)
+    net.fit(it, epochs=2, listeners=[_quiet()])
+    sd = net.samediff
+    assert len(sd._windows) == 3
+    assert all(w.graph is not None for w in sd._windows.values())
+    st = sd.last_fit_stats
+    assert st["graph_replays_per_epoch"] == 4 and st["window_captures"] == 0
+    assert st["window_sizes"] == {4: 2, 2: 1, 1: 1}
+    net.fit(it, epochs=1)
+    assert sd.last_fit_stats["window_captures"] == 0 and \
+        len(sd._windows) == 3
+    ref.fit(it, epochs=1, listeners=[_quiet()])
+    _same_params(net, ref)
+
+
+@pytest.mark.cuda
+def test_scanned_epoch_is_one_replay_on_card(card):
+    it = _tier_data(card, 16)
+    ref, net = _tier_net(card), _tier_net(card)
+    ref.fit(it, epochs=3, listeners=[_quiet()])
+    hist = net.fit(it, epochs=3)
+    st = net.samediff.last_fit_stats
+    assert st["tier"] == "scanned_epoch"
+    assert st["graph_replays_per_epoch"] == 1 and st["window_sizes"] == {
+        16: 1}
+    assert len(hist.step_losses) == 48
+    _same_params(net, ref)
+
+
+@pytest.mark.cuda
+def test_a_capture_error_propagates_on_card(card, monkeypatch):
+    """An op that waits on the device cannot be captured: the graph tiers
+    raise, and nothing runs the steps eagerly instead; the per-step tier
+    runs it."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.learning import Sgd
+    from deeplearning4j_tpu_torch.ops import registry
+    registry.op_names()
+    monkeypatch.setitem(registry._REGISTRY, "test_sync", registry.Op(
+        "test_sync", lambda a: a * float(a.abs().sum().item() > -1), "nn",
+        1))
+    sd = SameDiff(device=card)
+    h = sd.invoke("test_sync", [sd.placeholder("x", shape=(-1, 12))])
+    w = sd.var("w", value=np.full((12, 4), 0.1, np.float32))
+    sd.loss.softmax_cross_entropy(h.mmul(w), sd.placeholder(
+        "labels", shape=(-1, 4)), name="loss")
+    it = _tier_data(card, 4)
+    for k in (1, 2):
+        sd.training_config = TrainingConfig(
+            updater=Sgd(0.1), data_set_feature_mapping=["x"],
+            data_set_label_mapping=["labels"], fused_steps=k)
+        before = sd.get_arr_for_var("w").clone()
+        with pytest.raises(RuntimeError):
+            sd.fit(it)
+        torch.cuda.synchronize()
+        assert torch.equal(sd.get_arr_for_var("w"), before)
+        assert not sd._windows
+    sd.training_config.fused_steps = 1
+    sd.fit(it, listeners=[_quiet()])
+    assert sd.last_fit_stats["tier"] == "per_step"
+
+
+@pytest.mark.cuda
+def test_gpt_tiny_scanned_epoch_on_card_matches_per_step(card):
+    """GPT_TINY (float32: the attention kernels) captured as one scanned
+    epoch against the per-step tier: every parameter and loss."""
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY, build_gpt
+    rng = np.random.default_rng(0)
+    ids, tgt = (rng.integers(0, GPT_TINY.vocab_size, (12, 32)).astype(
+        np.int32) for _ in range(2))
+    it = DeviceCachedIterator([ids], [tgt], batch_size=4, device=card)
+    out = []
+    for listeners in ([_quiet()], []):
+        sd = build_gpt(GPT_TINY, batch=4, seq_len=32, device=card)
+        sd.training_config = TrainingConfig(
+            updater=Adam(1e-3), data_set_feature_mapping=["input_ids"],
+            data_set_label_mapping=["targets"])
+        hist = sd.fit(it, epochs=2, listeners=listeners)
+        out.append((sd, hist))
+    (ref, href), (sd, hist) = out
+    assert sd.last_fit_stats["graph_replays_per_epoch"] == 1
+    for n, x in ref.trainable_params().items():
+        np.testing.assert_allclose(sd.get_arr_for_var(n).cpu().numpy(),
+                                   x.cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+    np.testing.assert_allclose(hist.step_losses, href.step_losses,
+                               rtol=1e-5, atol=1e-6)

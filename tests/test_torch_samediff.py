@@ -297,12 +297,14 @@ def test_shape_inference_runs_on_the_meta_device():
 
 
 def test_training_config_takes_only_what_the_port_honours():
+    """``fused_steps`` is taken (fused windows); the JAX fields the port
+    does not honour yet (``accum_steps``, ``sentinel``) are not."""
     tc = (TrainingConfig.builder().updater(Adam(1e-3))
           .data_set_feature_mapping("x").data_set_label_mapping("labels")
           .fused_steps(1).build())
     assert tc.data_set_feature_mapping == ["x"] and tc.fused_steps == 1
-    with pytest.raises(NotImplementedError, match="fused_steps"):
-        TrainingConfig.builder().updater(Adam()).fused_steps(4).build()
+    assert TrainingConfig.builder().updater(Adam()).fused_steps(4).build() \
+        .fused_steps == 4
     for field in ("accum_steps", "sentinel"):
         with pytest.raises(TypeError):
             TrainingConfig(updater=Adam(), **{field: 2})
@@ -313,15 +315,36 @@ def test_training_config_takes_only_what_the_port_honours():
         MixedPrecision(softmax_dtype="float32", ce_tail_dtype="bfloat16")
 
 
-def test_fit_refuses_listeners_and_needs_a_config():
+def test_fit_refuses_listeners_and_needs_a_config(monkeypatch):
+    """fit needs a config. Listeners are served on every tier; what the
+    graph tiers (fused windows, scanned epoch) refuse is a random op,
+    which a captured window would replay unchanged: by name, while the
+    per-step tier runs it."""
     psd = _mlp(SameDiff, device="cpu")
-    x, y = _mlp_data(4, 0)
+    x, y = _mlp_data(8, 0)
     it = DeviceCachedIterator(x, y, batch_size=4, device="cpu")
     with pytest.raises(ValueError, match="training_config"):
         psd.fit(it)
-    psd.training_config = _config("mlp", TrainingConfig, Adam())
-    with pytest.raises(NotImplementedError, match="listeners"):
-        psd.fit(it, listeners=[object()])
+    from deeplearning4j_tpu_torch.autodiff import ScoreIterationListener
+    from deeplearning4j_tpu_torch.ops import registry
+    registry.op_names()
+    monkeypatch.setitem(registry._REGISTRY, "test_noise", registry.Op(
+        "test_noise", lambda a: a + torch.randn_like(a), "random", 1))
+    sd = SameDiff(device="cpu")
+    h = sd.invoke("test_noise", [sd.placeholder("x", shape=(-1, 784))],
+                  name="noisy")
+    w = sd.var("w", value=np.zeros((784, 10), np.float32))
+    sd.loss.softmax_cross_entropy(h.mmul(w), sd.placeholder(
+        "labels", shape=(-1, 10)), name="loss")
+    for k in (1, 2):
+        sd.training_config = _config("mlp", TrainingConfig, Adam())
+        sd.training_config.fused_steps = k
+        with pytest.raises(NotImplementedError, match="'noisy'"):
+            sd.fit(it)
+    seen = []
+    sd.training_config.fused_steps = 1
+    sd.fit(it, listeners=[ScoreIterationListener(1, seen.append)])
+    assert sd.last_fit_stats["tier"] == "per_step" and len(seen) == 2
 
 
 def test_softmax_tail_dtype_and_loss_scale_are_honoured():

@@ -388,6 +388,32 @@ class TestServer:
             assert after == want
             assert srv.generate(p, max_new_tokens=6) == before
 
+    def test_a_set_reaches_the_server_only_through_update_model(self, spec,
+                                                                psd):
+        """The server decodes with the tensors it pulled: a later
+        set_arr_for_var stores a new tensor and leaves those as they
+        were, so the server sees the new weights only after
+        update_model()."""
+        p = np.asarray([6, 6, 6], np.int32)
+        name = "ln_f/beta"
+        with make_server(spec) as srv:
+            before = srv.generate(p, max_new_tokens=6)
+            old = psd.get_arr_for_var(name)
+            kept = old.clone()
+            shift = np.random.default_rng(1).normal(0, 3, tuple(old.shape))
+            try:
+                psd.set_arr_for_var(name, shift.astype(np.float32))
+                assert torch.equal(old, kept)
+                assert srv.generate(p, max_new_tokens=6) == before
+                srv.update_model()
+                after = srv.generate(p, max_new_tokens=6)
+                want = ref_tokens(spec, p, 6)
+            finally:
+                psd.set_arr_for_var(name, old)
+                srv.update_model()
+            assert after == want and after != before
+            assert srv.generate(p, max_new_tokens=6) == before
+
     def test_sampled_tokens_reproduce_whatever_shares_the_batch(self, spec):
         p = np.asarray([4, 20, 9], np.int32)
         kw = dict(max_new_tokens=6, temperature=0.8, top_k=10, seed=42)
