@@ -5,9 +5,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the four CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
-   csrc/causal_attention.cu, csrc/paged_attention.cu and
-   csrc/attention_f32.cu, one nvcc each, started together: seconds,
+   limit; the builds of the five CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   csrc/causal_attention.cu, csrc/paged_attention.cu,
+   csrc/attention_f32.cu and csrc/int8_matmul.cu, one nvcc each, started
+   together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -181,13 +182,55 @@ Phases, in order; any failure exits non-zero:
    rule. Then LeNet in float64 at batch 16, TF32 off: the card's
    per-step and windowed tiers against the CPU's per-step tier, every
    gradient and then 3 Adam steps to 1e-6 of each tensor.
+16. kernels: ``int8_matmul`` (csrc/int8_matmul.cu) against its plain
+   version in float64 at GPT-medium's four (K, N) and the transposed
+   ``wte`` at M 1, 8, 64, 512 (within 1e-5 of the sum of absolute terms;
+   NaN-poisoned output memory; two calls bit-equal; a dropped K tile must
+   fail the rule), and its rows bit-equal across M; then
+   ``paged_verify_attention`` (csrc/paged_attention.cu's verify entry)
+   against ``paged_verify_plain``: 8 lanes x W 2, 4, 8, 16, 20 x 12 x 128
+   float32, windows from positions 0, 15 (straddling a block edge), 128,
+   512, 1000, blocks of 16 and the dense slab, inactive lanes, head dims
+   16-64 and float64; the written cache bit-equal, two calls bit-equal,
+   every row bit-equal to ``paged_decode_attention`` at its last key, NaN
+   where no row may read changes nothing; controls (a row one key too
+   far, the window read from the cache before the write) must fail. Then
+   both timed alone (``median_ms``) beside their plain versions, the
+   library (``torch.matmul`` with the dequantised weight; masked
+   ``F.scaled_dot_product_attention``) and their bounds: int8_matmul at
+   each shape and M, the verify at 8 lanes x W 8 at contexts 128, 512
+   and 1016.
+17. parity: GPT_TINY speculative serving on the card and on the CPU
+   (plain kernels), the dense and the paged server, float32 and int8
+   weights, an independent 1-layer draft from seed 1 (rejections run):
+   identical tokens, every target dispatch's logits within 1e-5 of their
+   magnitude.
+18. main path: GPT-medium (``build_gpt(GPT_MEDIUM, ..., seed=0)``, layers
+   1-15's residual-out projections zeroed: ``bench.py``'s self-draft
+   pairing) as an int8-weight target (``gpt_paged_spec(...,
+   quantize_weights=True)``) with a 1-layer int8 self-draft through
+   ``PagedGenerativeServer(max_slots=8, block_size=16, max_seq_len=1024,
+   draft_spec=..., speculate_k=8)``: phase 12's 32 requests at
+   temperature 0 through ``submit`` / ``result()``; counts set to 0 just
+   before and read just after: 16 paged_verify_attention launches a
+   round, 65 int8_matmul a target prefill, step or verify and 5 a draft
+   dispatch, paged_decode_attention 16 a plain step and 1 a draft
+   decode; every request against ``greedy_decode`` of the dense int8
+   target (phase 12's near-tie rule); the pool drains. Then ~10 rounds
+   under ``torch.profiler`` (device busy and wall a round, idle share,
+   launches a round, device time by group; the traced int8_matmul and
+   cluster kernels equal the wrappers' counts), the same requests on the
+   int8 target without a draft (the yardstick), and 8 requests through a
+   float32 target with a float32 self-draft, each against
+   ``greedy_decode``.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
 the float32 kernels ``combine_launches`` their combining kernel's; the times
 are per training step of that path, per decode step for
 paged_decode_attention,
-per 512-row prefill for the float32 prefill kernels),
+per 512-row prefill for the float32 prefill kernels, per speculative
+round for int8_matmul and paged_verify_attention),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -297,8 +340,9 @@ PAGED_SASS = {"bulk copy": "UBLKCP", "DSMEM push": "STAS",
 
 def check_paged_build():
     """The paged decode cluster kernel as built, float32 and float64 at
-    every head dim: ptxas's registers and spills, and each of PAGED_SASS's
-    opcodes in its SASS, counted. Prints one line a kernel; exits on a
+    every head dim, its decode and its verify instantiation: ptxas's
+    registers and spills, and each of PAGED_SASS's opcodes in its SASS,
+    counted. Prints one line a kernel; exits on a
     failure."""
     from deeplearning4j_tpu_torch.kernels import _cuda
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -316,20 +360,25 @@ def check_paged_build():
     bad = []
     for t, tc in (("float", "f"), ("double", "d")):
         for d in (16, 32, 64, 128):
-            tag = f"paged_decode_kernelI{tc}Li{d}E"
-            name = next((n for n in sass if tag in n), None)
-            if name is None:
-                bad.append(f"{tag}: not in the library")
-                continue
-            found = {k: sass[name].count(op) for k, op in PAGED_SASS.items()}
-            ok = all(found.values())
-            log(f"    paged_decode_kernel<{t}, {d}>: {regs.get(name, '?')}, "
-                f"spill stores/loads {spills.get(name, 'not reported')}; "
-                + ", ".join(f"{k} {PAGED_SASS[k]} x{n}"
-                            for k, n in found.items())
-                + f" {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append(tag)
+            # the decode instantiation (kWindow false) and the verify's
+            for w in (0, 1):
+                tag = f"paged_decode_kernelI{tc}Li{d}ELb{w}E"
+                name = next((n for n in sass if tag in n), None)
+                if name is None:
+                    bad.append(f"{tag}: not in the library")
+                    continue
+                found = {k: sass[name].count(op)
+                         for k, op in PAGED_SASS.items()}
+                ok = all(found.values())
+                log(f"    paged_decode_kernel<{t}, {d}, "
+                    f"{'verify' if w else 'decode'}>: "
+                    f"{regs.get(name, '?')}, spill stores/loads "
+                    f"{spills.get(name, 'not reported')}; "
+                    + ", ".join(f"{k} {PAGED_SASS[k]} x{n}"
+                                for k, n in found.items())
+                    + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(tag)
     if bad:
         raise SystemExit(f"paged decode kernel built wrong: {bad}")
 
@@ -2138,7 +2187,7 @@ def phase_serving(dev, card):
         f"combining kernel; shapes handed to the paged functions "
         f"{sorted(shapes)}")
     want = {"paged_decode_attention": cfg.num_layers * n_dec,
-            "paged_attention": 0,
+            "paged_attention": 0, "paged_verify_attention": 0,
             "paged_prefill_f32": cfg.num_layers * n_pre,
             "attention_fwd_f32": 0, "attention_fwd": 0}
     if launches != want:
@@ -2196,7 +2245,8 @@ def phase_serving(dev, card):
         f"decode steps, and {dcombines} combining launches; tokens equal the paged server's "
         f"{sum(a == b for a, b in zip(dgot, got))} of 8")
     dwant = {"paged_decode_attention": cfg.num_layers * drec["decode_steps"],
-             "paged_attention": 0, "paged_prefill_f32": 0,
+             "paged_attention": 0, "paged_verify_attention": 0,
+             "paged_prefill_f32": 0,
              "attention_fwd_f32": cfg.num_layers * drec["prefills"],
              "attention_fwd": 0}
     if dlaunch != dwant:
@@ -3043,6 +3093,734 @@ def phase_lenet_parity():
 
 
 # ----------------------------------------------------------------------
+# speculative int8-weight serving: csrc/int8_matmul.cu, the verify entry of
+# csrc/paged_attention.cu, and the GPT-medium speculative server
+INT8_SOURCE = "deeplearning4j_tpu_torch/csrc/int8_matmul.cu"
+#: the JAX code each kernel stands in for (XLA fused it; no Pallas kernel)
+INT8_REPLACES = "deeplearning4j_tpu/zoo/gpt.py:262"
+VERIFY_REPLACES = "deeplearning4j_tpu/zoo/gpt.py:701"
+#: kernel A's gate: 1e-5 of the sum of absolute terms, against float64
+INT8_TOL = 1e-5
+#: GPT-medium's int8 products (K, N, transposed): qkv, attn proj, mlp fc,
+#: mlp proj, and the tied logits over wte [32768, 1536] read transposed
+INT8_SHAPES = ((1536, 4608, False), (1536, 1536, False),
+               (1536, 6144, False), (6144, 1536, False),
+               (1536, 32768, True))
+SPEC_K = 8
+
+
+def _nan_poison_free(nbytes, dev):
+    """Fill about ``nbytes`` of the caching allocator's free memory with
+    NaN and free it: an output allocated next is likely to reuse it, so a
+    kernel that leaves an element unwritten shows as NaN."""
+    torch.full((int(nbytes) // 4 + 1024,), float("nan"), device=dev)
+
+
+def check_int8(dev, m, k, n, transposed, errs, label, x=None):
+    """``int8_matmul`` against its plain version in float64 on the same
+    inputs: per element within INT8_TOL of the sum of its absolute terms;
+    the output written everywhere (NaN-poisoned memory); two calls
+    bit-equal; a control the rule must reject (one 32-deep K tile of x
+    dropped). Returns the kernel's output; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import measure
+    x0, w, s = measure.int8_matmul_case(dev, m, k, n, transposed,
+                                        seed=k + n + m)
+    x = x0 if x is None else x
+    _nan_poison_free(m * n * 4, dev)
+    got = im.int8_matmul(x, w, s, transposed)
+    again = im.int8_matmul(x, w, s, transposed)
+    want = im.int8_matmul_plain(x.double(), w, s.double(), transposed)
+    terms = im.abs_terms(x, w, s, transposed)
+    reading = measure.paged_reading(got, want, terms, INT8_TOL)
+    xd = x.double().clone()
+    xd[:, 32:64] = 0
+    ctl = measure.paged_reading(im.int8_matmul_plain(
+        xd, w, s.double(), transposed), got, terms, INT8_TOL)
+    errs["int8_matmul"] = max(errs.get("int8_matmul", 0.0), float(
+        (got.double() - want).abs().max()))
+    same = torch.equal(got, again)
+    ok = reading <= 1 and same and ctl > 1 and bool(
+        torch.isfinite(got).all())
+    log(f"  {label}: {reading:.3g} of tol, bit-equal twice {same}, "
+        f"control (K tile dropped, must exceed 1) {ctl:.3g} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("int8_matmul disagrees with its plain version")
+    return got, (x, w, s)
+
+
+def check_int8_rows(dev, k, n, transposed, prefill_m):
+    """A row's result does not depend on M: rows of the same x through M
+    = 1, 8, 64, 512 and the prefill bucket give the same bits."""
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import measure
+    ms = sorted({1, 8, 64, 512, prefill_m})
+    x, w, s = measure.int8_matmul_case(dev, max(ms), k, n, transposed)
+    full = im.int8_matmul(x, w, s, transposed)
+    same = {m: torch.equal(im.int8_matmul(x[:m], w, s, transposed),
+                           full[:m]) for m in ms}
+    log(f"  rows independent of M ({k}x{n}{' transposed' if transposed else ''}"
+        f"): row bits of M in {ms} equal M = {max(ms)}'s: {same}")
+    if not all(same.values()):
+        raise SystemExit("int8_matmul's rows depend on M")
+
+
+def check_verify(args, errs, label, controls=True):
+    """``paged_verify_attention`` on ``args`` (``measure.paged_verify_case``)
+    against ``paged_verify_plain`` (``index_put_``, then attention), each
+    on its own copy of the cache: per element within PAGED_TOL of the sum
+    of its absolute terms; the written caches bit-equal; two calls
+    bit-equal; each row bit-equal to ``paged_decode_attention`` of the
+    same row at its last key over the written cache (the verify = decode
+    invariant); with NaN wherever no row may read (the null block, unused
+    blocks, each lane's positions from its window on, which the rows take
+    from the new rows), the same bits. ``controls``: the rule must reject
+    a row attending one key too far and the window's keys read from the
+    cache before the write. Prints one line; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = args
+    tol = PAGED_TOL[q.dtype]
+
+    def run(fn, kc_, vc_, kmax_=kmax):
+        k2, v2 = kc_.clone(), vc_.clone()
+        return fn(q, kn, vn, k2, v2, tab, lane, kmax_, win0, wrow, wb,
+                  wo), k2, v2
+    before = pa.LAUNCHES["paged_verify_attention"]
+    got, gk, gv = run(pa.paged_verify_attention, kc, vc)
+    again, ak, av = run(pa.paged_verify_attention, kc, vc)
+    launched = pa.LAUNCHES["paged_verify_attention"] - before
+    want, wk, wv = run(pa.paged_verify_plain, kc, vc)
+    terms = pa.abs_terms(q, wk, wv, tab, lane, kmax)
+    reading = measure.paged_reading(got, want, terms, tol)
+    errs["paged_verify_attention"] = max(errs.get(
+        "paged_verify_attention", 0.0), float(
+        (got.double() - want.double()).abs().max()))
+    rows = torch.equal(gk, wk) and torch.equal(gv, wv)
+    same = torch.equal(got, again) and torch.equal(gk, ak) and \
+        torch.equal(gv, av)
+    dk, dv = gk.clone(), gv.clone()
+    dec = pa.paged_decode_attention(q, kn, vn, dk, dv, tab, lane, kmax, wb,
+                                    wo)
+    as_decode = torch.equal(dec, got)
+    cached = torch.where(win0 >= 0, win0 - 1, kmax)
+    pk, pv = measure.paged_poisoned(kc, vc, tab, lane, cached)
+    poisoned = run(pa.paged_verify_attention, pk, pv)[0]
+    poison_ok = bool(torch.isfinite(poisoned).all()) and torch.equal(
+        poisoned, got)
+    ctl, ctl_ok = "", True
+    if controls:
+        # each row but its window's last one attends one key too far
+        w_len = int((lane == lane[0]).sum())
+        far = torch.where((win0 >= 0) & (kmax - win0 + 1 < w_len), kmax + 1,
+                          kmax)
+        r_far = measure.paged_reading(run(
+            pa.paged_verify_plain, kc, vc, far)[0], got, terms, tol)
+        r_stale = measure.paged_reading(pa.paged_attention_plain(
+            q, kc, vc, tab, lane, kmax), got, terms, tol)
+        ctl_ok = r_far > 1 and r_stale > 1
+        ctl = (f"; controls (must exceed 1): one key too far {r_far:.3g}, "
+               f"window read before the write {r_stale:.3g}")
+    ok = (reading <= 1 and rows and same and as_decode and poison_ok
+          and ctl_ok and launched == 2)
+    log(f"  {label}: {reading:.3g} of tol, written cache bit-equal {rows}, "
+        f"bit-equal twice {same}, rows = decode bits {as_decode}, NaN "
+        f"poison unchanged {poison_ok}{ctl} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("paged_verify_attention disagrees with its plain "
+                         "version or with the decode kernel")
+
+
+def phase_spec_kernels(dev, errs, prefill_m=512):
+    """Kernel A (``int8_matmul``) at every GPT-medium (K, N) and the
+    transposed ``wte`` at M in (1, 8, 64, 512, the traffic's largest
+    prefill bucket), its rows independent of M; kernel B
+    (``paged_verify_attention``) at 8 lanes x W in (2, 4, 8, 16, 20) x 12
+    x 128 float32 with first window positions (0, 15, 128, 512, 1000, ...)
+    (15: a window straddling a block edge), blocks of 16 and the dense
+    slab, two lanes inactive in one case; head dims 16-64 and float64 at a
+    smaller size."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    for k, n, tr in INT8_SHAPES:
+        for m in sorted({1, 8, 64, 512, prefill_m}):
+            check_int8(dev, m, k, n, tr, errs,
+                       f"int8 {m}x{k} @ {'wte^T ' if tr else ''}{k}x{n}")
+    for k, n, tr in INT8_SHAPES[::3]:
+        check_int8_rows(dev, k, n, tr, prefill_m)
+    pos0 = [0, 15, 128, 512, 1000, 15, 300, 7]
+    for w in (2, 4, 8, 16, 20):
+        for dense in (False, True):
+            check_verify(measure.paged_verify_case(
+                dev, pos0, w, 12, 128, 1024 if dense else 16,
+                torch.float32, seed=w, dense=dense), errs,
+                f"verify 8 lanes x W {w} x12x128 {'dense' if dense else 'BS 16'}"
+                f" pos0 {pos0} float32", controls=w == 8)
+    check_verify(measure.paged_verify_case(
+        dev, pos0, 8, 12, 128, 16, torch.float32,
+        active=[True, True, False, True, True, False, True, True]), errs,
+        "verify 8 lanes x W 8 BS 16, lanes 2 and 5 inactive float32")
+    for d in (16, 32, 64):
+        for dt in (torch.float32, torch.float64):
+            check_verify(measure.paged_verify_case(
+                dev, [0, 15, 17, 40], 5, 3, d, 16, dt, seed=d), errs,
+                f"verify 4 lanes x W 5 x3x{d} BS 16 {str(dt)[6:]}",
+                controls=False)
+
+
+def phase_spec_timing(dev, card_name, prefill_ms):
+    """Kernels A and B timed alone (cold L2, the median of 20 calls queued
+    behind a device sleep, ``median_ms``). ``int8_matmul`` at every
+    GPT-medium (K, N) and the transposed ``wte`` at M in (1, 8, 64, 512,
+    the traffic's largest prefill bucket), beside its plain version (the
+    JAX expression in float32: the payload widened, ``torch.matmul``, the
+    scale), the library yardstick (one ``torch.matmul`` of x with the
+    dequantised float32 weight, made outside the timing: the float32
+    server's own cuBLAS product) and the bound (the payload, x, the scale
+    and y moved once over the memory rate; 2 M N K float32-grade products
+    with an int8 weight, where only x is split, over the faster of two
+    TF32 and three bf16 passes, ``measure.int8_weight_bound``).
+    ``paged_verify_attention`` at 8 lanes x W 8 x 12 x 128, every
+    lane's window starting at context 128, 512 and 1024 - 8, blocks of
+    16, beside its plain version (host syncs: ``synced_ms``), the decode
+    kernel over the same rows (W launches' worth of work in one), the
+    library (one masked ``F.scaled_dot_product_attention`` of the windows
+    over each lane's contiguous context) and the bound (each lane's
+    cached keys read once, q, out and the new rows). Returns per-call
+    times by shape."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    out = {}
+    for k, n, tr in INT8_SHAPES:
+        for m in sorted({1, 8, 64, 512, prefill_ms}):
+            x, w, s = measure.int8_matmul_case(dev, m, k, n, tr)
+            # the dequantised float32 weight [K, N], made once
+            deq = (w.float() * s).t().contiguous() if tr else w.float() * s
+            ms = median_ms(lambda: im.int8_matmul(x, w, s, tr), flush)
+            plain = median_ms(lambda: im.int8_matmul_plain(x, w, s, tr),
+                              flush)
+            lib = median_ms(lambda: torch.matmul(x, deq), flush)
+            ops, nbytes = measure.int8_matmul_bounds(m, k, n)
+            b = measure.int8_weight_bound(ops, nbytes, card_name)
+            key = f"{k}x{n}{'T' if tr else ''}_m{m}"
+            out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                        **b, "tb_per_s": nbytes / ms / 1e9,
+                        "tflops": ops / ms / 1e9}
+            log(f"  int8_matmul {m}x{k} @ {'wte^T' if tr else 'w'} "
+                f"{k}x{n}: {ms:.4f} ms (plain {plain:.4f}, library "
+                f"{lib:.4f}, bound {b['bound_ms']:.4f} by {b['bound_by']}; "
+                f"{nbytes / ms / 1e9:.3f} TB/s, {ops / ms / 1e9:.2f} "
+                f"TFLOP/s)  [{card_name}]")
+    for ctx in (128, 512, 1024 - SPEC_K):
+        case = measure.paged_verify_case(dev, [ctx] * SERVE_SLOTS, SPEC_K,
+                                         12, 128, SERVE_BS, torch.float32)
+        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
+        pa.paged_verify_plain(*case)          # the window's rows in place
+        qs, dk, dv, mask = measure.paged_verify_library(
+            q, kc, vc, tab, lane, kmax, SERVE_SLOTS, SPEC_K)
+        ms = median_ms(lambda: pa.paged_verify_attention(*case), flush)
+        dec = median_ms(lambda: pa.paged_decode_attention(
+            q, kn, vn, kc, vc, tab, lane, kmax, wb, wo), flush)
+        plain = synced_ms(lambda: pa.paged_verify_plain(*case), flush, 3)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            qs, dk, dv, attn_mask=mask), flush)
+        ops, nbytes = measure.paged_bounds(
+            q, kc, tab, lane, kmax, int((wb >= 0).sum()), win0)
+        b = measure.two_rate_bound(ops, nbytes, card_name)
+        # the bytes of W decode rows a lane, each reading its keys
+        _, wbytes = measure.paged_bounds(q, kc, tab, torch.arange(
+            q.shape[0], device=dev, dtype=torch.int32), kmax)
+        out[f"verify_{ctx}"] = {"ms": ms, "decode_kernel_ms": dec,
+                                "plain_ms": plain, "library_ms": lib, **b,
+                                "w_fold_bytes": wbytes, "bytes": nbytes}
+        log(f"  paged_verify_attention 8 lanes x W {SPEC_K} at context "
+            f"{ctx}: {ms:.4f} ms (decode kernel over the same rows "
+            f"{dec:.4f}; plain {plain:.3f} host clock; library {lib:.4f}; "
+            f"bound {b['bound_ms']:.4f} by {b['bound_by']}; the bound's "
+            f"{nbytes / 2**20:.2f} MiB against {wbytes / 2**20:.2f} MiB "
+            f"if each row read its keys)  [{card_name}]")
+    return out
+
+
+def _serve_tiny_spec(kind, dev, qw, prompts):
+    """GPT_TINY (build_gpt's seed 0) float32 as a speculative target with
+    ``qw`` int8 weights through the ``kind`` ("paged" or "dense") server
+    on ``dev``, its draft an independent 1-layer model of half the width
+    from seed 1 (the JAX tests' DRAFT_CFG pairing: low acceptance, so
+    rejections run), ``speculate_k`` 4; ``prompts`` queued before the
+    worker starts, 16 new tokens each. Returns (tokens, every target
+    dispatch's logits of its active lanes on the host, spec rounds, draft
+    tokens rejected, the kernels' launches)."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_paged_spec)
+    dcfg = dataclasses.replace(GPT_TINY, hidden_size=32, num_layers=1,
+                               num_heads=2, intermediate_size=64)
+    sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+    dsd = build_gpt(dcfg, batch=2, seq_len=8, seed=1, device=dev)
+    draft = gpt_generative_spec(dsd, dcfg, quantize_weights=qw)
+    kw = dict(max_slots=2, start=False, device=dev, draft_spec=draft,
+              speculate_k=4)
+    if kind == "paged":
+        srv = PagedGenerativeServer(gpt_paged_spec(sd, GPT_TINY,
+                                                   quantize_weights=qw),
+                                    block_size=8, debug_leaks=True, **kw)
+    else:
+        srv = GenerativeServer(gpt_generative_spec(sd, GPT_TINY,
+                                                   quantize_weights=qw), **kw)
+    logits = []
+    for attr in ("_prefill_disp", "_decode_disp", "_verify_disp"):
+        real = getattr(srv, attr)
+
+        def recording(*a, _real=real):
+            out = _real(*a)
+            lg = out[3].detach().cpu()
+            if "active" in a[3]:           # a decode or verify: its lanes
+                lg = lg[np.flatnonzero(a[3]["active"])]
+            logits.append(lg)
+            return out
+        setattr(srv, attr, recording)
+
+    def counts():
+        return {**pa.LAUNCHES, **im.LAUNCHES}
+    before = counts()
+    hs = [srv.submit(p, max_new_tokens=16) for p in prompts]
+    srv.start()
+    toks = [h.result(timeout=300) for h in hs]
+    srv.shutdown()
+    g = srv.metrics.to_record()["generative"]
+    launched = {k: v - before[k] for k, v in counts().items() if v > before[k]}
+    return toks, logits, g["spec_rounds"], g["draft_rejected"], launched
+
+
+def phase_spec_parity():
+    """GPT_TINY speculative serving on the card and on the CPU (whose
+    kernels are the plain PyTorch versions), the same prompts: the dense
+    and the paged server, float32 and int8 weights, each with an
+    independent low-acceptance draft. The same tokens, and every target
+    dispatch's logits within SERVE_PARITY_TOL of their magnitude; on the
+    card the verify kernel, the decode kernel (the draft) and, with int8
+    weights, the int8 GEMM must have served it."""
+    from deeplearning4j_tpu_torch.zoo import GPT_TINY
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, GPT_TINY.vocab_size, 24).astype(np.int32)
+    prompts = [shared, np.concatenate([shared, rng.integers(
+        0, GPT_TINY.vocab_size, 5)]).astype(np.int32),
+        rng.integers(0, GPT_TINY.vocab_size, 9).astype(np.int32)]
+    for kind in ("dense", "paged"):
+        for qw in (False, True):
+            (tc, lc, rc, jc, nc), (th, lh, rh, jh, _) = (
+                _serve_tiny_spec(kind, dev, qw, prompts)
+                for dev in ("cuda", "cpu"))
+            tol = SERVE_PARITY_TOL[torch.float32]
+            worst = max(_tensor_rel(a, b) for a, b in zip(lc, lh)) \
+                if len(lc) == len(lh) else math.inf
+            want = ("paged_verify_attention", "paged_decode_attention") + (
+                ("int8_matmul",) if qw else ())
+            routed = all(nc.get(k, 0) > 0 for k in want) and (
+                qw or nc.get("int8_matmul", 0) == 0)
+            log(f"  GPT_TINY {kind} speculative serving, "
+                f"{'int8' if qw else 'float32'} weights, card vs cpu: "
+                f"tokens identical {tc == th}, {len(lc)} dispatches' logits "
+                f"worst {worst:.2e} (tol {tol:g}), rounds {rc}/{rh}, drafts "
+                f"rejected {jc}/{jh}, launches on the card {nc}")
+            if not (tc == th and worst <= tol and routed and rc >= 1
+                    and jc >= 1):
+                raise SystemExit(f"{kind} speculative serving on the card "
+                                 f"disagrees with the CPU")
+
+
+#: a speculative round's kernels by group, and the wrapper count each
+#: group's traced launches must equal
+SPEC_GROUPS = {"int8 GEMM": "int8_matmul",
+               "verify attention": "paged_verify_attention",
+               "draft decode attention": "paged_decode_attention"}
+
+
+def _spec_group(name):
+    """A device kernel's group in a speculative round, by its traced name:
+    the int8 GEMM, or the cluster kernel's verify (``kWindow`` true) or
+    decode (false) instantiation, demangled or mangled; else None."""
+    if "int8_matmul_kernel" in name:
+        return "int8 GEMM"
+    if "paged_decode_kernel" not in name:
+        return None
+    if ", true>" in name or "Lb1E" in name:
+        return "verify attention"
+    if ", false>" in name or "Lb0E" in name:
+        return "draft decode attention"
+    raise SystemExit(f"no cluster-kernel instantiation in {name!r}")
+
+
+def profile_spec_rounds(spec, draft, reqs, card, n_new=81):
+    """Speculative rounds of 8 lanes under torch.profiler: 8 of the
+    requests with ``n_new`` new tokens each through a fresh speculative
+    server, its prefills before the profiler, then its steps on this
+    thread. Device busy ms a round (the union of device intervals), the
+    wall of the same rounds (CUDA events around each step), device
+    launches a round, device time by group (the int8 GEMM, the verify and
+    the draft's decode attention by kernel name and instantiation, layer
+    norm and the draft's other work by their labelled range), and each
+    kernel group's traced launches against its wrapper's count over the
+    same window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.ops import nn_ops
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.serving.resilience import InflightSlot
+
+    def labelled(fn, label):
+        def run(*a, **kw):
+            with record_function(f"spec::{label}"):
+                return fn(*a, **kw)
+        return run
+    real_ln = nn_ops.layer_norm
+    nn_ops.layer_norm = labelled(real_ln, "layer norm")
+    try:
+        srv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                    block_size=SERVE_BS,
+                                    max_seq_len=SERVE_SEQ, draft_spec=draft,
+                                    speculate_k=SPEC_K, start=False)
+        real_dd = srv.draft_spec.decode
+        srv.draft_spec.decode = labelled(real_dd, "draft")
+        hs = [srv.submit(p[:64], max_new_tokens=n_new) for p, _ in reqs[:8]]
+        slot = InflightSlot()
+        srv._admit(slot)
+        torch.cuda.synchronize()
+        marks = []
+        launches = {**im.LAUNCHES, **pa.LAUNCHES}
+        before = {k: launches[k] for k in SPEC_GROUPS.values()}
+        r0 = srv.metrics.counters["spec_rounds"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            while not all(h.future.done() for h in hs):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                srv._step(slot)
+                e1.record()
+                marks.append((e0, e1))
+            torch.cuda.synchronize()
+        launches = {**im.LAUNCHES, **pa.LAUNCHES}
+        counted = {g: launches[k] - before[k] for g, k in SPEC_GROUPS.items()}
+        rounds = srv.metrics.counters["spec_rounds"] - r0
+        steps = len(marks)
+        srv.draft_spec.decode = real_dd
+        srv.shutdown()
+    finally:
+        nn_ops.layer_norm = real_ln
+    # device work: every device event but the labels' own ranges
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA" or e.name.startswith("spec::"):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    n_kernels = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                    and not e.name.startswith(("spec::", "Memcpy", "Memset")))
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    wall = sum(a.elapsed_time(b) for a, b in marks)
+    traced = {g: 0 for g in SPEC_GROUPS}
+    for e in prof.events():
+        g = _spec_group(e.name) if e.device_type.name == "CUDA" else None
+        if g is not None:
+            traced[g] += 1
+    by_group = {}
+    for name, ms in by_name.items():
+        g = _spec_group(name) or "other"
+        by_group[g] = by_group.get(g, 0.0) + ms
+    # layer norm and the draft's own other work, by their labelled ranges
+    for e in prof.events():
+        if e.device_type.name != "CPU" or not e.kernels:
+            continue
+        chain, c = [], e
+        while c is not None:
+            chain.append(c.name)
+            c = c.cpu_parent
+        label = next((n[len("spec::"):] for n in chain
+                      if n.startswith("spec::")), None)
+        if label is None:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        g = label if label == "layer norm" else "draft (other than the kernels)"
+        if any(_spec_group(kn.name) for kn in e.kernels):
+            continue
+        by_group[g] = by_group.get(g, 0.0) + ms
+        by_group["other"] = by_group.get("other", 0.0) - ms
+    per = max(rounds, 1)
+    log(f"  profiler, {rounds} speculative rounds of {steps} steps: device "
+        f"busy {busy / per:.3f} ms a round of a {wall / per:.2f} ms wall "
+        f"round (idle share {1 - busy / wall:.3f}); {n_kernels / per:.1f} "
+        f"device launches a round  [{card}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms / per:8.4f} ms a round  {g}")
+    log(f"  traced kernels over the window: {traced}; counted by the "
+        f"wrappers: {counted}")
+    if rounds != steps or traced != counted:
+        raise SystemExit("the profiled rounds' traced kernels differ from "
+                         "the wrappers' counts (or a step was not a round)")
+    return {"busy_ms": busy / per, "round_ms": wall / per,
+            "idle_share": 1 - busy / wall, "launches": n_kernels / per,
+            "by_group_ms": {g: ms / per for g, ms in by_group.items()},
+            "rounds": rounds}
+
+
+def _serve_requests(srv, reqs, card, label):
+    """``reqs`` through ``srv`` (submitted at once; a submit the pool sheds
+    is retried after its hint), each step's wall time and each token's
+    arrival recorded. Returns (tokens, metrics)."""
+    from deeplearning4j_tpu_torch.serving.paged import PoolExhaustedError
+    steps = []
+    real_obs = srv.metrics.observe_decode_step
+
+    def obs(active, ms):
+        steps.append((active, ms))
+        real_obs(active, ms)
+    srv.metrics.observe_decode_step = obs
+    times = [[] for _ in reqs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    hs, pending, sheds = [None] * len(reqs), list(range(len(reqs))), 0
+    while pending:
+        still, hint = [], 0.05
+        for i in pending:
+            p, n = reqs[i]
+            try:
+                hs[i] = srv.submit(p, max_new_tokens=n, on_token=lambda
+                                   t, i=i: times[i].append(
+                                       time.perf_counter()))
+            except PoolExhaustedError as e:
+                sheds += 1
+                still.append(i)
+                hint = min(hint, e.retry_after_s)
+        pending = still
+        if pending:
+            time.sleep(hint)
+    got = [h.result(timeout=900) for h in hs]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    g = srv.metrics.to_record()["generative"]
+    n_tok = sum(len(t) for t in got)
+    gaps = [1e3 * (b - a) for t in times for a, b in zip(t, t[1:])]
+    step_ms = [ms for _, ms in steps]
+    m = {"tokens_per_s": n_tok / wall, "tokens": n_tok, "wall_s": wall,
+         "intertoken_p50_ms": float(np.percentile(gaps, 50)),
+         "step_p50_ms": float(np.percentile(step_ms, 50)),
+         "steps": len(steps), "spec_rounds": g["spec_rounds"],
+         "acceptance": g["draft_acceptance_rate"],
+         "prefills": g["prefills"], "decode_steps": g["decode_steps"],
+         "peak_gib": peak / 2**30, "peak_above_gib": (peak - base) / 2**30,
+         "sheds": sheds}
+    log(f"  {label}: {n_tok} tokens in {wall:.3f} s, {m['tokens_per_s']:.1f} "
+        f"tokens/s; {m['steps']} dispatch rounds ({g['spec_rounds']} "
+        f"speculative, acceptance {g['draft_acceptance_rate']:.4f}), step "
+        f"or round wall p50 {m['step_p50_ms']:.2f} ms, inter-token p50 "
+        f"{m['intertoken_p50_ms']:.2f} ms; {g['prefills']} prefills, "
+        f"{sheds} submits shed and retried; peak {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} above the run's start)  [{card}]")
+    return got, m
+
+
+def _check_drained(srv):
+    st = srv.pool.stats()
+    srv.pool.check_invariant(tables=[])
+    deadline = time.monotonic() + 10
+    while srv._committed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    log(f"  pool after the run: {st}, committed {srv._committed}: "
+        f"{'clean' if st['held'] == 0 and srv._committed == 0 else 'LEAK'}")
+    if st["held"] or srv._committed:
+        raise SystemExit("the block pool did not drain")
+
+
+def _counting(spec):
+    """Count the dispatches of a (draft) spec's prefill and decode."""
+    n = {"prefill": 0, "decode": 0}
+    for k in n:
+        real = getattr(spec, k)
+
+        def run(*a, _real=real, _k=k):
+            n[_k] += 1
+            return _real(*a)
+        setattr(spec, k, run)
+    return n
+
+
+def phase_spec_serving(dev, card):
+    """GPT-medium at full width, float32 weights from ``build_gpt(...,
+    seed=0)`` with the self-draft pairing (``bench.py``'s
+    ``bench_serving_speculative``): from layer 1 on, the residual-out
+    projections (``attn/proj``, ``mlp/proj``, kernel and bias) zeroed, so
+    a 1-layer draft over the same weights computes the target's logits.
+    Target ``gpt_paged_spec(sd, GPT_MEDIUM, quantize_weights=True)``, draft
+    ``gpt_generative_spec(sd, replace(GPT_MEDIUM, num_layers=1),
+    quantize_weights=True)``, through ``PagedGenerativeServer(max_slots=8,
+    block_size=16, max_seq_len=1024, draft_spec=..., speculate_k=8)``: the
+    32 ``serving_traffic`` requests, temperature 0, through ``submit`` /
+    ``result()``. Counts set to 0 just before, read just after: 16
+    ``paged_verify_attention`` launches a round; 65 ``int8_matmul`` a
+    target prefill, decode step or verify and 5 a draft dispatch;
+    ``paged_decode_attention`` 16 a plain target step and 1 a draft
+    decode, never in a verify. Every request against ``greedy_decode``
+    of the dense int8 target; the pool drains; ``spec_rounds >= 1``. Then
+    a profiled pass of rounds, the same requests on the int8 target
+    without a draft (the yardstick), and 8 requests through a float32
+    target with a float32 self-draft, each against ``greedy_decode``."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_MEDIUM, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_paged_spec)
+    cfg = GPT_MEDIUM
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    sd = build_gpt(cfg, batch=1, seq_len=8, seed=0)
+    for i in range(1, L):
+        for part in ("attn/proj", "mlp/proj"):
+            for leaf in ("kernel", "bias"):
+                n = f"h{i}/{part}/{leaf}"
+                sd.set_arr_for_var(n, torch.zeros_like(
+                    sd.get_arr_for_var(n)))
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    spec = gpt_paged_spec(sd, cfg, quantize_weights=True)
+    draft = gpt_generative_spec(sd, dcfg, quantize_weights=True)
+    ref = gpt_generative_spec(sd, cfg, quantize_weights=True)
+    reqs = serving_traffic(cfg.vocab_size)
+    srv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                block_size=SERVE_BS, max_seq_len=SERVE_SEQ,
+                                draft_spec=draft, speculate_k=SPEC_K)
+    log(f"  GPT-medium int8 target and 1-layer int8 self-draft up in "
+        f"{time.perf_counter() - t0:.1f} s; warmup {srv.warmup_report}")
+    nd = _counting(srv.draft_spec)
+    pa.reset_launches()
+    im.reset_launches()
+    af.reset_launches()
+    got, m = _serve_requests(srv, reqs, card,
+                             f"int8 speculative (k={SPEC_K}), 32 requests")
+    launches = {**pa.LAUNCHES, **im.LAUNCHES,
+                "paged_prefill_f32": af.LAUNCHES["paged_prefill_f32"],
+                "attention_fwd_f32": af.LAUNCHES["attention_fwd_f32"]}
+    srv.shutdown()
+    R, P = m["spec_rounds"], m["prefills"]
+    plain = m["decode_steps"] - R
+    want = {"paged_attention": 0,
+            "paged_decode_attention": L * plain + nd["decode"],
+            "paged_verify_attention": L * R,
+            "int8_matmul": (4 * L + 1) * (P + plain + R)
+            + 5 * (nd["prefill"] + nd["decode"]),
+            "paged_prefill_f32": L * P, "attention_fwd_f32": nd["prefill"]}
+    log(f"  launches {launches} over {P} prefills, {plain} plain steps, "
+        f"{R} rounds, {nd['prefill']} draft prefills and {nd['decode']} "
+        f"draft decodes; want {want}; launches a round: "
+        f"{L} verify, {4 * L + 1} + {SPEC_K} x 5 = {4 * L + 1 + SPEC_K * 5} "
+        f"int8_matmul, {SPEC_K} paged_decode_attention (the draft)")
+    if launches != want or R < 1 or nd["decode"] != SPEC_K * R:
+        raise SystemExit(f"speculative serving launched {launches}, want "
+                         f"{want}")
+    _check_drained(srv)
+    t0 = time.perf_counter()
+    same, ties = check_against_greedy(ref, reqs, got, dev)
+    log(f"  against greedy_decode of the dense int8 target on the card: "
+        f"{same} of {len(reqs)} identical, {len(ties)} near ties {ties} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    m["launches"] = launches
+    m["profile"] = profile_spec_rounds(spec, draft, reqs, card)
+    ysrv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                 block_size=SERVE_BS, max_seq_len=SERVE_SEQ)
+    ygot, ym = _serve_requests(ysrv, reqs, card,
+                               "int8, no draft (the yardstick), 32 requests")
+    ysrv.shutdown()
+    _check_drained(ysrv)
+    log(f"  speculative / plain int8 tokens/s: "
+        f"{m['tokens_per_s'] / ym['tokens_per_s']:.3f}; tokens equal "
+        f"{sum(a == b for a, b in zip(got, ygot))} of {len(reqs)}")
+    # float32 target and float32 self-draft
+    fspec = gpt_paged_spec(sd, cfg)
+    fdraft = gpt_generative_spec(sd, dcfg)
+    fref = gpt_generative_spec(sd, cfg)
+    fsrv = PagedGenerativeServer(fspec, max_slots=SERVE_SLOTS,
+                                 block_size=SERVE_BS, max_seq_len=SERVE_SEQ,
+                                 draft_spec=fdraft, speculate_k=SPEC_K)
+    sub = reqs[:8]
+    fgot, fm = _serve_requests(fsrv, sub, card,
+                               f"float32 speculative (k={SPEC_K}), 8 requests")
+    fsrv.shutdown()
+    _check_drained(fsrv)
+    if fm["spec_rounds"] < 1:
+        raise SystemExit("the float32 speculative server ran no round")
+    fsame, fties = check_against_greedy(fref, sub, fgot, dev)
+    log(f"  float32 against greedy_decode on the card: {fsame} of "
+        f"{len(sub)} identical, {len(fties)} near ties {fties}")
+    del srv, ysrv, fsrv, sd, spec, draft, ref, fspec, fdraft, fref
+    torch.cuda.empty_cache()
+    return {"spec": m, "plain": ym, "f32": fm}
+
+
+def spec_kernel_records(t, serve, errs):
+    """The two kernels' JSON records, per speculative round of 8 lanes at
+    k = 8: ``int8_matmul``'s 105 launches (a target verify at M = 64: 16
+    layers x 4 products and the tied logits; 8 draft dispatches at M = 8:
+    4 products and the logits each), ``paged_verify_attention``'s 16 at
+    context 512; each time the sum of its calls' per-call times."""
+    m = serve["spec"]
+    prof = m["profile"]["by_group_ms"]
+    keys = ("1536x4608", "1536x1536", "1536x6144", "6144x1536")
+
+    def round_sum(field):
+        return sum(16 * t[f"{k}_m64"][field] + SPEC_K * t[f"{k}_m8"][field]
+                   for k in keys) + t["1536x32768T_m64"][field] \
+            + SPEC_K * t["1536x32768T_m8"][field]
+    by_bytes = round_sum("bytes_ms") >= round_sum("ops_ms")
+    v = t["verify_512"]
+    return [{
+        "name": "int8_matmul", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES,
+        "launches": m["launches"]["int8_matmul"],
+        "launches_per_step": 4 * 16 + 1 + SPEC_K * 5,
+        "max_abs_err": errs["int8_matmul"],
+        "ms": round_sum("ms"), "plain_ms": round_sum("plain_ms"),
+        "bound_ms": round_sum("bound_ms"),
+        "bound_by": "bytes" if by_bytes else "operations",
+        "library_ms": round_sum("library_ms"),
+        "ms_per": "speculative round, 8 lanes, k = 8 (a verify at M = 64, "
+                  "8 draft dispatches at M = 8)",
+        "in_step_ms": prof.get("int8 GEMM"),
+        "per_call": {k: c for k, c in t.items() if not k.startswith("v")}},
+        {
+        "name": "paged_verify_attention", "route": "cuda",
+        "source": PAGED_SOURCE, "replaces": VERIFY_REPLACES,
+        "launches": m["launches"]["paged_verify_attention"],
+        "launches_per_step": 16,
+        "max_abs_err": errs["paged_verify_attention"],
+        "ms": 16 * v["ms"], "plain_ms": 16 * v["plain_ms"],
+        "bound_ms": 16 * v["bound_ms"], "bound_by": v["bound_by"],
+        "library_ms": 16 * v["library_ms"],
+        "ms_per": "speculative round's verify, 8 lanes x W 8 at context 512",
+        "in_step_ms": prof.get("verify attention"),
+        "per_call": {k: c for k, c in t.items() if k.startswith("v")}}]
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3053,10 +3831,11 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/15] env")
+    log("[1/18] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
+                                                  int8_matmul,
                                                   paged_attention)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
@@ -3064,14 +3843,15 @@ def main():
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
                   ex.submit(paged_attention._lib),
-                  ex.submit(attention_f32._lib)]:
+                  ex.submit(attention_f32._lib),
+                  ex.submit(int8_matmul._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
     for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
-                attention_f32._LIB):
+                attention_f32._LIB, int8_matmul._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -3086,42 +3866,42 @@ def main():
         "copies, DSMEM pushes, cluster barrier and mbarrier waits in SASS:")
     check_paged_build()
 
-    log("[2/15] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/18] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/15] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/18] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/15] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/18] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/15] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/18] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/15] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/18] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[7/15] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[7/18] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[8/15] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[8/18] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -3133,7 +3913,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/15] path shape: attention kernels timed (ms per GPT step)")
+    log("[9/18] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -3147,18 +3927,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/15] kernels: paged attention (CUDA C++) vs plain")
+    log("[10/18] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/15] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[11/18] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[12/15] main path: GPT-medium float32 serving, "
+    log(f"[12/18] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -3167,24 +3947,46 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[13/15] path shapes: paged attention vs plain, then timed")
+    log("[13/18] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[14/15] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[14/18] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[15/15] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[15/18] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[16/18] kernels: int8_matmul and paged_verify_attention (CUDA "
+        "C++) vs plain, then timed")
+    t0 = time.perf_counter()
+    phase_spec_kernels(dev, errs)
+    spec_timing = phase_spec_timing(dev, name, 512)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[17/18] parity: GPT_TINY speculative serving (dense and paged, "
+        "float32 and int8 weights), card vs CPU")
+    t0 = time.perf_counter()
+    phase_spec_parity()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[18/18] main path: GPT-medium int8-weight speculative serving, "
+        f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
+        f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
+        f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
+        f"and float32 speculative")
+    t0 = time.perf_counter()
+    spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -3253,6 +4055,7 @@ def main():
                       + (" after 256 cached keys" if "paged" in kname
                          else ""),
             "in_step_ms": prof[kname]["in_prefill_ms"], "per_call": t})
+    kernels.extend(spec_kernel_records(spec_timing, spec_serve, errs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

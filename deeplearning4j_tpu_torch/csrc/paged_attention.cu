@@ -20,14 +20,25 @@
 //   out[r, a] = sum_{t <= kmax[r]} softmax_t(scale * q[r, a] . K[t]) V[t]
 //   K[t] = kc[tables[s, t / BS], a, t % BS], and likewise V.
 // The caller keeps the contract that a row's write lands where its key
-// kmax[r] lies through its table, and that no other row reads that key: so
-// the block that owns key kmax[r] takes k_new and v_new as its K and V (the
-// bits the write stores) and stores them; no block reads them back. With no
+// kmax[r] lies through its table, and that no other row reads that key
+// from the cache: so key kmax[r] is taken from k_new and v_new (the bits
+// the write stores), the owning block stores them, and no block reads
+// them back. With no
 // write pointers (dl4j_paged_decode_attention's k_new == nullptr) it is the
 // attention alone. It reads only keys t <= kmax[r], so it never loads a
 // block past a row's last key: stale and null blocks (even NaN) cannot reach
 // a sum. The dense slab [S, A, max_seq, D] is a paged slab with BS = max_seq
 // and tables[s] = [s].
+//
+// dl4j_paged_verify_attention is a speculative verify's layer on the same
+// kernel (the JAX verify_fns' write-then-attend, zoo/gpt.py :437-459 dense
+// and :728-751 paged): each lane's window of W rows, row w writing its K/V
+// at its own place and attending to keys up to pos0 + w, where the keys
+// pos0 .. pos0 + w are taken from the launch's new rows (win0, wrow), not
+// read back. Row w's output is then the decode entry's at last key pos0 + w
+// over the same keys, bit for bit, and no row reads a key another row of
+// the launch writes. This first version runs each (lane, w) as its own
+// cluster, so a lane's keys below pos0 are read W times (mostly from L2).
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
 // of D values once and does 4 D FLOP per key, far below the card's ridge:
@@ -72,6 +83,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -401,13 +413,22 @@ struct Args {
   const int* kmax;
   const int* write_block;  // nullptr: no write
   const int* write_off;
+  // a verify's windows (nullptr at decode): row r takes keys win0[r] ..
+  // kmax[r] from k_new/v_new rows wrow[r] + (t - win0[r]), win0[r] -1: none
+  const int* win0;
+  const int* wrow;
   void* out;
-  int A, BS, MAXB, NB, S, bulk;
+  int N, A, BS, MAXB, NB, S, bulk;
   int64_t sqn, sqa, skb, ska, skt, svb, sva, svt;
   double scale;
 };
 
-template <typename T, int D>
+// kWindow: a verify's rows (Args.win0/wrow), whose window keys are read
+// from the launch's new rows; else a decode's, whose one new key (its own
+// last) is held in registers. The two take the same keys in the same order
+// and run the same sums on the same values: a verify row's bits are the
+// decode row's.
+template <typename T, int D, bool kWindow>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     paged_decode_kernel(const Args a) {
   using L = Layout<T, D>;
@@ -453,8 +474,25 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   int wb = a.write_block != nullptr ? a.write_block[row] : -1;
   const int wo = wb >= 0 ? a.write_off[row] : 0;
   if (wb >= a.NB || wo < 0 || wo >= a.BS) wb = -1;   // not in the slab: no write
-  // the key whose K and V are the step's new rows
+  // decode: the key whose K and V are the step's new rows
   const int wkey = (wb >= 0 && last >= 0 && km == last) ? last : -1;
+  // verify: the keys [wlo, last] are the launch's new rows, k_new/v_new
+  // row wrow_of_key0 + t (none: wlo past last). A window that does not lie
+  // within the launch's rows is refused: the row's output is NaN (its keys
+  // would otherwise be read back from slots this launch writes).
+  int wlo = INT_MAX, wrow_of_key0 = 0;
+  bool refused = false;
+  if constexpr (kWindow) {
+    const int w0 = a.win0[row], wr0 = a.wrow[row];
+    if (w0 >= 0 && w0 <= last) {
+      if (wr0 >= 0 && wr0 + (last - w0) < a.N) {
+        wlo = w0;
+        wrow_of_key0 = wr0 - w0;
+      } else {
+        refused = true;
+      }
+    }
+  }
   const int nch = last >= 0 ? last / kChunk + 1 : 0;
   const int mine = nch > rank ? (nch - 1 - rank) / kRanks + 1 : 0;
   const bool own = rank == (last >= 0 ? (last / kChunk) % kRanks : 0);
@@ -502,7 +540,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
         const int r = (p / L::NS) % kChunk;
         const int s = p % L::NS;
         const int t = c * kChunk + r;
-        if (t <= last && t != wkey) {
+        if (t <= last && (kWindow ? t < wlo : t != wkey)) {
           const int u = t / a.BS;
           const int64_t blk = tab[u];
           const int64_t off = t - u * a.BS;
@@ -516,11 +554,14 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   const int first = mine < nring ? mine : nring;
   for (int k = 0; k < first; ++k) issue(k);
 
-  // The step's K/V row, in the owning block's registers (each key group
-  // holds the whole row): its streams take it as key wkey's K and V, and
-  // its first group stores it after the loop.
+  // Decode: the step's K/V row, in the owning block's registers (each key
+  // group holds the whole row): its streams take it as key wkey's K and V,
+  // and its first group stores it after the loop. Verify: a key t >= wlo
+  // is read from the launch's new rows, never from the cache, and the
+  // owning block copies the row's own new K/V row into the cache after
+  // the loop.
   const bool writer = wb >= 0 && own;
-  const bool subst = wkey >= 0 && own;
+  const bool subst = !kWindow && wkey >= 0 && own;
   const T* kn_src = static_cast<const T*>(a.k_new) + qoff;
   const T* vn_src = static_cast<const T*>(a.v_new) + qoff;
   T qr[SL][E], kn[SL][E], vn[SL][E], acc[SL][E];
@@ -531,8 +572,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) {
       const int d = (gl + G * j) * E + e;
       qr[j][e] = qp[d];
-      kn[j][e] = writer ? kn_src[d] : T(0);
-      vn[j][e] = writer ? vn_src[d] : T(0);
+      kn[j][e] = !kWindow && writer ? kn_src[d] : T(0);
+      vn[j][e] = !kWindow && writer ? vn_src[d] : T(0);
       acc[j][e] = T(0);
     }
   T m = -INFINITY, l = T(0);
@@ -550,14 +591,21 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       const int i = (sid + S * jj) & (kChunk - 1);
       const int t = t0 + i;
       ok[jj] = live && t <= last;
-      const bool sub = subst && t == wkey;
+      const bool sub = kWindow ? t >= wlo && ok[jj] : subst && t == wkey;
       T dot = T(0);
 #pragma unroll
       for (int j = 0; j < SL; ++j) {
         T kr[E];
         if (sub) {
+          if constexpr (kWindow) {
+            const T* kw = static_cast<const T*>(a.k_new) +
+                          (static_cast<int64_t>(wrow_of_key0 + t) * a.sqn + head * a.sqa);
 #pragma unroll
-          for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
+            for (int e = 0; e < E; ++e) kr[e] = kw[(gl + G * j) * E + e];
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
+          }
         } else {
           ld16<T, E>(sk + i * D + (gl + G * j) * E, kr);
         }
@@ -583,15 +631,23 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       for (int jj = 0; jj < L::KPS; ++jj) {
         if (!ok[jj]) continue;             // a masked key's V is never read
         const int i = (sid + S * jj) & (kChunk - 1);
-        const bool sub = subst && t0 + i == wkey;
+        const int t = t0 + i;
+        const bool sub = kWindow ? t >= wlo : subst && t == wkey;
         const T p = exp_(sc[jj] - mx);
         l += p;
 #pragma unroll
         for (int j = 0; j < SL; ++j) {
           T vr[E];
           if (sub) {
+            if constexpr (kWindow) {
+              const T* vw = static_cast<const T*>(a.v_new) +
+                            (static_cast<int64_t>(wrow_of_key0 + t) * a.sqn + head * a.sqa);
 #pragma unroll
-            for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
+              for (int e = 0; e < E; ++e) vr[e] = vw[(gl + G * j) * E + e];
+            } else {
+#pragma unroll
+              for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
+            }
           } else {
             ld16<T, E>(sv + i * D + (gl + G * j) * E, vr);
           }
@@ -631,8 +687,9 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     for (int j = 0; j < SL; ++j)
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        kd[(gl + G * j) * E + e] = kn[j][e];
-        vd[(gl + G * j) * E + e] = vn[j][e];
+        const int d = (gl + G * j) * E + e;
+        kd[d] = kWindow ? kn_src[d] : kn[j][e];
+        vd[d] = kWindow ? vn_src[d] : vn[j][e];
       }
   }
   __syncthreads();
@@ -689,13 +746,13 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       }
       res = oc / lc;
     }
-    static_cast<T*>(a.out)[cid * D + tid] = res;
+    static_cast<T*>(a.out)[cid * D + tid] = refused ? T(NAN) : res;
   }
 }
 
 // The kernel's shared memory raised past 48 KB on the current device, once
 // per device: a kernel's attributes belong to each device's context.
-template <typename T, int D>
+template <typename T, int D, bool kWindow>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -704,31 +761,33 @@ cudaError_t configure() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(paged_decode_kernel<T, D, kWindow>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            Layout<T, D>::kRingSlots * Layout<T, D>::kSlotBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWindow>
 int launch(Args a, int64_t N, cudaStream_t st) {
   using L = Layout<T, D>;
   // a chunk's 16 rows are one contiguous run of the slab
   a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;
-  const cudaError_t attr = configure<T, D>();
+  const cudaError_t attr = configure<T, D, kWindow>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_decode_kernel<T, D><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
-                              static_cast<size_t>(L::kRingSlots) * L::kSlotBytes, st>>>(a);
+  paged_decode_kernel<T, D, kWindow><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
+                                       static_cast<size_t>(L::kRingSlots) * L::kSlotBytes,
+                                       st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 int launch_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(a, N, st);
-    case 32: return launch<T, 32>(a, N, st);
-    case 64: return launch<T, 64>(a, N, st);
-    case 128: return launch<T, 128>(a, N, st);
+    case 16: return launch<T, 16, kWindow>(a, N, st);
+    case 32: return launch<T, 32, kWindow>(a, N, st);
+    case 64: return launch<T, 64, kWindow>(a, N, st);
+    case 128: return launch<T, 128, kWindow>(a, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -765,12 +824,57 @@ extern "C" int dl4j_paged_decode_attention(
   dec::Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(tables),
               static_cast<const int*>(lane), static_cast<const int*>(kmax),
               k_new != nullptr ? static_cast<const int*>(write_block) : nullptr,
-              static_cast<const int*>(write_off), out, static_cast<int>(A),
-              static_cast<int>(BS), static_cast<int>(MAXB), static_cast<int>(NB),
-              static_cast<int>(S), 0, sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
+              static_cast<const int*>(write_off), nullptr, nullptr, out,
+              static_cast<int>(N), static_cast<int>(A), static_cast<int>(BS),
+              static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
+              sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dec::launch_d<float>(D, a, N, st);
-  if (dtype == 2) return dec::launch_d<double>(D, a, N, st);
+  if (dtype == 1) return dec::launch_d<float, false>(D, a, N, st);
+  if (dtype == 2) return dec::launch_d<double, false>(D, a, N, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A speculative verify's layer: the same cluster kernel over the rows of
+// every lane's window (row r of lane lane[r], last key kmax[r]), each
+// row's K/V written at (write_block[r], write_off[r]) (-1: none), and the
+// keys win0[r] .. kmax[r] taken from k_new/v_new rows wrow[r] + (t -
+// win0[r]) (win0[r] -1: none), the bits the launch writes there; keys
+// below win0[r] come from the cache through the table; a row whose window
+// does not lie within the N rows (wrow[r] < 0 or wrow[r] + (kmax[r] -
+// win0[r]) >= N) gets NaN, its write still made. A row's output is
+// the decode entry's for the same row, last key and keys, bit for bit:
+// the same kernel, the same sums in the same order. Any window length runs
+// in one launch (W rows a lane). Arguments as dl4j_paged_decode_attention,
+// with win0 [N] and wrow [N] int32, contiguous; k_new is required.
+extern "C" int dl4j_paged_verify_attention(
+    const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
+    const void* tables, const void* lane, const void* kmax, const void* win0,
+    const void* wrow, const void* write_block, const void* write_off, void* out, int64_t N,
+    int64_t A, int64_t D, int64_t BS, int64_t MAXB, int64_t NB, int64_t S, int64_t sqn,
+    int64_t sqa, int64_t skb, int64_t ska, int64_t skt, int64_t svb,
+    int64_t sva, int64_t svt, double scale, int dtype,
+    void* stream) {
+  if (N <= 0 || A <= 0) return 0;
+  if (BS < 1 || MAXB < 1 || MAXB * BS >= (int64_t{1} << 31) ||
+      N * A * dec::kRanks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k_new == nullptr || v_new == nullptr || write_block == nullptr || write_off == nullptr ||
+      win0 == nullptr || wrow == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t es = dtype == 2 ? 8 : 4;
+  if (!dec::aligned16(kc) || !dec::aligned16(vc) ||
+      ((skb | ska | skt | svb | sva | svt) * es) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dec::Args a{q, k_new, v_new, kc, vc, static_cast<const int*>(tables),
+              static_cast<const int*>(lane), static_cast<const int*>(kmax),
+              static_cast<const int*>(write_block), static_cast<const int*>(write_off),
+              static_cast<const int*>(win0), static_cast<const int*>(wrow), out,
+              static_cast<int>(N), static_cast<int>(A), static_cast<int>(BS),
+              static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
+              sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dec::launch_d<float, true>(D, a, N, st);
+  if (dtype == 2) return dec::launch_d<double, true>(D, a, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -24,6 +24,9 @@ CARDS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
 #: H100 SXM dense bf16 tensor-core rate (FLOP/s)
 BF16_TC_FLOPS = 989e12
+#: dense bf16 tensor-core rate (FLOP/s) by a word of the card's name, from
+#: NVIDIA's data sheets
+BF16_TC = {"PCIe": 756e12, "NVL": 835e12, "H100": BF16_TC_FLOPS}
 #: dense TF32 tensor-core rate (FLOP/s) by a word of the card's name, from
 #: NVIDIA's data sheets; a float32-grade product in 3xTF32 takes three
 TF32_TC = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
@@ -31,21 +34,23 @@ TF32_TC = {"PCIe": 378e12, "NVL": 417.5e12, "H100": 495e12}
 SLEEP_CYCLES = 10**8
 
 
-def card_rates(name: str) -> Tuple[float, float]:
-    """(memory bytes/s, float32 FLOP/s) of the card named ``name``."""
+def _card_word(name: str) -> str:
+    """The word of the card's name the rate tables are keyed by."""
     for key in ("PCIe", "NVL", "H100"):
         if key in name:
-            return CARDS[key]
-    raise SystemExit(f"no memory/compute rates on record for {name!r}")
+            return key
+    raise SystemExit(f"no rates on record for {name!r}")
+
+
+def card_rates(name: str) -> Tuple[float, float]:
+    """(memory bytes/s, float32 FLOP/s) of the card named ``name``."""
+    return CARDS[_card_word(name)]
 
 
 def tf32x3_rate(name: str) -> float:
     """FLOP/s of float32-grade products in 3xTF32 on the card named
     ``name``: its dense TF32 tensor-core rate over 3."""
-    for key in ("PCIe", "NVL", "H100"):
-        if key in name:
-            return TF32_TC[key] / 3
-    raise SystemExit(f"no TF32 rate on record for {name!r}")
+    return TF32_TC[_card_word(name)] / 3
 
 
 def two_rate_bound(ops: float, nbytes: float, name: str) -> Dict[str, object]:
@@ -60,6 +65,27 @@ def two_rate_bound(ops: float, nbytes: float, name: str) -> Dict[str, object]:
     fma = 1e3 * ops / flops32
     tc = 1e3 * ops / tf32x3_rate(name)
     return {"bytes_ms": by_bytes, "fma_ms": fma, "tf32x3_ms": tc,
+            "bound_ms": max(by_bytes, tc),
+            "bound_by": "bytes" if by_bytes >= tc else "operations"}
+
+
+def int8_weight_bound(ops: float, nbytes: float,
+                      name: str) -> Dict[str, object]:
+    """The least time (ms) of ``ops`` float32-grade operations of a float32
+    x with an int8 weight on ``nbytes`` bytes on the card named ``name``.
+    An int8 value is exact in TF32 and in bf16, so only x is split: x_hi w
+    + x_lo w is two TF32 passes (``tf32x2_ms``), and x cut into three bf16
+    pieces (24 significant bits, float32's exponent range) is three bf16
+    passes (``bf16x3_ms``); the bound is the larger of the bytes' time and
+    the faster of the two (the FMA rate's time beside them)."""
+    bw, flops32 = card_rates(name)
+    word = _card_word(name)
+    by_bytes = 1e3 * nbytes / bw
+    tf32x2 = 1e3 * ops / (TF32_TC[word] / 2)
+    bf16x3 = 1e3 * ops / (BF16_TC[word] / 3)
+    tc = min(tf32x2, bf16x3)
+    return {"bytes_ms": by_bytes, "fma_ms": 1e3 * ops / flops32,
+            "tf32x2_ms": tf32x2, "bf16x3_ms": bf16x3, "ops_ms": tc,
             "bound_ms": max(by_bytes, tc),
             "bound_by": "bytes" if by_bytes >= tc else "operations"}
 
@@ -429,16 +455,100 @@ def paged_reading(got, want, terms, tol):
     return r if np.isfinite(r) else float("inf")
 
 
-def paged_bounds(q, kc, tables, lane, kmax, writes=0):
+def paged_bounds(q, kc, tables, lane, kmax, writes=0, win0=None):
     """(operations, bytes) of one call: 4 D FLOP per (row, head, key) for
-    q.K and p.V; the K and V rows up to each lane's last key read once, q
-    read and the output written once; and for each of ``writes`` rows that
-    write, its new K and V rows read once and written once."""
+    q.K and p.V; the K and V rows up to each lane's last key read once (a
+    verify's, ``win0`` given: the keys below each row's window, the window's
+    own taken from the new rows; a row without one, -1, reads to its last
+    key), q read and the output written once; and for each of ``writes``
+    rows that write, its new K and V rows read once and written once."""
     n, a, d = q.shape
     it = q.element_size()
     lanes = {}
-    for ln, k in zip(lane.tolist(), kmax.tolist()):
-        lanes[ln] = max(lanes.get(ln, -1), k)
+    w0s = win0.tolist() if win0 is not None else [-1] * n
+    for ln, k, w0 in zip(lane.tolist(), kmax.tolist(), w0s):
+        lanes[ln] = max(lanes.get(ln, 0), w0 if w0 >= 0 else k + 1)
     keys = int((kmax.long() + 1).sum())
-    kv = sum(k + 1 for k in lanes.values()) * a * d * it * 2
+    kv = sum(lanes.values()) * a * d * it * 2
     return 4 * d * a * keys, kv + (2 * n + 4 * writes) * a * d * it
+
+
+def paged_verify_case(dev, pos0, w, a, d, bs, dtype, active=None, seed=0,
+                      spare=2, dense=False):
+    """A verify's inputs: lane ``s`` holds positions ``0 .. pos0[s] + w -
+    1`` in blocks ``1 + the earlier lanes' blocks`` onward (``dense``: one
+    block of ``bs`` positions a lane, the slab of the dense verify, lane
+    ``s`` in block ``s``); ``w`` window rows a lane (row ``s w + j``), row
+    ``j`` writing at position ``pos0[s] + j`` through its table and
+    attending to keys ``<= pos0[s] + j``, its window keys from the new
+    rows; an inactive lane writes nothing and attends to key 0. Every
+    block finite. Returns (q, k_new, v_new, kc, vc, tables, lane, kmax,
+    win0, wrow, write_block, write_off)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s_n = len(pos0)
+    act = [True] * s_n if active is None else list(active)
+    if dense:
+        nblk, nb = [1] * s_n, s_n
+        tables = torch.arange(s_n, dtype=torch.int32)[:, None]
+    else:
+        nblk = [(p + w - 1) // bs + 1 for p in pos0]
+        nb = 1 + sum(nblk) + spare
+        tables = torch.zeros(s_n, max(nblk), dtype=torch.int32)
+        base = 1
+        for s, n in enumerate(nblk):
+            tables[s, :n] = torch.arange(base, base + n, dtype=torch.int32)
+            base += n
+    kc, vc = (torch.randn(nb, a, bs, d, device=dev, generator=g).to(dtype)
+              for _ in range(2))
+    q, k_new, v_new = _qkv_views(s_n * w, a, d, dtype, dev, g)
+    lane, kmax, win0, wrow, wb, wo = ([] for _ in range(6))
+    for s in range(s_n):
+        for j in range(w):
+            t = pos0[s] + j
+            lane.append(s)
+            kmax.append(t if act[s] else 0)
+            win0.append(pos0[s] if act[s] else -1)
+            wrow.append(s * w)
+            wb.append(int(tables[s, t // bs]) if act[s] else -1)
+            wo.append(t % bs if act[s] else 0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, k_new, v_new, kc, vc, tables.to(dev),
+            *(torch.tensor(x, **i32) for x in (lane, kmax, win0, wrow, wb,
+                                               wo)))
+
+
+def paged_verify_library(q, kc, vc, tables, lane, kmax, s_n, w):
+    """The library yardstick's inputs for a verify of ``s_n`` lanes of
+    ``w`` rows: the window's queries [S, A, W, D], each lane's context as
+    contiguous [S, A, T, D] K and V (gathered through its table once,
+    outside the timing) and the [S, 1, W, T] mask of each row's keys: one
+    masked ``F.scaled_dot_product_attention`` computes the attention."""
+    dk, dv, _ = paged_dense(kc, vc, tables)
+    t = dk.shape[2]
+    km = kmax.long().view(s_n, w)
+    mask = torch.arange(t, device=q.device)[None, None, :] <= km[:, :, None]
+    qs = q.reshape(s_n, w, *q.shape[1:]).transpose(1, 2).contiguous()
+    return qs, dk, dv, mask[:, None]
+
+
+def int8_matmul_case(dev, m, k, n, transposed=False, seed=0):
+    """x [m, k] float32 (a GPT activation's scale) and the int8 payload and
+    float32 scale ``gpt_quantize_params`` makes of a N(0, 0.02) weight:
+    w [k, n] with scale [n], or (``transposed``) w [n, k] with scale [k],
+    the tied embedding's layout."""
+    from deeplearning4j_tpu_torch.evaluation.calibration import (
+        absmax_scales, quantize_symmetric)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g)
+    w = torch.randn(n, k, device=dev, generator=g) * 0.02
+    if not transposed:
+        w = w.t().contiguous()
+    s = absmax_scales(w)
+    return x, quantize_symmetric(w, s), s
+
+
+def int8_matmul_bounds(m, k, n):
+    """(operations, bytes) of one call: 2 M N K FLOP; the int8 payload,
+    x, the scale and y each moved once."""
+    return 2 * m * n * k, k * n + 4 * (m * k + m * n + max(k, n))
+

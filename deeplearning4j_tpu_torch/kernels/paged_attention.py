@@ -33,6 +33,17 @@ positions alone, so paged and dense decode of one context give the same
 bits. The dense slab ``[S, A, max_seq, D]`` is a paged slab with ``BS =
 max_seq`` and ``tables[s] = [s]``.
 
+``paged_verify_attention`` is a speculative verify's layer (the JAX
+``verify_fn`` :701, its window scatter and write-then-attend :728-751;
+dense :406, :437-459): the rows of every lane's window, each writing its
+K/V and attending to its own last key, with the keys of its window taken
+from the launch's new rows (``win0``, ``wrow``) rather than read back. On
+the card it is the same cluster kernel through the entry
+``dl4j_paged_verify_attention``, counted in ``LAUNCHES``: row
+``w``'s output is ``paged_decode_attention``'s at ``kmax = pos0 + w`` over
+the same keys, bit for bit. ``paged_verify_plain`` is the JAX
+write-then-attend.
+
 ``paged_prefill_attention`` is the prefill's form, every row in one lane
 over that lane's table: for float32 on the card it launches
 ``attention_f32``'s ``dl4j_paged_prefill_f32`` (``csrc/attention_f32.cu``,
@@ -61,8 +72,9 @@ import torch
 from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
 
 #: Kernel launches, bumped where the kernel is launched, by the wrapper
-#: that launched it (both launch the cluster kernel).
-LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_attention": 0}
+#: that launched it (all three launch the cluster kernel).
+LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_decode_attention": 0,
+                            "paged_verify_attention": 0}
 
 _LIB = "paged_attention"
 _MASKED = -1e30
@@ -87,9 +99,17 @@ V1_ARGTYPES = (
     + [(n, _I64) for n in ("N", "A", "D", "BS", "MAXB", "sqn", "sqa", "skb",
                            "ska", "skt", "svb", "sva", "svt")]
     + [("scale", _D), ("dtype", _I), ("stream", _P)])
+#: the verify's entry: the decode entry's arguments with each row's window
+#: (win0, wrow) after kmax
+VERIFY_ARGTYPES = (
+    [(n, _P) for n in ("q", "k_new", "v_new", "kc", "vc", "tables", "lane",
+                       "kmax", "win0", "wrow", "write_block", "write_off",
+                       "out")]
+    + DECODE_ARGTYPES[11:])
 ENTRY, V1_ENTRY = "dl4j_paged_decode_attention", "dl4j_paged_attention_v1"
-ENTRIES = {ENTRY: DECODE_ARGTYPES, V1_ENTRY: V1_ARGTYPES}
-
+VERIFY_ENTRY = "dl4j_paged_verify_attention"
+ENTRIES = {ENTRY: DECODE_ARGTYPES, V1_ENTRY: V1_ARGTYPES,
+           VERIFY_ENTRY: VERIFY_ARGTYPES}
 _cuda.register_counters(LAUNCHES)
 
 
@@ -172,6 +192,78 @@ def paged_decode_plain(q, k_new, v_new, kc, vc, tables, lane, kmax,
     return paged_attention_plain(q, kc, vc, tables, lane, kmax)
 
 
+def _window_context(kc, vc, table, k_new, v_new, win0, wrow, kmax):
+    """One lane's gathered ``[A, T, D]`` K and V with keys ``win0 ..
+    kmax`` (the window's own keys, as far as the table reaches) taken from
+    ``k_new``/``v_new`` rows ``wrow + (t - win0)``."""
+    a, bs, d = kc.shape[1], kc.shape[2], kc.shape[3]
+    t_len = table.shape[0] * bs
+    tab = table.long()
+    ctx_k = kc[tab].transpose(0, 1).reshape(a, t_len, d).clone()
+    ctx_v = vc[tab].transpose(0, 1).reshape(a, t_len, d).clone()
+    hi = min(kmax, t_len - 1)
+    if 0 <= win0 <= hi:
+        rows = torch.arange(wrow, wrow + hi - win0 + 1, device=kc.device)
+        ctx_k[:, win0:hi + 1] = k_new[rows].transpose(0, 1)
+        ctx_v[:, win0:hi + 1] = v_new[rows].transpose(0, 1)
+    return ctx_k, ctx_v
+
+
+def paged_verify_plain(q, k_new, v_new, kc, vc, tables, lane, kmax, win0,
+                       wrow, write_block, write_off):
+    """A speculative verify's layer as the JAX verify functions write it:
+    ``index_put_`` of each writing row's ``k_new``/``v_new`` at
+    ``(write_block, write_off)`` (in place), then each row's attention over
+    its lane's table to ``kmax``, with the keys ``win0 .. kmax`` of its
+    window taken from the new rows ``wrow + (t - win0)`` (where every
+    window row writes, the bits the write put there), the V rows past the
+    lane's last key zeroed, scores in the accumulation dtype, -1e30 past
+    each row's key, the softmax. A row whose window does not lie within
+    the launch's rows (``wrow < 0`` or ``wrow + (kmax - win0) >= N``, with
+    ``kmax`` cut to the table's reach) is refused as the kernel refuses it:
+    its output is NaN (its write is still made)."""
+    rows_w = torch.nonzero(write_block >= 0).flatten()
+    if rows_w.numel():
+        heads = torch.arange(q.shape[1], device=q.device)
+        at = (write_block[rows_w].long()[:, None], heads[None, :],
+              write_off[rows_w].long()[:, None])
+        kc.index_put_(at, k_new[rows_w])
+        vc.index_put_(at, v_new[rows_w])
+    n, a, d = q.shape
+    t_len = tables.shape[1] * kc.shape[2]
+    acc = acc_dtype(q.dtype)
+    s = _scale(d)
+    out = torch.empty((n, a, d), dtype=vc.dtype, device=q.device)
+    keys = torch.arange(t_len, device=q.device)
+    groups: Dict[tuple, list] = {}
+    refused = []
+    for r, (u, k, w0, wr) in enumerate(zip(lane.tolist(), kmax.tolist(),
+                                           win0.tolist(), wrow.tolist())):
+        last = min(k, t_len - 1)
+        if 0 <= w0 <= last and not (wr >= 0 and wr + (last - w0) < n):
+            refused.append(r)
+        else:
+            groups.setdefault((u, w0, wr), []).append(r)
+    km = kmax.long()
+    for (u, w0, wr), rows in groups.items():
+        rows = torch.tensor(rows, device=q.device)
+        top = int(km[rows].max())
+        ctx_k, ctx_v = _window_context(kc, vc, tables[u], k_new, v_new, w0,
+                                       wr, top)
+        valid = (keys <= top)[None, :, None]
+        ctx_k = torch.where(valid, ctx_k, 0)
+        ctx_v = torch.where(valid, ctx_v, 0)
+        mask = keys[None, :] <= km[rows][:, None]
+        scores = torch.einsum("rad,atd->rat", q[rows].to(acc),
+                              ctx_k.to(acc)) * s
+        scores = torch.where(mask[:, None, :], scores, _MASKED)
+        probs = torch.softmax(scores, dim=-1).to(vc.dtype)
+        out[rows] = torch.einsum("rat,atd->rad", probs, ctx_v)
+    out[kmax < 0] = 0
+    out[refused] = math.nan
+    return out
+
+
 def abs_terms(q, kc, vc, tables, lane, kmax):
     """Per output element, the sum of the absolute values of the terms that
     make it up, ``sum_t p_t |V[t]|``, in float64: a kernel that sums the
@@ -250,10 +342,28 @@ def _check_write(q, k_new, v_new, write_block, write_off, dev):
             raise ValueError(f"{name} must be contiguous int32")
 
 
-def _launch(q, kc, vc, tables, lane, kmax, write=None,
+def _check_verify(q, k_new, v_new, win0, wrow, write_block, write_off, dev):
+    """Raise on a verify's new rows, windows or write places the kernel does
+    not take."""
+    _check_write(q, k_new, v_new, write_block, write_off, dev)
+    n = q.shape[0]
+    if win0.shape != (n,) or wrow.shape != (n,):
+        raise ValueError(f"win0 {tuple(win0.shape)} and wrow "
+                         f"{tuple(wrow.shape)} must be [N]")
+    if win0.device != dev or wrow.device != dev:
+        raise ValueError("win0 and wrow must be on q's device")
+    if dev.type == "cpu":
+        return
+    for name, t in (("win0", win0), ("wrow", wrow)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32")
+
+
+def _launch(q, kc, vc, tables, lane, kmax, write=None, window=None,
             lib=None) -> torch.Tensor:
     """One launch of the cluster kernel; ``write`` is (k_new, v_new,
-    write_block, write_off) or None; ``lib`` is the built library (a
+    write_block, write_off) or None; ``window`` is (win0, wrow), a verify's
+    windows (the verify entry), or None; ``lib`` is the built library (a
     variant of the source, for studies) or None for the port's. The cache
     is read in 16-byte slices and written in place, so it is not copied:
     its rows must start on 16 bytes."""
@@ -266,15 +376,17 @@ def _launch(q, kc, vc, tables, lane, kmax, write=None,
     k_new, v_new, wb, wo = [None if t is None else t.data_ptr()
                             for t in (write or (None,) * 4)]
     bs, maxb = kc.shape[2], tables.shape[1]
+    entry = ENTRY if window is None else VERIFY_ENTRY
+    win = () if window is None else tuple(t.data_ptr() for t in window)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with torch.cuda.device(dev):
-        err = getattr(lib or _lib(), ENTRY)(
+        err = getattr(lib or _lib(), entry)(
             q.data_ptr(), k_new, v_new, kc.data_ptr(), vc.data_ptr(),
-            tables.data_ptr(), lane.data_ptr(), kmax.data_ptr(), wb, wo,
+            tables.data_ptr(), lane.data_ptr(), kmax.data_ptr(), *win, wb, wo,
             out.data_ptr(), n, a, d, bs, maxb, kc.shape[0], tables.shape[0],
             q.stride(0), q.stride(1), *kc.stride()[:3], *vc.stride()[:3],
             _scale(d), _DTYPE_CODE[q.dtype], stream)
-    _cuda.check(err, ENTRY)
+    _cuda.check(err, entry)
     return out
 
 
@@ -321,6 +433,41 @@ def paged_decode_attention(q, k_new, v_new, kc, vc, tables, lane, kmax,
     out = _launch(q, kc, vc, tables, lane, kmax,
                   (k_new, v_new, write_block, write_off))
     LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_verify_attention(q, k_new, v_new, kc, vc, tables, lane, kmax, win0,
+                           wrow, write_block, write_off) -> torch.Tensor:
+    """A speculative verify's layer: ``out [N, A, D]`` (contiguous, q's
+    dtype) of the rows of every lane's window, one launch of the verify
+    entry on the card, ``paged_verify_plain`` on the CPU.
+
+    Row ``r`` (of lane ``lane[r]``, last key ``kmax[r]``) writes its new
+    K/V rows ``k_new[r]``/``v_new[r]`` at ``(write_block[r],
+    write_off[r])`` (-1: no write, as ``paged_decode_attention``), and
+    attends to keys ``0 .. kmax[r]``: those below ``win0[r]`` read from
+    the cache through its table, the keys ``win0[r] .. kmax[r]`` taken
+    from the new rows ``wrow[r] + (t - win0[r])`` (``win0[r]`` -1: none).
+    A verify hands row ``w`` of lane ``s``'s window (``r = s W + w``) the
+    lane's first window position ``pos0`` as ``win0`` and ``s W`` as
+    ``wrow``, so that its window keys are the rows the same launch writes,
+    never read back: row ``w``'s output is then ``paged_decode_attention``'s
+    at ``kmax = pos0 + w`` over the same keys, bit for bit on the card.
+    ``win0``/``wrow`` [N] int32; the other arguments are
+    ``paged_decode_attention``'s. Any window length runs in one launch.
+    A row whose window runs past the launch's rows (``wrow[r] + (kmax[r] -
+    win0[r]) >= N``) or has ``wrow[r] < 0`` is refused, on the card and on
+    the CPU alike: its output is NaN (the kernel cannot raise without a
+    host sync; reading those keys from the cache would read slots the
+    launch writes)."""
+    dev = _check(q, kc, vc, tables, lane, kmax)
+    _check_verify(q, k_new, v_new, win0, wrow, write_block, write_off, dev)
+    if dev.type == "cpu":
+        return paged_verify_plain(q, k_new, v_new, kc, vc, tables, lane,
+                                  kmax, win0, wrow, write_block, write_off)
+    out = _launch(q, kc, vc, tables, lane, kmax,
+                  (k_new, v_new, write_block, write_off), (win0, wrow))
+    LAUNCHES["paged_verify_attention"] += 1
     return out
 
 

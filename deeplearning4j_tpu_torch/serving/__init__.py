@@ -6,7 +6,8 @@
   place, step-boundary admission into free slots, one decode step
   advancing every active slot, pow2 prefill buckets, streaming token
   delivery, SLO admission on p99 decode-step time, supervised crash
-  recovery (requeue at prefill, exactly once);
+  recovery (requeue at prefill, exactly once), speculative decoding
+  with a draft model (``draft_spec=``, ``speculate_k=``);
 - ``paged``: the paged-KV tier (:class:`~.paged.PagedGenerativeServer`):
   a block pool, block tables and prefix caching;
 - ``queue``, ``metrics``, ``resilience``, ``batching``, ``sampling``:

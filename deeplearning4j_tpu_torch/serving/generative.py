@@ -4,8 +4,8 @@ step-boundary admission, streaming decode.
 Counterpart of ``deeplearning4j_tpu/serving/generative.py``
 (``GenerativeSpec`` :88, ``SlotAllocator`` :129, ``GenerationRequest``
 :178, ``GenerationHandle`` :244, ``GenerativeMetrics`` :297,
-``GenerativeServer`` :435, ``greedy_decode`` :1632), copied and adapted
-to tensors on the card:
+``GenerativeServer`` :435 with its speculative tier :1286-1404,
+``greedy_decode`` :1632), copied and adapted to tensors on the card:
 
 - **KV slabs**: two tensors (K and V) shaped ``[layers, max_slots,
   heads, max_seq, head_dim]``, allocated ONCE at construction (headroom
@@ -29,11 +29,17 @@ to tensors on the card:
   crashed worker's in-flight generations are requeued at the front
   exactly once and re-enter at prefill with ``prompt + tokens generated
   so far``; the respawned worker starts from fresh slabs.
+- **speculative decoding** (``draft_spec=``, ``speculate_k=``): a small
+  draft model, always dense, proposes ``speculate_k - 1`` tokens a slot
+  in ``speculate_k`` decode dispatches, and the target scores the whole
+  window in one verify dispatch; every emitted token is the target's
+  own, so the output is the non-speculative server's.
 
 **Warmup** builds the kernels (``nvcc`` at their first launch) and runs
-the decode step and every prefill bucket once, the decode with no lane
-active and the prefills on throwaway one-slot slabs, so that nothing is
-built under traffic. **Dispatch** calls the spec's functions directly
+the decode step and every prefill bucket once (with a draft also the
+verify at the window's shape, the draft's decode and its prefill
+buckets), the decode and verify with no lane active and the prefills on
+throwaway one-slot slabs, so that nothing is built under traffic. **Dispatch** calls the spec's functions directly
 under ``torch.inference_mode()`` (there is no program to compile ahead).
 
 Correctness contract (``tests/test_torch_serving.py``): greedy tokens
@@ -41,9 +47,8 @@ equal :func:`greedy_decode` for every request of a mixed-length run; a
 retired slot's cache, even poisoned with NaNs, cannot reach its successor
 (the kernel reads keys ``<= position`` only).
 
-Not ported yet, each refused where it is asked for: speculative decoding
-(``draft_spec``), the telemetry endpoint (``telemetry_port``, which waits
-for ``monitor/server.py``). The fleet's hooks (``submit_continuation``,
+Not ported yet, each refused where it is asked for: the telemetry
+endpoint (``telemetry_port``, which waits for ``monitor/server.py``). The fleet's hooks (``submit_continuation``,
 ``params_snapshot``/``restore_params``, ``abort``, request trace
 contexts), the stats-storage records, ``memory_report``, custom bucket
 ladders and the stall watchdog around a dispatch wait for the fleet, the
@@ -67,7 +72,8 @@ from deeplearning4j_tpu_torch.monitor import memstats
 from deeplearning4j_tpu_torch.monitor.trace import TRACER as _tracer
 from deeplearning4j_tpu_torch.serving.batching import BucketSpec, pow2_buckets
 from deeplearning4j_tpu_torch.serving.metrics import (LatencyHistogram,
-                                                      ServingMetrics)
+                                                      ServingMetrics,
+                                                      safe_ratio)
 from deeplearning4j_tpu_torch.serving.queue import (
     InferenceRequest, RequestQueue, ServerClosedError, ServerOverloadedError,
     ServingError, ServingTimeoutError)
@@ -103,7 +109,9 @@ class GenerativeSpec:
       one token and returns ``(kc, vc, next_tokens, logits)``.
     - ``kv_shape(max_slots, max_seq)`` is the shape of ONE slab (K and V
       are two tensors of this shape), of dtype ``kv_dtype``.
-    - ``verify``: the speculative verifier (not ported yet).
+    - ``verify(params, kc, vc, io)`` with ``io = {"tokens": [S, W],
+      "positions": [S], "active": [S] bool}``: the speculative verifier,
+      returning ``(kc, vc, out [S, W], logits [S, W, vocab])``.
 
     The functions update the slabs in place and return them.
     """
@@ -281,7 +289,9 @@ class GenerativeMetrics(ServingMetrics):
         self.intertoken_ms = LatencyHistogram()
         self.prefill_ms = LatencyHistogram()
         for c in ("tokens_generated", "prefills", "decode_steps",
-                  "slots_active_sum", "requests_cancelled"):
+                  "slots_active_sum", "requests_cancelled",
+                  "spec_rounds", "draft_tokens", "draft_accepted",
+                  "draft_rejected"):
             self.counters[c] = 0
 
     def observe_ttft(self, ms: float) -> None:
@@ -296,6 +306,17 @@ class GenerativeMetrics(ServingMetrics):
         with self._lock:
             self.counters["prefills"] += 1
             self.prefill_ms.record(ms)
+
+    def observe_spec_round(self, drafted: int, accepted: int) -> None:
+        """One speculative round: ``drafted`` proposals across the batch,
+        ``accepted`` of them matched by the target. Every emitted token
+        (accepted drafts included) is counted in ``tokens_generated`` by
+        the emission path exactly once; rejected drafts land only here."""
+        with self._lock:
+            self.counters["spec_rounds"] += 1
+            self.counters["draft_tokens"] += int(drafted)
+            self.counters["draft_accepted"] += int(accepted)
+            self.counters["draft_rejected"] += int(drafted) - int(accepted)
 
     def observe_decode_step(self, active: int, ms: float) -> None:
         with self._lock:
@@ -327,7 +348,14 @@ class GenerativeMetrics(ServingMetrics):
                 "decode_steps": steps,
                 "slot_occupancy": round(occ, 4),
                 "tokens_per_sec": round(
-                    self.counters["tokens_generated"] / uptime, 3)}
+                    self.counters["tokens_generated"] / uptime, 3),
+                "spec_rounds": self.counters["spec_rounds"],
+                "draft_tokens": self.counters["draft_tokens"],
+                "draft_accepted": self.counters["draft_accepted"],
+                "draft_rejected": self.counters["draft_rejected"],
+                "draft_acceptance_rate": round(safe_ratio(
+                    self.counters["draft_accepted"],
+                    self.counters["draft_tokens"]), 4)}
         return rec
 
     def stats(self) -> str:
@@ -339,6 +367,11 @@ class GenerativeMetrics(ServingMetrics):
                  f"{g['prefills']} prefills, {g['decode_steps']} decode "
                  f"steps, slot occupancy {g['slot_occupancy']:.1%} of "
                  f"{g['max_slots']} slots"]
+        if g["spec_rounds"]:
+            lines.append(
+                f"  speculative: {g['spec_rounds']} rounds, acceptance "
+                f"{g['draft_acceptance_rate']:.1%} "
+                f"({g['draft_accepted']}/{g['draft_tokens']} drafts)")
         for name in ("ttft", "intertoken", "prefill"):
             s = rec["latency_ms"][name]
             lines.append(f"  {name:<10} p50 {s['p50']:.3f} ms  "
@@ -353,9 +386,12 @@ def _prefill_buckets(max_seq_len: int) -> BucketSpec:
                                    n_buckets=int(max_seq_len).bit_length()))
 
 
-def _sig(io: dict) -> tuple:
-    """A dispatch's shape signature: its io arrays' names and shapes."""
-    return tuple(sorted((k, tuple(np.shape(v))) for k, v in io.items()))
+def _sig(io: dict, role: str = "target") -> tuple:
+    """A dispatch's shape signature: its io arrays' names and shapes, and
+    for the draft's dispatches the role (draft and target share io
+    signatures)."""
+    sig = tuple(sorted((k, tuple(np.shape(v))) for k, v in io.items()))
+    return sig if role == "target" else sig + (("role", role),)
 
 
 def _host(x) -> np.ndarray:
@@ -392,6 +428,11 @@ class GenerativeServer:
     arms SLO admission (p99 decode-step TTFT estimates) and worker
     supervision (crash requeue at prefill, exactly once). ``device``: the
     card unless ``device="cpu"`` (the parameters are moved there).
+
+    ``draft_spec`` (a dense :class:`GenerativeSpec` over the same
+    vocabulary) arms speculative decoding with windows of ``speculate_k``
+    (>= 2) tokens: the draft proposes, the spec's ``verify`` scores each
+    window in one dispatch, and the longest agreeing prefix is emitted.
     """
 
     def __init__(self, spec, max_slots: int = 8,
@@ -404,16 +445,13 @@ class GenerativeServer:
                  warmup: bool = True,
                  admit: str = "continuous",
                  draft_spec=None,
+                 speculate_k: int = 4,
                  start: bool = True,
                  device: DeviceLike = None):
         spec = self._coerce_spec(spec)
         if admit not in ("continuous", "static"):
             raise ValueError(f"admit= must be 'continuous' or 'static', "
                              f"got {admit!r}")
-        if draft_spec is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_spec) is not ported yet "
-                "(ROADMAP queue 1 item 5: speculative verify and draft)")
         if telemetry_port is not None:
             raise NotImplementedError(
                 "the telemetry endpoint (telemetry_port) is not ported yet: "
@@ -426,6 +464,11 @@ class GenerativeServer:
             raise ValueError(
                 f"max_seq_len {self.max_seq_len} exceeds the model's "
                 f"positional capacity {spec.max_seq_len}")
+        # speculative decoding: misconfigurations that can never work fail
+        # here, not mid-decode
+        self.speculate_k = int(speculate_k)
+        self.draft_spec = self._check_draft(draft_spec, spec)
+        self.draft_slab_bytes = 0
         self.admit_mode = admit
         self.eos_id = eos_id if eos_id is not None else spec.eos_id
         self.default_timeout_ms = default_timeout_ms
@@ -455,6 +498,7 @@ class GenerativeServer:
         self._params = self._pull_params()
         # KV slabs + host scheduler state (serving/paged overrides)
         self._init_kv()
+        self._init_draft()
         self.warmup_report: Optional[dict] = None
         if warmup:
             self.warmup()
@@ -478,6 +522,37 @@ class GenerativeServer:
                     f"pass a GenerativeSpec (e.g. from "
                     f"zoo.gpt.gpt_generative_spec)")
         return spec
+
+    def _check_draft(self, draft_spec, spec):
+        """The draft spec, checked against the target: a dense
+        :class:`GenerativeSpec` over the same vocabulary covering every
+        position served, and a window of at least 2."""
+        if draft_spec is None:
+            return None
+        if not isinstance(draft_spec, GenerativeSpec):
+            if hasattr(draft_spec, "generative_spec"):
+                draft_spec = draft_spec.generative_spec()
+            else:
+                raise TypeError(
+                    f"{type(draft_spec).__name__} is not usable as a draft: "
+                    f"pass a dense GenerativeSpec (the draft always runs "
+                    f"dense, even under a paged target)")
+        if int(draft_spec.vocab_size) != int(spec.vocab_size):
+            raise ValueError(
+                f"draft vocab_size {draft_spec.vocab_size} != target "
+                f"vocab_size {spec.vocab_size}: speculation compares token "
+                f"ids, the vocabularies must match")
+        if int(draft_spec.max_seq_len) < self.max_seq_len:
+            raise ValueError(
+                f"draft max_seq_len {draft_spec.max_seq_len} < served "
+                f"max_seq_len {self.max_seq_len}: the draft must cover "
+                f"every position the target can reach")
+        if self.speculate_k < 2:
+            raise ValueError(
+                f"speculate_k must be >= 2, got {self.speculate_k} (a "
+                f"window of 1 holds only the already-emitted token and "
+                f"drafts nothing)")
+        return draft_spec
 
     def _make_metrics(self) -> GenerativeMetrics:
         return GenerativeMetrics(self.max_slots)
@@ -513,6 +588,47 @@ class GenerativeServer:
         self._active = np.zeros(self.max_slots, bool)
         self._decode_disp = self.spec.decode
         self._prefill_disp = self.spec.prefill
+        self._verify_disp = self.spec.verify
+
+    def _init_draft(self) -> None:
+        """Speculative decoding's memory: the draft's own DENSE per-slot
+        KV slabs (one row per target slot, kept position-synced through
+        partial acceptance) and its parameters. A no-op without a
+        draft."""
+        ds = self.draft_spec
+        self._draft_params = None
+        self._dkc = self._dvc = None
+        if ds is None:
+            return
+        if self._verify_disp is None:
+            raise ValueError(
+                "speculative decoding needs a target spec with a verify "
+                "function: build it with zoo.gpt.gpt_generative_spec or "
+                "gpt_paged_spec")
+        shape = tuple(ds.kv_shape(self.max_slots, self.max_seq_len))
+        itemsize = torch.empty((), dtype=getattr(
+            torch, ds.kv_dtype)).element_size()
+        self.draft_slab_bytes = 2 * int(np.prod(shape)) * itemsize
+        memstats.check_headroom(
+            self.draft_slab_bytes,
+            f"draft KV slabs (speculative decoding, {self.max_slots} slots "
+            f"x {self.max_seq_len} positions)", self.device)
+        self._reset_draft_slabs()
+        AllocationsTracker.get_instance().allocate("kv_slab",
+                                                   self.draft_slab_bytes)
+        self._draft_params = self._pull_draft_params()
+
+    def _pull_draft_params(self) -> Dict[str, torch.Tensor]:
+        return {n: t.to(self.device)
+                for n, t in self.draft_spec.params().items()}
+
+    def _reset_draft_slabs(self) -> None:
+        if self.draft_spec is None:
+            return
+        shape = tuple(self.draft_spec.kv_shape(self.max_slots,
+                                               self.max_seq_len))
+        self._dkc = _slab(shape, self.draft_spec.kv_dtype, self.device)
+        self._dvc = _slab(shape, self.draft_spec.kv_dtype, self.device)
 
     def _can_place(self, req: GenerationRequest) -> bool:
         """Whether the memory tier can hold ``req``'s prefill right now.
@@ -544,19 +660,45 @@ class GenerativeServer:
 
     # -- warmup ----------------------------------------------------------
     def _warm_calls(self, bucket_list):
-        """(label, function, kc, vc, io) of every shape the server will
-        dispatch: the decode step with no lane active (it writes nothing)
-        and each prefill bucket into slot 0 of throwaway one-slot slabs."""
+        """(label, role, function, kc, vc, io) of every shape the server
+        will dispatch: the decode step with no lane active (it writes
+        nothing), each prefill bucket into slot 0 of throwaway one-slot
+        slabs and, with a draft, the verify at the window's shape with no
+        lane active and the draft's own decode and prefills (role
+        ``"draft"``: the draft's parameters)."""
         S = self.max_slots
-        yield (f"generative_decode_s{S}", self._decode_disp, self._kc,
-               self._vc, {"tokens": np.zeros(S, np.int32),
-                          "positions": np.zeros(S, np.int32),
-                          "active": np.zeros(S, bool)})
+        off = {"tokens": np.zeros(S, np.int32),
+               "positions": np.zeros(S, np.int32),
+               "active": np.zeros(S, bool)}
+        yield (f"generative_decode_s{S}", "target", self._decode_disp,
+               self._kc, self._vc, off)
         shape = tuple(self.spec.kv_shape(1, self.max_seq_len))
         kc = _slab(shape, self.spec.kv_dtype, self.device)
         vc = _slab(shape, self.spec.kv_dtype, self.device)
         for b in bucket_list:
-            yield (f"generative_prefill_b{b}", self._prefill_disp, kc, vc,
+            yield (f"generative_prefill_b{b}", "target", self._prefill_disp,
+                   kc, vc, {"tokens": np.zeros(b, np.int32),
+                            "length": np.int32(b), "slot": np.int32(0)})
+        if self.draft_spec is not None:
+            W = self.speculate_k
+            yield (f"generative_verify_s{S}w{W}", "target",
+                   self._verify_disp, self._kc, self._vc,
+                   {**off, "tokens": np.zeros((S, W), np.int32)})
+            yield from self._warm_draft_calls(bucket_list)
+
+    def _warm_draft_calls(self, bucket_list):
+        """The draft's decode with no lane active and each of its prefill
+        buckets on throwaway one-slot draft slabs."""
+        S, ds = self.max_slots, self.draft_spec
+        yield (f"draft_decode_s{S}", "draft", ds.decode, self._dkc,
+               self._dvc, {"tokens": np.zeros(S, np.int32),
+                           "positions": np.zeros(S, np.int32),
+                           "active": np.zeros(S, bool)})
+        shape = tuple(ds.kv_shape(1, self.max_seq_len))
+        kc = _slab(shape, ds.kv_dtype, self.device)
+        vc = _slab(shape, ds.kv_dtype, self.device)
+        for b in bucket_list:
+            yield (f"draft_prefill_b{b}", "draft", ds.prefill, kc, vc,
                    {"tokens": np.zeros(b, np.int32), "length": np.int32(b),
                     "slot": np.int32(0)})
 
@@ -570,12 +712,13 @@ class GenerativeServer:
         bucket_list = list(self._buckets.buckets)
         built = set(_cuda.BUILDS)
         t0 = time.perf_counter()
-        for label, fn, kc, vc, io in self._warm_calls(bucket_list):
-            sig = _sig(io)
+        for label, role, fn, kc, vc, io in self._warm_calls(bucket_list):
+            sig = _sig(io, role)
+            params = self._draft_params if role == "draft" else self._params
             with self._exec_lock, torch.inference_mode(), \
                     _tracer.span("serving.warmup", cat="serving",
                                  target=label):
-                fn(self._params, kc, vc, io)
+                fn(params, kc, vc, io)
                 if sig not in self._shapes_seen:
                     self._shapes_seen.add(sig)
                     self.metrics.inc("warmup_compiles")
@@ -584,7 +727,7 @@ class GenerativeServer:
         self.warmup_report = {
             "decode_slots": self.max_slots,
             "prefill_buckets": bucket_list,
-            "speculative": False,
+            "speculative": self.draft_spec is not None,
             "seconds": round(time.perf_counter() - t0, 4),
             "kernel_builds": sorted(set(_cuda.BUILDS) - built)}
         return self.warmup_report
@@ -689,10 +832,15 @@ class GenerativeServer:
 
     def update_model(self) -> None:
         """Re-pull the parameters from the spec's source graph between
-        dispatches."""
+        dispatches (a quantized spec re-quantizes them), and the draft's
+        from its own."""
         fresh = self._pull_params()
+        draft = self._pull_draft_params() if self.draft_spec is not None \
+            else None
         with self._exec_lock:
             self._params = fresh
+            if draft is not None:
+                self._draft_params = draft
 
     # -- worker ---------------------------------------------------------
     def _spawn_worker(self, index: int, slot: InflightSlot
@@ -729,6 +877,7 @@ class GenerativeServer:
         shape = self._slab_shape()
         self._kc = _slab(shape, self.spec.kv_dtype, self.device)
         self._vc = _slab(shape, self.spec.kv_dtype, self.device)
+        self._reset_draft_slabs()
         self._slots.reset()
         self._slot_reqs = [None] * self.max_slots
         self._tokens[:] = 0
@@ -756,7 +905,10 @@ class GenerativeServer:
         progressed = self._admit(slot)
         if not self._active.any():
             return progressed
-        self._decode_once(slot)
+        if self._spec_ready():
+            self._speculate_once(slot)
+        else:
+            self._decode_once(slot)
         return True
 
     def _admit(self, slot: InflightSlot) -> bool:
@@ -817,6 +969,22 @@ class GenerativeServer:
         self._tokens[s] = tok
         self._active[s] = True
         self._emit(s, req, tok)
+        self._draft_prefill(s, prefix, L)
+
+    def _draft_prefill(self, s: int, prefix: np.ndarray, L: int) -> None:
+        """Fill the draft's KV rows of a freshly admitted slot with the
+        FULL prefix (the draft has no prefix cache, even under a paged
+        target). Its token is discarded: the target's prefill emitted the
+        real one; the draft only needs its cache position-synced before
+        the first speculative round."""
+        if self.draft_spec is None or not self._active[s]:
+            return
+        bucket = self._buckets.bucket_for(L)
+        padded = np.zeros(bucket, np.int32)
+        padded[:L] = prefix
+        io = {"tokens": padded, "length": np.int32(L), "slot": np.int32(s)}
+        self._dispatch(self.draft_spec.prefill, io, "serving.draft",
+                       draft=True, phase="prefill", bucket=bucket, slot=s)
 
     def _resolve_token(self, req: GenerationRequest, device_tok: int,
                        logits_row) -> int:
@@ -868,29 +1036,146 @@ class GenerativeServer:
         self._after_step()
 
     def _observe_step(self) -> None:
-        """Post-dispatch memory-tier bookkeeping hook (paged: pool
-        occupancy sample)."""
+        """Post-dispatch memory-tier bookkeeping hook, after each decode
+        step and verify (paged: pool occupancy sample)."""
 
     def _after_step(self) -> None:
-        """Post-step memory-tier check hook (paged: the leak invariant
-        under ``debug_leaks``)."""
+        """Post-step memory-tier check hook, after each decode step and
+        speculative round (paged: the leak invariant under
+        ``debug_leaks``)."""
 
-    def _dispatch(self, disp, io: dict, span: str, **attrs):
-        """One device dispatch of prefill/decode with the shared
+    # -- speculative decoding (draft K, verify once) --------------------
+    def _spec_ready(self) -> bool:
+        """Whether the next round can run speculatively: a draft is armed
+        and every active slot has a full verify window of positions left.
+        The paged subclass also grows block tables to cover the window up
+        front, falling back to a plain step when the pool cannot."""
+        if self.draft_spec is None:
+            return False
+        act = np.flatnonzero(self._active)
+        if act.size == 0:
+            return False
+        return bool(np.all(self._positions[act].astype(np.int64)
+                           + self.speculate_k <= self.max_seq_len))
+
+    def _verify_io(self, window: np.ndarray, positions: np.ndarray,
+                   active: np.ndarray) -> dict:
+        return {"tokens": window, "positions": positions.copy(),
+                "active": active.copy()}
+
+    def _speculate_once(self, slot: InflightSlot) -> None:
+        """One draft-K / verify-once speculative round (Leviathan et al.):
+        ``speculate_k`` draft decode dispatches propose a window per
+        active slot, then the target scores the whole window in ONE verify
+        dispatch. Every emitted token is the target's own
+        (:meth:`_resolve_token`), so the output does not depend on the
+        draft; the draft decides how many positions the verify resolves. A
+        rejected tail needs no KV rollback: positions never advance over
+        it, and rows past a slot's position are never read before they
+        are written again. The draft's KV stays row-synced because
+        dispatch ``m`` feeds window column ``m - 1``."""
+        W = self.speculate_k
+        active = self._active.copy()
+        positions = self._positions.copy()
+        n_active = int(active.sum())
+        window = np.zeros((self.max_slots, W), np.int32)
+        window[:, 0] = self._tokens
+        reqs = list(self._slot_reqs)
+        act_idx = [int(s) for s in np.flatnonzero(active)
+                   if reqs[int(s)] is not None]
+        sampled = any(reqs[s].temperature > 0 for s in act_idx)
+        t0 = time.perf_counter()
+        # dispatch m feeds column m-1 at position pos0+m-1, writing that
+        # draft KV row and proposing column m; the W-th exists only for
+        # its KV write (the draft cache must cover the window before the
+        # next round), its proposal is discarded
+        d_tokens = window[:, 0].copy()
+        for m in range(1, W + 1):
+            dio = {"tokens": d_tokens.copy(),
+                   "positions": (positions + np.int32(m - 1)
+                                 * active).astype(np.int32),
+                   "active": active.copy()}
+            _, _, dnxt, dlg = self._dispatch(
+                self.draft_spec.decode, dio, "serving.draft", draft=True,
+                active=n_active, step=m)
+            if m >= W:
+                break
+            dnxt = _host(dnxt)
+            dlg_h = _host(dlg) if sampled else None
+            for s in act_idx:
+                req = reqs[s]
+                d = int(dnxt[s])
+                if req.temperature and req.temperature > 0:
+                    # the proposal takes the SAME (seed, index) draw the
+                    # target will use to resolve this position
+                    d = sample_token(
+                        dlg_h[s], temperature=req.temperature,
+                        top_k=req.top_k, top_p=req.top_p,
+                        seed=req.seed if req.seed is not None else req.id,
+                        index=int(np.asarray(req.prompt).size)
+                        + len(req.generated) + m - 1)
+                window[s, m] = d
+            d_tokens = window[:, m].copy()
+        vio = self._verify_io(window, positions, active)
+        _, _, out_d, vlg_d = self._dispatch(
+            self._verify_disp, vio, "serving.verify", active=n_active,
+            window=W)
+        out = _host(out_d)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self.metrics.observe_decode_step(n_active, ms)
+        if self.admission is not None:
+            self.admission.observe(ms)
+        self._observe_step()
+        lg = _host(vlg_d) if sampled else None
+        drafted = accepted = 0
+        for s in act_idx:
+            req = reqs[s]
+            drafted += W - 1
+            pos0 = int(positions[s])
+            for j in range(W):
+                tok = self._resolve_token(
+                    req, int(out[s, j]),
+                    lg[s, j] if lg is not None else None)
+                self._positions[s] = pos0 + j + 1
+                self._tokens[s] = tok
+                self._emit(s, req, tok)
+                if not self._active[s]:
+                    break     # retired: EOS / budget / deadline / cancel
+                if j + 1 >= W:
+                    break
+                if int(window[s, j + 1]) != tok:
+                    break     # draft rejected: the window's tail is void
+                accepted += 1
+        self.metrics.observe_spec_round(drafted, accepted)
+        self._after_step()
+
+    def _dispatch(self, disp, io: dict, span: str, draft: bool = False,
+                  **attrs):
+        """One device dispatch of prefill/decode/verify with the shared
         plumbing: exec lock, inference mode, span, first-shape
-        accounting, OOM forensics. The slabs are updated in place."""
-        sig = _sig(io)
+        accounting, OOM forensics. The slabs are updated in place.
+        ``draft=True`` routes to the draft's parameters and slabs; the
+        shapes-seen key carries the role, since draft and target share io
+        signatures."""
+        sig = _sig(io, "draft" if draft else "target")
         with self._exec_lock, torch.inference_mode(), \
                 _tracer.span(span, cat="serving", **attrs):
             if sig not in self._shapes_seen:
                 self._shapes_seen.add(sig)
                 self.metrics.inc("compiles")
             try:
-                kc, vc, nxt, logits = disp(self._params, self._kc,
-                                           self._vc, io)
+                if draft:
+                    kc, vc, nxt, logits = disp(self._draft_params, self._dkc,
+                                               self._dvc, io)
+                else:
+                    kc, vc, nxt, logits = disp(self._params, self._kc,
+                                               self._vc, io)
             except Exception as e:
                 raise self._wrap_exec_error(e, span) from e
-            self._kc, self._vc = kc, vc
+            if draft:
+                self._dkc, self._dvc = kc, vc
+            else:
+                self._kc, self._vc = kc, vc
         return kc, vc, nxt, logits
 
     def _wrap_exec_error(self, e: BaseException, what: str):
@@ -992,6 +1277,9 @@ class GenerativeServer:
             t.join(timeout=timeout)
         AllocationsTracker.get_instance().release("kv_slab",
                                                   self.kv_slab_bytes)
+        if self.draft_slab_bytes:
+            AllocationsTracker.get_instance().release(
+                "kv_slab", self.draft_slab_bytes)
 
     def __enter__(self) -> "GenerativeServer":
         return self

@@ -3,8 +3,8 @@ continuous-batching scheduler.
 
 Counterpart of ``deeplearning4j_tpu/serving/paged/server.py``
 (``PagedGenerativeSpec`` :74, ``PagedMetrics`` :136,
-``PagedGenerativeServer`` :218), copied and adapted to tensors on the
-card. K/V live in fixed-size token BLOCKS carved from one preallocated
+``PagedGenerativeServer`` :218 with its speculative hooks :605-680),
+copied and adapted to tensors on the card. K/V live in fixed-size token BLOCKS carved from one preallocated
 slab ``[layers, num_blocks, heads, block_size, head_dim]``, and each
 request holds a BLOCK TABLE grown one block at a time at decode-step
 boundaries; every layer of a decode step is one ``paged_decode_attention``
@@ -24,6 +24,12 @@ through its table.
   on worker respawn); a hot reload (``update_model``) flushes the cache
   at the worker's next step boundary, since cached K/V belong to the
   superseded weights.
+- **speculative decoding** (``draft_spec=``): the draft runs dense on its
+  own slabs, prefilled with the full prefix; before a round every active
+  lane's table grows to cover the window rows its token budget can use
+  (else the round is a plain step), and the verify writes those rows
+  through the table. A rejected tail releases no block: the blocks stay
+  the lane's, and its positions never advance over the rejected rows.
 - **tensor parallel** (``tp > 1``) is not ported yet and raises.
 
 Correctness contract: with ``max_blocks_per_req * block_size ==
@@ -267,7 +273,7 @@ class PagedGenerativeServer(GenerativeServer):
         self._tables = np.zeros((self.max_slots, self._maxb), np.int32)
         self._nblocks = np.zeros(self.max_slots, np.int32)
         fns = spec.make_fns(BS, self._maxb)
-        self._prefill_disp, self._decode_disp = fns[0], fns[1]
+        self._prefill_disp, self._decode_disp, self._verify_disp = fns
 
     # -- block-commitment admission (submit thread) ---------------------
     def _worst_case_blocks(self, prompt_len: int,
@@ -395,6 +401,9 @@ class PagedGenerativeServer(GenerativeServer):
         self._tokens[s] = tok
         self._active[s] = True
         self._emit(s, req, tok)
+        # the draft has no prefix cache: it prefills the FULL prefix into
+        # its own dense slabs
+        self._draft_prefill(s, prefix, L)
 
     def _decode_once(self, slot) -> None:
         BS = self.block_size
@@ -429,6 +438,60 @@ class PagedGenerativeServer(GenerativeServer):
             wo[s] = pos % BS
         io.update(tables=self._tables.copy(), write_block=wb, write_off=wo)
         return io
+
+    # -- speculative decoding over the paged tier -----------------------
+    def _usable_rows(self, s: int) -> int:
+        """Window rows of lane ``s`` within its remaining token budget: the
+        rows the submit-side worst-case commitment reserved blocks for
+        (the lane retires at its budget, so no later row is read)."""
+        req = self._slot_reqs[s]
+        rem = (req.max_new_tokens - len(req.generated)
+               if req is not None else 0)
+        return min(self.speculate_k, max(rem, 0))
+
+    def _spec_ready(self) -> bool:
+        """The base readiness, and every active lane's block table grown
+        UP FRONT to cover the window's usable rows. If the pool cannot
+        (the commitment makes that a defensive case), the round is a plain
+        step, whose one-block growth handles it."""
+        if not super()._spec_ready():
+            return False
+        BS = self.block_size
+        for s in np.flatnonzero(self._active):
+            s = int(s)
+            usable = self._usable_rows(s)
+            if usable < 1:
+                continue
+            need = (int(self._positions[s]) + usable - 1) // BS + 1
+            while int(self._nblocks[s]) < need:
+                try:
+                    b = self.pool.alloc()
+                except PoolExhaustedError:    # pragma: no cover
+                    return False
+                self._tables[s, int(self._nblocks[s])] = b
+                self._nblocks[s] = int(self._nblocks[s]) + 1
+                self.metrics.observe_blocks(allocated=1)
+        return True
+
+    def _verify_io(self, window: np.ndarray, positions: np.ndarray,
+                   active: np.ndarray) -> dict:
+        """The window's write places, ``[S, W]`` (block, offset) pairs
+        through each lane's table; rows past a lane's usable rows (and an
+        inactive lane's) write nothing (-1), so speculation never writes a
+        block the commitment did not reserve."""
+        BS = self.block_size
+        S, W = window.shape
+        wb = np.full((S, W), -1, np.int32)
+        wo = np.zeros((S, W), np.int32)
+        for s in np.flatnonzero(active):
+            s = int(s)
+            for j in range(self._usable_rows(s)):
+                p = int(positions[s]) + j
+                wb[s, j] = self._tables[s, p // BS]
+                wo[s, j] = p % BS
+        return {"tokens": window, "positions": positions.copy(),
+                "active": active.copy(), "tables": self._tables.copy(),
+                "write_block": wb, "write_off": wo}
 
     def _observe_step(self) -> None:
         self.metrics.observe_pool(self.pool.held_count(),
@@ -493,21 +556,30 @@ class PagedGenerativeServer(GenerativeServer):
 
     # -- warmup ---------------------------------------------------------
     def _warm_calls(self, bucket_list):
-        """The decode step with no lane active (it writes nothing) and
-        each prefill bucket with a table of null blocks (it writes only
-        the null block)."""
+        """The decode step with no lane active (it writes nothing), each
+        prefill bucket with a table of null blocks (it writes only the
+        null block) and, with a draft, the verify at the window's shape
+        with no lane active and the draft's own calls."""
         S, MAXB = self.max_slots, self._maxb
         zeros = np.zeros(S, np.int32)
-        yield (f"paged_decode_s{S}", self._decode_disp, self._kc, self._vc,
-               {"tokens": zeros, "positions": zeros,
-                "active": np.zeros(S, bool),
-                "tables": np.zeros((S, MAXB), np.int32),
-                "write_block": zeros, "write_off": zeros})
+        off = {"positions": zeros, "active": np.zeros(S, bool),
+               "tables": np.zeros((S, MAXB), np.int32)}
+        yield (f"paged_decode_s{S}", "target", self._decode_disp, self._kc,
+               self._vc, {**off, "tokens": zeros, "write_block": zeros,
+                          "write_off": zeros})
         for b in bucket_list:
-            yield (f"paged_prefill_b{b}", self._prefill_disp, self._kc,
-                   self._vc, {"tokens": np.zeros(b, np.int32),
-                              "length": np.int32(b), "hist": np.int32(0),
-                              "table": np.zeros(MAXB, np.int32)})
+            yield (f"paged_prefill_b{b}", "target", self._prefill_disp,
+                   self._kc, self._vc,
+                   {"tokens": np.zeros(b, np.int32), "length": np.int32(b),
+                    "hist": np.int32(0), "table": np.zeros(MAXB, np.int32)})
+        if self.draft_spec is not None:
+            W = self.speculate_k
+            wz = np.zeros((S, W), np.int32)
+            yield (f"paged_verify_s{S}w{W}", "target", self._verify_disp,
+                   self._kc, self._vc, {**off, "tokens": wz,
+                                        "write_block": wz - 1,
+                                        "write_off": wz})
+            yield from self._warm_draft_calls(bucket_list)
 
     def update_model(self) -> None:
         """Re-pull the parameters, and fence the prefix cache: cached

@@ -3,8 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/zoo/gpt.py`` (``GPTConfig`` :29,
 ``GPT_MEDIUM``, ``GPT_TINY``, ``build_gpt`` :71, ``gpt_param_names``
 :159, and the decode-mode hook of the serving tier: ``gpt_decode_fns``
-:180, ``gpt_paged_decode_fns`` :472, ``gpt_paged_spec`` :869,
-``gpt_generative_spec`` :904). The same variable names, the same numpy
+:180 and ``gpt_paged_decode_fns`` :472 with their speculative verifiers
+(:406, :701), ``_quantized_param_names`` :764, ``gpt_quantize_params``
+:776, ``gpt_paged_spec`` :869, ``gpt_generative_spec`` :904). The same variable names, the same numpy
 ``default_rng(seed)`` draws in the same order and the same per-head
 ``[q_a|k_a|v_a]`` layout of the fused qkv projection, so a seed gives the
 JAX package's weights; kernels are ``[n_in, n_out]`` there and here.
@@ -167,14 +168,11 @@ def gpt_param_names(cfg: GPTConfig):
 
 
 # ----------------------------------------------------------------------
-# decode mode: the serving tier's prefill and decode steps
-#: what the serving tier's int8 paths and speculative verify wait on
+# decode mode: the serving tier's prefill, decode and verify steps
+#: what the serving tier's int8 KV waits on
 _NOT_PORTED = {
-    "quantize_weights": "int8 weights with the int8 x float32 GEMM kernel "
-                        "(ROADMAP queue 1 item 5)",
-    "kv_scales": "int8 KV dequantised inside paged_attention (ROADMAP "
-                 "queue 1 item 5)",
-    "verify": "speculative verify and draft (ROADMAP queue 1 item 5)",
+    "kv_scales": "int8 KV dequantised inside the paged attention kernels "
+                 "(ROADMAP queue 1 item 2.4, int8 KV)",
 }
 
 
@@ -183,28 +181,88 @@ def _not_ported(what: str):
                               f"{_NOT_PORTED[what]}")
 
 
+def _quantized_param_names(cfg: GPTConfig):
+    """The matmul weights and the embedding that carry int8 payloads under
+    ``quantize_weights`` (JAX ``zoo/gpt.py:764``): the big operands whose
+    bytes a decode step reads. Layer norms and biases stay float32."""
+    names = [n for n in gpt_param_names(cfg) if n.endswith("/kernel")]
+    names.append("wte")
+    if not cfg.tie_embeddings:
+        names.append("lm_head")
+    return names
+
+
+def gpt_quantize_params(raw: dict, cfg: GPTConfig) -> dict:
+    """Symmetric per-output-channel int8 of the decode parameters (JAX
+    ``zoo/gpt.py:776``): every ``/kernel`` and the embedding become an int8
+    payload with a float32 ``<name>::scale`` (absmax scales over the last
+    axis, ``evaluation.calibration.absmax_scales``); ``wte``'s channels are
+    its HIDDEN axis, so one scale serves the embedding take and the tied
+    logits. Computed where the tensors lie (the card, for a served model):
+    payloads and scales equal the JAX function's bit for bit (the quotient
+    in float32, ``round`` half to even, the clip). Pure: a pull after
+    ``fit()`` re-quantizes the new weights."""
+    from deeplearning4j_tpu_torch.evaluation.calibration import (
+        absmax_scales, quantize_symmetric)
+    out = {}
+    qnames = set(_quantized_param_names(cfg))
+    with torch.no_grad():
+        for n, a in raw.items():
+            if n in qnames:
+                w = torch.as_tensor(a).to(torch.float32)
+                s = absmax_scales(w)                           # [n_out]
+                out[n] = quantize_symmetric(w, s)
+                out[n + "::scale"] = s
+            else:
+                out[n] = a
+    return out
+
+
 class _DecodeMath:
     """The per-token math of :func:`build_gpt` over a name -> tensor
     parameter dict, as the JAX decode functions write it: the one-pass
     layer norm (the port's ``layer_norm`` op), tanh-gelu, the per-head
-    ``[q|k|v]`` blocks and the tied logits."""
+    ``[q|k|v]`` blocks and the tied logits. With ``quantize_weights`` the
+    parameters are :func:`gpt_quantize_params`'s: every projection and the
+    tied logits are one ``int8_matmul`` launch (the JAX ``_matmul`` and
+    ``_logits`` :262-293), and the embedding take dequantises the gathered
+    ``wte`` rows (``_tok_emb`` :277-281, a gather, not a product)."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, quantize_weights: bool = False):
+        from deeplearning4j_tpu_torch.kernels.int8_matmul import int8_matmul
         from deeplearning4j_tpu_torch.ops.elementwise import gelu
         from deeplearning4j_tpu_torch.ops.nn_ops import layer_norm
         self.cfg = cfg
+        self.qw = bool(quantize_weights)
         self._layer_norm, self._gelu = layer_norm, gelu
+        self._int8_matmul = int8_matmul
 
     def ln(self, p, sc, x):
         return self._layer_norm(x, p[f"{sc}/gamma"], p[f"{sc}/beta"],
                                 epsilon=self.cfg.layer_norm_eps)
+
+    def mm(self, p, name, x):
+        """``x @ p[name]``; int8: ``int8_matmul`` with the channel scale
+        applied to the product."""
+        if self.qw:
+            return self._int8_matmul(x, p[name], p[name + "::scale"])
+        return x @ p[name]
+
+    def emb(self, p, tokens):
+        """The token embeddings ``wte[tokens]``; int8: the gathered rows
+        times the hidden channels' scale."""
+        e = p["wte"][tokens]
+        if self.qw:
+            e = e.to(torch.float32) * p["wte::scale"]
+        return e
 
     def qkv(self, p, i, x):
         """[rows, A, D] views of q, k and v of layer ``i`` (per-head
         blocks of the fused projection)."""
         cfg = self.cfg
         y = self.ln(p, f"h{i}/ln_1", x)
-        qkv = y @ p[f"h{i}/attn/qkv/kernel"] + p[f"h{i}/attn/qkv/bias"]
+        qkv = self.mm(p, f"h{i}/attn/qkv/kernel", y) \
+            + p[f"h{i}/attn/qkv/bias"]
         qkv = qkv.view(x.shape[0], cfg.num_heads, 3 * cfg.head_size)
         return qkv.split(cfg.head_size, dim=-1)
 
@@ -212,19 +270,24 @@ class _DecodeMath:
         """The block after attention: projection, residual, MLP,
         residual."""
         att = att.reshape(x.shape[0], self.cfg.hidden_size)
-        x = x + (att @ p[f"h{i}/attn/proj/kernel"]
+        x = x + (self.mm(p, f"h{i}/attn/proj/kernel", att)
                  + p[f"h{i}/attn/proj/bias"])
         y = self.ln(p, f"h{i}/ln_2", x)
-        y = y @ p[f"h{i}/mlp/fc/kernel"] + p[f"h{i}/mlp/fc/bias"]
+        y = self.mm(p, f"h{i}/mlp/fc/kernel", y) + p[f"h{i}/mlp/fc/bias"]
         y = self._gelu(y)
-        return x + (y @ p[f"h{i}/mlp/proj/kernel"]
+        return x + (self.mm(p, f"h{i}/mlp/proj/kernel", y)
                     + p[f"h{i}/mlp/proj/bias"])
 
     def logits(self, p, x):
         x = self.ln(p, "ln_f", x)
         if self.cfg.tie_embeddings:
+            if self.qw:
+                # (wte_i8 * s_h) contracted over h is wte_i8 contracted
+                # with (x * s_h): the scale folds into the activation
+                return self._int8_matmul(x, p["wte"], p["wte::scale"],
+                                         transposed=True)
             return x @ p["wte"].t()
-        return x @ p["lm_head"]
+        return self.mm(p, "lm_head", x)
 
 
 def _to_device(arrays, dev):
@@ -263,24 +326,35 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
       the slot's K/V row written at its position (``write_block = s``,
       ``write_off = position``; an inactive slot keeps its rows), then
       its attention over keys ``<= position`` only.
-    - ``verify_fn`` raises ``NotImplementedError`` (speculative decoding
-      is not ported yet), as ``quantize_weights`` and ``kv_scales`` do.
+    - ``verify_fn(params, kc, vc, io)``, ``io = {"tokens": [S, W],
+      "positions": [S], "active": [S] bool}`` (JAX :406): the speculative
+      verifier. Window row ``w`` of slot ``s`` sits at position
+      ``positions[s] + w`` (clipped to ``max_seq - 1``); each layer is one
+      ``paged_verify_attention`` launch over the slab: every active
+      slot's W K/V rows written (a row clipped onto the slab's last
+      position writes nothing; an inactive slot writes nothing), row ``w``
+      attending to keys ``<= positions[s] + w``, its window's keys taken
+      from the rows the launch writes. Returns ``(kc, vc, out [S, W],
+      logits [S, W, V])``, ``out[s, w]`` the greedy token after window
+      tokens ``0..w``; row ``w`` equals ``decode_fn`` fed the same prefix.
+
+    ``quantize_weights=True`` takes :func:`gpt_quantize_params`'s
+    dictionary: every projection and the tied logits are ``int8_matmul``
+    launches. ``kv_scales`` (int8 KV) raises ``NotImplementedError``.
     """
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.ops.registry import get_op
-    if quantize_weights:
-        _not_ported("quantize_weights")
     if kv_scales is not None:
         _not_ported("kv_scales")
     sdpa = get_op("scaled_dot_product_attention").fn
-    math = _DecodeMath(cfg)
+    math = _DecodeMath(cfg, quantize_weights)
 
     def prefill_fn(params, kc, vc, io):
         p, dev = params, kc.device
         lb = int(np.shape(io["tokens"])[0])
         length, slot = int(io["length"]), int(io["slot"])
         (tokens,) = _to_device([io["tokens"]], dev)
-        x = p["wte"][tokens] + p["wpe"][:lb]                    # [Lb, H]
+        x = math.emb(p, tokens) + p["wpe"][:lb]                 # [Lb, H]
         for i in range(cfg.num_layers):
             q, k, v = (t.transpose(0, 1) for t in math.qkv(p, i, x))
             att = sdpa(q[None], k[None], v[None], causal=True)[0]
@@ -303,7 +377,7 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
             [io["tokens"], pos, np.where(active, pos, 0),
              np.where(active, np.arange(S), -1), np.arange(S)[:, None]], dev)
         lanes = tables[:, 0]
-        x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
+        x = math.emb(p, tokens) + p["wpe"][pos_d]               # [S, H]
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
             att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
@@ -313,9 +387,46 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
         return kc, vc, logits.argmax(-1).to(torch.int32), logits
 
     def verify_fn(params, kc, vc, io):
-        _not_ported("verify")
+        S, T = kc.shape[1], kc.shape[3]
+        tokens = np.asarray(io["tokens"])
+        W = tokens.shape[1]
+        active = np.asarray(io["active"], bool)
+        pos0 = np.asarray(io["positions"]).astype(np.int64)
+        at = pos0[:, None] + np.arange(W)[None, :]              # [S, W]
+        pos = np.clip(at, 0, T - 1)
+        wb = np.where(active[:, None] & (at <= T - 1),
+                      np.arange(S)[:, None], -1)
+        return _verify(math, params, kc, vc, tokens, pos, active,
+                       np.clip(pos0, 0, T - 1), np.arange(S)[:, None], wb,
+                       pos)
 
     return prefill_fn, decode_fn, verify_fn
+
+
+def _verify(math, p, kc, vc, tokens, pos, active, pos0, tables, wb, wo):
+    """The verify of both decode-function families: the ``[S, W]`` window
+    as ``S W`` rows (row ``s W + w``), one ``paged_verify_attention``
+    launch a layer. ``pos`` [S, W] the rows' positions, ``pos0`` [S] each
+    lane's first window position, ``tables`` [S, MAXB], ``wb``/``wo`` [S,
+    W] the write places (-1: none). An inactive lane writes nothing and
+    attends to its key 0 only (its output is unused)."""
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    S, W = tokens.shape
+    lanes = np.repeat(np.arange(S), W)
+    act = np.repeat(active, W)
+    tok, pos_d, lane, kmax, win0, wrow, tab, wb_d, wo_d = _to_device(
+        [tokens.reshape(-1), pos.reshape(-1), lanes,
+         np.where(act, pos.reshape(-1), 0), np.where(act, pos0[lanes], -1),
+         lanes * W, tables, np.where(active[:, None], wb, -1).reshape(-1),
+         np.where(wb >= 0, wo, 0).reshape(-1)], kc.device)
+    x = math.emb(p, tok) + p["wpe"][pos_d]                      # [S W, H]
+    for i in range(math.cfg.num_layers):
+        q, k, v = math.qkv(p, i, x)
+        att = pa.paged_verify_attention(q, k, v, kc[i], vc[i], tab, lane,
+                                        kmax, win0, wrow, wb_d, wo_d)
+        x = math.rest(p, i, x, att)
+    logits = math.logits(p, x).view(S, W, -1)                  # [S, W, V]
+    return kc, vc, logits.argmax(-1).to(torch.int32), logits
 
 
 def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
@@ -349,15 +460,23 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
       row lands at ``(write_block, write_off)`` (where its position lies
       through its table, as ``paged_decode_attention`` requires), then it
       attends over its table to its position.
-    - ``verify_fn`` raises ``NotImplementedError``, as ``quantize_weights``
-      and ``kv_scales`` do.
+    - ``verify_fn(params, kc, vc, io)``, ``io = {"tokens": [S, W],
+      "positions": [S], "active": [S] bool, "tables": [S, MAXB],
+      "write_block": [S, W], "write_off": [S, W]}`` (JAX :701): the
+      speculative verifier over the block tables, window row ``w`` at
+      position ``positions[s] + w`` (clipped to ``max_seq_len - 1``),
+      writing at ``(write_block, write_off)`` (-1: no write; an inactive
+      lane writes nothing, where the JAX package sends its writes to the
+      null block), one ``paged_verify_attention`` launch a layer; returns
+      as the dense ``verify_fn``.
+
+    ``quantize_weights`` as :func:`gpt_decode_fns`; ``kv_scales`` raises
+    ``NotImplementedError``.
     """
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    if quantize_weights:
-        _not_ported("quantize_weights")
     if kv_scales is not None:
         _not_ported("kv_scales")
-    math = _DecodeMath(cfg)
+    math = _DecodeMath(cfg, quantize_weights)
     A, BS, MAXB = cfg.num_heads, int(block_size), int(max_blocks_per_req)
     T = MAXB * BS
 
@@ -375,7 +494,7 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         tokens, gpos_d, kmax_d, blk, off, table_d = _to_device(
             [io["tokens"], gpos, kmax, table[np.clip(real // BS, 0, MAXB - 1)],
              np.clip(real, 0, T - 1) % BS, table], dev)
-        x = p["wte"][tokens] + p["wpe"][gpos_d]                 # [Lb, H]
+        x = math.emb(p, tokens) + p["wpe"][gpos_d]              # [Lb, H]
         at = (blk[:, None], torch.arange(A, device=dev)[None, :],
               off[:, None])
         for i in range(cfg.num_layers):
@@ -400,7 +519,7 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
             [io["tokens"], pos, np.where(active, pos, 0), io["tables"],
              np.where(active, io["write_block"], -1),
              np.where(active, io["write_off"], 0), np.arange(S)], dev)
-        x = p["wte"][tokens] + p["wpe"][pos_d]                  # [S, H]
+        x = math.emb(p, tokens) + p["wpe"][pos_d]               # [S, H]
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
             att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
@@ -410,7 +529,16 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         return kc, vc, logits.argmax(-1).to(torch.int32), logits
 
     def verify_fn(params, kc, vc, io):
-        _not_ported("verify")
+        tokens = np.asarray(io["tokens"])
+        W = tokens.shape[1]
+        pos0 = np.asarray(io["positions"]).astype(np.int64)
+        pos = np.clip(pos0[:, None] + np.arange(W)[None, :], 0,
+                      cfg.max_seq_len - 1)                      # [S, W]
+        return _verify(math, params, kc, vc, tokens, pos,
+                       np.asarray(io["active"], bool),
+                       np.clip(pos0, 0, cfg.max_seq_len - 1), io["tables"],
+                       np.asarray(io["write_block"]),
+                       np.asarray(io["write_off"]))
 
     return prefill_fn, decode_fn, verify_fn
 
@@ -429,9 +557,12 @@ def _check_decode_params(sd, cfg: GPTConfig):
 def _params_pull(sd, cfg: GPTConfig, names, quantize_weights: bool):
     """The parameters by name, as the SameDiff holds them now (tensors on
     its device; ``fit`` updates them in place, ``set_arr_for_var``
-    rebinds a name, which the next pull sees)."""
+    rebinds a name, which the next pull sees); with ``quantize_weights``
+    re-quantized at every pull (:func:`gpt_quantize_params`), so that
+    ``update_model()`` after ``fit()`` serves the new weights."""
     if quantize_weights:
-        _not_ported("quantize_weights")
+        return lambda: gpt_quantize_params(
+            {n: sd.get_arr_for_var(n) for n in names}, cfg)
     return lambda: {n: sd.get_arr_for_var(n) for n in names}
 
 
@@ -447,8 +578,11 @@ def gpt_paged_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
     :class:`~deeplearning4j_tpu_torch.serving.paged.PagedGenerativeSpec`
     over a :func:`build_gpt` graph, what ``PagedGenerativeServer``
     serves. The decode functions are built per (block_size,
-    max_blocks_per_req) geometry by the server. ``quantize_weights`` and
-    ``quantize_kv`` raise ``NotImplementedError`` (not ported yet)."""
+    max_blocks_per_req) geometry by the server; their ``verify_fn`` makes
+    the spec a speculative target. ``quantize_weights`` serves int8
+    weight payloads (:func:`gpt_quantize_params`, re-quantized at every
+    pull); ``quantize_kv`` raises ``NotImplementedError`` (int8 KV, not
+    ported yet)."""
     from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeSpec
     names = _check_decode_params(sd, cfg)
     if quantize_kv:
@@ -456,7 +590,7 @@ def gpt_paged_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
     return PagedGenerativeSpec(
         params=_params_pull(sd, cfg, names, quantize_weights),
         make_fns=lambda block_size, max_blocks: gpt_paged_decode_fns(
-            cfg, block_size, max_blocks),
+            cfg, block_size, max_blocks, quantize_weights=quantize_weights),
         kv_shape=lambda num_blocks, block_size: (
             cfg.num_layers, int(num_blocks), cfg.num_heads,
             int(block_size), cfg.head_size),
@@ -473,15 +607,19 @@ def gpt_generative_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
     :class:`~deeplearning4j_tpu_torch.serving.generative.GenerativeSpec`
     over a :func:`build_gpt` graph, what ``GenerativeServer`` serves.
     Parameters are pulled from the SameDiff by name, so
-    ``server.update_model()`` serves what the graph holds then.
-    ``quantize_weights`` and ``quantize_kv`` raise ``NotImplementedError``
-    (not ported yet); so does the spec's ``verify``."""
+    ``server.update_model()`` serves what the graph holds then. The spec
+    carries the verify function, so a server over it can be a speculative
+    target, and a second spec passed as ``draft_spec=`` its draft.
+    ``quantize_weights`` serves int8 weight payloads (re-quantized at
+    every pull); ``quantize_kv`` raises ``NotImplementedError`` (int8 KV,
+    not ported yet)."""
     from deeplearning4j_tpu_torch.serving.generative import GenerativeSpec
     names = _check_decode_params(sd, cfg)
     if quantize_kv:
         _not_ported("kv_scales")
     pull = _params_pull(sd, cfg, names, quantize_weights)
-    prefill_fn, decode_fn, verify_fn = gpt_decode_fns(cfg)
+    prefill_fn, decode_fn, verify_fn = gpt_decode_fns(
+        cfg, quantize_weights=quantize_weights)
     return GenerativeSpec(
         params=pull,
         prefill=prefill_fn,

@@ -841,3 +841,121 @@ def test_gpt_tiny_scanned_epoch_on_card_matches_per_step(card):
                                    err_msg=n)
     np.testing.assert_allclose(hist.step_losses, href.step_losses,
                                rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# speculative int8-weight serving: int8_matmul and paged_verify_attention
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 1536, 4608), (8, 6144, 1536),
+                                   (64, 1536, 1536), (77, 64, 200)])
+def test_int8_matmul_matches_plain_and_its_rows_ignore_m(card, m, k, n,
+                                                         transposed):
+    """``int8_matmul`` within 1e-5 of the sum of its absolute terms of the
+    float64 plain version, two calls bit-equal, and each row's bits those
+    of the same row at M = 1."""
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import measure
+    x, w, s = measure.int8_matmul_case(card, m, k, n, transposed, seed=m)
+    before = im.LAUNCHES["int8_matmul"]
+    got = im.int8_matmul(x, w, s, transposed)
+    again = im.int8_matmul(x, w, s, transposed)
+    want = im.int8_matmul_plain(x.double(), w, s.double(), transposed)
+    terms = im.abs_terms(x, w, s, transposed)
+    assert measure.paged_reading(got, want, terms, 1e-5) <= 1
+    assert torch.equal(got, again)
+    assert im.LAUNCHES["int8_matmul"] - before == 2
+    for r in (0, m - 1):
+        assert torch.equal(im.int8_matmul(x[r:r + 1], w, s, transposed),
+                           got[r:r + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("w,d", [(2, 128), (8, 128), (20, 64), (5, 16)])
+def test_paged_verify_kernel_matches_plain_and_decode_on_card(card, w, d,
+                                                              dense):
+    """``paged_verify_attention`` against ``paged_verify_plain`` (1e-5 of
+    the largest magnitude), its written cache bit-equal, and each row
+    bit-equal to ``paged_decode_attention`` over the written cache."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    case = measure.paged_verify_case(
+        card, [0, 15, 40, 300], w, 3, d, 512 if dense else 16,
+        torch.float32, active=[True, True, False, True], dense=dense, seed=w)
+    q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = pa.LAUNCHES["paged_verify_attention"]
+    got = pa.paged_verify_attention(q, kn, vn, k1, v1, tab, lane, kmax,
+                                    win0, wrow, wb, wo)
+    want = pa.paged_verify_plain(q, kn, vn, k2, v2, tab, lane, kmax, win0,
+                                 wrow, wb, wo)
+    _close(got, want, 1e-5)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert pa.LAUNCHES["paged_verify_attention"] - before == 1
+    dec = pa.paged_decode_attention(q, kn, vn, k1.clone(), v1.clone(), tab,
+                                    lane, kmax, wb, wo)
+    assert torch.equal(dec, got)
+
+
+@pytest.mark.cuda
+def test_paged_verify_kernel_refuses_a_window_past_the_rows(card):
+    """Rows whose window runs past the launch's rows, or starts before
+    them, are refused on the card as the plain version refuses them: NaN
+    output, the writes still made, the other rows bit-equal to a launch
+    without them."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    bad = list(measure.paged_verify_case(card, [0, 15, 40, 3], 6, 2, 16, 16,
+                                         torch.float32, seed=4))
+    n = bad[0].shape[0]
+    ref = [t.clone() for t in bad]
+    bad[9][6:9] = torch.tensor([n, n - 1, n - 2])  # the last row past n - 1
+    bad[9][9:12] = -1
+    cpu = [t.cpu().clone() for t in bad]
+    got = pa.paged_verify_attention(*bad)
+    want = pa.paged_verify_attention(*ref)
+    assert torch.isnan(got[6:12]).all()
+    assert torch.equal(got[:6], want[:6]) and torch.equal(got[12:], want[12:])
+    assert torch.equal(bad[3], ref[3]) and torch.equal(bad[4], ref[4])
+    plain = pa.paged_verify_plain(*cpu)
+    assert torch.isnan(plain[6:12]).all()
+    _close(got[:6], plain[:6].to(card), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_speculative_serving_on_card_matches_cpu(card, paged):
+    """GPT_TINY int8 target with an independent int8 draft, on the card and
+    on the CPU: the same tokens; rounds ran through the verify kernel."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_paged_spec)
+    dcfg = dataclasses.replace(GPT_TINY, hidden_size=32, num_layers=1,
+                               num_heads=2, intermediate_size=64)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 17, 30)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+        dsd = build_gpt(dcfg, batch=2, seq_len=8, seed=1, device=dev)
+        draft = gpt_generative_spec(dsd, dcfg, quantize_weights=True)
+        kw = dict(max_slots=2, device=dev, draft_spec=draft, speculate_k=4)
+        srv = PagedGenerativeServer(
+            gpt_paged_spec(sd, GPT_TINY, quantize_weights=True),
+            block_size=8, debug_leaks=True, **kw) if paged else \
+            GenerativeServer(gpt_generative_spec(
+                sd, GPT_TINY, quantize_weights=True), **kw)
+        before = pa.LAUNCHES["paged_verify_attention"]
+        with srv:
+            out[dev.type] = [srv.generate(p, max_new_tokens=12)
+                             for p in prompts]
+        launched = pa.LAUNCHES["paged_verify_attention"] - before
+        if dev.type == "cuda":
+            assert launched >= GPT_TINY.num_layers
+            assert srv.metrics.counters["spec_rounds"] >= 1
+    assert out["cuda"] == out["cpu"]

@@ -566,7 +566,8 @@ def test_decode_fns_write_and_attend_in_one_launch_a_layer(monkeypatch,
     io, kc, vc, _ = _decode_run(psd, kind)
     layers = PCFG.num_layers
     assert pa.LAUNCHES == {"paged_attention": 0,
-                           "paged_decode_attention": layers}
+                           "paged_decode_attention": layers,
+                           "paged_verify_attention": 0}
     assert len(launches) == layers and puts == []
     act = io["active"]
     pos = io["positions"]
@@ -723,6 +724,7 @@ def test_loading_the_library_declares_the_entry(monkeypatch):
     class Lib:
         dl4j_paged_decode_attention = Entry()
         dl4j_paged_attention_v1 = Entry()
+        dl4j_paged_verify_attention = Entry()
 
     lib = Lib()
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
@@ -1068,12 +1070,10 @@ def test_warmup_runs_every_shape_once_then_traffic_adds_none(psd):
 def test_not_ported_options_raise(psd, spec):
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         make_server(spec, tp=2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pgpt.gpt_paged_spec(psd, PCFG, quantize_weights=True).params()
     with pytest.raises(NotImplementedError, match="int8 KV"):
         pgpt.gpt_paged_spec(psd, PCFG, quantize_kv=True)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        spec.make_fns(BS, MAXB)[2](None, None, None, None)
+    with pytest.raises(NotImplementedError, match="item 2.4"):
+        pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB, kv_scales={"k": 0})
 
 
 def test_metrics_cold_start_and_block_accounting(spec):

@@ -450,16 +450,12 @@ class TestServer:
                 "serving.reply"} <= names
 
     def test_not_ported_options_raise(self, spec, psd):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            make_server(spec, draft_spec=spec)
         with pytest.raises(NotImplementedError, match="telemetry"):
             make_server(spec, telemetry_port=0)
-        with pytest.raises(NotImplementedError, match="speculative"):
-            spec.verify(None, None, None, None)
-        with pytest.raises(NotImplementedError, match="int8"):
-            pgpt.gpt_decode_fns(PCFG, quantize_weights=True)
         with pytest.raises(NotImplementedError, match="int8 KV"):
             pgpt.gpt_generative_spec(psd, PCFG, quantize_kv=True)
+        with pytest.raises(NotImplementedError, match="item 2.4"):
+            pgpt.gpt_decode_fns(PCFG, kv_scales={"k": 0, "v": 0})
 
 
 # ----------------------------------------------------------------------
