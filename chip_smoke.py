@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero:
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
    head dim 128; the float32 attention kernels' SASS: tf32 mma.sync
-   (HMMA ... TF32) and no other HMMA, at every head dim; the paged decode
-   cluster kernel's (csrc/paged_attention.cu, float32 and float64, every
-   head dim): ptxas's registers and spills, and in its SASS the bulk copy
-   and the cluster's shared-memory pushes and barrier, by opcode.
+   (HMMA ... TF32) and no other HMMA, at every head dim; the paged
+   cluster kernels' (csrc/paged_attention.cu: the decode, the first
+   verify and the verify kernel, float32 and float64, every head dim):
+   ptxas's registers and spills side by side, and in their SASS the bulk
+   copy and the cluster's shared-memory pushes and barrier, by opcode;
+   the int8 kernel's (csrc/int8_matmul.cu, both layouts, every tile's
+   rows, 2 and 8 ranks): registers and spills, wgmma, TMA, async copies,
+   pushes and mbarrier waits in its SASS and no mma.sync.
 2. kernels: the BN(+ReLU) backward's kernels against their plain PyTorch
    versions on the card (bf16 and f32, ReLU on and off; the TPU spike's
    three shapes, ResNet-50's stem, a ragged shape, and a dy that arrives
@@ -184,22 +188,26 @@ Phases, in order; any failure exits non-zero:
    gradient and then 3 Adam steps to 1e-6 of each tensor.
 16. kernels: ``int8_matmul`` (csrc/int8_matmul.cu) against its plain
    version in float64 at GPT-medium's four (K, N) and the transposed
-   ``wte`` at M 1, 8, 64, 512 (within 1e-5 of the sum of absolute terms;
-   NaN-poisoned output memory; two calls bit-equal; a dropped K tile must
-   fail the rule), and its rows bit-equal across M; then
-   ``paged_verify_attention`` (csrc/paged_attention.cu's verify entry)
-   against ``paged_verify_plain``: 8 lanes x W 2, 4, 8, 16, 20 x 12 x 128
-   float32, windows from positions 0, 15 (straddling a block edge), 128,
-   512, 1000, blocks of 16 and the dense slab, inactive lanes, head dims
-   16-64 and float64; the written cache bit-equal, two calls bit-equal,
+   ``wte`` at M 1-512 across every tile edge (within 1e-5 of the sum of
+   absolute terms; NaN-poisoned output memory; two calls bit-equal; a
+   dropped K tile must fail the rule), its rows bit-equal across those
+   M, and five shapes off GPT-medium's (partial K and N tiles through the
+   tensor map, plain loads); then ``paged_verify_attention``
+   (csrc/paged_attention.cu's verify kernel) against
+   ``paged_verify_plain``: 8 lanes x W 1-20 x 12 x 128 float32, windows
+   from positions 0, 15 (straddling a block edge), 128, 512, 1000, blocks
+   of 16 (and the dense slab at six W), inactive lanes, head dims 16-64
+   and float64, blocks of 5; the written cache bit-equal, two calls
+   bit-equal,
    every row bit-equal to ``paged_decode_attention`` at its last key, NaN
    where no row may read changes nothing; controls (a row one key too
    far, the window read from the cache before the write) must fail. Then
    both timed alone (``median_ms``) beside their plain versions, the
    library (``torch.matmul`` with the dequantised weight; masked
    ``F.scaled_dot_product_attention``) and their bounds: int8_matmul at
-   each shape and M, the verify at 8 lanes x W 8 at contexts 128, 512
-   and 1016.
+   each shape and M, the verify at 8 lanes x W 8 at contexts 64, 128,
+   512 and 1016 and at two launches of phase 18's traffic (``verify_mixes``:
+   its first round, and a round of its long tail).
 17. parity: GPT_TINY speculative serving on the card and on the CPU
    (plain kernels), the dense and the paged server, float32 and int8
    weights, an independent 1-layer draft from seed 1 (rejections run):
@@ -219,8 +227,10 @@ Phases, in order; any failure exits non-zero:
    target (phase 12's near-tie rule); the pool drains. Then ~10 rounds
    under ``torch.profiler`` (device busy and wall a round, idle share,
    launches a round, device time by group; the traced int8_matmul and
-   cluster kernels equal the wrappers' counts), the same requests on the
-   int8 target without a draft (the yardstick), and 8 requests through a
+   cluster kernels equal the wrappers' counts), three 512-row prefills of
+   the int8 target under the profiler (the int8 GEMM's device time and
+   launches a prefill), the same requests on the int8 target without a
+   draft (the yardstick), and 8 requests through a
    float32 target with a float32 self-draft, each against
    ``greedy_decode``.
 
@@ -338,31 +348,35 @@ PAGED_SASS = {"bulk copy": "UBLKCP", "DSMEM push": "STAS",
               "mbarrier wait": "SYNCS.PHASECHK"}
 
 
-def check_paged_build():
-    """The paged decode cluster kernel as built, float32 and float64 at
-    every head dim, its decode and its verify instantiation: ptxas's
-    registers and spills, and each of PAGED_SASS's opcodes in its SASS,
-    counted. Prints one line a kernel; exits on a
-    failure."""
-    from deeplearning4j_tpu_torch.kernels import _cuda
-    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    sass = sass_kernels(_cuda.library_path(pa._LIB))
-    log_ = _cuda.build_log(pa._LIB)
-    spills = ptxas_spills(log_)
-    regs = {}
-    fn = None
+def _ptxas_regs(log_):
+    """Registers per kernel (mangled name) from ptxas's report."""
+    regs, fn = {}, None
     for line in log_.splitlines():
         if "Function properties for" in line:
             fn = line.split()[-1]
         elif fn and "registers" in line:
             regs[fn] = line.split("Used")[1].split(",")[0].strip()
             fn = None
+    return regs
+
+
+def check_paged_build():
+    """The paged cluster kernels as built, float32 and float64 at every
+    head dim: the decode kernel and the verify kernel: ptxas's registers
+    and spills side by side, and each of PAGED_SASS's opcodes in its SASS,
+    counted. Prints one line a kernel; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import _cuda
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    sass = sass_kernels(_cuda.library_path(pa._LIB))
+    log_ = _cuda.build_log(pa._LIB)
+    spills = ptxas_spills(log_)
+    regs = _ptxas_regs(log_)
     bad = []
     for t, tc in (("float", "f"), ("double", "d")):
         for d in (16, 32, 64, 128):
-            # the decode instantiation (kWindow false) and the verify's
-            for w in (0, 1):
-                tag = f"paged_decode_kernelI{tc}Li{d}ELb{w}E"
+            for tag, label in (
+                    (f"paged_decode_kernelI{tc}Li{d}EE", "decode"),
+                    (f"paged_verify_kernelI{tc}Li{d}EE", "verify")):
                 name = next((n for n in sass if tag in n), None)
                 if name is None:
                     bad.append(f"{tag}: not in the library")
@@ -370,17 +384,62 @@ def check_paged_build():
                 found = {k: sass[name].count(op)
                          for k, op in PAGED_SASS.items()}
                 ok = all(found.values())
-                log(f"    paged_decode_kernel<{t}, {d}, "
-                    f"{'verify' if w else 'decode'}>: "
-                    f"{regs.get(name, '?')}, spill stores/loads "
-                    f"{spills.get(name, 'not reported')}; "
-                    + ", ".join(f"{k} {PAGED_SASS[k]} x{n}"
-                                for k, n in found.items())
+                log(f"    <{t}, {d}> {label:6s}: {regs.get(name, '?')}, "
+                    f"spill stores/loads {spills.get(name, 'not reported')}"
+                    "; " + ", ".join(f"{k} {PAGED_SASS[k]} x{n}"
+                                     for k, n in found.items())
                     + f" {'ok' if ok else 'FAIL'}")
                 if not ok:
                     bad.append(tag)
     if bad:
-        raise SystemExit(f"paged decode kernel built wrong: {bad}")
+        raise SystemExit(f"paged cluster kernels built wrong: {bad}")
+
+
+#: SASS opcodes of the int8 kernel's Hopper parts: wgmma, the weight
+#: tile's TMA load, x's async copies, the pushes of the partials (st.async)
+#: and the mbarrier waits
+INT8_SASS = {"wgmma": "HGMMA.", "TMA": "UTMALDG", "async copy": "LDGSTS",
+             "DSMEM push": "STAS", "mbarrier wait": "SYNCS.PHASECHK"}
+
+
+def check_int8_build():
+    """The int8 kernel as built, both layouts at each tile's rows (8, 16,
+    32, 64) and cluster (2 and 8 ranks): ptxas's registers and spills,
+    INT8_SASS's opcodes counted, no mma.sync (HMMA), and what ptxas says
+    of serializing the wgmma batch (WARPGROUP.DEPBAR counted). Prints one
+    line a kernel; exits on a failure."""
+    from deeplearning4j_tpu_torch.kernels import _cuda
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    sass = sass_kernels(_cuda.library_path(im._LIB))
+    log_ = _cuda.build_log(im._LIB)
+    spills = ptxas_spills(log_)
+    regs = _ptxas_regs(log_)
+    serial = [ln.strip() for ln in log_.splitlines() if "serializ" in ln]
+    bad = []
+    for layout in (0, 1):
+        for rows in im.TILE_ROWS:
+            for ranks in (2, 8):
+                tag = f"int8_wgmma_kernelILi{layout}ELi{rows}ELi{ranks}E"
+                name = next((n for n in sass if tag in n), None)
+                if name is None:
+                    bad.append(f"{tag}: not in the library")
+                    continue
+                body = sass[name]
+                found = {k: body.count(op) for k, op in INT8_SASS.items()}
+                hmma = body.count("HMMA")
+                depbar = body.count("WARPGROUP.DEPBAR")
+                ok = all(found.values()) and hmma == 0
+                log(f"    int8_wgmma_kernel<layout {layout}, rows {rows}, "
+                    f"ranks {ranks}>: {regs.get(name, '?')}, spill "
+                    f"stores/loads {spills.get(name, 'not reported')}; "
+                    + ", ".join(f"{k} x{n}" for k, n in found.items())
+                    + f", HMMA x{hmma}, WARPGROUP.DEPBAR x{depbar} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(tag)
+    log(f"    ptxas on wgmma serialization: {serial or 'nothing'}")
+    if bad:
+        raise SystemExit(f"int8 kernel built wrong: {bad}")
 
 
 # ----------------------------------------------------------------------
@@ -1968,6 +2027,18 @@ def serving_traffic(vocab):
     return reqs
 
 
+def verify_mixes():
+    """Each lane's context (None: an idle lane) at two verify launches of
+    phase 18's traffic (``serving_traffic``): its first round (the first 8
+    prompts) and a round of its long tail (the first 8 requests of 64-128
+    new tokens half-way through them; idle lanes where there are fewer)."""
+    from deeplearning4j_tpu_torch.zoo import GPT_MEDIUM
+    reqs = serving_traffic(GPT_MEDIUM.vocab_size)
+    tail = [len(p) + n // 2 for p, n in reqs if n >= 64][:SERVE_SLOTS]
+    return {"first round": [len(p) for p, _ in reqs[:SERVE_SLOTS]],
+            "long tail": tail + [None] * (SERVE_SLOTS - len(tail))}
+
+
 def greedy_logits(spec, prompt, n, dev):
     """The port's greedy_decode, keeping each step's logits on the host."""
     from deeplearning4j_tpu_torch.serving.generative import _slab
@@ -3107,6 +3178,15 @@ INT8_SHAPES = ((1536, 4608, False), (1536, 1536, False),
                (1536, 6144, False), (6144, 1536, False),
                (1536, 32768, True))
 SPEC_K = 8
+#: M of the int8 checks: each tile's edges (rows a tile 8, 16, 32, 64)
+INT8_MS = (1, 7, 8, 9, 16, 17, 32, 33, 63, 64, 65, 512)
+#: (K, N, transposed) off GPT-medium's: partial K and N tiles through the
+#: tensor map (K, N multiples of 16), and plain loads (rows off 16 bytes,
+#: K off 4)
+INT8_ODD = ((1552, 4624, False), (1552, 4624, True), (100, 72, True),
+            (40, 24, False), (33, 17, False))
+#: window lengths of the verify checked on the dense slab too
+SPEC_DENSE_W = (1, 2, 4, 8, 16, 20)
 
 
 def _nan_poison_free(nbytes, dev):
@@ -3150,18 +3230,18 @@ def check_int8(dev, m, k, n, transposed, errs, label, x=None):
     return got, (x, w, s)
 
 
-def check_int8_rows(dev, k, n, transposed, prefill_m):
-    """A row's result does not depend on M: rows of the same x through M
-    = 1, 8, 64, 512 and the prefill bucket give the same bits."""
+def check_int8_rows(dev, k, n, transposed, ms):
+    """A row's result does not depend on M: rows of the same x through
+    every M in ``ms`` give the bits of M = max(ms)."""
     from deeplearning4j_tpu_torch.kernels import int8_matmul as im
     from deeplearning4j_tpu_torch.kernels import measure
-    ms = sorted({1, 8, 64, 512, prefill_m})
     x, w, s = measure.int8_matmul_case(dev, max(ms), k, n, transposed)
     full = im.int8_matmul(x, w, s, transposed)
     same = {m: torch.equal(im.int8_matmul(x[:m], w, s, transposed),
                            full[:m]) for m in ms}
     log(f"  rows independent of M ({k}x{n}{' transposed' if transposed else ''}"
-        f"): row bits of M in {ms} equal M = {max(ms)}'s: {same}")
+        f"): row bits of M in {list(ms)} equal M = {max(ms)}'s: "
+        f"{all(same.values())} {same if not all(same.values()) else ''}")
     if not all(same.values()):
         raise SystemExit("int8_matmul's rows depend on M")
 
@@ -3234,56 +3314,65 @@ def check_verify(args, errs, label, controls=True):
 
 def phase_spec_kernels(dev, errs, prefill_m=512):
     """Kernel A (``int8_matmul``) at every GPT-medium (K, N) and the
-    transposed ``wte`` at M in (1, 8, 64, 512, the traffic's largest
-    prefill bucket), its rows independent of M; kernel B
-    (``paged_verify_attention``) at 8 lanes x W in (2, 4, 8, 16, 20) x 12
-    x 128 float32 with first window positions (0, 15, 128, 512, 1000, ...)
-    (15: a window straddling a block edge), blocks of 16 and the dense
-    slab, two lanes inactive in one case; head dims 16-64 and float64 at a
-    smaller size."""
+    transposed ``wte`` at M in INT8_MS and the traffic's largest prefill
+    bucket (every tile edge: 8 rows a tile to 8, 16, 32, 64 from 9, 17,
+    33, 65), each shape's rows independent of M over the same M; kernel B
+    (``paged_verify_attention``) at 8 lanes x W 1-20 x 12 x 128 float32
+    with first window positions (0, 15, 128, 512, 1000, ...) (15: a window
+    straddling a block edge), blocks of 16 (and the dense slab at W in
+    SPEC_DENSE_W), every row against the decode kernel's bits; two lanes
+    inactive in one case; head dims 16-64 and float64 at a smaller size,
+    and blocks of 5 (the cp.async path)."""
     from deeplearning4j_tpu_torch.kernels import measure
+    ms = sorted(set(INT8_MS) | {prefill_m})
     for k, n, tr in INT8_SHAPES:
-        for m in sorted({1, 8, 64, 512, prefill_m}):
+        for m in ms:
             check_int8(dev, m, k, n, tr, errs,
                        f"int8 {m}x{k} @ {'wte^T ' if tr else ''}{k}x{n}")
-    for k, n, tr in INT8_SHAPES[::3]:
-        check_int8_rows(dev, k, n, tr, prefill_m)
+        check_int8_rows(dev, k, n, tr, ms)
+    for k, n, tr in INT8_ODD:
+        for m in (9, 65):
+            check_int8(dev, m, k, n, tr, errs,
+                       f"int8 {m}x{k} @ {'wte^T ' if tr else ''}{k}x{n}")
     pos0 = [0, 15, 128, 512, 1000, 15, 300, 7]
-    for w in (2, 4, 8, 16, 20):
-        for dense in (False, True):
+    for w in range(1, 21):
+        for dense in (False, True) if w in SPEC_DENSE_W else (False,):
             check_verify(measure.paged_verify_case(
                 dev, pos0, w, 12, 128, 1024 if dense else 16,
                 torch.float32, seed=w, dense=dense), errs,
                 f"verify 8 lanes x W {w} x12x128 {'dense' if dense else 'BS 16'}"
-                f" pos0 {pos0} float32", controls=w == 8)
+                f" pos0 {pos0} float32", controls=w == SPEC_K)
     check_verify(measure.paged_verify_case(
         dev, pos0, 8, 12, 128, 16, torch.float32,
         active=[True, True, False, True, True, False, True, True]), errs,
         "verify 8 lanes x W 8 BS 16, lanes 2 and 5 inactive float32")
     for d in (16, 32, 64):
         for dt in (torch.float32, torch.float64):
-            check_verify(measure.paged_verify_case(
-                dev, [0, 15, 17, 40], 5, 3, d, 16, dt, seed=d), errs,
-                f"verify 4 lanes x W 5 x3x{d} BS 16 {str(dt)[6:]}",
-                controls=False)
+            for bs in (16, 5):
+                check_verify(measure.paged_verify_case(
+                    dev, [0, 15, 17, 40], 5, 3, d, bs, dt, seed=d), errs,
+                    f"verify 4 lanes x W 5 x3x{d} BS {bs} {str(dt)[6:]}",
+                    controls=False)
 
 
 def phase_spec_timing(dev, card_name, prefill_ms):
     """Kernels A and B timed alone (cold L2, the median of 20 calls queued
     behind a device sleep, ``median_ms``). ``int8_matmul`` at every
     GPT-medium (K, N) and the transposed ``wte`` at M in (1, 8, 64, 512,
-    the traffic's largest prefill bucket), beside its plain version (the
-    JAX expression in float32: the payload widened, ``torch.matmul``, the
-    scale), the library yardstick (one ``torch.matmul`` of x with the
-    dequantised float32 weight, made outside the timing: the float32
-    server's own cuBLAS product) and the bound (the payload, x, the scale
+    the traffic's largest prefill bucket), beside its plain version (the JAX expression in float32: the payload widened,
+    ``torch.matmul``, the scale), the library yardstick (one
+    ``torch.matmul`` of x with the dequantised float32 weight, made
+    outside the timing: the float32 server's own cuBLAS product) and the
+    bound (the payload, x, the scale
     and y moved once over the memory rate; 2 M N K float32-grade products
     with an int8 weight, where only x is split, over the faster of two
     TF32 and three bf16 passes, ``measure.int8_weight_bound``).
     ``paged_verify_attention`` at 8 lanes x W 8 x 12 x 128, every
-    lane's window starting at context 128, 512 and 1024 - 8, blocks of
-    16, beside its plain version (host syncs: ``synced_ms``), the decode
-    kernel over the same rows (W launches' worth of work in one), the
+    lane's window starting at context 64, 128, 512 and 1024 - 8, and at each
+    of ``verify_mixes``' launches, blocks of 16, beside its plain version
+    (host syncs:
+    ``synced_ms``), the decode kernel over the same rows (W launches' worth
+    of work in one), the
     library (one masked ``F.scaled_dot_product_attention`` of the windows
     over each lane's contiguous context) and the bound (each lane's
     cached keys read once, q, out and the new rows). Returns per-call
@@ -3306,17 +3395,21 @@ def phase_spec_timing(dev, card_name, prefill_ms):
             ops, nbytes = measure.int8_matmul_bounds(m, k, n)
             b = measure.int8_weight_bound(ops, nbytes, card_name)
             key = f"{k}x{n}{'T' if tr else ''}_m{m}"
-            out[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                        **b, "tb_per_s": nbytes / ms / 1e9,
+            out[key] = {"ms": ms, "plain_ms": plain,
+                        "library_ms": lib, **b,
+                        "tb_per_s": nbytes / ms / 1e9,
                         "tflops": ops / ms / 1e9}
             log(f"  int8_matmul {m}x{k} @ {'wte^T' if tr else 'w'} "
-                f"{k}x{n}: {ms:.4f} ms (plain {plain:.4f}, library "
-                f"{lib:.4f}, bound {b['bound_ms']:.4f} by {b['bound_by']}; "
-                f"{nbytes / ms / 1e9:.3f} TB/s, {ops / ms / 1e9:.2f} "
-                f"TFLOP/s)  [{card_name}]")
-    for ctx in (128, 512, 1024 - SPEC_K):
-        case = measure.paged_verify_case(dev, [ctx] * SERVE_SLOTS, SPEC_K,
-                                         12, 128, SERVE_BS, torch.float32)
+                f"{k}x{n}: {ms:.4f} ms (plain "
+                f"{plain:.4f}, library {lib:.4f}, bound {b['bound_ms']:.4f} "
+                f"by {b['bound_by']}; {nbytes / ms / 1e9:.3f} TB/s, "
+                f"{ops / ms / 1e9:.2f} TFLOP/s)  [{card_name}]")
+    cases = {**{str(ctx): [ctx] * SERVE_SLOTS
+                for ctx in (64, 128, 512, 1024 - SPEC_K)}, **verify_mixes()}
+    for label, ctxs in cases.items():
+        case = measure.paged_verify_case(
+            dev, [c or 0 for c in ctxs], SPEC_K, 12, 128, SERVE_BS,
+            torch.float32, active=[c is not None for c in ctxs])
         q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
         pa.paged_verify_plain(*case)          # the window's rows in place
         qs, dk, dv, mask = measure.paged_verify_library(
@@ -3333,12 +3426,14 @@ def phase_spec_timing(dev, card_name, prefill_ms):
         # the bytes of W decode rows a lane, each reading its keys
         _, wbytes = measure.paged_bounds(q, kc, tab, torch.arange(
             q.shape[0], device=dev, dtype=torch.int32), kmax)
-        out[f"verify_{ctx}"] = {"ms": ms, "decode_kernel_ms": dec,
-                                "plain_ms": plain, "library_ms": lib, **b,
-                                "w_fold_bytes": wbytes, "bytes": nbytes}
-        log(f"  paged_verify_attention 8 lanes x W {SPEC_K} at context "
-            f"{ctx}: {ms:.4f} ms (decode kernel over the same rows "
-            f"{dec:.4f}; plain {plain:.3f} host clock; library {lib:.4f}; "
+        out[f"verify_{label.replace(' ', '_')}"] = {
+            "ms": ms, "contexts": ctxs, "decode_kernel_ms": dec,
+            "plain_ms": plain, "library_ms": lib, **b,
+            "w_fold_bytes": wbytes, "bytes": nbytes}
+        log(f"  paged_verify_attention 8 lanes x W {SPEC_K} at "
+            f"{'context ' + label if label.isdigit() else label + ' ' + str(ctxs)}"
+            f": {ms:.4f} ms (decode kernel over the same rows {dec:.4f}; plain {plain:.3f} host clock; library "
+            f"{lib:.4f}; "
             f"bound {b['bound_ms']:.4f} by {b['bound_by']}; the bound's "
             f"{nbytes / 2**20:.2f} MiB against {wbytes / 2**20:.2f} MiB "
             f"if each row read its keys)  [{card_name}]")
@@ -3447,17 +3542,15 @@ SPEC_GROUPS = {"int8 GEMM": "int8_matmul",
 
 def _spec_group(name):
     """A device kernel's group in a speculative round, by its traced name:
-    the int8 GEMM, or the cluster kernel's verify (``kWindow`` true) or
-    decode (false) instantiation, demangled or mangled; else None."""
-    if "int8_matmul_kernel" in name:
+    the int8 GEMM (its wgmma kernel), the verify kernel, or the cluster
+    kernel (the draft's decode), demangled or mangled; else None."""
+    if "int8_wgmma_kernel" in name:
         return "int8 GEMM"
-    if "paged_decode_kernel" not in name:
-        return None
-    if ", true>" in name or "Lb1E" in name:
+    if "paged_verify_kernel" in name:
         return "verify attention"
-    if ", false>" in name or "Lb0E" in name:
+    if "paged_decode_kernel" in name:
         return "draft decode attention"
-    raise SystemExit(f"no cluster-kernel instantiation in {name!r}")
+    return None
 
 
 def profile_spec_rounds(spec, draft, reqs, card, n_new=81):
@@ -3470,7 +3563,8 @@ def profile_spec_rounds(spec, draft, reqs, card, n_new=81):
     the draft's decode attention by kernel name and instantiation, layer
     norm and the draft's other work by their labelled range), and each
     kernel group's traced launches against its wrapper's count over the
-    same window."""
+    same window (16 tiny kernels open the window, since the tracer can
+    drop its first launches; they fall in "other")."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from deeplearning4j_tpu_torch.kernels import int8_matmul as im
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -3502,6 +3596,12 @@ def profile_spec_rounds(spec, draft, reqs, card, n_new=81):
         r0 = srv.metrics.counters["spec_rounds"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a few tiny kernels first: the tracer can drop a window's
+            # first launches, and these are no group's
+            warm = torch.zeros(1, device=torch.device("cuda"))
+            for _ in range(16):
+                warm.add_(1)
+            torch.cuda.synchronize()
             while not all(h.future.done() for h in hs):
                 e0, e1 = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
@@ -3578,6 +3678,66 @@ def profile_spec_rounds(spec, draft, reqs, card, n_new=81):
             "idle_share": 1 - busy / wall, "launches": n_kernels / per,
             "by_group_ms": {g: ms / per for g, ms in by_group.items()},
             "rounds": rounds}
+
+
+def profile_int8_prefill(spec, card, layers, n=3):
+    """``n`` paged 512-row prefills (no cached prefix, blocks of 16) of the
+    GPT-medium int8 target under torch.profiler, after one unprofiled:
+    per prefill, the int8 kernel's launches (4 a layer and the logits) and
+    device time beside all its device time. The wrapper's count must
+    equal the profiler's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.serving.generative import _slab
+    dev = torch.device("cuda")
+    maxb = SERVE_SEQ // SERVE_BS
+    prefill, _, _ = spec.make_fns(SERVE_BS, maxb)
+    nb = 1 + 512 // SERVE_BS
+    kc, vc = (_slab(spec.kv_shape(nb, SERVE_BS), spec.kv_dtype, dev)
+              for _ in range(2))
+    table = np.zeros(maxb, np.int32)
+    table[:nb - 1] = np.arange(1, nb)
+    params = spec.params()
+    tokens = np.random.default_rng(3).integers(
+        0, params["wte"].shape[0], 512).astype(np.int32)
+    io = {"tokens": tokens, "length": np.int32(512), "hist": np.int32(0),
+          "table": table}
+    with torch.inference_mode():
+        prefill(params, kc, vc, io)
+        torch.cuda.synchronize()
+        # a trace holding fewer launches than the wrapper counted (the
+        # tracer can drop a window's first kernels) is taken once more
+        for attempt in range(2):
+            before = im.LAUNCHES["int8_matmul"]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    prefill(params, kc, vc, io)
+                torch.cuda.synchronize()
+            counted = im.LAUNCHES["int8_matmul"] - before
+            gemm = total = 0.0
+            traced = 0
+            for e in prof.events():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                ms = e.time_range.elapsed_us() / 1e3
+                total += ms
+                if _spec_group(e.name) == "int8 GEMM":
+                    gemm, traced = gemm + ms, traced + 1
+            if traced == counted or attempt:
+                break
+    log(f"  profiler, {n} int8 prefills of 512 rows: int8 GEMM {gemm / n:.4f}"
+        f" ms a prefill of its {total / n:.3f} ms device time, "
+        f"{traced / n:.1f} launches a prefill (the wrapper counted "
+        f"{counted})  [{card}]")
+    if traced != counted or traced != n * (4 * layers + 1):
+        raise SystemExit(f"int8 prefill: {traced} traced launches, the "
+                         f"wrapper counted {counted}, want "
+                         f"{n * (4 * layers + 1)}")
+    del kc, vc
+    return {"int8_gemm_ms": gemm / n, "device_ms": total / n,
+            "launches": traced / n}
 
 
 def _serve_requests(srv, reqs, card, label):
@@ -3721,6 +3881,12 @@ def phase_spec_serving(dev, card):
                 "paged_prefill_f32": af.LAUNCHES["paged_prefill_f32"],
                 "attention_fwd_f32": af.LAUNCHES["attention_fwd_f32"]}
     srv.shutdown()
+    # the counters settle once the worker has stopped: a round's tokens
+    # reach their futures before the round itself is recorded
+    g = srv.metrics.to_record()["generative"]
+    m.update(spec_rounds=g["spec_rounds"], prefills=g["prefills"],
+             decode_steps=g["decode_steps"],
+             acceptance=g["draft_acceptance_rate"])
     R, P = m["spec_rounds"], m["prefills"]
     plain = m["decode_steps"] - R
     want = {"paged_attention": 0,
@@ -3745,6 +3911,7 @@ def phase_spec_serving(dev, card):
         f"({time.perf_counter() - t0:.1f} s)")
     m["launches"] = launches
     m["profile"] = profile_spec_rounds(spec, draft, reqs, card)
+    m["int8_prefill"] = profile_int8_prefill(spec, card, L)
     ysrv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
                                  block_size=SERVE_BS, max_seq_len=SERVE_SEQ)
     ygot, ym = _serve_requests(ysrv, reqs, card,
@@ -3798,7 +3965,8 @@ def spec_kernel_records(t, serve, errs):
         "launches": m["launches"]["int8_matmul"],
         "launches_per_step": 4 * 16 + 1 + SPEC_K * 5,
         "max_abs_err": errs["int8_matmul"],
-        "ms": round_sum("ms"), "plain_ms": round_sum("plain_ms"),
+        "ms": round_sum("ms"),
+        "plain_ms": round_sum("plain_ms"),
         "bound_ms": round_sum("bound_ms"),
         "bound_by": "bytes" if by_bytes else "operations",
         "library_ms": round_sum("library_ms"),
@@ -3812,7 +3980,8 @@ def spec_kernel_records(t, serve, errs):
         "launches": m["launches"]["paged_verify_attention"],
         "launches_per_step": 16,
         "max_abs_err": errs["paged_verify_attention"],
-        "ms": 16 * v["ms"], "plain_ms": 16 * v["plain_ms"],
+        "ms": 16 * v["ms"],
+        "plain_ms": 16 * v["plain_ms"],
         "bound_ms": 16 * v["bound_ms"], "bound_by": v["bound_by"],
         "library_ms": 16 * v["library_ms"],
         "ms_per": "speculative round's verify, 8 lanes x W 8 at context 512",
@@ -3862,9 +4031,13 @@ def main():
     check_attention_build()
     log("  the float32 attention kernels' SASS: tf32 mma.sync (HMMA .TF32):")
     check_attention_f32_build()
-    log("  the paged decode cluster kernel: registers, spills, and its bulk "
-        "copies, DSMEM pushes, cluster barrier and mbarrier waits in SASS:")
+    log("  the paged cluster kernels (decode, verify): "
+        "registers, spills, and their bulk copies, DSMEM pushes, cluster "
+        "barrier and mbarrier waits in SASS:")
     check_paged_build()
+    log("  the int8 kernel: registers, spills, wgmma, TMA, async copies, "
+        "DSMEM pushes and mbarrier waits in SASS:")
+    check_int8_build()
 
     log("[2/18] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")

@@ -37,8 +37,11 @@
 // pos0 .. pos0 + w are taken from the launch's new rows (win0, wrow), not
 // read back. Row w's output is then the decode entry's at last key pos0 + w
 // over the same keys, bit for bit, and no row reads a key another row of
-// the launch writes. This first version runs each (lane, w) as its own
-// cluster, so a lane's keys below pos0 are read W times (mostly from L2).
+// the launch writes. Its kernel (paged_verify_kernel, below the decode
+// kernel) is one cluster of the same 8 ranks a (lane's window, head): each
+// chunk of the lane's keys is copied once and serves every row of the
+// window (the first verify, dl4j_paged_verify_attention_v1, ran each (lane,
+// w) as a decode cluster and read a lane's keys W times).
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
 // of D values once and does 4 D FLOP per key, far below the card's ridge:
@@ -423,12 +426,7 @@ struct Args {
   double scale;
 };
 
-// kWindow: a verify's rows (Args.win0/wrow), whose window keys are read
-// from the launch's new rows; else a decode's, whose one new key (its own
-// last) is held in registers. The two take the same keys in the same order
-// and run the same sums on the same values: a verify row's bits are the
-// decode row's.
-template <typename T, int D, bool kWindow>
+template <typename T, int D>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     paged_decode_kernel(const Args a) {
   using L = Layout<T, D>;
@@ -474,25 +472,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   int wb = a.write_block != nullptr ? a.write_block[row] : -1;
   const int wo = wb >= 0 ? a.write_off[row] : 0;
   if (wb >= a.NB || wo < 0 || wo >= a.BS) wb = -1;   // not in the slab: no write
-  // decode: the key whose K and V are the step's new rows
+  // the key whose K and V are the step's new rows
   const int wkey = (wb >= 0 && last >= 0 && km == last) ? last : -1;
-  // verify: the keys [wlo, last] are the launch's new rows, k_new/v_new
-  // row wrow_of_key0 + t (none: wlo past last). A window that does not lie
-  // within the launch's rows is refused: the row's output is NaN (its keys
-  // would otherwise be read back from slots this launch writes).
-  int wlo = INT_MAX, wrow_of_key0 = 0;
-  bool refused = false;
-  if constexpr (kWindow) {
-    const int w0 = a.win0[row], wr0 = a.wrow[row];
-    if (w0 >= 0 && w0 <= last) {
-      if (wr0 >= 0 && wr0 + (last - w0) < a.N) {
-        wlo = w0;
-        wrow_of_key0 = wr0 - w0;
-      } else {
-        refused = true;
-      }
-    }
-  }
   const int nch = last >= 0 ? last / kChunk + 1 : 0;
   const int mine = nch > rank ? (nch - 1 - rank) / kRanks + 1 : 0;
   const bool own = rank == (last >= 0 ? (last / kChunk) % kRanks : 0);
@@ -540,7 +521,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
         const int r = (p / L::NS) % kChunk;
         const int s = p % L::NS;
         const int t = c * kChunk + r;
-        if (t <= last && (kWindow ? t < wlo : t != wkey)) {
+        if (t <= last && t != wkey) {
           const int u = t / a.BS;
           const int64_t blk = tab[u];
           const int64_t off = t - u * a.BS;
@@ -554,14 +535,11 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   const int first = mine < nring ? mine : nring;
   for (int k = 0; k < first; ++k) issue(k);
 
-  // Decode: the step's K/V row, in the owning block's registers (each key
-  // group holds the whole row): its streams take it as key wkey's K and V,
-  // and its first group stores it after the loop. Verify: a key t >= wlo
-  // is read from the launch's new rows, never from the cache, and the
-  // owning block copies the row's own new K/V row into the cache after
-  // the loop.
+  // The step's K/V row, in the owning block's registers (each key group
+  // holds the whole row): its streams take it as key wkey's K and V, and
+  // its first group stores it after the loop.
   const bool writer = wb >= 0 && own;
-  const bool subst = !kWindow && wkey >= 0 && own;
+  const bool subst = wkey >= 0 && own;
   const T* kn_src = static_cast<const T*>(a.k_new) + qoff;
   const T* vn_src = static_cast<const T*>(a.v_new) + qoff;
   T qr[SL][E], kn[SL][E], vn[SL][E], acc[SL][E];
@@ -572,8 +550,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) {
       const int d = (gl + G * j) * E + e;
       qr[j][e] = qp[d];
-      kn[j][e] = !kWindow && writer ? kn_src[d] : T(0);
-      vn[j][e] = !kWindow && writer ? vn_src[d] : T(0);
+      kn[j][e] = writer ? kn_src[d] : T(0);
+      vn[j][e] = writer ? vn_src[d] : T(0);
       acc[j][e] = T(0);
     }
   T m = -INFINITY, l = T(0);
@@ -591,21 +569,14 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       const int i = (sid + S * jj) & (kChunk - 1);
       const int t = t0 + i;
       ok[jj] = live && t <= last;
-      const bool sub = kWindow ? t >= wlo && ok[jj] : subst && t == wkey;
+      const bool sub = subst && t == wkey;
       T dot = T(0);
 #pragma unroll
       for (int j = 0; j < SL; ++j) {
         T kr[E];
         if (sub) {
-          if constexpr (kWindow) {
-            const T* kw = static_cast<const T*>(a.k_new) +
-                          (static_cast<int64_t>(wrow_of_key0 + t) * a.sqn + head * a.sqa);
 #pragma unroll
-            for (int e = 0; e < E; ++e) kr[e] = kw[(gl + G * j) * E + e];
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
-          }
+          for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
         } else {
           ld16<T, E>(sk + i * D + (gl + G * j) * E, kr);
         }
@@ -631,23 +602,15 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       for (int jj = 0; jj < L::KPS; ++jj) {
         if (!ok[jj]) continue;             // a masked key's V is never read
         const int i = (sid + S * jj) & (kChunk - 1);
-        const int t = t0 + i;
-        const bool sub = kWindow ? t >= wlo : subst && t == wkey;
+        const bool sub = subst && t0 + i == wkey;
         const T p = exp_(sc[jj] - mx);
         l += p;
 #pragma unroll
         for (int j = 0; j < SL; ++j) {
           T vr[E];
           if (sub) {
-            if constexpr (kWindow) {
-              const T* vw = static_cast<const T*>(a.v_new) +
-                            (static_cast<int64_t>(wrow_of_key0 + t) * a.sqn + head * a.sqa);
 #pragma unroll
-              for (int e = 0; e < E; ++e) vr[e] = vw[(gl + G * j) * E + e];
-            } else {
-#pragma unroll
-              for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
-            }
+            for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
           } else {
             ld16<T, E>(sv + i * D + (gl + G * j) * E, vr);
           }
@@ -687,9 +650,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     for (int j = 0; j < SL; ++j)
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const int d = (gl + G * j) * E + e;
-        kd[d] = kWindow ? kn_src[d] : kn[j][e];
-        vd[d] = kWindow ? vn_src[d] : vn[j][e];
+        kd[(gl + G * j) * E + e] = kn[j][e];
+        vd[(gl + G * j) * E + e] = vn[j][e];
       }
   }
   __syncthreads();
@@ -746,13 +708,13 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       }
       res = oc / lc;
     }
-    static_cast<T*>(a.out)[cid * D + tid] = refused ? T(NAN) : res;
+    static_cast<T*>(a.out)[cid * D + tid] = res;
   }
 }
 
 // The kernel's shared memory raised past 48 KB on the current device, once
 // per device: a kernel's attributes belong to each device's context.
-template <typename T, int D, bool kWindow>
+template <typename T, int D>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -761,38 +723,576 @@ cudaError_t configure() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_kernel<T, D, kWindow>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            Layout<T, D>::kRingSlots * Layout<T, D>::kSlotBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
-template <typename T, int D, bool kWindow>
+template <typename T, int D>
 int launch(Args a, int64_t N, cudaStream_t st) {
   using L = Layout<T, D>;
   // a chunk's 16 rows are one contiguous run of the slab
   a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;
-  const cudaError_t attr = configure<T, D, kWindow>();
+  const cudaError_t attr = configure<T, D>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_decode_kernel<T, D, kWindow><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
-                                       static_cast<size_t>(L::kRingSlots) * L::kSlotBytes,
-                                       st>>>(a);
+  paged_decode_kernel<T, D><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
+                              static_cast<size_t>(L::kRingSlots) * L::kSlotBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kWindow>
+template <typename T>
 int launch_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16, kWindow>(a, N, st);
-    case 32: return launch<T, 32, kWindow>(a, N, st);
-    case 64: return launch<T, 64, kWindow>(a, N, st);
-    case 128: return launch<T, 128, kWindow>(a, N, st);
+    case 16: return launch<T, 16>(a, N, st);
+    case 32: return launch<T, 32>(a, N, st);
+    case 64: return launch<T, 64>(a, N, st);
+    case 128: return launch<T, 128>(a, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// ---------------------------------------------------------------------------
+// A speculative verify's layer: one cluster of kVCluster blocks a (group
+// of kVRows consecutive rows, head), a group being a lane's window at W =
+// 8. Each block takes the decode kernel's ranks rank, rank + kVCluster,
+// ... in turn, and as rank j takes chunks j, j + 8, ... of 16 key
+// positions up to the run's last key (a run: the neighbouring rows of a
+// group that share a lane and a window; one at W = 8), exactly as the
+// decode block of rank j takes them. It copies each chunk once for the
+// run (a bulk copy where BS % 16 == 0, else cp.async), puts the run's
+// window keys (the launch's new rows, never read back from the cache) in
+// place of the cache's, and runs each row's streams over it with the
+// decode kernel's per-key arithmetic in the decode kernel's order: the
+// same keys to the same streams, the same stream and rank combines, so row
+// w's output is the decode kernel's at last key pos0 + w, bit for bit. A
+// block is kVParts warpgroups, each the decode block's 4 warps for its
+// share of the rows; a thread computes its rows' scores key by key
+// together (one read of the key's slice, independent dot products and
+// butterflies), then their softmax and V sums, each row's in the decode
+// kernel's order (one read of a key's V slice serves them all). The
+// window's chunk is copied row by row, its window rows from the launch's
+// new rows. After each rank's chunks a block combines each row's streams
+// into that rank's partial and pushes it to the block of rank row %
+// kVCluster, which combines the 8 ranks' partials in rank order, writes
+// the output and the row's K/V. The decode kernel above is untouched: a
+// runtime window in its body cost it registers. What bounds it: each
+// lane's keys read once (50 MB at 8 lanes x 12 heads x context 512, 0.015
+// ms at 3.35 TB/s) for W times the decode's operations (0.2 GFLOP at W =
+// 8, 0.003 ms at the FMA rate): the bytes. What sets its time at the
+// serving contexts (64-145 keys) is waves: its 127 registers a thread
+// allow 2 blocks an SM, so 2 blocks a cluster run 8 lanes' 192 blocks in
+// one wave, where 8 blocks a cluster ran 768 in 3
+// (experiments/paged_verify_study.py).
+
+constexpr int kVRing = 4;        // chunk slots a block
+constexpr int kVParts = 2;       // warpgroups a block, each its share of the rows
+constexpr int kVMinBlocks = 2;   // blocks an SM the registers must allow
+// Blocks a verify cluster, each taking the decode's ranks rank, rank +
+// kVCluster, ... one after another (each rank's chunks, streams and
+// partial exactly as the decode block of that rank makes them): fewer
+// blocks than the decode's 8 ranks, with the same bits.
+constexpr int kVCluster = 2;
+// Rows a verify cluster: a lane's window at W = 8.
+constexpr int kVRows = 8;
+
+template <typename T, int D>
+struct VLayout {
+  using L = Layout<T, D>;
+  static constexpr int R = kVRows;
+  static constexpr int P = kVParts < R ? kVParts : R;
+  static constexpr int kRing = kSmemCap / L::kSlotBytes < kVRing ? kSmemCap / L::kSlotBytes
+                                                                  : kVRing;
+  // between a rank's chunks and the next's the same bytes hold the rows'
+  // stream partials
+  static constexpr int kPartBytes = R * L::kStreams * (D + 2) * static_cast<int>(sizeof(T));
+  static constexpr int kBytes =
+      kRing * L::kSlotBytes > kPartBytes ? kRing * L::kSlotBytes : kPartBytes;
+};
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+template <typename T, int D>
+__global__ void __cluster_dims__(kVCluster, 1, 1)
+    __launch_bounds__(kThreads * VLayout<T, D>::P, kVMinBlocks) paged_verify_kernel(const Args a) {
+  using L = Layout<T, D>;
+  using V = VLayout<T, D>;
+  constexpr int E = L::E, G = L::G, SL = L::SL, S = L::kStreams, KPS = L::KPS;
+  constexpr int R = V::R, P = V::P, RP = R / P, NT = kThreads * P;
+  constexpr int nring = V::kRing;
+  constexpr int PR = (R + kVCluster - 1) / kVCluster;   // rows a block combines
+  extern __shared__ __align__(128) unsigned char dyn[];
+  T* ring = reinterpret_cast<T*>(dyn);
+  __shared__ __align__(8) uint64_t bars[nring];
+  // the rows this block combines: each of the 8 ranks' partial (m, l) and
+  // acc, pushed here over DSMEM (or written, for this block's ranks), and
+  // the mbarrier they land on
+  __shared__ __align__(16) T part_ml[PR][kRanks][2];
+  __shared__ __align__(16) T part_acc[PR][kRanks][D];
+  __shared__ __align__(8) uint64_t cbar;
+  // each row's last key (-1: none, or no row), lane, window, run and
+  // refusal; each run's lane, window (first key, new row of key 0) and
+  // last key
+  __shared__ int s_last[R], s_lane[R], s_w0[R], s_wr[R], s_run[R], s_refused[R];
+  __shared__ int u_lane[R], u_w0[R], u_wrk0[R], u_last[R];
+  __shared__ int s_nruns;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  // this block; it takes the ranks rank, rank + kVCluster, ... of the 8
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t cid = blockIdx.x / kVCluster;   // the (group, head) of the cluster
+  const int grp = static_cast<int>(cid / a.A);
+  const int head = static_cast<int>(cid - static_cast<int64_t>(grp) * a.A);
+  const int r0 = grp * R;
+  const int tall = threadIdx.x;
+  const int part = tall / kThreads;           // this thread's rows: part RP ..
+  const int tid = tall % kThreads, warp = tid / 32, ln = tid % 32;
+  const int sid = warp * L::GPW + ln / G;     // this thread's stream
+  const int gl = ln % G;                      // its lane among the key's G
+  const bool live = sid < S;
+  const int reach = a.MAXB * a.BS;
+  // this thread's rows' q, read first: nothing below waits on them
+  T qr[RP][SL][E], acc[RP][SL][E], m[RP], l[RP];
+#pragma unroll
+  for (int i = 0; i < RP; ++i) {
+    const int row = r0 + part * RP + i;
+    const T* qp = static_cast<const T*>(a.q) + static_cast<int64_t>(row) * a.sqn +
+                  static_cast<int64_t>(head) * a.sqa;
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[i][j][e] = row < a.N ? qp[(gl + G * j) * E + e] : T(0);
+  }
+  // bulk: lane l of warp 0 holds the table entry of the run's chunk (k &
+  // ~31) + l of the rank it takes; for the first run (row r0's lane) and
+  // rank read at once, beside the rows' own
+  int ent = 0;
+  if (a.bulk && tall < 32 && r0 < a.N && (rank + kRanks * ln) * kChunk < reach)
+    ent = a.tables[static_cast<int64_t>(a.lane[r0]) * a.MAXB +
+                   (rank + kRanks * ln) * kChunk / a.BS];
+
+  // each row's lane, last key and window, then the runs: neighbouring
+  // rows that share a lane and a window
+  if (tall < R) {
+    const int row = r0 + tall;
+    s_last[tall] = -1;
+    s_run[tall] = -1;
+    s_refused[tall] = 0;
+    if (row < a.N) {
+      const int km = a.kmax[row];
+      s_last[tall] = km < reach - 1 ? km : reach - 1;
+      s_lane[tall] = a.lane[row];
+      s_w0[tall] = a.win0[row];
+      s_wr[tall] = a.wrow[row];
+    }
+  }
+  __syncthreads();
+  if (tall == 0) {
+    int nruns = 0;
+    for (int r = 0; r < R && r0 + r < a.N; ++r) {
+      const int last = s_last[r], w0 = s_w0[r], wr0 = s_wr[r];
+      const int rw0 = w0 >= 0 ? w0 : -1, rwk0 = w0 >= 0 ? wr0 - w0 : 0;
+      // a window that does not lie within the launch's rows is refused
+      // (its keys would otherwise be read back from slots this launch
+      // writes): the row's output is NaN
+      s_refused[r] = w0 >= 0 && w0 <= last && !(wr0 >= 0 && wr0 + (last - w0) < a.N);
+      if (nruns == 0 || u_lane[nruns - 1] != s_lane[r] || u_w0[nruns - 1] != rw0 ||
+          u_wrk0[nruns - 1] != rwk0) {
+        u_lane[nruns] = s_lane[r];
+        u_w0[nruns] = rw0;
+        u_wrk0[nruns] = rwk0;
+        u_last[nruns] = -1;
+        ++nruns;
+      }
+      s_run[r] = nruns - 1;
+      if (!s_refused[r] && last > u_last[nruns - 1]) u_last[nruns - 1] = last;
+    }
+    s_nruns = nruns;
+    for (int s = 0; s < nring; ++s)
+      mbar_init(smem_u32(&bars[s]), a.bulk ? 1u : static_cast<uint32_t>(NT));
+    mbar_init(smem_u32(&cbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every block's cbar is initialised before any block pushes to it (the
+  // wait is after its first rank's chunks)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const T* kh = static_cast<const T*>(a.kc) + static_cast<int64_t>(head) * a.ska;
+  const T* vh = static_cast<const T*>(a.vc) + static_cast<int64_t>(head) * a.sva;
+  const T scale = static_cast<T>(a.scale);
+
+  // the chunks rank rx takes of run ux: rx, rx + 8, ... up to its last key
+  auto mine_of = [&](int rx, int ux) {
+    const int nch = u_last[ux] >= 0 ? u_last[ux] / kChunk + 1 : 0;
+    return nch > rx ? (nch - 1 - rx) / kRanks + 1 : 0;
+  };
+  // Issue run ux's chunk k (rx + 8 k) of rank rx, the block's chunk base
+  // + k, into slot (base + k) % nring; ent holds the run's table entries
+  // of this rank's chunks (k & ~31) + lane.
+  auto issue = [&](int rx, int ux, int k, int base) {
+    const int ulast = u_last[ux], w0 = u_w0[ux], wrk0 = u_wrk0[ux];
+    const int* tab = a.tables + static_cast<int64_t>(u_lane[ux]) * a.MAXB;
+    auto windowed = [&](int t) { return w0 >= 0 && t >= w0; };
+    const int c = rx + kRanks * k;
+    const int slot = (base + k) % nring;
+    T* dst = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+    const uint32_t bar = smem_u32(&bars[slot]);
+    if (a.bulk) {
+      if (tall >= 32) return;
+      if (k > 0 && (k & 31) == 0) {
+        const int kk = k + ln;
+        ent = kk < mine_of(rx, ux) ? tab[(rx + kRanks * kk) * kChunk / a.BS] : 0;
+      }
+      const int64_t blk = __shfl_sync(kFull, ent, k & 31);
+      const int64_t off = (c * kChunk) % a.BS;
+      if (!windowed(c * kChunk + kChunk - 1) || !(a.bulk & 2)) {
+        if (ln == 0) {
+          if (windowed(c * kChunk)) {    // every key a new row's: no copy
+            mbar_arrive(bar);
+          } else {
+            mbar_expect_tx(bar, L::kSlotBytes);
+            bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar);
+            bulk_load(smem_u32(dst + kChunk * D), vh + blk * a.svb + off * a.svt, L::kChunkBytes,
+                      bar);
+          }
+        }
+      } else {
+        // the chunk reaches the window: row by row, lane i the K (i <
+        // 16) or V row of position i % 16, from the cache below the
+        // window and from the launch's new rows from it on
+        const int i = ln % kChunk, kv = ln / kChunk, t = c * kChunk + i;
+        const T* src = nullptr;
+        if (t <= ulast && !windowed(t)) {
+          src = kv ? vh + blk * a.svb + (off + i) * a.svt
+                   : kh + blk * a.skb + (off + i) * a.skt;
+        } else if (t <= ulast && wrk0 + t >= 0 && wrk0 + t < a.N) {
+          src = static_cast<const T*>(kv ? a.v_new : a.k_new) +
+                (static_cast<int64_t>(wrk0 + t) * a.sqn + static_cast<int64_t>(head) * a.sqa);
+        }
+        const unsigned rows = __ballot_sync(kFull, src != nullptr);
+        constexpr uint32_t kRow = D * static_cast<uint32_t>(sizeof(T));
+        if (ln == 0) {
+          if (rows != 0u)
+            mbar_expect_tx(bar, static_cast<uint32_t>(__popc(rows)) * kRow);
+          else
+            mbar_arrive(bar);
+        }
+        if (src != nullptr) bulk_load(smem_u32(dst + kv * kChunk * D + i * D), src, kRow, bar);
+      }
+    } else {
+      for (int p = tall; p < 2 * kChunk * L::NS; p += NT) {
+        const int kv = p / (kChunk * L::NS);
+        const int r = (p / L::NS) % kChunk;
+        const int s = p % L::NS;
+        const int t = c * kChunk + r;
+        if (t <= ulast && !windowed(t)) {
+          const int ub = t / a.BS;
+          const int64_t blk = tab[ub];
+          const int64_t off = t - ub * a.BS;
+          const T* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
+          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * E), src + s * E);
+        }
+      }
+      cp_async_arrive(bar);
+    }
+  };
+
+  int item = 0;  // chunks this block took so far: slot item % nring
+  for (int rk = rank; rk < kRanks; rk += kVCluster) {   // the decode's rank rk
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+#pragma unroll
+      for (int j = 0; j < SL; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][j][e] = T(0);
+      m[i] = -INFINITY;
+      l[i] = T(0);
+    }
+    for (int u = 0; u < s_nruns; ++u) {
+      const int ulast = u_last[u], w0 = u_w0[u], wrk0 = u_wrk0[u];
+      const int mine = mine_of(rk, u);
+      // a position at or past the window's first key is a new row's
+      auto windowed = [&](int t) { return w0 >= 0 && t >= w0; };
+      if ((u > 0 || rk != rank) && a.bulk && tall < 32 && ln < mine)
+        ent = a.tables[static_cast<int64_t>(u_lane[u]) * a.MAXB +
+                       (rk + kRanks * ln) * kChunk / a.BS];
+      const int first = mine < nring ? mine : nring;
+      for (int k = 0; k < first; ++k) issue(rk, u, k, item);
+
+      for (int k = 0; k < mine; ++k) {
+        const int slot = (item + k) % nring;
+        mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>(((item + k) / nring) & 1));
+        T* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+        const T* sv = sk + kChunk * D;
+        const int t0 = (rk + kRanks * k) * kChunk;
+        if (windowed(t0 + kChunk - 1) && !(a.bulk & 2)) {
+          // the window's keys from the launch's new rows, in place
+          for (int p = tall; p < 2 * kChunk * D; p += NT) {
+            const int kv = p / (kChunk * D), i = (p / D) % kChunk, d = p % D;
+            const int t = t0 + i, nr = wrk0 + t;
+            if (windowed(t) && t <= ulast && nr >= 0 && nr < a.N)
+              sk[kv * kChunk * D + i * D + d] = static_cast<const T*>(kv ? a.v_new : a.k_new)
+                  [static_cast<int64_t>(nr) * a.sqn + static_cast<int64_t>(head) * a.sqa + d];
+          }
+          __syncthreads();
+        }
+        // this thread's rows that take this chunk
+        int lastr[RP];
+        bool act[RP];
+#pragma unroll
+        for (int i = 0; i < RP; ++i) {
+          const int r = part * RP + i;
+          lastr[i] = s_last[r];
+          act[i] = s_run[r] == u && !s_refused[r] && t0 <= lastr[i];
+        }
+        // the rows' scores, key by key: the decode kernel's dot product,
+        // butterfly and masked score, for every row at once
+        T sc[RP][KPS];
+#pragma unroll
+        for (int jj = 0; jj < KPS; ++jj) {
+          const int i = (sid + S * jj) & (kChunk - 1);
+          const int t = t0 + i;
+          T kr[SL][E];
+#pragma unroll
+          for (int j = 0; j < SL; ++j) ld16<T, E>(sk + i * D + (gl + G * j) * E, kr[j]);
+          T dot[RP];
+#pragma unroll
+          for (int x = 0; x < RP; ++x) {
+            dot[x] = T(0);
+#pragma unroll
+            for (int j = 0; j < SL; ++j)
+#pragma unroll
+              for (int e = 0; e < E; ++e) dot[x] += qr[x][j][e] * kr[j][e];
+          }
+          // a butterfly over the key's G lanes: each ends with the same bits
+#pragma unroll
+          for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int x = 0; x < RP; ++x) dot[x] += __shfl_xor_sync(kFull, dot[x], off);
+#pragma unroll
+          for (int x = 0; x < RP; ++x)
+            sc[x][jj] = live && t <= lastr[x] ? dot[x] * scale : T(-INFINITY);
+        }
+        // each row's running max, correction and V sums: the decode
+        // kernel's operations on each row's values in its order, the rows
+        // side by side (one read of a key's V slice serves them all)
+        bool ok[RP][KPS], go[RP];
+        T mx[RP];
+#pragma unroll
+        for (int x = 0; x < RP; ++x) {
+#pragma unroll
+          for (int jj = 0; jj < KPS; ++jj)
+            ok[x][jj] = live && t0 + ((sid + S * jj) & (kChunk - 1)) <= lastr[x];
+          mx[x] = m[x];
+#pragma unroll
+          for (int jj = 0; jj < KPS; ++jj) mx[x] = sc[x][jj] > mx[x] ? sc[x][jj] : mx[x];
+          go[x] = act[x] && mx[x] != T(-INFINITY);   // a key of this stream so far
+          if (go[x]) {
+            const T corr = exp_(m[x] - mx[x]);   // 0 on the stream's first key
+            l[x] *= corr;
+#pragma unroll
+            for (int j = 0; j < SL; ++j)
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[x][j][e] *= corr;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < KPS; ++jj) {
+          const int i = (sid + S * jj) & (kChunk - 1);
+          T vr[SL][E];
+#pragma unroll
+          for (int j = 0; j < SL; ++j) ld16<T, E>(sv + i * D + (gl + G * j) * E, vr[j]);
+#pragma unroll
+          for (int x = 0; x < RP; ++x) {
+            if (!go[x] || !ok[x][jj]) continue;   // a masked key's V is never used
+            const T p = exp_(sc[x][jj] - mx[x]);
+            l[x] += p;
+#pragma unroll
+            for (int j = 0; j < SL; ++j)
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[x][j][e] += p * vr[j][e];
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < RP; ++x)
+          if (go[x]) m[x] = mx[x];
+        if (k + nring < mine) {
+          // this slot's reads are done: order them before the next copy into it
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncthreads();
+          issue(rk, u, k + nring, item);
+        }
+      }
+      item += mine;
+      // the run's slots are read before the next run's copies (or the
+      // partials) take them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+
+    // rank rk's partial: each row's streams' (m, l, acc), in the ring's
+    // bytes. A rank with no chunk of any run has every row's no-key
+    // partial (m -inf, l 0, acc 0).
+    bool took = false;
+    for (int u = 0; u < s_nruns; ++u) took |= u_last[u] >= rk * kChunk;
+    T* s_acc = ring;                                 // [R][S][D]
+    T* s_ml = ring + R * S * D;                      // [R][S][2]
+    if (took && live) {
+#pragma unroll
+      for (int x = 0; x < RP; ++x) {
+        const int r = part * RP + x;
+        if (gl == 0) {
+          s_ml[(r * S + sid) * 2] = m[x];
+          s_ml[(r * S + sid) * 2 + 1] = l[x];
+        }
+#pragma unroll
+        for (int j = 0; j < SL; ++j)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            s_acc[(r * S + sid) * D + (gl + G * j) * E + e] = acc[x][j][e];
+      }
+    }
+    if (took) __syncthreads();
+    // each row's rank-rk partial, its streams combined in stream order (a
+    // thread takes E elements of a row), pushed to its owner's part_acc
+    if (rk == rank) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    for (int idx = tall; idx < R * (D / E); idx += NT) {
+      const int r = idx / (D / E), sl = idx % (D / E);   // E elements of row r
+      if (r0 + r >= a.N) break;
+      const T* rm = s_ml + r * S * 2;
+      T mb = T(-INFINITY);
+      if (took) {
+        mb = rm[0];
+#pragma unroll
+        for (int i = 1; i < S; ++i) mb = rm[2 * i] > mb ? rm[2 * i] : mb;
+      }
+      T lb = T(0), ob[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) ob[e] = T(0);
+      if (mb != T(-INFINITY)) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const T w = exp_(rm[2 * i] - mb);      // 0 for a stream with no key
+          lb += rm[2 * i + 1] * w;
+#pragma unroll
+          for (int e = 0; e < E; ++e) ob[e] += s_acc[(r * S + i) * D + sl * E + e] * w;
+        }
+      }
+      const int to = r % kVCluster, pr = r / kVCluster;
+      if (to == rank) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) part_acc[pr][rk][sl * E + e] = ob[e];
+        if (sl == 0) {
+          part_ml[pr][rk][0] = mb;
+          part_ml[pr][rk][1] = lb;
+        }
+      } else {
+        const uint32_t bar = cluster_addr(smem_u32(&cbar), to);
+        st_async(cluster_addr(smem_u32(&part_acc[pr][rk][sl * E]), to), ob, bar);
+        if (sl == 0)
+          st_async_pair(cluster_addr(smem_u32(&part_ml[pr][rk][0]), to), mb, lb, bar);
+      }
+    }
+    // the partials' bytes are read before the next rank's copies take them
+    if (took) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+  }
+
+  // this block's rows: r = rank, rank + kVCluster, ... of the group, each
+  // taking the 8 ranks' partials, all but this block's own pushed here
+  int owned = 0;
+  for (int r = rank; r < R && r0 + r < a.N; r += kVCluster) ++owned;
+  if (owned == 0) return;
+  if (tall == 0)
+    mbar_expect_tx(smem_u32(&cbar), owned * (kRanks - kRanks / kVCluster) * (D + 2) *
+                                        static_cast<uint32_t>(sizeof(T)));
+  __syncthreads();
+  mbar_wait(smem_u32(&cbar), 0);
+  for (int idx = tall; idx < owned * D; idx += NT) {
+    const int pr = idx / D, d = idx % D, r = rank + pr * kVCluster;
+    const int row = r0 + r;
+    const int64_t qoff = static_cast<int64_t>(row) * a.sqn + static_cast<int64_t>(head) * a.sqa;
+    T mc = T(-INFINITY);
+#pragma unroll
+    for (int k = 0; k < kRanks; ++k) mc = part_ml[pr][k][0] > mc ? part_ml[pr][k][0] : mc;
+    T res = T(0);                           // no key: the JAX mask's 0
+    if (mc != T(-INFINITY)) {
+      T lc = T(0), oc = T(0);
+#pragma unroll
+      for (int k = 0; k < kRanks; ++k) {
+        const T w = exp_(part_ml[pr][k][0] - mc);   // 0 for a rank with no key
+        lc += part_ml[pr][k][1] * w;
+        oc += part_acc[pr][k][d] * w;
+      }
+      res = oc / lc;
+    }
+    static_cast<T*>(a.out)[(static_cast<int64_t>(row) * a.A + head) * D + d] =
+        s_refused[r] ? T(NAN) : res;
+    // the row's K/V into the cache: every block of the cluster is past its
+    // reads (each pushed its partials)
+    int wb = a.write_block[row];
+    const int wo = wb >= 0 ? a.write_off[row] : 0;
+    if (wb >= 0 && wb < a.NB && wo >= 0 && wo < a.BS) {
+      static_cast<T*>(a.kc)[wb * a.skb + head * a.ska + wo * a.skt + d] =
+          static_cast<const T*>(a.k_new)[qoff + d];
+      static_cast<T*>(a.vc)[wb * a.svb + head * a.sva + wo * a.svt + d] =
+          static_cast<const T*>(a.v_new)[qoff + d];
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t configure_verify() {
+  static std::mutex mu;
+  static std::set<int> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (raised.count(dev) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_verify_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           VLayout<T, D>::kBytes);
+  if (e == cudaSuccess) raised.insert(dev);
+  return e;
+}
+
+// bulk: bit 1, a chunk's 16 rows are one contiguous run of the slab; bit 2,
+// the new rows are on 16 bytes too (a chunk reaching the window is copied
+// row by row, the window's rows from the launch's new rows).
+template <typename T, int D>
+int launch_verify(Args a, int64_t N, cudaStream_t st) {
+  constexpr int R = kVRows;
+  const int64_t es = static_cast<int64_t>(sizeof(T));
+  a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D
+               ? 1 | (aligned16(a.k_new) && aligned16(a.v_new) && (a.sqn * es) % 16 == 0 &&
+                              (a.sqa * es) % 16 == 0
+                          ? 2
+                          : 0)
+               : 0;
+  const cudaError_t attr = configure_verify<T, D>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  paged_verify_kernel<T, D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kVCluster),
+                              kThreads * VLayout<T, D>::P, VLayout<T, D>::kBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_verify_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_verify<T, 16>(a, N, st);
+    case 32: return launch_verify<T, 32>(a, N, st);
+    case 64: return launch_verify<T, 64>(a, N, st);
+    case 128: return launch_verify<T, 128>(a, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace dec
 
@@ -829,23 +1329,25 @@ extern "C" int dl4j_paged_decode_attention(
               static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
               sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dec::launch_d<float, false>(D, a, N, st);
-  if (dtype == 2) return dec::launch_d<double, false>(D, a, N, st);
+  if (dtype == 1) return dec::launch_d<float>(D, a, N, st);
+  if (dtype == 2) return dec::launch_d<double>(D, a, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A speculative verify's layer: the same cluster kernel over the rows of
-// every lane's window (row r of lane lane[r], last key kmax[r]), each
-// row's K/V written at (write_block[r], write_off[r]) (-1: none), and the
-// keys win0[r] .. kmax[r] taken from k_new/v_new rows wrow[r] + (t -
-// win0[r]) (win0[r] -1: none), the bits the launch writes there; keys
-// below win0[r] come from the cache through the table; a row whose window
-// does not lie within the N rows (wrow[r] < 0 or wrow[r] + (kmax[r] -
-// win0[r]) >= N) gets NaN, its write still made. A row's output is
-// the decode entry's for the same row, last key and keys, bit for bit:
-// the same kernel, the same sums in the same order. Any window length runs
-// in one launch (W rows a lane). Arguments as dl4j_paged_decode_attention,
-// with win0 [N] and wrow [N] int32, contiguous; k_new is required.
+// A speculative verify's layer (paged_verify_kernel): the rows of every
+// lane's window (row r of lane lane[r], last key kmax[r]), each row's K/V
+// written at (write_block[r], write_off[r]) (-1: none), and the keys
+// win0[r] .. kmax[r] taken from k_new/v_new rows wrow[r] + (t - win0[r])
+// (win0[r] -1: none), the bits the launch writes there; keys below win0[r]
+// come from the cache through the table; a row whose window does not lie
+// within the N rows (wrow[r] < 0 or wrow[r] + (kmax[r] - win0[r]) >= N)
+// gets NaN, its write still made. A row's output is the decode entry's
+// for the same row, last key and keys, bit for bit: the same keys to the
+// same streams, the same sums in the same order. Any window length runs in
+// one launch; the rows of one lane's window share its chunks' copies where
+// they are neighbours in a group of kVRows (8). Arguments as
+// dl4j_paged_decode_attention, with win0 [N] and wrow [N] int32,
+// contiguous; k_new is required.
 extern "C" int dl4j_paged_verify_attention(
     const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
     const void* tables, const void* lane, const void* kmax, const void* win0,
@@ -873,10 +1375,11 @@ extern "C" int dl4j_paged_verify_attention(
               static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
               sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dec::launch_d<float, true>(D, a, N, st);
-  if (dtype == 2) return dec::launch_d<double, true>(D, a, N, st);
+  if (dtype == 1) return dec::launch_verify_d<float>(D, a, N, st);
+  if (dtype == 2) return dec::launch_verify_d<double>(D, a, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
 
 // q [N, A, D] at strides (sqn, sqa, 1); kc, vc [num_blocks, A, BS, D] at
 // strides (skb, ska, skt, 1) and (svb, sva, svt, 1); tables [S, MAXB],

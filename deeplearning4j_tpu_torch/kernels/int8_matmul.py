@@ -10,13 +10,18 @@ TPU; written the same way in eager PyTorch the upcast would write a float32
 copy of the weight, four times its bytes.
 
 ``int8_matmul(x, w, scale)`` is one launch of ``csrc/int8_matmul.cu``
-(built by ``kernels/_cuda.py``) on the card: a cluster of 8 blocks a tile
-of 32 rows x 64 columns, each block an eighth of the K axis, the eight
-partial sums added in rank order over distributed shared memory. The order
-of every sum is set by K alone, so a row's result does not depend on M or
-on the other rows, and two calls give the same bits. ``transposed=True``
-takes ``w`` as ``[N, K]`` (the embedding ``wte``) and ``scale`` as the
-``[K]`` scale of its hidden channels, applied to ``x`` first, as JAX does.
+(built by ``kernels/_cuda.py``) on the card: the weight's columns are the
+64-row side of Hopper's wgmma and x's rows its n side (8, 16, 32 or 64
+rows a block, by M: ``tile_rows``), x cut into three bf16 pieces (int8 is
+exact in bf16), each weight tile one TMA box of a tensor map the C side
+encodes once a weight; a cluster of 8 blocks a tile of 64 columns, each
+an eighth of the K tiles, the eight partials added in rank order, where
+the weight has few column tiles, a cluster of 2 halving the K axis where
+it has many (``ranks``). Every order of the sums is set by the weight's
+shape alone, so a row's result does not depend on M or on the other
+rows, and two calls give the same bits. ``transposed=True`` takes ``w``
+as ``[N, K]`` (the embedding ``wte``) and ``scale`` as the ``[K]`` scale
+of its hidden channels, applied to ``x`` first, as JAX does.
 
 ``int8_matmul_plain`` is the JAX expression in torch; the wrapper takes it
 only for CPU tensors, and on a CUDA tensor launches the kernel or raises.
@@ -35,15 +40,16 @@ LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
 
 _LIB = "int8_matmul"
 ENTRY = "dl4j_int8_matmul"
-#: rows and columns of y a cluster's tile, and blocks a cluster (the K
-#: axis cut in eighths), as csrc/int8_matmul.cu sets them
-TILE_M, TILE_N, RANKS = 32, 64, 8
+#: columns of y a cluster's tile, depth of a K tile, the rows a tile may
+#: take (the MMA's n), and the 64-column tiles from which a cluster of 2
+#: halves the K axis (else a cluster of 8 cuts it in eighths), as
+#: csrc/int8_matmul.cu sets them
+TILE_N, TILE_K, TILE_ROWS, MANY_TILES = 64, 64, (8, 16, 32, 64), 256
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 ARGTYPES = ([(n, _P) for n in ("x", "w", "scale", "y")]
             + [(n, _I64) for n in ("M", "N", "K", "sxm")]
             + [("layout", _I), ("stream", _P)])
-ENTRIES = {ENTRY: ARGTYPES}
 
 _cuda.register_counters(LAUNCHES)
 
@@ -60,6 +66,25 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         _cuda.declare(fn, ARGTYPES)
     return lib
+
+
+def tile_rows(m: int) -> int:
+    """Rows of y a cluster's tile for M rows, as the C entry picks them:
+    the least of ``TILE_ROWS`` that holds M, or 64 (more tiles)."""
+    return next((r for r in TILE_ROWS if m <= r), TILE_ROWS[-1])
+
+
+def ranks(n: int) -> int:
+    """Blocks a cluster for a weight of N columns, as the C entry picks
+    them: 2 from MANY_TILES tiles of 64 columns on, else 8 (set by the
+    weight's shape, never by M)."""
+    return 2 if -(-n // TILE_N) >= MANY_TILES else 8
+
+
+def grid_blocks(m: int, n: int) -> int:
+    """Blocks of one launch: ``ranks(n)`` a tile of TILE_N columns x
+    ``tile_rows(m)`` rows."""
+    return -(-n // TILE_N) * -(-m // tile_rows(m)) * ranks(n)
 
 
 def int8_matmul_plain(x, w, scale, transposed: bool = False):

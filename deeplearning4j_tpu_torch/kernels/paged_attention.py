@@ -38,10 +38,14 @@ max_seq`` and ``tables[s] = [s]``.
 dense :406, :437-459): the rows of every lane's window, each writing its
 K/V and attending to its own last key, with the keys of its window taken
 from the launch's new rows (``win0``, ``wrow``) rather than read back. On
-the card it is the same cluster kernel through the entry
-``dl4j_paged_verify_attention``, counted in ``LAUNCHES``: row
-``w``'s output is ``paged_decode_attention``'s at ``kmax = pos0 + w`` over
-the same keys, bit for bit. ``paged_verify_plain`` is the JAX
+the card it is one launch of the entry ``dl4j_paged_verify_attention``,
+counted in ``LAUNCHES``: a cluster of 2 blocks a (group of 8 rows, a
+lane's window at W = 8, head), each block taking the decode kernel's 8
+ranks in turn (every second one), each chunk of the lane's keys copied
+once for the group's rows, each row run with the decode kernel's arithmetic in its
+order, so row ``w``'s
+output is ``paged_decode_attention``'s at ``kmax = pos0 + w`` over the
+same keys, bit for bit. ``paged_verify_plain`` is the JAX
 write-then-attend.
 
 ``paged_prefill_attention`` is the prefill's form, every row in one lane

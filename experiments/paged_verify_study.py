@@ -1,0 +1,271 @@
+"""Variants of csrc/paged_attention.cu's verify kernel built side by side
+and timed on one card: what each part of its time is, and what each knob
+gives.
+
+    python3 experiments/paged_verify_study.py [--parent DIR]
+
+Each variant is the committed source with one change (a text substitution
+below; a substitution whose text the source no longer holds stops the
+script before any build), built by the port's nvcc command
+(``_cuda.build_command``), all builds started together, into
+deeplearning4j_tpu_torch/_build/study_verify/<variant>/; a variant that
+does not build stops the script with a non-zero exit. Each is launched
+through ``paged_attention._launch`` at a GPT-medium verify: 8 lanes x W
+8 rows x 12 heads of 128, float32, blocks of 16, every lane's window from
+context 64, 128, 512 and 1016, and at two launches of chip_smoke.py's
+speculative traffic (``chip_smoke.verify_mixes``: its first round's lanes
+and a round of its long tail). Times are ``kernels/measure.py``'s
+``median_ms`` (cold L2, the median of 20 calls queued behind a device
+sleep); each variant's rows are held to the decode kernel's bits over the
+same rows and keys (variants that drop work are wrong on purpose). The
+library's masked ``F.scaled_dot_product_attention`` and the bound (bytes
+over 3.35 TB/s) are printed beside. Each variant is timed in a process
+of its own (``--variant NAME``), which loads only its library; its
+ptxas registers and spills at <float, 128> are printed after the builds.
+Variants:
+
+- v1 (with ``--parent DIR``, a checkout of the commit before this design,
+  whose ``csrc/paged_attention.cu`` verify entry is the first design under
+  the same name and arguments): each row a decode cluster;
+- base: the committed source (2 blocks a cluster of 8 rows, 2 warpgroups
+  of 4 rows a block, 4 chunk slots, 2 blocks an SM);
+- cluster1, cluster2, cluster4, cluster8: that many blocks a cluster, each
+  taking the decode's ranks rank, rank + blocks, ... in turn;
+- rows4, rows4c8: 4 rows a cluster (half a lane's window at W = 8; with
+  8 blocks a cluster, one a rank);
+- minblocks3: registers for 3 blocks an SM (and 2 chunk slots);
+- qsmem: the rows' q in shared memory, not registers;
+- parts1, parts4: 1 warpgroup of 8 rows, 4 of 2;
+- ring1, ring2: that many chunk slots a block;
+- nomath: no scores, softmax or V sums (copies, waits and the combine);
+- noepi: no combine, no pushes and no output (copies and the math);
+- empty: the kernel returns at once (a cluster launch of this grid: the
+  floor).
+
+``--only a,b`` times only those variants.
+"""
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from deeplearning4j_tpu_torch.kernels import _cuda  # noqa: E402
+from deeplearning4j_tpu_torch.kernels import measure  # noqa: E402
+from deeplearning4j_tpu_torch.kernels import paged_attention as pa  # noqa
+import chip_smoke  # noqa: E402
+
+OUT = os.path.join(_cuda.PACKAGE, "_build", "study_verify")
+SRC = open(_cuda.source(pa._LIB)).read()
+CONTEXTS = (64, 128, 512, 1016)
+LANES, W = 8, 8
+
+
+def sub(s, a, b, count=1):
+    assert s.count(a) == count, a
+    return s.replace(a, b)
+
+
+def cut(s, start, end, repl=""):
+    """``s`` with the text from ``start`` up to (not including) ``end``
+    replaced by ``repl``; each marker must occur once."""
+    assert s.count(start) == 1 and s.count(end) == 1, (start, end)
+    i, j = s.index(start), s.index(end)
+    assert i < j, (start, end)
+    return s[:i] + repl + s[j:]
+
+
+_KNOBS = {name: re.search(rf"constexpr int {name} = (\d+);", SRC).group(0)
+          for name in ("kVParts", "kVRing", "kVCluster", "kVMinBlocks",
+                       "kVRows")}
+
+
+def knob(name, value, src=SRC):
+    return sub(src, _KNOBS[name], f"constexpr int {name} = {value};")
+
+
+def qsmem(src):
+    """The rows' q kept in shared memory, read at each key."""
+    src = sub(src, "  T qr[RP][SL][E], acc[RP][SL][E], m[RP], l[RP];\n",
+              "  T acc[RP][SL][E], m[RP], l[RP];\n"
+              "  __shared__ __align__(16) T s_q[R][D];\n")
+    src = sub(src, "      for (int e = 0; e < E; ++e) qr[i][j][e] = row < "
+              "a.N ? qp[(gl + G * j) * E + e] : T(0);\n",
+              "      for (int e = 0; e < E; ++e)\n"
+              "        if (sid == 0) s_q[part * RP + i][(gl + G * j) * E + e] "
+              "= row < a.N ? qp[(gl + G * j) * E + e] : T(0);\n")
+    return sub(src, "#pragma unroll\n              for (int e = 0; e < E; "
+               "++e) dot[x] += qr[x][j][e] * kr[j][e];\n",
+               "              {\n                T qr[E];\n"
+               "                ld16<T, E>(&s_q[part * RP + x][(gl + G * j) "
+               "* E], qr);\n#pragma unroll\n"
+               "                for (int e = 0; e < E; ++e) dot[x] += qr[e] "
+               "* kr[j][e];\n              }\n")
+
+
+VARIANTS = {
+    "base": SRC,
+    **{f"cluster{n}": knob("kVCluster", n) for n in (1, 2, 4, 8)},
+    "minblocks3": knob("kVRing", 2, knob("kVMinBlocks", 3)),
+    "qsmem": qsmem(SRC),
+    "rows4": knob("kVRows", 4),
+    "rows4c8": knob("kVRows", 4, knob("kVCluster", 8)),
+    **{f"parts{n}": knob("kVParts", n) for n in (1, 4)},
+    **{f"ring{n}": knob("kVRing", n) for n in (1, 2)},
+    "nomath": cut(SRC,
+                  "        // this thread's rows that take this chunk",
+                  "        if (k + nring < mine) {"),
+    "noepi": sub(sub(SRC, "    // rank rk's partial: each row's streams'",
+                     "    if (m[0] == T(1234.5)) static_cast<T*>(a.out)[0] = "
+                     "l[0];\n    if (a.A > 0) continue;\n"
+                     "    // rank rk's partial: each row's streams'"),
+                 "  // this block's rows: r = rank, rank + kVCluster",
+                 "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: "
+                 "\"memory\");\n  if (a.A > 0) return;\n"
+                 "  // this block's rows: r = rank, rank + kVCluster"),
+    "empty": sub(SRC, "  const int grp = static_cast<int>(cid / a.A);\n",
+                 "  if (a.A > 0) return;\n"
+                 "  const int grp = static_cast<int>(cid / a.A);\n"),
+}
+
+
+def _so(name):
+    return os.path.join(OUT, name, f"lib{pa._LIB}.so")
+
+
+def build(variants):
+    """Every variant's library, built in parallel by the port's nvcc
+    command. Stops (non-zero exit) naming every variant that failed to
+    build."""
+    nvcc, procs = _cuda.nvcc(), {}
+    for name, text in variants.items():
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        with open(_cuda.source(pa._LIB, d), "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            _cuda.build_command(pa._LIB, _so(name), nvcc, csrc=d),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    failed = []
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(f"{name}: nvcc failed\n{log[-3000:]}")
+            continue
+        lines = log.splitlines()
+        at = next((i for i, ln in enumerate(lines) if "Function properties"
+                   in ln and "paged_verify_kernelIfLi128E" in ln), None)
+        if at is not None:
+            print(f"  {name} <float, 128>: " + "; ".join(
+                ln.split(":")[-1].strip() for ln in lines[at + 1:at + 3]),
+                flush=True)
+    if failed:
+        raise SystemExit("\n".join(failed))
+
+
+def _cases():
+    """Each lane's context (None: idle) by case name."""
+    return {**{str(ctx): [ctx] * LANES for ctx in CONTEXTS},
+            **chip_smoke.verify_mixes()}
+
+
+def _case(dev, ctxs):
+    """The verify's inputs with the window's rows already written (the
+    write is idempotent, so every timed call sees the same cache)."""
+    case = measure.paged_verify_case(
+        dev, [c or 0 for c in ctxs], W, 12, 128, 16, torch.float32,
+        active=[c is not None for c in ctxs])
+    pa.paged_verify_plain(*case)
+    return case
+
+
+def first_design(parent):
+    """The first design's variant, from the checkout ``parent``."""
+    with open(os.path.join(parent, "deeplearning4j_tpu_torch", "csrc",
+                           f"{pa._LIB}.cu")) as f:
+        return {"v1": f.read()}
+
+
+def time_variant(name, card):
+    """One variant's times at every context (this process loads only its
+    library), each with whether its rows are the decode kernel's bits."""
+    dev = torch.device("cuda")
+    lib = ctypes.CDLL(_so(name))
+    for entry, argtypes in pa.ENTRIES.items():
+        _cuda.declare(getattr(lib, entry), argtypes)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    res = []
+    for label, ctxs in _cases().items():
+        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = _case(dev,
+                                                                       ctxs)
+
+        def call():
+            return pa._launch(q, kc, vc, tab, lane, kmax, (kn, vn, wb, wo),
+                              (win0, wrow), lib=lib)
+        ms = measure.median_ms(call, flush)
+        got = call()
+        dec = pa._launch(q, kc, vc, tab, lane, kmax, (kn, vn, wb, wo),
+                         lib=lib)
+        torch.cuda.synchronize()
+        res.append(f"{label}: {ms:.4f} (rows = decode bits "
+                   f"{torch.equal(got, dec)})")
+    print(f"  {name}: ms at " + "; ".join(res) + f"  [{card}]",
+          flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("paged_verify_study: no CUDA device")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variant")
+    ap.add_argument("--only")
+    ap.add_argument("--parent", help="a checkout whose csrc holds the "
+                    "first design (adds v1)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    opts = ap.parse_args()
+    if opts.variant:
+        return time_variant(opts.variant, card)
+    every = {**(first_design(opts.parent) if opts.parent else {}),
+             **VARIANTS}
+    variants = {n: every[n] for n in (opts.only.split(",") if opts.only
+                                      else every)}
+    t0 = time.perf_counter()
+    build(variants)
+    print(f"{card}; {len(variants)} variants built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    for label, ctxs in _cases().items():
+        case = _case(dev, ctxs)
+        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
+        qs, dk, dv, mask = measure.paged_verify_library(
+            q, kc, vc, tab, lane, kmax, LANES, W)
+        lib = measure.median_ms(lambda: F.scaled_dot_product_attention(
+            qs, dk, dv, attn_mask=mask), flush)
+        _, nbytes = measure.paged_bounds(q, kc, tab, lane, kmax,
+                                         int((wb >= 0).sum()), win0)
+        print(f"{label} {ctxs}: library {lib:.4f} ms, bound "
+              f"{1e3 * nbytes / 3.35e12:.4f}  [{card}]", flush=True)
+    del flush
+    failed = []
+    for name in variants:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--variant", name]).returncode
+        if rc:
+            failed.append(name)
+    if failed:
+        raise SystemExit(f"variants that failed: {failed}")
+
+
+if __name__ == "__main__":
+    main()

@@ -848,7 +848,9 @@ def test_gpt_tiny_scanned_epoch_on_card_matches_per_step(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("m,k,n", [(1, 1536, 4608), (8, 6144, 1536),
-                                   (64, 1536, 1536), (77, 64, 200)])
+                                   (64, 1536, 1536), (77, 64, 200),
+                                   (9, 1552, 4624), (65, 1536, 32768),
+                                   (17, 100, 72), (33, 33, 17)])
 def test_int8_matmul_matches_plain_and_its_rows_ignore_m(card, m, k, n,
                                                          transposed):
     """``int8_matmul`` within 1e-5 of the sum of its absolute terms of the
@@ -872,7 +874,8 @@ def test_int8_matmul_matches_plain_and_its_rows_ignore_m(card, m, k, n,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True])
-@pytest.mark.parametrize("w,d", [(2, 128), (8, 128), (20, 64), (5, 16)])
+@pytest.mark.parametrize("w,d", [(2, 128), (8, 128), (20, 64), (5, 16),
+                                 (1, 128), (9, 128), (16, 32)])
 def test_paged_verify_kernel_matches_plain_and_decode_on_card(card, w, d,
                                                               dense):
     """``paged_verify_attention`` against ``paged_verify_plain`` (1e-5 of

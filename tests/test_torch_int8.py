@@ -245,6 +245,14 @@ def test_launch_passes_the_geometry_layout_and_row_stride(monkeypatch):
     assert (b["M"], b["N"], b["K"], b["layout"]) == (5, 40, 32, 1)
     assert a["x"] == x.data_ptr() and a["stream"] == 7
     assert y.shape == (5, 24) and yt.shape == (5, 1, 40)
+    # the geometry the C entry picks: 8 ranks a 64-column tile of 8, 16,
+    # 32 or 64 rows (the MMA's n) by M
+    assert im.grid_blocks(5, 24) == 8
+    assert im.grid_blocks(8, 1536) == 24 * 8
+    assert im.grid_blocks(64, 4608) == 72 * 8
+    assert im.grid_blocks(65, 4608) == 72 * 2 * 8
+    assert im.grid_blocks(512, 32768) == 512 * 8 * 2
+    assert im.grid_blocks(8, 32768) == 512 * 2
 
 
 # ----------------------------------------------------------------------
@@ -437,25 +445,151 @@ def test_nvcc_command_builds_the_source_for_sm90a():
                         pathlib.Path(out).name)
 
 
+def _design(code):
+    """The design's text: namespace i8mm and its entry."""
+    return code[code.index("namespace i8mm {"):]
+
+
 def test_source_is_self_contained_and_sums_in_a_fixed_order():
-    """The source includes only the CUDA runtime, cooperative groups and
-    stdint (no library kernel: no cuBLAS, CUTLASS or PyTorch header), has
-    no atomics, widens the int8 payload in registers, and sums with
-    explicitly rounded intrinsics: each rank over its K tiles in order
-    (a range set by K alone), then the cluster's ranks in rank order."""
+    """The source includes only the CUDA runtime and driver types, bf16,
+    stdint and the C++ library (no library kernel: no
+    cuBLAS, CUTLASS or PyTorch header) and has no atomics. The design
+    multiplies on wgmma (bf16 x bf16 into float32, A, the widened payload,
+    from registers) at n = 8, 16, 32 and 64, takes a weight tile as one TMA
+    box, cuts x into three bf16 pieces and sums in one order set by the
+    weight's shape alone: a cluster of 8 ranks each an eighth of the
+    64-deep K tiles (a range free of M), or one rank where the weight has
+    many column tiles, the tiles in order, each tile's k16 steps as x_hi,
+    x_mid, x_lo into a fresh partial added with a rounded add, the
+    partials in rank order, then s[n]."""
     code = "\n".join(line.split("//")[0] for line in
                      SRC.read_text().splitlines())
     assert sorted(re.findall(r"#include <([\w/.]+)>", code)) == [
-        "cooperative_groups.h", "cuda_runtime.h", "stdint.h"]
-    for word in ("cublas", "cutlass", "torch", "atomic", "mma", "wgmma"):
+        "cuda.h", "cuda_bf16.h", "cuda_runtime.h", "list", "map", "mutex",
+        "set", "stdint.h", "tuple"]
+    for word in ("cublas", "cutlass", "torch", "atomic", "mma.sync"):
         assert word not in code.lower()
-    assert "__cluster_dims__(kRanks, 1, 1)" in code
-    assert "constexpr int kRanks = 8;" in code and im.RANKS == 8
-    assert (im.TILE_M, im.TILE_N) == (32, 64)
-    assert "acc[i][j] = __fmaf_rn(xr[i], wr[j], acc[i][j]);" in code
-    assert "for (int r = 1; r < kRanks; ++r) sum = __fadd_rn(" in code
-    assert "sum = __fmul_rn(sum, __ldg(a.s + n));" in code
-    assert "xv[e] = __fmul_rn(xv[e], __ldg(a.s + k + e));" in code
-    body = code[code.index("__device__ __forceinline__ void rank_tiles"):]
+    new = _design(code)
+    for n in (8, 16, 32, 64):
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+                in new)
+    assert "__cluster_dims__(RANKS, 1, 1)" in new
+    # the K split by the weight's shape: 8 ranks below MANY_TILES column
+    # tiles, 2 from there on, the same for every M
+    assert f"constexpr int kManyTiles = {im.MANY_TILES};" in new
+    assert ("inline int ranks_for(int N) { return (N + 63) / 64 >= kManyTiles"
+            " ? 2 : 8; }") in new
+    assert ("return ranks_for(a.N) == 2 ? launch<LAYOUT, BM, 2>(a, st) : "
+            "launch<LAYOUT, BM, 8>(a, st);") in new
+    assert [im.ranks(n) for n in (1536, 4608, 6144, 16320, 16384, 32768)] \
+        == [8, 8, 8, 8, 2, 2]
+    assert "constexpr int kBN = 64;" in new and im.TILE_N == 64
+    assert "constexpr int kBK = 64;" in new and im.TILE_K == 64
+    body = new[new.index("__device__ __forceinline__ void rank_tiles"):]
     body = body[:body.index("}") + 1]
     assert "M" not in body.replace("min(", "")     # the split: K alone
+    # the pieces: each difference exact, hi, mid, lo in that order
+    assert ("const float ra = __fsub_rn(a, h.x), rb = __fsub_rn(b, h.y);"
+            in new)
+    assert "pc[0] = *reinterpret_cast<const uint32_t*>(&hi);" in new
+    assert "pc[2] = *reinterpret_cast<const uint32_t*>(&lo);" in new
+    # the weight: one TMA box a tile, its map encoded once a weight
+    assert "cp.async.bulk.tensor.2d.shared::cluster.global" in new
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in new
+    # the maps kept are bounded: the least recently used goes first
+    assert "constexpr size_t kMaxMaps = 512;" in new
+    assert "used.splice(used.begin(), used, it->second);" in new
+    assert ("if (used.size() > kMaxMaps) {\n    maps.erase(used.back().first);"
+            "\n    used.pop_back();") in new
+    steps = new[new.index("for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n"
+                          "      for (int p = 0; p < kPieces; ++p)"):]
+    assert "desc_b(xs + p * BM * 128, c * NW, kk), kk + p > 0);" in \
+        steps[:steps.index("wgmma_commit();")]
+    assert "acc[e] = __fadd_rn(acc[e], part[e]);" in new
+    assert "for (int r = 1; r < RANKS; ++r) sum = __fadd_rn(sum, " \
+        "pr[r * 8 * BM]);" in new
+    assert "if (LAYOUT == 0) sum = __fmul_rn(sum, __ldg(a.s + n));" in new
+    assert ("v = make_float4(__fmul_rn(v.x, sk.x), __fmul_rn(v.y, sk.y), "
+            "__fmul_rn(v.z, sk.z),") in new
+    # rows a tile by M, as tile_rows reads them
+    picks = re.findall(r"if \(a\.M <= (\d+)\) return launch_r<LAYOUT, (\d+)>",
+                       new)
+    assert [(int(m), int(r)) for m, r in picks] == [(8, 8), (16, 16),
+                                                    (32, 32)]
+    assert "return launch_r<LAYOUT, 64>(a, st);" in new
+    assert [im.tile_rows(m) for m in (1, 8, 9, 16, 17, 32, 33, 64, 65,
+                                      512)] == [8, 8, 16, 16, 32, 32, 64, 64,
+                                                64, 64]
+
+
+# ----------------------------------------------------------------------
+# the kernel's numerics, emulated on the CPU: x in three bf16 pieces
+def _pieces(x, n=3):
+    """x cut as the kernel cuts it: x_hi = bf16(x), x_mid = bf16(x -
+    x_hi), x_lo = bf16(x - x_hi - x_mid), each difference exact in float32;
+    the first ``n`` of them."""
+    out, r = [], x
+    for _ in range(n):
+        p = r.to(torch.bfloat16).float()
+        out.append(p)
+        r = r - p
+    return out
+
+
+def _emulate(x, w, s, transposed, pieces=3):
+    """The kernel's order in float32: the 64-deep K tiles cut in the rank
+    ranges the weight's shape sets (``im.ranks``), each tile's 16-deep
+    steps as the pieces (hi, mid, lo) times the exact bf16 payload into a
+    fresh partial, added to the rank's sum; the rank sums in rank order;
+    then s[n] (layout 0)."""
+    xs = x * s if transposed else x
+    wk = (w.t() if transposed else w).float()                  # [K, N]
+    k = x.shape[1]
+    nr = im.ranks(wk.shape[1])
+    kt = -(-k // 64)
+    per = -(-kt // nr)
+    parts = _pieces(xs, pieces)
+    ranks = []
+    for r in range(nr):
+        acc = torch.zeros(x.shape[0], wk.shape[1])
+        for t in range(min(r * per, kt), min(r * per + per, kt)):
+            part = torch.zeros_like(acc)
+            for k0 in range(64 * t, min(64 * t + 64, k), 16):
+                for p in parts:
+                    part = part + p[:, k0:k0 + 16] @ wk[k0:k0 + 16]
+            acc = acc + part
+        ranks.append(acc)
+    y = ranks[0]
+    for a in ranks[1:]:
+        y = y + a
+    return y if transposed else y * s
+
+
+def test_the_pieces_add_up_to_x_exactly():
+    """x_hi + x_mid + x_lo is x, bit for bit, over float32's normal range
+    and both signs; two pieces are not."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=4096) * 2.0 ** rng.integers(
+        -100, 100, size=4096)).astype(np.float32))
+    hi, mid, lo = _pieces(x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert not torch.equal(hi.double() + mid.double(), x.double())
+
+
+@pytest.mark.parametrize("k,n,transposed", [
+    (1536, 4608, False), (1536, 1536, False), (1536, 6144, False),
+    (6144, 1536, False), (1536, 32768, True)])
+def test_piece_split_meets_the_gate_at_every_gpt_medium_shape(k, n,
+                                                              transposed):
+    """The kernel's numerics (three bf16 pieces, the kernel's sum order in
+    float32) lie within INT8_TOL (1e-5 of each output's absolute terms)
+    of the float64 product at GPT-medium's (K, N); one piece (x_hi alone)
+    does not."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    x, w, s = measure.int8_matmul_case(torch.device("cpu"), 3, k, n,
+                                       transposed, seed=k + n)
+    want = im.int8_matmul_plain(x.double(), w, s.double(), transposed)
+    tol = 1e-5 * im.abs_terms(x, w, s, transposed)
+    for pieces, ok in ((3, True), (1, False)):
+        got = _emulate(x, w, s, transposed, pieces).double()
+        assert bool(((got - want).abs() <= tol).all()) is ok, pieces

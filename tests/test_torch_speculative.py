@@ -692,26 +692,101 @@ def test_verify_ctypes_declaration_matches_the_c_entry():
 
 
 def test_verify_runs_the_decode_kernel_with_windows():
-    """The verify entry launches the decode entry's kernel body with
-    ``kWindow`` set (the same keys in the same order, the same sums on the
-    same values); a key at or past a row's window start is read from the
-    launch's new rows, never from the cache, and the cache path skips
-    it."""
+    """The verify entry launches its own kernel (``paged_verify_kernel``),
+    one cluster a group of 8 rows and head, whose blocks take the decode's
+    8 ranks in turn (rank r's chunks r, r + 8, ... as the decode block of
+    rank r takes them), and the decode entry still the decode kernel,
+    which knows no window. Each row runs the decode kernel's per-key
+    arithmetic, statement for statement (the same dot,
+    butterfly, masked score, running max, correction and V sums, a row's
+    own in the decode kernel's order, the rows side by side), over
+    chunks copied once a run; a key at or past a row's window start is a
+    new row put in the chunk, never a cache read (the copy skips it), and
+    each row's 8 partials are combined in rank order as the decode's."""
     import pathlib
+    import re
     code = "\n".join(line.split("//")[0] for line in (
         pathlib.Path(pa.__file__).resolve().parents[1] / "csrc"
         / "paged_attention.cu").read_text().splitlines())
-    entry = code[code.index('int dl4j_paged_verify_attention('):]
-    entry = entry[:entry.index('\n}\n')]
-    assert "dec::launch_d<float, true>(D, a, N, st)" in entry
+
+    def entry(name):
+        e = code[code.index(f"int {name}("):]
+        return e[:e.index("\n}\n")]
+    ver = entry("dl4j_paged_verify_attention")
+    assert "dec::launch_verify_d<float>(D, a, N, st)" in ver
+    assert "dec::launch_verify_d<double>(D, a, N, st)" in ver
     assert "static_cast<const int*>(win0), static_cast<const int*>(wrow)" \
-        in entry
-    body = code[code.index("paged_decode_kernel(const Args a)"):]
-    assert "if (t <= last && (kWindow ? t < wlo : t != wkey)) {" in body
-    assert "const bool sub = kWindow ? t >= wlo && ok[jj] : subst && t == wkey;" \
-        in body
-    assert body.count("(static_cast<int64_t>(wrow_of_key0 + t) * a.sqn") == 2
+        in ver
+    assert "dec::launch_d<float>(D, a, N, st)" in entry(
+        "dl4j_paged_decode_attention")
+    assert re.findall(r'extern "C" int (\w+)\(', code) == [
+        pa.ENTRY, pa.VERIFY_ENTRY, pa.V1_ENTRY]
+    assert "kWindow" not in code
+    assert "constexpr int kVRows = 8;" in code
+    assert "(N + R - 1) / R * a.A * kVCluster" in code
+    assert "__global__ void __cluster_dims__(kVCluster, 1, 1)" in code
+    assert re.search(r"constexpr int kVCluster = (1|2|4|8);", code)
+    dec = code[code.index("paged_decode_kernel(const Args a)"):]
+    dec = dec[:dec.index("\n}\n")]
+    assert "win0" not in dec and "wrow" not in dec
+    body = code[code.index("paged_verify_kernel(const Args a)"):]
+    body = body[:body.index("\n}\n")]
+    # the decode's ranks, each block taking its own in turn, each rank's
+    # chunks as the decode block of that rank takes them
+    assert "for (int rk = rank; rk < kRanks; rk += kVCluster) {" in body
+    for d_stmt, v_stmt in (
+            ("const int c = rank + kRanks * k;",
+             "const int c = rx + kRanks * k;"),
+            ("const int mine = nch > rank ? (nch - 1 - rank) / kRanks + 1 : "
+             "0;",
+             "return nch > rx ? (nch - 1 - rx) / kRanks + 1 : 0;"),
+            ("const int t0 = (rank + kRanks * k) * kChunk;",
+             "const int t0 = (rk + kRanks * k) * kChunk;")):
+        assert d_stmt in dec and v_stmt in body, (d_stmt, v_stmt)
+    # rank rk's partial lands in slot rk; the owner waits for every rank's
+    # but its own
+    assert "part_acc[pr][rk][sl * E + e] = ob[e];" in body
+    assert ("owned * (kRanks - kRanks / kVCluster) * (D + 2) *"
+            in body)
+    # each decode statement and its verify form (row x of the thread's)
+    for d_stmt, v_stmt in (
+            ("ok[jj] = live && t <= last;",
+             "ok[x][jj] = live && t0 + ((sid + S * jj) & (kChunk - 1)) <= "
+             "lastr[x];"),
+            ("for (int e = 0; e < E; ++e) dot += qr[j][e] * kr[e];",
+             "for (int e = 0; e < E; ++e) dot[x] += qr[x][j][e] * kr[j][e];"),
+            ("for (int off = G / 2; off > 0; off >>= 1) dot += "
+             "__shfl_xor_sync(kFull, dot, off);",
+             "for (int x = 0; x < RP; ++x) dot[x] += __shfl_xor_sync(kFull, "
+             "dot[x], off);"),
+            ("sc[jj] = ok[jj] ? dot * scale : T(-INFINITY);",
+             "sc[x][jj] = live && t <= lastr[x] ? dot[x] * scale : "
+             "T(-INFINITY);"),
+            ("for (int jj = 0; jj < L::KPS; ++jj) mx = sc[jj] > mx ? sc[jj] "
+             ": mx;",
+             "for (int jj = 0; jj < KPS; ++jj) mx[x] = sc[x][jj] > mx[x] ? "
+             "sc[x][jj] : mx[x];"),
+            ("if (mx != T(-INFINITY)) {",
+             "go[x] = act[x] && mx[x] != T(-INFINITY);"),
+            ("const T corr = exp_(m - mx);",
+             "const T corr = exp_(m[x] - mx[x]);"),
+            ("l *= corr;", "l[x] *= corr;"),
+            ("for (int e = 0; e < E; ++e) acc[j][e] *= corr;",
+             "for (int e = 0; e < E; ++e) acc[x][j][e] *= corr;"),
+            ("if (!ok[jj]) continue;", "if (!go[x] || !ok[x][jj]) continue;"),
+            ("const T p = exp_(sc[jj] - mx);",
+             "const T p = exp_(sc[x][jj] - mx[x]);"),
+            ("l += p;", "l[x] += p;"),
+            ("for (int e = 0; e < E; ++e) acc[j][e] += p * vr[e];",
+             "for (int e = 0; e < E; ++e) acc[x][j][e] += p * vr[j][e];"),
+            ("m = mx;", "if (go[x]) m[x] = mx[x];")):
+        assert d_stmt in dec and v_stmt in body, (d_stmt, v_stmt)
+    assert body.count("ld16<T, E>(") == 2
+    assert "if (t <= ulast && !windowed(t)) {" in body
+    assert "static_cast<const T*>(kv ? a.v_new : a.k_new)" in body
+    for stmt in ("mb = rm[2 * i] > mb ? rm[2 * i] : mb;",
+                 "const T w = exp_(rm[2 * i] - mb);",
+                 "lc += part_ml[pr][k][1] * w;",
+                 "oc += part_acc[pr][k][d] * w;", "res = oc / lc;"):
+        assert stmt in body, stmt
     assert "atomic" not in code
-    dec = code[code.index('int dl4j_paged_decode_attention('):]
-    assert "dec::launch_d<float, false>(D, a, N, st)" in \
-        dec[:dec.index('\n}\n')]
