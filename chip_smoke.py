@@ -50,13 +50,32 @@ Phases, in order; any failure exits non-zero:
    against CPU: every gradient, then three Adam steps, to 1e-6 per
    tensor.
 6. main path: ResNet-50 at 224x224, 1000 classes, batch 128, bf16
-   MixedPrecision, through ``ResNet50(...).conf()`` ->
-   ``ComputationGraph(conf).init()`` -> ``net.fit(DeviceCachedIterator)``:
-   one warm-up epoch, then a timed epoch of STEPS steps in which every
-   kernel of the path must launch (33 + 20 BN layers, two phases each),
-   then two steps under ``torch.profiler`` for where the device time goes
-   and how many device launches a step makes.
-7. main path: GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn
+   MixedPrecision, the zoo conf's Nesterovs, through ``ResNet50(...).conf()``
+   -> ``ComputationGraph(conf).init()`` ->
+   ``net.fit(DeviceCachedIterator, epochs=1)``: a warm-up epoch (two
+   warm-up steps, the capture of the epoch's STEPS steps as one CUDA
+   graph, one replay), then a timed epoch, one replay (``last_fit_stats``:
+   one replay, no capture), in which every kernel of the path must launch
+   (33 + 20 BN layers, two phases each: a replay adds to the wrappers'
+   counts what its capture recorded), peak memory and what the graph's
+   pool holds, and the replayed epoch under ``torch.profiler`` (busy ms a
+   step, idle share, device launches a step, device time by kind with the
+   updater's share, each BN kernel 33 or 20 times a step). Then windows
+   of 4 (``fused_steps=4``, two replays an epoch) and the per-step tier
+   (a listener) warmed up, the three tiers timed in alternating runs
+   (scanned, windows, per-step, then back), and windows and two per-step
+   steps profiled.
+7. tiers and parity: two scanned fits of phase 6's configuration from
+   one start, bit-equal in every parameter, running statistic and step
+   loss (else the phase sets ``torch.backends.cudnn.deterministic`` and
+   says so); the scanned and per-step tiers from the same weights over
+   STEPS steps, within rtol 1e-5 / atol 1e-6 (the JAX package's tier
+   tolerance), and whether bit-equal; phase 4's ResNet-50 at 32x32 in
+   float64, TF32 off: the card's scanned tier (one window of two steps)
+   against its per-step tier (the tier rule; bit-equal or not, and again
+   with cuDNN deterministic where not), and against the CPU's per-step
+   tier over those two steps to 1e-6 (phase 4's bound).
+8. main path: GPT-medium (hidden 1536, 16 layers, 12 heads of 128, ffn
    6144, vocab 32768) at batch 16, seq 512, bf16 MixedPrecision, Adam(1e-4),
    through ``build_gpt`` -> ``SameDiff.fit(DeviceCachedIterator)``, as
    ``bench.py`` runs it: no listener, so the scanned tier (the epoch's
@@ -76,14 +95,14 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler``: device launches, busy time and idle share, and
    device time by group (attention, matmul, layer norm, CE tail, Adam,
    casts, ...).
-8. path shapes: at each shape, dtype, ReLU flag and dy layout the main
+9. path shapes: at each shape, dtype, ReLU flag and dy layout the main
    path gave the BN kernels, each kernel against its plain version, then
-   timed alone as phase 9 times attention (cold L2; the median of 20 calls
+   timed alone as phase 10 times attention (cold L2; the median of 20 calls
    queued behind a device sleep) with its plain version and, where one
    PyTorch call computes the same function, that call, summed over one
    training step, beside the least time the card could take (bytes over
    the card's memory rate).
-9. path shape: each attention kernel timed alone (cold L2; the median of
+10. path shape: each attention kernel timed alone (cold L2; the median of
    20 calls queued behind a device sleep, so that no host time enters)
    at the GPT path's shape and strides, with its plain version, beside
    its bound (operations at 989 TFLOP/s bf16, bytes at the card's memory
@@ -93,7 +112,7 @@ Phases, in order; any failure exits non-zero:
    of a forward call, of its launch alone, and of encoding its three
    tensor maps.
 
-10. kernels: the paged decode cluster kernel (csrc/paged_attention.cu)
+11. kernels: the paged decode cluster kernel (csrc/paged_attention.cu)
    against its plain versions: ``paged_decode_attention`` (the step's K/V
    write, then the attention) at GPT-medium decode (8 lanes x 12 heads of
    128, blocks of 16, last keys 0..1023, one lane inactive) and at block
@@ -117,13 +136,13 @@ Phases, in order; any failure exits non-zero:
    block off) must fail the rule; two calls bit-equal, dense = paged bits
    (decode), NaN in the null block, unused blocks and past each lane's
    last key changes nothing.
-11. parity: GPT_TINY through ``PagedGenerativeServer`` (float64 and
+12. parity: GPT_TINY through ``PagedGenerativeServer`` (float64 and
    float32) and ``GenerativeServer`` (float32) on the card and on the CPU
    (plain attention), a prefix hit among the prompts: identical greedy
    tokens, every dispatch's logits within 1e-12 (float64) or 1e-5
    (float32) of their magnitude; the float32 runs go through the float32
    attention kernels on the card.
-12. main path: GPT-medium float32 (``build_gpt(GPT_MEDIUM, ..., seed=0)``)
+13. main path: GPT-medium float32 (``build_gpt(GPT_MEDIUM, ..., seed=0)``)
    served through ``gpt_paged_spec`` by ``PagedGenerativeServer(max_slots=8,
    block_size=16, max_seq_len=1024)``: 32 requests (prompts 16-512, a
    256-token shared prefix for 8, 80% of budgets 2-8 and 20% 64-128),
@@ -146,7 +165,7 @@ Phases, in order; any failure exits non-zero:
    rows:
    the float32 attention kernels' launches (main and combining, each
    count equal to the wrappers') and device time a prefill.
-13. path shapes: every shape the serving run handed the paged functions,
+14. path shapes: every shape the serving run handed the paged functions,
    checked against its plain version; paged_decode_attention timed alone
    at decode (8 lanes at context 128, 512, 1024) beside the same kernel
    with no write, the first paged kernel (``dl4j_paged_attention_v1``,
@@ -158,7 +177,7 @@ Phases, in order; any failure exits non-zero:
    (1, 12, 512, 128) causal) beside the kernels they replace, their plain
    versions, the library and their bound at the 3xTF32 and the float32
    FMA rates.
-14. main path: LeNet (``LeNet(28, 28, 1).build()``) at batch 128 on
+15. main path: LeNet (``LeNet(28, 28, 1).build()``) at batch 128 on
    ``load_mnist(train=True, n_synthetic=2048)`` with one-hot labels, as
    ``bench.py`` ``bench_lenet`` runs it, through ``net.fit(
    DeviceCachedIterator(X, Y, 128), epochs, listeners, fused_steps)``
@@ -174,7 +193,7 @@ Phases, in order; any failure exits non-zero:
    ``bench_samediff_mlp`` (784-512-256-10, Adam(1e-3), 2048 rows). No
    hand-written kernel is on this path. Float32, TF32 at PyTorch's
    defaults (cuDNN on, cuBLAS off) on every tier.
-15. tiers and parity: two scanned LeNet runs from one start bit-equal
+16. tiers and parity: two scanned LeNet runs from one start bit-equal
    (else the phase sets ``torch.backends.cudnn.deterministic`` and says
    so); the windowed and scanned tiers against the per-step tier over 2
    epochs from LeNet's seed and the same batches, every parameter and
@@ -186,7 +205,7 @@ Phases, in order; any failure exits non-zero:
    rule. Then LeNet in float64 at batch 16, TF32 off: the card's
    per-step and windowed tiers against the CPU's per-step tier, every
    gradient and then 3 Adam steps to 1e-6 of each tensor.
-16. kernels: ``int8_matmul`` (csrc/int8_matmul.cu) against its plain
+17. kernels: ``int8_matmul`` (csrc/int8_matmul.cu) against its plain
    version in float64 at GPT-medium's four (K, N) and the transposed
    ``wte`` at M 1-512 across every tile edge (within 1e-5 of the sum of
    absolute terms; NaN-poisoned output memory; two calls bit-equal; a
@@ -206,25 +225,25 @@ Phases, in order; any failure exits non-zero:
    library (``torch.matmul`` with the dequantised weight; masked
    ``F.scaled_dot_product_attention``) and their bounds: int8_matmul at
    each shape and M, the verify at 8 lanes x W 8 at contexts 64, 128,
-   512 and 1016 and at two launches of phase 18's traffic (``verify_mixes``:
+   512 and 1016 and at two launches of phase 19's traffic (``verify_mixes``:
    its first round, and a round of its long tail).
-17. parity: GPT_TINY speculative serving on the card and on the CPU
+18. parity: GPT_TINY speculative serving on the card and on the CPU
    (plain kernels), the dense and the paged server, float32 and int8
    weights, an independent 1-layer draft from seed 1 (rejections run):
    identical tokens, every target dispatch's logits within 1e-5 of their
    magnitude.
-18. main path: GPT-medium (``build_gpt(GPT_MEDIUM, ..., seed=0)``, layers
+19. main path: GPT-medium (``build_gpt(GPT_MEDIUM, ..., seed=0)``, layers
    1-15's residual-out projections zeroed: ``bench.py``'s self-draft
    pairing) as an int8-weight target (``gpt_paged_spec(...,
    quantize_weights=True)``) with a 1-layer int8 self-draft through
    ``PagedGenerativeServer(max_slots=8, block_size=16, max_seq_len=1024,
-   draft_spec=..., speculate_k=8)``: phase 12's 32 requests at
+   draft_spec=..., speculate_k=8)``: phase 13's 32 requests at
    temperature 0 through ``submit`` / ``result()``; counts set to 0 just
    before and read just after: 16 paged_verify_attention launches a
    round, 65 int8_matmul a target prefill, step or verify and 5 a draft
    dispatch, paged_decode_attention 16 a plain step and 1 a draft
    decode; every request against ``greedy_decode`` of the dense int8
-   target (phase 12's near-tie rule); the pool drains. Then ~10 rounds
+   target (phase 13's near-tie rule); the pool drains. Then ~10 rounds
    under ``torch.profiler`` (device busy and wall a round, idle share,
    launches a round, device time by group; the traced int8_matmul and
    cluster kernels equal the wrappers' counts), three 512-row prefills of
@@ -647,30 +666,63 @@ def phase_parity():
 
 
 # ----------------------------------------------------------------------
-def phase_main(dev, card):
-    """Returns (per-step record of the BN calls, launches, metrics)."""
+#: (tier, fit keyword arguments) of the ResNet-50 tiers phase 6 times:
+#: the scanned epoch (no listener), windows of 4 (``fused_steps=4``) and
+#: one eager step a batch (a listener)
+def _resnet_tiers():
+    return (("scanned", {"fused_steps": 1}),
+            ("windows", {"fused_steps": 4}),
+            ("per-step", {"fused_steps": 1,
+                          "listeners": [_quiet_listener()]}))
+
+
+def _resnet_main(dev):
+    """The main path's ResNet-50 (224x224x3, 1000 classes, bf16
+    MixedPrecision, the zoo conf's Nesterovs) and its device iterator of
+    STEPS batches of BATCH, data from seed 0."""
     from deeplearning4j_tpu_torch.autodiff import MixedPrecision
     from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
-    from deeplearning4j_tpu_torch.kernels import bn_relu
     from deeplearning4j_tpu_torch.nn import ComputationGraph
     from deeplearning4j_tpu_torch.zoo import ResNet50
-
     conf = ResNet50(height=224, width=224, channels=3,
                     num_classes=1000).conf()
     conf.mixed_precision = MixedPrecision()
-    t0 = time.perf_counter()
-    net = ComputationGraph(conf).init()
+    net = ComputationGraph(conf).init(dev)
     rng = np.random.default_rng(0)
     n = BATCH * STEPS
     x = rng.standard_normal((n, 3, 224, 224), dtype=np.float32)
     y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
-    it = DeviceCachedIterator(x, y, batch_size=BATCH)
-    del x, y
-    log(f"  built net ({net.num_params()} params) and uploaded {n} "
-        f"images in {time.perf_counter() - t0:.1f} s")
+    return net, DeviceCachedIterator(x, y, batch_size=BATCH, device=dev)
 
-    # the shapes and layouts the path hands the kernels (recorded, not
-    # counted: the launch counts are the wrappers' own)
+
+def graph_pool_gib(net):
+    """GiB the caching allocator holds in the graph's private pool (the
+    captured windows' memory), from its snapshot; None where the
+    snapshot does not name the pool."""
+    pool = getattr(net, "_pool", None)
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(pool)) / 2 ** 30
+
+
+def phase_main(dev, card):
+    """ResNet-50 through ``ComputationGraph.fit(DeviceCachedIterator,
+    epochs=1)``: a warm-up epoch (two warm-up steps, the capture, one
+    replay), a timed epoch (one replay), a profiled replay; then windows
+    of 4 and the per-step tier warmed up, and the three tiers timed in
+    alternating runs. Returns (per-step record of the BN calls, launches
+    of the timed epoch, metrics)."""
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    t0 = time.perf_counter()
+    net, it = _resnet_main(dev)
+    log(f"  built net ({net.num_params()} params) and uploaded "
+        f"{BATCH * STEPS} images in {time.perf_counter() - t0:.1f} s")
+
+    # the shapes and layouts the path hands the kernels (recorded in the
+    # warm-up steps and the capture, not counted: the launch counts are
+    # the wrappers' own)
     calls = []
     real = bn_relu.bn_relu_bwd
 
@@ -685,42 +737,105 @@ def phase_main(dev, card):
         t0 = time.perf_counter()
         warm = net.fit(it, epochs=1)
         torch.cuda.synchronize()
-        log(f"  warm-up epoch ({STEPS} steps, kernel builds included): "
-            f"{time.perf_counter() - t0:.1f} s, loss {warm.final_loss():.4f}")
-        calls.clear()
-        torch.cuda.reset_peak_memory_stats()
-        bn_relu.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hist = net.fit(it, epochs=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(bn_relu.LAUNCHES)
     finally:
         bn_relu.bn_relu_bwd = real
-    loss = hist.final_loss()
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = 1000 * wall / STEPS
-    log(f"  timed epoch: {STEPS} steps in {wall:.3f} s: step {step_ms:.2f} "
-        f"ms, {BATCH * STEPS / wall:.1f} samples/s, mean loss {loss:.4f}, "
-        f"peak memory {peak / 2**30:.2f} GiB  [{card}]")
-    log(f"  launches {launches}")
-    want = {bn_relu.kernel_name(p, r): (33 if r else 20) * STEPS
-            for p in (1, 2) for r in (True, False)}
-    if not np.isfinite(loss):
-        raise SystemExit(f"non-finite loss {loss}")
-    if launches != want or sum(launches.values()) != 106 * STEPS:
-        raise SystemExit(f"launches {launches}, want {want}")
-    per_step = calls[:len(calls) // STEPS]
-    if len(calls) != 53 * STEPS or sorted(per_step) != sorted(
-            calls[-len(per_step):]):
-        raise SystemExit(f"{len(calls)} BN backward calls recorded")
+    st = dict(net.last_fit_stats)
+    log(f"  warm-up epoch ({STEPS} steps: 2 warm-up steps, the capture, "
+        f"one replay; kernel builds included): "
+        f"{time.perf_counter() - t0:.1f} s, loss {warm.final_loss():.4f}; "
+        f"last_fit_stats {st}")
+    if st["tier"] != "scanned_epoch" or st["window_captures"] != 1:
+        raise SystemExit(f"the warm-up epoch did not capture one scanned "
+                         f"window: {st}")
+    per_step = calls[-53:]
+    if len(calls) != 53 * (2 + STEPS) or sorted(per_step) != sorted(
+            calls[:53]):
+        raise SystemExit(f"{len(calls)} BN backward calls recorded in the "
+                         f"warm-up steps and the capture")
     nchw = sum(not c[3] for c in per_step)
     log(f"  dy layout over one step's 53 BN backwards: {53 - nchw} "
         f"channels-last, {nchw} other")
+
+    # the timed epoch: one replay; counts set to 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    bn_relu.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(bn_relu.LAUNCHES)
+    st = dict(net.last_fit_stats)
+    loss = hist.final_loss()
+    peak = torch.cuda.max_memory_allocated()
+    pool = graph_pool_gib(net)
+    step_ms = 1000 * wall / STEPS
+    log(f"  timed epoch (scanned): {STEPS} steps in {wall:.3f} s: step "
+        f"{step_ms:.2f} ms, {BATCH * STEPS / wall:.1f} samples/s, mean loss "
+        f"{loss:.4f}, step losses "
+        f"{[round(v, 4) for v in hist.step_losses]}; last_fit_stats {st}; "
+        f"peak memory {peak / 2**30:.2f} GiB, the graph pool "
+        + ("not measured" if pool is None else f"{pool:.2f} GiB")
+        + f"  [{card}]")
+    log(f"  launches {launches}")
+    want = {bn_relu.kernel_name(p, r): (33 if r else 20) * STEPS
+            for p in (1, 2) for r in (True, False)}
+    if not np.all(np.isfinite(hist.step_losses)):
+        raise SystemExit(f"non-finite losses {hist.step_losses}")
+    if st["graph_replays_per_epoch"] != 1 or st["window_captures"] != 0:
+        raise SystemExit(f"the timed epoch was not one replay: {st}")
+    if launches != want or sum(launches.values()) != 106 * STEPS:
+        raise SystemExit(f"launches {launches}, want {want}")
     metrics = {"step_ms": step_ms, "samples_per_s": BATCH * STEPS / wall,
-               "loss": loss, "peak_mem_gib": peak / 2**30}
-    metrics["profile"] = profile_steps(net, it, step_ms, card)
+               "loss": loss, "peak_mem_gib": peak / 2**30,
+               "graph_pool_gib": pool, "fit_stats": st}
+    log("  profiled replay (the scanned epoch under torch.profiler):")
+    metrics["profile"] = profile_fit(lambda: net.fit(it, epochs=1), STEPS,
+                                     step_ms, card)
+
+    # the windowed and per-step tiers, each warmed up, then all three in
+    # alternating runs (ABC CBA ABC), one epoch each
+    runs = {}
+    for tier, kw in _resnet_tiers()[1:]:
+        t0 = time.perf_counter()
+        net.fit(it, epochs=1, **kw)
+        torch.cuda.synchronize()
+        log(f"  {tier} warm-up epoch: {time.perf_counter() - t0:.1f} s; "
+            f"last_fit_stats {net.last_fit_stats}")
+    order = list(_resnet_tiers())
+    for rnd in range(3):
+        for tier, kw in (order if rnd % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = net.fit(it, epochs=1, **kw)
+            torch.cuda.synchronize()
+            ms = 1000 * (time.perf_counter() - t0) / STEPS
+            if not np.all(np.isfinite(h.step_losses)):
+                raise SystemExit(f"{tier}: non-finite losses")
+            runs.setdefault(tier, []).append(
+                (ms, dict(net.last_fit_stats)))
+    for tier, rs in runs.items():
+        st = rs[-1][1]
+        want_replays = {"scanned": 1, "windows": 2, "per-step": 0}[tier]
+        if st["graph_replays_per_epoch"] != want_replays or \
+                st["window_captures"] != 0:
+            raise SystemExit(f"{tier}: {st}")
+        ms = [r[0] for r in rs]
+        log(f"  {tier:<8} ({st['tier']}, {st['dispatches_per_epoch']} "
+            f"dispatches, {want_replays} replays an epoch): step ms "
+            f"{[round(v, 2) for v in ms]}, samples/s "
+            f"{[round(1000 * BATCH / v, 1) for v in ms]}  [{card}]")
+    metrics["tiers"] = {t: [r[0] for r in rs] for t, rs in runs.items()}
+    log("  profiled windows of 4 (one epoch, two replays):")
+    metrics["profile_windows"] = profile_fit(
+        lambda: net.fit(it, epochs=1, fused_steps=4), STEPS,
+        min(metrics["tiers"]["windows"]), card)
+    log("  profiled per-step tier (two eager steps):")
+    batches = iter(it)
+    two = [next(batches), next(batches)]
+    metrics["profile_per_step"] = profile_fit(
+        lambda: net.fit(two, epochs=1, fused_steps=1), 2,
+        min(metrics["tiers"]["per-step"]), card)
     del net, it
     torch.cuda.empty_cache()
     return per_step, launches, metrics
@@ -729,6 +844,7 @@ def phase_main(dev, card):
 KERNEL_KINDS = (
     ("BN backward (CUDA C++ + Triton)", ("bn_relu_bwd_phase",
                                          "bn_bwd_phase")),
+    ("updater (_foreach)", ("multi_tensor_apply",)),
     ("convolution / matmul", ("conv", "cudnn", "nvjet", "gemm", "xmma",
                               "cutlass", "sm90_", "wgrad", "dgrad")),
     ("pooling", ("pool",)),
@@ -737,26 +853,27 @@ KERNEL_KINDS = (
 )
 
 
-def profile_steps(net, it, step_ms, card):
-    """Two steps under torch.profiler: device time per step by kernel and
-    by kind, against the unprofiled step time (the rest is the device's
-    idle share)."""
+def profile_fit(fit, steps, step_ms, card):
+    """``fit()`` (``steps`` training steps) under torch.profiler: device
+    time per step by kernel and by kind, device launches a step, against
+    the unprofiled step time ``step_ms`` (the rest is the device's idle
+    share); each BN kernel must launch 33 (ReLU) and 20 times a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    batches = iter(it)
-    two = [next(batches), next(batches)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        net.fit(two, epochs=1)
+        t0 = time.perf_counter()
+        fit()
         torch.cuda.synchronize()
+        traced_ms = 1000 * (time.perf_counter() - t0) / steps
     per_kernel, by_kind = {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)) / 2e3
-        per_kernel[e.key] = (ms, e.count // 2)
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3 / steps
+        per_kernel[e.key] = (ms, e.count / steps)
         kind = next((k for k, keys in KERNEL_KINDS
                      if any(t in e.key for t in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
@@ -764,16 +881,19 @@ def profile_steps(net, it, step_ms, card):
     if busy == 0:
         raise SystemExit("the profiler recorded no device time")
     launches = sum(n for _, n in per_kernel.values())
-    log(f"  profiler, per step: device busy {busy:.2f} ms of an unprofiled "
-        f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f}; "
-        f"{launches} device launches ({TRITON_PHASE1_LAUNCHES_PER_STEP} "
-        f"with the Triton phase 1 and its PyTorch fold)  "
+    log(f"    per step: device busy {busy:.2f} ms of an unprofiled "
+        f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f} "
+        f"({1 - busy / traced_ms:.3f} of the traced pass's own "
+        f"{traced_ms:.2f} ms a step); "
+        f"{launches:.0f} device launches (PR 1's "
+        f"{TRITON_PHASE1_LAUNCHES_PER_STEP} with the Triton phase 1 and its "
+        f"PyTorch fold, 4243 per-step before the _foreach updaters)  "
         f"[{card}]")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        log(f"    {ms:8.3f} ms  {ms / step_ms:.3f} of the step  {kind}")
+        log(f"    {ms:8.3f} ms  {ms / busy:.3f} of the busy time  {kind}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     for key, (ms, n) in top:
-        log(f"    {ms:8.3f} ms  x{n:<4d} {key[:96]}")
+        log(f"    {ms:8.3f} ms  x{n:<6.1f} {key[:96]}")
     # the BN backward's kernels by name (phase 1's CUDA kernels carry a
     # dtype suffix: bn_relu_bwd_phase1_bf16)
     from deeplearning4j_tpu_torch.kernels import bn_relu
@@ -790,9 +910,158 @@ def profile_steps(net, it, step_ms, card):
         raise SystemExit(f"profiled BN backward launches {kernel_n}, "
                          f"want {want}")
     return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
-            "launches": launches, "by_kind_ms": by_kind,
-            "kernel_ms": kernel_ms,
+            "traced_ms": traced_ms, "launches": launches,
+            "by_kind_ms": by_kind, "kernel_ms": kernel_ms,
             "top": [(k[:96], v[0], v[1]) for k, v in top]}
+
+
+def phase_resnet_tiers(card):
+    """ResNet-50 on the fit tiers, on the card: two scanned fits of the
+    main path's configuration from one start, bit-equal (else
+    ``torch.backends.cudnn.deterministic`` is set, and said); the scanned
+    and per-step tiers from the same weights over STEPS steps, every
+    parameter, running statistic and step loss within rtol 1e-5 / atol
+    1e-6 (the JAX tier tolerance), and whether they are bit-equal; then
+    phase 4's ResNet-50 at 32x32 in float64, TF32 off, on the card's
+    scanned tier against its per-step tier (the tier rule) and the
+    CPU's per-step tier over phase 4's two steps: every trained tensor's
+    change, every running statistic and every loss to 1e-6 (phase 4's
+    bound)."""
+    dev = torch.device("cuda")
+    det0 = torch.backends.cudnn.deterministic
+
+    def run(kw):
+        net, it = _resnet_main(dev)
+        hist = net.fit(it, epochs=1, **kw)
+        st = dict(net.last_fit_stats)
+        out = ({k: v.detach().cpu().clone()
+                for k, v in net.model.state_dict().items()},
+               hist.step_losses, st)
+        del net, it
+        torch.cuda.empty_cache()
+        return out
+
+    def equal(a, b):
+        return a[1] == b[1] and all(torch.equal(v, b[0][k])
+                                    for k, v in a[0].items())
+
+    try:
+        a, b = run({}), run({})
+        same = equal(a, b)
+        log(f"  two scanned fits from one start (cuDNN deterministic="
+            f"{det0}): bit-equal {same}; tiers {a[2]['tier']}, "
+            f"{b[2]['tier']}, replays {a[2]['graph_replays_per_epoch']}")
+        if not same:
+            torch.backends.cudnn.deterministic = True
+            log("  not bit-equal: cuDNN's chosen algorithms are not "
+                "deterministic; the rest of this phase sets "
+                "torch.backends.cudnn.deterministic")
+            a, b = run({}), run({})
+            same = equal(a, b)
+            log(f"  two scanned fits, cuDNN deterministic: bit-equal {same}")
+            if not same:
+                raise SystemExit("two scanned ResNet-50 fits from one start "
+                                 "differ")
+        c = run({"listeners": [_quiet_listener()]})
+        if a[2]["tier"] != "scanned_epoch" or c[2]["tier"] != "per_step":
+            raise SystemExit(f"tiers {a[2]} / {c[2]}")
+        reading = _reading({k: v.float() for k, v in a[0].items()},
+                           {k: v.float() for k, v in c[0].items()},
+                           a[1], c[1])
+        log(f"  scanned against per-step, {STEPS} steps from the same "
+            f"weights: tier rule max |a - b| / (1e-6 + 1e-5 |b|) over "
+            f"{len(c[0])} tensors and the losses {reading:.3g} (<= 1 "
+            f"passes); bit-equal {equal(a, c)}; losses scanned "
+            f"{[round(v, 5) for v in a[1]]}, per-step "
+            f"{[round(v, 5) for v in c[1]]}  [{card}]")
+        if reading > 1:
+            raise SystemExit("ResNet-50's scanned and per-step tiers "
+                             "disagree on the card")
+        worst = resnet_f64_card_vs_cpu()
+    finally:
+        torch.backends.cudnn.deterministic = det0
+    return {"bit_equal_scanned": same, "tier_reading": reading,
+            "f64_worst": worst}
+
+
+def resnet_f64_card_vs_cpu():
+    """Phase 4's ResNet-50 (32x32, 4 classes, batch 8) in float64, TF32
+    off, from the same weights: one epoch of two steps on the card's
+    scanned tier (one window of two steps), on its per-step tier and on
+    the CPU's per-step tier (a list of batches). The card's two tiers
+    must meet the tier rule (and are printed bit-equal or not: cuDNN's
+    float64 algorithms need not be deterministic, so the pair is run
+    again with ``torch.backends.cudnn.deterministic`` where they are
+    not); the card's scanned tier is held to the CPU over phase 4's two
+    steps with phase 4's bound (more steps of this network at init
+    amplify the rounding of either side past it)."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    b = 8
+    x = rng.normal(size=(2 * b, 3, 32, 32))
+    y = np.eye(4)[rng.integers(0, 4, 2 * b)]
+    weights = ResNet50(height=32, width=32, num_classes=4).build(
+        device="cpu").model.state_dict()
+    def run(tag, dev):
+        conf = ResNet50(height=32, width=32, num_classes=4).conf()
+        conf.dtype = "float64"
+        net = ComputationGraph(conf).init(device=dev)
+        net.model.load_state_dict(weights)
+        init = net.params()
+        data = DeviceCachedIterator(x, y, batch_size=b, device=dev) \
+            if tag == "scanned" else [(x[:b], y[:b]), (x[b:], y[b:])]
+        hist = net.fit(data, epochs=1)
+        return (init, net.params(), hist.step_losses,
+                dict(net.last_fit_stats))
+
+    def equal(r, q):
+        return r[2] == q[2] and all(np.array_equal(v, q[1][k])
+                                    for k, v in r[1].items())
+
+    det0 = torch.backends.cudnn.deterministic
+    try:
+        res = {tag: run(tag, dev) for tag, dev in (
+            ("scanned", "cuda"), ("per-step", "cuda"), ("cpu", "cpu"))}
+        tiers_equal = equal(res["scanned"], res["per-step"])
+        det_equal = None
+        if not tiers_equal:
+            torch.backends.cudnn.deterministic = True
+            det_equal = equal(run("scanned", "cuda"), run("per-step", "cuda"))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = det0
+    (i0, pc, lc, sc), (_, ph, lh, sh) = res["scanned"], res["cpu"]
+    _, pp, lp, sp = res["per-step"]
+    tier_rule = _reading(pc, pp, lc, lp)
+    stats = [k for k in pc if k.endswith(("_mean", "_var"))]
+    trained = [k for k in pc if k not in stats
+               and not (k.endswith("_b") and k != "output_b")]
+    change = _max_rel({k: pc[k] - i0[k] for k in trained},
+                      {k: ph[k] - i0[k] for k in trained})
+    stat = _max_rel({k: pc[k] for k in stats}, {k: ph[k] for k in stats})
+    loss = max(abs(c - h) / abs(h) for c, h in zip(lc, lh))
+    worst = max(max(change.values()), max(stat.values()), loss)
+    log(f"  ResNet-50 32x32 float64: card {sc['tier']} "
+        f"({sc['graph_replays_per_epoch']} replay an epoch) against the "
+        f"card's {sp['tier']}: tier rule {tier_rule:.3g} (<= 1 passes), "
+        f"bit-equal {tiers_equal}"
+        + ("" if det_equal is None else
+           f" (with cuDNN deterministic: bit-equal {det_equal})")
+        + f"; against CPU {sh['tier']}, 2 steps: worst change "
+        f"{max(change.values()):.2e} ({max(change, key=change.get)}), "
+        f"statistic {max(stat.values()):.2e}, loss {loss:.2e} (tol 1e-6)")
+    if sc["tier"] != "scanned_epoch" or sh["tier"] != "per_step" or \
+            sp["tier"] != "per_step" or tier_rule > 1 or worst > 1e-6:
+        raise SystemExit("the card's scanned ResNet-50 float64 disagrees "
+                         "with the CPU's per-step tier")
+    return worst
 
 
 # ----------------------------------------------------------------------
@@ -2029,7 +2298,7 @@ def serving_traffic(vocab):
 
 def verify_mixes():
     """Each lane's context (None: an idle lane) at two verify launches of
-    phase 18's traffic (``serving_traffic``): its first round (the first 8
+    phase 19's traffic (``serving_traffic``): its first round (the first 8
     prompts) and a round of its long tail (the first 8 requests of 64-128
     new tokens half-way through them; idle lanes where there are fewer)."""
     from deeplearning4j_tpu_torch.zoo import GPT_MEDIUM
@@ -4000,7 +4269,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/18] env")
+    log("[1/19] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -4039,42 +4308,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/18] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/19] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/18] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/19] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/18] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/19] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/18] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/19] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/18] main path: ResNet-50 224x224 bs{BATCH} bf16 "
-        f"ComputationGraph.fit on the card")
+    log(f"[6/19] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+        f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
+        f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[7/18] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log("[7/19] tiers and parity: ResNet-50's scanned and per-step tiers "
+        "agree on the card; float64 card (scanned) vs CPU (per-step)")
+    t0 = time.perf_counter()
+    phase_resnet_tiers(card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[8/19] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[8/18] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/19] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -4086,7 +4362,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/18] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/19] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -4100,18 +4376,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/18] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/19] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/18] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/19] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[12/18] main path: GPT-medium float32 serving, "
+    log(f"[13/19] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -4120,40 +4396,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[13/18] path shapes: paged attention vs plain, then timed")
+    log("[14/19] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[14/18] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/19] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[15/18] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/19] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/18] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/19] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/18] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/19] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[18/18] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/19] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "

@@ -76,8 +76,9 @@ def _split_batch(batch):
             list(l) if isinstance(l, (list, tuple)) else [l])
 
 
-class SameDiff:
-    """Define-then-run graph executed eagerly, with autograd gradients."""
+class SameDiff(window.StepOwner):
+    """Define-then-run graph executed eagerly, with autograd gradients.
+    It owns its train step for the fit tiers (``window.StepOwner``)."""
 
     def __init__(self, device: DeviceLike = None):
         self.device = default_device(device)
@@ -91,14 +92,7 @@ class SameDiff:
         self._group_counter = 0
         self.training_config = None
         self._updater_state = None
-        self.last_fit_stats: Optional[Dict[str, Any]] = None
-        # captured fit windows (autodiff/window.py), valid for _windows_for
-        self._windows: Dict[Any, Any] = {}
-        self._windows_for: Optional[Tuple] = None
-        self._pool = None
-        self._stream = None
-        # the scanned tier's inputs (autodiff/window.py _bound_inputs)
-        self._bound: Optional[Tuple] = None
+        self._changed()
         for ns_name, ns in make_namespaces(self).items():
             setattr(self, ns_name, ns)
 
@@ -153,13 +147,6 @@ class SameDiff:
         self._arrays[name] = arr
         self._changed()
         return v
-
-    def _changed(self) -> None:
-        """The graph, a stored array's address or the updater state
-        changed: captured fit windows are dropped."""
-        self._windows = {}
-        self._windows_for = None
-        self._bound = None
 
     def placeholder(self, name: str, shape: Optional[Sequence[int]] = None,
                     dtype: str = "float32") -> SDVariable:
@@ -501,27 +488,22 @@ class SameDiff:
             self._changed()
         return names, [self._updater_state[n] for n in names]
 
-    def _window_cache(self) -> Dict[Any, Any]:
-        """The captured fit windows, for this training config."""
-        tc = self.training_config
-        owner = (tc, tc.updater, tc.mixed_precision)
-        if self._windows_for is None or any(
-                a is not b for a, b in zip(self._windows_for, owner)):
-            self._windows = {}
-            self._windows_for = owner
-        return self._windows
+    def warmup_restore_set(self, names: List[str],
+                           state) -> List[torch.Tensor]:
+        """What a train step writes in place: the trainables ``names`` and
+        their updater ``state``."""
+        return [self._arrays[n] for n in names] + [t for s in state for t in s]
 
-    def _graph_pool(self):
-        """One memory pool for all of this graph's captured windows."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
+    def _placeholder_dtype(self, name: str, value) -> torch.dtype:
+        """The dtype :meth:`_prep_placeholders` gives ``value``."""
+        if name in self._vars:
+            return torch_dtype(self._vars[name].dtype)
+        if isinstance(value, torch.Tensor):
+            return value.dtype
+        return torch.from_numpy(np.asarray(value)[:0]).dtype
 
-    def _capture_stream(self) -> torch.cuda.Stream:
-        """The side stream the windows warm up and are captured on."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        return self._stream
+    def _refuse_random_ops(self) -> None:
+        window.refuse_random_ops(self)
 
     def fit(self, dataset_iterator, epochs: int = 1,
             listeners=()) -> History:

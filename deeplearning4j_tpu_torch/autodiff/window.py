@@ -1,4 +1,4 @@
-"""SameDiff's fit tiers: per-step, fused windows and the scanned epoch.
+"""The fit tiers: per-step, fused windows and the scanned epoch.
 
 Counterpart of ``deeplearning4j_tpu/autodiff/window.py`` (``pow2_buckets``
 :57, ``fit_windowed`` :237) and of the tier choice and the per-step and
@@ -21,8 +21,10 @@ K steps into one CUDA graph (:class:`StepWindow`) and replays it:
   batch) runs as one eager step.
 - **per-step**: one eager step a batch.
 
-Every tier runs the same train step (``SameDiff._train_step``) and the
-same update kernels. What changes from step to step, the updater's
+Every tier runs the same train step and the same update kernels. The
+tiers serve any :class:`StepOwner`, the small protocol of what owns a
+train step: ``SameDiff`` (and ``MultiLayerNetwork`` through it) and
+``ComputationGraph``. What changes from step to step, the updater's
 scalars (Adam's ``alphat``), is computed on the host in float32 for the
 K steps of a window and copied into the window's ``(K,)`` buffer before
 each replay. Losses stay on the device: without listeners they are
@@ -47,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.autodiff.training import History, torch_dtype
+from deeplearning4j_tpu_torch.autodiff.training import History
 from deeplearning4j_tpu_torch.kernels import _cuda
 from deeplearning4j_tpu_torch.learning.updaters import stage_
 from deeplearning4j_tpu_torch.ops import registry
@@ -90,16 +92,83 @@ def refuse_random_ops(sd) -> None:
                 f"queue 1 item 5); fit it with fused_steps=1 and a listener")
 
 
-class StepWindow:
-    """K train steps of ``sd`` over ``inputs`` (placeholder -> a
-    ``(K, batch, ...)`` tensor whose address stays fixed), with ``scal``,
-    a ``(K,)`` buffer of the updater's per-step scalars, and
-    ``losses``, a ``(K,)`` buffer of the steps' losses. On the card the
-    steps are captured once as a CUDA graph in the SameDiff's pool, after
-    warm-up steps whose updates are undone, and :meth:`run` replays it;
-    on the CPU :meth:`run` runs them eagerly."""
+class StepOwner:
+    """What owns a train step, for the fit tiers. An owner has
+    ``device``, ``training_config`` (a ``TrainingConfig``: the updater,
+    ``fused_steps``, the step and epoch counters, and the names its
+    batches' features and labels take), ``last_fit_stats``, and:
 
-    def __init__(self, sd, names: List[str], state, inputs: Env, k: int):
+    - ``_train_step(names, placeholders, state, scal)``: one step on the
+      named batch ``placeholders`` (on the device, as
+      ``_prep_placeholders`` gives them), updating the trainables
+      ``names`` and their updater ``state`` in place with the step's
+      scalar ``scal`` (a 0-d device tensor); returns the loss on the
+      device. No host sync, no host-to-device copy: a window captures it.
+    - ``_fit_state()``: ``(names, state)``, the updater state made once.
+    - ``_prep_placeholders(batch)``: a named batch's arrays on the device,
+      cast as the step takes them; ``_placeholder_dtype(name, value)``,
+      the dtype it gives ``value``.
+    - ``warmup_restore_set(names, state)``: every tensor a step writes in
+      place (trainables, updater state, a module's buffers such as batch
+      norm's running statistics), which a capture's warm-up steps save
+      and restore.
+    - ``_refuse_random_ops()``: raise where a step draws random numbers.
+
+    This base keeps the captured windows (valid for one training config,
+    updater and mixed-precision policy), their memory pool and capture
+    stream, and the scanned tier's bound inputs. ``_changed()`` drops
+    them: the owner calls it when a tensor a window reads by address is
+    replaced."""
+
+    last_fit_stats: Optional[Dict[str, object]] = None
+    _windows: Dict[object, "StepWindow"]
+    _windows_for: Optional[Tuple] = None
+    _pool = None
+    _stream: Optional["torch.cuda.Stream"] = None
+    #: the scanned tier's inputs (:func:`_bound_inputs`)
+    _bound: Optional[Tuple] = None
+
+    def _changed(self) -> None:
+        """A stored tensor's address, the graph or the updater state
+        changed: the captured windows and the bound inputs are dropped."""
+        self._windows = {}
+        self._windows_for = None
+        self._bound = None
+
+    def _window_cache(self) -> Dict[object, "StepWindow"]:
+        """The captured fit windows, for this training config."""
+        tc = self.training_config
+        owner = (tc, tc.updater, tc.mixed_precision)
+        if self._windows_for is None or any(
+                a is not b for a, b in zip(self._windows_for, owner)):
+            self._windows = {}
+            self._windows_for = owner
+        return self._windows
+
+    def _graph_pool(self):
+        """One memory pool for all of this owner's captured windows."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _capture_stream(self) -> "torch.cuda.Stream":
+        """The side stream the windows warm up and are captured on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+
+class StepWindow:
+    """K train steps of the owner ``sd`` over ``inputs`` (placeholder ->
+    a ``(K, batch, ...)`` tensor whose address stays fixed), with
+    ``scal``, a ``(K,)`` buffer of the updater's per-step scalars, and
+    ``losses``, a ``(K,)`` buffer of the steps' losses. On the card the
+    steps are captured once as a CUDA graph in the owner's pool, after
+    warm-up steps whose writes (``warmup_restore_set``) are undone, and
+    :meth:`run` replays it; on the CPU :meth:`run` runs them eagerly."""
+
+    def __init__(self, sd: StepOwner, names: List[str], state, inputs: Env,
+                 k: int):
         self.sd, self.names, self.state, self.inputs, self.k = \
             sd, names, state, inputs, k
         self.scal = torch.zeros(k, dtype=torch.float32, device=sd.device)
@@ -118,15 +187,15 @@ class StepWindow:
     def _capture(self) -> None:
         sd = self.sd
         stream = sd._capture_stream()
-        live = [sd._arrays[n] for n in self.names] + \
-            [t for s in self.state for t in s]
-        saved = [t.clone() for t in live]
+        live = sd.warmup_restore_set(self.names, self.state)
+        saved = [t.detach().clone() for t in live]
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             for i in range(WARMUP_STEPS):
                 self._step(min(i, self.k - 1))
-            for t, s in zip(live, saved):
-                t.copy_(s)
+            with torch.no_grad():
+                for t, s in zip(live, saved):
+                    t.copy_(s)
         torch.cuda.current_stream().wait_stream(stream)
         del saved
         graph = torch.cuda.CUDAGraph()
@@ -154,26 +223,18 @@ def _name_batch(tc, batch) -> Dict[str, object]:
             **dict(zip(tc.data_set_label_mapping, labels))}
 
 
-def _ph_dtype(sd, name: str, value) -> torch.dtype:
-    """The dtype ``SameDiff._prep_placeholders`` gives ``value``."""
-    if name in sd._vars:
-        return torch_dtype(sd._vars[name].dtype)
-    if isinstance(value, torch.Tensor):
-        return value.dtype
-    return torch.from_numpy(np.asarray(value)[:0]).dtype
-
-
 def _signature(ph: Dict[str, object]) -> Tuple:
     return tuple((n, tuple(np.shape(v))) for n, v in ph.items())
 
 
 def _bound_inputs(sd, src: Dict[str, torch.Tensor]) -> Env:
-    """The iterator's stacked tensors ``src`` as the placeholders take
-    them (their dtypes, ``sd``'s device). A tensor that is so already is
-    used in place. A cast copy is kept on ``sd`` with the source tensors
-    (held, so no other tensor takes their addresses) and refreshed in
-    place by each fit over them: the scanned window bound to it stays
-    valid from fit to fit instead of being captured again."""
+    """The iterator's stacked tensors ``src`` as the owner's steps take
+    them (``sd._prep_placeholders``: their dtypes, ``sd``'s device). A
+    tensor that is so already is used in place. A cast copy is kept on
+    ``sd`` with the source tensors (held, so no other tensor takes their
+    addresses) and refreshed in place by each fit over them: the scanned
+    window bound to it stays valid from fit to fit instead of being
+    captured again."""
     key = tuple((n, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
                  t.device) for n, t in src.items())
     if sd._bound is not None and sd._bound[0] == key:
@@ -203,7 +264,7 @@ class _Fit:
         else:
             self.tier = "per_step"
         if self.tier != "per_step":
-            refuse_random_ops(sd)
+            sd._refuse_random_ops()
         self.names, self.state = sd._fit_state()
         self.stacked = None
         if self.tier != "per_step" and hasattr(iterator, "stacked_batches"):
@@ -301,7 +362,8 @@ class _Fit:
                     else [self.K]:
                 part = batches[i:i + k]
                 i += k
-                sig = tuple((nm, tuple(np.shape(v)), _ph_dtype(sd, nm, v))
+                sig = tuple((nm, tuple(np.shape(v)),
+                             sd._placeholder_dtype(nm, v))
                             for nm, v in part[0].items())
                 win = self._window(k, sig=sig)
 
@@ -428,6 +490,7 @@ class _Fit:
         return history
 
 
-def fit(sd, iterator, epochs: int = 1, listeners=()) -> History:
-    """``SameDiff.fit``'s tiers; see the module docstring."""
+def fit(sd: StepOwner, iterator, epochs: int = 1, listeners=()) -> History:
+    """The fit tiers of ``SameDiff.fit`` and ``ComputationGraph.fit``;
+    see the module docstring."""
     return _Fit(sd, iterator, list(listeners)).run(epochs)

@@ -58,7 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -124,6 +124,9 @@ _CTAS_PER_SM = 2         # resident blocks per SM (__launch_bounds__ in the .cu)
 _WS_MIN_BYTES = 1 << 20  # first workspace: enough for every path shape
 _COUNTERS_MIN = 4096
 _SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+#: scratch tensors a larger one replaced, kept alive: a captured CUDA
+#: graph may hold their addresses
+_RETIRED: List[torch.Tensor] = []
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -190,15 +193,33 @@ def _phase1_args(shape, x_stride, dy_stride, elsize: int, acc_size: int,
 
 def _scratch(dev: torch.device, nbytes: int, n_cblk: int):
     """The device's phase-1 workspace and per-channel-block counters, kept
-    across calls at stable addresses (grown, never shrunk). The counters
-    are 0 between launches: each launch's last block resets its own. So
-    launches that share them must be ordered, as on one stream."""
+    across calls at stable addresses (grown, never shrunk or freed). The
+    counters are 0 between launches: each launch's last block resets its
+    own. So launches that share them must be ordered, as on one stream
+    (eager steps and graph replays run on the current stream).
+
+    A capture records the addresses: the scratch must not grow inside one
+    (the new tensor would come from the graph's private pool and be used
+    outside it). The warm-up steps before a capture run the same shapes
+    and grow it; growing inside a capture raises."""
     ws, cnt = _SCRATCH.get(dev.index, (None, None))
-    if ws is None or ws.numel() < nbytes:
+    grow_ws = ws is None or ws.numel() < nbytes
+    grow_cnt = cnt is None or cnt.numel() < n_cblk
+    if not (grow_ws or grow_cnt):
+        return ws, cnt
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the BN phase-1 scratch would grow inside a CUDA graph capture; "
+            "warm-up steps at the captured shapes must grow it first")
+    if grow_ws:
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = torch.empty(max(nbytes, _WS_MIN_BYTES,
                              2 * (0 if ws is None else ws.numel())),
                          dtype=torch.uint8, device=dev)
-    if cnt is None or cnt.numel() < n_cblk:
+    if grow_cnt:
+        if cnt is not None:
+            _RETIRED.append(cnt)
         cnt = torch.zeros(max(n_cblk, _COUNTERS_MIN,
                               2 * (0 if cnt is None else cnt.numel())),
                           dtype=torch.int32, device=dev)

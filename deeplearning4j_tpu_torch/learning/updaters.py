@@ -3,8 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/learning/updaters.py`` (``IUpdater``,
 ``Sgd``, ``Nesterovs`` :95, ``Adam`` :112), with the same update rules:
 the JAX package computes ``updates`` and returns ``params - updates``;
-here each leaf is updated in place under ``torch.no_grad()``, which keeps
-one copy of the weights and of the state.
+here the leaves are updated in place under ``torch.no_grad()``, which
+keeps one copy of the weights and of the state, with PyTorch's
+multi-tensor (``_foreach``) ops: a few launches a step for all the
+leaves. ``IUpdater.update_plain_`` (one leaf at a time, ``Sgd`` and
+``Nesterovs``) is the plain version the tests hold them to.
 
 What changes from step to step (the learning rate, Adam's ``alphat``) is
 one scalar a step, computed on the host in float32, as the JAX package
@@ -74,8 +77,14 @@ class IUpdater:
         stage_(scal, self.step_scalars([iteration], epoch))
         self.update_(params, grads, state, scal[0])
 
-    @torch.no_grad()
     def update_(self, params, grads, state, scal: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def update_plain_(self, params, grads, state, scal: torch.Tensor) -> None:
+        """The update one leaf at a time (``_leaf_apply_``): the plain
+        version the tests hold :meth:`update_` to. Nothing else calls
+        it."""
         for p, g, s in zip(params, grads, state):
             self._leaf_apply_(p, g, s, scal)
 
@@ -86,18 +95,51 @@ class IUpdater:
         raise NotImplementedError
 
 
+#: elements a group of leaves holds at most where an update makes
+#: parameter-sized temporaries (a leaf larger than this is a group of
+#: its own), so a large model holds group-sized temporaries
+GROUP = 1 << 26
+
+
+def _groups(params: List[torch.Tensor]):
+    """``(lo, hi)`` index ranges of consecutive leaves, each at most
+    ``GROUP`` elements (or one leaf)."""
+    lo = 0
+    while lo < len(params):
+        hi, n = lo + 1, params[lo].numel()
+        while hi < len(params) and n + params[hi].numel() <= GROUP:
+            n += params[hi].numel()
+            hi += 1
+        yield lo, hi
+        lo = hi
+
+
 @dataclasses.dataclass(eq=False)
 class Sgd(IUpdater):
-    """update = lr * g"""
+    """update = lr * g. :meth:`update_` runs the leaves together with
+    multi-tensor (``_foreach``) ops, the per-leaf expression's operations
+    in its order."""
     learning_rate: float = 1e-3
 
     def _leaf_apply_(self, p, g, s, lr):
         p.sub_(g * lr)
 
+    @torch.no_grad()
+    def update_(self, params, grads, state, scal) -> None:
+        params, grads = list(params), list(grads)
+        for lo, hi in _groups(params):
+            update = torch._foreach_mul(grads[lo:hi], scal)
+            torch._foreach_sub_(params[lo:hi], update)
+            del update
+
 
 @dataclasses.dataclass(eq=False)
 class Nesterovs(IUpdater):
-    """v' = mu*v - lr*g; update = mu*v - (1+mu)*v'"""
+    """v' = mu*v - lr*g; update = mu*v - (1+mu)*v'. :meth:`update_` runs
+    the leaves together with multi-tensor (``_foreach``) ops, in the JAX
+    expression's order: ``update = mu*v``, ``v' = mu*v - lr*g``,
+    ``update -= (1+mu)*v'``, ``p -= update``; each per-leaf operation of
+    ``_leaf_apply_`` is one op over a group of leaves."""
     learning_rate: float = 0.1
     momentum: float = 0.9
 
@@ -111,6 +153,23 @@ class Nesterovs(IUpdater):
         v.mul_(mu).sub_(g * lr)              # v' = mu*v - lr*g
         update.sub_(v * (1.0 + mu))          # mu*v - (1+mu)*v'
         p.sub_(update)
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, scal) -> None:
+        params, grads = list(params), list(grads)
+        vs = [s[0] for s in state]
+        mu = self.momentum
+        for lo, hi in _groups(params):
+            v = vs[lo:hi]
+            update = torch._foreach_mul(v, mu)
+            torch._foreach_mul_(v, mu)
+            tmp = torch._foreach_mul(grads[lo:hi], scal)
+            torch._foreach_sub_(v, tmp)
+            tmp = torch._foreach_mul(v, 1.0 + mu)
+            torch._foreach_sub_(update, tmp)
+            del tmp
+            torch._foreach_sub_(params[lo:hi], update)
+            del update
 
 
 @dataclasses.dataclass(eq=False)
@@ -133,9 +192,6 @@ class Adam(IUpdater):
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
-    #: elements a group of leaves holds at most in the final update
-    #: (a leaf larger than this is a group of its own)
-    GROUP = 1 << 26
 
     def _leaf_init(self, p):
         return (torch.zeros_like(p), torch.zeros_like(p))
@@ -162,15 +218,9 @@ class Adam(IUpdater):
         torch._foreach_add_(ms, grads, alpha=1.0 - b1)
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, grads, grads, value=1.0 - b2)
-        lo = 0
-        while lo < len(params):
-            hi, n = lo + 1, params[lo].numel()
-            while hi < len(params) and n + params[hi].numel() <= self.GROUP:
-                n += params[hi].numel()
-                hi += 1
+        for lo, hi in _groups(params):
             update = torch._foreach_mul(ms[lo:hi], scal)
             denom = torch._foreach_sqrt(vs[lo:hi])
             torch._foreach_add_(denom, self.epsilon)
             torch._foreach_addcdiv_(params[lo:hi], update, denom, value=-1.0)
             del update, denom
-            lo = hi

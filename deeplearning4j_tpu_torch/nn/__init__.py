@@ -2,10 +2,10 @@ from deeplearning4j_tpu_torch.nn.conf import (ListBuilder,
                                               MultiLayerConfiguration,
                                               NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conv_layers import ZeroPaddingLayer
-from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
-                                               ComputationGraphConfiguration,
-                                               ElementWiseVertex,
-                                               GraphBuilder)
+from deeplearning4j_tpu_torch.nn.graph import (
+    ComputationGraph, ComputationGraphConfiguration, DotProductVertex,
+    ElementWiseVertex, GraphBuilder, GraphVertex, L2NormalizeVertex,
+    MergeVertex, ScaleVertex, ShiftVertex, SubsetVertex)
 from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
                                                 ConvolutionLayer, DenseLayer,
@@ -16,7 +16,9 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 __all__ = ["ActivationLayer", "BatchNormalization", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvolutionLayer", "DenseLayer",
-           "ElementWiseVertex", "GlobalPoolingLayer", "GraphBuilder",
-           "InputType", "ListBuilder", "MultiLayerConfiguration",
+           "DotProductVertex", "ElementWiseVertex", "GlobalPoolingLayer",
+           "GraphBuilder", "GraphVertex", "InputType", "L2NormalizeVertex",
+           "ListBuilder", "MergeVertex", "MultiLayerConfiguration",
            "MultiLayerNetwork", "NeuralNetConfiguration", "OutputLayer",
-           "SubsamplingLayer", "ZeroPaddingLayer"]
+           "ScaleVertex", "ShiftVertex", "SubsamplingLayer",
+           "ZeroPaddingLayer"]

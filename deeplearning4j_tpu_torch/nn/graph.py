@@ -1,11 +1,12 @@
 """ComputationGraph: DAG networks built as one ``nn.Module``.
 
-Counterpart of ``deeplearning4j_tpu/nn/graph.py`` (``ElementWiseVertex``
-:88, ``ComputationGraphConfiguration`` :263, ``GraphBuilder`` :314,
-``_build_graph`` :392, ``ComputationGraph`` :462). Where the JAX package
-records the DAG into a SameDiff graph and lets ``jax.grad`` derive the
-backward, the port builds a :class:`GraphModule` that runs the nodes in
-order and takes PyTorch's autograd.
+Counterpart of ``deeplearning4j_tpu/nn/graph.py`` (the vertices :33-260,
+``ComputationGraphConfiguration`` :263, ``GraphBuilder`` :314,
+``_build_graph`` :392, ``ComputationGraph`` :462 with ``fit`` :489,
+``output`` :531, ``feed_forward`` :543 and ``summary`` :568). Where the
+JAX package records the DAG into a SameDiff graph and lets ``jax.grad``
+derive the backward, the port builds a :class:`GraphModule` that runs the
+nodes in order and takes PyTorch's autograd.
 
 The external contract is NCHW, as in the JAX package; the network body
 runs ``torch.channels_last``, so that a batch-norm input is an (R, C)
@@ -13,32 +14,57 @@ view of memory. A ``BatchNormalization`` node whose only consumer is a
 ReLU ``ActivationLayer`` becomes one fused BN+ReLU module (the
 activation node passes its input through), so that its backward is the
 BN+ReLU kernel pair with the mask.
+
+``fit`` takes the JAX signature and SameDiff's fit tiers
+(``autodiff/window.py``): the graph owns its train step
+(``window.StepOwner``), so the scanned epoch and fused windows are CUDA
+graph replays on the card. The step casts once, where the batch is
+bound, and runs under the mixed-precision policy of the JAX train step:
+the float32 masters cast to the compute dtype in each module, the loss
+heads under ``MixedPrecision.softmax_dtype``, the loss summed in float32
+and multiplied by ``loss_scale`` before the backward, the gradients
+divided by it.
+
+Not ported yet, each refused by name: ``fit(accum_steps=...)``,
+``fit(sentinel=...)``, ``evaluate``, ``save``/``load``,
+``capture_training_state``/``restore_training_state`` and
+``serving_spec``; recurrent inputs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from deeplearning4j_tpu_torch.autodiff import window
 from deeplearning4j_tpu_torch.autodiff.training import (History,
                                                         MixedPrecision,
                                                         TrainingConfig,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.convert import params_to_jax
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
-from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd, stage_
+from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.activations import (activation_fn,
                                                      resolve_activation)
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer, BaseLayer, BatchNorm, BatchNormalization, BuildContext,
-    Head, InputType)
+    Head, InputType, running_stats_frozen)
+from deeplearning4j_tpu_torch.nn.multilayer import _ArrayIterator, _not_ported
+from deeplearning4j_tpu_torch.ops import loss as loss_ops
 
 
 # ----------------------------------------------------------------------
+# graph vertices (JAX ``nn/graph.py`` :33-260). The body is logical NCHW
+# (channels-last in memory), so a vertex's feature axis is 1 for ff and
+# cnn inputs alike; recurrent inputs are refused (:func:`_refuse_rnn`).
 class GraphVertex:
+    """``output_type(itypes)``; ``build(ctx, itypes) -> nn.Module`` that
+    takes the inputs' tensors."""
+
     def output_type(self, itypes: List[InputType]) -> InputType:
         raise NotImplementedError
 
@@ -46,27 +72,177 @@ class GraphVertex:
         raise NotImplementedError
 
 
-class Add(nn.Module):
+def _refuse_rnn(vertex: GraphVertex, itypes: List[InputType]) -> None:
+    if any(t.kind == "rnn" for t in itypes):
+        raise NotImplementedError(
+            f"{type(vertex).__name__} on rnn input is not ported yet "
+            f"(ROADMAP queue 1 item 10: recurrent layers)")
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: the JAX package's vertex constants
+    take the compute dtype (a weak-typed scalar, or the mixed-precision
+    cast)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+class VertexFn(nn.Module):
+    """A vertex: ``fn`` of its input tensors; ``cnn`` outputs are kept
+    channels-last in memory."""
+
+    def __init__(self, fn, cnn: bool):
+        super().__init__()
+        self.fn, self.cnn = fn, cnn
+
     def forward(self, *xs):
+        out = self.fn(*xs)
+        return out.contiguous(memory_format=torch.channels_last) \
+            if self.cnn else out
+
+
+def _cnn(itypes: List[InputType]) -> bool:
+    return itypes[0].kind == "cnn"
+
+
+@dataclasses.dataclass
+class MergeVertex(GraphVertex):
+    """Concatenation along the feature axis (JAX ``MergeVertex`` :60)."""
+
+    def output_type(self, itypes):
+        n = sum(t.dims[0] for t in itypes)
+        return InputType(itypes[0].kind, (n,) + itypes[0].dims[1:])
+
+    def build(self, ctx, itypes):
+        return VertexFn(lambda *xs: torch.cat(xs, dim=1), _cnn(itypes))
+
+
+def _average(*xs):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc * _scalar_in(1.0 / len(xs), acc.dtype)
+
+
+def _fold(fn):
+    def run(*xs):
         acc = xs[0]
         for x in xs[1:]:
-            acc = acc + x
+            acc = fn(acc, x)
         return acc
+    return run
+
+
+_ELEMENTWISE = {"add": _fold(torch.add), "subtract": _fold(torch.sub),
+                "product": _fold(torch.mul), "average": _average,
+                "max": _fold(torch.maximum)}
 
 
 @dataclasses.dataclass
 class ElementWiseVertex(GraphVertex):
-    """Pointwise combine. This slice ports Add (ResNet's shortcuts)."""
+    """Pointwise combine, left to right: Add, Subtract, Product, Average
+    (the sum times ``1/n``) or Max (JAX ``ElementWiseVertex`` :88)."""
     op: str = "Add"
 
     def output_type(self, itypes):
         return itypes[0]
 
     def build(self, ctx, itypes):
-        if self.op.lower() != "add":
-            raise NotImplementedError(
-                f"element-wise op {self.op!r} is not ported yet (Add)")
-        return Add()
+        fn = _ELEMENTWISE.get(self.op.lower())
+        if fn is None:
+            raise ValueError(f"unknown element-wise op {self.op!r}; known: "
+                             f"Add, Subtract, Product, Average, Max")
+        return VertexFn(fn, _cnn(itypes))
+
+
+@dataclasses.dataclass
+class SubsetVertex(GraphVertex):
+    """Features ``from_idx`` to ``to_idx`` inclusive (JAX
+    ``SubsetVertex`` :122)."""
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, itypes):
+        n = self.to_idx - self.from_idx + 1
+        return InputType(itypes[0].kind, (n,) + itypes[0].dims[1:])
+
+    def build(self, ctx, itypes):
+        lo, hi = self.from_idx, self.to_idx + 1
+        return VertexFn(lambda x: x[:, lo:hi], _cnn(itypes))
+
+
+@dataclasses.dataclass
+class ScaleVertex(GraphVertex):
+    """``x * scale_factor`` (JAX ``ScaleVertex`` :161)."""
+    scale_factor: float = 1.0
+
+    def output_type(self, itypes):
+        return itypes[0]
+
+    def build(self, ctx, itypes):
+        c = self.scale_factor
+        return VertexFn(lambda x: x * _scalar_in(c, x.dtype), _cnn(itypes))
+
+
+@dataclasses.dataclass
+class ShiftVertex(GraphVertex):
+    """``x + shift_factor`` (JAX ``ShiftVertex`` :175)."""
+    shift_factor: float = 0.0
+
+    def output_type(self, itypes):
+        return itypes[0]
+
+    def build(self, ctx, itypes):
+        c = self.shift_factor
+        return VertexFn(lambda x: x + _scalar_in(c, x.dtype), _cnn(itypes))
+
+
+def _l2_normalized(x, dims, eps: float):
+    norm = (x * x).sum(dim=dims, keepdim=True).sqrt()
+    return x / (norm + _scalar_in(eps, x.dtype))
+
+
+@dataclasses.dataclass
+class DotProductVertex(GraphVertex):
+    """The batch dot product of two ff inputs over the feature axis,
+    ``(B, 1)``, each input L2-normalized first with ``normalize`` (JAX
+    ``DotProductVertex`` :189)."""
+    normalize: bool = False
+
+    def output_type(self, itypes):
+        if itypes[0].kind != "ff":
+            raise ValueError(f"DotProductVertex supports ff/rnn inputs, not "
+                             f"{itypes[0].kind!r}")
+        return InputType.feed_forward(1)
+
+    def build(self, ctx, itypes):
+        normalize = self.normalize
+
+        def dot(a, b):
+            if normalize:
+                a = _l2_normalized(a, (1,), 1e-12)
+                b = _l2_normalized(b, (1,), 1e-12)
+            return (a * b).sum(dim=1, keepdim=True)
+        return VertexFn(dot, False)
+
+
+@dataclasses.dataclass
+class L2NormalizeVertex(GraphVertex):
+    """``x / (||x|| + eps)`` over every non-batch axis, or over
+    ``dimensions`` of the logical NCHW tensor (JAX ``L2NormalizeVertex``
+    :225)."""
+    eps: float = 1e-8
+    dimensions: Optional[Tuple[int, ...]] = None
+
+    def output_type(self, itypes):
+        return itypes[0]
+
+    def build(self, ctx, itypes):
+        dims = tuple(self.dimensions) if self.dimensions is not None \
+            else tuple(range(1, 1 + len(itypes[0].dims)))
+        eps = self.eps
+        return VertexFn(lambda x: _l2_normalized(x, dims, eps),
+                        _cnn(itypes))
 
 
 # ----------------------------------------------------------------------
@@ -178,24 +354,42 @@ def _fused_bn_relu(conf: ComputationGraphConfiguration) -> Dict[str, str]:
 class GraphModule(nn.ModuleDict):
     """The DAG's nodes by name, run in order. Inputs are NCHW; the body
     runs channels-last; cnn outputs go back to contiguous NCHW. Returns
-    one tensor per graph output (a loss head's pre-activation logits)."""
+    one tensor per graph output (a loss head's pre-activation logits).
+    ``fused`` maps each fused BN node to its ReLU node."""
 
     def __init__(self, conf: ComputationGraphConfiguration,
                  modules: Dict[str, nn.Module],
-                 types: Dict[str, InputType]):
+                 types: Dict[str, InputType], fused: Dict[str, str]):
         super().__init__(modules)
         self.conf = conf
         self.types = types
+        self.fused = fused
 
-    def forward(self, *inputs):
+    def activations(self, *inputs, unfused: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+        """Every input's and node's value. ``unfused``: a fused BN node's
+        value is its output before the ReLU, and its ReLU node applies
+        the ReLU (the values the JAX graph names)."""
         vals = {}
         for name, itype, x in zip(self.conf.inputs, self.conf.input_types,
                                   inputs):
             if itype.kind == "cnn":
                 x = x.contiguous(memory_format=torch.channels_last)
             vals[name] = x
+        relu_of = {act: bn for bn, act in self.fused.items()} \
+            if unfused else {}
         for node in self.conf.nodes:
-            vals[node.name] = self[node.name](*[vals[i] for i in node.inputs])
+            args = [vals[i] for i in node.inputs]
+            if node.name in relu_of:
+                vals[node.name] = torch.relu(args[0])
+            elif unfused and node.name in self.fused:
+                vals[node.name] = self[node.name](*args, relu=False)
+            else:
+                vals[node.name] = self[node.name](*args)
+        return vals
+
+    def forward(self, *inputs):
+        vals = self.activations(*inputs)
         return [vals[o].contiguous() if self.types[o].kind == "cnn"
                 else vals[o] for o in self.conf.outputs]
 
@@ -218,48 +412,52 @@ def _build_graph(conf: ComputationGraphConfiguration,
             if node.name in passthrough:
                 mod = nn.Identity()
         else:
-            mod = node.op.build(ctx, itypes)
+            _refuse_rnn(node.op, itypes)
             otype = node.op.output_type(itypes)
+            mod = node.op.build(ctx, itypes)
         modules[node.name] = mod
         types[node.name] = otype
-    return GraphModule(conf, modules, types)
+    return GraphModule(conf, modules, types, fused)
 
 
-def _split_batch(batch):
-    if hasattr(batch, "features"):
-        feats, labels = batch.features, batch.labels
-    else:
-        feats, labels = batch
-    feats = list(feats) if isinstance(feats, (list, tuple)) else [feats]
-    labels = list(labels) if isinstance(labels, (list, tuple)) else [labels]
-    return feats, labels
+def _loss_heads(conf: ComputationGraphConfiguration,
+                model: GraphModule) -> List[str]:
+    """The loss heads in the JAX package's label order: graph outputs
+    first, then any other head in node order."""
+    heads = [n for n in conf.outputs if isinstance(model[n], Head)]
+    return heads + [n.name for n in conf.nodes if n.name not in heads
+                    and isinstance(model[n.name], Head)]
 
 
-class ComputationGraph:
+class ComputationGraph(window.StepOwner):
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
         self.model: Optional[GraphModule] = None
         self.device: Optional[torch.device] = None
         self.training_config: Optional[TrainingConfig] = None
+        self._names: List[str] = []
         self._params: List[nn.Parameter] = []
+        self._heads: List[str] = []
         self._updater_state = None
-        self._scal: Optional[torch.Tensor] = None   # the step's scalar
         self._score = float("nan")
+        self._changed()
 
     def init(self, device: DeviceLike = None) -> "ComputationGraph":
         """Build the network on ``device`` (the CUDA card unless
         ``device="cpu"``)."""
-        mp = self.conf.mixed_precision
-        if mp is not None and (mp.loss_scale is not None
-                               or mp.softmax_dtype is not None):
-            raise NotImplementedError(
-                "ComputationGraph does not take MixedPrecision.loss_scale or "
-                "softmax_dtype yet; SameDiff.fit does")
         self.device = default_device(device)
         self.model = _build_graph(self.conf, self.device)
-        self._params = list(self.model.parameters())
-        self.training_config = TrainingConfig(updater=self.conf.updater)
+        named = list(self.model.named_parameters())
+        self._names = [n for n, _ in named]
+        self._params = [p for _, p in named]
+        self._heads = _loss_heads(self.conf, self.model)
+        self.training_config = TrainingConfig(
+            updater=self.conf.updater,
+            data_set_feature_mapping=list(self.conf.inputs),
+            data_set_label_mapping=[f"labels_{h}" for h in self._heads],
+            mixed_precision=self.conf.mixed_precision)
         self._updater_state = None
+        self._changed()
         return self
 
     def _require_init(self):
@@ -277,59 +475,131 @@ class ComputationGraph:
         return t.to(device=self.device, dtype=dtype)
 
     # ------------------------------------------------------------------
-    def output(self, *inputs) -> List[torch.Tensor]:
-        """Inference forward (running statistics); one tensor per graph
-        output, with each loss head's activation applied."""
+    # inference
+    def _activations(self, inputs, training: bool, unfused: bool):
+        """Every value of a forward in the configuration's dtype, under
+        no_grad: with the running statistics (``training=False``), or with
+        the batch statistics and the running ones left as they are."""
         self._require_init()
-        self.model.eval()
+        self.model.train(training)
         dtype = torch_dtype(self.conf.dtype)
-        with torch.no_grad():
-            outs = self.model(*[self._on_device(x, dtype) for x in inputs])
-        return [activation_fn(self.model[o].activation)(z)
-                if isinstance(self.model[o], Head) else z
-                for o, z in zip(self.conf.outputs, outs)]
+        xs = [self._on_device(x, dtype) for x in inputs]
+        with torch.no_grad(), running_stats_frozen(self.model):
+            return self.model.activations(*xs, unfused=unfused)
 
-    def _train_step(self, feats, labels) -> torch.Tensor:
-        cdt = self.compute_dtype
-        self.model.train()
-        xs = [self._on_device(x, cdt) for x in feats]
-        ys = [self._on_device(y, cdt) for y in labels]
-        heads = [(o, self.model[o]) for o in self.conf.outputs
-                 if isinstance(self.model[o], Head)]
-        if len(ys) != len(heads):
-            raise ValueError(f"{len(ys)} label arrays for {len(heads)} "
-                             f"loss heads")
-        with torch.enable_grad():
-            outs = dict(zip(self.conf.outputs, self.model(*xs)))
-            loss = sum(head.loss(outs[o], y).float()
-                       for (o, head), y in zip(heads, ys))
-        grads = torch.autograd.grad(loss, self._params)
+    def _activated(self, name: str, z: torch.Tensor) -> torch.Tensor:
+        """A loss head's output with its activation applied."""
+        mod = self.model[name]
+        return activation_fn(mod.activation)(z) if isinstance(mod, Head) \
+            else z
+
+    def output(self, *inputs, training: bool = False) -> List[torch.Tensor]:
+        """The forward, one tensor per graph output (NCHW for cnn), each
+        loss head's activation applied. ``training=True`` normalizes with
+        the batch statistics and leaves the running statistics as they
+        are, as the JAX package's functional training forward does."""
+        vals = self._activations(inputs, training, unfused=False)
+        return [self._activated(o, vals[o].contiguous()
+                                if self.model.types[o].kind == "cnn"
+                                else vals[o]) for o in self.conf.outputs]
+
+    def feed_forward(self, *inputs, training: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """The value of every input and every named vertex (JAX
+        ``ComputationGraph.feed_forward``): a fused BN node's value before
+        its ReLU, a loss head's after its activation; cnn values are
+        logical NCHW."""
+        vals = self._activations(inputs, training, unfused=True)
+        return {n: self._activated(n, v) if n in self.model else v
+                for n, v in vals.items()}
+
+    # ------------------------------------------------------------------
+    # the train step (window.StepOwner)
+    def _train_step(self, names, ph, state, scal) -> torch.Tensor:
+        """Forward on the bound batch ``ph`` (inputs and labels by name,
+        in the compute dtype), the loss heads' losses summed in float32,
+        the backward into the float32 masters (the trainables ``names``,
+        all of them), the updater in place with the step's scalar
+        ``scal``. Returns the (unscaled) loss on the device."""
         tc = self.training_config
-        if self._updater_state is None:
-            self._updater_state = tc.updater.init(self._params)
-            self._scal = torch.zeros(1, dtype=torch.float32,
-                                     device=self._params[0].device)
-        stage_(self._scal, tc.updater.step_scalars([tc.iteration_count]))
-        tc.updater.update_(self._params, grads, self._updater_state,
-                           self._scal[0])
-        tc.iteration_count += 1
+        mp = tc.mixed_precision
+        self.model.train()
+        xs = [ph[n] for n in tc.data_set_feature_mapping]
+        ys = [ph[n] for n in tc.data_set_label_mapping]
+        with torch.enable_grad(), loss_ops.softmax_dtype_scope(
+                mp.softmax_dtype if mp is not None else None):
+            vals = self.model.activations(*xs)
+            loss = sum(self.model[h].loss(vals[h], y).float()
+                       for h, y in zip(self._heads, ys))
+            del vals
+        scale = mp.loss_scale if mp is not None else None
+        grads = torch.autograd.grad(loss * scale if scale else loss,
+                                    self._params, allow_unused=True,
+                                    materialize_grads=True)
+        if scale:
+            grads = [g / scale for g in grads]
+        tc.updater.update_(self._params, grads, state, scal)
         return loss.detach()
 
-    def fit(self, data, epochs: int = 1) -> History:
-        """Train on an iterable of (features, labels) batches or of
-        ``DataSet``s, ``epochs`` times over. One step per batch: forward,
-        autograd backward, the updater in place on the masters."""
+    def _fit_state(self):
+        if self._updater_state is None:
+            self._updater_state = self.training_config.updater.init(
+                self._params)
+            self._changed()
+        return self._names, self._updater_state
+
+    def _prep_placeholders(self, batch) -> Dict[str, torch.Tensor]:
+        """A named batch on the device in the compute dtype, cast once
+        here (the step itself copies nothing to the device)."""
+        cdt = self.compute_dtype
+        return {n: self._on_device(v, cdt) for n, v in batch.items()}
+
+    def _placeholder_dtype(self, name: str, value) -> torch.dtype:
+        return self.compute_dtype
+
+    def warmup_restore_set(self, names, state) -> List[torch.Tensor]:
+        """What a train step writes in place: every parameter, its
+        updater state and every buffer of the module (the batch norms'
+        running statistics)."""
+        return self._params + [t for s in state for t in s] + \
+            list(self.model.buffers())
+
+    def _refuse_random_ops(self) -> None:
+        """None to refuse: a layer with dropout is refused when the graph
+        is built (ROADMAP queue 1 item 5)."""
+
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, epochs: int = 1, batch_size: int = 32,
+            listeners: Sequence = (), fused_steps: Optional[int] = None,
+            accum_steps: Optional[int] = None,
+            sentinel: Optional[bool] = None) -> History:
+        """Train on an iterator of (features, labels) batches or
+        ``DataSet``s (e.g. a ``DeviceCachedIterator``), or on a
+        single-input feature array with ``labels=``, in batches of
+        ``batch_size``. ``fused_steps`` sets the config's K steps a
+        dispatch for this and later fits. The tier is SameDiff's
+        (``autodiff/window.py``): the scanned epoch with no listeners,
+        ``fused_steps <= 1`` and an iterator with ``stacked_batches``;
+        fused windows of K steps when K > 1; else one step a batch.
+        ``listeners`` get each step's loss in bursts."""
         self._require_init()
-        history = History()
-        for epoch in range(epochs):
-            losses = [self._train_step(*_split_batch(b)) for b in data]
-            if not losses:
-                raise ValueError("fit got no batches")
-            history.add_epoch(epoch, torch.stack(losses).mean().item())
+        if accum_steps is not None:
+            _not_ported("fit(accum_steps=...)", "3: gradient accumulation",
+                        "ComputationGraph")
+        if sentinel is not None:
+            _not_ported("fit(sentinel=...)", "3: the divergence sentinel",
+                        "ComputationGraph")
+        if fused_steps is not None:
+            self.training_config.fused_steps = int(fused_steps)
+        if labels is not None:
+            data = _ArrayIterator(np.asarray(data), np.asarray(labels),
+                                  batch_size)
+        history = window.fit(self, data, epochs, listeners)
         self._score = history.final_loss()
         return history
 
     def score(self) -> float:
+        """The last fit's final epoch loss."""
         return self._score
 
     def params(self) -> Dict[str, np.ndarray]:
@@ -341,3 +611,38 @@ class ComputationGraph:
     def num_params(self) -> int:
         self._require_init()
         return sum(p.numel() for p in self._params)
+
+    def summary(self) -> str:
+        """The vertex table, as the JAX package prints it."""
+        lines = [f"ComputationGraph: {len(self.conf.nodes)} vertices, "
+                 f"inputs {list(self.conf.inputs)}, outputs "
+                 f"{list(self.conf.outputs)}, "
+                 f"{self.num_params() if self.model is not None else '?'} "
+                 f"params"]
+        for node in self.conf.nodes:
+            lines.append(f"  {node.name:<24} {type(node.op).__name__:<28} "
+                         f"<- {', '.join(node.inputs)}")
+        return "\n".join(lines)
+
+    # -- not ported yet ---------------------------------------------------
+    def evaluate(self, *a, **k):
+        _not_ported("evaluate", "10: evaluation/", "ComputationGraph")
+
+    def save(self, *a, **k):
+        _not_ported("save", "10: model_serde", "ComputationGraph")
+
+    @staticmethod
+    def load(*a, **k):
+        _not_ported("load", "10: model_serde", "ComputationGraph")
+
+    def capture_training_state(self, *a, **k):
+        _not_ported("capture_training_state", "7: checkpoint/",
+                    "ComputationGraph")
+
+    def restore_training_state(self, *a, **k):
+        _not_ported("restore_training_state", "7: checkpoint/",
+                    "ComputationGraph")
+
+    def serving_spec(self, *a, **k):
+        _not_ported("serving_spec", "2.6: ParallelInference",
+                    "ComputationGraph")

@@ -26,6 +26,7 @@ running statistics stay in the configuration's dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -44,8 +45,10 @@ from deeplearning4j_tpu_torch.ops.reduce import reduce_mean
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class InputType:
-    kind: str                      # "ff" | "cnn"
-    dims: Tuple[int, ...]          # ff: (n,); cnn: (c, h, w)
+    """ff: (n,); cnn: (c, h, w); rnn: (features, timesteps), taken by no
+    ported layer or vertex yet (ROADMAP queue 1 item 10)."""
+    kind: str                      # "ff" | "cnn" | "rnn"
+    dims: Tuple[int, ...]
 
     @staticmethod
     def feed_forward(n: int) -> "InputType":
@@ -54,6 +57,10 @@ class InputType:
     @staticmethod
     def convolutional(height: int, width: int, channels: int) -> "InputType":
         return InputType("cnn", (int(channels), int(height), int(width)))
+
+    @staticmethod
+    def recurrent(size: int, timesteps: int = -1) -> "InputType":
+        return InputType("rnn", (int(size), int(timesteps)))
 
     @property
     def flat_size(self) -> int:
@@ -401,9 +408,11 @@ class SubsamplingLayer(BaseLayer):
 # ----------------------------------------------------------------------
 class BatchNorm(nn.Module):
     """Batch norm over channel axis 1. In training mode it normalizes with
-    the batch statistics and updates the running ones in place; ``relu``
-    (set by the graph when the only consumer is a ReLU activation) fuses
-    that ReLU, so that the backward is one kernel pair with the mask."""
+    the batch statistics and updates the running ones in place, unless
+    ``update_stats`` is off (:func:`running_stats_frozen`); ``relu`` (set
+    by the graph when the only consumer is a ReLU activation) fuses that
+    ReLU, so that the backward is one kernel pair with the mask. A call
+    may pass ``relu`` to override it (the graph's unfused forward)."""
 
     def __init__(self, ctx, n, decay, eps):
         super().__init__()
@@ -413,20 +422,39 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", ctx.tensor(np.ones((n,))))
         self.decay, self.eps = decay, eps
         self.relu = False
+        self.update_stats = True
 
-    def forward(self, x):
+    def forward(self, x, relu: Optional[bool] = None):
+        relu = self.relu if relu is None else relu
         gamma, beta = self.gamma.to(x.dtype), self.beta.to(x.dtype)
         if not self.training:
             out = nn_ops.batchnorm(x, self.mean, self.var, gamma, beta,
                                    self.eps)
-            return torch.relu(out) if self.relu else out
+            return torch.relu(out) if relu else out
         out, new_mean, new_var = nn_ops.batchnorm_train(
             x, gamma, beta, self.mean, self.var, self.decay, self.eps,
-            relu=self.relu)
-        with torch.no_grad():
-            self.mean.copy_(new_mean)
-            self.var.copy_(new_var)
+            relu=relu)
+        if self.update_stats:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.var.copy_(new_var)
         return out
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """While active, a training-mode forward of ``module``'s batch norms
+    normalizes with the batch statistics and leaves the running ones as
+    they are (the JAX package's training forward is functional: it
+    returns the new statistics and ``output`` drops them)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 @dataclasses.dataclass

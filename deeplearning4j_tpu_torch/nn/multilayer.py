@@ -40,9 +40,9 @@ _WANTED_KIND = {DenseLayer: ("ff",), OutputLayer: ("ff",),
                 ConvolutionLayer: ("cnn",), SubsamplingLayer: ("cnn",)}
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"MultiLayerNetwork.{what} is not ported yet "
-                              f"(ROADMAP queue 1 item {item})")
+def _not_ported(what: str, item: str, owner: str = "MultiLayerNetwork"):
+    raise NotImplementedError(f"{owner}.{what} is not ported yet (ROADMAP "
+                              f"queue 1 item {item})")
 
 
 def _adapt_itype(itype: InputType, layer: BaseLayer, idx: int) -> InputType:
@@ -236,7 +236,8 @@ class MultiLayerNetwork:
 
 
 class _ArrayIterator:
-    """In-memory batches over feature/label arrays (``fit(X, Y)``)."""
+    """In-memory batches over feature/label arrays (``fit(X, Y)`` of
+    ``MultiLayerNetwork`` and ``ComputationGraph``)."""
 
     def __init__(self, X, Y, batch: int):
         self.Xs = list(X) if isinstance(X, (list, tuple)) else [X]

@@ -14,7 +14,7 @@
   the host code they ride on.
 
 ``ParallelInference``, the load generator and the fleet are not ported
-yet (ROADMAP queue 1 items 5 and 9).
+yet (ROADMAP queue 1 items 2.6 and 8).
 """
 from deeplearning4j_tpu_torch.serving.batching import BucketSpec, pow2_buckets
 from deeplearning4j_tpu_torch.serving.generative import (

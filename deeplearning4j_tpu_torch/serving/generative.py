@@ -455,7 +455,7 @@ class GenerativeServer:
         if telemetry_port is not None:
             raise NotImplementedError(
                 "the telemetry endpoint (telemetry_port) is not ported yet: "
-                "it waits for monitor/server.py (ROADMAP queue 1 item 5)")
+                "it waits for monitor/server.py (ROADMAP queue 1 item 2.5)")
         self.device = default_device(device)
         self.spec = spec
         self.max_slots = int(max_slots)

@@ -199,7 +199,7 @@ class PagedGenerativeServer(GenerativeServer):
         if int(tp) > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) is not ported yet "
-                "(ROADMAP queue 1 item 5)")
+                "(ROADMAP queue 1 item 2.7)")
         # subclass knobs FIRST: super().__init__ calls the _make_metrics
         # and _init_kv hooks below, which read them
         self.block_size = int(block_size)

@@ -176,9 +176,14 @@ def test_resnet_step_runs_every_bn_backward_through_the_kernels(card):
     conf = ResNet50(height=32, width=32, num_classes=4).conf()
     conf.mixed_precision = MixedPrecision()
     net = ComputationGraph(conf).init()
+    it = DeviceCachedIterator(x, y, batch_size=8)
+    # the first fit warms up (two eager steps, which launch) and captures
+    # the one-step epoch; the second replays it
+    net.fit(it)
     bn_relu.reset_launches()
-    loss = net.fit(DeviceCachedIterator(x, y, batch_size=8)).final_loss()
+    loss = net.fit(it).final_loss()
     assert np.isfinite(loss)
+    assert net.last_fit_stats["graph_replays_per_epoch"] == 1
     # 53 + 53: one phase-1 and one phase-2 launch per BN backward
     assert bn_relu.LAUNCHES == {"bn_relu_bwd_phase1": 33,
                                 "bn_relu_bwd_phase2": 33,
@@ -841,6 +846,88 @@ def test_gpt_tiny_scanned_epoch_on_card_matches_per_step(card):
                                    err_msg=n)
     np.testing.assert_allclose(hist.step_losses, href.step_losses,
                                rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# ComputationGraph on the fit tiers: ResNet-50 at 32x32, float32
+def _resnet_tiny(card, weights=None):
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50(height=32, width=32, num_classes=4).build(card)
+    if weights is not None:
+        net.model.load_state_dict(weights)
+    return net
+
+
+def _resnet_data(card, steps=3, batch=8):
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(steps * batch, 3, 32, 32)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, steps * batch)]
+    return DeviceCachedIterator(x, y, batch, device=card)
+
+
+@pytest.mark.cuda
+def test_resnet_scanned_epoch_on_card_matches_per_step(card):
+    """The scanned epoch (one replay an epoch, the BN kernels inside it:
+    33 + 20 launches of each phase a step) against the per-step tier
+    from the same weights, two epochs of 3 steps: every parameter, every
+    running statistic and every step's loss, within the tier
+    tolerance."""
+    it = _resnet_data(card)
+    ref = _resnet_tiny(card)
+    weights = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    hist_ref = ref.fit(it, epochs=2, listeners=[_quiet()])
+    assert ref.last_fit_stats["tier"] == "per_step"
+    net = _resnet_tiny(card, weights)
+    net.fit(it, epochs=1)
+    bn_relu.reset_launches()
+    hist = net.fit(it, epochs=1)
+    st = net.last_fit_stats
+    assert st["tier"] == "scanned_epoch" and st["window_captures"] == 0
+    assert st["graph_replays_per_epoch"] == 1
+    assert bn_relu.LAUNCHES == {
+        bn_relu.kernel_name(p, r): (33 if r else 20) * 3
+        for p in (1, 2) for r in (True, False)}
+    _same_params(net, ref)
+    np.testing.assert_allclose(hist.step_losses, hist_ref.step_losses[3:],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_two_resnet_scanned_runs_are_bit_equal_on_card(card, monkeypatch):
+    """Two scanned fits from one start, cuDNN deterministic: the same
+    bits in every parameter, running statistic and loss."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    it = _resnet_data(card)
+    first = _resnet_tiny(card)
+    weights = {k: v.clone() for k, v in first.model.state_dict().items()}
+    runs = []
+    for net in (first, _resnet_tiny(card, weights)):
+        hist = net.fit(it, epochs=2)
+        runs.append((net.params(), hist.step_losses))
+    (pa, la), (pb, lb) = runs
+    assert la == lb
+    for k, v in pa.items():
+        np.testing.assert_array_equal(pb[k], v, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_a_replay_leaves_the_bn_scratch_where_it_was(card):
+    """The warm-up steps grow the BN phase-1 scratch before the capture;
+    replays (and a fit that captures nothing new) neither grow nor move
+    it."""
+    net = _resnet_tiny(card)
+    it = _resnet_data(card)
+    net.fit(it, epochs=1)
+    ws, cnt = bn_relu._SCRATCH[card.index or 0]
+    retired = len(bn_relu._RETIRED)
+    net.fit(it, epochs=2)
+    assert net.last_fit_stats["window_captures"] == 0
+    torch.cuda.synchronize()
+    ws2, cnt2 = bn_relu._SCRATCH[card.index or 0]
+    assert (ws2.data_ptr(), cnt2.data_ptr()) == (ws.data_ptr(),
+                                                 cnt.data_ptr())
+    assert len(bn_relu._RETIRED) == retired
 
 
 # ----------------------------------------------------------------------
