@@ -252,6 +252,32 @@ Phases, in order; any failure exits non-zero:
    draft (the yardstick), and 8 requests through a
    float32 target with a float32 self-draft, each against
    ``greedy_decode``.
+20. parity: BERT_TINY (batch 4, seq 16) in float64, written once as a
+   frozen GraphDef (``build_bert_graphdef``) and imported by ``bert_base``
+   on the card and on the CPU, a ragged mask and both token types: every
+   gradient, then three Adam steps through ``fit`` (the card's scanned
+   tier: one replay), each tensor to 1e-6 of its magnitude (the
+   attention's key biases, whose gradient is zero but for rounding: below
+   1e-9 of the largest gradient on both sides, within 1e-8 of zero after
+   the steps).
+21. main path: BERT-base (``BERT_BASE``: vocab 30522, hidden 768, 12
+   layers, 12 heads of 64, ffn 3072) at batch 16, seq 128, 2 labels,
+   Adam(2e-5), bf16 MixedPrecision, as ``bench.py`` ``bench_bert_base``
+   runs it: ``bert_base`` writes the GraphDef and imports it with the
+   port's TF importer (seconds, ops), then ``SameDiff.fit(
+   DeviceCachedIterator([ids, mask, tt], [labels], 16))`` over 16 steps:
+   a warm-up epoch (the capture; the dtype of
+   ``bert/encoder/sequence_output`` inside the bf16 step, which must be
+   float32), a warm-up of the per-step tier, then from one saved state a
+   timed scanned epoch (one replay, no capture) and a timed per-step
+   epoch, whose losses, parameters and Adam state must be bit-equal
+   (samples/s, step ms, peak memory, the graph pool), then one replay
+   under ``torch.profiler``: device launches, busy time and idle share a
+   step, device time by kernel group (matmul, elementwise, reductions,
+   softmax, gather/one-hot/scatter, Adam); then the scanned epoch once
+   more, captured again with TF32 allowed in float32 matmuls (PyTorch's
+   default, kept by the port, is off): what float32 without TF32 costs.
+   No hand-written kernel is on this path.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
@@ -4259,6 +4285,306 @@ def spec_kernel_records(t, serve, errs):
 
 
 # ----------------------------------------------------------------------
+# BERT-base from a frozen TF GraphDef (phases 20-21)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 16, 128, 16
+BERT_FEATURES = ["input_ids", "input_mask", "token_type_ids"]
+
+
+def _bert_data(vocab, n, seq, seed=0, ragged=False):
+    """``bench.py``'s ``bench_bert_base`` data (ids uniform over the
+    vocabulary, mask all ones, token types 0, one-hot labels of 2 classes,
+    seed 0); ``ragged`` masks the tail of every third row and gives the
+    second half of each row token type 1."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (n, seq)).astype(np.int32)
+    mask = np.ones((n, seq), np.int32)
+    tt = np.zeros((n, seq), np.int32)
+    if ragged:
+        mask[::3, seq // 2:] = 0
+        tt[:, seq // 2:] = 1
+    labels = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
+    return [ids, mask, tt], [labels]
+
+
+def _bert_config(sd, mixed_precision, lr):
+    from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
+                                                   TrainingConfig)
+    from deeplearning4j_tpu_torch.learning import Adam
+    sd.training_config = TrainingConfig(
+        updater=Adam(lr), data_set_feature_mapping=BERT_FEATURES,
+        data_set_label_mapping=["labels"],
+        mixed_precision=MixedPrecision() if mixed_precision else None)
+
+
+def phase_bert_parity():
+    """BERT_TINY (batch 4, seq 16) in float64, imported from the same
+    GraphDef bytes on the card and on the CPU, with a ragged mask and both
+    token types: every gradient of ``calculate_gradients``, then three
+    Adam steps through ``fit`` (the card's scanned tier captures them as
+    one CUDA graph), each tensor to 1e-6 of its magnitude."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.zoo import BERT_TINY, bert_base
+    feats, labels = _bert_data(BERT_TINY.vocab_size, 16, 16, seed=3,
+                               ragged=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sd = bert_base(BERT_TINY, batch=4, seq_len=16, num_labels=2, seed=7,
+                       device=dev)
+        for n, a in sd.trainable_params().items():
+            sd.set_arr_for_var(n, a.double())
+        grads = sd.calculate_gradients(
+            {**dict(zip(BERT_FEATURES, (f[:4] for f in feats))),
+             "labels": labels[0][:4]})
+        _bert_config(sd, False, 1e-3)
+        h = sd.fit(DeviceCachedIterator([f[4:] for f in feats],
+                                        [labels[0][4:]], batch_size=4,
+                                        device=dev))
+        res[dev] = (grads, h.step_losses, dict(sd.trainable_params()),
+                    dict(sd.last_fit_stats))
+    (gc, lc, pc, sc), (gh, lh, ph, _) = res["cuda"], res["cpu"]
+    # the key biases' gradient is zero but for rounding (the softmax takes
+    # away what they add to a row's scores): held to be that on both sides
+    # (below 1e-9 of the largest gradient), and their Adam steps to stay
+    # within 1e-8 of zero; every other tensor to 1e-6 of its magnitude
+    top = max(float(g.abs().max()) for g in gh.values())
+    noise = {n for n in gh if float(gh[n].abs().max()) <= 1e-9 * top}
+    keys = {n for n in gh if n.endswith("attention/self/key/bias")}
+    noise_ok = noise == keys and all(
+        float(gc[n].abs().max()) <= 1e-9 * top and
+        float(pc[n].abs().max()) <= 1e-8 and
+        float(ph[n].abs().max()) <= 1e-8 for n in keys)
+    eg = max(_tensor_rel(gc[n], gh[n]) for n in gh if n not in keys)
+    ep = max(_tensor_rel(pc[n], ph[n]) for n in ph if n not in keys)
+    el = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    log(f"  float64 BERT_TINY, card vs cpu over {len(gh)} tensors: "
+        f"gradients worst {eg:.2e}, params after 3 Adam steps worst "
+        f"{ep:.2e}, losses {lc} vs {lh} (worst {el:.2e}); tol 1e-6; the "
+        f"{len(keys)} key biases' gradients rounding noise on both sides: "
+        f"{noise_ok}; the card's fit: {sc['tier']}, "
+        f"{sc['graph_replays_per_epoch']} graph replay(s)")
+    if not (eg <= 1e-6 and ep <= 1e-6 and el <= 1e-6 and noise_ok and
+            len(lc) == 3 and sc["graph_replays_per_epoch"] == 1):
+        raise SystemExit("BERT_TINY on the card disagrees with the CPU")
+
+
+#: the device-time groups of a replayed BERT step, by kernel name (a
+#: replay's kernels have no host op to charge them to)
+BERT_KERNEL_GROUPS = (
+    ("Adam (_foreach)", ("multi_tensor_apply", "foreach")),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "Kernel2", "cutlass", "xmma")),
+    ("softmax", ("softmax", "SoftMax")),
+    ("gather / one-hot / scatter", ("index", "Index", "scatter", "gather",
+                                    "Sort", "sort", "radix", "Radix")),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "Elementwise")),
+)
+
+
+def _bert_group(kernel_name):
+    for group, keys in BERT_KERNEL_GROUPS:
+        if any(k in kernel_name for k in keys):
+            return group
+    return "other"
+
+
+def _bert_epoch(sd, data, label, card):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = sd.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sd.last_fit_stats
+    r = {"tier": st["tier"], "graph_replays_per_epoch":
+         st["graph_replays_per_epoch"], "window_captures":
+         st["window_captures"], "step_ms": 1000 * wall / BERT_STEPS,
+         "samples_per_s": BERT_BATCH * BERT_STEPS / wall,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+         "losses": hist.step_losses}
+    log(f"  {label} ({r['tier']}, {r['graph_replays_per_epoch']} graph "
+        f"replays, {r['window_captures']} captures): {BERT_STEPS} steps in "
+        f"{wall:.3f} s: step {r['step_ms']:.2f} ms, "
+        f"{r['samples_per_s']:.1f} samples/s, peak memory "
+        f"{r['peak_mem_gib']:.2f} GiB allocated ({r['peak_reserved_gib']:.2f}"
+        f" GiB reserved, graph pools included)  [{card}]")
+    if not all(np.isfinite(r["losses"])):
+        raise SystemExit(f"BERT-base {label}: losses {r['losses']}")
+    return r
+
+
+def profile_bert_replay(sd, it, step_ms, card):
+    """One scanned epoch (one replay) under torch.profiler: device
+    launches, busy time and idle share a step, and device time a step by
+    kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sd.fit(it)
+        torch.cuda.synchronize()
+    if sd.last_fit_stats["graph_replays_per_epoch"] != 1:
+        raise SystemExit("the profiled BERT epoch was not one replay")
+    n_act, n_kernels, busy, by_name = device_activity(prof)
+    if busy == 0:
+        raise SystemExit("the profiler recorded no device time")
+    by_group = {}
+    for name, ms in by_name.items():
+        g = _bert_group(name)
+        by_group[g] = by_group.get(g, 0.0) + ms / BERT_STEPS
+    busy /= BERT_STEPS
+    r = {"launches": n_act / BERT_STEPS, "kernels": n_kernels / BERT_STEPS,
+         "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+         "by_group_ms": by_group}
+    log(f"  profiler, one replay of the scanned epoch: {r['launches']:.1f} "
+        f"device launches a step ({r['kernels']:.1f} kernels), busy "
+        f"{busy:.3f} ms a step, idle share {r['idle_share']:.3f} against the "
+        f"timed {step_ms:.2f} ms step  [{card}]")
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:8.3f} ms  {ms / busy:.3f} of busy  {g}")
+    for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms / BERT_STEPS:8.3f} ms  {key[:100]}")
+    return r
+
+
+def phase_bert(card):
+    """BERT-base (``BERT_BASE``: vocab 30522, hidden 768, 12 layers, 12
+    heads of 64, ffn 3072), batch 16, seq 128, the pooled classifier with 2
+    labels and softmax-CE, Adam(2e-5), bf16 MixedPrecision, as
+    ``bench_bert_base`` runs it: ``bert_base`` writes the frozen GraphDef
+    and imports it with the port's TF importer onto the card, then
+    ``SameDiff.fit(DeviceCachedIterator([ids, mask, tt], [labels], 16))``
+    on the scanned tier (one CUDA graph replay an epoch). A warm-up epoch
+    (warm-up steps, the capture, one replay) and a warm-up of the per-step
+    tier (the same batches as a list); then, from one saved state, a timed
+    scanned epoch and a timed per-step epoch, whose losses and parameters
+    must be bit-equal; then one profiled replay, and the scanned epoch
+    captured again with TF32 allowed (what its absence costs)."""
+    from deeplearning4j_tpu_torch.autodiff import samediff
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.zoo import BERT_BASE, bert
+    cfg = BERT_BASE
+    build_s = []
+    real_build = bert.build_bert_graphdef
+
+    def timed_build(*a, **k):
+        t = time.perf_counter()
+        pb = real_build(*a, **k)
+        build_s.append((time.perf_counter() - t, len(pb)))
+        return pb
+
+    bert.build_bert_graphdef = timed_build
+    t0 = time.perf_counter()
+    try:
+        sd = bert.bert_base(cfg, batch=BERT_BATCH, seq_len=BERT_SEQ,
+                            num_labels=2, seed=0)
+    finally:
+        bert.build_bert_graphdef = real_build
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in sd.trainable_params().values())
+    ops = {}
+    for node in sd.ops():
+        ops[node.op] = ops.get(node.op, 0) + 1
+    log(f"  GraphDef written in {build_s[0][0]:.1f} s ({build_s[0][1]} "
+        f"bytes), imported onto the card in {total - build_s[0][0]:.1f} s: "
+        f"{len(sd.ops())} ops, {len(sd.trainable_params())} trainable "
+        f"tensors ({n_params} params)")
+    log(f"  ops by name: {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    _bert_config(sd, True, 2e-5)
+    feats, labels = _bert_data(cfg.vocab_size, BERT_BATCH * BERT_STEPS,
+                               BERT_SEQ)
+    it = DeviceCachedIterator(feats, labels, batch_size=BERT_BATCH)
+    # the dtypes the step's ops give, read while the warm-up records them
+    seen = {}
+    real_run = samediff.SameDiff._run_nodes
+
+    def recording(nodes, env):
+        real_run(nodes, env)
+        for node in nodes:
+            for o in node.outputs:
+                if o in env:
+                    seen[o] = env[o].dtype
+
+    samediff.SameDiff._run_nodes = staticmethod(recording)
+    t0 = time.perf_counter()
+    try:
+        warm = sd.fit(it)
+        torch.cuda.synchronize()
+    finally:
+        samediff.SameDiff._run_nodes = staticmethod(real_run)
+    seq_dt = seen.get("bert/encoder/sequence_output")
+    log(f"  warm-up epoch ({sd.last_fit_stats['tier']}: warm-up steps, "
+        f"capture of {BERT_STEPS} steps, one replay) in "
+        f"{time.perf_counter() - t0:.1f} s, losses "
+        f"{[round(v, 4) for v in warm.step_losses]}; inside the bf16 step "
+        f"bert/encoder/sequence_output is {seq_dt}, the embeddings' gather "
+        f"{seen.get('bert/embeddings/gather')}, the logits "
+        f"{seen.get('classifier/logits_b')}")
+    if seq_dt != torch.float32:
+        raise SystemExit(f"sequence_output is {seq_dt} in the bf16 step; the "
+                         f"JAX dtype rule makes it float32")
+    steps = list(it)
+    t0 = time.perf_counter()
+    sd.fit(steps)
+    torch.cuda.synchronize()
+    log(f"  per-step warm-up epoch in {time.perf_counter() - t0:.1f} s")
+    pool = graph_pool_gib(sd)
+    # one saved state for both timed epochs
+    tc = sd.training_config
+    live = sd.warmup_restore_set(*sd._fit_state())
+    saved = [t.detach().clone() for t in live]
+    counters = (tc.iteration_count, tc.epoch_count)
+    scanned = _bert_epoch(sd, it, "timed scanned epoch", card)
+    if scanned["tier"] != "scanned_epoch" or \
+            scanned["graph_replays_per_epoch"] != 1 or \
+            scanned["window_captures"]:
+        raise SystemExit(f"BERT-base's timed epoch: {sd.last_fit_stats}")
+    after_scanned = [t.detach().clone() for t in live]
+    with torch.no_grad():
+        for t, s in zip(live, saved):
+            t.copy_(s)
+    tc.iteration_count, tc.epoch_count = counters
+    per_step = _bert_epoch(sd, steps, "timed per-step epoch (the yardstick)",
+                           card)
+    if per_step["tier"] != "per_step":
+        raise SystemExit(f"BERT-base's yardstick ran {per_step['tier']}")
+    same_losses = scanned["losses"] == per_step["losses"]
+    diff = [float((a.double() - b.double()).abs().max())
+            for a, b in zip(after_scanned, live)]
+    log(f"  scanned vs per-step over the epoch from one state: losses "
+        f"{'bit-equal' if same_losses else 'differ'}, {len(live)} tensors "
+        f"(parameters and Adam state) "
+        f"{'bit-equal' if max(diff) == 0 else f'differ by up to {max(diff):.3e}'}")
+    if not same_losses or max(diff) != 0:
+        raise SystemExit("BERT-base's scanned and per-step tiers differ")
+    del saved, after_scanned
+    log(f"  graph pool {pool if pool is None else round(pool, 3)} GiB; "
+        f"losses {[round(v, 4) for v in scanned['losses']]}")
+    prof = profile_bert_replay(sd, it, scanned["step_ms"], card)
+    # what keeping PyTorch's default (no TF32 in float32 matmuls) costs:
+    # the same epoch captured again with TF32 allowed, then the flag back
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sd._changed()                    # the next fit captures again
+        sd.fit(it)
+        tf32 = _bert_epoch(sd, it, "TF32 allowed (not the port's setting)",
+                           card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+        sd._changed()
+    log(f"  float32 matmuls without TF32 cost {scanned['step_ms'] - tf32['step_ms']:.2f}"
+        f" ms a step ({scanned['step_ms']:.2f} against {tf32['step_ms']:.2f})"
+        f"  [{card}]")
+    del sd, it, steps, live
+    torch.cuda.empty_cache()
+    return {"scanned": scanned, "per_step": per_step, "profile": prof,
+            "tf32": tf32, "graph_pool_gib": pool,
+            "sequence_output_dtype": str(seq_dt)}
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4269,7 +4595,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/19] env")
+    log("[1/21] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -4308,49 +4634,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/19] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/21] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/19] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/21] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/19] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/21] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/19] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/21] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/19] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/21] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/19] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/21] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/19] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/21] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/19] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/21] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -4362,7 +4688,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/19] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/21] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -4376,18 +4702,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/19] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/21] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/19] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/21] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/19] main path: GPT-medium float32 serving, "
+    log(f"[13/21] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -4396,46 +4722,60 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/19] path shapes: paged attention vs plain, then timed")
+    log("[14/21] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/19] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/21] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/19] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/21] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/19] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/21] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/19] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/21] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/19] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/21] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
         f"and float32 speculative")
     t0 = time.perf_counter()
     spec_serve = phase_spec_serving(dev, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[20/21] parity: BERT_TINY float64 imported from one GraphDef, "
+        "gradients and 3 Adam steps, card vs CPU")
+    t0 = time.perf_counter()
+    phase_bert_parity()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[21/21] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+        f"from a frozen TF GraphDef through the port's importer and "
+        f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
+        f"per-step tier")
+    t0 = time.perf_counter()
+    phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []

@@ -43,11 +43,12 @@ from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.autodiff import window
 from deeplearning4j_tpu_torch.autodiff.ops_namespaces import make_namespaces
-from deeplearning4j_tpu_torch.autodiff.training import History, torch_dtype
+from deeplearning4j_tpu_torch.autodiff.training import History
 from deeplearning4j_tpu_torch.autodiff.variable import SDVariable, VariableType
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
 from deeplearning4j_tpu_torch.ops import loss as loss_ops
 from deeplearning4j_tpu_torch.ops import registry
+from deeplearning4j_tpu_torch.ops.dtypes import torch_dtype
 
 Env = Dict[str, torch.Tensor]
 

@@ -21,19 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater
-
-_DTYPES = {"float64": torch.float64, "float32": torch.float32,
-           "bfloat16": torch.bfloat16, "float16": torch.float16,
-           "int64": torch.int64, "int32": torch.int32, "bool": torch.bool}
-
-
-def torch_dtype(name) -> torch.dtype:
-    if isinstance(name, torch.dtype):
-        return name
-    try:
-        return _DTYPES[str(name)]
-    except KeyError:
-        raise ValueError(f"unsupported dtype {name!r}") from None
+from deeplearning4j_tpu_torch.ops.dtypes import torch_dtype
 
 
 @dataclasses.dataclass

@@ -44,6 +44,7 @@ any eager step does).
 """
 from __future__ import annotations
 
+import gc
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -200,9 +201,21 @@ class StepWindow:
         del saved
         graph = torch.cuda.CUDAGraph()
         before = _cuda.count_snapshot()
-        with torch.cuda.graph(graph, pool=sd._graph_pool(), stream=stream):
-            for i in range(self.k):
-                self._step(i)
+        # An old graph that the cyclic collector frees while this one
+        # captures destroys its executable, which CUDA refuses during
+        # a capture, and that invalidates the capture (PyTorch's graph
+        # context no longer collects first): collect now, none during it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=sd._graph_pool(),
+                                  stream=stream):
+                for i in range(self.k):
+                    self._step(i)
+        finally:
+            if collecting:
+                gc.enable()
         self.counts = _cuda.counts_since(before)
         _cuda.add_counts(self.counts, -1)        # recorded, not launched
         self.graph = graph

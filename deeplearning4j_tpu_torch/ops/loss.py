@@ -12,6 +12,7 @@ import contextvars
 
 import torch
 
+from deeplearning4j_tpu_torch.ops.dtypes import promote, torch_dtype
 from deeplearning4j_tpu_torch.ops.registry import op
 
 _L = "loss"
@@ -28,7 +29,6 @@ def softmax_dtype_scope(dtype):
     """While active, the softmax-CE losses keep their log-softmax tail in
     ``dtype`` (a torch dtype or its name) instead of float32. Routed from
     ``MixedPrecision.softmax_dtype``."""
-    from deeplearning4j_tpu_torch.autodiff.training import torch_dtype
     token = _SOFTMAX_DTYPE.set(None if dtype is None else torch_dtype(dtype))
     try:
         yield
@@ -72,7 +72,7 @@ def softmax_cross_entropy(logits, labels, weights=None,
                           reduction: str = "mean"):
     """Cross-entropy of pre-activation ``logits`` against one-hot or
     probability ``labels``; the sum over classes accumulates in float32."""
-    logits, labels = _tail(logits), _tail(labels)
+    logits, labels = (_tail(t) for t in promote(logits, labels))
     logp = torch.log_softmax(logits, dim=-1)
     # float32 accumulation whatever the dtype, float64 included (the JAX op)
     per = -(labels * logp).sum(dim=-1, dtype=torch.float32)

@@ -4,7 +4,8 @@ and LeNet slices); layer norm, embedding lookup, bias add and attention
 
 Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
 ``max_pool2d`` :219, ``avg_pool2d`` :227, ``batchnorm`` :302,
-``batchnorm_train`` :323, ``layer_norm`` :365, ``embedding_lookup`` :417, ``bias_add`` :424,
+``batchnorm_train`` :323, ``layer_norm`` :365, ``embedding_lookup`` :417,
+``bias_add`` :424 with its ``data_format``,
 ``scaled_dot_product_attention`` :462).
 Tensors are logically NCHW, as PyTorch's convolutions take them, in any
 memory format (the network body runs ``torch.channels_last``, so a
@@ -13,6 +14,8 @@ channel is the fastest axis, as in the JAX package's NHWC body).
 (``ComputationGraph``); the ops registered under those names take the
 JAX package's layouts, HWIO weights and an NCHW or NHWC ``data_format``
 (``MultiLayerNetwork`` records NHWC).
+
+Operands of two dtypes are promoted by JAX's rule (``ops/dtypes.py``).
 
 "SAME" padding is JAX's: the extra row or column, when the total is odd,
 goes on the bottom/right. PyTorch's ``padding="same"`` refuses strides
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.kernels import attention
 from deeplearning4j_tpu_torch.kernels.bn_relu import BatchNormTrain
+from deeplearning4j_tpu_torch.ops.dtypes import promote
 from deeplearning4j_tpu_torch.ops.registry import op
 
 _N = "nn"
@@ -103,6 +107,10 @@ def conv2d_op(x, w, bias=None, strides=(1, 1), padding="SAME",
     inC, outC); ``x`` and the result are NCHW or NHWC. The weight goes to
     OIHW in channels_last memory (one small copy), so the convolution's
     output is channels_last and its NHWC view is contiguous."""
+    if bias is None:
+        x, w = promote(x, w)
+    else:
+        x, w, bias = promote(x, w, bias)
     w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     return _from_nchw(conv2d(_to_nchw(x, data_format), w, bias, strides,
                              padding, dilation), data_format)
@@ -173,9 +181,9 @@ def layer_norm(x, gamma, beta=None, axis=-1, epsilon: float = 1e-5):
     m2 = (xf * xf).mean(dim=ax, keepdim=True)
     var = torch.clamp_min(m2 - mean * mean, 0.0)
     inv = torch.rsqrt(var + epsilon)
-    out = (x - mean.to(x.dtype)) * inv.to(x.dtype) * gamma
+    out = torch.mul(*promote((x - mean.to(x.dtype)) * inv.to(x.dtype), gamma))
     if beta is not None:
-        out = out + beta
+        out = torch.add(*promote(out, beta))
     return out
 
 
@@ -186,9 +194,12 @@ def embedding_lookup(table, ids):
 
 
 @op("bias_add", _N, n_inputs=2)
-def bias_add(x, bias):
-    """``x + bias`` over the last axis."""
-    return x + bias
+def bias_add(x, bias, data_format: str = "NHWC"):
+    """``x + bias`` over the last axis, or over axis 1 for ``"NCHW"`` and
+    ``x`` of rank 3 or more."""
+    if data_format == "NCHW" and x.dim() > 2:
+        bias = bias.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return torch.add(*promote(x, bias))
 
 
 @op("scaled_dot_product_attention", _N)
@@ -198,5 +209,6 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
     head_dim); float32 scores and softmax, probabilities cast to v's dtype
     for the product with v. On the card, the kernels of
     ``kernels/attention.py``."""
+    q, k, v = promote(q, k, v)
     return attention.scaled_dot_product_attention(q, k, v, mask, causal,
                                                   scale)

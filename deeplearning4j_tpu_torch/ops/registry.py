@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/ops/registry.py`` (``op`` :50,
 ``get_op`` :69, ``has_op``, ``op_names`` :90, ``exec_op`` :103). An op is
 a function over torch tensors plus keyword attributes, returning one
 tensor or a tuple; SameDiff records op names and runs these functions.
-This slice registers the ops of the SameDiff MLP and of the zoo's GPT;
+The port registers the ops of its graphs (the SameDiff MLP, LeNet, the
+zoo's GPT and what the TF importer emits for BERT and the import tests);
 the op-trace tools wait.
 """
 from __future__ import annotations
@@ -62,10 +63,10 @@ def op_names() -> List[str]:
 
 
 def exec_op(name: str, *args, **attrs):
-    """Execute by name; numpy arrays become tensors."""
+    """Execute by name; numpy arrays and numpy scalars become tensors."""
     o = get_op(name)
-    targs = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a
-             for a in args]
+    targs = [torch.as_tensor(a) if isinstance(a, (np.ndarray, np.generic))
+             else a for a in args]
     return o.fn(*targs, **attrs)
 
 
@@ -79,4 +80,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from deeplearning4j_tpu_torch.ops import (  # noqa: F401
-        elementwise, linalg, loss, nn_ops, shape_ops)
+        elementwise, linalg, loss, nn_ops, pairwise, reduce, shape_ops,
+        tf_compat)

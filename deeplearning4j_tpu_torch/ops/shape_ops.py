@@ -1,12 +1,27 @@
-"""Shape ops of the slice (counterpart of
-``deeplearning4j_tpu/ops/shape_ops.py``: ``reshape`` :22, ``permute`` :27,
-``split`` :70, ``pad`` :111, ``slice`` :124). They return views where
-torch allows."""
+"""Shape ops (counterpart of ``deeplearning4j_tpu/ops/shape_ops.py``:
+``reshape`` :22, ``permute`` :27, ``concat`` :55, ``stack`` :60, ``split``
+:70, ``pad`` :111, ``slice`` :124, ``gather`` :139, ``where_op`` :260,
+``one_hot`` :275). They return views where torch allows.
+
+``gather`` and ``one_hot`` keep the JAX ops' answers for any index, with no
+host sync and no device assert, so that a captured train step can hold
+them: ``jnp.take`` wraps an index in [-n, 0) and fills an output row whose
+index is out of range (NaN for floats, the least value for signed
+integers) and sends it no gradient; ``jax.nn.one_hot`` gives such an index
+a row of zeros. ``gather``'s backward is a sorted scatter
+(``index_put_(accumulate=True)``, whose CUDA kernel sorts the indices and
+sums each row's gradients in index order), so its bits do not depend on
+the order of atomics, as ``index_select``'s backward (``index_add_``) does
+on the card.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops.dtypes import promote, torch_dtype
 from deeplearning4j_tpu_torch.ops.registry import op
 
 _S = "shape"
@@ -48,3 +63,97 @@ def slice_(x, begin, size):
     idx = tuple(slice(b, x.shape[i] if s == -1 else b + s)
                 for i, (b, s) in enumerate(zip(begin, size)))
     return x[idx]
+
+
+@op("concat", _S)
+def concat(*xs, axis: int = 0):
+    return torch.cat(promote(*xs), dim=axis)
+
+
+@op("stack", _S, aliases=("parallel_stack",))
+def stack(*xs, axis: int = 0):
+    return torch.stack(promote(*xs), dim=axis)
+
+
+@op("where_op", _S, aliases=("select",))
+def where_op(cond, x=None, y=None):
+    """``x`` where ``cond`` else ``y`` (the JAX op's 3-input form; its
+    1-input form, the coordinates of the true elements, has a
+    data-dependent shape and waits with the rest of the registry, ROADMAP
+    queue 1 item 5)."""
+    if x is None or y is None:
+        raise NotImplementedError(
+            "where_op(cond) (coordinates, a data-dependent shape) is not "
+            "ported yet (ROADMAP queue 1 item 5); pass cond, x and y")
+    return torch.where(cond.bool(), *promote(x, y))
+
+
+def _fill_value(dtype: torch.dtype):
+    """``jnp.take``'s fill for an out-of-range index."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+class _Gather(torch.autograd.Function):
+    """``jnp.take(x, indices, axis)`` with JAX's index rule, and a backward
+    that scatters in index order (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, indices, axis: int):
+        n = x.shape[axis]
+        idx = indices.long()
+        idx = torch.where(idx < 0, idx + n, idx)
+        valid = (idx >= 0) & (idx < n)
+        safe = torch.where(valid, idx, torch.zeros_like(idx))
+        out_shape = x.shape[:axis] + indices.shape + x.shape[axis + 1:]
+        out = x.index_select(axis, safe.reshape(-1)).reshape(out_shape)
+        mask = valid.reshape((1,) * axis + tuple(indices.shape)
+                             + (1,) * (x.dim() - axis - 1))
+        out = torch.where(mask, out, torch.full((), _fill_value(x.dtype),
+                                                dtype=x.dtype,
+                                                device=x.device))
+        ctx.save_for_backward(safe, mask)
+        ctx.axis, ctx.x_shape = axis, x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        safe, mask = ctx.saved_tensors
+        axis, shape = ctx.axis, ctx.x_shape
+        g = torch.where(mask, g, torch.zeros((), dtype=g.dtype,
+                                             device=g.device))
+        pre = math.prod(shape[:axis])
+        post = math.prod(shape[axis + 1:])
+        rows = g.reshape(pre, safe.numel(), post).transpose(0, 1)
+        gx = torch.zeros((shape[axis], pre, post), dtype=g.dtype,
+                         device=g.device)
+        gx.index_put_((safe.reshape(-1),), rows, accumulate=True)
+        gx = gx.transpose(0, 1).reshape(
+            shape[:axis] + (shape[axis],) + shape[axis + 1:])
+        return gx, None, None
+
+
+@op("gather", _S, n_inputs=2)
+def gather(x, indices, axis: int = 0):
+    """``x``'s slices along ``axis`` at ``indices`` (any integer dtype and
+    shape): the result's shape is ``x.shape[:axis] + indices.shape +
+    x.shape[axis + 1:]``."""
+    return _Gather.apply(x, indices, axis % x.dim())
+
+
+@op("one_hot", _S, n_inputs=1, aliases=("onehot",))
+def one_hot(indices, depth: int, on_value: float = 1.0,
+            off_value: float = 0.0, axis: int = -1, dtype: str = "float32"):
+    """A new axis ``axis`` of length ``depth``: ``on_value`` where it equals
+    the index, else ``off_value`` (a row of ``off_value`` for an index
+    outside [0, depth))."""
+    nd = indices.dim() + 1
+    ax = axis % nd
+    classes = torch.arange(depth, device=indices.device).reshape(
+        (depth,) + (1,) * (nd - 1 - ax))
+    oh = (indices.long().unsqueeze(ax) == classes).to(torch_dtype(dtype))
+    return oh * (on_value - off_value) + off_value

@@ -1,3 +1,6 @@
+from deeplearning4j_tpu_torch.zoo.bert import (BERT_BASE, BERT_TINY,
+                                               BertConfig, bert_base,
+                                               build_bert_graphdef)
 from deeplearning4j_tpu_torch.zoo.gpt import (GPT_MEDIUM, GPT_TINY, GPTConfig,
                                               build_gpt, gpt_decode_fns,
                                               gpt_generative_spec,
@@ -5,6 +8,7 @@ from deeplearning4j_tpu_torch.zoo.gpt import (GPT_MEDIUM, GPT_TINY, GPTConfig,
                                               gpt_paged_spec, gpt_param_names)
 from deeplearning4j_tpu_torch.zoo.models import LeNet, ResNet50
 
-__all__ = ["GPTConfig", "GPT_MEDIUM", "GPT_TINY", "LeNet", "ResNet50", "build_gpt",
-           "gpt_decode_fns", "gpt_generative_spec", "gpt_paged_decode_fns",
-           "gpt_paged_spec", "gpt_param_names"]
+__all__ = ["BERT_BASE", "BERT_TINY", "BertConfig", "GPTConfig", "GPT_MEDIUM",
+           "GPT_TINY", "LeNet", "ResNet50", "bert_base", "build_bert_graphdef",
+           "build_gpt", "gpt_decode_fns", "gpt_generative_spec",
+           "gpt_paged_decode_fns", "gpt_paged_spec", "gpt_param_names"]

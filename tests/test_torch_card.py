@@ -786,6 +786,45 @@ def test_scanned_epoch_is_one_replay_on_card(card):
 
 
 @pytest.mark.cuda
+def test_a_graph_the_collector_frees_cannot_break_a_capture(card,
+                                                            monkeypatch):
+    """An old network's captured graph becomes cyclic garbage in the middle
+    of another network's capture, with the collector set to run at every
+    allocation: the capture holds (no automatic collection runs during
+    it), and the old graph is freed after it."""
+    import gc
+    import weakref
+    from deeplearning4j_tpu_torch.autodiff import window
+    old = _tier_net(card)
+    old.fit(_tier_data(card, 2))                # scanned: a captured graph
+    gone = weakref.ref(next(iter(old.samediff._windows.values())))
+    holder = [old]
+    del old
+    real_step = window.StepWindow._step
+    seen = []
+
+    def step(self, i):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            holder.clear()                      # the old net: garbage now
+            junk = [[object()] for _ in range(1000)]   # allocations
+            seen.append((gc.isenabled(), len(junk)))
+        real_step(self, i)
+
+    monkeypatch.setattr(window.StepWindow, "_step", step)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        net = _tier_net(card)
+        net.fit(_tier_data(card, 4))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert seen and seen[0][0] is False
+    assert net.samediff.last_fit_stats["graph_replays_per_epoch"] == 1
+    gc.collect()
+    assert gone() is None
+
+
+@pytest.mark.cuda
 def test_a_capture_error_propagates_on_card(card, monkeypatch):
     """An op that waits on the device cannot be captured: the graph tiers
     raise, and nothing runs the steps eagerly instead; the per-step tier
@@ -1049,3 +1088,90 @@ def test_int8_speculative_serving_on_card_matches_cpu(card, paged):
             assert launched >= GPT_TINY.num_layers
             assert srv.metrics.counters["spec_rounds"] >= 1
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_backward_is_bit_equal_over_calls(card, dtype):
+    """``gather``'s backward at BERT-base's word table (30522 x 768) and
+    batch (16 x 128 ids, one id 40 times): a sorted scatter, so two calls
+    give the same bits; float32 within 1e-5 of a float64 sum."""
+    from deeplearning4j_tpu_torch.ops.shape_ops import gather
+    rng = np.random.default_rng(4)
+    ids = torch.as_tensor(rng.integers(0, 30522, (16, 128)),
+                          dtype=torch.int32, device=card)
+    ids[0, :40] = 7
+    table = torch.as_tensor(rng.normal(size=(30522, 768)),
+                            device=card).to(dtype)
+    g = torch.as_tensor(rng.normal(size=(16, 128, 768)), device=card).to(dtype)
+    grads = []
+    for _ in range(2):
+        t = table.detach().requires_grad_(True)
+        (gt,) = torch.autograd.grad(gather(t, ids, 0), [t], g)
+        grads.append(gt)
+    assert torch.equal(grads[0], grads[1])
+    if dtype == torch.float32:
+        want = torch.zeros(30522, 768, dtype=torch.float64, device=card)
+        want.index_add_(0, ids.reshape(-1).long(),
+                        g.reshape(-1, 768).double())
+        _close(grads[0], want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_gather_and_one_hot_keep_jax_answers_out_of_range_on_card(card):
+    """No device assert: an index out of range fills (gather) or gives a
+    zero row (one_hot), as on the CPU."""
+    from deeplearning4j_tpu_torch.ops.shape_ops import gather, one_hot
+    x = torch.arange(12.0).reshape(4, 3)
+    ids = torch.tensor([[3, -1, 4], [-5, 0, 100]], dtype=torch.int32)
+    want_g, want_o = gather(x, ids, 0), one_hot(ids, 4)
+    got_g, got_o = gather(x.to(card), ids.to(card), 0), one_hot(ids.to(card),
+                                                               4)
+    torch.cuda.synchronize()
+    assert torch.equal(got_g.isnan().cpu(), want_g.isnan())
+    assert torch.equal(got_g.nan_to_num().cpu(), want_g.nan_to_num())
+    assert torch.equal(got_o.cpu(), want_o)
+
+
+@pytest.mark.cuda
+def test_bert_tiny_step_captures_and_matches_the_per_step_tier(card):
+    """BERT_TINY imported on the card, bf16 MixedPrecision: the scanned
+    epoch is one captured CUDA graph (the imported ops make no host sync)
+    and its losses and parameters equal the per-step tier's bit for bit
+    over two epochs."""
+    from deeplearning4j_tpu_torch.autodiff import (MixedPrecision,
+                                                   TrainingConfig)
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import BERT_TINY, bert_base
+    rng = np.random.default_rng(5)
+    n, b, s = 24, 4, 16
+    ids = rng.integers(0, BERT_TINY.vocab_size, (n, s)).astype(np.int32)
+    mask = np.ones((n, s), np.int32)
+    mask[::3, s // 2:] = 0
+    tt = np.zeros((n, s), np.int32)
+    tt[:, 5:] = 1
+    labels = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
+    res = {}
+    for tier in ("scanned", "per_step"):
+        sd = bert_base(BERT_TINY, batch=b, seq_len=s, num_labels=2, seed=7,
+                       device=card)
+        assert sd.get_arr_for_var("classifier/kernel").is_cuda
+        sd.training_config = TrainingConfig(
+            updater=Adam(1e-3),
+            data_set_feature_mapping=["input_ids", "input_mask",
+                                      "token_type_ids"],
+            data_set_label_mapping=["labels"],
+            mixed_precision=MixedPrecision())
+        it = DeviceCachedIterator([ids, mask, tt], [labels], b, device=card)
+        h = sd.fit(it if tier == "scanned" else list(it), epochs=2)
+        st = sd.last_fit_stats
+        if tier == "scanned":
+            assert st["tier"] == "scanned_epoch"
+            assert st["graph_replays_per_epoch"] == 1
+            assert len(sd._windows) == 1
+        res[tier] = (h.step_losses, sd.trainable_params())
+    (la, pa), (lb, pb) = res["scanned"], res["per_step"]
+    assert la == lb and all(np.isfinite(la))
+    for name in pa:
+        assert torch.equal(pa[name], pb[name]), name

@@ -7,6 +7,7 @@ HWIO weights. Tolerance 1e-5 (float32 sums in another order); 1e-4 for
 the convolutions, whose outputs sum up to 245 products of unit-scale
 inputs.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from deeplearning4j_tpu.ops import nn_ops as jnn
 from deeplearning4j_tpu.ops import registry as jreg
 from deeplearning4j_tpu.ops import shape_ops as jshape
 from deeplearning4j_tpu.ops.registry import get_op
+from deeplearning4j_tpu_torch.ops import dtypes as pdtypes
 from deeplearning4j_tpu_torch.ops import elementwise as pel
 from deeplearning4j_tpu_torch.ops import loss as ploss
 from deeplearning4j_tpu_torch.ops import nn_ops as pnn
@@ -278,3 +280,282 @@ def test_softmax_cross_entropy_tail_scope_in_bf16():
                                           torch.as_tensor(labels))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-2)
+
+
+# ----------------------------------------------------------------------
+# the ops the TF importer emits (BERT's graph and the import tests' graphs)
+IMPORT_OPS = ["subtract", "sub", "multiply", "mul", "divide", "div",
+              "squaredsubtract", "squareddifference", "greater", "gt",
+              "rsqrt", "neg", "negative", "tanh", "erf", "cast",
+              "reduce_mean", "mean", "reduce_sum", "sum", "argmax", "imax",
+              "gather", "one_hot", "onehot", "concat", "stack",
+              "where_op", "select", "batched_matmul", "batch_mmul",
+              "strided_slice_masked", "tf_fused_batch_norm"]
+
+
+def test_registry_holds_the_import_ops_under_the_jax_names():
+    for n in IMPORT_OPS:
+        assert preg.has_op(n) and jreg.has_op(n), n
+        assert preg.get_op(n).name == jreg.get_op(n).name, n
+        assert preg.get_op(n).category == jreg.get_op(n).category, n
+    assert set(preg.op_names()) <= set(jreg.op_names())
+
+
+def _same(got, want, tol=TOL, dtype=True):
+    w = np.asarray(want)
+    g = got.detach()
+    g = g.float().numpy() if g.dtype == torch.bfloat16 else g.numpy()
+    if dtype:
+        assert str(g.dtype) == str(w.dtype) or (
+            got.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16), \
+            (g.dtype, w.dtype)
+    assert g.shape == w.shape
+    np.testing.assert_allclose(g, w.astype(g.dtype), equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("name,shapes,attrs", [
+    ("subtract", [(3, 4), (4,)], {}),
+    ("multiply", [(2, 3, 4), (3, 1)], {}),
+    ("divide", [(3, 4), (3, 4)], {}),
+    ("squaredsubtract", [(2, 5, 8), (2, 5, 1)], {}),
+    ("greater", [(3, 4), (4,)], {}),
+    ("rsqrt", [(4, 6)], {}),
+    ("neg", [(4, 6)], {}),
+    ("tanh", [(4, 6)], {}),
+    ("erf", [(4, 6)], {}),
+    ("reduce_mean", [(2, 5, 8)], {"axis": (-1,), "keep_dims": True}),
+    ("reduce_mean", [(2, 5, 8)], {"axis": None}),
+    ("reduce_mean", [(2, 5, 8)], {"axis": 1}),
+    ("reduce_sum", [(2, 5, 8)], {"axis": (0, 2)}),
+    ("reduce_sum", [(2, 5, 8)], {"axis": None, "keep_dims": True}),
+    ("batched_matmul", [(2, 3, 5, 4), (2, 3, 5, 4)],
+     {"transpose_b": True}),
+    ("batched_matmul", [(2, 3, 4, 5), (2, 3, 4, 6)],
+     {"transpose_a": True}),
+    ("concat", [(2, 3), (2, 5)], {"axis": 1}),
+    ("stack", [(2, 3), (2, 3), (2, 3)], {"axis": 1}),
+    ("bias_add", [(2, 4, 3, 3), (4,)], {"data_format": "NCHW"}),
+    ("bias_add", [(2, 3, 3, 4), (4,)], {"data_format": "NHWC"}),
+])
+def test_import_op_matches_jax(name, shapes, attrs):
+    rng = _rng(21)
+    arrays = [(np.abs(rng.normal(size=s)) + 0.1 if name == "rsqrt"
+               else rng.normal(size=s) * 2).astype(np.float32)
+              for s in shapes]
+    got, want = _both(name, *arrays, **attrs)
+    _same(got, want)
+
+
+def test_argmax_gives_the_first_largest_index():
+    x = np.array([[1., 5., 5., 0.], [7., 7., -1., 2.]], np.float32)
+    for axis in (0, 1, -1, None):
+        got, want = _both("argmax", x, axis=axis)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.dtype == torch.int32   # the default integer
+    got, want = _both("argmax", x, axis=1, keep_dims=True)
+    assert got.shape == want.shape == (2, 1)
+
+
+def test_integer_reductions_and_division_take_the_jax_dtypes():
+    ints = np.arange(12, dtype=np.int32).reshape(3, 4)
+    bools = ints % 3 == 0
+    with jax.enable_x64(False):          # the defaults the port takes
+        for name, x, attrs in [("reduce_mean", ints, {"axis": 1}),
+                               ("reduce_sum", ints, {}),
+                               ("reduce_sum", bools, {"axis": 0})]:
+            got, want = _both(name, x, **attrs)
+            _same(got, want)
+        got, want = _both("divide", ints, ints + 1)
+        _same(got, want)
+    got, want = _both("divide", ints.astype(np.int64), ints + 1)
+    _same(got, want)                       # int64 divides in float64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+def test_cast(dtype):
+    x = np.array([[-2.7, -0.5, 0.5, 1.99], [3.5, -3.5, 100.25, 0.0]],
+                 np.float32)
+    got, want = _both("cast", x, dtype=dtype)
+    _same(got, want, tol=dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("axis,table_shape,idx", [
+    (0, (10, 6), [[1, 5, 3], [0, 2, 9]]),
+    (0, (10, 6), [[-1, -10, 3], [10, 11, -11]]),   # wrapped, filled
+    (1, (4, 7, 3), [6, -7, 7, 2, 2]),
+    (0, (5,), [[4, 0], [5, -6]]),
+])
+def test_gather_keeps_jax_answers_for_any_index(axis, table_shape, idx):
+    rng = _rng(22)
+    x = rng.normal(size=table_shape).astype(np.float32)
+    ind = np.asarray(idx, np.int32)
+    got, want = _both("gather", x, ind, axis=axis)
+    _same(got, want, tol=dict(rtol=0, atol=0))
+    # the gradient: duplicates summed, wrapped indices to their row, an
+    # out-of-range index to none
+    w = rng.normal(size=np.asarray(want).shape).astype(np.float32)
+    jg = jax.grad(lambda t: jnp.sum(jreg.get_op("gather")(
+        t, jnp.asarray(ind), axis=axis) * w))(jnp.asarray(x))
+    t = torch.as_tensor(x).requires_grad_(True)
+    (pg,) = torch.autograd.grad(
+        (pshape.gather(t, torch.as_tensor(ind), axis) * torch.as_tensor(w))
+        .nansum(), [t])
+    np.testing.assert_allclose(pg.numpy(), np.asarray(jg), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_gather_fills_integers_with_their_least_value():
+    x = np.arange(12, dtype=np.int32).reshape(4, 3)
+    got, want = _both("gather", x, np.array([3, 4, -5, -4], np.int32))
+    _same(got, want, tol=dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("attrs", [
+    {"depth": 5},
+    {"depth": 5, "axis": 0},
+    {"depth": 4, "on_value": 3.0, "off_value": -1.0},
+    {"depth": 3, "axis": 1},
+])
+def test_one_hot_gives_zero_rows_out_of_range(attrs):
+    ind = np.array([[0, 4, -1], [5, 2, 7]], np.int32)
+    got, want = _both("one_hot", ind, **attrs)
+    _same(got, want, tol=dict(rtol=0, atol=0))
+
+
+def test_one_hot_of_an_integer_dtype():
+    ind = np.array([0, 2, 3], np.int32)
+    got, want = _both("one_hot", ind, depth=3, dtype="int32")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape,attrs", [
+    ((2, 3, 4), dict(begin=(0, 1), end=(0, 3), strides=(1, 1),
+                     begin_mask=1, end_mask=1)),
+    ((2, 3, 4), dict(begin=(0, 0, 0), end=(0, 1, 0), strides=(1, 1, 1),
+                     begin_mask=5, end_mask=5, shrink_axis_mask=2)),
+    ((6, 5), dict(begin=(5, 1), end=(0, 5), strides=(-2, 2))),
+    ((6, 5), dict(begin=(0, 0), end=(0, 0), strides=(-1, 1), begin_mask=3,
+                  end_mask=3)),
+    ((2, 3, 4), dict(begin=(0, 1), end=(0, 2), strides=(1, 1),
+                     ellipsis_mask=1)),
+    ((2, 3, 4), dict(begin=(0, 0, 1), end=(0, 0, 3), strides=(1, 1, 1),
+                     new_axis_mask=2, begin_mask=1, end_mask=1)),
+    ((3, 4), dict(begin=(-1,), end=(0,), strides=(1,),
+                  shrink_axis_mask=1)),
+    ((7,), dict(begin=(-2,), end=(-7,), strides=(-2,))),
+])
+def test_strided_slice_masked(shape, attrs):
+    x = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    got, want = _both("strided_slice_masked", x, **attrs)
+    _same(got, want, tol=dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("data_format", ["NHWC", "NCHW"])
+@pytest.mark.parametrize("is_training", [False, True])
+def test_tf_fused_batch_norm(data_format, is_training):
+    rng = _rng(23)
+    shape = (2, 5, 6, 3) if data_format == "NHWC" else (2, 3, 5, 6)
+    x = (rng.normal(size=shape) * 2 + 1).astype(np.float32)
+    c = [(rng.normal(size=3) * 0.5 + 1).astype(np.float32) for _ in range(2)]
+    mean = rng.normal(size=3).astype(np.float32)
+    var = (np.abs(rng.normal(size=3)) + 0.5).astype(np.float32)
+    got, want = _both("tf_fused_batch_norm", x, *c, mean, var,
+                      epsilon=1e-3, data_format=data_format,
+                      is_training=is_training)
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def test_where_op_and_its_refusal():
+    rng = _rng(24)
+    c = rng.normal(size=(3, 4)) > 0
+    x = rng.normal(size=(3, 4)).astype(np.float32)
+    got, want = _both("where_op", c, x, np.float32(0.0))
+    _same(got, want)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        preg.exec_op("where_op", c)
+
+
+# ----------------------------------------------------------------------
+# the dtype rule (ops/dtypes.py) against jnp.result_type
+_DTYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "bfloat16",
+           "float16", "float32", "float64"]
+
+
+def _jt(name, ndim):
+    return jnp.ones((2,) * ndim, getattr(jnp, name if name != "bool"
+                                         else "bool_"))
+
+
+def _pt(name, ndim):
+    return torch.ones((2,) * ndim, dtype=getattr(torch, name))
+
+
+@pytest.mark.parametrize("nd", [(0, 0), (0, 2), (2, 0), (2, 2)],
+                         ids=["0d-0d", "0d-nd", "nd-0d", "nd-nd"])
+def test_dtype_rule_agrees_with_jnp_result_type(nd):
+    bad = []
+    for a in _DTYPES:
+        for b in _DTYPES:
+            want = str(jnp.result_type(_jt(a, nd[0]), _jt(b, nd[1])))
+            got = str(pdtypes.result_type(_pt(a, nd[0]), _pt(b, nd[1])))
+            if got.replace("torch.", "") != want:
+                bad.append((a, b, got, want))
+    assert bad == []
+
+
+def test_dtype_rule_takes_python_scalars_as_weak():
+    scalars = [True, 3, 2.5]
+    wide = ("int64", "float64")
+    with jax.enable_x64(False):          # the port's default int and float
+        for a in _DTYPES:
+            for s in scalars:
+                if a in wide:            # JAX has them only in 64-bit mode
+                    continue
+                want = str(jnp.result_type(_jt(a, 2), s))
+                got = str(pdtypes.result_type(_pt(a, 2), s))
+                assert got.replace("torch.", "") == want, (a, s)
+    # a weak scalar of their kind or lower never widens the 64-bit types;
+    # int64 with a float gives the port's default float (JAX has int64 only
+    # in 64-bit mode, whose default float is float64)
+    for a, s, want in [("int64", True, "int64"), ("int64", 3, "int64"),
+                       ("int64", 2.5, "float32"), ("float64", True,
+                                                   "float64"),
+                       ("float64", 3, "float64"), ("float64", 2.5,
+                                                   "float64")]:
+        got = str(pdtypes.result_type(_pt(a, 2), s))
+        assert got.replace("torch.", "") == want, (a, s)
+        if want == a:
+            assert str(jnp.result_type(_jt(a, 2), s)) == want
+
+
+def test_zero_d_float32_times_bf16_is_float32_as_in_jax():
+    """torch alone gives bfloat16 here, and raises on the matmul."""
+    x = _rng(25).normal(size=(3, 4)).astype(np.float32)
+    w = _rng(26).normal(size=(4, 5)).astype(np.float32)
+    xb = torch.as_tensor(x).bfloat16()
+    s = torch.tensor(0.125)
+    assert (s * xb).dtype == torch.bfloat16            # torch's rule
+    got = preg.exec_op("multiply", s, xb)
+    want = jreg.get_op("multiply")(jnp.asarray(0.125, jnp.float32),
+                                   jnp.asarray(x, jnp.bfloat16))
+    _same(got, want)
+    with pytest.raises(RuntimeError):
+        torch.matmul(torch.as_tensor(x), torch.as_tensor(w).bfloat16())
+    got = preg.exec_op("matmul", torch.as_tensor(x),
+                       torch.as_tensor(w).bfloat16())
+    want = jreg.get_op("matmul")(jnp.asarray(x),
+                                 jnp.asarray(w, jnp.bfloat16))
+    assert got.dtype == torch.float32
+    _same(got, want)
+    for name in ("add", "subtract", "divide", "squaredsubtract", "greater",
+                 "bias_add", "concat"):
+        args = (s, xb) if name != "concat" else (xb, torch.as_tensor(x))
+        jargs = (jnp.asarray(0.125, jnp.float32),
+                 jnp.asarray(x, jnp.bfloat16)) if name != "concat" else (
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(x))
+        if name == "bias_add":
+            args, jargs = args[::-1], jargs[::-1]
+        got = preg.exec_op(name, *args)
+        want = jreg.get_op(name)(*jargs)
+        assert str(got.dtype).replace("torch.", "") == str(want.dtype), name
