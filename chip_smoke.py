@@ -12,10 +12,11 @@ Phases, in order; any failure exits non-zero:
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
-   head dim 128; the float32 attention kernels' SASS: tf32 mma.sync
-   (HMMA ... TF32) and no other HMMA, at every head dim; the paged
-   cluster kernels' (csrc/paged_attention.cu: the decode, the first
-   verify and the verify kernel, float32 and float64, every head dim):
+   head dim 128; the float32 attention kernels' SASS (dense, paged, and
+   paged over an int8 cache): tf32 mma.sync (HMMA ... TF32) and no other
+   HMMA, at every head dim; the paged cluster kernels'
+   (csrc/paged_attention.cu: the decode and the verify kernel, float32
+   and float64 over a cache of their type or an int8 one, every head dim):
    ptxas's registers and spills side by side, and in their SASS the bulk
    copy and the cluster's shared-memory pushes and barrier, by opcode;
    the int8 kernel's (csrc/int8_matmul.cu, both layouts, every tile's
@@ -168,9 +169,7 @@ Phases, in order; any failure exits non-zero:
 14. path shapes: every shape the serving run handed the paged functions,
    checked against its plain version; paged_decode_attention timed alone
    at decode (8 lanes at context 128, 512, 1024) beside the same kernel
-   with no write, the first paged kernel (``dl4j_paged_attention_v1``,
-   which no wrapper calls) alone and after the two ``index_put_`` a layer
-   it needed, its plain version, its bound and the library's masked
+   with no write, its plain version, its bound and the library's masked
    ``F.scaled_dot_product_attention`` over the dense slab; the two float32
    prefill kernels at their serving shapes
    (the paged prefill, 512 rows after 256 cached keys; the dense forward
@@ -278,14 +277,59 @@ Phases, in order; any failure exits non-zero:
    more, captured again with TF32 allowed in float32 matmuls (PyTorch's
    default, kept by the port, is off): what float32 without TF32 costs.
    No hand-written kernel is on this path.
+22. kernels: the decode, verify and paged prefill kernels over an int8
+   cache (per-(head, channel) absmax scales of a random float cache)
+   against their plain versions: the decode at GPT-medium decode (8 lanes
+   x 12 x 128, blocks of 16, contexts 64-1016, one lane inactive) in
+   float32 and float64 and at blocks of 1, 5, 16 and 1024 x head dims
+   16-128; the verify at 8 lanes x W 8 x 12 x 128 in float32 and float64,
+   at W 1, 3 and 20, blocks of 5 and the dense slab; the prefill (float32:
+   csrc/attention_f32.cu's int8 form; float64: the decode kernel with no
+   write) at 512 rows after 256 cached keys and at hist 0-1000 x rows
+   1-512 x head dims 16-128. Per element within 1e-5 / 1e-12 of the sum of
+   its absolute terms, the written int8 cache bit-equal to the plain
+   write, two calls bit-equal, -128 where the step writes changing
+   nothing, verify rows bit-equal to the int8 decode, each launch counted
+   as int8. Then each timed alone (``median_ms``) beside the same kernel
+   over the float32 cache, its plain version, the library (the gathered
+   context dequantised, then masked ``F.scaled_dot_product_attention``)
+   and its bound at int8 bytes: the decode at 8 lanes at context 128, 512
+   and 1024, the verify at W 8 from 64, 128, 512 and 1016, the prefill of
+   512 rows after 256.
+23. parity: GPT_TINY with int8 KV through ``PagedGenerativeServer``
+   (float32 and float64) and ``GenerativeServer`` (float32) on the card
+   and on the CPU from one set of scales (calibrated on the CPU):
+   identical tokens, every dispatch's logits within 1e-4 (float32) or
+   1e-10 (float64) of their magnitude, the int8 kernels launched.
+24. main path: GPT-medium (``build_gpt(GPT_MEDIUM, ..., seed=0)``) with
+   int8 weights and an int8 KV cache, ``gpt_paged_spec(...,
+   quantize_weights=True, quantize_kv=True)`` (``gpt_kv_scales``'
+   calibration timed), through ``PagedGenerativeServer(max_slots=8,
+   block_size=16, max_seq_len=1024)``: phase 13's 32 requests at
+   temperature 0 through ``submit`` / ``result()``, the int8 counts set to
+   0 just before and read just after (16 int8 decode launches a step, 16
+   int8 paged prefills a prefill), the pool drains; the dense int8
+   ``GenerativeServer`` on 8 of them, each equal to ``greedy_decode`` of
+   its spec (phase 13's near-tie rule); token agreement with the float32
+   paged server (reported); a profiled pass of ~20 decode steps (phase
+   13's); the pool at 49 float32 blocks' bytes, int8 against float32 (at
+   least 1.9x), and ``bench_serving_quant``'s closed loop (24 requests,
+   concurrency 8, prompts 2-16, new tokens 4-24, seed 23, max_seq_len
+   256) through ``serving.loadgen.GenerativeLoadGenerator`` on both:
+   tokens/s, TTFT and inter-token p50/p99. Then phase 19's self-draft
+   pairing with int8 KV: the 32 requests through the target without a
+   draft and with the 1-layer int8-weight int8-KV draft at k = 8, the
+   latter's 16 int8 verify launches a round, its tokens equal to the
+   former's on every request, and a profiled pass of rounds (phase 19's).
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
 the float32 kernels ``combine_launches`` their combining kernel's; the times
 are per training step of that path, per decode step for
-paged_decode_attention,
-per 512-row prefill for the float32 prefill kernels, per speculative
-round for int8_matmul and paged_verify_attention),
+paged_decode_attention and its int8 form,
+per 512-row prefill for the float32 prefill kernels and the int8 paged
+prefill, per speculative round for int8_matmul and paged_verify_attention
+and its int8 form),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -362,8 +406,8 @@ def check_attention_f32_build():
     spills = ptxas_spills(_cuda.build_log(attention_f32._LIB))
     bad = []
     for d in (16, 32, 64, 128):
-        for paged in (0, 1):
-            tag = f"attn_f32_kernelILi{d}ELb{paged}E"
+        for paged, q8 in ((0, 0), (1, 0), (1, 1)):
+            tag = f"attn_f32_kernelILi{d}ELb{paged}ELb{q8}E"
             name = next((n for n in sass if tag in n), None)
             if name is None:
                 bad.append(f"{tag}: not in the library")
@@ -373,7 +417,8 @@ def check_attention_f32_build():
                        if "HMMA" in ln and "TF32" in ln)
             other = body.count("HMMA") - tf32
             ok = tf32 > 0 and other == 0
-            log(f"    attn_f32_kernel<{d}, {'paged' if paged else 'dense'}>: "
+            log(f"    attn_f32_kernel<{d}, "
+                f"{('dense', 'paged', 'paged int8')[paged + q8]}>: "
                 f"HMMA TF32 {tf32}, other HMMA {other}, spill stores/loads "
                 f"{spills.get(name, 'not reported')}, blocks an SM (the "
                 f"work split's) {attention_f32.blocks_per_sm(d, bool(paged))}"
@@ -407,9 +452,10 @@ def _ptxas_regs(log_):
 
 def check_paged_build():
     """The paged cluster kernels as built, float32 and float64 at every
-    head dim: the decode kernel and the verify kernel: ptxas's registers
-    and spills side by side, and each of PAGED_SASS's opcodes in its SASS,
-    counted. Prints one line a kernel; exits on a failure."""
+    head dim, over a float cache and an int8 one: the decode kernel and the
+    verify kernel: ptxas's registers and spills side by side, and each of
+    PAGED_SASS's opcodes in its SASS, counted. Prints one line a kernel;
+    exits on a failure."""
     from deeplearning4j_tpu_torch.kernels import _cuda
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     sass = sass_kernels(_cuda.library_path(pa._LIB))
@@ -417,11 +463,12 @@ def check_paged_build():
     spills = ptxas_spills(log_)
     regs = _ptxas_regs(log_)
     bad = []
-    for t, tc in (("float", "f"), ("double", "d")):
+    for t, tc, cc in (("float", "f", "f"), ("double", "d", "d"),
+                      ("float, int8", "f", "a"), ("double, int8", "d", "a")):
         for d in (16, 32, 64, 128):
             for tag, label in (
-                    (f"paged_decode_kernelI{tc}Li{d}EE", "decode"),
-                    (f"paged_verify_kernelI{tc}Li{d}EE", "verify")):
+                    (f"paged_decode_kernelI{tc}{cc}Li{d}EE", "decode"),
+                    (f"paged_verify_kernelI{tc}{cc}Li{d}EE", "verify")):
                 name = next((n for n in sass if tag in n), None)
                 if name is None:
                     bad.append(f"{tag}: not in the library")
@@ -2406,10 +2453,10 @@ def _record_shapes(pa, shapes):
                     tables.shape[0], str(q.dtype)[6:]))
         return real[0](q, k_new, v_new, kc, vc, tables, *rest)
 
-    def prefill(q, kc, vc, table, kmax, kmax_host):
+    def prefill(q, kc, vc, table, kmax, kmax_host, *scales):
         shapes.add(("prefill", *q.shape, kc.shape[2], table.shape[0], 1,
                     str(q.dtype)[6:]))
-        return real[1](q, kc, vc, table, kmax, kmax_host)
+        return real[1](q, kc, vc, table, kmax, kmax_host, *scales)
     for n, f in zip(PAGED_FNS, (decode, prefill)):
         setattr(pa, n, f)
     return real
@@ -2904,9 +2951,8 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
     queued behind a device sleep, ``median_ms``) at GPT-medium decode, 8
     lanes all at context 128, 512 and 1024, each writing its step's row
     (the cache holds those rows already: the write is idempotent), beside
-    the same kernel with no write (``paged_attention``), the first paged
-    kernel (``dl4j_paged_attention_v1``) alone and after the two
-    ``index_put_`` of the layer it served, the plain version (which reads
+    the same kernel with no write (``paged_attention``), the plain version
+    (which reads
     its lanes to the host: the median of 3 calls between two
     synchronizations, ``synced_ms``, host time included), the bound
     (bytes of K and V up to each lane's last key, q and out, and the new
@@ -2955,17 +3001,8 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
         keys = torch.arange(dk.shape[2], device=dev)
         mask = (keys[None, :] <= kmax[:, None].long())[:, None, None, :]
         ql = q.contiguous()[:, :, None, :]
-        at_ = (wb.long()[:, None], torch.arange(12, device=dev)[None, :],
-               wo.long()[:, None])
-
-        def v1_layer():
-            kc.index_put_(at_, k_new)
-            vc.index_put_(at_, v_new)
-            return measure.paged_attention_v1(*args)
         per_call = median_ms(lambda: pa.paged_decode_attention(*case), flush)
         no_write = median_ms(lambda: pa.paged_attention(*args), flush)
-        v1 = median_ms(lambda: measure.paged_attention_v1(*args), flush)
-        v1_write = median_ms(v1_layer, flush)
         plain_call = synced_ms(lambda: pa.paged_decode_plain(*case), flush,
                                3)
         lib = median_ms(lambda: F.scaled_dot_product_attention(
@@ -2977,12 +3014,10 @@ def phase_paged_timing(dev, card_name, shapes, errs, in_step_ms):
             "per_call_ms": per_call, "plain_per_call_ms": plain_call,
             "library_per_call_ms": lib,
             "bound_per_call_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "no_write_per_call_ms": no_write,
-            "v1_per_call_ms": v1, "v1_with_index_put_ms": v1_write}
+            "bound_by": bound["bound_by"], "no_write_per_call_ms": no_write}
         log(f"  paged_decode_attention decode 8 lanes x 12 x 128 at context "
             f"{ctx}: {per_call:.4f} ms a call alone ({no_write:.4f} with no "
-            f"write), first kernel {v1:.4f} ({v1_write:.4f} after its two "
-            f"index_put_), plain {plain_call:.4f}, library (dense slab, "
+            f"write), plain {plain_call:.4f}, library (dense slab, "
             f"mask) {lib:.4f}, bound {bound['bound_ms']:.4f} "
             f"({bound['bound_by']}; {bound['bound_ms'] / per_call:.2f} of "
             f"it), {nbytes / per_call / 1e9:.2f} TB/s; x{L} per decode "
@@ -4585,6 +4620,579 @@ def phase_bert(card):
 
 
 # ----------------------------------------------------------------------
+# int8 KV (phases 22-24): the cluster kernels and the paged prefill over
+# an int8 cache, and GPT-medium serving with int8 KV
+#: the JAX code each int8 variant stands in for (the int8 write-then-read of
+#: the JAX decode functions; XLA fused it, no Pallas kernel)
+INT8KV_KERNELS = {
+    "paged_decode_attention_int8": (PAGED_SOURCE,
+                                    "deeplearning4j_tpu/zoo/gpt.py:668"),
+    "paged_verify_attention_int8": (PAGED_SOURCE,
+                                    "deeplearning4j_tpu/zoo/gpt.py:728"),
+    "paged_prefill_f32_int8": (F32_SOURCE,
+                               "deeplearning4j_tpu/zoo/gpt.py:612")}
+#: the budget of the pool-size and load-generator comparisons: 49 float32
+#: GPT-medium blocks of 16 (bench_serving_quant's 48 usable + the null one)
+INT8KV_BUDGET_BLOCKS = 49
+#: bench_serving_quant's trace (bench.py:836-909)
+LOADGEN = dict(n_requests=24, concurrency=8, prompt_len=(2, 16),
+               new_tokens=(4, 24), seed=23, max_seq_len=256)
+
+
+def _int8_of(kc, vc):
+    from deeplearning4j_tpu_torch.kernels import measure
+    return measure.int8_cache(kc, vc)
+
+
+def check_int8kv(kind, case, errs, label):
+    """One int8 variant against its plain version, the float case ``case``
+    (``measure``'s decode-write, verify or prefill case) made int8 with
+    per-(head, channel) absmax scales: each on its own copy of the int8
+    cache; the output within PAGED_TOL of the sum of its absolute terms
+    (over the dequantised cache the plain version wrote), the written int8
+    caches bit-equal, two calls bit-equal in output and cache, each launch
+    counted as an int8 one; the decode with -128 (a value no store makes)
+    at every row the step writes unchanged; each verify row bit-equal to
+    the decode kernel's over the written cache. Prints one line; exits on
+    a failure."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    if kind == "prefill":
+        q, kc, vc, tables, lane, kmax = case
+    else:
+        q, kn, vn, kc, vc, tables, lane, kmax = case[:8]
+    kc8, vc8, ks, vs = _int8_of(kc, vc)
+    tol = PAGED_TOL[q.dtype]
+    if kind == "decode":
+        wb, wo = case[8:]
+        fns = (pa.paged_decode_attention, pa.paged_decode_plain)
+        extra = (wb, wo)
+        name, counter = "paged_decode_attention_int8", (
+            pa.INT8_LAUNCHES, "paged_decode_attention")
+    elif kind == "verify":
+        win0, wrow, wb, wo = case[8:]
+        fns = (pa.paged_verify_attention, pa.paged_verify_plain)
+        extra = (win0, wrow, wb, wo)
+        name, counter = "paged_verify_attention_int8", (
+            pa.INT8_LAUNCHES, "paged_verify_attention")
+    else:
+        kh = kmax.cpu().numpy()
+        f32 = q.dtype == torch.float32
+        name = "paged_prefill_f32_int8" if f32 else "paged_attention_int8"
+        counter = (af.INT8_LAUNCHES, "paged_prefill_f32") if f32 else (
+            pa.INT8_LAUNCHES, "paged_attention")
+
+    def run(fn, k8=kc8, v8=vc8):
+        k2, v2 = k8.clone(), v8.clone()
+        if kind == "prefill":
+            args = (q, k2, v2, tables[0], kmax)
+            out = fn(*args, kh, ks, vs) if fn is pa.paged_prefill_attention \
+                else fn(*args, ks, vs)
+        else:
+            out = fn(q, kn, vn, k2, v2, tables, lane, kmax, *extra, ks, vs)
+        return out, k2, v2
+    before = counter[0][counter[1]]
+    kern = pa.paged_prefill_attention if kind == "prefill" else fns[0]
+    got, gk, gv = run(kern)
+    again, ak, av = run(kern)
+    launched = counter[0][counter[1]] - before
+    want, wk, wv = run(pa.paged_prefill_plain if kind == "prefill"
+                       else fns[1])
+    terms = pa.abs_terms(q, wk, wv, tables, lane, kmax, ks, vs)
+    torch.cuda.synchronize()
+    reading = measure.paged_reading(got, want, terms, tol)
+    errs[name] = max(errs.get(name, 0.0), float(
+        (got.double() - want.double()).abs().max()))
+    rows = torch.equal(gk, wk) and torch.equal(gv, wv)
+    same = torch.equal(got, again) and torch.equal(gk, ak) and \
+        torch.equal(gv, av)
+    extra_ok, note = True, ""
+    if kind == "decode":
+        pk, pv = measure.int8_write_poisoned(kc8, vc8, wb, wo)
+        extra_ok = torch.equal(run(kern, pk, pv)[0], got)
+        note = f", -128 where the step writes unchanged {extra_ok}"
+    elif kind == "verify":
+        act = (wb >= 0).nonzero().flatten()
+        dec = pa.paged_decode_attention(q, kn, vn, gk.clone(), gv.clone(),
+                                        tables, lane, kmax, wb, wo, ks, vs)
+        extra_ok = torch.equal(dec[act], got[act])
+        note = f", rows = decode kernel bits {extra_ok}"
+    ok = reading <= 1 and rows and same and extra_ok and launched == 2
+    log(f"  {label}: {reading:.3g} of tol, written int8 cache bit-equal "
+        f"{rows}, bit-equal twice {same}{note}, int8 launches {launched} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version")
+
+
+def phase_int8kv_kernels(dev, errs):
+    """The three kernels over an int8 cache against their plain versions
+    (``check_int8kv``): the decode at GPT-medium decode (8 lanes x 12 heads
+    of 128, blocks of 16, contexts 64-1016, one lane inactive), float32
+    and float64, and at blocks of 1, 5 and 1024 x head dims 16-128; the
+    verify at 8 lanes x W 8 x 12 x 128 from positions 64-1008, float32
+    and float64, at W 1, 3 and 20, blocks of 5 and the dense slab; the
+    paged prefill (float32: csrc/attention_f32.cu's int8 form; float64:
+    the decode kernel with no write) at GPT-medium's 512 rows after 256
+    cached keys, hist 0, 15 and 1000 x rows 1, 63 and 65, head dims
+    16-64."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    f32, f64 = torch.float32, torch.float64
+    ctxs = [63, 127, 255, 511, 767, 900, 1015, 40]
+    act = [True] * 7 + [False]
+    for dt in (f32, f64):
+        check_int8kv("decode", measure.paged_decode_write_case(
+            dev, ctxs, 12, 128, SERVE_BS, dt, active=act, seed=1), errs,
+            f"decode int8 GPT-medium 8 lanes, contexts 64-1016, "
+            f"{str(dt)[6:]}")
+    for bs, d in ((1, 16), (5, 32), (16, 64), (1024, 128), (16, 16)):
+        check_int8kv("decode", measure.paged_decode_write_case(
+            dev, [0, 15, 16, 300, 999], 3, d, bs, f32, seed=bs + d), errs,
+            f"decode int8 blocks of {bs}, head dim {d}")
+    pos0 = [64, 15, 128, 512, 1000, 0, 300, 700]
+    for dt in (f32, f64):
+        check_int8kv("verify", measure.paged_verify_case(
+            dev, pos0, SPEC_K, 12, 128, SERVE_BS, dt, seed=2), errs,
+            f"verify int8 GPT-medium 8 lanes x W {SPEC_K}, {str(dt)[6:]}")
+    for w, d, bs, dense in ((1, 64, 16, False), (3, 64, 16, False),
+                            (20, 64, 16, False), (8, 16, 5, False),
+                            (8, 128, 1024, True)):
+        check_int8kv("verify", measure.paged_verify_case(
+            dev, [0, 40, 300, 500], w, 3, d, bs, f32,
+            active=[True, True, False, True], seed=w, dense=dense), errs,
+            f"verify int8 W {w}, head dim {d}, "
+            f"{'the dense slab' if dense else f'blocks of {bs}'}")
+    for hist, rows, length, d, dt in (
+            (256, 512, 512, 128, f32), (0, 1, 1, 128, f32),
+            (15, 63, 60, 128, f32), (1000, 65, 20, 128, f32),
+            (15, 65, 65, 16, f32), (256, 64, 64, 64, f32),
+            (256, 64, 64, 128, f64)):
+        check_int8kv("prefill", measure.paged_prefill_case(
+            dev, hist, rows, length, 12, d, SERVE_BS, dt, seed=rows), errs,
+            f"prefill int8 hist {hist} rows {rows} head dim {d} "
+            f"{str(dt)[6:]}")
+
+
+def phase_int8kv_timing(dev, card_name):
+    """Each int8 variant timed alone (cold L2, ``median_ms``) at the
+    serving shapes, beside the float32 kernel on the same contexts, its
+    plain version (host syncs: ``synced_ms``), the library (each lane's
+    context gathered once outside the timing, then dequantised and one
+    masked ``F.scaled_dot_product_attention``: three calls, no one call
+    computes it) and its bound at int8 bytes: the decode at 8 lanes at
+    context 128, 512 and 1024; the verify at 8 lanes x W 8 from context
+    64, 128, 512 and 1016; the prefill of 512 rows after 256 cached keys.
+    Returns per-call times by shape."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    out = {}
+    for ctx in (128, 512, 1024):
+        case = measure.paged_decode_write_case(
+            dev, [ctx - 1] * SERVE_SLOTS, 12, 128, SERVE_BS, torch.float32)
+        q, kn, vn, kc, vc, tables, lane, kmax, wb, wo = case
+        kc8, vc8, ks, vs = _int8_of(kc, vc)
+        c8 = (q, kn, vn, kc8, vc8, tables, lane, kmax, wb, wo, ks, vs)
+        pa.paged_decode_plain(*c8)            # the step's rows in place
+        ms = median_ms(lambda: pa.paged_decode_attention(*c8), flush)
+        f32 = median_ms(lambda: pa.paged_decode_attention(*case), flush)
+        plain = synced_ms(lambda: pa.paged_decode_plain(*c8), flush, 3)
+        lib = median_ms(measure.paged_int8_library(
+            q, kc8, vc8, ks, vs, tables, kmax), flush)
+        ops, nbytes = measure.paged_bounds(q, kc8, tables, lane, kmax,
+                                           writes=SERVE_SLOTS)
+        b = measure.two_rate_bound(ops, nbytes, card_name)
+        out[f"decode_{ctx}"] = {"ms": ms, "float32_ms": f32,
+                                "plain_ms": plain, "library_ms": lib, **b}
+        log(f"  paged_decode_attention int8 8 lanes x 12 x 128 at context "
+            f"{ctx}: {ms:.4f} ms a call (float32 cache {f32:.4f}), plain "
+            f"{plain:.4f}, library (dequantise + masked SDPA) {lib:.4f}, "
+            f"bound {b['bound_ms']:.4f} ({b['bound_by']}; "
+            f"{b['bound_ms'] / ms:.2f} of it)  [{card_name}]")
+    for ctx in (64, 128, 512, 1024 - SPEC_K):
+        case = measure.paged_verify_case(
+            dev, [ctx] * SERVE_SLOTS, SPEC_K, 12, 128, SERVE_BS,
+            torch.float32)
+        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
+        kc8, vc8, ks, vs = _int8_of(kc, vc)
+        c8 = (q, kn, vn, kc8, vc8, tab, lane, kmax, win0, wrow, wb, wo, ks,
+              vs)
+        pa.paged_verify_plain(*c8)
+        ms = median_ms(lambda: pa.paged_verify_attention(*c8), flush)
+        f32 = median_ms(lambda: pa.paged_verify_attention(*case), flush)
+        plain = synced_ms(lambda: pa.paged_verify_plain(*c8), flush, 3)
+        qs, dk, dv, mask = measure.paged_verify_library(
+            q, kc8, vc8, tab, lane, kmax, SERVE_SLOTS, SPEC_K)
+        sk, sv = ks[None, :, None, :], vs[None, :, None, :]
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            qs, dk.float() * sk, dv.float() * sv, attn_mask=mask), flush)
+        ops, nbytes = measure.paged_bounds(q, kc8, tab, lane, kmax,
+                                           int((wb >= 0).sum()), win0)
+        b = measure.two_rate_bound(ops, nbytes, card_name)
+        out[f"verify_{ctx}"] = {"ms": ms, "float32_ms": f32,
+                                "plain_ms": plain, "library_ms": lib, **b}
+        log(f"  paged_verify_attention int8 8 lanes x W {SPEC_K} at context "
+            f"{ctx}: {ms:.4f} ms (float32 cache {f32:.4f}), plain "
+            f"{plain:.3f} host clock, library {lib:.4f}, bound "
+            f"{b['bound_ms']:.4f} ({b['bound_by']})  [{card_name}]")
+    args = measure.paged_prefill_case(dev, 256, 512, 512, 12, 128, SERVE_BS,
+                                      torch.float32)
+    q, kc, vc, tables, lane, kmax = args
+    kc8, vc8, ks, vs = _int8_of(kc, vc)
+    table, kh = tables[0], kmax.cpu().numpy()
+    ms = median_ms(lambda: pa.paged_prefill_attention(
+        q, kc8, vc8, table, kmax, kh, ks, vs), flush)
+    f32 = median_ms(lambda: pa.paged_prefill_attention(
+        q, kc, vc, table, kmax, kh), flush)
+    plain = synced_ms(lambda: pa.paged_prefill_plain(
+        q, kc8, vc8, table, kmax, ks, vs), flush, 3)
+    t_ctx = int(kmax.max()) + 1
+    dk, dv, _ = measure.paged_dense(kc8, vc8, tables)
+    dk, dv = dk[:, :, :t_ctx].contiguous(), dv[:, :, :t_ctx].contiguous()
+    keys = torch.arange(t_ctx, device=dev)
+    mask = (keys[None, :] <= kmax[:, None].long())[None, None]
+    ql = q.permute(1, 0, 2)[None].contiguous()
+    sk, sv = ks[None, :, None, :], vs[None, :, None, :]
+    lib = median_ms(lambda: F.scaled_dot_product_attention(
+        ql, dk.float() * sk, dv.float() * sv, attn_mask=mask), flush)
+    ops, nbytes = measure.paged_bounds(q, kc8, tables, lane, kmax)
+    b = measure.two_rate_bound(ops, nbytes, card_name)
+    out["prefill_512_hist_256"] = {"ms": ms, "float32_ms": f32,
+                                   "plain_ms": plain, "library_ms": lib, **b}
+    log(f"  paged_prefill_f32 int8, 512 rows after 256 cached keys: "
+        f"{ms:.4f} ms (float32 cache {f32:.4f}), plain {plain:.4f}, library "
+        f"{lib:.4f}, bound {b['bound_ms']:.4f} at 3xTF32 ({b['bound_by']}; "
+        f"{b['fma_ms']:.4f} at the FMA rate)  [{card_name}]")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Scales:
+    """Within the block, every int8 spec calibrates to ``scales`` (one set
+    for the card's and the CPU's specs)."""
+
+    def __init__(self, scales):
+        self.scales = scales
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.zoo import gpt
+        self.real = gpt.gpt_kv_scales
+        gpt.gpt_kv_scales = lambda *a, **kw: self.scales
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch.zoo import gpt
+        gpt.gpt_kv_scales = self.real
+
+
+def phase_int8kv_parity():
+    """GPT_TINY with int8 KV through ``PagedGenerativeServer`` (float32 and
+    float64 weights) and ``GenerativeServer`` (float32) on the card and on
+    the CPU (plain versions), from one set of scales (``gpt_kv_scales`` on
+    the CPU), a prefix hit among the prompts: identical greedy tokens, and
+    every dispatch's logits within 1e-4 (float32) or 1e-10 (float64) of
+    their magnitude (a K/V row written on the card may store one entry
+    one step off where float32 puts its quotient on the other side of a
+    rounding tie)."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_TINY, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_kv_scales, gpt_paged_spec)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, GPT_TINY.vocab_size, 24).astype(np.int32)
+    prompts = [shared, np.concatenate([shared, rng.integers(
+        0, GPT_TINY.vocab_size, 5)]).astype(np.int32),
+        rng.integers(0, GPT_TINY.vocab_size, 9).astype(np.int32)]
+    for kind, dtype, tol in (("paged", torch.float32, 1e-4),
+                             ("paged", torch.float64, 1e-10),
+                             ("dense", torch.float32, 1e-4)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            sd = build_gpt(GPT_TINY, batch=2, seq_len=8, device=dev)
+            for n, a in sd.trainable_params().items():
+                sd.set_arr_for_var(n, a.to(dtype))
+            if dev == "cuda":
+                scales = gpt_kv_scales(build_gpt(
+                    GPT_TINY, batch=2, seq_len=8, device="cpu"), GPT_TINY)
+            with _Scales(scales):
+                if kind == "paged":
+                    srv = PagedGenerativeServer(
+                        gpt_paged_spec(sd, GPT_TINY, quantize_kv=True),
+                        max_slots=2, block_size=8, start=False, device=dev,
+                        debug_leaks=True)
+                else:
+                    srv = GenerativeServer(
+                        gpt_generative_spec(sd, GPT_TINY, quantize_kv=True),
+                        max_slots=2, start=False, device=dev)
+            logits = []
+            for attr in ("_prefill_disp", "_decode_disp"):
+                real = getattr(srv, attr)
+
+                def recording(*a, _real=real):
+                    out = _real(*a)
+                    lg = out[3].detach().cpu().double()
+                    if "active" in a[3]:
+                        lg = lg[np.flatnonzero(a[3]["active"])]
+                    logits.append(lg)
+                    return out
+                setattr(srv, attr, recording)
+            before = (pa.INT8_LAUNCHES["paged_decode_attention"],
+                      af.INT8_LAUNCHES["paged_prefill_f32"]
+                      + pa.INT8_LAUNCHES["paged_attention"])
+            hs = [srv.submit(p, max_new_tokens=12) for p in prompts]
+            srv.start()
+            toks = [h.result(timeout=300) for h in hs]
+            srv.shutdown()
+            res[dev] = (toks, logits, (
+                pa.INT8_LAUNCHES["paged_decode_attention"] - before[0],
+                af.INT8_LAUNCHES["paged_prefill_f32"]
+                + pa.INT8_LAUNCHES["paged_attention"] - before[1]),
+                srv._kc.dtype)
+        (tc, lc, nc, dc), (th, lh, _, _) = res["cuda"], res["cpu"]
+        worst = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(lc, lh))
+        routed = nc[0] > 0 and (kind == "dense" or nc[1] > 0) and \
+            dc == torch.int8
+        log(f"  {str(dtype)[6:]} GPT_TINY int8 KV {kind} serving, card vs "
+            f"cpu: tokens identical {tc == th}, {len(lc)} dispatches' logits "
+            f"worst {worst:.2e} of their magnitude (tol {tol:g}), int8 "
+            f"launches on the card (decode, prefill) {nc}")
+        if not (tc == th and worst <= tol and routed):
+            raise SystemExit(f"int8 KV {kind} serving in {dtype} on the card "
+                             f"disagrees with the CPU")
+
+
+def _zero_residual_outs(sd, layers):
+    """bench.py's self-draft pairing: from layer 1 on, the residual-out
+    projections zeroed, so a 1-layer draft computes the target's logits."""
+    for i in range(1, layers):
+        for part in ("attn/proj", "mlp/proj"):
+            for leaf in ("kernel", "bias"):
+                n = f"h{i}/{part}/{leaf}"
+                sd.set_arr_for_var(n, torch.zeros_like(
+                    sd.get_arr_for_var(n)))
+
+
+def _loadgen(srv, card, label):
+    """bench_serving_quant's closed loop (LOADGEN) through ``srv``."""
+    from deeplearning4j_tpu_torch.serving.loadgen import \
+        GenerativeLoadGenerator
+    lg = GenerativeLoadGenerator(srv, seed=LOADGEN["seed"],
+                                 prompt_len=LOADGEN["prompt_len"],
+                                 new_tokens=LOADGEN["new_tokens"])
+    res = lg.run_closed(LOADGEN["n_requests"], LOADGEN["concurrency"])
+    r = {"tokens_per_s": res.tokens_per_sec, "n_ok": res.n_ok,
+         "tokens": res.tokens_total, "wall_s": res.duration_s,
+         "ttft_p50_ms": res.ttft_percentile(50),
+         "ttft_p99_ms": res.ttft_percentile(99),
+         "intertoken_p50_ms": res.intertoken_percentile(50),
+         "intertoken_p99_ms": res.intertoken_percentile(99)}
+    log(f"  loadgen {label}: {res.n_ok}/{res.n_issued} ok, "
+        f"{res.tokens_total} tokens in {res.duration_s:.3f} s, "
+        f"{r['tokens_per_s']:.1f} tokens/s; TTFT p50 {r['ttft_p50_ms']:.2f} "
+        f"p99 {r['ttft_p99_ms']:.2f} ms; inter-token p50 "
+        f"{r['intertoken_p50_ms']:.2f} p99 {r['intertoken_p99_ms']:.2f} ms"
+        f"  [{card}]")
+    if res.n_ok != LOADGEN["n_requests"]:
+        raise SystemExit(f"loadgen {label}: {res.n_ok} requests ok")
+    return r
+
+
+def phase_int8kv_serving(dev, card):
+    """GPT-medium (``build_gpt(GPT_MEDIUM, ..., seed=0)``) served with an
+    int8 KV cache and int8 weights: ``gpt_paged_spec(sd, GPT_MEDIUM,
+    quantize_weights=True, quantize_kv=True)`` (its calibration timed)
+    through ``PagedGenerativeServer(max_slots=8, block_size=16,
+    max_seq_len=1024)``, the 32 ``serving_traffic`` requests at temperature
+    0 through ``submit`` / ``result()``; the int8 counts set to 0 just
+    before and read just after: 16 int8 decode launches a step and 16 int8
+    paged prefills a prefill; the pool drains. The dense ``GenerativeServer``
+    over the int8 ``gpt_generative_spec`` serves 8 of them, each against
+    ``greedy_decode`` of its spec (phase 13's near-tie rule). Then the
+    self-draft pairing (layers 1-15's residual-out projections zeroed, a
+    1-layer int8-weight int8-KV draft at k = 8): the 32 requests through
+    the speculative server, 16 int8 verify launches a round, every request
+    equal to the same target's without a draft. Agreement of the int8
+    server's tokens with the float32 paged server's on 8 requests
+    (reported, not gated); the pool's blocks at one ``kv_hbm_bytes``
+    budget, int8 against float32 (at least 1.9x); ``bench_serving_quant``'s
+    closed loop (``LOADGEN``) on both at that budget; a profiled decode
+    step pass (phase 13's) and a profiled round pass (phase 19's) of the
+    int8 servers."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import int8_matmul as im
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerativeServer
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    from deeplearning4j_tpu_torch.zoo import (GPT_MEDIUM, build_gpt,
+                                              gpt_generative_spec,
+                                              gpt_paged_spec)
+    cfg = GPT_MEDIUM
+    L = cfg.num_layers
+    sd = build_gpt(cfg, batch=1, seq_len=8, seed=0)
+    t0 = time.perf_counter()
+    spec = gpt_paged_spec(sd, cfg, quantize_weights=True, quantize_kv=True)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    log(f"  int8 KV scales calibrated (4 prompts of 32 tokens, the dense "
+        f"float32 prefill) in {cal_s:.2f} s  [{card}]")
+    dense = gpt_generative_spec(sd, cfg, quantize_weights=True,
+                                quantize_kv=True)
+    reqs = serving_traffic(cfg.vocab_size)
+    out = {"calibration_s": cal_s}
+    kw = dict(max_slots=SERVE_SLOTS, block_size=SERVE_BS,
+              max_seq_len=SERVE_SEQ)
+    srv = PagedGenerativeServer(spec, **kw)
+    pa.reset_launches()
+    af.reset_launches()
+    im.reset_launches()
+    got, m = _serve_requests(srv, reqs, card,
+                             "int8 KV + int8 weights, 32 requests")
+    srv.shutdown()
+    g = srv.metrics.to_record()["generative"]
+    n8 = {"decode": pa.INT8_LAUNCHES["paged_decode_attention"],
+          "prefill": af.INT8_LAUNCHES["paged_prefill_f32"]}
+    want = {"decode": L * g["decode_steps"], "prefill": L * g["prefills"]}
+    log(f"  int8 launches {n8} over {g['decode_steps']} steps and "
+        f"{g['prefills']} prefills; want {want}; slab {srv._kc.dtype}, "
+        f"{srv.kv_slab_bytes / 2**20:.1f} MiB")
+    if n8 != want or srv._kc.dtype != torch.int8:
+        raise SystemExit("the int8 server did not run the int8 kernels")
+    _check_drained(srv)
+    out["paged"] = {**m, "launches": n8}
+    # the dense int8 server against greedy_decode of its spec
+    dsrv = GenerativeServer(dense, max_slots=SERVE_SLOTS,
+                            max_seq_len=SERVE_SEQ)
+    before = pa.INT8_LAUNCHES["paged_decode_attention"]
+    dgot, dm = _serve_requests(dsrv, reqs[:8], card,
+                               "dense int8 KV server, 8 requests")
+    dsrv.shutdown()
+    dn = pa.INT8_LAUNCHES["paged_decode_attention"] - before
+    same, ties = check_against_greedy(dense, reqs[:8], dgot, dev)
+    log(f"  dense int8 against greedy_decode of its spec: {same} of 8 "
+        f"identical, near ties {ties}; int8 decode launches {dn}")
+    if dn < L:
+        raise SystemExit("the dense int8 server did not run the int8 decode")
+    out["dense"] = {**dm, "identical": same, "near_ties": len(ties)}
+    # against the float32 paged server (lossy: reported)
+    f32 = gpt_paged_spec(sd, cfg)
+    fsrv = PagedGenerativeServer(f32, **kw)
+    fgot = [fsrv.submit(p, max_new_tokens=n).result(timeout=900)
+            for p, n in reqs[:8]]
+    fsrv.shutdown()
+    agree = float(np.mean([a == b for x, y in zip(got[:8], fgot)
+                           for a, b in zip(x, y)]))
+    log(f"  int8 KV + int8 weights against float32, 8 requests: token "
+        f"agreement {agree:.4f}; paged int8 against dense int8: "
+        f"{sum(a == b for a, b in zip(got[:8], dgot))} of 8 identical "
+        f"(the dense prefill attends over fresh float32 K/V)")
+    out["agreement_vs_float32"] = agree
+    out["profile"] = profile_serving(spec, reqs, card, m["step_p50_ms"], L)
+    # the pool at one byte budget, and bench_serving_quant's closed loop
+    budget = INT8KV_BUDGET_BLOCKS * 2 * int(np.prod(
+        f32.kv_shape(1, SERVE_BS))) * 4
+    lw = dict(max_slots=SERVE_SLOTS, block_size=SERVE_BS,
+              max_seq_len=LOADGEN["max_seq_len"], kv_hbm_bytes=budget)
+    pools = {}
+    for name, sp in (("int8", spec), ("float32", f32)):
+        s = PagedGenerativeServer(sp, **lw)
+        pools[name] = s.metrics.to_record()["paged"]["num_blocks"]
+        s.submit(np.arange(1, 9, dtype=np.int32), 4).result(timeout=300)
+        out[f"loadgen_{name}"] = _loadgen(s, card, name)
+        s.shutdown()
+        _check_drained(s)
+    ratio = pools["int8"] / pools["float32"]
+    log(f"  pool at {budget} bytes: int8 {pools['int8']} blocks, float32 "
+        f"{pools['float32']}: {ratio:.3f}x (bar 1.9x)")
+    if ratio < 1.9:
+        raise SystemExit(f"int8 pool only {ratio:.3f}x the float32 blocks")
+    out["pool_blocks"] = {**pools, "ratio": ratio, "budget_bytes": budget}
+    del fsrv, dsrv, f32
+    # the speculative int8 server against the same target with no draft
+    _zero_residual_outs(sd, L)
+    sspec = gpt_paged_spec(sd, cfg, quantize_weights=True, quantize_kv=True)
+    draft = gpt_generative_spec(sd, dataclasses.replace(cfg, num_layers=1),
+                                quantize_weights=True, quantize_kv=True)
+    ysrv = PagedGenerativeServer(sspec, **kw)
+    ygot, ym = _serve_requests(ysrv, reqs, card,
+                               "int8 KV target, no draft, 32 requests")
+    ysrv.shutdown()
+    ssrv = PagedGenerativeServer(sspec, draft_spec=draft,
+                                 speculate_k=SPEC_K, **kw)
+    pa.reset_launches()
+    sgot, sm = _serve_requests(ssrv, reqs, card,
+                               f"int8 KV speculative (k={SPEC_K}), "
+                               f"32 requests")
+    ssrv.shutdown()
+    sg = ssrv.metrics.to_record()["generative"]
+    nv = pa.INT8_LAUNCHES["paged_verify_attention"]
+    equal = sum(a == b for a, b in zip(sgot, ygot))
+    log(f"  speculative int8 KV: {sg['spec_rounds']} rounds, acceptance "
+        f"{sg['draft_acceptance_rate']:.4f}, int8 verify launches {nv} "
+        f"(want {L * sg['spec_rounds']}); tokens equal to the no-draft "
+        f"server's on {equal} of {len(reqs)}; tokens/s "
+        f"{sm['tokens_per_s'] / ym['tokens_per_s']:.3f}x the no-draft "
+        f"server's")
+    if nv != L * sg["spec_rounds"] or sg["spec_rounds"] < 1 or \
+            equal != len(reqs):
+        raise SystemExit("speculative int8 KV serving differs from the "
+                         "same target without a draft")
+    _check_drained(ssrv)
+    out["spec"] = {**sm, "verify_launches": nv, "equal": equal,
+                   "spec_rounds": sg["spec_rounds"],
+                   "acceptance": sg["draft_acceptance_rate"]}
+    out["plain_no_draft"] = ym
+    out["launches"] = {"paged_decode_attention_int8": n8["decode"],
+                       "paged_prefill_f32_int8": n8["prefill"],
+                       "paged_verify_attention_int8": nv}
+    out["spec_profile"] = profile_spec_rounds(sspec, draft, reqs, card)
+    del sd, spec, dense, sspec, draft, srv, ysrv, ssrv
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8kv_kernel_records(t, serve, errs):
+    """The int8 variants' JSON records: the decode per decode step (16
+    launches at context 512), the verify per round (16 at context 512),
+    the prefill per 512-row prefill after 256 cached keys (16 layers);
+    ``launches`` the main path's (phase 24's) counts."""
+    prof = serve["profile"]["by_group_ms"]
+    recs = []
+    for name, key, per, in_step in (
+            ("paged_decode_attention_int8", "decode_512",
+             "GPT-medium decode step, 8 lanes at context 512",
+             prof.get("paged attention")),
+            ("paged_verify_attention_int8", "verify_512",
+             "speculative round's verify, 8 lanes x W 8 at context 512",
+             serve["spec_profile"]["by_group_ms"].get("verify attention")),
+            ("paged_prefill_f32_int8", "prefill_512_hist_256",
+             "GPT-medium prefill of 512 rows after 256 cached keys", None)):
+        c = t[key]
+        source, replaces = INT8KV_KERNELS[name]
+        recs.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serve["launches"][name],
+            "launches_per_step": 16, "max_abs_err": errs[name],
+            "ms": 16 * c["ms"], "plain_ms": 16 * c["plain_ms"],
+            "bound_ms": 16 * c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": 16 * c["library_ms"],
+            "library": "dequantise the gathered context, then masked "
+                       "F.scaled_dot_product_attention",
+            "float32_cache_ms": 16 * c["float32_ms"], "ms_per": per,
+            "in_step_ms": in_step,
+            "per_call": {k: v for k, v in t.items()
+                         if k.startswith(key.split("_")[0])}})
+    return recs
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4595,7 +5203,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/21] env")
+    log("[1/24] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -4634,49 +5242,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/21] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/24] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/21] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/24] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/21] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/24] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/21] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/24] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/21] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/24] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/21] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/24] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/21] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/24] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/21] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/24] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -4688,7 +5296,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/21] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/24] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -4702,18 +5310,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/21] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/24] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/21] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/24] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/21] main path: GPT-medium float32 serving, "
+    log(f"[13/24] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -4722,40 +5330,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/21] path shapes: paged attention vs plain, then timed")
+    log("[14/24] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/21] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/24] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/21] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/24] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/21] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/24] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/21] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/24] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/21] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/24] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -4764,18 +5372,40 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/21] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/24] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/21] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/24] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
     t0 = time.perf_counter()
     phase_bert(card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[22/24] kernels: paged decode, verify and prefill over an int8 "
+        "cache (CUDA C++) vs plain, then timed")
+    t0 = time.perf_counter()
+    phase_int8kv_kernels(dev, errs)
+    int8kv_timing = phase_int8kv_timing(dev, name)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[23/24] parity: GPT_TINY int8 KV serving (paged float32 and "
+        "float64, dense float32), card vs CPU")
+    t0 = time.perf_counter()
+    phase_int8kv_parity()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[24/24] main path: GPT-medium int8 KV + int8 weights serving, "
+        f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
+        f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
+        f"server; the pool at one byte budget and the load generator; the "
+        f"int8 speculative server (k {SPEC_K})")
+    t0 = time.perf_counter()
+    int8kv_serve = phase_int8kv_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -4845,6 +5475,7 @@ def main():
                          else ""),
             "in_step_ms": prof[kname]["in_prefill_ms"], "per_call": t})
     kernels.extend(spec_kernel_records(spec_timing, spec_serve, errs))
+    kernels.extend(int8kv_kernel_records(int8kv_timing, int8kv_serve, errs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

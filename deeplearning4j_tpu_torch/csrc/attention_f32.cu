@@ -18,6 +18,12 @@
 //     out[r] = sum_{t <= kmax[r]} softmax_t(q[r] . K[t] / sqrt(D)) V[t]
 //     K[t]   = kc[table[t / BS], a, t % BS], and V likewise.
 //   A row with kmax < 0 has no key and gets 0, as paged_attention.cu's.
+//   With an int8 cache (k_scale and v_scale given, [A, D] float32: the
+//   serving tier's int8 KV, zoo/gpt.py :612-628 with _q_load :581-584)
+//   K[t] is float(kc_i8[...]) * k_scale[a] rounded in float32, and V
+//   likewise: a K/V tile is read as int8 rows (16-byte loads, a quarter of
+//   float32's bytes) and dequantised into the float32 shared tile before
+//   the 3xTF32 split, so every product after it is the float cache's.
 //
 // What bounds them on an H100: at the serving shapes (12 heads of 128, a
 // dense prefill of 512 rows causal; 512 rows after 256 cached keys) the
@@ -104,6 +110,8 @@ struct F32Args {
   float* stats;       // dense only, [B, H, Sq, 2]; null for the paged prefill
   float* part;        // per work item of a split tile: O [kBM][D], then (m, l) [kBM]
   const int* table;   // paged: the lane's block table [MAXB]
+  const float* ksc;   // paged int8: the K and V scales [H, D]; null for a float cache
+  const float* vsc;
   const int* kmax;    // paged: each row's last key [N]
   int64_t rows;       // Sq, or N
   int64_t H;          // heads (paged: A)
@@ -244,7 +252,61 @@ __device__ __forceinline__ void load_kv(const F32Args& a, float* sk, float* sv, 
   }
 }
 
-template <int D, bool PAGED>
+// One K/V tile of an int8 cache: 16 int8 values (16 bytes) a thread at a
+// time, dequantised at their channels' scales into the float32 tile; a key
+// past the tile's end is written as 0, as cp.async's zero-fill.
+template <int D>
+__device__ __forceinline__ void load_kv_i8(const F32Args& a, float* sk, float* sv, int j0,
+                                           int kend, const int8_t* kbase, const int8_t* vbase,
+                                           const float* ks, const float* vs) {
+  using C = Cfg<D>;
+  constexpr int kRow = D / 16;  // 16-byte pieces an int8 row
+  for (int idx = threadIdx.x; idx < C::BN * kRow; idx += kThreads) {
+    const int r = idx / kRow, c = idx % kRow;
+    const int t = j0 + r;
+    float kf[16], vf[16];
+    if (t < kend) {
+      const int u = t / a.BS;
+      const int64_t blk = a.table[u];
+      const int64_t o = t - static_cast<int64_t>(u) * a.BS;
+      const int4 kx = *reinterpret_cast<const int4*>(kbase + blk * a.kb + o * a.ks + c * 16);
+      const int4 vx = *reinterpret_cast<const int4*>(vbase + blk * a.vb + o * a.vs + c * 16);
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&kx);
+      const int8_t* vb = reinterpret_cast<const int8_t*>(&vx);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        kf[e] = __fmul_rn(static_cast<float>(kb[e]), ks[c * 16 + e]);
+        vf[e] = __fmul_rn(static_cast<float>(vb[e]), vs[c * 16 + e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) kf[e] = vf[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 16; e += 4) {
+      *reinterpret_cast<float4*>(sk + r * C::LQK + c * 16 + e) =
+          make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
+      *reinterpret_cast<float4*>(sv + r * C::LV + c * 16 + e) =
+          make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
+    }
+  }
+}
+
+// A K/V tile into stage (sk, sv): cp.async copies of a float cache's rows,
+// or an int8 cache's rows dequantised (Q8, paged only).
+template <int D, bool PAGED, bool Q8>
+__device__ __forceinline__ void load_tile(const F32Args& a, float* sk, float* sv, int j0,
+                                          int kend, int64_t b, int64_t h) {
+  if constexpr (Q8) {
+    load_kv_i8<D>(a, sk, sv, j0, kend, reinterpret_cast<const int8_t*>(a.k) + h * a.kh,
+                  reinterpret_cast<const int8_t*>(a.v) + h * a.vh, a.ksc + h * D, a.vsc + h * D);
+  } else {
+    load_kv<D, PAGED>(a, sk, sv, j0, kend, a.k + (PAGED ? 0 : b * a.kb) + h * a.kh,
+                      a.v + (PAGED ? 0 : b * a.vb) + h * a.vh);
+  }
+}
+
+template <int D, bool PAGED, bool Q8 = false>
 __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) {
   using C = Cfg<D>;
   constexpr int BN = C::BN;
@@ -278,14 +340,12 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
     cp_async16(sq + r * C::LQK + c * 4, qbase + (live ? (q0 + r) * a.qs : 0) + c * 4,
                live ? 16 : 0);
   }
-  const float* kbase = a.k + (PAGED ? 0 : b * a.kb) + h * a.kh;
-  const float* vbase = a.v + (PAGED ? 0 : b * a.vb) + h * a.vh;
   float* stage0 = smem + C::kQ;
-  if (ntiles > 0) load_kv<D, PAGED>(a, stage0, stage0 + C::kK, kbeg, kend, kbase, vbase);
+  if (ntiles > 0) load_tile<D, PAGED, Q8>(a, stage0, stage0 + C::kK, kbeg, kend, b, h);
   cp_async_commit();
   if (ntiles > 1)
-    load_kv<D, PAGED>(a, stage0 + C::kStage, stage0 + C::kStage + C::kK, kbeg + BN, kend, kbase,
-                      vbase);
+    load_tile<D, PAGED, Q8>(a, stage0 + C::kStage, stage0 + C::kStage + C::kK, kbeg + BN, kend,
+                            b, h);
   cp_async_commit();
 
   // this thread's two rows (g and g + 8 of the warp's 16) and the warp's
@@ -408,7 +468,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
     __syncthreads();   // every warp is done with this stage
     if (it + 2 < ntiles) {
       float* st = smem + C::kQ + (it & 1) * C::kStage;
-      load_kv<D, PAGED>(a, st, st + C::kK, j0 + 2 * BN, kend, kbase, vbase);
+      load_tile<D, PAGED, Q8>(a, st, st + C::kK, j0 + 2 * BN, kend, b, h);
     }
     cp_async_commit();
   }
@@ -508,7 +568,7 @@ __global__ void __launch_bounds__(kThreads) attn_f32_combine(const F32Args a) {
 
 // The main kernel's shared memory raised past 48 KB on the current device,
 // once per device: a kernel's attributes belong to each device's context.
-template <int D, bool PAGED>
+template <int D, bool PAGED, bool Q8 = false>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -517,17 +577,17 @@ cudaError_t configure() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(attn_f32_kernel<D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Cfg<D>::kSmemBytes);
+  e = cudaFuncSetAttribute(attn_f32_kernel<D, PAGED, Q8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmemBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
-template <int D, bool PAGED>
+template <int D, bool PAGED, bool Q8>
 int launch(const F32Args& a, int64_t BH, cudaStream_t st) {
-  const cudaError_t attr = configure<D, PAGED>();
+  const cudaError_t attr = configure<D, PAGED, Q8>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_f32_kernel<D, PAGED>
+  attn_f32_kernel<D, PAGED, Q8>
       <<<dim3(static_cast<unsigned>(a.tiles * a.ncmax), static_cast<unsigned>(BH)), kThreads,
          Cfg<D>::kSmemBytes, st>>>(a);
   cudaError_t err = cudaGetLastError();
@@ -538,13 +598,17 @@ int launch(const F32Args& a, int64_t BH, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the kernel for head dim D; the paged form reads an int8 cache where the
+// scales are given
 template <bool PAGED>
 int launch_d(int64_t D, const F32Args& a, int64_t BH, cudaStream_t st) {
+  const bool q8 = PAGED && a.ksc != nullptr;
   switch (D) {
-    case 16: return launch<16, PAGED>(a, BH, st);
-    case 32: return launch<32, PAGED>(a, BH, st);
-    case 64: return launch<64, PAGED>(a, BH, st);
-    case 128: return launch<128, PAGED>(a, BH, st);
+    case 16: return q8 ? launch<16, PAGED, true>(a, BH, st) : launch<16, PAGED, false>(a, BH, st);
+    case 32: return q8 ? launch<32, PAGED, true>(a, BH, st) : launch<32, PAGED, false>(a, BH, st);
+    case 64: return q8 ? launch<64, PAGED, true>(a, BH, st) : launch<64, PAGED, false>(a, BH, st);
+    case 128:
+      return q8 ? launch<128, PAGED, true>(a, BH, st) : launch<128, PAGED, false>(a, BH, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -627,16 +691,19 @@ extern "C" int dl4j_attention_fwd_f32(
 
 // q [N, A, D] float32 at strides (sqn, sqa, 1); kc, vc one layer's
 // [num_blocks, A, BS, D] at strides (skb, ska, skt, 1) and (svb, sva, svt,
-// 1), all multiples of 4 with bases on 16 bytes; table [MAXB] and kmax [N]
-// int32 contiguous; out [N, A, D] contiguous; part, part_floats and chunk
-// as above. Returns the launch's cudaError_t.
+// 1), float32 with strides multiples of 4, or int8 (k_scale and v_scale
+// [A, D] float32 contiguous given; nullptr for float32) with strides
+// multiples of 16, bases on 16 bytes; table [MAXB] and kmax [N] int32
+// contiguous; out [N, A, D] contiguous; part, part_floats and chunk as
+// above. Returns the launch's cudaError_t.
 extern "C" int dl4j_paged_prefill_f32(
-    const void* q, const void* kc, const void* vc, const void* table, const void* kmax,
-    void* out, void* part, int64_t part_floats, int64_t N, int64_t A, int64_t D, int64_t BS,
+    const void* q, const void* kc, const void* vc, const void* k_scale, const void* v_scale,
+    const void* table, const void* kmax, void* out, void* part, int64_t part_floats, int64_t N, int64_t A, int64_t D, int64_t BS,
     int64_t MAXB, int64_t sqn, int64_t sqa, int64_t skb, int64_t ska, int64_t skt, int64_t svb,
     int64_t sva, int64_t svt, double scale, int64_t chunk, void* stream) {
   if (N <= 0 || A <= 0) return 0;
-  if (BS < 1 || MAXB < 1 || A > 65535 || BS * MAXB > (1 << 30))
+  if (BS < 1 || MAXB < 1 || A > 65535 || BS * MAXB > (1 << 30) ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   F32Args a = {};
   a.q = static_cast<const float*>(q);
@@ -646,6 +713,8 @@ extern "C" int dl4j_paged_prefill_f32(
   a.part = static_cast<float*>(part);
   a.table = static_cast<const int*>(table);
   a.kmax = static_cast<const int*>(kmax);
+  a.ksc = static_cast<const float*>(k_scale);
+  a.vsc = static_cast<const float*>(v_scale);
   a.rows = N;
   a.H = A;
   a.Sk = BS * MAXB;

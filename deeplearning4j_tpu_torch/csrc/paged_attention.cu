@@ -40,17 +40,33 @@
 // the launch writes. Its kernel (paged_verify_kernel, below the decode
 // kernel) is one cluster of the same 8 ranks a (lane's window, head): each
 // chunk of the lane's keys is copied once and serves every row of the
-// window (the first verify, dl4j_paged_verify_attention_v1, ran each (lane,
-// w) as a decode cluster and read a lane's keys W times).
+// window (the first verify ran each (lane, w) as a decode cluster and
+// read a lane's keys W times).
+//
+// Both entries take an int8 cache (k_scale and v_scale non-null, [A, D]
+// float32 each, the layer's per-(head, channel) scales): the serving
+// tier's int8 KV, the JAX decode functions' _q_store and _q_load
+// (zoo/gpt.py :294-304, paged :576-584). A row is stored as clip(rint(x /
+// s), -127, 127), the quotient an IEEE division (never a reciprocal) and
+// rint half to even, as jnp.round; a stored value is read as float(x_i8) *
+// s rounded in float32 and only then widened to T, so float64 runs take
+// the same int8 path. A row the launch writes is attended to in its stored
+// form, as JAX reads it back from the slab: the decode's own key and the
+// verify's window keys are dequant(quant(k_new)), made in registers or put
+// in the chunk from k_new, never read back (another cluster may not have
+// written them yet). The ring holds int8 rows (a chunk of 16 rows of 128
+// is 2 KiB, one bulk copy), dequantised as the math reads them; the order
+// of every sum is the float cache's.
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
 // of D values once and does 4 D FLOP per key, far below the card's ridge:
 // bytes bound it (8 lanes x 12 heads x 512 keys x 128 x 4 B x 2 = 50 MB a
-// layer at context 512, 0.0151 ms at 3.35 TB/s).
+// layer at context 512, 0.0151 ms at 3.35 TB/s; an int8 cache a quarter of
+// that, 0.0038 ms).
 //
 // Design: one cluster of 8 blocks of 128 threads a (row, head). What held
-// the first kernel (dl4j_paged_attention_v1 below) back, and what this one
-// does about it:
+// the first kernel (one block of 256 threads a (row, head), since removed;
+// PERF.md keeps its times) back, and what this one does about it:
 // 1. Too few blocks (one a (row, head): 96 on 132 SMs at decode). Here a
 //    row's keys are cut into chunks of 16 positions and cluster rank j takes
 //    chunks j, j + 8, j + 16, ...: 768 blocks at decode, all resident at
@@ -93,162 +109,6 @@
 #include <mutex>
 #include <set>
 
-// The first kernel (dl4j_paged_attention_v1): one block of 256 threads per
-// (row, head); eight lanes share a key, 32 streams of keys t = sid, sid +
-// 32, ... with an online softmax each, combined in stream order in shared
-// memory. No wrapper reaches it; chip_smoke.py times it beside the cluster
-// kernel.
-namespace v1 {
-
-constexpr int kWarps = 8;
-constexpr int kGroup = 8;                       // lanes that share a key
-constexpr int kGroupsPerWarp = 32 / kGroup;     // 4
-constexpr int kStreams = kWarps * kGroupsPerWarp;   // 32
-constexpr int kThreads = kWarps * 32;           // 256
-
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                       const T* __restrict__ vc,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ lane,
-                       const int* __restrict__ kmax, T* __restrict__ out,
-                       int A, int BS, int MAXB, int64_t sqn, int64_t sqa,
-                       int64_t skb, int64_t ska, int64_t skt, int64_t svb,
-                       int64_t sva, int64_t svt, T scale) {
-  constexpr int E = D / kGroup;                 // elements per lane
-  __shared__ T sm_m[kStreams];
-  __shared__ T sm_l[kStreams];
-  __shared__ T sm_acc[kStreams][D];
-
-  const int row = blockIdx.x / A;
-  const int head = blockIdx.x - row * A;
-  const int warp = threadIdx.x / 32;
-  const int grp = (threadIdx.x % 32) / kGroup;
-  const int gl = threadIdx.x % kGroup;
-  const int sid = warp * kGroupsPerWarp + grp;
-  // a key past the table's reach is not there (the plain version's mask
-  // over T = MAXB * BS keys says the same)
-  const int last = min(kmax[row], MAXB * BS - 1);
-  const int* tab = tables + (int64_t)lane[row] * MAXB;
-  const T* kh = kc + (int64_t)head * ska;
-  const T* vh = vc + (int64_t)head * sva;
-
-  T qr[E], acc[E];
-  const T* qp = q + (int64_t)row * sqn + (int64_t)head * sqa;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    qr[e] = qp[e * kGroup + gl];
-    acc[e] = T(0);
-  }
-  T m = -INFINITY, l = T(0);
-
-  // the loop bound is the warp's first key, so a warp's lanes run the
-  // same iterations and the shuffles below see all 32 of them
-  for (int t0 = warp * kGroupsPerWarp; t0 <= last; t0 += kStreams) {
-    const int t = t0 + grp;
-    const bool valid = t <= last;
-    T kr[E], vr[E];
-    if (valid) {
-      const int u = t / BS;
-      const int64_t blk = tab[u];
-      const int off = t - u * BS;
-      const T* kp = kh + blk * skb + (int64_t)off * skt;
-      const T* vp = vh + blk * svb + (int64_t)off * svt;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        kr[e] = kp[e * kGroup + gl];
-        vr[e] = vp[e * kGroup + gl];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) kr[e] = vr[e] = T(0);
-    }
-    T s = T(0);
-#pragma unroll
-    for (int e = 0; e < E; ++e) s += qr[e] * kr[e];
-    // a butterfly within the group: every lane ends with the same bits
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (valid) {
-      s *= scale;
-      const T mn = s > m ? s : m;
-      const T corr = exp_(m - mn);              // 0 on the stream's first key
-      const T p = exp_(s - mn);
-      l = l * corr + p;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = acc[e] * corr + p * vr[e];
-      m = mn;
-    }
-  }
-
-  if (gl == 0) {
-    sm_m[sid] = m;
-    sm_l[sid] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) sm_acc[sid][e * kGroup + gl] = acc[e];
-  __syncthreads();
-
-  const int d = threadIdx.x;
-  if (d < D) {
-    T* op = out + ((int64_t)row * A + head) * D + d;
-    if (last < 0) {                             // no key: the JAX mask's 0
-      *op = T(0);
-      return;
-    }
-    T mx = sm_m[0];
-    for (int i = 1; i < kStreams; ++i) mx = sm_m[i] > mx ? sm_m[i] : mx;
-    T lsum = T(0), o = T(0);
-    for (int i = 0; i < kStreams; ++i) {
-      const T w = exp_(sm_m[i] - mx);          // 0 for a stream with no key
-      lsum += sm_l[i] * w;
-      o += sm_acc[i][d] * w;
-    }
-    *op = o / lsum;
-  }
-}
-
-template <typename T, int D>
-void launch(const void* q, const void* kc, const void* vc, const void* tables,
-            const void* lane, const void* kmax, void* out, int64_t N,
-            int64_t A, int64_t BS, int64_t MAXB, int64_t sqn, int64_t sqa,
-            int64_t skb, int64_t ska, int64_t skt, int64_t svb, int64_t sva,
-            int64_t svt, double scale, cudaStream_t stream) {
-  paged_attention_kernel<T, D><<<(unsigned)(N * A), kThreads, 0, stream>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, (const int*)tables,
-      (const int*)lane, (const int*)kmax, (T*)out, (int)A, (int)BS,
-      (int)MAXB, sqn, sqa, skb, ska, skt, svb, sva, svt, (T)scale);
-}
-
-template <typename T>
-int launch_d(int64_t D, const void* q, const void* kc, const void* vc,
-             const void* tables, const void* lane, const void* kmax,
-             void* out, int64_t N, int64_t A, int64_t BS, int64_t MAXB,
-             int64_t sqn, int64_t sqa, int64_t skb, int64_t ska, int64_t skt,
-             int64_t svb, int64_t sva, int64_t svt, double scale,
-             cudaStream_t st) {
-#define DL4J_PAGED(DD)                                                       \
-  launch<T, DD>(q, kc, vc, tables, lane, kmax, out, N, A, BS, MAXB, sqn,     \
-                sqa, skb, ska, skt, svb, sva, svt, scale, st)
-  switch (D) {
-    case 16: DL4J_PAGED(16); break;
-    case 32: DL4J_PAGED(32); break;
-    case 64: DL4J_PAGED(64); break;
-    case 128: DL4J_PAGED(128); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DL4J_PAGED
-  return 0;
-}
-
-}  // namespace v1
-
-
 namespace dec {
 
 namespace cg = cooperative_groups;
@@ -258,7 +118,7 @@ constexpr int kRanks = 8;                   // blocks a cluster
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 // Slots of a block's ring of chunks (K and V, 16 KiB a slot in float32 at
-// D = 128). One: a deeper ring keeps more of a block's copies in flight
+// D = 128, 4 KiB in int8). One: a deeper ring keeps more of a block's copies in flight
 // but fits fewer blocks an SM, and measured slower at every decode context
 // (PERF.md; experiments/paged_decode_study.py builds deeper rings).
 constexpr int kRing = 1;
@@ -267,9 +127,13 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float rint_(float x) { return rintf(x); }
+__device__ __forceinline__ double rint_(double x) { return rint(x); }
 
-// How a block's threads share a chunk, for element type T and head dim D.
-template <typename T, int D>
+// How a block's threads share a chunk, for compute type T, cache type C
+// (T, or int8_t) and head dim D. A thread's slice is 16 bytes of T (E
+// values); the cache's rows are copied in 16-byte pieces of C.
+template <typename T, typename C, int D>
 struct Layout {
   static constexpr int E = 16 / static_cast<int>(sizeof(T));  // a slice
   static constexpr int NS = D / E;                 // slices a row
@@ -278,7 +142,9 @@ struct Layout {
   static constexpr int GPW = 32 / G;               // keys a warp at once
   static constexpr int kStreams = kWarps * GPW < kChunk ? kWarps * GPW : kChunk;
   static constexpr int KPS = kChunk / kStreams;    // keys a stream a chunk
-  static constexpr int kChunkBytes = kChunk * D * static_cast<int>(sizeof(T));
+  static constexpr int CE = 16 / static_cast<int>(sizeof(C));   // a copy's piece
+  static constexpr int NC = D / CE;                // pieces a cache row
+  static constexpr int kChunkBytes = kChunk * D * static_cast<int>(sizeof(C));
   static constexpr int kSlotElems = 2 * kChunk * D;    // K rows, then V rows
   static constexpr int kSlotBytes = 2 * kChunkBytes;
   static constexpr int kRingSlots =
@@ -296,13 +162,51 @@ struct Vec16<double> {
   using type = double2;
 };
 
-// 16 bytes of shared memory into E registers.
+// A key's or value's E channels from the chunk in shared memory into E
+// registers: 16 bytes of a float cache as they are; E bytes of an int8
+// cache dequantised at the channels' scales s (E of them, in shared
+// memory): float(x) * s rounded in float32, then widened to T.
 template <typename T, int E>
-__device__ __forceinline__ void ld16(const T* p, T (&v)[E]) {
+__device__ __forceinline__ void ldkv(const T* p, const float*, T (&v)[E]) {
   const typename Vec16<T>::type x = *reinterpret_cast<const typename Vec16<T>::type*>(p);
   const T* xs = reinterpret_cast<const T*>(&x);
 #pragma unroll
   for (int e = 0; e < E; ++e) v[e] = xs[e];
+}
+template <typename T, int E>
+__device__ __forceinline__ void ldkv(const int8_t* p, const float* s, T (&v)[E]) {
+  signed char xs[E];
+  if constexpr (E == 4) {
+    const char4 x = *reinterpret_cast<const char4*>(p);
+    xs[0] = x.x, xs[1] = x.y, xs[2] = x.z, xs[3] = x.w;
+  } else {
+    const char2 x = *reinterpret_cast<const char2*>(p);
+    xs[0] = x.x, xs[1] = x.y;
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = static_cast<T>(__fmul_rn(static_cast<float>(xs[e]), s[e]));
+}
+
+// What the cache stores of x at the scale *s: x itself (a float cache), or
+// clip(rint(x / s), -127, 127) as int8, the quotient rounded once (IEEE
+// division in T) and rint half to even, as the JAX store's jnp.round.
+template <typename C, typename T>
+__device__ __forceinline__ C stored(T x, const float* s) {
+  if constexpr (sizeof(C) == 1) {
+    const T r = rint_(x / static_cast<T>(*s));
+    return static_cast<C>(r < T(-127) ? T(-127) : (r > T(127) ? T(127) : r));
+  } else {
+    return x;
+  }
+}
+// A stored value as the math reads it (ldkv's dequantisation).
+template <typename T, typename C>
+__device__ __forceinline__ T loaded(C x, const float* s) {
+  if constexpr (sizeof(C) == 1) {
+    return static_cast<T>(__fmul_rn(static_cast<float>(x), *s));
+  } else {
+    return x;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -421,19 +325,28 @@ struct Args {
   const int* win0;
   const int* wrow;
   void* out;
+  // an int8 cache's per-(head, channel) scales [A, D] (nullptr: a float
+  // cache)
+  const float* ksc;
+  const float* vsc;
   int N, A, BS, MAXB, NB, S, bulk;
   int64_t sqn, sqa, skb, ska, skt, svb, sva, svt;
   double scale;
 };
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     paged_decode_kernel(const Args a) {
-  using L = Layout<T, D>;
+  using L = Layout<T, C, D>;
   constexpr int E = L::E, G = L::G, SL = L::SL, S = L::kStreams;
+  constexpr bool kQ = sizeof(C) == 1;         // an int8 cache
   extern __shared__ __align__(128) unsigned char dyn[];
-  T* ring = reinterpret_cast<T*>(dyn);
+  C* ring = reinterpret_cast<C*>(dyn);
   __shared__ __align__(8) uint64_t bars[L::kRingSlots];
+  // an int8 cache's scales of this head's channels, K's then V's (none
+  // for a float cache), and where channel d's lie
+  __shared__ __align__(16) float s_sc[2][kQ ? D : 1];
+  auto scales = [&](int kv, int d) -> const float* { return kQ ? &s_sc[kv][d] : nullptr; };
   __shared__ T s_m[S], s_l[S];
   __shared__ T s_acc[S][D];
   // rank 0's: each rank's partial (m, l) and acc, pushed there over DSMEM,
@@ -479,10 +392,14 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   const bool own = rank == (last >= 0 ? (last / kChunk) % kRanks : 0);
   constexpr int nring = L::kRingSlots;
 
-  const T* kh = static_cast<const T*>(a.kc) + static_cast<int64_t>(head) * a.ska;
-  const T* vh = static_cast<const T*>(a.vc) + static_cast<int64_t>(head) * a.sva;
+  const C* kh = static_cast<const C*>(a.kc) + static_cast<int64_t>(head) * a.ska;
+  const C* vh = static_cast<const C*>(a.vc) + static_cast<int64_t>(head) * a.sva;
   const int64_t qoff = static_cast<int64_t>(row) * a.sqn + static_cast<int64_t>(head) * a.sqa;
 
+  if constexpr (kQ) {
+    for (int d = tid; d < 2 * D; d += kThreads)
+      s_sc[d / D][d % D] = (d < D ? a.ksc : a.vsc)[static_cast<int64_t>(head) * D + d % D];
+  }
   if (tid == 0) {
     for (int s = 0; s < nring; ++s)
       mbar_init(smem_u32(&bars[s]), a.bulk ? 1u : static_cast<uint32_t>(kThreads));
@@ -498,7 +415,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   int islot = 0;
   auto issue = [&](int k) {
     const int c = rank + kRanks * k;
-    T* dst = ring + static_cast<int64_t>(islot) * L::kSlotElems;
+    C* dst = ring + static_cast<int64_t>(islot) * L::kSlotElems;
     const uint32_t bar = smem_u32(&bars[islot]);
     islot = islot + 1 == nring ? 0 : islot + 1;
     if (a.bulk) {
@@ -516,17 +433,17 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
                   bar);
       }
     } else {
-      for (int p = tid; p < 2 * kChunk * L::NS; p += kThreads) {
-        const int kv = p / (kChunk * L::NS);
-        const int r = (p / L::NS) % kChunk;
-        const int s = p % L::NS;
+      for (int p = tid; p < 2 * kChunk * L::NC; p += kThreads) {
+        const int kv = p / (kChunk * L::NC);
+        const int r = (p / L::NC) % kChunk;
+        const int s = p % L::NC;
         const int t = c * kChunk + r;
         if (t <= last && t != wkey) {
           const int u = t / a.BS;
           const int64_t blk = tab[u];
           const int64_t off = t - u * a.BS;
-          const T* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
-          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * E), src + s * E);
+          const C* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
+          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * L::CE), src + s * L::CE);
         }
       }
       cp_async_arrive(bar);
@@ -536,13 +453,16 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
   for (int k = 0; k < first; ++k) issue(k);
 
   // The step's K/V row, in the owning block's registers (each key group
-  // holds the whole row): its streams take it as key wkey's K and V, and
-  // its first group stores it after the loop.
+  // holds the whole row): its stored form (kst, vst: the row itself, or
+  // its int8 payload), which its first group stores after the loop, and
+  // that form as the math reads it (kn, vn), which its streams take as
+  // key wkey's K and V.
   const bool writer = wb >= 0 && own;
   const bool subst = wkey >= 0 && own;
   const T* kn_src = static_cast<const T*>(a.k_new) + qoff;
   const T* vn_src = static_cast<const T*>(a.v_new) + qoff;
   T qr[SL][E], kn[SL][E], vn[SL][E], acc[SL][E];
+  C kst[SL][E], vst[SL][E];
   const T* qp = static_cast<const T*>(a.q) + qoff;
 #pragma unroll
   for (int j = 0; j < SL; ++j)
@@ -550,8 +470,10 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) {
       const int d = (gl + G * j) * E + e;
       qr[j][e] = qp[d];
-      kn[j][e] = writer ? kn_src[d] : T(0);
-      vn[j][e] = writer ? vn_src[d] : T(0);
+      kst[j][e] = stored<C>(writer ? kn_src[d] : T(0), scales(0, d));
+      vst[j][e] = stored<C>(writer ? vn_src[d] : T(0), scales(1, d));
+      kn[j][e] = loaded<T>(kst[j][e], scales(0, d));
+      vn[j][e] = loaded<T>(vst[j][e], scales(1, d));
       acc[j][e] = T(0);
     }
   T m = -INFINITY, l = T(0);
@@ -559,8 +481,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 
   for (int k = 0, slot = 0, phase = 0; k < mine; ++k) {
     mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>(phase));
-    const T* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
-    const T* sv = sk + kChunk * D;
+    const C* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+    const C* sv = sk + kChunk * D;
     const int t0 = (rank + kRanks * k) * kChunk;
     T sc[L::KPS];
     bool ok[L::KPS];
@@ -578,7 +500,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
         } else {
-          ld16<T, E>(sk + i * D + (gl + G * j) * E, kr);
+          ldkv<T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E), kr);
         }
 #pragma unroll
         for (int e = 0; e < E; ++e) dot += qr[j][e] * kr[e];
@@ -612,7 +534,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 #pragma unroll
             for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
           } else {
-            ld16<T, E>(sv + i * D + (gl + G * j) * E, vr);
+            ldkv<T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E), vr);
           }
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[j][e] += p * vr[e];
@@ -644,14 +566,14 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       for (int e = 0; e < E; ++e) s_acc[sid][(gl + G * j) * E + e] = acc[j][e];
   }
   if (writer && sid == 0) {              // no block of this launch reads it
-    T* kd = static_cast<T*>(a.kc) + wb * a.skb + head * a.ska + wo * a.skt;
-    T* vd = static_cast<T*>(a.vc) + wb * a.svb + head * a.sva + wo * a.svt;
+    C* kd = static_cast<C*>(a.kc) + wb * a.skb + head * a.ska + wo * a.skt;
+    C* vd = static_cast<C*>(a.vc) + wb * a.svb + head * a.sva + wo * a.svt;
 #pragma unroll
     for (int j = 0; j < SL; ++j)
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        kd[(gl + G * j) * E + e] = kn[j][e];
-        vd[(gl + G * j) * E + e] = vn[j][e];
+        kd[(gl + G * j) * E + e] = kst[j][e];
+        vd[(gl + G * j) * E + e] = vst[j][e];
       }
   }
   __syncthreads();
@@ -714,7 +636,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 
 // The kernel's shared memory raised past 48 KB on the current device, once
 // per device: a kernel's attributes belong to each device's context.
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -723,31 +645,35 @@ cudaError_t configure() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Layout<T, D>::kRingSlots * Layout<T, D>::kSlotBytes);
+  e = cudaFuncSetAttribute(paged_decode_kernel<T, C, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Layout<T, C, D>::kRingSlots * Layout<T, C, D>::kSlotBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 int launch(Args a, int64_t N, cudaStream_t st) {
-  using L = Layout<T, D>;
+  using L = Layout<T, C, D>;
   // a chunk's 16 rows are one contiguous run of the slab
   a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;
-  const cudaError_t attr = configure<T, D>();
+  const cudaError_t attr = configure<T, C, D>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_decode_kernel<T, D><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
-                              static_cast<size_t>(L::kRingSlots) * L::kSlotBytes, st>>>(a);
+  paged_decode_kernel<T, C, D><<<static_cast<unsigned>(N * a.A * kRanks), kThreads,
+                                 static_cast<size_t>(L::kRingSlots) * L::kSlotBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the kernel for head dim D and the cache's type: int8 where the scales
+// are given, else T
 template <typename T>
 int launch_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
+  const bool q8 = a.ksc != nullptr;
   switch (D) {
-    case 16: return launch<T, 16>(a, N, st);
-    case 32: return launch<T, 32>(a, N, st);
-    case 64: return launch<T, 64>(a, N, st);
-    case 128: return launch<T, 128>(a, N, st);
+    case 16: return q8 ? launch<T, int8_t, 16>(a, N, st) : launch<T, T, 16>(a, N, st);
+    case 32: return q8 ? launch<T, int8_t, 32>(a, N, st) : launch<T, T, 32>(a, N, st);
+    case 64: return q8 ? launch<T, int8_t, 64>(a, N, st) : launch<T, T, 64>(a, N, st);
+    case 128: return q8 ? launch<T, int8_t, 128>(a, N, st) : launch<T, T, 128>(a, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -797,9 +723,9 @@ constexpr int kVCluster = 2;
 // Rows a verify cluster: a lane's window at W = 8.
 constexpr int kVRows = 8;
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 struct VLayout {
-  using L = Layout<T, D>;
+  using L = Layout<T, C, D>;
   static constexpr int R = kVRows;
   static constexpr int P = kVParts < R ? kVParts : R;
   static constexpr int kRing = kSmemCap / L::kSlotBytes < kVRing ? kSmemCap / L::kSlotBytes
@@ -815,18 +741,24 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 __global__ void __cluster_dims__(kVCluster, 1, 1)
-    __launch_bounds__(kThreads * VLayout<T, D>::P, kVMinBlocks) paged_verify_kernel(const Args a) {
-  using L = Layout<T, D>;
-  using V = VLayout<T, D>;
+    __launch_bounds__(kThreads * VLayout<T, C, D>::P, kVMinBlocks)
+        paged_verify_kernel(const Args a) {
+  using L = Layout<T, C, D>;
+  using V = VLayout<T, C, D>;
   constexpr int E = L::E, G = L::G, SL = L::SL, S = L::kStreams, KPS = L::KPS;
   constexpr int R = V::R, P = V::P, RP = R / P, NT = kThreads * P;
   constexpr int nring = V::kRing;
   constexpr int PR = (R + kVCluster - 1) / kVCluster;   // rows a block combines
+  constexpr bool kQ = sizeof(C) == 1;         // an int8 cache
   extern __shared__ __align__(128) unsigned char dyn[];
-  T* ring = reinterpret_cast<T*>(dyn);
+  C* ring = reinterpret_cast<C*>(dyn);
   __shared__ __align__(8) uint64_t bars[nring];
+  // an int8 cache's scales of this head's channels, K's then V's (none
+  // for a float cache), and where channel d's lie
+  __shared__ __align__(16) float s_sc[2][kQ ? D : 1];
+  auto scales = [&](int kv, int d) -> const float* { return kQ ? &s_sc[kv][d] : nullptr; };
   // the rows this block combines: each of the 8 ranks' partial (m, l) and
   // acc, pushed here over DSMEM (or written, for this block's ranks), and
   // the mbarrier they land on
@@ -889,6 +821,10 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
       s_wr[tall] = a.wrow[row];
     }
   }
+  if constexpr (kQ) {
+    for (int d = tall; d < 2 * D; d += NT)
+      s_sc[d / D][d % D] = (d < D ? a.ksc : a.vsc)[static_cast<int64_t>(head) * D + d % D];
+  }
   __syncthreads();
   if (tall == 0) {
     int nruns = 0;
@@ -921,8 +857,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
   // wait is after its first rank's chunks)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const T* kh = static_cast<const T*>(a.kc) + static_cast<int64_t>(head) * a.ska;
-  const T* vh = static_cast<const T*>(a.vc) + static_cast<int64_t>(head) * a.sva;
+  const C* kh = static_cast<const C*>(a.kc) + static_cast<int64_t>(head) * a.ska;
+  const C* vh = static_cast<const C*>(a.vc) + static_cast<int64_t>(head) * a.sva;
   const T scale = static_cast<T>(a.scale);
 
   // the chunks rank rx takes of run ux: rx, rx + 8, ... up to its last key
@@ -939,7 +875,7 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
     auto windowed = [&](int t) { return w0 >= 0 && t >= w0; };
     const int c = rx + kRanks * k;
     const int slot = (base + k) % nring;
-    T* dst = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+    C* dst = ring + static_cast<int64_t>(slot) * L::kSlotElems;
     const uint32_t bar = smem_u32(&bars[slot]);
     if (a.bulk) {
       if (tall >= 32) return;
@@ -960,10 +896,12 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
                       bar);
           }
         }
-      } else {
+      } else if constexpr (!kQ) {
         // the chunk reaches the window: row by row, lane i the K (i <
         // 16) or V row of position i % 16, from the cache below the
-        // window and from the launch's new rows from it on
+        // window and from the launch's new rows from it on (a float
+        // cache only: an int8 cache's window keys are the new rows'
+        // stored forms, put in place after the copy)
         const int i = ln % kChunk, kv = ln / kChunk, t = c * kChunk + i;
         const T* src = nullptr;
         if (t <= ulast && !windowed(t)) {
@@ -984,17 +922,17 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
         if (src != nullptr) bulk_load(smem_u32(dst + kv * kChunk * D + i * D), src, kRow, bar);
       }
     } else {
-      for (int p = tall; p < 2 * kChunk * L::NS; p += NT) {
-        const int kv = p / (kChunk * L::NS);
-        const int r = (p / L::NS) % kChunk;
-        const int s = p % L::NS;
+      for (int p = tall; p < 2 * kChunk * L::NC; p += NT) {
+        const int kv = p / (kChunk * L::NC);
+        const int r = (p / L::NC) % kChunk;
+        const int s = p % L::NC;
         const int t = c * kChunk + r;
         if (t <= ulast && !windowed(t)) {
           const int ub = t / a.BS;
           const int64_t blk = tab[ub];
           const int64_t off = t - ub * a.BS;
-          const T* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
-          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * E), src + s * E);
+          const C* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
+          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * L::CE), src + s * L::CE);
         }
       }
       cp_async_arrive(bar);
@@ -1026,17 +964,20 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
       for (int k = 0; k < mine; ++k) {
         const int slot = (item + k) % nring;
         mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>(((item + k) / nring) & 1));
-        T* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
-        const T* sv = sk + kChunk * D;
+        C* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+        const C* sv = sk + kChunk * D;
         const int t0 = (rk + kRanks * k) * kChunk;
         if (windowed(t0 + kChunk - 1) && !(a.bulk & 2)) {
-          // the window's keys from the launch's new rows, in place
+          // the window's keys from the launch's new rows (their stored
+          // forms), in place
           for (int p = tall; p < 2 * kChunk * D; p += NT) {
             const int kv = p / (kChunk * D), i = (p / D) % kChunk, d = p % D;
             const int t = t0 + i, nr = wrk0 + t;
             if (windowed(t) && t <= ulast && nr >= 0 && nr < a.N)
-              sk[kv * kChunk * D + i * D + d] = static_cast<const T*>(kv ? a.v_new : a.k_new)
-                  [static_cast<int64_t>(nr) * a.sqn + static_cast<int64_t>(head) * a.sqa + d];
+              sk[kv * kChunk * D + i * D + d] = stored<C>(
+                  static_cast<const T*>(kv ? a.v_new : a.k_new)
+                      [static_cast<int64_t>(nr) * a.sqn + static_cast<int64_t>(head) * a.sqa + d],
+                  scales(kv, d));
           }
           __syncthreads();
         }
@@ -1058,7 +999,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           const int t = t0 + i;
           T kr[SL][E];
 #pragma unroll
-          for (int j = 0; j < SL; ++j) ld16<T, E>(sk + i * D + (gl + G * j) * E, kr[j]);
+          for (int j = 0; j < SL; ++j)
+            ldkv<T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E), kr[j]);
           T dot[RP];
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
@@ -1105,7 +1047,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           const int i = (sid + S * jj) & (kChunk - 1);
           T vr[SL][E];
 #pragma unroll
-          for (int j = 0; j < SL; ++j) ld16<T, E>(sv + i * D + (gl + G * j) * E, vr[j]);
+          for (int j = 0; j < SL; ++j)
+            ldkv<T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E), vr[j]);
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
             if (!go[x] || !ok[x][jj]) continue;   // a masked key's V is never used
@@ -1139,8 +1082,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
     // partial (m -inf, l 0, acc 0).
     bool took = false;
     for (int u = 0; u < s_nruns; ++u) took |= u_last[u] >= rk * kChunk;
-    T* s_acc = ring;                                 // [R][S][D]
-    T* s_ml = ring + R * S * D;                      // [R][S][2]
+    T* s_acc = reinterpret_cast<T*>(dyn);            // [R][S][D]
+    T* s_ml = s_acc + R * S * D;                     // [R][S][2]
     if (took && live) {
 #pragma unroll
       for (int x = 0; x < RP; ++x) {
@@ -1239,15 +1182,15 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
     int wb = a.write_block[row];
     const int wo = wb >= 0 ? a.write_off[row] : 0;
     if (wb >= 0 && wb < a.NB && wo >= 0 && wo < a.BS) {
-      static_cast<T*>(a.kc)[wb * a.skb + head * a.ska + wo * a.skt + d] =
-          static_cast<const T*>(a.k_new)[qoff + d];
-      static_cast<T*>(a.vc)[wb * a.svb + head * a.sva + wo * a.svt + d] =
-          static_cast<const T*>(a.v_new)[qoff + d];
+      static_cast<C*>(a.kc)[wb * a.skb + head * a.ska + wo * a.skt + d] =
+          stored<C>(static_cast<const T*>(a.k_new)[qoff + d], scales(0, d));
+      static_cast<C*>(a.vc)[wb * a.svb + head * a.sva + wo * a.svt + d] =
+          stored<C>(static_cast<const T*>(a.v_new)[qoff + d], scales(1, d));
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t configure_verify() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -1256,39 +1199,43 @@ cudaError_t configure_verify() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(paged_verify_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           VLayout<T, D>::kBytes);
+  e = cudaFuncSetAttribute(paged_verify_kernel<T, C, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, VLayout<T, C, D>::kBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
 // bulk: bit 1, a chunk's 16 rows are one contiguous run of the slab; bit 2,
 // the new rows are on 16 bytes too (a chunk reaching the window is copied
-// row by row, the window's rows from the launch's new rows).
-template <typename T, int D>
+// row by row, the window's rows from the launch's new rows; never for an
+// int8 cache, whose window keys are the new rows' stored forms).
+template <typename T, typename C, int D>
 int launch_verify(Args a, int64_t N, cudaStream_t st) {
   constexpr int R = kVRows;
   const int64_t es = static_cast<int64_t>(sizeof(T));
   a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D
-               ? 1 | (aligned16(a.k_new) && aligned16(a.v_new) && (a.sqn * es) % 16 == 0 &&
-                              (a.sqa * es) % 16 == 0
+               ? 1 | (sizeof(C) == sizeof(T) && aligned16(a.k_new) && aligned16(a.v_new) &&
+                              (a.sqn * es) % 16 == 0 && (a.sqa * es) % 16 == 0
                           ? 2
                           : 0)
                : 0;
-  const cudaError_t attr = configure_verify<T, D>();
+  const cudaError_t attr = configure_verify<T, C, D>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_verify_kernel<T, D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kVCluster),
-                              kThreads * VLayout<T, D>::P, VLayout<T, D>::kBytes, st>>>(a);
+  paged_verify_kernel<T, C, D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kVCluster),
+                                 kThreads * VLayout<T, C, D>::P, VLayout<T, C, D>::kBytes, st>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_verify_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
+  const bool q8 = a.ksc != nullptr;
   switch (D) {
-    case 16: return launch_verify<T, 16>(a, N, st);
-    case 32: return launch_verify<T, 32>(a, N, st);
-    case 64: return launch_verify<T, 64>(a, N, st);
-    case 128: return launch_verify<T, 128>(a, N, st);
+    case 16: return q8 ? launch_verify<T, int8_t, 16>(a, N, st) : launch_verify<T, T, 16>(a, N, st);
+    case 32: return q8 ? launch_verify<T, int8_t, 32>(a, N, st) : launch_verify<T, T, 32>(a, N, st);
+    case 64: return q8 ? launch_verify<T, int8_t, 64>(a, N, st) : launch_verify<T, T, 64>(a, N, st);
+    case 128:
+      return q8 ? launch_verify<T, int8_t, 128>(a, N, st) : launch_verify<T, T, 128>(a, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1301,12 +1248,14 @@ int launch_verify_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
 // row on 16 bytes; tables [S, MAXB], lane [N], kmax [N], write_block [N]
 // and write_off [N] int32, contiguous; out [N, A, D] contiguous. With
 // k_new == nullptr there is no write (v_new, write_block and write_off are
-// not read). dtype: 1 float32, 2 float64. Returns the launch's
-// cudaError_t.
+// not read). dtype (q's, k_new's, v_new's and out's): 1 float32, 2
+// float64. k_scale and v_scale: nullptr, kc and vc of dtype; or both [A, D]
+// float32 contiguous, kc and vc int8 (the int8 cache). Returns the
+// launch's cudaError_t.
 extern "C" int dl4j_paged_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
-    const void* tables, const void* lane, const void* kmax,
-    const void* write_block, const void* write_off, void* out, int64_t N,
+    const void* k_scale, const void* v_scale, const void* tables, const void* lane,
+    const void* kmax, const void* write_block, const void* write_off, void* out, int64_t N,
     int64_t A, int64_t D, int64_t BS, int64_t MAXB, int64_t NB, int64_t S, int64_t sqn,
     int64_t sqa, int64_t skb, int64_t ska, int64_t skt, int64_t svb,
     int64_t sva, int64_t svt, double scale, int dtype,
@@ -1317,7 +1266,9 @@ extern "C" int dl4j_paged_decode_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   if (k_new != nullptr && (v_new == nullptr || write_block == nullptr || write_off == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t es = dtype == 2 ? 8 : 4;
+  if ((k_scale == nullptr) != (v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t es = k_scale != nullptr ? 1 : (dtype == 2 ? 8 : 4);
   if (!dec::aligned16(kc) || !dec::aligned16(vc) ||
       ((skb | ska | skt | svb | sva | svt) * es) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1325,6 +1276,7 @@ extern "C" int dl4j_paged_decode_attention(
               static_cast<const int*>(lane), static_cast<const int*>(kmax),
               k_new != nullptr ? static_cast<const int*>(write_block) : nullptr,
               static_cast<const int*>(write_off), nullptr, nullptr, out,
+              static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
               static_cast<int>(N), static_cast<int>(A), static_cast<int>(BS),
               static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
               sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
@@ -1346,13 +1298,13 @@ extern "C" int dl4j_paged_decode_attention(
 // same streams, the same sums in the same order. Any window length runs in
 // one launch; the rows of one lane's window share its chunks' copies where
 // they are neighbours in a group of kVRows (8). Arguments as
-// dl4j_paged_decode_attention, with win0 [N] and wrow [N] int32,
-// contiguous; k_new is required.
+// dl4j_paged_decode_attention (an int8 cache too), with win0 [N] and wrow
+// [N] int32, contiguous; k_new is required.
 extern "C" int dl4j_paged_verify_attention(
     const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
-    const void* tables, const void* lane, const void* kmax, const void* win0,
-    const void* wrow, const void* write_block, const void* write_off, void* out, int64_t N,
-    int64_t A, int64_t D, int64_t BS, int64_t MAXB, int64_t NB, int64_t S, int64_t sqn,
+    const void* k_scale, const void* v_scale, const void* tables, const void* lane,
+    const void* kmax, const void* win0, const void* wrow, const void* write_block,
+    const void* write_off, void* out, int64_t N, int64_t A, int64_t D, int64_t BS, int64_t MAXB, int64_t NB, int64_t S, int64_t sqn,
     int64_t sqa, int64_t skb, int64_t ska, int64_t skt, int64_t svb,
     int64_t sva, int64_t svt, double scale, int dtype,
     void* stream) {
@@ -1363,7 +1315,9 @@ extern "C" int dl4j_paged_verify_attention(
   if (k_new == nullptr || v_new == nullptr || write_block == nullptr || write_off == nullptr ||
       win0 == nullptr || wrow == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t es = dtype == 2 ? 8 : 4;
+  if ((k_scale == nullptr) != (v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t es = k_scale != nullptr ? 1 : (dtype == 2 ? 8 : 4);
   if (!dec::aligned16(kc) || !dec::aligned16(vc) ||
       ((skb | ska | skt | svb | sva | svt) * es) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1371,6 +1325,7 @@ extern "C" int dl4j_paged_verify_attention(
               static_cast<const int*>(lane), static_cast<const int*>(kmax),
               static_cast<const int*>(write_block), static_cast<const int*>(write_off),
               static_cast<const int*>(win0), static_cast<const int*>(wrow), out,
+              static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
               static_cast<int>(N), static_cast<int>(A), static_cast<int>(BS),
               static_cast<int>(MAXB), static_cast<int>(NB), static_cast<int>(S), 0,
               sqn, sqa, skb, ska, skt, svb, sva, svt, scale};
@@ -1380,31 +1335,3 @@ extern "C" int dl4j_paged_verify_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-
-// q [N, A, D] at strides (sqn, sqa, 1); kc, vc [num_blocks, A, BS, D] at
-// strides (skb, ska, skt, 1) and (svb, sva, svt, 1); tables [S, MAXB],
-// lane [N] and kmax [N] int32, contiguous; out [N, A, D] contiguous.
-// dtype: 1 float32, 2 float64. Returns the launch's cudaError_t.
-extern "C" int dl4j_paged_attention_v1(
-    const void* q, const void* kc, const void* vc, const void* tables,
-    const void* lane, const void* kmax, void* out, int64_t N, int64_t A,
-    int64_t D, int64_t BS, int64_t MAXB, int64_t sqn, int64_t sqa,
-    int64_t skb, int64_t ska, int64_t skt, int64_t svb, int64_t sva,
-    int64_t svt, double scale, int dtype, void* stream) {
-  if (N <= 0 || A <= 0) return 0;
-  if (BS < 1 || MAXB < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if (dtype == 1)
-    err = v1::launch_d<float>(D, q, kc, vc, tables, lane, kmax, out, N, A,
-                              BS, MAXB, sqn, sqa, skb, ska, skt, svb, sva,
-                              svt, scale, st);
-  else if (dtype == 2)
-    err = v1::launch_d<double>(D, q, kc, vc, tables, lane, kmax, out, N, A,
-                               BS, MAXB, sqn, sqa, skb, ska, skt, svb, sva,
-                               svt, scale, st);
-  else
-    err = (int)cudaErrorInvalidValue;
-  if (err != 0) return err;
-  return (int)cudaGetLastError();
-}

@@ -12,7 +12,11 @@ into two TF32 parts, three ``mma.sync`` products summed in float32):
   ``prefill_fn``, ``deeplearning4j_tpu/zoo/gpt.py:306``);
 - ``dl4j_paged_prefill_f32``: the paged prefill's attention of one lane's
   rows over its block table (``gpt_paged_decode_fns`` ``prefill_fn``,
-  ``deeplearning4j_tpu/zoo/gpt.py:586``, :621-636).
+  ``deeplearning4j_tpu/zoo/gpt.py:586``, :621-636), over a float32 cache
+  or an int8 one (the serving tier's int8 KV, :612-628): with ``k_scale``
+  and ``v_scale`` [A, D] a K/V tile is read as int8 and dequantised into
+  the float32 shared tile, ``float(x) * s`` as the JAX ``_q_load``, before
+  the same 3xTF32 products.
 
 The wrappers here launch them on CUDA tensors only; their callers
 (``attention.attention_fwd`` and ``paged_attention.paged_prefill_attention``)
@@ -40,6 +44,9 @@ from deeplearning4j_tpu_torch.kernels import _cuda
 #: cuts a tile's keys into several work items.
 LAUNCHES: Dict[str, int] = {"attention_fwd_f32": 0, "paged_prefill_f32": 0,
                             "attention_f32_combine": 0}
+#: Of the paged prefill's launches, the ones over an int8 cache (counted in
+#: both).
+INT8_LAUNCHES: Dict[str, int] = {"paged_prefill_f32": 0}
 #: Copies of an input whose base or strides were not on 16 bytes (the
 #: kernels' 16-byte copies need them), by the wrapper that made them.
 ALIGN_COPIES: Dict[str, int] = {"attention_fwd_f32": 0, "paged_prefill_f32": 0}
@@ -58,7 +65,8 @@ FWD_ARGTYPES = (
                            "svs")]
     + [("scale", _D), ("causal", _I), ("chunk", _I64), ("stream", _P)])
 PREFILL_ARGTYPES = (
-    [(n, _P) for n in ("q", "kc", "vc", "table", "kmax", "out", "part")]
+    [(n, _P) for n in ("q", "kc", "vc", "k_scale", "v_scale", "table", "kmax",
+                       "out", "part")]
     + [(n, _I64) for n in ("part_floats", "N", "A", "D", "BS", "MAXB", "sqn",
                            "sqa", "skb", "ska", "skt", "svb", "sva", "svt")]
     + [("scale", _D), ("chunk", _I64), ("stream", _P)])
@@ -67,11 +75,11 @@ ENTRIES = {"dl4j_attention_fwd_f32": FWD_ARGTYPES,
            "dl4j_paged_prefill_f32": PREFILL_ARGTYPES,
            "dl4j_attention_f32_blocks_per_sm": OCCUPANCY_ARGTYPES}
 
-_cuda.register_counters(LAUNCHES, ALIGN_COPIES)
+_cuda.register_counters(LAUNCHES, ALIGN_COPIES, INT8_LAUNCHES)
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, ALIGN_COPIES):
+    for d in (LAUNCHES, ALIGN_COPIES, INT8_LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -98,7 +106,9 @@ def blocks_per_sm(d: int, paged: bool, lib=None) -> int:
 
 @functools.lru_cache(maxsize=None)
 def slots(index: int, d: int, paged: bool) -> int:
-    """Blocks of the main kernel the card ``index`` holds at once."""
+    """Blocks of the main kernel the card ``index`` holds at once (the
+    float cache's paged form sizes the int8 form's split too: the same
+    shared memory a block)."""
     with torch.cuda.device(index):
         per_sm = blocks_per_sm(d, paged)
     if per_sm < 1:
@@ -184,12 +194,15 @@ def launch_fwd(q, k, v, out, stats, part, scale: float, causal: bool,
 
 
 def launch_prefill(q, kc, vc, table, kmax, out, part, scale: float,
-                   chunk: int, stream: int, lib=None) -> None:
-    """One ``dl4j_paged_prefill_f32`` call (raises on its CUDA error)."""
+                   chunk: int, stream: int, k_scale=None, v_scale=None,
+                   lib=None) -> None:
+    """One ``dl4j_paged_prefill_f32`` call (raises on its CUDA error);
+    ``k_scale``/``v_scale`` [A, D] float32 for an int8 cache, else None."""
     n, a, d = q.shape
     err = (lib or _lib()).dl4j_paged_prefill_f32(
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), table.data_ptr(),
-        kmax.data_ptr(), out.data_ptr(), part.data_ptr(), part.numel(), n,
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (k_scale, v_scale)),
+        table.data_ptr(), kmax.data_ptr(), out.data_ptr(), part.data_ptr(), part.numel(), n,
         a, d, kc.shape[2], table.shape[0], q.stride(0), q.stride(1),
         *kc.stride()[:3], *vc.stride()[:3], scale, chunk, stream)
     _cuda.check(err, "dl4j_paged_prefill_f32")
@@ -217,12 +230,14 @@ def attention_fwd_f32(q, k, v, causal: bool, scale: float):
     return out, stats
 
 
-def paged_prefill_f32(q, kc, vc, table, kmax, kmax_host: Sequence[int]):
+def paged_prefill_f32(q, kc, vc, table, kmax, kmax_host: Sequence[int],
+                      k_scale=None, v_scale=None):
     """``out [N, A, D]`` of float32 CUDA q [N, A, D], one layer's kc, vc
-    [num_blocks, A, BS, D], the lane's ``table`` [MAXB] and ``kmax`` [N]
-    (int32), checked by the caller. ``kmax_host``, the same last keys on
-    the host, sizes the work items from the rows' real key ranges (the
-    split, never what is computed)."""
+    [num_blocks, A, BS, D] (float32, or int8 with ``k_scale``/``v_scale``
+    [A, D] float32), the lane's ``table`` [MAXB] and ``kmax`` [N] (int32),
+    checked by the caller. ``kmax_host``, the same last keys on the host,
+    sizes the work items from the rows' real key ranges (the split, never
+    what is computed)."""
     q, kc, vc = _cuda.copy_unaligned((q, kc, vc), ALIGN_COPIES,
                                      "paged_prefill_f32")
     n, a, d = q.shape
@@ -235,6 +250,9 @@ def paged_prefill_f32(q, kc, vc, table, kmax, kmax_host: Sequence[int]):
     part = _part(n_part, dev)
     with torch.cuda.device(dev):
         launch_prefill(q, kc, vc, table, kmax, out, part,
-                       1.0 / math.sqrt(d), chunk, _stream(dev))
+                       1.0 / math.sqrt(d), chunk, _stream(dev), k_scale,
+                       v_scale)
     _count("paged_prefill_f32", n_part)
+    if kc.dtype == torch.int8:
+        INT8_LAUNCHES["paged_prefill_f32"] += 1
     return out

@@ -370,27 +370,6 @@ def paged_chunk_dropped(q, kc, vc, tables, lane, kmax, chunk, size=16):
     return torch.einsum("rat,ratd->rad", p, v).to(q.dtype)
 
 
-def paged_attention_v1(q, kc, vc, tables, lane, kmax):
-    """The first paged attention kernel (``dl4j_paged_attention_v1``, one
-    block a (row, head)), kept in the source to be timed beside the
-    cluster kernel: one launch on the card, not counted in
-    ``paged_attention.LAUNCHES`` (no wrapper of the port calls it)."""
-    from deeplearning4j_tpu_torch.kernels import _cuda
-    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    n, a, d = q.shape
-    out = torch.empty((n, a, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = getattr(pa._lib(), pa.V1_ENTRY)(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
-            lane.data_ptr(), kmax.data_ptr(), out.data_ptr(), n, a, d,
-            kc.shape[2], tables.shape[1], q.stride(0), q.stride(1),
-            *kc.stride()[:3], *vc.stride()[:3], 1.0 / math.sqrt(d),
-            pa._DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _cuda.check(err, pa.V1_ENTRY)
-    return out
-
-
 def paged_poisoned(kc, vc, tables, lane, kmax):
     """Copies of the cache with NaN wherever no row may read: the null
     block, every block no table uses, and each lane's rows past its last
@@ -457,20 +436,24 @@ def paged_reading(got, want, terms, tol):
 
 def paged_bounds(q, kc, tables, lane, kmax, writes=0, win0=None):
     """(operations, bytes) of one call: 4 D FLOP per (row, head, key) for
-    q.K and p.V; the K and V rows up to each lane's last key read once (a
-    verify's, ``win0`` given: the keys below each row's window, the window's
-    own taken from the new rows; a row without one, -1, reads to its last
-    key), q read and the output written once; and for each of ``writes``
-    rows that write, its new K and V rows read once and written once."""
+    q.K and p.V; the K and V rows up to each lane's last key read once at
+    the cache's itemsize (a verify's, ``win0`` given: the keys below each
+    row's window, the window's own taken from the new rows; a row without
+    one, -1, reads to its last key), q read and the output written once;
+    for each of ``writes`` rows that write, its new K and V rows read once
+    (q's itemsize) and written once (the cache's); an int8 cache's two
+    [A, D] float32 scales read once."""
     n, a, d = q.shape
-    it = q.element_size()
+    it, ci = q.element_size(), kc.element_size()
     lanes = {}
     w0s = win0.tolist() if win0 is not None else [-1] * n
     for ln, k, w0 in zip(lane.tolist(), kmax.tolist(), w0s):
         lanes[ln] = max(lanes.get(ln, 0), w0 if w0 >= 0 else k + 1)
     keys = int((kmax.long() + 1).sum())
-    kv = sum(lanes.values()) * a * d * it * 2
-    return 4 * d * a * keys, kv + (2 * n + 4 * writes) * a * d * it
+    kv = sum(lanes.values()) * a * d * ci * 2
+    scales = 2 * a * d * 4 if kc.dtype == torch.int8 else 0
+    return 4 * d * a * keys, (kv + 2 * n * a * d * it
+                              + 2 * writes * a * d * (it + ci) + scales)
 
 
 def paged_verify_case(dev, pos0, w, a, d, bs, dtype, active=None, seed=0,
@@ -515,6 +498,51 @@ def paged_verify_case(dev, pos0, w, a, d, bs, dtype, active=None, seed=0,
     return (q, k_new, v_new, kc, vc, tables.to(dev),
             *(torch.tensor(x, **i32) for x in (lane, kmax, win0, wrow, wb,
                                                wo)))
+
+
+def int8_cache(kc, vc):
+    """An int8 copy of a float cache with per-(head, channel) absmax scales
+    over its rows: ``(kc8, vc8, k_scale, v_scale)``, the scales [A, D]
+    float32, the payloads ``paged_attention.q_store``'s. The serving path
+    calibrates its scales on prompts (``gpt_kv_scales``); the kernels take
+    any."""
+    from deeplearning4j_tpu_torch.evaluation.calibration import absmax_scales
+    from deeplearning4j_tpu_torch.kernels.paged_attention import q_store
+    out = []
+    for c in (kc, vc):
+        a, d = c.shape[1], c.shape[3]
+        s = absmax_scales(c.float().transpose(1, 2).reshape(-1, a * d))
+        s = s.view(a, d).contiguous()
+        out.append((q_store(c, s[:, None, :]), s))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def int8_write_poisoned(kc8, vc8, write_block, write_off):
+    """Copies of an int8 cache with -128 (a value no store makes) at every
+    row the step writes: the kernel takes the step's stored rows as those
+    keys and never reads them back, so what was there changes nothing."""
+    kc8, vc8 = kc8.clone(), vc8.clone()
+    for b, o in zip(write_block.tolist(), write_off.tolist()):
+        if b >= 0:
+            kc8[b, :, o] = vc8[b, :, o] = -128
+    return kc8, vc8
+
+
+def paged_int8_library(q, kc8, vc8, k_scale, v_scale, tables, kmax):
+    """The library yardstick of an int8 decode: a callable that
+    dequantises each lane's context (gathered through its table once,
+    outside the call, as an int8 [S, A, T, D] slab) and runs one masked
+    ``F.scaled_dot_product_attention`` over it (three PyTorch calls: no
+    one call computes attention over an int8 cache)."""
+    import torch.nn.functional as F
+    dk, dv, _ = paged_dense(kc8, vc8, tables)
+    keys = torch.arange(dk.shape[2], device=q.device)
+    mask = (keys[None, :] <= kmax[:, None].long())[:, None, None, :]
+    ql = q.contiguous()[:, :, None, :]
+    ks, vs = k_scale[None, :, None, :], v_scale[None, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        ql, (dk.float() * ks).to(q.dtype), (dv.float() * vs).to(q.dtype),
+        attn_mask=mask)
 
 
 def paged_verify_library(q, kc, vc, tables, lane, kmax, s_n, w):

@@ -10,17 +10,22 @@
   with a draft model (``draft_spec=``, ``speculate_k=``);
 - ``paged``: the paged-KV tier (:class:`~.paged.PagedGenerativeServer`):
   a block pool, block tables and prefix caching;
+- ``loadgen``: the seeded closed- and open-loop load generator over
+  either server (:class:`~.loadgen.GenerativeLoadGenerator`);
 - ``queue``, ``metrics``, ``resilience``, ``batching``, ``sampling``:
   the host code they ride on.
 
-``ParallelInference``, the load generator and the fleet are not ported
-yet (ROADMAP queue 1 items 2.6 and 8).
+``ParallelInference`` with its ``LoadGenerator``, and the fleet with its
+``FleetLoadGenerator``, are not ported yet (ROADMAP queue 1 items 2.6 and
+8).
 """
 from deeplearning4j_tpu_torch.serving.batching import BucketSpec, pow2_buckets
 from deeplearning4j_tpu_torch.serving.generative import (
     GenerationCancelled, GenerationHandle, GenerationRequest,
     GenerativeMetrics, GenerativeServer, GenerativeSpec, SlotAllocator,
     greedy_decode)
+from deeplearning4j_tpu_torch.serving.loadgen import (GenerativeLoadGenerator,
+                                                      LoadResult)
 from deeplearning4j_tpu_torch.serving.metrics import (LatencyHistogram,
                                                       ServingMetrics,
                                                       safe_ratio)
@@ -37,6 +42,7 @@ __all__ = [
     "GenerationCancelled", "GenerationHandle", "GenerationRequest",
     "GenerativeMetrics", "GenerativeServer", "GenerativeSpec",
     "SlotAllocator", "greedy_decode",
+    "GenerativeLoadGenerator", "LoadResult",
     "LatencyHistogram", "ServingMetrics", "safe_ratio",
     "InferenceRequest", "RequestQueue", "RequestTimeoutError",
     "ServerClosedError", "ServerOverloadedError", "ServingError",

@@ -108,7 +108,9 @@ class GenerativeSpec:
       "positions": [S], "active": [S] bool}`` advances every active slot
       one token and returns ``(kc, vc, next_tokens, logits)``.
     - ``kv_shape(max_slots, max_seq)`` is the shape of ONE slab (K and V
-      are two tensors of this shape), of dtype ``kv_dtype``.
+      are two tensors of this shape), of dtype ``kv_dtype`` (``"int8"``
+      for an int8 KV cache, whose scales the functions hold; the server's
+      ``kv_slab_bytes`` count its bytes at that dtype).
     - ``verify(params, kc, vc, io)`` with ``io = {"tokens": [S, W],
       "positions": [S], "active": [S] bool}``: the speculative verifier,
       returning ``(kc, vc, out [S, W], logits [S, W, vocab])``.

@@ -172,13 +172,19 @@ class PagedGenerativeServer(GenerativeServer):
     ::
 
         spec = zoo.gpt.gpt_paged_spec(sd, cfg)
-        srv = PagedGenerativeServer(spec, max_slots=8, block_size=16)
+        srv = PagedGenerativeServer(spec, max_slots=8, block_size=16,
+                                    kv_hbm_bytes=1 << 30)
         tokens = srv.generate([1, 2, 3], max_new_tokens=32)
 
     - ``block_size``: tokens per KV block.
-    - ``num_blocks``: pool size. Default: the dense-equivalent worst
-      case (``max_slots`` requests at full ``max_seq``), whose short
-      requests release what they do not use.
+    - ``num_blocks`` / ``kv_hbm_bytes``: pool size, directly or as a
+      device-memory budget (``num_blocks = max(2, budget //
+      bytes_per_block)``, ``bytes_per_block`` from the spec's
+      ``kv_dtype``: an int8 pool holds 4x the float32 blocks). Default:
+      the dense-equivalent worst case (``max_slots`` requests at full
+      ``max_seq``), whose short requests release what they do not use.
+    - ``max_blocks_per_req``: a block table's entries (default: enough for
+      ``max_seq_len``; fewer raises).
     - ``tp``: tensor-parallel ways; only 1 is ported.
     - ``prefix_cache=False`` disables content-addressed block reuse.
     - ``debug_leaks=True`` runs the pool's full accounting invariant
@@ -190,8 +196,10 @@ class PagedGenerativeServer(GenerativeServer):
     """
 
     def __init__(self, spec, max_slots: int = 8, block_size: int = 16,
-                 num_blocks: Optional[int] = None, tp: int = 1, prefix_cache: bool = True,
-                 debug_leaks: bool = False, **kw):
+                 num_blocks: Optional[int] = None,
+                 kv_hbm_bytes: Optional[int] = None,
+                 max_blocks_per_req: Optional[int] = None, tp: int = 1,
+                 prefix_cache: bool = True, debug_leaks: bool = False, **kw):
         if int(block_size) < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if int(tp) < 1:
@@ -204,6 +212,8 @@ class PagedGenerativeServer(GenerativeServer):
         # and _init_kv hooks below, which read them
         self.block_size = int(block_size)
         self._num_blocks_arg = num_blocks
+        self._kv_hbm_bytes_arg = kv_hbm_bytes
+        self._maxb_arg = max_blocks_per_req
         self.prefix_cache_enabled = bool(prefix_cache)
         self.debug_leaks = bool(debug_leaks)
         self._commit_lock = threading.Lock()
@@ -240,15 +250,24 @@ class PagedGenerativeServer(GenerativeServer):
         tables, and the geometry's decode functions."""
         spec = self.spec
         BS = self.block_size
-        self._maxb = blocks_for_tokens(self.max_seq_len, BS)
+        self._maxb = int(self._maxb_arg) if self._maxb_arg is not None \
+            else blocks_for_tokens(self.max_seq_len, BS)
+        if self._maxb * BS < self.max_seq_len:
+            raise ValueError(
+                f"max_blocks_per_req {self._maxb} x block_size {BS} "
+                f"cannot hold max_seq_len {self.max_seq_len}")
         itemsize = torch.empty((), dtype=getattr(
             torch, spec.kv_dtype)).element_size()
         self.bytes_per_block = 2 * int(np.prod(spec.kv_shape(1, BS))) \
             * itemsize
-        # default: the dense-equivalent floor, every slot at full max_seq
-        num_blocks = int(self._num_blocks_arg) \
-            if self._num_blocks_arg is not None \
-            else 1 + self.max_slots * self._maxb
+        if self._num_blocks_arg is not None:
+            num_blocks = int(self._num_blocks_arg)
+        elif self._kv_hbm_bytes_arg is not None:
+            num_blocks = max(2, int(self._kv_hbm_bytes_arg)
+                             // self.bytes_per_block)
+        else:
+            # the dense-equivalent floor, every slot at full max_seq
+            num_blocks = 1 + self.max_slots * self._maxb
         self._num_blocks = num_blocks
         shape = self._slab_shape()
         self.kv_slab_bytes = 2 * int(np.prod(shape)) * itemsize

@@ -5,7 +5,8 @@ Counterpart of ``deeplearning4j_tpu/zoo/gpt.py`` (``GPTConfig`` :29,
 :159, and the decode-mode hook of the serving tier: ``gpt_decode_fns``
 :180 and ``gpt_paged_decode_fns`` :472 with their speculative verifiers
 (:406, :701), ``_quantized_param_names`` :764, ``gpt_quantize_params``
-:776, ``gpt_paged_spec`` :869, ``gpt_generative_spec`` :904). The same variable names, the same numpy
+:776, ``gpt_kv_scales`` :801, ``gpt_paged_spec`` :869,
+``gpt_generative_spec`` :904). The same variable names, the same numpy
 ``default_rng(seed)`` draws in the same order and the same per-head
 ``[q_a|k_a|v_a]`` layout of the fused qkv projection, so a seed gives the
 JAX package's weights; kernels are ``[n_in, n_out]`` there and here.
@@ -169,18 +170,6 @@ def gpt_param_names(cfg: GPTConfig):
 
 # ----------------------------------------------------------------------
 # decode mode: the serving tier's prefill, decode and verify steps
-#: what the serving tier's int8 KV waits on
-_NOT_PORTED = {
-    "kv_scales": "int8 KV dequantised inside the paged attention kernels "
-                 "(ROADMAP queue 1 item 2.4, int8 KV)",
-}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}: not ported yet; it waits for "
-                              f"{_NOT_PORTED[what]}")
-
-
 def _quantized_param_names(cfg: GPTConfig):
     """The matmul weights and the embedding that carry int8 payloads under
     ``quantize_weights`` (JAX ``zoo/gpt.py:764``): the big operands whose
@@ -226,9 +215,13 @@ class _DecodeMath:
     parameters are :func:`gpt_quantize_params`'s: every projection and the
     tied logits are one ``int8_matmul`` launch (the JAX ``_matmul`` and
     ``_logits`` :262-293), and the embedding take dequantises the gathered
-    ``wte`` rows (``_tok_emb`` :277-281, a gather, not a product)."""
+    ``wte`` rows (``_tok_emb`` :277-281, a gather, not a product). With
+    ``kv_scales`` (:func:`gpt_kv_scales`' ``{"k", "v"}`` [L, A, D]) the
+    slabs are int8, written through ``paged_attention.q_store`` and read
+    through ``q_load``, the JAX ``_q_store`` and ``_q_load`` (:294-304)."""
 
-    def __init__(self, cfg: GPTConfig, quantize_weights: bool = False):
+    def __init__(self, cfg: GPTConfig, quantize_weights: bool = False,
+                 kv_scales=None):
         from deeplearning4j_tpu_torch.kernels.int8_matmul import int8_matmul
         from deeplearning4j_tpu_torch.ops.elementwise import gelu
         from deeplearning4j_tpu_torch.ops.nn_ops import layer_norm
@@ -236,6 +229,20 @@ class _DecodeMath:
         self.qw = bool(quantize_weights)
         self._layer_norm, self._gelu = layer_norm, gelu
         self._int8_matmul = int8_matmul
+        self._kv_host = None if kv_scales is None else tuple(
+            torch.from_numpy(np.ascontiguousarray(kv_scales[n], np.float32))
+            for n in ("k", "v"))
+        self._kv_on = {}                # device -> the scales there
+
+    def kv(self, dev, i):
+        """Layer ``i``'s (k_scale, v_scale) [A, D] float32 on ``dev``, or
+        (None, None) for float slabs."""
+        if self._kv_host is None:
+            return None, None
+        if dev not in self._kv_on:
+            self._kv_on[dev] = tuple(t.to(dev) for t in self._kv_host)
+        ks, vs = self._kv_on[dev]
+        return ks[i], vs[i]
 
     def ln(self, p, sc, x):
         return self._layer_norm(x, p[f"{sc}/gamma"], p[f"{sc}/beta"],
@@ -340,14 +347,18 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
 
     ``quantize_weights=True`` takes :func:`gpt_quantize_params`'s
     dictionary: every projection and the tied logits are ``int8_matmul``
-    launches. ``kv_scales`` (int8 KV) raises ``NotImplementedError``.
+    launches. ``kv_scales`` (:func:`gpt_kv_scales`' ``{"k", "v"}`` [L, A,
+    D]) makes the slabs int8, as the JAX functions do: every row written
+    is stored ``clip(round(x / s), -127, 127)`` and every read
+    dequantises; the prefill's attention runs over its fresh float k and
+    v (only its slab write is quantised, JAX :335-341), the decode and the
+    verify over what the slab holds, their own rows in stored form (the
+    kernels' int8 path).
     """
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.ops.registry import get_op
-    if kv_scales is not None:
-        _not_ported("kv_scales")
     sdpa = get_op("scaled_dot_product_attention").fn
-    math = _DecodeMath(cfg, quantize_weights)
+    math = _DecodeMath(cfg, quantize_weights, kv_scales)
 
     def prefill_fn(params, kc, vc, io):
         p, dev = params, kc.device
@@ -360,8 +371,11 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
             att = sdpa(q[None], k[None], v[None], causal=True)[0]
             # this slot's prompt rows (positions 0..Lb-1); rows past the
             # real length hold padding K/V, masked until decode writes there
-            kc[i, slot, :, :lb] = k
-            vc[i, slot, :, :lb] = v
+            ks, vs = math.kv(dev, i)
+            kc[i, slot, :, :lb] = pa.q_store(
+                k, None if ks is None else ks[:, None, :])
+            vc[i, slot, :, :lb] = pa.q_store(
+                v, None if vs is None else vs[:, None, :])
             x = math.rest(p, i, x, att.transpose(0, 1))
         logits = math.logits(p, x[max(length - 1, 0)][None])[0]
         return kc, vc, logits.argmax().to(torch.int32), logits
@@ -381,7 +395,8 @@ def gpt_decode_fns(cfg: GPTConfig, quantize_weights: bool = False,
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
             att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
-                                            lanes, kmax, wb, pos_d)
+                                            lanes, kmax, wb, pos_d,
+                                            *math.kv(dev, i))
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x)                              # [S, V]
         return kc, vc, logits.argmax(-1).to(torch.int32), logits
@@ -423,7 +438,8 @@ def _verify(math, p, kc, vc, tokens, pos, active, pos0, tables, wb, wo):
     for i in range(math.cfg.num_layers):
         q, k, v = math.qkv(p, i, x)
         att = pa.paged_verify_attention(q, k, v, kc[i], vc[i], tab, lane,
-                                        kmax, win0, wrow, wb_d, wo_d)
+                                        kmax, win0, wrow, wb_d, wo_d,
+                                        *math.kv(kc.device, i))
         x = math.rest(p, i, x, att)
     logits = math.logits(p, x).view(S, W, -1)                  # [S, W, V]
     return kc, vc, logits.argmax(-1).to(torch.int32), logits
@@ -470,13 +486,13 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
       null block), one ``paged_verify_attention`` launch a layer; returns
       as the dense ``verify_fn``.
 
-    ``quantize_weights`` as :func:`gpt_decode_fns`; ``kv_scales`` raises
-    ``NotImplementedError``.
+    ``quantize_weights`` and ``kv_scales`` as :func:`gpt_decode_fns`; with
+    ``kv_scales`` the prefill writes the suffix's rows stored (int8) first
+    and attends over the table dequantised, its own rows included (JAX
+    :612-628), one int8 ``paged_prefill_attention`` call a layer.
     """
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    if kv_scales is not None:
-        _not_ported("kv_scales")
-    math = _DecodeMath(cfg, quantize_weights)
+    math = _DecodeMath(cfg, quantize_weights, kv_scales)
     A, BS, MAXB = cfg.num_heads, int(block_size), int(max_blocks_per_req)
     T = MAXB * BS
 
@@ -499,11 +515,12 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
               off[:, None])
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
+            ks, vs = math.kv(dev, i)
             # write the suffix K/V first: its rows attend to themselves
-            kc[i].index_put_(at, k[:length])
-            vc[i].index_put_(at, v[:length])
+            kc[i].index_put_(at, pa.q_store(k[:length], ks))
+            vc[i].index_put_(at, pa.q_store(v[:length], vs))
             att = pa.paged_prefill_attention(q, kc[i], vc[i], table_d,
-                                             kmax_d, kmax)
+                                             kmax_d, kmax, ks, vs)
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x[max(length - 1, 0)][None])[0]
         return kc, vc, logits.argmax().to(torch.int32), logits
@@ -523,7 +540,8 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
         for i in range(cfg.num_layers):
             q, k, v = math.qkv(p, i, x)
             att = pa.paged_decode_attention(q, k, v, kc[i], vc[i], tables,
-                                            lanes, kmax, wb, wo)
+                                            lanes, kmax, wb, wo,
+                                            *math.kv(dev, i))
             x = math.rest(p, i, x, att)
         logits = math.logits(p, x)                              # [S, V]
         return kc, vc, logits.argmax(-1).to(torch.int32), logits
@@ -541,6 +559,50 @@ def gpt_paged_decode_fns(cfg: GPTConfig, block_size: int,
                        np.asarray(io["write_off"]))
 
     return prefill_fn, decode_fn, verify_fn
+
+
+def gpt_kv_scales(sd, cfg: GPTConfig, prompts=None,
+                  method: str = "quantile", quantile: float = 0.9995):
+    """Per-(layer, head, channel) int8 scales for the KV cache, the JAX
+    ``gpt_kv_scales`` (:801): the full-precision dense prefill of
+    :func:`gpt_decode_fns` over each calibration prompt on one-slot slabs
+    of its length, on the graph's device, then the rows it wrote through
+    :func:`~deeplearning4j_tpu_torch.evaluation.calibration.channel_scales`
+    on the host (quantile clipping by default: K/V have outlier tails that
+    absmax would let starve the int8 grid). Returns ``{"k": [L, A, D],
+    "v": [L, A, D]}`` float32 numpy, the ``kv_scales`` of the decode
+    functions. ``prompts=None`` makes JAX's set: 4 prompts of ``min(32,
+    max_seq_len - 1)`` tokens from ``default_rng(0)``."""
+    from deeplearning4j_tpu_torch.evaluation.calibration import channel_scales
+    names = _check_decode_params(sd, cfg)
+    params = {n: sd.get_arr_for_var(n) for n in names}
+    dev = params["wte"].device
+    prefill_fn, _, _ = gpt_decode_fns(cfg)
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        span = min(32, cfg.max_seq_len - 1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=span)
+                   for _ in range(4)]
+    k_rows, v_rows = [], []
+    with torch.inference_mode():
+        for pr in prompts:
+            pr = np.asarray(pr, np.int32).reshape(-1)
+            lp = int(pr.size)
+            shape = (cfg.num_layers, 1, cfg.num_heads, lp, cfg.head_size)
+            kc, vc = (torch.zeros(shape, dtype=params["wte"].dtype,
+                                  device=dev) for _ in range(2))
+            kc, vc, _, _ = prefill_fn(params, kc, vc, {
+                "tokens": pr, "length": np.int32(lp), "slot": np.int32(0)})
+            k_rows.append(kc[:, 0].cpu().numpy())       # [L, A, Lp, D]
+            v_rows.append(vc[:, 0].cpu().numpy())
+
+    def _scales(rows):
+        obs = np.concatenate(rows, axis=2)               # [L, A, N, D]
+        flat = np.transpose(obs, (2, 0, 1, 3)).reshape(obs.shape[2], -1)
+        sc = channel_scales(flat, method=method, quantile=quantile)
+        return sc.reshape(cfg.num_layers, cfg.num_heads, cfg.head_size)
+
+    return {"k": _scales(k_rows), "v": _scales(v_rows)}
 
 
 def _check_decode_params(sd, cfg: GPTConfig):
@@ -566,9 +628,12 @@ def _params_pull(sd, cfg: GPTConfig, names, quantize_weights: bool):
     return lambda: {n: sd.get_arr_for_var(n) for n in names}
 
 
-def _kv_dtype(sd) -> str:
-    """The slabs hold the weights' dtype: float32, as the JAX serving path
-    (float64 when the weights are float64)."""
+def _kv_dtype(sd, quantize_kv: bool) -> str:
+    """The slabs hold int8 under ``quantize_kv``, else the weights' dtype:
+    float32, as the JAX serving path (float64 when the weights are
+    float64)."""
+    if quantize_kv:
+        return "int8"
     return str(sd.get_arr_for_var("wte").dtype).replace("torch.", "")
 
 
@@ -581,23 +646,26 @@ def gpt_paged_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
     max_blocks_per_req) geometry by the server; their ``verify_fn`` makes
     the spec a speculative target. ``quantize_weights`` serves int8
     weight payloads (:func:`gpt_quantize_params`, re-quantized at every
-    pull); ``quantize_kv`` raises ``NotImplementedError`` (int8 KV, not
-    ported yet)."""
+    pull); ``quantize_kv`` makes the block pool int8 (``kv_dtype``
+    ``"int8"``, so a pool sized in bytes holds 4x the float32 blocks), with
+    scales from :func:`gpt_kv_scales` over ``calibration_prompts``,
+    calibrated once, here."""
     from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeSpec
     names = _check_decode_params(sd, cfg)
-    if quantize_kv:
-        _not_ported("kv_scales")
+    kv_scales = gpt_kv_scales(sd, cfg, prompts=calibration_prompts) \
+        if quantize_kv else None
     return PagedGenerativeSpec(
         params=_params_pull(sd, cfg, names, quantize_weights),
         make_fns=lambda block_size, max_blocks: gpt_paged_decode_fns(
-            cfg, block_size, max_blocks, quantize_weights=quantize_weights),
+            cfg, block_size, max_blocks, quantize_weights=quantize_weights,
+            kv_scales=kv_scales),
         kv_shape=lambda num_blocks, block_size: (
             cfg.num_layers, int(num_blocks), cfg.num_heads,
             int(block_size), cfg.head_size),
         vocab_size=cfg.vocab_size,
         max_seq_len=cfg.max_seq_len,
         num_heads=cfg.num_heads,
-        kv_dtype=_kv_dtype(sd))
+        kv_dtype=_kv_dtype(sd, quantize_kv))
 
 
 def gpt_generative_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
@@ -611,15 +679,16 @@ def gpt_generative_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
     carries the verify function, so a server over it can be a speculative
     target, and a second spec passed as ``draft_spec=`` its draft.
     ``quantize_weights`` serves int8 weight payloads (re-quantized at
-    every pull); ``quantize_kv`` raises ``NotImplementedError`` (int8 KV,
-    not ported yet)."""
+    every pull); ``quantize_kv`` makes the slabs int8 with scales from
+    :func:`gpt_kv_scales` over ``calibration_prompts``, as
+    :func:`gpt_paged_spec`."""
     from deeplearning4j_tpu_torch.serving.generative import GenerativeSpec
     names = _check_decode_params(sd, cfg)
-    if quantize_kv:
-        _not_ported("kv_scales")
+    kv_scales = gpt_kv_scales(sd, cfg, prompts=calibration_prompts) \
+        if quantize_kv else None
     pull = _params_pull(sd, cfg, names, quantize_weights)
     prefill_fn, decode_fn, verify_fn = gpt_decode_fns(
-        cfg, quantize_weights=quantize_weights)
+        cfg, quantize_weights=quantize_weights, kv_scales=kv_scales)
     return GenerativeSpec(
         params=pull,
         prefill=prefill_fn,
@@ -629,5 +698,5 @@ def gpt_generative_spec(sd, cfg: GPTConfig, quantize_weights: bool = False,
             cfg.head_size),
         vocab_size=cfg.vocab_size,
         max_seq_len=cfg.max_seq_len,
-        kv_dtype=_kv_dtype(sd),
+        kv_dtype=_kv_dtype(sd, quantize_kv),
         verify=verify_fn)

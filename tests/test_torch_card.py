@@ -1175,3 +1175,76 @@ def test_bert_tiny_step_captures_and_matches_the_per_step_tier(card):
     assert la == lb and all(np.isfinite(la))
     for name in pa:
         assert torch.equal(pa[name], pb[name]), name
+
+
+def _int8_kv_case(card, kind, dtype):
+    """A float case of ``kind`` made int8 (per-(head, channel) absmax
+    scales): (kernel call, plain call) over copies of the int8 cache, each
+    returning (out, kc8, vc8)."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    if kind == "decode":
+        case = measure.paged_decode_write_case(
+            card, [0, 63, 511, 1015, 40], 4, 128, 16, dtype,
+            active=[True, True, True, True, False], seed=3)
+    elif kind == "verify":
+        case = measure.paged_verify_case(card, [0, 15, 500], 8, 4, 64, 16,
+                                         dtype, seed=4)
+    else:
+        case = measure.paged_prefill_case(card, 15, 65, 60, 4, 128, 16,
+                                          dtype, seed=5)
+    if kind == "prefill":
+        q, kc, vc, tables, lane, kmax = case
+    else:
+        q, kn, vn, kc, vc, tables, lane, kmax = case[:8]
+    kc8, vc8, ks, vs = measure.int8_cache(kc, vc)
+
+    def call(plain):
+        k2, v2 = kc8.clone(), vc8.clone()
+        if kind == "decode":
+            fn = pa.paged_decode_plain if plain else pa.paged_decode_attention
+            out = fn(q, kn, vn, k2, v2, tables, lane, kmax, *case[8:], ks,
+                     vs)
+        elif kind == "verify":
+            fn = pa.paged_verify_plain if plain else pa.paged_verify_attention
+            out = fn(q, kn, vn, k2, v2, tables, lane, kmax, *case[8:], ks,
+                     vs)
+        elif plain:
+            out = pa.paged_prefill_plain(q, k2, v2, tables[0], kmax, ks, vs)
+        else:
+            out = pa.paged_prefill_attention(q, k2, v2, tables[0], kmax,
+                                             kmax.cpu().numpy(), ks, vs)
+        return out, k2, v2
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+def test_int8_kv_kernels_match_plain_on_card(card, kind, dtype):
+    """Each kernel over an int8 cache (decode, verify, paged prefill)
+    against its plain version: the output to 1e-5 (float32) or 1e-12
+    (float64) of its largest magnitude, the int8 rows it wrote bit-equal,
+    each launch counted as an int8 one."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    call = _int8_kv_case(card, kind, dtype)
+    before = sum(pa.INT8_LAUNCHES.values()) + af.INT8_LAUNCHES[
+        "paged_prefill_f32"]
+    got, gk, gv = call(False)
+    want, wk, wv = call(True)
+    _close(got, want, 1e-5 if dtype == torch.float32 else 1e-12)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert sum(pa.INT8_LAUNCHES.values()) + af.INT8_LAUNCHES[
+        "paged_prefill_f32"] - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_int8_kv_write_is_bit_equal_across_launches(card, kind):
+    """Two launches over copies of one int8 cache write the same int8 rows
+    and give the same output bits."""
+    call = _int8_kv_case(card, kind, torch.float32)
+    a, ak, av = call(False)
+    b, bk, bv = call(False)
+    assert torch.equal(a, b) and torch.equal(ak, bk) and torch.equal(av, bv)

@@ -195,8 +195,9 @@ def test_paged_prefill_routes_float32_to_the_tensor_core_kernel(
     monkeypatch.setattr(af, "paged_prefill_f32", lambda *a: calls.append(
         ("dl4j_paged_prefill_f32", a[4:])))
     monkeypatch.setattr(pa, "paged_attention", lambda q, kc, vc, tables,
-                        lane, kmax: calls.append(("dl4j_paged_attention", (
-                            tuple(tables.shape), lane.tolist()))))
+                        lane, kmax, *scales: calls.append((
+                            "dl4j_paged_attention", (tuple(tables.shape),
+                                                     lane.tolist()))))
     q = torch.zeros(3, 2, 16, dtype=dtype)
     kc = torch.zeros(4, 2, 8, 16, dtype=dtype)
     table = torch.tensor([1, 2], dtype=torch.int32)

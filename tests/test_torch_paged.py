@@ -592,13 +592,14 @@ def test_decode_fns_keep_the_write_contract(monkeypatch, spec, dense_spec,
     seen = []
     real = pa.paged_decode_attention
 
-    def spy(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo):
+    def spy(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo, *scales):
         bs = kc.shape[2]
         for r in torch.nonzero(wb >= 0).flatten().tolist():
             t = int(kmax[r])
             seen.append((int(wb[r]), int(wo[r])) == (
                 int(tables[lane[r], t // bs]), t % bs))
-        return real(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo)
+        return real(q, k_new, v_new, kc, vc, tables, lane, kmax, wb, wo,
+                    *scales)
     monkeypatch.setattr(pa, "paged_decode_attention", spy)
     prompts = mixed_prompts(3, seed=4, max_len=16)
     if kind == "paged":
@@ -696,10 +697,12 @@ def _c_entry_params(entry):
 
 
 @pytest.mark.parametrize("entry,pointers", [
-    (pa.ENTRY, ["q", "k_new", "v_new", "kc", "vc", "tables", "lane", "kmax",
-                "write_block", "write_off", "out", "stream"]),
-    (pa.V1_ENTRY, ["q", "kc", "vc", "tables", "lane", "kmax", "out",
-                   "stream"])])
+    (pa.ENTRY, ["q", "k_new", "v_new", "kc", "vc", "k_scale", "v_scale",
+                "tables", "lane", "kmax", "write_block", "write_off", "out",
+                "stream"]),
+    (pa.VERIFY_ENTRY, ["q", "k_new", "v_new", "kc", "vc", "k_scale",
+                       "v_scale", "tables", "lane", "kmax", "win0", "wrow",
+                       "write_block", "write_off", "out", "stream"])])
 def test_ctypes_declaration_matches_the_c_entry(entry, pointers):
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int,
@@ -723,7 +726,6 @@ def test_loading_the_library_declares_the_entry(monkeypatch):
 
     class Lib:
         dl4j_paged_decode_attention = Entry()
-        dl4j_paged_attention_v1 = Entry()
         dl4j_paged_verify_attention = Entry()
 
     lib = Lib()
@@ -1068,12 +1070,24 @@ def test_warmup_runs_every_shape_once_then_traffic_adds_none(psd):
 
 
 def test_not_ported_options_raise(psd, spec):
+    """Tensor-parallel serving is refused by name; int8 KV, refused here
+    until it was ported, now serves: an int8 pool whose tokens equal the
+    dense int8 server's over the same scales (tests/test_torch_int8kv.py
+    holds it to the JAX package)."""
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         make_server(spec, tp=2)
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        pgpt.gpt_paged_spec(psd, PCFG, quantize_kv=True)
-    with pytest.raises(NotImplementedError, match="item 2.4"):
-        pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB, kv_scales={"k": 0})
+    qspec = pgpt.gpt_paged_spec(psd, PCFG, quantize_kv=True)
+    assert qspec.kv_dtype == "int8"
+    dense = pgpt.gpt_generative_spec(psd, PCFG, quantize_kv=True)
+    prompt = np.arange(1, 6, dtype=np.int32)
+    with make_server(qspec) as srv:
+        assert srv._kc.dtype == torch.int8
+        got = srv.submit(prompt, max_new_tokens=5).result(timeout=60)
+    assert len(got) == 5
+    pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB, kv_scales={
+        "k": np.ones((2, 2, 16), np.float32),
+        "v": np.ones((2, 2, 16), np.float32)})
+    assert dense.kv_dtype == "int8"
 
 
 def test_metrics_cold_start_and_block_accounting(spec):

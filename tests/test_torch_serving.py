@@ -450,12 +450,18 @@ class TestServer:
                 "serving.reply"} <= names
 
     def test_not_ported_options_raise(self, spec, psd):
+        """The telemetry endpoint is refused by name; int8 KV, refused
+        here until it was ported, now serves through the dense server,
+        equal to ``greedy_decode`` of its spec."""
         with pytest.raises(NotImplementedError, match="telemetry"):
             make_server(spec, telemetry_port=0)
-        with pytest.raises(NotImplementedError, match="int8 KV"):
-            pgpt.gpt_generative_spec(psd, PCFG, quantize_kv=True)
-        with pytest.raises(NotImplementedError, match="item 2.4"):
-            pgpt.gpt_decode_fns(PCFG, kv_scales={"k": 0, "v": 0})
+        qspec = pgpt.gpt_generative_spec(psd, PCFG, quantize_kv=True)
+        prompt = np.array([4, 1, 7], np.int32)
+        with make_server(qspec) as srv:
+            assert srv._kc.dtype == torch.int8
+            got = srv.submit(prompt, max_new_tokens=6).result(timeout=60)
+        assert got == greedy_decode(qspec, prompt, 6, max_seq_len=MSL,
+                                    device="cpu")
 
 
 # ----------------------------------------------------------------------

@@ -643,10 +643,23 @@ def test_metrics_record_and_stats_line(spec, draft):
 
 
 def test_quantize_kv_still_refused_by_name(psd):
-    for fn in (pgpt.gpt_generative_spec, pgpt.gpt_paged_spec):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 2.4, int8 KV"):
-            fn(psd, PCFG, quantize_weights=True, quantize_kv=True)
+    """int8 KV was refused by name until it was ported; both specs now
+    take ``quantize_kv`` with int8 weights, and speculation over them
+    gives the tokens of the same target without a draft."""
+    target = pgpt.gpt_paged_spec(psd, PCFG, quantize_weights=True,
+                                 quantize_kv=True)
+    draft = pgpt.gpt_generative_spec(
+        psd, dataclasses.replace(PCFG, num_layers=1), quantize_weights=True,
+        quantize_kv=True)
+    assert target.kv_dtype == draft.kv_dtype == "int8"
+    prompt = np.arange(2, 9, dtype=np.int32)
+    kw = dict(max_slots=2, max_seq_len=MSL, block_size=BS, device="cpu")
+    with PagedGenerativeServer(target, **kw) as srv:
+        plain = srv.submit(prompt, max_new_tokens=7).result(timeout=60)
+    with PagedGenerativeServer(target, draft_spec=draft, speculate_k=4,
+                               **kw) as srv:
+        assert srv.submit(prompt, max_new_tokens=7).result(
+            timeout=60) == plain
 
 
 def test_speculative_spans_and_kernel_counts_stay_zero_on_the_cpu(spec,
@@ -720,7 +733,7 @@ def test_verify_runs_the_decode_kernel_with_windows():
     assert "dec::launch_d<float>(D, a, N, st)" in entry(
         "dl4j_paged_decode_attention")
     assert re.findall(r'extern "C" int (\w+)\(', code) == [
-        pa.ENTRY, pa.VERIFY_ENTRY, pa.V1_ENTRY]
+        pa.ENTRY, pa.VERIFY_ENTRY]
     assert "kWindow" not in code
     assert "constexpr int kVRows = 8;" in code
     assert "(N + R - 1) / R * a.A * kVCluster" in code
@@ -781,7 +794,7 @@ def test_verify_runs_the_decode_kernel_with_windows():
              "for (int e = 0; e < E; ++e) acc[x][j][e] += p * vr[j][e];"),
             ("m = mx;", "if (go[x]) m[x] = mx[x];")):
         assert d_stmt in dec and v_stmt in body, (d_stmt, v_stmt)
-    assert body.count("ld16<T, E>(") == 2
+    assert body.count("ldkv<T, E>(") == 2
     assert "if (t <= ulast && !windowed(t)) {" in body
     assert "static_cast<const T*>(kv ? a.v_new : a.k_new)" in body
     for stmt in ("mb = rm[2 * i] > mb ? rm[2 * i] : mb;",
