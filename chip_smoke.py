@@ -321,6 +321,10 @@ Phases, in order; any failure exits non-zero:
    draft and with the 1-layer int8-weight int8-KV draft at k = 8, the
    latter's 16 int8 verify launches a round, its tokens equal to the
    former's on every request, and a profiled pass of rounds (phase 19's).
+   The 32 requests once more through a fresh int8 server under
+   ``torch.profiler``: the int8 paged prefill kernel's and its combining
+   kernel's device time and launches over the run's prefills, each
+   traced count equal to the wrapper's.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
@@ -346,8 +350,8 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels.measure import (
     BF16_TC_FLOPS, attention_bounds, attention_inputs, card_rates,
-    median_ms, ptxas_spills, sass_counts, sass_kernels, synced_ms,
-    tensor_map_encode_us)
+    median_ms, ptxas_spills, ptxas_usage, sass_counts, sass_kernels,
+    synced_ms, tensor_map_encode_us)
 
 STEPS = 8
 BATCH = 128
@@ -398,16 +402,21 @@ def check_attention_build():
 
 def check_attention_f32_build():
     """The float32 attention library as built: the dense and the paged
-    kernel at every head dim multiply on the tensor cores in TF32 (HMMA
-    ... TF32 in their SASS, no other HMMA), with ptxas's spills beside.
-    Prints one line a kernel; exits on a failure."""
+    kernel of the float engine at every head dim multiply on the tensor
+    cores in TF32 (HMMA ... TF32 in their SASS, no other HMMA), with
+    ptxas's spills beside; the paged prefill over an int8 cache
+    (``prefill_i8_kernel``) at every head dim holds PREFILL_I8_SASS's
+    opcodes (wgmma, bulk copies, mbarrier waits) and no mma.sync, with its
+    registers and spills. Prints one line a kernel; exits on a failure."""
     from deeplearning4j_tpu_torch.kernels import _cuda, attention_f32
     sass = sass_kernels(_cuda.library_path(attention_f32._LIB))
-    spills = ptxas_spills(_cuda.build_log(attention_f32._LIB))
+    log_ = _cuda.build_log(attention_f32._LIB)
+    spills = ptxas_spills(log_)
+    regs = _ptxas_regs(log_)
     bad = []
     for d in (16, 32, 64, 128):
-        for paged, q8 in ((0, 0), (1, 0), (1, 1)):
-            tag = f"attn_f32_kernelILi{d}ELb{paged}ELb{q8}E"
+        for paged in (0, 1):
+            tag = f"attn_f32_kernelILi{d}ELb{paged}EE"
             name = next((n for n in sass if tag in n), None)
             if name is None:
                 bad.append(f"{tag}: not in the library")
@@ -417,16 +426,40 @@ def check_attention_f32_build():
                        if "HMMA" in ln and "TF32" in ln)
             other = body.count("HMMA") - tf32
             ok = tf32 > 0 and other == 0
-            log(f"    attn_f32_kernel<{d}, "
-                f"{('dense', 'paged', 'paged int8')[paged + q8]}>: "
+            log(f"    attn_f32_kernel<{d}, {('dense', 'paged')[paged]}>: "
                 f"HMMA TF32 {tf32}, other HMMA {other}, spill stores/loads "
                 f"{spills.get(name, 'not reported')}, blocks an SM (the "
-                f"work split's) {attention_f32.blocks_per_sm(d, bool(paged))}"
+                f"work split's) "
+                f"{attention_f32.blocks_per_sm(d, ('dense', 'paged')[paged])}"
                 f" {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(tag)
+        tag = f"prefill_i8_kernelILi{d}EE"
+        name = next((n for n in sass if tag in n), None)
+        if name is None:
+            bad.append(f"{tag}: not in the library")
+            continue
+        found = {k: sass[name].count(op) for k, op in PREFILL_I8_SASS.items()}
+        hmma = sass[name].count("HMMA")
+        ok = all(found.values()) and hmma == 0
+        log(f"    prefill_i8_kernel<{d}> (paged, int8 cache): "
+            f"{regs.get(name, '?')}, spill stores/loads "
+            f"{spills.get(name, 'not reported')}; "
+            + ", ".join(f"{k} {PREFILL_I8_SASS[k]} x{n}"
+                        for k, n in found.items())
+            + f", HMMA x{hmma}, blocks an SM "
+            f"{attention_f32.blocks_per_sm(d, 'paged_i8')} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(tag)
     if bad:
         raise SystemExit(f"float32 attention kernels built wrong: {bad}")
+
+
+#: SASS opcodes of the int8 paged prefill's Hopper parts: wgmma, the tiles'
+#: bulk copies (cp.async.bulk) and the mbarrier waits on them
+PREFILL_I8_SASS = {"wgmma": "HGMMA.", "bulk copy": "UBLKCP",
+                   "mbarrier wait": "SYNCS.PHASECHK"}
 
 
 #: SASS opcodes of the paged decode cluster kernel's Hopper parts: the
@@ -439,15 +472,10 @@ PAGED_SASS = {"bulk copy": "UBLKCP", "DSMEM push": "STAS",
 
 
 def _ptxas_regs(log_):
-    """Registers per kernel (mangled name) from ptxas's report."""
-    regs, fn = {}, None
-    for line in log_.splitlines():
-        if "Function properties for" in line:
-            fn = line.split()[-1]
-        elif fn and "registers" in line:
-            regs[fn] = line.split("Used")[1].split(",")[0].strip()
-            fn = None
-    return regs
+    """Registers per kernel (mangled name) from ptxas's report, as
+    "N registers"."""
+    return {fn: f"{regs} registers"
+            for fn, (regs, _) in ptxas_usage(log_).items()}
 
 
 def check_paged_build():
@@ -4780,7 +4808,8 @@ def phase_int8kv_timing(dev, card_name):
     plain version (host syncs: ``synced_ms``), the library (each lane's
     context gathered once outside the timing, then dequantised and one
     masked ``F.scaled_dot_product_attention``: three calls, no one call
-    computes it) and its bound at int8 bytes: the decode at 8 lanes at
+    computes it) and its bound (int8 bytes; the prefill's products with
+    int8 K and V, ``measure.int8_weight_bound``): the decode at 8 lanes at
     context 128, 512 and 1024; the verify at 8 lanes x W 8 from context
     64, 128, 512 and 1016; the prefill of 512 rows after 256 cached keys.
     Returns per-call times by shape."""
@@ -4858,13 +4887,21 @@ def phase_int8kv_timing(dev, card_name):
     lib = median_ms(lambda: F.scaled_dot_product_attention(
         ql, dk.float() * sk, dv.float() * sv, attn_mask=mask), flush)
     ops, nbytes = measure.paged_bounds(q, kc8, tables, lane, kmax)
-    b = measure.two_rate_bound(ops, nbytes, card_name)
+    # K and V are int8, exact in bf16 and TF32: only q * s_k and P are
+    # split, so the least time is the int8-operand bound (the faster of
+    # two TF32 and three bf16 passes); beside it, named, the same
+    # operations at 3xTF32 (the float32 cache's engine)
+    b = measure.int8_weight_bound(ops, nbytes, card_name)
+    b["tf32x3_ms"] = 1e3 * ops / measure.tf32x3_rate(card_name)
     out["prefill_512_hist_256"] = {"ms": ms, "float32_ms": f32,
                                    "plain_ms": plain, "library_ms": lib, **b}
-    log(f"  paged_prefill_f32 int8, 512 rows after 256 cached keys: "
-        f"{ms:.4f} ms (float32 cache {f32:.4f}), plain {plain:.4f}, library "
-        f"{lib:.4f}, bound {b['bound_ms']:.4f} at 3xTF32 ({b['bound_by']}; "
-        f"{b['fma_ms']:.4f} at the FMA rate)  [{card_name}]")
+    log(f"  paged_prefill_f32 int8 (prefill_i8_kernel), 512 rows after 256 "
+        f"cached keys: {ms:.4f} ms (float32 cache {f32:.4f}), plain "
+        f"{plain:.4f}, library {lib:.4f}, bound {b['bound_ms']:.5f} "
+        f"({b['bound_by']}: {b['bf16x3_ms']:.5f} in three bf16 products, "
+        f"{b['tf32x2_ms']:.5f} in two TF32; bytes {b['bytes_ms']:.5f}; "
+        f"{b['tf32x3_ms']:.5f} at 3xTF32, {b['fma_ms']:.4f} at the FMA "
+        f"rate)  [{card_name}]")
     del flush
     torch.cuda.empty_cache()
     return out
@@ -5023,8 +5060,9 @@ def phase_int8kv_serving(dev, card):
     (reported, not gated); the pool's blocks at one ``kv_hbm_bytes``
     budget, int8 against float32 (at least 1.9x); ``bench_serving_quant``'s
     closed loop (``LOADGEN``) on both at that budget; a profiled decode
-    step pass (phase 13's) and a profiled round pass (phase 19's) of the
-    int8 servers."""
+    step pass (phase 13's), the int8 prefills of a profiled pass of the 32
+    requests (``profile_traffic_prefills``) and a profiled round pass
+    (phase 19's) of the int8 servers."""
     import dataclasses
     from deeplearning4j_tpu_torch.kernels import attention_f32 as af
     from deeplearning4j_tpu_torch.kernels import int8_matmul as im
@@ -5095,6 +5133,7 @@ def phase_int8kv_serving(dev, card):
         f"(the dense prefill attends over fresh float32 K/V)")
     out["agreement_vs_float32"] = agree
     out["profile"] = profile_serving(spec, reqs, card, m["step_p50_ms"], L)
+    out["prefill_profile"] = profile_traffic_prefills(spec, reqs, card, L)
     # the pool at one byte budget, and bench_serving_quant's closed loop
     budget = INT8KV_BUDGET_BLOCKS * 2 * int(np.prod(
         f32.kv_shape(1, SERVE_BS))) * 4
@@ -5158,6 +5197,65 @@ def phase_int8kv_serving(dev, card):
     return out
 
 
+def profile_traffic_prefills(spec, reqs, card, layers):
+    """The 32 ``serving_traffic`` requests once more through a fresh int8-KV
+    ``PagedGenerativeServer`` under torch.profiler, after one unprofiled
+    request: the int8 paged prefill kernel's (``prefill_i8_kernel``) and
+    its combining kernel's device time and launches over the run's
+    prefills, each count traced against the wrapper's (a trace holding
+    fewer launches than the wrapper counted is taken once more), beside
+    the run's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.serving.paged import PagedGenerativeServer
+    for attempt in range(2):
+        srv = PagedGenerativeServer(spec, max_slots=SERVE_SLOTS,
+                                    block_size=SERVE_BS,
+                                    max_seq_len=SERVE_SEQ)
+        srv.submit(np.arange(1, 9, dtype=np.int32), 2).result(timeout=300)
+        torch.cuda.synchronize()
+        b_main = af.INT8_LAUNCHES["paged_prefill_f32"]
+        b_comb = af.LAUNCHES["attention_f32_combine"]
+        p0 = srv.metrics.to_record()["generative"]["prefills"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _serve_requests(srv, reqs, card, "int8 KV server under the "
+                            "profiler")
+            torch.cuda.synchronize()
+        prefills = srv.metrics.to_record()["generative"]["prefills"] - p0
+        srv.shutdown()
+        counted = {"main": af.INT8_LAUNCHES["paged_prefill_f32"] - b_main,
+                   "combine": af.LAUNCHES["attention_f32_combine"] - b_comb}
+        traced = {"main": 0, "combine": 0}
+        ms = {"main": 0.0, "combine": 0.0}
+        total = 0.0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            dt = e.time_range.elapsed_us() / 1e3
+            total += dt
+            key = ("main" if "prefill_i8_kernel" in e.name else "combine"
+                   if "attn_f32_combine" in e.name else None)
+            if key:
+                traced[key] += 1
+                ms[key] += dt
+        if traced == counted or attempt:
+            break
+    log(f"  profiler, the {len(reqs)} requests' {prefills} int8 paged "
+        f"prefills: prefill_i8_kernel {ms['main']:.4f} ms over "
+        f"{traced['main']} launches ({ms['main'] / max(traced['main'], 1):.5f}"
+        f" a launch), its combining kernel {ms['combine']:.4f} ms over "
+        f"{traced['combine']}; the wrapper counted {counted}; the run's "
+        f"device time {total:.2f} ms  [{card}]")
+    if traced != counted or traced["main"] != layers * prefills:
+        raise SystemExit(f"int8 prefills: traced {traced}, the wrapper "
+                         f"counted {counted}, want {layers * prefills} "
+                         f"main launches")
+    return {"prefills": prefills, "launches": traced["main"],
+            "combine_launches": traced["combine"], "ms": ms["main"],
+            "combine_ms": ms["combine"], "device_ms": total}
+
+
 def int8kv_kernel_records(t, serve, errs):
     """The int8 variants' JSON records: the decode per decode step (16
     launches at context 512), the verify per round (16 at context 512),
@@ -5173,7 +5271,8 @@ def int8kv_kernel_records(t, serve, errs):
              "speculative round's verify, 8 lanes x W 8 at context 512",
              serve["spec_profile"]["by_group_ms"].get("verify attention")),
             ("paged_prefill_f32_int8", "prefill_512_hist_256",
-             "GPT-medium prefill of 512 rows after 256 cached keys", None)):
+             "GPT-medium prefill of 512 rows after 256 cached keys",
+             serve["prefill_profile"])):
         c = t[key]
         source, replaces = INT8KV_KERNELS[name]
         recs.append({
@@ -5186,7 +5285,13 @@ def int8kv_kernel_records(t, serve, errs):
             "library": "dequantise the gathered context, then masked "
                        "F.scaled_dot_product_attention",
             "float32_cache_ms": 16 * c["float32_ms"], "ms_per": per,
-            "in_step_ms": in_step,
+            # the prefill's: a traffic prefill's device time (16 launches
+            # and their combines), from phase 24's profiled run
+            "in_step_ms": (in_step if not isinstance(in_step, dict) else
+                           (in_step["ms"] + in_step["combine_ms"])
+                           / max(in_step["prefills"], 1)),
+            **({"traffic_prefills": in_step}
+               if isinstance(in_step, dict) else {}),
             "per_call": {k: v for k, v in t.items()
                          if k.startswith(key.split("_")[0])}})
     return recs
@@ -5232,7 +5337,8 @@ def main():
                 log(f"    {line.strip()}")
     log("  the bf16 attention kernels' SASS (cuobjdump -sass) and spills:")
     check_attention_build()
-    log("  the float32 attention kernels' SASS: tf32 mma.sync (HMMA .TF32):")
+    log("  the float32 attention kernels' SASS: tf32 mma.sync (HMMA .TF32); "
+        "the int8 paged prefill's: wgmma, bulk copies, mbarrier waits:")
     check_attention_f32_build()
     log("  the paged cluster kernels (decode, verify): "
         "registers, spills, and their bulk copies, DSMEM pushes, cluster "

@@ -1,5 +1,6 @@
-// Float32 attention on Hopper's tensor cores in 3xTF32: the dense causal
-// forward and the paged prefill, one tile engine (sm_90a).
+// Float32 attention on Hopper's tensor cores: the dense causal forward and
+// the paged prefill in 3xTF32 (one tile engine), and the paged prefill over
+// an int8 cache in bf16 wgmma on exact int8 tiles (sm_90a).
 //
 // Not TPU kernels: XLA fused both on the TPU, with no Pallas kernel
 // behind them. The entries replace
@@ -20,10 +21,8 @@
 //   A row with kmax < 0 has no key and gets 0, as paged_attention.cu's.
 //   With an int8 cache (k_scale and v_scale given, [A, D] float32: the
 //   serving tier's int8 KV, zoo/gpt.py :612-628 with _q_load :581-584)
-//   K[t] is float(kc_i8[...]) * k_scale[a] rounded in float32, and V
-//   likewise: a K/V tile is read as int8 rows (16-byte loads, a quarter of
-//   float32's bytes) and dequantised into the float32 shared tile before
-//   the 3xTF32 split, so every product after it is the float cache's.
+//   K[t] is float(kc_i8[...]) * k_scale[a] and V likewise, and the entry
+//   launches prefill_i8_kernel (below the float engine) instead.
 //
 // What bounds them on an H100: at the serving shapes (12 heads of 128, a
 // dense prefill of 512 rows causal; 512 rows after 256 cached keys) the
@@ -34,7 +33,7 @@
 // and 0.0098 ms. Batch 1 with 12 heads is a small grid, and the heaviest
 // causal tile of 64 rows does most of a tile column's work.
 //
-// Design:
+// Design of the float engine (a float32 cache, and the dense forward):
 // - 3xTF32: each float32 operand x is split into hi = tf32(x) and lo =
 //   tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi, summed in float32
 //   on mma.sync.m16n8k8 tf32: about 2^-21 of each product's size, against
@@ -66,14 +65,44 @@
 //   wholly above a warp's rows are skipped (exact: they add 0 and change no
 //   maximum), and only tiles that cross a row's end are masked at all.
 //
-// What bounds this design (experiments/attention_f32_study.py times each choice;
-// the numbers are in PERF.md): the arithmetic, not the loads (a variant
-// that loads no key tile after the first two takes about as long). Each
-// warp's 16 rows make one chain of dependent mma.sync a score column and a
-// tile, with two warps an SM sub-partition to hide it; mma.sync tf32 runs
-// below wgmma's rate, and one TF32 product instead of three saves only a
-// quarter. wgmma's tf32 form takes B only K-major, so P V would need V
-// transposed in shared memory: a later step.
+// What bounds the float engine (experiments/attention_f32_study.py times
+// each choice; the numbers are in PERF.md): the arithmetic, not the loads
+// (a variant that loads no key tile after the first two takes about as
+// long). Each warp's 16 rows make one chain of dependent mma.sync a score
+// column and a tile, with two warps an SM sub-partition to hide it;
+// mma.sync tf32 runs below wgmma's rate, and one TF32 product instead of
+// three saves only a quarter. wgmma's tf32 form takes B only K-major, so
+// P V would need V transposed in shared memory.
+//
+// The int8 cache changes both facts, and prefill_i8_kernel is designed for
+// it (its first design, the float engine with the int8 tiles loaded
+// synchronously and dequantised into the float32 tile, is gone from the
+// source; experiments/attention_f32_study.py --parent builds it):
+// - An integer with |x| <= 127 is exact in bf16, so the cache's tiles are
+//   exact wgmma operands, and a scale a channel moves out of the product:
+//   S = (q * s_k) . K_i8 (q * s_k rounded to float32 once a row, then cut
+//   into three bf16 pieces, hi + mid + lo, every difference exact: the
+//   pieces carry its 24 bits) and O = (P . V_i8) * s_v (P cut into three
+//   pieces the same way, s_v applied in the epilogue). Each product runs
+//   on wgmma bf16, three per pair of operands, summed in float32 by the
+//   tensor cores: at twice TF32's rate, and a 16-bit B tile may be
+//   MN-major, so V is read untransposed.
+// - The tiles are int8 in device memory (a quarter of float32's bytes) and
+//   come by cp.async.bulk, a run of a block's rows one copy (a row where
+//   the rows are not contiguous), into kI8Stages stages on an mbarrier
+//   each (one: the next tile's copy runs under this tile's products),
+//   issued by one warp; the block turns each tile into bf16 (K and V in
+//   the swizzled layout the descriptors read) once it lands, and hands the
+//   stage back to the copies.
+// - What sets its time (experiments/attention_f32_study.py): its loads
+//   and per-tile chain, not its products. With no products and no bf16
+//   tiles it takes about 60% of its time at the serving shape.
+// - One warpgroup takes the float engine's 64 rows, its work item and its
+//   combining launch, and writes the same partials: s_v goes into a
+//   partial's O, so the combine is the float engine's.
+// - The online softmax is the float engine's (float32, base 2, -inf past a
+//   row's last key); a row's keys are visited in order. No atomics: two
+//   calls give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,7 +111,11 @@
 #include <mutex>
 #include <set>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -252,61 +285,7 @@ __device__ __forceinline__ void load_kv(const F32Args& a, float* sk, float* sv, 
   }
 }
 
-// One K/V tile of an int8 cache: 16 int8 values (16 bytes) a thread at a
-// time, dequantised at their channels' scales into the float32 tile; a key
-// past the tile's end is written as 0, as cp.async's zero-fill.
-template <int D>
-__device__ __forceinline__ void load_kv_i8(const F32Args& a, float* sk, float* sv, int j0,
-                                           int kend, const int8_t* kbase, const int8_t* vbase,
-                                           const float* ks, const float* vs) {
-  using C = Cfg<D>;
-  constexpr int kRow = D / 16;  // 16-byte pieces an int8 row
-  for (int idx = threadIdx.x; idx < C::BN * kRow; idx += kThreads) {
-    const int r = idx / kRow, c = idx % kRow;
-    const int t = j0 + r;
-    float kf[16], vf[16];
-    if (t < kend) {
-      const int u = t / a.BS;
-      const int64_t blk = a.table[u];
-      const int64_t o = t - static_cast<int64_t>(u) * a.BS;
-      const int4 kx = *reinterpret_cast<const int4*>(kbase + blk * a.kb + o * a.ks + c * 16);
-      const int4 vx = *reinterpret_cast<const int4*>(vbase + blk * a.vb + o * a.vs + c * 16);
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kx);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vx);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        kf[e] = __fmul_rn(static_cast<float>(kb[e]), ks[c * 16 + e]);
-        vf[e] = __fmul_rn(static_cast<float>(vb[e]), vs[c * 16 + e]);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) kf[e] = vf[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 16; e += 4) {
-      *reinterpret_cast<float4*>(sk + r * C::LQK + c * 16 + e) =
-          make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-      *reinterpret_cast<float4*>(sv + r * C::LV + c * 16 + e) =
-          make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
-    }
-  }
-}
-
-// A K/V tile into stage (sk, sv): cp.async copies of a float cache's rows,
-// or an int8 cache's rows dequantised (Q8, paged only).
-template <int D, bool PAGED, bool Q8>
-__device__ __forceinline__ void load_tile(const F32Args& a, float* sk, float* sv, int j0,
-                                          int kend, int64_t b, int64_t h) {
-  if constexpr (Q8) {
-    load_kv_i8<D>(a, sk, sv, j0, kend, reinterpret_cast<const int8_t*>(a.k) + h * a.kh,
-                  reinterpret_cast<const int8_t*>(a.v) + h * a.vh, a.ksc + h * D, a.vsc + h * D);
-  } else {
-    load_kv<D, PAGED>(a, sk, sv, j0, kend, a.k + (PAGED ? 0 : b * a.kb) + h * a.kh,
-                      a.v + (PAGED ? 0 : b * a.vb) + h * a.vh);
-  }
-}
-
-template <int D, bool PAGED, bool Q8 = false>
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) {
   using C = Cfg<D>;
   constexpr int BN = C::BN;
@@ -340,12 +319,14 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
     cp_async16(sq + r * C::LQK + c * 4, qbase + (live ? (q0 + r) * a.qs : 0) + c * 4,
                live ? 16 : 0);
   }
+  const float* kbase = a.k + (PAGED ? 0 : b * a.kb) + h * a.kh;
+  const float* vbase = a.v + (PAGED ? 0 : b * a.vb) + h * a.vh;
   float* stage0 = smem + C::kQ;
-  if (ntiles > 0) load_tile<D, PAGED, Q8>(a, stage0, stage0 + C::kK, kbeg, kend, b, h);
+  if (ntiles > 0) load_kv<D, PAGED>(a, stage0, stage0 + C::kK, kbeg, kend, kbase, vbase);
   cp_async_commit();
   if (ntiles > 1)
-    load_tile<D, PAGED, Q8>(a, stage0 + C::kStage, stage0 + C::kStage + C::kK, kbeg + BN, kend,
-                            b, h);
+    load_kv<D, PAGED>(a, stage0 + C::kStage, stage0 + C::kStage + C::kK, kbeg + BN, kend, kbase,
+                      vbase);
   cp_async_commit();
 
   // this thread's two rows (g and g + 8 of the warp's 16) and the warp's
@@ -468,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
     __syncthreads();   // every warp is done with this stage
     if (it + 2 < ntiles) {
       float* st = smem + C::kQ + (it & 1) * C::kStage;
-      load_tile<D, PAGED, Q8>(a, st, st + C::kK, j0 + 2 * BN, kend, b, h);
+      load_kv<D, PAGED>(a, st, st + C::kK, j0 + 2 * BN, kend, kbase, vbase);
     }
     cp_async_commit();
   }
@@ -566,9 +547,273 @@ __global__ void __launch_bounds__(kThreads) attn_f32_combine(const F32Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The paged prefill over an int8 cache (the design is in the header): one
+// warpgroup a block, the float engine's 64 rows, work item and partials.
+
+// int8 K/V tiles in flight a block: one, a tile ahead of the products. At
+// head dim 128 a 64-key tile and one stage keep two blocks an SM, which
+// measured faster than 32-key tiles in a ring of four (or two) and than a
+// ring of four 64-key tiles at one block an SM (experiments/
+// attention_f32_study.py; PERF.md). The kernel keeps the ring's general
+// form (an mbarrier a stage, stage it % NS, parity (it / NS) & 1) for the
+// study's variants, which set kI8Stages to 2 and 4.
+constexpr int kI8Stages = 1;
+
+template <int D>
+struct I8Cfg {
+  static constexpr int BN = 64;                      // keys a tile: divides kChunkAlign
+  static constexpr int kQ = kBM * D * 2;             // a bf16 piece of q * s_k
+  static constexpr int kT = BN * D * 2;              // the bf16 K (or V) tile
+  static constexpr int kStage = 2 * BN * D;          // a stage: int8 K rows, then V rows
+  static constexpr int kRing = 3 * kQ + 2 * kT;      // where the stages start
+  static constexpr int kBytes = 1024 + kRing + kI8Stages * kStage;   // 1024: to align
+};
+
+// The four int8 values of a word as two bf16 pairs, exactly: each byte
+// biased to u in 0 .. 255 and put under 2^23's exponent (the float 2^23 +
+// u), then 2^23 + 128 taken off.
+__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& p01, uint32_t& p23) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + e)), 8388736.f);
+  p01 = bf16x2(f[0], f[1]);
+  p23 = bf16x2(f[2], f[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) prefill_i8_kernel(const F32Args a) {
+  using C = I8Cfg<D>;
+  constexpr int BN = C::BN, NS = kI8Stages;
+  constexpr int KS = BN / 16;   // k16 steps of P . V
+  extern __shared__ __align__(16) unsigned char dyn8[];
+  __shared__ int red[kWarps];
+  __shared__ __align__(8) uint64_t full[NS];
+  const uint32_t raw = smem_u32(dyn8), base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = dyn8 + (base - raw);
+  // q * s_k's three pieces, the bf16 K and V tiles, the ring of int8 stages
+  const uint32_t qt = base, kt = base + 3 * C::kQ, vt = kt + C::kT, ring = base + C::kRing;
+
+  const int tile = a.tiles - 1 - static_cast<int>(blockIdx.x) / a.ncmax;  // heaviest first
+  const int item = static_cast<int>(blockIdx.x) % a.ncmax;
+  const int64_t h = blockIdx.y;
+  const int64_t q0 = static_cast<int64_t>(tile) * kBM;
+  const int kend = tile_key_end<true>(a, q0, red);
+  const int nitems = items_of(kend, a.chunk);
+  if (item >= nitems) return;
+  const int kbeg = item * a.chunk;
+  const int kstop = min(kend, kbeg + a.chunk);
+  const int ntiles = kstop > kbeg ? (kstop - kbeg + BN - 1) / BN : 0;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile it (keys kbeg + BN it ..) into stage it % NS, by warp 0: lane 0
+  // arrives with the bytes to expect; each run of a block's rows (each row,
+  // where a block's rows do not lie one after another) is one bulk copy
+  // for K and one for V. Keys past kstop are not copied (they are masked).
+  const int8_t* kbase = reinterpret_cast<const int8_t*>(a.k) + h * a.kh;
+  const int8_t* vbase = reinterpret_cast<const int8_t*>(a.v) + h * a.vh;
+  const bool runs = a.ks == D && a.vs == D;
+  auto issue = [&](int it) {
+    const int j0 = kbeg + it * BN, n = min(BN, kstop - j0);
+    const uint32_t bar = smem_u32(&full[it % NS]);
+    const uint32_t dk = ring + (it % NS) * C::kStage, dv = dk + BN * D;
+    if (lane == 0) mbar_expect_tx(bar, 2u * n * D);
+    __syncwarp();
+    for (int r = lane; r < n; r += 32) {
+      const int key = j0 + r, u = key / a.BS, off = key - u * a.BS;
+      if (runs && r > 0 && off > 0) continue;   // inside an earlier row's run
+      const int len = runs ? min(a.BS - off, n - r) : 1;
+      const int64_t blk = a.table[u];
+      bulk_load(dk + r * D, kbase + blk * a.kb + off * a.ks, len * D, bar);
+      bulk_load(dv + r * D, vbase + blk * a.vb + off * a.vs, len * D, bar);
+    }
+  };
+  if (warp == 0)
+    for (int it = 0; it < min(NS, ntiles); ++it) issue(it);
+
+  // q * s_k, rounded once, cut into its three pieces: the A tiles of S
+  const float* qb = a.q + h * a.qh;
+  const float* ks = a.ksc + h * D;
+  for (int idx = tid; idx < kBM * (D / 4); idx += kThreads) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < a.rows) x = *reinterpret_cast<const float4*>(qb + (q0 + r) * a.qs + c);
+    x.x = __fmul_rn(x.x, __ldg(ks + c));
+    x.y = __fmul_rn(x.y, __ldg(ks + c + 1));
+    x.z = __fmul_rn(x.z, __ldg(ks + c + 2));
+    x.w = __fmul_rn(x.w, __ldg(ks + c + 3));
+    uint32_t p01[3], p23[3];
+    split3(x.x, x.y, p01);
+    split3(x.z, x.w, p23);
+    const uint32_t at = swz<D, kBM>(r, c);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint2*>(sm + p * C::kQ + at) = make_uint2(p01[p], p23[p]);
+  }
+
+  // this thread's two rows (g and g + 8 of its warp's 16) and their last keys
+  const int64_t ra = q0 + warp * 16 + g;
+  const int lim0 = row_last_key<true>(a, ra), lim1 = row_last_key<true>(a, ra + 8);
+  const int lmin = min(lim0, lim1);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % NS;
+    const int j0 = kbeg + it * BN;
+    mbar_wait(smem_u32(&full[s]), static_cast<uint32_t>((it / NS) & 1));
+    __syncthreads();   // the last tile's products are done with the bf16 tiles
+    // the stage's int8 rows as the bf16 K and V tiles, 16 values a thread at a time
+    const unsigned char* st = sm + (ring - base) + s * C::kStage;
+    for (int idx = tid; idx < 2 * BN * (D / 16); idx += kThreads) {
+      const int kv = idx / (BN * (D / 16)), rem = idx % (BN * (D / 16));
+      const int r = rem / (D / 16), c = (rem % (D / 16)) * 16;
+      const uint4 w = *reinterpret_cast<const uint4*>(st + kv * BN * D + r * D + c);
+      uint32_t b[8];
+      i8x4_bf16(w.x, b[0], b[1]);
+      i8x4_bf16(w.y, b[2], b[3]);
+      i8x4_bf16(w.z, b[4], b[5]);
+      i8x4_bf16(w.w, b[6], b[7]);
+      unsigned char* tb = sm + ((kv ? vt : kt) - base);
+      *reinterpret_cast<uint4*>(tb + swz<D, BN>(r, c)) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(tb + swz<D, BN>(r, c + 8)) = make_uint4(b[4], b[5], b[6], b[7]);
+    }
+    // the bf16 tiles (and q's) before the products read them; the stage's
+    // reads before the next copies into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (warp == 0 && it + NS < ntiles) issue(it + NS);
+
+    // S = (q * s_k) . K_i8: the pieces hi, mid, lo in turn, D / 16 steps each
+    float sc[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BN>::ss(sc, desc_k<D, kBM>(qt + p * C::kQ, 0, kk), desc_k<D, BN>(kt, 0, kk),
+                      p + kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    keep(sc);
+
+    // the online softmax, base 2; sc[4 j + e] is row g + 8 (e / 2), key j0
+    // + 8 j + 2 t + e % 2
+    const bool edge = j0 + BN - 1 > lmin;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * a.scale2;
+        if (edge && j0 + 8 * j + 2 * t + (e & 1) > (e < 2 ? lim0 : lim1)) x = -INFINITY;
+        sc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      // a row with no key yet keeps m = -inf: exponents against 0 give 0
+      mu[r] = mn == -INFINITY ? 0.f : mn;
+      corr[r] = ex2(m[r] - mu[r]);
+      m[r] = mn;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      sc[i] = ex2(sc[i] - mu[(i >> 1) & 1]);
+      ps[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P . V_i8: P's pieces as the A fragments of each k16 step (keys
+    // 16 kk + 2 t (+1) and + 8 of rows g and g + 8), V read MN-major
+    uint32_t pa[3][KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        uint32_t pc[3];
+        split3(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], pc);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) pa[p][kk][f] = pc[p];
+      }
+    keep(o);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) Wgmma<D>::rs(o, pa[p][kk], desc_mn<D, BN>(vt, kk));
+    wgmma_commit();
+    wgmma_wait();
+    keep(o);
+    keep(pa);
+  }
+
+  // s_v times the sums: O (one work item) or the item's partial
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  const float* vs = a.vsc + h * D;
+  if (nitems == 1) {
+    float* ob = a.out + h * a.oh;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t r = ra + half * 8;
+      if (r >= a.rows) continue;
+      const float lr = l[half];
+      float* orow = ob + r * a.os + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        float2 w;
+        w.x = lr > 0.f ? o[4 * n + 2 * half] * __ldg(vs + col) / lr : 0.f;   // no key: 0
+        w.y = lr > 0.f ? o[4 * n + 2 * half + 1] * __ldg(vs + col + 1) / lr : 0.f;
+        *reinterpret_cast<float2*>(orow + n * 8) = w;
+      }
+    }
+  } else {
+    float* pb = a.part +
+                ((h * a.tiles + tile) * a.ncmax + item) * static_cast<int64_t>(kBM) * (D + 2);
+    float* pml = pb + kBM * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + g + half * 8;
+      float* prow = pb + r * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(prow + n * 8) =
+            make_float2(o[4 * n + 2 * half] * __ldg(vs + col),
+                        o[4 * n + 2 * half + 1] * __ldg(vs + col + 1));
+      }
+      if (t == 0) {
+        pml[2 * r] = m[half];
+        pml[2 * r + 1] = l[half];
+      }
+    }
+  }
+}
+
 // The main kernel's shared memory raised past 48 KB on the current device,
 // once per device: a kernel's attributes belong to each device's context.
-template <int D, bool PAGED, bool Q8 = false>
+template <int D, bool PAGED>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
@@ -577,17 +822,17 @@ cudaError_t configure() {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   if (raised.count(dev) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(attn_f32_kernel<D, PAGED, Q8>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmemBytes);
+  e = cudaFuncSetAttribute(attn_f32_kernel<D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Cfg<D>::kSmemBytes);
   if (e == cudaSuccess) raised.insert(dev);
   return e;
 }
 
-template <int D, bool PAGED, bool Q8>
+template <int D, bool PAGED>
 int launch(const F32Args& a, int64_t BH, cudaStream_t st) {
-  const cudaError_t attr = configure<D, PAGED, Q8>();
+  const cudaError_t attr = configure<D, PAGED>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  attn_f32_kernel<D, PAGED, Q8>
+  attn_f32_kernel<D, PAGED>
       <<<dim3(static_cast<unsigned>(a.tiles * a.ncmax), static_cast<unsigned>(BH)), kThreads,
          Cfg<D>::kSmemBytes, st>>>(a);
   cudaError_t err = cudaGetLastError();
@@ -598,17 +843,56 @@ int launch(const F32Args& a, int64_t BH, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the kernel for head dim D; the paged form reads an int8 cache where the
-// scales are given
 template <bool PAGED>
 int launch_d(int64_t D, const F32Args& a, int64_t BH, cudaStream_t st) {
-  const bool q8 = PAGED && a.ksc != nullptr;
   switch (D) {
-    case 16: return q8 ? launch<16, PAGED, true>(a, BH, st) : launch<16, PAGED, false>(a, BH, st);
-    case 32: return q8 ? launch<32, PAGED, true>(a, BH, st) : launch<32, PAGED, false>(a, BH, st);
-    case 64: return q8 ? launch<64, PAGED, true>(a, BH, st) : launch<64, PAGED, false>(a, BH, st);
-    case 128:
-      return q8 ? launch<128, PAGED, true>(a, BH, st) : launch<128, PAGED, false>(a, BH, st);
+    case 16: return launch<16, PAGED>(a, BH, st);
+    case 32: return launch<32, PAGED>(a, BH, st);
+    case 64: return launch<64, PAGED>(a, BH, st);
+    case 128: return launch<128, PAGED>(a, BH, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The int8 cache's kernel: its shared memory raised once per device, as
+// configure()'s; then the launch and, for a split tile, the float engine's
+// combining launch.
+template <int D>
+cudaError_t configure_i8() {
+  static std::mutex mu;
+  static std::set<int> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (raised.count(dev) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(prefill_i8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           I8Cfg<D>::kBytes);
+  if (e == cudaSuccess) raised.insert(dev);
+  return e;
+}
+
+template <int D>
+int launch_i8(const F32Args& a, int64_t BH, cudaStream_t st) {
+  const cudaError_t attr = configure_i8<D>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  prefill_i8_kernel<D>
+      <<<dim3(static_cast<unsigned>(a.tiles * a.ncmax), static_cast<unsigned>(BH)), kThreads,
+         I8Cfg<D>::kBytes, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.ncmax == 1) return static_cast<int>(err);
+  attn_f32_combine<D, true><<<dim3(static_cast<unsigned>(a.tiles * (kBM / kCombineRows)),
+                                   static_cast<unsigned>(BH)),
+                              kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_i8_d(int64_t D, const F32Args& a, int64_t BH, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_i8<16>(a, BH, st);
+    case 32: return launch_i8<32>(a, BH, st);
+    case 64: return launch_i8<64>(a, BH, st);
+    case 128: return launch_i8<128>(a, BH, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -636,12 +920,37 @@ int occupancy(int* blocks) {
       blocks, attn_f32_kernel<D, PAGED>, kThreads, Cfg<D>::kSmemBytes));
 }
 
+template <int D>
+int occupancy_i8(int* blocks) {
+  const cudaError_t e = configure_i8<D>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, prefill_i8_kernel<D>, kThreads, I8Cfg<D>::kBytes));
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// dl4j_attention_f32_blocks_per_sm's kinds (attention_f32.KINDS)
+enum Kind { kDense = 0, kPaged = 1, kPagedI8 = 2 };
+
 }  // namespace
 
-// The main kernel's resident blocks an SM at head dim D (paged or dense
-// form), as launched: written to *blocks. Returns the cudaError_t.
-extern "C" int dl4j_attention_f32_blocks_per_sm(int64_t D, int paged, int* blocks) {
-  switch (D * 2 + (paged != 0)) {
+// The main kernel's resident blocks an SM at head dim D, as launched, for
+// kind 0 the dense forward, 1 the paged prefill over a float32 cache, 2
+// the paged prefill over an int8 cache (prefill_i8_kernel). Written to
+// *blocks; returns the cudaError_t.
+extern "C" int dl4j_attention_f32_blocks_per_sm(int64_t D, int kind, int* blocks) {
+  if (kind == kPagedI8) {
+    switch (D) {
+      case 16: return occupancy_i8<16>(blocks);
+      case 32: return occupancy_i8<32>(blocks);
+      case 64: return occupancy_i8<64>(blocks);
+      case 128: return occupancy_i8<128>(blocks);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (kind != kDense && kind != kPaged) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D * 2 + (kind == kPaged)) {
     case 32: return occupancy<16, false>(blocks);
     case 33: return occupancy<16, true>(blocks);
     case 64: return occupancy<32, false>(blocks);
@@ -692,10 +1001,10 @@ extern "C" int dl4j_attention_fwd_f32(
 // q [N, A, D] float32 at strides (sqn, sqa, 1); kc, vc one layer's
 // [num_blocks, A, BS, D] at strides (skb, ska, skt, 1) and (svb, sva, svt,
 // 1), float32 with strides multiples of 4, or int8 (k_scale and v_scale
-// [A, D] float32 contiguous given; nullptr for float32) with strides
-// multiples of 16, bases on 16 bytes; table [MAXB] and kmax [N] int32
-// contiguous; out [N, A, D] contiguous; part, part_floats and chunk as
-// above. Returns the launch's cudaError_t.
+// [A, D] float32 contiguous given; nullptr for float32: the int8 kernel)
+// with strides multiples of 16, bases on 16 bytes; table [MAXB] and kmax
+// [N] int32 contiguous; out [N, A, D] contiguous; part, part_floats and
+// chunk as above. Returns the launch's cudaError_t.
 extern "C" int dl4j_paged_prefill_f32(
     const void* q, const void* kc, const void* vc, const void* k_scale, const void* v_scale,
     const void* table, const void* kmax, void* out, void* part, int64_t part_floats, int64_t N, int64_t A, int64_t D, int64_t BS,
@@ -704,6 +1013,10 @@ extern "C" int dl4j_paged_prefill_f32(
   if (N <= 0 || A <= 0) return 0;
   if (BS < 1 || MAXB < 1 || A > 65535 || BS * MAXB > (1 << 30) ||
       (k_scale == nullptr) != (v_scale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the int8 kernel's bulk copies: rows on 16 bytes
+  if (k_scale != nullptr && (!aligned16(kc) || !aligned16(vc) ||
+                             (skb | ska | skt | svb | sva | svt) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   F32Args a = {};
   a.q = static_cast<const float*>(q);
@@ -727,5 +1040,6 @@ extern "C" int dl4j_paged_prefill_f32(
   a.causal = 0;
   const int err = plan(a, A, D, chunk, part_floats);
   if (err != 0) return err;
-  return launch_d<true>(D, a, A, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return k_scale != nullptr ? launch_i8_d(D, a, A, st) : launch_d<true>(D, a, A, st);
 }

@@ -86,7 +86,11 @@
 #include <set>
 #include <tuple>
 
+#include "sm90.cuh"
+
 namespace i8mm {
+
+using namespace sm90;
 
 constexpr int kBN = 64;         // columns of y a block: the MMA's 64 rows
 constexpr int kBK = 64;         // depth of a K tile
@@ -145,41 +149,6 @@ __device__ __forceinline__ int mma_col(int p) {
   return 16 * kk + 2 * t + (j & 1) + 8 * (j >> 1);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Arrive, and expect `bytes` more of bulk-copy traffic in this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed; a wait that never
-// ends (a fault in the phase bookkeeping) traps after 2^20 polls rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (n == (1u << 20)) __trap();
-  }
-}
-
 // One 64 x 64 box of the 2-D tensor map (inner coordinate c0) into shared
 // memory at `dst`, completing on `bar`: a whole weight tile, one copy.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -234,50 +203,11 @@ __device__ __forceinline__ uint32_t pack_bf16(int8_t lo, int8_t hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Two values cut into x_hi + x_mid + x_lo, each a bf16 pair (bits), each
-// difference exact in float32.
-__device__ __forceinline__ void split2(float a, float b, uint32_t (&pc)[kPieces]) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-  const float2 h = __bfloat1622float2(hi);
-  const float ra = __fsub_rn(a, h.x), rb = __fsub_rn(b, h.y);
-  const __nv_bfloat162 mid = __floats2bfloat162_rn(ra, rb);
-  const float2 md = __bfloat1622float2(mid);
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(__fsub_rn(ra, md.x), __fsub_rn(rb, md.y));
-  pc[0] = *reinterpret_cast<const uint32_t*>(&hi);
-  pc[1] = *reinterpret_cast<const uint32_t*>(&mid);
-  pc[2] = *reinterpret_cast<const uint32_t*>(&lo);
-}
-
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
 // The B operand: rows [r0, r0 + n) of a K-major tile of 128-byte rows
 // (64 bf16 of K), 128-byte swizzle (16-byte chunk c of row r at chunk c ^
 // (r % 8)), at k16 step kk: 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t desc_b(uint32_t tile, int r0, int kk) {
   return make_desc(tile + r0 * 128 + kk * 32, 16, 1024, 1);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin the accumulator's registers: the compiler may not read them before
-// the wait.
-template <int N>
-__device__ __forceinline__ void keep(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x N float32, the accumulator fragment) += A . B for one k16 step:
@@ -462,8 +392,8 @@ __global__ void __cluster_dims__(RANKS, 1, 1) __launch_bounds__(kThreads)
                         __fmul_rn(v.w, sk.w));
       }
       uint32_t p01[kPieces], p23[kPieces];
-      split2(v.x, v.y, p01);
-      split2(v.z, v.w, p23);
+      split3(v.x, v.y, p01);
+      split3(v.z, v.w, p23);
       const uint32_t row = xs + r * 128;
       if (LAYOUT == 1) {
         // positions 4q .. 4q + 3 are the MMA's columns c, c + 1, c + 8,

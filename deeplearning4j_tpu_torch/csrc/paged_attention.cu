@@ -55,8 +55,21 @@
 // verify's window keys are dequant(quant(k_new)), made in registers or put
 // in the chunk from k_new, never read back (another cluster may not have
 // written them yet). The ring holds int8 rows (a chunk of 16 rows of 128
-// is 2 KiB, one bulk copy), dequantised as the math reads them; the order
-// of every sum is the float cache's.
+// is 2 KiB, one bulk copy); the order of every sum is the float cache's.
+//
+// The int8 design (the first one, the float kernel's ring of one slot
+// with each element dequantised as the math read it, is gone from the
+// source; experiments/paged_decode_study.py --parent builds it): what held
+// it back at decode was its chain, not its bytes (the float32 cache, four
+// times the bytes, took as long at context 128), each further chunk a rank
+// held adding about 2.3 us in series. A deeper int8 ring, every chunk a
+// rank owns issued before any math, did not help (a variant with no math
+// pays about 1.3 us a chunk a rank with every chunk in flight), so the ring
+// stays one slot (kRing). In float32 the scales leave the inner loop
+// (Layout's kFold): the scores are (q * s_k) . x_i8, q * s_k rounded once
+// a row, and rank 0's combine multiplies the sums of p x_i8 by s_v, so a
+// key costs no scale load and no multiply an element. The verify below
+// takes the same form, so its rows stay the decode's bits.
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
 // of D values once and does 4 D FLOP per key, far below the card's ridge:
@@ -109,7 +122,11 @@
 #include <mutex>
 #include <set>
 
+#include "sm90.cuh"
+
 namespace dec {
+
+using namespace sm90;
 
 namespace cg = cooperative_groups;
 
@@ -118,9 +135,12 @@ constexpr int kRanks = 8;                   // blocks a cluster
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 // Slots of a block's ring of chunks (K and V, 16 KiB a slot in float32 at
-// D = 128, 4 KiB in int8). One: a deeper ring keeps more of a block's copies in flight
-// but fits fewer blocks an SM, and measured slower at every decode context
-// (PERF.md; experiments/paged_decode_study.py builds deeper rings).
+// D = 128, 4 KiB in int8). One: a deeper ring keeps more of a block's copies
+// in flight but fits fewer blocks an SM, and measured slower at every
+// decode context over a float32 cache; over an int8 one four slots (every
+// chunk a rank owns in flight before any math up to context 512) measured
+// no faster without the step's write and slower with it, eight slower
+// still (PERF.md; experiments/paged_decode_study.py builds deeper rings).
 constexpr int kRing = 1;
 constexpr int kSmemCap = 200 * 1024;        // the ring's shared memory at most
 constexpr unsigned kFull = 0xffffffffu;
@@ -149,6 +169,13 @@ struct Layout {
   static constexpr int kSlotBytes = 2 * kChunkBytes;
   static constexpr int kRingSlots =
       kSmemCap / kSlotBytes < kRing ? kSmemCap / kSlotBytes : kRing;
+  // An int8 cache in float32: K's scale folded into q (q * s_k rounded once,
+  // times the stored integers) and V's into the combine (the sums of p
+  // times the stored integers, times s_v), so that no key pays a scale load
+  // and a multiply an element. In float64 a stored value is read as
+  // float(x) * s rounded in float32 first, as the JAX _q_load reads it, and
+  // that rounding does not move out of the product: no fold.
+  static constexpr bool kFold = sizeof(C) == 1 && sizeof(T) == 4;
 };
 
 template <typename T>
@@ -164,16 +191,17 @@ struct Vec16<double> {
 
 // A key's or value's E channels from the chunk in shared memory into E
 // registers: 16 bytes of a float cache as they are; E bytes of an int8
-// cache dequantised at the channels' scales s (E of them, in shared
+// cache as their integers (kRaw: the scales folded elsewhere, Layout's
+// kFold) or dequantised at the channels' scales s (E of them, in shared
 // memory): float(x) * s rounded in float32, then widened to T.
-template <typename T, int E>
+template <bool kRaw, typename T, int E>
 __device__ __forceinline__ void ldkv(const T* p, const float*, T (&v)[E]) {
   const typename Vec16<T>::type x = *reinterpret_cast<const typename Vec16<T>::type*>(p);
   const T* xs = reinterpret_cast<const T*>(&x);
 #pragma unroll
   for (int e = 0; e < E; ++e) v[e] = xs[e];
 }
-template <typename T, int E>
+template <bool kRaw, typename T, int E>
 __device__ __forceinline__ void ldkv(const int8_t* p, const float* s, T (&v)[E]) {
   signed char xs[E];
   if constexpr (E == 4) {
@@ -184,7 +212,8 @@ __device__ __forceinline__ void ldkv(const int8_t* p, const float* s, T (&v)[E])
     xs[0] = x.x, xs[1] = x.y;
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e) v[e] = static_cast<T>(__fmul_rn(static_cast<float>(xs[e]), s[e]));
+  for (int e = 0; e < E; ++e)
+    v[e] = kRaw ? static_cast<T>(xs[e]) : static_cast<T>(__fmul_rn(static_cast<float>(xs[e]), s[e]));
 }
 
 // What the cache stores of x at the scale *s: x itself (a float cache), or
@@ -199,44 +228,28 @@ __device__ __forceinline__ C stored(T x, const float* s) {
     return x;
   }
 }
-// A stored value as the math reads it (ldkv's dequantisation).
-template <typename T, typename C>
+// A stored value as the math reads it (ldkv's: its integer under the fold,
+// else its dequantisation).
+template <bool kRaw, typename T, typename C>
 __device__ __forceinline__ T loaded(C x, const float* s) {
-  if constexpr (sizeof(C) == 1) {
+  if constexpr (kRaw) {
+    return static_cast<T>(x);
+  } else if constexpr (sizeof(C) == 1) {
     return static_cast<T>(__fmul_rn(static_cast<float>(x), *s));
   } else {
     return x;
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Arrive, and expect `bytes` more of bulk-copy traffic in this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed; a wait that never
-// ends (a fault in the phase bookkeeping) traps after 2^20 polls rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (n == (1u << 20)) __trap();
+// Under the fold (kF), x times its channel's scale *s, rounded once: q's
+// channel with K's scale, as the scores take it, and the sums of p times
+// the stored V with V's, as the output takes them. x itself otherwise.
+template <bool kF, typename T>
+__device__ __forceinline__ T fold(T x, const float* s) {
+  if constexpr (kF) {
+    return __fmul_rn(x, *s);
+  } else {
+    return x;
   }
 }
 
@@ -246,17 +259,6 @@ __device__ __forceinline__ uint64_t evict_first() {
   uint64_t pol;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
   return pol;
-}
-
-// `bytes` contiguous bytes of global memory into shared memory at `dst`,
-// one bulk copy, completing on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "l"(evict_first())
-      : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -428,9 +430,10 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
       if (ln == 0) {
         const int64_t off = (c * kChunk) % a.BS;
         mbar_expect_tx(bar, L::kSlotBytes);
-        bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar);
+        bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar,
+                  evict_first());
         bulk_load(smem_u32(dst + kChunk * D), vh + blk * a.svb + off * a.svt, L::kChunkBytes,
-                  bar);
+                  bar, evict_first());
       }
     } else {
       for (int p = tid; p < 2 * kChunk * L::NC; p += kThreads) {
@@ -469,11 +472,11 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int d = (gl + G * j) * E + e;
-      qr[j][e] = qp[d];
+      qr[j][e] = fold<L::kFold>(qp[d], scales(0, d));
       kst[j][e] = stored<C>(writer ? kn_src[d] : T(0), scales(0, d));
       vst[j][e] = stored<C>(writer ? vn_src[d] : T(0), scales(1, d));
-      kn[j][e] = loaded<T>(kst[j][e], scales(0, d));
-      vn[j][e] = loaded<T>(vst[j][e], scales(1, d));
+      kn[j][e] = loaded<L::kFold, T>(kst[j][e], scales(0, d));
+      vn[j][e] = loaded<L::kFold, T>(vst[j][e], scales(1, d));
       acc[j][e] = T(0);
     }
   T m = -INFINITY, l = T(0);
@@ -500,7 +503,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < E; ++e) kr[e] = kn[j][e];
         } else {
-          ldkv<T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E), kr);
+          ldkv<L::kFold, T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E), kr);
         }
 #pragma unroll
         for (int e = 0; e < E; ++e) dot += qr[j][e] * kr[e];
@@ -534,7 +537,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
 #pragma unroll
             for (int e = 0; e < E; ++e) vr[e] = vn[j][e];
           } else {
-            ldkv<T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E), vr);
+            ldkv<L::kFold, T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E), vr);
           }
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[j][e] += p * vr[e];
@@ -628,7 +631,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads)
         lc += part_ml[r][1] * w;
         oc += part_acc[r][tid] * w;
       }
-      res = oc / lc;
+      res = fold<L::kFold>(oc, scales(1, tid)) / lc;
     }
     static_cast<T*>(a.out)[cid * D + tid] = res;
   }
@@ -678,6 +681,37 @@ int launch_d(int64_t D, const Args& a, int64_t N, cudaStream_t st) {
   }
 }
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The decode kernel as launched: its resident blocks an SM (blocks[0]) and
+// the clusters of kRanks blocks the card holds at once (blocks[1]), as the
+// occupancy calculator gives them.
+template <typename T, typename C, int D>
+int occupancy(int* blocks) {
+  using L = Layout<T, C, D>;
+  const cudaError_t e = configure<T, C, D>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = static_cast<size_t>(L::kRingSlots) * L::kSlotBytes;
+  const cudaError_t r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks[0], paged_decode_kernel<T, C, D>, kThreads, smem);
+  if (r != cudaSuccess) return static_cast<int>(r);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRanks * 1024, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(&blocks[1], paged_decode_kernel<T, C, D>, &cfg));
+}
+
+template <typename T>
+int occupancy_d(int64_t D, bool q8, int* blocks) {
+  switch (D) {
+    case 16: return q8 ? occupancy<T, int8_t, 16>(blocks) : occupancy<T, T, 16>(blocks);
+    case 32: return q8 ? occupancy<T, int8_t, 32>(blocks) : occupancy<T, T, 32>(blocks);
+    case 64: return q8 ? occupancy<T, int8_t, 64>(blocks) : occupancy<T, T, 64>(blocks);
+    case 128: return q8 ? occupancy<T, int8_t, 128>(blocks) : occupancy<T, T, 128>(blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // A speculative verify's layer: one cluster of kVCluster blocks a (group
@@ -737,10 +771,6 @@ struct VLayout {
       kRing * L::kSlotBytes > kPartBytes ? kRing * L::kSlotBytes : kPartBytes;
 };
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 template <typename T, typename C, int D>
 __global__ void __cluster_dims__(kVCluster, 1, 1)
     __launch_bounds__(kThreads * VLayout<T, C, D>::P, kVMinBlocks)
@@ -796,7 +826,11 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
 #pragma unroll
     for (int j = 0; j < SL; ++j)
 #pragma unroll
-      for (int e = 0; e < E; ++e) qr[i][j][e] = row < a.N ? qp[(gl + G * j) * E + e] : T(0);
+      for (int e = 0; e < E; ++e) {
+        const int d = (gl + G * j) * E + e;
+        const float* ks = kQ ? a.ksc + static_cast<int64_t>(head) * D + d : nullptr;
+        qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], ks) : T(0);
+      }
   }
   // bulk: lane l of warp 0 holds the table entry of the run's chunk (k &
   // ~31) + l of the rank it takes; for the first run (row r0's lane) and
@@ -891,9 +925,10 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
             mbar_arrive(bar);
           } else {
             mbar_expect_tx(bar, L::kSlotBytes);
-            bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar);
+            bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, L::kChunkBytes, bar,
+                      evict_first());
             bulk_load(smem_u32(dst + kChunk * D), vh + blk * a.svb + off * a.svt, L::kChunkBytes,
-                      bar);
+                      bar, evict_first());
           }
         }
       } else if constexpr (!kQ) {
@@ -919,7 +954,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           else
             mbar_arrive(bar);
         }
-        if (src != nullptr) bulk_load(smem_u32(dst + kv * kChunk * D + i * D), src, kRow, bar);
+        if (src != nullptr)
+          bulk_load(smem_u32(dst + kv * kChunk * D + i * D), src, kRow, bar, evict_first());
       }
     } else {
       for (int p = tall; p < 2 * kChunk * L::NC; p += NT) {
@@ -1000,7 +1036,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           T kr[SL][E];
 #pragma unroll
           for (int j = 0; j < SL; ++j)
-            ldkv<T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E), kr[j]);
+            ldkv<L::kFold, T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E),
+                                 kr[j]);
           T dot[RP];
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
@@ -1048,7 +1085,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           T vr[SL][E];
 #pragma unroll
           for (int j = 0; j < SL; ++j)
-            ldkv<T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E), vr[j]);
+            ldkv<L::kFold, T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E),
+                                 vr[j]);
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
             if (!go[x] || !ok[x][jj]) continue;   // a masked key's V is never used
@@ -1173,7 +1211,7 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
         lc += part_ml[pr][k][1] * w;
         oc += part_acc[pr][k][d] * w;
       }
-      res = oc / lc;
+      res = fold<L::kFold>(oc, scales(1, d)) / lc;
     }
     static_cast<T*>(a.out)[(static_cast<int64_t>(row) * a.A + head) * D + d] =
         s_refused[r] ? T(NAN) : res;
@@ -1335,3 +1373,12 @@ extern "C" int dl4j_paged_verify_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The decode kernel at head dim D, dtype as dl4j_paged_decode_attention's,
+// over an int8 cache where int8 is nonzero: its resident blocks an SM in
+// blocks[0] and the clusters the card holds at once in blocks[1]. Returns
+// the cudaError_t.
+extern "C" int dl4j_paged_decode_occupancy(int64_t D, int dtype, int int8, int* blocks) {
+  if (dtype == 1) return dec::occupancy_d<float>(D, int8 != 0, blocks);
+  if (dtype == 2) return dec::occupancy_d<double>(D, int8 != 0, blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

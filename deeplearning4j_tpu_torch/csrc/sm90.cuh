@@ -1,0 +1,312 @@
+// Hopper (sm_90a) primitives the port's CUDA kernels share: shared-memory
+// addresses, mbarriers, bulk copies, wgmma descriptors, bf16 wgmma and the
+// cut of a float32 value into bf16 pieces. Each kernel source includes it
+// (kernels/_cuda.py builds with this directory on the include path and
+// hashes this header into every library's build key).
+#pragma once
+
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive, and expect `bytes` more of bulk-copy (TMA) traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a fault in the phase bookkeeping) traps after 2^20 polls rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == (1u << 20)) __trap();
+  }
+}
+
+// `bytes` contiguous bytes of global memory into shared memory at `dst`,
+// one bulk copy, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The same under the L2 cache policy `policy` (createpolicy's).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers in place around an asynchronous wgmma: the compiler may
+// neither read an accumulator before the wait nor reuse an A fragment's
+// registers while the product still reads them.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+template <int P, int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[P][N][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[p][i][j])::"memory");
+}
+
+// d (64 x N, float32, the accumulator fragment) += A . B for one k16 step.
+// ss: A (64 x 16) and B (N x 16) both K-major in shared memory; scale_d = 0
+// overwrites d. rs: A from registers (the m16n8k16 A fragment of each
+// warp's 16 rows), B (16 x N) MN-major in shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// A tile of R rows of a [S, D] bf16 slab, as TMA lays it (or a kernel
+// writes it, through swz) in shared memory: D / CB column blocks of R rows
+// each, one after the other; a block's row is RB bytes, swizzled at that
+// width (16-byte chunk c of row r sits at chunk c ^ ((r * RB / 128) % (RB /
+// 16))). Every tile starts on 1024 bytes.
+template <int D>
+struct Geo {
+  static constexpr int RB = D >= 64 ? 128 : 2 * D;   // bytes of a block's row
+  static constexpr int CB = RB / 2;                   // columns of a block
+  static constexpr int NB = D / CB;                   // blocks (2 at D = 128)
+  static constexpr uint64_t kLayout = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // descriptor
+};
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64 or N) of a tile of R rows at k
+// step kk (columns 16kk .. 16kk + 15): 8-row groups SBO = 8 RB apart, the k
+// step 32 bytes into the swizzled row.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  using G = Geo<D>;
+  constexpr int per = G::CB / 16;
+  return make_desc(tile + (kk / per) * R * G::RB + row0 * G::RB + (kk % per) * 32, 16,
+                   8 * G::RB, G::kLayout);
+}
+
+// MN-major operand B[k][n] = T[k][n] (n contiguous): rows 16kk .. 16kk + 15
+// of a tile of R rows, all D columns: 8-row groups SBO = 8 RB apart along
+// k, column blocks LBO = R RB apart along n.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using G = Geo<D>;
+  return make_desc(tile + kk * 16 * G::RB, R * G::RB, 8 * G::RB, G::kLayout);
+}
+
+// Byte offset of element (row, col) in a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  using G = Geo<D>;
+  const int blk = col / G::CB, cc = col % G::CB, chunk = cc / 8;
+  return blk * R * G::RB + row * G::RB +
+         ((chunk ^ ((row * G::RB >> 7) & (G::RB / 16 - 1))) << 4) + (cc % 8) * 2;
+}
+
+// a and b rounded to bf16 (to nearest even) and packed, a in the low half
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// a and b cut into three bf16 pairs, hi + mid + lo, each difference exact
+// in float32: the three pieces carry a's and b's 24 bits.
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&pc)[3]) {
+  pc[0] = bf16x2(a, b);
+  const float ra = __fsub_rn(a, bf_lo(pc[0])), rb = __fsub_rn(b, bf_hi(pc[0]));
+  pc[1] = bf16x2(ra, rb);
+  pc[2] = bf16x2(__fsub_rn(ra, bf_lo(pc[1])), __fsub_rn(rb, bf_hi(pc[1])));
+}
+
+}  // namespace sm90

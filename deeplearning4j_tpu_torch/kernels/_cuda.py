@@ -1,13 +1,15 @@
 """Build and load the port's CUDA C++ kernels.
 
 Each library is one source under ``deeplearning4j_tpu_torch/csrc/``
-(``<name>.cu``) with a plain C interface. At its first use in a process,
-:func:`load` compiles it with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library under ``deeplearning4j_tpu_torch/_build/cuda/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source builds anew, and opens it with ``ctypes``. A kernel's wrapper
-declares the C functions' argument types and checks each launch's returned
-``cudaError_t``.
+(``<name>.cu``) with a plain C interface; the Hopper primitives the
+sources share are in one header there (``sm90.cuh``). At its first use in a
+process, :func:`load` compiles it with ``nvcc`` for Hopper (``sm_90a``),
+with ``csrc/`` on the include path, into a shared library under
+``deeplearning4j_tpu_torch/_build/cuda/`` (listed in ``.gitignore``),
+named by a hash of the source, the shared header and the flags, so an
+edited source or header builds anew, and opens it with ``ctypes``. A
+kernel's wrapper declares the C functions' argument types and checks each
+launch's returned ``cudaError_t``.
 
 Importing this module needs neither ``nvcc`` nor a card: nothing is built
 until a kernel is launched on a CUDA tensor.
@@ -76,12 +78,17 @@ def source(name: str, csrc: str = CSRC) -> str:
     return os.path.join(csrc, f"{name}.cu")
 
 
+#: the header of Hopper primitives every kernel source may include
+HEADER = os.path.join(CSRC, "sm90.cuh")
+
+
 def library_path(name: str, csrc: str = CSRC) -> str:
     """Where the library built from ``csrc/<name>.cu`` lives: named by a
-    hash of the flags and the source's bytes."""
+    hash of the flags, the source's bytes and the shared header's."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(source(name, csrc), "rb") as f:
-        h.update(f.read())
+    for path in (source(name, csrc), HEADER):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -109,7 +116,11 @@ def nvcc() -> str:
 
 def build_command(name: str, out: str, compiler: str = "nvcc",
                   csrc: str = CSRC) -> List[str]:
-    return [compiler, *NVCC_FLAGS, "-o", out, source(name, csrc)]
+    """nvcc's command for ``csrc/<name>.cu``; the shared header is found in
+    the source's directory, else in the package's ``csrc/`` (a study's
+    variant built elsewhere)."""
+    return [compiler, *NVCC_FLAGS, "-I", CSRC, "-o", out,
+            source(name, csrc)]
 
 
 def nvcc_version() -> str:

@@ -3,7 +3,8 @@ and the paged prefill, one hand-written CUDA C++ library.
 
 ``csrc/attention_f32.cu`` (built by ``kernels/_cuda.py``) holds both entries
 on one tile engine that multiplies in 3xTF32 (each float32 operand split
-into two TF32 parts, three ``mma.sync`` products summed in float32):
+into two TF32 parts, three ``mma.sync`` products summed in float32), and
+beside it the paged prefill's kernel for an int8 cache:
 
 - ``dl4j_attention_fwd_f32``: what ``attention.attention_fwd`` computes for
   float32 (O and the base-2 stats its backward reads), the dense prefill's
@@ -14,9 +15,11 @@ into two TF32 parts, three ``mma.sync`` products summed in float32):
   rows over its block table (``gpt_paged_decode_fns`` ``prefill_fn``,
   ``deeplearning4j_tpu/zoo/gpt.py:586``, :621-636), over a float32 cache
   or an int8 one (the serving tier's int8 KV, :612-628): with ``k_scale``
-  and ``v_scale`` [A, D] a K/V tile is read as int8 and dequantised into
-  the float32 shared tile, ``float(x) * s`` as the JAX ``_q_load``, before
-  the same 3xTF32 products.
+  and ``v_scale`` [A, D] the entry launches ``prefill_i8_kernel``, which
+  fetches the int8 tiles by bulk copies a tile ahead, turns them into bf16
+  (exact) and multiplies on wgmma: ``(q * k_scale) . K_i8`` with ``q *
+  k_scale`` in three bf16 pieces, ``(P . V_i8) * v_scale`` with P in three
+  pieces, on the float engine's work split and combining launch.
 
 The wrappers here launch them on CUDA tensors only; their callers
 (``attention.attention_fwd`` and ``paged_attention.paged_prefill_attention``)
@@ -70,7 +73,11 @@ PREFILL_ARGTYPES = (
     + [(n, _I64) for n in ("part_floats", "N", "A", "D", "BS", "MAXB", "sqn",
                            "sqa", "skb", "ska", "skt", "svb", "sva", "svt")]
     + [("scale", _D), ("chunk", _I64), ("stream", _P)])
-OCCUPANCY_ARGTYPES = [("D", _I64), ("paged", _I), ("blocks", _P)]
+OCCUPANCY_ARGTYPES = [("D", _I64), ("kind", _I), ("blocks", _P)]
+#: the main kernel's forms, as the occupancy entry takes them: the dense
+#: forward, the paged prefill over a float32 cache, and over an int8 one
+#: (prefill_i8_kernel)
+KINDS = {"dense": 0, "paged": 1, "paged_i8": 2}
 ENTRIES = {"dl4j_attention_fwd_f32": FWD_ARGTYPES,
            "dl4j_paged_prefill_f32": PREFILL_ARGTYPES,
            "dl4j_attention_f32_blocks_per_sm": OCCUPANCY_ARGTYPES}
@@ -94,26 +101,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def blocks_per_sm(d: int, paged: bool, lib=None) -> int:
-    """The main kernel's resident blocks an SM at head dim ``d``, as the
-    card's occupancy calculator gives them (needs a card)."""
+def blocks_per_sm(d: int, kind: str, lib=None) -> int:
+    """The main kernel's resident blocks an SM at head dim ``d`` for
+    ``kind`` (a key of :data:`KINDS`), as the card's occupancy calculator
+    gives them (needs a card)."""
     n = ctypes.c_int(0)
     err = (lib or _lib()).dl4j_attention_f32_blocks_per_sm(
-        d, int(paged), ctypes.addressof(n))
+        d, KINDS[kind], ctypes.addressof(n))
     _cuda.check(err, "dl4j_attention_f32_blocks_per_sm")
     return n.value
 
 
 @functools.lru_cache(maxsize=None)
-def slots(index: int, d: int, paged: bool) -> int:
-    """Blocks of the main kernel the card ``index`` holds at once (the
-    float cache's paged form sizes the int8 form's split too: the same
-    shared memory a block)."""
+def slots(index: int, d: int, kind: str) -> int:
+    """Blocks of the main kernel the card ``index`` holds at once
+    (``kind`` as :func:`blocks_per_sm`'s)."""
     with torch.cuda.device(index):
-        per_sm = blocks_per_sm(d, paged)
+        per_sm = blocks_per_sm(d, kind)
     if per_sm < 1:
-        raise RuntimeError(f"attn_f32_kernel<{d}, paged={paged}> fits no "
-                           f"block on an SM of card {index}")
+        raise RuntimeError(f"the attention_f32 kernel at head dim {d}, "
+                           f"{kind}, fits no block on an SM of card {index}")
     return torch.cuda.get_device_properties(
         index).multi_processor_count * per_sm
 
@@ -218,7 +225,7 @@ def attention_fwd_f32(q, k, v, causal: bool, scale: float):
     sk = k.shape[2]
     dev = q.device
     chunk = chunk_keys(dense_tile_keys(sq, sk, causal), b * h,
-                       slots(dev.index, d, False))
+                       slots(dev.index, d, "dense"))
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
     stats = torch.empty((b, h, sq, 2), dtype=torch.float32, device=dev)
     n_part = partial_floats(b * h, sq, sk, chunk, d)
@@ -243,8 +250,9 @@ def paged_prefill_f32(q, kc, vc, table, kmax, kmax_host: Sequence[int],
     n, a, d = q.shape
     reach = kc.shape[2] * table.shape[0]
     dev = q.device
+    int8 = kc.dtype == torch.int8
     chunk = chunk_keys(paged_tile_keys(kmax_host, reach), a,
-                       slots(dev.index, d, True))
+                       slots(dev.index, d, "paged_i8" if int8 else "paged"))
     out = torch.empty((n, a, d), dtype=torch.float32, device=dev)
     n_part = partial_floats(a, n, reach, chunk, d)
     part = _part(n_part, dev)
@@ -253,6 +261,6 @@ def paged_prefill_f32(q, kc, vc, table, kmax, kmax_host: Sequence[int],
                        1.0 / math.sqrt(d), chunk, _stream(dev), k_scale,
                        v_scale)
     _count("paged_prefill_f32", n_part)
-    if kc.dtype == torch.int8:
+    if int8:
         INT8_LAUNCHES["paged_prefill_f32"] += 1
     return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import re
 import subprocess
 import time
 from typing import Callable, Dict, Sequence, Tuple
@@ -174,6 +175,21 @@ def ptxas_spills(log: str) -> Dict[str, Tuple[int, int]]:
             spills[fn] = (nums[1], nums[2])
             fn = None
     return spills
+
+
+def ptxas_usage(log: str) -> Dict[str, Tuple[int, int]]:
+    """(registers a thread, static shared memory bytes) per kernel (mangled
+    name), from ``nvcc -Xptxas -v``'s report."""
+    use, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif fn and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            smem = re.search(r"(\d+) bytes smem", line)
+            use[fn] = (regs, int(smem.group(1)) if smem else 0)
+            fn = None
+    return use
 
 
 def attention_inputs(dev, b, h, sq, sk, d, dtype, split, seed=0):

@@ -81,7 +81,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -120,9 +120,15 @@ VERIFY_ARGTYPES = (
                        "v_scale", "tables", "lane", "kmax", "win0", "wrow",
                        "write_block", "write_off", "out")]
     + DECODE_ARGTYPES[13:])
+#: the decode kernel's occupancy: blocks [2] int32 (blocks an SM, clusters
+#: the card holds)
+OCCUPANCY_ARGTYPES = [("D", _I64), ("dtype", _I), ("int8", _I),
+                      ("blocks", _P)]
 ENTRY = "dl4j_paged_decode_attention"
 VERIFY_ENTRY = "dl4j_paged_verify_attention"
-ENTRIES = {ENTRY: DECODE_ARGTYPES, VERIFY_ENTRY: VERIFY_ARGTYPES}
+OCCUPANCY_ENTRY = "dl4j_paged_decode_occupancy"
+ENTRIES = {ENTRY: DECODE_ARGTYPES, VERIFY_ENTRY: VERIFY_ARGTYPES,
+           OCCUPANCY_ENTRY: OCCUPANCY_ARGTYPES}
 _cuda.register_counters(LAUNCHES, INT8_LAUNCHES)
 
 
@@ -146,6 +152,20 @@ def _lib() -> ctypes.CDLL:
         if fn.argtypes is None:
             _cuda.declare(fn, argtypes)
     return lib
+
+
+def decode_occupancy(d: int, dtype: torch.dtype, int8: bool,
+                     lib=None) -> Tuple[int, int]:
+    """(resident blocks an SM, clusters the card holds at once) of the
+    decode kernel at head dim ``d`` for ``dtype`` over a cache of that
+    dtype or, with ``int8``, an int8 one, as the card's occupancy
+    calculator gives them (needs a card). ``lib``: a built library whose
+    entries are declared (a study's variant), else the port's."""
+    out = (ctypes.c_int * 2)()
+    err = (lib or _lib()).dl4j_paged_decode_occupancy(
+        d, _DTYPE_CODE[dtype], int(int8), ctypes.addressof(out))
+    _cuda.check(err, OCCUPANCY_ENTRY)
+    return out[0], out[1]
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

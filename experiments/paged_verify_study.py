@@ -96,16 +96,15 @@ def qsmem(src):
     src = sub(src, "  T qr[RP][SL][E], acc[RP][SL][E], m[RP], l[RP];\n",
               "  T acc[RP][SL][E], m[RP], l[RP];\n"
               "  __shared__ __align__(16) T s_q[R][D];\n")
-    src = sub(src, "      for (int e = 0; e < E; ++e) qr[i][j][e] = row < "
-              "a.N ? qp[(gl + G * j) * E + e] : T(0);\n",
-              "      for (int e = 0; e < E; ++e)\n"
-              "        if (sid == 0) s_q[part * RP + i][(gl + G * j) * E + e] "
-              "= row < a.N ? qp[(gl + G * j) * E + e] : T(0);\n")
+    src = sub(src, "        qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], "
+              "ks) : T(0);\n",
+              "        if (sid == 0) s_q[part * RP + i][d] = row < a.N ? "
+              "fold<L::kFold>(qp[d], ks) : T(0);\n")
     return sub(src, "#pragma unroll\n              for (int e = 0; e < E; "
                "++e) dot[x] += qr[x][j][e] * kr[j][e];\n",
                "              {\n                T qr[E];\n"
-               "                ld16<T, E>(&s_q[part * RP + x][(gl + G * j) "
-               "* E], qr);\n#pragma unroll\n"
+               "                ldkv<false, T, E>(&s_q[part * RP + x][(gl + G * j) "
+               "* E], nullptr, qr);\n#pragma unroll\n"
                "                for (int e = 0; e < E; ++e) dot[x] += qr[e] "
                "* kr[j][e];\n              }\n")
 

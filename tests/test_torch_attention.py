@@ -247,10 +247,13 @@ def test_nvcc_command_builds_the_attention_source_for_sm90a():
 def test_bf16_kernels_are_wgmma_and_tma_with_no_mma_sync_left():
     """The bf16 kernels read their tiles with TMA (tensor maps encoded by
     the host through cudaGetDriverEntryPoint, no libcuda link) and
-    multiply with wgmma; the first design's mma.sync, ldmatrix and cp.async
-    are gone."""
-    code = "\n".join(line.split("//")[0] for line in
-                     SRC.read_text().splitlines())
+    multiply with wgmma (the source with the port's header of Hopper
+    primitives, which it includes); the first design's mma.sync, ldmatrix
+    and cp.async are gone."""
+    text = SRC.read_text()
+    assert '#include "sm90.cuh"' in text
+    text += (SRC.parent / "sm90.cuh").read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
     for inst in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
                  "mbarrier.try_wait.parity", "setmaxnreg",
                  "cuTensorMapEncodeTiled"):

@@ -1248,3 +1248,105 @@ def test_int8_kv_write_is_bit_equal_across_launches(card, kind):
     a, ak, av = call(False)
     b, bk, bv = call(False)
     assert torch.equal(a, b) and torch.equal(ak, bk) and torch.equal(av, bv)
+
+
+#: phase 22's cases for the int8 decode (blocks, head dim, dtype) and the
+#: int8 paged prefill (hist, rows, real rows, head dim)
+INT8_DECODE_CASES = [(bs, d, dt) for bs, d in ((1, 16), (5, 32), (16, 64),
+                                                (1024, 128), (16, 128))
+                     for dt in (torch.float32, torch.float64)]
+INT8_PREFILL_CASES = [(256, 512, 512, 128), (0, 1, 1, 128), (15, 63, 60, 128),
+                      (1000, 65, 20, 128), (15, 65, 65, 16), (256, 64, 64, 64),
+                      (0, 512, 512, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,d,dtype", INT8_DECODE_CASES)
+def test_int8_decode_kernel_at_phase_22_shapes(card, bs, d, dtype):
+    """The int8 decode (a ring of one slot, as over a float cache; in
+    float32 s_k folded into q and s_v into the combine) against its plain
+    version within 1e-5 / 1e-12
+    of the sum of each output's absolute terms, the written int8 rows
+    bit-equal to the plain store, two calls bit-equal; the verify's rows
+    over the same keys bit-equal to it."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    case = measure.paged_decode_write_case(
+        card, [0, 15, 16, 300, 999, 1015, 40, 511], 3, d, bs, dtype,
+        active=[True] * 7 + [False], seed=bs + d)
+    q, kn, vn, kc, vc, tables, lane, kmax, wb, wo = case
+    kc8, vc8, ks, vs = measure.int8_cache(kc, vc)
+
+    def run(fn):
+        k2, v2 = kc8.clone(), vc8.clone()
+        return fn(q, kn, vn, k2, v2, tables, lane, kmax, wb, wo, ks,
+                  vs), k2, v2
+    got, gk, gv = run(pa.paged_decode_attention)
+    again, ak, av = run(pa.paged_decode_attention)
+    want, wk, wv = run(pa.paged_decode_plain)
+    terms = pa.abs_terms(q, wk, wv, tables, lane, kmax, ks, vs)
+    assert measure.paged_reading(got, want, terms, tol) <= 1
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(got, again) and torch.equal(gk, ak)
+    # a verify of window 1 at each row's last key: the decode's bits
+    win0 = torch.where(wb >= 0, kmax, -1).to(torch.int32)
+    wrow = torch.arange(q.shape[0], dtype=torch.int32, device=card)
+    ver = pa.paged_verify_attention(q, kn, vn, kc8.clone(), vc8.clone(),
+                                    tables, lane, kmax, win0, wrow, wb, wo,
+                                    ks, vs)
+    act = (wb >= 0).nonzero().flatten()
+    assert torch.equal(ver[act], got[act])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist,rows,length,d", INT8_PREFILL_CASES)
+def test_int8_prefill_kernel_at_phase_22_shapes(card, hist, rows, length,
+                                                d):
+    """The int8 paged prefill (``prefill_i8_kernel``: bf16 wgmma with q *
+    s_k and P in three pieces) against its plain version within 1e-5 of
+    the sum of each output's absolute terms, as the server calls it and at
+    two other work splits, two calls bit-equal, one int8 launch counted a
+    call."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    q, kc, vc, tables, lane, kmax = measure.paged_prefill_case(
+        card, hist, rows, length, 12, d, 16, torch.float32, seed=rows + d)
+    kc8, vc8, ks, vs = measure.int8_cache(kc, vc)
+    want = pa.paged_prefill_plain(q, kc8, vc8, tables[0], kmax, ks, vs)
+    terms = pa.abs_terms(q, kc8, vc8, tables, lane, kmax, ks, vs)
+    before = af.INT8_LAUNCHES["paged_prefill_f32"]
+    kh = kmax.cpu().numpy()
+    got = pa.paged_prefill_attention(q, kc8, vc8, tables[0], kmax, kh, ks, vs)
+    again = pa.paged_prefill_attention(q, kc8, vc8, tables[0], kmax, kh, ks,
+                                       vs)
+    assert af.INT8_LAUNCHES["paged_prefill_f32"] - before == 2
+    assert measure.paged_reading(got, want, terms, 1e-5) <= 1
+    assert torch.equal(got, again)
+    for chunk in (64, 256):
+        out = torch.empty_like(want)
+        reach = kc8.shape[2] * tables.shape[1]
+        part = torch.empty(max(af.partial_floats(12, rows, reach, chunk, d),
+                               1), device=card)
+        af.launch_prefill(q, kc8, vc8, tables[0], kmax, out, part,
+                          1.0 / math.sqrt(d), chunk,
+                          torch.cuda.current_stream().cuda_stream, ks, vs)
+        assert measure.paged_reading(out, want, terms, 1e-5) <= 1, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,int8", [
+    (128, torch.float32, False), (128, torch.float32, True),
+    (64, torch.float64, True), (16, torch.float64, False)])
+def test_occupancy_entries_report_resident_blocks(card, d, dtype, int8):
+    """The decode kernel's occupancy entry gives at least one resident
+    block an SM and one cluster of 8 on the card for each cache type, and
+    the float32 attention's entry at least one block an SM for each of its
+    kinds."""
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    blocks, clusters = pa.decode_occupancy(d, dtype, int8)
+    assert blocks >= 1 and clusters >= 1
+    for kind in af.KINDS:
+        assert af.blocks_per_sm(d, kind) >= 1

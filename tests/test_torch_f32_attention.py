@@ -34,10 +34,10 @@ SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "attention_f32.cu"
 H100 = "NVIDIA H100 80GB HBM3"
 
 
-def _code():
-    """The source with its comments removed."""
+def _code(path=SRC):
+    """The source (or the header ``path``) with its comments removed."""
     return "\n".join(line.split("//")[0]
-                     for line in SRC.read_text().splitlines())
+                     for line in path.read_text().splitlines())
 
 
 def _c_params(entry):
@@ -98,26 +98,82 @@ def test_nvcc_command_builds_the_f32_source_for_sm90a():
                         pathlib.Path(out).name)
 
 
-def test_source_multiplies_in_3xtf32_on_mma_sync_with_no_atomics():
-    """Both entries run one tile engine whose products are tf32 mma.sync,
-    three to a product (lo.hi, hi.lo, hi.hi), fed by cp.async; no sum
-    (nothing at all) is atomic, and no library is called."""
+def _sections():
+    """(the float engine's code, the int8 prefill's), comments removed: the
+    int8 section runs from its stage count to the end of its kernel."""
     code = _code()
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in code
-    assert "cp.async.cg.shared.global" in code
-    mma3 = re.search(r"void mma3\(.*?\{(.*?)\n\}", code, re.S).group(1)
+    a = code.index("constexpr int kI8Stages")
+    b = code.index("\n}\n", code.index("prefill_i8_kernel(const F32Args a)"))
+    return code[:a] + code[b + 3:], code[a:b + 3]
+
+
+def test_source_multiplies_in_3xtf32_on_mma_sync_with_no_atomics():
+    """The float engine (both entries over float32, the dense forward and
+    the paged prefill over a float32 cache) multiplies in tf32 mma.sync,
+    three to a product (lo.hi, hi.lo, hi.hi), fed by cp.async; the int8
+    cache's kernel is not part of it (no int8 load, no wgmma, no bulk copy
+    in the engine). No sum (nothing at all) is atomic, and no library is
+    called."""
+    code = _code()
+    engine, i8 = _sections()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in engine
+    assert "cp.async.cg.shared.global" in engine
+    mma3 = re.search(r"void mma3\(.*?\{(.*?)\n\}", engine, re.S).group(1)
     assert re.findall(r"mma\(c, (\w+), (\w+)\)", mma3) == [
         ("al", "bh"), ("ah", "bl"), ("ah", "bh")]
+    kernel = engine[engine.index("attn_f32_kernel(const F32Args a)"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    for other in ("int8_t", "ksc", "wgmma", "cp.async.bulk", "Q8"):
+        assert other not in kernel, other
+    assert "template <int D, bool PAGED>\n__global__ void __launch_bounds__(" \
+        "kThreads, 2) attn_f32_kernel" in engine
+    assert "mma.sync" not in i8
     assert "atomic" not in code.lower()
     for lib in ("cublas", "cudnn", "cutlass", "#include <torch"):
         assert lib not in code.lower()
-    # one self-contained source: only the toolkit's and the C++ standard
-    # library's headers (the per-device attribute record: mutex, set)
+    # only the toolkit's and the C++ standard library's headers (the
+    # per-device attribute record: mutex, set) and the port's own header
+    # of Hopper primitives
     assert set(re.findall(r"#include <(\S+)>", code)) == {
         "cuda_runtime.h", "math.h", "stdint.h", "mutex", "set"}
-    assert '#include "' not in code
-    # both entries launch the same two kernels, dense and paged forms
+    assert re.findall(r'#include "(\S+)"', code) == ["sm90.cuh"]
+    # both entries launch the float engine's two kernels, dense and paged
+    # forms; the prefill's int8 cache its own kernel
     assert "launch_d<false>" in code and "launch_d<true>" in code
+    assert "return k_scale != nullptr ? launch_i8_d(D, a, A, st) : " \
+        "launch_d<true>(D, a, A, st);" in code
+
+
+def test_int8_prefill_runs_bf16_wgmma_on_bulk_copied_int8_tiles():
+    """The int8 cache's prefill kernel: int8 K/V tiles by cp.async.bulk on
+    an mbarrier a stage (a run of a block's rows one copy), turned into
+    bf16 tiles (exact) that wgmma reads K-major (K) and MN-major (V); q
+    times s_k rounded once, then q's three bf16 pieces and P's three in
+    the products; s_v in the epilogue; the float engine's 64 rows, work
+    split and combining launch, and no mma.sync."""
+    _, i8 = _sections()
+    code = _code()
+    header = _code(SRC.parent / "sm90.cuh")
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"\
+        " [%0], [%1], %2, [%3];" in header
+    assert "bulk_load(dk + r * D, kbase + blk * a.kb + off * a.ks, len * D, " \
+        "bar);" in i8
+    assert "const int len = runs ? min(a.BS - off, n - r) : 1;" in i8
+    assert "mbar_wait(smem_u32(&full[s]), static_cast<uint32_t>((it / NS) " \
+        "& 1));" in i8
+    assert "x.x = __fmul_rn(x.x, __ldg(ks + c));" in i8
+    assert i8.count("split3(") == 3   # q (2), P
+    assert "Wgmma<BN>::ss(sc, desc_k<D, kBM>(qt + p * C::kQ, 0, kk), " \
+        "desc_k<D, BN>(kt, 0, kk),\n                      p + kk > 0);" in i8
+    assert "Wgmma<D>::rs(o, pa[p][kk], desc_mn<D, BN>(vt, kk));" in i8
+    assert "i8x4_bf16(w.x, b[0], b[1]);" in i8
+    assert i8.count("__ldg(vs + col)") == 2
+    assert "fence.proxy.async.shared::cta" in i8
+    for shape in ("m64n32k16", "m64n64k16", "m64n16k16", "m64n128k16"):
+        assert f"wgmma.mma_async.sync.aligned.{shape}.f32.bf16.bf16" \
+            in header
+    assert "attn_f32_combine<D, true><<<" in code
+    assert "for (int p = 0; p < 3; ++p)" in i8
 
 
 def test_shared_memory_attribute_is_raised_on_each_device():
@@ -138,11 +194,11 @@ def test_shared_memory_attribute_is_raised_on_each_device():
 
 
 def test_slots_refuse_a_kernel_that_fits_no_block(monkeypatch):
-    monkeypatch.setattr(af, "blocks_per_sm", lambda d, paged: 0)
+    monkeypatch.setattr(af, "blocks_per_sm", lambda d, kind: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.
                         nullcontext())
     with pytest.raises(RuntimeError, match="fits no block"):
-        af.slots.__wrapped__(0, 128, True)
+        af.slots.__wrapped__(0, 128, "paged")
 
 
 def test_split_constants_round_to_tf32():
@@ -478,3 +534,76 @@ def test_two_rate_bounds_at_the_serving_shapes():
     assert 0.0097 < b["tf32x3_ms"] < 0.0099 and 0.0240 < b["fma_ms"] < 0.0242
     assert b["bound_by"] == "operations"
     assert measure.tf32x3_rate("NVIDIA H100 PCIe") == 378e12 / 3
+
+
+# ----------------------------------------------------------------------
+# the int8 prefill's numerics, emulated on the CPU
+def _bf16_pieces(x, n=3):
+    """x cut as the kernel cuts it: hi = bf16(x), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid), each difference exact in float32; the first ``n``."""
+    out, r = [], x
+    for _ in range(n):
+        p = r.to(torch.bfloat16).float()
+        out.append(p)
+        r = r - p
+    return out
+
+
+def _pieces_times(a, b, pieces):
+    """sum over a's pieces (hi, mid, lo in turn) of piece @ b, in float32,
+    16 deep at a time into one sum: the kernel's chain of k16 wgmmas."""
+    acc = None
+    for p in _bf16_pieces(a, pieces):
+        for k0 in range(0, a.shape[-1], 16):
+            part = p[..., k0:k0 + 16] @ b[..., k0:k0 + 16, :]
+            acc = part if acc is None else acc + part
+    return acc
+
+
+def _emulate_prefill_i8(q, kc8, vc8, ks, vs, table, kmax, pieces=3):
+    """prefill_i8_kernel's numerics in float32 for one lane's rows: S from
+    q * s_k (rounded once) in pieces times the exact int8 K, the softmax
+    in base 2 over each row's keys (-inf past its last), O from P in
+    pieces times the exact int8 V, then O * s_v / l (0 for a row with no
+    key)."""
+    n, a, d = q.shape
+    tab = table.long()
+    k8, v8 = (c[tab].transpose(0, 1).reshape(a, -1, d).float()
+              for c in (kc8, vc8))                             # [A, T, D]
+    qs = (q * ks).transpose(0, 1)                              # [A, N, D]
+    x = _pieces_times(qs, k8.transpose(1, 2), pieces) * (
+        (1.0 / math.sqrt(d)) * 1.4426950408889634)
+    keys = torch.arange(k8.shape[1])
+    x = torch.where((keys[None, :] <= kmax.long()[:, None])[None], x,
+                    -math.inf)
+    m = x.amax(-1, keepdim=True)
+    p = torch.exp2(x - torch.where(m == -math.inf, 0.0, m))
+    lsum = p.sum(-1, keepdim=True)
+    o = _pieces_times(p, v8, pieces) * vs[:, None, :]
+    out = torch.where(lsum > 0, o / lsum, 0.0)
+    return out.transpose(0, 1)
+
+
+@pytest.mark.parametrize("hist,rows,length", [
+    (0, 16, 16), (0, 64, 60), (0, 512, 512), (256, 16, 16), (256, 256, 256),
+    (256, 512, 512), (512, 512, 512), (1000, 24, 24)])
+def test_int8_prefill_pieces_meet_the_gate_at_gpt_medium_shapes(
+        hist, rows, length):
+    """The int8 prefill's numerics (q * s_k and P each in three bf16
+    pieces times the exact int8 K and V, summed in float32) lie within the
+    card's gate (1e-5 of each output's absolute terms) of the plain
+    float32 version at GPT-medium's prefill shapes (12 heads of 128,
+    blocks of 16; hist cached keys, rows query rows); with one piece each
+    (hi alone) they do not."""
+    cpu = torch.device("cpu")
+    q, kc, vc, tables, lane, kmax = measure.paged_prefill_case(
+        cpu, hist, rows, length, 12, 128, 16, torch.float32,
+        seed=hist + rows)
+    kc8, vc8, ks, vs = measure.int8_cache(kc, vc)
+    want = pa.paged_prefill_plain(q, kc8, vc8, tables[0], kmax, ks, vs)
+    terms = pa.abs_terms(q, kc8, vc8, tables, lane, kmax, ks, vs)
+    for pieces, ok in ((3, True), (1, False)):
+        got = _emulate_prefill_i8(q, kc8, vc8, ks, vs, tables[0], kmax,
+                                  pieces)
+        reading = measure.paged_reading(got, want, terms, 1e-5)
+        assert (reading <= 1) is ok, (pieces, reading)

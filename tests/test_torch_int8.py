@@ -452,8 +452,9 @@ def _design(code):
 
 def test_source_is_self_contained_and_sums_in_a_fixed_order():
     """The source includes only the CUDA runtime and driver types, bf16,
-    stdint and the C++ library (no library kernel: no
-    cuBLAS, CUTLASS or PyTorch header) and has no atomics. The design
+    stdint, the C++ library and the port's own header of Hopper primitives
+    (no library kernel: no cuBLAS, CUTLASS or PyTorch header) and has no
+    atomics. The design
     multiplies on wgmma (bf16 x bf16 into float32, A, the widened payload,
     from registers) at n = 8, 16, 32 and 64, takes a weight tile as one TMA
     box, cuts x into three bf16 pieces and sums in one order set by the
@@ -467,6 +468,7 @@ def test_source_is_self_contained_and_sums_in_a_fixed_order():
     assert sorted(re.findall(r"#include <([\w/.]+)>", code)) == [
         "cuda.h", "cuda_bf16.h", "cuda_runtime.h", "list", "map", "mutex",
         "set", "stdint.h", "tuple"]
+    assert re.findall(r'#include "(\S+)"', code) == ["sm90.cuh"]
     for word in ("cublas", "cutlass", "torch", "atomic", "mma.sync"):
         assert word not in code.lower()
     new = _design(code)
@@ -488,11 +490,15 @@ def test_source_is_self_contained_and_sums_in_a_fixed_order():
     body = new[new.index("__device__ __forceinline__ void rank_tiles"):]
     body = body[:body.index("}") + 1]
     assert "M" not in body.replace("min(", "")     # the split: K alone
-    # the pieces: each difference exact, hi, mid, lo in that order
-    assert ("const float ra = __fsub_rn(a, h.x), rb = __fsub_rn(b, h.y);"
-            in new)
-    assert "pc[0] = *reinterpret_cast<const uint32_t*>(&hi);" in new
-    assert "pc[2] = *reinterpret_cast<const uint32_t*>(&lo);" in new
+    # the pieces: the shared header's cut, each difference exact, hi, mid,
+    # lo in that order
+    assert "split3(v.x, v.y, p01);" in new and "split3(v.z, v.w, p23);" in new
+    header = (SRC.parent / "sm90.cuh").read_text()
+    assert ("const float ra = __fsub_rn(a, bf_lo(pc[0])), rb = "
+            "__fsub_rn(b, bf_hi(pc[0]));") in header
+    assert "pc[1] = bf16x2(ra, rb);" in header
+    assert ("pc[2] = bf16x2(__fsub_rn(ra, bf_lo(pc[1])), "
+            "__fsub_rn(rb, bf_hi(pc[1])));") in header
     # the weight: one TMA box a tile, its map encoded once a weight
     assert "cp.async.bulk.tensor.2d.shared::cluster.global" in new
     assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in new

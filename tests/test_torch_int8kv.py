@@ -321,6 +321,44 @@ def test_paged_int8_decode_is_one_int8_launch_a_layer(monkeypatch, psd,
         np.testing.assert_array_equal(sc[1].numpy(), scales["v"][i])
 
 
+def test_paged_int8_prefill_is_one_int8_launch_a_layer(monkeypatch, psd,
+                                                       scales):
+    """With the card's launch stubbed, each prefill calls the float32
+    prefill entry once a layer with the int8 slab and that layer's scales,
+    its work split sized by the int8 kernel's blocks an SM (``slots``'
+    paged 2), each call counted as an int8 one."""
+    import contextlib
+    import types
+    from deeplearning4j_tpu_torch.kernels import attention_f32 as af
+    seen, sized = [], []
+    monkeypatch.setattr(pa, "_check", lambda q, *a: types.SimpleNamespace(
+        type="cuda"))
+    monkeypatch.setattr(af, "slots", lambda index, d, kind: sized.append(
+        kind) or 264)
+    monkeypatch.setattr(af, "_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(af, "launch_prefill", lambda q, kc, vc, table, kmax,
+                        out, part, scale, chunk, stream, k_scale=None,
+                        v_scale=None, lib=None: seen.append(
+                            (kc.dtype, k_scale, v_scale, chunk)))
+    pfns = pgpt.gpt_paged_decode_fns(PCFG, BS, MAXB, kv_scales=scales)
+    pp = {n: psd.get_arr_for_var(n) for n in pgpt.gpt_param_names(PCFG)}
+    kc, vc = (torch.zeros(L, 6, A, BS, D, dtype=torch.int8) for _ in range(2))
+    io = {"tokens": np.arange(1, 12, dtype=np.int32),
+          "length": np.int32(11), "hist": np.int32(0),
+          "table": np.array([1, 2] + [0] * (MAXB - 2), np.int32)}
+    af.reset_launches()
+    with torch.inference_mode():
+        pfns[0](pp, kc, vc, io)
+    assert len(seen) == L and sized == ["paged_i8"] * L
+    assert af.INT8_LAUNCHES["paged_prefill_f32"] == L
+    for i, (dt, ks, vs, chunk) in enumerate(seen):
+        assert dt == torch.int8 and chunk % af.CHUNK_ALIGN == 0
+        np.testing.assert_array_equal(ks.numpy(), scales["k"][i])
+        np.testing.assert_array_equal(vs.numpy(), scales["v"][i])
+
+
 # ----------------------------------------------------------------------
 # the int8 plain versions against float caches holding the dequantised
 # values (each row a call writes read back stored)

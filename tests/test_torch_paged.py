@@ -702,11 +702,12 @@ def _c_entry_params(entry):
                 "stream"]),
     (pa.VERIFY_ENTRY, ["q", "k_new", "v_new", "kc", "vc", "k_scale",
                        "v_scale", "tables", "lane", "kmax", "win0", "wrow",
-                       "write_block", "write_off", "out", "stream"])])
+                       "write_block", "write_off", "out", "stream"]),
+    (pa.OCCUPANCY_ENTRY, ["blocks"])])
 def test_ctypes_declaration_matches_the_c_entry(entry, pointers):
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-               "int64_t": ctypes.c_int64, "int": ctypes.c_int,
-               "double": ctypes.c_double}
+               "int*": ctypes.c_void_p, "int64_t": ctypes.c_int64,
+               "int": ctypes.c_int, "double": ctypes.c_double}
     params = _c_entry_params(entry)
     argtypes = pa.ENTRIES[entry]
     assert [n for _, n in params] == [n for n, _ in argtypes]
@@ -727,6 +728,7 @@ def test_loading_the_library_declares_the_entry(monkeypatch):
     class Lib:
         dl4j_paged_decode_attention = Entry()
         dl4j_paged_verify_attention = Entry()
+        dl4j_paged_decode_occupancy = Entry()
 
     lib = Lib()
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
@@ -762,8 +764,21 @@ def test_kernel_sums_in_an_order_set_by_key_position_alone():
     cluster's 8 partials in rank order once the other ranks have pushed
     theirs over distributed shared memory. BS is read only to address a
     key and to choose how a chunk is copied, and the source has no
-    atomic."""
+    atomic. Over an int8 cache in float32 the scales leave the loop
+    (``kFold``) without moving a sum: q * s_k is taken once a row, every
+    key and value is read as its stored integer (the step's own key too),
+    and rank 0's combine multiplies the rank-ordered sum by s_v; in
+    float64 (and for a float cache) no fold."""
     code, body = _kernel_code()
+    assert "static constexpr bool kFold = sizeof(C) == 1 && sizeof(T) == 4;" \
+        in code
+    assert "qr[j][e] = fold<L::kFold>(qp[d], scales(0, d));" in body
+    assert "kn[j][e] = loaded<L::kFold, T>(kst[j][e], scales(0, d));" in body
+    assert body.count("ldkv<L::kFold, T, E>(") == 2
+    assert "res = fold<L::kFold>(oc, scales(1, tid)) / lc;" in body
+    # the fold multiplies once, rounded, and reads raw integers
+    assert "v[e] = kRaw ? static_cast<T>(xs[e])" in code
+    assert "return __fmul_rn(x, *s);" in code
     assert "__cluster_dims__(kRanks, 1, 1)" in code
     assert "constexpr int kChunk = 16;" in code
     assert "constexpr int kRanks = 8;" in code
@@ -797,17 +812,31 @@ def test_kernel_copies_chunks_in_bulk_before_any_math():
     K and one for V on the slot's mbarrier, and other block sizes take
     16-byte cp.async completing on the same mbarrier, both with an L2
     evict-first policy; a block issues its first chunks before the loop
-    that does the math."""
+    that does the math. Over an int8 cache the ring is the same one slot
+    (the study measured deeper int8 rings no faster), a chunk of 16 int8
+    rows of 128 (K and V) 4 KiB of it, and a rank issues its first chunks,
+    up to the ring's depth, before any math."""
     code, body = _kernel_code()
+    header = (SRC.parent / "sm90.cuh").read_text()
+    assert '#include "sm90.cuh"' in code
+    assert "constexpr int kRing = 1;" in code and "kRingI8" not in code
+    assert "static constexpr int kChunkBytes = kChunk * D * " \
+        "static_cast<int>(sizeof(C));" in code
+    assert "static constexpr int kRingSlots =\n      kSmemCap / kSlotBytes" \
+        " < kRing ? kSmemCap / kSlotBytes : kRing;" in code
+    assert "const int first = mine < nring ? mine : nring;" in body
+    assert "constexpr int nring = L::kRingSlots;" in body
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx" \
-        in code
+        "::bytes.L2::cache_hint" in header
     assert "cp.async.mbarrier.arrive.noinc" in code
     assert "a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D;" in code
     assert body.count("bulk_load(") == 2
     first = body.index("for (int k = 0; k < first; ++k) issue(k);")
     assert first < body.index("mbar_wait(")
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
-    assert code.count("L2::cache_hint") == 2 and \
+    # the two bulk copies and cp_async16 under the evict-first policy
+    assert body.count("evict_first())") == 2
+    assert code.count("L2::cache_hint") == 1 and \
         "createpolicy.fractional.L2::evict_first" in code
 
 

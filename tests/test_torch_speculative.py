@@ -715,7 +715,9 @@ def test_verify_runs_the_decode_kernel_with_windows():
     own in the decode kernel's order, the rows side by side), over
     chunks copied once a run; a key at or past a row's window start is a
     new row put in the chunk, never a cache read (the copy skips it), and
-    each row's 8 partials are combined in rank order as the decode's."""
+    each row's 8 partials are combined in rank order as the decode's. Over
+    an int8 cache in float32 it takes the decode's fold too (q * s_k
+    rounded once, the stored integers in the loop, s_v in the combine)."""
     import pathlib
     import re
     code = "\n".join(line.split("//")[0] for line in (
@@ -733,7 +735,7 @@ def test_verify_runs_the_decode_kernel_with_windows():
     assert "dec::launch_d<float>(D, a, N, st)" in entry(
         "dl4j_paged_decode_attention")
     assert re.findall(r'extern "C" int (\w+)\(', code) == [
-        pa.ENTRY, pa.VERIFY_ENTRY]
+        pa.ENTRY, pa.VERIFY_ENTRY, pa.OCCUPANCY_ENTRY]
     assert "kWindow" not in code
     assert "constexpr int kVRows = 8;" in code
     assert "(N + R - 1) / R * a.A * kVCluster" in code
@@ -794,12 +796,21 @@ def test_verify_runs_the_decode_kernel_with_windows():
              "for (int e = 0; e < E; ++e) acc[x][j][e] += p * vr[j][e];"),
             ("m = mx;", "if (go[x]) m[x] = mx[x];")):
         assert d_stmt in dec and v_stmt in body, (d_stmt, v_stmt)
-    assert body.count("ldkv<T, E>(") == 2
+    # keys and values read as the decode reads them (an int8 cache's
+    # scales folded out of the loop in float32, as the decode's), q taken
+    # with the decode's fold, the output with its unfold
+    assert body.count("ldkv<L::kFold, T, E>(") == 2
+    assert dec.count("ldkv<L::kFold, T, E>(") == 2
+    assert "qr[j][e] = fold<L::kFold>(qp[d], scales(0, d));" in dec
+    assert "qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], ks) : T(0);" \
+        in body
     assert "if (t <= ulast && !windowed(t)) {" in body
     assert "static_cast<const T*>(kv ? a.v_new : a.k_new)" in body
+    assert "res = fold<L::kFold>(oc, scales(1, tid)) / lc;" in dec
     for stmt in ("mb = rm[2 * i] > mb ? rm[2 * i] : mb;",
                  "const T w = exp_(rm[2 * i] - mb);",
                  "lc += part_ml[pr][k][1] * w;",
-                 "oc += part_acc[pr][k][d] * w;", "res = oc / lc;"):
+                 "oc += part_acc[pr][k][d] * w;",
+                 "res = fold<L::kFold>(oc, scales(1, d)) / lc;"):
         assert stmt in body, stmt
     assert "atomic" not in code
