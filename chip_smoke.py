@@ -494,9 +494,12 @@ def check_paged_build():
     for t, tc, cc in (("float", "f", "f"), ("double", "d", "d"),
                       ("float, int8", "f", "a"), ("double, int8", "d", "a")):
         for d in (16, 32, 64, 128):
+            # the float32 verify over an int8 cache is its own kernel
+            verify = (f"paged_verify_i8_kernelILi{d}EE" if (tc, cc) == ("f", "a")
+                      else f"paged_verify_kernelI{tc}{cc}Li{d}EE")
             for tag, label in (
                     (f"paged_decode_kernelI{tc}{cc}Li{d}EE", "decode"),
-                    (f"paged_verify_kernelI{tc}{cc}Li{d}EE", "verify")):
+                    (verify, "verify")):
                 name = next((n for n in sass if tag in n), None)
                 if name is None:
                     bad.append(f"{tag}: not in the library")
@@ -954,11 +957,10 @@ KERNEL_KINDS = (
 )
 
 
-def profile_fit(fit, steps, step_ms, card):
-    """``fit()`` (``steps`` training steps) under torch.profiler: device
-    time per step by kernel and by kind, device launches a step, against
-    the unprofiled step time ``step_ms`` (the rest is the device's idle
-    share); each BN kernel must launch 33 (ReLU) and 20 times a step."""
+def _profiled_counts(fit, steps):
+    """One pass of ``fit()`` (``steps`` training steps) under
+    torch.profiler: (device ms and launches of each kernel, both summed
+    over the pass, the pass's wall ms a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -968,16 +970,92 @@ def profile_fit(fit, steps, step_ms, card):
         fit()
         torch.cuda.synchronize()
         traced_ms = 1000 * (time.perf_counter() - t0) / steps
-    per_kernel, by_kind = {}, {}
+    totals = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)) / 1e3 / steps
-        per_kernel[e.key] = (ms, e.count / steps)
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        totals[e.key] = (ms, e.count)
+    return totals, traced_ms
+
+
+def _bn_counts(totals, steps):
+    """The BN backward kernels' launches a step in a pass (phase 1's CUDA
+    kernels carry a dtype suffix: bn_relu_bwd_phase1_bf16)."""
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    n = {}
+    for key, (_, c) in totals.items():
+        for name in bn_relu.LAUNCHES:
+            if key == name or key.startswith(name + "_"):
+                n[name] = n.get(name, 0) + c / steps
+    return n
+
+
+def whole_steps_lost(short, full, steps):
+    """How many of ``steps`` steps' records a pass (``short``: kernel ->
+    launches over the pass) lost against a complete pass of the same
+    replay (``full``), if it lost whole steps of every kernel alike: each
+    kernel's count then is (steps - lost) / steps of the complete pass's.
+    None if the shortfall is not that (a kernel short where others are
+    not, by other shares, or a kernel only one pass holds)."""
+    if set(short) != set(full):
+        return None
+    lost = set()
+    for k, n in full.items():
+        kept = short[k] * steps
+        if kept % n:
+            return None
+        lost.add(steps - kept // n)
+    return lost.pop() if len(lost) == 1 and 0 < min(lost) < steps else None
+
+
+def profile_fit(fit, steps, step_ms, card):
+    """``fit()`` (``steps`` training steps, the same replayed or eager step
+    each time) under torch.profiler: device time per step by kernel and by
+    kind, device launches a step, against the unprofiled step time
+    ``step_ms`` (the rest is the device's idle share); each BN kernel must
+    launch 33 (ReLU) and 20 times a step. A pass whose trace holds fewer BN
+    launches is repeated once: if the repeat is complete and the first
+    pass held every kernel at the same whole-step share of the repeat's
+    count (the profiler lost whole steps' records, every kernel's alike),
+    the repeat is the reading and its line says so; a second shortfall, or
+    one in some kernels and not others (a launch that did not happen),
+    stops the run."""
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    want = {bn_relu.kernel_name(p, r): 33 if r else 20
+            for p in (1, 2) for r in (True, False)}
+    totals, traced_ms = _profiled_counts(fit, steps)
+    kernel_n = _bn_counts(totals, steps)
+    note = ""
+    if kernel_n != want:
+        first = {k: c for k, (_, c) in totals.items()}
+        log(f"    the profiled pass traced BN backward launches {kernel_n} a "
+            f"step against {want}, {sum(first.values()) / steps:.1f} launches "
+            f"a step in all: repeating it once")
+        totals, traced_ms = _profiled_counts(fit, steps)
+        kernel_n = _bn_counts(totals, steps)
+        full = {k: c for k, (_, c) in totals.items()}
+        lost = whole_steps_lost(first, full, steps) if kernel_n == want \
+            else None
+        short = {k: (first.get(k, 0), c) for k, c in full.items()
+                 if first.get(k, 0) != c}
+        log(f"    repeat: BN backward launches {kernel_n} a step, "
+            f"{sum(full.values()) / steps:.1f} launches a step in all; "
+            f"kernels whose count differs (first, repeat): "
+            f"{dict(list(short.items())[:8])}")
+        if lost is None:
+            raise SystemExit(f"profiled BN backward launches {kernel_n}, "
+                             f"want {want} (the first pass's shortfall was "
+                             f"not whole steps of every kernel alike)")
+        note = (f" (the first profiled pass lost {lost} of {steps} steps' "
+                f"records, every kernel's alike: this is the repeated pass)")
+    per_kernel, by_kind = {}, {}
+    for key, (ms, n) in totals.items():
+        per_kernel[key] = (ms / steps, n / steps)
         kind = next((k for k, keys in KERNEL_KINDS
-                     if any(t in e.key for t in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+                     if any(t in key for t in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms / steps
     busy = sum(ms for ms, _ in per_kernel.values())
     if busy == 0:
         raise SystemExit("the profiler recorded no device time")
@@ -988,31 +1066,23 @@ def profile_fit(fit, steps, step_ms, card):
         f"{traced_ms:.2f} ms a step); "
         f"{launches:.0f} device launches (PR 1's "
         f"{TRITON_PHASE1_LAUNCHES_PER_STEP} with the Triton phase 1 and its "
-        f"PyTorch fold, 4243 per-step before the _foreach updaters)  "
+        f"PyTorch fold, 4243 per-step before the _foreach updaters){note}  "
         f"[{card}]")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         log(f"    {ms:8.3f} ms  {ms / busy:.3f} of the busy time  {kind}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     for key, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<6.1f} {key[:96]}")
-    # the BN backward's kernels by name (phase 1's CUDA kernels carry a
-    # dtype suffix: bn_relu_bwd_phase1_bf16)
-    from deeplearning4j_tpu_torch.kernels import bn_relu
-    kernel_ms, kernel_n = {}, {}
+    kernel_ms = {}
     for key, (ms, n) in per_kernel.items():
         for name in bn_relu.LAUNCHES:
             if key == name or key.startswith(name + "_"):
                 kernel_ms[name] = kernel_ms.get(name, 0.0) + ms
-                kernel_n[name] = kernel_n.get(name, 0) + n
     log(f"    BN backward device launches per step: {kernel_n}")
-    want = {bn_relu.kernel_name(p, r): 33 if r else 20
-            for p in (1, 2) for r in (True, False)}
-    if kernel_n != want:
-        raise SystemExit(f"profiled BN backward launches {kernel_n}, "
-                         f"want {want}")
     return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
             "traced_ms": traced_ms, "launches": launches,
             "by_kind_ms": by_kind, "kernel_ms": kernel_ms,
+            "repeated": bool(note),
             "top": [(k[:96], v[0], v[1]) for k, v in top]}
 
 
@@ -3904,7 +3974,7 @@ def _spec_group(name):
     kernel (the draft's decode), demangled or mangled; else None."""
     if "int8_wgmma_kernel" in name:
         return "int8 GEMM"
-    if "paged_verify_kernel" in name:
+    if "paged_verify_kernel" in name or "paged_verify_i8_kernel" in name:
         return "verify attention"
     if "paged_decode_kernel" in name:
         return "draft decode attention"

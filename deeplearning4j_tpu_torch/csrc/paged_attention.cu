@@ -41,7 +41,9 @@
 // kernel) is one cluster of the same 8 ranks a (lane's window, head): each
 // chunk of the lane's keys is copied once and serves every row of the
 // window (the first verify ran each (lane, w) as a decode cluster and
-// read a lane's keys W times).
+// read a lane's keys W times). Over an int8 cache in float32 the verify is
+// paged_verify_i8_kernel: the same work and bits, its per-key chain
+// rebuilt (below paged_verify_kernel).
 //
 // Both entries take an int8 cache (k_scale and v_scale non-null, [A, D]
 // float32 each, the layer's per-(head, channel) scales): the serving
@@ -68,8 +70,8 @@
 // stays one slot (kRing). In float32 the scales leave the inner loop
 // (Layout's kFold): the scores are (q * s_k) . x_i8, q * s_k rounded once
 // a row, and rank 0's combine multiplies the sums of p x_i8 by s_v, so a
-// key costs no scale load and no multiply an element. The verify below
-// takes the same form, so its rows stay the decode's bits.
+// key costs no scale load and no multiply an element. The verifies below
+// take the same form, so their rows stay the decode's bits.
 //
 // What bounds it on an H100: at decode a row reads (kmax + 1) K and V rows
 // of D values once and does 4 D FLOP per key, far below the card's ridge:
@@ -828,8 +830,7 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const int d = (gl + G * j) * E + e;
-        const float* ks = kQ ? a.ksc + static_cast<int64_t>(head) * D + d : nullptr;
-        qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], ks) : T(0);
+        qr[i][j][e] = row < a.N ? qp[d] : T(0);
       }
   }
   // bulk: lane l of warp 0 holds the table entry of the run's chunk (k &
@@ -1036,8 +1037,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           T kr[SL][E];
 #pragma unroll
           for (int j = 0; j < SL; ++j)
-            ldkv<L::kFold, T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E),
-                                 kr[j]);
+            ldkv<false, T, E>(sk + i * D + (gl + G * j) * E, scales(0, (gl + G * j) * E),
+                              kr[j]);
           T dot[RP];
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
@@ -1085,8 +1086,8 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
           T vr[SL][E];
 #pragma unroll
           for (int j = 0; j < SL; ++j)
-            ldkv<L::kFold, T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E),
-                                 vr[j]);
+            ldkv<false, T, E>(sv + i * D + (gl + G * j) * E, scales(1, (gl + G * j) * E),
+                              vr[j]);
 #pragma unroll
           for (int x = 0; x < RP; ++x) {
             if (!go[x] || !ok[x][jj]) continue;   // a masked key's V is never used
@@ -1211,7 +1212,7 @@ __global__ void __cluster_dims__(kVCluster, 1, 1)
         lc += part_ml[pr][k][1] * w;
         oc += part_acc[pr][k][d] * w;
       }
-      res = fold<L::kFold>(oc, scales(1, d)) / lc;
+      res = oc / lc;
     }
     static_cast<T*>(a.out)[(static_cast<int64_t>(row) * a.A + head) * D + d] =
         s_refused[r] ? T(NAN) : res;
@@ -1243,26 +1244,638 @@ cudaError_t configure_verify() {
   return e;
 }
 
+// ---------------------------------------------------------------------------
+// The verify over an int8 cache in float32 (paged_verify_i8_kernel): the
+// work and the bits of paged_verify_kernel (the same clusters, ranks, runs,
+// chunk copies, stream partials and combine; row w the decode kernel's bits
+// at last key pos0 + w), its per-key chain rebuilt. What held the first
+// int8 form (paged_verify_kernel<float, int8_t, D>, now gone:
+// experiments/paged_verify_study.py --cache int8 --parent builds it) back:
+// a key's score was a 4-FMA partial a lane, then a 5-level shuffle
+// butterfly, for every row in each of the key's 32 lanes; every K and V
+// element an I2F (16 a clock an SM) in both warpgroups; every p and
+// correction an exp in all 32 lanes of its stream; a window chunk's rows
+// quantised into the ring element by element behind a barrier. Here a
+// chunk goes through three phases, a barrier after each of the first two:
+// 1. The chunk's K and V as float32 into shared memory, once a block:
+//    each 4-byte word of int8 by byte permutes and one FADD a value
+//    (i8x4: exact, so the I2F's bits), K rows padded by 8 floats. A window
+//    key is the launch's new row in stored form, quantised once a block
+//    for the group's 8 rows (s_new, while the first copies are on their
+//    way); a chunk's bulk copy takes only its rows below the window.
+// 2. Each (key, row) score in four threads, each summing a quarter of the
+//    key's G lane partials (the decode lane's E-term FMA chain; the lanes
+//    l = qb mod 4) in registers in the butterfly's own pairing, then two
+//    shuffles for its last two levels: the decode's tree, so its bits
+//    (float addition commutes, and every lane of a butterfly ends with the
+//    same value). A thread keeps q's quarter-row in registers and takes 2
+//    keys (a warp: 8 rows x 4 quarters).
+// 3. Each row's running max, correction, p, l and V sums in the decode's
+//    layout and order (a thread: a stream's lane, 4 rows): the stream's
+//    exps made once, one or two a lane, passed round in shared memory.
+// The float buffers are double-buffered and the ring is one slot, refilled
+// as soon as phase 1 has read it. Every operation a row's bits depend on
+// is the decode's, on the same operands in the same order, its rounding
+// spelt out (__fmaf_rn, __fadd_rn, __fmul_rn). The float64 verify over an
+// int8 cache keeps paged_verify_kernel (no fold: float(x) * s rounds in
+// float32 first). What its time is (the study's variants, H100): at 8
+// lanes x W 8 x context 512 about half is the chain of copies, waits,
+// barriers and combines that the variant with no math keeps; the scores'
+// tree in registers beat the shuffle butterfly, and two blocks a cluster
+// beat one, four and eight.
+
+constexpr int kQCluster = 2;     // blocks a cluster, as kVCluster
+constexpr int kQRing = 1;        // int8 chunk slots a block
+constexpr int kQMinBlocks = 2;   // blocks an SM the registers must allow
+constexpr int kQThreads = 256;   // 8 warps: a chunk's 16 keys, 2 a warp
+
+template <int D>
+struct QLayout {
+  using L = Layout<float, int8_t, D>;
+  static constexpr int R = kVRows;
+  static constexpr int S = L::kStreams;
+  static constexpr int W = D / 4;             // 4-byte words of a cache row
+  static constexpr int KP = D + 8;            // floats of a converted K row
+  static constexpr int kRingBytes = kQRing * L::kSlotBytes;
+  static constexpr int kBufFloats = kChunk * KP + kChunk * D;   // K, then V
+  // two chunk buffers; between a rank's chunks and the next's the same
+  // bytes hold the rows' stream partials
+  static constexpr int kPartFloats = R * S * (D + 2);
+  static constexpr int kWorkFloats = 2 * kBufFloats > kPartFloats ? 2 * kBufFloats : kPartFloats;
+  static constexpr int kBytes = kRingBytes + kWorkFloats * 4;
+};
+
+// 4 int8 values (a little-endian word) as exact float32s: byte b with its
+// sign bit flipped is b + 128 in [0, 255]; under the bits 0x4B000000 (2^23)
+// it makes the float 2^23 + b + 128, and one FADD of -(2^23 + 128) leaves
+// b exactly (the I2F's bits) without the conversion pipe.
+__device__ __forceinline__ float4 i8x4(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  constexpr float kBias = -8388736.0f;
+  return make_float4(__fadd_rn(__int_as_float(__byte_perm(x, 0x4B000000u, 0x7540)), kBias),
+                     __fadd_rn(__int_as_float(__byte_perm(x, 0x4B000000u, 0x7541)), kBias),
+                     __fadd_rn(__int_as_float(__byte_perm(x, 0x4B000000u, 0x7542)), kBias),
+                     __fadd_rn(__int_as_float(__byte_perm(x, 0x4B000000u, 0x7543)), kBias));
+}
+
+// 4 values of a new row (src) in stored form at their scales (s), as one
+// little-endian word: out of line, for the rare window key that is a row of
+// another group, so that its divisions cost the chunk loop no registers.
+__device__ __noinline__ uint32_t stored_word(const float* src, const float* s) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    x |= static_cast<uint32_t>(static_cast<uint8_t>(stored<int8_t>(src[e], s + e))) << (8 * e);
+  return x;
+}
+
+// N consecutive floats of shared memory (on 4 N bytes) in one load
+template <int N>
+__device__ __forceinline__ void ld_row(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int D>
+__global__ void __cluster_dims__(kQCluster, 1, 1) __launch_bounds__(kQThreads, kQMinBlocks)
+    paged_verify_i8_kernel(const Args a) {
+  using L = Layout<float, int8_t, D>;
+  using Q = QLayout<D>;
+  constexpr int G = L::G, S = Q::S, KPS = L::KPS, W = Q::W, KP = Q::KP;
+  constexpr int R = Q::R, NT = kQThreads, nring = kQRing;
+  constexpr int RP = R / 2;        // rows of a thread's V sums
+  constexpr int QN = G / 4;        // lane partials of a score a thread sums
+  constexpr int NV = RP * KPS + RP;   // a stream's p and corrections of a chunk
+  constexpr int PR = (R + kQCluster - 1) / kQCluster;   // rows a block combines
+  extern __shared__ __align__(128) unsigned char dyn[];
+  int8_t* ring = reinterpret_cast<int8_t*>(dyn);
+  float* work = reinterpret_cast<float*>(dyn + Q::kRingBytes);
+  __shared__ __align__(8) uint64_t bars[nring];
+  // the scales of this head's channels, K's then V's
+  __shared__ __align__(16) float s_sc[2][D];
+  // the group's rows' K and V in stored form (the window's keys, and what
+  // the rows write)
+  __shared__ __align__(16) int8_t s_new[2][R][D];
+  // a chunk's scores, key sid + S jj of row x at [x][sid][jj]; each (part,
+  // stream)'s p (-1: none) and corrections, passed within its lanes
+  __shared__ __align__(16) float s_score[R][S][KPS];
+  __shared__ __align__(16) float s_ev[2][S][NV];
+  __shared__ __align__(16) float part_ml[PR][kRanks][2];
+  __shared__ __align__(16) float part_acc[PR][kRanks][D];
+  __shared__ __align__(8) uint64_t cbar;
+  __shared__ int s_last[R], s_lane[R], s_w0[R], s_wr[R], s_run[R], s_refused[R];
+  __shared__ int u_lane[R], u_w0[R], u_wrk0[R], u_last[R];
+  __shared__ int s_nruns;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t cid = blockIdx.x / kQCluster;   // the (group, head) of the cluster
+  const int group = static_cast<int>(cid / a.A);
+  const int head = static_cast<int>(cid - static_cast<int64_t>(group) * a.A);
+  const int r0 = group * R;
+  const int tall = threadIdx.x, ln = tall % 32;
+  // phase 2: this thread's row, quarter (the lanes l = qb mod 4) and keys
+  // (2 w, 2 w + 1 of warp w)
+  const int xb = ln & 7, qb = ln >> 3, ib = 2 * (tall / 32);
+  // phase 3: its rows part * RP .., its stream and lane, as the decode's
+  const int part = tall / kThreads;
+  const int tid = tall % kThreads, warp = tid / 32;
+  const int sid = warp * L::GPW + ln / G;
+  const int gl = ln % G;
+  const bool live = sid < S;
+  const int reach = a.MAXB * a.BS;
+  const int64_t sqh = static_cast<int64_t>(head) * a.sqa;
+  // q * s_k of this thread's score row at its quarter's lanes (lane 4 m +
+  // qb: channels 4 (4 m + qb) ..), read first: nothing below waits on them
+  float qh[QN][4];
+  {
+    const int row = r0 + xb;
+    const float* qp = static_cast<const float*>(a.q) + static_cast<int64_t>(row) * a.sqn + sqh;
+    const float* ks = a.ksc + static_cast<int64_t>(head) * D;
+#pragma unroll
+    for (int m = 0; m < QN; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * (4 * m + qb) + e;
+        qh[m][e] = row < a.N ? fold<true>(qp[d], ks + d) : 0.0f;
+      }
+  }
+  // bulk: lane l of warp 0 holds the table entry of the run's chunk (k &
+  // ~31) + l of the rank it takes; for the first run (row r0's lane) and
+  // rank read at once, beside the rows' own
+  int ent = 0;
+  if (a.bulk && tall < 32 && r0 < a.N && (rank + kRanks * ln) * kChunk < reach)
+    ent = a.tables[static_cast<int64_t>(a.lane[r0]) * a.MAXB +
+                   (rank + kRanks * ln) * kChunk / a.BS];
+  if (tall < R) {
+    const int row = r0 + tall;
+    s_last[tall] = -1;
+    s_run[tall] = -1;
+    s_refused[tall] = 0;
+    if (row < a.N) {
+      const int km = a.kmax[row];
+      s_last[tall] = km < reach - 1 ? km : reach - 1;
+      s_lane[tall] = a.lane[row];
+      s_w0[tall] = a.win0[row];
+      s_wr[tall] = a.wrow[row];
+    }
+  }
+  for (int d = tall; d < 2 * D; d += NT)
+    s_sc[d / D][d % D] = (d < D ? a.ksc : a.vsc)[static_cast<int64_t>(head) * D + d % D];
+  // the group's new rows (this thread's NS values), read now and stored
+  // (s_new) once the first chunks' copies are on their way
+  constexpr int NS = (2 * R * D + NT - 1) / NT;
+  float xnew[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int p = tall + NT * j, kv = p / (R * D), row = r0 + (p / D) % R;
+    xnew[j] = p < 2 * R * D && row < a.N
+                  ? static_cast<const float*>(kv ? a.v_new : a.k_new)
+                        [static_cast<int64_t>(row) * a.sqn + sqh + p % D]
+                  : 0.0f;
+  }
+  __syncthreads();
+  if (tall == 0) {
+    int nruns = 0;
+    for (int r = 0; r < R && r0 + r < a.N; ++r) {
+      const int last = s_last[r], w0 = s_w0[r], wr0 = s_wr[r];
+      const int rw0 = w0 >= 0 ? w0 : -1, rwk0 = w0 >= 0 ? wr0 - w0 : 0;
+      // a window that does not lie within the launch's rows is refused:
+      // the row's output is NaN
+      s_refused[r] = w0 >= 0 && w0 <= last && !(wr0 >= 0 && wr0 + (last - w0) < a.N);
+      if (nruns == 0 || u_lane[nruns - 1] != s_lane[r] || u_w0[nruns - 1] != rw0 ||
+          u_wrk0[nruns - 1] != rwk0) {
+        u_lane[nruns] = s_lane[r];
+        u_w0[nruns] = rw0;
+        u_wrk0[nruns] = rwk0;
+        u_last[nruns] = -1;
+        ++nruns;
+      }
+      s_run[r] = nruns - 1;
+      if (!s_refused[r] && last > u_last[nruns - 1]) u_last[nruns - 1] = last;
+    }
+    s_nruns = nruns;
+    for (int s = 0; s < nring; ++s)
+      mbar_init(smem_u32(&bars[s]), a.bulk ? 1u : static_cast<uint32_t>(NT));
+    mbar_init(smem_u32(&cbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int8_t* kh = static_cast<const int8_t*>(a.kc) + static_cast<int64_t>(head) * a.ska;
+  const int8_t* vh = static_cast<const int8_t*>(a.vc) + static_cast<int64_t>(head) * a.sva;
+  const float scale = static_cast<float>(a.scale);
+
+  auto mine_of = [&](int rx, int ux) {
+    const int nch = u_last[ux] >= 0 ? u_last[ux] / kChunk + 1 : 0;
+    return nch > rx ? (nch - 1 - rx) / kRanks + 1 : 0;
+  };
+  // Issue run ux's chunk k (rx + 8 k) of rank rx, the block's chunk base +
+  // k, into slot (base + k) % nring: its rows below the run's window (all
+  // 16 where it has none); ent holds the run's table entries of this
+  // rank's chunks (k & ~31) + lane.
+  auto issue = [&](int rx, int ux, int k, int base) {
+    const int ulast = u_last[ux], w0 = u_w0[ux];
+    const int* tab = a.tables + static_cast<int64_t>(u_lane[ux]) * a.MAXB;
+    const int c = rx + kRanks * k;
+    const int slot = (base + k) % nring;
+    int8_t* dst = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+    const uint32_t bar = smem_u32(&bars[slot]);
+    const int below = w0 < 0 ? kChunk : min(kChunk, max(0, w0 - c * kChunk));
+    if (a.bulk) {
+      if (tall >= 32) return;
+      if (k > 0 && (k & 31) == 0) {
+        const int kk = k + ln;
+        ent = kk < mine_of(rx, ux) ? tab[(rx + kRanks * kk) * kChunk / a.BS] : 0;
+      }
+      const int64_t blk = __shfl_sync(kFull, ent, k & 31);
+      const int64_t off = (c * kChunk) % a.BS;
+      if (ln == 0) {
+        if (below == 0) {
+          mbar_arrive(bar);
+        } else {
+          const uint32_t n = static_cast<uint32_t>(below * D);
+          mbar_expect_tx(bar, 2 * n);
+          bulk_load(smem_u32(dst), kh + blk * a.skb + off * a.skt, n, bar, evict_first());
+          bulk_load(smem_u32(dst + kChunk * D), vh + blk * a.svb + off * a.svt, n, bar,
+                    evict_first());
+        }
+      }
+    } else {
+      for (int p = tall; p < 2 * kChunk * L::NC; p += NT) {
+        const int kv = p / (kChunk * L::NC);
+        const int r = (p / L::NC) % kChunk;
+        const int s = p % L::NC;
+        const int t = c * kChunk + r;
+        if (t <= ulast && r < below) {
+          const int ub = t / a.BS;
+          const int64_t blk = tab[ub];
+          const int64_t off = t - ub * a.BS;
+          const int8_t* src = kv ? vh + blk * a.svb + off * a.svt : kh + blk * a.skb + off * a.skt;
+          cp_async16(smem_u32(dst + kv * kChunk * D + r * D + s * L::CE), src + s * L::CE);
+        }
+      }
+      cp_async_arrive(bar);
+    }
+  };
+
+  // phase 1's words of this thread (NW a chunk): where each lies in a ring
+  // slot and in the chunk's float buffer
+  constexpr int NW = (2 * kChunk * W + NT - 1) / NT;
+  int w_src[NW], w_dst[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int p = tall + NT * j;
+    const int kv = p / (kChunk * W), i = (p / W) % kChunk, wd = p % W;
+    w_src[j] = kv * kChunk * D + i * D + 4 * wd;
+    w_dst[j] = kv ? kChunk * KP + i * D + 4 * wd : i * KP + 4 * wd;
+  }
+
+  // the first run's first chunks of this block's first rank on their way,
+  // then the group's rows in stored form: one IEEE division an element
+  for (int k = 0; k < mine_of(rank, 0) && k < nring; ++k) issue(rank, 0, k, 0);
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int p = tall + NT * j, kv = p / (R * D), r = (p / D) % R, d = p % D;
+    if (p < 2 * R * D)
+      s_new[kv][r][d] = r0 + r < a.N ? stored<int8_t>(xnew[j], &s_sc[kv][d]) : int8_t(0);
+  }
+  __syncthreads();
+
+  // phase 3's rows' running max, sum of p and sums of p V (each lane of a
+  // stream holds the stream's m and l)
+  float m4[RP], l4[RP], acc[RP][4];
+  int item = 0;  // chunks this block took so far: slot item % nring, buffer item % 2
+  for (int rk = rank; rk < kRanks; rk += kQCluster) {   // the decode's rank rk
+#pragma unroll
+    for (int x = 0; x < RP; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][e] = 0.0f;
+      m4[x] = -INFINITY;
+      l4[x] = 0.0f;
+    }
+    for (int u = 0; u < s_nruns; ++u) {
+      const int ulast = u_last[u], w0 = u_w0[u], wrk0 = u_wrk0[u];
+      const int mine = mine_of(rk, u);
+      if (u > 0 || rk != rank) {   // (the first run of the first rank: issued above)
+        if (a.bulk && tall < 32 && ln < mine)
+          ent = a.tables[static_cast<int64_t>(u_lane[u]) * a.MAXB +
+                         (rk + kRanks * ln) * kChunk / a.BS];
+        const int first = mine < nring ? mine : nring;
+        for (int k = 0; k < first; ++k) issue(rk, u, k, item);
+      }
+      // phase 3's rows: their last keys (-1: not in this run)
+      int last4[RP];
+#pragma unroll
+      for (int x = 0; x < RP; ++x) {
+        const int r = part * RP + x;
+        last4[x] = s_run[r] == u && !s_refused[r] ? s_last[r] : -1;
+      }
+
+      for (int k = 0; k < mine; ++k) {
+        const int it = item + k, slot = it % nring;
+        mbar_wait(smem_u32(&bars[slot]), static_cast<uint32_t>((it / nring) & 1));
+        const int8_t* sk = ring + static_cast<int64_t>(slot) * L::kSlotElems;
+        float* fk = work + (it & 1) * Q::kBufFloats;
+        float* fv = fk + kChunk * KP;
+        const int t0 = (rk + kRanks * k) * kChunk;
+        // 1. the chunk as float32: the ring's rows, then from the window
+        // on (rows the copy left out) the new rows' stored forms
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          if (NW * NT > 2 * kChunk * W && tall + NT * j >= 2 * kChunk * W) break;
+          *reinterpret_cast<float4*>(fk + w_dst[j]) =
+              i8x4(*reinterpret_cast<const uint32_t*>(sk + w_src[j]));
+        }
+        if (w0 >= 0 && t0 + kChunk - 1 >= w0) {
+          for (int p = tall; p < 2 * kChunk * W; p += NT) {
+            const int kv = p / (kChunk * W), i = (p / W) % kChunk, wd = p % W;
+            const int t = t0 + i, nr = wrk0 + t;
+            if (t < w0 || t > ulast || nr < 0 || nr >= a.N) continue;
+            const uint32_t x =
+                nr >= r0 && nr < r0 + R
+                    ? *reinterpret_cast<const uint32_t*>(&s_new[kv][nr - r0][4 * wd])
+                    : stored_word(static_cast<const float*>(kv ? a.v_new : a.k_new) +
+                                      static_cast<int64_t>(nr) * a.sqn + sqh + 4 * wd,
+                                  &s_sc[kv][4 * wd]);   // a row of another group
+            *reinterpret_cast<float4*>(fk + (kv ? kChunk * KP + i * D : i * KP) + 4 * wd) =
+                i8x4(x);
+          }
+        }
+        // the slot is read: order that before the next copy into it
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (k + nring < mine) issue(rk, u, k + nring, item);
+        // 2. the scores of keys ib, ib + 1: this quarter's lane partials
+        // summed in the butterfly's pairing (level v pairs entries m and m
+        // + (QN >> v): lanes l and l ^ 2 (QN >> v)), then lanes l ^ 2 and
+        // l ^ 1 across the quarters
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float* kr = fk + (ib + b) * KP + 4 * qb;
+          float pt[QN];
+#pragma unroll
+          for (int m = 0; m < QN; ++m) {
+            const float4 kk = *reinterpret_cast<const float4*>(kr + 16 * m);
+            float s = __fmaf_rn(qh[m][0], kk.x, 0.0f);
+            s = __fmaf_rn(qh[m][1], kk.y, s);
+            s = __fmaf_rn(qh[m][2], kk.z, s);
+            pt[m] = __fmaf_rn(qh[m][3], kk.w, s);
+          }
+#pragma unroll
+          for (int v = 1; (QN >> v) > 0; ++v)
+#pragma unroll
+            for (int m = 0; m < (QN + 1) / 2; ++m)
+              if (m < (QN >> v)) pt[m] = __fadd_rn(pt[m], pt[m + (QN >> v)]);
+          float dot = __fadd_rn(pt[0], __shfl_xor_sync(kFull, pt[0], 16));
+          dot = __fadd_rn(dot, __shfl_xor_sync(kFull, dot, 8));
+          if (qb == 0) s_score[xb][(ib + b) % S][(ib + b) / S] = __fmul_rn(dot, scale);
+        }
+        __syncthreads();
+        // 3. each row's running max, correction, p, l and V sums in the
+        // decode's order and layout: the stream's G lanes make its NV
+        // exps, one or two a lane, and pass them round
+        if (live) {
+          float sc[RP][KPS], mx[RP];
+          bool go[RP];
+#pragma unroll
+          for (int x = 0; x < RP; ++x) {
+            float sr[KPS];
+            ld_row<KPS>(&s_score[part * RP + x][sid][0], sr);
+            mx[x] = m4[x];
+#pragma unroll
+            for (int jj = 0; jj < KPS; ++jj) {
+              const int i = sid + S * jj;
+              sc[x][jj] = t0 + i <= last4[x] ? sr[jj] : -INFINITY;
+              mx[x] = sc[x][jj] > mx[x] ? sc[x][jj] : mx[x];
+            }
+            go[x] = t0 <= last4[x] && mx[x] != -INFINITY;
+          }
+          // value v: row v / KPS's p of its key v % KPS (v < RP KPS), else
+          // row v - RP KPS's correction; -1 where the decode makes none
+#pragma unroll
+          for (int c = 0; c < (NV + G - 1) / G; ++c) {
+            const int v = gl + G * c;
+            if (v >= NV) break;
+            const bool pv = v < RP * KPS;
+            const int x = pv ? v / KPS : v - RP * KPS, jj = pv ? v % KPS : 0;
+            float mxx = mx[0], mxm = m4[0];
+            bool g0 = go[0];
+            int lx = last4[0];
+#pragma unroll
+            for (int xx = 1; xx < RP; ++xx)
+              if (xx == x) mxx = mx[xx], mxm = m4[xx], g0 = go[xx], lx = last4[xx];
+            const float a0 = pv ? s_score[part * RP + x][sid][jj] : mxm;
+            g0 = g0 && (!pv || t0 + sid + S * jj <= lx);
+            s_ev[part][sid][v] = g0 ? exp_(a0 - mxx) : -1.0f;
+          }
+          __syncwarp();
+          float pr[RP][KPS], corr[RP];
+          ld_row<RP>(&s_ev[part][sid][RP * KPS], corr);
+#pragma unroll
+          for (int x = 0; x < RP; ++x) ld_row<KPS>(&s_ev[part][sid][x * KPS], pr[x]);
+          __syncwarp();
+#pragma unroll
+          for (int x = 0; x < RP; ++x)
+            if (go[x]) {
+              l4[x] = __fmul_rn(l4[x], corr[x]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[x][e] = __fmul_rn(acc[x][e], corr[x]);
+            }
+#pragma unroll
+          for (int jj = 0; jj < KPS; ++jj) {
+            const int i = sid + S * jj;
+            const float4 vv = *reinterpret_cast<const float4*>(fv + i * D + 4 * gl);
+#pragma unroll
+            for (int x = 0; x < RP; ++x) {
+              const float p = pr[x][jj];
+              if (!go[x] || t0 + i > last4[x]) continue;
+              l4[x] = __fadd_rn(l4[x], p);
+              acc[x][0] = __fmaf_rn(p, vv.x, acc[x][0]);
+              acc[x][1] = __fmaf_rn(p, vv.y, acc[x][1]);
+              acc[x][2] = __fmaf_rn(p, vv.z, acc[x][2]);
+              acc[x][3] = __fmaf_rn(p, vv.w, acc[x][3]);
+            }
+          }
+#pragma unroll
+          for (int x = 0; x < RP; ++x)
+            if (go[x]) m4[x] = mx[x];
+        }
+      }
+      item += mine;
+    }
+    // the chunks' buffers are read before the partials take their bytes
+    __syncthreads();
+
+    // the rank's partial of each row's streams (m, l, acc) in the work
+    // bytes; a rank with no chunk of any run has every row's no-key
+    // partial (m -inf, l 0, acc 0)
+    bool took = false;
+    for (int u = 0; u < s_nruns; ++u) took |= u_last[u] >= rk * kChunk;
+    float* s_acc = work;                             // [R][S][D]
+    float* s_ml = s_acc + R * S * D;                 // [R][S][2]
+    if (took) {
+      if (live)
+#pragma unroll
+        for (int x = 0; x < RP; ++x) {
+          const int rs = (part * RP + x) * S + sid;
+          if (gl == 0) {
+            s_ml[rs * 2] = m4[x];
+            s_ml[rs * 2 + 1] = l4[x];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s_acc[rs * D + 4 * gl + e] = acc[x][e];
+        }
+      __syncthreads();
+    }
+    if (rk == rank) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    for (int idx = tall; idx < R * (D / 4); idx += NT) {
+      const int r = idx / (D / 4), sl = idx % (D / 4);   // 4 elements of row r
+      if (r0 + r >= a.N) break;
+      const float* rm = s_ml + r * S * 2;
+      float mb = -INFINITY;
+      if (took) {
+        mb = rm[0];
+#pragma unroll
+        for (int i = 1; i < S; ++i) mb = rm[2 * i] > mb ? rm[2 * i] : mb;
+      }
+      float lb = 0.0f, ob[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (mb != -INFINITY) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const float w = exp_(rm[2 * i] - mb);      // 0 for a stream with no key
+          lb += rm[2 * i + 1] * w;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ob[e] += s_acc[(r * S + i) * D + sl * 4 + e] * w;
+        }
+      }
+      const int to = r % kQCluster, pr = r / kQCluster;
+      if (to == rank) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part_acc[pr][rk][sl * 4 + e] = ob[e];
+        if (sl == 0) {
+          part_ml[pr][rk][0] = mb;
+          part_ml[pr][rk][1] = lb;
+        }
+      } else {
+        const uint32_t bar = cluster_addr(smem_u32(&cbar), to);
+        st_async(cluster_addr(smem_u32(&part_acc[pr][rk][sl * 4]), to), ob, bar);
+        if (sl == 0)
+          st_async_pair(cluster_addr(smem_u32(&part_ml[pr][rk][0]), to), mb, lb, bar);
+      }
+    }
+    // the partials' bytes are read before the next rank's chunks take them
+    if (took) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+  }
+
+  // this block's rows r = rank, rank + kQCluster, ... of the group, each
+  // taking the 8 ranks' partials, all but this block's own pushed here
+  int owned = 0;
+  for (int r = rank; r < R && r0 + r < a.N; r += kQCluster) ++owned;
+  if (owned == 0) return;
+  if (tall == 0)
+    mbar_expect_tx(smem_u32(&cbar),
+                   owned * (kRanks - kRanks / kQCluster) * (D + 2) * static_cast<uint32_t>(4));
+  __syncthreads();
+  mbar_wait(smem_u32(&cbar), 0);
+  for (int idx = tall; idx < owned * D; idx += NT) {
+    const int pr = idx / D, d = idx % D, r = rank + pr * kQCluster;
+    const int row = r0 + r;
+    float mc8 = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kRanks; ++k) mc8 = part_ml[pr][k][0] > mc8 ? part_ml[pr][k][0] : mc8;
+    float res = 0.0f;                       // no key: the JAX mask's 0
+    if (mc8 != -INFINITY) {
+      float lc8 = 0.0f, oc8 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kRanks; ++k) {
+        const float w = exp_(part_ml[pr][k][0] - mc8);   // 0 for a rank with no key
+        lc8 += part_ml[pr][k][1] * w;
+        oc8 += part_acc[pr][k][d] * w;
+      }
+      res = fold<true>(oc8, &s_sc[1][d]) / lc8;
+    }
+    static_cast<float*>(a.out)[(static_cast<int64_t>(row) * a.A + head) * D + d] =
+        s_refused[r] ? NAN : res;
+  }
+  // the rows' K/V into the cache in stored form, 16 bytes a store: every
+  // block of the cluster is past its reads (each pushed its partials)
+  for (int p = tall; p < owned * 2 * (D / 16); p += NT) {
+    const int pr = p / (2 * (D / 16)), kv = (p / (D / 16)) % 2, c16 = p % (D / 16);
+    const int r = rank + pr * kQCluster, row = r0 + r;
+    const int wb = a.write_block[row];
+    const int wo = wb >= 0 ? a.write_off[row] : 0;
+    if (wb >= 0 && wb < a.NB && wo >= 0 && wo < a.BS) {
+      int8_t* dst = kv ? static_cast<int8_t*>(a.vc) + wb * a.svb + head * a.sva + wo * a.svt
+                       : static_cast<int8_t*>(a.kc) + wb * a.skb + head * a.ska + wo * a.skt;
+      *reinterpret_cast<uint4*>(dst + 16 * c16) =
+          *reinterpret_cast<const uint4*>(&s_new[kv][r][16 * c16]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t configure_verify_i8() {
+  static std::mutex mu;
+  static std::set<int> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (raised.count(dev) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_verify_i8_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, QLayout<D>::kBytes);
+  if (e == cudaSuccess) raised.insert(dev);
+  return e;
+}
+
+template <int D>
+int launch_verify_i8(Args a, int64_t N, cudaStream_t st) {
+  constexpr int R = kVRows;
+  // a chunk's 16 rows are one contiguous run of the slab
+  a.bulk = a.skt == D && a.svt == D && a.BS % kChunk == 0;
+  const cudaError_t attr = configure_verify_i8<D>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  paged_verify_i8_kernel<D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kQCluster),
+                              kQThreads, QLayout<D>::kBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bulk: bit 1, a chunk's 16 rows are one contiguous run of the slab; bit 2,
 // the new rows are on 16 bytes too (a chunk reaching the window is copied
 // row by row, the window's rows from the launch's new rows; never for an
 // int8 cache, whose window keys are the new rows' stored forms).
 template <typename T, typename C, int D>
 int launch_verify(Args a, int64_t N, cudaStream_t st) {
-  constexpr int R = kVRows;
-  const int64_t es = static_cast<int64_t>(sizeof(T));
-  a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D
-               ? 1 | (sizeof(C) == sizeof(T) && aligned16(a.k_new) && aligned16(a.v_new) &&
-                              (a.sqn * es) % 16 == 0 && (a.sqa * es) % 16 == 0
-                          ? 2
-                          : 0)
-               : 0;
-  const cudaError_t attr = configure_verify<T, C, D>();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_verify_kernel<T, C, D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kVCluster),
-                                 kThreads * VLayout<T, C, D>::P, VLayout<T, C, D>::kBytes, st>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 4 && sizeof(C) == 1) {
+    return launch_verify_i8<D>(a, N, st);
+  } else {
+    constexpr int R = kVRows;
+    const int64_t es = static_cast<int64_t>(sizeof(T));
+    a.bulk = a.BS % kChunk == 0 && a.skt == D && a.svt == D
+                 ? 1 | (sizeof(C) == sizeof(T) && aligned16(a.k_new) && aligned16(a.v_new) &&
+                                (a.sqn * es) % 16 == 0 && (a.sqa * es) % 16 == 0
+                            ? 2
+                            : 0)
+                 : 0;
+    const cudaError_t attr = configure_verify<T, C, D>();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    paged_verify_kernel<T, C, D><<<static_cast<unsigned>((N + R - 1) / R * a.A * kVCluster),
+                                   kThreads * VLayout<T, C, D>::P, VLayout<T, C, D>::kBytes,
+                                   st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>

@@ -90,10 +90,11 @@ def nocombine(s):
 
 
 def no_policy(s):
-    """The bulk copies (two the decode's, three the verify's) without the
-    evict-first policy: sm90.cuh's bulk_load without its policy."""
+    """The bulk copies (two the decode's, three the float verify's, two the
+    int8 verify's) without the evict-first policy: sm90.cuh's bulk_load
+    without its policy."""
     pat = r",\s*evict_first\(\)\);"
-    assert len(re.findall(pat, s)) == 5
+    assert len(re.findall(pat, s)) == 7
     return re.sub(pat, ");", s)
 
 

@@ -42,6 +42,31 @@ Variants:
 - empty: the kernel returns at once (a cluster launch of this grid: the
   floor).
 
+With ``--cache int8`` the same cases run over an int8 copy of the cache
+(``measure.int8_cache``: per-(head, channel) absmax scales), through the
+int8 kernel (``paged_verify_i8_kernel``), and the variants are that
+kernel's:
+
+- v1 (with ``--parent DIR``, the commit before its design): the first
+  int8 form (``paged_verify_kernel<float, int8_t, D>``: each key's score
+  a shuffle butterfly in every row's lanes, I2F conversions in both
+  warpgroups, the window filled element by element);
+- base: the committed source;
+- butterfly: phase 2 as the decode computes it (a lane partial a thread,
+  the shuffle butterfly; q from shared memory) instead of the tree in
+  registers;
+- i2f: phase 1's conversion by I2F (a cast) instead of byte permutes;
+- fillnow: the window's chunk copied whole and its window rows quantised
+  into the ring element by element behind a barrier, as the first form;
+- cluster1, cluster4, cluster8: that many blocks a cluster;
+- ring2, ring4: that many chunk slots a block (one in the source);
+- minblocks1: registers for one block an SM (no spills);
+- convonly: phase 1 alone (no scores, softmax or V sums);
+- noscores, nophase3: without phase 2 (the scores) or 3 (the softmax
+  and the V sums): what each costs;
+- nomath: no phase at all (the copies, waits and combine);
+- empty: the kernel returns at once (the floor).
+
 ``--only a,b`` times only those variants.
 """
 import argparse
@@ -96,10 +121,9 @@ def qsmem(src):
     src = sub(src, "  T qr[RP][SL][E], acc[RP][SL][E], m[RP], l[RP];\n",
               "  T acc[RP][SL][E], m[RP], l[RP];\n"
               "  __shared__ __align__(16) T s_q[R][D];\n")
-    src = sub(src, "        qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], "
-              "ks) : T(0);\n",
-              "        if (sid == 0) s_q[part * RP + i][d] = row < a.N ? "
-              "fold<L::kFold>(qp[d], ks) : T(0);\n")
+    src = sub(src, "        qr[i][j][e] = row < a.N ? qp[d] : T(0);\n",
+              "        if (sid == 0) s_q[part * RP + i][d] = row < a.N ? qp[d] : "
+              "T(0);\n")
     return sub(src, "#pragma unroll\n              for (int e = 0; e < E; "
                "++e) dot[x] += qr[x][j][e] * kr[j][e];\n",
                "              {\n                T qr[E];\n"
@@ -135,22 +159,131 @@ VARIANTS = {
 }
 
 
-def _so(name):
-    return os.path.join(OUT, name, f"lib{pa._LIB}.so")
+_I8_KNOBS = {name: re.search(rf"constexpr int {name} = (\d+);", SRC).group(0)
+             for name in ("kQCluster", "kQRing", "kQMinBlocks")}
 
 
-def build(variants):
+def i8knob(name, value, src=SRC):
+    return sub(src, _I8_KNOBS[name], f"constexpr int {name} = {value};")
+
+
+def i8_butterfly(src):
+    """Phase 2 as the decode computes it: a thread's lane partial of its
+    stream's keys for its 4 rows, then the shuffle butterfly, q read from
+    shared memory."""
+    src = sub(src, "  int ent = 0;\n  if (a.bulk && tall < 32 && r0 < a.N && (rank + "
+              "kRanks * ln) * kChunk < reach)\n    ent = a.tables[static_cast<int64_t>"
+              "(a.lane[r0]) * a.MAXB +\n                   (rank + kRanks * ln) * "
+              "kChunk / a.BS];\n  if (tall < R) {",
+              "  __shared__ __align__(16) float s_qv[R][D];\n"
+              "  for (int p = tall; p < R * D; p += NT) {\n"
+              "    const int row = r0 + p / D;\n"
+              "    s_qv[p / D][p % D] = row < a.N ? fold<true>(static_cast<const float*>"
+              "(a.q)[static_cast<int64_t>(row) * a.sqn + sqh + p % D], a.ksc + "
+              "static_cast<int64_t>(head) * D + p % D) : 0.0f;\n  }\n"
+              "  int ent = 0;\n  if (a.bulk && tall < 32 && r0 < a.N && (rank + "
+              "kRanks * ln) * kChunk < reach)\n    ent = a.tables[static_cast<int64_t>"
+              "(a.lane[r0]) * a.MAXB +\n                   (rank + kRanks * ln) * "
+              "kChunk / a.BS];\n  if (tall < R) {")
+    return cut(src, "        // 2. the scores", "        // 3. each row's running max",
+               "        if (live) {\n"
+               "#pragma unroll\n"
+               "          for (int jj = 0; jj < KPS; ++jj) {\n"
+               "            const int i = sid + S * jj;\n"
+               "            const float4 kk = *reinterpret_cast<const float4*>(fk + i * KP + "
+               "4 * gl);\n"
+               "#pragma unroll\n"
+               "            for (int x = 0; x < RP; ++x) {\n"
+               "              const float* qq = &s_qv[part * RP + x][4 * gl];\n"
+               "              float s = __fmaf_rn(qq[0], kk.x, 0.0f);\n"
+               "              s = __fmaf_rn(qq[1], kk.y, s);\n"
+               "              s = __fmaf_rn(qq[2], kk.z, s);\n"
+               "              s = __fmaf_rn(qq[3], kk.w, s);\n"
+               "#pragma unroll\n"
+               "              for (int off = G / 2; off > 0; off >>= 1)\n"
+               "                s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));\n"
+               "              if (gl == 0) s_score[part * RP + x][sid][jj] = __fmul_rn(s, scale);\n"
+               "            }\n          }\n        }\n        __syncthreads();\n")
+
+
+def i8_fillnow(src):
+    """The first form's window fill: a chunk reaching the window copied
+    whole (none if its first key is a window key), its window rows
+    quantised into the ring element by element, then a barrier; phase 1
+    reads every row from the ring."""
+    src = sub(src, "    const int below = w0 < 0 ? kChunk : min(kChunk, max(0, w0 - c * "
+              "kChunk));", "    const int below = w0 >= 0 && w0 <= c * kChunk ? 0 : kChunk;")
+    src = sub(src, "        // 1. the chunk as float32",
+              "        if (w0 >= 0 && t0 + kChunk - 1 >= w0) {\n"
+              "          int8_t* sw = ring + static_cast<int64_t>(slot) * L::kSlotElems;\n"
+              "          for (int p = tall; p < 2 * kChunk * D; p += NT) {\n"
+              "            const int kv = p / (kChunk * D), i = (p / D) % kChunk, d = p % D;\n"
+              "            const int t = t0 + i, nr = wrk0 + t;\n"
+              "            if (t >= w0 && t <= ulast && nr >= 0 && nr < a.N)\n"
+              "              sw[kv * kChunk * D + i * D + d] = stored<int8_t>(static_cast<"
+              "const float*>(kv ? a.v_new : a.k_new)[static_cast<int64_t>(nr) * a.sqn + "
+              "sqh + d], &s_sc[kv][d]);\n"
+              "          }\n          __syncthreads();\n        }\n"
+              "        // 1. the chunk as float32")
+    return sub(src, "        if (w0 >= 0 && t0 + kChunk - 1 >= w0) {\n          for (int p = "
+               "tall; p < 2 * kChunk * W; p += NT) {",
+               "        if (false) {\n          for (int p = tall; p < 2 * kChunk * W; "
+               "p += NT) {")
+
+
+def i8_variants():
+    """The int8 kernel's variants (``--cache int8``)."""
+    phase1 = ("        // 1. the chunk as float32",
+              "        // the slot is read: order that")
+    math = ("        // 2. the scores",
+            "      item += mine;\n    }\n    // the chunks' buffers are read")
+    return {
+        "base": SRC,
+        "butterfly": i8_butterfly(SRC),
+        "i2f": cut(SRC, "  const uint32_t x = w ^ 0x80808080u;",
+                   "}\n\n// 4 values of a new row (src) in stored form",
+                   "  const char4 c = *reinterpret_cast<const char4*>(&w);\n"
+                   "  return make_float4(static_cast<float>(c.x), static_cast<"
+                   "float>(c.y), static_cast<float>(c.z),\n"
+                   "                     static_cast<float>(c.w));\n"),
+        "fillnow": i8_fillnow(SRC),
+        **{f"cluster{n}": i8knob("kQCluster", n) for n in (1, 4, 8)},
+        **{f"ring{n}": i8knob("kQRing", n) for n in (2, 4)},
+        "minblocks1": i8knob("kQMinBlocks", 1),
+        "convonly": cut(SRC, *math, "      }\n"),
+        "noscores": cut(SRC, "        // 2. the scores",
+                        "        // 3. each row's running max",
+                        "        __syncthreads();\n"),
+        "nophase3": cut(SRC, "        // 3. each row's running max", math[1],
+                        "      }\n"),
+        "nomath": cut(cut(SRC, *phase1), *math, "      }\n"),
+        "empty": sub(SRC, "  const int group = static_cast<int>(cid / a.A);\n",
+                     "  if (a.A > 0) return;\n"
+                     "  const int group = static_cast<int>(cid / a.A);\n"),
+    }
+
+
+#: the kernel whose build report each variant prints, by cache
+REPORT = {"float32": "paged_verify_kernelIffLi128EE",
+          "int8": "paged_verify_i8_kernelILi128EE"}
+
+
+def _so(name, cache):
+    return os.path.join(OUT, cache, name, f"lib{pa._LIB}.so")
+
+
+def build(variants, cache):
     """Every variant's library, built in parallel by the port's nvcc
     command. Stops (non-zero exit) naming every variant that failed to
     build."""
     nvcc, procs = _cuda.nvcc(), {}
     for name, text in variants.items():
-        d = os.path.join(OUT, name)
+        d = os.path.dirname(_so(name, cache))
         os.makedirs(d, exist_ok=True)
         with open(_cuda.source(pa._LIB, d), "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            _cuda.build_command(pa._LIB, _so(name), nvcc, csrc=d),
+            _cuda.build_command(pa._LIB, _so(name, cache), nvcc, csrc=d),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     failed = []
     for name, proc in procs.items():
@@ -158,13 +291,14 @@ def build(variants):
         if proc.returncode:
             failed.append(f"{name}: nvcc failed\n{log[-3000:]}")
             continue
-        lines = log.splitlines()
-        at = next((i for i, ln in enumerate(lines) if "Function properties"
-                   in ln and "paged_verify_kernelIfLi128E" in ln), None)
-        if at is not None:
-            print(f"  {name} <float, 128>: " + "; ".join(
-                ln.split(":")[-1].strip() for ln in lines[at + 1:at + 3]),
-                flush=True)
+        use, spills = measure.ptxas_usage(log), measure.ptxas_spills(log)
+        # the first design's int8 verify is the float kernel's template
+        want = (REPORT[cache], "paged_verify_kernelIfaLi128EE")
+        fn = next((f for f in use if want[0] in f), None) or next(
+            (f for f in use if want[1] in f), None)
+        if fn is not None:
+            print(f"  {name} {fn[5:45]}: {use[fn]} registers/smem, spill "
+                  f"stores/loads {spills.get(fn)}", flush=True)
     if failed:
         raise SystemExit("\n".join(failed))
 
@@ -175,14 +309,19 @@ def _cases():
             **chip_smoke.verify_mixes()}
 
 
-def _case(dev, ctxs):
+def _case(dev, ctxs, cache):
     """The verify's inputs with the window's rows already written (the
-    write is idempotent, so every timed call sees the same cache)."""
-    case = measure.paged_verify_case(
+    write is idempotent, so every timed call sees the same cache), and the
+    int8 cache's scales (None for a float32 cache)."""
+    case = list(measure.paged_verify_case(
         dev, [c or 0 for c in ctxs], W, 12, 128, 16, torch.float32,
-        active=[c is not None for c in ctxs])
-    pa.paged_verify_plain(*case)
-    return case
+        active=[c is not None for c in ctxs]))
+    scales = None
+    if cache == "int8":
+        case[3], case[4], ks, vs = measure.int8_cache(case[3], case[4])
+        scales = (ks, vs)
+    pa.paged_verify_plain(*case, *(scales or ()))
+    return case, scales
 
 
 def first_design(parent):
@@ -192,30 +331,31 @@ def first_design(parent):
         return {"v1": f.read()}
 
 
-def time_variant(name, card):
+def time_variant(name, card, cache):
     """One variant's times at every context (this process loads only its
     library), each with whether its rows are the decode kernel's bits."""
     dev = torch.device("cuda")
-    lib = ctypes.CDLL(_so(name))
+    lib = ctypes.CDLL(_so(name, cache))
     for entry, argtypes in pa.ENTRIES.items():
-        _cuda.declare(getattr(lib, entry), argtypes)
+        if hasattr(lib, entry):
+            _cuda.declare(getattr(lib, entry), argtypes)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     res = []
     for label, ctxs in _cases().items():
-        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = _case(dev,
-                                                                       ctxs)
+        case, scales = _case(dev, ctxs, cache)
+        q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
 
         def call():
             return pa._launch(q, kc, vc, tab, lane, kmax, (kn, vn, wb, wo),
-                              (win0, wrow), lib=lib)
+                              (win0, wrow), lib=lib, scales=scales)
         ms = measure.median_ms(call, flush)
         got = call()
         dec = pa._launch(q, kc, vc, tab, lane, kmax, (kn, vn, wb, wo),
-                         lib=lib)
+                         lib=lib, scales=scales)
         torch.cuda.synchronize()
         res.append(f"{label}: {ms:.4f} (rows = decode bits "
                    f"{torch.equal(got, dec)})")
-    print(f"  {name}: ms at " + "; ".join(res) + f"  [{card}]",
+    print(f"  {name} [{cache}]: ms at " + "; ".join(res) + f"  [{card}]",
           flush=True)
 
 
@@ -225,6 +365,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant")
     ap.add_argument("--only")
+    ap.add_argument("--cache", choices=("float32", "int8"),
+                    default="float32")
     ap.add_argument("--parent", help="a checkout whose csrc holds the "
                     "first design (adds v1)")
     card = subprocess.run(
@@ -233,33 +375,38 @@ def main():
     ).stdout.strip().splitlines()[0]
     opts = ap.parse_args()
     if opts.variant:
-        return time_variant(opts.variant, card)
+        return time_variant(opts.variant, card, opts.cache)
     every = {**(first_design(opts.parent) if opts.parent else {}),
-             **VARIANTS}
+             **(i8_variants() if opts.cache == "int8" else VARIANTS)}
     variants = {n: every[n] for n in (opts.only.split(",") if opts.only
                                       else every)}
     t0 = time.perf_counter()
-    build(variants)
+    build(variants, opts.cache)
     print(f"{card}; {len(variants)} variants built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     for label, ctxs in _cases().items():
-        case = _case(dev, ctxs)
+        case, scales = _case(dev, ctxs, opts.cache)
         q, kn, vn, kc, vc, tab, lane, kmax, win0, wrow, wb, wo = case
+        if scales is not None:
+            kc, vc = (pa.dequantized(c, s)
+                      for c, s in ((kc, scales[0]), (vc, scales[1])))
         qs, dk, dv, mask = measure.paged_verify_library(
             q, kc, vc, tab, lane, kmax, LANES, W)
         lib = measure.median_ms(lambda: F.scaled_dot_product_attention(
             qs, dk, dv, attn_mask=mask), flush)
-        _, nbytes = measure.paged_bounds(q, kc, tab, lane, kmax,
+        _, nbytes = measure.paged_bounds(q, case[3], tab, lane, kmax,
                                          int((wb >= 0).sum()), win0)
-        print(f"{label} {ctxs}: library {lib:.4f} ms, bound "
+        print(f"{label} {ctxs}: library {lib:.4f} ms (masked SDPA over the "
+              f"{'dequantised ' if scales else ''}context), bound "
               f"{1e3 * nbytes / 3.35e12:.4f}  [{card}]", flush=True)
     del flush
     failed = []
     for name in variants:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--variant", name]).returncode
+                             "--variant", name, "--cache", opts.cache]
+                            ).returncode
         if rc:
             failed.append(name)
     if failed:

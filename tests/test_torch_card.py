@@ -1335,6 +1335,56 @@ def test_int8_prefill_kernel_at_phase_22_shapes(card, hist, rows, length,
         assert measure.paged_reading(out, want, terms, 1e-5) <= 1, chunk
 
 
+#: phase 22's shapes for the int8 verify (W, head dim, blocks of, dense)
+INT8_VERIFY_CASES = [(w, d, bs, dense, dt)
+                     for w, d, bs, dense in ((1, 64, 16, False),
+                                             (3, 64, 16, False),
+                                             (8, 128, 16, False),
+                                             (20, 64, 16, False),
+                                             (8, 16, 5, False),
+                                             (8, 32, 1, False),
+                                             (3, 128, 512, True),
+                                             (20, 16, 1, False))
+                     for dt in (torch.float32, torch.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,d,bs,dense,dtype", INT8_VERIFY_CASES)
+def test_int8_verify_kernel_at_phase_22_shapes(card, w, d, bs, dense, dtype):
+    """The int8 verify (float32: ``paged_verify_i8_kernel``; float64: the
+    float kernel's template over int8) against ``paged_verify_plain``
+    within 1e-5 / 1e-12 of the sum of each output's absolute terms, the
+    int8 rows it wrote bit-equal to the plain store, two calls bit-equal,
+    and each row bit-equal to the decode kernel's over the written cache."""
+    from deeplearning4j_tpu_torch.kernels import measure
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    case = measure.paged_verify_case(
+        card, [0, 40, 300, 500], w, 3, d, bs, dtype,
+        active=[True, True, False, True], seed=w + d, dense=dense)
+    q, kn, vn, kc, vc, tables, lane, kmax, win0, wrow, wb, wo = case
+    kc8, vc8, ks, vs = measure.int8_cache(kc, vc)
+
+    def run(fn):
+        k2, v2 = kc8.clone(), vc8.clone()
+        return fn(q, kn, vn, k2, v2, tables, lane, kmax, win0, wrow, wb, wo,
+                  ks, vs), k2, v2
+    before = pa.INT8_LAUNCHES["paged_verify_attention"]
+    got, gk, gv = run(pa.paged_verify_attention)
+    again, ak, av = run(pa.paged_verify_attention)
+    assert pa.INT8_LAUNCHES["paged_verify_attention"] - before == 2
+    want, wk, wv = run(pa.paged_verify_plain)
+    terms = pa.abs_terms(q, wk, wv, tables, lane, kmax, ks, vs)
+    assert measure.paged_reading(got, want, terms, tol) <= 1
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(got, again) and torch.equal(gk, ak) and \
+        torch.equal(gv, av)
+    act = (wb >= 0).nonzero().flatten()
+    dec = pa.paged_decode_attention(q, kn, vn, gk.clone(), gv.clone(), tables,
+                                    lane, kmax, wb, wo, ks, vs)
+    assert torch.equal(dec[act], got[act])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype,int8", [
     (128, torch.float32, False), (128, torch.float32, True),

@@ -715,9 +715,12 @@ def test_verify_runs_the_decode_kernel_with_windows():
     own in the decode kernel's order, the rows side by side), over
     chunks copied once a run; a key at or past a row's window start is a
     new row put in the chunk, never a cache read (the copy skips it), and
-    each row's 8 partials are combined in rank order as the decode's. Over
-    an int8 cache in float32 it takes the decode's fold too (q * s_k
-    rounded once, the stored integers in the loop, s_v in the combine)."""
+    each row's 8 partials are combined in rank order as the decode's.
+    Float64 rows over an int8 cache read each stored value dequantised,
+    as the float64 decode does; over an int8 cache in float32 the launch
+    goes to paged_verify_i8_kernel, which takes the decode's fold (q *
+    s_k rounded once, the stored integers in the loop, s_v in the
+    combine; tests/test_torch_verify_i8.py)."""
     import pathlib
     import re
     code = "\n".join(line.split("//")[0] for line in (
@@ -796,14 +799,15 @@ def test_verify_runs_the_decode_kernel_with_windows():
              "for (int e = 0; e < E; ++e) acc[x][j][e] += p * vr[j][e];"),
             ("m = mx;", "if (go[x]) m[x] = mx[x];")):
         assert d_stmt in dec and v_stmt in body, (d_stmt, v_stmt)
-    # keys and values read as the decode reads them (an int8 cache's
-    # scales folded out of the loop in float32, as the decode's), q taken
-    # with the decode's fold, the output with its unfold
-    assert body.count("ldkv<L::kFold, T, E>(") == 2
+    # keys and values read as the decode reads them: the decode folds an
+    # int8 cache's scales out of its loop in float32 only, and this
+    # kernel serves no such case (a float cache, or float64 over int8:
+    # each stored value dequantised as read)
+    assert body.count("ldkv<false, T, E>(") == 2
     assert dec.count("ldkv<L::kFold, T, E>(") == 2
     assert "qr[j][e] = fold<L::kFold>(qp[d], scales(0, d));" in dec
-    assert "qr[i][j][e] = row < a.N ? fold<L::kFold>(qp[d], ks) : T(0);" \
-        in body
+    assert "qr[i][j][e] = row < a.N ? qp[d] : T(0);" in body
+    assert "kFold" not in body
     assert "if (t <= ulast && !windowed(t)) {" in body
     assert "static_cast<const T*>(kv ? a.v_new : a.k_new)" in body
     assert "res = fold<L::kFold>(oc, scales(1, tid)) / lc;" in dec
@@ -811,6 +815,6 @@ def test_verify_runs_the_decode_kernel_with_windows():
                  "const T w = exp_(rm[2 * i] - mb);",
                  "lc += part_ml[pr][k][1] * w;",
                  "oc += part_acc[pr][k][d] * w;",
-                 "res = fold<L::kFold>(oc, scales(1, d)) / lc;"):
+                 "res = oc / lc;"):
         assert stmt in body, stmt
     assert "atomic" not in code
