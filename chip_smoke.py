@@ -325,6 +325,26 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler``: the int8 paged prefill kernel's and its combining
    kernel's device time and launches over the run's prefills, each
    traced count equal to the wrapper's.
+25. main path: ResNet-50 (``ResNet50().build()``: 224x224x3, 1000
+   classes, float32, on the card with no ``device=``) served through
+   ``ParallelInference``, TF32 off, its batch-norm running statistics set
+   from 32 seeded images: SEQUENTIAL, INPLACE and BATCHED (2 workers,
+   max_batch_size 32, buckets 4-32, max_delay_ms 2) on 24 seeded
+   requests of 1-4 images, each within 1e-4 of ``output()`` with its
+   top-1; alone and co-batched rows bit-equal at bucket 32; a NaN request
+   quarantined with its neighbours served their solo rows; injected exec
+   failures open the breaker, which sheds and closes; the warmup's
+   seconds, then ``compiles == 0`` over the traffic:
+   ``LoadGenerator.run_closed(512, concurrency=8)`` and ``run_open(512)``
+   at half its requests/s (images/s, requests/s, latency p50/p99, mean
+   batch rows, padding waste); torch.profiler over 20 BATCHED execs at
+   bucket 32 (device ms, launches, top kernels, and the idle share of
+   that same pass), each bucket's device ms over 20 direct execs, the
+   bucket-32 exec against its float32 FMA-rate bound, and with TF32
+   allowed. No kernel of the port's own lies on this path.
+
+Every idle share is read from one profiled pass: its device busy time
+against that pass's own wall time.
 
 The last lines are the kernels' JSON record (``launches`` counts each
 kernel's main path's timed run, ``launches_per_step`` one step, and for
@@ -350,8 +370,8 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels.measure import (
     BF16_TC_FLOPS, attention_bounds, attention_inputs, card_rates,
-    median_ms, ptxas_spills, ptxas_usage, sass_counts, sass_kernels,
-    synced_ms, tensor_map_encode_us)
+    forward_macs, median_ms, ptxas_spills, ptxas_usage, sass_counts,
+    sass_kernels, set_running_stats, synced_ms, tensor_map_encode_us)
 
 STEPS = 8
 BATCH = 128
@@ -1013,8 +1033,10 @@ def whole_steps_lost(short, full, steps):
 def profile_fit(fit, steps, step_ms, card):
     """``fit()`` (``steps`` training steps, the same replayed or eager step
     each time) under torch.profiler: device time per step by kernel and by
-    kind, device launches a step, against the unprofiled step time
-    ``step_ms`` (the rest is the device's idle share); each BN kernel must
+    kind, device launches a step, and the idle share of the traced pass
+    itself (busy against its own wall time a step; the unprofiled step
+    time ``step_ms`` is printed beside it, and no ratio is taken across
+    the two runs); each BN kernel must
     launch 33 (ReLU) and 20 times a step. A pass whose trace holds fewer BN
     launches is repeated once: if the repeat is complete and the first
     pass held every kernel at the same whole-step share of the repeat's
@@ -1060,10 +1082,9 @@ def profile_fit(fit, steps, step_ms, card):
     if busy == 0:
         raise SystemExit("the profiler recorded no device time")
     launches = sum(n for _, n in per_kernel.values())
-    log(f"    per step: device busy {busy:.2f} ms of an unprofiled "
-        f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f} "
-        f"({1 - busy / traced_ms:.3f} of the traced pass's own "
-        f"{traced_ms:.2f} ms a step); "
+    log(f"    per step: device busy {busy:.2f} ms of the traced pass's own "
+        f"{traced_ms:.2f} ms a step: idle share {1 - busy / traced_ms:.3f} "
+        f"(the unprofiled step: {step_ms:.2f} ms); "
         f"{launches:.0f} device launches (PR 1's "
         f"{TRITON_PHASE1_LAUNCHES_PER_STEP} with the Triton phase 1 and its "
         f"PyTorch fold, 4243 per-step before the _foreach updaters){note}  "
@@ -1079,7 +1100,7 @@ def profile_fit(fit, steps, step_ms, card):
             if key == name or key.startswith(name + "_"):
                 kernel_ms[name] = kernel_ms.get(name, 0.0) + ms
     log(f"    BN backward device launches per step: {kernel_n}")
-    return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
+    return {"busy_ms": busy, "idle_share": 1 - busy / traced_ms,
             "traced_ms": traced_ms, "launches": launches,
             "by_kind_ms": by_kind, "kernel_ms": kernel_ms,
             "repeated": bool(note),
@@ -1711,8 +1732,10 @@ def profile_gpt_replay(sd, it, step_ms, card):
     """One scanned epoch (one replay) under torch.profiler: each attention
     kernel's launches in the trace, which must equal what the wrappers
     counted for the replay; device launches, busy time and idle share a
-    step. A trace with fewer launches than counted (the tracer can drop a
-    window's first kernels) is taken once more."""
+    step, the idle share against the traced epoch's own wall time (the
+    timed step ``step_ms`` printed beside it). A trace with fewer launches
+    than counted (the tracer can drop a window's first kernels) is taken
+    once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.kernels import attention as at
@@ -1721,8 +1744,10 @@ def profile_gpt_replay(sd, it, step_ms, card):
         before = dict(at.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             sd.fit(it)
             torch.cuda.synchronize()
+            traced_ms = 1000 * (time.perf_counter() - t0) / GPT_STEPS
         counted = {k: at.LAUNCHES[k] - before[k] for k in ATTN_KERNELS}
         if sd.last_fit_stats["graph_replays_per_epoch"] != 1:
             raise SystemExit("the profiled epoch was not one replay")
@@ -1739,12 +1764,14 @@ def profile_gpt_replay(sd, it, step_ms, card):
             f"wrappers counted {counted}: taken again")
     busy /= GPT_STEPS
     r = {"launches": n_act / GPT_STEPS, "kernels": n_kernels / GPT_STEPS,
-         "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+         "busy_ms": busy, "idle_share": 1 - busy / traced_ms,
+         "traced_ms": traced_ms,
          "attention_traced": traced, "attention_counted": counted}
     log(f"  profiler, one replay of the scanned epoch: {r['launches']:.1f} "
         f"device launches a step ({r['kernels']:.1f} kernels), busy "
-        f"{busy:.3f} ms a step, idle share {r['idle_share']:.3f} against the "
-        f"timed {step_ms:.2f} ms step; attention kernels in the trace "
+        f"{busy:.3f} ms a step of the traced epoch's {traced_ms:.2f}: idle "
+        f"share {r['idle_share']:.3f} (the timed step: {step_ms:.2f} ms); "
+        f"attention kernels in the trace "
         f"{traced}, counted by the wrappers {counted}  [{card}]")
     if traced != counted:
         raise SystemExit(f"the replay's trace holds {traced} attention "
@@ -1829,7 +1856,9 @@ GPT_GROUPS = {
 
 def profile_gpt(sd, it, step_ms, card):
     """Two GPT steps under torch.profiler: device launches and busy time
-    per step, and device time by group. Each SameDiff op runs inside a
+    per step, the idle share against the traced steps' own wall time (the
+    unprofiled step ``step_ms`` printed beside it), and device time by
+    group. Each SameDiff op runs inside a
     ``record_function`` for the profile (the port has none of its own);
     a backward kernel is charged to the op whose forward recorded its
     autograd node (matched by sequence number); the parameter casts and
@@ -1852,8 +1881,10 @@ def profile_gpt(sd, it, step_ms, card):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             sd.fit(two)
             torch.cuda.synchronize()
+            traced_ms = 1000 * (time.perf_counter() - t0) / 2
     finally:
         samediff.SameDiff._run_nodes = staticmethod(real)
     events = prof.events()
@@ -1914,18 +1945,20 @@ def profile_gpt(sd, it, step_ms, card):
     busy = sum(by_group.values())
     if busy == 0:
         raise SystemExit("the profiler recorded no device time")
-    log(f"  profiler, per step: device busy {busy:.2f} ms of an unprofiled "
-        f"{step_ms:.2f} ms step: idle share {1 - busy / step_ms:.3f}; "
-        f"{n_kernels / 2:.0f} device launches  [{card}]")
+    log(f"  profiler, per step: device busy {busy:.2f} ms of the traced "
+        f"steps' own {traced_ms:.2f} ms: idle share "
+        f"{1 - busy / traced_ms:.3f} (the unprofiled step: {step_ms:.2f} "
+        f"ms); {n_kernels / 2:.0f} device launches  [{card}]")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        log(f"    {ms:8.3f} ms  {ms / step_ms:.3f} of the step  {g}")
+        log(f"    {ms:8.3f} ms  {ms / busy:.3f} of busy  {g}")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:8.3f} ms  {key[:100]}")
     log(f"    attention kernels in the step, ms per step: "
         f"{ {k: round(v, 3) for k, v in attn.items()} }")
     if set(attn) != set(ATTN_KERNELS):
         raise SystemExit(f"profiled attention kernels {sorted(attn)}")
-    return {"busy_ms": busy, "idle_share": 1 - busy / step_ms,
+    return {"busy_ms": busy, "idle_share": 1 - busy / traced_ms,
+            "traced_ms": traced_ms,
             "launches": n_kernels / 2, "by_group_ms": by_group,
             "kernel_ms": attn}
 
@@ -3311,8 +3344,10 @@ def time_tier(fit, sd, steps, batch, base):
     st = dict(sd.last_fit_stats)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fit(1)
         torch.cuda.synchronize()
+        traced_ms = 1000 * (time.perf_counter() - t0) / steps
     n_dev, n_kern, busy, by_name = device_activity(prof)
     losses = hist.step_losses + last.step_losses
     if not (np.all(np.isfinite(losses)) and
@@ -3325,7 +3360,8 @@ def time_tier(fit, sd, steps, batch, base):
             "device_events_per_step": n_dev / steps,
             "kernels_per_step": n_kern / steps,
             "busy_ms_per_step": busy / steps,
-            "idle_share": 1 - busy / steps / step_ms if busy else None,
+            "traced_ms": traced_ms,
+            "idle_share": 1 - busy / steps / traced_ms if busy else None,
             "peak_gib": (peak - base) / 2 ** 30, "base_gib": base / 2 ** 30,
             "top_ms": sorted(((ms / steps, n) for n, ms in by_name.items()),
                              reverse=True)[:8],
@@ -3342,7 +3378,8 @@ def _log_tier(model, tier, r, card):
         f"{r['replays_per_epoch']}, dispatches {r['dispatches_per_epoch']} "
         f"{r['window_sizes']}; profiler: {r['device_events_per_step']:.1f} "
         f"device launches a step ({r['kernels_per_step']:.1f} kernels), "
-        f"busy {r['busy_ms_per_step']:.4f} ms a step, idle share {idle}; "
+        f"busy {r['busy_ms_per_step']:.4f} ms a step of the traced epoch's "
+        f"{r['traced_ms']:.4f}, idle share {idle}; "
         f"peak {r['peak_gib']:.4f} GiB above the {r['base_gib']:.3f} GiB "
         f"earlier phases hold (parameters, Adam state, data, activations, "
         f"graph pools); loss {r['first_loss']:.4f} -> "
@@ -4548,14 +4585,17 @@ def _bert_epoch(sd, data, label, card):
 
 def profile_bert_replay(sd, it, step_ms, card):
     """One scanned epoch (one replay) under torch.profiler: device
-    launches, busy time and idle share a step, and device time a step by
-    kernel group."""
+    launches, busy time and idle share a step (against the traced epoch's
+    own wall time; the timed step ``step_ms`` printed beside it), and
+    device time a step by kernel group."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         sd.fit(it)
         torch.cuda.synchronize()
+        traced_ms = 1000 * (time.perf_counter() - t0) / BERT_STEPS
     if sd.last_fit_stats["graph_replays_per_epoch"] != 1:
         raise SystemExit("the profiled BERT epoch was not one replay")
     n_act, n_kernels, busy, by_name = device_activity(prof)
@@ -4567,12 +4607,13 @@ def profile_bert_replay(sd, it, step_ms, card):
         by_group[g] = by_group.get(g, 0.0) + ms / BERT_STEPS
     busy /= BERT_STEPS
     r = {"launches": n_act / BERT_STEPS, "kernels": n_kernels / BERT_STEPS,
-         "busy_ms": busy, "idle_share": 1 - busy / step_ms,
-         "by_group_ms": by_group}
+         "busy_ms": busy, "idle_share": 1 - busy / traced_ms,
+         "traced_ms": traced_ms, "by_group_ms": by_group}
     log(f"  profiler, one replay of the scanned epoch: {r['launches']:.1f} "
         f"device launches a step ({r['kernels']:.1f} kernels), busy "
-        f"{busy:.3f} ms a step, idle share {r['idle_share']:.3f} against the "
-        f"timed {step_ms:.2f} ms step  [{card}]")
+        f"{busy:.3f} ms a step of the traced epoch's {traced_ms:.2f}: idle "
+        f"share {r['idle_share']:.3f} (the timed step: {step_ms:.2f} ms)  "
+        f"[{card}]")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         log(f"    {ms:8.3f} ms  {ms / busy:.3f} of busy  {g}")
     for key, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -5368,6 +5409,353 @@ def int8kv_kernel_records(t, serve, errs):
 
 
 # ----------------------------------------------------------------------
+# phase 25: ResNet-50 served through ParallelInference
+PI_BUCKETS = (4, 8, 16, 32)
+PI_TOL = 1e-4           # served vs output(), softmax probabilities
+PI_POOL = 64            # distinct seeded images the requests slice
+PI_REQUESTS = 512
+
+
+def _top1_gate(got, want, label):
+    """Top-1 of every served row equals ``output()``'s, except where
+    ``output()``'s own two best classes lie within 2 x PI_TOL (counted)."""
+    s = np.sort(want, axis=1)
+    decided = s[:, -1] - s[:, -2] > 2 * PI_TOL
+    same = got.argmax(1) == want.argmax(1)
+    if not np.all(same[decided]):
+        raise SystemExit(f"{label}: top-1 differs from output() on "
+                         f"{int((~same & decided).sum())} rows")
+    return int((~decided).sum())
+
+
+def _served_vs_direct(outs, direct, label, card):
+    errs = [float(np.abs(o - d).max()) for o, d in zip(outs, direct)]
+    ties = sum(_top1_gate(o, d, label) for o, d in zip(outs, direct))
+    worst = max(errs)
+    log(f"  {label}: {len(outs)} requests, {sum(len(d) for d in direct)} "
+        f"images: worst |served - output()| {worst:.3e} (tol {PI_TOL:g}), "
+        f"top-1 equal ({ties} near-ties exempt)  [{card}]")
+    if not worst <= PI_TOL:
+        raise SystemExit(f"{label}: served outputs {worst:.3e} from "
+                         f"output(), tolerance {PI_TOL:g}")
+    return worst
+
+
+def _pi_delta(pi, before):
+    c = pi.metrics.counters
+    d = {k: c[k] - before.get(k, 0) for k in c}
+    d["mean_batch_rows"] = (d["rows_served"] / d["batches_dispatched"]
+                            if d["batches_dispatched"] else 0.0)
+    d["padding_waste"] = (d["rows_padded"] / (d["rows_served"]
+                                              + d["rows_padded"])
+                          if d["rows_served"] else 0.0)
+    return d
+
+
+def _log_load(label, res, d, card):
+    images = d["rows_served"]
+    log(f"  {label}: {res.n_ok}/{res.n_issued} ok ({res.n_rejected} "
+        f"rejected, {res.n_timed_out} timed out, {res.n_failed} failed) in "
+        f"{res.duration_s:.3f} s: {images / res.duration_s:.1f} images/s, "
+        f"{res.throughput_rps:.1f} requests/s; latency p50 "
+        f"{res.percentile(50):.2f} ms, p99 {res.percentile(99):.2f} ms; "
+        f"{d['batches_dispatched']} batches, mean {d['mean_batch_rows']:.2f} "
+        f"rows, padding waste {d['padding_waste']:.4f}; compiles "
+        f"{d['compiles']}  [{card}]")
+    if res.n_ok != res.n_issued:
+        raise SystemExit(f"{label}: {res.n_issued - res.n_ok} requests not "
+                         f"served")
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler: (its wall ms, device busy ms as the
+    union of device intervals, device activities, kernels, ms by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1000 * (time.perf_counter() - t0)
+    n_act, n_kernels, busy, by_name = device_activity(prof)
+    if busy == 0:
+        raise SystemExit("the profiler recorded no device time")
+    return wall, busy, n_act, n_kernels, by_name
+
+
+def phase_parallel_inference(card):
+    """ResNet-50 (224x224x3, 1000 classes, float32, random weights from
+    the zoo's seed, batch-norm running statistics set from one seeded
+    batch) served through ``ParallelInference(ResNet50().build())`` on the
+    card, TF32 off (cuDNN's float32 convolutions):
+
+    1. gates: SEQUENTIAL, INPLACE and BATCHED (2 workers, max_batch_size
+       32, buckets 4-32) serve 24 seeded requests of 1-4 images, each
+       within PI_TOL of ``output()`` with the same top-1; on a server with
+       the one bucket 32, requests served alone and co-batched give
+       bit-equal rows, a NaN request is quarantined
+       (``PoisonedRequestError``) while its co-batched neighbours are
+       served their solo rows, and injected exec failures open the
+       breaker, which sheds and then closes;
+    2. warmup of the four buckets (seconds), then ``compiles == 0`` over
+       all the traffic;
+    3. ``LoadGenerator`` (requests of 1-4 images, uniform, seed 0,
+       max_delay_ms 2): ``run_closed(512, concurrency=8)``, then
+       ``run_open(512)`` at half its requests/s;
+    4. torch.profiler over 20 BATCHED execs at bucket 32 (20 requests of
+       32 images submitted at once): device ms and launches an exec, top
+       kernels, the idle share of that pass (wall against busy); each
+       bucket's device ms per exec over 20 direct execs; the bucket-32
+       exec against its FMA-rate bound (``card_rates``: float32 outside
+       the tensor cores, 67 TFLOP/s on an H100 SXM), and with
+       TF32 allowed, for comparison."""
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    log("  TF32 off: torch.backends.cudnn.allow_tf32 = False")
+    try:
+        t0 = time.perf_counter()
+        net = ResNet50().build()             # the card: no device= given
+        n_params = net.num_params()
+        log(f"  ResNet50(): {n_params} parameters on {net.device}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if net.device.type != "cuda" or n_params < 25_000_000:
+            raise SystemExit(f"ResNet50() built {n_params} parameters on "
+                             f"{net.device}")
+        serve_resnet(net, 224, PI_REQUESTS, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def serve_resnet(net, hw, n_requests, card):
+    """Phase 25's gates, warmup, traffic and profiled execs over ``net``
+    (a ResNet-50 at ``hw`` x ``hw``) on its device."""
+    from deeplearning4j_tpu_torch.serving import (InferenceMode,
+                                                  LoadGenerator,
+                                                  ParallelInference)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pool = rng.uniform(size=(PI_POOL, 3, hw, hw)).astype(np.float32)
+    set_running_stats(net, pool[:32])
+    log(f"  running statistics from 32 seeded images, {PI_POOL} seeded "
+        f"images to serve, in {time.perf_counter() - t0:.1f} s")
+
+    def request(rng_, i=None):
+        rows = int(rng_.integers(1, 5))
+        s = int(rng_.integers(0, PI_POOL - rows + 1))
+        return pool[s:s + rows]
+
+    reqs = [request(rng) for _ in range(24)]
+    direct = [net.output(x)[0].cpu().numpy() for x in reqs]
+    spread = max(float(np.abs(d[0] - direct[0][0]).max()) for d in direct)
+    log(f"  output(): the requests' first rows differ by up to {spread:.3e} "
+        f"(the outputs depend on the input; tolerance {PI_TOL:g})")
+    if spread < 100 * PI_TOL:
+        raise SystemExit(f"outputs barely depend on the input ({spread:.3e})")
+
+    # 1. gates
+    for mode in ("SEQUENTIAL", "INPLACE"):
+        with ParallelInference(net, mode=getattr(InferenceMode, mode),
+                               workers=2) as pi:
+            if pi.device != net.device:
+                raise SystemExit(f"{mode} server on {pi.device}, the "
+                                 f"network on {net.device}")
+            futs = [pi.submit(x) for x in reqs]
+            outs = [f.result(timeout=300) for f in futs]
+        _served_vs_direct(outs, direct, mode, card)
+    t0 = time.perf_counter()
+    pi = ParallelInference(net, mode=InferenceMode.BATCHED, workers=2,
+                           max_batch_size=32, max_delay_ms=2.0,
+                           max_queue_len=512, warmup_buckets=True)
+    build_s = time.perf_counter() - t0
+    rep = pi.warmup_report
+    log(f"  BATCHED server (2 workers, max_batch_size 32, buckets "
+        f"{pi._batcher.spec.buckets}, max_delay_ms 2.0) built in "
+        f"{build_s:.2f} s, of which the warmup of buckets {rep['buckets']}: "
+        f"{rep['seconds']:.3f} s; warmup_compiles "
+        f"{pi.metrics.counters['warmup_compiles']}  [{card}]")
+    try:
+        if tuple(pi._batcher.spec.buckets) != PI_BUCKETS:
+            raise SystemExit(f"buckets {pi._batcher.spec.buckets}")
+        futs = [pi.submit(x) for x in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+        _served_vs_direct(outs, direct, "BATCHED", card)
+        _phase25_rail(net, reqs, card)
+
+        # 3. traffic
+        lg = LoadGenerator(pi, request, seed=0)
+        before = dict(pi.metrics.counters)
+        res = lg.run_closed(n_requests, concurrency=8)
+        closed = _pi_delta(pi, before)
+        _log_load(f"closed loop ({n_requests} requests, concurrency 8)",
+                  res, closed, card)
+        rate = res.throughput_rps / 2
+        before = dict(pi.metrics.counters)
+        res_open = lg.run_open(n_requests, rate_rps=rate)
+        _log_load(f"open loop ({n_requests} requests at {rate:.1f} "
+                  f"requests/s)", res_open, _pi_delta(pi, before), card)
+        if pi.metrics.counters["compiles"] != 0:
+            raise SystemExit(f"{pi.metrics.counters['compiles']} shapes "
+                             f"first seen under traffic after warmup")
+        log(f"  compiles after warmup: 0 over "
+            f"{pi.metrics.counters['requests_served']} requests")
+
+        # 4. profiled execs
+        _phase25_profile(net, pi, pool, card)
+    finally:
+        pi.shutdown()
+
+
+def _phase25_rail(net, reqs, card):
+    """Bit-equality, quarantine and the breaker, on a server with the one
+    bucket 32 (every exec at one shape)."""
+    from deeplearning4j_tpu_torch.serving import (InferenceMode,
+                                                  ParallelInference,
+                                                  PoisonedRequestError,
+                                                  ResilienceConfig,
+                                                  ServerOverloadedError,
+                                                  ServingError)
+    cfg = ResilienceConfig(breaker_failure_threshold=3, breaker_reset_s=0.5,
+                           single_retries=0, admission=False)
+    with ParallelInference(net, mode=InferenceMode.BATCHED, workers=1,
+                           max_batch_size=32, buckets=(32,),
+                           max_delay_ms=500.0, resilience=cfg) as rp:
+        trio = reqs[:3]
+        solo = [rp.output(x) for x in trio]
+        n0 = rp.metrics.counters["batches_dispatched"]
+        futs = [rp.submit(x) for x in trio]
+        together = [f.result(timeout=300) for f in futs]
+        n1 = rp.metrics.counters["batches_dispatched"]
+        bit = all(np.array_equal(a, b) for a, b in zip(solo, together))
+        log(f"  alone vs co-batched at bucket 32: {len(trio)} requests in "
+            f"{n1 - n0} batch, rows bit-equal {bit}  [{card}]")
+        if not bit or n1 - n0 != 1:
+            raise SystemExit("co-batched rows differ from solo rows")
+        futs = [rp.submit(x) for x in trio]
+        poison = rp.submit(np.full_like(trio[0], np.nan))
+        try:
+            poison.result(timeout=300)
+            raise SystemExit("the NaN request was served")
+        except PoisonedRequestError:
+            pass
+        healthy = all(np.array_equal(f.result(timeout=300), s)
+                      for f, s in zip(futs, solo))
+        c = rp.metrics.counters
+        log(f"  NaN request quarantined (PoisonedRequestError); "
+            f"bisect_splits {c['bisect_splits']}, co-batched healthy rows "
+            f"equal their solo rows {healthy}; breaker "
+            f"{rp.breaker.state}  [{card}]")
+        if not healthy or c["bisect_splits"] < 1 or \
+                rp.breaker.state != "closed":
+            raise SystemExit("poisoned-batch isolation failed")
+        orig = rp._execute
+        left = {"n": 3}
+
+        def failing(features, real_rows=None):
+            if left["n"] > 0:
+                left["n"] -= 1
+                raise RuntimeError("injected exec failure")
+            return orig(features, real_rows=real_rows)
+        rp._execute = failing
+        typed = 0
+        for _ in range(3):
+            try:
+                rp.submit(trio[0]).result(timeout=300)
+            except ServingError:
+                typed += 1
+        opened = rp.breaker.state
+        try:
+            rp.submit(trio[0])
+            raise SystemExit("the open breaker admitted a request")
+        except ServerOverloadedError as e:
+            hint = e.retry_after_s
+        t0 = time.perf_counter()
+        while rp.breaker.reject_for() is not None and \
+                time.perf_counter() - t0 < 10:
+            time.sleep(0.01)
+        healed = rp.submit(trio[0]).result(timeout=300)
+        t1 = time.perf_counter()
+        while rp.breaker.state != "closed" and time.perf_counter() - t1 < 10:
+            time.sleep(0.01)
+        log(f"  3 injected exec failures: {typed} typed errors, breaker "
+            f"{opened} (breaker_opens {rp.metrics.counters['breaker_opens']}"
+            f"), a submit shed with retry_after_s {hint}, then the probe "
+            f"served and the breaker {rp.breaker.state}  [{card}]")
+        if typed != 3 or opened != "open" or rp.breaker.state != "closed" \
+                or not np.array_equal(healed, solo[0]):
+            raise SystemExit("the circuit breaker did not open and close")
+
+
+def _phase25_profile(net, pi, pool, card):
+    """20 BATCHED execs at bucket 32 under the profiler; 20 direct execs at
+    each bucket; the bucket-32 exec against its bound."""
+    futs = []
+
+    def twenty():
+        futs.extend(pi.submit(pool[i:i + 32]) for i in range(20))
+        for f in futs:
+            f.result(timeout=300)
+    before = dict(pi.metrics.counters)
+    wall, busy, n_act, n_kernels, by_name = _profiled(twenty)
+    d = _pi_delta(pi, before)
+    if d["batches_dispatched"] != 20 or d["rows_padded"]:
+        raise SystemExit(f"the profiled pass ran {d['batches_dispatched']} "
+                         f"batches, {d['rows_padded']} padding rows")
+    per = busy / 20
+    log(f"  profiler, 20 BATCHED execs at bucket 32 (20 requests of 32 "
+        f"images at once, 2 workers): device busy {per:.3f} ms an exec, "
+        f"wall {wall / 20:.3f} ms an exec: idle share "
+        f"{1 - busy / wall:.3f} (the same pass); {n_act / 20:.1f} device "
+        f"activities an exec, {n_kernels / 20:.1f} kernels  [{card}]")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms / 20:8.3f} ms  {name[:100]}")
+    hbm, fp32 = card_rates(torch.cuda.get_device_name(0))
+    macs = forward_macs(net, pool.shape[-1])
+    flop = 2 * (macs["conv"] + macs["dense"])
+    params = sum(t.numel() * t.element_size()
+                 for t in net.model.state_dict().values())
+    classes = net.output(pool[:1])[0].shape[1]
+    moved = params + pool[:32].nbytes + 32 * classes * 4
+    ops_ms = 32 * flop / fp32 * 1e3
+    bytes_ms = moved / hbm * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"  bound at bucket 32: {flop / 1e9:.3f} GFLOP an image (conv "
+        f"{2 * macs['conv'] / 1e9:.3f}, dense {2 * macs['dense'] / 1e9:.4f};"
+        f" from the code's shapes) x 32 at {fp32 / 1e12:g} TFLOP/s float32 "
+        f"= {ops_ms:.3f} ms; {moved / 1e6:.1f} MB (parameters and "
+        f"statistics {params / 1e6:.1f}, input, output) at {hbm / 1e12:g} "
+        f"TB/s = "
+        f"{bytes_ms:.3f} ms: bound {bound:.3f} ms by "
+        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}; the exec's "
+        f"device time {per:.3f} ms = {bound / per:.3f} of it, "
+        f"{32 * flop / per / 1e9:.1f} TFLOP/s  [{card}]")
+    for b in PI_BUCKETS:
+        x = np.ascontiguousarray(pool[:b])
+        wall, busy, n_act, n_kernels, _ = _profiled(
+            lambda: [pi._execute([x], real_rows=b) for _ in range(20)])
+        log(f"    bucket {b:2d}: device {busy / 20:.3f} ms an exec, wall "
+            f"{wall / 20:.3f} ms (direct execs, one thread), "
+            f"{n_kernels / 20:.1f} kernels; {b * 1000 / (busy / 20):.1f} "
+            f"images/s of device time  [{card}]")
+    x = np.ascontiguousarray(pool[:32])
+    for allow in (True, False):
+        torch.backends.cudnn.allow_tf32 = allow
+        pi._execute([x], real_rows=32)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(20):
+            pi._execute([x], real_rows=32)
+        end.record()
+        torch.cuda.synchronize()
+        log(f"    bucket 32, cudnn.allow_tf32={allow}: "
+            f"{start.elapsed_time(end) / 20:.3f} ms an exec (CUDA events "
+            f"around 20 direct execs)  [{card}]")
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ----------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5378,7 +5766,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/24] env")
+    log("[1/25] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -5418,49 +5806,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/24] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/25] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/24] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/25] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/24] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/25] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/24] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/25] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/24] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/25] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/24] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/25] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/24] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/25] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/24] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/25] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -5472,7 +5860,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/24] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/25] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -5486,18 +5874,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/24] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/25] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/24] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/25] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/24] main path: GPT-medium float32 serving, "
+    log(f"[13/25] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -5506,40 +5894,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/24] path shapes: paged attention vs plain, then timed")
+    log("[14/25] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/24] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/25] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/24] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/25] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/24] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/25] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/24] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/25] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/24] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/25] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -5548,13 +5936,13 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/24] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/25] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/24] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/25] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
@@ -5562,26 +5950,33 @@ def main():
     phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[22/24] kernels: paged decode, verify and prefill over an int8 "
+    log("[22/25] kernels: paged decode, verify and prefill over an int8 "
         "cache (CUDA C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_int8kv_kernels(dev, errs)
     int8kv_timing = phase_int8kv_timing(dev, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[23/24] parity: GPT_TINY int8 KV serving (paged float32 and "
+    log("[23/25] parity: GPT_TINY int8 KV serving (paged float32 and "
         "float64, dense float32), card vs CPU")
     t0 = time.perf_counter()
     phase_int8kv_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[24/24] main path: GPT-medium int8 KV + int8 weights serving, "
+    log(f"[24/25] main path: GPT-medium int8 KV + int8 weights serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
         f"server; the pool at one byte budget and the load generator; the "
         f"int8 speculative server (k {SPEC_K})")
     t0 = time.perf_counter()
     int8kv_serve = phase_int8kv_serving(dev, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[25/25] main path: ResNet-50 224x224 served through "
+        "ParallelInference (BATCHED, 2 workers, max_batch_size 32, buckets "
+        "4-32; SEQUENTIAL and INPLACE gates)")
+    t0 = time.perf_counter()
+    phase_parallel_inference(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []

@@ -388,12 +388,12 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
     """The op: ``Attention`` (the kernels on the card, their plain versions
     on the CPU). An explicit ``mask`` runs ``sdpa_plain`` on the CPU and
     is refused on the card, where no kernel takes it yet (ROADMAP queue
-    2b: attention with an explicit mask)."""
+    2b item 8: attention with an explicit mask)."""
     if mask is not None:
         if q.device.type not in _PLAIN_DEVICES:
             raise NotImplementedError(
                 "scaled_dot_product_attention with an explicit mask has no "
-                "kernel on the card yet (ROADMAP queue 2b)")
+                "kernel on the card yet (ROADMAP queue 2b item 8)")
         return sdpa_plain(q, k, v, mask, causal, scale)
     return Attention.apply(q, k, v, causal, scale)
 

@@ -2,7 +2,9 @@
 the card could take, and what the compiler made of a built library.
 
 ``chip_smoke.py`` and the studies under ``experiments/`` time and inspect
-the kernels with these, so that all read a kernel the same way.
+the kernels with these, so that all read a kernel the same way; the case
+builders here make the inputs that ``chip_smoke.py`` and the card tests
+check with.
 Nothing here runs at import: the functions need a card (``median_ms``) or
 the CUDA toolkit (``sass_kernels``) only when called.
 """
@@ -596,3 +598,56 @@ def int8_matmul_bounds(m, k, n):
     x, the scale and y each moved once."""
     return 2 * m * n * k, k * n + 4 * (m * k + m * n + max(k, n))
 
+
+def set_running_stats(net, x) -> None:
+    """Set every batch norm's running statistics of the ComputationGraph
+    ``net`` to the batch statistics of ``x`` (NCHW; one training-mode
+    forward at decay 0), so that its outputs depend on its input as a
+    trained network's do: the zoo's ResNet-50 at init saturates its
+    softmax on one class for every input. A case builder for comparisons
+    of served outputs (``chip_smoke.py`` phase 25 and the serving
+    tests)."""
+    from deeplearning4j_tpu_torch.nn.layers import BatchNorm
+    bns = [m for m in net.model.modules() if isinstance(m, BatchNorm)]
+    decays = [m.decay for m in bns]
+    for m in bns:
+        m.decay = 0.0
+    dtype = next(net.model.parameters()).dtype
+    net.model.train()
+    with torch.no_grad():
+        net.model(torch.as_tensor(x, dtype=dtype, device=net.device)
+                  .contiguous(memory_format=torch.channels_last))
+    for m, d in zip(bns, decays):
+        m.decay = d
+    net.model.eval()
+
+
+def forward_macs(net, hw: int) -> Dict[str, int]:
+    """Multiply-adds of one ``hw`` x ``hw`` image's forward through the
+    ComputationGraph ``net``, from the shapes the code runs: every
+    convolution (N * Ho * Wo * Cout * Cin * kh * kw, read off its weight
+    and its output) and every dense layer (in * out), hooked on one
+    forward; the batch norms, ReLUs, pools and adds are elementwise and
+    not counted."""
+    from deeplearning4j_tpu_torch.nn.layers import Affine, Conv2d
+    macs = {"conv": 0, "dense": 0}
+
+    def conv(m, inp, out):
+        cout, cin, kh, kw = m.W.shape
+        n, _, ho, wo = out.shape
+        macs["conv"] += n * ho * wo * cout * cin * kh * kw
+
+    def dense(m, inp, out):
+        macs["dense"] += inp[0].shape[0] * m.W.shape[0] * m.W.shape[1]
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2d)
+                                     else dense)
+             for m in net.model.modules() if isinstance(m, (Conv2d, Affine))]
+    try:
+        with torch.inference_mode():
+            net.model.eval()
+            net.model(torch.zeros(1, 3, hw, hw, device=net.device)
+                      .contiguous(memory_format=torch.channels_last))
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs

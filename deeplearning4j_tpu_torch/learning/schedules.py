@@ -9,6 +9,7 @@ import numpy as np
 def resolve_lr(lr, iteration: int, epoch: int) -> float:
     if not isinstance(lr, (int, float)):
         raise NotImplementedError(
-            f"learning-rate schedules are not ported yet; got {lr!r}")
+            f"learning-rate schedules are not ported yet (ROADMAP queue 1 "
+            f"item 3); got {lr!r}")
     # the JAX package resolves the rate to a float32 scalar
     return float(np.float32(lr))

@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/monitor/trace.py``, cut to what the
 port's serving tier uses: :data:`TRACER`, its ``span(name, cat, **args)``
-context manager and its ``enabled`` switch. Disabled (the default), a
+context manager (with ``set`` and ``discard``) and its ``enabled``
+switch. Disabled (the default), a
 span is one attribute check returning a shared no-op object; enabled,
 spans are recorded per thread, with their nesting, into a bounded ring
 (:meth:`Tracer.spans`). The Chrome-trace export, incremental drains and
@@ -31,6 +32,12 @@ class _NullSpan:
     def __exit__(self, exc_type, exc, tb):
         return False
 
+    def set(self, **args) -> "_NullSpan":
+        return self
+
+    def discard(self) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -39,7 +46,7 @@ class Span:
     """One live (then completed) span. Create via :meth:`Tracer.span`."""
 
     __slots__ = ("tracer", "name", "cat", "args", "t0", "dur", "tid", "sid",
-                 "parent")
+                 "parent", "_discarded")
 
     _ids = itertools.count(1)
 
@@ -53,6 +60,7 @@ class Span:
         self.tid = 0
         self.sid = 0
         self.parent = 0        # sid of the enclosing span on this thread
+        self._discarded = False
 
     def __enter__(self) -> "Span":
         self.tid = threading.get_ident()
@@ -71,8 +79,18 @@ class Span:
             stack.remove(self)
         if exc_type is not None:
             self.args = dict(self.args, error=exc_type.__name__)
-        self.tracer._record(self)
+        if not self._discarded:
+            self.tracer._record(self)
         return False
+
+    def set(self, **args) -> "Span":
+        """Attach or overwrite span args."""
+        self.args.update(args)
+        return self
+
+    def discard(self) -> None:
+        """Drop this span on exit (an empty poll, say)."""
+        self._discarded = True
 
 
 class Tracer:

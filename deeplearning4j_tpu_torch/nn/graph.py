@@ -25,10 +25,16 @@ heads under ``MixedPrecision.softmax_dtype``, the loss summed in float32
 and multiplied by ``loss_scale`` before the backward, the gradients
 divided by it.
 
+``serving_spec`` (JAX :520) hands ``ParallelInference`` a
+:class:`ServingGraph`: a ``GraphModule`` of its own in inference mode,
+whose parameters and running statistics are copies that its ``sync``
+refreshes. The JAX server sees new arrays only when its sync runs (its
+train graph is functional); the port's updaters write the parameters in
+place, so a server that shared them would see a ``fit`` step by step.
+
 Not ported yet, each refused by name: ``fit(accum_steps=...)``,
-``fit(sentinel=...)``, ``evaluate``, ``save``/``load``,
-``capture_training_state``/``restore_training_state`` and
-``serving_spec``; recurrent inputs.
+``fit(sentinel=...)``, ``evaluate``, ``save``/``load`` and
+``capture_training_state``/``restore_training_state``; recurrent inputs.
 """
 from __future__ import annotations
 
@@ -420,6 +426,59 @@ def _build_graph(conf: ComputationGraphConfiguration,
     return GraphModule(conf, modules, types, fused)
 
 
+def _head_output(model: GraphModule, name: str,
+                 z: torch.Tensor) -> torch.Tensor:
+    """A graph output as ``output()`` returns it: NCHW for cnn, a loss
+    head's activation applied."""
+    if model.types[name].kind == "cnn":
+        z = z.contiguous()
+    mod = model[name]
+    return activation_fn(mod.activation)(z) if isinstance(mod, Head) else z
+
+
+class ServingGraph:
+    """A ``ComputationGraph``'s serving executor (the JAX inference
+    SameDiff's place in ``serving_spec``): a ``GraphModule`` built from
+    the configuration on the network's device, in inference mode, with
+    its own parameters and batch-norm running statistics (one more
+    parameter set on the device: for ResNet-50, 25.6 M float32
+    parameters and 53 layers' statistics, about 102 MB). :meth:`sync`
+    copies the network's current values into it; ``output`` runs the
+    forward in the configuration's dtype with the running statistics
+    and returns what ``ComputationGraph.output`` returns, by output
+    name."""
+
+    def __init__(self, net: "ComputationGraph"):
+        net._require_init()
+        self._net = net
+        self.conf = net.conf
+        self.device = net.device
+        self.model = _build_graph(net.conf, net.device).eval()
+        self.model.requires_grad_(False)
+        self._dtype = torch_dtype(net.conf.dtype)
+        self._types = dict(zip(net.conf.inputs, net.conf.input_types))
+
+    def infer_shape(self, name: str) -> Tuple[int, ...]:
+        """An input's shape, -1 for the batch dim (NCHW for cnn)."""
+        return self._types[name].placeholder_shape()
+
+    def sync(self) -> None:
+        src = self._net.model.state_dict()
+        with torch.no_grad():
+            for k, t in self.model.state_dict().items():
+                t.copy_(src[k])
+
+    def output(self, placeholders, outputs: Sequence[str]
+               ) -> Dict[str, torch.Tensor]:
+        """``outputs`` by name for the inputs ``placeholders`` (arrays or
+        tensors, by input name)."""
+        xs = [torch.as_tensor(placeholders[n]).to(
+            device=self.device, dtype=self._dtype) for n in self.conf.inputs]
+        with torch.no_grad():
+            vals = self.model.activations(*xs)
+        return {o: _head_output(self.model, o, vals[o]) for o in outputs}
+
+
 def _loss_heads(conf: ComputationGraphConfiguration,
                 model: GraphModule) -> List[str]:
     """The loss heads in the JAX package's label order: graph outputs
@@ -487,21 +546,14 @@ class ComputationGraph(window.StepOwner):
         with torch.no_grad(), running_stats_frozen(self.model):
             return self.model.activations(*xs, unfused=unfused)
 
-    def _activated(self, name: str, z: torch.Tensor) -> torch.Tensor:
-        """A loss head's output with its activation applied."""
-        mod = self.model[name]
-        return activation_fn(mod.activation)(z) if isinstance(mod, Head) \
-            else z
-
     def output(self, *inputs, training: bool = False) -> List[torch.Tensor]:
         """The forward, one tensor per graph output (NCHW for cnn), each
         loss head's activation applied. ``training=True`` normalizes with
         the batch statistics and leaves the running statistics as they
         are, as the JAX package's functional training forward does."""
         vals = self._activations(inputs, training, unfused=False)
-        return [self._activated(o, vals[o].contiguous()
-                                if self.model.types[o].kind == "cnn"
-                                else vals[o]) for o in self.conf.outputs]
+        return [_head_output(self.model, o, vals[o])
+                for o in self.conf.outputs]
 
     def feed_forward(self, *inputs, training: bool = False
                      ) -> Dict[str, torch.Tensor]:
@@ -510,7 +562,7 @@ class ComputationGraph(window.StepOwner):
         its ReLU, a loss head's after its activation; cnn values are
         logical NCHW."""
         vals = self._activations(inputs, training, unfused=True)
-        return {n: self._activated(n, v) if n in self.model else v
+        return {n: _head_output(self.model, n, v) if n in self.model else v
                 for n, v in vals.items()}
 
     # ------------------------------------------------------------------
@@ -602,6 +654,17 @@ class ComputationGraph(window.StepOwner):
         """The last fit's final epoch loss."""
         return self._score
 
+    def serving_spec(self):
+        """The serving contract (JAX ``ComputationGraph.serving_spec``):
+        ``(executor, inputs, outputs, sync)`` with a new
+        :class:`ServingGraph`, the configuration's input names, its
+        output names (served as ``output()`` returns them) and the
+        executor's ``sync``."""
+        self._require_init()
+        serve = ServingGraph(self)
+        return (serve, list(self.conf.inputs), list(self.conf.outputs),
+                serve.sync)
+
     def params(self) -> Dict[str, np.ndarray]:
         """Parameters and batch-norm running statistics under the JAX
         package's names and layouts (conv weights HWIO)."""
@@ -641,8 +704,4 @@ class ComputationGraph(window.StepOwner):
 
     def restore_training_state(self, *a, **k):
         _not_ported("restore_training_state", "7: checkpoint/",
-                    "ComputationGraph")
-
-    def serving_spec(self, *a, **k):
-        _not_ported("serving_spec", "2.6: ParallelInference",
                     "ComputationGraph")

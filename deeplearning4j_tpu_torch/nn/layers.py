@@ -258,7 +258,8 @@ class OutputLayer(BaseLayer):
         if self.loss_function.upper() not in ("MCXENT",
                                               "NEGATIVELOGLIKELIHOOD"):
             raise NotImplementedError(
-                f"loss {self.loss_function!r} is not ported yet (MCXENT)")
+                f"loss {self.loss_function!r} is not ported yet (MCXENT; "
+                f"ROADMAP queue 1 item 1.2)")
 
     def build_sd(self, ctx, x, itype):
         """Dense + loss head: ``softmax_cross_entropy`` of the logits,
@@ -399,7 +400,8 @@ class SubsamplingLayer(BaseLayer):
     def build(self, ctx, itype):
         if self.pooling_type.upper() != "MAX":
             raise NotImplementedError(
-                f"pooling {self.pooling_type!r} is not ported yet (MAX)")
+                f"pooling {self.pooling_type!r} in a ComputationGraph is not "
+                f"ported yet (MAX; ROADMAP queue 1 item 1.2)")
         return Pool2d(_as_pair(self.kernel_size),
                       _as_pair(self.stride or self.kernel_size),
                       _pad_mode(self.convolution_mode))
@@ -511,5 +513,5 @@ class GlobalPoolingLayer(BaseLayer):
         if self.pooling_type.upper() != "AVG":
             raise NotImplementedError(
                 f"global pooling {self.pooling_type!r} is not ported yet "
-                f"(AVG)")
+                f"(AVG; ROADMAP queue 1 item 1.2)")
         return GlobalAvgPool()

@@ -16,10 +16,15 @@ Users feed NCHW; a convolutional input is permuted to NHWC once
 weights, and the flatten before a dense layer (``layer{i}_cnn2ff``) is
 the NHWC flatten, so the dense weights are the JAX network's.
 
+``serving_spec`` (JAX :422) hands ``ParallelInference`` an inference
+graph of its own: the JAX sync moves references to immutable arrays, but
+the port's updaters write the parameters in place, so a served graph
+that shared the training graph's tensors would see a ``fit`` step by
+step. The serving graph holds copies, which its sync refreshes.
+
 Not ported yet, each refused by name: ``fit_tbptt``, ``accum_steps``,
-``sentinel``, ``save``/``load``, ``evaluate``,
-``capture_training_state``/``restore_training_state`` and
-``serving_spec``.
+``sentinel``, ``save``/``load``, ``evaluate`` and
+``capture_training_state``/``restore_training_state``.
 """
 from __future__ import annotations
 
@@ -172,6 +177,24 @@ class MultiLayerNetwork:
             if n in tgt._arrays:
                 tgt._arrays[n] = arr
 
+    def serving_spec(self):
+        """The serving contract (JAX ``MultiLayerNetwork.serving_spec``):
+        ``(graph, ["input"], ["output"], sync)``. ``graph`` is an inference
+        SameDiff built from the configuration, holding its own copies of
+        the parameters (one more parameter set on the device); ``sync``
+        copies the training graph's current values into it, so served
+        outputs change only when the server calls it
+        (``ParallelInference.update_model``)."""
+        self._require_init()
+        serve = _build_graph(self.conf, self.device)
+
+        def sync():
+            with torch.no_grad():
+                for n, arr in self._sd_train._arrays.items():
+                    if n in serve._arrays:
+                        serve._arrays[n].copy_(arr)
+        return serve, ["input"], ["output"], sync
+
     def output(self, x, training: bool = False) -> torch.Tensor:
         """Forward pass (reference: MultiLayerNetwork.output :2471)."""
         self._require_init()
@@ -230,9 +253,6 @@ class MultiLayerNetwork:
 
     def restore_training_state(self, *a, **k):
         _not_ported("restore_training_state", "7: checkpoint/")
-
-    def serving_spec(self, *a, **k):
-        _not_ported("serving_spec", "2.6: ParallelInference")
 
 
 class _ArrayIterator:

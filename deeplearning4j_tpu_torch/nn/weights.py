@@ -30,4 +30,5 @@ def init_weights(scheme: str, shape: Tuple[int, ...],
     if scheme == "RELU":
         return rng.normal(0.0, math.sqrt(2.0 / fan_in), shape)
     raise NotImplementedError(
-        f"weight init scheme {scheme!r} is not ported yet (XAVIER, RELU)")
+        f"weight init scheme {scheme!r} is not ported yet (XAVIER, RELU; "
+        f"ROADMAP queue 1 item 1.2)")

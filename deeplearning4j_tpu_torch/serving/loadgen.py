@@ -1,14 +1,9 @@
-"""Closed- and open-loop load generation for the generative servers.
+"""Closed- and open-loop load generation for the serving stack.
 
-Counterpart of ``deeplearning4j_tpu/serving/loadgen.py``'s generative half,
-copied as host code: :class:`LoadResult` (:47) and
-:class:`GenerativeLoadGenerator` (:255) with ``run_closed`` and
-``run_open``. Request ``i`` is a pure function of ``(seed, i)``
-(``default_rng((seed, i))``: prompt length, prompt tokens, output budget,
-deadline, temperature, sampling seed, drawn in the JAX package's order), so
-two servers (float32 and int8 KV, say) run the same trace, and the trace
-is the JAX package's for the same seed. TTFT and inter-token gaps are
-taken on the host's monotonic clock as the stream delivers each token.
+Counterpart of ``deeplearning4j_tpu/serving/loadgen.py``, copied as host
+code: :class:`LoadResult` (:47), :class:`LoadGenerator` (:156), the
+fixed-shape loops over ``ParallelInference``, and
+:class:`GenerativeLoadGenerator` (:255) over the generative servers.
 
 - **closed loop**: ``concurrency`` client threads, each issuing its next
   request only when the previous one finished: latency at a fixed
@@ -17,18 +12,27 @@ taken on the host's monotonic clock as the stream delivers each token.
   completions: the arrival process of real traffic, which shows queueing
   collapse as sheds and timeouts.
 
-Not ported yet: ``LoadGenerator`` (the fixed-shape twin over
-``ParallelInference``, ROADMAP queue 1 item 2.6) and
-``FleetLoadGenerator`` (the fleet router's replay, item 8); with the
-fleet goes the per-request row that ``LoadResult.slo_attainment`` reads,
-so that method is refused by name.
+``LoadGenerator``'s ``request_fn(rng, i)`` builds request ``i`` from a
+seeded numpy ``Generator`` (one a client thread in the closed loop,
+seeded ``seed + thread``; one for the open loop), as in the JAX package.
+``GenerativeLoadGenerator``'s request ``i`` is a pure function of
+``(seed, i)`` (``default_rng((seed, i))``: prompt length, prompt tokens,
+output budget, deadline, temperature, sampling seed, drawn in the JAX
+package's order), so two servers (float32 and int8 KV, say) run the same
+trace, and the trace is the JAX package's for the same seed. TTFT and
+inter-token gaps are taken on the host's monotonic clock as the stream
+delivers each token.
+
+Not ported yet: ``FleetLoadGenerator`` (the fleet router's replay,
+ROADMAP queue 1 item 8); with the fleet goes the per-request row that
+``LoadResult.slo_attainment`` reads, so that method is refused by name.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -101,6 +105,118 @@ class LoadResult:
                   f"{self.ttft_percentile(99):.2f} ms; inter-token p50 "
                   f"{self.intertoken_percentile(50):.2f} ms")
         return s
+
+
+class LoadGenerator:
+    """Drives a :class:`~deeplearning4j_tpu_torch.serving.ParallelInference`.
+
+    ``request_fn(rng, i)`` builds the i-th request payload (a
+    (rows, *features) array); each worker thread gets an independent
+    seeded Generator so runs are reproducible.
+    """
+
+    def __init__(self, server,
+                 request_fn: Callable[[np.random.Generator, int], object],
+                 seed: int = 0):
+        self.server = server
+        self.request_fn = request_fn
+        self.seed = int(seed)
+
+    # -- closed loop ----------------------------------------------------
+    def run_closed(self, n_requests: int = 256, concurrency: int = 4,
+                   timeout_ms: Optional[float] = None) -> LoadResult:
+        result = LoadResult()
+        lock = threading.Lock()
+        counter = {"next": 0}
+
+        def worker(wid: int):
+            rng = np.random.default_rng(self.seed + wid)
+            while True:
+                with lock:
+                    i = counter["next"]
+                    if i >= n_requests:
+                        return
+                    counter["next"] = i + 1
+                x = self.request_fn(rng, i)
+                t0 = time.monotonic()
+                try:
+                    self.server.output(x, timeout_ms=timeout_ms)
+                except ServerOverloadedError:
+                    with lock:
+                        result.n_rejected += 1
+                    continue
+                except RequestTimeoutError:
+                    with lock:
+                        result.n_timed_out += 1
+                    continue
+                except Exception:       # noqa: BLE001 -- counted as failed
+                    with lock:
+                        result.n_failed += 1
+                    continue
+                ms = (time.monotonic() - t0) * 1000.0
+                with lock:
+                    result.n_ok += 1
+                    result.latencies_ms.append(ms)
+
+        t_start = time.monotonic()
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(max(1, int(concurrency)))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        result.duration_s = time.monotonic() - t_start
+        return result
+
+    # -- open loop ------------------------------------------------------
+    def run_open(self, n_requests: int = 256, rate_rps: float = 200.0,
+                 timeout_ms: Optional[float] = None) -> LoadResult:
+        result = LoadResult()
+        lock = threading.Lock()
+        rng = np.random.default_rng(self.seed)
+        interval = 1.0 / max(rate_rps, 1e-9)
+        pending = []
+        t_start = time.monotonic()
+        for i in range(n_requests):
+            target = t_start + i * interval
+            delay = target - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            x = self.request_fn(rng, i)
+            t0 = time.monotonic()
+            try:
+                fut = self.server.submit(x, timeout_ms=timeout_ms)
+            except ServerOverloadedError:
+                with lock:              # callbacks also mutate result
+                    result.n_rejected += 1
+                continue
+            except ServerClosedError:
+                with lock:
+                    result.n_failed += 1
+                continue
+
+            def _done(f, t0=t0):
+                with lock:
+                    try:
+                        f.result()
+                    except RequestTimeoutError:
+                        result.n_timed_out += 1
+                    except Exception:   # noqa: BLE001 -- counted as failed
+                        result.n_failed += 1
+                    else:
+                        result.n_ok += 1
+                        result.latencies_ms.append(
+                            (time.monotonic() - t0) * 1000.0)
+
+            fut.add_done_callback(_done)
+            pending.append(fut)
+        for fut in pending:
+            try:
+                fut.exception()     # wait for completion; counted above
+            except Exception:       # noqa: BLE001 -- counted by _done
+                pass
+        result.duration_s = time.monotonic() - t_start
+        return result
 
 
 class GenerativeLoadGenerator:
@@ -268,4 +384,4 @@ class GenerativeLoadGenerator:
         return result
 
 
-__all__ = ["LoadResult", "GenerativeLoadGenerator"]
+__all__ = ["LoadResult", "LoadGenerator", "GenerativeLoadGenerator"]

@@ -3,9 +3,13 @@
 Counterpart of ``deeplearning4j_tpu/serving/metrics.py`` (host code,
 copied): :func:`safe_ratio`, :class:`LatencyHistogram` (fixed log-spaced
 bins, O(1) recording, percentiles from the cumulative counts) and
-:class:`ServingMetrics`, whose ``to_record()`` gives one
-``{"type": "serving", ...}`` record (the JAX module's ``publish`` to a
-stats storage and its ``ParallelInference`` lanes are not ported yet).
+:class:`ServingMetrics`: queue wait, end-to-end and exec latency, batch
+occupancy and padding waste (:meth:`~ServingMetrics.observe_batch`),
+compiled shapes, rejection / timeout / resilience counters and the
+breaker state (:meth:`~ServingMetrics.set_resilience`). ``to_record()``
+gives one ``{"type": "serving", ...}`` record and ``publish`` appends it
+to any object with ``put(record)`` (the JAX package's ``StatsStorage``
+is not ported yet, ROADMAP queue 1 item 2.8).
 """
 from __future__ import annotations
 
@@ -89,9 +93,13 @@ class LatencyHistogram:
 _COUNTERS = ("requests_submitted", "requests_served", "requests_rejected",
              "requests_timed_out", "requests_failed", "batches_dispatched",
              "rows_served", "rows_padded", "compiles", "warmup_compiles",
-             # the resilience rail: SLO sheds at admission, crash-recovery
-             # requeues and worker restarts
-             "requests_shed", "requests_requeued", "worker_restarts")
+             # the resilience rail: SLO sheds at admission, breaker trips,
+             # crash-recovery requeues and worker restarts, transient exec
+             # faults absorbed, bisection splits and quarantined poisoned
+             # requests, hot reloads
+             "requests_shed", "breaker_opens", "requests_requeued",
+             "worker_restarts", "exec_faults", "bisect_splits",
+             "poisoned_quarantined", "reloads", "reload_rollbacks")
 
 
 class ServingMetrics:
@@ -109,6 +117,9 @@ class ServingMetrics:
         self.failure_causes: Dict[str, int] = {}
         self.timeout_causes: Dict[str, int] = {}
         self.last_error: Optional[dict] = None
+        # resilience state snapshot (breaker state, ...), exported in
+        # to_record()
+        self.resilience: Dict[str, object] = {}
         self._start_t = time.time()
 
     # -- recording ------------------------------------------------------
@@ -139,6 +150,25 @@ class ServingMetrics:
                               "error": repr(error) if error else None,
                               "t": time.time()}
 
+    def set_resilience(self, **fields) -> None:
+        """Merge resilience-state fields (``breaker_state``, ...) into the
+        exported snapshot."""
+        with self._lock:
+            self.resilience.update(fields)
+
+    def observe_batch(self, rows: int, padding: int, exec_ms: float) -> None:
+        """Negative/zero rows and non-finite exec times record as
+        zeros (``LatencyHistogram.record`` guards the time): an
+        empty/degenerate dispatch must not put NaN into the padding-
+        waste or mean-size divisions downstream."""
+        rows, padding = max(0, int(rows)), max(0, int(padding))
+        with self._lock:
+            self.counters["batches_dispatched"] += 1
+            self.counters["rows_served"] += rows
+            self.counters["rows_padded"] += padding
+            self.batch_sizes[rows] = self.batch_sizes.get(rows, 0) + 1
+            self.exec_ms.record(exec_ms)
+
     def observe_request(self, queue_wait_ms: float, e2e_ms: float) -> None:
         with self._lock:
             self.counters["requests_served"] += 1
@@ -146,6 +176,18 @@ class ServingMetrics:
             self.e2e_ms.record(e2e_ms)
 
     # -- readout --------------------------------------------------------
+    def padding_waste(self) -> float:
+        """Fraction of dispatched rows that were padding."""
+        with self._lock:
+            c = self.counters
+            return safe_ratio(c["rows_padded"],
+                              c["rows_served"] + c["rows_padded"])
+
+    def mean_batch_size(self) -> float:
+        with self._lock:
+            return safe_ratio(self.counters["rows_served"],
+                              self.counters["batches_dispatched"])
+
     def to_record(self) -> dict:
         """One ``{"type": "serving", ...}`` record."""
         with self._lock:
@@ -160,6 +202,8 @@ class ServingMetrics:
                 "timeout_causes": dict(self.timeout_causes),
                 "last_error": dict(self.last_error)
                 if self.last_error else None,
+                "resilience": dict(self.resilience)
+                if self.resilience else None,
                 "latency_ms": {"queue_wait": self.queue_wait_ms.summary(),
                                "e2e": self.e2e_ms.summary(),
                                "exec": self.exec_ms.summary()},
@@ -170,6 +214,12 @@ class ServingMetrics:
                     "size_hist": {str(k): v for k, v in
                                   sorted(self.batch_sizes.items())}},
             }
+
+    def publish(self, storage) -> dict:
+        """Append the current snapshot to ``storage`` (``put(record)``)."""
+        rec = self.to_record()
+        storage.put(rec)
+        return rec
 
     def stats(self) -> str:
         """Printable summary (the Evaluation.stats() convention)."""
@@ -183,7 +233,9 @@ class ServingMetrics:
                  f"{c['requests_failed']} failed)",
                  f"  batches: {c['batches_dispatched']} dispatched, "
                  f"mean size {rec['batch']['mean_size']}, padding waste "
-                 f"{rec['batch']['padding_waste']:.1%}"]
+                 f"{rec['batch']['padding_waste']:.1%}, "
+                 f"{c['compiles']} compiled shapes "
+                 f"({c['warmup_compiles']} prewarmed)"]
         for name in ("queue_wait", "e2e", "exec"):
             s = rec["latency_ms"][name]
             lines.append(f"  {name:<10} p50 {s['p50']:.3f} ms  "
@@ -195,6 +247,20 @@ class ServingMetrics:
         if causes:
             lines.append("  causes: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(causes.items())))
+        if rec["last_error"]:
+            le = rec["last_error"]
+            lines.append(f"  last_error: [{le['cause']}] {le['error']}")
+        res = rec.get("resilience")
+        resil_counts = {k: c[k] for k in
+                        ("requests_shed", "breaker_opens",
+                         "worker_restarts", "requests_requeued",
+                         "poisoned_quarantined", "reloads",
+                         "reload_rollbacks") if c.get(k)}
+        if res or resil_counts:
+            bits = [f"{k}={v}" for k, v in sorted(resil_counts.items())]
+            if res and res.get("breaker_state"):
+                bits.insert(0, f"breaker={res['breaker_state']}")
+            lines.append("  resilience: " + ", ".join(bits))
         return "\n".join(lines)
 
 

@@ -2,12 +2,18 @@
 
 Counterpart of ``deeplearning4j_tpu/serving/queue.py`` (host code, copied
 and adapted): a hard ``max_queue_len`` past which ``put`` raises
-:class:`ServerOverloadedError`, per-request deadlines that expire before
-dispatch, crash-recovery ``requeue`` at the front, and a two-phase
-``close`` (drain, or fail pending futures with
-:class:`ServerClosedError`). ``InferenceRequest.complete`` and
-``collapse_outputs`` belong to ``ParallelInference``'s reply path, which
-is not ported yet.
+:class:`ServerOverloadedError` (load shedding at admission), per-request
+deadlines that expire AT DISPATCH (a request that already missed its
+deadline is never sent to the device) and again at reply
+(:meth:`InferenceRequest.complete`), crash-recovery ``requeue`` at the
+front, and a two-phase ``close``: drain (stop intake, finish queued work)
+or abort (fail pending futures with :class:`ServerClosedError`).
+
+All coordination is one lock + one condition; consumers block in
+:meth:`RequestQueue.take`, which is also where the coalescing row budget
+lives, so every consumer (a ``ParallelInference`` worker, its dynamic
+batcher, a generative server) shares the same expiry and shutdown
+behavior.
 """
 from __future__ import annotations
 
@@ -23,14 +29,15 @@ from deeplearning4j_tpu_torch.serving.resilience import (
 
 
 class ServerOverloadedError(RetryableServingError):
-    """Admission rejected: the queue is at ``max_queue_len``, or the SLO
-    admission controller estimates the request cannot meet its deadline.
+    """Admission rejected: the queue is at ``max_queue_len``, the SLO
+    admission controller estimates the request cannot meet its deadline,
+    or the circuit breaker is open (serving/resilience.py).
 
     A :class:`~deeplearning4j_tpu_torch.serving.resilience.RetryableServingError`:
-    ``retry_after_s`` -- when set -- is the structured backoff hint (how
-    long the shedding condition is expected to persist), and the error
-    round-trips across process boundaries via ``to_wire()``/
-    ``from_wire()``."""
+    ``retry_after_s`` — when set — is the structured backoff hint (how
+    long the shedding condition is expected to persist: estimated queue
+    drain, or the breaker's time-to-probe), and the error round-trips
+    across process boundaries via ``to_wire()``/``from_wire()``."""
 
 
 class RequestTimeoutError(ServingError):
@@ -51,6 +58,15 @@ def _now() -> float:
     return time.monotonic()
 
 
+def collapse_outputs(outputs, squeeze: bool):
+    """Shape a request's per-output row arrays into its result: drop the
+    row dim for single-example submits, collapse one-output models to a
+    bare array. The ONE place defining the result contract for all
+    modes (BATCHED scatter, SEQUENTIAL, INPLACE)."""
+    sl = [o[0] for o in outputs] if squeeze else list(outputs)
+    return sl if len(sl) > 1 else sl[0]
+
+
 @dataclass
 class InferenceRequest:
     """One queued unit of work: a (rows, ...) feature array + its future."""
@@ -61,6 +77,7 @@ class InferenceRequest:
     rows: int
     enqueue_t: float = field(default_factory=_now)
     deadline: Optional[float] = None    # absolute time.monotonic(), or None
+    squeeze: bool = False               # single-example submit: drop row dim
     id: int = 0
     requeues: int = 0                   # crash-recovery requeues (max 1)
 
@@ -78,13 +95,31 @@ class InferenceRequest:
         if not self.future.done():
             self.future.set_exception(exc)
 
+    def complete(self, outputs) -> bool:
+        """Resolve with this request's row slices (see collapse_outputs)
+        — unless the deadline passed while the batch executed: a request
+        that expires DURING exec must not complete as a stale success,
+        so its future gets :class:`ServingTimeoutError` instead and
+        this returns False (the caller records the timeout)."""
+        if self.expired():
+            if not self.future.done():
+                self.future.set_exception(ServingTimeoutError(
+                    f"request {self.id} missed its deadline by "
+                    f"{(_now() - self.deadline) * 1000:.1f} ms during "
+                    f"execution"))
+            return False
+        if not self.future.done():
+            self.future.set_result(collapse_outputs(outputs, self.squeeze))
+        return True
+
 
 class RequestQueue:
     """FIFO of :class:`InferenceRequest` with bounded depth.
 
     Producers call :meth:`put` (non-blocking; raises on overload/closed).
     Consumers call :meth:`take`, which blocks until live work, shutdown,
-    or timeout, and pops greedily up to a row budget.
+    or timeout, and pops greedily up to a row budget so a batcher can
+    coalesce several requests in one call.
     """
 
     def __init__(self, max_queue_len: int = 256,
@@ -93,10 +128,12 @@ class RequestQueue:
             raise ValueError("max_queue_len must be positive")
         self.max_queue_len = int(max_queue_len)
         self._dq: deque = deque()
+        self._rows = 0                  # queued rows (admission estimates)
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._closed = False
         self._drain = True
+        self._timed_out = 0             # expired-at-dispatch count
         self._on_timeout = on_timeout   # callback(req) per expiry
 
     # -- producer side --------------------------------------------------
@@ -109,6 +146,7 @@ class RequestQueue:
                     f"queue full ({self.max_queue_len} pending); retry "
                     f"with backoff")
             self._dq.append(req)
+            self._rows += req.rows
             self._not_empty.notify()
 
     def requeue(self, req: InferenceRequest) -> None:
@@ -124,11 +162,12 @@ class RequestQueue:
                 raise ServerClosedError(
                     "request queue is closed without drain")
             self._dq.appendleft(req)
+            self._rows += req.rows
             self._not_empty.notify()
 
     # -- consumer side --------------------------------------------------
-    def take(self, max_rows: int, timeout: Optional[float] = None
-             ) -> List[InferenceRequest]:
+    def take(self, max_rows: int, timeout: Optional[float] = None,
+             strict: bool = False) -> List[InferenceRequest]:
         """Pop live requests whose total rows fit ``max_rows``.
 
         Blocks up to ``timeout`` seconds (None = until work or close) for
@@ -138,8 +177,10 @@ class RequestQueue:
         :class:`RequestTimeoutError` and skipped. Returns ``[]`` on
         timeout or when the queue is closed and empty.
 
-        A single request larger than ``max_rows`` goes through as the
-        sole result.
+        ``strict=False`` lets a single request larger than ``max_rows``
+        through as the sole result (a sequential worker must serve any
+        size); ``strict=True`` never exceeds the budget (a batcher
+        topping up a partially full batch must not overshoot it).
 
         Expired futures are completed OUTSIDE the queue lock: a user
         done-callback may re-enter the queue (e.g. submit a retry), and
@@ -151,7 +192,7 @@ class RequestQueue:
             got: List[InferenceRequest] = []
             done = False
             with self._not_empty:
-                got = self._pop_live_locked(max_rows, expired)
+                got = self._pop_live_locked(max_rows, strict, expired)
                 if got or self._closed:
                     done = True
                 else:
@@ -168,7 +209,7 @@ class RequestQueue:
             if done:
                 return got
 
-    def _pop_live_locked(self, max_rows: int,
+    def _pop_live_locked(self, max_rows: int, strict: bool,
                          expired: List[InferenceRequest]
                          ) -> List[InferenceRequest]:
         out: List[InferenceRequest] = []
@@ -178,11 +219,14 @@ class RequestQueue:
             head = self._dq[0]
             if head.expired(now):
                 self._dq.popleft()
+                self._rows -= head.rows
+                self._timed_out += 1
                 expired.append(head)     # completed by take(), post-lock
                 continue
-            if out and rows + head.rows > max_rows:
+            if (out or strict) and rows + head.rows > max_rows:
                 break
             self._dq.popleft()
+            self._rows -= head.rows
             out.append(head)
             rows += head.rows
             if rows >= max_rows:
@@ -202,10 +246,15 @@ class RequestQueue:
             if not drain:
                 aborted = list(self._dq)
                 self._dq.clear()
+                self._rows = 0
             self._not_empty.notify_all()
         for req in aborted:
             req.fail(ServerClosedError(
                 "server shut down before this request was served"))
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     @property
     def finished(self) -> bool:
@@ -217,7 +266,19 @@ class RequestQueue:
         with self._lock:
             return len(self._dq)
 
+    def pending_rows(self) -> int:
+        """Total rows queued — the admission controller's backlog unit
+        (dispatches drain up to ``max_batch_size`` rows at a time)."""
+        with self._lock:
+            return self._rows
+
+    def timed_out_count(self) -> int:
+        return self._timed_out
+
+    def __len__(self) -> int:
+        return self.pending()
+
 
 __all__ = ["InferenceRequest", "RequestQueue", "RequestTimeoutError",
            "ServerClosedError", "ServerOverloadedError", "ServingError",
-           "ServingTimeoutError"]
+           "ServingTimeoutError", "collapse_outputs"]

@@ -1,21 +1,34 @@
-"""Serving resilience: SLO admission and supervised workers.
+"""Serving resilience: the detect -> decide -> recover rail for inference.
 
-Counterpart of ``deeplearning4j_tpu/serving/resilience.py``, cut to what
-the generative servers use, copied and adapted (host code):
+Counterpart of ``deeplearning4j_tpu/serving/resilience.py`` (host code,
+copied and adapted), shared by ``ParallelInference`` and the generative
+servers:
 
 - the typed-failure contract: :class:`ServingError`,
-  :class:`RetryableServingError` (``retry_after_s``; its wire format
-  belongs to the fleet, not ported yet);
-- :class:`ResilienceConfig`, with the fields the generative tier reads
-  (admission and supervision; the circuit breaker and poisoned-batch
-  bisection belong to ``ParallelInference``, not ported yet);
+  :class:`RetryableServingError` (``retry_after_s``, and
+  ``to_wire``/``from_wire`` to carry a shed across a process boundary
+  without losing its type), :class:`PoisonedRequestError` and
+  :class:`ReloadFailedError`;
 - :class:`AdmissionController`: a deadline-carrying request whose
-  estimated wait (queue depth x a rolling percentile of the decode-step
-  time, :class:`~deeplearning4j_tpu_torch.monitor.steptime.RollingPercentiles`)
+  estimated wait (queued dispatches ahead x a rolling percentile of the
+  exec time, :class:`~deeplearning4j_tpu_torch.monitor.steptime.RollingPercentiles`)
   already exceeds its deadline is shed typed at ``submit()``;
+- :class:`CircuitBreaker`: closed / open / half-open on consecutive exec
+  failures. Open sheds new submits (``retry_after_s`` = time until the
+  next probe window) and pauses dispatch; after ``reset_timeout_s`` ONE
+  probe batch goes through half-open: success closes the breaker,
+  failure re-opens it;
 - :class:`InflightSlot` and :class:`WorkerSupervisor`: a crashed worker
   is restarted with bounded exponential backoff and its in-flight
-  requests are requeued exactly once.
+  requests are requeued exactly once (a request lost to two crashes
+  fails its future);
+- poisoned-batch isolation is driven from ``inference.py``: a failed
+  batched exec (a raise, or a non-finite output row) is bisected down to
+  the poisoned request, which fails with :class:`PoisonedRequestError`
+  while its co-batched neighbours are served.
+
+The JAX rail's ``{"type": "faults"}`` records wait for the stats storage
+(ROADMAP queue 1 item 2.8).
 """
 from __future__ import annotations
 
@@ -33,44 +46,125 @@ class ServingError(RuntimeError):
     ``serving.queue``)."""
 
 
+#: wire-kind registry: class-name -> exception class, populated by
+#: ``RetryableServingError.__init_subclass__`` so every typed shed in
+#: the process round-trips through :meth:`RetryableServingError.from_wire`
+#: to its concrete class. Unknown kinds (a newer replica's error type)
+#: fall back to the base — the retry semantics survive even when the
+#: specific subclass does not.
+_WIRE_KINDS: dict = {}
+
+
 class RetryableServingError(ServingError):
     """A typed, *retryable* shed: the request was rejected by a
-    transient capacity condition (full queue, exhausted block pool, SLO
-    admission), not by anything wrong with the request itself.
-    ``retry_after_s`` — when set — is the structured backoff hint: how
-    long the shedding condition is expected to persist."""
+    transient capacity condition (full queue, exhausted block pool,
+    open breaker, SLO admission), not by anything wrong with the
+    request itself. ``retry_after_s`` — when set — is the structured
+    backoff hint: how long the shedding condition is expected to
+    persist.
+
+    This class is the routing contract the fleet tier keys on: a
+    front door retries anything ``isinstance(e, RetryableServingError)``
+    (honoring the hint) and never retries permanent ``ValueError``s.
+    :meth:`to_wire`/:meth:`from_wire` round-trip the error as a plain
+    dict so a router can transport a shed across a process boundary
+    without losing its type or its ``retry_after_s``."""
 
     def __init__(self, message: str, retry_after_s: Optional[float] = None):
         super().__init__(message)
         self.retry_after_s = retry_after_s
 
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _WIRE_KINDS[cls.__name__] = cls
+
+    def to_wire(self) -> dict:
+        """Serialize to a plain dict: ``{"kind", "message",
+        "retry_after_s"}`` — everything a remote caller needs to back
+        off correctly."""
+        return {"kind": type(self).__name__,
+                "message": str(self),
+                "retry_after_s": self.retry_after_s}
+
+    @staticmethod
+    def from_wire(d: dict) -> "RetryableServingError":
+        """Reconstruct a typed shed from :meth:`to_wire` output. The
+        concrete class is looked up by ``kind``; an unknown kind
+        deserializes as the base class so cross-version fleets still
+        agree on "retryable with this hint"."""
+        cls = _WIRE_KINDS.get(str(d.get("kind", "")), RetryableServingError)
+        hint = d.get("retry_after_s")
+        return cls(str(d.get("message", "")),
+                   retry_after_s=None if hint is None else float(hint))
+
+
+class PoisonedRequestError(ServingError):
+    """This request's input makes the model fail or produce non-finite
+    outputs — it was quarantined by the bisecting dispatcher instead of
+    failing its co-batched neighbours. ``request_id`` names the request;
+    ``__cause__`` (when set) is the exec error the bisection isolated."""
+
+    def __init__(self, message: str, request_id: Optional[int] = None):
+        super().__init__(message)
+        self.request_id = request_id
+
+
+class ReloadFailedError(ServingError):
+    """``reload_from()`` could not safely swap parameters. When
+    ``rolled_back`` is True the previous parameters were restored and
+    the server keeps serving exactly what it served before the attempt;
+    ``report`` carries the machine-readable reload accounting."""
+
+    def __init__(self, message: str, report: Optional[dict] = None,
+                 rolled_back: bool = False):
+        super().__init__(message)
+        self.report = dict(report or {})
+        self.rolled_back = rolled_back
+
 
 @dataclass
 class ResilienceConfig:
-    """Knobs for the serving resilience rail (``resilience=True`` means
-    this default config).
+    """Knobs for the serving resilience rail (``ParallelInference
+    (resilience=...)``; ``True`` means this default config).
 
     - ``admission``: shed deadline-carrying requests whose estimated
-      wait (queued work ahead x rolling ``percentile`` exec time)
+      wait (queued batches ahead × rolling ``percentile`` exec time)
       already exceeds their deadline. Estimation starts after
-      ``min_exec_samples`` observed execs; ``window`` bounds the rolling
-      sample.
-    - ``supervise``: run the worker under a :class:`WorkerSupervisor`,
-      which restarts it with backoff between ``worker_backoff_base_s``
-      and ``worker_backoff_max_s``.
+      ``min_exec_samples`` observed execs (cold servers never shed on
+      garbage estimates); ``window`` bounds the rolling sample.
+    - ``breaker_failure_threshold``: consecutive exec failures that
+      open the circuit (0 disables the breaker);
+      ``breaker_reset_s``: open → half-open probe delay.
+    - ``supervise``: run workers under a :class:`WorkerSupervisor`.
+      ``worker_max_consecutive_errors`` unexpected worker-loop errors
+      kill the worker (the supervisor restarts it with backoff between
+      ``worker_backoff_base_s`` and ``worker_backoff_max_s``).
+    - ``isolate_poisoned``: bisect failed batched execs down to the
+      poisoned request; ``check_finite_outputs`` extends "failed" to
+      any non-finite output row (how a NaN input actually manifests —
+      the device does not raise on it); ``single_retries``: extra attempts a
+      lone *raising* request gets before it is declared poisoned
+      (absorbs a transient exec fault landing on a singleton; a
+      non-finite output is deterministic and is quarantined at once).
     """
 
     admission: bool = True
     min_exec_samples: int = 8
     percentile: float = 95.0
     window: int = 256
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 2.0
     supervise: bool = True
     worker_backoff_base_s: float = 0.05
     worker_backoff_max_s: float = 2.0
+    worker_max_consecutive_errors: int = 3
+    isolate_poisoned: bool = True
+    check_finite_outputs: bool = True
+    single_retries: int = 1
 
     @staticmethod
     def normalize(value) -> Optional["ResilienceConfig"]:
-        """None/False -> None (rail off); True -> defaults; a config
+        """None/False → None (rail off); True → defaults; a config
         passes through."""
         if value is None or value is False:
             return None
@@ -80,6 +174,120 @@ class ResilienceConfig:
             return value
         raise TypeError(f"resilience= expects None/bool/ResilienceConfig, "
                         f"got {type(value).__name__}")
+
+
+class CircuitBreaker:
+    """Closed / open / half-open breaker over consecutive exec failures.
+
+    Thread-safe; transitions invoke ``on_transition(old, new)`` OUTSIDE
+    the internal lock (the callback pokes metrics
+    and must not deadlock against probes). ``clock`` is injectable for
+    deterministic tests.
+    """
+
+    def __init__(self, failure_threshold: int = 5,
+                 reset_timeout_s: float = 2.0,
+                 on_transition: Optional[Callable[[str, str], None]] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        if failure_threshold <= 0:
+            raise ValueError("failure_threshold must be positive")
+        self.failure_threshold = int(failure_threshold)
+        self.reset_timeout_s = float(reset_timeout_s)
+        self.on_transition = on_transition
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = "closed"
+        self._consecutive = 0
+        self._opened_at: Optional[float] = None
+        self._probe_inflight = False
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _set_locked(self, new: str) -> Optional[tuple]:
+        old = self._state
+        if old == new:
+            return None
+        self._state = new
+        return (old, new)
+
+    def _notify(self, transition: Optional[tuple]) -> None:
+        if transition is not None and self.on_transition is not None:
+            self.on_transition(*transition)
+
+    # -- submit side ----------------------------------------------------
+    def reject_for(self) -> Optional[float]:
+        """Seconds a new submit should back off, or None to admit.
+        Open rejects until the probe window; half-open admits (the
+        queued request is what the probe will serve)."""
+        with self._lock:
+            if self._state != "open":
+                return None
+            remaining = self.reset_timeout_s - (self._clock()
+                                                - self._opened_at)
+            if remaining > 0:
+                return remaining
+            return None          # probe window reached: admit
+
+    # -- dispatch side --------------------------------------------------
+    def acquire(self):
+        """Worker gate before popping a batch: returns
+        ``(allowed, wait_s)``. Open → ``(False, seconds-until-probe)``;
+        the FIRST caller after the reset timeout transitions to
+        half-open and owns the probe (others keep waiting). A caller
+        that acquired but dispatched nothing must :meth:`release`."""
+        transition = None
+        try:
+            with self._lock:
+                if self._state == "closed":
+                    return True, 0.0
+                now = self._clock()
+                if self._state == "open":
+                    remaining = self.reset_timeout_s - (now - self._opened_at)
+                    if remaining > 0:
+                        return False, remaining
+                    transition = self._set_locked("half_open")
+                    self._probe_inflight = True
+                    return True, 0.0
+                # half-open: exactly one probe at a time
+                if not self._probe_inflight:
+                    self._probe_inflight = True
+                    return True, 0.0
+                return False, 0.05
+        finally:
+            self._notify(transition)
+
+    def release(self) -> None:
+        """Give back an acquired probe that dispatched nothing."""
+        with self._lock:
+            if self._state == "half_open":
+                self._probe_inflight = False
+
+    # -- outcomes -------------------------------------------------------
+    def on_success(self) -> None:
+        transition = None
+        with self._lock:
+            self._consecutive = 0
+            if self._state == "half_open":
+                self._probe_inflight = False
+                transition = self._set_locked("closed")
+        self._notify(transition)
+
+    def on_failure(self) -> None:
+        transition = None
+        with self._lock:
+            self._consecutive += 1
+            if self._state == "half_open":
+                self._probe_inflight = False
+                self._opened_at = self._clock()
+                transition = self._set_locked("open")
+            elif self._state == "closed" and \
+                    self._consecutive >= self.failure_threshold:
+                self._opened_at = self._clock()
+                transition = self._set_locked("open")
+        self._notify(transition)
 
 
 class AdmissionController:
@@ -104,6 +312,15 @@ class AdmissionController:
     def observe(self, exec_ms: float) -> None:
         with self._lock:
             self._pcts.add(float(exec_ms))
+
+    def exec_ms(self, p: Optional[float] = None) -> float:
+        with self._lock:
+            return self._pcts.percentile(self.percentile if p is None
+                                         else p)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._pcts)
 
     def estimate_wait_ms(self, pending_rows: int,
                          rows_per_dispatch: int) -> Optional[float]:
@@ -154,21 +371,25 @@ class WorkerSupervisor:
     supervisor polls thread liveness; a dead thread whose slot is not
     ``exited`` is a crash: its in-flight requests are requeued (a
     request already requeued once fails its future — no infinite
-    ping-pong), a ``{"type": "faults"}`` ``fault`` record is published,
-    the worker is respawned after bounded exponential backoff, and a
-    ``recovered`` record closes the episode (the /healthz 503 window).
+    ping-pong), and the worker is respawned after bounded exponential
+    backoff. ``on_crash`` runs first for each crash.
     """
 
     def __init__(self, spawn: Callable[[int, InflightSlot], threading.Thread],
                  n_workers: int, queue, metrics,
                  backoff_base_s: float = 0.05, backoff_max_s: float = 2.0,
-                 poll_s: float = 0.02):
+                 poll_s: float = 0.02,
+                 on_crash: Optional[Callable[[], None]] = None):
         self._spawn = spawn
         self._queue = queue
         self._metrics = metrics
         self.backoff_base_s = float(backoff_base_s)
         self.backoff_max_s = float(backoff_max_s)
         self.poll_s = float(poll_s)
+        # run per crash BEFORE requeue — the server uses it to release
+        # a half-open breaker probe the dead worker may have been
+        # holding (a leaked probe would gate dispatch forever)
+        self._on_crash = on_crash or (lambda: None)
         self._stopping = False
         self._lock = threading.Lock()
         self._entries: List[dict] = []
@@ -216,6 +437,7 @@ class WorkerSupervisor:
         inflight = list(slot.requests or [])
         self._metrics.inc("worker_restarts")
         entry["consecutive"] += 1
+        self._on_crash()
         self._requeue(inflight)
         backoff = min(self.backoff_max_s,
                       self.backoff_base_s * (2 ** (entry["consecutive"] - 1)))
@@ -262,5 +484,7 @@ class WorkerSupervisor:
             t.join(timeout=timeout)
 
 
-__all__ = ["AdmissionController", "InflightSlot", "ResilienceConfig",
-           "RetryableServingError", "ServingError", "WorkerSupervisor"]
+__all__ = ["AdmissionController", "CircuitBreaker",
+           "InflightSlot", "PoisonedRequestError", "ReloadFailedError",
+           "ResilienceConfig", "RetryableServingError", "ServingError",
+           "WorkerSupervisor"]

@@ -1400,3 +1400,53 @@ def test_occupancy_entries_report_resident_blocks(card, d, dtype, int8):
     assert blocks >= 1 and clusters >= 1
     for kind in af.KINDS:
         assert af.blocks_per_sm(d, kind) >= 1
+
+
+def _served_resnet(card):
+    """ResNet-50 at 32x32, 10 classes, on the card, its batch norms'
+    running statistics set from one seeded batch (so that outputs depend
+    on the input), and seeded requests of 1-3 images."""
+    from deeplearning4j_tpu_torch.kernels.measure import set_running_stats
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50(height=32, width=32, num_classes=10).build()
+    assert next(net.model.parameters()).device.type == "cuda"
+    rng = np.random.default_rng(3)
+    set_running_stats(net, rng.uniform(size=(16, 3, 32, 32)))
+    xs = [rng.uniform(size=(int(rng.integers(1, 4)), 3, 32, 32))
+          .astype(np.float32) for _ in range(8)]
+    return net, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["BATCHED", "INPLACE"])
+def test_parallel_inference_on_card_matches_output(card, mode):
+    """Served on the card (the network's device, no ``device=``), each
+    request's rows within 1e-5 of ``output()`` (softmax probabilities,
+    TF32 off: the same float32 arithmetic, but a bucket may take another
+    cuDNN kernel than the request's own row count); in BATCHED mode a
+    request co-batched at its bucket gives its solo rows bit for bit."""
+    from deeplearning4j_tpu_torch.serving import (InferenceMode,
+                                                  ParallelInference)
+    net, xs = _served_resnet(card)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with ParallelInference(net, mode=getattr(InferenceMode, mode),
+                               max_batch_size=8, buckets=(8,),
+                               max_delay_ms=200.0,
+                               warmup_buckets=True) as pi:
+            assert pi.device.type == "cuda"
+            futs = [pi.submit(x) for x in xs]
+            got = [f.result(timeout=120) for f in futs]
+            solo = [pi.output(x) for x in xs] if mode == "BATCHED" else got
+            assert pi.metrics.counters["compiles"] == (
+                0 if mode == "BATCHED" else len({len(x) for x in xs} - {
+                    1, 2, 4, 8}))
+        for x, g, s in zip(xs, got, solo):
+            want = net.output(x)[0].cpu().numpy()
+            assert g.shape == want.shape
+            np.testing.assert_allclose(g, want, rtol=0, atol=1e-5)
+            assert np.array_equal(g, s)
+        assert np.abs(got[0][0] - got[1][0]).max() > 1e-3
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -347,7 +347,7 @@ def test_fit_refuses_what_is_not_ported_by_name(kwargs, item):
 @pytest.mark.parametrize("method,item", [
     ("evaluate", "item 10"), ("save", "item 10"), ("load", "item 10"),
     ("capture_training_state", "item 7"),
-    ("restore_training_state", "item 7"), ("serving_spec", "item 2.6")])
+    ("restore_training_state", "item 7")])
 def test_graph_refuses_what_is_not_ported_by_name(method, item):
     _, pnet = _small_pair()
     with pytest.raises(NotImplementedError,

@@ -162,7 +162,10 @@ def test_serving_monitor_and_memory_modules_are_in_the_checks():
     assert {"memory.py", "monitor/trace.py", "monitor/steptime.py",
             "monitor/memstats.py", "serving/generative.py",
             "serving/sampling.py", "serving/paged/server.py",
-            "serving/paged/pool.py", "kernels/paged_attention.py"} <= files
+            "serving/paged/pool.py", "kernels/paged_attention.py",
+            "serving/inference.py", "serving/batching.py",
+            "serving/queue.py", "serving/resilience.py",
+            "serving/metrics.py", "serving/loadgen.py"} <= files
 
 
 def test_servers_raise_without_a_card_unless_asked_for_cpu(no_card):
@@ -184,3 +187,19 @@ def test_servers_raise_without_a_card_unless_asked_for_cpu(no_card):
                                 device="cpu")
     assert srv._kc.device.type == "cpu"
     srv.shutdown()
+
+
+def test_parallel_inference_serves_on_the_networks_device(no_card):
+    """``ParallelInference`` takes no device: it serves where the network
+    was built, and a network is built on the card unless asked for the
+    CPU (which raises here, with no card)."""
+    from deeplearning4j_tpu_torch.serving import (InferenceMode,
+                                                  ParallelInference)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelInference(ResNet50(height=32, width=32,
+                                   num_classes=4).build())
+    net = ResNet50(height=32, width=32, num_classes=4).build(device="cpu")
+    with ParallelInference(net, mode=InferenceMode.INPLACE) as pi:
+        assert pi.device == torch.device("cpu")
+        out = pi.output(np.zeros((2, 3, 32, 32), np.float32))
+    assert out.shape == (2, 4) and np.all(np.isfinite(out))

@@ -278,7 +278,6 @@ def test_what_is_not_ported_is_refused_by_name():
                        (lambda: net.evaluate(x, y), "10"),
                        (lambda: net.capture_training_state(), "7"),
                        (lambda: net.restore_training_state(None), "7"),
-                       (lambda: net.serving_spec(), "2.6"),
                        (lambda: net.conf.to_json(), "10"),
                        (lambda: MultiLayerConfiguration.from_json("{}"),
                         "10")):
