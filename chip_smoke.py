@@ -343,6 +343,33 @@ Phases, in order; any failure exits non-zero:
    bucket-32 exec against its float32 FMA-rate bound, and with TF32
    allowed. No kernel of the port's own lies on this path.
 
+26. main path: ResNet-50 (phase 6's: 224x224x3, 1000 classes, batch 128,
+   bf16 MixedPrecision, seed 0) trained as ImageNet's recipe trains it:
+   ``Nesterovs(RampSchedule(StepSchedule(0.1, 0.1, 16), 8), 0.9)``,
+   ``L2Regularization(1e-4)``, ``accum_steps=2`` (an effective batch of
+   256), ``fused_steps=4``, ``sentinel=True``, over 24 seeded batches on
+   the card keyed by the iteration (``StepSource``). A warm-up captures
+   the window and the start is restored in place. A: the 24 steps with a
+   ``CheckpointListener`` every 8 (step ms, each capture's device-to-host
+   ms, each commit's seconds, the checkpoint bytes, the windows captured;
+   the BN kernels' 33 + 20 launches a step, counts set to 0 just before).
+   B: from the same start, ``FaultTolerantFit`` (checkpoints every 8,
+   ``RetryPolicy(backoff_base=0)``) over a batch poisoned at step 13: the
+   sentinel names 13, the run rolls back to 8 with no window captured
+   again and ends bit-equal to A (parameters, running statistics,
+   momentum). C: a new network restored by ``restore_latest`` from A's
+   step-16 checkpoint trains the last 8 steps, bit-equal to A (where B or
+   C is not, A-C run again with ``torch.backends.cudnn.deterministic``,
+   and the phase says so). The step ms with A's options against neither
+   the sentinel nor the regularization (alternating runs, no checkpoint),
+   a profiled pass with A's options; D: NaN gradients armed at step 5
+   raise ``TrainingDivergedError`` naming step 5 from inside a captured
+   window. Then phase 4's 32x32 ResNet-50 in float64 with L2, WeightDecay,
+   clip_l2_global, a ``RampSchedule(StepSchedule)`` and accum_steps 2 over
+   4 iterations: the card's windows of 2 against the CPU's one step a
+   batch, to 1e-6 (phase 4's bound). No kernel of this phase is new; the
+   checkpoints' directory is deleted.
+
 Every idle share is read from one profiled pass: its device busy time
 against that pass's own wall time.
 
@@ -5756,6 +5783,377 @@ def _phase25_profile(net, pi, pool, card):
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+#: phase 26: one epoch of seeded batches, checkpoints every P26_EVERY
+#: iterations, windows of P26_K, accum_steps P26_ACCUM; the batch
+#: poisoned in run B and the NaN gradients of run D
+P26_STEPS, P26_EVERY, P26_K, P26_ACCUM = 24, 8, 4, 2
+P26_POISON, P26_NAN = 13, 5
+
+
+class StepSource:
+    """Phase 26's data: seeded batches on the card, keyed by the model's
+    absolute iteration. A pass runs from ``iteration_count`` to the end of
+    its epoch, so a fit retried after a rollback resumes where its
+    checkpoint stopped (the contract of the JAX package's seekable
+    pipeline, which the port does not have yet). The batches lie on the
+    card: ``RetryingIterator`` scans host batches and would quarantine a
+    poisoned one before the sentinel could see it."""
+
+    def __init__(self, batches, tc):
+        self.batches, self.tc = batches, tc
+
+    def __iter__(self):
+        n = len(self.batches)
+        for i in range(self.tc.iteration_count % n, n):
+            yield self.batches[i]
+
+
+def _p26_net(dev):
+    """The main path's ResNet-50 (224x224x3, 1000 classes, bf16
+    MixedPrecision) with ImageNet's usual recipe: Nesterovs at 0.1 warmed
+    up over 8 updates and cut tenfold at 16 (``RampSchedule(StepSchedule)``),
+    L2 1e-4."""
+    from deeplearning4j_tpu_torch.autodiff import MixedPrecision
+    from deeplearning4j_tpu_torch.learning import (L2Regularization,
+                                                   Nesterovs, RampSchedule,
+                                                   StepSchedule)
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    conf = ResNet50(height=224, width=224, channels=3, num_classes=1000,
+                    updater=Nesterovs(learning_rate=RampSchedule(
+                        base=StepSchedule(initial_value=0.1, decay_rate=0.1,
+                                          step=16), num_iter=8),
+                        momentum=0.9)).conf()
+    conf.mixed_precision = MixedPrecision()
+    conf.regularization = [L2Regularization(l2=1e-4)]
+    net = ComputationGraph(conf).init(dev)
+    tc = net.training_config
+    tc.fused_steps, tc.accum_steps, tc.sentinel = P26_K, P26_ACCUM, True
+    return net
+
+
+def _p26_batches(dev):
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(P26_STEPS):
+        x = rng.standard_normal((BATCH, 3, 224, 224), dtype=np.float32)
+        y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, BATCH)]
+        out.append((torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+    return out
+
+
+def _states_differ(a, b):
+    """(tensors that differ, their largest |a - b|) between two
+    TrainingStates' arrays and updater leaves; (0, 0.0) is bit-equal."""
+    pairs = [(a.arrays[k], b.arrays.get(k)) for k in a.arrays] + \
+        list(zip(a.updater_leaves or [], b.updater_leaves or []))
+    n, worst = 0, 0.0
+    for x, y in pairs:
+        if y is None or x.shape != y.shape:
+            n, worst = n + 1, math.inf
+        elif not np.array_equal(x, y):
+            n += 1
+            worst = max(worst, float(np.nanmax(np.abs(
+                x.astype(np.float64) - y))))
+    if set(a.arrays) != set(b.arrays) or a.iteration != b.iteration or \
+            len(a.updater_leaves or []) != len(b.updater_leaves or []):
+        n, worst = n + 1, math.inf
+    return n, worst
+
+
+def _p26_abc(dev, card, batches, tmp, tag):
+    """Runs A (uninterrupted, with checkpoints), B (self-healing) and C
+    (resumed by a new network) from one start; returns their figures and
+    the network of A and B."""
+    import shutil
+    from deeplearning4j_tpu_torch.checkpoint import (CheckpointListener,
+                                                     CheckpointManager,
+                                                     capture_training_state)
+    from deeplearning4j_tpu_torch.faults import (ChaosMonkey,
+                                                 FaultTolerantFit,
+                                                 RetryPolicy)
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    out = {}
+    net = _p26_net(dev)
+    tc = net.training_config
+    init = capture_training_state(net)          # the start, on the host
+    t0 = time.perf_counter()
+    net.fit(StepSource(batches[:P26_K], tc), listeners=[_quiet_listener()])
+    torch.cuda.synchronize()
+    st = dict(net.last_fit_stats)
+    net.restore_training_state(init)
+    log(f"  warm-up: one window of {P26_K} (accum {P26_ACCUM}, phase 0) "
+        f"captured in {time.perf_counter() - t0:.1f} s ({st}); the start "
+        f"restored in place")
+    if st["window_captures"] != 1 or net.captures_total != 1:
+        raise SystemExit(f"the warm-up captured {st}")
+
+    # A: uninterrupted, a checkpoint every P26_EVERY iterations
+    mgr_a = CheckpointManager(os.path.join(tmp, f"{tag}_a"), keep_last_n=3)
+    lis = CheckpointListener(mgr_a, every_n_iterations=P26_EVERY)
+    torch.cuda.synchronize()
+    bn_relu.reset_launches()
+    t0 = time.perf_counter()
+    hist = net.fit(StepSource(batches, tc), listeners=[lis])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(bn_relu.LAUNCHES)
+    mgr_a.wait_until_finished()
+    st = dict(net.last_fit_stats)
+    a_final = capture_training_state(net)
+    recs = list(mgr_a.records)
+    disk = {r["step"]: sum(os.path.getsize(os.path.join(
+        mgr_a.step_dir(r["step"]), f)) for f in os.listdir(
+        mgr_a.step_dir(r["step"]))) for r in recs[-1:]}
+    want = {bn_relu.kernel_name(p, r): (33 if r else 20) * P26_STEPS
+            for p in (1, 2) for r in (True, False)}
+    out.update(a_step_ms=1000 * wall / P26_STEPS,
+               capture_ms=[1000 * s for s in lis.capture_seconds],
+               commit_s=[r["commit_seconds"] for r in recs],
+               bytes=[r["bytes"] for r in recs], disk=disk,
+               captures=net.captures_total, launches=launches)
+    log(f"  A: {P26_STEPS} steps ({st['tier']}, windows {st['window_sizes']},"
+        f" {st['window_captures']} captured, accum {st['accum_steps']}, "
+        f"sentinel {st['sentinel']}) in {wall:.3f} s: "
+        f"{out['a_step_ms']:.2f} ms a step with the checkpoints, loss "
+        f"{hist.step_losses[0]:.4f} -> {hist.step_losses[-1]:.4f}; "
+        f"checkpoints {mgr_a.all_steps()}: capture (device to host) ms "
+        f"{[round(v, 2) for v in out['capture_ms']]}, commit s "
+        f"{[round(v, 3) for v in out['commit_s']]}, bytes {out['bytes']} "
+        f"({disk} on disk); windows captured in all {net.captures_total}  "
+        f"[{card}]")
+    log(f"  A's BN backward launches {launches}")
+    if launches != want or not np.all(np.isfinite(hist.step_losses)) or \
+            st["window_captures"] != 0 or \
+            mgr_a.all_steps() != [8, 16, 24]:
+        raise SystemExit(f"run A: launches {launches} (want {want}), "
+                         f"{st}, checkpoints {mgr_a.all_steps()}")
+    keep_c = os.path.join(tmp, f"{tag}_c")
+    shutil.copytree(mgr_a.step_dir(16), os.path.join(
+        keep_c, os.path.basename(mgr_a.step_dir(16))))
+    mgr_a.close()
+
+    # B: the same start, a batch poisoned at P26_POISON, FaultTolerantFit
+    net.restore_training_state(init)
+    mgr_b = CheckpointManager(os.path.join(tmp, f"{tag}_b"), keep_last_n=3)
+    it = ChaosMonkey(seed=0).poison_batches(StepSource(batches, tc),
+                                            at_step=P26_POISON)
+    ftf = FaultTolerantFit(net, mgr_b, policy=RetryPolicy(backoff_base=0),
+                           checkpoint_every_n_iterations=P26_EVERY)
+    before = net.captures_total
+    t0 = time.perf_counter()
+    ftf.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    mgr_b.close()
+    events = [e["event"] for e in ftf.events]
+    fault = next(e for e in ftf.events if e["event"] == "fault")
+    rollback = next(e for e in ftf.events if e["event"] == "rollback")
+    b_final = capture_training_state(net)
+    out.update(b_diff=_states_differ(a_final, b_final),
+               rollback_s=rollback["overhead_s"],
+               b_recaptures=net.captures_total - before, b_wall=b_wall)
+    log(f"  B: FaultTolerantFit over a batch poisoned at step {P26_POISON}: "
+        f"events {events}; the sentinel named step {fault['step']} (epoch "
+        f"{fault['epoch']}, batch {fault['batch_index']}), rolled back to "
+        f"step {rollback['restored_step']} in {rollback['overhead_s']:.3f} "
+        f"s, windows captured after it {out['b_recaptures']}; {b_wall:.2f} s "
+        f"in all; against A: {out['b_diff'][0]} tensors differ (largest "
+        f"{out['b_diff'][1]:.3g})  [{card}]")
+    if events != ["fault", "rollback", "retry", "recovered"] or \
+            fault["step"] != P26_POISON or \
+            rollback["restored_step"] != 8 or out["b_recaptures"] != 0 or \
+            tc.iteration_count != P26_STEPS:
+        raise SystemExit(f"run B: events {ftf.events}")
+
+    # C: a new network resumes from A's step-16 checkpoint
+    net_c = _p26_net(dev)
+    step, _ = CheckpointManager(keep_c).restore_latest(model=net_c)
+    t0 = time.perf_counter()
+    net_c.fit(StepSource(batches, net_c.training_config))
+    torch.cuda.synchronize()
+    c_final = capture_training_state(net_c)
+    out["c_diff"] = _states_differ(a_final, c_final)
+    log(f"  C: a new network restored (restore_latest) at step {step}, "
+        f"{P26_STEPS - step} steps in {time.perf_counter() - t0:.1f} s "
+        f"(its window's capture included); against A: {out['c_diff'][0]} "
+        f"tensors differ (largest {out['c_diff'][1]:.3g})")
+    if step != 16 or net_c.training_config.iteration_count != P26_STEPS:
+        raise SystemExit(f"run C resumed at {step}")
+    del net_c
+    torch.cuda.empty_cache()
+    out.update(net=net, init=init)
+    return out
+
+
+def _p26_timed(net, init, batches, opts):
+    """One epoch from the start with run A's options (``"A"``) or with
+    neither the sentinel nor the regularization (``"plain"``): ms a
+    step, no checkpoint."""
+    from deeplearning4j_tpu_torch.learning import L2Regularization
+    tc = net.training_config
+    tc.sentinel = opts == "A"
+    tc.regularization = [L2Regularization(l2=1e-4)] if opts == "A" else []
+    net.restore_training_state(init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = net.fit(StepSource(batches, tc))
+    torch.cuda.synchronize()
+    if not np.all(np.isfinite(h.step_losses)):
+        raise SystemExit(f"{opts}: non-finite losses")
+    return 1000 * (time.perf_counter() - t0) / P26_STEPS
+
+
+def _p26_f64_parity():
+    """Phase 4's ResNet-50 (32x32, 4 classes, batch 8) in float64, TF32
+    off, with L2, WeightDecay, clip_l2_global, a RampSchedule(StepSchedule)
+    and accum_steps 2, over 4 iterations from the same weights: the
+    card's fused tier (windows of 2 over a DeviceCachedIterator) against
+    the CPU's one step a batch (a list of batches; accumulation makes it
+    windows of 1). Every trained tensor's change, running statistic and
+    loss to 1e-6 (phase 4's bound)."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.learning import (L2Regularization,
+                                                   Nesterovs, RampSchedule,
+                                                   StepSchedule, WeightDecay)
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    b = 8
+    x = rng.normal(size=(4 * b, 3, 32, 32))
+    y = np.eye(4)[rng.integers(0, 4, 4 * b)]
+    weights = ResNet50(height=32, width=32, num_classes=4).build(
+        device="cpu").model.state_dict()
+
+    def run(dev):
+        conf = ResNet50(height=32, width=32, num_classes=4,
+                        updater=Nesterovs(learning_rate=RampSchedule(
+                            base=StepSchedule(initial_value=0.1,
+                                              decay_rate=0.1, step=1),
+                            num_iter=2), momentum=0.9)).conf()
+        conf.dtype = "float64"
+        conf.regularization = [L2Regularization(l2=1e-4),
+                               WeightDecay(coeff=1e-4)]
+        net = ComputationGraph(conf).init(device=dev)
+        net.model.load_state_dict(weights)
+        tc = net.training_config
+        tc.gradient_normalization = "clip_l2_global"
+        tc.gradient_normalization_threshold = 1.0
+        init = net.params()
+        data = DeviceCachedIterator(x, y, batch_size=b, device=dev) \
+            if dev == "cuda" else [(x[i:i + b], y[i:i + b])
+                                   for i in range(0, len(x), b)]
+        hist = net.fit(data, fused_steps=2 if dev == "cuda" else 1,
+                       accum_steps=2)
+        return init, net.params(), hist.step_losses, \
+            dict(net.last_fit_stats)
+
+    try:
+        (i0, pc, lc, sc), (_, ph, lh, sh) = run("cuda"), run("cpu")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    stats = [k for k in pc if k.endswith(("_mean", "_var"))]
+    trained = [k for k in pc if k not in stats
+               and not (k.endswith("_b") and k != "output_b")]
+    change = _max_rel({k: pc[k] - i0[k] for k in trained},
+                      {k: ph[k] - i0[k] for k in trained})
+    stat = _max_rel({k: pc[k] for k in stats}, {k: ph[k] for k in stats})
+    loss = max(abs(c - h) / abs(h) for c, h in zip(lc, lh))
+    worst = max(max(change.values()), max(stat.values()), loss)
+    log(f"  float64 32x32 with L2, WeightDecay, clip_l2_global, "
+        f"RampSchedule(StepSchedule), accum 2, 4 iterations: card "
+        f"{sc['tier']} (windows {sc['window_sizes']}, "
+        f"{sc['graph_replays_per_epoch']} replays) against CPU {sh['tier']} "
+        f"(windows {sh['window_sizes']}): worst change "
+        f"{max(change.values()):.2e} ({max(change, key=change.get)}), "
+        f"statistic {max(stat.values()):.2e}, loss {loss:.2e} (tol 1e-6)")
+    if sc["graph_replays_per_epoch"] != 2 or worst > 1e-6:
+        raise SystemExit("the card's float64 training options disagree "
+                         "with the CPU")
+    return worst
+
+
+def phase_train_options(dev, card):
+    """ResNet-50 trained as users train it (phase 26): runs A, B, C
+    (bit-equal, else cuDNN deterministic and said), D, the sentinel's
+    and regularization's cost, a profiled pass with A's options, and the
+    float64 parity."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.faults import (ChaosMonkey,
+                                                 TrainingDivergedError)
+    det0 = torch.backends.cudnn.deterministic
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p26_")
+    try:
+        t0 = time.perf_counter()
+        batches = _p26_batches(dev)
+        nbytes = sum(x.numel() * 4 + y.numel() * 4 for x, y in batches)
+        log(f"  {P26_STEPS} seeded batches of {BATCH} on the card "
+            f"({nbytes / 1e9:.2f} GB float32) in "
+            f"{time.perf_counter() - t0:.1f} s; checkpoints under {tmp}")
+        res = _p26_abc(dev, card, batches, tmp, "run")
+        if res["b_diff"][0] or res["c_diff"][0]:
+            del res["net"]
+            torch.cuda.empty_cache()
+            torch.backends.cudnn.deterministic = True
+            log("  B or C is not bit-equal to A: cuDNN's chosen algorithms "
+                "are not deterministic; A, B and C again with "
+                "torch.backends.cudnn.deterministic")
+            res = _p26_abc(dev, card, batches, tmp, "det")
+            if res["b_diff"][0] or res["c_diff"][0]:
+                raise SystemExit("runs B and C are not bit-equal to A")
+        log(f"  B and C bit-equal to A (cuDNN deterministic="
+            f"{torch.backends.cudnn.deterministic})")
+        net, init = res["net"], res["init"]
+
+        # the sentinel's and the regularization's cost
+        _p26_timed(net, init, batches, "plain")          # its capture
+        ms = {"A": [], "plain": []}
+        for opts in ("A", "plain", "plain", "A", "A", "plain"):
+            ms[opts].append(_p26_timed(net, init, batches, opts))
+        log(f"  step ms, windows of {P26_K}, accum {P26_ACCUM}, no "
+            f"checkpoint: A's options (sentinel, L2) "
+            f"{[round(v, 2) for v in ms['A']]}, neither "
+            f"{[round(v, 2) for v in ms['plain']]}: median "
+            f"{np.median(ms['A']) / np.median(ms['plain']):.4f}x  [{card}]")
+        log("  profiled pass with A's options (8 steps, two replays):")
+        tc = net.training_config
+        _p26_timed(net, init, batches[:8], "A")
+        net.restore_training_state(init)
+        prof = profile_fit(lambda: net.fit(StepSource(batches[:8], tc)), 8,
+                           min(ms["A"]), card)
+
+        # D: NaN gradients at P26_NAN inside a captured window
+        net.restore_training_state(init)
+        with ChaosMonkey(seed=0).nan_gradients(net, at_step=P26_NAN):
+            try:
+                net.fit(StepSource(batches[:8], tc))
+                raise SystemExit("run D: no TrainingDivergedError")
+            except TrainingDivergedError as e:
+                err = e
+        graphs = [w.graph is not None for w in net._windows.values()]
+        log(f"  D: NaN gradients armed at step {P26_NAN}: "
+            f"TrainingDivergedError step {err.step}, epoch {err.epoch}, "
+            f"batch {err.batch_index}: {str(err).split(';')[0]}; windows "
+            f"{len(graphs)}, all graphs {all(graphs)}")
+        if (err.step, err.epoch, err.batch_index) != (P26_NAN, 0, P26_NAN) \
+                or not all(graphs):
+            raise SystemExit("run D named another step")
+        del net, res
+        torch.cuda.empty_cache()
+        worst = _p26_f64_parity()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic = det0
+    return {"ms": ms, "profile": prof, "f64_worst": worst}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5766,7 +6164,7 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/25] env")
+    log("[1/26] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
@@ -5806,49 +6204,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/25] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/26] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/25] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/26] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/25] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/26] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/25] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/26] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/25] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/26] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/25] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/26] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/25] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/26] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/25] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/26] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -5860,7 +6258,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/25] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/26] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -5874,18 +6272,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/25] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/26] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/25] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/26] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/25] main path: GPT-medium float32 serving, "
+    log(f"[13/26] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -5894,40 +6292,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/25] path shapes: paged attention vs plain, then timed")
+    log("[14/26] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/25] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/26] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/25] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/26] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/25] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/26] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/25] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/26] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/25] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/26] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -5936,13 +6334,13 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/25] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/26] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/25] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/26] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
@@ -5950,20 +6348,20 @@ def main():
     phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[22/25] kernels: paged decode, verify and prefill over an int8 "
+    log("[22/26] kernels: paged decode, verify and prefill over an int8 "
         "cache (CUDA C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_int8kv_kernels(dev, errs)
     int8kv_timing = phase_int8kv_timing(dev, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[23/25] parity: GPT_TINY int8 KV serving (paged float32 and "
+    log("[23/26] parity: GPT_TINY int8 KV serving (paged float32 and "
         "float64, dense float32), card vs CPU")
     t0 = time.perf_counter()
     phase_int8kv_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[24/25] main path: GPT-medium int8 KV + int8 weights serving, "
+    log(f"[24/26] main path: GPT-medium int8 KV + int8 weights serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
         f"server; the pool at one byte budget and the load generator; the "
@@ -5972,11 +6370,19 @@ def main():
     int8kv_serve = phase_int8kv_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[25/25] main path: ResNet-50 224x224 served through "
+    log("[25/26] main path: ResNet-50 224x224 served through "
         "ParallelInference (BATCHED, 2 workers, max_batch_size 32, buckets "
         "4-32; SEQUENTIAL and INPLACE gates)")
     t0 = time.perf_counter()
     phase_parallel_inference(card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[26/26] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
+        f"a RampSchedule(StepSchedule), L2, accum_steps {P26_ACCUM}, windows "
+        f"of {P26_K} and the sentinel: checkpoints, FaultTolerantFit's "
+        f"rollback, a resume, a divergence named; float64 card vs CPU")
+    t0 = time.perf_counter()
+    phase_train_options(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []

@@ -4,8 +4,10 @@ Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: graph
 recording (``var`` :138, ``constant`` :160, ``placeholder`` :170,
 ``invoke`` :299, ``OpNode`` :59), ``remat_scope`` :417, ``_prune`` :452,
 ``output`` :581, ``calculate_gradients`` :729 and ``fit`` (:1558) with
-the train step of ``_build_step_parts`` :773; ``fit``'s tiers (per-step,
-fused windows, scanned epoch) are ``autodiff/window.py``.
+the train step of ``_build_step_parts`` :773, whose gradient half is
+``_grad_step`` here and whose apply half, sentinel and accumulation are
+``autodiff/step.py``; ``fit``'s tiers (per-step, fused windows, scanned
+epoch) are ``autodiff/window.py``.
 
 Where the JAX package traces the pruned graph into one jitted function
 and takes ``jax.grad`` of it, the port runs the pruned op order eagerly
@@ -27,9 +29,10 @@ tensor ``get_arr_for_var`` returned earlier (a server's pulled weights)
 keeps its values. A captured fit window reads the stored arrays by
 address: whatever changes one (``set_arr_for_var``, a new variable or op,
 a new updater state) drops the captured windows, and the next fit
-captures them again. Not ported yet (ROADMAP queue 1): control flow
-(``while_loop``/``cond``/``scan``), ``precompile``, ``exec_debug``,
-serde, the sentinel, gradient accumulation and tensor statistics.
+captures them again. Restoring a checkpoint (``checkpoint/state.py``)
+copies into the stored tensors and keeps the windows. Not ported yet
+(ROADMAP queue 1): control flow (``while_loop``/``cond``/``scan``),
+``precompile``, ``exec_debug``, serde and tensor statistics.
 """
 from __future__ import annotations
 
@@ -444,17 +447,17 @@ class SameDiff(window.StepOwner):
 
     # ------------------------------------------------------------------
     # training (reference: SameDiff.fit)
-    def _train_step(self, names: List[str], ph: Env, state,
-                    scal: torch.Tensor) -> torch.Tensor:
-        """Forward under the mixed-precision policy, backward into the
-        float32 masters, the updater in place with the step's scalar
-        ``scal`` (``updater.step_scalars``'s value, a 0-d device tensor).
-        Returns the (unscaled) loss, on the device. No host sync: fit
-        windows capture it in a CUDA graph."""
+    def _grad_step(self, names: List[str],
+                   ph: Env) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The gradient half of the train step (JAX ``grad_fn``): the
+        forward under the mixed-precision policy, the backward into the
+        float32 masters ``names``. Returns the (unscaled) loss and the
+        gradients, on the device. No host sync: fit windows capture it;
+        ``autodiff/step.py`` runs the apply half."""
         tc = self.training_config
         mp = tc.mixed_precision
         loss_names = self._resolve_loss()
-        masters = [self._arrays[n] for n in names]
+        masters = self._masters(names)
         leaves = [m.detach().requires_grad_(True) for m in masters]
         env = {**self.constants_map(), **dict(zip(names, leaves)), **ph}
         if mp is not None:
@@ -473,8 +476,12 @@ class SameDiff(window.StepOwner):
                                     materialize_grads=True)
         if scale:
             grads = [g / scale for g in grads]
-        tc.updater.update_(masters, grads, state, scal)
-        return loss.detach()
+        return loss.detach(), list(grads)
+
+    def _masters(self, names: List[str]) -> List[torch.Tensor]:
+        """The stored trainables ``names``, which the updater changes in
+        place."""
+        return [self._arrays[n] for n in names]
 
     def _fit_state(self):
         """(trainable names, updater state per name), the state made or
@@ -517,7 +524,10 @@ class SameDiff(window.StepOwner):
         iterator with ``stacked_batches``; fused windows of
         ``fused_steps`` steps when it is above 1; else one step a batch.
         ``listeners`` get each step's loss in bursts
-        (``Listener.iterations_done``)."""
+        (``Listener.iterations_done``). The config's ``accum_steps`` > 1
+        accumulates gradients over that many steps (fused windows);
+        ``sentinel`` raises ``TrainingDivergedError`` at the first step
+        whose loss or gradients went non-finite."""
         tc = self.training_config
         if tc is None:
             raise ValueError("set sd.training_config = TrainingConfig(...) "

@@ -21,18 +21,44 @@ K steps into one CUDA graph (:class:`StepWindow`) and replays it:
   batch) runs as one eager step.
 - **per-step**: one eager step a batch.
 
-Every tier runs the same train step and the same update kernels. The
-tiers serve any :class:`StepOwner`, the small protocol of what owns a
-train step: ``SameDiff`` (and ``MultiLayerNetwork`` through it) and
-``ComputationGraph``. What changes from step to step, the updater's
-scalars (Adam's ``alphat``), is computed on the host in float32 for the
-K steps of a window and copied into the window's ``(K,)`` buffer before
-each replay. Losses stay on the device: without listeners they are
+Every tier runs the same train step (``autodiff/step.py``) and the same
+update kernels. The tiers serve any :class:`StepOwner`, the small
+protocol of what owns a train step: ``SameDiff`` (and
+``MultiLayerNetwork`` through it) and ``ComputationGraph``. What changes
+from step to step, the updater's scalar (Adam's ``alphat``) and the
+learning rate (a schedule's value; weight decay scales by it), is
+computed on the host in float32 for the K steps of a window and copied
+into the window's ``(K, 2)`` buffer before each replay, with the steps'
+absolute iterations into its ``(K,)`` buffer (read by the chaos
+injection and the sentinel). As in the JAX fit, schedules are resolved
+at epoch 0. Losses stay on the device: without listeners they are
 fetched once at the end of the fit; with listeners once every
 ``min(frequency)`` steps, at the first window boundary at or after it,
 and delivered through ``Listener.iterations_done`` (on the per-step tier
-every ``min(frequency)`` buffered steps, as the JAX one). The host counters
-(``iteration_count``, ``epoch_count``) advance by a window's K steps.
+every ``min(frequency)`` buffered steps, as the JAX one). The host
+counters (``iteration_count``, ``epoch_count``) advance by a window's K
+steps.
+
+Gradient accumulation (``accum_steps`` A > 1, JAX ``make_train_window``
+:1146-1176) forces the fused-window tier, as in the JAX fit. A window's
+apply positions, the steps at which ``(iteration + 1) % A == 0``, are
+fixed by its first iteration modulo A (its phase), which is part of the
+window's key: no window is captured again under training. The
+accumulator is a device tensor a trainable, kept by the owner across
+windows and fits, and zeroed at a fit's start when the iteration is a
+multiple of A (a fit that ended mid-cycle leaves its partial sum for the
+next). The updater sees ``iteration // A``.
+
+The divergence sentinel (``sentinel``, JAX :1097-1106 and
+``faults/sentinels.py``) folds each step's verdict into a device int64
+of the window, the absolute iteration of its first bad step (-1 when
+clean), read only where the fit already syncs: at a listener flush
+(before the burst is delivered, so that no listener or checkpoint sees
+a poisoned window) or, without listeners, at the epoch's end. The first
+bad step raises ``TrainingDivergedError`` naming the step, the epoch and
+the batch of the epoch, on every tier. The parameters are then already
+poisoned, as the JAX fit's working copies are; roll back from a
+checkpoint (``faults/recovery.py``).
 
 On the CPU a window runs its K steps eagerly; on the card it is always a
 graph, and an error of a capture or a replay propagates. A kernel
@@ -50,6 +76,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.autodiff import step as steps
 from deeplearning4j_tpu_torch.autodiff.training import History
 from deeplearning4j_tpu_torch.kernels import _cuda
 from deeplearning4j_tpu_torch.learning.updaters import stage_
@@ -96,15 +123,17 @@ def refuse_random_ops(sd) -> None:
 class StepOwner:
     """What owns a train step, for the fit tiers. An owner has
     ``device``, ``training_config`` (a ``TrainingConfig``: the updater,
-    ``fused_steps``, the step and epoch counters, and the names its
-    batches' features and labels take), ``last_fit_stats``, and:
+    the step's options, ``fused_steps``, ``accum_steps``, ``sentinel``,
+    the step and epoch counters, and the names its batches' features and
+    labels take), ``last_fit_stats``, and:
 
-    - ``_train_step(names, placeholders, state, scal)``: one step on the
-      named batch ``placeholders`` (on the device, as
-      ``_prep_placeholders`` gives them), updating the trainables
-      ``names`` and their updater ``state`` in place with the step's
-      scalar ``scal`` (a 0-d device tensor); returns the loss on the
-      device. No host sync, no host-to-device copy: a window captures it.
+    - ``_grad_step(names, placeholders)``: the gradient half of one step
+      on the named batch ``placeholders`` (on the device, as
+      ``_prep_placeholders`` gives them): ``(loss, grads)``, the
+      (unscaled) loss and the gradients of the trainables ``names``, on
+      the device. No host sync, no host-to-device copy: a window
+      captures it. ``autodiff/step.py`` runs the rest of the step.
+    - ``_masters(names)``: the trainables' tensors, updated in place.
     - ``_fit_state()``: ``(names, state)``, the updater state made once.
     - ``_prep_placeholders(batch)``: a named batch's arrays on the device,
       cast as the step takes them; ``_placeholder_dtype(name, value)``,
@@ -117,9 +146,10 @@ class StepOwner:
 
     This base keeps the captured windows (valid for one training config,
     updater and mixed-precision policy), their memory pool and capture
-    stream, and the scanned tier's bound inputs. ``_changed()`` drops
-    them: the owner calls it when a tensor a window reads by address is
-    replaced."""
+    stream, the scanned tier's bound inputs and the accumulator of
+    ``accum_steps``. ``_changed()`` drops them: the owner calls it when
+    a tensor a window reads by address is replaced. ``captures_total``
+    counts the windows this owner ever captured."""
 
     last_fit_stats: Optional[Dict[str, object]] = None
     _windows: Dict[object, "StepWindow"]
@@ -128,13 +158,18 @@ class StepOwner:
     _stream: Optional["torch.cuda.Stream"] = None
     #: the scanned tier's inputs (:func:`_bound_inputs`)
     _bound: Optional[Tuple] = None
+    #: ``accum_steps``' accumulator: (names, one tensor a trainable)
+    _grad_accum: Optional[Tuple[List[str], List[torch.Tensor]]] = None
+    captures_total: int = 0
 
     def _changed(self) -> None:
         """A stored tensor's address, the graph or the updater state
-        changed: the captured windows and the bound inputs are dropped."""
+        changed: the captured windows, the bound inputs and the
+        accumulator are dropped."""
         self._windows = {}
         self._windows_for = None
         self._bound = None
+        self._grad_accum = None
 
     def _window_cache(self) -> Dict[object, "StepWindow"]:
         """The captured fit windows, for this training config."""
@@ -145,6 +180,17 @@ class StepOwner:
             self._windows = {}
             self._windows_for = owner
         return self._windows
+
+    def _accumulator(self, names: List[str]) -> List[torch.Tensor]:
+        """The accumulator of ``accum_steps``: zeros like each trainable,
+        made once for a trainable set (the windows read it by
+        address)."""
+        if self._grad_accum is None or self._grad_accum[0] != names:
+            # a window that read another accumulator was captured for
+            # another trainable set, which dropped it (``_fit_state``)
+            self._grad_accum = (list(names), [
+                torch.zeros_like(m) for m in self._masters(names)])
+        return self._grad_accum[1]
 
     def _graph_pool(self):
         """One memory pool for all of this owner's captured windows."""
@@ -159,21 +205,55 @@ class StepOwner:
         return self._stream
 
 
+def apply_positions(start: int, k: int, accum_steps: int) -> List[bool]:
+    """Whether the updater applies at each of the ``k`` steps from
+    iteration ``start``: ``(iteration + 1) % accum_steps == 0``."""
+    return [(start + i + 1) % accum_steps == 0 for i in range(k)]
+
+
+def step_rows(updater, start: int, k: int, accum_steps: int) -> np.ndarray:
+    """``(k, 2)`` float32: each step's updater scalar and learning rate,
+    at the update count ``iteration // accum_steps`` (rows of steps that
+    only accumulate are 0), resolved at epoch 0 as the JAX fit does."""
+    rows = np.zeros((k, 2), np.float32)
+    at = [i for i, on in enumerate(apply_positions(start, k, accum_steps))
+          if on]
+    if at:
+        its = [(start + i) // accum_steps for i in at]
+        rows[at, 0] = updater.step_scalars(its, 0)
+        rows[at, 1] = updater.learning_rates(its, 0)
+    return rows
+
+
 class StepWindow:
     """K train steps of the owner ``sd`` over ``inputs`` (placeholder ->
-    a ``(K, batch, ...)`` tensor whose address stays fixed), with
-    ``scal``, a ``(K,)`` buffer of the updater's per-step scalars, and
-    ``losses``, a ``(K,)`` buffer of the steps' losses. On the card the
-    steps are captured once as a CUDA graph in the owner's pool, after
-    warm-up steps whose writes (``warmup_restore_set``) are undone, and
-    :meth:`run` replays it; on the CPU :meth:`run` runs them eagerly."""
+    a ``(K, batch, ...)`` tensor whose address stays fixed), starting at
+    an iteration whose remainder modulo ``accum_steps`` is ``phase``,
+    with ``scal``, a ``(K, 2)`` buffer of the steps' updater scalars and
+    learning rates, ``iters``, a ``(K,)`` buffer of their absolute
+    iterations, ``losses``, a ``(K,)`` buffer of their losses, and
+    ``bad`` (with the sentinel), the first bad step's iteration or -1.
+    On the card the steps are captured once as a CUDA graph in the
+    owner's pool, after warm-up steps whose writes (``warmup_restore_set``
+    and the accumulator) are undone, and :meth:`run` replays it; on the
+    CPU :meth:`run` runs them eagerly."""
 
     def __init__(self, sd: StepOwner, names: List[str], state, inputs: Env,
-                 k: int):
+                 k: int, phase: int = 0,
+                 accum: Optional[List[torch.Tensor]] = None):
         self.sd, self.names, self.state, self.inputs, self.k = \
             sd, names, state, inputs, k
-        self.scal = torch.zeros(k, dtype=torch.float32, device=sd.device)
-        self.losses = torch.zeros(k, dtype=torch.float32, device=sd.device)
+        tc = sd.training_config
+        dev = sd.device
+        self.scal = torch.zeros(k, 2, dtype=torch.float32, device=dev)
+        self.iters = torch.zeros(k, dtype=torch.int64, device=dev)
+        self.losses = torch.zeros(k, dtype=torch.float32, device=dev)
+        self.bad = torch.full((1,), -1, dtype=torch.int64, device=dev) \
+            if tc.sentinel else None
+        self.accum = accum
+        self.apply = apply_positions(phase, k, tc.accum_steps)
+        #: a warm-up step that runs the apply half where the window may not
+        self._force_apply = False
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         #: what one replay adds to the kernel wrappers' counters
         self.counts: _cuda.Counts = []
@@ -182,18 +262,36 @@ class StepWindow:
 
     def _step(self, i: int) -> None:
         ph = {n: t[i] for n, t in self.inputs.items()}
-        self.losses[i].copy_(self.sd._train_step(self.names, ph, self.state,
-                                                 self.scal[i]))
+        inp = steps.StepInputs(
+            self.scal[i], self.iters[i], self.accum,
+            self.apply[i] or self._force_apply)
+        loss, ok = steps.train_step(self.sd, self.names, ph, self.state, inp)
+        self.losses[i].copy_(loss)
+        if ok is not None:
+            with torch.no_grad():
+                self.bad.copy_(torch.where((self.bad < 0) & ~ok,
+                                           self.iters[i], self.bad))
+
+    def _body(self) -> None:
+        if self.bad is not None:
+            self.bad.fill_(-1)
+        for i in range(self.k):
+            self._step(i)
 
     def _capture(self) -> None:
         sd = self.sd
         stream = sd._capture_stream()
-        live = sd.warmup_restore_set(self.names, self.state)
+        live = sd.warmup_restore_set(self.names, self.state) + \
+            list(self.accum or [])
         saved = [t.detach().clone() for t in live]
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             for i in range(WARMUP_STEPS):
+                # the last warm-up step runs the apply half, which a
+                # window of accumulating steps may not reach
+                self._force_apply = i == WARMUP_STEPS - 1
                 self._step(min(i, self.k - 1))
+            self._force_apply = False
             with torch.no_grad():
                 for t, s in zip(live, saved):
                     t.copy_(s)
@@ -211,8 +309,7 @@ class StepWindow:
         try:
             with torch.cuda.graph(graph, pool=sd._graph_pool(),
                                   stream=stream):
-                for i in range(self.k):
-                    self._step(i)
+                self._body()
         finally:
             if collecting:
                 gc.enable()
@@ -225,8 +322,7 @@ class StepWindow:
             self.graph.replay()
             _cuda.add_counts(self.counts)
         else:
-            for i in range(self.k):
-                self._step(i)
+            self._body()
 
 
 def _name_batch(tc, batch) -> Dict[str, object]:
@@ -261,24 +357,36 @@ def _bound_inputs(sd, src: Dict[str, torch.Tensor]) -> Env:
     return prepared
 
 
+def _check_bad_steps(bads, epoch: int, epoch_start: int) -> None:
+    from deeplearning4j_tpu_torch.faults.sentinels import check_bad_steps
+    check_bad_steps(bads, epoch, epoch_start)
+
+
 class _Fit:
-    """One ``fit``: the tier's units of work, counters, losses and
-    listener deliveries."""
+    """One ``fit``: the tier's units of work, counters, losses, sentinel
+    verdicts and listener deliveries."""
 
     def __init__(self, sd, iterator, listeners):
         self.sd, self.iterator, self.listeners = sd, iterator, listeners
         self.tc = tc = sd.training_config
         self.K = max(1, int(tc.fused_steps))
+        self.A = max(1, int(tc.accum_steps))
         if not listeners and hasattr(iterator, "stacked_batches") and \
-                self.K <= 1:
+                self.K <= 1 and self.A <= 1:
             self.tier = "scanned_epoch"
-        elif self.K > 1:
+        elif self.K > 1 or self.A > 1:
             self.tier = "windowed"
         else:
             self.tier = "per_step"
         if self.tier != "per_step":
             sd._refuse_random_ops()
         self.names, self.state = sd._fit_state()
+        self.accum = None
+        if self.A > 1:
+            self.accum = sd._accumulator(self.names)
+            if tc.iteration_count % self.A == 0:
+                with torch.no_grad():
+                    torch._foreach_zero_(self.accum)
         self.stacked = None
         if self.tier != "per_step" and hasattr(iterator, "stacked_batches"):
             feats, labels = iterator.stacked_batches()
@@ -288,10 +396,13 @@ class _Fit:
         self.flush_every = min((max(1, int(getattr(l, "frequency", 10)))
                                 for l in listeners), default=0)
         self.next_flush = self._after(tc.iteration_count)
-        self.pending: List[Tuple[int, torch.Tensor]] = []
+        #: (first iteration, losses, first bad step or None), on the device
+        self.pending: List[Tuple[int, torch.Tensor,
+                                 Optional[torch.Tensor]]] = []
         self.captures = 0
-        #: the per-step tier's scalar, staged before each eager step
-        self.scal = torch.zeros(1, dtype=torch.float32, device=sd.device)
+        #: an eager step's scalar row and iteration, staged before it
+        self.scal = torch.zeros(1, 2, dtype=torch.float32, device=sd.device)
+        self.it = torch.zeros(1, dtype=torch.int64, device=sd.device)
 
     def _after(self, iteration: int) -> int:
         f = self.flush_every
@@ -300,15 +411,18 @@ class _Fit:
     # -- units of work ---------------------------------------------------
     def _window(self, k: int, inputs: Optional[Env] = None,
                 sig: Optional[Tuple] = None) -> StepWindow:
-        """The cached window of ``k`` steps over ``inputs`` (bound in
-        place), or over static buffers shaped like one batch ``sig``."""
-        sd = self.sd
+        """The cached window of ``k`` steps from the current iteration's
+        phase over ``inputs`` (bound in place), or over static buffers
+        shaped like one batch ``sig``."""
+        sd, tc = self.sd, self.tc
+        phase = tc.iteration_count % self.A
+        step = (phase,) + steps.step_key(tc)
         if inputs is not None:
-            key = ("in_place", k, tuple(
+            key = ("in_place", k, step, tuple(
                 (n, tuple(t.shape), t.stride(), t.dtype, t.data_ptr())
                 for n, t in inputs.items()))
         else:
-            key = ("buffers", k, sig)
+            key = ("buffers", k, step, sig)
         wins = sd._window_cache()
         win = wins.get(key)
         if win is None:
@@ -320,15 +434,18 @@ class _Fit:
                 # one in-place window at a time: it holds its inputs alive
                 for old in [w for w in wins if w[0] == "in_place"]:
                     del wins[old]
-            win = StepWindow(sd, self.names, self.state, inputs, k)
+            win = StepWindow(sd, self.names, self.state, inputs, k, phase,
+                             self.accum)
             wins[key] = win
             self.captures += 1
+            sd.captures_total += 1
         return win
 
     def _units(self):
         """Yield, in data order, ``(window, fill)`` for a window (``fill``
         copies its inputs into its buffers, or is None) and
-        ``(None, placeholders)`` for one eager step."""
+        ``(None, placeholders)`` for one eager step. A window is made
+        when it is yielded, at its first iteration."""
         sd, tc = self.sd, self.tc
         if self.tier == "scanned_epoch":
             n = next(iter(self.stacked.values())).shape[0]
@@ -406,14 +523,33 @@ class _Fit:
         if buf:
             yield from windows(buf)
 
+    def _eager_step(self, it: int, ph: Env):
+        """One step outside a window: ``((1,) losses, (1,) first bad step
+        or None)``."""
+        stage_(self.scal, step_rows(self.tc.updater, it, 1, self.A))
+        stage_(self.it, np.array([it], np.int64))
+        inp = steps.StepInputs(self.scal[0], self.it[0], self.accum,
+                               apply_positions(it, 1, self.A)[0])
+        loss, ok = steps.train_step(self.sd, self.names, ph, self.state,
+                                    inp)
+        bad = None if ok is None else torch.where(
+            ok, torch.full_like(self.it, -1), self.it)
+        return loss.detach().reshape(1), bad
+
     # -- the loop --------------------------------------------------------
-    def _flush(self, epoch: int, epoch_vals: List[float]) -> None:
+    def _flush(self, epoch: int, epoch_start: int,
+               epoch_vals: List[float]) -> None:
+        """Fetch the buffered losses (and verdicts), check the verdicts,
+        then deliver the burst to the listeners."""
         if not self.pending:
             return
-        iters = [it for start, l in self.pending
+        iters = [it for start, l, _ in self.pending
                  for it in range(start, start + l.shape[0])]
-        vals = torch.cat([l for _, l in self.pending]).tolist()
+        vals = torch.cat([l for _, l, _ in self.pending]).tolist()
+        bads = [b for _, _, b in self.pending if b is not None]
         self.pending.clear()
+        if bads:
+            _check_bad_steps(torch.cat(bads).tolist(), epoch, epoch_start)
         epoch_vals.extend(vals)
         for l in self.listeners:
             l.iterations_done(self.sd, epoch, iters, vals)
@@ -429,6 +565,7 @@ class _Fit:
             start = tc.iteration_count
             epoch_vals: List[float] = []
             epoch_losses: List[torch.Tensor] = []
+            epoch_bads: List[torch.Tensor] = []
             sizes: Dict[int, int] = {}
             windows = eager = 0
             captures0 = self.captures
@@ -437,39 +574,42 @@ class _Fit:
             for win, work in self._units():
                 it = tc.iteration_count
                 if win is None:
-                    stage_(self.scal, updater.step_scalars(
-                        [it], tc.epoch_count))
-                    losses = sd._train_step(self.names, work, self.state,
-                                            self.scal[0])[None]
+                    losses, bad = self._eager_step(it, work)
                     eager += 1
                     k = 1
                 else:
                     k = win.k
                     if work is not None:
                         work()
-                    stage_(win.scal, updater.step_scalars(
-                        range(it, it + k), tc.epoch_count))
+                    stage_(win.scal, step_rows(updater, it, k, self.A))
+                    stage_(win.iters, np.arange(it, it + k, dtype=np.int64))
                     win.run()
                     losses = win.losses.clone()
+                    bad = None if win.bad is None else win.bad.clone()
                     windows += 1
                 sizes[k] = sizes.get(k, 0) + 1
                 tc.iteration_count = it + k
                 if listeners:
-                    self.pending.append((it, losses))
+                    self.pending.append((it, losses, bad))
                     # per-step: every flush_every buffered steps; windows:
                     # the first boundary at or after each multiple of it
                     due = len(self.pending) >= self.flush_every \
                         if self.tier == "per_step" \
                         else tc.iteration_count >= self.next_flush
                     if due:
-                        self._flush(epoch, epoch_vals)
+                        self._flush(epoch, start, epoch_vals)
                         self.next_flush = self._after(tc.iteration_count)
                 else:
                     epoch_losses.append(losses)
+                    if bad is not None:
+                        epoch_bads.append(bad)
             if tc.iteration_count == start:
                 raise ValueError("fit got no batches")
+            if epoch_bads:           # one verdict fetch an epoch
+                _check_bad_steps(torch.cat(epoch_bads).tolist(), epoch,
+                                 start)
             if listeners:
-                self._flush(epoch, epoch_vals)
+                self._flush(epoch, start, epoch_vals)
                 self.next_flush = self._after(tc.iteration_count)
                 history.add_epoch(epoch, float(np.mean(epoch_vals)),
                                   epoch_vals)
@@ -478,6 +618,7 @@ class _Fit:
             tc.epoch_count += 1
             sd.last_fit_stats = {
                 "tier": self.tier, "fused_steps": self.K,
+                "accum_steps": self.A, "sentinel": bool(tc.sentinel),
                 "steps_per_epoch": tc.iteration_count - start,
                 "dispatches_per_epoch": windows + eager,
                 "graph_replays_per_epoch":

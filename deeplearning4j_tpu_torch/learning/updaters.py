@@ -11,22 +11,37 @@ leaves. ``IUpdater.update_plain_`` (one leaf at a time, ``Sgd`` and
 
 What changes from step to step (the learning rate, Adam's ``alphat``) is
 one scalar a step, computed on the host in float32, as the JAX package
-computes it, by ``step_scalars``; it reaches the update as a 0-d tensor
-on the parameters' device (``update_``'s ``scal``), which the caller
-fills before the step (``autodiff/window.py`` ``stage_``). So an update
-captured once in a CUDA graph reads the value a fit tier wrote into that
-tensor before each replay, instead of the first step's value frozen
-into the graph.
+computes it, by ``step_scalars`` (the learning rate, a number or a
+schedule, resolved by ``learning/schedules.py``); it reaches the update
+as a 0-d tensor on the parameters' device (``update_``'s ``scal``),
+which the caller fills before the step (``autodiff/window.py``
+``stage_``). So an update captured once in a CUDA graph reads the value
+a fit tier wrote into that tensor before each replay, instead of the
+first step's value frozen into the graph. ``update_``'s ``post`` sees
+each group's update before it is subtracted: the post-updater
+regularization (``WeightDecay``) of the JAX apply half.
+
+The JSON form is the JAX package's (``{"@class": name, **fields}``, a
+schedule in its own JSON form); the JAX updaters this port does not have
+yet are refused by name (:func:`IUpdater.from_json`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.learning.schedules import resolve_lr
+from deeplearning4j_tpu_torch.learning.schedules import ISchedule, resolve_lr
+
+#: ``post(lo, hi, update)``: the update of leaves ``lo:hi``, changed in
+#: place before it is subtracted from them
+Post = Optional[Callable[[int, int, List[torch.Tensor]], None]]
+
+#: the JAX package's updaters that this port does not have yet
+NOT_PORTED = ("NoOp", "AdaMax", "Nadam", "AMSGrad", "AdaBelief", "AdaDelta",
+              "AdaGrad", "RmsProp")
 
 
 def stage_(dst: torch.Tensor, src) -> None:
@@ -63,6 +78,13 @@ class IUpdater:
         return np.array([self._scalar(it, epoch) for it in iterations],
                         np.float32)
 
+    def learning_rates(self, iterations: Sequence[int],
+                       epoch: int = 0) -> np.ndarray:
+        """(len(iterations),) float32: each step's learning rate."""
+        return np.array([resolve_lr(getattr(self, "learning_rate", 0.0),
+                                    it, epoch) for it in iterations],
+                        np.float32)
+
     def _scalar(self, iteration: int, epoch: int) -> float:
         """The learning rate, resolved as the JAX package resolves it."""
         return resolve_lr(getattr(self, "learning_rate", 0.0), iteration,
@@ -77,8 +99,29 @@ class IUpdater:
         stage_(scal, self.step_scalars([iteration], epoch))
         self.update_(params, grads, state, scal[0])
 
-    def update_(self, params, grads, state, scal: torch.Tensor) -> None:
+    def update_(self, params, grads, state, scal: torch.Tensor,
+                post: Post = None) -> None:
         raise NotImplementedError
+
+    def to_json(self) -> dict:
+        d = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            d[f.name] = v.to_json() if isinstance(v, ISchedule) else v
+        return d
+
+    @staticmethod
+    def from_json(d: dict) -> "IUpdater":
+        d = dict(d)
+        name = d.pop("@class")
+        if name in NOT_PORTED:
+            raise NotImplementedError(
+                f"the {name} updater is not ported yet (ROADMAP queue 1 "
+                f"item 3: the other eight updaters)")
+        kw = {k: ISchedule.from_json(v)
+              if isinstance(v, dict) and "@class" in v else v
+              for k, v in d.items()}
+        return UPDATERS[name](**kw)
 
     @torch.no_grad()
     def update_plain_(self, params, grads, state, scal: torch.Tensor) -> None:
@@ -125,10 +168,12 @@ class Sgd(IUpdater):
         p.sub_(g * lr)
 
     @torch.no_grad()
-    def update_(self, params, grads, state, scal) -> None:
+    def update_(self, params, grads, state, scal, post=None) -> None:
         params, grads = list(params), list(grads)
         for lo, hi in _groups(params):
             update = torch._foreach_mul(grads[lo:hi], scal)
+            if post is not None:
+                post(lo, hi, update)
             torch._foreach_sub_(params[lo:hi], update)
             del update
 
@@ -155,7 +200,7 @@ class Nesterovs(IUpdater):
         p.sub_(update)
 
     @torch.no_grad()
-    def update_(self, params, grads, state, scal) -> None:
+    def update_(self, params, grads, state, scal, post=None) -> None:
         params, grads = list(params), list(grads)
         vs = [s[0] for s in state]
         mu = self.momentum
@@ -168,6 +213,8 @@ class Nesterovs(IUpdater):
             tmp = torch._foreach_mul(v, 1.0 + mu)
             torch._foreach_sub_(update, tmp)
             del tmp
+            if post is not None:
+                post(lo, hi, update)
             torch._foreach_sub_(params[lo:hi], update)
             del update
 
@@ -207,7 +254,7 @@ class Adam(IUpdater):
                            iteration)
 
     @torch.no_grad()
-    def update_(self, params, grads, state, scal) -> None:
+    def update_(self, params, grads, state, scal, post=None) -> None:
         params, grads = list(params), list(grads)
         if not params:
             return
@@ -222,5 +269,14 @@ class Adam(IUpdater):
             update = torch._foreach_mul(ms[lo:hi], scal)
             denom = torch._foreach_sqrt(vs[lo:hi])
             torch._foreach_add_(denom, self.epsilon)
-            torch._foreach_addcdiv_(params[lo:hi], update, denom, value=-1.0)
+            if post is None:
+                torch._foreach_addcdiv_(params[lo:hi], update, denom,
+                                        value=-1.0)
+            else:
+                torch._foreach_div_(update, denom)
+                post(lo, hi, update)
+                torch._foreach_sub_(params[lo:hi], update)
             del update, denom
+
+
+UPDATERS = {c.__name__: c for c in (Sgd, Nesterovs, Adam)}

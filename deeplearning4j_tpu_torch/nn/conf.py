@@ -2,15 +2,18 @@
 ``deeplearning4j_tpu/nn/conf.py``: ``MultiLayerConfiguration`` :37,
 ``ListBuilder`` :92, ``NeuralNetConfiguration`` :126). ``graph_builder()``
 builds a ``ComputationGraph`` configuration, ``list()`` a sequential one
-for ``MultiLayerNetwork``. The regularization, gradient clipping and
-normalization fields are not ported (ROADMAP queue 1 item 3): the
-builder has no such method."""
+for ``MultiLayerNetwork``. ``l1``, ``l2`` and ``weight_decay`` become the
+configuration's ``regularization`` (both builders), ``gradient_clip`` and
+``gradient_normalization`` its clipping (the sequential one only, as in
+the JAX package)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 from deeplearning4j_tpu_torch.autodiff.training import MixedPrecision
+from deeplearning4j_tpu_torch.learning.regularization import (
+    L1Regularization, L2Regularization, Regularization, WeightDecay)
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.layers import BaseLayer, InputType
 
@@ -21,10 +24,14 @@ class MultiLayerConfiguration:
     input_type: InputType
     seed: int = 12345
     updater: IUpdater = dataclasses.field(default_factory=lambda: Sgd(0.01))
+    regularization: Sequence[Regularization] = ()
     dtype: str = "float32"
+    grad_clip_value: Optional[float] = None
     mixed_precision: Optional[MixedPrecision] = None
     # the layout cnn tensors run in inside the graph; users feed NCHW
     cnn_data_format: str = "NHWC"
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
 
     def to_json(self) -> str:
         raise NotImplementedError(
@@ -59,8 +66,11 @@ class ListBuilder:
         p = self._parent
         return MultiLayerConfiguration(
             layers=self._layers, input_type=self._input_type, seed=p._seed,
-            updater=p._updater, dtype=p._dtype,
-            mixed_precision=p._mixed_precision)
+            updater=p._updater, regularization=p._regularization(),
+            dtype=p._dtype, grad_clip_value=p._grad_clip,
+            mixed_precision=p._mixed_precision,
+            gradient_normalization=p._grad_norm,
+            gradient_normalization_threshold=p._grad_norm_threshold)
 
 
 class NeuralNetConfiguration:
@@ -68,8 +78,14 @@ class NeuralNetConfiguration:
         def __init__(self):
             self._seed = 12345
             self._updater: IUpdater = Sgd(0.01)
+            self._l1 = 0.0
+            self._l2 = 0.0
+            self._weight_decay = 0.0
             self._dtype = "float32"
+            self._grad_clip = None
             self._mixed_precision = None
+            self._grad_norm = None
+            self._grad_norm_threshold = 1.0
 
         def seed(self, s: int):
             self._seed = int(s)
@@ -79,9 +95,45 @@ class NeuralNetConfiguration:
             self._updater = u
             return self
 
+        def l1(self, v: float):
+            self._l1 = v
+            return self
+
+        def l2(self, v: float):
+            self._l2 = v
+            return self
+
+        def weight_decay(self, v: float):
+            self._weight_decay = v
+            return self
+
         def data_type(self, dt: str):
             self._dtype = dt
             return self
+
+        def gradient_clip(self, v: float):
+            self._grad_clip = v
+            return self
+
+        def gradient_normalization(self, mode: str, threshold: float = 1.0):
+            """clip_l2_per_layer | clip_l2_global |
+            renormalize_l2_per_layer | clip_element_wise_absolute_value
+            (``TrainingConfig.clip_gradients_``)."""
+            self._grad_norm = mode
+            self._grad_norm_threshold = threshold
+            return self
+
+        def _regularization(self) -> List[Regularization]:
+            """What ``l1``, ``l2`` and ``weight_decay`` set, in the JAX
+            builders' order."""
+            regs: List[Regularization] = []
+            if self._l1:
+                regs.append(L1Regularization(l1=self._l1))
+            if self._l2:
+                regs.append(L2Regularization(l2=self._l2))
+            if self._weight_decay:
+                regs.append(WeightDecay(coeff=self._weight_decay))
+            return regs
 
         def list(self) -> ListBuilder:
             return ListBuilder(self)

@@ -32,9 +32,16 @@ refreshes. The JAX server sees new arrays only when its sync runs (its
 train graph is functional); the port's updaters write the parameters in
 place, so a server that shared them would see a ``fit`` step by step.
 
-Not ported yet, each refused by name: ``fit(accum_steps=...)``,
-``fit(sentinel=...)``, ``evaluate``, ``save``/``load`` and
-``capture_training_state``/``restore_training_state``; recurrent inputs.
+``fit(accum_steps=..., sentinel=...)`` and the configuration's
+``regularization`` (the builder's ``l1``/``l2``/``weight_decay``) are the
+JAX options, run by ``autodiff/step.py``. ``capture_training_state`` /
+``restore_training_state`` (``checkpoint/state.py``) write and read the
+JAX package's names and layouts (convolution weights HWIO), and a
+restore copies into the live tensors, so the captured windows stay
+valid.
+
+Not ported yet, each refused by name: ``evaluate``, ``save``/``load``;
+recurrent inputs.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from deeplearning4j_tpu_torch.autodiff.training import (History,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.convert import params_to_jax
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
+from deeplearning4j_tpu_torch.learning.regularization import Regularization
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.activations import (activation_fn,
                                                      resolve_activation)
@@ -267,6 +275,7 @@ class ComputationGraphConfiguration:
     outputs: List[str]
     seed: int = 12345
     updater: IUpdater = dataclasses.field(default_factory=lambda: Sgd(0.01))
+    regularization: Sequence[Regularization] = ()
     dtype: str = "float32"
     mixed_precision: Optional[MixedPrecision] = None
 
@@ -332,7 +341,8 @@ class GraphBuilder:
         p = self._parent
         if p is not None:
             kw = {"seed": p._seed, "updater": p._updater, "dtype": p._dtype,
-                  "mixed_precision": p._mixed_precision}
+                  "mixed_precision": p._mixed_precision,
+                  "regularization": p._regularization()}
         return ComputationGraphConfiguration(
             inputs=self._inputs, input_types=self._input_types,
             nodes=self._nodes, outputs=self._outputs, **kw)
@@ -514,6 +524,7 @@ class ComputationGraph(window.StepOwner):
             updater=self.conf.updater,
             data_set_feature_mapping=list(self.conf.inputs),
             data_set_label_mapping=[f"labels_{h}" for h in self._heads],
+            regularization=self.conf.regularization,
             mixed_precision=self.conf.mixed_precision)
         self._updater_state = None
         self._changed()
@@ -567,12 +578,12 @@ class ComputationGraph(window.StepOwner):
 
     # ------------------------------------------------------------------
     # the train step (window.StepOwner)
-    def _train_step(self, names, ph, state, scal) -> torch.Tensor:
-        """Forward on the bound batch ``ph`` (inputs and labels by name,
-        in the compute dtype), the loss heads' losses summed in float32,
-        the backward into the float32 masters (the trainables ``names``,
-        all of them), the updater in place with the step's scalar
-        ``scal``. Returns the (unscaled) loss on the device."""
+    def _grad_step(self, names, ph):
+        """The gradient half of the train step: forward on the bound
+        batch ``ph`` (inputs and labels by name, in the compute dtype),
+        the loss heads' losses summed in float32, the backward into the
+        float32 masters (the trainables ``names``, all of them). Returns
+        the (unscaled) loss and the gradients, on the device."""
         tc = self.training_config
         mp = tc.mixed_precision
         self.model.train()
@@ -590,8 +601,11 @@ class ComputationGraph(window.StepOwner):
                                     materialize_grads=True)
         if scale:
             grads = [g / scale for g in grads]
-        tc.updater.update_(self._params, grads, state, scal)
-        return loss.detach()
+        return loss.detach(), list(grads)
+
+    def _masters(self, names) -> List[nn.Parameter]:
+        """Every parameter (the graph trains all of them)."""
+        return self._params
 
     def _fit_state(self):
         if self._updater_state is None:
@@ -632,17 +646,21 @@ class ComputationGraph(window.StepOwner):
         dispatch for this and later fits. The tier is SameDiff's
         (``autodiff/window.py``): the scanned epoch with no listeners,
         ``fused_steps <= 1`` and an iterator with ``stacked_batches``;
-        fused windows of K steps when K > 1; else one step a batch.
-        ``listeners`` get each step's loss in bursts."""
+        fused windows of K steps when K > 1 or ``accum_steps`` > 1; else
+        one step a batch. ``accum_steps`` and ``sentinel`` set the
+        config's gradient accumulation and divergence sentinel for this
+        and later fits. ``listeners`` get each step's loss in bursts."""
         self._require_init()
-        if accum_steps is not None:
-            _not_ported("fit(accum_steps=...)", "3: gradient accumulation",
-                        "ComputationGraph")
-        if sentinel is not None:
-            _not_ported("fit(sentinel=...)", "3: the divergence sentinel",
-                        "ComputationGraph")
+        tc = self.training_config
         if fused_steps is not None:
-            self.training_config.fused_steps = int(fused_steps)
+            tc.fused_steps = int(fused_steps)
+        if accum_steps is not None:
+            if int(accum_steps) < 1:
+                raise ValueError(f"accum_steps must be >= 1, got "
+                                 f"{accum_steps}")
+            tc.accum_steps = int(accum_steps)
+        if sentinel is not None:
+            tc.sentinel = bool(sentinel)
         if labels is not None:
             data = _ArrayIterator(np.asarray(data), np.asarray(labels),
                                   batch_size)
@@ -698,10 +716,15 @@ class ComputationGraph(window.StepOwner):
     def load(*a, **k):
         _not_ported("load", "10: model_serde", "ComputationGraph")
 
-    def capture_training_state(self, *a, **k):
-        _not_ported("capture_training_state", "7: checkpoint/",
-                    "ComputationGraph")
+    # -- checkpointing (checkpoint/) --------------------------------------
+    def capture_training_state(self, epoch: int = 0, normalizer=None):
+        """A host snapshot for the checkpoint manager
+        (``checkpoint.capture_training_state``)."""
+        from deeplearning4j_tpu_torch.checkpoint import capture_training_state
+        return capture_training_state(self, epoch=epoch,
+                                      normalizer=normalizer)
 
-    def restore_training_state(self, *a, **k):
-        _not_ported("restore_training_state", "7: checkpoint/",
-                    "ComputationGraph")
+    def restore_training_state(self, state, strict: bool = True):
+        """Copy a ``TrainingState`` into this initialized graph."""
+        from deeplearning4j_tpu_torch.checkpoint import restore_training_state
+        return restore_training_state(self, state, strict=strict)

@@ -22,9 +22,15 @@ the port's updaters write the parameters in place, so a served graph
 that shared the training graph's tensors would see a ``fit`` step by
 step. The serving graph holds copies, which its sync refreshes.
 
-Not ported yet, each refused by name: ``fit_tbptt``, ``accum_steps``,
-``sentinel``, ``save``/``load``, ``evaluate`` and
-``capture_training_state``/``restore_training_state``.
+The configuration's regularization and clipping reach the training
+graph's ``TrainingConfig``; ``fit(accum_steps=..., sentinel=...)`` set
+its gradient accumulation and divergence sentinel;
+``capture_training_state``/``restore_training_state`` are
+``checkpoint/state.py`` on the training graph (a restore copies into its
+tensors, which the inference graph shares).
+
+Not ported yet, each refused by name: ``fit_tbptt``, ``save``/``load``
+and ``evaluate``.
 """
 from __future__ import annotations
 
@@ -126,10 +132,16 @@ class MultiLayerNetwork:
         self._sd_train = _build_graph(self.conf, dev)
         self._sd_infer = _build_graph(self.conf, dev)
         self._sync_infer()
+        c = self.conf
         self._sd_train.training_config = TrainingConfig(
-            updater=self.conf.updater, data_set_feature_mapping=["input"],
+            updater=c.updater, data_set_feature_mapping=["input"],
             data_set_label_mapping=["labels"],
-            mixed_precision=self.conf.mixed_precision)
+            regularization=c.regularization,
+            grad_clip_value=c.grad_clip_value,
+            mixed_precision=c.mixed_precision,
+            gradient_normalization=c.gradient_normalization,
+            gradient_normalization_threshold=(
+                c.gradient_normalization_threshold))
         return self
 
     def _require_init(self):
@@ -153,15 +165,20 @@ class MultiLayerNetwork:
             sentinel: Optional[bool] = None):
         """Train on an iterator of (features, labels) batches (e.g. a
         ``DeviceCachedIterator``), or on a feature array with
-        ``labels=``. ``fused_steps`` sets the config's K steps a dispatch
-        for this and later fits."""
+        ``labels=``. ``fused_steps``, ``accum_steps`` and ``sentinel`` set
+        the config's K steps a dispatch, gradient accumulation and
+        divergence sentinel for this and later fits."""
         self._require_init()
-        if accum_steps is not None:
-            _not_ported("fit(accum_steps=...)", "3: gradient accumulation")
-        if sentinel is not None:
-            _not_ported("fit(sentinel=...)", "3: the divergence sentinel")
+        tc = self._sd_train.training_config
         if fused_steps is not None:
-            self._sd_train.training_config.fused_steps = int(fused_steps)
+            tc.fused_steps = int(fused_steps)
+        if accum_steps is not None:
+            if int(accum_steps) < 1:
+                raise ValueError(f"accum_steps must be >= 1, got "
+                                 f"{accum_steps}")
+            tc.accum_steps = int(accum_steps)
+        if sentinel is not None:
+            tc.sentinel = bool(sentinel)
         if labels is not None:
             data = _ArrayIterator(np.asarray(data), np.asarray(labels),
                                   batch_size)
@@ -248,11 +265,18 @@ class MultiLayerNetwork:
     def load(*a, **k):
         _not_ported("load", "10: model_serde")
 
-    def capture_training_state(self, *a, **k):
-        _not_ported("capture_training_state", "7: checkpoint/")
+    # -- checkpointing (checkpoint/) --------------------------------------
+    def capture_training_state(self, epoch: int = 0, normalizer=None):
+        """A host snapshot for the checkpoint manager
+        (``checkpoint.capture_training_state``)."""
+        from deeplearning4j_tpu_torch.checkpoint import capture_training_state
+        return capture_training_state(self, epoch=epoch,
+                                      normalizer=normalizer)
 
-    def restore_training_state(self, *a, **k):
-        _not_ported("restore_training_state", "7: checkpoint/")
+    def restore_training_state(self, state, strict: bool = True):
+        """Copy a ``TrainingState`` into this initialized network."""
+        from deeplearning4j_tpu_torch.checkpoint import restore_training_state
+        return restore_training_state(self, state, strict=strict)
 
 
 class _ArrayIterator:

@@ -35,7 +35,7 @@ records (``stats_storage``, item 2.8), per-batch profiler traces
 (``profile_dir``, item 7: ``profiler/``), pre-compile graph analysis
 (a truthy ``analyze``, item 7: ``analyze/``; the port's default is
 ``analyze=False``) and checkpoint hot reload (``reload_from``, item 7:
-``checkpoint/``). ``memory_sample_every`` is kept: it publishes memory
+``checkpoint/`` hot reload; the checkpoints themselves are ported). ``memory_sample_every`` is kept: it publishes memory
 records only into a stats storage, so it does nothing yet, as in the
 JAX package without one. The stall watchdog around an exec waits for
 ``integrity/`` (item 7).
@@ -778,7 +778,7 @@ class ParallelInference:
             self._spec.sync()
 
     def reload_from(self, *a, **k):
-        _not_ported("reload_from", "7: checkpoint/")
+        _not_ported("reload_from", "7: checkpoint/ hot reload")
 
     # -- lifecycle ------------------------------------------------------
     def shutdown(self, drain: bool = True,

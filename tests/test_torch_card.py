@@ -1450,3 +1450,151 @@ def test_parallel_inference_on_card_matches_output(card, mode):
         assert np.abs(got[0][0] - got[1][0]).max() > 1e-3
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# ----------------------------------------------------------------------
+# the training options and rails on the card (autodiff/step.py,
+# checkpoint/, faults/)
+class _StepSource:
+    """Batches keyed by the model's absolute iteration: a pass runs from
+    ``iteration_count`` to the end of the epoch (a retry after a rollback
+    resumes where the checkpoint stopped)."""
+
+    def __init__(self, batches, tc):
+        self.batches, self.tc = batches, tc
+
+    def __iter__(self):
+        n = len(self.batches)
+        for i in range(self.tc.iteration_count % n, n):
+            yield self.batches[i]
+
+
+def _options_net(card, accum=2):
+    from deeplearning4j_tpu_torch.learning import (L2Regularization,
+                                                   Nesterovs, RampSchedule,
+                                                   StepSchedule)
+    net = _tier_net(card, 4)
+    tc = net.samediff.training_config
+    tc.updater = Nesterovs(learning_rate=RampSchedule(
+        base=StepSchedule(initial_value=0.1, decay_rate=0.1, step=8),
+        num_iter=4), momentum=0.9)
+    tc.regularization = [L2Regularization(l2=1e-4)]
+    tc.accum_steps, tc.sentinel = accum, True
+    return net
+
+
+def _device_batches(card, steps, batch=8):
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(steps * batch, 12)),
+                        dtype=torch.float32, device=card)
+    y = torch.as_tensor(np.eye(4)[rng.integers(0, 4, steps * batch)],
+                        dtype=torch.float32, device=card)
+    return [(x[i:i + batch], y[i:i + batch])
+            for i in range(0, len(x), batch)]
+
+
+@pytest.mark.cuda
+def test_a_rollback_captures_no_window_and_heals_bit_equal_on_card(
+        card, tmp_path):
+    """Windows of 4, accum 2, the sentinel, checkpoints every 8 over 24
+    device batches: a batch poisoned at 13 rolls the run back to 8 with
+    no window captured again, and it ends bit-equal to the clean run."""
+    from deeplearning4j_tpu_torch.checkpoint import (CheckpointListener,
+                                                     CheckpointManager)
+    from deeplearning4j_tpu_torch.faults import (ChaosMonkey,
+                                                 FaultTolerantFit,
+                                                 RetryPolicy)
+    batches = _device_batches(card, 24)
+    a = _options_net(card)
+    a.fit(_StepSource(batches, a.samediff.training_config),
+          listeners=[CheckpointListener(CheckpointManager(tmp_path / "a"),
+                                        every_n_iterations=8)])
+    b = _options_net(card)
+    sd = b.samediff
+    init = b.capture_training_state()            # before any step
+    sd.fit(_StepSource(batches[:4], sd.training_config),
+           listeners=[_quiet()])                  # captures the window
+    b.restore_training_state(init)
+    captured = sd.captures_total
+    mgr = CheckpointManager(tmp_path / "b")
+    it = ChaosMonkey(seed=0).poison_batches(
+        _StepSource(batches, sd.training_config), at_step=13)
+    ftf = FaultTolerantFit(b, mgr, policy=RetryPolicy(backoff_base=0.0),
+                           checkpoint_every_n_iterations=8,
+                           sleep=lambda s: None)
+    ftf.fit(it, epochs=1)
+    assert [e["event"] for e in ftf.events] == [
+        "fault", "rollback", "retry", "recovered"]
+    assert ftf.events[0]["step"] == 13
+    assert sd.captures_total == captured
+    for n, x in a.params().items():
+        assert np.array_equal(b.params()[n], x), n
+
+
+@pytest.mark.cuda
+def test_the_sentinel_reads_one_bad_element_of_a_large_leaf_on_card(card):
+    from deeplearning4j_tpu_torch.autodiff.step import sentinel_ok
+    g = [torch.ones(3_000_001, device=card), torch.zeros(7, 5, device=card)]
+    g[0][1_234_567] = 3e38                    # a sum of squares overflows
+    assert bool(sentinel_ok(torch.tensor(1.0, device=card), g))
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        g[0][2_999_999] = bad
+        assert not bool(sentinel_ok(torch.tensor(1.0, device=card), g))
+        g[0][2_999_999] = 1.0
+
+
+@pytest.mark.cuda
+def test_divergence_inside_a_captured_window_names_its_step_on_card(card):
+    from deeplearning4j_tpu_torch.faults import (ChaosMonkey,
+                                                 TrainingDivergedError)
+    for accum in (1, 2):
+        net = _options_net(card, accum)
+        it = _tier_data(card, 8)
+        with ChaosMonkey().nan_gradients(net, at_step=5):
+            with pytest.raises(TrainingDivergedError) as ei:
+                net.fit(it)
+        assert ei.value.step == 5 and ei.value.batch_index == 5
+        assert all(w.graph is not None
+                   for w in net.samediff._windows.values())
+
+
+@pytest.mark.cuda
+def test_accumulation_captures_one_window_a_phase_on_card(card):
+    """K = 3 and accum 2: windows start at both phases, two graphs; a
+    later fit captures none, and the result meets the tier rule against
+    the per-step tier (K = 1, the same accumulation)."""
+    net = _options_net(card)
+    net.samediff.training_config.fused_steps = 3
+    it = _tier_data(card, 12)
+    net.fit(it, epochs=1, listeners=[_quiet()])
+    sd = net.samediff
+    assert sd.last_fit_stats["window_captures"] == 2
+    net.fit(it, epochs=1, listeners=[_quiet()])
+    assert sd.last_fit_stats["window_captures"] == 0
+    ref = _options_net(card)
+    ref.samediff.training_config.fused_steps = 1
+    ref.fit(it, epochs=2, listeners=[_quiet()])
+    _same_params(net, ref)
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_capture_is_a_copy_on_card(card):
+    from deeplearning4j_tpu_torch.checkpoint import (capture_training_state,
+                                                     restore_training_state)
+    net = _options_net(card)
+    it = _tier_data(card, 8)
+    net.fit(it)
+    snap = capture_training_state(net)
+    before = {k: v.copy() for k, v in snap.arrays.items()}
+    leaves = [v.copy() for v in snap.updater_leaves]
+    ptrs = [t.data_ptr() for t in net.samediff.trainable_params().values()]
+    net.fit(it)                                   # replays the window
+    for k, v in before.items():
+        assert np.array_equal(snap.arrays[k], v), k
+    restore_training_state(net, snap)
+    assert [t.data_ptr() for t in
+            net.samediff.trainable_params().values()] == ptrs
+    for k, v in before.items():
+        assert np.array_equal(net.params()[k], v), k
+    assert all(np.array_equal(a, b) for a, b in zip(
+        capture_training_state(net).updater_leaves, leaves))

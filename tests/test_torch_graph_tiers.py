@@ -30,7 +30,8 @@ from deeplearning4j_tpu.dataset import DeviceCachedIterator as JaxIterator
 from deeplearning4j_tpu.learning.updaters import Nesterovs as JNesterovs
 from deeplearning4j_tpu.nn import ComputationGraph as JaxGraph
 from deeplearning4j_tpu.zoo import ResNet50 as JaxResNet50
-from deeplearning4j_tpu_torch.autodiff import Listener
+from deeplearning4j_tpu_torch.autodiff import Listener, TrainingConfig
+from deeplearning4j_tpu_torch.checkpoint import TrainingState
 from deeplearning4j_tpu_torch.convert import params_from_jax, params_to_jax
 from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
 from deeplearning4j_tpu_torch.learning import Nesterovs
@@ -336,12 +337,23 @@ def test_fused_steps_sticks_for_later_fits():
     ({"accum_steps": 2}, "queue 1 item 3"),
     ({"sentinel": True}, "queue 1 item 3")])
 def test_fit_refuses_what_is_not_ported_by_name(kwargs, item):
+    """``accum_steps`` and ``sentinel`` (ROADMAP queue 1 item 3) are
+    ported: ``fit`` takes them into the config for this and later fits;
+    what is left of the item's config fields is not accepted."""
     x, y = _small_data(8)
     _, pnet = _small_pair()
     before = pnet.params()
-    with pytest.raises(NotImplementedError, match=item):
-        pnet.fit(x, y, batch_size=4, **kwargs)
-    _close_params(pnet.params(), before, tol=0)
+    pnet.fit(x, y, batch_size=4, **kwargs)
+    for k, v in kwargs.items():
+        assert getattr(pnet.training_config, k) == v
+        assert pnet.last_fit_stats[k] == v
+    assert pnet.last_fit_stats["tier"] == (
+        "windowed" if "accum_steps" in kwargs else "per_step")
+    assert any(not np.array_equal(v, before[k])
+               for k, v in pnet.params().items())
+    for field in ("tensorstats", "nan_panic"):
+        with pytest.raises(TypeError):
+            TrainingConfig(updater=Nesterovs(), **{field: True})
 
 
 @pytest.mark.parametrize("method,item", [
@@ -349,10 +361,16 @@ def test_fit_refuses_what_is_not_ported_by_name(kwargs, item):
     ("capture_training_state", "item 7"),
     ("restore_training_state", "item 7")])
 def test_graph_refuses_what_is_not_ported_by_name(method, item):
+    """The checkpoint methods are ported; their normalizer statistics
+    are not (queue 1 item 7)."""
     _, pnet = _small_pair()
+    args = {"capture_training_state": lambda: {"normalizer": object()},
+            "restore_training_state": lambda: {"state": TrainingState(
+                arrays={}, normalizer_state={"mean": np.zeros(1)})}}
+    kwargs = args[method]() if method in args else {}
     with pytest.raises(NotImplementedError,
                        match=f"ComputationGraph.{method} .*{item}"):
-        getattr(pnet, method)()
+        getattr(pnet, method)(**kwargs)
 
 
 @pytest.mark.parametrize("vertex", [

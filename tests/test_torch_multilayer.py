@@ -271,13 +271,11 @@ def test_what_is_not_ported_is_refused_by_name():
     net = MultiLayerNetwork(_dense_conf("port")).init(device="cpu")
     x, y = _data("dense", 8, 0)
     for call, item in ((lambda: net.fit_tbptt(x, y, 4), "10"),
-                       (lambda: net.fit(x, y, accum_steps=2), "3"),
-                       (lambda: net.fit(x, y, sentinel=True), "3"),
                        (lambda: net.save("net.zip"), "10"),
                        (lambda: MultiLayerNetwork.load("net.zip"), "10"),
                        (lambda: net.evaluate(x, y), "10"),
-                       (lambda: net.capture_training_state(), "7"),
-                       (lambda: net.restore_training_state(None), "7"),
+                       (lambda: net.capture_training_state(
+                           normalizer=object()), "7"),
                        (lambda: net.conf.to_json(), "10"),
                        (lambda: MultiLayerConfiguration.from_json("{}"),
                         "10")):

@@ -297,15 +297,19 @@ def test_shape_inference_runs_on_the_meta_device():
 
 
 def test_training_config_takes_only_what_the_port_honours():
-    """``fused_steps`` is taken (fused windows); the JAX fields the port
-    does not honour yet (``accum_steps``, ``sentinel``) are not."""
+    """``fused_steps``, ``accum_steps`` and ``sentinel`` are taken; the
+    JAX fields the port does not honour yet (``tensorstats``,
+    ``fingerprints``) are not."""
     tc = (TrainingConfig.builder().updater(Adam(1e-3))
           .data_set_feature_mapping("x").data_set_label_mapping("labels")
           .fused_steps(1).build())
     assert tc.data_set_feature_mapping == ["x"] and tc.fused_steps == 1
     assert TrainingConfig.builder().updater(Adam()).fused_steps(4).build() \
         .fused_steps == 4
-    for field in ("accum_steps", "sentinel"):
+    tc = TrainingConfig.builder().updater(Adam()).accum_steps(2) \
+        .sentinel().build()
+    assert tc.accum_steps == 2 and tc.sentinel is True
+    for field in ("tensorstats", "fingerprints"):
         with pytest.raises(TypeError):
             TrainingConfig(updater=Adam(), **{field: 2})
         assert not hasattr(TrainingConfig.Builder, field)

@@ -47,9 +47,23 @@ def test_five_steps_match_jax(make):
 
 
 def test_schedules_are_not_ported_yet():
-    u = pup.Sgd(learning_rate=object())
-    with pytest.raises(NotImplementedError):
-        u.apply_([torch.zeros(1)], [torch.zeros(1)], [()], 0)
+    """Schedules are ported (``learning/schedules.py``): a schedule's
+    value is the step's rate; a rate that is neither a number nor a
+    schedule is refused; the JAX updaters the port lacks are refused by
+    name where their JSON form is read."""
+    from deeplearning4j_tpu_torch.learning import StepSchedule
+    u = pup.Sgd(learning_rate=StepSchedule(0.5, 0.1, 2))
+    p = [torch.ones(1)]
+    for it in range(3):
+        u.apply_(p, [torch.ones(1)], [()], it)
+    # 1 - 0.5 - 0.5 - 0.5 * 0.1^floor(2 / 2), in float32
+    assert p[0].item() == -(np.float32(0.5) * np.float32(0.1))
+    with pytest.raises(TypeError):
+        pup.Sgd(learning_rate=object()).apply_(
+            [torch.zeros(1)], [torch.zeros(1)], [()], 0)
+    with pytest.raises(NotImplementedError,
+                       match="queue 1 item 3: the other eight updaters"):
+        pup.IUpdater.from_json({"@class": "RmsProp", "learning_rate": 0.1})
 
 
 def test_adam_alphat_is_the_jax_float32_value():
