@@ -5,10 +5,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the five CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   limit; the builds of the six CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
    csrc/causal_attention.cu, csrc/paged_attention.cu,
-   csrc/attention_f32.cu and csrc/int8_matmul.cu, one nvcc each, started
-   together: seconds,
+   csrc/attention_f32.cu, csrc/int8_matmul.cu and csrc/lstm_cell.cu, one
+   nvcc each, started together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -369,6 +369,29 @@ Phases, in order; any failure exits non-zero:
    4 iterations: the card's windows of 2 against the CPU's one step a
    batch, to 1e-6 (phase 4's bound). No kernel of this phase is new; the
    checkpoints' directory is deleted.
+27. main path: TextGenLSTM (``TextGenLSTM()``: 77 -> LSTM 256 -> LSTM 256
+   -> RnnOutputLayer 77, 887,117 parameters, float32, Adam(1e-3), seed
+   0) on SURVEY.md's characters in DL4J's 77-character set, 64 sequences
+   of 1001 at seeded offsets (one-hot, on the card once), as
+   ``LSTMCharModellingExample`` trains it. (i) the LSTM cell kernels
+   (csrc/lstm_cell.cu, forward and backward) against their plain
+   versions at the path's rows (32 x 256) and at (3, 5), float32 and
+   float64; (ii) a 16-unit float64 TextGenLSTM, 4 TBPTT chunks, card
+   against CPU (parameter change, carried state, loss to 1e-6); (iii)
+   ``fit_tbptt`` with tbptt_length = T against ``fit``; (a) ``fit_tbptt``
+   at batch 32, TBPTT 50, 2 epochs (20 chunks a minibatch, one CUDA graph
+   replay each), the cell kernels' counts set to 0 just before and read
+   just after (100 + 100 a chunk), (v) the loss falling, (vii) no capture
+   after the first window; the chunk timed and profiled (device launches,
+   busy, idle share, the cell kernels' device time and no fused or cuDNN
+   LSTM kernel), ``Evaluation`` of next-character prediction; (b) ``fit``
+   (full BPTT) on sequences of 50 on the scanned, windowed (8) and
+   per-step tiers, (iv) agreeing to rtol 1e-5 / atol 1e-6, each timed and
+   profiled; (vi) ``save`` -> ``load``: the output, then ``fit`` and
+   ``fit_tbptt``, bit-equal; then each cell kernel alone beside its plain
+   version, ``_thnn_fused_lstm_cell`` (and its backward) and its bound in
+   bytes, and one layer's forward and backward over a chunk against
+   cuDNN's ``nn.LSTM``.
 
 Every idle share is read from one profiled pass: its device busy time
 against that pass's own wall time.
@@ -380,7 +403,7 @@ are per training step of that path, per decode step for
 paged_decode_attention and its int8 form,
 per 512-row prefill for the float32 prefill kernels and the int8 paged
 prefill, per speculative round for int8_matmul and paged_verify_attention
-and its int8 form),
+and its int8 form, per TBPTT chunk for the LSTM cell kernels),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -6154,6 +6177,544 @@ def phase_train_options(dev, card):
     return {"ms": ms, "profile": prof, "f64_worst": worst}
 
 
+
+# ----------------------------------------------------------------------
+# phase 27: TextGenLSTM trained with fit and fit_tbptt
+#: DL4J's ``CharacterIterator.getMinimalCharacterSet()``: the 77
+#: characters of the zoo's TextGenLSTM (a-z, A-Z, 0-9, punctuation, space,
+#: newline, tab)
+CHARSET = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+           "0123456789" "!&()?-'\",.:; \n\t")
+#: ``LSTMCharModellingExample``'s traffic: minibatch 32, sequences of 1000
+#: characters, TBPTT length 50; 64 sequences drawn, two TBPTT epochs
+P27_BATCH, P27_SEQ, P27_TBPTT, P27_SEQS, P27_EPOCHS = 32, 1000, 50, 64, 2
+P27_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_cell.cu"
+P27_REPLACES = "deeplearning4j_tpu/ops/nn_ops.py:520"
+P27_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+P27_KERNELS = ("lstm_cell_fwd", "lstm_cell_bwd")
+#: kernel names no profiled pass of the path may hold: PyTorch's fused
+#: LSTM cell and cuDNN's RNN kernels
+P27_FOREIGN = ("lstm_cell_forward", "lstm_cell_backward", "RNN_",
+               "LSTM_elementWise", "elemWiseRNN")
+
+
+def p27_corpus():
+    """The repo's SURVEY.md mapped into CHARSET (other characters
+    dropped), and ``P27_SEQS`` sequences of ``P27_SEQ + 1`` characters at
+    seeded offsets, as DL4J's ``CharacterIterator`` draws example starts:
+    one-hot features (the first P27_SEQ characters) and labels (the next
+    ones), float32 numpy."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "SURVEY.md"), encoding="utf-8") as f:
+        text = f.read()
+    index = {c: i for i, c in enumerate(CHARSET)}
+    ids = np.array([index[c] for c in text if c in index], np.int64)
+    starts = np.random.default_rng(0).integers(0, len(ids) - P27_SEQ - 1,
+                                               P27_SEQS)
+    seqs = np.stack([ids[s:s + P27_SEQ + 1] for s in starts])
+    eye = np.eye(len(CHARSET), dtype=np.float32)
+    return eye[seqs[:, :-1]], eye[seqs[:, 1:]], len(text), len(ids)
+
+
+def _p27_close(got, want, dtype):
+    """Worst |got - want| over the largest |want| (a relative error)."""
+    err = float((got.double().cpu() - want.double().cpu()).abs().max())
+    return err, err <= P27_TOL[dtype] * max(float(want.abs().max()), 1e-30)
+
+
+def p27_check_kernels(dev):
+    """Each cell kernel against its plain version, forward and backward,
+    at the path's rows (32 x 256) and at (3, 5), float32 and float64:
+    worst relative error a kernel; raises on a miss."""
+    from deeplearning4j_tpu_torch.kernels import lstm
+    errs = {k: 0.0 for k in P27_KERNELS}
+    for dt in (torch.float32, torch.float64):
+        for b, u in ((P27_BATCH, 256), (3, 5)):
+            g = torch.Generator().manual_seed(b * u)
+            z = 2 * torch.randn(b, 4 * u, generator=g, dtype=dt)
+            cp, dh_up, dh_n, dc_n = (torch.randn(b, u, generator=g, dtype=dt)
+                                     for _ in range(4))
+            gates, h, c = lstm.lstm_cell_fwd_plain(z, cp)
+            zc = z.to(dev)
+            hc, cc = (torch.full((b, u), float("nan"), dtype=dt, device=dev)
+                      for _ in range(2))
+            lstm.lstm_cell_fwd(zc, cp.to(dev), hc, cc)
+            dz, dcp = lstm.lstm_cell_bwd_plain(gates, cp, c, dh_up, dh_n,
+                                               dc_n)
+            dzc = torch.full_like(zc, float("nan"))
+            dcc = dc_n.to(dev)
+            lstm.lstm_cell_bwd(gates.to(dev), cp.to(dev), c.to(dev),
+                               dh_up.to(dev), dh_n.to(dev), dcc, dzc, dcc)
+            torch.cuda.synchronize()
+            for name, pairs in (("lstm_cell_fwd", ((zc, gates), (hc, h),
+                                                    (cc, c))),
+                                ("lstm_cell_bwd", ((dzc, dz), (dcc, dcp)))):
+                for got, want in pairs:
+                    err, ok = _p27_close(got, want, dt)
+                    errs[name] = max(errs[name], err)
+                    if not ok:
+                        raise SystemExit(f"{name} {dt} ({b}, {u}): error "
+                                         f"{err:.3e} against its plain "
+                                         f"version")
+            log(f"  {dt} (B, u) = ({b}, {u}): forward and backward within "
+                f"{P27_TOL[dt]:g} of the largest magnitude")
+    return errs
+
+
+def _p27_net(dev, **kw):
+    from deeplearning4j_tpu_torch.zoo import TextGenLSTM
+    return TextGenLSTM(seed=0, **kw).build(device=dev)
+
+
+def p27_f64_parity(X, Y):
+    """Gate (ii): a narrow float64 TextGenLSTM (2 layers of 16), 4 TBPTT
+    chunks of 10 characters of 4 sequences, on the card and on the CPU
+    from the same seed: the worst parameter change, carried state and
+    loss, each relative to its largest magnitude, within 1e-6."""
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import TextGenLSTM
+    conf = TextGenLSTM(units=16, seed=0).conf()
+    conf.dtype = "float64"
+    x = torch.tensor(X[:4, :40], dtype=torch.float64)
+    y = torch.tensor(Y[:4, :40], dtype=torch.float64)
+    res = {}
+    for d in ("cuda", "cpu"):
+        net = MultiLayerNetwork(conf).init(device=d)
+        p0 = {n: torch.tensor(a) for n, a in net.params().items()}
+        h = net.fit_tbptt(x.to(d), y.to(d), 10, epochs=1, batch_size=4)
+        sd, states = net._tbptt_graphs[4]
+        res[d] = ({n: torch.tensor(a) - p0[n]
+                   for n, a in net.params().items()},
+                  {n: sd.state_vars_map()[n].cpu() for n in states},
+                  torch.tensor(h.step_losses, dtype=torch.float64))
+    worst = {}
+    for i, what in enumerate(("parameter change", "carried state")):
+        worst[what] = max(
+            float((res["cuda"][i][n] - t).abs().max())
+            / max(float(t.abs().max()), 1e-30)
+            for n, t in res["cpu"][i].items())
+    worst["loss"] = float(((res["cuda"][2] - res["cpu"][2]).abs()
+                           / res["cpu"][2].abs()).max())
+    log(f"  (ii) float64 TextGenLSTM(units=16), 4 TBPTT chunks of 10, card "
+        f"vs CPU: worst " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       worst.items()) + " (tol 1e-6)")
+    if max(worst.values()) > 1e-6:
+        raise SystemExit("phase 27 gate (ii): float64 card against CPU")
+    return worst
+
+
+def _p27_params(net):
+    return {n: torch.tensor(a) for n, a in net.params().items()}
+
+
+def _p27_diff(a, b):
+    """(worst relative difference, bit-equal) of two parameter sets."""
+    worst = max(float((a[n] - b[n]).abs().max())
+                / max(float(b[n].abs().max()), 1e-30) for n in b)
+    return worst, all(torch.equal(a[n], b[n]) for n in b)
+
+
+def p27_full_length(Xb, Yb):
+    """Gate (iii): ``fit_tbptt`` with tbptt_length = T equals ``fit`` on
+    the card (JAX's test_tbptt_full_length_equals_bptt): 64 sequences of
+    50, one epoch, from seed 0; losses and parameters within rtol 1e-5 /
+    atol 1e-6."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    a, b = _p27_net("cuda"), _p27_net("cuda")
+    x, y = Xb[:P27_SEQS], Yb[:P27_SEQS]
+    ha = a.fit(DeviceCachedIterator(x, y, P27_BATCH, device=x.device))
+    hb = b.fit_tbptt(x, y, x.shape[1], epochs=1, batch_size=P27_BATCH)
+    worst, bits = _p27_diff(_p27_params(b), _p27_params(a))
+    ok = np.allclose(hb.step_losses, ha.step_losses, rtol=TIER_RTOL,
+                     atol=TIER_ATOL) and all(
+        torch.allclose(b_, a_, rtol=TIER_RTOL, atol=TIER_ATOL)
+        for b_, a_ in zip(_p27_params(b).values(), _p27_params(a).values()))
+    log(f"  (iii) fit_tbptt(tbptt_length={x.shape[1]}) vs fit (scanned "
+        f"tier), {len(ha.step_losses)} steps: losses {hb.step_losses} vs "
+        f"{ha.step_losses}; worst parameter difference {worst:.3e}, "
+        f"bit-equal {bits}")
+    if not ok:
+        raise SystemExit("phase 27 gate (iii): full-length TBPTT is not "
+                         "fit")
+
+
+def _p27_profile(fn, n_units):
+    """One pass of ``fn`` under torch.profiler: (device launches, busy ms,
+    wall ms, ms by kernel name), each a unit (a chunk or a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    n_dev, n_kern, busy, by_name = device_activity(prof)
+    from torch.autograd import DeviceType
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {"launches": n_dev / n_units, "kernels": n_kern / n_units,
+            "busy_ms": busy / n_units, "wall_ms": wall / n_units,
+            "idle_share": 1 - busy / wall if busy else None,
+            "by_name": {k: v / n_units for k, v in by_name.items()},
+            "counts": counts}
+
+
+def _p27_kernel_profile(prof, n_units, label):
+    """Each cell kernel's device ms a unit and its traced count; raises
+    when a kernel is missing or a foreign LSTM kernel ran."""
+    out = {}
+    for k in P27_KERNELS:
+        names = [n for n in prof["counts"] if f"{k}_kernel" in n]
+        if not names:
+            raise SystemExit(f"phase 27: the {label} pass traced no {k}")
+        out[k] = (sum(prof["by_name"][n] for n in names),
+                  sum(prof["counts"][n] for n in names) / n_units)
+    foreign = [n for n in prof["counts"] if any(f in n for f in P27_FOREIGN)]
+    if foreign:
+        raise SystemExit(f"phase 27: the {label} pass ran {foreign}")
+    return out
+
+
+def p27_tbptt(X, Y, card):
+    """Run (a): ``fit_tbptt`` over the 64 sequences, 2 epochs (gates (v)
+    and (vii), the counts set to 0 just before and read just after), then
+    timed epochs and a profiled one; then the Evaluation accuracy."""
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.kernels import _cuda, lstm
+    net = _p27_net("cuda")
+    log(f"  TextGenLSTM(): {net.num_params()} parameters, float32, "
+        f"Adam(1e-3), seed 0")
+    if net.num_params() != 887117:
+        raise SystemExit("TextGenLSTM is not the zoo's width")
+    chunks = (P27_SEQS // P27_BATCH) * (P27_SEQ // P27_TBPTT)
+    lstm.reset_launches()
+    before = _cuda.count_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit_tbptt(X, Y, P27_TBPTT, epochs=P27_EPOCHS,
+                         batch_size=P27_BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(lstm.LAUNCHES)
+    others = [(k, n) for c, k, n in _cuda.counts_since(before)
+              if c is not lstm.LAUNCHES]
+    sd, states = net._tbptt_graphs[P27_BATCH]
+    st = dict(sd.last_fit_stats)
+    per_chunk = 2 * P27_TBPTT          # 2 layers, a launch a timestep
+    # + the capture's 2 warm-up steps; a CPU rehearsal launches nothing
+    want = (P27_EPOCHS * chunks + 2) * per_chunk if X.is_cuda else 0
+    log(f"  (a) fit_tbptt, {P27_EPOCHS} epochs of {chunks} chunks "
+        f"({P27_SEQS // P27_BATCH} minibatches x {st['chunks_per_minibatch']}"
+        f" chunks of {P27_TBPTT}): {first_s:.2f} s with the capture; epoch "
+        f"losses {hist.epoch_losses}; stats {st}; launches {launches} "
+        f"(want {want} each: {per_chunk} a chunk and {per_chunk} in the "
+        f"capture's 2 warm-up steps); other kernels' counts {others}")
+    if not hist.epoch_losses[1] < hist.epoch_losses[0]:
+        raise SystemExit("phase 27 gate (v): the loss did not fall")
+    if st["window_captures_by_epoch"] != [1, 0] or \
+            st["graph_replays_per_epoch"] != (P27_SEQS // P27_BATCH
+                                              if X.is_cuda else 0):
+        raise SystemExit("phase 27 gate (vii): a capture after the first "
+                         "window")
+    if any(launches[k] != want for k in P27_KERNELS) or others:
+        raise SystemExit("phase 27: the cell kernels' launches")
+    timed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit_tbptt(X, Y, P27_TBPTT, epochs=1, batch_size=P27_BATCH)
+        torch.cuda.synchronize()
+        timed.append(1e3 * (time.perf_counter() - t0) / chunks)
+    prof = _p27_profile(lambda: net.fit_tbptt(
+        X, Y, P27_TBPTT, epochs=1, batch_size=P27_BATCH), chunks)
+    in_chunk = _p27_kernel_profile(prof, chunks, "TBPTT")
+    if sd.last_fit_stats["window_captures"]:
+        raise SystemExit("phase 27 gate (vii): a capture in a later fit")
+    ms = float(np.median(timed))
+    chars = P27_BATCH * P27_TBPTT
+    log(f"  (a) a TBPTT chunk ({P27_BATCH} x {P27_TBPTT} characters, one "
+        f"replay a minibatch of {P27_SEQ // P27_TBPTT}): "
+        f"{[round(v, 4) for v in timed]} ms, median {ms:.4f} ms, "
+        f"{1e3 * chars / ms:.1f} characters/s; launches a chunk "
+        f"{per_chunk} + {per_chunk} (counted); profiler: "
+        f"{prof['launches']:.1f} device launches a chunk, busy "
+        f"{prof['busy_ms']:.4f} of {prof['wall_ms']:.4f} ms, idle share "
+        f"{prof['idle_share']:.3f}; cell kernels in the chunk "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]:.1f} traced)"
+                    for k, v in in_chunk.items()) + f"  [{card}]")
+    top = sorted(((v, n) for n, v in prof["by_name"].items()),
+                 reverse=True)[:8]
+    log("    device time a chunk by kernel, the 8 largest:")
+    for v, n in top:
+        log(f"      {v:8.4f} ms  {n[:110]}")
+    out = net.output(X)
+    if tuple(out.shape) != tuple(X.shape) or not torch.isfinite(out).all():
+        raise SystemExit("phase 27: TextGenLSTM's output")
+    ev = Evaluation()
+    ev.eval(Y.reshape(-1, len(CHARSET)), out.reshape(-1, len(CHARSET)))
+    try:
+        net.evaluate(X[:P27_BATCH], Y[:P27_BATCH])
+        raise SystemExit("evaluate took (B, T, C) outputs")
+    except ValueError as e:
+        refused = str(e)
+    log(f"  Evaluation of the trained network, next character over "
+        f"{out.shape[0] * out.shape[1]} positions (outputs flattened to "
+        f"(N, 77)): accuracy {ev.accuracy():.4f}, F1 {ev.f1():.4f}; "
+        f"net.evaluate on (B, T, C) refuses as the JAX one: {refused}")
+    return {"net": net, "launches": launches, "chunk_ms": ms,
+            "timed": timed, "profile": prof, "in_chunk": in_chunk,
+            "accuracy": ev.accuracy(), "chunks": chunks}
+
+
+def p27_tiers(Xb, Yb, card):
+    """Run (b): ``fit`` (full BPTT) over sequences of 50 on the scanned,
+    windowed (8) and per-step tiers from seed 0: gate (iv), the tiers
+    agree over one epoch; then each timed (median of 3 epochs) and
+    profiled (one epoch)."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    it = DeviceCachedIterator(Xb, Yb, P27_BATCH, device=Xb.device)
+    steps = len(Xb) // P27_BATCH
+    res, nets = {}, {}
+    for tier, listeners, k in _tiers():
+        net = _p27_net("cuda")
+        h = net.fit(it, listeners=listeners, fused_steps=k)
+        nets[tier] = net
+        res[tier] = {"losses": h.step_losses, "params": _p27_params(net),
+                     "stats": dict(net.samediff.last_fit_stats)}
+    ref = res["per-step"]
+    for tier in ("scanned", "windows"):
+        worst, bits = _p27_diff(res[tier]["params"], ref["params"])
+        ok = np.allclose(res[tier]["losses"], ref["losses"], rtol=TIER_RTOL,
+                         atol=TIER_ATOL) and all(torch.allclose(
+                             res[tier]["params"][n], t, rtol=TIER_RTOL,
+                             atol=TIER_ATOL) for n, t in ref["params"].items())
+        log(f"  (iv) {tier} vs per-step over {steps} steps: worst parameter "
+            f"difference {worst:.3e}, losses bit-equal "
+            f"{res[tier]['losses'] == ref['losses']}, parameters bit-equal "
+            f"{bits}")
+        if not ok:
+            raise SystemExit(f"phase 27 gate (iv): the {tier} tier")
+    out = {}
+    chars = P27_BATCH * Xb.shape[1]
+    for tier, listeners, k in _tiers():
+        net = nets[tier]
+        timed = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(it, listeners=listeners, fused_steps=k)
+            torch.cuda.synchronize()
+            timed.append(1e3 * (time.perf_counter() - t0) / steps)
+        st = dict(net.samediff.last_fit_stats)
+        prof = _p27_profile(lambda: net.fit(it, listeners=listeners,
+                                            fused_steps=k), steps)
+        _p27_kernel_profile(prof, steps, tier)
+        ms = float(np.median(timed))
+        out[tier] = {"step_ms": ms, "timed": timed, "profile": prof}
+        log(f"  (b) fit, {tier:<8} ({st['tier']}): a step of {P27_BATCH} x "
+            f"{Xb.shape[1]} characters {[round(v, 4) for v in timed]} ms, "
+            f"median {ms:.4f} ms, {1e3 * chars / ms:.1f} characters/s; "
+            f"graph replays an epoch {st['graph_replays_per_epoch']}, "
+            f"captures {st['window_captures']}; profiler: "
+            f"{prof['launches']:.1f} device launches a step, busy "
+            f"{prof['busy_ms']:.4f} of {prof['wall_ms']:.4f} ms, idle share "
+            f"{prof['idle_share']:.3f}  [{card}]")
+    return nets["per-step"], out
+
+
+def p27_save_load(net, Xb, Yb, X, Y):
+    """Gate (vi): ``save`` -> ``load`` gives a bit-equal ``output``, and
+    the loaded and the saved network then take ``fit`` (restored Adam
+    state and iteration) and ``fit_tbptt`` (a new TBPTT graph each, as in
+    JAX) to bit-equal parameters."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p27_")
+    try:
+        path = os.path.join(tmp, "textgen.zip")
+        t0 = time.perf_counter()
+        net.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        other = MultiLayerNetwork.load(path, device=Xb.device)
+        load_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x = Xb[:P27_BATCH]
+    same_out = torch.equal(net.output(x), other.output(x))
+    it = DeviceCachedIterator(Xb[:4 * P27_BATCH], Yb[:4 * P27_BATCH],
+                              P27_BATCH, device=Xb.device)
+    for n in (net, other):
+        n.fit(it)
+    _, fit_bits = _p27_diff(_p27_params(other), _p27_params(net))
+    for n in (net, other):
+        n.fit_tbptt(X[:P27_BATCH, :4 * P27_TBPTT],
+                    Y[:P27_BATCH, :4 * P27_TBPTT], P27_TBPTT, epochs=1,
+                    batch_size=P27_BATCH)
+    worst, tbptt_bits = _p27_diff(_p27_params(other), _p27_params(net))
+    log(f"  (vi) save {save_s:.3f} s ({nbytes} bytes), load {load_s:.3f} s: "
+        f"output bit-equal {same_out}; then fit (4 steps) bit-equal "
+        f"{fit_bits}, then fit_tbptt (4 chunks) bit-equal {tbptt_bits} "
+        f"(worst {worst:.3e})")
+    if not (same_out and fit_bits and tbptt_bits):
+        raise SystemExit("phase 27 gate (vi): save/load")
+
+
+def p27_timing(card_name, run):
+    """Each cell kernel alone (``median_ms``, L2 cold) at the path's rows
+    (32 x 256, float32) beside its plain version, PyTorch's fused LSTM
+    cell (``_thnn_fused_lstm_cell`` and its backward; never called by the
+    port) and its bound (``measure.lstm_cell_cost``); then one layer's
+    forward and backward over a chunk (32 x 50, 256 units) against
+    cuDNN's ``torch.nn.LSTM`` (host clock, ``synced_ms``)."""
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.kernels.measure import lstm_cell_cost
+    from deeplearning4j_tpu_torch.ops import registry
+    dev, b, u = torch.device("cuda"), P27_BATCH, 256
+    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    z = torch.randn(b, 4 * u, generator=g, device=dev)
+    cp, dh_up, dh_n, dc_n = (torch.randn(b, u, generator=g, device=dev)
+                             for _ in range(4))
+    h, c = torch.empty_like(cp), torch.empty_like(cp)
+    gates = z.clone()
+    lstm.lstm_cell_fwd(gates, cp, h, c)
+    dz, dc = torch.empty_like(z), dc_n.clone()
+    zero = torch.zeros_like(z)
+    aten = torch.ops.aten
+    hy, cy, ws = aten._thnn_fused_lstm_cell(z, zero, cp)
+    calls = {
+        "lstm_cell_fwd": (lambda: lstm.lstm_cell_fwd(z, cp, h, c),
+                          lambda: lstm.lstm_cell_fwd_plain(z, cp),
+                          lambda: aten._thnn_fused_lstm_cell(z, zero, cp)),
+        "lstm_cell_bwd": (lambda: lstm.lstm_cell_bwd(gates, cp, c, dh_up,
+                                                     dh_n, dc, dz, dc),
+                          lambda: lstm.lstm_cell_bwd_plain(gates, cp, c,
+                                                           dh_up, dh_n, dc_n),
+                          lambda: aten._thnn_fused_lstm_cell_backward_impl(
+                              dh_up, dc_n, cp, cy, ws, False))}
+    bw, flops = card_rates(card_name)
+    per_chunk = 2 * P27_TBPTT
+    out = {}
+    for k, (kern, plain, lib) in calls.items():
+        before = lstm.LAUNCHES[k]
+        t = {"ms": median_ms(kern, flush), "plain": median_ms(plain, flush),
+             "library": median_ms(lib, flush)}
+        lstm.LAUNCHES[k] = before          # timing launches do not count
+        ops, nbytes = lstm_cell_cost(b, u, 4)[k]
+        by_bytes, by_ops = 1e3 * nbytes / bw, 1e3 * ops / flops
+        t.update(bound=max(by_bytes, by_ops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                 bytes=nbytes, ops=ops)
+        in_chunk, traced = run["in_chunk"][k]
+        out[k] = {
+            "ms": per_chunk * t["ms"], "plain_ms": per_chunk * t["plain"],
+            "library_ms": per_chunk * t["library"],
+            "bound_ms": per_chunk * t["bound"], "bound_by": t["bound_by"],
+            "in_chunk_ms": in_chunk, "traced_per_chunk": traced,
+            "per_call": {"ms": t["ms"], "plain_ms": t["plain"],
+                         "library_ms": t["library"], "bound_ms": t["bound"],
+                         "bytes": nbytes, "ops": ops}}
+        log(f"  {k} at ({b}, {u}) float32, a call: alone {t['ms']:.5f} ms, "
+            f"plain {t['plain']:.5f}, library {t['library']:.5f} "
+            f"(_thnn_fused_lstm_cell{'' if k.endswith('fwd') else '_backward_impl'}), "
+            f"bound {t['bound']:.6f} ({t['bound_by']}: {nbytes} bytes, "
+            f"{ops} operations); a chunk ({per_chunk} calls): alone "
+            f"{out[k]['ms']:.4f} ms, in the chunk {in_chunk:.4f} ms "
+            f"({traced:.1f} traced), plain {out[k]['plain_ms']:.4f}, "
+            f"library {out[k]['library_ms']:.4f}, bound "
+            f"{out[k]['bound_ms']:.5f}  [{card_name}]")
+    # one layer over a chunk: the port's LSTMSequence and cuDNN's nn.LSTM
+    x = torch.randn(b, P27_TBPTT, u, generator=g, device=dev,
+                    requires_grad=True)
+    ref = torch.nn.LSTM(u, u, batch_first=True).to(dev)
+    w_ih = ref.weight_ih_l0.detach().t().contiguous().requires_grad_(True)
+    w_hh = ref.weight_hh_l0.detach().t().contiguous().requires_grad_(True)
+    bias = (ref.bias_ih_l0 + ref.bias_hh_l0).detach().requires_grad_(True)
+    h0 = torch.zeros(b, u, device=dev)
+    op = registry.get_op("lstm_layer").fn
+    snap = dict(lstm.LAUNCHES)
+
+    def port():
+        o = op(x, h0, h0, w_ih, w_hh, bias)
+        torch.autograd.grad(o[0].sum(), [x, w_ih, w_hh, bias])
+
+    def cudnn():
+        o, _ = ref(x)
+        torch.autograd.grad(o.sum(), [x] + list(ref.parameters()))
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # float32 as the port's
+    try:
+        with torch.no_grad():
+            want = ref(x)[0]
+        got = op(x, h0, h0, w_ih, w_hh, bias)[0].detach()
+        err = float((got - want).abs().max())
+        layer = {"port_ms": synced_ms(port, flush, iters=5),
+                 "cudnn_ms": synced_ms(cudnn, flush, iters=5),
+                 "max_abs": err}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    lstm.LAUNCHES.update(snap)
+    log(f"  one LSTM layer (256 units) forward and backward over a chunk "
+        f"({b} x {P27_TBPTT}), host clock: the port {layer['port_ms']:.3f} "
+        f"ms (eager, {2 * P27_TBPTT} cell launches each way), cuDNN "
+        f"nn.LSTM {layer['cudnn_ms']:.3f} ms (TF32 off); outputs agree to "
+        f"{err:.2e}  [{card_name}]")
+    if err > 1e-4:
+        raise SystemExit("phase 27: the port's LSTM layer against cuDNN's")
+    return out, layer
+
+
+def phase_textgen(dev, card, card_name):
+    """Phase 27: gates (i)-(vii) and the measurements; returns the two
+    kernels' JSON records."""
+    log("  (i) the cell kernels against their plain versions:")
+    errs = p27_check_kernels(dev)
+    t0 = time.perf_counter()
+    Xn, Yn, n_text, n_ids = p27_corpus()
+    X, Y = torch.tensor(Xn, device=dev), torch.tensor(Yn, device=dev)
+    log(f"  corpus: SURVEY.md, {n_text} characters, {n_ids} in the 77-"
+        f"character set; {P27_SEQS} sequences of {P27_SEQ + 1} at seeded "
+        f"offsets: features {tuple(X.shape)} float32 "
+        f"({X.numel() * 4 / 1e6:.1f} MB) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    worst = p27_f64_parity(Xn, Yn)
+    Xb = X.reshape(-1, P27_TBPTT, len(CHARSET))
+    Yb = Y.reshape(-1, P27_TBPTT, len(CHARSET))
+    p27_full_length(Xb, Yb)
+    run = p27_tbptt(X, Y, card)
+    del run["net"]
+    net, tiers = p27_tiers(Xb, Yb, card)
+    p27_save_load(net, Xb, Yb, X, Y)
+    del net
+    torch.cuda.empty_cache()
+    timing, layer = p27_timing(card_name, run)
+    records = []
+    for k in P27_KERNELS:
+        t = timing[k]
+        records.append({
+            "name": k, "route": "cuda", "source": P27_SOURCE,
+            "replaces": P27_REPLACES, "launches": run["launches"][k],
+            "launches_per_step": 2 * P27_TBPTT,
+            "max_abs_err": errs[k],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "ms_per": f"TextGenLSTM TBPTT chunk ({P27_BATCH} x {P27_TBPTT}, "
+                      f"2 layers of 256)",
+            "in_step_ms": t["in_chunk_ms"], "per_call": t["per_call"],
+            "layer_ms": layer["port_ms"],
+            "layer_library_ms": layer["cudnn_ms"]})
+    return records, {"f64_worst": worst, "chunk_ms": run["chunk_ms"],
+                     "tiers": {k: v["step_ms"] for k, v in tiers.items()}}
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6164,11 +6725,11 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/26] env")
+    log("[1/27] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
-                                                  int8_matmul,
+                                                  int8_matmul, lstm,
                                                   paged_attention)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
@@ -6176,15 +6737,15 @@ def main():
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(5) as ex:
+    with ThreadPoolExecutor(6) as ex:
         for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
                   ex.submit(paged_attention._lib),
                   ex.submit(attention_f32._lib),
-                  ex.submit(int8_matmul._lib)]:
+                  ex.submit(int8_matmul._lib), ex.submit(lstm._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
     for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
-                attention_f32._LIB, int8_matmul._LIB):
+                attention_f32._LIB, int8_matmul._LIB, lstm._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -6204,49 +6765,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/26] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/27] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/26] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/27] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/26] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/27] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/26] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/27] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/26] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/27] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/26] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/27] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/26] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/27] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/26] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/27] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -6258,7 +6819,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/26] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/27] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -6272,18 +6833,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/26] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/27] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/26] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/27] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/26] main path: GPT-medium float32 serving, "
+    log(f"[13/27] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -6292,40 +6853,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/26] path shapes: paged attention vs plain, then timed")
+    log("[14/27] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/26] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/27] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/26] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/27] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/26] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/27] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/26] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/27] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/26] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/27] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -6334,13 +6895,13 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/26] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/27] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/26] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/27] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
@@ -6348,20 +6909,20 @@ def main():
     phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[22/26] kernels: paged decode, verify and prefill over an int8 "
+    log("[22/27] kernels: paged decode, verify and prefill over an int8 "
         "cache (CUDA C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_int8kv_kernels(dev, errs)
     int8kv_timing = phase_int8kv_timing(dev, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[23/26] parity: GPT_TINY int8 KV serving (paged float32 and "
+    log("[23/27] parity: GPT_TINY int8 KV serving (paged float32 and "
         "float64, dense float32), card vs CPU")
     t0 = time.perf_counter()
     phase_int8kv_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[24/26] main path: GPT-medium int8 KV + int8 weights serving, "
+    log(f"[24/27] main path: GPT-medium int8 KV + int8 weights serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
         f"server; the pool at one byte budget and the load generator; the "
@@ -6370,19 +6931,28 @@ def main():
     int8kv_serve = phase_int8kv_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[25/26] main path: ResNet-50 224x224 served through "
+    log("[25/27] main path: ResNet-50 224x224 served through "
         "ParallelInference (BATCHED, 2 workers, max_batch_size 32, buckets "
         "4-32; SEQUENTIAL and INPLACE gates)")
     t0 = time.perf_counter()
     phase_parallel_inference(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[26/26] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
+    log(f"[26/27] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
         f"a RampSchedule(StepSchedule), L2, accum_steps {P26_ACCUM}, windows "
         f"of {P26_K} and the sentinel: checkpoints, FaultTolerantFit's "
         f"rollback, a resume, a divergence named; float64 card vs CPU")
     t0 = time.perf_counter()
     phase_train_options(dev, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[27/27] main path: TextGenLSTM (77 -> LSTM 256 -> LSTM 256 -> "
+        f"RnnOutputLayer 77) on SURVEY.md's characters: fit_tbptt (batch "
+        f"{P27_BATCH}, sequences of {P27_SEQ}, TBPTT {P27_TBPTT}) and fit "
+        f"(full BPTT on sequences of {P27_TBPTT}, three tiers); the LSTM "
+        f"cell kernels (CUDA C++) vs plain; float64 card vs CPU; save/load")
+    t0 = time.perf_counter()
+    textgen_records, _ = phase_textgen(dev, card, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -6453,6 +7023,7 @@ def main():
             "in_step_ms": prof[kname]["in_prefill_ms"], "per_call": t})
     kernels.extend(spec_kernel_records(spec_timing, spec_serve, errs))
     kernels.extend(int8kv_kernel_records(int8kv_timing, int8kv_serve, errs))
+    kernels.extend(textgen_records)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

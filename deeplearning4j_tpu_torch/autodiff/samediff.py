@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: graph
 recording (``var`` :138, ``constant`` :160, ``placeholder`` :170,
-``invoke`` :299, ``OpNode`` :59), ``remat_scope`` :417, ``_prune`` :452,
+``invoke`` :299, ``OpNode`` :59), state variables (``state_var``,
+``update_state``, ``state_vars_map`` :218-237), ``remat_scope`` :417, ``_prune`` :452,
 ``output`` :581, ``calculate_gradients`` :729 and ``fit`` (:1558) with
 the train step of ``_build_step_parts`` :773, whose gradient half is
 ``_grad_step`` here and whose apply half, sentinel and accumulation are
@@ -21,6 +22,14 @@ forward, runs the loss ops under ``softmax_dtype_scope``, sums the loss
 variables in float32, applies the optional loss scale, back-propagates
 into the float32 masters and updates them (and the updater state) in
 place.
+
+State variables are stored VARIABLEs the updater does not train
+(``trainable_params`` leaves them out): a recurrent layer's carried
+state in TBPTT (``nn/multilayer.py`` ``fit_tbptt``). The train step
+feeds them detached (the truncation) and, after the backward, copies
+the outputs ``update_state`` declared into them in place (``copy_``),
+so a captured window carries them in its static tensors from step to
+step; a state variable with no declared update keeps its value.
 
 Values live on the SameDiff's ``device``: the CUDA card unless
 ``device="cpu"``. ``fit`` updates the stored arrays in place;
@@ -92,6 +101,8 @@ class SameDiff(window.StepOwner):
         self._op_order: List[str] = []            # creation order = topo order
         self._name_counter: Dict[str, int] = {}
         self.loss_variables: List[str] = []
+        self._state_var_names: set = set()
+        self._state_updates: Dict[str, str] = {}  # state var -> output
         self._active_group: Optional[str] = None  # current remat_scope id
         self._group_counter = 0
         self.training_config = None
@@ -188,7 +199,33 @@ class SameDiff(window.StepOwner):
         return [n for n, v in self._vars.items() if v.var_type == kind]
 
     def trainable_params(self) -> Env:
-        return {n: self._arrays[n] for n in self._names(VariableType.VARIABLE)}
+        return {n: self._arrays[n] for n in self._names(VariableType.VARIABLE)
+                if n not in self._state_var_names}
+
+    def state_var(self, name: str, value, dtype: str = "float32"
+                  ) -> SDVariable:
+        """A non-trainable stored variable, changed by
+        :meth:`update_state` and not by the updater."""
+        v = self.var(name, value=value, dtype=dtype)
+        self._state_var_names.add(v.name)
+        return v
+
+    def update_state(self, state_var: Union[str, SDVariable],
+                     new_value: Union[str, SDVariable]) -> None:
+        """After each training step ``state_var`` takes the value of the
+        graph output ``new_value``."""
+        sn = state_var.name if isinstance(state_var, SDVariable) \
+            else state_var
+        src = new_value.name if isinstance(new_value, SDVariable) \
+            else new_value
+        if sn not in self._state_var_names:
+            raise ValueError(f"{sn!r} is not a state var")
+        self._state_updates[sn] = src
+        self._changed()
+
+    def state_vars_map(self) -> Env:
+        return {n: self._arrays[n] for n in self._vars
+                if n in self._state_var_names}
 
     def constants_map(self) -> Env:
         return {n: self._arrays[n] for n in self._names(VariableType.CONSTANT)}
@@ -233,6 +270,12 @@ class SameDiff(window.StepOwner):
             node.outputs = [new if o == old else o for o in node.outputs]
         self.loss_variables = [new if n == old else n
                                for n in self.loss_variables]
+        if old in self._state_var_names:
+            self._state_var_names.discard(old)
+            self._state_var_names.add(new)
+        self._state_updates = {
+            (new if k == old else k): (new if s == old else s)
+            for k, s in self._state_updates.items()}
         self._changed()
         return v
 
@@ -384,6 +427,7 @@ class SameDiff(window.StepOwner):
 
     def _base_env(self, placeholders) -> Env:
         return {**self.constants_map(), **self.trainable_params(),
+                **self.state_vars_map(),
                 **self._prep_placeholders(placeholders)}
 
     def output(self, placeholders=None,
@@ -452,11 +496,14 @@ class SameDiff(window.StepOwner):
         """The gradient half of the train step (JAX ``grad_fn``): the
         forward under the mixed-precision policy, the backward into the
         float32 masters ``names``. Returns the (unscaled) loss and the
-        gradients, on the device. No host sync: fit windows capture it;
-        ``autodiff/step.py`` runs the apply half."""
+        gradients, on the device; the state variables, fed detached, take
+        their declared new values in place after the backward. No host
+        sync: fit windows capture it; ``autodiff/step.py`` runs the apply
+        half."""
         tc = self.training_config
         mp = tc.mixed_precision
         loss_names = self._resolve_loss()
+        updates = dict(self._state_updates)
         masters = self._masters(names)
         leaves = [m.detach().requires_grad_(True) for m in masters]
         env = {**self.constants_map(), **dict(zip(names, leaves)), **ph}
@@ -467,8 +514,11 @@ class SameDiff(window.StepOwner):
             tail = mp.softmax_dtype
         else:
             tail = None
+        # the state variables stay in their dtype (JAX ``grad_fn``)
+        svars = self.state_vars_map()
+        env.update({n: t.detach() for n, t in svars.items()})
         with torch.enable_grad(), loss_ops.softmax_dtype_scope(tail):
-            outs = self._execute(loss_names, env)
+            outs = self._execute(loss_names + tuple(updates.values()), env)
             loss = sum(outs[ln].sum().float() for ln in loss_names)
         scale = mp.loss_scale if mp is not None else None
         grads = torch.autograd.grad(loss * scale if scale else loss, leaves,
@@ -476,6 +526,9 @@ class SameDiff(window.StepOwner):
                                     materialize_grads=True)
         if scale:
             grads = [g / scale for g in grads]
+        with torch.no_grad():
+            for sn, src in updates.items():
+                svars[sn].copy_(outs[src])
         return loss.detach(), list(grads)
 
     def _masters(self, names: List[str]) -> List[torch.Tensor]:
@@ -498,9 +551,10 @@ class SameDiff(window.StepOwner):
 
     def warmup_restore_set(self, names: List[str],
                            state) -> List[torch.Tensor]:
-        """What a train step writes in place: the trainables ``names`` and
-        their updater ``state``."""
-        return [self._arrays[n] for n in names] + [t for s in state for t in s]
+        """What a train step writes in place: the trainables ``names``,
+        their updater ``state`` and the state variables."""
+        return [self._arrays[n] for n in names] + \
+            [t for s in state for t in s] + list(self.state_vars_map().values())
 
     def _placeholder_dtype(self, name: str, value) -> torch.dtype:
         """The dtype :meth:`_prep_placeholders` gives ``value``."""

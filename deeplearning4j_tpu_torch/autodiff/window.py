@@ -60,6 +60,14 @@ the batch of the epoch, on every tier. The parameters are then already
 poisoned, as the JAX fit's working copies are; roll back from a
 checkpoint (``faults/recovery.py``).
 
+Truncated BPTT (:func:`fit_tbptt`, the loop of JAX
+``MultiLayerNetwork.fit_tbptt``, ``nn/multilayer.py:243-413``) is a tier
+of its own over a graph whose recurrent states are state variables: for
+each minibatch the states are zeroed in place (``zero_()`` on the
+tensors the window reads), the ``T // L`` full chunks run as one window
+(one replay on the card) whose steps carry the states in those tensors,
+and a ragged tail chunk runs as one eager step.
+
 On the CPU a window runs its K steps eagerly; on the card it is always a
 graph, and an error of a capture or a replay propagates. A kernel
 wrapper counts its launches when it is called; inside a capture that
@@ -648,3 +656,103 @@ def fit(sd: StepOwner, iterator, epochs: int = 1, listeners=()) -> History:
     """The fit tiers of ``SameDiff.fit`` and ``ComputationGraph.fit``;
     see the module docstring."""
     return _Fit(sd, iterator, list(listeners)).run(epochs)
+
+
+class _TbpttFit(_Fit):
+    """One ``fit_tbptt``: minibatches of ``batch`` sequences, each the
+    ``n_full`` full chunks of ``length`` timesteps as one window over
+    static ``(n_full, batch, length, ...)`` buffers and a ragged tail as
+    one eager step, the recurrent ``states`` zeroed before each. It takes
+    :class:`_Fit`'s windows and eager steps, with no accumulation."""
+
+    def __init__(self, sd, states: List[str], length: int, batch: int):
+        self.sd, self.length, self.batch = sd, int(length), int(batch)
+        self.tc = tc = sd.training_config
+        if int(tc.accum_steps) != 1:
+            raise ValueError("fit_tbptt takes no accum_steps (the TBPTT "
+                             "graph's config has its own, 1)")
+        self.A, self.accum = 1, None
+        self.states = [sd._arrays[n] for n in states]
+        self.names, self.state = sd._fit_state()
+        self.scal = torch.zeros(1, 2, dtype=torch.float32, device=sd.device)
+        self.it = torch.zeros(1, dtype=torch.int64, device=sd.device)
+        self.captures = 0
+
+    def run(self, X, Y, epochs: int) -> History:
+        sd, tc, L, B = self.sd, self.tc, self.length, self.batch
+        n = (len(X) // B) * B
+        t_len = X.shape[1]
+        n_full, t_full = t_len // L, (t_len // L) * L
+        names = (tc.data_set_feature_mapping[0],
+                 tc.data_set_label_mapping[0])
+        sig = tuple((nm, (B, L, *a.shape[2:]),
+                     sd._placeholder_dtype(nm, a)) for nm, a in
+                    zip(names, (X, Y)))
+        history = History()
+        per_epoch: List[torch.Tensor] = []
+        captures: List[int] = []
+        for epoch in range(epochs):
+            start = tc.iteration_count
+            captures0 = self.captures
+            losses: List[torch.Tensor] = []
+            bads: List[torch.Tensor] = []
+            replays = eager = 0
+            for i in range(0, n, B):
+                with torch.no_grad():        # new sequences: zero carries
+                    torch._foreach_zero_(self.states)
+                it = tc.iteration_count
+                if n_full:
+                    win = self._window(n_full, sig=sig)
+                    for nm, a in zip(names, (X, Y)):
+                        part = a[i:i + B, :t_full]
+                        part = part.reshape(B, n_full, L, *a.shape[2:])
+                        stage_(win.inputs[nm], part.swapaxes(0, 1))
+                    stage_(win.scal, step_rows(tc.updater, it, n_full, 1))
+                    stage_(win.iters, np.arange(it, it + n_full,
+                                                dtype=np.int64))
+                    win.run()
+                    losses.append(win.losses.clone())
+                    if win.bad is not None:
+                        bads.append(win.bad.clone())
+                    replays += 1
+                    it += n_full
+                if t_full < t_len:
+                    ph = sd._prep_placeholders({
+                        nm: a[i:i + B, t_full:] for nm, a in
+                        zip(names, (X, Y))})
+                    loss, bad = self._eager_step(it, ph)
+                    losses.append(loss)
+                    if bad is not None:
+                        bads.append(bad)
+                    eager += 1
+                    it += 1
+                tc.iteration_count = it
+            if bads:                      # one verdict fetch an epoch
+                _check_bad_steps(torch.cat(bads).tolist(), epoch, start)
+            per_epoch.append(torch.cat(losses))
+            captures.append(self.captures - captures0)
+            sd.last_fit_stats = {
+                "tier": "tbptt", "tbptt_length": L,
+                "chunks_per_minibatch": n_full + (t_full < t_len),
+                "minibatches_per_epoch": n // B,
+                "steps_per_epoch": tc.iteration_count - start,
+                "graph_replays_per_epoch":
+                    replays if sd.device.type == "cuda" else 0,
+                "eager_steps_per_epoch": eager,
+                "window_captures": captures[-1],
+                "window_captures_by_epoch": list(captures)}
+        flat = torch.cat(per_epoch).tolist()     # one transfer for the fit
+        for e, t in enumerate(per_epoch):
+            vals, flat = flat[:len(t)], flat[len(t):]
+            history.add_epoch(e, float(np.mean(vals)), vals)
+        return history
+
+
+def fit_tbptt(sd: StepOwner, X, Y, length: int, batch: int, epochs: int,
+              states: List[str]) -> History:
+    """Truncated BPTT over sequences ``X`` [N, T, ...] and ``Y`` [N, T,
+    ...] (numpy arrays or tensors; the rows past the last whole batch are
+    the caller's to drop) in chunks of ``length`` timesteps, the state
+    variables ``states`` zeroed for every minibatch; see the module
+    docstring."""
+    return _TbpttFit(sd, states, length, batch).run(X, Y, epochs)

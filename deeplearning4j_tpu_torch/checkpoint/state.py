@@ -7,7 +7,7 @@ package's names and layouts, so that a checkpoint written by either
 package restores in the other:
 
 - ``arrays``: the trainable parameters and the batch norms' running
-  statistics, by the JAX names (``ComputationGraph``: ``{node}_{suffix}``
+  statistics (a SameDiff's state variables), by the JAX names (``ComputationGraph``: ``{node}_{suffix}``
   with convolution weights HWIO, where the port holds ``{node}.{suffix}``
   in OIHW; ``SameDiff`` and ``MultiLayerNetwork``: the same names and
   layouts);
@@ -107,7 +107,7 @@ def _live_arrays(owner) -> Dict[str, torch.Tensor]:
     if _is_graph(owner):
         return {_jax_name(k): t for k, t in
                 owner.model.state_dict(keep_vars=True).items()}
-    return dict(owner.trainable_params())
+    return {**owner.trainable_params(), **owner.state_vars_map()}
 
 
 def _live_leaves(owner) -> Optional[List[Tuple[str, torch.Tensor]]]:

@@ -8,6 +8,12 @@ both sides (a name -> array map of the stored VARIABLE and CONSTANT
 values), so nothing is transposed; the names, shapes and dtypes are
 checked. This is how the tests hand both packages the same weights, and
 how a JAX checkpoint's weights enter the port.
+
+A ``MultiLayerNetwork`` is its training SameDiff: its LSTM layers'
+``layer{i}_lstm_Wih`` (in, 4u), ``_Whh`` (u, 4u) and ``_b`` (4u,) in
+gate order ``[i, f, g, o]``, and its ``RnnOutputLayer``'s
+``layer{i}_rnnout_W`` / ``_b``, are the JAX network's names and layouts:
+``samediff_arrays_from_jax(jax_net.params(), net.samediff)``.
 """
 from __future__ import annotations
 
@@ -66,11 +72,14 @@ def samediff_arrays_from_jax(arrays: Mapping[str, np.ndarray], sd):
 
 
 def samediff_arrays_to_jax(sd) -> Dict[str, np.ndarray]:
-    """The port's stored VARIABLE and CONSTANT arrays as name -> numpy
-    array copies, the JAX SameDiff's names and layouts."""
+    """The port's stored VARIABLE (state variables included) and CONSTANT
+    arrays as name -> numpy array copies, the JAX SameDiff's names and
+    layouts."""
     out = {}
-    for name in [*sd.trainable_params(), *sd.constants_map()]:
+    for name in [*sd.trainable_params(), *sd.state_vars_map(),
+                 *sd.constants_map()]:
         a = sd.get_arr_for_var(name).cpu()
         out[name] = a.float().numpy() if a.dtype == torch.bfloat16 \
             else np.array(a.numpy(), copy=True)
     return out
+

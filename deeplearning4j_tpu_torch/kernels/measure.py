@@ -93,6 +93,20 @@ def int8_weight_bound(ops: float, nbytes: float,
             "bound_by": "bytes" if by_bytes >= tc else "operations"}
 
 
+def lstm_cell_cost(b: int, u: int, itemsize: int) -> Dict[str, Tuple[int, int]]:
+    """(operations, bytes) each LSTM cell kernel (``csrc/lstm_cell.cu``)
+    must spend at ``b`` rows of ``u`` units: the forward reads z [b, 4u]
+    and c_prev and writes the gates [b, 4u], h and c; the backward reads
+    the gates, c_prev, c, dh_up, dh_next and dc_next and writes dz [b, 4u]
+    and dc_prev. Operations a unit, each exp, tanh and division counted as
+    one: the forward's 3 sigmoids (3 each), 2 tanh and 4 products and
+    sums (15); the backward's tanh, 2 sums, and 20 products and
+    differences (23)."""
+    n = b * u
+    return {"lstm_cell_fwd": (15 * n, (4 + 1 + 4 + 2) * n * itemsize),
+            "lstm_cell_bwd": (23 * n, (4 + 5 + 4 + 1) * n * itemsize)}
+
+
 def median_ms(fn: Callable[[], object], flush: torch.Tensor,
               iters: int = 20) -> float:
     """Median device time of ``fn`` over ``iters`` calls, each after

@@ -10,15 +10,21 @@ from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
                                                 ConvolutionLayer, DenseLayer,
                                                 GlobalPoolingLayer,
-                                                InputType, OutputLayer,
+                                                InputType, LSTMLayer,
+                                                OutputLayer,
                                                 SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.recurrent_layers import (
+    Bidirectional, ConvLSTM2DLayer, LastTimeStepLayer, RnnOutputLayer,
+    SimpleRnnLayer)
 
-__all__ = ["ActivationLayer", "BatchNormalization", "ComputationGraph",
-           "ComputationGraphConfiguration", "ConvolutionLayer", "DenseLayer",
+__all__ = ["ActivationLayer", "BatchNormalization", "Bidirectional",
+           "ComputationGraph", "ComputationGraphConfiguration",
+           "ConvLSTM2DLayer", "ConvolutionLayer", "DenseLayer",
            "DotProductVertex", "ElementWiseVertex", "GlobalPoolingLayer",
            "GraphBuilder", "GraphVertex", "InputType", "L2NormalizeVertex",
-           "ListBuilder", "MergeVertex", "MultiLayerConfiguration",
-           "MultiLayerNetwork", "NeuralNetConfiguration", "OutputLayer",
-           "ScaleVertex", "ShiftVertex", "SubsamplingLayer",
-           "ZeroPaddingLayer"]
+           "LSTMLayer", "LastTimeStepLayer", "ListBuilder", "MergeVertex",
+           "MultiLayerConfiguration", "MultiLayerNetwork",
+           "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer",
+           "ScaleVertex", "ShiftVertex", "SimpleRnnLayer",
+           "SubsamplingLayer", "ZeroPaddingLayer"]

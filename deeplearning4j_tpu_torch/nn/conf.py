@@ -5,16 +5,22 @@ builds a ``ComputationGraph`` configuration, ``list()`` a sequential one
 for ``MultiLayerNetwork``. ``l1``, ``l2`` and ``weight_decay`` become the
 configuration's ``regularization`` (both builders), ``gradient_clip`` and
 ``gradient_normalization`` its clipping (the sequential one only, as in
-the JAX package)."""
+the JAX package). ``MultiLayerConfiguration.to_json``/``from_json`` (JAX
+:55-89) write and read the JAX package's JSON, so either package reads
+the other's; a layer class the port has not ported is refused by
+name."""
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import List, Optional, Sequence
 
 from deeplearning4j_tpu_torch.autodiff.training import MixedPrecision
 from deeplearning4j_tpu_torch.learning.regularization import (
     L1Regularization, L2Regularization, Regularization, WeightDecay)
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
+from deeplearning4j_tpu_torch.nn import conv_layers  # noqa: F401
+from deeplearning4j_tpu_torch.nn import recurrent_layers  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers import BaseLayer, InputType
 
 
@@ -34,15 +40,42 @@ class MultiLayerConfiguration:
     gradient_normalization_threshold: float = 1.0
 
     def to_json(self) -> str:
-        raise NotImplementedError(
-            "MultiLayerConfiguration JSON serde is not ported yet (ROADMAP "
-            "queue 1 item 10: model_serde)")
+        return json.dumps({
+            "seed": self.seed,
+            "dtype": self.dtype,
+            "cnn_data_format": self.cnn_data_format,
+            "grad_clip_value": self.grad_clip_value,
+            "mixed_precision": (self.mixed_precision.to_json()
+                                if self.mixed_precision else None),
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "updater": self.updater.to_json(),
+            "regularization": [r.to_json() for r in self.regularization],
+            "input_type": self.input_type.to_json(),
+            "layers": [layer.to_json() for layer in self.layers],
+        }, indent=1)
 
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
-        raise NotImplementedError(
-            "MultiLayerConfiguration JSON serde is not ported yet (ROADMAP "
-            "queue 1 item 10: model_serde)")
+        """A configuration from its JSON; a missing ``cnn_data_format``
+        reads as NCHW (JSON written before the field existed)."""
+        d = json.loads(s)
+        return MultiLayerConfiguration(
+            layers=[BaseLayer.from_json(ld) for ld in d["layers"]],
+            input_type=InputType.from_json(d["input_type"]),
+            seed=d.get("seed", 12345),
+            updater=IUpdater.from_json(d["updater"]),
+            regularization=[Regularization.from_json(r)
+                            for r in d.get("regularization", [])],
+            dtype=d.get("dtype", "float32"),
+            cnn_data_format=d.get("cnn_data_format", "NCHW"),
+            grad_clip_value=d.get("grad_clip_value"),
+            mixed_precision=MixedPrecision.from_json(
+                d.get("mixed_precision")),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0))
 
 
 class ListBuilder:

@@ -8,7 +8,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from deeplearning4j_tpu_torch.nn.layers import BaseLayer, InputType
+from deeplearning4j_tpu_torch.nn.layers import (LAYER_TYPES, BaseLayer,
+                                                InputType)
 from deeplearning4j_tpu_torch.ops.shape_ops import pad
 
 
@@ -35,3 +36,6 @@ class ZeroPaddingLayer(BaseLayer):
 
     def build(self, ctx, itype):
         return ZeroPad2d(self.padding)
+
+
+LAYER_TYPES["ZeroPaddingLayer"] = ZeroPaddingLayer

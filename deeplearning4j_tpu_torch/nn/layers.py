@@ -4,8 +4,10 @@ Counterpart of ``deeplearning4j_tpu/nn/layers.py`` (``InputType`` :35,
 ``BaseLayer`` :123, ``BuildContext`` :162, ``DenseLayer`` :237,
 ``ConvolutionLayer`` :300, ``SubsamplingLayer`` :346,
 ``BatchNormalization`` :378, ``ActivationLayer`` :420,
-``GlobalPoolingLayer`` :486, ``_attach_loss_head`` :527, ``OutputLayer``
-:541). A configuration has two builders:
+``LSTMLayer`` :449, ``GlobalPoolingLayer`` :486, ``_attach_loss_head``
+:527, ``OutputLayer`` :541, the JSON form ``to_json`` :134 /
+``from_json`` :147 and ``LAYER_TYPES`` :586; ``_rnn_initial_states``
+:202 and ``_rnn_carry_states`` :220). A configuration has two builders:
 
 - ``build`` (``ComputationGraph``) draws its parameters from the build
   context's numpy generator in the JAX package's order and returns an
@@ -15,9 +17,16 @@ Counterpart of ``deeplearning4j_tpu/nn/layers.py`` (``InputType`` :35,
   network.
 - ``build_sd`` (``MultiLayerNetwork``) records the JAX ``build`` methods'
   ops into a SameDiff graph under the same variable names
-  (``layer{i}_{kind}_W``, ``_b``, ...), with the same draws. Dense,
-  output, convolution and subsampling layers have one; another layer
-  class in a ``MultiLayerNetwork`` is refused.
+  (``layer{i}_{kind}_W``, ``_b``, ...), with the same draws. Dense (per
+  timestep on rnn input), output, convolution, subsampling, global
+  pooling, LSTM and the recurrent output layers
+  (``nn/recurrent_layers.py``) have one; another layer class in a
+  ``MultiLayerNetwork`` is refused.
+
+Sequences are (batch, time, features), as in the JAX package. In a
+TBPTT graph (``SDBuildContext.tbptt_batch``) a recurrent layer's initial
+states are state variables of shape (tbptt_batch, units), which the
+train step carries from chunk to chunk.
 
 Parameters are stored in the configuration's dtype (float32 masters by
 default). Each module casts them to the dtype of its input, which is the
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +54,9 @@ from deeplearning4j_tpu_torch.ops.reduce import reduce_mean
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class InputType:
-    """ff: (n,); cnn: (c, h, w); rnn: (features, timesteps), taken by no
-    ported layer or vertex yet (ROADMAP queue 1 item 10)."""
+    """ff: (n,); cnn: (c, h, w); rnn: (features, timesteps), fed as
+    (batch, timesteps, features); no ``ComputationGraph`` vertex takes it
+    yet (ROADMAP queue 1 item 10)."""
     kind: str                      # "ff" | "cnn" | "rnn"
     dims: Tuple[int, ...]
 
@@ -64,10 +74,21 @@ class InputType:
 
     @property
     def flat_size(self) -> int:
+        if self.kind == "rnn":
+            raise ValueError(f"cannot flatten {self}")
         return int(np.prod(self.dims))
 
     def placeholder_shape(self) -> Tuple[int, ...]:
+        if self.kind == "rnn":
+            return (-1, self.dims[1], self.dims[0])     # (B, T, C)
         return (-1,) + self.dims
+
+    def to_json(self) -> dict:
+        return {"kind": self.kind, "dims": list(self.dims)}
+
+    @staticmethod
+    def from_json(d) -> "InputType":
+        return InputType(d["kind"], tuple(d["dims"]))
 
 
 def _as_pair(v):
@@ -124,9 +145,16 @@ class SDBuildContext:
     labels_var: object = None       # labels placeholder, for the loss head
     output_var: object = None       # set by the output layer
     cnn_format: str = "NHWC"
+    #: TBPTT: the batch of the recurrent layers' state variables, and
+    #: their names as they are made
+    tbptt_batch: Optional[int] = None
+    rnn_state_vars: list = dataclasses.field(default_factory=list)
 
     def lname(self, kind: str) -> str:
         return f"layer{self.idx}_{kind}"
+
+    def state(self, name: str, value):
+        return self.sd.state_var(name, np.asarray(value), dtype=self.dtype)
 
     def param(self, name: str, shape, scheme: str):
         return self.sd.var(name, value=init_weights(scheme, tuple(shape),
@@ -136,6 +164,33 @@ class SDBuildContext:
     def bias(self, name: str, n: int, value: float):
         return self.sd.var(name, value=np.full((n,), value),
                            dtype=self.dtype)
+
+
+def _rnn_initial_states(ctx: SDBuildContext, lname: str, x, units: int,
+                        names=("h0",)):
+    """A recurrent layer's initial states: zeros made in the graph from the
+    sequence's batch, or in a TBPTT graph zero state variables of
+    (tbptt_batch, units), reset by ``fit_tbptt`` for every minibatch and
+    carried by the train step across its chunks."""
+    outs = []
+    for nm in names:
+        if ctx.tbptt_batch:
+            sv = ctx.state(f"{lname}_{nm}_state",
+                           np.zeros((ctx.tbptt_batch, units)))
+            ctx.rnn_state_vars.append(sv.name)
+            outs.append(sv)
+        else:
+            outs.append(ctx.sd.invoke("rnn_init_state", [x],
+                                      {"units": units}, name=f"{lname}_{nm}"))
+    return outs
+
+
+def _rnn_carry_states(ctx: SDBuildContext, pairs) -> None:
+    """In a TBPTT graph, each (state variable, final state) pair: the state
+    takes the final state after every step."""
+    if ctx.tbptt_batch:
+        for sv, fv in pairs:
+            ctx.sd.update_state(sv, fv)
 
 
 def _sd_activation(sd, x, activation: str, lname: str):
@@ -153,7 +208,34 @@ def _refuse_dropout(layer) -> None:
 
 class BaseLayer:
     """``output_type(itype)``; ``build(ctx, itype) -> nn.Module``;
-    ``build_sd(ctx, x, itype) -> (output variable, output type)``."""
+    ``build_sd(ctx, x, itype) -> (output variable, output type)``;
+    ``to_json``/``from_json``, the JAX package's form: ``{"@class": the
+    class name, field: value, ...}``, tuples as lists."""
+
+    def to_json(self) -> dict:
+        d = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            d[f.name] = list(v) if isinstance(v, tuple) else v
+        return d
+
+    @staticmethod
+    def from_json(d: dict) -> "BaseLayer":
+        """A layer from its JSON form; a JAX layer class the port has not
+        ported is refused by name."""
+        d = dict(d)
+        name = d.pop("@class")
+        cls = LAYER_TYPES.get(name)
+        if cls is None:
+            raise NotImplementedError(
+                f"layer {name!r} is not ported yet (ROADMAP queue 1 item 10: "
+                f"nn/ layers); the port's: {sorted(LAYER_TYPES)}")
+        if hasattr(cls, "_from_json_fields"):
+            return cls._from_json_fields(d)
+        kw = {f.name: tuple(d[f.name]) if isinstance(d[f.name], list)
+              else d[f.name]
+              for f in dataclasses.fields(cls) if f.name in d}
+        return cls(**kw)
 
     def output_type(self, itype: InputType) -> InputType:
         raise NotImplementedError
@@ -169,6 +251,11 @@ class BaseLayer:
 
 
 def _require_ff(layer, itype: InputType) -> None:
+    if itype.kind == "rnn":
+        raise ValueError(
+            f"{type(layer).__name__} wants flat input but got a sequence; "
+            f"use LSTMLayer(return_sequences=False) or GlobalPoolingLayer "
+            f"before it")
     if itype.kind != "ff":
         raise NotImplementedError(
             f"{type(layer).__name__} on {itype.kind} input is not ported "
@@ -203,14 +290,18 @@ class DenseLayer(BaseLayer):
     has_bias: bool = True
 
     def output_type(self, itype):
+        if itype.kind == "rnn":          # per timestep
+            return InputType.recurrent(self.n_out, itype.dims[1])
         return InputType.feed_forward(self.n_out)
 
     def build_sd(self, ctx, x, itype):
+        """On rnn input the product broadcasts over (batch, time)."""
         _refuse_dropout(self)
-        _require_ff(self, itype)
+        if itype.kind != "rnn":
+            _require_ff(self, itype)
         lname = ctx.lname("dense")
-        w = ctx.param(f"{lname}_W", (itype.flat_size, self.n_out),
-                      self.weight_init)
+        n_in = itype.dims[0] if itype.kind == "rnn" else itype.flat_size
+        w = ctx.param(f"{lname}_W", (n_in, self.n_out), self.weight_init)
         z = x.mmul(w, name=f"{lname}_mm")
         if self.has_bias:
             z = z.add(ctx.bias(f"{lname}_b", self.n_out, self.bias_init),
@@ -374,6 +465,7 @@ class SubsamplingLayer(BaseLayer):
     kernel_size: Tuple[int, int] = (2, 2)
     stride: Optional[Tuple[int, int]] = None
     convolution_mode: str = "VALID"
+    pnorm: int = 2          # PNORM pooling's p (refused yet; JSON field)
 
     def output_type(self, itype):
         c, h, w = itype.dims
@@ -501,17 +593,83 @@ class GlobalAvgPool(nn.Module):
 
 @dataclasses.dataclass
 class GlobalPoolingLayer(BaseLayer):
+    """AVG, MAX or SUM over the spatial axes of cnn input or the time axis
+    of rnn input (``MultiLayerNetwork``); a ``ComputationGraph`` takes AVG
+    over cnn input."""
     pooling_type: str = "AVG"
 
     def output_type(self, itype):
-        if itype.kind != "cnn":
-            raise ValueError("GlobalPoolingLayer needs cnn input")
+        if itype.kind not in ("cnn", "rnn"):
+            raise ValueError("GlobalPoolingLayer needs cnn or rnn input")
         return InputType.feed_forward(itype.dims[0])
 
-    def build(self, ctx, itype):
+    def build_sd(self, ctx, x, itype):
         self.output_type(itype)
+        op = {"AVG": "reduce_mean", "MAX": "reduce_max",
+              "SUM": "reduce_sum"}.get(self.pooling_type.upper())
+        if op is None:
+            raise NotImplementedError(
+                f"global pooling {self.pooling_type!r} is not ported yet "
+                f"(AVG, MAX, SUM; ROADMAP queue 1 item 1.2)")
+        if itype.kind == "rnn":
+            axis = (1,)
+        else:
+            axis = (1, 2) if ctx.cnn_format == "NHWC" else (2, 3)
+        out = ctx.sd.invoke(op, [x], {"axis": axis}, name=ctx.lname("gpool"))
+        return out, self.output_type(itype)
+
+    def build(self, ctx, itype):
+        if itype.kind != "cnn":
+            raise ValueError("GlobalPoolingLayer in a ComputationGraph needs "
+                             "cnn input")
         if self.pooling_type.upper() != "AVG":
             raise NotImplementedError(
                 f"global pooling {self.pooling_type!r} is not ported yet "
                 f"(AVG; ROADMAP queue 1 item 1.2)")
         return GlobalAvgPool()
+
+
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class LSTMLayer(BaseLayer):
+    """LSTM over (B, T, C) sequences (JAX ``nn/layers.py:449-483``): the
+    ``lstm_layer`` op, gate order ``[i, f, g, o]``. Parameters
+    ``{lname}_Wih`` (in, 4u) and ``{lname}_Whh`` (u, 4u) are drawn in that
+    order; ``{lname}_b`` is zero but for the forget gate's slice, set to
+    ``forget_gate_bias_init``. Dropout is refused (ROADMAP queue 1 item 5:
+    random ops)."""
+    n_out: int = 0
+    weight_init: str = "XAVIER"
+    forget_gate_bias_init: float = 1.0
+    return_sequences: bool = True
+    dropout: float = 0.0
+
+    def output_type(self, itype):
+        if self.return_sequences:
+            return InputType.recurrent(self.n_out, itype.dims[1])
+        return InputType.feed_forward(self.n_out)
+
+    def build_sd(self, ctx, x, itype):
+        _refuse_dropout(self)
+        lname = ctx.lname("lstm")
+        n_in, u = itype.dims[0], self.n_out
+        w_ih = ctx.param(f"{lname}_Wih", (n_in, 4 * u), self.weight_init)
+        w_hh = ctx.param(f"{lname}_Whh", (u, 4 * u), self.weight_init)
+        b0 = np.zeros((4 * u,))
+        b0[u:2 * u] = self.forget_gate_bias_init
+        b = ctx.sd.var(f"{lname}_b", value=b0, dtype=ctx.dtype)
+        h0, c0 = _rnn_initial_states(ctx, lname, x, u, ("h0", "c0"))
+        out, h_t, c_t = ctx.sd.invoke(
+            "lstm_layer", [x, h0, c0, w_ih, w_hh, b],
+            {"time_major": False, "return_sequences": self.return_sequences},
+            name=lname, n_outputs=3)
+        _rnn_carry_states(ctx, [(h0, h_t), (c0, c_t)])
+        return (out if self.return_sequences else h_t,
+                self.output_type(itype))
+
+
+#: the JSON ``@class`` names the port reads (``BaseLayer.from_json``);
+#: ``nn/conv_layers.py`` and ``nn/recurrent_layers.py`` add theirs
+LAYER_TYPES: Dict[str, type] = {c.__name__: c for c in [
+    DenseLayer, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
+    ActivationLayer, LSTMLayer, GlobalPoolingLayer, OutputLayer]}

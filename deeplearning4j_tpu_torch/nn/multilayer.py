@@ -1,9 +1,10 @@
 """MultiLayerNetwork: a sequential network compiled to the port's SameDiff.
 
-Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (``_adapt_itype``
-:63, ``_type_walk``, ``_to_internal_layout`` :123, ``_build_graph`` :141,
-``MultiLayerNetwork`` :181 with ``fit`` :217, ``output`` :430, ``params``
-:470; ``_ArrayIterator`` :528). As there, the configuration is recorded
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (``_WANTED_KIND``
+:32, ``_adapt_itype`` :63, ``_type_walk``, ``_to_internal_layout`` :123,
+``_build_graph`` :141, ``MultiLayerNetwork`` :181 with ``fit`` :217,
+``fit_tbptt`` :243-413, ``output`` :430, ``evaluate`` :446-468, ``params``
+:470, ``save``/``load`` :512-528; ``_ArrayIterator`` :528). As there, the configuration is recorded
 into two SameDiff graphs from one seed, with the same parameter names and
 initial values: a training graph and an inference graph, which hold the
 same parameter tensors (no layer of this slice differs between the
@@ -29,26 +30,41 @@ its gradient accumulation and divergence sentinel;
 ``checkpoint/state.py`` on the training graph (a restore copies into its
 tensors, which the inference graph shares).
 
-Not ported yet, each refused by name: ``fit_tbptt``, ``save``/``load``
-and ``evaluate``.
+Sequences are (batch, time, features). ``fit`` on them is full BPTT on
+the fit tiers. ``fit_tbptt`` builds, once a batch size, a TBPTT graph
+whose recurrent layers keep their states in state variables, shares the
+training graph's parameter tensors with it (so the trained weights are
+the inference graph's too) and runs the TBPTT tier
+(``autodiff/window.py`` ``fit_tbptt``); as in the JAX package that graph
+keeps its own updater state and iteration. ``evaluate`` streams
+``output`` into an ``Evaluation`` (or the given evaluation);
+``save``/``load`` are the JAX ModelSerializer zip (``nn/model_serde.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig, window
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import (BaseLayer, ConvolutionLayer,
                                                 DenseLayer, InputType,
-                                                OutputLayer, SDBuildContext,
+                                                LSTMLayer, OutputLayer,
+                                                SDBuildContext,
                                                 SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.recurrent_layers import (LastTimeStepLayer,
+                                                          RnnOutputLayer)
 
-_WANTED_KIND = {DenseLayer: ("ff",), OutputLayer: ("ff",),
-                ConvolutionLayer: ("cnn",), SubsamplingLayer: ("cnn",)}
+#: the input kinds each layer takes, the first the one a preprocessor
+#: converts to (a DenseLayer on rnn input runs per timestep)
+_WANTED_KIND = {DenseLayer: ("ff", "rnn"), OutputLayer: ("ff",),
+                ConvolutionLayer: ("cnn",), SubsamplingLayer: ("cnn",),
+                LSTMLayer: ("rnn",), RnnOutputLayer: ("rnn",),
+                LastTimeStepLayer: ("rnn",)}
 
 
 def _not_ported(what: str, item: str, owner: str = "MultiLayerNetwork"):
@@ -59,12 +75,18 @@ def _not_ported(what: str, item: str, owner: str = "MultiLayerNetwork"):
 def _adapt_itype(itype: InputType, layer: BaseLayer, idx: int) -> InputType:
     """How an input type adapts to a layer's wanted kind: a cnn input
     flattens before a layer that wants ff (the reference's
-    CnnToFeedForwardPreProcessor); the only rule this slice needs."""
+    CnnToFeedForwardPreProcessor); a sequence before one is refused, as
+    in the JAX package."""
     accepted = _WANTED_KIND.get(type(layer))
     if accepted is None or itype.kind in accepted:
         return itype
     if itype.kind == "cnn" and accepted[0] == "ff":
         return InputType.feed_forward(itype.flat_size)
+    if itype.kind == "rnn" and accepted[0] == "ff":
+        raise ValueError(
+            f"layer {idx} ({type(layer).__name__}) wants flat input but got "
+            f"a sequence; use LSTMLayer(return_sequences=False) or "
+            f"GlobalPoolingLayer before it")
     raise ValueError(f"no preprocessor from {itype.kind} to {accepted[0]} "
                      f"(layer {idx}, {type(layer).__name__})")
 
@@ -86,11 +108,16 @@ def _to_internal_layout(sd, x, itype: InputType, fmt: str, name: str):
     return sd.invoke("permute", [x], {"axes": (0, 2, 3, 1)}, name=name)
 
 
-def _build_graph(conf: MultiLayerConfiguration, device: torch.device):
+def _build_graph(conf: MultiLayerConfiguration, device: torch.device,
+                 tbptt_batch: Optional[int] = None):
+    """``(graph, build context)`` of ``conf``; with ``tbptt_batch``, the
+    TBPTT graph, whose recurrent states are state variables (the
+    context's ``rnn_state_vars``)."""
     sd = SameDiff(device=device)
     fmt = conf.cnn_data_format
     ctx = SDBuildContext(sd=sd, rng=np.random.default_rng(conf.seed),
-                         dtype=conf.dtype, cnn_format=fmt)
+                         dtype=conf.dtype, cnn_format=fmt,
+                         tbptt_batch=tbptt_batch)
     x = sd.placeholder("input", shape=conf.input_type.placeholder_shape(),
                        dtype=conf.dtype)
     final = conf.input_type
@@ -115,7 +142,7 @@ def _build_graph(conf: MultiLayerConfiguration, device: torch.device):
             "a MultiLayerNetwork whose output is convolutional is not "
             "ported yet (ROADMAP queue 1 item 10: nn/ layers)")
     ctx.output_var.rename("output")
-    return sd
+    return sd, ctx
 
 
 class MultiLayerNetwork:
@@ -124,16 +151,23 @@ class MultiLayerNetwork:
         self._sd_train: Optional[SameDiff] = None
         self._sd_infer: Optional[SameDiff] = None
         self._score = float("nan")
+        #: batch size -> (TBPTT graph, its recurrent state variables)
+        self._tbptt_graphs: Dict[int, Tuple[SameDiff, List[str]]] = {}
 
     def init(self, device: DeviceLike = None) -> "MultiLayerNetwork":
         """Build both graphs on ``device`` (the CUDA card unless
         ``device="cpu"``)."""
         dev = default_device(device)
-        self._sd_train = _build_graph(self.conf, dev)
-        self._sd_infer = _build_graph(self.conf, dev)
+        self._sd_train, _ = _build_graph(self.conf, dev)
+        self._sd_infer, _ = _build_graph(self.conf, dev)
         self._sync_infer()
+        self._sd_train.training_config = self._training_config()
+        self._tbptt_graphs = {}
+        return self
+
+    def _training_config(self) -> TrainingConfig:
         c = self.conf
-        self._sd_train.training_config = TrainingConfig(
+        return TrainingConfig(
             updater=c.updater, data_set_feature_mapping=["input"],
             data_set_label_mapping=["labels"],
             regularization=c.regularization,
@@ -142,7 +176,6 @@ class MultiLayerNetwork:
             gradient_normalization=c.gradient_normalization,
             gradient_normalization_threshold=(
                 c.gradient_normalization_threshold))
-        return self
 
     def _require_init(self):
         if self._sd_train is None:
@@ -180,12 +213,116 @@ class MultiLayerNetwork:
         if sentinel is not None:
             tc.sentinel = bool(sentinel)
         if labels is not None:
-            data = _ArrayIterator(np.asarray(data), np.asarray(labels),
-                                  batch_size)
+            data = _ArrayIterator(_host_or_tensor(data),
+                                  _host_or_tensor(labels), batch_size)
         history = self._sd_train.fit(data, epochs=epochs,
                                      listeners=listeners)
         self._score = history.final_loss()
         return history
+
+    def fit_tbptt(self, features, labels, tbptt_length: int,
+                  epochs: int = 1, batch_size: int = 32):
+        """Truncated backprop through time (JAX ``fit_tbptt``; reference
+        MultiLayerNetwork.doTruncatedBPTT): ``features`` (B, T, C) and
+        ``labels`` (B, T, C_out), numpy arrays or tensors, cut into chunks
+        of ``tbptt_length`` timesteps. The recurrent states start at zero
+        for every minibatch of ``batch_size`` sequences and are carried
+        from chunk to chunk, detached (the truncation); ``tbptt_length >=
+        T`` is full BPTT. A minibatch's full chunks are one fit window
+        (one CUDA graph replay on the card), a ragged tail one eager step;
+        the iteration advances a chunk. Sequences that do not fill a last
+        batch are dropped, with a warning. Returns a ``History`` (epoch
+        means, each chunk's loss; one fetch for the fit)."""
+        self._require_init()
+        if features.ndim != 3 or labels.ndim != 3:
+            raise ValueError("fit_tbptt needs sequence features (B, T, C) "
+                             "and per-timestep labels (B, T, C_out)")
+        t_len = features.shape[1]
+        if labels.shape[1] != t_len:
+            raise ValueError(f"labels T={labels.shape[1]} != features "
+                             f"T={t_len}")
+        n = (len(features) // batch_size) * batch_size
+        if n == 0:
+            raise ValueError("dataset smaller than one batch")
+        if n < len(features):
+            warnings.warn(
+                f"fit_tbptt: dropping {len(features) - n} of "
+                f"{len(features)} sequences that do not fill a full batch "
+                f"of {batch_size} (TBPTT state vars have a fixed batch "
+                f"dimension)")
+        sd, states = self._tbptt_graph(batch_size)
+        sd.training_config.sentinel = bool(
+            self._sd_train.training_config.sentinel)
+        history = window.fit_tbptt(sd, features, labels, tbptt_length,
+                                   batch_size, epochs, states)
+        with torch.no_grad():      # non-recurrent state (e.g. statistics)
+            for sn, arr in sd.state_vars_map().items():
+                if sn not in states and sn in self._sd_train._arrays:
+                    self._sd_train._arrays[sn].copy_(arr)
+        self._score = history.final_loss()
+        return history
+
+    def _tbptt_graph(self, batch_size: int):
+        """The TBPTT graph for ``batch_size`` (built once), holding the
+        training graph's current parameter tensors."""
+        if batch_size not in self._tbptt_graphs:
+            sd, ctx = _build_graph(self.conf, self.device, batch_size)
+            sd.training_config = self._training_config()
+            self._tbptt_graphs[batch_size] = (sd, list(ctx.rnn_state_vars))
+        sd, states = self._tbptt_graphs[batch_size]
+        moved = False
+        for n, arr in self._sd_train._arrays.items():
+            cur = sd._arrays.get(n)
+            if cur is not None and cur is not arr and cur.shape == arr.shape:
+                sd._arrays[n] = arr
+                moved = True
+        if moved:
+            sd._changed()
+        return sd, states
+
+    def evaluate(self, data, labels=None, evaluation=None,
+                 batch_size: int = 256):
+        """Stream ``output`` over an iterator of (features, labels) or
+        arrays into ``evaluation`` (default a new ``Evaluation``) and
+        return it (JAX ``evaluate``; reference
+        MultiLayerNetwork.evaluate(DataSetIterator)). ``Evaluation`` takes
+        (N, C) outputs only, as the JAX one: a sequence model's (B, T, C)
+        output raises there."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+        ev = evaluation or Evaluation()
+        if labels is not None:
+            data = _ArrayIterator(_host_or_tensor(data),
+                                  _host_or_tensor(labels), batch_size)
+        if hasattr(data, "reset"):
+            data.reset()
+        for batch in data:
+            if isinstance(batch, dict):
+                feats, labs = batch["input"], batch["labels"]
+            elif hasattr(batch, "features"):
+                feats, labs = batch.features, batch.labels
+            else:
+                feats, labs = batch
+            ev.eval(labs, self.output(feats))
+        return ev
+
+    def save(self, path, include_updater_state: bool = True) -> None:
+        """The ModelSerializer zip (``nn/model_serde.py``) of the training
+        graph: configuration JSON, parameters, updater state, iteration."""
+        from deeplearning4j_tpu_torch.nn.model_serde import save_net_zip
+        self._require_init()
+        save_net_zip(path, self.conf.to_json(), self._sd_train,
+                     include_updater_state)
+
+    @staticmethod
+    def load(path, device: DeviceLike = None) -> "MultiLayerNetwork":
+        """A network from a zip either package wrote, on ``device`` (the
+        CUDA card unless ``device="cpu"``)."""
+        from deeplearning4j_tpu_torch.nn.model_serde import (
+            read_net_zip, restore_net_state)
+        conf_json, arrays, leaves, iteration = read_net_zip(path)
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(conf_json)).init(device)
+        return restore_net_state(net, arrays, leaves, iteration)
 
     def _sync_infer(self):
         """The inference graph holds the training graph's tensors."""
@@ -203,7 +340,7 @@ class MultiLayerNetwork:
         outputs change only when the server calls it
         (``ParallelInference.update_model``)."""
         self._require_init()
-        serve = _build_graph(self.conf, self.device)
+        serve, _ = _build_graph(self.conf, self.device)
 
         def sync():
             with torch.no_grad():
@@ -229,10 +366,13 @@ class MultiLayerNetwork:
         return self._score
 
     def params(self) -> Dict[str, np.ndarray]:
-        """Copies of the parameters under the JAX names and layouts."""
+        """Copies of the parameters and state variables under the JAX
+        names and layouts."""
         self._require_init()
+        sd = self._sd_train
         return {n: np.array(a.detach().cpu().numpy(), copy=True)
-                for n, a in self._sd_train.trainable_params().items()}
+                for n, a in {**sd.trainable_params(),
+                             **sd.state_vars_map()}.items()}
 
     def set_param(self, name: str, value) -> None:
         self._require_init()
@@ -251,20 +391,6 @@ class MultiLayerNetwork:
                          f"{itype.dims} -> {otype.dims}")
         return "\n".join(lines)
 
-    # -- not ported yet ---------------------------------------------------
-    def fit_tbptt(self, *a, **k):
-        _not_ported("fit_tbptt", "10: recurrent layers")
-
-    def evaluate(self, *a, **k):
-        _not_ported("evaluate", "10: evaluation/")
-
-    def save(self, *a, **k):
-        _not_ported("save", "10: model_serde")
-
-    @staticmethod
-    def load(*a, **k):
-        _not_ported("load", "10: model_serde")
-
     # -- checkpointing (checkpoint/) --------------------------------------
     def capture_training_state(self, epoch: int = 0, normalizer=None):
         """A host snapshot for the checkpoint manager
@@ -277,6 +403,12 @@ class MultiLayerNetwork:
         """Copy a ``TrainingState`` into this initialized network."""
         from deeplearning4j_tpu_torch.checkpoint import restore_training_state
         return restore_training_state(self, state, strict=strict)
+
+
+def _host_or_tensor(a):
+    """A tensor as it is (on its device); anything else as a numpy
+    array."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 class _ArrayIterator:

@@ -6,7 +6,9 @@ Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
 ``max_pool2d`` :219, ``avg_pool2d`` :227, ``batchnorm`` :302,
 ``batchnorm_train`` :323, ``layer_norm`` :365, ``embedding_lookup`` :417,
 ``bias_add`` :424 with its ``data_format``,
-``scaled_dot_product_attention`` :462).
+``scaled_dot_product_attention`` :462; the recurrent ops ``lstm_cell``
+:520, ``lstm_layer`` :539 and ``rnn_init_state`` :560, whose cell runs in
+the kernels of ``kernels/lstm.py``).
 Tensors are logically NCHW, as PyTorch's convolutions take them, in any
 memory format (the network body runs ``torch.channels_last``, so a
 channel is the fastest axis, as in the JAX package's NHWC body).
@@ -28,7 +30,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.kernels import attention
+from deeplearning4j_tpu_torch.kernels import attention, lstm
 from deeplearning4j_tpu_torch.kernels.bn_relu import BatchNormTrain
 from deeplearning4j_tpu_torch.ops.dtypes import promote
 from deeplearning4j_tpu_torch.ops.registry import op
@@ -212,3 +214,38 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
     q, k, v = promote(q, k, v)
     return attention.scaled_dot_product_attention(q, k, v, mask, causal,
                                                   scale)
+
+
+# ----------------------------------------------------------------------
+# recurrent ops (the JAX ``lstm_cell`` :520, ``lstm_layer`` :539 and
+# ``rnn_init_state`` :560)
+@op("lstm_layer", _N, aliases=("lstmLayer",))
+def lstm_layer(x, h0, c0, w_ih, w_hh, b, time_major: bool = False,
+               return_sequences: bool = True):
+    """An LSTM over a sequence, gate order ``[i, f, g, o]``: ``(out, hT,
+    cT)``, ``out`` the hidden states of every timestep (``(B, T, U)``, or
+    ``(T, B, U)`` with ``time_major``) or, without ``return_sequences``,
+    ``hT``. x: (B, T, in), h0/c0: (B, U), w_ih: (in, 4U), w_hh: (U, 4U),
+    b: (4U,). The recurrence is ``kernels/lstm.py``'s ``LSTMSequence``."""
+    x, h0, c0, w_ih, w_hh, b = promote(x, h0, c0, w_ih, w_hh, b)
+    hs, h_t, c_t = lstm.lstm_sequence(x.transpose(0, 1) if time_major
+                                      else x, h0, c0, w_ih, w_hh, b)
+    if not return_sequences:
+        return h_t, h_t, c_t
+    return (hs.transpose(0, 1) if time_major else hs), h_t, c_t
+
+
+@op("lstm_cell", _N)
+def lstm_cell(x, h_prev, c_prev, w_ih, w_hh, b):
+    """One LSTM step: ``(h, c)``. x: (B, in), h/c: (B, U), w_ih: (in,
+    4U), w_hh: (U, 4U), b: (4U,): the sequence op over one timestep."""
+    _, h, c = lstm_layer(x.unsqueeze(1), h_prev, c_prev, w_ih, w_hh, b)
+    return h, c
+
+
+@op("rnn_init_state", _N, n_inputs=1)
+def rnn_init_state(x, units: int, time_major: bool = False):
+    """Zero initial state (batch, units) in x's dtype, the batch taken
+    from the sequence input (axis 1 with ``time_major``)."""
+    return torch.zeros((x.shape[1] if time_major else x.shape[0], units),
+                       dtype=x.dtype, device=x.device)

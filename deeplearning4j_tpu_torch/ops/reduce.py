@@ -1,5 +1,6 @@
 """Reductions (counterpart of ``deeplearning4j_tpu/ops/reduce.py``:
-``reduce_sum`` :33, ``reduce_mean`` :34 and ``argmax`` :78, with their
+``reduce_sum`` :33, ``reduce_mean`` :34, ``reduce_max`` :36 and ``argmax``
+:78, with their
 aliases). ``axis=None`` (or an empty list) reduces every axis;
 ``keep_dims`` keeps the reduced axes as length 1. Result dtypes are the
 JAX ops' (``ops/dtypes.py``'s defaults): the mean of integers is a float,
@@ -38,6 +39,14 @@ def reduce_sum(x, axis=None, keep_dims: bool = False):
     dt = None if x.is_floating_point() or x.dtype == torch.int64 \
         else DEFAULT_INT
     return _reduce(torch.Tensor.sum, x, axis, keep_dims, dtype=dt)
+
+
+@op("reduce_max", _R, n_inputs=1, aliases=("amax_reduce",))
+def reduce_max(x, axis=None, keep_dims: bool = False):
+    if isinstance(axis, int):
+        axis = (axis,)
+    dims = tuple(int(a) for a in axis or ()) or tuple(range(x.dim()))
+    return torch.amax(x, dim=dims, keepdim=keep_dims) if dims else x
 
 
 @op("argmax", _R, n_inputs=1, aliases=("imax",))

@@ -1,6 +1,6 @@
 """Shape ops (counterpart of ``deeplearning4j_tpu/ops/shape_ops.py``:
 ``reshape`` :22, ``permute`` :27, ``concat`` :55, ``stack`` :60, ``split``
-:70, ``pad`` :111, ``slice`` :124, ``gather`` :139, ``where_op`` :260,
+:70, ``pad`` :111, ``slice`` :124, ``strided_slice`` :132, ``gather`` :139, ``where_op`` :260,
 ``one_hot`` :275). They return views where torch allows.
 
 ``gather`` and ``one_hot`` keep the JAX ops' answers for any index, with no
@@ -63,6 +63,14 @@ def slice_(x, begin, size):
     idx = tuple(slice(b, x.shape[i] if s == -1 else b + s)
                 for i, (b, s) in enumerate(zip(begin, size)))
     return x[idx]
+
+
+@op("strided_slice", _S, n_inputs=1)
+def strided_slice(x, begin, end, strides=None):
+    """``x[b0:e0:s0, b1:e1:s1, ...]`` (Python slice rules: ends past the
+    axis clamp)."""
+    return x[tuple(slice(b, e, s) for b, e, s in zip(
+        begin, end, strides or [1] * len(begin)))]
 
 
 @op("concat", _S)

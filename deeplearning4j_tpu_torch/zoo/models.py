@@ -1,8 +1,9 @@
 """Zoo models (counterpart of ``deeplearning4j_tpu/zoo/models.py``).
 
-``LeNet`` (:34) and ``ResNet50`` (:196) make the same DSL calls as the JAX
-package's, so each graph is node for node the JAX one, with the same
-parameter names and the same initial weights from the same seed.
+``LeNet`` (:34), ``ResNet50`` (:196) and ``TextGenLSTM`` (:323) make the
+same DSL calls as the JAX package's, so each graph is node for node the
+JAX one, with the same parameter names and the same initial weights from
+the same seed.
 """
 from __future__ import annotations
 
@@ -13,9 +14,9 @@ from deeplearning4j_tpu_torch.learning.updaters import (Adam, IUpdater,
                                                         Nesterovs)
 from deeplearning4j_tpu_torch.nn import (
     ActivationLayer, BatchNormalization, ComputationGraph, ConvolutionLayer,
-    DenseLayer, ElementWiseVertex, GlobalPoolingLayer, InputType,
-    MultiLayerNetwork, NeuralNetConfiguration, OutputLayer, SubsamplingLayer,
-    ZeroPaddingLayer)
+    DenseLayer, ElementWiseVertex, GlobalPoolingLayer, InputType, LSTMLayer,
+    MultiLayerNetwork, NeuralNetConfiguration, OutputLayer, RnnOutputLayer,
+    SubsamplingLayer, ZeroPaddingLayer)
 
 
 @dataclasses.dataclass
@@ -185,3 +186,33 @@ class ResNet50:
         """The initialized network on ``device`` (the CUDA card unless
         ``device="cpu"``)."""
         return ComputationGraph(self.conf()).init(device)
+
+
+@dataclasses.dataclass
+class TextGenLSTM:
+    """Character-level text-generation LSTM (reference:
+    zoo/model/TextGenerationLSTM.java): two stacked LSTMs and a softmax
+    head a timestep over ``vocab_size`` characters; Adam(1e-3)."""
+    vocab_size: int = 77
+    timesteps: int = 40
+    units: int = 256
+    seed: int = 12345
+    updater: IUpdater = None
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(learning_rate=1e-3))
+                .list()
+                .layer(LSTMLayer(n_out=self.units))
+                .layer(LSTMLayer(n_out=self.units))
+                .layer(RnnOutputLayer(n_out=self.vocab_size,
+                                      loss_function="MCXENT"))
+                .set_input_type(InputType.recurrent(self.vocab_size,
+                                                    self.timesteps))
+                .build())
+
+    def build(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        """The initialized network on ``device`` (the CUDA card unless
+        ``device="cpu"``)."""
+        return MultiLayerNetwork(self.conf()).init(device)

@@ -1598,3 +1598,72 @@ def test_a_checkpoint_capture_is_a_copy_on_card(card):
         assert np.array_equal(net.params()[k], v), k
     assert all(np.array_equal(a, b) for a, b in zip(
         capture_training_state(net).updater_leaves, leaves))
+
+
+# ----------------------------------------------------------------------
+# the LSTM cell kernels (csrc/lstm_cell.cu) and TextGenLSTM's TBPTT tier
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,u", [(3, 5), (32, 256)])
+def test_lstm_cell_kernels_match_plain_on_card(card, b, u, dtype):
+    from deeplearning4j_tpu_torch.kernels import lstm
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    g = torch.Generator().manual_seed(b + u)
+    z = 2 * torch.randn(b, 4 * u, generator=g, dtype=dtype)
+    cp, dh_up, dh_n, dc_n = (torch.randn(b, u, generator=g, dtype=dtype)
+                             for _ in range(4))
+    gates, h, c = lstm.lstm_cell_fwd_plain(z, cp)
+    zc, hc, cc = z.to(card), torch.empty(b, u, dtype=dtype, device=card), \
+        torch.empty(b, u, dtype=dtype, device=card)
+    before = dict(lstm.LAUNCHES)
+    lstm.lstm_cell_fwd(zc, cp.to(card), hc, cc)
+    for got, want in ((zc, gates), (hc, h), (cc, c)):
+        _close(got, want, tol)
+    dz, dcp = lstm.lstm_cell_bwd_plain(gates, cp, c, dh_up, dh_n, dc_n)
+    dzc, dcc = torch.empty_like(zc), dc_n.to(card)
+    lstm.lstm_cell_bwd(gates.to(card), cp.to(card), c.to(card),
+                       dh_up.to(card), None, dcc, dzc, dcc)
+    want = lstm.lstm_cell_bwd_plain(gates, cp, c, dh_up, None, dc_n)
+    _close(dzc, want[0], tol)
+    _close(dcc, want[1], tol)
+    assert {k: lstm.LAUNCHES[k] - before[k] for k in before} == \
+        {"lstm_cell_fwd": 1, "lstm_cell_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_lstm_layer_float64_on_card_matches_cpu(card):
+    from deeplearning4j_tpu_torch.ops import registry
+    g = torch.Generator().manual_seed(1)
+    shapes = ((4, 7, 5), (4, 6), (4, 6), (5, 24), (6, 24), (24,))
+    ts = [torch.randn(*s, generator=g, dtype=torch.float64) for s in shapes]
+    res = {}
+    for d in ("cpu", card):
+        xs = [t.to(d).requires_grad_(True) for t in ts]
+        o = registry.get_op("lstm_layer").fn(*xs)
+        loss = (o[0] ** 2).sum() + o[1].sum() + (o[2] ** 3).sum()
+        res[str(d)] = [t.detach().cpu() for t in
+                       list(o) + list(torch.autograd.grad(loss, xs))]
+    for a, b in zip(res["cpu"], res[str(card)]):
+        _close(b, a, 1e-12)
+
+
+@pytest.mark.cuda
+def test_fit_tbptt_captures_one_window_and_counts_its_launches_on_card(card):
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.zoo import TextGenLSTM
+    net = TextGenLSTM(vocab_size=12, units=16, seed=0).build()
+    rng = np.random.default_rng(0)
+    eye = np.eye(12, dtype=np.float32)
+    x = torch.tensor(eye[rng.integers(0, 12, (8, 20))], device=card)
+    y = torch.tensor(eye[rng.integers(0, 12, (8, 20))], device=card)
+    before = dict(lstm.LAUNCHES)
+    h = net.fit_tbptt(x, y, 5, epochs=2, batch_size=4)
+    sd, _ = net._tbptt_graphs[4]
+    st = sd.last_fit_stats
+    assert st["window_captures_by_epoch"] == [1, 0]
+    assert st["graph_replays_per_epoch"] == 2
+    # 2 epochs x 2 minibatches x 4 chunks, and the capture's 2 warm-up
+    # steps: 2 layers x 5 timesteps a chunk
+    for k in before:
+        assert lstm.LAUNCHES[k] - before[k] == (16 + 2) * 10
+    assert np.isfinite(h.step_losses).all()

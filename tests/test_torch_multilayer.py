@@ -39,6 +39,8 @@ from deeplearning4j_tpu_torch.nn import (BatchNormalization,
                                          MultiLayerNetwork,
                                          NeuralNetConfiguration, OutputLayer,
                                          SubsamplingLayer)
+from deeplearning4j_tpu_torch.evaluation import EvaluationBinary
+from deeplearning4j_tpu_torch.nn import LSTMLayer, SimpleRnnLayer
 from deeplearning4j_tpu_torch.ops import registry as preg
 from deeplearning4j_tpu_torch.zoo import LeNet
 
@@ -270,15 +272,16 @@ def test_mnist_arrays_are_the_jax_packages(monkeypatch, tmp_path):
 def test_what_is_not_ported_is_refused_by_name():
     net = MultiLayerNetwork(_dense_conf("port")).init(device="cpu")
     x, y = _data("dense", 8, 0)
-    for call, item in ((lambda: net.fit_tbptt(x, y, 4), "10"),
-                       (lambda: net.save("net.zip"), "10"),
-                       (lambda: MultiLayerNetwork.load("net.zip"), "10"),
-                       (lambda: net.evaluate(x, y), "10"),
-                       (lambda: net.capture_training_state(
+    bad_json = net.conf.to_json().replace('"DenseLayer"',
+                                          '"EmbeddingLayer"', 1)
+    for call, item in ((lambda: net.capture_training_state(
                            normalizer=object()), "7"),
-                       (lambda: net.conf.to_json(), "10"),
-                       (lambda: MultiLayerConfiguration.from_json("{}"),
-                        "10")):
+                       (lambda: MultiLayerConfiguration.from_json(bad_json),
+                        "10"),
+                       (lambda: EvaluationBinary(), "10"),
+                       (lambda: SimpleRnnLayer(n_out=4), "10"),
+                       (lambda: LSTMLayer(n_out=4, dropout=0.5).build_sd(
+                           None, None, None), "5")):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             call()
     for layers in ([DenseLayer(n_out=4, dropout=0.5)],
