@@ -38,9 +38,10 @@
 //   tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi, summed in float32
 //   on mma.sync.m16n8k8 tf32: about 2^-21 of each product's size, against
 //   a 1e-5 gate on the sum of the absolute terms. The split is integer and
-//   float ops (see split()), not cvt.rna.tf32, which runs on the slower
-//   conversion unit. The scores' small terms go to an accumulator of their
-//   own (more independent mma chains, not rounded against the large).
+//   float ops (sm90.cuh's tf32_split()), not cvt.rna.tf32, which runs on
+//   the slower conversion unit. The scores' small terms go to an
+//   accumulator of their own (more independent mma chains, not rounded
+//   against the large).
 // - A block of 4 warps takes 64 query rows (16 a warp, the mma's M) in
 //   shared memory, and walks K and V tiles of BN keys (64; 32 at head dim
 //   128, so that two blocks fit an SM) through a ring of two stages filled
@@ -162,37 +163,12 @@ struct F32Args {
   int ncmax;          // work items a tile at most
 };
 
-// x = hi + lo: hi is x rounded to tf32's 10 mantissa bits (to nearest,
-// ties away from 0, by an integer add and mask); lo = x - hi exactly, handed
-// over as its float32 bits, of which the tensor core reads tf32's
-// (truncation), so that hi + lo carries x to about 2^-21.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 // 2^x by the SFU; a result below 2^-126 flushes to 0 (against a row sum of
 // at least 1)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a.b in 3xTF32: the small terms first
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     const uint32_t bh[2], const uint32_t bl[2]) {
-  mma(c, al, bh);
-  mma(c, ah, bl);
-  mma(c, ah, bh);
 }
 
 // 16 bytes global -> shared; src_bytes 0 reads nothing and writes zeros
@@ -369,20 +345,20 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
         const float2 x0 = *reinterpret_cast<const float2*>(qa + kk * 8);
         const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * C::LQK + kk * 8);
         uint32_t ah[4], al[4];
-        split(x0.x, ah[0], al[0]);
-        split(x1.x, ah[1], al[1]);
-        split(x0.y, ah[2], al[2]);
-        split(x1.y, ah[3], al[3]);
+        tf32_split(x0.x, ah[0], al[0]);
+        tf32_split(x1.x, ah[1], al[1]);
+        tf32_split(x0.y, ah[2], al[2]);
+        tf32_split(x1.y, ah[3], al[3]);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const float2 y =
               *reinterpret_cast<const float2*>(sk + (n * 8 + g) * C::LQK + kk * 8 + 2 * t);
           uint32_t bh_[2], bl_[2];
-          split(y.x, bh_[0], bl_[0]);
-          split(y.y, bh_[1], bl_[1]);
-          mma(ss[n], al, bh_);
-          mma(ss[n], ah, bl_);
-          mma(sb[n], ah, bh_);
+          tf32_split(y.x, bh_[0], bl_[0]);
+          tf32_split(y.y, bh_[1], bl_[1]);
+          mma_tf32(ss[n], al, bh_);
+          mma_tf32(ss[n], ah, bl_);
+          mma_tf32(sb[n], ah, bh_);
         }
       }
       // the online softmax, base 2
@@ -432,17 +408,17 @@ __global__ void __launch_bounds__(kThreads, 2) attn_f32_kernel(const F32Args a) 
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t ah[4], al[4];
-        split(sb[j][0], ah[0], al[0]);
-        split(sb[j][2], ah[1], al[1]);
-        split(sb[j][1], ah[2], al[2]);
-        split(sb[j][3], ah[3], al[3]);
+        tf32_split(sb[j][0], ah[0], al[0]);
+        tf32_split(sb[j][2], ah[1], al[1]);
+        tf32_split(sb[j][1], ah[2], al[2]);
+        tf32_split(sb[j][3], ah[3], al[3]);
         const float* v0 = sv + (j * 8 + 2 * t) * C::LV + g;
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
           uint32_t bh_[2], bl_[2];
-          split(v0[n * 8], bh_[0], bl_[0]);
-          split(v0[C::LV + n * 8], bh_[1], bl_[1]);
-          mma3(o[n], ah, al, bh_, bl_);
+          tf32_split(v0[n * 8], bh_[0], bl_[0]);
+          tf32_split(v0[C::LV + n * 8], bh_[1], bl_[1]);
+          mma3_tf32(o[n], ah, al, bh_, bl_);
         }
       }
     }

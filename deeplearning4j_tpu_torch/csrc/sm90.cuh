@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives the port's CUDA kernels share: shared-memory
-// addresses, mbarriers, bulk copies, wgmma descriptors, bf16 wgmma and the
-// cut of a float32 value into bf16 pieces. Each kernel source includes it
+// addresses, mbarriers, bulk copies, wgmma descriptors, bf16 wgmma, the
+// cut of a float32 value into bf16 pieces and 3xTF32 on mma.sync. Each kernel source includes it
 // (kernels/_cuda.py builds with this directory on the include path and
 // hashes this header into every library's build key).
 #pragma once
@@ -299,6 +299,35 @@ __device__ __forceinline__ uint32_t bf16x2(float a, float b) {
 }
 __device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// x = hi + lo for 3xTF32: hi is x rounded to tf32's 10 mantissa bits (to
+// nearest, ties away from 0, by an integer add and mask); lo = x - hi
+// exactly, handed over as its float32 bits, of which the tensor core reads
+// tf32's (truncation), so that hi + lo carries x to about 2^-21.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16 x 8, float32) += a (16 x 8) . b (8 x 8), tf32 operands: one
+// mma.sync.m16n8k8. Fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4); b0 (t, g), b1 (t + 4, g); c0 (g, 2t), c1 (g, 2t + 1), c2
+// (g + 8, 2t), c3 (g + 8, 2t + 1), with g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in 3xTF32 (tf32_split's pieces): the small terms first
+__device__ __forceinline__ void mma3_tf32(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                          const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
 
 // a and b cut into three bf16 pairs, hi + mid + lo, each difference exact
 // in float32: the three pieces carry a's and b's 24 bits.

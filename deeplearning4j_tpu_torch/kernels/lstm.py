@@ -1,31 +1,36 @@
-"""The LSTM recurrence, with its pointwise cell in hand-written CUDA C++
-kernels for Hopper.
+"""The LSTM recurrence, each layer's and direction's whole sequence one
+hand-written CUDA C++ kernel for Hopper.
 
 Counterpart of the JAX package's ``lstm_cell`` and ``lstm_layer``
 (``deeplearning4j_tpu/ops/nn_ops.py`` :520-556): gate order ``[i, f, g,
 o]``, ``c = f * c_prev + i * g``, ``h = o * tanh(c)``. The JAX layer is a
-``lax.scan`` whose body XLA fused; here :class:`LSTMSequence` is one
-``torch.autograd.Function`` over the whole sequence:
+``lax.scan`` whose body (``h_prev @ w_hh`` and the cell) XLA fused; here
+:class:`LSTMSequence` is one ``torch.autograd.Function`` over the whole
+sequence:
 
 - forward: one GEMM for every timestep's input projection (``x @ W_ih +
-  b``, hoisted out of the loop) into a ``(T, B, 4U)`` buffer; then a step
-  adds ``h @ W_hh`` into its row of that buffer (``addmm_``) and launches
-  :func:`lstm_cell_fwd`, which activates the gates in place (kept for the
-  backward) and writes ``h`` and ``c`` into the ``(T, B, U)`` outputs;
-- backward, in reverse time: a launch of :func:`lstm_cell_bwd` (the
-  step's ``dh`` is its output gradient plus the carried one, summed in
-  the kernel) into a ``(T, B, 4U)`` buffer of ``dz``, then ``dz @
-  W_hh^T``, the next carried ``dh``; then ``dx``, ``dW_ih``, ``dW_hh``
-  and ``db`` as single GEMMs and a sum over all timesteps, and the
-  gradients of ``h0`` and ``c0``.
+  b``, hoisted out of the loop) into a time-major ``(T, B, 4U)`` buffer;
+  then one launch of :func:`lstm_recurrence_fwd`, which adds ``h_{t-1} @
+  W_hh`` a step, activates the gates (written over that buffer, kept for
+  the backward) and writes ``h`` and ``c`` into ``(T, B, U)`` outputs;
+- backward: one launch of :func:`lstm_recurrence_bwd` over reverse time
+  (the cell's gradient and ``dz_t @ W_hh^T``, the carried ``dh``, a step)
+  into a ``(T, B, 4U)`` buffer of ``dz`` and the gradients of ``h0`` and
+  ``c0``; then ``dx``, ``dW_ih``, ``dW_hh`` and ``db`` as single GEMMs
+  and a sum over all timesteps.
 
-The products stay ``torch.matmul`` (cuBLAS), as the JAX package left them
-to XLA. On the card each cell is one launch of ``csrc/lstm_cell.cu``
-(built by ``kernels/_cuda.py``), counted in :data:`LAUNCHES`; it launches
+On the card both are ``csrc/lstm_recurrence.cu`` (built by
+``kernels/_cuda.py``): a thread-block cluster keeps ``W_hh`` in its
+blocks' shared memory for the whole sequence (past the widths where it
+fits, the streamed form reads it from L2 each step, at any width), and
+each launch is counted in :data:`LAUNCHES`. :func:`recurrence_plan` picks
+the cluster's blocks, its batch rows and the form. The launches go
 on torch's current stream with no host sync and no allocation, so the fit
-tiers capture it. ``lstm_cell_fwd_plain`` / ``lstm_cell_bwd_plain`` are
-the same arithmetic in PyTorch: the wrappers take them for CPU tensors
-only; on a CUDA tensor they launch the kernel or raise.
+tiers capture them. ``lstm_recurrence_fwd_plain`` /
+``lstm_recurrence_bwd_plain`` are the same recurrence in PyTorch (a loop
+of ``addmm`` and the plain cell, ``lstm_cell_fwd_plain`` /
+``lstm_cell_bwd_plain``): the wrappers take them for CPU tensors only; on
+a CUDA tensor they launch the kernel or raise.
 
 Float32 and float64. A half-precision LSTM (``MixedPrecision``) is
 refused by name (ROADMAP queue 2b item 11).
@@ -33,29 +38,39 @@ refused by name (ROADMAP queue 2b item 11).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import dataclasses
+import functools
+import logging
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.kernels import _cuda
 
-#: Kernel launches, bumped where each kernel is launched.
-LAUNCHES: Dict[str, int] = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0}
+#: Kernel launches, bumped where each kernel is launched: one a layer, a
+#: direction and a sequence.
+LAUNCHES: Dict[str, int] = {"lstm_recurrence_fwd": 0, "lstm_recurrence_bwd": 0}
 
-_LIB = "lstm_cell"
+_LIB = "lstm_recurrence"
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SPLIT = [("R", _I), ("nt", _I), ("resident", _I), ("dtype", _I)]
 ARGTYPES = {
-    "dl4j_lstm_cell_fwd": ([(n, _P) for n in ("z", "c_prev", "h", "c")]
-                           + [("B", _I64), ("U", _I64), ("dtype", _I),
-                              ("stream", _P)]),
-    "dl4j_lstm_cell_bwd": ([(n, _P) for n in (
-        "gates", "c_prev", "c", "dh_up", "dh_next", "dc_next", "dz",
-        "dc_prev")] + [("B", _I64), ("U", _I64), ("dtype", _I),
-                       ("stream", _P)]),
+    "dl4j_lstm_recurrence_fwd": (
+        [(n, _P) for n in ("z", "w_hh", "h0", "c0", "hs", "cs")]
+        + [("T", _I64), ("B", _I64), ("U", _I64)] + _SPLIT
+        + [("stream", _P)]),
+    "dl4j_lstm_recurrence_bwd": (
+        [(n, _P) for n in ("gates", "cs", "c0", "w_hh", "d_hs", "dh_T",
+                           "dc_T", "dz", "dh0", "dc0")]
+        + [("T", _I64), ("B", _I64), ("U", _I64)] + _SPLIT
+        + [("stream", _P)]),
+    "dl4j_lstm_recurrence_query": (
+        [("U", _I64)] + _SPLIT + [("out", _P)]),
 }
 
 _cuda.register_counters(LAUNCHES)
+_LOG = logging.getLogger(__name__)
 
 
 def reset_launches() -> None:
@@ -71,6 +86,143 @@ def _lib() -> ctypes.CDLL:
         if fn.argtypes is None:
             _cuda.declare(fn, args)
     return lib
+
+
+# ----------------------------------------------------------------------
+# the launch plan (the C side's work split and shared memory, in Python)
+#: blocks a cluster at most (above 8: the non-portable cluster size)
+MAX_RANKS = 16
+#: a block's shared memory on Hopper (bytes)
+SMEM_LIMIT = 232448
+#: the kernels' warps a block
+WARPS = 8
+#: a resident cluster's batch rows are this many tiles of 8, in the order
+#: tried (the streamed form takes one)
+N_TILES = (1, 2, 4)
+
+
+def recurrence_geometry(u: int, ranks: int, n_tiles: int, resident: bool,
+                        itemsize: int) -> Tuple[int, int]:
+    """(forward, backward) shared memory of a block in bytes
+    (``csrc/lstm_recurrence.cu``): the resident form's ``RecGeo`` for
+    ``u`` units over ``ranks`` blocks and ``n_tiles`` tiles of 8 batch
+    rows, or the streamed form's partial products (a warp's m32n8
+    forward, m16n8 backward)."""
+    if not resident:
+        return WARPS * 8 * 32 * itemsize, WARPS * 4 * 32 * itemsize
+    nu = -(-u // ranks)
+    ng = -(-nu // 8)
+    nc, up, bt = 32 * ng, -(-u // 16) * 16, 8 * n_tiles
+    ldw, ldh, ldg, ldz = nc + 8, up + 4, 8 * ng + 4, nc + 4
+    kt = up // 8
+    ksplit = min(1 if ng >= WARPS else WARPS // ng, kt)
+    items = ng * ksplit
+    # float32: the slice in mma fragment order; float64: rows of ldw
+    w = up * (nc if itemsize == 4 else ldw)
+    fwd = w + 2 * bt * ldh + items * 8 * n_tiles * 32 + 15 * bt * ldg
+    bwd = w + 2 * ranks * bt * ldg + bt * ldz + 15 * bt * ldg
+    return fwd * itemsize, bwd * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernels split an LSTM of ``b`` rows and ``u`` units."""
+    ranks: int          # blocks a cluster (R)
+    units: int          # units a block: block k owns [k units, (k+1) units)
+    n_tiles: int        # a cluster's batch rows in tiles of 8
+    clusters: int       # clusters a launch, each its own rows
+    resident: bool      # the W_hh slice in shared memory (else streamed)
+    smem_fwd: int       # bytes a block
+    smem_bwd: int
+    max_clusters: Optional[int]   # the card's at once (None: not asked)
+
+    @property
+    def b_tile(self) -> int:
+        return 8 * self.n_tiles
+
+    def block_units(self, u: int):
+        """Each block's units, a range a block."""
+        return [range(k * self.units, min(u, (k + 1) * self.units))
+                for k in range(self.ranks)]
+
+    def cluster_rows(self, b: int):
+        """Each cluster's batch rows, a range a cluster."""
+        return [range(c * self.b_tile, min(b, (c + 1) * self.b_tile))
+                for c in range(self.clusters)]
+
+
+def recurrence_plan(b: int, u: int, itemsize: int,
+                    occupancy: Optional[Callable[[int, int, bool], int]]
+                    = None) -> Plan:
+    """The plan for ``b`` batch rows of ``u`` units of ``itemsize`` bytes.
+
+    R: about 16 units a block, at most :data:`MAX_RANKS` blocks, then as
+    few blocks as that many units a block needs (each block owns at least
+    one unit, so none skips the cluster's barriers idle). The ``W_hh``
+    slice is resident where both directions fit :data:`SMEM_LIMIT` with
+    it, else the streamed form (8 rows a cluster) takes any width. The
+    resident batch tile: the fewest rows a cluster (the shortest step) for
+    which the launch's clusters all fit on the card at once,
+    ``occupancy(ranks, n_tiles, resident)`` clusters (the card's
+    calculator; None: no limit); else the tile with the fewest waves."""
+    if b < 1 or u < 1:
+        raise ValueError(f"an LSTM of {b} rows and {u} units")
+    ranks = min(MAX_RANKS, max(1, -(-u // 16)))
+    units = -(-u // ranks)
+    ranks = -(-u // units)
+
+    def fits(nt, res):
+        return max(recurrence_geometry(u, ranks, nt, res, itemsize)) \
+            <= SMEM_LIMIT
+
+    resident = fits(1, True)
+    tiles = [nt for nt in N_TILES if fits(nt, True)] if resident else [1]
+    clusters = {nt: -(-b // (8 * nt)) for nt in tiles}
+    limit = {nt: occupancy(ranks, nt, resident) if occupancy else None
+             for nt in tiles}
+    ok = [nt for nt in tiles if limit[nt] is None or clusters[nt] <= limit[nt]]
+    if ok:
+        nt = ok[0]
+    else:
+        nt = min(tiles, key=lambda t: (-(-clusters[t] // max(1, limit[t])),
+                                       t))
+    fwd, bwd = recurrence_geometry(u, ranks, nt, resident, itemsize)
+    return Plan(ranks, units, nt, clusters[nt], resident, fwd, bwd, limit[nt])
+
+
+def query(u: int, ranks: int, n_tiles: int, resident: bool,
+          dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(forward bytes, backward bytes, forward clusters, backward
+    clusters): the C side's shared memory a block and the clusters the
+    current card holds at once (its occupancy calculator; needs a
+    card)."""
+    out = (ctypes.c_int64 * 4)()
+    err = _lib().dl4j_lstm_recurrence_query(
+        u, ranks, n_tiles, int(resident), _DTYPES[dtype],
+        ctypes.addressof(out))
+    _cuda.check(err, "dl4j_lstm_recurrence_query")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(index: int, dtype: torch.dtype, b: int, u: int) -> Plan:
+    """The plan on card ``index``, its occupancy asked once a shape (on a
+    first, eager launch: the fit tiers warm up before they capture)."""
+    def occupancy(ranks, nt, resident):
+        with torch.cuda.device(index):
+            q = query(u, ranks, nt, resident, dtype)
+        return min(q[2], q[3])
+
+    plan = recurrence_plan(b, u, torch.empty((), dtype=dtype).element_size(),
+                           occupancy)
+    _LOG.info("lstm recurrence on cuda:%d, %s, B %d, U %d: R %d (%d units a "
+              "block), %d rows a cluster, %d clusters (the card holds %s at "
+              "once), W_hh slice %s, shared memory %d / %d bytes", index,
+              dtype, b, u, plan.ranks, plan.units, plan.b_tile,
+              plan.clusters, plan.max_clusters,
+              "resident" if plan.resident else "streamed from L2",
+              plan.smem_fwd, plan.smem_bwd)
+    return plan
 
 
 # ----------------------------------------------------------------------
@@ -103,80 +255,136 @@ def lstm_cell_bwd_plain(gates, c_prev, c, dh_up=None, dh_next=None,
     return dz, dc * f
 
 
+def lstm_recurrence_fwd_plain(gx, w_hh, h0, c0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``(gates, hs, cs)``: the recurrence over ``gx`` [T, B, 4U] (each
+    step's ``x @ W_ih + b``) from ``h0``, ``c0`` [B, U]: a step ``z =
+    gx_t + h_{t-1} @ w_hh`` (``addmm``) and the plain cell; the activated
+    gates [T, B, 4U], the hidden and cell states [T, B, U]."""
+    t_len, bsz, u4 = gx.shape
+    gates = torch.empty_like(gx)
+    hs = gx.new_empty(t_len, bsz, u4 // 4)
+    cs = torch.empty_like(hs)
+    h, c = h0, c0
+    for t in range(t_len):
+        gates[t], h, c = lstm_cell_fwd_plain(torch.addmm(gx[t], h, w_hh), c)
+        hs[t], cs[t] = h, c
+    return gates, hs, cs
+
+
+def lstm_recurrence_bwd_plain(gates, cs, c0, w_hh, d_hs=None, dh_T=None,
+                              dc_T=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """``(dz, dh0, dc0)``: the recurrence's gradient in reverse time from
+    the saved gates [T, B, 4U], ``cs`` [T, B, U], ``c0``, the output
+    gradient ``d_hs`` [T, B, U] and ``dh_T``, ``dc_T`` [B, U] (None is
+    zero): a step the plain cell's gradient, then ``dz_t @ w_hh^T``, the
+    carried ``dh``."""
+    dz = torch.empty_like(gates)
+    dh, dc = dh_T, dc_T
+    w_hh_t = w_hh.t()
+    for t in range(gates.shape[0] - 1, -1, -1):
+        dz[t], dc = lstm_cell_bwd_plain(
+            gates[t], cs[t - 1] if t else c0, cs[t],
+            None if d_hs is None else d_hs[t], dh, dc)
+        dh = dz[t] @ w_hh_t
+    return dz, dh, dc
+
+
 # ----------------------------------------------------------------------
 # the wrappers
-def _check(what: str, rows: torch.Tensor, **ts) -> torch.device:
-    """Raise on what the kernels do not take; returns the device."""
-    b, u4 = rows.shape
-    dev, dt = rows.device, rows.dtype
-    for name, t in ts.items():
+def _check(what: str, dtype: torch.dtype, dev: torch.device, **ts) -> None:
+    """Raise on what the kernels do not take: ``ts`` maps a name to (the
+    tensor or None, its shape)."""
+    for name, (t, want) in ts.items():
         if t is None:
             continue
-        want = (b, u4) if name in ("z", "gates", "dz") else (b, u4 // 4)
-        if tuple(t.shape) != want or t.device != dev or t.dtype != dt:
+        if tuple(t.shape) != want or t.device != dev or t.dtype != dtype:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, want {want} {dt} on {dev}")
+                             f"{t.device}, want {want} {dtype} on {dev}")
         if dev.type == "cuda" and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
-    if dt not in _DTYPES:
+    if dtype not in _DTYPES:
         raise NotImplementedError(
-            f"{what} in {dt} is not ported yet: the LSTM cell takes float32 "
-            f"and float64 (ROADMAP queue 2b item 11)")
-    return dev
+            f"{what} in {dtype} is not ported yet: the LSTM recurrence takes "
+            f"float32 and float64 (ROADMAP queue 2b item 11)")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def lstm_cell_fwd(z: torch.Tensor, c_prev: torch.Tensor, h: torch.Tensor,
-                  c: torch.Tensor) -> None:
-    """One timestep's cell: ``z`` [B, 4U] (the pre-activations) becomes
-    the activated gates in place, ``h`` and ``c`` [B, U] are written. One
-    launch on the card, the plain version on the CPU."""
-    dev = _check("lstm_cell_fwd", z, z=z, c_prev=c_prev, h=h, c=c)
+def lstm_recurrence_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
+                        h0: torch.Tensor, c0: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(gates, hs, cs)`` of :func:`lstm_recurrence_fwd_plain`, with
+    ``gx`` [T, B, 4U] overwritten by the activated gates (``gates`` is
+    ``gx``). One launch on the card, the plain version on the CPU."""
+    if gx.dim() != 3 or gx.shape[2] % 4:
+        raise ValueError(f"lstm_recurrence_fwd: gx {tuple(gx.shape)} must "
+                         f"be [T, B, 4U]")
+    t_len, bsz, u4 = gx.shape
+    u = u4 // 4
+    dev = gx.device
+    _check("lstm_recurrence_fwd", gx.dtype, dev, gx=(gx, (t_len, bsz, u4)),
+           w_hh=(w_hh, (u, u4)), h0=(h0, (bsz, u)), c0=(c0, (bsz, u)))
     if dev.type == "cpu":
-        gates, hn, cn = lstm_cell_fwd_plain(z, c_prev)
-        z.copy_(gates)
-        h.copy_(hn)
-        c.copy_(cn)
-        return
-    b, u = c.shape
+        gates, hs, cs = lstm_recurrence_fwd_plain(gx, w_hh, h0, c0)
+        gx.copy_(gates)
+        return gx, hs, cs
+    plan = _card_plan(dev.index, gx.dtype, bsz, u)
+    hs = gx.new_empty(t_len, bsz, u)
+    cs = torch.empty_like(hs)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with torch.cuda.device(dev):
-        err = _lib().dl4j_lstm_cell_fwd(
-            z.data_ptr(), c_prev.data_ptr(), h.data_ptr(), c.data_ptr(), b, u,
-            _DTYPES[z.dtype], stream)
-    _cuda.check(err, "dl4j_lstm_cell_fwd")
-    LAUNCHES["lstm_cell_fwd"] += 1
+        err = _lib().dl4j_lstm_recurrence_fwd(
+            gx.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), t_len, bsz, u, plan.ranks,
+            plan.n_tiles, int(plan.resident), _DTYPES[gx.dtype], stream)
+    _cuda.check(err, "dl4j_lstm_recurrence_fwd")
+    LAUNCHES["lstm_recurrence_fwd"] += 1
+    return gx, hs, cs
 
 
-def lstm_cell_bwd(gates, c_prev, c, dh_up, dh_next, dc_next, dz,
-                  dc_prev) -> None:
-    """One timestep's cell gradient: writes ``dz`` [B, 4U] and ``dc_prev``
-    [B, U] (which may be ``dc_next`` itself); ``dh_up``, ``dh_next`` and
-    ``dc_next`` may be None (zero). One launch on the card, the plain
-    version on the CPU."""
-    dev = _check("lstm_cell_bwd", gates, gates=gates, c_prev=c_prev, c=c,
-                 dh_up=dh_up, dh_next=dh_next, dc_next=dc_next, dz=dz,
-                 dc_prev=dc_prev)
+def lstm_recurrence_bwd(gates: torch.Tensor, cs: torch.Tensor,
+                        c0: torch.Tensor, w_hh: torch.Tensor,
+                        d_hs: Optional[torch.Tensor] = None,
+                        dh_T: Optional[torch.Tensor] = None,
+                        dc_T: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dz, dh0, dc0)`` of :func:`lstm_recurrence_bwd_plain` (``d_hs``,
+    ``dh_T`` and ``dc_T`` may be None: zero). One launch on the card, the
+    plain version on the CPU."""
+    if gates.dim() != 3 or gates.shape[2] % 4:
+        raise ValueError(f"lstm_recurrence_bwd: gates {tuple(gates.shape)} "
+                         f"must be [T, B, 4U]")
+    t_len, bsz, u4 = gates.shape
+    u = u4 // 4
+    dev = gates.device
+    _check("lstm_recurrence_bwd", gates.dtype, dev,
+           gates=(gates, (t_len, bsz, u4)), cs=(cs, (t_len, bsz, u)),
+           c0=(c0, (bsz, u)), w_hh=(w_hh, (u, u4)),
+           d_hs=(d_hs, (t_len, bsz, u)), dh_T=(dh_T, (bsz, u)),
+           dc_T=(dc_T, (bsz, u)))
     if dev.type == "cpu":
-        g, dcp = lstm_cell_bwd_plain(gates, c_prev, c, dh_up, dh_next,
-                                     dc_next)
-        dz.copy_(g)
-        dc_prev.copy_(dcp)
-        return
-    b, u = c.shape
+        return lstm_recurrence_bwd_plain(gates, cs, c0, w_hh, d_hs, dh_T,
+                                         dc_T)
+    plan = _card_plan(dev.index, gates.dtype, bsz, u)
+    dz = torch.empty_like(gates)
+    dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with torch.cuda.device(dev):
-        err = _lib().dl4j_lstm_cell_bwd(
-            gates.data_ptr(), c_prev.data_ptr(), c.data_ptr(), _ptr(dh_up),
-            _ptr(dh_next), _ptr(dc_next), dz.data_ptr(), dc_prev.data_ptr(),
-            b, u, _DTYPES[gates.dtype], stream)
-    _cuda.check(err, "dl4j_lstm_cell_bwd")
-    LAUNCHES["lstm_cell_bwd"] += 1
+        err = _lib().dl4j_lstm_recurrence_bwd(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w_hh.data_ptr(),
+            _ptr(d_hs), _ptr(dh_T), _ptr(dc_T), dz.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(), t_len, bsz, u, plan.ranks,
+            plan.n_tiles, int(plan.resident), _DTYPES[gates.dtype], stream)
+    _cuda.check(err, "dl4j_lstm_recurrence_bwd")
+    LAUNCHES["lstm_recurrence_bwd"] += 1
+    return dz, dh0, dc0
 
 
 # ----------------------------------------------------------------------
@@ -188,19 +396,17 @@ class LSTMSequence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, h0, c0, w_ih, w_hh, b):
+        # an output nothing reads gets no gradient (None), not zeros: the
+        # backward kernel then reads no d_hs (return_sequences=False)
+        ctx.set_materialize_grads(False)
         bsz, t_len, n_in = x.shape
         u = h0.shape[1]
         # time-major rows: a contiguous copy unless x is already a view of
         # a time-major buffer (the layer below's hs)
         x2 = x.transpose(0, 1).reshape(t_len * bsz, n_in)
-        gates = torch.addmm(b, x2, w_ih).view(t_len, bsz, 4 * u)
-        hs = torch.empty(t_len, bsz, u, dtype=x.dtype, device=x.device)
-        cs = torch.empty_like(hs)
-        h, c = h0.contiguous(), c0.contiguous()
-        for t in range(t_len):
-            gates[t].addmm_(h, w_hh)
-            lstm_cell_fwd(gates[t], c, hs[t], cs[t])
-            h, c = hs[t], cs[t]
+        gx = torch.addmm(b, x2, w_ih).view(t_len, bsz, 4 * u)
+        gates, hs, cs = lstm_recurrence_fwd(gx, w_hh.contiguous(),
+                                            h0.contiguous(), c0.contiguous())
         ctx.save_for_backward(x2, h0, c0, w_ih, w_hh, hs, cs, gates)
         return hs.transpose(0, 1), hs[-1], cs[-1]
 
@@ -209,18 +415,10 @@ class LSTMSequence(torch.autograd.Function):
         x2, h0, c0, w_ih, w_hh, hs, cs, gates = ctx.saved_tensors
         t_len, bsz, u = hs.shape
         d_hs = None if g_hs is None else g_hs.transpose(0, 1).contiguous()
-        dz = torch.empty_like(gates)
-        dh = torch.zeros_like(h0) if g_ht is None else g_ht.clone(
-            memory_format=torch.contiguous_format)
-        dc = torch.zeros_like(c0) if g_ct is None else g_ct.clone(
-            memory_format=torch.contiguous_format)
-        c0c = c0.contiguous()
-        w_hh_t = w_hh.t()
-        for t in range(t_len - 1, -1, -1):
-            lstm_cell_bwd(gates[t], cs[t - 1] if t else c0c, cs[t],
-                          None if d_hs is None else d_hs[t], dh, dc, dz[t],
-                          dc)
-            torch.mm(dz[t], w_hh_t, out=dh)
+        dz, dh, dc = lstm_recurrence_bwd(
+            gates, cs, c0.contiguous(), w_hh.contiguous(), d_hs,
+            None if g_ht is None else g_ht.contiguous(),
+            None if g_ct is None else g_ct.contiguous())
         dz2 = dz.view(t_len * bsz, 4 * u)
         need = ctx.needs_input_grad
         dx = (dz2 @ w_ih.t()).view(t_len, bsz, -1).transpose(0, 1) \
@@ -245,8 +443,8 @@ def lstm_sequence(x, h0, c0, w_ih, w_hh, b):
                          f"h0 {tuple(h0.shape)}, c0 {tuple(c0.shape)} [B, U]")
     if x.dtype not in _DTYPES:
         raise NotImplementedError(
-            f"an LSTM in {x.dtype} is not ported yet: the cell kernels take "
-            f"float32 and float64 (ROADMAP queue 2b item 11)")
+            f"an LSTM in {x.dtype} is not ported yet: the recurrence kernels "
+            f"take float32 and float64 (ROADMAP queue 2b item 11)")
     if x.shape[1] == 0:
         raise ValueError("lstm: a sequence of no timesteps")
     return LSTMSequence.apply(x, h0, c0, w_ih, w_hh, b)

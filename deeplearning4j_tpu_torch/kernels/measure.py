@@ -93,18 +93,37 @@ def int8_weight_bound(ops: float, nbytes: float,
             "bound_by": "bytes" if by_bytes >= tc else "operations"}
 
 
-def lstm_cell_cost(b: int, u: int, itemsize: int) -> Dict[str, Tuple[int, int]]:
-    """(operations, bytes) each LSTM cell kernel (``csrc/lstm_cell.cu``)
-    must spend at ``b`` rows of ``u`` units: the forward reads z [b, 4u]
-    and c_prev and writes the gates [b, 4u], h and c; the backward reads
-    the gates, c_prev, c, dh_up, dh_next and dc_next and writes dz [b, 4u]
-    and dc_prev. Operations a unit, each exp, tanh and division counted as
-    one: the forward's 3 sigmoids (3 each), 2 tanh and 4 products and
-    sums (15); the backward's tanh, 2 sums, and 20 products and
-    differences (23)."""
-    n = b * u
-    return {"lstm_cell_fwd": (15 * n, (4 + 1 + 4 + 2) * n * itemsize),
-            "lstm_cell_bwd": (23 * n, (4 + 5 + 4 + 1) * n * itemsize)}
+def lstm_recurrence_cost(b: int, t: int, u: int, itemsize: int
+                         ) -> Dict[str, Tuple[int, int]]:
+    """(operations, bytes) each LSTM recurrence kernel
+    (``csrc/lstm_recurrence.cu``) must spend on ``b`` rows of ``u`` units
+    over ``t`` steps: the forward reads W_hh [u, 4u] once, gx [t, b, 4u],
+    h0 and c0, and writes the gates [t, b, 4u], hs and cs [t, b, u]; the
+    backward reads W_hh, the gates, cs, c0, d_hs, dh_T and
+    dc_T, and writes dz [t, b, 4u], dh0 and dc0. Operations: the step's
+    product (2 b u 4u a step, h @ W_hh or dz @ W_hh^T) and the cell's (a
+    unit: the forward's 3 sigmoids of 3, 2 tanh and 4 products and sums,
+    15; the backward's tanh, 2 sums and 20 products and differences,
+    23), each exp, tanh and division counted as one."""
+    n, w = b * u, 4 * u * u
+    prod = 2 * b * u * 4 * u * t
+    fwd = (w + 4 * n * t + 2 * n + 4 * n * t + 2 * n * t) * itemsize
+    bwd = (w + 4 * n * t + n * t + n + n * t + 2 * n + 4 * n * t + 2 * n) \
+        * itemsize
+    return {"lstm_recurrence_fwd": (prod + 15 * n * t, fwd),
+            "lstm_recurrence_bwd": (prod + 23 * n * t, bwd)}
+
+
+def lstm_recurrence_case(b: int, t: int, u: int, dtype, dev, seed: int = 0):
+    """Seeded inputs of one layer's recurrence kernels: gx [T, B, 4U] (as
+    ``x @ W_ih + b``, scale 2), W_hh [U, 4U] over sqrt(U) (an initialised
+    layer's scale), h0, c0 [B, U], d_hs [T, B, U], dh_T and dc_T [B, U]."""
+    g = torch.Generator().manual_seed(seed)
+    gx = 2 * torch.randn(t, b, 4 * u, generator=g, dtype=dtype)
+    w = torch.randn(u, 4 * u, generator=g, dtype=dtype) / math.sqrt(u)
+    rest = [torch.randn(*s, generator=g, dtype=dtype)
+            for s in ((b, u), (b, u), (t, b, u), (b, u), (b, u))]
+    return [x.to(dev) for x in [gx, w] + rest]
 
 
 def median_ms(fn: Callable[[], object], flush: torch.Tensor,
@@ -135,6 +154,40 @@ def median_ms(fn: Callable[[], object], flush: torch.Tensor,
             return float(np.median([s.elapsed_time(e) for s, e in ev]))
         cycles *= 2
     raise SystemExit("the host did not finish queueing within the sleep")
+
+
+def queued_ms(fn: Callable[[], object], flush: torch.Tensor,
+              iters: int = 10) -> float:
+    """Median device time of ``fn`` over ``iters`` calls, each queued
+    alone behind a device sleep, for a function of many launches:
+    ``median_ms`` queues all its calls behind one sleep, and past the
+    launch queue's depth the host waits on the device, so the sleep never
+    covers the queueing. The sleep is doubled until it outlasts one call's
+    queueing."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES // 10
+    out = []
+    while len(out) < iters:
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        asleep = torch.cuda.Event()
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        asleep.record()
+        s.record()
+        fn()
+        e.record()
+        covered = not asleep.query()
+        torch.cuda.synchronize()
+        if covered:
+            out.append(s.elapsed_time(e))
+        elif cycles >= 8 * SLEEP_CYCLES:
+            raise SystemExit("the host did not finish queueing a call "
+                             "within the sleep")
+        else:
+            cycles *= 2
+    return float(np.median(out))
 
 
 def synced_ms(fn: Callable[[], object], flush: torch.Tensor,

@@ -249,16 +249,20 @@ def test_bf16_kernels_are_wgmma_and_tma_with_no_mma_sync_left():
     the host through cudaGetDriverEntryPoint, no libcuda link) and
     multiply with wgmma (the source with the port's header of Hopper
     primitives, which it includes); the first design's mma.sync, ldmatrix
-    and cp.async are gone."""
+    and cp.async are gone. The header's tf32 mma.sync helpers are the
+    float32 kernels': this source calls none of them."""
     text = SRC.read_text()
     assert '#include "sm90.cuh"' in text
+    own = "\n".join(line.split("//")[0] for line in text.splitlines())
     text += (SRC.parent / "sm90.cuh").read_text()
     code = "\n".join(line.split("//")[0] for line in text.splitlines())
     for inst in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
                  "mbarrier.try_wait.parity", "setmaxnreg",
                  "cuTensorMapEncodeTiled"):
         assert inst in code, inst
-    for inst in ("mma.sync", "ldmatrix", "cp.async.cg"):
+    for inst in ("mma.sync", "mma_tf32(", "mma3_tf32("):
+        assert inst not in own, inst
+    for inst in ("ldmatrix", "cp.async.cg"):
         assert inst not in code, inst
     for name in ("attention_fwd_bf16", "attention_bwd_dkdv_bf16",
                  "attention_bwd_dq_bf16"):

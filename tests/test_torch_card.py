@@ -1601,33 +1601,89 @@ def test_a_checkpoint_capture_is_a_copy_on_card(card):
 
 
 # ----------------------------------------------------------------------
-# the LSTM cell kernels (csrc/lstm_cell.cu) and TextGenLSTM's TBPTT tier
+# the LSTM recurrence kernels (csrc/lstm_recurrence.cu) and TextGenLSTM's
+# TBPTT tier
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b,u", [(3, 5), (32, 256)])
-def test_lstm_cell_kernels_match_plain_on_card(card, b, u, dtype):
+@pytest.mark.parametrize("b,t,u", [(32, 50, 256), (3, 1, 5), (3, 7, 37),
+                                   (8, 20, 512), (64, 7, 256), (128, 5, 512),
+                                   (1024, 3, 37), (8, 20, 300), (4, 3, 4096)])
+@pytest.mark.parametrize("sequences", [True, False])
+def test_lstm_recurrence_kernels_match_plain_on_card(card, b, t, u, dtype,
+                                                     sequences):
+    """Forward and backward against the plain versions on the same inputs
+    (the backward from the plain forward's gates; without ``sequences``
+    no d_hs and no dc_T, as ``return_sequences=False`` leaves them), one
+    launch each, two calls bit-equal; the plan's shared memory is the C
+    side's and its clusters fit the card (512 and 4096 units, and 300
+    float64: the streamed form, 4096 past the widths whose h tiles the
+    resident form could hold; 300 float32: 3 groups of 8 units a block,
+    not a power of two; 64 rows and more in float32 with the slice
+    resident: more clusters than the card holds at 8 rows a cluster, so
+    tiles of 16 or 32)."""
     from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.kernels.measure import lstm_recurrence_case
     tol = 1e-5 if dtype == torch.float32 else 1e-12
-    g = torch.Generator().manual_seed(b + u)
-    z = 2 * torch.randn(b, 4 * u, generator=g, dtype=dtype)
-    cp, dh_up, dh_n, dc_n = (torch.randn(b, u, generator=g, dtype=dtype)
-                             for _ in range(4))
-    gates, h, c = lstm.lstm_cell_fwd_plain(z, cp)
-    zc, hc, cc = z.to(card), torch.empty(b, u, dtype=dtype, device=card), \
-        torch.empty(b, u, dtype=dtype, device=card)
+    gx, w, h0, c0, d_hs, dh_t, dc_t = lstm_recurrence_case(
+        b, t, u, dtype, card, seed=b * t + u)
+    if not sequences:
+        d_hs = dc_t = None
+    want_f = lstm.lstm_recurrence_fwd_plain(gx, w, h0, c0)
+    bwd_in = (want_f[0], want_f[2], c0, w, d_hs, dh_t, dc_t)
+    want_b = lstm.lstm_recurrence_bwd_plain(*bwd_in)
     before = dict(lstm.LAUNCHES)
-    lstm.lstm_cell_fwd(zc, cp.to(card), hc, cc)
-    for got, want in ((zc, gates), (hc, h), (cc, c)):
-        _close(got, want, tol)
-    dz, dcp = lstm.lstm_cell_bwd_plain(gates, cp, c, dh_up, dh_n, dc_n)
-    dzc, dcc = torch.empty_like(zc), dc_n.to(card)
-    lstm.lstm_cell_bwd(gates.to(card), cp.to(card), c.to(card),
-                       dh_up.to(card), None, dcc, dzc, dcc)
-    want = lstm.lstm_cell_bwd_plain(gates, cp, c, dh_up, None, dc_n)
-    _close(dzc, want[0], tol)
-    _close(dcc, want[1], tol)
+    buf = gx.clone()
+    got_f = lstm.lstm_recurrence_fwd(buf, w, h0, c0)
+    got_b = lstm.lstm_recurrence_bwd(*bwd_in)
+    torch.cuda.synchronize()
     assert {k: lstm.LAUNCHES[k] - before[k] for k in before} == \
-        {"lstm_cell_fwd": 1, "lstm_cell_bwd": 1}
+        {"lstm_recurrence_fwd": 1, "lstm_recurrence_bwd": 1}
+    assert got_f[0] is buf
+    for got, want in zip(got_f + got_b, want_f + want_b):
+        _close(got, want, tol)
+    again = lstm.lstm_recurrence_fwd(gx.clone(), w, h0, c0) + \
+        lstm.lstm_recurrence_bwd(*bwd_in)
+    assert all(torch.equal(x, y) for x, y in zip(again, got_f + got_b))
+    plan = lstm._card_plan(card.index or 0, dtype, b, u)
+    q = lstm.query(u, plan.ranks, plan.n_tiles, plan.resident, dtype)
+    assert q[:2] == (plan.smem_fwd, plan.smem_bwd)
+    assert min(q[2:]) >= 1 and plan.max_clusters == min(q[2:])
+    assert plan.resident == (u <= (384 if dtype == torch.float32 else 256))
+    if b >= 64 and dtype == torch.float32 and plan.resident:
+        assert plan.n_tiles > 1
+
+
+@pytest.mark.cuda
+def test_lstm_recurrence_replays_in_a_cuda_graph_as_eager(card):
+    """TextGenLSTM's layer (32, 50, 256) float32: both kernels captured in
+    a CUDA graph (the gx copy in front: the forward writes over it) replay
+    to the eager call's bits."""
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.kernels.measure import lstm_recurrence_case
+    gx, w, h0, c0, d_hs, dh_t, dc_t = lstm_recurrence_case(
+        32, 50, 256, torch.float32, card)
+    buf = torch.empty_like(gx)
+
+    def run():
+        buf.copy_(gx)
+        gates, hs, cs = lstm.lstm_recurrence_fwd(buf, w, h0, c0)
+        return (gates, hs, cs) + lstm.lstm_recurrence_bwd(
+            gates, cs, c0, w, d_hs, dh_t, dc_t)
+
+    eager = [t.clone() for t in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        buf.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
 
 
 @pytest.mark.cuda
@@ -1663,7 +1719,7 @@ def test_fit_tbptt_captures_one_window_and_counts_its_launches_on_card(card):
     assert st["window_captures_by_epoch"] == [1, 0]
     assert st["graph_replays_per_epoch"] == 2
     # 2 epochs x 2 minibatches x 4 chunks, and the capture's 2 warm-up
-    # steps: 2 layers x 5 timesteps a chunk
+    # steps: one launch a layer each way, 2 a chunk
     for k in before:
-        assert lstm.LAUNCHES[k] - before[k] == (16 + 2) * 10
+        assert lstm.LAUNCHES[k] - before[k] == (16 + 2) * 2
     assert np.isfinite(h.step_losses).all()

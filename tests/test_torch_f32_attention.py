@@ -116,10 +116,14 @@ def test_source_multiplies_in_3xtf32_on_mma_sync_with_no_atomics():
     called."""
     code = _code()
     engine, i8 = _sections()
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in engine
+    # the split and the tf32 mma.sync live in the shared header
+    header = _code(SRC.parent / "sm90.cuh")
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert "mma3_tf32(" in engine and "tf32_split(" in engine
     assert "cp.async.cg.shared.global" in engine
-    mma3 = re.search(r"void mma3\(.*?\{(.*?)\n\}", engine, re.S).group(1)
-    assert re.findall(r"mma\(c, (\w+), (\w+)\)", mma3) == [
+    mma3 = re.search(r"void mma3_tf32\(.*?\{(.*?)\n\}", header,
+                     re.S).group(1)
+    assert re.findall(r"mma_tf32\(c, (\w+), (\w+)\)", mma3) == [
         ("al", "bh"), ("ah", "bl"), ("ah", "bh")]
     kernel = engine[engine.index("attn_f32_kernel(const F32Args a)"):]
     kernel = kernel[:kernel.index("\n}\n")]
@@ -127,7 +131,7 @@ def test_source_multiplies_in_3xtf32_on_mma_sync_with_no_atomics():
         assert other not in kernel, other
     assert "template <int D, bool PAGED>\n__global__ void __launch_bounds__(" \
         "kThreads, 2) attn_f32_kernel" in engine
-    assert "mma.sync" not in i8
+    assert "mma.sync" not in i8 and "mma_tf32" not in i8
     assert "atomic" not in code.lower()
     for lib in ("cublas", "cudnn", "cutlass", "#include <torch"):
         assert lib not in code.lower()
@@ -204,8 +208,8 @@ def test_slots_refuse_a_kernel_that_fits_no_block(monkeypatch):
 def test_split_constants_round_to_tf32():
     """hi = (bits + 0x1000) & 0xffffe000 rounds the mantissa to 10 bits,
     to nearest (ties away from 0); x - hi is exact and at most half of
-    hi's last place."""
-    code = _code()
+    hi's last place (``tf32_split`` in the shared header)."""
+    code = _code(SRC.parent / "sm90.cuh")
     assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in code
     x = np.random.default_rng(0).normal(size=10000).astype(np.float32)
     hi = ((x.view(np.uint32) + np.uint32(0x1000))

@@ -1,5 +1,5 @@
-"""The port's LSTM (ops, cell kernels' plain versions, layers, TextGenLSTM)
-against the JAX package's, on the CPU.
+"""The port's LSTM (ops, the recurrence kernels' plain versions, layers,
+TextGenLSTM) against the JAX package's, on the CPU.
 
 The same seeded numpy inputs go to both packages. Tolerances: float64
 1e-12 of each tensor's largest magnitude (the same arithmetic, sums in
@@ -9,8 +9,9 @@ product does). Sizes are tiny: vocab 12, units 8, T 6.
 
 Also: the C source's entries against the wrappers' ctypes declarations
 and the nvcc command, the recurrence's launches (one forward and one
-backward cell a timestep and layer, counted with the cell stubbed), the
-layer rules on rnn input, and what is refused by name.
+backward recurrence a layer, counted on the plain versions), the launch
+plan's invariants (shared memory, blocks a cluster, every unit and row
+covered once), the layer rules on rnn input, and what is refused by name.
 """
 import ctypes
 import pathlib
@@ -50,7 +51,7 @@ from deeplearning4j_tpu_torch.ops import registry as preg
 from deeplearning4j_tpu_torch.zoo import TextGenLSTM
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "lstm_cell.cu"
+SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "lstm_recurrence.cu"
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 V, U, T, B = 12, 8, 6, 4
 
@@ -174,22 +175,27 @@ def test_cell_plain_versions_match_jax_and_its_vjp(dtype, b, u):
                                        torch.tensor(dc_next))
     _close(dz, jdz, TOL[dtype])
     _close(dcp, jdc, TOL[dtype])
-    # None is zero, and the wrappers write in place (dc_prev over dc_next)
-    zt, out_h, out_c = torch.tensor(z), torch.empty(b, u, dtype=c.dtype), \
-        torch.empty(b, u, dtype=c.dtype)
-    lstm.lstm_cell_fwd(zt, torch.tensor(cp), out_h, out_c)
-    assert torch.equal(zt, gates) and torch.equal(out_h, h)
-    dc_buf, dz_buf = torch.tensor(dc_next), torch.empty_like(gates)
-    lstm.lstm_cell_bwd(gates, torch.tensor(cp), c, None, None, dc_buf,
-                       dz_buf, dc_buf)
+    # one step of the recurrence wrappers on the CPU is the cell: gx
+    # overwritten by the gates (h0 = 0, so z = gx), None is zero
+    gx, zero = torch.tensor(z)[None], torch.zeros(b, u, dtype=c.dtype)
+    w_hh = torch.ones(u, 4 * u, dtype=c.dtype)
+    out = lstm.lstm_recurrence_fwd(gx, w_hh, zero, torch.tensor(cp))
+    assert out[0] is gx and torch.equal(gx[0], gates)
+    assert torch.equal(out[1][0], h) and torch.equal(out[2][0], c)
+    got = lstm.lstm_recurrence_bwd(gx, c[None], torch.tensor(cp), w_hh,
+                                   dc_T=torch.tensor(dc_next))
     want = lstm.lstm_cell_bwd_plain(gates, torch.tensor(cp), c,
-                                     dc_next=torch.tensor(dc_next))
-    assert torch.equal(dz_buf, want[0]) and torch.equal(dc_buf, want[1])
+                                    dc_next=torch.tensor(dc_next))
+    assert torch.equal(got[0][0], want[0]) and torch.equal(got[2], want[1])
+    assert torch.equal(got[1], want[0] @ w_hh.t())
 
 
 def test_the_recurrence_launches_one_cell_a_timestep_and_layer(monkeypatch):
+    """One recurrence a layer each way, whatever T: the wrappers' plain
+    versions are called once for the forward and once for the backward
+    of a 9-step sequence (the card's kernels are one launch each)."""
     calls = {"fwd": 0, "bwd": 0}
-    fwd, bwd = lstm.lstm_cell_fwd, lstm.lstm_cell_bwd
+    fwd, bwd = lstm.lstm_recurrence_fwd_plain, lstm.lstm_recurrence_bwd_plain
 
     def count(kind, fn):
         def wrapped(*a):
@@ -197,23 +203,30 @@ def test_the_recurrence_launches_one_cell_a_timestep_and_layer(monkeypatch):
             return fn(*a)
         return wrapped
 
-    monkeypatch.setattr(lstm, "lstm_cell_fwd", count("fwd", fwd))
-    monkeypatch.setattr(lstm, "lstm_cell_bwd", count("bwd", bwd))
+    monkeypatch.setattr(lstm, "lstm_recurrence_fwd_plain", count("fwd", fwd))
+    monkeypatch.setattr(lstm, "lstm_recurrence_bwd_plain", count("bwd", bwd))
     ts = [torch.tensor(a, requires_grad=True)
           for a in _lstm_inputs(np.float32, t=9)]
     out = preg.exec_op("lstm_layer", *ts)
-    assert calls == {"fwd": 9, "bwd": 0}
+    assert calls == {"fwd": 1, "bwd": 0}
     out[0].sum().backward()
-    assert calls == {"fwd": 9, "bwd": 9}
+    assert calls == {"fwd": 1, "bwd": 1}
+    assert all(t.grad is not None for t in ts)
 
 
 def test_cell_wrappers_refuse_what_the_kernels_do_not_take():
-    z = torch.zeros(2, 8)
-    with pytest.raises(ValueError, match="c_prev"):
-        lstm.lstm_cell_fwd(z, torch.zeros(2, 3), torch.zeros(2, 2),
-                           torch.zeros(2, 2))
+    gx, w = torch.zeros(3, 2, 8), torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="c0"):
+        lstm.lstm_recurrence_fwd(gx, w, torch.zeros(2, 2), torch.zeros(2, 3))
+    with pytest.raises(ValueError, match="gx"):
+        lstm.lstm_recurrence_fwd(torch.zeros(3, 2, 7), w, torch.zeros(2, 2),
+                                 torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="d_hs"):
+        lstm.lstm_recurrence_bwd(gx, torch.zeros(3, 2, 2), torch.zeros(2, 2),
+                                 w, d_hs=torch.zeros(2, 3, 2))
     with pytest.raises(NotImplementedError, match="queue 2b item 11"):
-        lstm.lstm_cell_fwd(z.half(), *(torch.zeros(2, 2).half(),) * 3)
+        lstm.lstm_recurrence_fwd(gx.half(), w.half(),
+                                 *(torch.zeros(2, 2).half(),) * 2)
     x = [torch.tensor(a) for a in _lstm_inputs(np.float32)]
     with pytest.raises(NotImplementedError, match="queue 2b item 11"):
         lstm.lstm_sequence(*[t.bfloat16() for t in x])
@@ -232,7 +245,9 @@ def test_ctypes_declarations_match_the_c_entries():
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int}
     entries = _c_entries()
-    assert sorted(entries) == sorted(lstm.ARGTYPES)
+    assert sorted(entries) == sorted(lstm.ARGTYPES) == [
+        "dl4j_lstm_recurrence_bwd", "dl4j_lstm_recurrence_fwd",
+        "dl4j_lstm_recurrence_query"]
     for name, params in entries.items():
         assert [n for _, n in params] == [n for n, _ in lstm.ARGTYPES[name]]
         assert [c_types[t] for t, _ in params] == \
@@ -244,8 +259,7 @@ def test_loading_the_library_declares_both_entries(monkeypatch):
         argtypes = None
         restype = ctypes.c_int
 
-    lib = types.SimpleNamespace(dl4j_lstm_cell_fwd=Entry(),
-                                dl4j_lstm_cell_bwd=Entry())
+    lib = types.SimpleNamespace(**{name: Entry() for name in lstm.ARGTYPES})
     monkeypatch.setattr(_cuda, "load", lambda name: lib)
     assert lstm._lib() is lib
     for name, args in lstm.ARGTYPES.items():
@@ -253,18 +267,131 @@ def test_loading_the_library_declares_both_entries(monkeypatch):
 
 
 def test_nvcc_command_builds_the_source_for_sm90a():
-    out = _cuda.library_path("lstm_cell")
-    cmd = _cuda.build_command("lstm_cell", out, "nvcc")
+    out = _cuda.library_path("lstm_recurrence")
+    cmd = _cuda.build_command("lstm_recurrence", out, "nvcc")
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert cmd[cmd.index("-I") + 1] == str(SRC.parent)
     assert cmd[-1] == str(SRC)
-    text = SRC.read_text()
-    # one thread a (b, j) unit, templated over float32 and float64, and no
-    # library kernel
-    for want in ("lstm_cell_fwd_kernel<float>", "lstm_cell_fwd_kernel<double>",
-                 "lstm_cell_bwd_kernel<float>", "lstm_cell_bwd_kernel<double>"):
-        assert want in text
-    assert re.findall(r"#include <(\S+)>", text) == ["cuda_runtime.h",
-                                                     "stdint.h"]
+    assert not (SRC.parent / "lstm_cell.cu").exists()
+    code = "\n".join(line.split("//")[0]
+                     for line in SRC.read_text().splitlines())
+    # two persistent kernels each way (resident and streamed), launched as
+    # clusters with the cluster size past 8 allowed; the exchange through
+    # distributed shared memory (the streamed form's through L2, read past
+    # L1) and the cluster barrier; the float32 product in 3xTF32 on
+    # mma.sync (the shared header's), no atomics and no library kernel
+    for want in ("lstm_recurrence_fwd_kernel(const FwdArgs<T> a)",
+                 "lstm_recurrence_bwd_kernel(const BwdArgs<T> a)",
+                 "lstm_stream_fwd_kernel(const FwdArgs<T> a)",
+                 "lstm_stream_bwd_kernel(const BwdArgs<T> a)", "__ldcg(",
+                 "cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                 "cudaFuncAttributeNonPortableClusterSizeAllowed",
+                 "cudaOccupancyMaxActiveClusters", "mapa.shared::cluster",
+                 "st.shared::cluster", "barrier.cluster.arrive.release",
+                 "barrier.cluster.wait.acquire", "cp.async.ca.shared.global",
+                 "mma_tf32(", "tf32_split(", "fwd_t<float>", "fwd_t<double>",
+                 "bwd_t<float>", "bwd_t<double>"):
+        assert want in code, want
+    assert "atomic" not in code.lower()
+    for lib in ("cublas", "cudnn", "cutlass", "#include <torch"):
+        assert lib not in code.lower()
+    assert re.findall(r"#include <(\S+)>", code) == [
+        "cuda_runtime.h", "math.h", "stdint.h", "initializer_list", "mutex",
+        "set", "type_traits"]
+    assert re.findall(r'#include "(\S+)"', code) == ["sm90.cuh"]
+
+
+# ----------------------------------------------------------------------
+# the recurrence's plain versions (what the CUDA kernels compute) against
+# JAX's lstm_layer and its vjp
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("b,t,u", [(3, 1, 5), (3, 7, 37), (4, 9, 16)])
+@pytest.mark.parametrize("given", ["all", "d_hs", "dh_T,dc_T"])
+def test_recurrence_plain_versions_match_jax_lstm_layer_and_its_vjp(
+        dtype, b, t, u, given):
+    """The forward from gx = x @ W_ih + b, then the backward from the
+    output gradients ``given`` (the others absent: None), and dx, dh0,
+    dc0, dW_ih, dW_hh and db made from its dz as LSTMSequence makes them,
+    against ``jax.vjp`` of the JAX op."""
+    n_in = 6
+    arrs = _lstm_inputs(dtype, seed=b * t + u, b=b, t=t, n_in=n_in, u=u)
+    jfn = jreg.get_op("lstm_layer").fn
+    jouts, vjp = jax.vjp(jfn, *map(jnp.asarray, arrs))
+    rng = np.random.default_rng(11)
+    cot = {"d_hs": rng.normal(size=(b, t, u)).astype(dtype),
+           "dh_T": rng.normal(size=(b, u)).astype(dtype),
+           "dc_T": rng.normal(size=(b, u)).astype(dtype)}
+    if given != "all":
+        cot = {k: (v if k in given.split(",") else None)
+               for k, v in cot.items()}
+    jgrads = vjp(tuple(jnp.zeros_like(o) if c is None else jnp.asarray(c)
+                       for o, c in zip(jouts, cot.values())))
+    x, h0, c0, w_ih, w_hh, bias = map(torch.tensor, arrs)
+    x2 = x.transpose(0, 1).reshape(t * b, n_in)
+    gx = torch.addmm(bias, x2, w_ih).view(t, b, 4 * u)
+    gates, hs, cs = lstm.lstm_recurrence_fwd_plain(gx, w_hh, h0, c0)
+    for got, want in zip((hs.transpose(0, 1), hs[-1], cs[-1]), jouts):
+        _close(got, want, TOL[dtype])
+    d_hs = cot["d_hs"]
+    dz, dh0, dc0 = lstm.lstm_recurrence_bwd_plain(
+        gates, cs, c0, w_hh,
+        None if d_hs is None else torch.tensor(d_hs).transpose(0, 1),
+        *(None if cot[k] is None else torch.tensor(cot[k])
+          for k in ("dh_T", "dc_T")))
+    dz2 = dz.reshape(t * b, 4 * u)
+    h_prev = torch.cat([h0[None], hs[:-1]]).reshape(t * b, u)
+    grads = ((dz2 @ w_ih.t()).view(t, b, n_in).transpose(0, 1), dh0, dc0,
+             x2.t() @ dz2, h_prev.t() @ dz2, dz2.sum(0))
+    for got, want in zip(grads, jgrads):
+        _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b", [1, 3, 8, 32, 100, 1000])
+@pytest.mark.parametrize("u", [1, 5, 16, 37, 100, 256, 300, 512, 1024,
+                               4096, 20000])
+def test_launch_plan_covers_every_unit_and_row_once_within_shared_memory(
+        u, b, itemsize):
+    plan = lstm.recurrence_plan(b, u, itemsize)
+    assert max(plan.smem_fwd, plan.smem_bwd) <= lstm.SMEM_LIMIT == 232448
+    assert 1 <= plan.ranks <= min(u, 16)
+    assert plan.n_tiles in lstm.N_TILES
+    units = [list(r) for r in plan.block_units(u)]
+    assert all(units) and sum(units, []) == list(range(u))
+    rows = [list(r) for r in plan.cluster_rows(b)]
+    assert all(rows) and sum(rows, []) == list(range(b))
+    # resident exactly where both directions fit with the slice
+    fit = max(lstm.recurrence_geometry(u, plan.ranks, 1, True, itemsize))
+    assert plan.resident == (fit <= lstm.SMEM_LIMIT)
+    assert (plan.smem_fwd, plan.smem_bwd) == lstm.recurrence_geometry(
+        u, plan.ranks, plan.n_tiles, plan.resident, itemsize)
+
+
+def test_launch_plan_of_textgen_and_of_a_width_past_the_resident_slice():
+    """TextGenLSTM's layer (32 rows, 256 units, float32): 16 blocks of 16
+    units, the 64 KiB slice resident (99,968 / 97,792 bytes a block at
+    8 rows a cluster); 512 float32 units take the streamed form; the
+    batch tile grows only where the card cannot hold the clusters."""
+    p = lstm.recurrence_plan(32, 256, 4)
+    assert (p.ranks, p.units, p.resident, p.n_tiles, p.clusters) == \
+        (16, 16, True, 1, 4)
+    assert (p.smem_fwd, p.smem_bwd) == (99968, 97792)
+    assert not lstm.recurrence_plan(8, 512, 4).resident
+    assert lstm.recurrence_plan(8, 512, 4).ranks == 16
+    assert lstm.recurrence_plan(32, 256, 8).resident
+    for limit, tiles in ((4, 1), (2, 2), (1, 4), (0, 4)):
+        p = lstm.recurrence_plan(32, 256, 4, lambda r, nt, res: limit)
+        assert (p.n_tiles, p.clusters, p.max_clusters) == \
+            (tiles, 4 // tiles, limit)
+    # the streamed form takes any width, one tile of 8 rows a cluster, its
+    # shared memory the warps' partial products alone
+    for u, itemsize in ((2048, 4), (2048, 8), (4096, 4), (1 << 20, 8)):
+        p = lstm.recurrence_plan(20, u, itemsize)
+        assert (p.ranks, p.units, p.resident, p.n_tiles, p.clusters) == \
+            (16, u // 16, False, 1, 3)
+        assert (p.smem_fwd, p.smem_bwd) == (2048 * itemsize, 1024 * itemsize)
+        p = lstm.recurrence_plan(20, u, itemsize, lambda r, nt, res: 1)
+        assert (p.n_tiles, p.clusters) == (1, 3)
 
 
 # ----------------------------------------------------------------------
