@@ -5,10 +5,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the six CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   limit; the builds of the seven CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
    csrc/causal_attention.cu, csrc/paged_attention.cu,
-   csrc/attention_f32.cu, csrc/int8_matmul.cu and
-   csrc/lstm_recurrence.cu, one nvcc each, started together: seconds,
+   csrc/attention_f32.cu, csrc/int8_matmul.cu, csrc/lstm_recurrence.cu
+   and csrc/dropout.cu, one nvcc each, started together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -396,6 +396,37 @@ Phases, in order; any failure exits non-zero:
    layer's chunk beside its plain version, its bound and its time a step,
    and one layer (the hoisted GEMM and the kernels) forward, backward and
    both against cuDNN's ``nn.LSTM`` (TF32 off), device time.
+28. main path: the zoo's convolutional models, float32 with TF32 off.
+   (i) the dropout kernel (``csrc/dropout.cu``, built with the others)
+   against ``dropout_plain`` bit for bit, forward and backward: AlexNet's
+   two shapes and odd sizes, views off 16 bytes, bf16/float32/float64,
+   iterations past 2^32; masks differ from iteration to iteration; one
+   captured CUDA graph replayed at staged iterations draws theirs; the
+   kept fraction within 5 standard deviations of p. (ii) ``YOLO2()``
+   (416x416, 20 classes, the five VOC anchors, Adam(1e-3)), batch 16,
+   seeded images and three boxes an image on the 13x13 grid, through
+   ``ComputationGraph.fit``: the scanned epoch of 8 steps (the BN kernels'
+   counts set to 0 before it: 22 + 22 a step, plain BN pairs), windows of
+   4 and per-step, each timed; step ms, images/s, a profiled pass
+   (device launches, idle share, device time by group) and
+   ``yolo2_loss`` timed alone; gates: two scanned runs bit for bit (else
+   cuDNN deterministic, said), scanned against per-step by the tier rule,
+   the loss falling over 10 steps on one batch, the float64 64x64 YOLO2
+   (the JAX test's size) card scanned against CPU per-step to 1e-6.
+   (iii) ``AlexNet()`` (224x224, 1000 classes, Nesterovs(1e-2, 0.9),
+   dropout 0.5 on its two 4096-unit layers' inputs), batch 128, through
+   ``MultiLayerNetwork.fit`` on the three tiers: the masks each drew (a
+   device tap) equal, each the plain version's for (seed, iteration,
+   node), new each step, their kept fractions; losses by the tier rule; a
+   run captured at step 4 and resumed in a new network bit-equal to an
+   uninterrupted one; the scanned epoch's dropout launches (2 + 2 a
+   step), the tiers timed, a profiled pass. (iv) the dropout kernel
+   alone at AlexNet's shapes beside its plain version, ``F.dropout`` and
+   its bound (bytes). (v) every other ported model at its published
+   input size, batch 8: one per-step step and one ``output``: a finite
+   loss, the output's shape, the parameter count. (vi) the streamed
+   recurrence kernels (past 384 float32 units) at (32, 50, 512) and (32,
+   50, 1024) alone, their bound and cuDNN's ``nn.LSTM`` each way.
 
 Every idle share is read from one profiled pass: its device busy time
 against that pass's own wall time.
@@ -407,7 +438,8 @@ are per training step of that path, per decode step for
 paged_decode_attention and its int8 form,
 per 512-row prefill for the float32 prefill kernels and the int8 paged
 prefill, per speculative round for int8_matmul and paged_verify_attention
-and its int8 form, per TBPTT chunk for the LSTM cell kernels),
+and its int8 form, per TBPTT chunk for the LSTM cell kernels, per
+AlexNet step for the dropout kernels),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -6790,6 +6822,863 @@ def phase_textgen(dev, card, card_name):
     return records, {"f64_worst": worst, "chunk_ms": run["chunk_ms"],
                      "tiers": {k: v["step_ms"] for k, v in tiers.items()}}
 
+# ----------------------------------------------------------------------
+# phase 28: the zoo's convolutional models
+P28_SOURCE = "deeplearning4j_tpu_torch/csrc/dropout.cu"
+P28_REPLACES = "deeplearning4j_tpu/ops/random.py:104"
+P28_KERNELS = ("dropout_fwd", "dropout_bwd")
+#: YOLO2 at the zoo's defaults (416x416, 20 VOC classes, 5 anchors, Adam)
+P28_YOLO_BATCH, P28_YOLO_STEPS = 16, 8
+#: AlexNet at the zoo's defaults (224x224, 1000 classes, Nesterovs)
+P28_ALEX_BATCH, P28_ALEX_STEPS = 128, 8
+#: the inputs of AlexNet's two 4096-unit dense layers, which it drops
+P28_ALEX_DROP = ((P28_ALEX_BATCH, 6400), (P28_ALEX_BATCH, 4096))
+P28_P = 0.5
+#: every other ported model at its published input size, batch 8, and its
+#: parameter count (tests/test_torch_zoo_published.py holds this table to
+#: the port's build at these sizes and, for YOLO2 and AlexNet, to the JAX
+#: networks'; the model tests hold each count at small sizes to JAX's)
+P28_PARAMS = {"YOLO2": 50655389, "AlexNet": 50844008, "SimpleCNN": 395658,
+              "VGG16": 138357544, "VGG19": 143667240,
+              "Darknet19": 21843376, "TinyYOLO": 15861773,
+              "SqueezeNet": 2236496, "UNet": 116753, "Xception": 17912960,
+              "InceptionResNetV1": 22756328, "FaceNet": 21321832,
+              "NASNet": 1773456}
+#: each model's output shape at its published size, less the batch axis
+#: (``tests/test_torch_zoo_published.py`` holds the port's CPU builds to
+#: it)
+P28_OUTPUT = {"SimpleCNN": (10,), "VGG16": (1000,), "VGG19": (1000,),
+              "Darknet19": (1000,), "TinyYOLO": (125, 13, 13),
+              "SqueezeNet": (1000,), "UNet": (1, 64, 64),
+              "Xception": (1000,), "InceptionResNetV1": (1000,),
+              "FaceNet": (1000,), "NASNet": (1000,)}
+P28_OTHERS = ("SimpleCNN", "VGG16", "VGG19", "Darknet19", "TinyYOLO",
+              "SqueezeNet", "UNet", "Xception", "InceptionResNetV1",
+              "FaceNet", "NASNet")
+#: device-time groups of a profiled YOLO2 / AlexNet step, by kernel name
+P28_GROUPS = (
+    ("BN kernels", ("bn_bwd_phase", "bn_relu_bwd_phase")),
+    ("dropout kernel", ("dropout_kernel",)),
+    ("Adam / Nesterovs (_foreach)", ("multi_tensor_apply",)),
+    ("cuDNN convolutions / GEMMs", ("conv", "cudnn", "nvjet", "gemm", "xmma",
+                                   "cutlass", "sm90_", "wgrad", "dgrad",
+                                   "implicit", "winograd", "fft")),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "Functor", "vectorized", "unrolled")),
+)
+#: the streamed recurrence kernels' shapes (widths past the resident
+#: slice): (B, T, U) float32
+P28_STREAM_SHAPES = ((32, 50, 512), (32, 50, 1024))
+
+
+def _p28_group(name):
+    return next((g for g, keys in P28_GROUPS
+                 if any(k in name for k in keys)), "other")
+
+
+def _p28_profile(fit, steps, card, label):
+    """One pass of ``fit()`` under torch.profiler: device launches a
+    step, busy ms a step (the union of device events), the pass's own
+    wall a step and the idle share, device time by group."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        traced_ms = 1000 * (time.perf_counter() - t0) / steps
+    n_dev, n_kern, busy, by_name = device_activity(prof)
+    if busy == 0:
+        raise SystemExit(f"{label}: the profiler recorded no device time")
+    groups = {}
+    for name, ms in by_name.items():
+        g = _p28_group(name)
+        groups[g] = groups.get(g, 0.0) + ms / steps
+    busy /= steps
+    log(f"    {label}, profiled pass: {n_kern / steps:.1f} device launches "
+        f"a step ({n_dev / steps:.1f} device events), busy {busy:.3f} ms of "
+        f"the pass's own {traced_ms:.3f} ms a step: idle share "
+        f"{1 - busy / traced_ms:.3f}  [{card}]")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"      {ms:9.4f} ms a step  {g}")
+    return {"launches_per_step": n_kern / steps, "busy_ms": busy,
+            "traced_ms": traced_ms, "idle_share": 1 - busy / traced_ms,
+            "groups_ms": groups}
+
+
+def _p28_dropout_case(x, dy, seed, it, node, p, errs, label):
+    """The kernel's forward and backward (through autograd, ``dy`` the
+    output's gradient) against the plain version: bit for bit. ``x`` and
+    ``dy`` may be views off 16 bytes: the kernel reads them in place."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    xg = x.detach().requires_grad_(True)
+    y = dk.dropout(xg, p, seed, it, node)
+    y.backward(dy)
+    want_y = dk.dropout_plain(x, p, seed, it, node)
+    want_dx = dk.dropout_plain(dy, p, seed, it, node)
+    for name, got, want in (("dropout_fwd", y.detach(), want_y),
+                            ("dropout_bwd", xg.grad, want_dx)):
+        err = float((got.double() - want.double()).abs().max()) \
+            if got.numel() else 0.0
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not torch.equal(got, want):
+            raise SystemExit(f"phase 28: {name} against its plain version "
+                             f"at {label}: max |err| {err}")
+
+
+def p28_check_dropout(dev):
+    """The dropout kernel against its plain version, bit for bit: at
+    AlexNet's two shapes, odd sizes (not a multiple of 4) and views off
+    16 bytes, in bf16, float32 and float64, at iterations past 2^32 and
+    several nodes; masks differ from iteration to iteration; a CUDA graph
+    captured once draws the masks of the iterations staged before each
+    replay; the kept fraction within 5 standard deviations of p. Returns
+    the max |err| of each (0: bit-equal)."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    snap = dict(dk.LAUNCHES)
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(28)
+    seed = torch.tensor([12345], dtype=torch.int64, device=dev)
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        for shape in P28_ALEX_DROP + ((1,), (3,), (5,), (4097,),
+                                      (7, 1003)):
+            for it_v, node, p in ((0, 3, 0.5), (7, 11, 0.8),
+                                  (2 ** 33 + 5, 2, 0.9)):
+                it = torch.tensor([it_v], dtype=torch.int64, device=dev)
+                n = int(np.prod(shape))
+                xs = torch.randn(2, n + 1, generator=g, device=dev,
+                                 dtype=torch.float32).to(dtype)
+                _p28_dropout_case(xs[0, :n].reshape(shape),
+                                  xs[1, :n].reshape(shape), seed, it, node,
+                                  p, errs, f"{tuple(shape)} {dtype} it "
+                                           f"{it_v}")
+                if xs[0, 1:].data_ptr() % 16 == 0:
+                    raise SystemExit("the view is not off 16 bytes")
+                _p28_dropout_case(xs[0, 1:], xs[1, 1:], seed, it, node, p,
+                                  errs, f"a view off 16 bytes, {n} {dtype}")
+                n_cases += 2
+    # masks from iteration to iteration, and their kept fraction
+    n = P28_ALEX_DROP[0][0] * P28_ALEX_DROP[0][1]
+    ones = torch.ones(n, device=dev)
+    masks = []
+    for it_v in range(4):
+        it = torch.tensor([it_v], dtype=torch.int64, device=dev)
+        masks.append(dk.dropout_apply(ones, P28_P, seed, it, 5) != 0)
+    same = [bool(torch.equal(masks[i], masks[i + 1])) for i in range(3)]
+    frac = [float(m.float().mean()) for m in masks]
+    sigma = math.sqrt(P28_P * (1 - P28_P) / n)
+    # a captured graph reads the iteration staged before each replay
+    it_buf = torch.zeros(1, dtype=torch.int64, device=dev)
+    x = torch.randn(n, generator=g, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        dk.dropout_apply(x, P28_P, seed, it_buf, 5)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_static = dk.dropout_apply(x, P28_P, seed, it_buf, 5)
+    replayed = []
+    for it_v in (3, 9, 3):
+        it_buf.fill_(it_v)
+        graph.replay()
+        replayed.append(bool(torch.equal(
+            y_static, dk.dropout_plain(x, P28_P, seed, it_v, 5))))
+    dk.LAUNCHES.update(snap)          # check launches do not count
+    log(f"  the dropout kernel against dropout_plain, {n_cases} cases "
+        f"(forward and backward each): bit-equal; max |err| {errs}; masks "
+        f"of iterations 0-3 equal to the next's: {same}; kept fractions "
+        f"{[round(f, 5) for f in frac]} (p {P28_P}, sigma {sigma:.2e}); "
+        f"one captured graph replayed at iterations 3, 9, 3: each the "
+        f"plain version's mask for that iteration {replayed}")
+    if any(same) or not all(replayed) or any(
+            abs(f - P28_P) > 5 * sigma for f in frac):
+        raise SystemExit("phase 28: dropout masks do not change with the "
+                         "iteration, a replay baked its iteration, or the "
+                         "kept fraction is off")
+    return errs
+
+
+def _p28_yolo_data(n, hw, classes, seed):
+    """Seeded images in [0, 1) and YOLOv2 labels (B, 4+C, g, g): three
+    boxes an image, each in a random cell of the g x g grid (hw / 32),
+    centred in it with a random size of 0.5-4 cells and a random class."""
+    rng = np.random.default_rng(seed)
+    g = hw // 32
+    x = rng.random((n, 3, hw, hw), dtype=np.float32)
+    y = np.zeros((n, 4 + classes, g, g), np.float32)
+    for i in range(n):
+        cells = rng.choice(g * g, size=min(3, g * g), replace=False)
+        for c in cells:
+            r, col = divmod(int(c), g)
+            w, h = rng.uniform(0.5, 4.0, 2)
+            cx, cy = col + rng.random(), r + rng.random()
+            y[i, 0:4, r, col] = (cx - w / 2, cy - h / 2, cx + w / 2,
+                                 cy + h / 2)
+            y[i, 4 + rng.integers(classes), r, col] = 1.0
+    return x, y
+
+
+def _p28_state(net):
+    """A host copy of a network's parameters and statistics."""
+    if hasattr(net, "model"):
+        return {k: v.detach().cpu().clone()
+                for k, v in net.model.state_dict().items()}
+    return {k: torch.from_numpy(v) for k, v in net.params().items()}
+
+
+def _p28_equal(a, b):
+    return a[1] == b[1] and all(torch.equal(v, b[0][k])
+                                for k, v in a[0].items())
+
+
+def _p28_det_pair(run, label):
+    """Two runs of ``run()`` bit-equal; if not, again with cuDNN
+    deterministic (set for the rest of the phase, and said)."""
+    a, b = run(), run()
+    same = _p28_equal(a, b)
+    log(f"  {label}: two runs from one start bit-equal {same} (cuDNN "
+        f"deterministic {torch.backends.cudnn.deterministic})")
+    if not same:
+        torch.backends.cudnn.deterministic = True
+        log("  not bit-equal: cuDNN's chosen algorithms are not "
+            "deterministic; this model's remaining gates set "
+            "torch.backends.cudnn.deterministic")
+        a, b = run(), run()
+        same = _p28_equal(a, b)
+        log(f"  {label}, cuDNN deterministic: bit-equal {same}")
+        if not same:
+            raise SystemExit(f"phase 28: {label}: two runs differ")
+    return a
+
+
+def _p28_yolo_net(dev, dtype="float32", hw=416, classes=20, anchors=None):
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    kw = {} if anchors is None else {"anchors": anchors}
+    conf = YOLO2(height=hw, width=hw, num_classes=classes, **kw).conf()
+    conf.dtype = dtype
+    return ComputationGraph(conf).init(dev)
+
+
+def p28_check_bn(calls, dev):
+    """The BN kernel pair against its plain versions (``check_kernels``)
+    at each distinct (shape, relu, dtype, x and dy strides, gamma dtype)
+    that YOLO2's step hands it: float32 with C 32 at 416x416 down to C
+    1024 and 1280 on the 13x13 grid. Returns the max |err| of each."""
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    errs = {}
+    for i, (shape, relu, dtype, xs, ys, gdtype) in enumerate(
+            sorted(set(calls), key=str)):
+        c = shape[1]
+        chan = [1] * len(shape)
+        chan[1] = c
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.empty_strided(shape, xs, dtype=dtype, device=dev)
+        x.copy_(torch.randn(shape, device=dev, generator=g)
+                + 2 * torch.randn(chan, device=dev, generator=g))
+        dy = torch.empty_strided(shape, ys, dtype=dtype, device=dev)
+        dy.copy_(torch.randn(shape, device=dev, generator=g))
+        gamma = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).to(
+            gdtype)
+        beta = (0.1 * torch.randn(c, device=dev, generator=g)).to(gdtype)
+        _, mean, _, inv, a, b = bn_relu.bn_train_forward(x, gamma, beta,
+                                                         1e-5, relu)
+        check_kernels(x, dy, gamma, mean, inv, a, b, relu, errs,
+                      f"{str(dtype)[6:]} relu={int(relu)} {shape} x "
+                      f"strides {xs} dy {ys} gamma {str(gdtype)[6:]}")
+        del x, dy
+    torch.cuda.empty_cache()
+    log(f"  YOLO2's {len(calls)} BN backwards a step, "
+        f"{len(set(calls))} distinct: the kernels against their plain "
+        f"versions, max |err| {errs}")
+    return errs
+
+
+def p28_yolo(dev, card):
+    """YOLO2 at 416x416, batch 16, float32 (TF32 off), Adam(1e-3):
+    ``ComputationGraph.fit`` on the scanned epoch, windows of 4 and
+    per-step; gates and measurements."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.kernels import bn_relu
+    b, steps = P28_YOLO_BATCH, P28_YOLO_STEPS
+    t0 = time.perf_counter()
+    xn, yn = _p28_yolo_data(b * steps, 416, 20, 0)
+    it = DeviceCachedIterator(xn, yn, batch_size=b, device=dev)
+    net = _p28_yolo_net(dev)
+    if net.num_params() != P28_PARAMS["YOLO2"]:
+        raise SystemExit(f"YOLO2 has {net.num_params()} parameters")
+    log(f"  YOLO2 416x416 ({net.num_params()} parameters, 22 BN layers "
+        f"each into a leaky ReLU) and {b * steps} images with box labels "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    # the shapes, dtypes and layouts the path hands the BN kernels
+    # (recorded in the warm-up steps and the capture, as phase 6 does)
+    calls = []
+    real = bn_relu.bn_relu_bwd
+
+    def recording(x, dy, gamma, mean, inv, a, b, relu):
+        calls.append((tuple(x.shape), bool(relu), x.dtype, x.stride(),
+                      dy.stride(), gamma.dtype))
+        return real(x, dy, gamma, mean, inv, a, b, relu)
+
+    bn_relu.bn_relu_bwd = recording
+    try:
+        t0 = time.perf_counter()
+        warm = net.fit(it, epochs=1)
+        torch.cuda.synchronize()
+    finally:
+        bn_relu.bn_relu_bwd = real
+    log(f"  warm-up epoch (2 warm-up steps grow the BN phase-1 scratch, "
+        f"the capture, one replay): {time.perf_counter() - t0:.1f} s, "
+        f"losses {[round(v, 4) for v in warm.step_losses]}; "
+        f"{net.last_fit_stats}")
+    per_step = calls[-22:]
+    if len(calls) != 22 * (2 + steps) or sorted(per_step, key=str) != \
+            sorted(calls[:22], key=str):
+        raise SystemExit(f"{len(calls)} BN backward calls recorded in "
+                         f"YOLO2's warm-up steps and capture")
+    bn_errs = p28_check_bn(per_step, dev)
+    bn_relu.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(bn_relu.LAUNCHES)
+    st = dict(net.last_fit_stats)
+    step_ms = 1000 * wall / steps
+    per_step = {k: v / steps for k, v in launches.items()}
+    log(f"  timed epoch (scanned, {st['graph_replays_per_epoch']} replay): "
+        f"step {step_ms:.2f} ms, {b * steps / wall:.1f} images/s, losses "
+        f"{[round(v, 4) for v in hist.step_losses]}; BN kernel launches a "
+        f"step {per_step}  [{card}]")
+    want = {"bn_bwd_phase1": 22 * steps, "bn_bwd_phase2": 22 * steps,
+            "bn_relu_bwd_phase1": 0, "bn_relu_bwd_phase2": 0}
+    if launches != want or st["tier"] != "scanned_epoch" or \
+            st["graph_replays_per_epoch"] != 1 or \
+            not np.all(np.isfinite(hist.step_losses)):
+        raise SystemExit(f"YOLO2 timed epoch: launches {launches}, want "
+                         f"{want}; {st}")
+    prof = _p28_profile(lambda: net.fit(it, epochs=1), steps, card,
+                        "YOLO2 scanned epoch")
+    tiers = {"scanned": [step_ms]}
+    for tier, kw in (("windows", {"fused_steps": 4}),
+                     ("per-step", {"fused_steps": 1,
+                                   "listeners": [_quiet_listener()]})):
+        net.fit(it, epochs=1, **kw)                    # warm-up, capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = net.fit(it, epochs=1, **kw)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0) / steps
+        tiers[tier] = [ms]
+        log(f"  {tier}: step {ms:.2f} ms, {1000 * b / ms:.1f} images/s; "
+            f"{net.last_fit_stats['tier']}, "
+            f"{net.last_fit_stats['graph_replays_per_epoch']} replays an "
+            f"epoch; losses finite {bool(np.all(np.isfinite(h.step_losses)))}"
+            f"  [{card}]")
+    # yolo2_loss alone, forward and backward, at the step's shapes
+    from deeplearning4j_tpu_torch.ops.nn_ext import yolo2_loss
+    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    pred = torch.randn(b, 13, 13, 125, device=dev, requires_grad=True)
+    lab = it.stacked_batches()[1][0][0].permute(0, 2, 3, 1)
+    anchors = net.model["yolo"].anchors
+    loss_ms = queued_ms(lambda: torch.autograd.grad(
+        yolo2_loss(pred, lab, anchors), pred), flush)
+    log(f"  yolo2_loss forward and backward alone at the step's shapes "
+        f"({b}, 13, 13, 125): {loss_ms:.4f} ms  [{card}]")
+    del net, it, flush
+    torch.cuda.empty_cache()
+
+    # gates: two scanned runs bit for bit; scanned against per-step
+    def run(kw=None):
+        netr = _p28_yolo_net(dev)
+        itr = DeviceCachedIterator(xn, yn, batch_size=b, device=dev)
+        h = netr.fit(itr, epochs=1, **(kw or {}))
+        out = (_p28_state(netr), h.step_losses)
+        del netr, itr
+        torch.cuda.empty_cache()
+        return out
+    a = _p28_det_pair(run, "YOLO2 scanned epoch")
+    c = run({"fused_steps": 1, "listeners": [_quiet_listener()]})
+    reading = _reading({k: v.double() for k, v in a[0].items()},
+                       {k: v.double() for k, v in c[0].items()}, a[1], c[1])
+    log(f"  scanned against per-step from the same weights, {steps} steps: "
+        f"tier rule {reading:.3g} (<= 1 passes), bit-equal "
+        f"{_p28_equal(a, c)}  [{card}]")
+    if reading > 1:
+        raise SystemExit("phase 28: YOLO2's scanned and per-step tiers "
+                         "disagree")
+    # the loss falls over 10 steps on a fixed batch; at Adam(1e-4): from
+    # the initial weights the zoo's Adam(1e-3) first sends the loss up
+    # (the timed epochs above), and the JAX network's the same way
+    # (tests/test_torch_zoo_detect.py
+    # test_yolo2_voc_anchors_adam_steps_match_jax)
+    from deeplearning4j_tpu_torch.learning import Adam
+    netf = _p28_yolo_net(dev)
+    netf.training_config.updater = Adam(1e-4)
+    one = DeviceCachedIterator(xn[:b], yn[:b], batch_size=b, device=dev)
+    fall = netf.fit(one, epochs=10).step_losses
+    log(f"  10 steps of Adam(1e-4) on one batch: losses "
+        f"{[round(v, 4) for v in fall]}")
+    if not (np.all(np.isfinite(fall)) and fall[-1] < fall[0]):
+        raise SystemExit("phase 28: YOLO2's loss does not fall on a fixed "
+                         "batch")
+    del netf, one
+    torch.cuda.empty_cache()
+    worst = p28_yolo_f64()
+    return {"step_ms": step_ms, "images_per_s": 1000 * b / step_ms,
+            "tiers": tiers, "profile": prof, "loss_ms": loss_ms,
+            "tier_reading": reading, "f64_worst": worst, "bn_errs": bn_errs,
+            "bn_launches_per_step": {k: v / steps
+                                     for k, v in launches.items()}}
+
+
+def p28_yolo_f64():
+    """YOLO2 at the JAX test's size (64x64, 2 classes, anchors (1, 1, 2,
+    2), batch 2) in float64, TF32 off, from the same weights: two steps on
+    the card's scanned tier against the CPU's per-step tier, every
+    trained tensor's change, statistic and loss to 1e-6."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    rng = np.random.RandomState(4)
+    b, c = 2, 2
+    x = rng.rand(2 * b, 3, 64, 64)
+    y = np.zeros((2 * b, 4 + c, 2, 2))
+    y[:, 0:4, 1, 1] = (0.5, 0.5, 1.5, 1.5)
+    y[:, 4, 1, 1] = 1.0
+    y[b:, 0:4, 0, 1] = (1.25, 0.25, 2.0, 1.5)
+    y[b:, 5, 0, 1] = 1.0
+    nets = {}
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        nets[tag] = _p28_yolo_net(dev, "float64", 64, c, (1.0, 1.0, 2.0,
+                                                          2.0))
+    nets["card"].model.load_state_dict(nets["cpu"].model.state_dict())
+    init = nets["cpu"].params()
+    hc = nets["card"].fit(DeviceCachedIterator(x, y, batch_size=b,
+                                               device="cuda"), epochs=1)
+    hh = nets["cpu"].fit([(x[:b], y[:b]), (x[b:], y[b:])], epochs=1)
+    pc, ph = nets["card"].params(), nets["cpu"].params()
+    stats = [k for k in pc if k.endswith(("_mean", "_var"))]
+    trained = [k for k in pc if k not in stats]
+    change = _max_rel({k: pc[k] - init[k] for k in trained},
+                      {k: ph[k] - init[k] for k in trained})
+    stat = _max_rel({k: pc[k] for k in stats}, {k: ph[k] for k in stats})
+    loss = max(abs(p - q) / abs(q) for p, q in zip(hc.step_losses,
+                                                    hh.step_losses))
+    worst = max(max(change.values()), max(stat.values()), loss)
+    log(f"  YOLO2 64x64 float64: card {nets['card'].last_fit_stats['tier']} "
+        f"against CPU {nets['cpu'].last_fit_stats['tier']}, 2 steps: worst "
+        f"change {max(change.values()):.2e} ({max(change, key=change.get)}),"
+        f" statistic {max(stat.values()):.2e}, loss {loss:.2e} (tol 1e-6)")
+    if worst > 1e-6:
+        raise SystemExit("phase 28: YOLO2 float64 card against CPU")
+    return worst
+
+
+def _p28_alex_net(dev):
+    from deeplearning4j_tpu_torch.zoo import AlexNet
+    return AlexNet().build(dev)
+
+
+def _mask_tap(real, rings):
+    """``kernels/dropout.py`` ``dropout`` that also writes each draw's
+    mask of a node in ``rings`` (node -> (R, n) bool) to row ``iteration
+    % R``, on the device: a captured window replays the write, so the
+    rings hold the masks a fit drew step by step (its extra launches are
+    not the main path's and are not read)."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+
+    def tapped(x, p, seed, iteration, node):
+        ring = rings.get(node)
+        if ring is not None:
+            with torch.no_grad():
+                ones = torch.ones(x.shape, device=x.device)
+                keep = dk.dropout_apply(ones, p, seed, iteration, node) != 0
+                row = torch.remainder(iteration.reshape(1), ring.shape[0])
+                ring.index_copy_(0, row, keep.reshape(1, -1))
+        return real(x, p, seed, iteration, node)
+    return tapped
+
+
+def _p28_drop_nodes(net):
+    """AlexNet's dropout nodes in its training graph: (node, n)."""
+    nodes = [op.attrs["node"] for op in net.samediff.ops()
+             if op.op == "dropout"]
+    if len(nodes) != 2:
+        raise SystemExit(f"AlexNet's training graph holds {len(nodes)} "
+                         f"dropout ops")
+    return list(zip(nodes, (d[1] for d in P28_ALEX_DROP)))
+
+
+def p28_alexnet(dev, card):
+    """AlexNet at 224x224, batch 128, float32 (TF32 off), Nesterovs(1e-2,
+    0.9), dropout 0.5 on the two dense layers' inputs, through
+    ``MultiLayerNetwork.fit`` on the three tiers: the masks each tier drew
+    (a device tap, :func:`_mask_tap`), the losses, a resume,
+    then the timed tiers and a profiled pass."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    from deeplearning4j_tpu_torch.kernels.dropout import keep_mask_plain
+    from deeplearning4j_tpu_torch.ops import random as rops
+    b, steps = P28_ALEX_BATCH, P28_ALEX_STEPS
+    det0 = torch.backends.cudnn.deterministic
+    rng = np.random.default_rng(0)
+    xn = rng.standard_normal((b * steps, 3, 224, 224), dtype=np.float32)
+    yn = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b * steps)]
+    tiers = (("scanned", {"fused_steps": 1}),
+             ("windows", {"fused_steps": 4,
+                          "listeners": [_quiet_listener()]}),
+             ("per-step", {"fused_steps": 1,
+                           "listeners": [_quiet_listener()]}))
+
+    def run(kw, tap=True, part=None):
+        net = _p28_alex_net(dev)
+        rings = {}
+        real = rops.dropout_kernel.dropout
+        if tap:
+            for node, n in _p28_drop_nodes(net):
+                rings[node] = torch.zeros(steps, b * n, dtype=torch.bool,
+                                          device=dev)
+            rops.dropout_kernel.dropout = _mask_tap(real, rings)
+        try:
+            lo, hi = part or (0, steps)
+            itr = DeviceCachedIterator(xn[lo * b:hi * b], yn[lo * b:hi * b],
+                                       batch_size=b, device=dev)
+            h = net.fit(itr, epochs=1, **kw)
+        finally:
+            rops.dropout_kernel.dropout = real
+        return net, h, {k: v.cpu() for k, v in rings.items()}
+
+    def whole():
+        net, h, _ = run({}, tap=False)
+        return (_p28_state(net), h.step_losses)
+    # cuDNN's default algorithms need not be deterministic, and AlexNet at
+    # Nesterovs(1e-2) carries a run's rounding into the next steps: two
+    # scanned runs decide whether the comparisons set it deterministic
+    a = _p28_det_pair(whole, "AlexNet scanned epoch")
+    results = {}
+    for tier, kw in tiers:
+        net, h, rings = run(kw)
+        results[tier] = (_p28_state(net), h.step_losses, rings,
+                         net.samediff._fit_base_seed,
+                         dict(net.samediff.last_fit_stats))
+        del net
+        torch.cuda.empty_cache()
+    ref = results["scanned"]
+    masks_equal = {t: all(torch.equal(r[2][k], ref[2][k]) for k in ref[2])
+                   for t, r in results.items()}
+    plain_equal, differ, fracs = True, True, []
+    for node, ring in ref[2].items():
+        for i in range(steps):
+            want = keep_mask_plain(ring.shape[1], ref[3], i, node, P28_P,
+                                   dev).cpu()
+            plain_equal &= bool(torch.equal(ring[i], want))
+            fracs.append(float(ring[i].float().mean()))
+            if i:
+                differ &= not bool(torch.equal(ring[i], ring[i - 1]))
+    n_min = min(r.shape[1] for r in ref[2].values())
+    sigma = math.sqrt(P28_P * (1 - P28_P) / n_min)
+    readings = {t: _reading({k: v.double() for k, v in r[0].items()},
+                            {k: v.double() for k, v in ref[0].items()},
+                            r[1], ref[1])
+                for t, r in results.items() if t != "scanned"}
+    log(f"  AlexNet with dropout, {steps} steps on each tier from the same "
+        f"weights (base seed {ref[3]}; tiers "
+        f"{[r[4]['tier'] for r in results.values()]}): the masks each tier "
+        f"drew equal the scanned tier's {masks_equal}; each step's mask the "
+        f"plain version's for (seed, iteration, node) {plain_equal}; every "
+        f"step's mask differs from the last {differ}; kept fractions "
+        f"{min(fracs):.5f}-{max(fracs):.5f} (p {P28_P}, sigma {sigma:.2e});"
+        f" losses {[round(v, 4) for v in ref[1]]}, against the scanned "
+        f"tier's by the tier rule {readings} (<= 1 passes; cuDNN "
+        f"deterministic {torch.backends.cudnn.deterministic})  [{card}]")
+    if not (all(masks_equal.values()) and plain_equal and differ) or any(
+            abs(f - P28_P) > 5 * sigma for f in fracs) or any(
+            v > 1 for v in readings.values()):
+        raise SystemExit("phase 28: AlexNet's tiers drew other masks, or "
+                         "their losses disagree")
+
+    # a resumed run against an uninterrupted one, on the scanned tier
+    def resumed():
+        net, h1, _ = run({}, tap=False, part=(0, steps // 2))
+        state = net.capture_training_state()
+        del net
+        net2 = _p28_alex_net(dev)
+        net2.restore_training_state(state)
+        itr = DeviceCachedIterator(xn[steps // 2 * b:], yn[steps // 2 * b:],
+                                   batch_size=b, device=dev)
+        h2 = net2.fit(itr, epochs=1)
+        return (_p28_state(net2), h1.step_losses + h2.step_losses)
+
+    r = resumed()
+    log(f"  a run captured at step {steps // 2} and resumed in a new "
+        f"network against an uninterrupted one: bit-equal "
+        f"{_p28_equal(a, r)} (cuDNN deterministic "
+        f"{torch.backends.cudnn.deterministic})")
+    if not _p28_equal(a, r):
+        raise SystemExit("phase 28: AlexNet resumed from a captured state "
+                         "is not the uninterrupted run")
+    torch.backends.cudnn.deterministic = det0
+    torch.cuda.empty_cache()
+
+    # the timed tiers; the launch counts of the scanned epoch
+    net = _p28_alex_net(dev)
+    if net.num_params() != P28_PARAMS["AlexNet"]:
+        raise SystemExit(f"AlexNet has {net.num_params()} parameters")
+    it = DeviceCachedIterator(xn, yn, batch_size=b, device=dev)
+    net.fit(it, epochs=1)
+    dk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dk.LAUNCHES)
+    st = dict(net.samediff.last_fit_stats)
+    step_ms = 1000 * wall / steps
+    log(f"  timed epoch (scanned, {st['graph_replays_per_epoch']} replay): "
+        f"step {step_ms:.2f} ms, {b * steps / wall:.1f} images/s, losses "
+        f"{[round(v, 4) for v in hist.step_losses]}; dropout launches "
+        f"{launches}  [{card}]")
+    want = {"dropout_fwd": 2 * steps, "dropout_bwd": 2 * steps}
+    if launches != want or st["graph_replays_per_epoch"] != 1:
+        raise SystemExit(f"AlexNet: dropout launches {launches}, want "
+                         f"{want}; {st}")
+    prof = _p28_profile(lambda: net.fit(it, epochs=1), steps, card,
+                        "AlexNet scanned epoch")
+    times = {"scanned": step_ms}
+    for tier, kw in tiers[1:]:
+        net.fit(it, epochs=1, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it, epochs=1, **kw)
+        torch.cuda.synchronize()
+        times[tier] = 1000 * (time.perf_counter() - t0) / steps
+        log(f"  {tier}: step {times[tier]:.2f} ms, "
+            f"{1000 * b / times[tier]:.1f} images/s; "
+            f"{net.samediff.last_fit_stats['tier']}, "
+            f"{net.samediff.last_fit_stats['graph_replays_per_epoch']} "
+            f"replays an epoch  [{card}]")
+    del net, it
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "times": times,
+            "profile": prof, "images_per_s": 1000 * b / step_ms}
+
+
+def p28_dropout_timing(card_name, prof):
+    """The dropout kernel at AlexNet's two shapes, float32: forward and
+    backward alone (``median_ms``, L2 cold), the plain version (host
+    clock, ``synced_ms``), one
+    ``F.dropout`` call (the same work with another mask; never called by
+    the port) and the bound (each input read once, each output written
+    once, over the card's memory rate); per step, the sum of a call at
+    each shape, and the profiled step's device time."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    dev = torch.device("cuda")
+    bw = card_rates(card_name)[0]
+    snap = dict(dk.LAUNCHES)
+    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    seed = torch.tensor([0], dtype=torch.int64, device=dev)
+    it = torch.tensor([3], dtype=torch.int64, device=dev)
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "per_call": []} for k in P28_KERNELS}
+    for shape in P28_ALEX_DROP:
+        x = torch.randn(shape, device=dev)
+        n = x.numel()
+        # bytes: x read and y written once; the draw's integer work (ten
+        # Philox rounds for four elements) is far below the memory time
+        bound = {"bound_ms": 1e3 * 8 * n / bw, "bound_by": "bytes"}
+        for k in P28_KERNELS:
+            kern = median_ms(lambda: dk.dropout_apply(x, P28_P, seed, it, 7,
+                                                      k), flush)
+            # the plain version launches about 500 kernels a call, more
+            # than the launch queue holds behind a sleep: host clock
+            plain = synced_ms(lambda: dk.dropout_plain(x, P28_P, seed, it,
+                                                       7), flush)
+            lib = median_ms(lambda: F.dropout(x, 1 - P28_P, True), flush)
+            o = out[k]
+            o["ms"] += kern
+            o["plain_ms"] += plain
+            o["library_ms"] += lib
+            o["bound_ms"] += bound["bound_ms"]
+            o["bound_by"] = bound["bound_by"]
+            o["per_call"].append({"shape": list(shape), "ms": kern,
+                                  "plain_ms": plain, "library_ms": lib,
+                                  "bound_ms": bound["bound_ms"],
+                                  "bytes": 8 * n,
+                                  "gb_per_s": 8 * n / kern / 1e6})
+            log(f"  {k} at {shape} float32: alone {kern:.5f} ms "
+                f"({8 * n / kern / 1e6:.1f} GB/s), plain {plain:.5f} (host "
+                f"clock), "
+                f"F.dropout {lib:.5f}, bound {bound['bound_ms']:.5f} "
+                f"(bytes: {8 * n} read and written)")
+    dk.LAUNCHES.update(snap)
+    in_step = prof["groups_ms"].get("dropout kernel", 0.0)
+    for k in P28_KERNELS:
+        o = out[k]
+        log(f"  {k} a step (both shapes): alone {o['ms']:.5f} ms, plain "
+            f"{o['plain_ms']:.5f}, F.dropout {o['library_ms']:.5f}, bound "
+            f"{o['bound_ms']:.5f} ({o['bound_by']}); both kernels in the "
+            f"profiled step {in_step:.5f} ms")
+        o["in_step_ms_both"] = in_step
+    return out
+
+
+def _p28_other_labels(name, net, b, rng):
+    if name == "TinyYOLO":
+        return _p28_yolo_data(b, 416, 20, 1)[1]
+    if name == "UNet":
+        return (rng.random((b, 1, 64, 64)) > 0.5).astype(np.float32)
+    n = net.conf.layers[-1].n_out if hasattr(net.conf, "layers") \
+        else 1000
+    return np.eye(n, dtype=np.float32)[rng.integers(0, n, b)]
+
+
+def p28_others(dev, card):
+    """Every other ported model at its published input size, batch 8,
+    float32: one per-step training step and one ``output``: a finite
+    loss, the output's shape and the parameter count."""
+    import deeplearning4j_tpu_torch.zoo as zoo
+    rng = np.random.default_rng(2)
+    rows = {}
+    for name in P28_OTHERS:
+        t0 = time.perf_counter()
+        spec = getattr(zoo, name)()
+        net = spec.build(dev)
+        x = rng.random((8, spec.channels, spec.height, spec.width),
+                       dtype=np.float32)
+        y = _p28_other_labels(name, net, 8, rng)
+        h = net.fit([(x, y)], epochs=1)
+        out = net.output(x)
+        out = out[0] if isinstance(out, list) else out
+        torch.cuda.synchronize()
+        shape, want = tuple(out.shape), (8,) + P28_OUTPUT[name]
+        n = net.num_params()
+        rows[name] = {"params": n, "loss": h.final_loss(), "output": shape,
+                      "s": time.perf_counter() - t0}
+        log(f"  {name} {spec.height}x{spec.width}: {n} parameters, one "
+            f"per-step step loss {h.final_loss():.4f}, output {shape} "
+            f"(want {want}), {rows[name]['s']:.1f} s")
+        if n != P28_PARAMS[name] or not math.isfinite(h.final_loss()) or \
+                shape != want or not torch.isfinite(out).all():
+            raise SystemExit(f"phase 28: {name}: {rows[name]}")
+        del net, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def p28_stream_timing(card, card_name):
+    """The streamed recurrence kernels (past 384 float32 units) at
+    (32, 50, 512) and (32, 50, 1024) float32: each alone (``median_ms``,
+    L2 cold), its bound, and cuDNN ``nn.LSTM``'s forward or backward of
+    one layer (TF32 off; never called by the port), device time."""
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.kernels.measure import (
+        lstm_recurrence_case, lstm_recurrence_cost, two_rate_bound)
+    dev = torch.device("cuda")
+    snap = dict(lstm.LAUNCHES)
+    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for b, t, u in P28_STREAM_SHAPES:
+            plan = lstm.recurrence_plan(b, u, 4)
+            gx, w, h0, c0, d_hs, dh_t, dc_t = lstm_recurrence_case(
+                b, t, u, torch.float32, dev)
+            gates, hs, cs = lstm.lstm_recurrence_fwd_plain(gx, w, h0, c0)
+            buf = gx.clone()
+            bwd_in = (gates, cs, c0, w, d_hs, dh_t, dc_t)
+            fwd_ms = median_ms(lambda: lstm.lstm_recurrence_fwd(
+                buf, w, h0, c0), flush)
+            bwd_ms = median_ms(lambda: lstm.lstm_recurrence_bwd(*bwd_in),
+                               flush)
+            x = torch.randn(b, t, u, device=dev, requires_grad=True)
+            ref = torch.nn.LSTM(u, u, batch_first=True).to(dev)
+            g_out = torch.randn(b, t, u, device=dev)
+            o_ref = ref(x)[0]
+            lib_f = queued_ms(lambda: ref(x), flush)
+            lib_b = queued_ms(lambda: torch.autograd.grad(
+                o_ref, [x] + list(ref.parameters()), g_out,
+                retain_graph=True), flush)
+            cost = lstm_recurrence_cost(b, t, u, 4)
+            for k, ms, lib in (("lstm_recurrence_fwd", fwd_ms, lib_f),
+                               ("lstm_recurrence_bwd", bwd_ms, lib_b)):
+                ops, nbytes = cost[k]
+                bound = two_rate_bound(ops, nbytes, card_name)
+                rows.append({"kernel": k, "shape": [b, t, u],
+                             "plan": str(plan), "ms": ms,
+                             "library_ms": lib,
+                             "bound_ms": bound["bound_ms"],
+                             "bound_by": bound["bound_by"]})
+                log(f"  {k} streamed at (B {b}, T {t}, U {u}) float32 "
+                    f"(plan {plan}): alone {ms:.4f} ms, bound "
+                    f"{bound['bound_ms']:.5f} ({bound['bound_by']}), cuDNN "
+                    f"nn.LSTM {'forward' if k.endswith('fwd') else 'backward'}"
+                    f" of the layer {lib:.4f} ms  [{card}]")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        lstm.LAUNCHES.update(snap)
+    return rows
+
+
+def phase_zoo(dev, card, card_name):
+    """Phase 28; returns the dropout kernels' JSON records."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    det0 = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        log("  (i) the dropout kernel (CUDA C++) against its plain version:")
+        errs = p28_check_dropout(dev)
+        log("  (ii) YOLO2 416x416 bs16 float32 through ComputationGraph.fit:")
+        yolo = p28_yolo(dev, card)
+        torch.backends.cudnn.deterministic = det0
+        log("  (iii) AlexNet 224x224 bs128 float32 with dropout through "
+            "MultiLayerNetwork.fit:")
+        alex = p28_alexnet(dev, card)
+        torch.backends.cudnn.deterministic = det0
+        log("  (iv) the dropout kernel timed at AlexNet's shapes:")
+        timing = p28_dropout_timing(card_name, alex["profile"])
+        log("  (v) every other ported model at its published size, bs8:")
+        p28_others(dev, card)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = det0
+    log("  (vi) the streamed LSTM recurrence kernels, timed:")
+    stream = p28_stream_timing(card, card_name)
+    records = []
+    for k in P28_KERNELS:
+        t = timing[k]
+        records.append({
+            "name": k, "route": "cuda", "source": P28_SOURCE,
+            "replaces": P28_REPLACES, "launches": alex["launches"][k],
+            "launches_per_step": alex["launches"][k] // P28_ALEX_STEPS,
+            "max_abs_err": errs[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": "one F.dropout call at each shape (another mask)",
+            "ms_per": f"AlexNet step ({P28_ALEX_BATCH} x 224x224, dropout "
+                      f"on the inputs of its two 4096-unit layers)",
+            "in_step_ms_both_kernels": t["in_step_ms_both"],
+            "per_call": t["per_call"]})
+    records[0]["streamed_lstm"] = stream
+    records[0]["yolo2"] = {k: yolo[k] for k in (
+        "step_ms", "images_per_s", "tiers", "loss_ms", "tier_reading",
+        "f64_worst", "bn_launches_per_step", "bn_errs")}
+    records[0]["yolo2"]["profile"] = yolo["profile"]
+    records[0]["alexnet"] = {k: alex[k] for k in ("step_ms", "times",
+                                                  "images_per_s")}
+    records[0]["alexnet"]["profile"] = alex["profile"]
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6800,11 +7689,11 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/27] env")
+    log("[1/28] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
-                                                  int8_matmul, lstm,
+                                                  dropout, int8_matmul, lstm,
                                                   paged_attention)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
@@ -6812,15 +7701,17 @@ def main():
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(6) as ex:
+    with ThreadPoolExecutor(7) as ex:
         for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
                   ex.submit(paged_attention._lib),
                   ex.submit(attention_f32._lib),
-                  ex.submit(int8_matmul._lib), ex.submit(lstm._lib)]:
+                  ex.submit(int8_matmul._lib), ex.submit(lstm._lib),
+                  ex.submit(dropout._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
     for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
-                attention_f32._LIB, int8_matmul._LIB, lstm._LIB):
+                attention_f32._LIB, int8_matmul._LIB, lstm._LIB,
+                dropout._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -6840,49 +7731,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/27] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/28] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/27] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/28] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/27] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/28] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/27] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/28] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/27] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/28] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/27] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/28] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/27] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/28] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/27] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/28] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -6894,7 +7785,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/27] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/28] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -6908,18 +7799,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/27] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/28] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/27] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/28] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/27] main path: GPT-medium float32 serving, "
+    log(f"[13/28] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -6928,40 +7819,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/27] path shapes: paged attention vs plain, then timed")
+    log("[14/28] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/27] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/28] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/27] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/28] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/27] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/28] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/27] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/28] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/27] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/28] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -6970,13 +7861,13 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/27] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/28] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/27] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/28] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
@@ -6984,20 +7875,20 @@ def main():
     phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[22/27] kernels: paged decode, verify and prefill over an int8 "
+    log("[22/28] kernels: paged decode, verify and prefill over an int8 "
         "cache (CUDA C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_int8kv_kernels(dev, errs)
     int8kv_timing = phase_int8kv_timing(dev, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[23/27] parity: GPT_TINY int8 KV serving (paged float32 and "
+    log("[23/28] parity: GPT_TINY int8 KV serving (paged float32 and "
         "float64, dense float32), card vs CPU")
     t0 = time.perf_counter()
     phase_int8kv_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[24/27] main path: GPT-medium int8 KV + int8 weights serving, "
+    log(f"[24/28] main path: GPT-medium int8 KV + int8 weights serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
         f"server; the pool at one byte budget and the load generator; the "
@@ -7006,14 +7897,14 @@ def main():
     int8kv_serve = phase_int8kv_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[25/27] main path: ResNet-50 224x224 served through "
+    log("[25/28] main path: ResNet-50 224x224 served through "
         "ParallelInference (BATCHED, 2 workers, max_batch_size 32, buckets "
         "4-32; SEQUENTIAL and INPLACE gates)")
     t0 = time.perf_counter()
     phase_parallel_inference(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[26/27] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
+    log(f"[26/28] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
         f"a RampSchedule(StepSchedule), L2, accum_steps {P26_ACCUM}, windows "
         f"of {P26_K} and the sentinel: checkpoints, FaultTolerantFit's "
         f"rollback, a resume, a divergence named; float64 card vs CPU")
@@ -7021,7 +7912,7 @@ def main():
     phase_train_options(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[27/27] main path: TextGenLSTM (77 -> LSTM 256 -> LSTM 256 -> "
+    log(f"[27/28] main path: TextGenLSTM (77 -> LSTM 256 -> LSTM 256 -> "
         f"RnnOutputLayer 77) on SURVEY.md's characters: fit_tbptt (batch "
         f"{P27_BATCH}, sequences of {P27_SEQ}, TBPTT {P27_TBPTT}) and fit "
         f"(full BPTT on sequences of {P27_TBPTT}, three tiers); the LSTM "
@@ -7029,6 +7920,20 @@ def main():
         f"save/load")
     t0 = time.perf_counter()
     textgen_records, _ = phase_textgen(dev, card, name)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[28/28] main path: the zoo's convolutional models: YOLO2 "
+        f"416x416 bs{P28_YOLO_BATCH} float32 (ComputationGraph.fit, three "
+        f"tiers), AlexNet 224x224 bs{P28_ALEX_BATCH} float32 with dropout "
+        f"(MultiLayerNetwork.fit, three tiers, the masks, a resume), the "
+        f"dropout kernel (CUDA C++) vs plain and timed, every other ported "
+        f"model one step at its published size; the streamed LSTM "
+        f"kernels timed")
+    t0 = time.perf_counter()
+    zoo_records = phase_zoo(dev, card, name)
+    # the BN kernels' records hold their checks at YOLO2's shapes too
+    for kname, err in zoo_records[0]["yolo2"]["bn_errs"].items():
+        errs[kname] = max(errs.get(kname, 0.0), err)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -7100,6 +8005,7 @@ def main():
     kernels.extend(spec_kernel_records(spec_timing, spec_serve, errs))
     kernels.extend(int8kv_kernel_records(int8kv_timing, int8kv_serve, errs))
     kernels.extend(textgen_records)
+    kernels.extend(zoo_records)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

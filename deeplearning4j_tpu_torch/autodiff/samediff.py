@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``: graph
 recording (``var`` :138, ``constant`` :160, ``placeholder`` :170,
 ``invoke`` :299, ``OpNode`` :59), state variables (``state_var``,
 ``update_state``, ``state_vars_map`` :218-237), ``remat_scope`` :417, ``_prune`` :452,
-``output`` :581, ``calculate_gradients`` :729 and ``fit`` (:1558) with
+``output`` :581, ``calculate_gradients`` :729 (each drawing its random
+ops with the next seed, ``_seed`` :93) and ``fit`` (:1558) with
 the train step of ``_build_step_parts`` :773, whose gradient half is
 ``_grad_step`` here and whose apply half, sentinel and accumulation are
 ``autodiff/step.py``; ``fit``'s tiers (per-step, fused windows, scanned
@@ -59,6 +60,7 @@ from deeplearning4j_tpu_torch.autodiff.training import History
 from deeplearning4j_tpu_torch.autodiff.variable import SDVariable, VariableType
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
 from deeplearning4j_tpu_torch.ops import loss as loss_ops
+from deeplearning4j_tpu_torch.ops import random as random_ops
 from deeplearning4j_tpu_torch.ops import registry
 from deeplearning4j_tpu_torch.ops.dtypes import torch_dtype
 
@@ -103,6 +105,7 @@ class SameDiff(window.StepOwner):
         self.loss_variables: List[str] = []
         self._state_var_names: set = set()
         self._state_updates: Dict[str, str] = {}  # state var -> output
+        self._n_random = 0                        # random ops recorded
         self._active_group: Optional[str] = None  # current remat_scope id
         self._group_counter = 0
         self.training_config = None
@@ -294,6 +297,13 @@ class SameDiff(window.StepOwner):
         """Record a registry op; returns its output variable(s)."""
         o = registry.get_op(op_name)
         node_name = self._unique_name(name or op_name)
+        attrs = dict(attrs or {})
+        if o.category == "random":
+            self._n_random += 1
+            if o.name in random_ops.PORTED_RANDOM_OPS:
+                # the node's index keys its draws (JAX ``fold_in(key,
+                # idx)``)
+                attrs.setdefault("node", len(self._op_order))
         out_names = []
         for i in range(n_outputs):
             out_name = self._unique_name(
@@ -303,7 +313,7 @@ class SameDiff(window.StepOwner):
             out_names.append(out_name)
         self._ops[node_name] = OpNode(
             name=node_name, op=o.name, inputs=[v.name for v in inputs],
-            outputs=out_names, attrs=dict(attrs or {}),
+            outputs=out_names, attrs=attrs,
             group=self._active_group)
         self._op_order.append(node_name)
         self._changed()
@@ -404,12 +414,20 @@ class SameDiff(window.StepOwner):
                     self._run_nodes(_nodes, local)
                 return tuple(local[o] for o in _eout)
 
-            # a captured fit window holds no random op (the graph tiers
-            # refuse one), and reading the RNG state is not allowed while
-            # a CUDA graph is captured
-            res = checkpoint(seg_fn, *[env[i] for i in ext_in],
-                             use_reentrant=False,
-                             preserve_rng_state=not window.capturing())
+            # the port's random ops draw from the device-staged seed and
+            # iteration, not from PyTorch's generator, so its state need
+            # not be kept (and reading it is not allowed while a CUDA
+            # graph is captured); the recompute carries the rng scope
+            rng = random_ops.current_rng()
+
+            def seg_rng(*args, _run=seg_fn, _rng=rng):
+                if _rng is None:
+                    return _run(*args)
+                with random_ops.rng_scope(*_rng):
+                    return _run(*args)
+
+            res = checkpoint(seg_rng, *[env[i] for i in ext_in],
+                             use_reentrant=False, preserve_rng_state=False)
             env.update(zip(ext_out, res))
         missing = [o for o in outputs if o not in env]
         if missing:
@@ -436,7 +454,7 @@ class SameDiff(window.StepOwner):
         """The values of ``outputs`` (default: the graph's outputs)."""
         names = tuple(o.name if isinstance(o, SDVariable) else o
                       for o in (outputs or self.outputs()))
-        with torch.no_grad():
+        with torch.no_grad(), self._call_rng(bool(self._n_random)):
             env = self._execute(names, self._base_env(placeholders))
         return {n: env[n] for n in names}
 
@@ -481,7 +499,7 @@ class SameDiff(window.StepOwner):
         env = self._base_env(placeholders)
         leaves = {n: env[n].detach().requires_grad_(True) for n in names}
         env.update(leaves)
-        with torch.enable_grad():
+        with torch.enable_grad(), self._call_rng(bool(self._n_random)):
             outs = self._execute(loss_names, env)
             total = sum(outs[ln].sum() for ln in loss_names)
         grads = torch.autograd.grad(total, list(leaves.values()),

@@ -28,8 +28,10 @@ module writes the rest once:
 
 A step's per-step values are device tensors the tier fills before the
 step (``StepInputs``): the updater's scalar and the learning rate (row
-``scal``) and the absolute iteration ``it``. A CUDA graph captured once
-reads them at every replay. Nothing here syncs with the host.
+``scal``) and the absolute iteration ``it``, which with the owner's base
+seed keys the step's random ops (``ops/random.py`` ``rng_scope``). A CUDA
+graph captured once reads them at every replay. Nothing here syncs with
+the host.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ import dataclasses
 from typing import List, Optional
 
 import torch
+
+from deeplearning4j_tpu_torch.ops import random as random_ops
 
 
 @dataclasses.dataclass
@@ -117,7 +121,8 @@ def train_step(owner, names: List[str], ph, state,
     ok)``, the (unscaled) loss and the sentinel's verdict (None with
     the sentinel off), both on the device."""
     tc = owner.training_config
-    loss, grads = owner._grad_step(names, ph)
+    with random_ops.rng_scope(owner.rng_seed_tensor(), inp.it):
+        loss, grads = owner._grad_step(names, ph)
     grads = list(grads)
     at = chaos_at(tc)
     if at is not None and grads:

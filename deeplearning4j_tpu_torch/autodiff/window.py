@@ -30,7 +30,12 @@ learning rate (a schedule's value; weight decay scales by it), is
 computed on the host in float32 for the K steps of a window and copied
 into the window's ``(K, 2)`` buffer before each replay, with the steps'
 absolute iterations into its ``(K,)`` buffer (read by the chaos
-injection and the sentinel). As in the JAX fit, schedules are resolved
+injection, the sentinel and the random ops). Each fit takes a new base
+seed from the owner (JAX ``SameDiff.fit``), staged once into a device
+tensor whose address the windows keep: a dropout mask is keyed by it, the
+node and the step's iteration, all read on the device
+(``kernels/dropout.py``), so a replayed window draws new masks each step.
+As in the JAX fit, schedules are resolved
 at epoch 0. Losses stay on the device: without listeners they are
 fetched once at the end of the fit; with listeners once every
 ``min(frequency)`` steps, at the first window boundary at or after it,
@@ -78,6 +83,7 @@ any eager step does).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Dict, List, Optional, Tuple
 
@@ -88,6 +94,7 @@ from deeplearning4j_tpu_torch.autodiff import step as steps
 from deeplearning4j_tpu_torch.autodiff.training import History
 from deeplearning4j_tpu_torch.kernels import _cuda
 from deeplearning4j_tpu_torch.learning.updaters import stage_
+from deeplearning4j_tpu_torch.ops import random as random_ops
 from deeplearning4j_tpu_torch.ops import registry
 
 Env = Dict[str, torch.Tensor]
@@ -110,22 +117,21 @@ def pow2_buckets(r: int) -> List[int]:
     return out[::-1]
 
 
-def capturing() -> bool:
-    """Whether the current stream is capturing a CUDA graph."""
-    return torch.cuda.is_available() and \
-        torch.cuda.is_current_stream_capturing()
-
-
 def refuse_random_ops(sd) -> None:
-    """A captured window replays its random numbers: a graph with a
-    random op is refused by name on the graph tiers."""
+    """A captured window replays its launches as recorded: a random op
+    that does not draw from the device-staged seed and iteration (every
+    one but ``ops/random.py``'s ``PORTED_RANDOM_OPS``) is refused by name
+    on the graph tiers."""
+    from deeplearning4j_tpu_torch.ops.random import PORTED_RANDOM_OPS
     for node in sd._prune(sd._resolve_loss()):
-        if registry.get_op(node.op).category == "random":
+        o = registry.get_op(node.op)
+        if o.category == "random" and o.name not in PORTED_RANDOM_OPS:
             raise NotImplementedError(
-                f"op {node.name!r} ({node.op}) draws random numbers, which "
-                f"a CUDA graph would replay unchanged: the fused-window and "
-                f"scanned tiers refuse it until dropout is ported (ROADMAP "
-                f"queue 1 item 5); fit it with fused_steps=1 and a listener")
+                f"op {node.name!r} ({node.op}) draws random numbers that a "
+                f"CUDA graph would replay unchanged: the fused-window and "
+                f"scanned tiers refuse it until it is ported (ROADMAP "
+                f"queue 1 item 5; dropout is); fit it with fused_steps=1 "
+                f"and a listener")
 
 
 class StepOwner:
@@ -169,6 +175,47 @@ class StepOwner:
     #: ``accum_steps``' accumulator: (names, one tensor a trainable)
     _grad_accum: Optional[Tuple[List[str], List[torch.Tensor]]] = None
     captures_total: int = 0
+    #: the next fit's base seed, and the one of the fit in flight (JAX
+    #: ``SameDiff._seed`` / ``_fit_base_seed``): each fit takes a new one
+    _seed: int = 0
+    _fit_base_seed: Optional[int] = None
+    #: the fit's base seed on the device, (1,) int64, its address fixed:
+    #: staged at each fit's start, read by the step's random ops
+    _rng_seed_buf: Optional[torch.Tensor] = None
+
+    def rng_seed_tensor(self) -> torch.Tensor:
+        """The device tensor the step's random ops read the base seed
+        from (made once; not dropped by :meth:`_changed`)."""
+        if self._rng_seed_buf is None:
+            self._rng_seed_buf = torch.zeros(1, dtype=torch.int64,
+                                             device=self.device)
+        return self._rng_seed_buf
+
+    def _take_seed(self) -> int:
+        seed = self._seed
+        self._seed += 1
+        return seed
+
+    def _begin_fit_seed(self) -> None:
+        """A fit takes the next base seed (JAX ``SameDiff.fit``
+        :1673-1678) and stages it for its steps."""
+        self._fit_base_seed = self._take_seed()
+        stage_(self.rng_seed_tensor(),
+               np.array([self._fit_base_seed], np.int64))
+
+    @contextlib.contextmanager
+    def _call_rng(self, draws: bool = True):
+        """A call outside a fit takes the next seed (JAX
+        ``output``/``calculate_gradients``: ``key(self._seed)``, then
+        ``_seed += 1``) and, if it ``draws``, runs its random ops with it
+        at iteration 0."""
+        seed = self._take_seed()
+        if not draws:
+            yield
+            return
+        with random_ops.rng_scope(*random_ops.host_rng(seed, 0,
+                                                       self.device)):
+            yield
 
     def _changed(self) -> None:
         """A stored tensor's address, the graph or the updater state
@@ -388,6 +435,7 @@ class _Fit:
             self.tier = "per_step"
         if self.tier != "per_step":
             sd._refuse_random_ops()
+        sd._begin_fit_seed()
         self.names, self.state = sd._fit_state()
         self.accum = None
         if self.A > 1:
@@ -672,6 +720,8 @@ class _TbpttFit(_Fit):
             raise ValueError("fit_tbptt takes no accum_steps (the TBPTT "
                              "graph's config has its own, 1)")
         self.A, self.accum = 1, None
+        sd._refuse_random_ops()
+        sd._begin_fit_seed()
         self.states = [sd._arrays[n] for n in states]
         self.names, self.state = sd._fit_state()
         self.scal = torch.zeros(1, 2, dtype=torch.float32, device=sd.device)

@@ -16,9 +16,12 @@ package restores in the other:
   the names sorted, each name's leaves in order (Nesterovs' velocity;
   Adam's m, then v), in the same layouts;
 - ``iteration`` / ``epoch``: the counters;
-- ``rng_seed``: None. The port's steps draw no random numbers (the graph
-  tiers refuse random ops), so there is no key sequence to resume; a
-  JAX checkpoint's seed is read and not used;
+- ``rng_seed``: the base seed of the fit in flight (or, before any fit,
+  the next fit's), as the JAX package records it: a step's dropout masks
+  are keyed by it, the iteration and the node (``kernels/dropout.py``),
+  so restoring it with the iteration resumes the same masks. A JAX
+  checkpoint's seed restores the same way, though the two generators
+  draw different masks from it;
 - ``metadata["topology"]``: one process, one device, no mesh.
 
 :func:`capture_training_state` is the synchronous part of an
@@ -159,6 +162,12 @@ def capture_topology(model) -> Dict[str, Any]:
             "partition_specs": {}, "global_shapes": shapes}
 
 
+def _rng_seed(owner) -> int:
+    """The base seed of the fit in flight, else the next fit's."""
+    seed = getattr(owner, "_fit_base_seed", None)
+    return int(owner._seed if seed is None else seed)
+
+
 def capture_training_state(model, epoch: int = 0, normalizer=None,
                            metadata: Optional[Dict[str, Any]] = None
                            ) -> TrainingState:
@@ -187,7 +196,7 @@ def capture_training_state(model, epoch: int = 0, normalizer=None,
     return TrainingState(
         arrays=arrays, updater_leaves=updater_leaves,
         iteration=int(tc.iteration_count) if tc is not None else 0,
-        epoch=int(epoch), rng_seed=None, metadata=meta)
+        epoch=int(epoch), rng_seed=_rng_seed(owner), metadata=meta)
 
 
 @torch.no_grad()
@@ -251,6 +260,9 @@ def restore_training_state(model, state: TrainingState,
     if tc is not None:
         tc.iteration_count = int(state.iteration)
         tc.epoch_count = int(state.epoch)
+    if state.rng_seed is not None:
+        # the next fit draws with the snapshot's base seed
+        owner._seed = owner._fit_base_seed = int(state.rng_seed)
     if hasattr(model, "_sync_infer"):
         model._sync_infer()
     return None

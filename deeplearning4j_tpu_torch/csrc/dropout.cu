@@ -1,0 +1,204 @@
+// Inverted dropout with a counter-based generator drawn inside the kernel.
+//
+// Replaces no TPU kernel: the JAX package's ``dropout`` op
+// (deeplearning4j_tpu/ops/random.py:104-114) draws its mask with
+// ``jax.random.bernoulli`` under XLA, keyed by ``fold_in(fold_in(base_key,
+// iteration), node)`` on the device (autodiff/samediff.py:490, :826-829).
+// The port needs the same property on the card: a captured CUDA graph
+// replays its launches with the arguments it recorded, so the draw must
+// read the step's iteration from device memory, not take it as a host
+// argument, or every replay would drop the same units.
+//
+// What it computes, for n elements of x in its dtype (bf16, float32 or
+// float64):
+//
+//   y[i] = keep(i) ? x[i] / p : 0,    keep(i) = (r(i) >> 8) < threshold
+//
+// where r(i) is word i % 4 of Philox4x32-10 (Salmon et al., SC'11; the
+// generator of cuRAND and PyTorch) at
+//
+//   counter = (g_lo, g_hi, iteration_lo, iteration_hi),  g = i / 4,
+//   key     = (seed_lo, seed_hi ^ node),
+//
+// ``seed`` and ``iteration`` read from device memory (int64 each), and
+// ``threshold = ceil(p * 2^24)``: keep is ``u < p`` with u the top 24 bits
+// of the word over 2^24, computed in integers so that the plain version
+// (kernels/dropout.py ``dropout_plain``) gives the same mask bit for bit.
+// The division is a division (IEEE round to nearest), in float for bf16
+// and float32 and in double for float64, as the JAX op's ``x / p`` rounds;
+// a multiplication by 1/p would round differently for p = 0.8. The
+// backward is the same function of dy (dx = keep ? dy / p : 0): the mask
+// is drawn again from the same key and counter, and no mask is stored.
+//
+// What bounds it on the card: bytes. Each element is read once and written
+// once (8 bytes an element in float32); the ten Philox rounds are 20 32-bit
+// multiplies for four elements, far below the card's integer rate. The
+// design: one thread draws once for 4 consecutive elements and moves them
+// with 16-byte loads and stores where x and y are 16-byte aligned (two for
+// float64, one 8-byte pair for bf16), elementwise otherwise and for the
+// ragged last group; a grid-stride loop over the groups. Sums are none, so
+// the result does not depend on the launch's shape.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t kM0 = 0xD2511F53u;
+constexpr uint32_t kM1 = 0xCD9E8D57u;
+constexpr uint32_t kW0 = 0x9E3779B9u;
+constexpr uint32_t kW1 = 0xBB67AE85u;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += kW0;
+    k.y += kW1;
+  }
+  return c;
+}
+
+// The element type's arithmetic: load to the compute type, divide, store.
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  using C = float;
+  static __device__ __forceinline__ float load(float v) { return v; }
+  static __device__ __forceinline__ float store(float v) { return v; }
+  static __device__ __forceinline__ float div(float a, float p) {
+    return __fdiv_rn(a, p);
+  }
+};
+template <> struct Elem<double> {
+  using C = double;
+  static __device__ __forceinline__ double load(double v) { return v; }
+  static __device__ __forceinline__ double store(double v) { return v; }
+  static __device__ __forceinline__ double div(double a, double p) {
+    return __ddiv_rn(a, p);
+  }
+};
+template <> struct Elem<__nv_bfloat16> {
+  using C = float;
+  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float div(float a, float p) {
+    return __fdiv_rn(a, p);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T drop(T v, bool keep, typename Elem<T>::C p) {
+  return keep ? Elem<T>::store(Elem<T>::div(Elem<T>::load(v), p))
+              : Elem<T>::store(0);
+}
+
+// Four consecutive elements as one 16-byte (bf16: 8-byte) move.
+template <typename T> struct Quad;
+template <> struct Quad<float> {
+  static __device__ __forceinline__ void move(const float* x, float* y,
+                                              const bool* k, float p) {
+    const float4 v = *reinterpret_cast<const float4*>(x);
+    *reinterpret_cast<float4*>(y) = make_float4(
+        drop(v.x, k[0], p), drop(v.y, k[1], p), drop(v.z, k[2], p),
+        drop(v.w, k[3], p));
+  }
+};
+template <> struct Quad<double> {
+  static __device__ __forceinline__ void move(const double* x, double* y,
+                                              const bool* k, double p) {
+    const double2 a = *reinterpret_cast<const double2*>(x);
+    const double2 b = *reinterpret_cast<const double2*>(x + 2);
+    *reinterpret_cast<double2*>(y) =
+        make_double2(drop(a.x, k[0], p), drop(a.y, k[1], p));
+    *reinterpret_cast<double2*>(y + 2) =
+        make_double2(drop(b.x, k[2], p), drop(b.y, k[3], p));
+  }
+};
+template <> struct Quad<__nv_bfloat16> {
+  static __device__ __forceinline__ void move(const __nv_bfloat16* x,
+                                              __nv_bfloat16* y,
+                                              const bool* k, float p) {
+    union U { uint2 u; __nv_bfloat16 h[4]; };
+    U in, out;
+    in.u = *reinterpret_cast<const uint2*>(x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out.h[j] = drop(in.h[j], k[j], p);
+    *reinterpret_cast<uint2*>(y) = out.u;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
+               const int64_t* __restrict__ seed,
+               const int64_t* __restrict__ iteration, uint32_t node,
+               uint32_t threshold, typename Elem<T>::C p, bool aligned) {
+  const uint64_t s = static_cast<uint64_t>(*seed);
+  const uint64_t it = static_cast<uint64_t>(*iteration);
+  const uint2 key = make_uint2(static_cast<uint32_t>(s),
+                               static_cast<uint32_t>(s >> 32) ^ node);
+  const int64_t groups = (n + 3) / 4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       g < groups; g += stride) {
+    const uint64_t gu = static_cast<uint64_t>(g);
+    const uint4 r = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(gu), static_cast<uint32_t>(gu >> 32),
+                   static_cast<uint32_t>(it), static_cast<uint32_t>(it >> 32)),
+        key);
+    const bool keep[4] = {(r.x >> 8) < threshold, (r.y >> 8) < threshold,
+                          (r.z >> 8) < threshold, (r.w >> 8) < threshold};
+    const int64_t i = 4 * g;
+    if (aligned && i + 4 <= n) {
+      Quad<T>::move(x + i, y + i, keep, p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i + j < n) y[i + j] = drop(x[i + j], keep[j], p);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, void* y, int64_t n, const void* seed,
+                   const void* iteration, uint32_t node, uint32_t threshold,
+                   double p, cudaStream_t stream) {
+  const int64_t groups = (n + 3) / 4;
+  int64_t blocks = (groups + kThreads - 1) / kThreads;
+  if (blocks > (1 << 16)) blocks = 1 << 16;   // the loop covers the rest
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  dropout_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n,
+      static_cast<const int64_t*>(seed), static_cast<const int64_t*>(iteration),
+      node, threshold, static_cast<typename Elem<T>::C>(p), aligned);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 bf16, 1 float32, 2 float64. ``seed`` and ``iteration`` point to
+// one int64 each on the device; ``threshold`` is ceil(p * 2^24).
+extern "C" int dl4j_dropout(const void* x, void* y, int64_t n,
+                            const void* seed, const void* iteration,
+                            int64_t node, int64_t threshold, double p,
+                            int dtype, void* stream) {
+  if (n <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const uint32_t nd = static_cast<uint32_t>(node);
+  const uint32_t t = static_cast<uint32_t>(threshold);
+  switch (dtype) {
+    case 0: return launch<__nv_bfloat16>(x, y, n, seed, iteration, nd, t, p, s);
+    case 1: return launch<float>(x, y, n, seed, iteration, nd, t, p, s);
+    case 2: return launch<double>(x, y, n, seed, iteration, nd, t, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

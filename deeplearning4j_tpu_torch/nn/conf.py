@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.learning.regularization import (
     L1Regularization, L2Regularization, Regularization, WeightDecay)
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn import conv_layers  # noqa: F401
+from deeplearning4j_tpu_torch.nn import layers_ext  # noqa: F401
 from deeplearning4j_tpu_torch.nn import recurrent_layers  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers import BaseLayer, InputType
 

@@ -15,6 +15,18 @@ ReLU ``ActivationLayer`` becomes one fused BN+ReLU module (the
 activation node passes its input through), so that its backward is the
 BN+ReLU kernel pair with the mask.
 
+A loss head is any module with ``is_loss_head`` (``Head`` of an
+``OutputLayer``, ``LossHead``, and the YOLOv2, CNN-loss and center-loss
+heads of ``nn/layers_ext.py``): ``output(z)`` is what ``output()``
+returns for it and ``loss(z, labels, x)`` its loss, ``x`` its input. The
+step sums every head's loss in float32 (JAX: each head marks its loss),
+with the labels in the JAX package's order and layouts (a cnn head's
+labels NCHW, YOLOv2's (B, 4+C, H, W)). Dropout draws on the card from the
+fit's base seed, the step's iteration and the node's index in the
+configuration (``ops/random.py``); ``output(training=True)`` and
+``feed_forward(training=True)`` draw with the next seed, as the JAX
+package's training-graph calls take one.
+
 ``fit`` takes the JAX signature and SameDiff's fit tiers
 (``autodiff/window.py``): the graph owns its train step
 (``window.StepOwner``), so the scanned epoch and fused windows are CUDA
@@ -62,11 +74,10 @@ from deeplearning4j_tpu_torch.convert import params_to_jax
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
 from deeplearning4j_tpu_torch.learning.regularization import Regularization
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
-from deeplearning4j_tpu_torch.nn.activations import (activation_fn,
-                                                     resolve_activation)
+from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer, BaseLayer, BatchNorm, BatchNormalization, BuildContext,
-    Head, InputType, running_stats_frozen)
+    InputType, running_stats_frozen)
 from deeplearning4j_tpu_torch.nn.multilayer import _ArrayIterator, _not_ported
 from deeplearning4j_tpu_torch.ops import loss as loss_ops
 
@@ -418,7 +429,8 @@ def _build_graph(conf: ComputationGraphConfiguration,
     fused = _fused_bn_relu(conf)
     passthrough = set(fused.values())
     modules: Dict[str, nn.Module] = {}
-    for node in conf.nodes:
+    for index, node in enumerate(conf.nodes):
+        ctx.node = index
         itypes = [types[i] for i in node.inputs]
         if isinstance(node.op, BaseLayer):
             mod = node.op.build(ctx, itypes[0])
@@ -436,14 +448,18 @@ def _build_graph(conf: ComputationGraphConfiguration,
     return GraphModule(conf, modules, types, fused)
 
 
+def _is_head(mod: nn.Module) -> bool:
+    return getattr(mod, "is_loss_head", False)
+
+
 def _head_output(model: GraphModule, name: str,
                  z: torch.Tensor) -> torch.Tensor:
-    """A graph output as ``output()`` returns it: NCHW for cnn, a loss
-    head's activation applied."""
-    if model.types[name].kind == "cnn":
-        z = z.contiguous()
+    """A graph output as ``output()`` returns it: a loss head's output,
+    contiguous NCHW for cnn."""
     mod = model[name]
-    return activation_fn(mod.activation)(z) if isinstance(mod, Head) else z
+    if _is_head(mod):
+        z = mod.output(z)
+    return z.contiguous() if model.types[name].kind == "cnn" else z
 
 
 class ServingGraph:
@@ -493,9 +509,9 @@ def _loss_heads(conf: ComputationGraphConfiguration,
                 model: GraphModule) -> List[str]:
     """The loss heads in the JAX package's label order: graph outputs
     first, then any other head in node order."""
-    heads = [n for n in conf.outputs if isinstance(model[n], Head)]
+    heads = [n for n in conf.outputs if _is_head(model[n])]
     return heads + [n.name for n in conf.nodes if n.name not in heads
-                    and isinstance(model[n.name], Head)]
+                    and _is_head(model[n.name])]
 
 
 class ComputationGraph(window.StepOwner):
@@ -507,6 +523,7 @@ class ComputationGraph(window.StepOwner):
         self._names: List[str] = []
         self._params: List[nn.Parameter] = []
         self._heads: List[str] = []
+        self._head_inputs: List[str] = []
         self._updater_state = None
         self._score = float("nan")
         self._changed()
@@ -520,6 +537,8 @@ class ComputationGraph(window.StepOwner):
         self._names = [n for n, _ in named]
         self._params = [p for _, p in named]
         self._heads = _loss_heads(self.conf, self.model)
+        inputs = {n.name: n.inputs[0] for n in self.conf.nodes}
+        self._head_inputs = [inputs[h] for h in self._heads]
         self.training_config = TrainingConfig(
             updater=self.conf.updater,
             data_set_feature_mapping=list(self.conf.inputs),
@@ -554,7 +573,8 @@ class ComputationGraph(window.StepOwner):
         self.model.train(training)
         dtype = torch_dtype(self.conf.dtype)
         xs = [self._on_device(x, dtype) for x in inputs]
-        with torch.no_grad(), running_stats_frozen(self.model):
+        with torch.no_grad(), running_stats_frozen(self.model), \
+                self._call_rng(training):
             return self.model.activations(*xs, unfused=unfused)
 
     def output(self, *inputs, training: bool = False) -> List[torch.Tensor]:
@@ -592,8 +612,9 @@ class ComputationGraph(window.StepOwner):
         with torch.enable_grad(), loss_ops.softmax_dtype_scope(
                 mp.softmax_dtype if mp is not None else None):
             vals = self.model.activations(*xs)
-            loss = sum(self.model[h].loss(vals[h], y).float()
-                       for h, y in zip(self._heads, ys))
+            loss = sum(self.model[h].loss(vals[h], y, vals[i]).float()
+                       for h, i, y in zip(self._heads, self._head_inputs,
+                                          ys))
             del vals
         scale = mp.loss_scale if mp is not None else None
         grads = torch.autograd.grad(loss * scale if scale else loss,
@@ -626,13 +647,13 @@ class ComputationGraph(window.StepOwner):
     def warmup_restore_set(self, names, state) -> List[torch.Tensor]:
         """What a train step writes in place: every parameter, its
         updater state and every buffer of the module (the batch norms'
-        running statistics)."""
+        running statistics, the center-loss centers)."""
         return self._params + [t for s in state for t in s] + \
             list(self.model.buffers())
 
     def _refuse_random_ops(self) -> None:
-        """None to refuse: a layer with dropout is refused when the graph
-        is built (ROADMAP queue 1 item 5)."""
+        """None to refuse: the graph's one random op is dropout, which the
+        tiers take."""
 
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1, batch_size: int = 32,

@@ -3,9 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/layers.py`` (``InputType`` :35,
 ``BaseLayer`` :123, ``BuildContext`` :162, ``DenseLayer`` :237,
 ``ConvolutionLayer`` :300, ``SubsamplingLayer`` :346,
-``BatchNormalization`` :378, ``ActivationLayer`` :420,
-``LSTMLayer`` :449, ``GlobalPoolingLayer`` :486, ``_attach_loss_head``
-:527, ``OutputLayer`` :541, the JSON form ``to_json`` :134 /
+``BatchNormalization`` :378, ``ActivationLayer`` :420, ``DropoutLayer``
+:433, ``LSTMLayer`` :449, ``GlobalPoolingLayer`` :486, ``_LOSS_OPS`` :510,
+``_attach_loss_head`` :527, ``OutputLayer`` :541, ``LossLayer`` :572,
+``_maybe_dropout`` :228, the JSON form ``to_json`` :134 /
 ``from_json`` :147 and ``LAYER_TYPES`` :586; ``_rnn_initial_states``
 :202 and ``_rnn_carry_states`` :220). A configuration has two builders:
 
@@ -17,11 +18,27 @@ Counterpart of ``deeplearning4j_tpu/nn/layers.py`` (``InputType`` :35,
   network.
 - ``build_sd`` (``MultiLayerNetwork``) records the JAX ``build`` methods'
   ops into a SameDiff graph under the same variable names
-  (``layer{i}_{kind}_W``, ``_b``, ...), with the same draws. Dense (per
-  timestep on rnn input), output, convolution, subsampling, global
-  pooling, LSTM and the recurrent output layers
-  (``nn/recurrent_layers.py``) have one; another layer class in a
-  ``MultiLayerNetwork`` is refused.
+  (``layer{i}_{kind}_W``, ``_b``, ...), with the same draws, into a
+  training graph or an inference graph (``SDBuildContext.training``: a
+  batch norm records ``batchnorm_train`` and updates its running
+  statistics, state variables, in one and ``batchnorm`` in the other;
+  dropout is recorded in the training graph only, as in the JAX package).
+  A layer class without one is refused in a ``MultiLayerNetwork``.
+
+Dropout (``dropout`` of a layer, ``DropoutLayer``) drops a layer's
+*input*, keeping each element with probability ``p`` (the JAX package's
+convention): the ``dropout`` op of ``ops/random.py``, whose mask the
+card draws from the fit's base seed, the step's iteration and the node's
+index (``kernels/dropout.py``). A ``ComputationGraph`` node's index is
+its position in the configuration; a ``SameDiff`` op's its position in
+the graph.
+
+A loss head (``OutputLayer``, ``LossLayer`` and those of
+``nn/layers_ext.py``) takes any loss function of ``ops/loss.py``
+``LOSS_OPS``; the fused ones (MCXENT, XENT) take the pre-activation
+logits, the others the activation's output. In a ``ComputationGraph`` a
+head module has ``is_loss_head``, ``output(z)`` (what ``output()``
+returns) and ``loss(z, labels, x)`` (``x`` the head's input).
 
 Sequences are (batch, time, features), as in the JAX package. In a
 TBPTT graph (``SDBuildContext.tbptt_batch``) a recurrent layer's initial
@@ -47,8 +64,9 @@ from deeplearning4j_tpu_torch.nn.activations import (activation_fn,
                                                      resolve_activation)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops import nn_ops
-from deeplearning4j_tpu_torch.ops.loss import softmax_cross_entropy
-from deeplearning4j_tpu_torch.ops.reduce import reduce_mean
+from deeplearning4j_tpu_torch.ops import random as random_ops
+from deeplearning4j_tpu_torch.ops import registry
+from deeplearning4j_tpu_torch.ops.loss import FUSED_LOGIT_LOSSES, loss_op
 
 
 # ----------------------------------------------------------------------
@@ -124,6 +142,8 @@ class BuildContext:
     rng: np.random.Generator
     device: torch.device
     dtype: torch.dtype = torch.float32
+    #: the node being built: its index keys its dropout draws
+    node: int = 0
 
     def param(self, shape, scheme: str) -> np.ndarray:
         return init_weights(scheme, tuple(shape), self.rng)
@@ -142,6 +162,8 @@ class SDBuildContext:
     rng: np.random.Generator
     dtype: str = "float32"
     idx: int = 0
+    #: the training graph (batch statistics, dropout) or the inference one
+    training: bool = True
     labels_var: object = None       # labels placeholder, for the loss head
     output_var: object = None       # set by the output layer
     cnn_format: str = "NHWC"
@@ -199,11 +221,41 @@ def _sd_activation(sd, x, activation: str, lname: str):
                                                 name=f"{lname}_act")
 
 
-def _refuse_dropout(layer) -> None:
-    if getattr(layer, "dropout", 0.0):
-        raise NotImplementedError(
-            f"{type(layer).__name__}(dropout={layer.dropout}) is not ported "
-            f"yet (ROADMAP queue 1 item 5: random ops)")
+def _maybe_dropout(ctx: SDBuildContext, x, p: float, lname: str):
+    """Input dropout in the training graph (JAX ``_maybe_dropout``)."""
+    if p and 0 < p < 1 and ctx.training:
+        return ctx.sd.invoke("dropout", [x], {"p": p}, name=f"{lname}_drop")
+    return x
+
+
+def _attach_loss_head(ctx: SDBuildContext, z, out, loss_function: str):
+    """The loss op of ``loss_function`` on the logits ``z`` (fused losses)
+    or the activation ``out``, named ``loss`` and marked; ``out`` is the
+    network's output (JAX ``_attach_loss_head``)."""
+    ctx.output_var = out
+    name = loss_op(loss_function)
+    loss = ctx.sd.invoke(name, [z if name in FUSED_LOGIT_LOSSES else out,
+                                ctx.labels_var], {}, name="loss")
+    loss.mark_as_loss()
+    return loss
+
+
+class Dropout(nn.Module):
+    """Inverted dropout in training mode (the node's ``p`` is the retain
+    probability), the identity in inference mode."""
+
+    def __init__(self, p: float, node: int):
+        super().__init__()
+        self.p, self.node = float(p), int(node)
+
+    def forward(self, x):
+        if not self.training or not 0 < self.p < 1:
+            return x
+        return random_ops.dropout(x, self.p, node=self.node)
+
+
+def _input_dropout(ctx: BuildContext, p: float) -> Optional[Dropout]:
+    return Dropout(p, ctx.node) if p and 0 < p < 1 else None
 
 
 class BaseLayer:
@@ -246,8 +298,7 @@ class BaseLayer:
     def build_sd(self, ctx: SDBuildContext, x, itype: InputType):
         raise NotImplementedError(
             f"{type(self).__name__} in a MultiLayerNetwork is not ported "
-            f"yet (ROADMAP queue 1 item 10: nn/ layers); Dense, Output, "
-            f"Convolution and Subsampling layers are")
+            f"yet (ROADMAP queue 1 item 10: nn/ layers)")
 
 
 def _require_ff(layer, itype: InputType) -> None:
@@ -266,13 +317,17 @@ def _require_ff(layer, itype: InputType) -> None:
 class Affine(nn.Module):
     """``x @ W + b`` (Dense and Output layers; W is (n_in, n_out))."""
 
-    def __init__(self, ctx, w, b, activation: str):
+    def __init__(self, ctx, w, b, activation: str,
+                 drop: Optional[Dropout] = None):
         super().__init__()
         self.W = nn.Parameter(ctx.tensor(w))
         self.b = None if b is None else nn.Parameter(ctx.tensor(b))
         self.activation = activation
+        self.drop = drop
 
     def logits(self, x):
+        if self.drop is not None:
+            x = self.drop(x)
         z = x @ self.W.to(x.dtype)
         return z if self.b is None else z + self.b.to(x.dtype)
 
@@ -296,11 +351,11 @@ class DenseLayer(BaseLayer):
 
     def build_sd(self, ctx, x, itype):
         """On rnn input the product broadcasts over (batch, time)."""
-        _refuse_dropout(self)
         if itype.kind != "rnn":
             _require_ff(self, itype)
         lname = ctx.lname("dense")
         n_in = itype.dims[0] if itype.kind == "rnn" else itype.flat_size
+        x = _maybe_dropout(ctx, x, self.dropout, lname)
         w = ctx.param(f"{lname}_W", (n_in, self.n_out), self.weight_init)
         z = x.mmul(w, name=f"{lname}_mm")
         if self.has_bias:
@@ -310,26 +365,46 @@ class DenseLayer(BaseLayer):
                 self.output_type(itype))
 
     def build(self, ctx, itype):
-        _refuse_dropout(self)
         _require_ff(self, itype)
         resolve_activation(self.activation)
         w = ctx.param((itype.flat_size, self.n_out), self.weight_init)
         b = np.full((self.n_out,), self.bias_init) if self.has_bias else None
-        return Affine(ctx, w, b, self.activation)
+        return Affine(ctx, w, b, self.activation,
+                      _input_dropout(ctx, self.dropout))
+
+
+def to_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """A logical NCHW tensor as NHWC (a loss reduces its last axis), any
+    other as it is."""
+    return t.permute(0, 2, 3, 1) if t.dim() == 4 else t
+
+
+def head_loss(name: str, z, out, labels):
+    """The loss op ``name`` on the logits ``z`` (fused losses) or the
+    activation ``out``, each and ``labels`` channels-last."""
+    return registry.get_op(name).fn(
+        to_nhwc(z if name in FUSED_LOGIT_LOSSES else out),
+        to_nhwc(labels))
 
 
 class Head(Affine):
-    """Output layer: ``forward`` returns the pre-activation logits, which
-    the loss takes; ``activation`` maps them to the network's output."""
+    """Output layer: ``forward`` returns the pre-activation logits;
+    ``output`` maps them through ``activation`` to the network's output;
+    ``loss`` is the loss function's op."""
+    is_loss_head = True
 
-    def __init__(self, ctx, w, b, activation):
+    def __init__(self, ctx, w, b, activation, loss_function: str = "MCXENT"):
         super().__init__(ctx, w, b, activation)
+        self.loss_op = loss_op(loss_function)
 
     def forward(self, x):
         return self.logits(x)
 
-    def loss(self, z, labels):
-        return softmax_cross_entropy(z, labels)
+    def output(self, z):
+        return activation_fn(self.activation)(z)
+
+    def loss(self, z, labels, x=None):
+        return head_loss(self.loss_op, z, self.output(z), labels)
 
 
 @dataclasses.dataclass
@@ -345,17 +420,10 @@ class OutputLayer(BaseLayer):
     def output_type(self, itype):
         return InputType.feed_forward(self.n_out)
 
-    def _check_loss(self):
-        if self.loss_function.upper() not in ("MCXENT",
-                                              "NEGATIVELOGLIKELIHOOD"):
-            raise NotImplementedError(
-                f"loss {self.loss_function!r} is not ported yet (MCXENT; "
-                f"ROADMAP queue 1 item 1.2)")
-
     def build_sd(self, ctx, x, itype):
-        """Dense + loss head: ``softmax_cross_entropy`` of the logits,
-        named ``loss`` (the JAX ``_attach_loss_head``)."""
-        self._check_loss()
+        """Dense + loss head: the loss function's op, named ``loss`` (the
+        JAX ``_attach_loss_head``)."""
+        loss_op(self.loss_function)
         _require_ff(self, itype)
         lname = ctx.lname("out")
         w = ctx.param(f"{lname}_W", (itype.flat_size, self.n_out),
@@ -365,36 +433,92 @@ class OutputLayer(BaseLayer):
             z = z.add(ctx.bias(f"{lname}_b", self.n_out, self.bias_init),
                       name=f"{lname}_z")
         out = _sd_activation(ctx.sd, z, self.activation, lname)
-        ctx.output_var = out
-        ctx.sd.invoke("softmax_cross_entropy", [z, ctx.labels_var], {},
-                      name="loss").mark_as_loss()
+        _attach_loss_head(ctx, z, out, self.loss_function)
         return out, self.output_type(itype)
 
     def build(self, ctx, itype):
-        self._check_loss()
+        loss_op(self.loss_function)
         _require_ff(self, itype)
         resolve_activation(self.activation)
         w = ctx.param((itype.flat_size, self.n_out), self.weight_init)
         b = np.full((self.n_out,), self.bias_init) if self.has_bias else None
-        return Head(ctx, w, b, self.activation)
+        return Head(ctx, w, b, self.activation, self.loss_function)
+
+
+class LossHead(nn.Module):
+    """A loss head without parameters: ``forward`` passes its input (the
+    logits) through."""
+    is_loss_head = True
+
+    def __init__(self, activation: str, loss_function: str):
+        super().__init__()
+        self.activation = activation
+        self.loss_op = loss_op(loss_function)
+
+    def forward(self, x):
+        return x
+
+    def output(self, z):
+        return apply_cnn_activation(z, self.activation)
+
+    def loss(self, z, labels, x=None):
+        return head_loss(self.loss_op, z, self.output(z), labels)
+
+
+@dataclasses.dataclass
+class LossLayer(BaseLayer):
+    """A loss without parameters (JAX ``LossLayer`` :572)."""
+    loss_function: str = "MSE"
+    activation: str = "identity"
+
+    def output_type(self, itype):
+        return itype
+
+    def build_sd(self, ctx, x, itype):
+        out = _sd_activation(ctx.sd, x, self.activation, ctx.lname("act"))
+        _attach_loss_head(ctx, x, out, self.loss_function)
+        return out, itype
+
+    def build(self, ctx, itype):
+        resolve_activation(self.activation)
+        return LossHead(self.activation, self.loss_function)
 
 
 # ----------------------------------------------------------------------
+def apply_cnn_activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """An activation of a module's output; softmax takes the feature
+    axis, 1 (the body is logical NCHW)."""
+    if resolve_activation(name) == "softmax":
+        return torch.softmax(x, dim=1)
+    return activation_fn(name)(x)
+
+
 class Conv2d(nn.Module):
+    """A convolution-family module: its weights as the JAX layout permuted
+    (3, 2, 0, 1) (``convert.params_from_jax``), its bias, input dropout and
+    activation; ``op`` the ``ops/nn_ops.py`` function (``conv2d``,
+    ``deconv2d``, ``depthwise_conv2d``)."""
+
     def __init__(self, ctx, w_hwio, b, stride, padding, dilation,
-                 activation):
+                 activation, drop: Optional[Dropout] = None,
+                 op=nn_ops.conv2d):
         super().__init__()
         self.W = nn.Parameter(ctx.tensor(w_hwio.transpose(3, 2, 0, 1),
                                          torch.channels_last))
         self.b = None if b is None else nn.Parameter(ctx.tensor(b))
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.activation = activation
+        self.drop = drop
+        self.op = op
 
     def forward(self, x):
+        if self.drop is not None:
+            x = self.drop(x)
         b = None if self.b is None else self.b.to(x.dtype)
-        z = nn_ops.conv2d(x, self.W.to(x.dtype), b, self.stride,
-                          self.padding, self.dilation)
-        return activation_fn(self.activation)(z)
+        z = self.op(x, self.W.to(x.dtype), b, self.stride, self.padding,
+                    self.dilation)
+        return apply_cnn_activation(
+            z.contiguous(memory_format=torch.channels_last), self.activation)
 
 
 @dataclasses.dataclass
@@ -422,9 +546,9 @@ class ConvolutionLayer(BaseLayer):
             _conv_out(w, kw, sw, self.convolution_mode, dw)))
 
     def build_sd(self, ctx, x, itype):
-        _refuse_dropout(self)
         lname = ctx.lname("conv")
         kh, kw = _as_pair(self.kernel_size)
+        x = _maybe_dropout(ctx, x, self.dropout, lname)
         w = ctx.param(f"{lname}_W", (kh, kw, itype.dims[0], self.n_out),
                       self.weight_init)
         inputs = [x, w]
@@ -440,23 +564,24 @@ class ConvolutionLayer(BaseLayer):
                 self.output_type(itype))
 
     def build(self, ctx, itype):
-        _refuse_dropout(self)
         resolve_activation(self.activation)
         kh, kw = _as_pair(self.kernel_size)
         w = ctx.param((kh, kw, itype.dims[0], self.n_out), self.weight_init)
         b = np.full((self.n_out,), self.bias_init) if self.has_bias else None
         return Conv2d(ctx, w, b, _as_pair(self.stride),
                       _pad_mode(self.convolution_mode),
-                      _as_pair(self.dilation), self.activation)
+                      _as_pair(self.dilation), self.activation,
+                      _input_dropout(ctx, self.dropout))
 
 
 class Pool2d(nn.Module):
-    def __init__(self, kernel, stride, padding):
+    def __init__(self, kernel, stride, padding, op=nn_ops.max_pool2d):
         super().__init__()
         self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.op = op
 
     def forward(self, x):
-        return nn_ops.max_pool2d(x, self.kernel, self.stride, self.padding)
+        return self.op(x, self.kernel, self.stride, self.padding)
 
 
 @dataclasses.dataclass
@@ -475,13 +600,17 @@ class SubsamplingLayer(BaseLayer):
                                  _conv_out(h, kh, sh, self.convolution_mode),
                                  _conv_out(w, kw, sw, self.convolution_mode)))
 
-    def build_sd(self, ctx, x, itype):
+    def _op(self) -> str:
         op = {"MAX": "max_pool2d", "AVG": "avg_pool2d"}.get(
             self.pooling_type.upper())
         if op is None:
             raise NotImplementedError(
                 f"pooling {self.pooling_type!r} is not ported yet (MAX, "
                 f"AVG; ROADMAP queue 1 item 5: pnorm_pool2d)")
+        return op
+
+    def build_sd(self, ctx, x, itype):
+        op = self._op()
         out = ctx.sd.invoke(op, [x], {
             "kernel": _as_pair(self.kernel_size),
             "strides": _as_pair(self.stride or self.kernel_size),
@@ -490,13 +619,11 @@ class SubsamplingLayer(BaseLayer):
         return out, self.output_type(itype)
 
     def build(self, ctx, itype):
-        if self.pooling_type.upper() != "MAX":
-            raise NotImplementedError(
-                f"pooling {self.pooling_type!r} in a ComputationGraph is not "
-                f"ported yet (MAX; ROADMAP queue 1 item 1.2)")
+        op = {"max_pool2d": nn_ops.max_pool2d,
+              "avg_pool2d": nn_ops.avg_pool2d}[self._op()]
         return Pool2d(_as_pair(self.kernel_size),
                       _as_pair(self.stride or self.kernel_size),
-                      _pad_mode(self.convolution_mode))
+                      _pad_mode(self.convolution_mode), op)
 
 
 # ----------------------------------------------------------------------
@@ -561,6 +688,38 @@ class BatchNormalization(BaseLayer):
     def output_type(self, itype):
         return itype
 
+    def build_sd(self, ctx, x, itype):
+        """``batchnorm_train`` (training graph: the running statistics,
+        state variables, take its new values after each step) or
+        ``batchnorm`` over the feature axis: 2 for sequences, -1 for NHWC
+        cnn tensors, else 1 (JAX ``BatchNormalization.build``)."""
+        lname = ctx.lname("bn")
+        n = itype.dims[0]
+        gamma = ctx.sd.var(f"{lname}_gamma", value=np.ones((n,)),
+                           dtype=ctx.dtype)
+        beta = ctx.sd.var(f"{lname}_beta", value=np.zeros((n,)),
+                          dtype=ctx.dtype)
+        mean = ctx.state(f"{lname}_mean", np.zeros((n,)))
+        var = ctx.state(f"{lname}_var", np.ones((n,)))
+        if itype.kind == "rnn":
+            axis = 2
+        elif itype.kind == "cnn" and ctx.cnn_format == "NHWC":
+            axis = -1
+        else:
+            axis = 1
+        if ctx.training:
+            out, new_mean, new_var = ctx.sd.invoke(
+                "batchnorm_train", [x, gamma, beta, mean, var],
+                {"momentum": self.decay, "epsilon": self.eps, "axis": axis},
+                name=lname, n_outputs=3)
+            ctx.sd.update_state(mean, new_mean)
+            ctx.sd.update_state(var, new_var)
+        else:
+            out = ctx.sd.invoke("batchnorm", [x, mean, var, gamma, beta],
+                                {"epsilon": self.eps, "axis": axis},
+                                name=lname)
+        return out, itype
+
     def build(self, ctx, itype):
         return BatchNorm(ctx, itype.dims[0], self.decay, self.eps)
 
@@ -571,7 +730,7 @@ class Activation(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        return activation_fn(self.activation)(x)
+        return apply_cnn_activation(x, self.activation)
 
 
 @dataclasses.dataclass
@@ -581,21 +740,50 @@ class ActivationLayer(BaseLayer):
     def output_type(self, itype):
         return itype
 
+    def build_sd(self, ctx, x, itype):
+        return (_sd_activation(ctx.sd, x, self.activation,
+                               ctx.lname("act")), itype)
+
     def build(self, ctx, itype):
         resolve_activation(self.activation)
         return Activation(self.activation)
 
 
-class GlobalAvgPool(nn.Module):
+@dataclasses.dataclass
+class DropoutLayer(BaseLayer):
+    """Dropout of its input, ``dropout`` the retain probability (JAX
+    ``DropoutLayer`` :433); the identity at inference."""
+    dropout: float = 0.5
+
+    def output_type(self, itype):
+        return itype
+
+    def build_sd(self, ctx, x, itype):
+        if ctx.training and 0 < self.dropout < 1:
+            x = ctx.sd.invoke("dropout", [x], {"p": self.dropout},
+                              name=ctx.lname("dropout"))
+        return x, itype
+
+    def build(self, ctx, itype):
+        return Dropout(self.dropout, ctx.node)
+
+
+class GlobalPool(nn.Module):
+    """AVG, MAX or SUM over the spatial axes."""
+
+    def __init__(self, op: str):
+        super().__init__()
+        self.op = op
+
     def forward(self, x):
-        return reduce_mean(x, axis=(2, 3))
+        return registry.get_op(self.op).fn(x, axis=(2, 3))
 
 
 @dataclasses.dataclass
 class GlobalPoolingLayer(BaseLayer):
     """AVG, MAX or SUM over the spatial axes of cnn input or the time axis
-    of rnn input (``MultiLayerNetwork``); a ``ComputationGraph`` takes AVG
-    over cnn input."""
+    of rnn input (``MultiLayerNetwork``); a ``ComputationGraph`` takes
+    them over cnn input."""
     pooling_type: str = "AVG"
 
     def output_type(self, itype):
@@ -605,12 +793,7 @@ class GlobalPoolingLayer(BaseLayer):
 
     def build_sd(self, ctx, x, itype):
         self.output_type(itype)
-        op = {"AVG": "reduce_mean", "MAX": "reduce_max",
-              "SUM": "reduce_sum"}.get(self.pooling_type.upper())
-        if op is None:
-            raise NotImplementedError(
-                f"global pooling {self.pooling_type!r} is not ported yet "
-                f"(AVG, MAX, SUM; ROADMAP queue 1 item 1.2)")
+        op = self._op()
         if itype.kind == "rnn":
             axis = (1,)
         else:
@@ -618,15 +801,20 @@ class GlobalPoolingLayer(BaseLayer):
         out = ctx.sd.invoke(op, [x], {"axis": axis}, name=ctx.lname("gpool"))
         return out, self.output_type(itype)
 
+    def _op(self) -> str:
+        op = {"AVG": "reduce_mean", "MAX": "reduce_max",
+              "SUM": "reduce_sum"}.get(self.pooling_type.upper())
+        if op is None:
+            raise NotImplementedError(
+                f"global pooling {self.pooling_type!r} is not ported yet "
+                f"(AVG, MAX, SUM; ROADMAP queue 1 item 5: pnorm)")
+        return op
+
     def build(self, ctx, itype):
         if itype.kind != "cnn":
             raise ValueError("GlobalPoolingLayer in a ComputationGraph needs "
                              "cnn input")
-        if self.pooling_type.upper() != "AVG":
-            raise NotImplementedError(
-                f"global pooling {self.pooling_type!r} is not ported yet "
-                f"(AVG; ROADMAP queue 1 item 1.2)")
-        return GlobalAvgPool()
+        return GlobalPool(self._op())
 
 
 # ----------------------------------------------------------------------
@@ -636,8 +824,7 @@ class LSTMLayer(BaseLayer):
     ``lstm_layer`` op, gate order ``[i, f, g, o]``. Parameters
     ``{lname}_Wih`` (in, 4u) and ``{lname}_Whh`` (u, 4u) are drawn in that
     order; ``{lname}_b`` is zero but for the forget gate's slice, set to
-    ``forget_gate_bias_init``. Dropout is refused (ROADMAP queue 1 item 5:
-    random ops)."""
+    ``forget_gate_bias_init``. ``dropout`` drops the input sequence."""
     n_out: int = 0
     weight_init: str = "XAVIER"
     forget_gate_bias_init: float = 1.0
@@ -650,9 +837,9 @@ class LSTMLayer(BaseLayer):
         return InputType.feed_forward(self.n_out)
 
     def build_sd(self, ctx, x, itype):
-        _refuse_dropout(self)
         lname = ctx.lname("lstm")
         n_in, u = itype.dims[0], self.n_out
+        x = _maybe_dropout(ctx, x, self.dropout, lname)
         w_ih = ctx.param(f"{lname}_Wih", (n_in, 4 * u), self.weight_init)
         w_hh = ctx.param(f"{lname}_Whh", (u, 4 * u), self.weight_init)
         b0 = np.zeros((4 * u,))
@@ -672,4 +859,5 @@ class LSTMLayer(BaseLayer):
 #: ``nn/conv_layers.py`` and ``nn/recurrent_layers.py`` add theirs
 LAYER_TYPES: Dict[str, type] = {c.__name__: c for c in [
     DenseLayer, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-    ActivationLayer, LSTMLayer, GlobalPoolingLayer, OutputLayer]}
+    ActivationLayer, DropoutLayer, LSTMLayer, GlobalPoolingLayer,
+    OutputLayer, LossLayer]}

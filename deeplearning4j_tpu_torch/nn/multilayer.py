@@ -7,8 +7,11 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (``_WANTED_KIND``
 :470, ``save``/``load`` :512-528; ``_ArrayIterator`` :528). As there, the configuration is recorded
 into two SameDiff graphs from one seed, with the same parameter names and
 initial values: a training graph and an inference graph, which hold the
-same parameter tensors (no layer of this slice differs between the
-two). ``fit`` is ``SameDiff.fit`` on the training graph (one execution
+same parameter and state tensors. They differ where the JAX package's
+do: a batch norm normalizes with the batch statistics and updates the
+running ones in the training graph, with the running ones in the
+inference graph; dropout is in the training graph only. A convolutional
+network output goes back to NCHW (``output_nchw``), as the JAX one's. ``fit`` is ``SameDiff.fit`` on the training graph (one execution
 path), so it takes SameDiff's tiers: the scanned epoch, fused windows
 (``fused_steps``) or one step a batch.
 
@@ -51,20 +54,24 @@ import torch
 from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig, window
 from deeplearning4j_tpu_torch.environment import DeviceLike, default_device
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers import (BaseLayer, ConvolutionLayer,
-                                                DenseLayer, InputType,
-                                                LSTMLayer, OutputLayer,
-                                                SDBuildContext,
-                                                SubsamplingLayer)
-from deeplearning4j_tpu_torch.nn.recurrent_layers import (LastTimeStepLayer,
-                                                          RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.layers import (BaseLayer, InputType,
+                                                SDBuildContext)
 
-#: the input kinds each layer takes, the first the one a preprocessor
-#: converts to (a DenseLayer on rnn input runs per timestep)
-_WANTED_KIND = {DenseLayer: ("ff", "rnn"), OutputLayer: ("ff",),
-                ConvolutionLayer: ("cnn",), SubsamplingLayer: ("cnn",),
-                LSTMLayer: ("rnn",), RnnOutputLayer: ("rnn",),
-                LastTimeStepLayer: ("rnn",)}
+#: the input kinds each layer class takes, the first the one a
+#: preprocessor converts to (a DenseLayer on rnn input runs per timestep);
+#: a class not named takes any (JAX ``_WANTED_KIND`` :32)
+_WANTED_KIND = {
+    "DenseLayer": ("ff", "rnn"), "OutputLayer": ("ff",),
+    "ConvolutionLayer": ("cnn",), "SubsamplingLayer": ("cnn",),
+    "LSTMLayer": ("rnn",), "RnnOutputLayer": ("rnn",),
+    "LastTimeStepLayer": ("rnn",), "Deconvolution2DLayer": ("cnn",),
+    "DepthwiseConvolution2DLayer": ("cnn",),
+    "SeparableConvolution2DLayer": ("cnn",),
+    "LocalResponseNormalization": ("cnn",), "Upsampling2DLayer": ("cnn",),
+    "ZeroPaddingLayer": ("cnn",), "Cropping2DLayer": ("cnn",),
+    "Yolo2OutputLayer": ("cnn",), "SpaceToDepthLayer": ("cnn",),
+    "DepthToSpaceLayer": ("cnn",), "CnnLossLayer": ("cnn",),
+    "CenterLossOutputLayer": ("ff",)}
 
 
 def _not_ported(what: str, item: str, owner: str = "MultiLayerNetwork"):
@@ -77,7 +84,7 @@ def _adapt_itype(itype: InputType, layer: BaseLayer, idx: int) -> InputType:
     flattens before a layer that wants ff (the reference's
     CnnToFeedForwardPreProcessor); a sequence before one is refused, as
     in the JAX package."""
-    accepted = _WANTED_KIND.get(type(layer))
+    accepted = _WANTED_KIND.get(type(layer).__name__)
     if accepted is None or itype.kind in accepted:
         return itype
     if itype.kind == "cnn" and accepted[0] == "ff":
@@ -109,23 +116,28 @@ def _to_internal_layout(sd, x, itype: InputType, fmt: str, name: str):
 
 
 def _build_graph(conf: MultiLayerConfiguration, device: torch.device,
-                 tbptt_batch: Optional[int] = None):
-    """``(graph, build context)`` of ``conf``; with ``tbptt_batch``, the
-    TBPTT graph, whose recurrent states are state variables (the
-    context's ``rnn_state_vars``)."""
+                 tbptt_batch: Optional[int] = None, training: bool = True):
+    """``(graph, build context)`` of ``conf``: the training graph, or with
+    ``training=False`` the inference one; with ``tbptt_batch``, the TBPTT
+    graph, whose recurrent states are state variables (the context's
+    ``rnn_state_vars``)."""
     sd = SameDiff(device=device)
     fmt = conf.cnn_data_format
     ctx = SDBuildContext(sd=sd, rng=np.random.default_rng(conf.seed),
                          dtype=conf.dtype, cnn_format=fmt,
-                         tbptt_batch=tbptt_batch)
+                         tbptt_batch=tbptt_batch, training=training)
     x = sd.placeholder("input", shape=conf.input_type.placeholder_shape(),
                        dtype=conf.dtype)
     final = conf.input_type
     for _, _, _, final in _type_walk(conf):
         pass
-    ctx.labels_var = sd.placeholder("labels",
-                                    shape=final.placeholder_shape(),
-                                    dtype=conf.dtype)
+    # a head whose labels differ from its output (YOLOv2's (B, 4+C, H, W))
+    # declares their shape
+    hook = getattr(conf.layers[-1] if conf.layers else None,
+                   "labels_placeholder_shape", None)
+    ctx.labels_var = sd.placeholder(
+        "labels", shape=hook(final) if hook is not None
+        else final.placeholder_shape(), dtype=conf.dtype)
     cur = _to_internal_layout(sd, x, conf.input_type, fmt, "input_nhwc")
     itype = conf.input_type
     for idx, layer in enumerate(conf.layers):
@@ -137,10 +149,10 @@ def _build_graph(conf: MultiLayerConfiguration, device: torch.device,
         cur, itype = layer.build_sd(ctx, cur, new)
     if ctx.output_var is None:
         ctx.output_var = cur
-    if itype.kind == "cnn":
-        raise NotImplementedError(
-            "a MultiLayerNetwork whose output is convolutional is not "
-            "ported yet (ROADMAP queue 1 item 10: nn/ layers)")
+    if itype.kind == "cnn" and fmt == "NHWC":
+        ctx.output_var = sd.invoke("permute", [ctx.output_var],
+                                   {"axes": (0, 3, 1, 2)},
+                                   name="output_nchw")
     ctx.output_var.rename("output")
     return sd, ctx
 
@@ -159,7 +171,7 @@ class MultiLayerNetwork:
         ``device="cpu"``)."""
         dev = default_device(device)
         self._sd_train, _ = _build_graph(self.conf, dev)
-        self._sd_infer, _ = _build_graph(self.conf, dev)
+        self._sd_infer, _ = _build_graph(self.conf, dev, training=False)
         self._sync_infer()
         self._sd_train.training_config = self._training_config()
         self._tbptt_graphs = {}
@@ -340,7 +352,7 @@ class MultiLayerNetwork:
         outputs change only when the server calls it
         (``ParallelInference.update_model``)."""
         self._require_init()
-        serve, _ = _build_graph(self.conf, self.device)
+        serve, _ = _build_graph(self.conf, self.device, training=False)
 
         def sync():
             with torch.no_grad():

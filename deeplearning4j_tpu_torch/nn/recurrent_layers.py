@@ -4,8 +4,9 @@
 features).
 
 ``RnnOutputLayer`` is a dense layer a timestep with a loss over every
-timestep: the port's ``softmax_cross_entropy`` on the (B, T, C) logits,
-whose mean runs over batch and time, as the JAX op's does.
+timestep: its loss function's op (``softmax_cross_entropy`` on the (B,
+T, C) logits for MCXENT), whose mean runs over batch and time, as the
+JAX op's does.
 
 Not ported yet, each refused by name when it is made (and so when a
 configuration's JSON names it): ``SimpleRnnLayer``, ``Bidirectional``
@@ -16,8 +17,9 @@ from __future__ import annotations
 import dataclasses
 
 from deeplearning4j_tpu_torch.nn.layers import (LAYER_TYPES, BaseLayer,
-                                                InputType, OutputLayer,
+                                                InputType, _attach_loss_head,
                                                 _sd_activation)
+from deeplearning4j_tpu_torch.ops.loss import loss_op
 
 _NOT_PORTED = "ROADMAP queue 1 item 10: recurrent_layers"
 
@@ -59,7 +61,7 @@ class RnnOutputLayer(BaseLayer):
         return InputType.recurrent(self.n_out, itype.dims[1])
 
     def build_sd(self, ctx, x, itype):
-        OutputLayer._check_loss(self)
+        loss_op(self.loss_function)
         lname = ctx.lname("rnnout")
         w = ctx.param(f"{lname}_W", (itype.dims[0], self.n_out),
                       self.weight_init)
@@ -68,9 +70,7 @@ class RnnOutputLayer(BaseLayer):
             z = z.add(ctx.bias(f"{lname}_b", self.n_out, self.bias_init),
                       name=f"{lname}_z")
         out = _sd_activation(ctx.sd, z, self.activation, lname)
-        ctx.output_var = out
-        ctx.sd.invoke("softmax_cross_entropy", [z, ctx.labels_var], {},
-                      name="loss").mark_as_loss()
+        _attach_loss_head(ctx, z, out, self.loss_function)
         return out, self.output_type(itype)
 
 

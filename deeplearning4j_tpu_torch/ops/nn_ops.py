@@ -3,8 +3,10 @@ and LeNet slices); layer norm, embedding lookup, bias add and attention
 (the GPT slice).
 
 Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
-``max_pool2d`` :219, ``avg_pool2d`` :227, ``batchnorm`` :302,
-``batchnorm_train`` :323, ``layer_norm`` :365, ``embedding_lookup`` :417,
+``depthwise_conv2d`` :113, ``separable_conv2d`` :141, ``deconv2d`` :149,
+``upsampling2d`` :187, ``max_pool2d`` :219, ``avg_pool2d`` :227,
+``batchnorm`` :302, ``batchnorm_train`` :323, ``layer_norm`` :365,
+``lrn`` :396, ``embedding_lookup`` :417,
 ``bias_add`` :424 with its ``data_format``,
 ``scaled_dot_product_attention`` :462; the recurrent ops ``lstm_cell``
 :520, ``lstm_layer`` :539 and ``rnn_init_state`` :560, whose cell runs in
@@ -22,6 +24,22 @@ Operands of two dtypes are promoted by JAX's rule (``ops/dtypes.py``).
 "SAME" padding is JAX's: the extra row or column, when the total is odd,
 goes on the bottom/right. PyTorch's ``padding="same"`` refuses strides
 above 1 and pads the other way, so SAME is an explicit pad here.
+
+``deconv2d`` is ``lax.conv_transpose(..., transpose_kernel=True)``: the
+transposed convolution's full output (``conv_transpose2d`` with no
+padding) cropped, or padded with zeros, to the window ``lax`` pads to.
+Its weight is HWIO with I the deconvolution's *output* channels; as an
+OIHW-ordered tensor (``w.permute(3, 2, 0, 1)``) it is PyTorch's
+``(in, out, kH, kW)`` transposed-convolution weight as it stands.
+``depthwise_conv2d``'s weight is (kH, kW, C, multiplier); the output
+channel of input c and multiplier m is ``c * multiplier + m``. ``lrn``
+divides by ``(bias + alpha * sum of x^2 over 2 * depth + 1 channels)^beta``
+with no division of alpha by the window (``F.local_response_norm``
+divides it).
+
+The module-side functions (``conv2d``, ``deconv2d``, ``depthwise_conv2d``,
+``lrn`` on NCHW tensors) take the weights as the ``ComputationGraph``'s
+modules hold them: the JAX layout permuted (3, 2, 0, 1).
 """
 from __future__ import annotations
 
@@ -73,13 +91,13 @@ def _pad_spatial(x, pads, value: float):
 
 
 def conv2d(x, w, bias=None, strides=(1, 1), padding="SAME",
-           dilation=(1, 1)):
-    """2D convolution; ``w`` is OIHW (outC, inC, kH, kW)."""
+           dilation=(1, 1), groups: int = 1):
+    """2D convolution; ``w`` is OIHW (outC, inC / groups, kH, kW)."""
     strides, dilation = _pair(strides), _pair(dilation)
     k_effs = [(w.shape[2 + i] - 1) * dilation[i] + 1 for i in range(2)]
     pads = _conv_padding(padding, x.shape[2:], strides, k_effs)
     x, sym = _pad_spatial(x, pads, 0.0)
-    return F.conv2d(x, w, bias, strides, sym, dilation)
+    return F.conv2d(x, w, bias, strides, sym, dilation, groups)
 
 
 def max_pool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
@@ -88,6 +106,84 @@ def max_pool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
     pads = _conv_padding(padding, x.shape[2:], strides, kernel)
     x, sym = _pad_spatial(x, pads, float("-inf"))
     return F.max_pool2d(x, kernel, strides, sym)
+
+
+def avg_pool2d(x, kernel=(2, 2), strides=None, padding="VALID"):
+    """Average pooling; a padded position counts as a zero in the window
+    (the JAX op's ``count_include_pad=True``)."""
+    kernel = _pair(kernel)
+    strides = _pair(strides if strides is not None else kernel)
+    pads = _conv_padding(padding, x.shape[2:], strides, kernel)
+    x, sym = _pad_spatial(x, pads, 0.0)
+    return F.avg_pool2d(x, kernel, strides, sym, count_include_pad=True)
+
+
+def _transpose_pads(k: int, s: int, padding) -> Tuple[int, int]:
+    """``lax.conv_transpose``'s (before, after) padding of the dilated
+    input for an effective kernel ``k`` and stride ``s``."""
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            pad_len = k + s - 2
+            pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+        elif padding.upper() == "VALID":
+            pad_len = k + s - 2 + max(k - s, 0)
+            pad_a = k - 1
+        else:
+            raise ValueError(f"unknown padding {padding}")
+        return pad_a, pad_len - pad_a
+    return _pair(padding)
+
+
+def deconv2d(x, w, bias=None, strides=(1, 1), padding="SAME",
+             dilation=(1, 1)):
+    """Transposed convolution; ``w`` is (inC, outC, kH, kW)."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    pads = []
+    for i in range(2):
+        k = (w.shape[2 + i] - 1) * dilation[i] + 1
+        a, b = _transpose_pads(k, strides[i], padding if isinstance(
+            padding, str) else padding[i])
+        # the full output is the window padded by (k - 1, k - 1)
+        pads += [a - (k - 1), b - (k - 1)]
+    full = F.conv_transpose2d(x, w, None, strides, 0, 0, 1, dilation)
+    out = F.pad(full, (pads[2], pads[3], pads[0], pads[1]))
+    if bias is not None:
+        out = out + bias.view(1, -1, 1, 1)
+    return out
+
+
+def depthwise_weight(w):
+    """(mult, C, kH, kW), the JAX (kH, kW, C, mult) permuted (3, 2, 0, 1),
+    as the grouped convolution's (C * mult, 1, kH, kW) weight."""
+    m, c, kh, kw = w.shape
+    return w.permute(1, 0, 2, 3).reshape(c * m, 1, kh, kw)
+
+
+def depthwise_conv2d(x, w, bias=None, strides=(1, 1), padding="SAME",
+                     dilation=(1, 1)):
+    """Depthwise convolution; ``w`` is (mult, C, kH, kW)."""
+    return conv2d(x, depthwise_weight(w), bias, strides, padding, dilation,
+                  groups=x.shape[1])
+
+
+def lrn(x, depth: int = 5, bias: float = 1.0, alpha: float = 1.0,
+        beta: float = 0.5):
+    """Local response normalization across channel axis 1."""
+    sq = x * x
+    padded = F.pad(sq, (0, 0, 0, 0, depth, depth)) if x.dim() == 4 \
+        else F.pad(sq, (depth, depth))
+    c = x.shape[1]
+    acc = torch.zeros_like(sq)
+    for i in range(2 * depth + 1):
+        acc = acc + padded[:, i:i + c]
+    return x / torch.pow(bias + alpha * acc, beta)
+
+
+def upsampling2d(x, factor=(2, 2)):
+    """Nearest-neighbour upsampling of an NCHW tensor."""
+    fh, fw = _pair(factor)
+    return torch.repeat_interleave(torch.repeat_interleave(x, fh, dim=2),
+                                   fw, dim=3)
 
 
 # ----------------------------------------------------------------------
@@ -128,15 +224,106 @@ def max_pool2d_op(x, kernel=(2, 2), strides=None, padding="VALID",
 @op("avg_pool2d", _N, n_inputs=1, aliases=("avgpool2d",))
 def avg_pool2d_op(x, kernel=(2, 2), strides=None, padding="VALID",
                   data_format: str = "NCHW"):
-    """Average pooling; a padded position counts as a zero in the window
-    (the JAX op's ``count_include_pad=True``)."""
-    kernel = _pair(kernel)
-    strides = _pair(strides if strides is not None else kernel)
-    x = _to_nchw(x, data_format)
-    pads = _conv_padding(padding, x.shape[2:], strides, kernel)
-    x, sym = _pad_spatial(x, pads, 0.0)
-    return _from_nchw(F.avg_pool2d(x, kernel, strides, sym,
-                                   count_include_pad=True), data_format)
+    return _from_nchw(avg_pool2d(_to_nchw(x, data_format), kernel, strides,
+                                 padding), data_format)
+
+
+def _oihw(w):
+    """A JAX-layout 4-D weight as the module-side one: (3, 2, 0, 1)."""
+    return w.permute(3, 2, 0, 1)
+
+
+def _bias_promoted(x, ws, bias):
+    """``x``, the weights and ``bias`` promoted to one dtype."""
+    out = promote(x, *ws, *(() if bias is None else (bias,)))
+    return out[0], list(out[1:1 + len(ws)]), \
+        None if bias is None else out[-1]
+
+
+@op("deconv2d", _N, n_inputs=2, aliases=("conv2d_transpose",))
+def deconv2d_op(x, w, bias=None, strides=(1, 1), padding="SAME",
+                dilation=(1, 1), data_format: str = "NCHW"):
+    """Transposed convolution with the JAX op's layouts: ``w`` is (kH,
+    kW, outC, inC)."""
+    x, (w,), bias = _bias_promoted(x, [w], bias)
+    return _from_nchw(deconv2d(_to_nchw(x, data_format), _oihw(w), bias,
+                               strides, padding, dilation), data_format)
+
+
+@op("depthwise_conv2d", _N, n_inputs=2)
+def depthwise_conv2d_op(x, w, bias=None, strides=(1, 1), padding="SAME",
+                        dilation=(1, 1), data_format: str = "NCHW"):
+    """Depthwise convolution; ``w`` is (kH, kW, C, multiplier)."""
+    x, (w,), bias = _bias_promoted(x, [w], bias)
+    return _from_nchw(depthwise_conv2d(_to_nchw(x, data_format), _oihw(w),
+                                       bias, strides, padding, dilation),
+                      data_format)
+
+
+@op("separable_conv2d", _N, n_inputs=3)
+def separable_conv2d_op(x, depth_w, point_w, bias=None, strides=(1, 1),
+                        padding="SAME", dilation=(1, 1),
+                        data_format: str = "NCHW"):
+    """The depthwise convolution, then the 1x1 pointwise one with the
+    bias."""
+    x, (dw, pw), bias = _bias_promoted(x, [depth_w, point_w], bias)
+    y = depthwise_conv2d(_to_nchw(x, data_format), _oihw(dw), None, strides,
+                         padding, dilation)
+    return _from_nchw(conv2d(y, _oihw(pw), bias, (1, 1), "VALID"),
+                      data_format)
+
+
+@op("upsampling2d", _N, n_inputs=1)
+def upsampling2d_op(x, factor=(2, 2), data_format: str = "NCHW"):
+    return _from_nchw(upsampling2d(_to_nchw(x, data_format), factor),
+                      data_format)
+
+
+@op("lrn", _N, n_inputs=1)
+def lrn_op(x, depth: int = 5, bias: float = 1.0, alpha: float = 1.0,
+           beta: float = 0.5, data_format: str = "NCHW"):
+    """``depth`` is the half-window (the JAX op's convention)."""
+    return _from_nchw(lrn(_to_nchw(x, data_format), depth, bias, alpha,
+                          beta), data_format)
+
+
+def _channel_first(x, axis: int):
+    """``x`` with its feature ``axis`` as axis 1, and the inverse: NHWC to
+    the NCHW view of channels-last memory, (B, T, C) to (B * T, C)."""
+    axis = axis % x.dim()
+    if axis == 1:
+        return x, lambda y: y
+    if x.dim() == 4 and axis == 3:
+        return x.permute(0, 3, 1, 2), lambda y: y.permute(0, 2, 3, 1)
+    if x.dim() == 3 and axis == 2:
+        shape = x.shape
+        return x.reshape(-1, shape[2]), lambda y: y.reshape(shape)
+    raise ValueError(f"batch norm over axis {axis} of a {x.dim()}-d tensor "
+                     f"is not supported")
+
+
+@op("batchnorm", _N, aliases=("batch_norm",))
+def batchnorm_op(x, mean, variance, gamma=None, beta=None,
+                 epsilon: float = 1e-5, axis: int = 1):
+    """The inference batch norm of the JAX op's signature, over ``axis``."""
+    xc, back = _channel_first(x, axis)
+    return back(batchnorm(xc, mean, variance, gamma, beta, epsilon))
+
+
+@op("batchnorm_train", _N)
+def batchnorm_train_op(x, gamma, beta, running_mean, running_var,
+                       momentum: float = 0.9, epsilon: float = 1e-5,
+                       axis: int = 1):
+    """The training batch norm of the JAX op's signature: ``(out,
+    new_running_mean, new_running_var)``, per-channel statistics over
+    every axis but ``axis`` (the JAX op given ``axis=-1`` on a 4-d tensor
+    reduces the channels too: ROADMAP queue 3, facts); the backward is the
+    BN kernel pair."""
+    xc, back = _channel_first(x, axis)
+    gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+    out, new_mean, new_var = batchnorm_train(xc, gamma, beta, running_mean,
+                                             running_var, momentum, epsilon)
+    return back(out), new_mean, new_var
 
 
 def batchnorm(x, mean, variance, gamma=None, beta=None,

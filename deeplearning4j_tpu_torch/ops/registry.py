@@ -80,5 +80,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from deeplearning4j_tpu_torch.ops import (  # noqa: F401
-        elementwise, linalg, loss, nn_ops, pairwise, reduce, shape_ops,
-        tf_compat)
+        elementwise, linalg, loss, nn_ext, nn_ops, pairwise, random,
+        reduce, shape_ops, tf_compat)

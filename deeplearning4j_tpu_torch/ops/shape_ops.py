@@ -1,7 +1,8 @@
 """Shape ops (counterpart of ``deeplearning4j_tpu/ops/shape_ops.py``:
 ``reshape`` :22, ``permute`` :27, ``concat`` :55, ``stack`` :60, ``split``
 :70, ``pad`` :111, ``slice`` :124, ``strided_slice`` :132, ``gather`` :139, ``where_op`` :260,
-``one_hot`` :275). They return views where torch allows.
+``one_hot`` :275, ``space_to_depth`` :307, ``depth_to_space`` :319). They
+return views where torch allows.
 
 ``gather`` and ``one_hot`` keep the JAX ops' answers for any index, with no
 host sync and no device assert, so that a captured train step can hold
@@ -48,9 +49,13 @@ def split(x, num_split: int, axis: int = 0):
     return tuple(torch.split(x, n // num_split, dim=axis))
 
 
-def pad(x, paddings, constant: float = 0.0):
+@op("pad", _S, n_inputs=1)
+def pad(x, paddings, mode: str = "constant", constant: float = 0.0):
     """Constant padding; ``paddings`` is numpy-style, one (before, after)
-    pair per axis."""
+    pair per axis. The JAX op's other modes are refused by name."""
+    if mode.lower() != "constant":
+        raise NotImplementedError(
+            f"pad mode {mode!r} is not ported yet (ROADMAP queue 1 item 5)")
     flat = []
     for before, after in reversed([tuple(p) for p in paddings]):
         flat += [before, after]
@@ -165,3 +170,35 @@ def one_hot(indices, depth: int, on_value: float = 1.0,
         (depth,) + (1,) * (nd - 1 - ax))
     oh = (indices.long().unsqueeze(ax) == classes).to(torch_dtype(dtype))
     return oh * (on_value - off_value) + off_value
+
+
+def _to_nhwc(x, data_format: str):
+    return x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
+
+
+def _from_nhwc(x, data_format: str):
+    return x.permute(0, 3, 1, 2) if data_format == "NCHW" else x
+
+
+@op("space_to_depth", _S, n_inputs=1)
+def space_to_depth(x, block_size: int, data_format: str = "NHWC"):
+    """Each ``block_size`` x ``block_size`` patch to channels, ordered
+    (block row, block column, channel) with the channel fastest, as the
+    JAX op (``pixel_unshuffle`` puts the channel slowest)."""
+    x = _to_nhwc(x, data_format)
+    b, h, w, c = x.shape
+    bs = block_size
+    x = x.reshape(b, h // bs, bs, w // bs, bs, c).permute(0, 1, 3, 2, 4, 5)
+    return _from_nhwc(x.reshape(b, h // bs, w // bs, bs * bs * c),
+                      data_format)
+
+
+@op("depth_to_space", _S, n_inputs=1)
+def depth_to_space(x, block_size: int, data_format: str = "NHWC"):
+    """The inverse of :func:`space_to_depth`."""
+    x = _to_nhwc(x, data_format)
+    b, h, w, c = x.shape
+    bs = block_size
+    x = x.reshape(b, h, w, bs, bs, c // (bs * bs)).permute(0, 1, 3, 2, 4, 5)
+    return _from_nhwc(x.reshape(b, h * bs, w * bs, c // (bs * bs)),
+                      data_format)

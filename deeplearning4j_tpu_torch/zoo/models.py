@@ -1,7 +1,8 @@
 """Zoo models (counterpart of ``deeplearning4j_tpu/zoo/models.py``).
 
-``LeNet`` (:34), ``ResNet50`` (:196) and ``TextGenLSTM`` (:323) make the
-same DSL calls as the JAX package's, so each graph is node for node the
+``LeNet`` (:34), ``SimpleCNN`` (:71), ``AlexNet`` (:106), ``VGG16``
+(:161), ``ResNet50`` (:196) and ``TextGenLSTM`` (:323) make the same DSL
+calls as the JAX package's, so each graph is node for node the
 JAX one, with the same parameter names and the same initial weights from
 the same seed.
 """
@@ -14,9 +15,10 @@ from deeplearning4j_tpu_torch.learning.updaters import (Adam, IUpdater,
                                                         Nesterovs)
 from deeplearning4j_tpu_torch.nn import (
     ActivationLayer, BatchNormalization, ComputationGraph, ConvolutionLayer,
-    DenseLayer, ElementWiseVertex, GlobalPoolingLayer, InputType, LSTMLayer,
-    MultiLayerNetwork, NeuralNetConfiguration, OutputLayer, RnnOutputLayer,
-    SubsamplingLayer, ZeroPaddingLayer)
+    DenseLayer, DropoutLayer, ElementWiseVertex, GlobalPoolingLayer,
+    InputType, LocalResponseNormalization, LSTMLayer, MultiLayerNetwork,
+    NeuralNetConfiguration, OutputLayer, RnnOutputLayer, SubsamplingLayer,
+    ZeroPaddingLayer)
 
 
 @dataclasses.dataclass
@@ -47,6 +49,137 @@ class LeNet:
                 .layer(SubsamplingLayer(pooling_type="MAX",
                                         kernel_size=(2, 2), stride=(2, 2)))
                 .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   loss_function="MCXENT"))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def build(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        """The initialized network on ``device`` (the CUDA card unless
+        ``device="cpu"``)."""
+        return MultiLayerNetwork(self.conf()).init(device)
+
+
+@dataclasses.dataclass
+class SimpleCNN:
+    """Compact CNN (reference: zoo/model/SimpleCNN.java — 4 conv blocks
+    with BN, dropout head)."""
+    height: int = 48
+    width: int = 48
+    channels: int = 3
+    num_classes: int = 10
+    seed: int = 1234
+    updater: IUpdater = None
+
+    def conf(self):
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater or Adam(learning_rate=1e-3))
+             .list())
+        for n_out in (16, 32, 64, 128):
+            b = (b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                          activation="relu",
+                                          convolution_mode="SAME"))
+                 .layer(BatchNormalization())
+                 .layer(SubsamplingLayer(pooling_type="MAX",
+                                         kernel_size=(2, 2), stride=(2, 2))))
+        return (b.layer(DropoutLayer(dropout=0.5))
+                .layer(DenseLayer(n_out=256, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   loss_function="MCXENT"))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def build(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        """The initialized network on ``device`` (the CUDA card unless
+        ``device="cpu"``)."""
+        return MultiLayerNetwork(self.conf()).init(device)
+
+
+@dataclasses.dataclass
+class AlexNet:
+    """AlexNet (reference: zoo/model/AlexNet.java — conv11/4, LRN, conv5,
+    LRN, 3x conv3, dense 4096 x2 with dropout)."""
+    height: int = 224
+    width: int = 224
+    channels: int = 3
+    num_classes: int = 1000
+    seed: int = 42
+    updater: IUpdater = None
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater or Nesterovs(learning_rate=1e-2,
+                                                   momentum=0.9))
+                .list()
+                .layer(ConvolutionLayer(n_out=96, kernel_size=(11, 11),
+                                        stride=(4, 4),
+                                        convolution_mode="VALID",
+                                        activation="relu"))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(pooling_type="MAX",
+                                        kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(5, 5),
+                                        convolution_mode="SAME",
+                                        activation="relu", bias_init=1.0))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(pooling_type="MAX",
+                                        kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3),
+                                        convolution_mode="SAME",
+                                        activation="relu"))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3),
+                                        convolution_mode="SAME",
+                                        activation="relu", bias_init=1.0))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3),
+                                        convolution_mode="SAME",
+                                        activation="relu", bias_init=1.0))
+                .layer(SubsamplingLayer(pooling_type="MAX",
+                                        kernel_size=(3, 3), stride=(2, 2)))
+                .layer(DenseLayer(n_out=4096, activation="relu",
+                                  dropout=0.5))
+                .layer(DenseLayer(n_out=4096, activation="relu",
+                                  dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   loss_function="MCXENT"))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def build(self, device: DeviceLike = None) -> MultiLayerNetwork:
+        """The initialized network on ``device`` (the CUDA card unless
+        ``device="cpu"``)."""
+        return MultiLayerNetwork(self.conf()).init(device)
+
+
+@dataclasses.dataclass
+class VGG16:
+    """VGG-16 (reference: zoo/model/VGG16.java — 13 conv3x3 + 3 dense)."""
+    height: int = 224
+    width: int = 224
+    channels: int = 3
+    num_classes: int = 1000
+    seed: int = 42
+    updater: IUpdater = None
+
+    def conf(self):
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater or Nesterovs(learning_rate=1e-2,
+                                                momentum=0.9))
+             .list())
+        for n_out, reps in ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)):
+            for _ in range(reps):
+                b = b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                             convolution_mode="SAME",
+                                             activation="relu"))
+            b = b.layer(SubsamplingLayer(pooling_type="MAX",
+                                         kernel_size=(2, 2), stride=(2, 2)))
+        return (b.layer(DenseLayer(n_out=4096, activation="relu"))
+                .layer(DenseLayer(n_out=4096, activation="relu"))
                 .layer(OutputLayer(n_out=self.num_classes,
                                    loss_function="MCXENT"))
                 .set_input_type(InputType.convolutional(

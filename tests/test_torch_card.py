@@ -1723,3 +1723,89 @@ def test_fit_tbptt_captures_one_window_and_counts_its_launches_on_card(card):
     for k in before:
         assert lstm.LAUNCHES[k] - before[k] == (16 + 2) * 2
     assert np.isfinite(h.step_losses).all()
+
+
+# ----------------------------------------------------------------------
+# dropout (csrc/dropout.cu)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("n,offset", [(128 * 6400, 0), (4097, 0), (5, 1),
+                                      (1003, 1)])
+def test_dropout_kernel_matches_plain_bit_for_bit(card, n, offset, dtype):
+    """Forward and backward against ``dropout_plain`` on the same key and
+    counter, at an iteration past 2^32 too; ``offset`` 1 reads views off
+    16 bytes in place."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    g = torch.Generator(device=card).manual_seed(n)
+    buf = torch.randn(2, n + 1, generator=g, device=card).to(dtype)
+    x, dy = buf[0, offset:offset + n], buf[1, offset:offset + n]
+    seed = torch.tensor([99], dtype=torch.int64, device=card)
+    for it_v, p in ((3, 0.5), (2 ** 33 + 1, 0.8)):
+        it = torch.tensor([it_v], dtype=torch.int64, device=card)
+        before = dict(dk.LAUNCHES)
+        xg = x.detach().requires_grad_(True)
+        y = dk.dropout(xg, p, seed, it, 4)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert torch.equal(y, dk.dropout_plain(x, p, seed, it, 4))
+        assert torch.equal(xg.grad, dk.dropout_plain(dy, p, seed, it, 4))
+        assert dk.LAUNCHES["dropout_fwd"] == before["dropout_fwd"] + 1
+        assert dk.LAUNCHES["dropout_bwd"] == before["dropout_bwd"] + 1
+
+
+@pytest.mark.cuda
+def test_dropout_in_a_cuda_graph_reads_the_staged_iteration(card):
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    x = torch.randn(4096, device=card)
+    seed = torch.tensor([1], dtype=torch.int64, device=card)
+    it = torch.zeros(1, dtype=torch.int64, device=card)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        dk.dropout_apply(x, 0.5, seed, it, 0)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dk.dropout_apply(x, 0.5, seed, it, 0)
+    outs = []
+    for v in (0, 1, 0):
+        it.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, dk.dropout_plain(x, 0.5, seed, v, 0))
+        outs.append(y.clone())
+    assert not torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_alexnet_sized_mlp_with_dropout_tiers_agree_on_card(card):
+    """A network with dropout on the three fit tiers on the card: the same
+    losses and parameters bit for bit (the masks come from the staged
+    seed and iterations, each window captured once)."""
+    import deeplearning4j_tpu_torch.nn as pnn
+    from deeplearning4j_tpu_torch.autodiff import ScoreIterationListener
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.learning import Sgd
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 96)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+    quiet = [ScoreIterationListener(10 ** 9, lambda *a: None)]
+    out = {}
+    for tier, kw in (("scanned", {}), ("windows", {"fused_steps": 4,
+                                                   "listeners": quiet}),
+                     ("per-step", {"listeners": quiet})):
+        conf = (pnn.NeuralNetConfiguration.builder().seed(1)
+                .updater(Sgd(0.1)).list()
+                .layer(pnn.DenseLayer(n_out=128, dropout=0.5))
+                .layer(pnn.DenseLayer(n_out=64, dropout=0.5))
+                .layer(pnn.OutputLayer(n_out=10))
+                .set_input_type(pnn.InputType.feed_forward(96)).build())
+        net = pnn.MultiLayerNetwork(conf).init(device=card)
+        h = net.fit(DeviceCachedIterator(x, y, 8, device=card), **kw)
+        out[tier] = (h.step_losses, net.params())
+    for tier in ("windows", "per-step"):
+        assert out[tier][0] == out["scanned"][0]
+        for k, v in out["scanned"][1].items():
+            np.testing.assert_array_equal(out[tier][1][k], v, err_msg=k)

@@ -208,7 +208,8 @@ def test_updater_leaves_follow_the_jax_flattening_order(tmp_path):
     assert ps.metadata["topology"]["process_count"] == 1
     assert ps.metadata["topology"]["global_shapes"]["conv_W"] == \
         [3, 3, 2, 4]
-    assert ps.rng_seed is None
+    # the fit's base seed, as the JAX package records it: the first fit's
+    assert ps.rng_seed == js.rng_seed == 0
 
 
 def test_capture_is_a_copy_and_restore_keeps_the_windows(tmp_path):

@@ -518,7 +518,6 @@ def test_a_sequence_before_a_flat_layer_is_refused_as_in_jax():
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: LSTMLayer(n_out=4, dropout=0.5), "queue 1 item 5"),
     (lambda: SimpleRnnLayer(n_out=4), "queue 1 item 10"),
     (lambda: Bidirectional(), "queue 1 item 10"),
     (lambda: ConvLSTM2DLayer(), "queue 1 item 10"),

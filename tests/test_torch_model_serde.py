@@ -78,7 +78,7 @@ def test_configuration_json_reads_both_ways(model):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("Yolo2OutputLayer", "queue 1 item 10: nn/ layers"),
+    ("VariationalAutoencoderLayer", "queue 1 item 10: nn/ layers"),
     ("Bidirectional", "queue 1 item 10: recurrent_layers"),
     ("SimpleRnnLayer", "queue 1 item 10: recurrent_layers"),
 ])

@@ -33,14 +33,14 @@ from deeplearning4j_tpu_torch.convert import samediff_arrays_from_jax
 from deeplearning4j_tpu_torch.dataset import (DeviceCachedIterator,
                                               load_mnist, synthetic_mnist)
 from deeplearning4j_tpu_torch.learning import Adam
-from deeplearning4j_tpu_torch.nn import (BatchNormalization,
-                                         ConvolutionLayer, DenseLayer,
-                                         InputType, MultiLayerConfiguration,
+from deeplearning4j_tpu_torch.nn import (CenterLossOutputLayer, DenseLayer,
+                                         GlobalPoolingLayer, InputType,
+                                         MultiLayerConfiguration,
                                          MultiLayerNetwork,
                                          NeuralNetConfiguration, OutputLayer,
-                                         SubsamplingLayer)
+                                         SubsamplingLayer, ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.evaluation import EvaluationBinary
-from deeplearning4j_tpu_torch.nn import LSTMLayer, SimpleRnnLayer
+from deeplearning4j_tpu_torch.nn import SimpleRnnLayer
 from deeplearning4j_tpu_torch.ops import registry as preg
 from deeplearning4j_tpu_torch.zoo import LeNet
 
@@ -280,14 +280,13 @@ def test_what_is_not_ported_is_refused_by_name():
                         "10"),
                        (lambda: EvaluationBinary(), "10"),
                        (lambda: SimpleRnnLayer(n_out=4), "10"),
-                       (lambda: LSTMLayer(n_out=4, dropout=0.5).build_sd(
-                           None, None, None), "5")):
+                       (lambda: CenterLossOutputLayer(n_out=4).build_sd(
+                           None, None, None), "10")):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             call()
-    for layers in ([DenseLayer(n_out=4, dropout=0.5)],
-                   [ConvolutionLayer(n_out=2, dropout=0.5)],
-                   [SubsamplingLayer(pooling_type="PNORM")],
-                   [BatchNormalization()]):
+    for layers in ([SubsamplingLayer(pooling_type="PNORM")],
+                   [GlobalPoolingLayer(pooling_type="PNORM")],
+                   [ZeroPaddingLayer(), CenterLossOutputLayer(n_out=2)]):
         conf = (NeuralNetConfiguration.builder().list())
         for layer in layers + [OutputLayer(n_out=2)]:
             conf.layer(layer)

@@ -1210,24 +1210,28 @@ def _refusal(kind):
     from deeplearning4j_tpu_torch.learning.updaters import IUpdater
     from deeplearning4j_tpu_torch.nn import (GlobalPoolingLayer,
                                              SubsamplingLayer)
-    from deeplearning4j_tpu_torch.nn.activations import resolve_activation
-    from deeplearning4j_tpu_torch.nn.weights import init_weights
     if kind == "schedule":
         # schedules are ported; a JAX updater's JSON the port lacks is not
         return lambda: IUpdater.from_json(
             {"@class": "AdaMax", "learning_rate": {
                 "@class": "ExponentialSchedule", "initial_value": 0.1,
                 "gamma": 0.9, "schedule_type": "ITERATION"}})
-    if kind == "activation":
-        return lambda: resolve_activation("selu")
-    if kind == "weight_init":
-        return lambda: init_weights("UNIFORM", (2, 2),
-                                    np.random.default_rng(0))
-    if kind == "loss":
+    if kind == "pnorm_pooling":
         conf = (NeuralNetConfiguration.builder().list()
-                .layer(OutputLayer(n_out=2, loss_function="MSE"))
+                .layer(SubsamplingLayer(pooling_type="PNORM"))
+                .layer(OutputLayer(n_out=2))
+                .set_input_type(InputType.convolutional(4, 4, 1)).build())
+        return lambda: MultiLayerNetwork(conf).init(device="cpu")
+    if kind == "center_loss_in_mln":
+        from deeplearning4j_tpu_torch.nn import CenterLossOutputLayer
+        conf = (NeuralNetConfiguration.builder().list()
+                .layer(CenterLossOutputLayer(n_out=2))
                 .set_input_type(InputType.feed_forward(3)).build())
         return lambda: MultiLayerNetwork(conf).init(device="cpu")
+    if kind == "layer_json":
+        from deeplearning4j_tpu_torch.nn.layers import BaseLayer
+        return lambda: BaseLayer.from_json({"@class": "GRULayer",
+                                            "n_out": 4})
 
     def graph(layer):
         conf = (NeuralNetConfiguration.builder().graph_builder()
@@ -1238,9 +1242,9 @@ def _refusal(kind):
                 .set_outputs("out").build())
         return lambda: ComputationGraph(conf).init(device="cpu")
     if kind == "graph_subsampling":
-        return graph(SubsamplingLayer(pooling_type="AVG"))
+        return graph(SubsamplingLayer(pooling_type="PNORM"))
     if kind == "global_pooling":
-        return graph(GlobalPoolingLayer(pooling_type="MAX"))
+        return graph(GlobalPoolingLayer(pooling_type="PNORM"))
     assert kind == "masked_attention"
 
     class CardTensor(torch.Tensor):
@@ -1255,11 +1259,11 @@ def _refusal(kind):
 
 @pytest.mark.parametrize("kind,item", [
     ("schedule", "queue 1 item 3"),
-    ("activation", "queue 1 item 1.2"),
-    ("weight_init", "queue 1 item 1.2"),
-    ("loss", "queue 1 item 1.2"),
-    ("graph_subsampling", "queue 1 item 1.2"),
-    ("global_pooling", "queue 1 item 1.2"),
+    ("pnorm_pooling", "queue 1 item 5"),
+    ("center_loss_in_mln", "queue 1 item 10"),
+    ("layer_json", "queue 1 item 10"),
+    ("graph_subsampling", "queue 1 item 5"),
+    ("global_pooling", "queue 1 item 5"),
     ("masked_attention", "queue 2b item 8")])
 def test_refusals_name_their_queue_items(kind, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
