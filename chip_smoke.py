@@ -5,10 +5,11 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the seven CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   limit; the builds of the eight CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
    csrc/causal_attention.cu, csrc/paged_attention.cu,
-   csrc/attention_f32.cu, csrc/int8_matmul.cu, csrc/lstm_recurrence.cu
-   and csrc/dropout.cu, one nvcc each, started together: seconds,
+   csrc/attention_f32.cu, csrc/int8_matmul.cu, csrc/lstm_recurrence.cu,
+   csrc/dropout.cu and csrc/rnn_recurrence.cu, one nvcc each, started
+   together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -427,6 +428,37 @@ Phases, in order; any failure exits non-zero:
    loss, the output's shape, the parameter count. (vi) the streamed
    recurrence kernels (past 384 float32 units) at (32, 50, 512) and (32,
    50, 1024) alone, their bound and cuDNN's ``nn.LSTM`` each way.
+29. main path: the recurrent family and ``ComputationGraph``
+   save/load/evaluate. (i) the GRU, Graves (peephole LSTM) and simple RNN
+   recurrence kernels (``csrc/rnn_recurrence.cu``) against their plain
+   versions, forward and backward, float32 (1e-5) and float64 (1e-12 of
+   the largest magnitude): (B, T, U) = (64, 256, 256), (1, 50, 5), (7,
+   50, 100), (64, 1, 16), (7, 50, 384), (64, 50, 512) (streamed), the
+   path's case reversed in time, the simple RNN under each of its seven
+   activations; two calls bit-equal; (i') the noise kernel
+   (``csrc/dropout.cu`` ``dl4j_noise``) of each kind: Bernoulli kinds bit
+   for bit, Gaussian kinds within 4 ulp. (ii) the sentiment graph at
+   Word2VecSentimentRNN's widths (64 reviews x 256 words x 300 -> noise
+   0.1 -> Bidirectional(GRU 256, CONCAT) -> GravesLSTM 256 -> last step
+   -> softmax 2; Adam(5e-3), L2 1e-5, element-wise clip 1.0; float32, TF32
+   off) on synthetic reviews from seed 0 through ``ComputationGraph.fit``
+   on the scanned, windowed (2) and per-step tiers: losses, parameters and
+   each step's noise (a device tap) bit-equal; the counts set to 0 before
+   the scanned fit; step ms, sequences/s, a profiled epoch (launches,
+   idle share, device time by group; no cuDNN RNN kernel); the loss
+   falling. (iii) a float64 copy (10 -> 16 units) card vs CPU to 1e-6.
+   (iv) a ``MultiLayerNetwork`` at TextGenLSTM's widths (77 ->
+   SpatialDropout 0.9 -> SimpleRnn 256 -> GaussianDropout 0.1 ->
+   AlphaDropout 0.95 -> Bidirectional(LSTM 256, ADD) -> RnnOutput 77)
+   through ``fit_tbptt``, chunks of 32 x 50: counts, chunk ms, a profiled
+   epoch. (v) the trained sentiment graph saved and loaded onto the card:
+   outputs and one more step bit-equal; ``evaluate`` with
+   ``Evaluation``, ``ROCMultiClass`` and ``EvaluationCalibration``
+   against the host's statistics of ``output``. (vi) phase 6's trained
+   ResNet-50 (saved at the end of phase 6) loaded: its output bit-equal.
+   Then each new kernel alone at its path's shape beside its plain
+   version, its bound and cuDNN's ``nn.GRU``/``nn.RNN``,
+   ``F.alpha_dropout`` or ``F.dropout1d`` where they compute the same.
 
 Every idle share is read from one profiled pass: its device busy time
 against that pass's own wall time.
@@ -439,7 +471,9 @@ paged_decode_attention and its int8 form,
 per 512-row prefill for the float32 prefill kernels and the int8 paged
 prefill, per speculative round for int8_matmul and paged_verify_attention
 and its int8 form, per TBPTT chunk for the LSTM cell kernels, per
-AlexNet step for the dropout kernels),
+AlexNet step for the dropout kernels, per sentiment step for the GRU and
+Graves recurrences and the Gaussian noise, per TBPTT chunk of phase 29's
+network for the simple RNN and the other noise kinds),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Nothing of JAX or of the JAX package is imported.
 """
@@ -458,7 +492,7 @@ from deeplearning4j_tpu_torch.kernels.measure import (
     BF16_TC_FLOPS, attention_bounds, attention_inputs, card_rates,
     forward_macs, median_ms, ptxas_spills, ptxas_usage, queued_ms,
     sass_counts, sass_kernels, set_running_stats, synced_ms,
-    tensor_map_encode_us)
+    tensor_map_encode_us, two_rate_bound)
 
 STEPS = 8
 BATCH = 128
@@ -1047,6 +1081,10 @@ def phase_main(dev, card):
     metrics["profile_per_step"] = profile_fit(
         lambda: net.fit(two, epochs=1, fused_steps=1), 2,
         min(metrics["tiers"]["per-step"]), card)
+    p29_resnet_snapshot(net, torch.tensor(np.random.default_rng(1)
+                                          .standard_normal((8, 3, 224, 224),
+                                                           dtype=np.float32),
+                                          device=dev))
     del net, it
     torch.cuda.empty_cache()
     return per_step, launches, metrics
@@ -3387,6 +3425,13 @@ def _mlp_data():
     return X, np.eye(10, dtype=np.float32)[rng.integers(0, 10, LENET_ROWS)]
 
 
+def _annotation(e):
+    """A range the profiler marks on the device timeline (a scheduled
+    pass's ProfilerStep#n), not device work."""
+    return getattr(e, "is_user_annotation", False) or \
+        e.name.startswith("ProfilerStep")
+
+
 def device_activity(prof):
     """(device activities, of which kernels, busy ms, ms by name) of a
     profiler pass: every device event (kernel, copy, set), busy as the
@@ -3394,7 +3439,7 @@ def device_activity(prof):
     from torch.autograd import DeviceType
     spans, kernels, by_name = [], 0, {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or _annotation(e):
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
@@ -6418,20 +6463,28 @@ def p27_full_length(Xb, Yb):
 
 def _p27_profile(fn, n_units):
     """One pass of ``fn`` under torch.profiler: (device launches, busy ms,
-    wall ms, ms by kernel name), each a unit (a chunk or a step)."""
-    from torch.profiler import ProfilerActivity, profile
+    wall ms, ms by kernel name), each a unit (a chunk or a step). A first,
+    untraced pass of ``fn`` runs in the profiler's warm-up cycle, with the
+    device tracing already on: without it the trace lost the first
+    replay's first kernels (1 of 4 sentiment steps' forward launches)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+        prof.step()
     n_dev, n_kern, busy, by_name = device_activity(prof)
     from torch.autograd import DeviceType
     counts = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not _annotation(e):
             counts[e.name] = counts.get(e.name, 0) + 1
     return {"launches": n_dev / n_units, "kernels": n_kern / n_units,
             "busy_ms": busy / n_units, "wall_ms": wall / n_units,
@@ -7436,7 +7489,8 @@ def p28_alexnet(dev, card):
     hist = net.fit(it, epochs=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(dk.LAUNCHES)
+    # the module's other kernels (the noise draws) launch nothing here
+    launches = {k: n for k, n in dk.LAUNCHES.items() if n}
     st = dict(net.samediff.last_fit_stats)
     step_ms = 1000 * wall / steps
     log(f"  timed epoch (scanned, {st['graph_replays_per_epoch']} replay): "
@@ -7679,6 +7733,833 @@ def phase_zoo(dev, card, card_name):
     return records
 
 
+# ----------------------------------------------------------------------
+# phase 29: the recurrent family, the noise layers and ComputationGraph
+# save/load/evaluate
+P29_RNN_SOURCE = "deeplearning4j_tpu_torch/csrc/rnn_recurrence.cu"
+P29_RNN_REPLACES = {"gru": "deeplearning4j_tpu/ops/nn_ops.py:569",
+                    "graves": "deeplearning4j_tpu/ops/nn_ext.py:29",
+                    "simple": "deeplearning4j_tpu/ops/nn_ops.py:607"}
+P29_NOISE_REPLACES = {"gaussian_noise": "deeplearning4j_tpu/ops/random.py:138",
+                      "gaussian_dropout":
+                          "deeplearning4j_tpu/ops/random.py:130",
+                      "alpha_dropout": "deeplearning4j_tpu/ops/random.py:117",
+                      "spatial_dropout":
+                          "deeplearning4j_tpu/ops/random.py:145"}
+#: Word2VecSentimentRNN's widths: batch 64, 300-wide word vectors, reviews
+#: cut to 256 steps, 256 units, 2 classes; 4 minibatches an epoch
+P29_B, P29_T, P29_F, P29_U, P29_SEQS = 64, 256, 300, 256, 256
+#: the TBPTT network at TextGenLSTM's widths: 77 characters, 256 units,
+#: chunks of 32 x 50, sequences of 200 (4 chunks a minibatch), 2 minibatches
+P29_TB, P29_TBPTT, P29_TSEQ, P29_TSEQS, P29_V = 32, 50, 200, 64, 77
+#: each recurrence kernel's launches a sentiment step (GRU both ways) and a
+#: TBPTT chunk (the simple RNN once)
+P29_PER_STEP = {"gru_recurrence_fwd": 2, "gru_recurrence_bwd": 2,
+                "graves_recurrence_fwd": 1, "graves_recurrence_bwd": 1,
+                "gaussian_noise_fwd": 1}
+P29_PER_CHUNK = {"simple_recurrence_fwd": 1, "simple_recurrence_bwd": 1,
+                 "spatial_dropout_fwd": 1, "gaussian_dropout_fwd": 1,
+                 "gaussian_dropout_bwd": 1, "alpha_dropout_fwd": 1,
+                 "alpha_dropout_bwd": 1}
+#: (the spatial dropout drops the network's input, which takes no
+#: gradient: its backward does not run on this path)
+#: (B, T, U) the recurrence kernels are held to their plain versions at:
+#: the path's, one row, ragged rows and widths, one step, the widest
+#: resident width and one streamed (512)
+P29_CASES = ((P29_B, P29_T, P29_U), (1, 50, 5), (7, 50, 100), (64, 1, 16),
+             (7, 50, 384), (64, 50, 512))
+P29_TIERS = (("scanned", 1), ("windows", 2), ("per-step", 1))
+
+
+def p29_check_kernels(dev):
+    """(i) Each recurrence kernel against its plain version on the card at
+    :data:`P29_CASES` (and the path's case reversed in time, as a
+    ``Bidirectional`` layer's backward direction takes it), float32 and
+    float64, the simple RNN under each activation; each call twice, bit
+    for bit. Returns the worst relative error a kernel."""
+    from deeplearning4j_tpu_torch.kernels import recurrence
+    from deeplearning4j_tpu_torch.kernels.measure import (
+        rnn_bwd_args, rnn_fwd_args, rnn_recurrence_case)
+    errs = {}
+    snap = dict(recurrence.LAUNCHES)
+    cases = [(c, b, t, u, dt, 1, False) for c in ("gru", "graves", "simple")
+             for dt in (torch.float32, torch.float64)
+             for b, t, u in P29_CASES]
+    cases += [(c, P29_B, P29_T, P29_U, dt, 1, True)
+              for c in ("gru", "graves") for dt in (torch.float32,
+                                                    torch.float64)]
+    cases += [("simple", 7, 50, 100, dt, act, False)
+              for act in sorted(set(recurrence.ACTIVATIONS.values()))
+              for dt in (torch.float32, torch.float64)]
+    worst_case = {}
+    for cell, b, t, u, dt, act, rev in cases:
+        case = rnn_recurrence_case(cell, b, t, u, dt, dev, seed=b + t + u,
+                                   act=act)
+        if rev:         # the sequence reversed in time, as a contiguous gx
+            case["gx"] = case["gx"].flip(0).contiguous()
+            case.update(zip(("saved", "hs", "cs", "hn"),
+                            recurrence.recurrence_fwd_plain(
+                                cell, case["gx"], *rnn_fwd_args(case))))
+        got_f = recurrence.recurrence_fwd(cell, case["gx"].clone(),
+                                          *rnn_fwd_args(case))
+        want_b = recurrence.recurrence_bwd_plain(cell, *rnn_bwd_args(case))
+        got_b = recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+        want_f = (case["saved"], case["hs"], case["cs"], case["hn"])
+        torch.cuda.synchronize()
+        for d, gots, wants in (("fwd", got_f, want_f), ("bwd", got_b,
+                                                         want_b)):
+            name = f"{cell}_recurrence_{d}"
+            for got, want in zip(gots, wants):
+                if want is None:
+                    continue
+                err, ok = _p27_close(got, want, dt)
+                if err > errs.get(name, -1.0):
+                    errs[name] = err
+                    worst_case[name] = (b, t, u, str(dt)[6:], act, rev)
+                if not ok:
+                    raise SystemExit(f"{name} {dt} (B, T, U) = ({b}, {t}, "
+                                     f"{u}) act {act} reversed {rev}: error "
+                                     f"{err:.3e} against its plain version")
+        again = recurrence.recurrence_fwd(cell, case["gx"].clone(),
+                                          *rnn_fwd_args(case)) + \
+            recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+        if not all(x is None or torch.equal(x, y)
+                   for x, y in zip(again, got_f + got_b)):
+            raise SystemExit(f"the {cell} recurrence kernels {dt} ({b}, {t},"
+                             f" {u}): two calls differ")
+    recurrence.LAUNCHES.update(snap)       # checks are not the path's
+    for cell in ("gru", "graves", "simple"):
+        for dt in (torch.float32, torch.float64):
+            plans = []
+            for b, t, u in P29_CASES:
+                p = recurrence._card_plan(dev.index or 0, cell, dt, b, u)
+                plans.append(f"U {u}: R {p.ranks}, "
+                             f"{'resident' if p.resident else 'streamed'}, "
+                             f"{p.smem_fwd}/{p.smem_bwd} B, card holds "
+                             f"{p.max_clusters} clusters")
+            log(f"  {cell} {str(dt)[6:]} plans: " + "; ".join(plans))
+    log(f"  (i) {len(cases)} cases (forward and backward each), within "
+        f"{P27_TOL[torch.float32]:g} (float32) / "
+        f"{P27_TOL[torch.float64]:g} (float64) of the largest magnitude, "
+        f"two calls bit-equal; worst |error|: " + ", ".join(
+            f"{k} {v:.2e} at {worst_case[k]}" for k, v in sorted(
+                errs.items())))
+    return errs
+
+
+def p29_check_noise(dev):
+    """(i') The noise kernel of each kind against its plain version at the
+    paths' shapes: the Bernoulli kinds bit for bit, the Gaussian ones
+    within 4 ulp of the output dtype of the terms' magnitude; two calls
+    bit-equal. Returns the worst |difference| a kind."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    snap = dict(dk.LAUNCHES)
+    seed = torch.tensor([20260 + (1 << 33)], dtype=torch.int64, device=dev)
+    it = torch.tensor([3], dtype=torch.int64, device=dev)
+    cases = [("gaussian_noise", (P29_B, P29_T, P29_F), {"stddev": 0.1}),
+             ("gaussian_dropout", (P29_TB, P29_TBPTT, P29_U),
+              {"stddev": (0.1 / 0.9) ** 0.5}),
+             ("alpha_dropout", (P29_TB, P29_TBPTT, P29_U), {"p": 0.95}),
+             ("alpha_dropout_bwd", (P29_TB, P29_TBPTT, P29_U), {"p": 0.95}),
+             ("spatial_dropout", (P29_TB, P29_TBPTT, P29_V), {"p": 0.9}),
+             ("spatial_dropout", (16, 32, 13, 13), {"p": 0.9})]
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        for kind, shape, kw in cases:
+            x = torch.randn(shape, device=dev, dtype=dt)
+            axis = 1 if len(shape) == 4 else -1
+            got = dk.noise_apply(kind, x, seed, it, 5, "gaussian_noise_fwd",
+                                 channel_axis=axis, **kw)
+            want = dk.noise_plain(kind, x, seed, it, 5, channel_axis=axis,
+                                  **kw)
+            diff = float((got - want).abs().max())
+            if kind.startswith("gaussian"):
+                n = dk.normals_plain(x.numel(), seed, it, 5, dev).reshape(
+                    shape)
+                s = kw["stddev"]
+                scale = x.double().abs() * (1 + s * n.abs()) + s * n.abs() \
+                    + want.double().abs()
+                ok = bool(((got.double() - want.double()).abs()
+                           <= 4 * torch.finfo(dt).eps * scale).all())
+            else:
+                ok = torch.equal(got, want)
+            again = dk.noise_apply(kind, x, seed, it, 5, "gaussian_noise_fwd",
+                                   channel_axis=axis, **kw)
+            if not ok or not torch.equal(again, got):
+                raise SystemExit(f"the noise kernel {kind} {dt} {shape}: "
+                                 f"{diff:.3e} from its plain version, or two "
+                                 f"calls differ")
+            key = kind.replace("_bwd", "")
+            errs[key] = max(errs.get(key, 0.0), diff)
+    dk.LAUNCHES.update(snap)
+    log("  (i') the noise kernel against its plain versions, float32 and "
+        "float64: Bernoulli kinds bit-equal, Gaussian kinds within 4 ulp; "
+        "worst |difference| " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in errs.items()))
+    return errs
+
+
+def _p29_conf(dtype="float32", f=P29_F, t=P29_T, u=P29_U):
+    """The sentiment ComputationGraph (Word2VecSentimentRNN's settings:
+    Adam(5e-3), L2 1e-5; ClipElementWiseAbsoluteValue 1.0 set on the
+    training config after init)."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (
+        Bidirectional, GaussianNoiseLayer, GravesLSTMLayer, GRULayer,
+        InputType, LastTimeStepLayer, NeuralNetConfiguration, OutputLayer)
+    conf = (NeuralNetConfiguration.builder().seed(0)
+            .updater(Adam(learning_rate=5e-3)).l2(1e-5).graph_builder()
+            .add_inputs("in")
+            .set_input_types(InputType.recurrent(f, t))
+            .add_layer("noise", GaussianNoiseLayer(stddev=0.1), "in")
+            .add_layer("bigru", Bidirectional(layer=GRULayer(n_out=u),
+                                              mode="CONCAT"), "noise")
+            .add_layer("glstm", GravesLSTMLayer(n_out=u), "bigru")
+            .add_layer("last", LastTimeStepLayer(), "glstm")
+            .add_layer("out", OutputLayer(n_out=2, activation="softmax",
+                                          loss_function="MCXENT"), "last")
+            .set_outputs("out").build())
+    conf.dtype = dtype
+    return conf
+
+
+def _p29_net(dev, **kw):
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    net = ComputationGraph(_p29_conf(**kw)).init(device=dev)
+    net.training_config.gradient_normalization = \
+        "ClipElementWiseAbsoluteValue"
+    net.training_config.gradient_normalization_threshold = 1.0
+    return net
+
+
+def _p29_data(dev, n=P29_SEQS, t=P29_T, f=P29_F, seed=0):
+    """Synthetic reviews at the example's shapes, from ``seed``: word
+    vectors N(0, 1) / sqrt(f) and a label a linear function of the
+    sequence's mean vector decides, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, t, f, generator=g, device=dev) / math.sqrt(f)
+    w = torch.randn(f, generator=g, device=dev)
+    cls = (x.mean(1) @ w > 0).long()
+    y = torch.nn.functional.one_hot(cls, 2).float()
+    return x, y
+
+
+def _p29_noise_tap(rings):
+    """``kernels/dropout.py`` ``noise`` that also writes, for a node in
+    ``rings`` (node -> (R,) float64 on the card), the sum of the noise it
+    drew to row ``iteration % R``: a captured window replays the write, so
+    the ring holds each step's draw (its extra launches are not counted
+    and not the path's)."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    real = dk.noise
+
+    def tapped(kind, x, seed, iteration, node, *a, **k):
+        y = real(kind, x, seed, iteration, node, *a, **k)
+        ring = rings.get(node)
+        if ring is not None:
+            with torch.no_grad():
+                row = torch.remainder(iteration.reshape(1), ring.shape[0])
+                ring.index_copy_(0, row, (y - x).double().sum().reshape(1))
+        return y
+    return real, tapped
+
+
+def _p29_traced(prof, pats, n_units):
+    """Each name's (device ms, traced launches) a unit: the trace's
+    kernels whose names hold its pattern."""
+    out = {}
+    for kname, pat in pats.items():
+        names = [n for n in prof["counts"] if pat in n]
+        out[kname] = (sum(prof["by_name"][n] for n in names),
+                      sum(prof["counts"][n] for n in names) / n_units)
+    return out
+
+
+def _p29_profile(fn, n_units, pats, want, label):
+    """A profiled pass of ``fn`` (``_p27_profile``) and its traced kernels
+    (``pats``). A pass that traced other than ``want`` launches a unit of
+    a kernel is taken once more; a second such pass stops the run, since
+    its in-step times and idle share would leave launches out."""
+    for attempt in range(2):
+        prof = _p27_profile(fn, n_units)
+        traced = _p29_traced(prof, pats, n_units)
+        short = {k: v[1] for k, v in traced.items()
+                 if abs(v[1] - want[k]) > 1e-9}
+        if not short:
+            return prof, traced
+        log(f"  FLAG: the {label} pass {attempt + 1} traced {short} "
+            f"launches a unit, want {want}"
+            + ("; taking it once more" if attempt == 0 else ""))
+    raise SystemExit(f"phase 29: two profiled passes of the {label} traced "
+                     f"other launches than the path made")
+
+
+def p29_sentiment(dev, card):
+    """(ii) The sentiment graph at full width on the scanned, windowed (2)
+    and per-step tiers from seed 0, one epoch each: losses, parameters and
+    each step's noise bit-equal across tiers; the counts set to 0 just
+    before the scanned fit and read just after (every kernel of the path
+    launched, in the replayed step); then each tier timed (median of 3
+    epochs), a profiled scanned epoch (launches, idle share, device time
+    by group; no cuDNN RNN kernel), and the loss falling over 6 epochs."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.kernels import _cuda, recurrence
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    x, y = _p29_data(dev)
+    it = DeviceCachedIterator(x, y, P29_B, device=dev)
+    steps = P29_SEQS // P29_B
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, nets = {}, {}
+    rings = {0: torch.zeros(steps, dtype=torch.float64, device=dev)}
+    real, tapped = _p29_noise_tap(rings)
+    try:
+        for tier, k in P29_TIERS:
+            net = _p29_net(dev)
+            if tier == "scanned":
+                log(f"  sentiment graph: {net.num_params()} parameters, "
+                    f"float32 (TF32 off), Adam(5e-3), L2 1e-5, element-wise "
+                    f"clip 1.0; data {tuple(x.shape)} on the card "
+                    f"({x.numel() * 4 / 1e6:.1f} MB)")
+                for c in (recurrence.LAUNCHES, dk.LAUNCHES):
+                    for key in c:
+                        c[key] = 0
+                before = _cuda.count_snapshot()
+            rings[0].zero_()
+            dk.noise = tapped
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = net.fit(it, listeners=[_quiet_listener()] if tier !=
+                            "scanned" else [], fused_steps=k)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                dk.noise = real
+            if tier == "scanned":
+                counts = {key: n for c, key, n in _cuda.counts_since(before)}
+            nets[tier] = net
+            res[tier] = {"losses": h.step_losses, "params": _p27_params(net),
+                         "noise": rings[0].clone(),
+                         "stats": dict(net.last_fit_stats), "s": first_s}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    ref = res["per-step"]
+    if len(set(ref["noise"].tolist())) != steps:
+        raise SystemExit("phase 29: the noise did not change each step")
+    for tier in ("scanned", "windows"):
+        worst, bits = _p27_diff(res[tier]["params"], ref["params"])
+        same = (res[tier]["losses"] == ref["losses"] and bits
+                and torch.equal(res[tier]["noise"], ref["noise"]))
+        log(f"  (ii) {tier} vs per-step over {steps} steps: losses "
+            f"{res[tier]['losses']} vs {ref['losses']}, parameters worst "
+            f"{worst:.3e}; losses, parameters and each step's noise "
+            f"bit-equal {same}; stats {res[tier]['stats']}")
+        if not same:
+            raise SystemExit(f"phase 29 gate (ii): the {tier} tier is not "
+                             f"the per-step tier bit for bit")
+    st = res["scanned"]["stats"]
+    if st["tier"] != "scanned_epoch" or st["window_captures"] != 1:
+        raise SystemExit(f"phase 29: the scanned fit did not capture one "
+                         f"window: {st}")
+    launches = {key: counts.get(key, 0) for key in P29_PER_STEP}
+    log(f"  (ii) the scanned fit (first epoch, {res['scanned']['s']:.2f} s "
+        f"with the warm-up and the capture): counts {counts}")
+    for key, per in P29_PER_STEP.items():
+        # the epoch's steps in its replay and the capture's 2 warm-up steps
+        if launches[key] != (steps + 2) * per:
+            raise SystemExit(f"phase 29: {key} launched {launches[key]} "
+                             f"times in the scanned fit, want "
+                             f"{(steps + 2) * per}")
+    net = nets["scanned"]
+    timed = {}
+    for tier, k in P29_TIERS:
+        ls = [_quiet_listener()] if tier != "scanned" else []
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nets[tier].fit(it, listeners=ls, fused_steps=k)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0) / steps)
+        timed[tier] = (float(np.median(ts)), ts)
+        log(f"  (ii) {tier}: a step of {P29_B} reviews x {P29_T} words "
+            f"{[round(v, 3) for v in ts]} ms, median {timed[tier][0]:.3f} "
+            f"ms, {1e3 * P29_B / timed[tier][0]:.1f} sequences/s; graph "
+            f"replays an epoch "
+            f"{nets[tier].last_fit_stats['graph_replays_per_epoch']}  "
+            f"[{card}]")
+    prof, in_step = _p29_profile(
+        lambda: net.fit(it), steps,
+        {"gru_recurrence_fwd": "rnn_fwd_kernel<float, 0",
+         "gru_recurrence_bwd": "rnn_bwd_kernel<float, 0",
+         "graves_recurrence_fwd": "rnn_fwd_kernel<float, 1",
+         "graves_recurrence_bwd": "rnn_bwd_kernel<float, 1",
+         "gaussian_noise_fwd": "noise_kernel<float>"}, P29_PER_STEP,
+        "sentiment scanned epoch")
+    foreign = [n for n in prof["counts"] if any(f in n for f in P27_FOREIGN)
+               or "GRU" in n or "gru_cell" in n]
+    if foreign:
+        raise SystemExit(f"phase 29: the sentiment step ran {foreign}")
+    groups = {"recurrence kernels": 0.0, "noise kernel": 0.0,
+              "GEMMs": 0.0, "Adam and elementwise": 0.0, "other": 0.0}
+    for name, ms in prof["by_name"].items():
+        if "rnn_fwd_kernel" in name or "rnn_bwd_kernel" in name:
+            groups["recurrence kernels"] += ms
+        elif "noise_kernel" in name:
+            groups["noise kernel"] += ms
+        elif "gemm" in name.lower() or "sm90_xmma" in name or \
+                "cutlass" in name.lower():
+            groups["GEMMs"] += ms
+        elif "elementwise" in name.lower() or "vectorized" in name or \
+                "foreach" in name.lower() or "reduce" in name.lower():
+            groups["Adam and elementwise"] += ms
+        else:
+            groups["other"] += ms
+    log(f"  (ii) profiled scanned epoch: {prof['launches']:.1f} device "
+        f"launches a step, busy {prof['busy_ms']:.3f} of "
+        f"{prof['wall_ms']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+        f"device ms a step by group: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in groups.items()) + f"  [{card}]")
+    log("    in the step: " + ", ".join(
+        f"{k} {v[0]:.4f} ms ({v[1]:.1f} traced)" for k, v in in_step.items()))
+    top = sorted(((v, n) for n, v in prof["by_name"].items()),
+                 reverse=True)[:8]
+    for v, n in top:
+        log(f"      {v:8.4f} ms  {n[:110]}")
+    first = float(np.mean(res["scanned"]["losses"]))
+    means = [float(np.mean(net.fit(it).step_losses)) for _ in range(6)]
+    log(f"  (ii) the mean step loss of the first epoch {first:.5f}, of six "
+        f"more: {[round(v, 5) for v in means]}")
+    if not (means[-1] < first and all(np.isfinite(means))):
+        raise SystemExit("phase 29: the sentiment graph's loss did not fall")
+    del nets
+    return {"net": net, "x": x, "y": y, "launches": launches,
+            "step_ms": timed["scanned"][0],
+            "tiers": {k: v[0] for k, v in timed.items()}, "profile": prof,
+            "groups": groups, "in_step": in_step}
+
+
+def p29_f64_parity(dev):
+    """(iii) A narrow float64 copy of the sentiment graph (10 features, 12
+    steps, 16 units, 4 reviews) and its 2 fit steps, on the card and on
+    the CPU from the same seed: the worst parameter change and loss, each
+    relative to its largest magnitude, within 1e-6; the card's output and
+    every gradient through autograd (the card's kernels) against the
+    CPU's (the plain versions)."""
+    res = {}
+    for d in ("cuda", "cpu"):
+        net = _p29_net(d, dtype="float64", f=10, t=12, u=16)
+        x, y = _p29_data(torch.device("cpu"), n=8, t=12, f=10, seed=3)
+        x, y = x.double(), y.double()
+        p0 = _p27_params(net)
+        h = net.fit(x.numpy(), y.numpy(), batch_size=4)
+        res[d] = ({n: t - p0[n] for n, t in _p27_params(net).items()},
+                  torch.tensor(h.step_losses, dtype=torch.float64),
+                  net.output(x.numpy())[0].cpu())
+    worst = {"parameter change": max(
+        float((res["cuda"][0][n] - t).abs().max())
+        / max(float(t.abs().max()), 1e-30) for n, t in res["cpu"][0].items()),
+        "loss": float(((res["cuda"][1] - res["cpu"][1]).abs()
+                       / res["cpu"][1].abs()).max()),
+        "output": float((res["cuda"][2] - res["cpu"][2]).abs().max())}
+    log(f"  (iii) float64 sentiment graph (10 -> bi-GRU 16 -> Graves 16), 2 "
+        f"steps, card vs CPU: worst " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + " (tol 1e-6)")
+    if max(worst.values()) > 1e-6:
+        raise SystemExit("phase 29 gate (iii): float64 card against CPU")
+    return worst
+
+
+def _p29_tbptt_conf():
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (
+        AlphaDropoutLayer, Bidirectional, GaussianDropoutLayer, InputType,
+        LSTMLayer, NeuralNetConfiguration, RnnOutputLayer, SimpleRnnLayer,
+        SpatialDropoutLayer)
+    return (NeuralNetConfiguration.builder().seed(0)
+            .updater(Adam(learning_rate=1e-3)).list()
+            .layer(SpatialDropoutLayer(dropout=0.9))
+            .layer(SimpleRnnLayer(n_out=P29_U, activation="tanh"))
+            .layer(GaussianDropoutLayer(rate=0.1))
+            .layer(AlphaDropoutLayer(dropout=0.95))
+            .layer(Bidirectional(layer=LSTMLayer(n_out=P29_U), mode="ADD"))
+            .layer(RnnOutputLayer(n_out=P29_V))
+            .set_input_type(InputType.recurrent(P29_V, P29_TBPTT)).build())
+
+
+def p29_tbptt(dev, card):
+    """(iv) The TBPTT network (TextGenLSTM's widths) through ``fit_tbptt``
+    on seeded one-hot characters: the counts set to 0 just before and read
+    just after; the loss finite; per-chunk ms (median of 3 epochs) and a
+    profiled epoch."""
+    from deeplearning4j_tpu_torch.kernels import _cuda, lstm, recurrence
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    g = torch.Generator(device=dev).manual_seed(7)
+    ids = torch.randint(0, P29_V, (P29_TSEQS, P29_TSEQ + 1), generator=g,
+                        device=dev)
+    eye = torch.eye(P29_V, device=dev)
+    X, Y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    net = MultiLayerNetwork(_p29_tbptt_conf()).init(device=dev)
+    chunks = (P29_TSEQS // P29_TB) * (P29_TSEQ // P29_TBPTT)
+    for c in (recurrence.LAUNCHES, dk.LAUNCHES, lstm.LAUNCHES):
+        for key in c:
+            c[key] = 0
+    before = _cuda.count_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit_tbptt(X, Y, P29_TBPTT, epochs=2, batch_size=P29_TB)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {key: n for c, key, n in _cuda.counts_since(before)}
+    sd, states = net._tbptt_graphs[P29_TB]
+    log(f"  (iv) TBPTT network ({net.num_params()} parameters): fit_tbptt, "
+        f"2 epochs of {chunks} chunks of {P29_TB} x {P29_TBPTT}: "
+        f"{first_s:.2f} s with the capture; losses {hist.epoch_losses}; "
+        f"state variables {states}; counts {counts}")
+    if any("_bwd_" in s for s in states) or not all(
+            np.isfinite(hist.epoch_losses)):
+        raise SystemExit("phase 29 gate (iv): the TBPTT network")
+    launches = {key: counts.get(key, 0) for key in P29_PER_CHUNK}
+    for key, per in P29_PER_CHUNK.items():
+        # 2 epochs' chunks and the capture's 2 warm-up steps
+        if launches[key] != (2 * chunks + 2) * per:
+            raise SystemExit(f"phase 29: {key} launched {launches[key]} "
+                             f"times in fit_tbptt, want "
+                             f"{(2 * chunks + 2) * per}")
+    timed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit_tbptt(X, Y, P29_TBPTT, epochs=1, batch_size=P29_TB)
+        torch.cuda.synchronize()
+        timed.append(1e3 * (time.perf_counter() - t0) / chunks)
+    prof, in_chunk = _p29_profile(
+        lambda: net.fit_tbptt(X, Y, P29_TBPTT, epochs=1,
+                              batch_size=P29_TB), chunks,
+        {"simple_recurrence_fwd": "rnn_fwd_kernel<float, 2",
+         "simple_recurrence_bwd": "rnn_bwd_kernel<float, 2"},
+        {"simple_recurrence_fwd": 1, "simple_recurrence_bwd": 1},
+        "TBPTT epoch")
+    ms = float(np.median(timed))
+    log(f"  (iv) a chunk ({P29_TB} x {P29_TBPTT} characters): "
+        f"{[round(v, 4) for v in timed]} ms, median {ms:.4f} ms; profiler: "
+        f"{prof['launches']:.1f} device launches a chunk, busy "
+        f"{prof['busy_ms']:.4f} of {prof['wall_ms']:.4f} ms, idle share "
+        f"{prof['idle_share']:.3f}  [{card}]")
+    log("    in the chunk: " + ", ".join(
+        f"{k} {v[0]:.4f} ms ({v[1]:.1f} traced)"
+        for k, v in in_chunk.items()))
+    return {"launches": launches, "chunk_ms": ms, "profile": prof,
+            "in_chunk": in_chunk}
+
+
+def _p29_zip_round_trip(net, x, label):
+    """save -> load on the card: (zip MB, save s, load s, outputs bit-equal,
+    the loaded network)."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p29_")
+    try:
+        path = os.path.join(tmp, f"{label}.zip")
+        t0 = time.perf_counter()
+        net.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        other = ComputationGraph.load(path, device=x.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = torch.equal(net.output(x)[0], other.output(x)[0])
+    return mb, save_s, load_s, same, other
+
+
+def p29_save_evaluate(sent, card):
+    """(v) The trained sentiment graph saved and loaded onto the card:
+    outputs bit-equal, then one more fit step from each bit-equal; then
+    ``evaluate`` with ``Evaluation``, ``ROCMultiClass`` and
+    ``EvaluationCalibration`` against the same statistics computed on the
+    host from ``output``."""
+    from deeplearning4j_tpu_torch.dataset import DeviceCachedIterator
+    from deeplearning4j_tpu_torch.evaluation import (Evaluation,
+                                                     EvaluationCalibration,
+                                                     ROCMultiClass)
+    net, x, y = sent["net"], sent["x"], sent["y"]
+    mb, save_s, load_s, same, other = _p29_zip_round_trip(
+        net, x[:P29_B], "sentiment")
+    it = DeviceCachedIterator(x[:P29_B], y[:P29_B], P29_B, device=x.device)
+    # the zip holds the configuration, as the JAX one does: the clipping
+    # set on the training config and the next fit's base seed are not in
+    # it
+    tc, otc = net.training_config, other.training_config
+    otc.gradient_normalization = tc.gradient_normalization
+    otc.gradient_normalization_threshold = \
+        tc.gradient_normalization_threshold
+    other._seed = net._seed
+    for n in (net, other):
+        n.fit(it, listeners=[_quiet_listener()])
+    _, bits = _p27_diff(_p27_params(other), _p27_params(net))
+    log(f"  (v) sentiment graph: save {save_s:.3f} s ({mb:.2f} MB), load "
+        f"{load_s:.3f} s: output bit-equal {same}; one more step from each "
+        f"bit-equal {bits}")
+    if not (same and bits):
+        raise SystemExit("phase 29 gate (v): the sentiment graph's save/load")
+    del other
+    batches = [(x[i:i + P29_B], y[i:i + P29_B])
+               for i in range(0, P29_SEQS, P29_B)]
+    ev = net.evaluate(batches)
+    roc = net.evaluate(batches, ROCMultiClass())
+    cal = net.evaluate(batches, EvaluationCalibration())
+    p = torch.cat([net.output(a)[0] for a, _ in batches]).cpu().numpy()
+    yh = y.cpu().numpy()
+    acc = float((p.argmax(1) == yh.argmax(1)).mean())
+    hs = ROCMultiClass()
+    hs.eval(yh, p)
+    hc = EvaluationCalibration()
+    hc.eval(yh, p)
+    checks = {"accuracy": (ev.accuracy(), acc),
+              "average AUC": (roc.average_auc(), hs.average_auc()),
+              "ECE": (cal.expected_calibration_error(),
+                      hc.expected_calibration_error())}
+    log(f"  (v) evaluate over the {P29_SEQS} reviews: " + ", ".join(
+        f"{k} {a:.6f} (host {b:.6f})" for k, (a, b) in checks.items()))
+    if any(abs(a - b) > 1e-12 for a, b in checks.values()):
+        raise SystemExit("phase 29 gate (v): evaluate against the host "
+                         "statistics")
+    return {"zip_mb": mb, "save_s": save_s, "load_s": load_s,
+            "accuracy": acc}
+
+
+#: phase 6's ResNet-50, saved after its training (p29_resnet_snapshot):
+#: the zip's path, its output on 8 images and the images
+P29_RESNET = {}
+
+
+def p29_resnet_snapshot(net, x):
+    """At the end of phase 6: save the trained ResNet-50 and keep its
+    output on ``x`` (cuDNN deterministic) for phase 29's load."""
+    import atexit
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p6_")
+    # removed on every exit, also where a phase between stops the run
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    path = os.path.join(tmp, "resnet50.zip")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        net.save(path)
+        save_s = time.perf_counter() - t0
+        out = net.output(x)[0].clone()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    P29_RESNET.update(path=path, dir=tmp, x=x.clone(), out=out,
+                      save_s=save_s, mb=os.path.getsize(path) / 1e6)
+    log(f"  phase 6's trained ResNet-50 saved for phase 29: "
+        f"{P29_RESNET['mb']:.1f} MB in {save_s:.2f} s")
+
+
+def p29_resnet_load(card):
+    """(vi) Phase 6's trained ResNet-50 loaded from its zip onto the card:
+    the output on the same images bit-equal (cuDNN deterministic)."""
+    import shutil
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    r = P29_RESNET
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        net = ComputationGraph.load(r["path"], device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = torch.equal(net.output(r["x"])[0], r["out"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(r["dir"], ignore_errors=True)
+    log(f"  (vi) ResNet-50 zip ({r['mb']:.1f} MB): save {r['save_s']:.2f} s "
+        f"(after phase 6), load {load_s:.2f} s; output on "
+        f"{r['x'].shape[0]} images bit-equal {same}  [{card}]")
+    if not same:
+        raise SystemExit("phase 29 gate (vi): ResNet-50's save/load")
+    del net
+    return {"zip_mb": r["mb"], "save_s": r["save_s"], "load_s": load_s}
+
+
+def p29_timing(card, card_name):
+    """Each recurrence kernel alone (``median_ms``, L2 cold) at its path's
+    shape (GRU and Graves: the sentiment graph's B 64, T 256, U 256; the
+    simple RNN: the TBPTT chunk's B 32, T 50, U 256), float32, beside its
+    plain version (host clock, ``synced_ms``), its bound and cuDNN's
+    whole-layer ``nn.GRU`` / ``nn.RNN`` (TF32 off; none for the peephole
+    LSTM); each noise kind alone at its path's shape beside its plain
+    version, its byte bound and ``torch.normal(x, 0.1)`` (the Gaussian
+    noise: x + 0.1 N(0, 1), other draws), ``F.alpha_dropout`` /
+    ``F.dropout1d`` (none for the Gaussian dropout). Times a step (chunk) are a call's times
+    its launches a step (chunk)."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    from deeplearning4j_tpu_torch.kernels import recurrence
+    from deeplearning4j_tpu_torch.kernels.measure import (
+        rnn_bwd_args, rnn_fwd_args, rnn_recurrence_case,
+        rnn_recurrence_cost)
+    dev = torch.device("cuda")
+    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    snap_r, snap_n = dict(recurrence.LAUNCHES), dict(dk.LAUNCHES)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for cell, (b, t, u), per, ms_per in (
+                ("gru", (P29_B, P29_T, P29_U), 2, "sentiment step"),
+                ("graves", (P29_B, P29_T, P29_U), 1, "sentiment step"),
+                ("simple", (P29_TB, P29_TBPTT, P29_U), 1, "TBPTT chunk")):
+            case = rnn_recurrence_case(cell, b, t, u, torch.float32, dev)
+            buf = case["gx"].clone()
+            fa, ba = rnn_fwd_args(case), rnn_bwd_args(case)
+            calls = {
+                "fwd": (lambda: recurrence.recurrence_fwd(cell, buf, *fa),
+                        lambda: recurrence.recurrence_fwd_plain(
+                            cell, case["gx"], *fa)),
+                "bwd": (lambda: recurrence.recurrence_bwd(cell, *ba),
+                        lambda: recurrence.recurrence_bwd_plain(cell, *ba))}
+            lib = {"fwd": None, "bwd": None}
+            if cell != "graves":
+                mod = (torch.nn.GRU(u, u, batch_first=True) if cell == "gru"
+                       else torch.nn.RNN(u, u, batch_first=True)).to(dev)
+                xin = torch.randn(b, t, u, device=dev, requires_grad=True)
+                g_out = torch.randn(b, t, u, device=dev)
+                o = mod(xin)[0]
+                params = [xin] + list(mod.parameters())
+                lib["fwd"] = queued_ms(lambda: mod(xin), flush)
+                lib["bwd"] = queued_ms(lambda: torch.autograd.grad(
+                    o, params, g_out, retain_graph=True), flush)
+            cost = rnn_recurrence_cost(cell, b, t, u, 4)
+            lib_name = "GRU" if cell == "gru" else "RNN"
+            for d, (kern, plain) in calls.items():
+                name = f"{cell}_recurrence_{d}"
+                ms = median_ms(kern, flush)
+                pl = synced_ms(plain, flush)
+                ops, nbytes = cost[name]
+                bound = two_rate_bound(ops, nbytes, card_name)
+                out[name] = {
+                    "ms": per * ms, "plain_ms": per * pl,
+                    "bound_ms": per * bound["bound_ms"],
+                    "bound_by": bound["bound_by"],
+                    "library_ms": None if lib[d] is None else per * lib[d],
+                    "ms_per": f"{ms_per} ({per} call{'s' * (per > 1)})",
+                    "per_call": {"ms": ms, "plain_ms": pl,
+                                 "library_ms": lib[d],
+                                 "bound_ms": bound["bound_ms"],
+                                 "bytes": nbytes, "ops": ops,
+                                 "us_per_step": 1e3 * ms / t}}
+                log(f"  {name} (B {b}, T {t}, U {u}) float32, a call: alone "
+                    f"{ms:.5f} ms ({1e3 * ms / t:.3f} us a step), plain "
+                    f"{pl:.5f} (host clock), library "
+                    + (f"{lib[d]:.5f} (cuDNN nn.{lib_name}'s whole-layer "
+                       f"{'forward' if d == 'fwd' else 'backward'})"
+                       if lib[d] is not None else "none")
+                    + f", bound {bound['bound_ms']:.6f} ({bound['bound_by']}:"
+                      f" {nbytes} bytes, {ops} operations)  [{card}]")
+        noise_cases = (
+            ("gaussian_noise_fwd", "gaussian_noise", (P29_B, P29_T, P29_F),
+             {"stddev": 0.1}, lambda x: torch.normal(x, 0.1),
+             "sentiment step"),
+            ("gaussian_dropout_fwd", "gaussian_dropout",
+             (P29_TB, P29_TBPTT, P29_U), {"stddev": (0.1 / 0.9) ** 0.5},
+             None, "TBPTT chunk"),
+            ("gaussian_dropout_bwd", "gaussian_dropout",
+             (P29_TB, P29_TBPTT, P29_U), {"stddev": (0.1 / 0.9) ** 0.5},
+             None, "TBPTT chunk"),
+            ("alpha_dropout_fwd", "alpha_dropout",
+             (P29_TB, P29_TBPTT, P29_U), {"p": 0.95},
+             lambda x: torch.nn.functional.alpha_dropout(x, 0.05, True),
+             "TBPTT chunk"),
+            ("alpha_dropout_bwd", "alpha_dropout_bwd",
+             (P29_TB, P29_TBPTT, P29_U), {"p": 0.95}, None, "TBPTT chunk"),
+            ("spatial_dropout_fwd", "spatial_dropout",
+             (P29_TB, P29_TBPTT, P29_V), {"p": 0.9},
+             lambda x: torch.nn.functional.dropout1d(
+                 x.transpose(1, 2), 0.1, True), "TBPTT chunk"))
+        seed = torch.tensor([1], dtype=torch.int64, device=dev)
+        itr = torch.tensor([2], dtype=torch.int64, device=dev)
+        for name, kind, shape, kw, libf, ms_per in noise_cases:
+            x = torch.randn(shape, device=dev)
+            ms = median_ms(lambda: dk.noise_apply(
+                kind, x, seed, itr, 3, name, **kw), flush)
+            pl = synced_ms(lambda: dk.noise_plain(kind, x, seed, itr, 3,
+                                                  **kw), flush)
+            libms = None if libf is None else median_ms(lambda: libf(x),
+                                                        flush)
+            n = x.numel()
+            gauss = kind.startswith("gaussian")
+            bound = two_rate_bound((50 if gauss else 2) * n, 8 * n,
+                                   card_name)
+            out[name] = {"ms": ms, "plain_ms": pl,
+                         "bound_ms": bound["bound_ms"],
+                         "bound_by": bound["bound_by"], "library_ms": libms,
+                         "ms_per": f"{ms_per} (1 call)",
+                         "per_call": {"ms": ms, "plain_ms": pl,
+                                      "library_ms": libms, "bytes": 8 * n,
+                                      "shape": list(shape)}}
+            log(f"  {name} {tuple(shape)} float32: alone {ms:.5f} ms, plain "
+                f"{pl:.5f} (host clock), library "
+                + (f"{libms:.5f}" if libms is not None else "none")
+                + f", bound {bound['bound_ms']:.6f} ({bound['bound_by']}: "
+                  f"{8 * n} bytes)  [{card}]")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        recurrence.LAUNCHES.update(snap_r)
+        dk.LAUNCHES.update(snap_n)
+    return out
+
+
+def phase_recurrent(dev, card, card_name):
+    """Phase 29: gates (i)-(vi) and the measurements; returns the new
+    kernels' JSON records."""
+    errs = p29_check_kernels(dev)
+    noise_errs = p29_check_noise(dev)
+    sent = p29_sentiment(dev, card)
+    p29_f64_parity(dev)
+    tb = p29_tbptt(dev, card)
+    saved = p29_save_evaluate(sent, card)
+    del sent["net"]
+    torch.cuda.empty_cache()
+    resnet = p29_resnet_load(card)
+    timing = p29_timing(card, card_name)
+    launches = {**sent["launches"], **tb["launches"]}
+    records = []
+    for name, t in timing.items():
+        cell = name.split("_recurrence")[0] if "_recurrence" in name \
+            else None
+        kind = None if cell else name.rsplit("_", 1)[0]
+        rec = {"name": name, "route": "cuda",
+               "source": P29_RNN_SOURCE if cell else P28_SOURCE,
+               "replaces": P29_RNN_REPLACES[cell] if cell
+               else P29_NOISE_REPLACES[kind],
+               "launches": launches[name],
+               "max_abs_err": errs[name] if cell else noise_errs[kind],
+               "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"], "ms_per": t["ms_per"],
+               "per_call": t["per_call"]}
+        if name in sent["in_step"]:
+            rec["in_step_ms"] = sent["in_step"][name][0]
+        if cell == "simple":
+            rec["in_step_ms"] = tb["in_chunk"][name][0]
+        records.append(rec)
+    return records, {"sentiment_step_ms": sent["step_ms"],
+                     "tiers": sent["tiers"], "chunk_ms": tb["chunk_ms"],
+                     "save": saved, "resnet": resnet}
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7689,29 +8570,30 @@ def main():
     card = card_info()
     name = torch.cuda.get_device_name(0)
 
-    log("[1/28] env")
+    log("[1/29] env")
     import triton
     from deeplearning4j_tpu_torch.kernels import (_cuda, attention,
                                                   attention_f32, bn_relu,
                                                   dropout, int8_matmul, lstm,
-                                                  paged_attention)
+                                                  paged_attention,
+                                                  recurrence)
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  triton {triton.__version__}")
     log(f"  nvcc: {_cuda.nvcc_version()}")
     log(f"  card: {card}  ({torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(7) as ex:
+    with ThreadPoolExecutor(8) as ex:
         for f in [ex.submit(bn_relu._phase1_lib), ex.submit(attention._lib),
                   ex.submit(paged_attention._lib),
                   ex.submit(attention_f32._lib),
                   ex.submit(int8_matmul._lib), ex.submit(lstm._lib),
-                  ex.submit(dropout._lib)]:
+                  ex.submit(dropout._lib), ex.submit(recurrence._lib)]:
             f.result()
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
     for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
                 attention_f32._LIB, int8_matmul._LIB, lstm._LIB,
-                dropout._LIB):
+                dropout._LIB, recurrence._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))
@@ -7731,49 +8613,49 @@ def main():
         "DSMEM pushes and mbarrier waits in SASS:")
     check_int8_build()
 
-    log("[2/28] kernels: BN(+ReLU) backward vs plain, on the card "
+    log("[2/29] kernels: BN(+ReLU) backward vs plain, on the card "
         "(phase 1 CUDA C++, phase 2 Triton)")
     t0 = time.perf_counter()
     errs = {}
     phase_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s, builds included)")
 
-    log("[3/28] kernels: attention forward and backward (CUDA C++) vs plain")
+    log("[3/29] kernels: attention forward and backward (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_attention(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[4/28] parity: ResNet-50 32x32, two fit steps, card vs CPU")
+    log("[4/29] parity: ResNet-50 32x32, two fit steps, card vs CPU")
     t0 = time.perf_counter()
     phase_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[5/28] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
+    log("[5/29] parity: GPT_TINY float64, gradients and 3 Adam steps, card "
         "vs CPU")
     t0 = time.perf_counter()
     phase_gpt_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[6/28] main path: ResNet-50 224x224 bs{BATCH} bf16 "
+    log(f"[6/29] main path: ResNet-50 224x224 bs{BATCH} bf16 "
         f"ComputationGraph.fit on the card: the scanned epoch (one CUDA "
         f"graph replay), windows of 4 and per-step")
     t0 = time.perf_counter()
     per_step, launches, metrics = phase_main(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[7/28] tiers and parity: ResNet-50's scanned and per-step tiers "
+    log("[7/29] tiers and parity: ResNet-50's scanned and per-step tiers "
         "agree on the card; float64 card (scanned) vs CPU (per-step)")
     t0 = time.perf_counter()
     phase_resnet_tiers(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[8/28] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
+    log(f"[8/29] main path: GPT-medium bs{GPT_BATCH} seq{GPT_SEQ} bf16 "
         f"SameDiff.fit on the card")
     t0 = time.perf_counter()
     gpt_launches, gpt = phase_gpt(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[9/28] path shapes: BN kernels vs plain, then timed (ms per step)")
+    log("[9/29] path shapes: BN kernels vs plain, then timed (ms per step)")
     t0 = time.perf_counter()
     timing, _ = phase_timing(dev, per_step, name, errs)
     in_situ = metrics["profile"]["kernel_ms"]
@@ -7785,7 +8667,7 @@ def main():
             f"({ms / metrics['step_ms']:.3f})  [{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[10/28] path shape: attention kernels timed (ms per GPT step)")
+    log("[10/29] path shape: attention kernels timed (ms per GPT step)")
     t0 = time.perf_counter()
     attn_per_step = {k: n // GPT_STEPS for k, n in gpt_launches.items()}
     attn_timing, _ = phase_attention_timing(dev, name, attn_per_step)
@@ -7799,18 +8681,18 @@ def main():
             f"[{card}]")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[11/28] kernels: paged attention (CUDA C++) vs plain")
+    log("[11/29] kernels: paged attention (CUDA C++) vs plain")
     t0 = time.perf_counter()
     phase_paged_kernels(dev, errs)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[12/28] parity: GPT_TINY paged (float64, float32) and dense "
+    log("[12/29] parity: GPT_TINY paged (float64, float32) and dense "
         "(float32) serving, card vs CPU")
     t0 = time.perf_counter()
     phase_serving_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[13/28] main path: GPT-medium float32 serving, "
+    log(f"[13/29] main path: GPT-medium float32 serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; then "
         f"GenerativeServer")
@@ -7819,40 +8701,40 @@ def main():
         dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[14/28] path shapes: paged attention vs plain, then timed")
+    log("[14/29] path shapes: paged attention vs plain, then timed")
     t0 = time.perf_counter()
     paged_in_step = serve["profile"]["by_group_ms"]["paged attention"]
     paged_timing = phase_paged_timing(dev, name, serve_shapes, errs,
                                       paged_in_step)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[15/28] main path: LeNet bs{LENET_BATCH} through "
+    log(f"[15/29] main path: LeNet bs{LENET_BATCH} through "
         f"MultiLayerNetwork.fit, then the SameDiff MLP, on three fit tiers "
         f"(scanned epoch, windows of 8, per-step)")
     t0 = time.perf_counter()
     phase_lenet(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[16/28] tiers and parity: LeNet tiers agree on the card; float64 "
+    log("[16/29] tiers and parity: LeNet tiers agree on the card; float64 "
         "card vs CPU")
     t0 = time.perf_counter()
     phase_tiers()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[17/28] kernels: int8_matmul and paged_verify_attention (CUDA "
+    log("[17/29] kernels: int8_matmul and paged_verify_attention (CUDA "
         "C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_spec_kernels(dev, errs)
     spec_timing = phase_spec_timing(dev, name, 512)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[18/28] parity: GPT_TINY speculative serving (dense and paged, "
+    log("[18/29] parity: GPT_TINY speculative serving (dense and paged, "
         "float32 and int8 weights), card vs CPU")
     t0 = time.perf_counter()
     phase_spec_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[19/28] main path: GPT-medium int8-weight speculative serving, "
+    log(f"[19/29] main path: GPT-medium int8-weight speculative serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}, 1-layer int8 self-draft, speculate_k "
         f"{SPEC_K}), {SERVE_REQUESTS} requests; then int8 without a draft "
@@ -7861,13 +8743,13 @@ def main():
     spec_serve = phase_spec_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[20/28] parity: BERT_TINY float64 imported from one GraphDef, "
+    log("[20/29] parity: BERT_TINY float64 imported from one GraphDef, "
         "gradients and 3 Adam steps, card vs CPU")
     t0 = time.perf_counter()
     phase_bert_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[21/28] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
+    log(f"[21/29] main path: BERT-base bs{BERT_BATCH} seq{BERT_SEQ} bf16 "
         f"from a frozen TF GraphDef through the port's importer and "
         f"SameDiff.fit: the scanned epoch (one CUDA graph replay) and the "
         f"per-step tier")
@@ -7875,20 +8757,20 @@ def main():
     phase_bert(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[22/28] kernels: paged decode, verify and prefill over an int8 "
+    log("[22/29] kernels: paged decode, verify and prefill over an int8 "
         "cache (CUDA C++) vs plain, then timed")
     t0 = time.perf_counter()
     phase_int8kv_kernels(dev, errs)
     int8kv_timing = phase_int8kv_timing(dev, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[23/28] parity: GPT_TINY int8 KV serving (paged float32 and "
+    log("[23/29] parity: GPT_TINY int8 KV serving (paged float32 and "
         "float64, dense float32), card vs CPU")
     t0 = time.perf_counter()
     phase_int8kv_parity()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[24/28] main path: GPT-medium int8 KV + int8 weights serving, "
+    log(f"[24/29] main path: GPT-medium int8 KV + int8 weights serving, "
         f"PagedGenerativeServer({SERVE_SLOTS} slots, blocks of {SERVE_BS}, "
         f"max_seq {SERVE_SEQ}), {SERVE_REQUESTS} requests; the dense int8 "
         f"server; the pool at one byte budget and the load generator; the "
@@ -7897,14 +8779,14 @@ def main():
     int8kv_serve = phase_int8kv_serving(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("[25/28] main path: ResNet-50 224x224 served through "
+    log("[25/29] main path: ResNet-50 224x224 served through "
         "ParallelInference (BATCHED, 2 workers, max_batch_size 32, buckets "
         "4-32; SEQUENTIAL and INPLACE gates)")
     t0 = time.perf_counter()
     phase_parallel_inference(card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[26/28] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
+    log(f"[26/29] main path: ResNet-50 224x224 bs{BATCH} bf16 trained with "
         f"a RampSchedule(StepSchedule), L2, accum_steps {P26_ACCUM}, windows "
         f"of {P26_K} and the sentinel: checkpoints, FaultTolerantFit's "
         f"rollback, a resume, a divergence named; float64 card vs CPU")
@@ -7912,7 +8794,7 @@ def main():
     phase_train_options(dev, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[27/28] main path: TextGenLSTM (77 -> LSTM 256 -> LSTM 256 -> "
+    log(f"[27/29] main path: TextGenLSTM (77 -> LSTM 256 -> LSTM 256 -> "
         f"RnnOutputLayer 77) on SURVEY.md's characters: fit_tbptt (batch "
         f"{P27_BATCH}, sequences of {P27_SEQ}, TBPTT {P27_TBPTT}) and fit "
         f"(full BPTT on sequences of {P27_TBPTT}, three tiers); the LSTM "
@@ -7922,7 +8804,7 @@ def main():
     textgen_records, _ = phase_textgen(dev, card, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log(f"[28/28] main path: the zoo's convolutional models: YOLO2 "
+    log(f"[28/29] main path: the zoo's convolutional models: YOLO2 "
         f"416x416 bs{P28_YOLO_BATCH} float32 (ComputationGraph.fit, three "
         f"tiers), AlexNet 224x224 bs{P28_ALEX_BATCH} float32 with dropout "
         f"(MultiLayerNetwork.fit, three tiers, the masks, a resume), the "
@@ -7934,6 +8816,20 @@ def main():
     # the BN kernels' records hold their checks at YOLO2's shapes too
     for kname, err in zoo_records[0]["yolo2"]["bn_errs"].items():
         errs[kname] = max(errs.get(kname, 0.0), err)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log(f"[29/29] main path: the recurrent family: the sentiment "
+        f"ComputationGraph at Word2VecSentimentRNN's widths ({P29_B} x "
+        f"{P29_T} x {P29_F} -> GaussianNoise -> Bidirectional GRU "
+        f"{P29_U} -> GravesLSTM {P29_U} -> last step -> softmax 2) on three "
+        f"tiers, a float64 copy card vs CPU, a MultiLayerNetwork "
+        f"(SpatialDropout, SimpleRnn {P29_U}, GaussianDropout, AlphaDropout,"
+        f" Bidirectional LSTM {P29_U}) through fit_tbptt; the GRU, Graves "
+        f"and simple RNN recurrence kernels and the noise kernel (CUDA C++) "
+        f"vs plain and timed; save/load/evaluate of the sentiment graph and "
+        f"of phase 6's ResNet-50")
+    t0 = time.perf_counter()
+    recurrent_records, _ = phase_recurrent(dev, card, name)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
@@ -8006,6 +8902,7 @@ def main():
     kernels.extend(int8kv_kernel_records(int8kv_timing, int8kv_serve, errs))
     kernels.extend(textgen_records)
     kernels.extend(zoo_records)
+    kernels.extend(recurrent_records)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -85,6 +85,11 @@ class SDVariable:
 
     __add__ = add
 
+    def mul(self, other, name=None):
+        return self._op("multiply", other, name=name)
+
+    __mul__ = mul
+
     def mmul(self, other, name=None):
         return self._op("matmul", other, name=name)
 

@@ -130,8 +130,8 @@ def refuse_random_ops(sd) -> None:
                 f"op {node.name!r} ({node.op}) draws random numbers that a "
                 f"CUDA graph would replay unchanged: the fused-window and "
                 f"scanned tiers refuse it until it is ported (ROADMAP "
-                f"queue 1 item 5; dropout is); fit it with fused_steps=1 "
-                f"and a listener")
+                f"queue 1 item 5; ops/random.py PORTED_RANDOM_OPS are); "
+                f"fit it with fused_steps=1 and a listener")
 
 
 class StepOwner:

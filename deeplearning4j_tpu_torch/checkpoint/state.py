@@ -93,8 +93,10 @@ def _is_graph(owner) -> bool:
 
 
 def _jax_name(key: str) -> str:
-    node, suffix = key.rsplit(".", 1)
-    return f"{node}_{suffix}"
+    """A state-dict key's JAX name: ``{node}.{suffix}`` is
+    ``{node}_{suffix}``, and a wrapper's ``{node}.fwd.{suffix}``
+    (``Bidirectional``) ``{node}_fwd_{suffix}``."""
+    return key.replace(".", "_")
 
 
 def _to_jax(t_np: np.ndarray, graph: bool) -> np.ndarray:

@@ -2,7 +2,14 @@
 
 ComputationGraph: the JAX package names a parameter ``{node}_{suffix}`` (``res2a_2a_W``,
 ``res2a_bn2a_gamma``, the running statistics ``res2a_bn2a_mean`` /
-``_var``); the port's state dict names it ``{node}.{suffix}``.
+``_var``); the port's state dict names it ``{node}.{suffix}``. The
+recurrent layers' suffixes are the JAX ones (LSTM ``Wih``, ``Whh``,
+``b``; GRU ``Wih``, ``Whh``, ``bih``, ``bhh``; Graves ``Wih``, ``Whh``,
+``Wp``, ``b``; simple RNN ``W``, ``U``, ``b``), in the JAX layouts (gate
+columns ``[i, f, g, o]`` or ``[r, u, c]``); a ``Bidirectional`` node's
+``{node}_fwd_{suffix}`` / ``{node}_bwd_{suffix}`` are the port's
+``{node}.fwd.{suffix}`` / ``{node}.bwd.{suffix}`` (so a node whose own
+name ends in ``_fwd`` or ``_bwd`` is read as such a wrapper's).
 Convolution weights are HWIO there and OIHW here. SameDiff: the names and layouts are the same on
 both sides (a name -> array map of the stored VARIABLE and CONSTANT
 values), so nothing is transposed; the names, shapes and dtypes are
@@ -17,10 +24,15 @@ gate order ``[i, f, g, o]``, and its ``RnnOutputLayer``'s
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+
+#: a Bidirectional node's direction in a JAX name's node part
+_DIRECTION = re.compile(r"^(.+)_(fwd|bwd)$")
 
 
 def params_from_jax(params: Mapping[str, np.ndarray]
@@ -30,6 +42,9 @@ def params_from_jax(params: Mapping[str, np.ndarray]
     out = {}
     for name, arr in params.items():
         node, suffix = name.rsplit("_", 1)
+        m = _DIRECTION.match(node)
+        if m is not None:
+            node = f"{m.group(1)}.{m.group(2)}"
         a = np.asarray(arr)
         if a.ndim == 4:                      # HWIO -> OIHW
             a = a.transpose(3, 2, 0, 1)
@@ -43,12 +58,11 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
     package's names and layouts."""
     out = {}
     for key, t in state_dict.items():
-        node, suffix = key.rsplit(".", 1)
         a = t.detach().cpu().numpy()
         if a.ndim == 4:                      # OIHW -> HWIO
             a = a.transpose(2, 3, 1, 0)
         # a copy: a CPU tensor's numpy() shares the live parameter's memory
-        out[f"{node}_{suffix}"] = np.array(a, order="C", copy=True)
+        out[key.replace(".", "_")] = np.array(a, order="C", copy=True)
     return out
 
 

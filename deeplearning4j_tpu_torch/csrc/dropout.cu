@@ -38,6 +38,25 @@
 // float64, one 8-byte pair for bf16), elementwise otherwise and for the
 // ragged last group; a grid-stride loop over the groups. Sums are none, so
 // the result does not depend on the launch's shape.
+//
+// The noise draws of the other random ops share the generator and its keying
+// (``dl4j_noise``; kernels/dropout.py ``noise_plain`` is their plain
+// version):
+//
+//   gaussian_noise    y = x + s n(i)                (backward: dy, no draw)
+//   gaussian_dropout  y = x (1 + s n(i))            (backward: dy (1 + s n(i)))
+//   alpha_dropout     y = a (keep(i) ? x : alpha') + b   (backward: keep(i) ? a dy : 0)
+//   spatial_dropout   y = keep(m) ? x / p : 0, m = batch * C + channel, one
+//                     draw a (batch, channel), broadcast over the rest
+//
+// n(i) is a standard normal by Box-Muller from the group's four words:
+// words 0 and 1 give elements 4g and 4g + 1 (rho cos, rho sin), words 2 and 3
+// elements 4g + 2 and 4g + 3, with rho = sqrt(-2 log u1), u1 = ((w >> 8) + 1)
+// / 2^24 in (0, 1] and the angle 2 pi u2, u2 = (w' >> 8) / 2^24, computed
+// in double and rounded to the compute type; each product and sum is
+// rounded on its own (no contraction into an FMA), as the plain version's
+// separate tensor ops round. Each backward draws again from the same key
+// and counter; nothing is stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,6 +202,94 @@ cudaError_t launch(const void* x, void* y, int64_t n, const void* seed,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the other noise draws
+enum Noise { kGaussNoise = 0, kGaussDropout = 1, kAlphaFwd = 2, kAlphaBwd = 3, kSpatial = 4 };
+
+__device__ __forceinline__ uint4 draw(uint64_t g, uint64_t it, uint2 key) {
+  return philox4x32_10(make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
+                                  static_cast<uint32_t>(it), static_cast<uint32_t>(it >> 32)),
+                       key);
+}
+
+// element j (0..3) of the group's four normals
+__device__ __forceinline__ double normal(const uint4& r, int j) {
+  const uint32_t w1 = j < 2 ? r.x : r.z, w2 = j < 2 ? r.y : r.w;
+  const double u1 = static_cast<double>((w1 >> 8) + 1u) * 5.9604644775390625e-08;
+  const double u2 = static_cast<double>(w2 >> 8) * 5.9604644775390625e-08;
+  const double rho = sqrt(-2.0 * log(u1));
+  const double ang = 6.283185307179586 * u2;
+  return (j & 1) ? __dmul_rn(rho, sin(ang)) : __dmul_rn(rho, cos(ang));
+}
+
+__device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_(double a, double b) { return __dadd_rn(a, b); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+noise_kernel(int kind, const T* __restrict__ x, T* __restrict__ y, int64_t n,
+             const int64_t* __restrict__ seed, const int64_t* __restrict__ iteration,
+             uint32_t node, uint32_t threshold, double p0, double p1, double p2,
+             int64_t per_batch, int64_t channels, int64_t inner) {
+  using C = typename Elem<T>::C;
+  const uint64_t s = static_cast<uint64_t>(*seed);
+  const uint64_t it = static_cast<uint64_t>(*iteration);
+  const uint2 key = make_uint2(static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32) ^ node);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kind == kSpatial) {
+    const C p = static_cast<C>(p0);
+    for (int64_t i = start; i < n; i += stride) {
+      const int64_t m = (i / per_batch) * channels + (i / inner) % channels;
+      const uint4 r = draw(static_cast<uint64_t>(m / 4), it, key);
+      const int j = static_cast<int>(m % 4);
+      const uint32_t w = j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
+      y[i] = drop(x[i], (w >> 8) < threshold, p);
+    }
+    return;
+  }
+  const C c0 = static_cast<C>(p0), c1 = static_cast<C>(p1), c2 = static_cast<C>(p2);
+  const int64_t groups = (n + 3) / 4;
+  for (int64_t g = start; g < groups; g += stride) {
+    const uint4 r = draw(static_cast<uint64_t>(g), it, key);
+    const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t i = 4 * g + j;
+      if (i >= n) break;
+      const C v = Elem<T>::load(x[i]);
+      C out;
+      if (kind == kGaussNoise) {
+        out = add_(v, mul_(c0, static_cast<C>(normal(r, j))));
+      } else if (kind == kGaussDropout) {
+        out = mul_(v, add_(C(1), mul_(c0, static_cast<C>(normal(r, j)))));
+      } else {
+        const bool keep = (words[j] >> 8) < threshold;
+        if (kind == kAlphaFwd) out = add_(mul_(c0, keep ? v : c2), c1);
+        else out = keep ? mul_(c0, v) : C(0);
+      }
+      y[i] = Elem<T>::store(out);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_noise(int kind, const void* x, void* y, int64_t n, const void* seed,
+                         const void* iteration, uint32_t node, uint32_t threshold, double p0,
+                         double p1, double p2, int64_t per_batch, int64_t channels, int64_t inner,
+                         cudaStream_t stream) {
+  const int64_t items = kind == kSpatial ? n : (n + 3) / 4;
+  int64_t blocks = (items + kThreads - 1) / kThreads;
+  if (blocks > (1 << 16)) blocks = 1 << 16;   // the loop covers the rest
+  noise_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      kind, static_cast<const T*>(x), static_cast<T*>(y), n, static_cast<const int64_t*>(seed),
+      static_cast<const int64_t*>(iteration), node, threshold, p0, p1, p2, per_batch, channels,
+      inner);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 bf16, 1 float32, 2 float64. ``seed`` and ``iteration`` point to
@@ -199,6 +306,32 @@ extern "C" int dl4j_dropout(const void* x, void* y, int64_t n,
     case 0: return launch<__nv_bfloat16>(x, y, n, seed, iteration, nd, t, p, s);
     case 1: return launch<float>(x, y, n, seed, iteration, nd, t, p, s);
     case 2: return launch<double>(x, y, n, seed, iteration, nd, t, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// kind: 0 gaussian noise (p0 = s), 1 gaussian dropout (p0 = s), 2 alpha
+// dropout (p0 = a, p1 = b, p2 = alpha'), 3 its backward (p0 = a), 4 spatial
+// dropout (p0 = p; element i's draw is m = (i / per_batch) * channels + (i /
+// inner) % channels); ``threshold`` is ceil(p * 2^24) for the Bernoulli
+// kinds. dtype as dl4j_dropout's.
+extern "C" int dl4j_noise(int kind, const void* x, void* y, int64_t n, const void* seed,
+                          const void* iteration, int64_t node, int64_t threshold, double p0,
+                          double p1, double p2, int64_t per_batch, int64_t channels, int64_t inner,
+                          int dtype, void* stream) {
+  if (n <= 0) return 0;
+  if (kind < 0 || kind > 4 || (kind == 4 && (per_batch < 1 || channels < 1 || inner < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const uint32_t nd = static_cast<uint32_t>(node);
+  const uint32_t t = static_cast<uint32_t>(threshold);
+  switch (dtype) {
+    case 0: return launch_noise<__nv_bfloat16>(kind, x, y, n, seed, iteration, nd, t, p0, p1, p2,
+                                               per_batch, channels, inner, s);
+    case 1: return launch_noise<float>(kind, x, y, n, seed, iteration, nd, t, p0, p1, p2, per_batch,
+                                       channels, inner, s);
+    case 2: return launch_noise<double>(kind, x, y, n, seed, iteration, nd, t, p0, p1, p2, per_batch,
+                                        channels, inner, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

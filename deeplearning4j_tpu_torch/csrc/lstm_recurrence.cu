@@ -205,30 +205,6 @@ struct BwdArgs {
   int vec;
 };
 
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
-__device__ __forceinline__ float tanh_(float x) { return tanhf(x); }
-__device__ __forceinline__ double tanh_(double x) { return tanh(x); }
-template <typename T>
-__device__ __forceinline__ T sigmoid_(T x) {
-  return T(1) / (T(1) + exp_(-x));
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// The cluster's barrier in two halves: what a thread wrote (to any block)
-// before its arrive is seen by every thread after its wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // `local`, a shared-memory address of this block, as block `rank`'s
 __device__ __forceinline__ uint32_t peer(const void* local, int rank) {
   uint32_t r;
@@ -1076,54 +1052,27 @@ int64_t smem_bytes(int U, int R, bool fwd) {
   return (fwd ? g.fwd_elems(NT) : g.bwd_elems(R)) * static_cast<int64_t>(sizeof(T));
 }
 
-template <typename K>
-cudaError_t raise_attributes(K* kernel) {
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(kSmemLimit));
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
 // Shared memory past 48 KB and the non-portable cluster size, once per
-// device and kernel: a kernel's attributes belong to each device's context.
+// device and kernel (sm90.cuh).
 template <typename T, int NT, bool RES, bool FWD>
 cudaError_t configure() {
   static std::mutex mu;
   static std::set<int> raised;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> lock(mu);
-  if (raised.count(dev) != 0) return cudaSuccess;
-  e = FWD ? raise_attributes(fwd_kernel<T, NT, RES>()) : raise_attributes(bwd_kernel<T, NT, RES>());
-  if (e == cudaSuccess) raised.insert(dev);
-  return e;
+  const int smem = static_cast<int>(kSmemLimit);
+  return FWD ? allow_clusters_once(fwd_kernel<T, NT, RES>(), smem, mu, raised)
+             : allow_clusters_once(bwd_kernel<T, NT, RES>(), smem, mu, raised);
 }
 
 // a launch's configuration: `clusters` clusters of R blocks
-struct Launch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  Launch(int64_t clusters, int R, size_t smem, cudaStream_t st) : cfg{} {
-    cfg.gridDim = dim3(static_cast<unsigned>(clusters * R), 1, 1);
-    cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = static_cast<unsigned>(R);
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
+struct Launch : ClusterLaunch {
+  Launch(int64_t clusters, int R, size_t smem, cudaStream_t st)
+      : ClusterLaunch(clusters, R, kThreads, smem, st) {}
 };
 
-// what the entries take: R blocks a cluster, each with at least one unit
+// what the entries take: R blocks a cluster, each with at least one unit,
+// and 1, 2 or 4 batch tiles
 bool valid_split(int64_t U, int R, int nt) {
-  if (U < 1 || U > (1 << 20) || R < 1 || R > kMaxRanks || R > U) return false;
-  if (nt != 1 && nt != 2 && nt != 4) return false;
-  const int64_t nu = (U + R - 1) / R;
-  return (R - 1) * nu < U;
+  return valid_cluster_split(U, R, kMaxRanks) && (nt == 1 || nt == 2 || nt == 4);
 }
 
 template <typename T, int NT, bool RES>

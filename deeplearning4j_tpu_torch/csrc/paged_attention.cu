@@ -147,8 +147,6 @@ constexpr int kRing = 1;
 constexpr int kSmemCap = 200 * 1024;        // the ring's shared memory at most
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float exp_(float x) { return expf(x); }
-__device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float rint_(float x) { return rintf(x); }
 __device__ __forceinline__ double rint_(double x) { return rint(x); }
 

@@ -1,11 +1,19 @@
 // Hopper (sm_90a) primitives the port's CUDA kernels share: shared-memory
 // addresses, mbarriers, bulk copies, wgmma descriptors, bf16 wgmma, the
-// cut of a float32 value into bf16 pieces and 3xTF32 on mma.sync. Each kernel source includes it
-// (kernels/_cuda.py builds with this directory on the include path and
-// hashes this header into every library's build key).
+// cut of a float32 value into bf16 pieces, 3xTF32 on mma.sync, and what the
+// cluster recurrence kernels (lstm_recurrence.cu, rnn_recurrence.cu) share:
+// their cells' math in float and double, the cluster's rank and barrier,
+// and on the host a cluster launch and its kernel attributes. Each kernel
+// source includes it (kernels/_cuda.py builds with this directory on the
+// include path and hashes this header into every library's build key).
 #pragma once
 
+#include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
 
 namespace sm90 {
 
@@ -337,5 +345,75 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t (&pc)[3]) {
   pc[1] = bf16x2(ra, rb);
   pc[2] = bf16x2(__fsub_rn(ra, bf_lo(pc[1])), __fsub_rn(rb, bf_hi(pc[1])));
 }
+
+// The recurrence cells' math, float and double alike.
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float tanh_(float x) { return tanhf(x); }
+__device__ __forceinline__ double tanh_(double x) { return tanh(x); }
+template <typename T>
+__device__ __forceinline__ T sigmoid_(T x) {
+  return T(1) / (T(1) + exp_(-x));
+}
+
+// This block's rank in its thread-block cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// The cluster's barrier in two halves: what a thread wrote (to any block)
+// before its arrive is seen by every thread after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Host: R blocks a cluster, at most max_ranks, each owning at least one of
+// U units (ceil(U / R) a block).
+inline bool valid_cluster_split(int64_t U, int R, int max_ranks) {
+  if (U < 1 || U > (1 << 20) || R < 1 || R > max_ranks || R > U) return false;
+  const int64_t nu = (U + R - 1) / R;
+  return (R - 1) * nu < U;
+}
+
+// Host: a kernel's dynamic shared memory up to `smem` bytes and cluster
+// sizes past 8 (non-portable), set once a device: a kernel's attributes
+// belong to each device's context. `mu` and `raised` are the kernel's own.
+template <typename K>
+cudaError_t allow_clusters_once(K* kernel, int smem, std::mutex& mu, std::set<int>& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (raised.count(dev) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) raised.insert(dev);
+  return e;
+}
+
+// Host: a launch's configuration, `clusters` clusters of R blocks of
+// `threads` threads, `smem` bytes of dynamic shared memory a block, on
+// `st` (cudaLaunchKernelEx's; used in place: cfg points at attr).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int64_t clusters, int R, int threads, size_t smem, cudaStream_t st) : cfg{} {
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * R), 1, 1);
+    cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(R);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
 
 }  // namespace sm90

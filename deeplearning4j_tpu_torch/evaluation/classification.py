@@ -1,7 +1,8 @@
 """Classification evaluation.
 
 Counterpart of ``deeplearning4j_tpu/evaluation/classification.py``
-(``Evaluation`` :25-147), copied as host numpy: metrics accumulate across
+(``Evaluation`` :25-147 and the binary and ROC classes :148-275),
+copied as host numpy: metrics accumulate across
 ``eval(labels, predictions)`` calls in a confusion matrix on the host
 (finalizing metrics is not a device workload). Labels and predictions
 may be numpy arrays or tensors on any device (one copy to the host a
@@ -9,9 +10,9 @@ call). As in the JAX package, ``eval`` takes predictions of shape
 (N, C) only: a sequence model's (B, T, C) outputs are flattened by the
 caller.
 
-Not ported yet, each refused by name when made: ``EvaluationBinary``,
-``ROC``, ``ROCBinary`` and ``ROCMultiClass`` (ROADMAP queue 1 item 10:
-evaluation/).
+``EvaluationBinary``, ``ROC``, ``ROCBinary`` and ``ROCMultiClass`` (JAX
+:148-275) are copied the same way: per-output counts at a threshold, and
+exact-threshold ROC curves, AUC and AUPRC over every score seen.
 """
 from __future__ import annotations
 
@@ -153,27 +154,131 @@ class Evaluation:
         return "\n".join(lines)
 
 
-class _Refused:
-    """A JAX evaluation class the port has not ported: refused when
-    made."""
+class EvaluationBinary:
+    """Per-output binary metrics at threshold 0.5 (reference:
+    classification/EvaluationBinary.java)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet (ROADMAP queue 1 item "
-            f"10: evaluation/)")
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+        self._tp = self._fp = self._tn = self._fn = None
+
+    def eval(self, labels, predictions) -> None:
+        y = _to_np(labels)
+        p = (_to_np(predictions) >= self.threshold)
+        y = y.reshape(y.shape[0], -1).astype(bool)
+        p = p.reshape(p.shape[0], -1)
+        if self._tp is None:
+            n_out = y.shape[1]
+            self._tp = np.zeros(n_out, np.int64)
+            self._fp = np.zeros(n_out, np.int64)
+            self._tn = np.zeros(n_out, np.int64)
+            self._fn = np.zeros(n_out, np.int64)
+        self._tp += (p & y).sum(0)
+        self._fp += (p & ~y).sum(0)
+        self._tn += (~p & ~y).sum(0)
+        self._fn += (~p & y).sum(0)
+
+    def accuracy(self, i: int = 0) -> float:
+        tot = self._tp[i] + self._fp[i] + self._tn[i] + self._fn[i]
+        return float((self._tp[i] + self._tn[i]) / tot) if tot else 0.0
+
+    def precision(self, i: int = 0) -> float:
+        d = self._tp[i] + self._fp[i]
+        return float(self._tp[i] / d) if d else 0.0
+
+    def recall(self, i: int = 0) -> float:
+        d = self._tp[i] + self._fn[i]
+        return float(self._tp[i] / d) if d else 0.0
+
+    def f1(self, i: int = 0) -> float:
+        p, r = self.precision(i), self.recall(i)
+        return 2 * p * r / (p + r) if (p + r) else 0.0
 
 
-class EvaluationBinary(_Refused):
-    pass
+class ROC:
+    """Binary ROC/AUC with exact thresholding (reference:
+    classification/ROC.java; thresholdSteps=0 → exact mode)."""
+
+    def __init__(self):
+        self._scores: List[np.ndarray] = []
+        self._labels: List[np.ndarray] = []
+
+    def eval(self, labels, predictions) -> None:
+        y = _to_np(labels)
+        p = _to_np(predictions)
+        if p.ndim == 2 and p.shape[1] == 2:
+            p = p[:, 1]
+            y = y[:, 1] if y.ndim == 2 else y
+        self._scores.append(p.reshape(-1))
+        self._labels.append(y.reshape(-1))
+
+    def _collect(self):
+        if not self._scores:
+            raise ValueError("no data evaluated yet")
+        return np.concatenate(self._scores), np.concatenate(self._labels)
+
+    def roc_curve(self):
+        """(fpr, tpr, thresholds) sorted by descending threshold."""
+        s, y = self._collect()
+        order = np.argsort(-s)
+        y = y[order].astype(bool)
+        tps = np.cumsum(y)
+        fps = np.cumsum(~y)
+        tpr = tps / max(y.sum(), 1)
+        fpr = fps / max((~y).sum(), 1)
+        return (np.concatenate([[0.0], fpr]), np.concatenate([[0.0], tpr]),
+                np.concatenate([[np.inf], s[order]]))
+
+    def auc(self) -> float:
+        fpr, tpr, _ = self.roc_curve()
+        return float(np.trapezoid(tpr, fpr))
+
+    def auprc(self) -> float:
+        s, y = self._collect()
+        order = np.argsort(-s)
+        y = y[order].astype(bool)
+        tps = np.cumsum(y)
+        precision = tps / np.arange(1, len(y) + 1)
+        recall = tps / max(y.sum(), 1)
+        return float(np.trapezoid(precision, recall))
 
 
-class ROC(_Refused):
-    pass
+class ROCBinary:
+    """Per-output ROC (reference: ROCBinary.java)."""
+
+    def __init__(self):
+        self._rocs: Optional[List[ROC]] = None
+
+    def eval(self, labels, predictions) -> None:
+        y = _to_np(labels).reshape(len(_to_np(labels)), -1)
+        p = _to_np(predictions).reshape(y.shape)
+        if self._rocs is None:
+            self._rocs = [ROC() for _ in range(y.shape[1])]
+        for i, roc in enumerate(self._rocs):
+            roc.eval(y[:, i], p[:, i])
+
+    def auc(self, i: int = 0) -> float:
+        return self._rocs[i].auc()
 
 
-class ROCBinary(_Refused):
-    pass
+class ROCMultiClass:
+    """One-vs-all ROC per class (reference: ROCMultiClass.java)."""
 
+    def __init__(self):
+        self._rocs: Optional[List[ROC]] = None
 
-class ROCMultiClass(_Refused):
-    pass
+    def eval(self, labels, predictions) -> None:
+        y = _to_np(labels)
+        p = _to_np(predictions)
+        if y.ndim != 2:
+            y = np.eye(p.shape[1])[y.astype(int)]
+        if self._rocs is None:
+            self._rocs = [ROC() for _ in range(p.shape[1])]
+        for c, roc in enumerate(self._rocs):
+            roc.eval(y[:, c], p[:, c])
+
+    def auc(self, c: int = 0) -> float:
+        return self._rocs[c].auc()
+
+    def average_auc(self) -> float:
+        return float(np.mean([r.auc() for r in self._rocs]))

@@ -37,6 +37,22 @@ passes 2^63: its masks are the kernel's bit for bit. The wrapper takes it
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises. Launches count in :data:`LAUNCHES` (``dropout_fwd`` and
 ``dropout_bwd``).
+
+The other random ops draw from the same generator with the same key and
+counter (``dl4j_noise``): ``gaussian_noise`` ``x + s n``, whose backward
+is ``dy`` and draws nothing; ``gaussian_dropout`` ``x (1 + s n)``, whose
+backward is the same function of ``dy``; ``alpha_dropout`` ``a where(keep,
+x, alpha') + b``, whose backward is ``where(keep, a dy, 0)``; and
+``spatial_dropout``, one keep a (batch, channel), drawn at index ``batch *
+C + channel``. ``n`` is a standard normal by Box-Muller from the group's
+words (:func:`normals_plain`), computed in float64 and rounded to the
+compute dtype; every product and sum is rounded on its own. Each backward
+draws again. :func:`noise_plain` is their plain version: its Bernoulli
+masks are the kernel's bit for bit, its normals within a few ulp of the
+float64 transcendental functions (the CPU's and the card's ``log``,
+``cos`` and ``sin`` may round differently). Launches count under
+``gaussian_noise_fwd``, ``gaussian_dropout_fwd``/``_bwd``,
+``alpha_dropout_fwd``/``_bwd`` and ``spatial_dropout_fwd``/``_bwd``.
 """
 from __future__ import annotations
 
@@ -44,11 +60,16 @@ import ctypes
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.kernels import _cuda
 
-LAUNCHES: Dict[str, int] = {"dropout_fwd": 0, "dropout_bwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "dropout_fwd": 0, "dropout_bwd": 0, "gaussian_noise_fwd": 0,
+    "gaussian_dropout_fwd": 0, "gaussian_dropout_bwd": 0,
+    "alpha_dropout_fwd": 0, "alpha_dropout_bwd": 0,
+    "spatial_dropout_fwd": 0, "spatial_dropout_bwd": 0}
 _cuda.register_counters(LAUNCHES)
 
 _LIB = "dropout"
@@ -57,6 +78,16 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 ARGTYPES = ([("x", _P), ("y", _P), ("n", _I64), ("seed", _P),
              ("iteration", _P), ("node", _I64), ("threshold", _I64),
              ("p", ctypes.c_double), ("dtype", _I), ("stream", _P)])
+NOISE_ARGTYPES = ([("kind", _I), ("x", _P), ("y", _P), ("n", _I64),
+                   ("seed", _P), ("iteration", _P), ("node", _I64),
+                   ("threshold", _I64), ("p0", ctypes.c_double),
+                   ("p1", ctypes.c_double), ("p2", ctypes.c_double),
+                   ("per_batch", _I64), ("channels", _I64), ("inner", _I64),
+                   ("dtype", _I), ("stream", _P)])
+#: the noise kernel's kinds
+NOISE_KINDS = {"gaussian_noise": 0, "gaussian_dropout": 1,
+               "alpha_dropout": 2, "alpha_dropout_bwd": 3,
+               "spatial_dropout": 4}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 
 #: Philox4x32-10's multipliers and key increments
@@ -75,6 +106,8 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda.load(_LIB)
     if lib.dl4j_dropout.argtypes is None:
         _cuda.declare(lib.dl4j_dropout, ARGTYPES)
+    if lib.dl4j_noise.argtypes is None:
+        _cuda.declare(lib.dl4j_noise, NOISE_ARGTYPES)
     return lib
 
 
@@ -113,17 +146,104 @@ def _host_int(v) -> int:
         else int(v)
 
 
-def keep_mask_plain(n: int, seed, iteration, node: int, p: float,
-                    device=None) -> torch.Tensor:
-    """The kernel's ``keep`` for ``n`` elements, a bool tensor."""
+def words_plain(n: int, seed, iteration, node: int,
+                device=None) -> torch.Tensor:
+    """The kernel's words for ``n`` elements (element i: word i % 4 of
+    group i // 4), int64 holding 32 bits."""
     s, it = _host_int(seed), _host_int(iteration)
     groups = (n + 3) // 4
     g = torch.arange(groups, dtype=torch.int64, device=device)
     ctr = (g & _MASK, g >> 32,
            torch.full_like(g, it & _MASK), torch.full_like(g, it >> 32))
     words = philox4x32_10(ctr, (s & _MASK, ((s >> 32) ^ node) & _MASK))
-    r = torch.stack(words, dim=1).reshape(-1)[:n]
-    return (r >> 8) < keep_threshold(p)
+    return torch.stack(words, dim=1).reshape(-1)[:n]
+
+
+def keep_mask_plain(n: int, seed, iteration, node: int, p: float,
+                    device=None) -> torch.Tensor:
+    """The kernel's ``keep`` for ``n`` elements, a bool tensor."""
+    return (words_plain(n, seed, iteration, node, device) >> 8) \
+        < keep_threshold(p)
+
+
+def normals_plain(n: int, seed, iteration, node: int,
+                  device=None) -> torch.Tensor:
+    """The kernel's standard normals for ``n`` elements, float64: group
+    g's words (w0, w1) give elements 4g, 4g + 1 as ``rho cos``, ``rho
+    sin`` of the angle ``2 pi u2``, ``rho = sqrt(-2 log u1)``, ``u1 = ((w0
+    >> 8) + 1) / 2^24``, ``u2 = (w1 >> 8) / 2^24``; (w2, w3) elements 4g +
+    2, 4g + 3."""
+    groups = (n + 3) // 4
+    w = words_plain(4 * groups, seed, iteration, node, device).view(-1, 4)
+    scale = 2.0 ** -24
+    u1 = ((w[:, 0::2] >> 8) + 1).double() * scale      # (groups, 2)
+    u2 = (w[:, 1::2] >> 8).double() * scale
+    rho = torch.sqrt(-2.0 * torch.log(u1))
+    ang = 6.283185307179586 * u2
+    out = torch.stack([rho * torch.cos(ang), rho * torch.sin(ang)], dim=2)
+    return out.reshape(-1)[:n]
+
+
+def _compute(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def spatial_index(shape, channel_axis: int) -> torch.Tensor:
+    """Each element's draw index ``batch * C + channel`` (int64, flat)."""
+    axis = channel_axis % len(shape)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64)
+    inner = int(np.prod(shape[axis + 1:]))
+    per_batch = int(np.prod(shape[1:]))
+    c = shape[axis]
+    return (idx // per_batch) * c + (idx // inner) % c
+
+
+def noise_plain(kind: str, x: torch.Tensor, seed, iteration, node: int,
+                p: float = 1.0, stddev: float = 0.0,
+                channel_axis: int = -1) -> torch.Tensor:
+    """The noise kernel's output, in x's dtype: ``kind`` one of
+    :data:`NOISE_KINDS` (``p`` the retain probability of the Bernoulli
+    kinds, ``stddev`` the Gaussian kinds' s)."""
+    cdt = _compute(x)
+    v = x.to(cdt)
+    dev = x.device
+    if kind in ("gaussian_noise", "gaussian_dropout"):
+        nrm = normals_plain(x.numel(), seed, iteration, node, dev).to(
+            cdt).reshape(x.shape)
+        s = torch.tensor(stddev, dtype=cdt, device=dev)
+        out = v + s * nrm if kind == "gaussian_noise" else v * (1 + s * nrm)
+    elif kind == "spatial_dropout":
+        idx = spatial_index(tuple(x.shape), channel_axis).to(dev)
+        words = words_plain(int(idx.max()) + 1, seed, iteration, node, dev)
+        keep = ((words[idx] >> 8) < keep_threshold(p)).reshape(x.shape)
+        return torch.where(keep, _divide(x, p),
+                           torch.zeros((), dtype=x.dtype, device=dev))
+    else:
+        a, b, ap = alpha_constants(p)
+        keep = keep_mask_plain(x.numel(), seed, iteration, node, p,
+                               dev).reshape(x.shape)
+        ta = torch.tensor(a, dtype=cdt, device=dev)
+        if kind == "alpha_dropout":
+            out = ta * torch.where(keep, v, torch.tensor(
+                ap, dtype=cdt, device=dev)) + torch.tensor(b, dtype=cdt,
+                                                           device=dev)
+        else:
+            out = torch.where(keep, ta * v, torch.zeros((), dtype=cdt,
+                                                        device=dev))
+    return out.to(x.dtype)
+
+
+#: SELU's alpha and scale (the JAX ``alpha_dropout`` constants)
+SELU_ALPHA, SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def alpha_constants(p: float) -> Tuple[float, float, float]:
+    """``(a, b, alpha')`` of alpha dropout with retain probability ``p``,
+    as the JAX op computes them in Python floats."""
+    alpha_p = -SELU_ALPHA * SELU_SCALE
+    a = (p + alpha_p ** 2 * p * (1 - p)) ** -0.5
+    b = -a * alpha_p * (1 - p)
+    return a, b, alpha_p
 
 
 def _divide(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -204,3 +324,83 @@ def dropout(x: torch.Tensor, p: float, seed: torch.Tensor,
     ``p``, keyed by ``seed`` and ``node`` and counted by ``iteration``
     (one int64 tensor each, on x's device)."""
     return Dropout.apply(x, float(p), seed, iteration, int(node))
+
+
+# ----------------------------------------------------------------------
+# the other noise draws
+def noise_apply(kind: str, x: torch.Tensor, seed: torch.Tensor,
+                iteration: torch.Tensor, node: int, name: str,
+                p: float = 1.0, stddev: float = 0.0,
+                channel_axis: int = -1) -> torch.Tensor:
+    """:func:`noise_plain` for a CPU tensor, one launch of the noise kernel
+    (counted under ``name``) for a CUDA one."""
+    if x.device.type == "cpu":
+        return noise_plain(kind, x, seed, iteration, node, p, stddev,
+                           channel_axis)
+    _check(x, seed, iteration)
+    per_batch = channels = inner = 1
+    axis = channel_axis % x.dim()
+    if kind == "spatial_dropout":
+        if x.dim() == 4 and axis == 1 and \
+                x.is_contiguous(memory_format=torch.channels_last) and \
+                not x.is_contiguous():
+            # a channels-last map: its memory is (B, H, W, C)
+            y = noise_apply(kind, x.permute(0, 2, 3, 1), seed, iteration,
+                            node, name, p, stddev, -1)
+            return y.permute(0, 3, 1, 2)
+        per_batch = int(np.prod(x.shape[1:]))
+        channels = x.shape[axis]
+        inner = int(np.prod(x.shape[axis + 1:]))
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if kind in ("alpha_dropout", "alpha_dropout_bwd"):
+        p0, p1, p2 = alpha_constants(p)
+    else:
+        p0, p1, p2 = (p if kind == "spatial_dropout" else stddev), 0.0, 0.0
+    dev = x.device
+    with torch.cuda.device(dev):
+        err = _lib().dl4j_noise(
+            NOISE_KINDS[kind], x.data_ptr(), y.data_ptr(), x.numel(),
+            seed.data_ptr(), iteration.data_ptr(), int(node),
+            keep_threshold(p), float(p0), float(p1), float(p2), per_batch,
+            channels, inner, _DTYPE_CODE[x.dtype],
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    _cuda.check(err, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+class Noise(torch.autograd.Function):
+    """A noise op's forward and backward launches; only ``x`` has a
+    gradient. The seed and iteration tensors are kept by reference: a
+    captured step's backward reads them at replay."""
+
+    @staticmethod
+    def forward(ctx, kind: str, x, seed, iteration, node: int, p: float,
+                stddev: float, channel_axis: int):
+        ctx.args = (kind, node, p, stddev, channel_axis)
+        ctx.save_for_backward(seed, iteration)
+        return noise_apply(kind, x, seed, iteration, node, f"{kind}_fwd", p,
+                           stddev, channel_axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        kind, node, p, stddev, channel_axis = ctx.args
+        seed, iteration = ctx.saved_tensors
+        if kind == "gaussian_noise":
+            dx = dy
+        else:
+            bwd = "alpha_dropout_bwd" if kind == "alpha_dropout" else kind
+            dx = noise_apply(bwd, dy, seed, iteration, node, f"{kind}_bwd",
+                             p, stddev, channel_axis)
+        return None, dx, None, None, None, None, None, None
+
+
+def noise(kind: str, x: torch.Tensor, seed: torch.Tensor,
+          iteration: torch.Tensor, node: int, p: float = 1.0,
+          stddev: float = 0.0, channel_axis: int = -1) -> torch.Tensor:
+    """The ``kind`` noise of ``x`` (:data:`NOISE_KINDS` but the alpha
+    backward), keyed by ``seed`` and ``node`` and counted by
+    ``iteration`` (one int64 tensor each, on x's device)."""
+    return Noise.apply(kind, x, seed, iteration, int(node), float(p),
+                       float(stddev), int(channel_axis))

@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``lstm_cell`` and ``lstm_layer``
 (``deeplearning4j_tpu/ops/nn_ops.py`` :520-556): gate order ``[i, f, g,
 o]``, ``c = f * c_prev + i * g``, ``h = o * tanh(c)``. The JAX layer is a
 ``lax.scan`` whose body (``h_prev @ w_hh`` and the cell) XLA fused; here
-:class:`LSTMSequence` is one ``torch.autograd.Function`` over the whole
-sequence:
+:func:`lstm_sequence` runs the LSTM's :data:`CELL` through
+``kernels/_sequence.py``'s ``Sequence``, the one ``torch.autograd.Function``
+over a whole sequence that every recurrence kernel of the port shares:
 
 - forward: one GEMM for every timestep's input projection (``x @ W_ih +
   b``, hoisted out of the loop) into a time-major ``(T, B, 4U)`` buffer;
@@ -45,14 +46,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels import _cuda
+from deeplearning4j_tpu_torch.kernels import _cuda, _sequence
+from deeplearning4j_tpu_torch.kernels._sequence import (  # noqa: F401
+    DTYPES as _DTYPES, MAX_RANKS, SMEM_LIMIT, check as _check, ptr as _ptr)
 
 #: Kernel launches, bumped where each kernel is launched: one a layer, a
 #: direction and a sequence.
 LAUNCHES: Dict[str, int] = {"lstm_recurrence_fwd": 0, "lstm_recurrence_bwd": 0}
 
 _LIB = "lstm_recurrence"
-_DTYPES = {torch.float32: 0, torch.float64: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SPLIT = [("R", _I), ("nt", _I), ("resident", _I), ("dtype", _I)]
 ARGTYPES = {
@@ -80,20 +82,11 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     """The built library, its C entries' argument types declared."""
-    lib = _cuda.load(_LIB)
-    for name, args in ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            _cuda.declare(fn, args)
-    return lib
+    return _sequence.load(_LIB, ARGTYPES)
 
 
 # ----------------------------------------------------------------------
 # the launch plan (the C side's work split and shared memory, in Python)
-#: blocks a cluster at most (above 8: the non-portable cluster size)
-MAX_RANKS = 16
-#: a block's shared memory on Hopper (bytes)
-SMEM_LIMIT = 232448
 #: the kernels' warps a block
 WARPS = 8
 #: a resident cluster's batch rows are this many tiles of 8, in the order
@@ -156,9 +149,7 @@ def recurrence_plan(b: int, u: int, itemsize: int,
                     = None) -> Plan:
     """The plan for ``b`` batch rows of ``u`` units of ``itemsize`` bytes.
 
-    R: about 16 units a block, at most :data:`MAX_RANKS` blocks, then as
-    few blocks as that many units a block needs (each block owns at least
-    one unit, so none skips the cluster's barriers idle). The ``W_hh``
+    R and the units a block: ``_sequence.split_units``. The ``W_hh``
     slice is resident where both directions fit :data:`SMEM_LIMIT` with
     it, else the streamed form (8 rows a cluster) takes any width. The
     resident batch tile: the fewest rows a cluster (the shortest step) for
@@ -167,9 +158,7 @@ def recurrence_plan(b: int, u: int, itemsize: int,
     calculator; None: no limit); else the tile with the fewest waves."""
     if b < 1 or u < 1:
         raise ValueError(f"an LSTM of {b} rows and {u} units")
-    ranks = min(MAX_RANKS, max(1, -(-u // 16)))
-    units = -(-u // ranks)
-    ranks = -(-u // units)
+    ranks, units = _sequence.split_units(u)
 
     def fits(nt, res):
         return max(recurrence_geometry(u, ranks, nt, res, itemsize)) \
@@ -208,11 +197,9 @@ def query(u: int, ranks: int, n_tiles: int, resident: bool,
 def _card_plan(index: int, dtype: torch.dtype, b: int, u: int) -> Plan:
     """The plan on card ``index``, its occupancy asked once a shape (on a
     first, eager launch: the fit tiers warm up before they capture)."""
-    def occupancy(ranks, nt, resident):
-        with torch.cuda.device(index):
-            q = query(u, ranks, nt, resident, dtype)
-        return min(q[2], q[3])
-
+    occupancy = _sequence.occupancy(
+        index, lambda ranks, nt, resident: query(u, ranks, nt, resident,
+                                                 dtype))
     plan = recurrence_plan(b, u, torch.empty((), dtype=dtype).element_size(),
                            occupancy)
     _LOG.info("lstm recurrence on cuda:%d, %s, B %d, U %d: R %d (%d units a "
@@ -294,29 +281,6 @@ def lstm_recurrence_bwd_plain(gates, cs, c0, w_hh, d_hs=None, dh_T=None,
 
 # ----------------------------------------------------------------------
 # the wrappers
-def _check(what: str, dtype: torch.dtype, dev: torch.device, **ts) -> None:
-    """Raise on what the kernels do not take: ``ts`` maps a name to (the
-    tensor or None, its shape)."""
-    for name, (t, want) in ts.items():
-        if t is None:
-            continue
-        if tuple(t.shape) != want or t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, want {want} {dtype} on {dev}")
-        if dev.type == "cuda" and not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}")
-    if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"{what} in {dtype} is not ported yet: the LSTM recurrence takes "
-            f"float32 and float64 (ROADMAP queue 2b item 11)")
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
 def lstm_recurrence_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                         h0: torch.Tensor, c0: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -389,62 +353,23 @@ def lstm_recurrence_bwd(gates: torch.Tensor, cs: torch.Tensor,
 
 # ----------------------------------------------------------------------
 # the recurrence
-class LSTMSequence(torch.autograd.Function):
-    """``(hs, hT, cT)`` of an LSTM over ``x`` [B, T, I] from ``h0``,
-    ``c0`` [B, U], with ``w_ih`` [I, 4U], ``w_hh`` [U, 4U], ``b`` [4U];
-    ``hs`` is [B, T, U] (a view of the time-major [T, B, U] buffer)."""
+def _fwd(gx, w_hh, h0, c0, b_hh, w_peep):
+    gates, hs, cs = lstm_recurrence_fwd(gx, w_hh, h0, c0)
+    return gates, hs, cs, None
 
-    @staticmethod
-    def forward(ctx, x, h0, c0, w_ih, w_hh, b):
-        # an output nothing reads gets no gradient (None), not zeros: the
-        # backward kernel then reads no d_hs (return_sequences=False)
-        ctx.set_materialize_grads(False)
-        bsz, t_len, n_in = x.shape
-        u = h0.shape[1]
-        # time-major rows: a contiguous copy unless x is already a view of
-        # a time-major buffer (the layer below's hs)
-        x2 = x.transpose(0, 1).reshape(t_len * bsz, n_in)
-        gx = torch.addmm(b, x2, w_ih).view(t_len, bsz, 4 * u)
-        gates, hs, cs = lstm_recurrence_fwd(gx, w_hh.contiguous(),
-                                            h0.contiguous(), c0.contiguous())
-        ctx.save_for_backward(x2, h0, c0, w_ih, w_hh, hs, cs, gates)
-        return hs.transpose(0, 1), hs[-1], cs[-1]
 
-    @staticmethod
-    def backward(ctx, g_hs, g_ht, g_ct):
-        x2, h0, c0, w_ih, w_hh, hs, cs, gates = ctx.saved_tensors
-        t_len, bsz, u = hs.shape
-        d_hs = None if g_hs is None else g_hs.transpose(0, 1).contiguous()
-        dz, dh, dc = lstm_recurrence_bwd(
-            gates, cs, c0.contiguous(), w_hh.contiguous(), d_hs,
-            None if g_ht is None else g_ht.contiguous(),
-            None if g_ct is None else g_ct.contiguous())
-        dz2 = dz.view(t_len * bsz, 4 * u)
-        need = ctx.needs_input_grad
-        dx = (dz2 @ w_ih.t()).view(t_len, bsz, -1).transpose(0, 1) \
-            if need[0] else None
-        dw_ih = x2.t() @ dz2 if need[3] else None
-        dw_hh = None
-        if need[4]:
-            dw_hh = h0.t() @ dz[0]
-            if t_len > 1:
-                dw_hh = torch.addmm(dw_hh, hs[:-1].reshape(-1, u).t(),
-                                    dz[1:].reshape(-1, 4 * u))
-        db = dz2.sum(0) if need[5] else None
-        return (dx, dh if need[1] else None, dc if need[2] else None, dw_ih,
-                dw_hh, db)
+def _bwd(saved, hs, cs, hn, h0, c0, w_hh, w_peep, d_hs, dh_T, dc_T):
+    dz, dh0, dc0 = lstm_recurrence_bwd(saved, cs, c0, w_hh, d_hs, dh_T, dc_T)
+    return dz, dz, dh0, dc0
+
+
+#: the LSTM's kernels as ``_sequence.Sequence`` runs them
+CELL = _sequence.Cell("lstm", 4, True, _fwd, _bwd)
 
 
 def lstm_sequence(x, h0, c0, w_ih, w_hh, b):
-    """``(hs [B, T, U], hT, cT)``: the LSTM over ``x`` [B, T, I]
-    (:class:`LSTMSequence`)."""
-    if x.dim() != 3 or h0.dim() != 2 or c0.shape != h0.shape:
-        raise ValueError(f"lstm: x {tuple(x.shape)} must be [B, T, I] and "
-                         f"h0 {tuple(h0.shape)}, c0 {tuple(c0.shape)} [B, U]")
-    if x.dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"an LSTM in {x.dtype} is not ported yet: the recurrence kernels "
-            f"take float32 and float64 (ROADMAP queue 2b item 11)")
-    if x.shape[1] == 0:
-        raise ValueError("lstm: a sequence of no timesteps")
-    return LSTMSequence.apply(x, h0, c0, w_ih, w_hh, b)
+    """``(hs [B, T, U], hT, cT)``: the LSTM over ``x`` [B, T, I] from
+    ``h0``, ``c0`` [B, U], with ``w_ih`` [I, 4U], ``w_hh`` [U, 4U], ``b``
+    [4U] (``_sequence.Sequence``; ``hs`` a view of the time-major [T, B,
+    U] buffer)."""
+    return _sequence.sequence(CELL, x, h0, w_ih, w_hh, b, c0=c0)

@@ -126,6 +126,75 @@ def lstm_recurrence_case(b: int, t: int, u: int, dtype, dev, seed: int = 0):
     return [x.to(dev) for x in [gx, w] + rest]
 
 
+def rnn_recurrence_cost(cell: str, b: int, t: int, u: int, itemsize: int
+                        ) -> Dict[str, Tuple[int, int]]:
+    """(operations, bytes) each recurrence kernel of
+    ``csrc/rnn_recurrence.cu`` must spend on ``b`` rows of ``u`` units over
+    ``t`` steps, G gate columns a unit (GRU 3, Graves 4, simple 1). The
+    forward reads W_hh [u, Gu] once, gx [t, b, Gu] and h0 (Graves c0,
+    the peepholes; GRU b_hh) and writes the saved values [t, b, Gu] and hs
+    (Graves cs, GRU hn) [t, b, u]; the backward reads W_hh, the saved
+    values, hs, the extra state, h0, d_hs and dh_T, and writes dz (GRU dzh
+    too) [t, b, Gu] and dh0 (Graves dc0). Operations: the step's product
+    (2 b u Gu a step) and the cell's (a unit and step: GRU 20 forward, 25
+    backward; Graves 25 and 30; simple 2 and 3), each exp, tanh and
+    division counted as one."""
+    g = {"gru": 3, "graves": 4, "simple": 1}[cell]
+    n, w = b * u, g * u * u
+    prod = 2 * b * u * g * u * t
+    extra = 0 if cell == "simple" else n * t          # cs or hn
+    state = n * (2 if cell == "graves" else 1)        # h0 (and c0)
+    fwd = (w + g * n * t + state + g * n * t + n * t + extra) * itemsize
+    outs = g * n * t * (2 if cell == "gru" else 1) + state
+    bwd = (w + g * n * t + n * t + extra + state + n * t + n + outs) \
+        * itemsize
+    cell_ops = {"gru": (20, 25), "graves": (25, 30), "simple": (2, 3)}[cell]
+    return {f"{cell}_recurrence_fwd": (prod + cell_ops[0] * n * t, fwd),
+            f"{cell}_recurrence_bwd": (prod + cell_ops[1] * n * t, bwd)}
+
+
+def rnn_recurrence_case(cell: str, b: int, t: int, u: int, dtype, dev,
+                        seed: int = 0, act: int = 1):
+    """Seeded inputs of one layer's ``cell`` recurrence kernels and their
+    plain forward: a dict of gx [T, B, GU] (scale 2), W_hh [U, GU] over
+    sqrt(U), h0 (Graves c0 and the peepholes [3, U] at 0.3; GRU b_hh),
+    d_hs [T, B, U], dh_T (Graves dc_T) [B, U], and the forward's saved
+    values, hs, cs and hn from ``recurrence_fwd_plain``."""
+    from deeplearning4j_tpu_torch.kernels import recurrence
+    g = torch.Generator().manual_seed(seed)
+    gates = recurrence.GATES[cell]
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=g, dtype=dtype)).to(dev)
+    case = {"gx": r(t, b, gates * u, scale=2.0),
+            "w_hh": r(u, gates * u, scale=1 / math.sqrt(u)),
+            "h0": r(b, u), "d_hs": r(t, b, u), "dh_T": r(b, u),
+            "c0": None, "b_hh": None, "w_peep": None, "dc_T": None,
+            "act": act}
+    if cell == "graves":
+        case.update(c0=r(b, u), w_peep=r(3, u, scale=0.3), dc_T=r(b, u))
+    if cell == "gru":
+        case["b_hh"] = r(gates * u, scale=0.5)
+    saved, hs, cs, hn = recurrence.recurrence_fwd_plain(
+        cell, case["gx"], case["w_hh"], case["h0"], case["c0"],
+        case["b_hh"], case["w_peep"], act)
+    case.update(saved=saved, hs=hs, cs=cs, hn=hn)
+    return case
+
+
+def rnn_fwd_args(case):
+    """``recurrence_fwd``'s arguments but gx, from a case."""
+    return (case["w_hh"], case["h0"], case["c0"], case["b_hh"],
+            case["w_peep"], case["act"])
+
+
+def rnn_bwd_args(case):
+    """``recurrence_bwd``'s arguments but the cell, from a case."""
+    return (case["saved"], case["hs"], case["cs"], case["hn"], case["h0"],
+            case["c0"], case["w_hh"], case["w_peep"], case["d_hs"],
+            case["dh_T"], case["dc_T"], case["act"])
+
+
 def median_ms(fn: Callable[[], object], flush: torch.Tensor,
               iters: int = 20) -> float:
     """Median device time of ``fn`` over ``iters`` calls, each after

@@ -20,14 +20,22 @@ from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
 from deeplearning4j_tpu_torch.nn.layers_ext import (CenterLossOutputLayer,
                                                     CnnLossLayer,
                                                     DepthToSpaceLayer,
+                                                    GravesLSTMLayer,
+                                                    GRULayer,
                                                     SpaceToDepthLayer,
                                                     Yolo2OutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.noise_layers import (AlphaDropoutLayer,
+                                                      GaussianDropoutLayer,
+                                                      GaussianNoiseLayer,
+                                                      SpatialDropoutLayer)
 from deeplearning4j_tpu_torch.nn.recurrent_layers import (
     Bidirectional, ConvLSTM2DLayer, LastTimeStepLayer, RnnOutputLayer,
     SimpleRnnLayer)
 
-__all__ = ["ActivationLayer", "BatchNormalization", "Bidirectional",
+__all__ = ["ActivationLayer", "AlphaDropoutLayer", "BatchNormalization",
+           "Bidirectional", "GRULayer", "GaussianDropoutLayer",
+           "GaussianNoiseLayer", "GravesLSTMLayer", "SpatialDropoutLayer",
            "CenterLossOutputLayer", "CnnLossLayer", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvLSTM2DLayer",
            "ConvolutionLayer", "Cropping2DLayer", "Deconvolution2DLayer",

@@ -52,13 +52,21 @@ JAX package's names and layouts (convolution weights HWIO), and a
 restore copies into the live tensors, so the captured windows stay
 valid.
 
-Not ported yet, each refused by name: ``evaluate``, ``save``/``load``;
-recurrent inputs.
+Recurrent inputs are (B, T, C) sequences; a vertex's feature axis is then
+2 (JAX: the same). A layer that wants ff input gets a cnn input flattened
+first (NCHW order, the JAX graph's ``_adapt_input`` in its NCHW layout).
+``ComputationGraphConfiguration.to_json``/``from_json`` and each vertex's
+JSON (JAX :42-56, :276-300) write and read the JAX package's form.
+``evaluate`` (JAX :580-594) streams ``output`` into an ``Evaluation`` or
+the evaluation given; ``save``/``load`` (:610-624) are the JAX
+ModelSerializer zip (``nn/model_serde.py``): either package loads the
+other's.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,17 +86,18 @@ from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer, BaseLayer, BatchNorm, BatchNormalization, BuildContext,
     InputType, running_stats_frozen)
-from deeplearning4j_tpu_torch.nn.multilayer import _ArrayIterator, _not_ported
+from deeplearning4j_tpu_torch.nn.multilayer import _ArrayIterator, _adapt_itype
 from deeplearning4j_tpu_torch.ops import loss as loss_ops
 
 
 # ----------------------------------------------------------------------
 # graph vertices (JAX ``nn/graph.py`` :33-260). The body is logical NCHW
 # (channels-last in memory), so a vertex's feature axis is 1 for ff and
-# cnn inputs alike; recurrent inputs are refused (:func:`_refuse_rnn`).
+# cnn inputs alike, and 2 for (B, T, C) sequences.
 class GraphVertex:
     """``output_type(itypes)``; ``build(ctx, itypes) -> nn.Module`` that
-    takes the inputs' tensors."""
+    takes the inputs' tensors; ``to_json``/``from_json`` the JAX
+    package's form (JAX :42-56)."""
 
     def output_type(self, itypes: List[InputType]) -> InputType:
         raise NotImplementedError
@@ -96,12 +105,30 @@ class GraphVertex:
     def build(self, ctx: BuildContext, itypes: List[InputType]) -> nn.Module:
         raise NotImplementedError
 
+    def to_json(self) -> dict:
+        d = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            d[f.name] = list(v) if isinstance(v, tuple) else v
+        return d
 
-def _refuse_rnn(vertex: GraphVertex, itypes: List[InputType]) -> None:
-    if any(t.kind == "rnn" for t in itypes):
-        raise NotImplementedError(
-            f"{type(vertex).__name__} on rnn input is not ported yet "
-            f"(ROADMAP queue 1 item 10: recurrent layers)")
+    @staticmethod
+    def from_json(d: dict) -> "GraphVertex":
+        d = dict(d)
+        name = d.pop("@class")
+        cls = VERTEX_TYPES.get(name)
+        if cls is None:
+            raise NotImplementedError(
+                f"vertex {name!r} is not ported yet (ROADMAP queue 1 item "
+                f"1); the port's: {sorted(VERTEX_TYPES)}")
+        kw = {f.name: tuple(d[f.name]) if isinstance(d.get(f.name), list)
+              else d[f.name]
+              for f in dataclasses.fields(cls) if f.name in d}
+        return cls(**kw)
+
+
+def _feature_axis(itypes: List[InputType]) -> int:
+    return 2 if itypes[0].kind == "rnn" else 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,7 +166,8 @@ class MergeVertex(GraphVertex):
         return InputType(itypes[0].kind, (n,) + itypes[0].dims[1:])
 
     def build(self, ctx, itypes):
-        return VertexFn(lambda *xs: torch.cat(xs, dim=1), _cnn(itypes))
+        axis = _feature_axis(itypes)
+        return VertexFn(lambda *xs: torch.cat(xs, dim=axis), _cnn(itypes))
 
 
 def _average(*xs):
@@ -193,6 +221,8 @@ class SubsetVertex(GraphVertex):
 
     def build(self, ctx, itypes):
         lo, hi = self.from_idx, self.to_idx + 1
+        if itypes[0].kind == "rnn":
+            return VertexFn(lambda x: x[..., lo:hi], False)
         return VertexFn(lambda x: x[:, lo:hi], _cnn(itypes))
 
 
@@ -229,25 +259,29 @@ def _l2_normalized(x, dims, eps: float):
 
 @dataclasses.dataclass
 class DotProductVertex(GraphVertex):
-    """The batch dot product of two ff inputs over the feature axis,
-    ``(B, 1)``, each input L2-normalized first with ``normalize`` (JAX
-    ``DotProductVertex`` :189)."""
+    """The batch dot product of two ff or rnn inputs over the feature
+    axis, ``(B, 1)`` or ``(B, T, 1)``, each input L2-normalized first with
+    ``normalize`` (JAX ``DotProductVertex`` :189)."""
     normalize: bool = False
 
     def output_type(self, itypes):
-        if itypes[0].kind != "ff":
-            raise ValueError(f"DotProductVertex supports ff/rnn inputs, not "
-                             f"{itypes[0].kind!r}")
-        return InputType.feed_forward(1)
+        if itypes[0].kind == "ff":
+            return InputType.feed_forward(1)
+        if itypes[0].kind == "rnn":
+            return InputType.recurrent(1, itypes[0].dims[1])
+        raise ValueError(f"DotProductVertex supports ff/rnn inputs, not "
+                         f"{itypes[0].kind!r}")
 
     def build(self, ctx, itypes):
+        self.output_type(itypes)
         normalize = self.normalize
+        axis = _feature_axis(itypes)
 
         def dot(a, b):
             if normalize:
-                a = _l2_normalized(a, (1,), 1e-12)
-                b = _l2_normalized(b, (1,), 1e-12)
-            return (a * b).sum(dim=1, keepdim=True)
+                a = _l2_normalized(a, (axis,), 1e-12)
+                b = _l2_normalized(b, (axis,), 1e-12)
+            return (a * b).sum(dim=axis, keepdim=True)
         return VertexFn(dot, False)
 
 
@@ -270,6 +304,12 @@ class L2NormalizeVertex(GraphVertex):
                         _cnn(itypes))
 
 
+#: the JSON ``@class`` names of the vertices
+VERTEX_TYPES: Dict[str, type] = {c.__name__: c for c in [
+    MergeVertex, ElementWiseVertex, SubsetVertex, ScaleVertex, ShiftVertex,
+    L2NormalizeVertex, DotProductVertex]}
+
+
 # ----------------------------------------------------------------------
 @dataclasses.dataclass
 class _Node:
@@ -289,6 +329,71 @@ class ComputationGraphConfiguration:
     regularization: Sequence[Regularization] = ()
     dtype: str = "float32"
     mixed_precision: Optional[MixedPrecision] = None
+
+    def to_json(self) -> str:
+        """The JAX package's JSON (JAX :276-290); the port's graph body is
+        the JAX graph's NCHW layout."""
+        return json.dumps({
+            "seed": self.seed, "dtype": self.dtype,
+            "cnn_data_format": "NCHW",
+            "mixed_precision": (self.mixed_precision.to_json()
+                                if self.mixed_precision else None),
+            "updater": self.updater.to_json(),
+            "regularization": [r.to_json() for r in self.regularization],
+            "inputs": self.inputs,
+            "input_types": [t.to_json() for t in self.input_types],
+            "outputs": self.outputs,
+            "nodes": [{"name": n.name,
+                       "kind": "layer" if isinstance(n.op, BaseLayer)
+                       else "vertex",
+                       "op": n.op.to_json(), "inputs": n.inputs}
+                      for n in self.nodes],
+        }, indent=1)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        """A configuration from its JSON (JAX :292-300). A graph the JAX
+        package ran in its NHWC layout reads the same, its weights being
+        the same arrays, but for a layer after a cnn input's flatten,
+        whose rows follow the layout: such a graph is refused by name."""
+        d = json.loads(s)
+        nodes = []
+        for nd in d["nodes"]:
+            op = BaseLayer.from_json(nd["op"]) if nd["kind"] == "layer" \
+                else GraphVertex.from_json(nd["op"])
+            nodes.append(_Node(nd["name"], op, list(nd["inputs"])))
+        if d.get("cnn_data_format", "NCHW") == "NHWC":
+            _refuse_nhwc_flatten(d["inputs"], [InputType.from_json(t) for t
+                                                in d["input_types"]], nodes)
+        return ComputationGraphConfiguration(
+            inputs=list(d["inputs"]),
+            input_types=[InputType.from_json(t) for t in d["input_types"]],
+            nodes=nodes, outputs=list(d["outputs"]), seed=d["seed"],
+            updater=IUpdater.from_json(d["updater"]),
+            regularization=[Regularization.from_json(r)
+                            for r in d.get("regularization", [])],
+            dtype=d.get("dtype", "float32"),
+            mixed_precision=MixedPrecision.from_json(
+                d.get("mixed_precision")))
+
+
+def _refuse_nhwc_flatten(inputs, input_types, nodes) -> None:
+    """Raise where a layer flattens a cnn input in a graph whose JSON
+    names the NHWC layout: the dense rows of the JAX package's (h, w, c)
+    flatten are not the port's (c, h, w)."""
+    types = dict(zip(inputs, input_types))
+    for node in nodes:
+        itypes = [types[i] for i in node.inputs]
+        if isinstance(node.op, BaseLayer):
+            itype = _adapt_itype(itypes[0], node.op, node.name)
+            if itype is not itypes[0]:
+                raise NotImplementedError(
+                    f"node {node.name!r} flattens a cnn input in a graph "
+                    f"the JAX package ran NHWC: its rows in the port's NCHW "
+                    f"order are not ported yet (ROADMAP queue 1 item 1)")
+            types[node.name] = node.op.output_type(itype)
+        else:
+            types[node.name] = node.op.output_type(itypes)
 
 
 class GraphBuilder:
@@ -386,11 +491,14 @@ class GraphModule(nn.ModuleDict):
 
     def __init__(self, conf: ComputationGraphConfiguration,
                  modules: Dict[str, nn.Module],
-                 types: Dict[str, InputType], fused: Dict[str, str]):
+                 types: Dict[str, InputType], fused: Dict[str, str],
+                 flatten: Sequence[str] = ()):
         super().__init__(modules)
         self.conf = conf
         self.types = types
         self.fused = fused
+        #: layer nodes whose cnn input is flattened first (NCHW order)
+        self.flatten = frozenset(flatten)
 
     def activations(self, *inputs, unfused: bool = False
                     ) -> Dict[str, torch.Tensor]:
@@ -407,6 +515,8 @@ class GraphModule(nn.ModuleDict):
             if unfused else {}
         for node in self.conf.nodes:
             args = [vals[i] for i in node.inputs]
+            if node.name in self.flatten:
+                args = [args[0].reshape(args[0].shape[0], -1)]
             if node.name in relu_of:
                 vals[node.name] = torch.relu(args[0])
             elif unfused and node.name in self.fused:
@@ -429,23 +539,26 @@ def _build_graph(conf: ComputationGraphConfiguration,
     fused = _fused_bn_relu(conf)
     passthrough = set(fused.values())
     modules: Dict[str, nn.Module] = {}
+    flatten = []
     for index, node in enumerate(conf.nodes):
         ctx.node = index
         itypes = [types[i] for i in node.inputs]
         if isinstance(node.op, BaseLayer):
-            mod = node.op.build(ctx, itypes[0])
-            otype = node.op.output_type(itypes[0])
+            itype = _adapt_itype(itypes[0], node.op, node.name)
+            if itype is not itypes[0]:
+                flatten.append(node.name)
+            mod = node.op.build(ctx, itype)
+            otype = node.op.output_type(itype)
             if isinstance(mod, BatchNorm):
                 mod.relu = node.name in fused
             if node.name in passthrough:
                 mod = nn.Identity()
         else:
-            _refuse_rnn(node.op, itypes)
             otype = node.op.output_type(itypes)
             mod = node.op.build(ctx, itypes)
         modules[node.name] = mod
         types[node.name] = otype
-    return GraphModule(conf, modules, types, fused)
+    return GraphModule(conf, modules, types, fused, flatten)
 
 
 def _is_head(mod: nn.Module) -> bool:
@@ -726,16 +839,45 @@ class ComputationGraph(window.StepOwner):
                          f"<- {', '.join(node.inputs)}")
         return "\n".join(lines)
 
-    # -- not ported yet ---------------------------------------------------
-    def evaluate(self, *a, **k):
-        _not_ported("evaluate", "10: evaluation/", "ComputationGraph")
+    # -- evaluation and serde ------------------------------------------
+    def evaluate(self, iterator, evaluation=None):
+        """Stream ``output`` over an iterator of (features, labels)
+        batches or ``DataSet``s into ``evaluation`` (an ``Evaluation`` if
+        None): the first output against the first labels, as the JAX
+        graph does. Returns the evaluation."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+        ev = evaluation if evaluation is not None else Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for batch in iterator:
+            if hasattr(batch, "features"):
+                feats, labs = batch.features, batch.labels
+            else:
+                feats, labs = batch
+            feats = feats if isinstance(feats, (list, tuple)) else [feats]
+            labs = labs if isinstance(labs, (list, tuple)) else [labs]
+            ev.eval(labs[0], self.output(*feats)[0])
+        return ev
 
-    def save(self, *a, **k):
-        _not_ported("save", "10: model_serde", "ComputationGraph")
+    def save(self, path, include_updater_state: bool = True) -> None:
+        """The JAX ModelSerializer zip (``nn/model_serde.py``): the
+        configuration's JSON, the parameters and running statistics under
+        the JAX names and layouts, the updater state's leaves, the
+        iteration."""
+        from deeplearning4j_tpu_torch.nn.model_serde import save_graph_zip
+        self._require_init()
+        save_graph_zip(path, self, include_updater_state)
 
     @staticmethod
-    def load(*a, **k):
-        _not_ported("load", "10: model_serde", "ComputationGraph")
+    def load(path, device: DeviceLike = None) -> "ComputationGraph":
+        """A network from a zip either package wrote, built on ``device``
+        (the CUDA card unless ``device="cpu"``)."""
+        from deeplearning4j_tpu_torch.nn.model_serde import (read_net_zip,
+                                                             restore_net_state)
+        conf_json, arrays, leaves, iteration = read_net_zip(path)
+        net = ComputationGraph(
+            ComputationGraphConfiguration.from_json(conf_json)).init(device)
+        return restore_net_state(net, arrays, leaves, iteration)
 
     # -- checkpointing (checkpoint/) --------------------------------------
     def capture_training_state(self, epoch: int = 0, normalizer=None):

@@ -171,9 +171,12 @@ class SDBuildContext:
     #: their names as they are made
     tbptt_batch: Optional[int] = None
     rnn_state_vars: list = dataclasses.field(default_factory=list)
+    #: a wrapper's name for its inner layer's variables (``Bidirectional``'s
+    #: ``{lname}_fwd`` / ``_bwd``), as the JAX context's ``prefix``
+    prefix: Optional[str] = None
 
     def lname(self, kind: str) -> str:
-        return f"layer{self.idx}_{kind}"
+        return self.prefix if self.prefix else f"layer{self.idx}_{kind}"
 
     def state(self, name: str, value):
         return self.sd.state_var(name, np.asarray(value), dtype=self.dtype)
@@ -308,9 +311,11 @@ def _require_ff(layer, itype: InputType) -> None:
             f"use LSTMLayer(return_sequences=False) or GlobalPoolingLayer "
             f"before it")
     if itype.kind != "ff":
-        raise NotImplementedError(
-            f"{type(layer).__name__} on {itype.kind} input is not ported "
-            f"yet (the cnn -> ff flatten); put a GlobalPoolingLayer first")
+        # a ComputationGraph flattens a cnn input before a layer that
+        # wants ff (``multilayer._adapt_itype``), as the JAX graph does
+        raise ValueError(
+            f"{type(layer).__name__} wants flat input but got "
+            f"{itype.kind} input")
 
 
 # ----------------------------------------------------------------------
@@ -824,7 +829,8 @@ class LSTMLayer(BaseLayer):
     ``lstm_layer`` op, gate order ``[i, f, g, o]``. Parameters
     ``{lname}_Wih`` (in, 4u) and ``{lname}_Whh`` (u, 4u) are drawn in that
     order; ``{lname}_b`` is zero but for the forget gate's slice, set to
-    ``forget_gate_bias_init``. ``dropout`` drops the input sequence."""
+    ``forget_gate_bias_init``. ``dropout`` drops the input sequence. In a
+    ``ComputationGraph`` the node is a :class:`Recurrent` module."""
     n_out: int = 0
     weight_init: str = "XAVIER"
     forget_gate_bias_init: float = 1.0
@@ -853,6 +859,45 @@ class LSTMLayer(BaseLayer):
         _rnn_carry_states(ctx, [(h0, h_t), (c0, c_t)])
         return (out if self.return_sequences else h_t,
                 self.output_type(itype))
+
+    def build(self, ctx, itype):
+        n_in, u = itype.dims[0], self.n_out
+        w_ih = ctx.param((n_in, 4 * u), self.weight_init)
+        w_hh = ctx.param((u, 4 * u), self.weight_init)
+        b = np.zeros((4 * u,))
+        b[u:2 * u] = self.forget_gate_bias_init
+        return Recurrent(ctx, "lstm_layer", {"Wih": w_ih, "Whh": w_hh,
+                                             "b": b},
+                         ("x", "h0", "c0", "Wih", "Whh", "b"), u,
+                         self.return_sequences,
+                         _input_dropout(ctx, self.dropout))
+
+
+class Recurrent(nn.Module):
+    """A recurrent layer of a ``ComputationGraph``: ``op`` (a registry
+    recurrence) over its (B, T, C) input from zero states, its parameters
+    under the JAX package's suffixes (``params``, in ``order`` among the
+    op's inputs ``x``, ``h0``, ``c0``); the sequence of hidden states, or
+    the last one without ``return_sequences``."""
+
+    def __init__(self, ctx, op: str, params: Dict[str, np.ndarray],
+                 order: Tuple[str, ...], units: int, return_sequences: bool,
+                 drop: Optional[Dropout] = None, **attrs):
+        super().__init__()
+        for name, value in params.items():
+            self.register_parameter(name, nn.Parameter(ctx.tensor(value)))
+        self.op, self.order, self.units = op, order, units
+        self.return_sequences, self.drop, self.attrs = (return_sequences,
+                                                        drop, attrs)
+
+    def forward(self, x):
+        if self.drop is not None:
+            x = self.drop(x)
+        zero = x.new_zeros(x.shape[0], self.units)
+        args = [x if n == "x" else zero if n in ("h0", "c0")
+                else getattr(self, n).to(x.dtype) for n in self.order]
+        out = registry.get_op(self.op).fn(*args, **self.attrs)
+        return out[0] if self.return_sequences else out[1]
 
 
 #: the JSON ``@class`` names the port reads (``BaseLayer.from_json``);

@@ -2,7 +2,11 @@
 (counterpart of ``deeplearning4j_tpu/nn/layers_ext.py``:
 ``Yolo2OutputLayer`` :119-175, ``SpaceToDepthLayer`` :594,
 ``DepthToSpaceLayer`` :612, ``CnnLossLayer`` :631 and
-``CenterLossOutputLayer`` :689-735). The module's other layers are
+``CenterLossOutputLayer`` :689-735) and its recurrent layers
+``GravesLSTMLayer`` and ``GRULayer`` (:330-396, the ops
+``graves_lstm_layer`` and ``gru_layer``, whose recurrences run in
+``kernels/recurrence.py``; a ``ComputationGraph`` node is a
+``nn/layers.py`` ``Recurrent`` module). The module's other layers are
 refused by name (ROADMAP queue 1 item 10).
 
 The loss heads mark their loss (``MultiLayerNetwork``) or are loss-head
@@ -22,8 +26,9 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.nn.activations import resolve_activation
 from deeplearning4j_tpu_torch.nn.layers import (
-    LAYER_TYPES, Affine, BaseLayer, InputType, LossHead, _require_ff,
-    _sd_activation, to_nhwc)
+    LAYER_TYPES, Affine, BaseLayer, InputType, LossHead, Recurrent,
+    _require_ff, _rnn_carry_states, _rnn_initial_states, _sd_activation,
+    to_nhwc)
 from deeplearning4j_tpu_torch.ops import nn_ext, shape_ops
 from deeplearning4j_tpu_torch.ops.loss import (FUSED_LOGIT_LOSSES, loss_op,
                                                softmax_cross_entropy)
@@ -246,6 +251,100 @@ class CenterLossOutputLayer(BaseLayer):
                               self.lambda_)
 
 
+# ----------------------------------------------------------------------
+class _RecurrentBase(BaseLayer):
+    def output_type(self, itype):
+        if self.return_sequences:
+            return InputType.recurrent(self.n_out, itype.dims[1])
+        return InputType.feed_forward(self.n_out)
+
+
+@dataclasses.dataclass
+class GravesLSTMLayer(_RecurrentBase):
+    """Peephole LSTM (JAX :330-361): the ``graves_lstm_layer`` op, gate
+    order ``[i, f, g, o]``. ``{lname}_Wih`` (in, 4u) and ``{lname}_Whh``
+    (u, 4u) drawn in that order; the peepholes ``{lname}_Wp`` (3, u) zero;
+    ``{lname}_b`` zero but for the forget gate's slice,
+    ``forget_gate_bias_init``. In a TBPTT graph h and c are carried."""
+    n_out: int = 0
+    weight_init: str = "XAVIER"
+    forget_gate_bias_init: float = 1.0
+    return_sequences: bool = True
+
+    def _init(self, draw, n_in):
+        u = self.n_out
+        w_ih = draw("Wih", (n_in, 4 * u))
+        w_hh = draw("Whh", (u, 4 * u))
+        b = np.zeros((4 * u,))
+        b[u:2 * u] = self.forget_gate_bias_init
+        return w_ih, w_hh, np.zeros((3, u)), b
+
+    def build_sd(self, ctx, x, itype):
+        lname = ctx.lname("glstm")
+        u = self.n_out
+        w_ih, w_hh, w_p, b = self._init(
+            lambda n, s: ctx.param(f"{lname}_{n}", s, self.weight_init),
+            itype.dims[0])
+        w_p = ctx.sd.var(f"{lname}_Wp", value=w_p, dtype=ctx.dtype)
+        b = ctx.sd.var(f"{lname}_b", value=b, dtype=ctx.dtype)
+        h0, c0 = _rnn_initial_states(ctx, lname, x, u, ("h0", "c0"))
+        out, h_t, c_t = ctx.sd.invoke(
+            "graves_lstm_layer", [x, h0, c0, w_ih, w_hh, w_p, b],
+            {"return_sequences": self.return_sequences}, name=lname,
+            n_outputs=3)
+        _rnn_carry_states(ctx, [(h0, h_t), (c0, c_t)])
+        return (out if self.return_sequences else h_t), \
+            self.output_type(itype)
+
+    def build(self, ctx, itype):
+        w_ih, w_hh, w_p, b = self._init(
+            lambda n, s: ctx.param(s, self.weight_init), itype.dims[0])
+        return Recurrent(ctx, "graves_lstm_layer",
+                         {"Wih": w_ih, "Whh": w_hh, "Wp": w_p, "b": b},
+                         ("x", "h0", "c0", "Wih", "Whh", "Wp", "b"),
+                         self.n_out, self.return_sequences)
+
+
+@dataclasses.dataclass
+class GRULayer(_RecurrentBase):
+    """GRU (JAX :364-396): the ``gru_layer`` op, gate order ``[r, u,
+    c]``. ``{lname}_Wih`` (in, 3u) and ``{lname}_Whh`` (u, 3u) drawn in
+    that order; ``{lname}_bih`` and ``{lname}_bhh`` (3u,) zero. In a TBPTT
+    graph h is carried."""
+    n_out: int = 0
+    weight_init: str = "XAVIER"
+    return_sequences: bool = True
+
+    def _init(self, draw, n_in):
+        u = self.n_out
+        return (draw("Wih", (n_in, 3 * u)), draw("Whh", (u, 3 * u)),
+                np.zeros(3 * u), np.zeros(3 * u))
+
+    def build_sd(self, ctx, x, itype):
+        lname = ctx.lname("gru")
+        w_ih, w_hh, b_ih, b_hh = self._init(
+            lambda n, s: ctx.param(f"{lname}_{n}", s, self.weight_init),
+            itype.dims[0])
+        b_ih = ctx.sd.var(f"{lname}_bih", value=b_ih, dtype=ctx.dtype)
+        b_hh = ctx.sd.var(f"{lname}_bhh", value=b_hh, dtype=ctx.dtype)
+        h0, = _rnn_initial_states(ctx, lname, x, self.n_out)
+        out, h_t = ctx.sd.invoke("gru_layer", [x, h0, w_ih, w_hh, b_ih, b_hh],
+                                 {}, name=lname, n_outputs=2)
+        _rnn_carry_states(ctx, [(h0, h_t)])
+        return (out if self.return_sequences else h_t), \
+            self.output_type(itype)
+
+    def build(self, ctx, itype):
+        w_ih, w_hh, b_ih, b_hh = self._init(
+            lambda n, s: ctx.param(s, self.weight_init), itype.dims[0])
+        return Recurrent(ctx, "gru_layer",
+                         {"Wih": w_ih, "Whh": w_hh, "bih": b_ih,
+                          "bhh": b_hh},
+                         ("x", "h0", "Wih", "Whh", "bih", "bhh"),
+                         self.n_out, self.return_sequences)
+
+
 for _cls in [Yolo2OutputLayer, SpaceToDepthLayer, DepthToSpaceLayer,
-             CnnLossLayer, CenterLossOutputLayer]:
+             CnnLossLayer, CenterLossOutputLayer, GravesLSTMLayer,
+             GRULayer]:
     LAYER_TYPES[_cls.__name__] = _cls

@@ -13,6 +13,16 @@ container, so that a zip written by either package loads in the other:
   ``include_updater_state``;
 - ``iteration.json``: ``{"iteration_count": n}``.
 
+Its entries are stored, not deflated: trained float arrays deflate by a
+few percent at a small fraction of the disk's rate. Either package reads
+stored and deflated entries alike.
+
+A ``MultiLayerNetwork`` writes its training graph's arrays
+(:func:`save_net_zip`), a ``ComputationGraph`` its module's parameters and
+running statistics under the JAX names and layouts (``{node}_{suffix}``,
+convolution weights HWIO: :func:`save_graph_zip`), the names the JAX
+graph's training SameDiff stores them under.
+
 The zip is written through ``checkpoint/atomic.py``: assembled in a
 temporary file beside ``path`` and renamed into place, so a killed
 process never leaves a torn zip there. A load restores through
@@ -49,7 +59,7 @@ def save_net_zip(path, conf_json: str, sd,
         [sd._arrays[n] for n in names] + [t for _, t in (leaves or [])])
     tc = sd.training_config
     with atomic_output_file(path) as tmp:
-        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
             zf.writestr("configuration.json", conf_json)
             zf.writestr("parameters.npz",
                         _npz(dict(zip(names, host[:len(names)]))))
@@ -58,6 +68,23 @@ def save_net_zip(path, conf_json: str, sd,
                     f"leaf_{i}": a for i, a in enumerate(host[len(names):])}))
             zf.writestr("iteration.json", json.dumps({
                 "iteration_count": tc.iteration_count if tc else 0}))
+
+
+def save_graph_zip(path, net, include_updater_state: bool = True) -> None:
+    """Write the container for a ``ComputationGraph``: its parameters and
+    running statistics by their JAX names (convolution weights HWIO), the
+    updater leaves in the JAX order, the iteration (one host snapshot,
+    ``checkpoint/state.py``)."""
+    st = ckpt_state.capture_training_state(net)
+    with atomic_output_file(path) as tmp:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
+            zf.writestr("configuration.json", net.conf.to_json())
+            zf.writestr("parameters.npz", _npz(st.arrays))
+            if include_updater_state and st.updater_leaves is not None:
+                zf.writestr("updater.npz", _npz({
+                    f"leaf_{i}": a for i, a in enumerate(st.updater_leaves)}))
+            zf.writestr("iteration.json", json.dumps({
+                "iteration_count": int(st.iteration)}))
 
 
 def read_net_zip(path) -> Tuple[str, Dict[str, np.ndarray],
@@ -83,7 +110,15 @@ def restore_net_state(net, arrays: Dict[str, np.ndarray],
                       updater_leaves: Optional[List[np.ndarray]],
                       iteration: int):
     """Copy loaded arrays, updater state and iteration into an
-    initialized network; returns it."""
+    initialized network; returns it. A ``ComputationGraph`` takes the
+    arrays its module holds (a JAX zip's constants, which the port's
+    vertices do not store, are left out)."""
+    if not hasattr(net, "samediff"):
+        tc = net.training_config
+        ckpt_state.restore_training_state(net, ckpt_state.TrainingState(
+            arrays=arrays, updater_leaves=updater_leaves,
+            iteration=iteration, epoch=tc.epoch_count if tc else 0))
+        return net
     sd = net.samediff
     epoch = sd.training_config.epoch_count if sd.training_config else 0
     ckpt_state.restore_training_state(net, ckpt_state.TrainingState(

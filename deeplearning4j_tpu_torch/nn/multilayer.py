@@ -64,6 +64,8 @@ _WANTED_KIND = {
     "DenseLayer": ("ff", "rnn"), "OutputLayer": ("ff",),
     "ConvolutionLayer": ("cnn",), "SubsamplingLayer": ("cnn",),
     "LSTMLayer": ("rnn",), "RnnOutputLayer": ("rnn",),
+    "SimpleRnnLayer": ("rnn",), "Bidirectional": ("rnn",),
+    "GravesLSTMLayer": ("rnn",), "GRULayer": ("rnn",),
     "LastTimeStepLayer": ("rnn",), "Deconvolution2DLayer": ("cnn",),
     "DepthwiseConvolution2DLayer": ("cnn",),
     "SeparableConvolution2DLayer": ("cnn",),

@@ -1,5 +1,10 @@
-"""The YOLOv2 training loss (counterpart of
-``deeplearning4j_tpu/ops/nn_ext.py`` ``yolo2_loss`` :103-160).
+"""The peephole LSTM and the YOLOv2 training loss (counterpart of
+``deeplearning4j_tpu/ops/nn_ext.py`` ``graves_lstm_cell`` /
+``graves_lstm_layer`` :29-64, whose recurrence runs in the kernels of
+``kernels/recurrence.py``, and ``yolo2_loss`` :103-160).
+
+The peephole (Graves) LSTM's gate order is ``[i, f, g, o]``; ``w_peep``
+is (3, U): i and f see ``c_{t-1}``, o sees ``c_t``.
 
 Both inputs are channels-last: ``pred`` (B, H, W, A*(5+C)), the raw
 network output, and ``labels`` (B, H, W, 4+C), each cell's box corners
@@ -14,7 +19,38 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.kernels import recurrence
+from deeplearning4j_tpu_torch.ops.dtypes import promote
 from deeplearning4j_tpu_torch.ops.registry import op
+
+
+@op("graves_lstm_layer", "nn")
+def graves_lstm_layer(x, h0, c0, w_ih, w_hh, w_peep, b,
+                      time_major: bool = False,
+                      return_sequences: bool = True):
+    """A peephole LSTM over a sequence: ``(out, hT, cT)``, ``out`` every
+    timestep's hidden state or, without ``return_sequences``, ``hT``. x:
+    (B, T, in), h0/c0: (B, U), w_ih: (in, 4U), w_hh: (U, 4U), w_peep: (3,
+    U), b: (4U,). The recurrence is ``kernels/recurrence.py``'s
+    ``recurrence_sequence``."""
+    x, h0, c0, w_ih, w_hh, w_peep, b = promote(x, h0, c0, w_ih, w_hh, w_peep,
+                                               b)
+    hs, h_t, c_t = recurrence.recurrence_sequence(
+        "graves", x.transpose(0, 1) if time_major else x, h0, w_ih, w_hh, b,
+        c0=c0, w_peep=w_peep)
+    if not return_sequences:
+        return h_t, h_t, c_t
+    return (hs.transpose(0, 1) if time_major else hs), h_t, c_t
+
+
+@op("graves_lstm_cell", "nn")
+def graves_lstm_cell(x, h_prev, c_prev, w_ih, w_hh, w_peep, b):
+    """One peephole LSTM step ``(h, c)``: the sequence op over one
+    timestep."""
+    _, h, c = graves_lstm_layer(x.unsqueeze(1), h_prev, c_prev, w_ih, w_hh,
+                                w_peep, b)
+    return h, c
+
 
 _ANCHORS: Dict[Tuple, torch.Tensor] = {}
 

@@ -10,7 +10,10 @@ Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (``conv2d`` :55,
 ``bias_add`` :424 with its ``data_format``,
 ``scaled_dot_product_attention`` :462; the recurrent ops ``lstm_cell``
 :520, ``lstm_layer`` :539 and ``rnn_init_state`` :560, whose cell runs in
-the kernels of ``kernels/lstm.py``).
+the kernels of ``kernels/lstm.py``; ``gru_cell`` / ``gru_layer`` :569-592,
+``simple_rnn_cell`` / ``simple_rnn_layer`` and ``_rnn_activation``
+:595-624, whose recurrences run in the kernels of
+``kernels/recurrence.py``).
 Tensors are logically NCHW, as PyTorch's convolutions take them, in any
 memory format (the network body runs ``torch.channels_last``, so a
 channel is the fastest axis, as in the JAX package's NHWC body).
@@ -48,7 +51,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.kernels import attention, lstm
+from deeplearning4j_tpu_torch.kernels import attention, lstm, recurrence
 from deeplearning4j_tpu_torch.kernels.bn_relu import BatchNormTrain
 from deeplearning4j_tpu_torch.ops.dtypes import promote
 from deeplearning4j_tpu_torch.ops.registry import op
@@ -413,7 +416,7 @@ def lstm_layer(x, h0, c0, w_ih, w_hh, b, time_major: bool = False,
     cT)``, ``out`` the hidden states of every timestep (``(B, T, U)``, or
     ``(T, B, U)`` with ``time_major``) or, without ``return_sequences``,
     ``hT``. x: (B, T, in), h0/c0: (B, U), w_ih: (in, 4U), w_hh: (U, 4U),
-    b: (4U,). The recurrence is ``kernels/lstm.py``'s ``LSTMSequence``."""
+    b: (4U,). The recurrence is ``kernels/lstm.py``'s ``lstm_sequence``."""
     x, h0, c0, w_ih, w_hh, b = promote(x, h0, c0, w_ih, w_hh, b)
     hs, h_t, c_t = lstm.lstm_sequence(x.transpose(0, 1) if time_major
                                       else x, h0, c0, w_ih, w_hh, b)
@@ -436,3 +439,65 @@ def rnn_init_state(x, units: int, time_major: bool = False):
     from the sequence input (axis 1 with ``time_major``)."""
     return torch.zeros((x.shape[1] if time_major else x.shape[0], units),
                        dtype=x.dtype, device=x.device)
+
+
+# ----------------------------------------------------------------------
+# the GRU and the simple RNN (the JAX ``gru_cell`` :569, ``gru_layer`` :583,
+# ``_rnn_activation`` :595, ``simple_rnn_cell`` :607, ``simple_rnn_layer``
+# :613)
+def _time_major_out(hs, time_major: bool):
+    return hs.transpose(0, 1) if time_major else hs
+
+
+@op("gru_layer", _N, aliases=("gru",))
+def gru_layer(x, h0, w_ih, w_hh, b_ih, b_hh, time_major: bool = False):
+    """A GRU over a sequence, gate order ``[r, u, c]``: ``(out, hT)``,
+    ``out`` every timestep's hidden state ((B, T, U), or (T, B, U) with
+    ``time_major``). ``h' = u h + (1 - u) c`` with ``c = tanh(x W_c + b_c +
+    r (h W_hc + b_hc))``. x: (B, T, in), h0: (B, U), w_ih: (in, 3U), w_hh:
+    (U, 3U), b_ih, b_hh: (3U,). The recurrence is ``kernels/recurrence.py``'s
+    ``recurrence_sequence``."""
+    x, h0, w_ih, w_hh, b_ih, b_hh = promote(x, h0, w_ih, w_hh, b_ih, b_hh)
+    hs, h_t = recurrence.recurrence_sequence(
+        "gru", x.transpose(0, 1) if time_major else x, h0, w_ih, w_hh, b_ih,
+        b_hh=b_hh)
+    return _time_major_out(hs, time_major), h_t
+
+
+@op("gru_cell", _N)
+def gru_cell(x, h_prev, w_ih, w_hh, b_ih, b_hh):
+    """One GRU step: the sequence op over one timestep."""
+    return gru_layer(x.unsqueeze(1), h_prev, w_ih, w_hh, b_ih, b_hh)[1]
+
+
+def _rnn_activation(name: str) -> str:
+    """An activation's registry name as the simple RNN's kernel takes it
+    (``identity``/``linear`` or a registry op); an unknown name raises
+    ``ValueError`` as the JAX package's does."""
+    key = name.lower()
+    if key in ("identity", "linear"):
+        return "identity"
+    from deeplearning4j_tpu_torch.ops import registry
+    if not registry.has_op(key):
+        raise ValueError(f"unknown rnn activation {name!r}")
+    return registry.get_op(key).name
+
+
+@op("simple_rnn_layer", _N)
+def simple_rnn_layer(x, h0, w_ih, w_hh, b, time_major: bool = False,
+                     activation: str = "tanh"):
+    """``h_t = act(x_t W + h_{t-1} U + b)`` over a sequence: ``(out, hT)``.
+    The recurrence is ``kernels/recurrence.py``'s ``recurrence_sequence``,
+    whose kernel takes the activations of ``recurrence.ACTIVATIONS``."""
+    x, h0, w_ih, w_hh, b = promote(x, h0, w_ih, w_hh, b)
+    hs, h_t = recurrence.recurrence_sequence(
+        "simple", x.transpose(0, 1) if time_major else x, h0, w_ih, w_hh, b,
+        activation=_rnn_activation(activation))
+    return _time_major_out(hs, time_major), h_t
+
+
+@op("simple_rnn_cell", _N, aliases=("sru_cell_simple",))
+def simple_rnn_cell(x, h_prev, w_ih, w_hh, b, activation: str = "tanh"):
+    """One simple RNN step: the sequence op over one timestep."""
+    return simple_rnn_layer(x.unsqueeze(1), h_prev, w_ih, w_hh, b,
+                            activation=activation)[1]

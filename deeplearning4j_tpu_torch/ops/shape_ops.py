@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``deeplearning4j_tpu/ops/shape_ops.py``:
-``reshape`` :22, ``permute`` :27, ``concat`` :55, ``stack`` :60, ``split``
+``reshape`` :22, ``permute`` :27, ``reverse`` :95, ``concat`` :55, ``stack`` :60, ``split``
 :70, ``pad`` :111, ``slice`` :124, ``strided_slice`` :132, ``gather`` :139, ``where_op`` :260,
 ``one_hot`` :275, ``space_to_depth`` :307, ``depth_to_space`` :319). They
 return views where torch allows.
@@ -38,6 +38,14 @@ def permute(x, axes=None):
     if axes is None:
         axes = tuple(reversed(range(x.dim())))
     return x.permute(*axes)
+
+
+@op("reverse", _S, n_inputs=1, aliases=("flip",))
+def reverse(x, axis):
+    """``x`` reversed along ``axis`` (an int or a sequence of ints; JAX
+    ``reverse`` :95, ``jnp.flip``)."""
+    dims = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+    return torch.flip(x, dims)
 
 
 @op("split", _S, n_inputs=1)

@@ -13,8 +13,8 @@ its mangled name with the anonymous namespace's hash taken out (it
 changes with the source's text), and its SASS is compared without the
 instructions' addresses. Prints, a library at a time, how many kernels
 are identical and, for each that differs, its registers and spills
-(ptxas's report) and SASS lines on both sides. Needs the CUDA toolkit;
-no card.
+(ptxas's report) and SASS lines on both sides; a library whose source
+one side lacks is named and skipped. Needs the CUDA toolkit; no card.
 """
 import argparse
 import os
@@ -28,8 +28,8 @@ from deeplearning4j_tpu_torch.kernels import _cuda  # noqa: E402
 from deeplearning4j_tpu_torch.kernels import measure  # noqa: E402
 
 OUT = os.path.join(_cuda.PACKAGE, "_build", "sass_diff")
-LIBS = ("attention_f32", "bn_bwd_reduce", "causal_attention", "int8_matmul",
-        "paged_attention")
+LIBS = ("attention_f32", "bn_bwd_reduce", "causal_attention", "dropout",
+        "int8_matmul", "lstm_recurrence", "paged_attention", "rnn_recurrence")
 
 
 def _name(mangled):
@@ -54,6 +54,8 @@ def main():
     nvcc, procs = _cuda.nvcc(), {}
     for side, d in csrc.items():
         for lib in LIBS:
+            if not os.path.exists(_cuda.source(lib, d)):
+                continue
             so = os.path.join(OUT, f"{side}_{lib}.so")
             cmd = [nvcc, *_cuda.NVCC_FLAGS, "-I", d, "-o", so,
                    _cuda.source(lib, d)]
@@ -72,6 +74,9 @@ def main():
     if failed:
         raise SystemExit("\n".join(failed))
     for lib in LIBS:
+        if ("this", lib) not in built or ("parent", lib) not in built:
+            print(f"{lib}: not on both sides, not compared", flush=True)
+            continue
         this, parent = built["this", lib], built["parent", lib]
         same = 0
         for fn in sorted(set(this) | set(parent)):

@@ -1809,3 +1809,126 @@ def test_alexnet_sized_mlp_with_dropout_tiers_agree_on_card(card):
         assert out[tier][0] == out["scanned"][0]
         for k, v in out["scanned"][1].items():
             np.testing.assert_array_equal(out[tier][1][k], v, err_msg=k)
+
+
+# ----------------------------------------------------------------------
+# the GRU, peephole LSTM and simple RNN recurrences (csrc/rnn_recurrence.cu)
+# and the noise draws (csrc/dropout.cu dl4j_noise)
+RNN_CASES = [(64, 256, 256), (7, 50, 100), (1, 1, 5), (64, 12, 16),
+             (8, 20, 384), (8, 20, 512)]
+
+
+def _rnn_check(card, cell, b, t, u, dtype, act=1):
+    from deeplearning4j_tpu_torch.kernels import recurrence
+    from deeplearning4j_tpu_torch.kernels.measure import (
+        rnn_bwd_args, rnn_fwd_args, rnn_recurrence_case)
+    case = rnn_recurrence_case(cell, b, t, u, dtype, card, seed=b + t + u,
+                               act=act)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    before = dict(recurrence.LAUNCHES)
+    got_f = recurrence.recurrence_fwd(cell, case["gx"].clone(),
+                                      *rnn_fwd_args(case))
+    want_b = recurrence.recurrence_bwd_plain(cell, *rnn_bwd_args(case))
+    got_b = recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+    torch.cuda.synchronize()
+    assert {k: recurrence.LAUNCHES[k] - before[k] for k in before
+            if recurrence.LAUNCHES[k] != before[k]} == {
+        f"{cell}_recurrence_fwd": 1, f"{cell}_recurrence_bwd": 1}
+    for g, w in zip(got_f, (case["saved"], case["hs"], case["cs"],
+                            case["hn"])):
+        if w is not None:
+            _close(g, w, tol)
+    for g, w in zip(got_b, want_b):
+        if w is not None:
+            _close(g, w, tol)
+    again_f = recurrence.recurrence_fwd(cell, case["gx"].clone(),
+                                        *rnn_fwd_args(case))
+    again_b = recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+    for x, y in zip(again_f + again_b, got_f + got_b):
+        assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,t,u", RNN_CASES)
+@pytest.mark.parametrize("cell", ["gru", "graves", "simple"])
+def test_rnn_recurrence_kernels_match_plain_on_card(card, cell, b, t, u,
+                                                    dtype):
+    """Forward and backward against the plain versions at the sentiment
+    graph's and the TBPTT network's shapes, ragged widths and rows, one
+    step, and past the resident slice (streamed); two calls bit-equal."""
+    _rnn_check(card, cell, b, t, u, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", sorted({v for v in range(7)}))
+def test_simple_rnn_kernel_each_activation_on_card(card, act):
+    for dtype in (torch.float32, torch.float64):
+        _rnn_check(card, "simple", 7, 30, 100, dtype, act=act)
+
+
+@pytest.mark.cuda
+def test_rnn_recurrence_replays_in_a_cuda_graph_as_eager(card):
+    from deeplearning4j_tpu_torch.kernels import recurrence
+    from deeplearning4j_tpu_torch.kernels.measure import (
+        rnn_bwd_args, rnn_fwd_args, rnn_recurrence_case)
+    for cell in ("gru", "graves", "simple"):
+        case = rnn_recurrence_case(cell, 16, 20, 64, torch.float32, card)
+        buf = case["gx"].clone()
+
+        def step():
+            buf.copy_(case["gx"])
+            f = recurrence.recurrence_fwd(cell, buf, *rnn_fwd_args(case))
+            return f + recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+        eager = [None if x is None else x.clone() for x in step()]
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            step()
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(g):
+            outs = step()
+        g.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(outs, eager):
+            assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["gaussian_noise", "gaussian_dropout",
+                                  "alpha_dropout", "alpha_dropout_bwd",
+                                  "spatial_dropout"])
+def test_noise_kernel_matches_plain_on_card(card, kind, dtype):
+    """The Bernoulli kinds bit for bit; the Gaussian ones within 4 ulp of
+    the output dtype of the terms' magnitude (the normals are float64
+    ``log``/``cos``/``sin``, which may round a last bit apart)."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    seed = torch.tensor([12345 + (1 << 33)], dtype=torch.int64, device=card)
+    it = torch.tensor([7], dtype=torch.int64, device=card)
+    for shape, axis in (((64, 256, 300), -1), ((5, 3, 7, 9), 1),
+                        ((1001,), -1)):
+        x = torch.randn(shape, device=card).to(dtype)
+        before = dict(dk.LAUNCHES)
+        name = "alpha_dropout_bwd" if kind == "alpha_dropout_bwd" \
+            else f"{kind}_fwd"
+        got = dk.noise_apply(kind, x, seed, it, 3, name, p=0.9, stddev=0.3,
+                             channel_axis=axis)
+        want = dk.noise_plain(kind, x, seed, it, 3, p=0.9, stddev=0.3,
+                              channel_axis=axis)
+        assert dk.LAUNCHES[name] == before[name] + 1
+        if kind in ("gaussian_noise", "gaussian_dropout"):
+            eps = torch.finfo(dtype).eps
+            n = dk.normals_plain(x.numel(), seed, it, 3, card).reshape(shape)
+            scale = (x.double().abs() * (1 + 0.3 * n.abs()) + 0.3 * n.abs()
+                     + want.double().abs())
+            assert bool(((got.double() - want.double()).abs()
+                         <= 4 * eps * scale).all())
+        else:
+            assert torch.equal(got, want)
+        assert torch.equal(got, dk.noise_apply(kind, x, seed, it, 3, name,
+                                               p=0.9, stddev=0.3,
+                                               channel_axis=axis))

@@ -79,8 +79,9 @@ def test_configuration_json_reads_both_ways(model):
 
 @pytest.mark.parametrize("name,item", [
     ("VariationalAutoencoderLayer", "queue 1 item 10: nn/ layers"),
-    ("Bidirectional", "queue 1 item 10: recurrent_layers"),
-    ("SimpleRnnLayer", "queue 1 item 10: recurrent_layers"),
+    # Bidirectional and SimpleRnnLayer are ported now
+    ("ConvLSTM2DLayer", "queue 1 item 10: recurrent_layers"),
+    ("RecurrentAttentionLayer", "queue 1 item 10: nn/ layers"),
 ])
 def test_json_naming_a_layer_not_ported_is_refused_by_name(name, item):
     d = json.loads(_confs("textgen")[1].to_json())
@@ -260,6 +261,29 @@ def test_network_evaluate_matches_jax():
 @pytest.mark.parametrize("cls", [EvaluationBinary, ROC, ROCBinary,
                                  ROCMultiClass])
 def test_evaluations_not_ported_are_refused_by_name(cls):
-    with pytest.raises(NotImplementedError,
-                       match="queue 1 item 10: evaluation/"):
-        cls()
+    """These four are ported now (they were refused by name): each equals
+    the JAX class on the trained TextGenLSTM's predictions."""
+    import deeplearning4j_tpu.evaluation as jev
+    jt, pt, xs = _trained_pair()
+    _, ys = _chars(8, T, 1)
+    y = ys.reshape(-1, V)
+    pp = pt.output(xs).reshape(-1, V)
+    jp = jt.output(xs).to_numpy().reshape(-1, V)
+    if cls is ROC:      # binary: class 0 against the rest
+        y = np.stack([1 - y[:, 0], y[:, 0]], 1)
+        pp = torch.stack([1 - pp[:, 0], pp[:, 0]], 1)
+        jp = np.stack([1 - jp[:, 0], jp[:, 0]], 1)
+    pe, je = cls(), getattr(jev, cls.__name__)()
+    pe.eval(y, pp)
+    je.eval(y, jp)
+    if cls is EvaluationBinary:
+        for i in range(V):
+            assert pe.accuracy(i) == je.accuracy(i)
+            assert pe.f1(i) == pytest.approx(je.f1(i), abs=1e-12)
+    elif cls is ROC:
+        assert pe.auc() == pytest.approx(je.auc(), abs=1e-6)
+    elif cls is ROCBinary:
+        for i in range(V):
+            assert pe.auc(i) == pytest.approx(je.auc(i), abs=1e-6)
+    else:
+        assert pe.average_auc() == pytest.approx(je.average_auc(), abs=1e-6)

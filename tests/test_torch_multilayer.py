@@ -39,8 +39,8 @@ from deeplearning4j_tpu_torch.nn import (CenterLossOutputLayer, DenseLayer,
                                          MultiLayerNetwork,
                                          NeuralNetConfiguration, OutputLayer,
                                          SubsamplingLayer, ZeroPaddingLayer)
-from deeplearning4j_tpu_torch.evaluation import EvaluationBinary
-from deeplearning4j_tpu_torch.nn import SimpleRnnLayer
+from deeplearning4j_tpu_torch.nn import ConvLSTM2DLayer
+from deeplearning4j_tpu_torch.nn.layers import BaseLayer
 from deeplearning4j_tpu_torch.ops import registry as preg
 from deeplearning4j_tpu_torch.zoo import LeNet
 
@@ -278,8 +278,9 @@ def test_what_is_not_ported_is_refused_by_name():
                            normalizer=object()), "7"),
                        (lambda: MultiLayerConfiguration.from_json(bad_json),
                         "10"),
-                       (lambda: EvaluationBinary(), "10"),
-                       (lambda: SimpleRnnLayer(n_out=4), "10"),
+                       (lambda: BaseLayer.from_json(
+                           {"@class": "VariationalAutoencoderLayer"}), "10"),
+                       (lambda: ConvLSTM2DLayer(), "10"),
                        (lambda: CenterLossOutputLayer(n_out=4).build_sd(
                            None, None, None), "10")):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):

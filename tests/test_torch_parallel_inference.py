@@ -1230,7 +1230,8 @@ def _refusal(kind):
         return lambda: MultiLayerNetwork(conf).init(device="cpu")
     if kind == "layer_json":
         from deeplearning4j_tpu_torch.nn.layers import BaseLayer
-        return lambda: BaseLayer.from_json({"@class": "GRULayer",
+        return lambda: BaseLayer.from_json({"@class":
+                                            "VariationalAutoencoderLayer",
                                             "n_out": 4})
 
     def graph(layer):
