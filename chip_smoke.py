@@ -5,11 +5,11 @@
 Phases, in order; any failure exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions; the card's name and power
-   limit; the builds of the eight CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
+   limit; the builds of the seven CUDA C++ libraries (csrc/bn_bwd_reduce.cu,
    csrc/causal_attention.cu, csrc/paged_attention.cu,
-   csrc/attention_f32.cu, csrc/int8_matmul.cu, csrc/lstm_recurrence.cu,
-   csrc/dropout.cu and csrc/rnn_recurrence.cu, one nvcc each, started
-   together: seconds,
+   csrc/attention_f32.cu, csrc/int8_matmul.cu, csrc/lstm_recurrence.cu
+   (the recurrence engine: the LSTM, GRU, Graves and simple RNN cells) and
+   csrc/dropout.cu, one nvcc each, started together: seconds,
    and ptxas's registers and spills per kernel); the bf16 attention
    kernels' SASS (``cuobjdump -sass``): wgmma (HGMMA) and TMA loads
    (UTMALDG) and no mma.sync (HMMA) at every head dim, 0 spill bytes at
@@ -430,14 +430,17 @@ Phases, in order; any failure exits non-zero:
    50, 1024) alone, their bound and cuDNN's ``nn.LSTM`` each way.
 29. main path: the recurrent family and ``ComputationGraph``
    save/load/evaluate. (i) the GRU, Graves (peephole LSTM) and simple RNN
-   recurrence kernels (``csrc/rnn_recurrence.cu``) against their plain
+   recurrence kernels (the cells of ``csrc/lstm_recurrence.cu``'s cluster
+   engine) against their plain
    versions, forward and backward, float32 (1e-5) and float64 (1e-12 of
    the largest magnitude): (B, T, U) = (64, 256, 256), (1, 50, 5), (7,
    50, 100), (64, 1, 16), (7, 50, 384), (64, 50, 512) (streamed), the
    path's case reversed in time, the simple RNN under each of its seven
    activations; two calls bit-equal; (i') the noise kernel
    (``csrc/dropout.cu`` ``dl4j_noise``) of each kind: Bernoulli kinds bit
-   for bit, Gaussian kinds within 4 ulp. (ii) the sentiment graph at
+   for bit, Gaussian kinds within 4 ulp, and the kernel's float32 normals
+   within 2^-20 of their magnitude of ``normals_plain``'s
+   (``NORMAL_KERNEL_REL``). (ii) the sentiment graph at
    Word2VecSentimentRNN's widths (64 reviews x 256 words x 300 -> noise
    0.1 -> Bidirectional(GRU 256, CONCAT) -> GravesLSTM 256 -> last step
    -> softmax 2; Adam(5e-3), L2 1e-5, element-wise clip 1.0; float32, TF32
@@ -1102,22 +1105,34 @@ KERNEL_KINDS = (
 )
 
 
-def _profiled_counts(fit, steps):
+def _profiled_counts(fit, steps, warmup=True):
     """One pass of ``fit()`` (``steps`` training steps) under
     torch.profiler: (device ms and launches of each kernel, both summed
-    over the pass, the pass's wall ms a step)."""
+    over the pass, the pass's wall ms a step). With ``warmup`` a first,
+    untraced pass of ``fit()`` runs in the profiler's warm-up cycle with
+    the device tracing already on, as ``_p27_profile`` takes it: without it
+    a trace could lose a replay's first kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cycle = {"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)} \
+        if warmup else {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **cycle) as prof:
+        if warmup:
+            fit()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fit()
         torch.cuda.synchronize()
         traced_ms = 1000 * (time.perf_counter() - t0) / steps
+        if warmup:
+            prof.step()
     totals = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the schedule's ProfilerStep range is on the device timeline too
+        if e.device_type != DeviceType.CUDA or _annotation(e):
             continue
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
@@ -1155,15 +1170,17 @@ def whole_steps_lost(short, full, steps):
     return lost.pop() if len(lost) == 1 and 0 < min(lost) < steps else None
 
 
-def profile_fit(fit, steps, step_ms, card):
+def profile_fit(fit, steps, step_ms, card, warmup=True):
     """``fit()`` (``steps`` training steps, the same replayed or eager step
     each time) under torch.profiler: device time per step by kernel and by
     kind, device launches a step, and the idle share of the traced pass
     itself (busy against its own wall time a step; the unprofiled step
     time ``step_ms`` is printed beside it, and no ratio is taken across
     the two runs); each BN kernel must
-    launch 33 (ReLU) and 20 times a step. A pass whose trace holds fewer BN
-    launches is repeated once: if the repeat is complete and the first
+    launch 33 (ReLU) and 20 times a step. With ``warmup`` each pass runs
+    ``fit()`` once in the profiler's warm-up cycle first
+    (``_profiled_counts``; phase 6's passes, each the same replay again).
+    A pass whose trace holds fewer BN launches is repeated once: if the repeat is complete and the first
     pass held every kernel at the same whole-step share of the repeat's
     count (the profiler lost whole steps' records, every kernel's alike),
     the repeat is the reading and its line says so; a second shortfall, or
@@ -1172,7 +1189,7 @@ def profile_fit(fit, steps, step_ms, card):
     from deeplearning4j_tpu_torch.kernels import bn_relu
     want = {bn_relu.kernel_name(p, r): 33 if r else 20
             for p in (1, 2) for r in (True, False)}
-    totals, traced_ms = _profiled_counts(fit, steps)
+    totals, traced_ms = _profiled_counts(fit, steps, warmup)
     kernel_n = _bn_counts(totals, steps)
     note = ""
     if kernel_n != want:
@@ -1180,7 +1197,7 @@ def profile_fit(fit, steps, step_ms, card):
         log(f"    the profiled pass traced BN backward launches {kernel_n} a "
             f"step against {want}, {sum(first.values()) / steps:.1f} launches "
             f"a step in all: repeating it once")
-        totals, traced_ms = _profiled_counts(fit, steps)
+        totals, traced_ms = _profiled_counts(fit, steps, warmup)
         kernel_n = _bn_counts(totals, steps)
         full = {k: c for k, (_, c) in totals.items()}
         lost = whole_steps_lost(first, full, steps) if kernel_n == want \
@@ -3428,8 +3445,9 @@ def _mlp_data():
 def _annotation(e):
     """A range the profiler marks on the device timeline (a scheduled
     pass's ProfilerStep#n), not device work."""
+    name = getattr(e, "name", None) or e.key    # an event, or an average
     return getattr(e, "is_user_annotation", False) or \
-        e.name.startswith("ProfilerStep")
+        name.startswith("ProfilerStep")
 
 
 def device_activity(prof):
@@ -6258,8 +6276,11 @@ def phase_train_options(dev, card):
         tc = net.training_config
         _p26_timed(net, init, batches[:8], "A")
         net.restore_training_state(init)
+        # one pass from the restored start, no warm-up fit: an untraced fit
+        # in the profiler's warm-up cycle would move the training state
+        # (schedule, accumulation, checkpoint cadence) past that start
         prof = profile_fit(lambda: net.fit(StepSource(batches[:8], tc)), 8,
-                           min(ms["A"]), card)
+                           min(ms["A"]), card, warmup=False)
 
         # D: NaN gradients at P26_NAN inside a captured window
         net.restore_training_state(init)
@@ -7736,7 +7757,7 @@ def phase_zoo(dev, card, card_name):
 # ----------------------------------------------------------------------
 # phase 29: the recurrent family, the noise layers and ComputationGraph
 # save/load/evaluate
-P29_RNN_SOURCE = "deeplearning4j_tpu_torch/csrc/rnn_recurrence.cu"
+P29_RNN_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm_recurrence.cu"
 P29_RNN_REPLACES = {"gru": "deeplearning4j_tpu/ops/nn_ops.py:569",
                     "graves": "deeplearning4j_tpu/ops/nn_ext.py:29",
                     "simple": "deeplearning4j_tpu/ops/nn_ops.py:607"}
@@ -7833,7 +7854,8 @@ def p29_check_kernels(dev):
             plans = []
             for b, t, u in P29_CASES:
                 p = recurrence._card_plan(dev.index or 0, cell, dt, b, u)
-                plans.append(f"U {u}: R {p.ranks}, "
+                plans.append(f"U {u}: R {p.ranks}, {p.b_tile} rows a "
+                             f"cluster, "
                              f"{'resident' if p.resident else 'streamed'}, "
                              f"{p.smem_fwd}/{p.smem_bwd} B, card holds "
                              f"{p.max_clusters} clusters")
@@ -7891,11 +7913,27 @@ def p29_check_noise(dev):
                                  f"calls differ")
             key = kind.replace("_bwd", "")
             errs[key] = max(errs.get(key, 0.0), diff)
+    # the kernel's float32 normals themselves (x = 0, s = 1: the noise is
+    # the normal, exactly) against normals_plain's, within the stated bound
+    x0 = torch.zeros(P29_B, P29_T, P29_F, device=dev)
+    got = dk.noise_apply("gaussian_noise", x0, seed, it, 5,
+                         "gaussian_noise_fwd", stddev=1.0).double()
+    want = dk.normals_plain(x0.numel(), seed, it, 5, dev,
+                            torch.float32).reshape(x0.shape).double()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not bool(((got - want).abs() <= dk.NORMAL_KERNEL_REL
+                 * want.abs()).all()):
+        raise SystemExit(f"the noise kernel's float32 normals: {rel:.3e} "
+                         f"of their magnitude from normals_plain's, over "
+                         f"the bound {dk.NORMAL_KERNEL_REL:.3e}")
     dk.LAUNCHES.update(snap)
     log("  (i') the noise kernel against its plain versions, float32 and "
         "float64: Bernoulli kinds bit-equal, Gaussian kinds within 4 ulp; "
         "worst |difference| " + ", ".join(f"{k} {v:.2e}"
-                                          for k, v in errs.items()))
+                                          for k, v in errs.items())
+        + f"; its float32 normals within {rel:.3e} of their magnitude of "
+          f"normals_plain's (bound {dk.NORMAL_KERNEL_REL:.3e}, "
+          f"{x0.numel()} normals)")
     return errs
 
 
@@ -8094,10 +8132,10 @@ def p29_sentiment(dev, card):
             f"[{card}]")
     prof, in_step = _p29_profile(
         lambda: net.fit(it), steps,
-        {"gru_recurrence_fwd": "rnn_fwd_kernel<float, 0",
-         "gru_recurrence_bwd": "rnn_bwd_kernel<float, 0",
-         "graves_recurrence_fwd": "rnn_fwd_kernel<float, 1",
-         "graves_recurrence_bwd": "rnn_bwd_kernel<float, 1",
+        {"gru_recurrence_fwd": "gru_recurrence_fwd_kernel<float",
+         "gru_recurrence_bwd": "gru_recurrence_bwd_kernel<float",
+         "graves_recurrence_fwd": "graves_recurrence_fwd_kernel<float",
+         "graves_recurrence_bwd": "graves_recurrence_bwd_kernel<float",
          "gaussian_noise_fwd": "noise_kernel<float>"}, P29_PER_STEP,
         "sentiment scanned epoch")
     foreign = [n for n in prof["counts"] if any(f in n for f in P27_FOREIGN)
@@ -8107,7 +8145,8 @@ def p29_sentiment(dev, card):
     groups = {"recurrence kernels": 0.0, "noise kernel": 0.0,
               "GEMMs": 0.0, "Adam and elementwise": 0.0, "other": 0.0}
     for name, ms in prof["by_name"].items():
-        if "rnn_fwd_kernel" in name or "rnn_bwd_kernel" in name:
+        if "_recurrence_fwd_kernel" in name or \
+                "_recurrence_bwd_kernel" in name or "_stream_" in name:
             groups["recurrence kernels"] += ms
         elif "noise_kernel" in name:
             groups["noise kernel"] += ms
@@ -8241,8 +8280,8 @@ def p29_tbptt(dev, card):
     prof, in_chunk = _p29_profile(
         lambda: net.fit_tbptt(X, Y, P29_TBPTT, epochs=1,
                               batch_size=P29_TB), chunks,
-        {"simple_recurrence_fwd": "rnn_fwd_kernel<float, 2",
-         "simple_recurrence_bwd": "rnn_bwd_kernel<float, 2"},
+        {"simple_recurrence_fwd": "simple_recurrence_fwd_kernel<float",
+         "simple_recurrence_bwd": "simple_recurrence_bwd_kernel<float"},
         {"simple_recurrence_fwd": 1, "simple_recurrence_bwd": 1},
         "TBPTT epoch")
     ms = float(np.median(timed))
@@ -8588,12 +8627,13 @@ def main():
                   ex.submit(paged_attention._lib),
                   ex.submit(attention_f32._lib),
                   ex.submit(int8_matmul._lib), ex.submit(lstm._lib),
-                  ex.submit(dropout._lib), ex.submit(recurrence._lib)]:
+                  ex.submit(dropout._lib)]:
             f.result()
+    recurrence._lib()      # the LSTM's library: the engine's other cells
     log(f"  CUDA C++ libraries ready in {time.perf_counter() - t0:.1f} s")
     for lib in (bn_relu._PHASE1_LIB, attention._LIB, paged_attention._LIB,
                 attention_f32._LIB, int8_matmul._LIB, lstm._LIB,
-                dropout._LIB, recurrence._LIB):
+                dropout._LIB):
         build = _cuda.BUILDS.get(lib)
         log(f"  csrc/{lib}.cu: " + (f"built in {build['seconds']:.1f} s"
                                      if build else "already built"))

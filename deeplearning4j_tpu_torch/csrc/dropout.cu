@@ -52,11 +52,27 @@
 // n(i) is a standard normal by Box-Muller from the group's four words:
 // words 0 and 1 give elements 4g and 4g + 1 (rho cos, rho sin), words 2 and 3
 // elements 4g + 2 and 4g + 3, with rho = sqrt(-2 log u1), u1 = ((w >> 8) + 1)
-// / 2^24 in (0, 1] and the angle 2 pi u2, u2 = (w' >> 8) / 2^24, computed
-// in double and rounded to the compute type; each product and sum is
-// rounded on its own (no contraction into an FMA), as the plain version's
-// separate tensor ops round. Each backward draws again from the same key
-// and counter; nothing is stored.
+// / 2^24 in (0, 1] and the angle 2 pi u2, u2 = (w' >> 8) / 2^24; rho and
+// the angle's sine and cosine are computed once a pair. For bf16 and
+// float32 outputs in float: u1, u2 and 2 u2 are exact, logf and
+// sincospif(2 u2) (the sine and cosine of pi times an exact argument, so
+// the angle itself is not rounded) are CUDA's precise functions, each
+// within 1 ulp, sqrtf is correctly rounded; for float64 outputs in double
+// (log, sqrt, and sin and cos of the rounded angle 2 pi u2). Each product
+// and sum is rounded on its own (no contraction into an FMA), as the plain
+// version's separate tensor ops round. kernels/dropout.py
+// `normals_plain` computes the float normals with torch's float32 log and
+// sqrt and the float64 sine and cosine of 2 pi u2 rounded once; a normal
+// of this kernel and of the plain version differ by at most 2^-20 of its
+// magnitude (8 float32 ulp of 1: each log within 1 ulp, sincospif within
+// 1, the float64 values rounded within half, and the roundings of sqrt
+// and of the product). Each backward draws again from the same key and
+// counter; nothing is stored.
+//
+// What bounds the noise draws: bytes, as the dropout's; a group of four
+// elements moves as one 16-byte load and store where x and y are 16-byte
+// aligned (two for float64, one 8-byte pair for bf16), and its two pairs
+// of normals cost two logf, two sqrtf and two sincospif.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -212,15 +228,79 @@ __device__ __forceinline__ uint4 draw(uint64_t g, uint64_t it, uint2 key) {
                        key);
 }
 
-// element j (0..3) of the group's four normals
-__device__ __forceinline__ double normal(const uint4& r, int j) {
-  const uint32_t w1 = j < 2 ? r.x : r.z, w2 = j < 2 ? r.y : r.w;
-  const double u1 = static_cast<double>((w1 >> 8) + 1u) * 5.9604644775390625e-08;
-  const double u2 = static_cast<double>(w2 >> 8) * 5.9604644775390625e-08;
-  const double rho = sqrt(-2.0 * log(u1));
-  const double ang = 6.283185307179586 * u2;
-  return (j & 1) ? __dmul_rn(rho, sin(ang)) : __dmul_rn(rho, cos(ang));
+// The group's four normals in the compute type: pair k (words 2k, 2k + 1)
+// gives elements 2k, 2k + 1 as rho cos, rho sin, rho and the angle once a
+// pair (the header has the functions and their bounds).
+__device__ __forceinline__ void normals(const uint4& r, float (&out)[4]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float u1 = __fmul_rn(static_cast<float>((w[2 * k] >> 8) + 1u), 5.9604644775390625e-08f);
+    const float u2 = __fmul_rn(static_cast<float>(w[2 * k + 1] >> 8), 5.9604644775390625e-08f);
+    const float rho = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+    float sn, cs;
+    sincospif(__fmul_rn(2.0f, u2), &sn, &cs);
+    out[2 * k] = __fmul_rn(rho, cs);
+    out[2 * k + 1] = __fmul_rn(rho, sn);
+  }
 }
+__device__ __forceinline__ void normals(const uint4& r, double (&out)[4]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const double u1 = static_cast<double>((w[2 * k] >> 8) + 1u) * 5.9604644775390625e-08;
+    const double u2 = static_cast<double>(w[2 * k + 1] >> 8) * 5.9604644775390625e-08;
+    const double rho = sqrt(-2.0 * log(u1));
+    const double ang = 6.283185307179586 * u2;
+    out[2 * k] = __dmul_rn(rho, cos(ang));
+    out[2 * k + 1] = __dmul_rn(rho, sin(ang));
+  }
+}
+
+// Four consecutive elements in the compute type, one 16-byte (bf16:
+// 8-byte) load or store.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  static __device__ __forceinline__ void load(const float* x, float (&v)[4]) {
+    const float4 a = *reinterpret_cast<const float4*>(x);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+  static __device__ __forceinline__ void store(float* y, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec4<double> {
+  static __device__ __forceinline__ void load(const double* x, double (&v)[4]) {
+    const double2 a = *reinterpret_cast<const double2*>(x);
+    const double2 b = *reinterpret_cast<const double2*>(x + 2);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
+  static __device__ __forceinline__ void store(double* y, const double (&v)[4]) {
+    *reinterpret_cast<double2*>(y) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(y + 2) = make_double2(v[2], v[3]);
+  }
+};
+template <> struct Vec4<__nv_bfloat16> {
+  union U { uint2 u; __nv_bfloat16 h[4]; };
+  static __device__ __forceinline__ void load(const __nv_bfloat16* x, float (&v)[4]) {
+    U in;
+    in.u = *reinterpret_cast<const uint2*>(x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(in.h[j]);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* y, const float (&v)[4]) {
+    U out;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out.h[j] = __float2bfloat16_rn(v[j]);
+    *reinterpret_cast<uint2*>(y) = out.u;
+  }
+};
 
 __device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_(double a, double b) { return __dmul_rn(a, b); }
@@ -232,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
 noise_kernel(int kind, const T* __restrict__ x, T* __restrict__ y, int64_t n,
              const int64_t* __restrict__ seed, const int64_t* __restrict__ iteration,
              uint32_t node, uint32_t threshold, double p0, double p1, double p2,
-             int64_t per_batch, int64_t channels, int64_t inner) {
+             int64_t per_batch, int64_t channels, int64_t inner, bool aligned) {
   using C = typename Elem<T>::C;
   const uint64_t s = static_cast<uint64_t>(*seed);
   const uint64_t it = static_cast<uint64_t>(*iteration);
@@ -254,23 +334,37 @@ noise_kernel(int kind, const T* __restrict__ x, T* __restrict__ y, int64_t n,
   const int64_t groups = (n + 3) / 4;
   for (int64_t g = start; g < groups; g += stride) {
     const uint4 r = draw(static_cast<uint64_t>(g), it, key);
-    const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+    const int64_t i = 4 * g;
+    const bool full = aligned && i + 4 <= n;
+    C v[4], out[4];
+    if (full) {
+      Vec4<T>::load(x + i, v);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t i = 4 * g + j;
-      if (i >= n) break;
-      const C v = Elem<T>::load(x[i]);
-      C out;
-      if (kind == kGaussNoise) {
-        out = add_(v, mul_(c0, static_cast<C>(normal(r, j))));
-      } else if (kind == kGaussDropout) {
-        out = mul_(v, add_(C(1), mul_(c0, static_cast<C>(normal(r, j)))));
-      } else {
+      for (int j = 0; j < 4; ++j) v[j] = i + j < n ? Elem<T>::load(x[i + j]) : C(0);
+    }
+    if (kind == kGaussNoise || kind == kGaussDropout) {
+      C nrm[4];
+      normals(r, nrm);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[j] = kind == kGaussNoise ? add_(v[j], mul_(c0, nrm[j]))
+                                     : mul_(v[j], add_(C(1), mul_(c0, nrm[j])));
+    } else {
+      const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
         const bool keep = (words[j] >> 8) < threshold;
-        if (kind == kAlphaFwd) out = add_(mul_(c0, keep ? v : c2), c1);
-        else out = keep ? mul_(c0, v) : C(0);
+        if (kind == kAlphaFwd) out[j] = add_(mul_(c0, keep ? v[j] : c2), c1);
+        else out[j] = keep ? mul_(c0, v[j]) : C(0);
       }
-      y[i] = Elem<T>::store(out);
+    }
+    if (full) {
+      Vec4<T>::store(y + i, out);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i + j < n) y[i + j] = Elem<T>::store(out[j]);
     }
   }
 }
@@ -283,10 +377,12 @@ cudaError_t launch_noise(int kind, const void* x, void* y, int64_t n, const void
   const int64_t items = kind == kSpatial ? n : (n + 3) / 4;
   int64_t blocks = (items + kThreads - 1) / kThreads;
   if (blocks > (1 << 16)) blocks = 1 << 16;   // the loop covers the rest
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(y) % 16 == 0);
   noise_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       kind, static_cast<const T*>(x), static_cast<T*>(y), n, static_cast<const int64_t*>(seed),
       static_cast<const int64_t*>(iteration), node, threshold, p0, p1, p2, per_batch, channels,
-      inner);
+      inner, aligned);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) primitives the port's CUDA kernels share: shared-memory
 // addresses, mbarriers, bulk copies, wgmma descriptors, bf16 wgmma, the
 // cut of a float32 value into bf16 pieces, 3xTF32 on mma.sync, and what the
-// cluster recurrence kernels (lstm_recurrence.cu, rnn_recurrence.cu) share:
-// their cells' math in float and double, the cluster's rank and barrier,
-// and on the host a cluster launch and its kernel attributes. Each kernel
+// cluster recurrence engine (lstm_recurrence.cu) takes from here: its
+// cells' math in float and double, the cluster's rank and barrier, and on
+// the host a cluster launch and its kernel attributes. Each kernel
 // source includes it (kernels/_cuda.py builds with this directory on the
 // include path and hashes this header into every library's build key).
 #pragma once

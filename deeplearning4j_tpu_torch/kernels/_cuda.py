@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -35,6 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: one lock a library name: two wrappers of one library (the recurrence
+#: engine's) may load it from two threads at once, and build it once
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 #: name -> {"seconds": build time, "log": nvcc's output}, for the builds
 #: this process ran
 BUILDS: Dict[str, dict] = {}
@@ -134,10 +139,15 @@ def load(name: str) -> ctypes.CDLL:
     source has not been built yet."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = library_path(name)
-        if not os.path.exists(path):
-            _build(name, path)
-        lib = _LIBS[name] = ctypes.CDLL(path)
+        with _LOCKS_GUARD:
+            lock = _LOCKS.setdefault(name, threading.Lock())
+        with lock:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not os.path.exists(path):
+                    _build(name, path)
+                lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
 
 

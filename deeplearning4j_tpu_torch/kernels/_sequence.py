@@ -1,9 +1,13 @@
 """What the cluster recurrence kernels' wrappers share: ``kernels/lstm.py``
-(``csrc/lstm_recurrence.cu``, the LSTM) and ``kernels/recurrence.py``
-(``csrc/rnn_recurrence.cu``, the GRU, peephole LSTM and simple RNN).
+(the LSTM) and ``kernels/recurrence.py`` (the GRU, peephole LSTM and
+simple RNN), whose kernels are the instantiations of one engine,
+``csrc/lstm_recurrence.cu``, over the cell.
 
 - the dtypes the kernels take, the cluster's split of the units over its
   blocks and a block's shared memory on Hopper;
+- the launch plan: the engine's shared memory a block for each cell
+  (:func:`recurrence_geometry`, the C side's ``RecGeo``), resident or
+  streamed, and the batch rows a cluster (:func:`plan`);
 - the libraries' loading, the tensor checks and the card's occupancy;
 - :class:`Sequence`, the one ``torch.autograd.Function`` over a whole
   sequence that every cell runs through: one GEMM for every timestep's
@@ -42,6 +46,111 @@ def split_units(u: int) -> Tuple[int, int]:
     ranks = min(MAX_RANKS, max(1, -(-u // 16)))
     units = -(-u // ranks)
     return -(-u // units), units
+
+
+#: each cell's shape in the engine (``csrc/lstm_recurrence.cu``
+#: ``Traits``): gate columns a unit (G), units a group (UG), the backward's
+#: stage planes (NI), the forward's output planes (NO), a forward state
+#: plane, a backward carried plane, parameter rows kept in shared memory
+#: forward and backward, a dz tile beside dzh
+CELL_SHAPES: Dict[str, Tuple[int, ...]] = {
+    "lstm": (4, 8, 7, 6, 1, 1, 0, 0, 0),
+    "graves": (4, 8, 7, 6, 1, 1, 3, 3, 0),
+    "gru": (3, 16, 6, 5, 0, 1, 3, 0, 1),
+    "simple": (1, 16, 3, 2, 0, 0, 0, 0, 0)}
+#: the kernels' warps a block
+WARPS = 8
+
+
+def recurrence_geometry(cell: str, u: int, ranks: int, n_tiles: int,
+                        resident: bool, itemsize: int) -> Tuple[int, int]:
+    """(forward, backward) shared memory of a block in bytes of the
+    engine's ``cell`` kernels: the resident form's ``RecGeo`` for ``u``
+    units over ``ranks`` blocks and ``n_tiles`` tiles of 8 batch rows (the
+    ``W_hh`` slice, the h tiles, the partial products, the stages and the
+    state planes), or the streamed form's partial products (a warp's MT
+    m16n8 tiles forward, one backward). A group is UG units and their G UG
+    gate columns, MT = G UG / 16 tiles of the product's 16 rows."""
+    g, ug, ni, no, state, carry, pf, pb, x = CELL_SHAPES[cell]
+    mt = g * ug // 16
+    if not resident:
+        return WARPS * mt * 4 * 32 * itemsize, WARPS * 4 * 32 * itemsize
+    nu = -(-u // ranks)
+    ng = -(-nu // ug)
+    nc, up, bt = g * ug * ng, -(-u // 16) * 16, 8 * n_tiles
+    ldw, ldh, ldg, ldz = nc + 8, up + 4, ug * ng + 4, nc + 4
+    kt = up // 8
+    ksplit = min(1 if ng >= WARPS else WARPS // ng, kt)
+    items = ng * ksplit
+    # float32: the slice in mma fragment order; float64: rows of ldw
+    w = up * (nc if itemsize == 4 else ldw)
+    fwd = (w + 2 * bt * ldh + items * mt * 4 * n_tiles * 32
+           + (2 * g + state + no) * bt * ldg + pf * ldg)
+    bwd = (w + 2 * ranks * bt * ldg + (1 + x) * bt * ldz
+           + (2 * ni + carry) * bt * ldg + pb * ldg)
+    return fwd * itemsize, bwd * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernels split a recurrence of ``b`` rows and ``u`` units."""
+    ranks: int          # blocks a cluster (R)
+    units: int          # units a block: block k owns [k units, (k+1) units)
+    n_tiles: int        # a cluster's batch rows in tiles of 8
+    clusters: int       # clusters a launch, each its own rows
+    resident: bool      # the W_hh slice in shared memory (else streamed)
+    smem_fwd: int       # bytes a block
+    smem_bwd: int
+    max_clusters: Optional[int]   # the card's at once (None: not asked)
+
+    @property
+    def b_tile(self) -> int:
+        return 8 * self.n_tiles
+
+    def block_units(self, u: int):
+        """Each block's units, a range a block."""
+        return [range(k * self.units, min(u, (k + 1) * self.units))
+                for k in range(self.ranks)]
+
+    def cluster_rows(self, b: int):
+        """Each cluster's batch rows, a range a cluster."""
+        return [range(c * self.b_tile, min(b, (c + 1) * self.b_tile))
+                for c in range(self.clusters)]
+
+
+def plan(cell: str, b: int, u: int, itemsize: int, tiles: Tuple[int, ...],
+         occupancy: Optional[Callable[[int, int, bool], int]] = None
+         ) -> Plan:
+    """The plan for a ``cell`` recurrence of ``b`` batch rows and ``u``
+    units of ``itemsize`` bytes.
+
+    R and the units a block: :func:`split_units`. The ``W_hh`` slice is
+    resident where both directions fit :data:`SMEM_LIMIT` with it at one
+    batch tile, else the streamed form (8 rows a cluster) takes any width.
+    The resident batch tile, of ``tiles``: the fewest rows a cluster (the
+    shortest step) for which the launch's clusters all fit on the card at
+    once, ``occupancy(ranks, n_tiles, resident)`` clusters (the card's
+    calculator; None: no limit); else the tile with the fewest waves."""
+    ranks, units = split_units(u)
+
+    def fits(nt, res):
+        return max(recurrence_geometry(cell, u, ranks, nt, res, itemsize)) \
+            <= SMEM_LIMIT
+
+    resident = fits(1, True)
+    cands = [nt for nt in tiles if fits(nt, True)] if resident else [1]
+    clusters = {nt: -(-b // (8 * nt)) for nt in cands}
+    limit = {nt: occupancy(ranks, nt, resident) if occupancy else None
+             for nt in cands}
+    ok = [nt for nt in cands if limit[nt] is None or clusters[nt] <= limit[nt]]
+    if ok:
+        nt = ok[0]
+    else:
+        nt = min(cands, key=lambda t: (-(-clusters[t] // max(1, limit[t])),
+                                       t))
+    fwd, bwd = recurrence_geometry(cell, u, ranks, nt, resident, itemsize)
+    return Plan(ranks, units, nt, clusters[nt], resident, fwd, bwd,
+                limit[nt])
 
 
 def load(lib: str, argtypes) -> ctypes.CDLL:

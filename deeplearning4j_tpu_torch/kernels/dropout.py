@@ -45,12 +45,14 @@ backward is the same function of ``dy``; ``alpha_dropout`` ``a where(keep,
 x, alpha') + b``, whose backward is ``where(keep, a dy, 0)``; and
 ``spatial_dropout``, one keep a (batch, channel), drawn at index ``batch *
 C + channel``. ``n`` is a standard normal by Box-Muller from the group's
-words (:func:`normals_plain`), computed in float64 and rounded to the
-compute dtype; every product and sum is rounded on its own. Each backward
-draws again. :func:`noise_plain` is their plain version: its Bernoulli
-masks are the kernel's bit for bit, its normals within a few ulp of the
-float64 transcendental functions (the CPU's and the card's ``log``,
-``cos`` and ``sin`` may round differently). Launches count under
+words (:func:`normals_plain`), computed once a pair of normals in float32
+for bf16 and float32 outputs and in float64 for float64 ones; every
+product and sum is rounded on its own. Each backward draws again.
+:func:`noise_plain` is their plain version: its Bernoulli masks are the
+kernel's bit for bit, its float32 normals within 2^-20 of their magnitude
+of the kernel's (:data:`NORMAL_KERNEL_REL`: the CPU's and the card's
+``logf`` and the card's ``sincospif`` may round a last bit apart), its
+float64 normals within a few ulp. Launches count under
 ``gaussian_noise_fwd``, ``gaussian_dropout_fwd``/``_bwd``,
 ``alpha_dropout_fwd``/``_bwd`` and ``spatial_dropout_fwd``/``_bwd``.
 """
@@ -166,22 +168,67 @@ def keep_mask_plain(n: int, seed, iteration, node: int, p: float,
         < keep_threshold(p)
 
 
-def normals_plain(n: int, seed, iteration, node: int,
-                  device=None) -> torch.Tensor:
-    """The kernel's standard normals for ``n`` elements, float64: group
-    g's words (w0, w1) give elements 4g, 4g + 1 as ``rho cos``, ``rho
-    sin`` of the angle ``2 pi u2``, ``rho = sqrt(-2 log u1)``, ``u1 = ((w0
-    >> 8) + 1) / 2^24``, ``u2 = (w1 >> 8) / 2^24``; (w2, w3) elements 4g +
-    2, 4g + 3."""
+#: the largest relative difference between a normal of the noise kernel
+#: and of :func:`normals_plain` in float32 (8 float32 ulp of 1), and
+#: between :func:`normals_plain`'s float32 normal and the Box-Muller
+#: formula evaluated in float64 (4 ulp of 1); ``csrc/dropout.cu`` has the
+#: arithmetic behind both
+NORMAL_KERNEL_REL = 2.0 ** -20
+NORMAL_PLAIN_REL = 2.0 ** -21
+
+
+def normals_plain(n: int, seed, iteration, node: int, device=None,
+                  dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """The kernel's standard normals for ``n`` elements in ``dtype``
+    (float64, or float32: the kernel's for bf16 and float32 outputs):
+    group g's words (w0, w1) give elements 4g, 4g + 1 as ``rho cos``,
+    ``rho sin`` of the angle ``2 pi u2``, ``rho = sqrt(-2 log u1)``, ``u1 =
+    ((w0 >> 8) + 1) / 2^24``, ``u2 = (w1 >> 8) / 2^24``; (w2, w3)
+    elements 4g + 2, 4g + 3.
+
+    float64: log, sqrt, cos and sin in float64 (the kernel's double
+    path). float32: u1 and u2 exact, torch's float32 log and sqrt, the
+    cosine and sine of ``2 pi u2`` in float64 (:func:`sincospi_plain`)
+    rounded once to float32 (the kernel's ``sincospif(2 u2)``, whose
+    argument is exact), each product rounded in float32. Bounds (relative to the normal's magnitude): within
+    :data:`NORMAL_PLAIN_REL` (2^-21, 4 float32 ulp of 1) of the formula in
+    float64, and within :data:`NORMAL_KERNEL_REL` (2^-20, 8 ulp) of the
+    kernel's float normal: each log within 1 ulp (the CPU's and CUDA's
+    ``logf``), ``sincospif`` within 1, the rounded float64 values within
+    half, and the roundings of sqrt and the product."""
     groups = (n + 3) // 4
     w = words_plain(4 * groups, seed, iteration, node, device).view(-1, 4)
     scale = 2.0 ** -24
-    u1 = ((w[:, 0::2] >> 8) + 1).double() * scale      # (groups, 2)
-    u2 = (w[:, 1::2] >> 8).double() * scale
-    rho = torch.sqrt(-2.0 * torch.log(u1))
-    ang = 6.283185307179586 * u2
-    out = torch.stack([rho * torch.cos(ang), rho * torch.sin(ang)], dim=2)
+    if dtype == torch.float64:
+        u1 = ((w[:, 0::2] >> 8) + 1).double() * scale      # (groups, 2)
+        u2 = (w[:, 1::2] >> 8).double() * scale
+        rho = torch.sqrt(-2.0 * torch.log(u1))
+        ang = 6.283185307179586 * u2
+        out = torch.stack([rho * torch.cos(ang), rho * torch.sin(ang)],
+                          dim=2)
+    else:
+        u1 = ((w[:, 0::2] >> 8) + 1).float() * scale       # exact
+        u2 = (w[:, 1::2] >> 8).float() * scale
+        rho = torch.sqrt(-2.0 * torch.log(u1))
+        sn, cs = sincospi_plain((2 * u2).double())
+        out = torch.stack([rho * cs.float(), rho * sn.float()], dim=2)
     return out.reshape(-1)[:n]
+
+
+def sincospi_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sin(pi x), cos(pi x))`` in float64 for float64 ``x``, reduced by
+    quarter turns first, as CUDA's ``sincospif``: ``x = k / 2 + r`` with
+    ``|r| <= 1/4`` exact, so a multiple of 1/2 gives exact zeros and ones
+    (``sin(pi * x)`` in float64 would not: pi is rounded)."""
+    k = torch.round(2 * x)
+    r = x - k / 2
+    s, c = torch.sin(math.pi * r), torch.cos(math.pi * r)
+    q = torch.remainder(k, 4)
+    sn = torch.where(q == 0, s, torch.where(q == 1, c, torch.where(
+        q == 2, -s, -c)))
+    cs = torch.where(q == 0, c, torch.where(q == 1, -s, torch.where(
+        q == 2, -c, s)))
+    return sn, cs
 
 
 def _compute(x: torch.Tensor) -> torch.dtype:
@@ -203,13 +250,17 @@ def noise_plain(kind: str, x: torch.Tensor, seed, iteration, node: int,
                 channel_axis: int = -1) -> torch.Tensor:
     """The noise kernel's output, in x's dtype: ``kind`` one of
     :data:`NOISE_KINDS` (``p`` the retain probability of the Bernoulli
-    kinds, ``stddev`` the Gaussian kinds' s)."""
+    kinds, ``stddev`` the Gaussian kinds' s). The Bernoulli kinds are the
+    kernel's bit for bit; the Gaussian kinds draw :func:`normals_plain` in
+    the compute dtype (float32 for bf16 and float32 x), each normal within
+    :data:`NORMAL_KERNEL_REL` (2^-20, 8 float32 ulp) of its magnitude of
+    the kernel's."""
     cdt = _compute(x)
     v = x.to(cdt)
     dev = x.device
     if kind in ("gaussian_noise", "gaussian_dropout"):
-        nrm = normals_plain(x.numel(), seed, iteration, node, dev).to(
-            cdt).reshape(x.shape)
+        nrm = normals_plain(x.numel(), seed, iteration, node, dev,
+                            cdt).reshape(x.shape)
         s = torch.tensor(stddev, dtype=cdt, device=dev)
         out = v + s * nrm if kind == "gaussian_noise" else v * (1 + s * nrm)
     elif kind == "spatial_dropout":

@@ -39,7 +39,6 @@ refused by name (ROADMAP queue 2b item 11).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 import logging
 from typing import Callable, Dict, Optional, Tuple
@@ -87,11 +86,11 @@ def _lib() -> ctypes.CDLL:
 
 # ----------------------------------------------------------------------
 # the launch plan (the C side's work split and shared memory, in Python)
-#: the kernels' warps a block
-WARPS = 8
 #: a resident cluster's batch rows are this many tiles of 8, in the order
 #: tried (the streamed form takes one)
 N_TILES = (1, 2, 4)
+#: how the kernels split an LSTM (``_sequence.Plan``)
+Plan = _sequence.Plan
 
 
 def recurrence_geometry(u: int, ranks: int, n_tiles: int, resident: bool,
@@ -100,83 +99,27 @@ def recurrence_geometry(u: int, ranks: int, n_tiles: int, resident: bool,
     (``csrc/lstm_recurrence.cu``): the resident form's ``RecGeo`` for
     ``u`` units over ``ranks`` blocks and ``n_tiles`` tiles of 8 batch
     rows, or the streamed form's partial products (a warp's m32n8
-    forward, m16n8 backward)."""
-    if not resident:
-        return WARPS * 8 * 32 * itemsize, WARPS * 4 * 32 * itemsize
-    nu = -(-u // ranks)
-    ng = -(-nu // 8)
-    nc, up, bt = 32 * ng, -(-u // 16) * 16, 8 * n_tiles
-    ldw, ldh, ldg, ldz = nc + 8, up + 4, 8 * ng + 4, nc + 4
-    kt = up // 8
-    ksplit = min(1 if ng >= WARPS else WARPS // ng, kt)
-    items = ng * ksplit
-    # float32: the slice in mma fragment order; float64: rows of ldw
-    w = up * (nc if itemsize == 4 else ldw)
-    fwd = w + 2 * bt * ldh + items * 8 * n_tiles * 32 + 15 * bt * ldg
-    bwd = w + 2 * ranks * bt * ldg + bt * ldz + 15 * bt * ldg
-    return fwd * itemsize, bwd * itemsize
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """How the kernels split an LSTM of ``b`` rows and ``u`` units."""
-    ranks: int          # blocks a cluster (R)
-    units: int          # units a block: block k owns [k units, (k+1) units)
-    n_tiles: int        # a cluster's batch rows in tiles of 8
-    clusters: int       # clusters a launch, each its own rows
-    resident: bool      # the W_hh slice in shared memory (else streamed)
-    smem_fwd: int       # bytes a block
-    smem_bwd: int
-    max_clusters: Optional[int]   # the card's at once (None: not asked)
-
-    @property
-    def b_tile(self) -> int:
-        return 8 * self.n_tiles
-
-    def block_units(self, u: int):
-        """Each block's units, a range a block."""
-        return [range(k * self.units, min(u, (k + 1) * self.units))
-                for k in range(self.ranks)]
-
-    def cluster_rows(self, b: int):
-        """Each cluster's batch rows, a range a cluster."""
-        return [range(c * self.b_tile, min(b, (c + 1) * self.b_tile))
-                for c in range(self.clusters)]
+    forward, m16n8 backward); ``_sequence.recurrence_geometry`` of the
+    LSTM cell."""
+    return _sequence.recurrence_geometry("lstm", u, ranks, n_tiles,
+                                         resident, itemsize)
 
 
 def recurrence_plan(b: int, u: int, itemsize: int,
                     occupancy: Optional[Callable[[int, int, bool], int]]
                     = None) -> Plan:
-    """The plan for ``b`` batch rows of ``u`` units of ``itemsize`` bytes.
-
-    R and the units a block: ``_sequence.split_units``. The ``W_hh``
-    slice is resident where both directions fit :data:`SMEM_LIMIT` with
-    it, else the streamed form (8 rows a cluster) takes any width. The
-    resident batch tile: the fewest rows a cluster (the shortest step) for
-    which the launch's clusters all fit on the card at once,
-    ``occupancy(ranks, n_tiles, resident)`` clusters (the card's
-    calculator; None: no limit); else the tile with the fewest waves."""
+    """The plan for ``b`` batch rows of ``u`` units of ``itemsize`` bytes
+    (``_sequence.plan`` over :data:`N_TILES`): R and the units a block
+    ``_sequence.split_units``; the ``W_hh`` slice resident where both
+    directions fit :data:`SMEM_LIMIT` with it, else the streamed form (8
+    rows a cluster) at any width; the resident batch tile the fewest rows
+    a cluster (the shortest step) for which the launch's clusters all fit
+    on the card at once, ``occupancy(ranks, n_tiles, resident)`` clusters
+    (the card's calculator; None: no limit), else the tile with the
+    fewest waves."""
     if b < 1 or u < 1:
         raise ValueError(f"an LSTM of {b} rows and {u} units")
-    ranks, units = _sequence.split_units(u)
-
-    def fits(nt, res):
-        return max(recurrence_geometry(u, ranks, nt, res, itemsize)) \
-            <= SMEM_LIMIT
-
-    resident = fits(1, True)
-    tiles = [nt for nt in N_TILES if fits(nt, True)] if resident else [1]
-    clusters = {nt: -(-b // (8 * nt)) for nt in tiles}
-    limit = {nt: occupancy(ranks, nt, resident) if occupancy else None
-             for nt in tiles}
-    ok = [nt for nt in tiles if limit[nt] is None or clusters[nt] <= limit[nt]]
-    if ok:
-        nt = ok[0]
-    else:
-        nt = min(tiles, key=lambda t: (-(-clusters[t] // max(1, limit[t])),
-                                       t))
-    fwd, bwd = recurrence_geometry(u, ranks, nt, resident, itemsize)
-    return Plan(ranks, units, nt, clusters[nt], resident, fwd, bwd, limit[nt])
+    return _sequence.plan("lstm", b, u, itemsize, N_TILES, occupancy)
 
 
 def query(u: int, ranks: int, n_tiles: int, resident: bool,

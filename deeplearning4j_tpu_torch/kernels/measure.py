@@ -129,7 +129,8 @@ def lstm_recurrence_case(b: int, t: int, u: int, dtype, dev, seed: int = 0):
 def rnn_recurrence_cost(cell: str, b: int, t: int, u: int, itemsize: int
                         ) -> Dict[str, Tuple[int, int]]:
     """(operations, bytes) each recurrence kernel of
-    ``csrc/rnn_recurrence.cu`` must spend on ``b`` rows of ``u`` units over
+    ``csrc/lstm_recurrence.cu``'s GRU, Graves and simple RNN cells must
+    spend on ``b`` rows of ``u`` units over
     ``t`` steps, G gate columns a unit (GRU 3, Graves 4, simple 1). The
     forward reads W_hh [u, Gu] once, gx [t, b, Gu] and h0 (Graves c0,
     the peepholes; GRU b_hh) and writes the saved values [t, b, Gu] and hs

@@ -25,14 +25,18 @@ each cell through ``kernels/_sequence.py``'s ``Sequence``, the one
   ``dW_ih``, ``dW_hh``, the biases' and the peepholes' gradients as GEMMs
   and sums over all timesteps.
 
-On the card both are ``csrc/rnn_recurrence.cu`` (built by
-``kernels/_cuda.py``): a thread-block cluster of up to 16 blocks a tile of
-8 batch rows, each block keeping its share of ``W_hh`` in shared memory
-for the whole sequence (the resident form) or reading it from L2 each step
-(the streamed form, any width), one cluster barrier a step. Each launch is
-counted in :data:`LAUNCHES`; :func:`recurrence_plan` picks the cluster's
-blocks and the form. The launches go on torch's current stream with no
-host sync and no allocation, so the fit tiers capture them.
+On the card both are instantiations of the LSTM's cluster engine,
+``csrc/lstm_recurrence.cu`` (built by ``kernels/_cuda.py``; its C entries
+``dl4j_rnn_recurrence_*``): a thread-block cluster of up to 16 blocks a
+tile of 8 or 16 batch rows, each block keeping its share of ``W_hh`` in
+shared memory for the whole sequence (the resident form) or reading it
+from L2 each step (the streamed form, any width), the step's product
+3xTF32 on the tensor cores with the cell run on its accumulators, ``h``
+(the backward's partial ``dh``) pushed through distributed shared memory,
+one cluster barrier a step. Each launch is counted in :data:`LAUNCHES`;
+:func:`recurrence_plan` picks the cluster's blocks, its batch rows and
+the form. The launches go on torch's current stream with no host sync and
+no allocation, so the fit tiers capture them.
 :func:`recurrence_fwd_plain` / :func:`recurrence_bwd_plain` are the same
 recurrences in PyTorch (a loop of ``addmm`` and the plain cells): the
 wrappers take them for CPU tensors only; on a CUDA tensor they launch the
@@ -45,7 +49,6 @@ item 11). The simple RNN's kernel takes the activations of
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 import logging
 from typing import Callable, Dict, Optional, Tuple
@@ -71,7 +74,8 @@ LAUNCHES: Dict[str, int] = {f"{c}_recurrence_{d}": 0 for c in CELLS
                             for d in ("fwd", "bwd")}
 _cuda.register_counters(LAUNCHES)
 
-_LIB = "rnn_recurrence"
+#: the engine's library (``csrc/lstm_recurrence.cu``, the LSTM's too)
+_LIB = "lstm_recurrence"
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SPLIT = [("R", _I), ("resident", _I), ("act", _I), ("dtype", _I)]
 ARGTYPES = {
@@ -118,70 +122,53 @@ def activation_code(name: str) -> int:
 
 # ----------------------------------------------------------------------
 # the launch plan (the C side's work split and shared memory, in Python)
-#: threads a block; batch rows a cluster
-THREADS, ROWS = 256, 8
+#: a resident cluster's batch rows are this many tiles of 8, in the order
+#: tried (the streamed form takes one)
+N_TILES = (1, 2)
+#: how the kernels split a recurrence (``_sequence.Plan``)
+Plan = _sequence.Plan
 
 
-def recurrence_geometry(cell: str, u: int, ranks: int, resident: bool,
-                        itemsize: int) -> Tuple[int, int]:
+def recurrence_geometry(cell: str, u: int, ranks: int, n_tiles: int,
+                        resident: bool, itemsize: int) -> Tuple[int, int]:
     """(forward, backward) shared memory of a block in bytes
-    (``csrc/rnn_recurrence.cu`` ``Geo``): the partial sums, and in the
-    resident form the block's slice of ``W_hh`` and the staged vector."""
-    g = GATES[cell]
-    nu = -(-u // ranks)
-    fcols = g * nu
-    fsplit = 1 if fcols >= THREADS else THREADS // fcols
-    bsplit = 1 if nu >= THREADS else THREADS // nu
-    fwd = fsplit * fcols * ROWS
-    bwd = bsplit * nu * ROWS
-    if resident:
-        fwd += u * fcols + ROWS * u
-        bwd += nu * (g * u + 1) + ROWS * g * u
-    return fwd * itemsize, bwd * itemsize
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """How the kernels split a recurrence of ``b`` rows and ``u`` units."""
-    ranks: int          # blocks a cluster (R)
-    units: int          # units a block: block k owns [k units, (k+1) units)
-    clusters: int       # clusters a launch, 8 batch rows each
-    resident: bool      # the W_hh slices in shared memory (else streamed)
-    smem_fwd: int       # bytes a block
-    smem_bwd: int
-    max_clusters: Optional[int]   # the card's at once (None: not asked)
+    (``csrc/lstm_recurrence.cu`` ``RecGeo`` of the cell;
+    ``_sequence.recurrence_geometry``)."""
+    return _sequence.recurrence_geometry(cell, u, ranks, n_tiles, resident,
+                                         itemsize)
 
 
 def recurrence_plan(cell: str, b: int, u: int, itemsize: int,
-                    occupancy: Optional[Callable[[int, bool], int]] = None
-                    ) -> Plan:
+                    occupancy: Optional[Callable[[int, int, bool], int]]
+                    = None) -> Plan:
     """The plan for a ``cell`` recurrence of ``b`` batch rows and ``u``
-    units of ``itemsize`` bytes: R and the units a block
-    ``_sequence.split_units``; resident where both
-    directions' shared memory fits :data:`SMEM_LIMIT`, else streamed.
-    ``occupancy(ranks, resident)`` is the card's clusters at once (only
-    logged: clusters past it wait for a free place, which holds no barrier
-    of theirs)."""
+    units of ``itemsize`` bytes (``_sequence.plan`` over
+    :data:`N_TILES`): R and the units a block ``_sequence.split_units``;
+    resident where both directions' shared memory fits
+    :data:`SMEM_LIMIT`, else streamed; the resident batch tile the fewest
+    rows a cluster for which all clusters fit on the card at once,
+    ``occupancy(ranks, n_tiles, resident)`` (None: no limit)."""
     if cell not in CELLS:
         raise ValueError(f"unknown recurrence cell {cell!r}")
     if b < 1 or u < 1:
         raise ValueError(f"a recurrence of {b} rows and {u} units")
-    ranks, units = _sequence.split_units(u)
-    resident = max(recurrence_geometry(cell, u, ranks, True, itemsize)) \
-        <= SMEM_LIMIT
-    fwd, bwd = recurrence_geometry(cell, u, ranks, resident, itemsize)
-    limit = occupancy(ranks, resident) if occupancy else None
-    return Plan(ranks, units, -(-b // ROWS), resident, fwd, bwd, limit)
+    return _sequence.plan(cell, b, u, itemsize, N_TILES, occupancy)
 
 
-def query(cell: str, u: int, ranks: int, resident: bool,
+def _tiles(plan: Plan) -> int:
+    """The C entries' ``resident``: 0 the streamed form, else the
+    resident form's batch tiles."""
+    return plan.n_tiles if plan.resident else 0
+
+
+def query(cell: str, u: int, ranks: int, n_tiles: int, resident: bool,
           dtype: torch.dtype) -> Tuple[int, int, int, int]:
     """(forward bytes, backward bytes, forward clusters, backward
     clusters): the C side's shared memory a block and the clusters the
     current card holds at once (needs a card)."""
     out = (ctypes.c_int64 * 4)()
     err = _lib().dl4j_rnn_recurrence_query(
-        CELLS[cell], u, ranks, int(resident), _DTYPES[dtype],
+        CELLS[cell], u, ranks, n_tiles if resident else 0, _DTYPES[dtype],
         ctypes.addressof(out))
     _cuda.check(err, "dl4j_rnn_recurrence_query")
     return tuple(out)
@@ -193,14 +180,16 @@ def _card_plan(index: int, cell: str, dtype: torch.dtype, b: int,
     """The plan on card ``index``, its occupancy asked once a shape (on a
     first, eager launch: the fit tiers warm up before they capture)."""
     occupancy = _sequence.occupancy(
-        index, lambda ranks, resident: query(cell, u, ranks, resident, dtype))
+        index, lambda ranks, nt, resident: query(cell, u, ranks, nt,
+                                                 resident, dtype))
     plan = recurrence_plan(cell, b, u,
                            torch.empty((), dtype=dtype).element_size(),
                            occupancy)
     _LOG.info("%s recurrence on cuda:%d, %s, B %d, U %d: R %d (%d units a "
-              "block), %d clusters (the card holds %s at once), W_hh %s, "
-              "shared memory %d / %d bytes", cell, index, dtype, b, u,
-              plan.ranks, plan.units, plan.clusters, plan.max_clusters,
+              "block), %d rows a cluster, %d clusters (the card holds %s at "
+              "once), W_hh %s, shared memory %d / %d bytes", cell, index,
+              dtype, b, u, plan.ranks, plan.units, plan.b_tile,
+              plan.clusters, plan.max_clusters,
               "resident" if plan.resident else "streamed from L2",
               plan.smem_fwd, plan.smem_bwd)
     return plan
@@ -386,7 +375,7 @@ def recurrence_fwd(cell: str, gx: torch.Tensor, w_hh: torch.Tensor,
         err = _lib().dl4j_rnn_recurrence_fwd(
             CELLS[cell], gx.data_ptr(), w_hh.data_ptr(), _ptr(b_hh),
             _ptr(w_peep), h0.data_ptr(), _ptr(c0), hs.data_ptr(), _ptr(cs),
-            _ptr(hn), t_len, bsz, u, plan.ranks, int(plan.resident), act,
+            _ptr(hn), t_len, bsz, u, plan.ranks, _tiles(plan), act,
             _DTYPES[gx.dtype], stream)
     _cuda.check(err, "dl4j_rnn_recurrence_fwd")
     LAUNCHES[what] += 1
@@ -436,8 +425,7 @@ def recurrence_bwd(cell: str, saved: torch.Tensor, hs: torch.Tensor,
             _ptr(hn), h0.data_ptr(), _ptr(c0), w_hh.data_ptr(), _ptr(w_peep),
             _ptr(d_hs), _ptr(dh_T), _ptr(dc_T), dz.data_ptr(),
             dzh.data_ptr(), dh0.data_ptr(), _ptr(dc0), t_len, bsz, u,
-            plan.ranks, int(plan.resident), act, _DTYPES[saved.dtype],
-            stream)
+            plan.ranks, _tiles(plan), act, _DTYPES[saved.dtype], stream)
     _cuda.check(err, "dl4j_rnn_recurrence_bwd")
     LAUNCHES[what] += 1
     return dz, dzh, dh0, dc0

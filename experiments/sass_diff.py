@@ -29,7 +29,11 @@ from deeplearning4j_tpu_torch.kernels import measure  # noqa: E402
 
 OUT = os.path.join(_cuda.PACKAGE, "_build", "sass_diff")
 LIBS = ("attention_f32", "bn_bwd_reduce", "causal_attention", "dropout",
-        "int8_matmul", "lstm_recurrence", "paged_attention", "rnn_recurrence")
+        "int8_matmul", "lstm_recurrence", "paged_attention",
+        # the GRU, Graves and simple RNN cells' first design, which the
+        # recurrence engine (lstm_recurrence) replaced: a parent tree from
+        # before the engine holds it, this tree does not
+        "rnn_recurrence")
 
 
 def _name(mangled):

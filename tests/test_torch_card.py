@@ -1812,10 +1812,11 @@ def test_alexnet_sized_mlp_with_dropout_tiers_agree_on_card(card):
 
 
 # ----------------------------------------------------------------------
-# the GRU, peephole LSTM and simple RNN recurrences (csrc/rnn_recurrence.cu)
-# and the noise draws (csrc/dropout.cu dl4j_noise)
+# the GRU, peephole LSTM and simple RNN recurrences (the cells of
+# csrc/lstm_recurrence.cu's cluster engine) and the noise draws
+# (csrc/dropout.cu dl4j_noise)
 RNN_CASES = [(64, 256, 256), (7, 50, 100), (1, 1, 5), (64, 12, 16),
-             (8, 20, 384), (8, 20, 512)]
+             (5, 9, 24), (8, 20, 384), (8, 20, 512)]
 
 
 def _rnn_check(card, cell, b, t, u, dtype, act=1):
@@ -1846,6 +1847,32 @@ def _rnn_check(card, cell, b, t, u, dtype, act=1):
     again_b = recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
     for x, y in zip(again_f + again_b, got_f + got_b):
         assert x is None or torch.equal(x, y)
+    # both kernels captured in a CUDA graph replay to the eager bits
+    buf = torch.empty_like(case["gx"])
+
+    def step():
+        buf.copy_(case["gx"])
+        return recurrence.recurrence_fwd(cell, buf, *rnn_fwd_args(case)) + \
+            recurrence.recurrence_bwd(cell, *rnn_bwd_args(case))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    buf.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(outs, got_f + got_b):
+        assert x is None or torch.equal(x, y)
+    # the plan's shared memory is the C side's, its clusters fit the card
+    plan = recurrence._card_plan(card.index or 0, cell, dtype, b, u)
+    q = recurrence.query(cell, u, plan.ranks, plan.n_tiles, plan.resident,
+                         dtype)
+    assert q[:2] == (plan.smem_fwd, plan.smem_bwd)
+    assert min(q[2:]) >= 1 and plan.max_clusters == min(q[2:])
 
 
 @pytest.mark.cuda
@@ -1855,8 +1882,10 @@ def _rnn_check(card, cell, b, t, u, dtype, act=1):
 def test_rnn_recurrence_kernels_match_plain_on_card(card, cell, b, t, u,
                                                     dtype):
     """Forward and backward against the plain versions at the sentiment
-    graph's and the TBPTT network's shapes, ragged widths and rows, one
-    step, and past the resident slice (streamed); two calls bit-equal."""
+    graph's and the TBPTT network's shapes, ragged widths and rows (U 5,
+    24, 100), one step, the widest resident width (384) and past it (512,
+    streamed but the simple RNN's); two calls, and a CUDA-graph replay,
+    bit-equal."""
     _rnn_check(card, cell, b, t, u, dtype)
 
 
@@ -1932,3 +1961,27 @@ def test_noise_kernel_matches_plain_on_card(card, kind, dtype):
         assert torch.equal(got, dk.noise_apply(kind, x, seed, it, 3, name,
                                                p=0.9, stddev=0.3,
                                                channel_axis=axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernel_float32_normals_within_the_stated_bound(card, dtype):
+    """The kernel's float32 normals (x = 0, s = 1: the Gaussian noise is
+    the normal itself, in float32 exactly) against ``normals_plain``'s,
+    within ``NORMAL_KERNEL_REL`` (2^-20) of each magnitude; in bf16 the
+    noise of x = 0 is the float32 normal rounded once."""
+    from deeplearning4j_tpu_torch.kernels import dropout as dk
+    seed = torch.tensor([77 + (1 << 35)], dtype=torch.int64, device=card)
+    it = torch.tensor([5], dtype=torch.int64, device=card)
+    x = torch.zeros(64, 256, 300, device=card, dtype=dtype)
+    got = dk.noise_apply("gaussian_noise", x, seed, it, 2,
+                         "gaussian_noise_fwd", stddev=1.0)
+    want = dk.normals_plain(x.numel(), seed, it, 2, card,
+                            torch.float32).reshape(x.shape)
+    if dtype == torch.float32:
+        assert bool(((got.double() - want.double()).abs()
+                     <= dk.NORMAL_KERNEL_REL * want.double().abs()).all())
+    else:
+        eps = torch.finfo(dtype).eps
+        assert bool(((got.double() - want.double()).abs()
+                     <= eps * want.double().abs()).all())

@@ -246,10 +246,15 @@ def test_ctypes_declarations_match_the_c_entries():
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int}
     entries = _c_entries()
-    assert sorted(entries) == sorted(lstm.ARGTYPES) == [
+    # the engine's source: the LSTM's entries and the other cells'
+    # (kernels/recurrence.py declares those)
+    assert sorted(lstm.ARGTYPES) == [
         "dl4j_lstm_recurrence_bwd", "dl4j_lstm_recurrence_fwd",
         "dl4j_lstm_recurrence_query"]
-    for name, params in entries.items():
+    assert sorted(entries) == sorted(lstm.ARGTYPES) + [
+        "dl4j_rnn_recurrence_bwd", "dl4j_rnn_recurrence_fwd",
+        "dl4j_rnn_recurrence_query"]
+    for name, params in ((n, entries[n]) for n in lstm.ARGTYPES):
         assert [n for _, n in params] == [n for n, _ in lstm.ARGTYPES[name]]
         assert [c_types[t] for t, _ in params] == \
             [t for _, t in lstm.ARGTYPES[name]]

@@ -11,9 +11,11 @@ tests and to their own
 determinism, not to JAX's bits; the functions around the draws are the
 JAX ops' (the same formula on the same draws):
 
-- the normals: Box-Muller from the words, within 4 ulp of a numpy
-  float64 evaluation of the formula (torch's and numpy's ``log``, ``cos``
-  and ``sin`` may round a last bit apart, as the card's may); mean 0 and
+- the normals: Box-Muller from the words, in float64 within 4 ulp of a
+  numpy float64 evaluation of the formula (torch's and numpy's ``log``,
+  ``cos`` and ``sin`` may round a last bit apart, as the card's may), in
+  float32 (the kernel's arithmetic for bf16 and float32 outputs) within
+  the stated 2^-21 of their magnitude (``NORMAL_PLAIN_REL``); mean 0 and
   variance 1 within 5 standard errors over 2^18 draws; the Bernoulli
   kinds' kept fractions within 5 standard deviations;
 - the functions: ``x + s n``, ``x (1 + s n)``, JAX's alpha dropout
@@ -52,16 +54,23 @@ KINDS = ["gaussian_noise", "gaussian_dropout", "alpha_dropout",
          "spatial_dropout"]
 
 
-def _normals_numpy(n, seed, it, node):
-    """Box-Muller in numpy float64 from the plain words."""
+def _normals_numpy(n, seed, it, node, exact_angle=False):
+    """Box-Muller in numpy float64 from the plain words; with
+    ``exact_angle`` the sine and cosine of 2 pi u2 vanish exactly at
+    quarter turns (the float normals' ``sincospif``), else those of the
+    rounded angle ``6.283185307179586 u2`` (the float64 normals')."""
     groups = (n + 3) // 4
     w = dk.words_plain(4 * groups, seed, it, node).numpy().reshape(-1, 4)
     u1 = ((w[:, 0::2] >> 8) + 1).astype(np.float64) * 2.0 ** -24
     u2 = (w[:, 1::2] >> 8).astype(np.float64) * 2.0 ** -24
     rho = np.sqrt(-2.0 * np.log(u1))
     ang = 6.283185307179586 * u2
-    return np.stack([rho * np.cos(ang), rho * np.sin(ang)],
-                    axis=2).reshape(-1)[:n]
+    cs, sn = np.cos(ang), np.sin(ang)
+    if exact_angle:
+        quarter = (4 * u2) == np.round(4 * u2)
+        cs = np.where(quarter, np.round(np.cos(ang)), cs)
+        sn = np.where(quarter, np.round(np.sin(ang)), sn)
+    return np.stack([rho * cs, rho * sn], axis=2).reshape(-1)[:n]
 
 
 def test_normals_are_box_muller_on_the_words():
@@ -69,6 +78,39 @@ def test_normals_are_box_muller_on_the_words():
     want = _normals_numpy(1001, 5, 3, 2)
     assert (np.abs(got - want) <= 4 * np.spacing(np.abs(want))).all()
     assert got.dtype == np.float64
+
+
+@pytest.mark.parametrize("seed,it,node", [(5, 3, 2), (11, 0, 7),
+                                          (12345 + (1 << 33), 7, 3)])
+def test_float32_normals_are_box_muller_within_the_stated_bound(seed, it,
+                                                               node):
+    """The float32 normals (the kernel's arithmetic for bf16 and float32
+    outputs) against numpy's float64 Box-Muller of the same words, within
+    ``NORMAL_PLAIN_REL`` (2^-21, 4 float32 ulp of 1) of each normal's
+    magnitude, over 2^18 draws."""
+    n = 1 << 18
+    got = dk.normals_plain(n, seed, it, node, dtype=torch.float32)
+    assert got.dtype == torch.float32
+    want = _normals_numpy(n, seed, it, node, exact_angle=True)
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert (err <= dk.NORMAL_PLAIN_REL * np.abs(want)).all()
+    assert dk.NORMAL_PLAIN_REL == 2.0 ** -21
+    assert dk.NORMAL_KERNEL_REL == 2.0 ** -20
+
+
+def test_sincospi_is_exact_at_quarter_turns():
+    """The angle's sine and cosine vanish exactly where sin(pi x) and
+    cos(pi x) do (as CUDA's sincospif, whose argument is exact), and
+    agree with numpy's sin and cos of pi x elsewhere."""
+    x = torch.tensor([0.0, 0.5, 1.0, 1.5, 0.25, 1.75, 2.0 ** -23,
+                      1 - 2.0 ** -23], dtype=torch.float64)
+    sn, cs = dk.sincospi_plain(x)
+    assert sn[:4].tolist() == [0.0, 1.0, 0.0, -1.0]
+    assert cs[:4].tolist() == [1.0, 0.0, -1.0, 0.0]
+    np.testing.assert_allclose(sn.numpy(), np.sin(np.pi * x.numpy()),
+                               rtol=1e-15, atol=1e-15)
+    np.testing.assert_allclose(cs.numpy(), np.cos(np.pi * x.numpy()),
+                               rtol=1e-15, atol=1e-15)
 
 
 def test_normals_are_standard():
@@ -85,7 +127,9 @@ def test_normals_are_standard():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gaussian_functions_on_their_draws(dtype):
     x = torch.linspace(-2, 2, 37, dtype=dtype).reshape(37)
-    n = dk.normals_plain(37, 3, 9, 4).to(dtype)
+    # the compute dtype's normals: float32's own arithmetic, not float64's
+    # rounded
+    n = dk.normals_plain(37, 3, 9, 4, dtype=dtype)
     s = torch.tensor(0.3, dtype=dtype)
     got = dk.noise_plain("gaussian_noise", x, 3, 9, 4, stddev=0.3)
     assert torch.equal(got, x + s * n)

@@ -8,9 +8,12 @@ hoisted ``x @ W_ih`` rounds where JAX's per-step product does). Sizes are
 tiny: U <= 16, T <= 12, B <= 5.
 
 Also: the kernels' plain versions against the ops' ``jax.vjp``, the C
-source's entries against the wrappers' ctypes declarations and the nvcc
-command, the source's invariants (no atomics in the backward, the cluster
-barrier a step), the launch plan, the launches a layer (counted on the
+source's entries (the LSTM's cluster engine, ``csrc/lstm_recurrence.cu``)
+against the wrappers' ctypes declarations and the nvcc command, the
+source's invariants (every cell an instantiation of the engine's kernels,
+3xTF32 products, DSMEM pushes, no atomics, the cluster barrier a step),
+the launch plan and its shared memory against the C side's ``RecGeo``
+(compiled for the host), the launches a layer (counted on the
 plain versions), the layers in a ``MultiLayerNetwork`` and a
 ``ComputationGraph`` from the JAX weights (output, gradients, 3 Adam
 steps), ``fit_tbptt`` through GRU and ``Bidirectional`` (whose backward
@@ -46,7 +49,7 @@ from deeplearning4j_tpu.nn.recurrent_layers import \
 from deeplearning4j_tpu.ops import registry as jreg
 from deeplearning4j_tpu_torch.convert import (params_from_jax,
                                               samediff_arrays_from_jax)
-from deeplearning4j_tpu_torch.kernels import _cuda, recurrence
+from deeplearning4j_tpu_torch.kernels import _cuda, _sequence, lstm, recurrence
 from deeplearning4j_tpu_torch.learning import Adam
 from deeplearning4j_tpu_torch.nn import (Bidirectional, ComputationGraph,
                                          ConvLSTM2DLayer, GravesLSTMLayer,
@@ -58,7 +61,7 @@ from deeplearning4j_tpu_torch.nn import (Bidirectional, ComputationGraph,
 from deeplearning4j_tpu_torch.ops import registry as preg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "rnn_recurrence.cu"
+SRC = ROOT / "deeplearning4j_tpu_torch" / "csrc" / "lstm_recurrence.cu"
 TOL = {np.float32: 1e-5, np.float64: 1e-10}
 ACTS = ["tanh", "relu", "sigmoid", "identity", "leaky_relu", "hard_tanh",
         "softsign"]
@@ -244,7 +247,9 @@ def _c_entries():
 
 def test_ctypes_declarations_match_the_c_entries():
     entries = _c_entries()
-    assert set(entries) == set(recurrence.ARGTYPES)
+    # the engine's source holds the LSTM's entries and these
+    assert set(entries) == set(recurrence.ARGTYPES) | set(lstm.ARGTYPES)
+    assert recurrence._LIB == lstm._LIB == "lstm_recurrence"
     for name, args in recurrence.ARGTYPES.items():
         assert [n for n, _ in args] == entries[name], name
     src = SRC.read_text()
@@ -257,38 +262,145 @@ def test_ctypes_declarations_match_the_c_entries():
             assert want in decl, (name, n, decl)
 
 
+def _body(code, head):
+    """The text of the function or struct whose definition starts with
+    ``head``, to its closing brace."""
+    i = code.index(head)
+    i = code.index("{", i)
+    depth = 0
+    for j in range(i, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[j], 0)
+        if depth == 0:
+            return code[i:j + 1]
+    raise AssertionError(head)
+
+
 def test_source_invariants():
     src = SRC.read_text()
     code = "\n".join(l.split("//")[0] for l in src.splitlines())
     # what the source compiles: itself and the shared header it includes
-    both = code + "\n".join(
+    header = "\n".join(
         l.split("//")[0]
         for l in (SRC.parent / "sm90.cuh").read_text().splitlines())
-    assert "atomic" not in both            # sums in a fixed order
+    both = code + header
+    # one engine: the first design's source is gone, and every cell's
+    # kernels are the engine's resident and streamed bodies over the cell
+    assert not (SRC.parent / "rnn_recurrence.cu").exists()
+    for cell, c in (("lstm", "kLstm"), ("gru", "kGru"),
+                    ("graves", "kGraves"), ("simple", "kSimple")):
+        for d, args in (("fwd", "FwdArgs"), ("bwd", "BwdArgs")):
+            assert re.search(
+                rf"{cell}_recurrence_{d}_kernel\(const {args}<T> a\) \{{"
+                rf"\s*resident_{d}<{c}, T, NT>\(a\);", code), (cell, d)
+            assert re.search(
+                rf"{cell}_stream_{d}_kernel\(const {args}<T> a\) \{{"
+                rf"\s*stream_{d}<{c}>\(a\);", code), (cell, d)
+    # the float32 product of every cell 3xTF32 on mma.sync: both bodies
+    # run the products, whose float32 k steps are mma_tf32 on split pieces
+    for body, product in (("resident_fwd", "fwd_product<"),
+                          ("stream_fwd", "fwd_product<"),
+                          ("resident_bwd", "bwd_product<"),
+                          ("stream_bwd", "bwd_product<")):
+        assert product in _body(code, f"void {body}("), body
+    for step, product in (("fwd_kstep", "fwd_product"),
+                          ("bwd_kstep", "bwd_product")):
+        assert _body(code, f"void {product}(").count(f"{step}<") == 2
+        k = _body(code, f"void {step}(")
+        assert k.count("mma_tf32(") == 3 and "tf32_split" in k
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    # the exchange: h_t (the backward's partial dh) pushed through
+    # distributed shared memory, one cluster barrier a step; the first
+    # design's L2 exchange gone (__ldcg only in the streamed form's
+    # operand)
+    for body, push in (("resident_fwd", "push_rows<"),
+                       ("resident_bwd", "st_peer(peer(")):
+        b = _body(code, f"void {body}(")
+        assert push in b and b.count("cluster_arrive();") == 2
+        assert "__ldcg" not in b
+    assert "st.shared::cluster" in code and "mapa.shared::cluster" in code
+    assert code.count("__ldcg(") == 1 and "__ldcg(" in _body(
+        code, "struct GlobalTile")
+    assert "ld_l2" not in code and "stage_rows" not in code
+    assert "atomic" not in both.lower()     # sums in a fixed order
     assert '#include "sm90.cuh"' in src
     assert "barrier.cluster.arrive.release" in both
     assert "barrier.cluster.wait.acquire" in both
-    assert "__ldcg" in code                # the exchange read at L2
     assert code.count("cluster_wait();") >= 3
-    cmd = _cuda.build_command("rnn_recurrence", "/tmp/x.so", "nvcc")
+    cmd = _cuda.build_command(recurrence._LIB, "/tmp/x.so", "nvcc")
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[-1].endswith("csrc/rnn_recurrence.cu")
+    assert cmd[-1].endswith("csrc/lstm_recurrence.cu")
     assert "-I" in cmd
+
+
+_C_CELLS = {"lstm": "kLstm", "gru": "kGru", "graves": "kGraves",
+            "simple": "kSimple"}
+
+
+@pytest.fixture(scope="module")
+def c_geometry(tmp_path_factory):
+    """The C side's ``RecGeo`` shared memory (bytes, forward and backward)
+    at (cell, U, R, tiles, itemsize): the source's geometry (its constants,
+    ``Traits``, ``Lay`` and ``RecGeo``) compiled for the host with the C++
+    compiler, the CUDA qualifiers defined away."""
+    src = SRC.read_text()
+    part = src[src.index("constexpr int kWarps"):
+               src.index("template <typename T>\nstruct FwdArgs")]
+    cases = [(c, u, r, nt, it) for c in _C_CELLS
+             for u in (1, 5, 16, 24, 100, 256, 384, 512, 4096)
+             for r in sorted({1, min(u, 7), min(u, 16)})
+             for nt in (1, 2, 4) for it in (4, 8)]
+    calls = "\n".join(
+        f"  show<{_C_CELLS[c]}>({u}, {r}, {nt}, {it});"
+        for c, u, r, nt, it in cases)
+    prog = ("#include <stdint.h>\n#include <stdio.h>\n#define __host__\n"
+            "#define __device__\n#define __forceinline__ inline\n"
+            "namespace {\n" + part + "\n}\n"
+            "template <int C> void show(int u, int r, int nt, int it) {\n"
+            "  RecGeo<C> g(u, r, nt, it);\n"
+            "  printf(\"%lld %lld\\n\", (long long)(g.fwd_elems(nt) * it),"
+            " (long long)(g.bwd_elems(r) * it));\n}\n"
+            "int main() {\n" + calls + "\n}\n")
+    d = tmp_path_factory.mktemp("recgeo")
+    (d / "g.cpp").write_text(prog)
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++") or shutil.which("c++")
+    subprocess.run([cxx, "-std=c++17", "-o", str(d / "g"), str(d / "g.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    out = subprocess.run([str(d / "g")], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.split("\n")
+    return {k: tuple(map(int, line.split())) for k, line in zip(cases, out)}
 
 
 @pytest.mark.parametrize("cell", ["gru", "graves", "simple"])
 @pytest.mark.parametrize("u", [1, 5, 16, 100, 256, 384, 512, 4096])
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_launch_plan_covers_every_unit_and_fits(cell, u, itemsize):
+def test_launch_plan_covers_every_unit_and_fits(cell, u, itemsize,
+                                                c_geometry):
     plan = recurrence.recurrence_plan(cell, 64, u, itemsize)
     assert 1 <= plan.ranks <= recurrence.MAX_RANKS
     assert (plan.ranks - 1) * plan.units < u <= plan.ranks * plan.units
-    assert plan.clusters == 8
+    assert plan.clusters == 8 and plan.n_tiles == 1
     assert max(plan.smem_fwd, plan.smem_bwd) <= recurrence.SMEM_LIMIT
     if u <= 256:
         assert plan.resident
     if u >= 512 and itemsize == 4 and cell != "simple":
         assert not plan.resident
+    # the Python geometry is the C RecGeo's arithmetic (G = 3, 4 and 1;
+    # the LSTM's G = 4 beside it), at every split and batch tile
+    for c in (cell, "lstm"):
+        for (cc, uu, r, nt, it), want in c_geometry.items():
+            if cc == c and uu == u and it == itemsize:
+                assert _sequence.recurrence_geometry(
+                    c, u, r, nt, True, it) == want, (c, u, r, nt, it)
+    # the batch tile grows where the card cannot hold the clusters
+    if plan.resident:
+        p2 = recurrence.recurrence_plan(cell, 64, u, itemsize,
+                                        lambda r, nt, res: 7 if nt == 1 else 4)
+        fits2 = max(recurrence.recurrence_geometry(
+            cell, u, plan.ranks, 2, True, itemsize)) <= \
+            recurrence.SMEM_LIMIT
+        assert p2.n_tiles == (2 if fits2 else 1)
 
 
 def test_what_the_kernels_do_not_take_is_refused_by_name():
